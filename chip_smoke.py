@@ -49,22 +49,42 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def time_ms(fn, reps: int = 30, sleep_cycles: int = 200_000_000) -> float:
-    """Median device time of one call. The stream is first held by a
-    spin kernel (~0.1 s), so the host queues all `reps` calls, each
-    between two CUDA events, before the device runs them: the intervals
-    then hold device time only, not the host's launch latency."""
-    for _ in range(3):  # warm-up
+def time_ms(fn, reps: int = 30) -> float:
+    """Median device time of one call over `reps` calls. The stream is
+    first held by a spin kernel, so the host queues a batch of calls,
+    each between two CUDA events, before the device runs them: the
+    intervals then hold device time only, not the host's launch latency.
+    A batch counts only if the device was still spinning when its last
+    call was queued; otherwise the batch halves (a call of many small
+    kernels fills the driver's launch queue), and at one call the spin
+    doubles."""
+    t0 = time.perf_counter()
+    for _ in range(3):  # warm-up; also the host's enqueue time per call
         fn()
+    host_s = (time.perf_counter() - t0) / 3
     torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(sleep_cycles)
-    ev[0].record()
-    for i in range(reps):
-        fn()
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    return float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(reps)]))
+    batch, slack, times = reps, 2.0, []
+    for _ in range(60):
+        if len(times) >= reps:
+            return float(np.median(times))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(batch + 1)]
+        spin_s = slack * batch * host_s + 0.01
+        torch.cuda._sleep(int(2e9 * spin_s))  # cycles; clocks are <= 2 GHz
+        ev[0].record()
+        for i in range(batch):
+            fn()
+            ev[i + 1].record()
+        held = not ev[0].query()
+        torch.cuda.synchronize()
+        if held:
+            times += [ev[i].elapsed_time(ev[i + 1]) for i in range(batch)]
+        elif batch > 1:
+            batch //= 2
+        elif slack < 64:
+            slack *= 2
+        else:
+            break
+    raise AssertionError("could not queue the timed calls ahead of the device")
 
 
 def random_block(n, m=27, seed=0, drop=0.3):

@@ -20,10 +20,9 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
     that is cut off. Output order is sorted-voxel-key order. Non-finite
     points are dropped (pcl::VoxelGrid's is-finite skip).
 
-    On CUDA `index_add_` sums a segment in atomic order, which changes
-    from run to run: a centroid then differs by float32 rounding of a
-    sum of its few points (relative ~1e-7), against the sequential sum
-    on the CPU.
+    Each segment is summed in row order (`segment_reduce` over the sorted
+    rows), on CUDA as on the CPU: the result does not change from run to
+    run, as an atomic `index_add_` would.
 
     Args:   pts (N, C>=3) f32; valid (N,) bool; leaf: 0-d f32 tensor on
             pts' device (see voxel_map.voxel_of for why not a float).
@@ -52,11 +51,14 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
     seg = torch.cumsum(start.to(torch.int64), 0) - 1
     seg = torch.where(vs, seg, torch.full_like(seg, max_out))
     seg = torch.clamp(seg, max=max_out)  # overflow -> sentinel row
-    sums = torch.zeros((max_out + 1, C), dtype=pts.dtype, device=pts.device)
-    sums.index_add_(0, seg, torch.where(vs[:, None], ps, torch.zeros_like(ps)))
-    cnt = torch.zeros(max_out + 1, dtype=pts.dtype, device=pts.device)
-    cnt.index_add_(0, seg, vs.to(pts.dtype))
-    sums, cnt = sums[:max_out], cnt[:max_out]
+    # seg never decreases along the sorted rows, so the segments are the
+    # row runs of these lengths (integer counts: exact in any order)
+    lengths = torch.zeros(max_out + 1, dtype=torch.int64, device=pts.device)
+    lengths.index_add_(0, seg, torch.ones_like(seg))
+    sums = torch.segment_reduce(
+        torch.where(vs[:, None], ps, torch.zeros_like(ps)), "sum",
+        lengths=lengths, axis=0, unsafe=True, initial=0.0)
+    sums, cnt = sums[:max_out], lengths[:max_out].to(pts.dtype)
     mask = cnt > 0
     out = sums / torch.clamp(cnt, min=1.0)[:, None]
     return torch.where(mask[:, None], out, torch.zeros_like(out)), mask

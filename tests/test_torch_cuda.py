@@ -5,7 +5,8 @@ JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Contract of the fused 5-NN + plane-fit kernel against its plain version
+Also: the device voxel filter is deterministic on the card. Contract of
+the fused 5-NN + plane-fit kernel against its plain version
 (tests/test_torch_knn_plane.py): nd2 at rtol 1e-5; planes at rtol 5e-3 /
 atol 5e-4 up to sign where both gates pass; gate mismatches under 1%.
 """
@@ -97,3 +98,21 @@ def test_pipeline_runs_through_the_kernel(cuda):
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
     assert np.sqrt(np.mean(np.square(e))) < 0.02
+
+
+def test_voxel_filter_deterministic_and_matches_cpu(cuda):
+    from fastlivo_tpu_torch.ops.voxel_filter import voxel_downsample_device
+
+    rng = np.random.default_rng(2)
+    p = rng.uniform(-20, 20, (30000, 3)).astype(np.float32)
+    p[:10000] = p[10000:20000] + rng.normal(0, 0.05, (10000, 3)).astype(np.float32)
+    valid = rng.random(30000) > 0.05
+    args = (torch.from_numpy(p), torch.from_numpy(valid), torch.tensor(0.5))
+    want = voxel_downsample_device(*args, 16384)
+    runs = [voxel_downsample_device(*(a.to(cuda) for a in args), 16384)
+            for _ in range(3)]
+    for out, mask in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(mask, runs[0][1])
+    np.testing.assert_array_equal(runs[0][1].cpu().numpy(), want[1].numpy())
+    np.testing.assert_allclose(runs[0][0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-6, atol=1e-6)
