@@ -13,6 +13,7 @@ import torch
 from .imu import ImuCalib, PoseTable
 from .ops.tiled_map import TiledMap
 from .state import NavState
+from .visual_map import VisualMap
 
 
 def _from_arrays(cls, d: dict, device):
@@ -40,4 +41,9 @@ def tiled_map_from_arrays(d: dict, device) -> TiledMap:
     return _from_arrays(TiledMap, d, device)
 
 
-state_to_arrays = calib_to_arrays = pose_table_to_arrays = tiled_map_to_arrays = _to_arrays
+def visual_map_from_arrays(d: dict, device) -> VisualMap:
+    return _from_arrays(VisualMap, d, device)
+
+
+state_to_arrays = calib_to_arrays = pose_table_to_arrays = _to_arrays
+tiled_map_to_arrays = visual_map_to_arrays = _to_arrays

@@ -18,6 +18,9 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
+# every csrc/<name>.cu: the fused 5-NN + plane fit (ops/knn_plane.py) and
+# the photometric patch + gradient sampling (ops/patches_grads.py)
+SOURCES = ("knn5_plane", "patches_and_grads")
 BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so a kernel rounds every
 # product as its plain PyTorch version (one op per product) does; with

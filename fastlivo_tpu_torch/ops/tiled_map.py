@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .voxel_map import (
     EMPTY_CHECK, _check31, _mix64_np, _neighbor_offsets,
     topk_from_candidates, voxel_of,
@@ -50,10 +51,12 @@ class TiledMap(NamedTuple):
 
 
 def empty_tiled_map(dims=(128, 128, 64), pool_tiles: int = 16384,
-                    voxel_size: float = 0.5, device="cpu",
+                    voxel_size: float = 0.5, device=None,
                     dtype=torch.float32) -> TiledMap:
     """dims: directory extent in tiles (powers of two); span in metres =
-    dims * 8 * voxel_size per axis."""
+    dims * 8 * voxel_size per axis. On `device`, CUDA unless given (see
+    device.py)."""
+    device = resolve_device(device)
     for d in dims:
         if d & (d - 1):
             raise ValueError(f"dims must be powers of two, got {dims}")
@@ -283,11 +286,13 @@ def extract_points(m: TiledMap):
 
 
 def build_host(pts: np.ndarray, dims=(128, 128, 64), pool_tiles=16384,
-               voxel_size=0.5, device="cpu") -> TiledMap:
+               voxel_size=0.5, device=None) -> TiledMap:
     """Bulk map construction on the host (numpy), matching a sequence of
     `insert` calls in final content: one point per voxel (nearest the
     voxel centre), tiles allocated in first-appearance order,
-    directory-aliased tiles resolved last-writer-wins."""
+    directory-aliased tiles resolved last-writer-wins. The map is moved
+    to `device`, CUDA unless given (see device.py)."""
+    device = resolve_device(device)
     for d in dims:
         if d & (d - 1):
             raise ValueError(f"dims must be powers of two, got {dims}")

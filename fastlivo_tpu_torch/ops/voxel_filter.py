@@ -12,7 +12,8 @@ import torch
 
 
 def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
-                            leaf: torch.Tensor, max_out: int):
+                            leaf: torch.Tensor | None, max_out: int,
+                            inv_leaf: torch.Tensor | None = None):
     """Centroid voxel filter with a fixed output capacity, on pts' device.
 
     Packed-key stable sort, then a segmented sum into `max_out` rows;
@@ -25,12 +26,17 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
     run, as an atomic `index_add_` would.
 
     Args:   pts (N, C>=3) f32; valid (N,) bool; leaf: 0-d f32 tensor on
-            pts' device (see voxel_map.voxel_of for why not a float).
+            pts' device (see voxel_map.voxel_of for why not a float);
+            or, instead of `leaf`, `inv_leaf`: the keys are then
+            floor(pts * inv_leaf). The JAX package's fused camera step
+            passes its 0.2 m leaf as a constant, which XLA turns into a
+            multiply by the f32 reciprocal; `inv_leaf` computes that form.
     Returns (out (max_out, C), mask (max_out,)).
     """
     N, C = pts.shape
     valid = valid & torch.all(torch.isfinite(pts[:, :3]), dim=-1)
-    keys = torch.floor(pts[:, :3] / leaf)
+    keys = torch.floor(pts[:, :3] / leaf if inv_leaf is None
+                       else pts[:, :3] * inv_leaf)
     # zero the dropped rows before the cast: a NaN has no integer value
     keys = torch.where(valid[:, None], keys, torch.zeros_like(keys)).to(torch.int64)
     # 3 x 20-bit offset coordinates in one key; the invalid marker 2^62

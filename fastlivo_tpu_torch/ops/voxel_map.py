@@ -52,6 +52,16 @@ def _check31(keys: torch.Tensor) -> torch.Tensor:
     return (_mix64(keys) & 0x7FFFFFFF).to(torch.int32)
 
 
+def _slot_check(keys: torch.Tensor, mask: int):
+    """One mix, two outputs: the probe slot (high bits, int32, `& mask`)
+    and the 31-bit verification hash (low bits, int32, never the
+    EMPTY_CHECK sentinel). Bit-identical to the JAX package's."""
+    z = _mix64(keys)
+    slot = (z >> 13).to(torch.int32) & mask
+    check = (z & 0x7FFFFFFF).to(torch.int32)
+    return slot, check
+
+
 def _mix64_np(keys) -> np.ndarray:
     """Host-side numpy twin of `_mix64` (uint32 arithmetic that wraps)."""
 

@@ -1,0 +1,782 @@
+"""VIO: the sparse-direct photometric iterated-EKF update (camera frame).
+
+Port of the JAX package's vio.py (the reference's `LidarSelector`,
+src/lidar_selection.cpp). Per camera frame (`detect`, :1027-1075):
+
+  1. `select_tracked` = addFromSparseMap (:346-587): sparse depth image
+     of the last LiDAR cloud, visual-map points gathered from the scan's
+     0.5 m voxels, the closest point per 40-px grid cell, the depth-
+     continuity and best-view gates, the affine-warped reference patch at
+     3 pyramid levels, the photometric outlier gate.
+  2. `select_new_points` = addSparseMap (:142-202): per cell, the
+     Shi-Tomasi-max scan point that beats the cell's map point.
+  3. `photometric_update_levels` = ComputeJ/UpdateState (:743-983):
+     coarse-to-fine iterated EKF on patch residuals with the
+     error-monotonicity rollback. Its patch and gradient sampling is the
+     CUDA kernel of ops/patches_grads.py.
+  4. `prep_observations` + visual_map.add_observations = addObservation
+     (:913-965) at the posterior pose.
+
+`vio_frame_step` runs the whole frame; `Vio` holds the map and feeds it.
+
+Differences from the JAX package, none of which changes a result:
+  - the photometric loop (a `lax.while_loop` there) is a host loop with
+    one read of two flags per iteration; `iters` is the JAX package's;
+  - the gain is the exact f64 `kalman_gain6_f64` (the JAX package uses
+    its mixed-precision `kalman_gain6`);
+  - where the JAX package divides by a constant under jit (the 40-px
+    grid cell, the 0.2 m voxel filter, the robust scales), XLA multiplies
+    by the f32 reciprocal; the port computes that form explicitly, with
+    device tensors on both devices;
+  - duplicate-index `set` scatters (the depth image) keep the last row,
+    as XLA on the CPU does, by an explicit rule that holds on the card;
+  - the visual map is updated in place (see visual_map.py).
+Not ported yet: `update_staged`, the asynchronous and block readers, the
+debug overlay, `colorize`, and the mesh/sharded forms.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from . import camera as cam_mod
+from . import visual_map as vmap_mod
+from .config import Config
+from .device import resolve_device
+from .ops import image as img_ops
+from .ops import linalg as linalg_ops
+from .ops import so3
+from .ops.patches_grads import patches_and_grads
+from .ops.voxel_filter import voxel_downsample_device
+from .state import DIM_STATE, NavState
+
+CONV_ROT_DEG = 0.001  # lidar_selection.cpp:885
+CONV_POS_CM = 0.001
+DEPTH_CONT_GATE = 1.5  # :504
+VIO_LEAF = 0.2  # voxel filter of the camera frame's cloud (:352-353)
+INT64_MAX = 0x7FFFFFFFFFFFFFFF
+I32, I64, F64 = torch.int32, torch.int64, torch.float64
+
+
+class TrackedSet(NamedTuple):
+    """The SubSparseMap equivalent (common_lib.h:263-293): one slot per
+    image grid cell."""
+
+    idx: torch.Tensor  # (G,) visual-map point index
+    pos: torch.Tensor  # (G, 3) world position
+    patch: torch.Tensor  # (G, 3, P, P) warped reference patch pyramid
+    search_level: torch.Tensor  # (G,) int32
+    valid: torch.Tensor  # (G,) bool
+    cell_value: torch.Tensor  # (G,) f32 best map-point score per cell
+    errors: torch.Tensor  # (G,) f32 photometric error
+
+
+def _recip32(c: float) -> float:
+    """The f32 reciprocal XLA multiplies by where JAX divides by the
+    constant `c` under jit."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _const(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A 0-d tensor on `like`'s device, so that an operation with it runs
+    in one form on both devices (CUDA multiplies by the reciprocal of a
+    CPU-scalar divisor instead of dividing)."""
+    return torch.tensor(v, dtype=dtype or like.dtype, device=like.device)
+
+
+def _pack_min(value_bits: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """Pack (non-negative f32 bits, row) into int64 for a scatter-min
+    argmin; the row takes the low 20 bits."""
+    if row.shape[-1] >= (1 << 20):
+        raise ValueError(f"_pack_min: {row.shape[-1]} rows exceed the 20-bit row field")
+    return (value_bits.to(I64) << 20) | row.to(I64)
+
+
+def _f32_bits(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int32 bits of non-negative f32."""
+    return x.contiguous().view(I32)
+
+
+def _to_gray_dev(img: torch.Tensor) -> torch.Tensor:
+    """BGR -> gray on the device with the numpy path's semantics: integer
+    frames promote to f64, float frames keep their dtype, the same
+    association order, then the f32 cast (detect :1037)."""
+    wt = img.dtype if img.dtype.is_floating_point else F64
+    b, g, r = (img[..., c].to(wt) for c in range(3))
+    return (0.114 * b + 0.587 * g + 0.299 * r).to(torch.float32)
+
+
+def _bilinear_resize(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Host bilinear resample to (H, W), half-pixel-centred (cv::resize
+    INTER_LINEAR), for frames not at the camera model's size."""
+    h, w = img.shape
+    ys = np.clip((np.arange(H) + 0.5) * h / H - 0.5, 0, h - 1)
+    xs = np.clip((np.arange(W) + 0.5) * w / W - 0.5, 0, w - 1)
+    y0 = np.floor(ys).astype(np.int64)
+    x0 = np.floor(xs).astype(np.int64)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    fy = (ys - y0)[:, None].astype(np.float32)
+    fx = (xs - x0)[None, :].astype(np.float32)
+    top = img[y0][:, x0] * (1 - fx) + img[y0][:, x1] * fx
+    bot = img[y1][:, x0] * (1 - fx) + img[y1][:, x1] * fx
+    return (top * (1 - fy) + bot * fy).astype(np.float32)
+
+
+def _cells(pc: torch.Tensor, grid_size: int, gh: int, G: int) -> torch.Tensor:
+    """Grid cell of each pixel: int(u/grid)*gh + int(v/grid), clipped.
+    The division is the JAX package's multiply by the f32 reciprocal."""
+    inv = _const(_recip32(grid_size), pc)
+    cell = (pc[:, 0] * inv).to(I32) * gh + (pc[:, 1] * inv).to(I32)
+    return torch.clamp(cell, 0, G - 1)
+
+
+def _scatter_min(G: int, cell: torch.Tensor, ok: torch.Tensor,
+                 key: torch.Tensor) -> torch.Tensor:
+    """(G,) int64 per-cell minimum of `key` over the ok rows (INT64_MAX
+    for an empty cell); min is order-free, so the card agrees."""
+    tgt = torch.where(ok, cell, G).long()
+    out = torch.full((G + 1,), INT64_MAX, dtype=I64, device=key.device)
+    return out.scatter_reduce_(0, tgt, key, "amin")[:G]
+
+
+def _winner_rows(cell_min: torch.Tensor) -> torch.Tensor:
+    return (cell_min & 0xFFFFF).to(I32)
+
+
+def select_tracked(
+    vm: vmap_mod.VisualMap,
+    cam: cam_mod.Camera,
+    rcw: torch.Tensor,  # (3, 3) world->cam f32
+    pcw: torch.Tensor,  # (3,)
+    img: torch.Tensor,  # (H, W) f32 current grayscale
+    pg: torch.Tensor,  # (M, 3) downsampled world cloud (0.2 m)
+    pg_mask: torch.Tensor,  # (M,)
+    vox: torch.Tensor,  # (Nv, 3) int32 unique scan voxels
+    vox_mask: torch.Tensor,  # (Nv,)
+    outlier_threshold,  # 0-d f32 tensor or float
+    ncc_thre,
+    grid_size: int,
+    patch_size: int,
+    gw: int,
+    gh: int,
+    ncc_en: bool = False,
+) -> TrackedSet:
+    """addFromSparseMap (lidar_selection.cpp:346-587), see the module doc."""
+    H, W = img.shape
+    dev = img.device
+    G = gw * gh
+    P = patch_size
+    half = P // 2
+    border = (half + 1) * 8  # isInFrame margin (:399, :446)
+    campos = -pcw @ rcw
+
+    # --- phase 1: sparse depth image (:378-411, plain pinhole) ----------
+    pt_c = pg @ rcw.T + pcw
+    z = pt_c[:, 2]
+    u = cam.fx * pt_c[:, 0] / z + cam.cx
+    v = cam.fy * pt_c[:, 1] / z + cam.cy
+    ok_d = (pg_mask & (z > 0) & (u >= border) & (u < W - border)
+            & (v >= border) & (v < H - border))
+    flat = torch.where(ok_d, v.to(I32).long() * W + u.to(I32).long(), H * W)
+    win = vmap_mod._last_wins(flat, ok_d, H * W)  # many points, one pixel
+    depth = torch.zeros(H * W + 1, dtype=img.dtype, device=dev)
+    depth[torch.where(win, flat, H * W)] = torch.where(ok_d, z, 0.0)
+    depth = depth[:H * W].reshape(H, W)
+
+    # --- phase 2: candidate gather + per-cell closest winner (:423-467) --
+    cidx, cmask = vmap_mod.gather_voxel_points(vm, vox, vox_mask)
+    cidx = cidx.reshape(-1)
+    cmask = cmask.reshape(-1)
+    NC = cidx.shape[0]
+    safe = torch.clamp(cidx, 0, vm.pos.shape[0] - 1).long()
+    cpos = vm.pos[safe]
+    cvalue = vm.value[safe]
+    c_cam = cpos @ rcw.T + pcw
+    front = c_cam[:, 2] > 0
+    pc = cam_mod.world2cam(cam, c_cam)
+    ok = cmask & front & cam_mod.is_in_frame(cam, pc, border)
+    cell = _cells(pc, grid_size, gh, G)
+    dist = torch.linalg.norm(campos[None, :] - cpos, dim=-1)
+    key = _pack_min(_f32_bits(dist), torch.arange(NC, device=dev))
+    key = torch.where(ok, key, INT64_MAX)
+    cell_min = _scatter_min(G, cell, ok, key)
+    # best map-point value per cell (map_value, :460-463)
+    cell_value = torch.zeros(G + 1, dtype=img.dtype, device=dev).scatter_reduce_(
+        0, torch.where(ok, cell, G).long(), torch.where(ok, cvalue, 0.0),
+        "amax")[:G]
+    has_map = cell_min < INT64_MAX
+    wsafe = torch.clamp(_winner_rows(cell_min), 0, NC - 1).long()
+    widx = cidx[wsafe]
+    wpos = cpos[wsafe]
+    wcam = c_cam[wsafe]
+    wpc = pc[wsafe]
+
+    # --- phase 3: depth-continuity gate (:489-510) ------------------------
+    offs = torch.arange(-half, half + 1, dtype=I32, device=dev)
+    r0 = wpc[:, 1].to(I32)
+    c0 = wpc[:, 0].to(I32)
+    rr = torch.clamp(r0[:, None, None] + offs[None, :, None], 0, H - 1).long()
+    cc = torch.clamp(c0[:, None, None] + offs[None, None, :], 0, W - 1).long()
+    dwin = depth[rr, cc]  # (G, 2h+1, 2h+1)
+    center = torch.zeros((2 * half + 1, 2 * half + 1), dtype=torch.bool, device=dev)
+    center[half, half] = True
+    broke = ((dwin != 0.0) & ~center[None]
+             & (torch.abs(wcam[:, 2:3, None] - dwin) > DEPTH_CONT_GATE))
+    depth_ok = ~torch.any(broke.reshape(G, -1), dim=1)
+
+    # --- phase 4: reference observation + warp (:518-555) ----------------
+    ref = vmap_mod.close_view_obs(vm, widx, campos)
+    t_ok = has_map & depth_ok & ref["ok"]
+    depth_ref = torch.linalg.norm(ref["campos"] - wpos, dim=-1)
+    # bearing from the stored pixel (Feature::f = cam2world(px))
+    f_ref = cam_mod.cam2world(cam, ref["px"])
+    xyz_ref = f_ref * depth_ref[:, None]
+    # pixel offsets on the ref image (level_ref = 0, pyramid_level = 0)
+    du_px = ref["px"] + torch.tensor([half, 0.0], dtype=img.dtype, device=dev)
+    dv_px = ref["px"] + torch.tensor([0.0, half], dtype=img.dtype, device=dev)
+    f_du = cam_mod.cam2world(cam, du_px)
+    f_dv = cam_mod.cam2world(cam, dv_px)
+    xyz_du = f_du * (xyz_ref[:, 2] / f_du[:, 2])[:, None]
+    xyz_dv = f_dv * (xyz_ref[:, 2] / f_dv[:, 2])[:, None]
+    # T_cur_ref
+    R_cr = torch.einsum("ij,kmj->kim", rcw, ref["rcw"])  # rcw @ ref_rcw^T
+    t_cr = pcw[None, :] - torch.einsum("kim,km->ki", R_cr, ref["pcw"])
+
+    def proj(x):
+        return cam_mod.world2cam(cam, torch.einsum("kim,km->ki", R_cr, x) + t_cr)
+
+    px_cur = proj(xyz_ref)
+    px_du = proj(xyz_du)
+    px_dv = proj(xyz_dv)
+    A = torch.stack([(px_du - px_cur) / half, (px_dv - px_cur) / half],
+                    dim=-1)  # (G, 2, 2) columns
+    detA = A[:, 0, 0] * A[:, 1, 1] - A[:, 0, 1] * A[:, 1, 0]
+    search_level = (detA > 3.0).to(I32) + (detA > 12.0).to(I32)
+    inv_det = 1.0 / torch.where(torch.abs(detA) < 1e-12,
+                                torch.full_like(detA, 1e-12), detA)
+    A_inv = torch.stack([
+        torch.stack([A[:, 1, 1], -A[:, 0, 1]], -1),
+        torch.stack([-A[:, 1, 0], A[:, 0, 0]], -1),
+    ], dim=-2) * inv_det[:, None, None]
+    patches = torch.stack([
+        img_ops.affine_warp_patches(vm.imgs, ref["slot"], A_inv, ref["px"],
+                                    P, search_level, lvl)
+        for lvl in range(3)], dim=1)  # (G, 3, P, P)
+
+    # --- phase 5: photometric outlier gate (:557-570) ---------------------
+    cur_patch = img_ops.extract_patches(img, wpc, P, 1)
+    err0 = torch.sum((patches[:, 0] - cur_patch) ** 2, dim=(-2, -1))
+    thr = torch.as_tensor(outlier_threshold, dtype=img.dtype, device=dev)
+    t_ok = t_ok & (err0 <= thr * P * P)
+    if ncc_en:
+        a = patches[:, 0].reshape(G, -1)
+        b = cur_patch.reshape(G, -1)
+        am = a - a.mean(-1, keepdim=True)
+        bm = b - b.mean(-1, keepdim=True)
+        ncc = torch.sum(am * bm, -1) / torch.sqrt(
+            torch.sum(am * am, -1) * torch.sum(bm * bm, -1) + 1e-10)
+        t_ok = t_ok & (ncc >= torch.as_tensor(ncc_thre, dtype=img.dtype, device=dev))
+    return TrackedSet(idx=widx, pos=wpos, patch=patches,
+                      search_level=search_level, valid=t_ok,
+                      cell_value=cell_value, errors=err0)
+
+
+def select_new_points(cam: cam_mod.Camera, rcw: torch.Tensor, pcw: torch.Tensor,
+                      img: torch.Tensor, pg: torch.Tensor, pg_mask: torch.Tensor,
+                      cell_value: torch.Tensor, grid_size: int,
+                      patch_size: int, gw: int, gh: int):
+    """addSparseMap winner selection (:150-167 + :173-195): per cell the
+    max-Shi-Tomasi scan point, added iff it beats the cell's map score.
+    Returns (pos (G,3), px (G,2), score (G,), add_mask (G,))."""
+    G = gw * gh
+    border = (patch_size // 2 + 1) * 8
+    M = pg.shape[0]
+    p_cam = pg @ rcw.T + pcw
+    pc = cam_mod.world2cam(cam, p_cam)
+    ok = pg_mask & (p_cam[:, 2] > 0) & cam_mod.is_in_frame(cam, pc, border)
+    score = img_ops.shi_tomasi(img, pc)
+    cell = _cells(pc, grid_size, gh, G)
+    # argmax by a packed scatter-min of (inverted score bits, row)
+    inv_bits = 0x7FFFFFFF - _f32_bits(torch.clamp(score, min=0.0))
+    key = _pack_min(inv_bits, torch.arange(M, device=pg.device))
+    key = torch.where(ok, key, INT64_MAX)
+    cell_min = _scatter_min(G, cell, ok, key)
+    found = cell_min < INT64_MAX
+    row = torch.clamp(_winner_rows(cell_min), 0, M - 1).long()
+    wscore = score[row]
+    add = found & (wscore > cell_value)  # beats the map (:160)
+    return pg[row], pc[row], wscore, add
+
+
+def photometric_update_levels(
+    state: NavState,
+    prior: NavState,
+    cam: cam_mod.Camera,
+    img: torch.Tensor,
+    tr_pos: torch.Tensor,  # (G, 3)
+    tr_patch: torch.Tensor,  # (G, 3, P, P)
+    tr_slevel: torch.Tensor,  # (G,)
+    tr_valid: torch.Tensor,  # (G,)
+    Rci: torch.Tensor,  # (3, 3) f32
+    Pci: torch.Tensor,  # (3,)
+    Jdphi_dR: torch.Tensor,  # (3, 3)
+    Jdp_dR: torch.Tensor,  # (3, 3)
+    img_point_cov,
+    patch_size: int,
+    levels: tuple = (2, 1, 0),
+    max_iter: int = 10,
+    robust: str = "none",
+    robust_scale: float = 10.0,
+):
+    """The coarse-to-fine UpdateState cascade (lidar_selection.cpp:
+    743-902, levels 2 -> 0 as :1052-1066 calls it), one host loop.
+
+    Each iteration samples the patches and gradients (the CUDA kernel on
+    the card), forms [HᵀH | Hᵀz] in one (6,7) product and takes the
+    prior-anchored f64 step. An iteration whose mean patch error grew
+    rolls the state back and ends its level, as do convergence and the
+    iteration budget; the next level starts afresh. One host read of two
+    flags per iteration. `robust`: IRLS weights "huber" (k=1.345) or "tukey"
+    (b=4.6851) on |res|/robust_scale, on the HᵀWH/HᵀWz rows only.
+
+    Returns (state, G (18,6) f64, per-point errors, mean_error (f64),
+    iterations), the G and errors of the last level."""
+    G_, P = tr_pos.shape[0], patch_size
+    dtype = img.dtype
+    dev = img.device
+    n_lv = len(levels)
+    if max_iter <= 0:
+        return (state, torch.zeros((DIM_STATE, 6), dtype=F64, device=dev),
+                torch.full((G_,), 1e10, dtype=dtype, device=dev),
+                torch.tensor(1e10, dtype=F64, device=dev), 0)
+    fx, fy = cam.fx, cam.fy
+    if robust == "huber":
+        k_h = _const(1.345, img)
+    elif robust == "tukey":
+        inv_b = _const(_recip32(4.6851), img)
+    elif robust != "none":
+        raise ValueError(f"robust={robust!r}")
+    inv_rs = _const(_recip32(robust_scale), img)
+
+    def compute_err_H(rot, pos, level):
+        scale = torch.bitwise_left_shift(
+            torch.full_like(tr_slevel, 1 << level, dtype=I32), tr_slevel.to(I32))
+        rcw = Rci @ rot.to(dtype).T
+        pcw = -rcw @ pos.to(dtype) + Pci
+        pf = tr_pos @ rcw.T + pcw  # (G, 3)
+        front = pf[:, 2] > 1e-6
+        pc = cam_mod.world2cam(cam, pf)
+        val, du, dv = patches_and_grads(img, pc, P, scale)
+        res = val - tr_patch[:, level]  # (G, P, P)
+        zi = 1.0 / torch.where(front, pf[:, 2], 1.0)
+        zi2 = zi * zi
+        zero = torch.zeros_like(zi)
+        Jdpi = torch.stack([
+            torch.stack([fx * zi, zero, -fx * pf[:, 0] * zi2], -1),
+            torch.stack([zero, fy * zi, -fy * pf[:, 1] * zi2], -1),
+        ], dim=-2)  # (G, 2, 3)
+        # h = Jimg·Jdpi·[p_hat·Jdphi_dR − Jdp_dR | −Jdp_dt] (:826-832)
+        p_hat = so3.skew(pf)
+        Mg = torch.cat([torch.einsum("gde,ef->gdf", p_hat, Jdphi_dR) - Jdp_dR,
+                        (-rcw).expand(p_hat.shape)], dim=-1)  # (G, 3, 6)
+        N = torch.einsum("gcd,gdf->gcf", Jdpi, Mg)  # (G, 2, 6)
+        Jimg = torch.stack([du, dv], dim=-1)  # (G, P, P, 2)
+        h = torch.einsum("gxyc,gcf->gxyf", Jimg, N)  # (G, P, P, 6)
+        w = (tr_valid & front).to(dtype)[:, None, None]
+        res_w = res * w
+        n_meas = torch.clamp(torch.sum(w) * P * P, min=1.0)
+        perr = torch.sum(res_w * res_w, dim=(1, 2))  # (G,)
+        err = torch.sum(perr) / n_meas
+        if robust == "none":
+            wr = w[..., None]
+        else:
+            t = torch.abs(res) * inv_rs
+            if robust == "huber":
+                wh = torch.clamp(k_h / torch.clamp(t, min=1e-12), max=1.0)
+            else:
+                uu = torch.clamp(1.0 - (t * inv_b) ** 2, 0.0, 1.0)
+                wh = uu * uu
+            wr = (w * wh)[..., None]
+        hw = (h * wr).reshape(-1, 6)
+        rhs = torch.cat([h.reshape(-1, 6), res.reshape(-1, 1)], dim=1)
+        HT = hw.T @ rhs  # (6, 7)
+        return err, HT[:, 0:6], HT[:, 6], perr
+
+    # loop-invariant f64 prior terms
+    P_ = prior.cov.to(F64) / torch.as_tensor(img_point_cov, dtype=F64, device=dev)
+    prior_x = torch.cat([prior.pos, prior.vel, prior.bg, prior.ba, prior.grav])
+    gain = linalg_ops.kalman_gain6_f64
+    big = lambda: torch.tensor(1e10, dtype=F64, device=dev)  # noqa: E731
+
+    rot = state.rot
+    x = torch.cat([state.pos, state.vel, state.bg, state.ba, state.grav])
+    o_rot, o_x = rot, x
+    last_err = big()
+    HTH6b = torch.zeros((6, 6), dtype=F64, device=dev)
+    perr_out = torch.full((G_,), 1e10, dtype=dtype, device=dev)
+    it_l = its = li = 0
+    done = False
+    while not done:
+        err, HTH6, HTz, perr = compute_err_H(rot, x[0:3], levels[li])
+        HTH6 = HTH6.to(F64)
+        K16 = gain(P_, HTH6)
+        vec = torch.cat([so3.log(rot.T @ prior.rot), prior_x - x])
+        sol = vec - K16 @ (HTz.to(F64) + HTH6 @ vec[0:6])
+        n_rot = rot @ so3.exp(sol[0:3])
+        n_x = x + sol[3:18]
+        conv = ((torch.linalg.norm(sol[0:3]) * 57.3 < CONV_ROT_DEG)
+                & (torch.linalg.norm(sol[3:6]) * 100.0 < CONV_POS_CM))
+        improved, conv = torch.stack([err <= last_err, conv]).tolist()
+        if improved:  # keep the current state as the rollback point
+            o_rot, o_x = rot, x
+            rot, x = n_rot, n_x
+            last_err, HTH6b, perr_out = err.to(F64), HTH6, perr
+        else:  # roll back and stop the level (:889-892)
+            rot, x = o_rot, o_x
+        level_done = (not improved) or conv or it_l + 1 >= max_iter
+        done = level_done and li == n_lv - 1
+        it_l = 0 if level_done else it_l + 1
+        its += 1
+        if level_done and not done:  # next level: a fresh UpdateState
+            li += 1
+            o_rot, o_x = rot, x
+            last_err = big()
+            HTH6b = torch.zeros((6, 6), dtype=F64, device=dev)
+            perr_out = torch.full((G_,), 1e10, dtype=dtype, device=dev)
+    # G = K·HᵀH of the last accepted iteration (zero when nothing tracked)
+    Gmat = gain(P_, HTH6b) @ HTH6b
+    new_state = NavState(rot, x[0:3], x[3:6], x[6:9], x[9:12], x[12:15], state.cov)
+    return new_state, Gmat, perr_out, last_err, its
+
+
+def photometric_update(state, prior, cam, img, tr_pos, tr_patch, tr_slevel,
+                       tr_valid, Rci, Pci, Jdphi_dR, Jdp_dR, img_point_cov,
+                       patch_size: int, level: int, max_iter: int,
+                       robust: str = "none", robust_scale: float = 10.0):
+    """UpdateState for one pyramid level (lidar_selection.cpp:743-902)."""
+    return photometric_update_levels(
+        state, prior, cam, img, tr_pos, tr_patch, tr_slevel, tr_valid,
+        Rci, Pci, Jdphi_dR, Jdp_dR, img_point_cov, patch_size,
+        levels=(level,), max_iter=max_iter, robust=robust,
+        robust_scale=robust_scale)
+
+
+def _dedup_voxels(pg: torch.Tensor, pg_mask: torch.Tensor, max_vox: int):
+    """Sort-free dedup + compaction of the scan cloud's 0.5 m voxel keys
+    (the sub_feat_map key set, addFromSparseMap :361-380): four rounds of
+    a linear-probed hash where rows scatter-min their row id; a row whose
+    slot winner has the same key is resolved. Leftovers after four rounds
+    are kept (possible duplicates, which select_tracked tolerates)."""
+    keys = vmap_mod.voxel_of(pg)  # (M, 3) int32
+    M = keys.shape[0]
+    dev = pg.device
+    TB = 1 << int(M).bit_length()
+    # int32 products wrap, as in the JAX package
+    h = ((keys[:, 0] * 73856093) ^ (keys[:, 1] * 19349663)
+         ^ (keys[:, 2] * 83492791)) & (TB - 1)
+    rid = torch.arange(M, dtype=I32, device=dev)
+    rid_m = torch.where(pg_mask, rid, M)
+    resolved = ~pg_mask
+    is_winner = torch.zeros(M, dtype=torch.bool, device=dev)
+    for p in range(4):
+        slot_p = ((h + p) & (TB - 1)).long()
+        contend = torch.where(resolved, M, rid_m)
+        win = torch.full((TB,), M, dtype=I32, device=dev).scatter_reduce_(
+            0, slot_p, contend, "amin")
+        w = win[slot_p]
+        same_key = torch.all(keys == keys[torch.clamp(w, 0, M - 1).long()], dim=-1)
+        is_winner = is_winner | (~resolved & (w == rid))
+        resolved = resolved | (~resolved & (w < M) & same_key)
+    keep = pg_mask & (is_winner | ~resolved)
+    rank = torch.cumsum(keep.to(I32), 0) - 1
+    out_idx = torch.where(keep & (rank < max_vox), rank, max_vox).long()
+    # unique destinations; the sentinel row max_vox takes the dropped
+    vox = torch.zeros((max_vox + 1, 3), dtype=I32, device=dev)
+    vox[out_idx] = keys
+    vmask = torch.zeros(max_vox + 1, dtype=torch.bool, device=dev)
+    vmask[out_idx] = True
+    return vox[:max_vox], vmask[:max_vox]
+
+
+def prep_observations(vm: vmap_mod.VisualMap, cam: cam_mod.Camera,
+                      rcw: torch.Tensor, pcw: torch.Tensor, img: torch.Tensor,
+                      idx: torch.Tensor, valid: torch.Tensor):
+    """addObservation conditions against the most recent observation
+    (lidar_selection.cpp:928-950): add when Δp > 0.5 m, Δθ > 10 (radians
+    compared with 10, as the reference does) or the pixel distance > 40.
+    Returns (px, score, add_mask)."""
+    NP = vm.pos.shape[0]
+    safe = torch.clamp(idx, 0, NP - 1)
+    pf = vm.pos[safe.long()] @ rcw.T + pcw
+    pc = cam_mod.world2cam(cam, pf)
+    o_px, o_rcw, o_pcw, _, o_fid, _ = vmap_mod._gather_obs(vm, safe)
+    last = torch.argmax(o_fid, dim=-1)  # most recent observation
+    K = safe.shape[0]
+
+    def take(a):
+        b = last.reshape(K, *([1] * (a.ndim - 1))).expand(K, 1, *a.shape[2:])
+        return torch.gather(a, 1, b)[:, 0]
+
+    ref_rcw, ref_pcw, ref_px = take(o_rcw), take(o_pcw), take(o_px)
+    # the JAX package's einsum("kij,mj->kim", ref_rcw, rcw.T), which is
+    # ref_rcw @ rcw (its comment says ref_rcw @ rcw^T)
+    Rd = torch.einsum("kij,mj->kim", ref_rcw, rcw.T)
+    td = ref_pcw - torch.einsum("kim,m->ki", Rd, pcw)
+    delta_p = torch.linalg.norm(td, dim=-1)
+    tr = Rd[:, 0, 0] + Rd[:, 1, 1] + Rd[:, 2, 2]
+    delta_theta = torch.where(
+        tr > 3.0 - 1e-6, torch.zeros_like(tr),
+        torch.arccos(torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0)))
+    pix_dist = torch.linalg.norm(pc - ref_px, dim=-1)
+    add = valid & ((delta_p > 0.5) | (delta_theta > 10.0) | (pix_dist > 40.0))
+    return pc, img_ops.shi_tomasi(img, pc), add
+
+
+def vio_frame_step(
+    vm: vmap_mod.VisualMap,  # updated IN PLACE
+    cam: cam_mod.Camera,
+    state: NavState,
+    prior: NavState,
+    gray: torch.Tensor,  # (H, W) f32
+    meta: torch.Tensor,  # (2,) int32 [n_cloud_points, frame_id]
+    cloud: torch.Tensor,  # (R, 3) world cloud of the last scan
+    Rci: torch.Tensor,
+    Pci: torch.Tensor,
+    Jdphi_dR: torch.Tensor,
+    Jdp_dR: torch.Tensor,
+    outlier_threshold,
+    ncc_thre,
+    img_point_cov,
+    *,
+    grid_size: int,
+    patch_size: int,
+    gw: int,
+    gh: int,
+    ncc_en: bool,
+    max_iter: int,
+    max_pg: int,
+    robust: str = "none",
+):
+    """The whole camera frame (`detect`, lidar_selection.cpp:1027-1075):
+    image pool push, voxel filter of the scan cloud, visible-voxel set,
+    tracked-point selection + warp, new-point selection, the 3-level
+    photometric EKF, covariance contraction, observation maintenance and
+    new-point insertion. Each stage is a named `record_function` range
+    ("vio.*"). With zero tracked points the photometric stages are exact
+    no-ops (HᵀH = Hᵀz = 0, the step pulls the state to the prior, which
+    it equals at entry, and G = 0 leaves the covariance).
+
+    Returns (state', vmap, tracked_idx, tracked_valid, obs_px, per-point
+    errors, mean_err, n_tracked, n_added, iters, stats); `stats` (29,)
+    f64 packs [n_tracked, n_added, mean_err, iters, rcw'(9), pcw'(3),
+    0 (12), n_pts] for one device-to-host read."""
+    f32 = gray.dtype
+    fid = meta[1]
+    cloud_mask = torch.arange(cloud.shape[0], device=cloud.device) < meta[0]
+    with record_function("vio.push"):
+        vm = vmap_mod.push_image(vm, gray, fid)
+    with record_function("vio.voxel_filter"):
+        pg, pg_mask = voxel_downsample_device(
+            cloud, cloud_mask, None, max_pg,
+            inv_leaf=_const(_recip32(VIO_LEAF), cloud))
+        vox, vox_mask = _dedup_voxels(pg, pg_mask, max_pg // 2)
+
+    rcw = Rci @ state.rot.to(f32).T
+    pcw = -rcw @ state.pos.to(f32) + Pci
+    with record_function("vio.select_tracked"):
+        tracked = select_tracked(
+            vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask,
+            outlier_threshold, ncc_thre, grid_size=grid_size,
+            patch_size=patch_size, gw=gw, gh=gh, ncc_en=ncc_en)
+    with record_function("vio.select_new"):
+        npos, npx, nscore, nadd = select_new_points(
+            cam, rcw, pcw, gray, pg, pg_mask, tracked.cell_value,
+            grid_size=grid_size, patch_size=patch_size, gw=gw, gh=gh)
+    with record_function("vio.photometric"):
+        st, Gmat, perr, err, its = photometric_update_levels(
+            state, prior, cam, gray, tracked.pos, tracked.patch,
+            tracked.search_level, tracked.valid, Rci, Pci, Jdphi_dR, Jdp_dR,
+            img_point_cov=img_point_cov, patch_size=patch_size,
+            levels=(2, 1, 0), max_iter=max_iter, robust=robust)
+        # cov <- cov - G cov (:980); G = 0 when nothing was tracked
+        st = st._replace(cov=st.cov - Gmat @ st.cov[0:6, :])
+
+    with record_function("vio.observations"):
+        t_idx, t_valid = tracked.idx, tracked.valid
+        rcw2 = Rci @ st.rot.to(f32).T
+        pcw2 = -rcw2 @ st.pos.to(f32) + Pci
+        opc, oscore, oadd = prep_observations(vm, cam, rcw2, pcw2, gray,
+                                              t_idx, t_valid)
+        vm = vmap_mod.add_observations(vm, t_idx, opc, rcw2, pcw2, oscore,
+                                       fid, tracked.search_level, oadd)
+        vm = vmap_mod.add_points(vm, npos, npx, rcw, pcw, nscore, fid, nadd)
+    n_tracked = t_valid.sum(dtype=I32)
+    n_added = nadd.sum(dtype=I32)
+    dev = gray.device
+    stats = torch.cat([
+        torch.stack([n_tracked.to(F64), n_added.to(F64), err.to(F64),
+                     torch.tensor(float(its), dtype=F64, device=dev)]),
+        rcw2.reshape(9).to(F64), pcw2.to(F64),
+        torch.zeros(12, dtype=F64, device=dev),
+        vm.n_pts.to(F64)[None],
+    ])
+    return (st, vm, t_idx, t_valid, opc, perr, err, n_tracked, n_added,
+            its, stats)
+
+
+class Vio:
+    """Host-side orchestration of the per-image VIO step (the
+    LidarSelector object, lidar_selection.h:37-171), on `device` (CUDA
+    unless given)."""
+
+    def __init__(self, cfg: Config, device=None):
+        cap = cfg.capacity
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        dev = self.device
+        self.cam = cam_mod.from_config(cfg.camera, dev)
+        self.grid_size = cfg.grid_size
+        self.patch_size = cfg.patch_size
+        self.gw = cfg.camera.width // cfg.grid_size
+        self.gh = cfg.camera.height // cfg.grid_size
+        # extrinsics (lidar_selection.cpp:35-52): Rli/Pli are IMU->lidar
+        R_li = cfg.extrinsic_R  # lidar -> IMU
+        t_li = cfg.extrinsic_T
+        Rli = R_li.T
+        Pli = -R_li.T @ t_li
+        Rci = cfg.Rcl_mat @ Rli
+        Pci = cfg.Rcl_mat @ Pli + cfg.Pcl_vec
+        Pic = -Rci.T @ Pci
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.Rci = torch.as_tensor(Rci, **f32)
+        self.Pci = torch.as_tensor(Pci, **f32)
+        self.Jdphi_dR = torch.as_tensor(Rci, **f32)
+        skew_pic = np.array([[0, -Pic[2], Pic[1]], [Pic[2], 0, -Pic[0]],
+                             [-Pic[1], Pic[0], 0]])
+        self.Jdp_dR = torch.as_tensor(-Rci @ skew_pic, **f32)
+        self.vmap = self._fresh_vmap()
+        self.fid = 0  # camera frames seen
+        self.steps = 0  # camera frames that ran vio_frame_step
+        self.last_cloud: Optional[np.ndarray] = None
+        self._last_cloud_dev = None  # (device (rows, 3) cloud, host n)
+        self.max_pg = cap.max_cands
+        self.cloud_cap = cap.max_raw_points
+        self.last_stats = {}
+        # thresholds as device scalars of the JAX package's dtypes
+        self._out_thre_dev = torch.tensor(cfg.outlier_threshold, **f32)
+        self._ncc_thre_dev = torch.tensor(cfg.ncc_thre, **f32)
+        self._ipc_dev = torch.tensor(float(cfg.img_point_cov), dtype=F64, device=dev)
+        # host copy of the point-pool occupancy (stats[28]); None until a
+        # frame's stats resolve or after a compaction
+        self._n_pts_host: Optional[int] = None
+        self.last_rcw: Optional[np.ndarray] = None  # frame T_f_w_ rotation
+        self.last_pcw: Optional[np.ndarray] = None
+
+    def _fresh_vmap(self) -> vmap_mod.VisualMap:
+        """A new empty visual map at the configured capacities."""
+        cap, cfg = self.cfg.capacity, self.cfg
+        return vmap_mod.empty_visual_map(
+            n_points=cap.vmap_points, n_obs=cap.vmap_obs,
+            table_size=cap.vmap_table_size, voxel_cap=cap.vmap_voxel_cap,
+            ring=cap.frame_ring, height=cfg.camera.height,
+            width=cfg.camera.width,
+            img_dtype=torch.uint8 if cap.frame_ring_u8 else None,
+            device=self.device)
+
+    def reset_map(self):
+        """Discard the visual map (divergence-watchdog restart). The
+        frame-id counter is kept, so fids stay monotone."""
+        self.vmap = self._fresh_vmap()
+        self._n_pts_host = None
+        self.last_stats = {}
+
+    def set_last_cloud(self, pts_world: Optional[np.ndarray]):
+        if pts_world is not None:
+            self.last_cloud = pts_world
+            self._last_cloud_dev = None
+
+    def set_last_cloud_device(self, dense_dev: torch.Tensor, n: int):
+        """The lidar frame's dense world cloud stays on the device; only
+        the valid-row count is host-side. Rows >= n are masked in the
+        frame step."""
+        assert dense_dev.shape[0] <= self.cloud_cap, (dense_dev.shape, self.cloud_cap)
+        self._last_cloud_dev = (dense_dev, int(n))
+        self.last_cloud = None
+
+    def _to_gray(self, img: np.ndarray) -> np.ndarray:
+        if img.ndim == 3:  # BGR -> gray (detect :1037)
+            img = 0.114 * img[..., 0] + 0.587 * img[..., 1] + 0.299 * img[..., 2]
+        img = np.asarray(img, np.float32)
+        H, W = self.cam.height, self.cam.width
+        if img.shape != (H, W):  # resize (detect :1029-1034)
+            if img.shape == (2 * H, 2 * W):
+                # cv::resize INTER_LINEAR at 0.5: the 2x2 block average
+                img = img.reshape(H, 2, W, 2).mean(axis=(1, 3))
+            else:
+                img = _bilinear_resize(img, H, W)
+        return img
+
+    def _gray_device(self, img: np.ndarray) -> torch.Tensor:
+        """Device-resident f32 gray frame. Integer frames at the camera
+        model's size upload as they are and convert on the device, with
+        the numpy path's operation order; float or resized frames take
+        the host path."""
+        H, W = self.cam.height, self.cam.width
+        dev = self.device
+        if (img.ndim == 3 and img.shape[:2] == (H, W)
+                and np.issubdtype(img.dtype, np.integer)):
+            return _to_gray_dev(torch.as_tensor(img, device=dev))
+        if (img.ndim == 2 and img.shape == (H, W)
+                and np.issubdtype(img.dtype, np.integer)
+                and img.dtype.itemsize <= 2):
+            # u8/u16 -> f32 is exact
+            return torch.as_tensor(img, device=dev).to(torch.float32)
+        return torch.as_tensor(self._to_gray(img), device=dev)
+
+    def update(self, state: NavState, prior: NavState, img: np.ndarray) -> NavState:
+        """The `detect` entry (lidar_selection.cpp:1027-1075): one
+        `vio_frame_step` and one read of its stats row."""
+        cfg = self.cfg
+        gray = self._gray_device(img)
+        R = self.cloud_cap
+        if self._last_cloud_dev is not None:
+            cloud_dev, n = self._last_cloud_dev
+            n = min(n, R)
+        else:
+            cloud_dev = None
+            n = 0 if self.last_cloud is None else min(len(self.last_cloud), R)
+        if n < 10:
+            self.vmap = vmap_mod.push_image(self.vmap, gray, self.fid)
+            self.fid += 1
+            return state
+        if cloud_dev is None:
+            cloud = np.zeros((R, 3), np.float32)
+            cloud[:n] = self.last_cloud[:n, :3]
+            cloud_dev = torch.as_tensor(cloud, device=self.device)
+        meta = torch.tensor([n, self.fid], dtype=I32, device=self.device)
+        (st, vm2, _tidx, _tvalid, _opc, _perr, _err, _n_tracked, _n_added,
+         _its, stats_j) = vio_frame_step(
+            self.vmap, self.cam, state, prior, gray, meta, cloud_dev,
+            self.Rci, self.Pci, self.Jdphi_dR, self.Jdp_dR,
+            self._out_thre_dev, self._ncc_thre_dev, self._ipc_dev,
+            grid_size=self.grid_size, patch_size=self.patch_size,
+            gw=self.gw, gh=self.gh, ncc_en=cfg.ncc_en,
+            max_iter=cfg.max_iteration, max_pg=self.max_pg,
+            robust=cfg.capacity.vio_robust)
+        self.vmap = vm2
+        self.fid += 1
+        self.steps += 1
+        with record_function("vio.stats_read"):
+            self._apply_stats(stats_j.cpu().numpy())
+        return st
+
+    def _apply_stats(self, stats: np.ndarray):
+        self.last_stats = {"tracked": int(stats[0]), "added": int(stats[1]),
+                           "err": float(stats[2])}
+        self.last_rcw = stats[4:13].reshape(3, 3).astype(np.float32)
+        self.last_pcw = stats[13:16].astype(np.float32)
+        self._n_pts_host = int(stats[28])

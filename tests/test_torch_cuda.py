@@ -9,14 +9,16 @@ Also: the device voxel filter is deterministic on the card. Contract of
 the fused 5-NN + plane-fit kernel against its plain version
 (tests/test_torch_knn_plane.py): nd2 at rtol 1e-5; planes at rtol 5e-3 /
 atol 5e-4 up to sign where both gates pass; gate mismatches under 1%.
+The patch + gradient kernel is bit-exact against its plain version (both
+round every product; the kernel is built with -fmad=false).
 """
 import numpy as np
 import pytest
 import torch
 
-from fastlivo_tpu_torch.config import CapacityConfig, Config
+from fastlivo_tpu_torch.config import CameraConfig, CapacityConfig, Config
 from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-from fastlivo_tpu_torch.ops import knn_plane
+from fastlivo_tpu_torch.ops import image, knn_plane, patches_grads
 from fastlivo_tpu_torch.pipeline import Pipeline
 
 pytestmark = pytest.mark.cuda
@@ -116,3 +118,82 @@ def test_voxel_filter_deterministic_and_matches_cpu(cuda):
     np.testing.assert_array_equal(runs[0][1].cpu().numpy(), want[1].numpy())
     np.testing.assert_allclose(runs[0][0].cpu().numpy(), want[0].numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def patch_inputs(H=512, W=640, K=192, seed=0):
+    """A textured image and K centres, a quarter of them within 32 px of a
+    border (the tap grids clamp), with scales 1..16."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    img = (100 + 50 * np.sin(0.21 * xx) * np.cos(0.17 * yy)
+           + rng.normal(0, 5, (H, W))).astype(np.float32)
+    pc = np.stack([rng.uniform(0, W - 1, K), rng.uniform(0, H - 1, K)], 1)
+    q = K // 4
+    pc[:q, 0] = rng.uniform(0, 32, q)
+    pc[q:2 * q, 1] = rng.uniform(H - 33, H - 1, q)
+    scale = rng.choice([1, 2, 4, 8, 16], K)
+    return (torch.from_numpy(img), torch.from_numpy(pc.astype(np.float32)),
+            torch.from_numpy(scale.astype(np.int32)))
+
+
+@pytest.mark.parametrize("P", [4, 8])
+def test_patches_and_grads_kernel_matches_plain(cuda, P):
+    img, pc, scale = (t.to(cuda) for t in patch_inputs(seed=P))
+    before = patches_grads.patches_and_grads.launches
+    got = patches_grads.patches_and_grads(img, pc, P, scale)
+    assert patches_grads.patches_and_grads.launches == before + 1
+    want = image.patches_and_grads(img, pc, P, scale)
+    for g, w in zip(got, want):
+        assert g.shape == (192, P, P)
+        assert torch.equal(g, w), (g - w).abs().max()
+
+
+def test_patches_and_grads_refuses_bad_inputs(cuda):
+    img, pc, scale = (t.to(cuda) for t in patch_inputs(K=16))
+    with pytest.raises(TypeError):
+        patches_grads.patches_and_grads(img.double(), pc, 8, scale)
+    with pytest.raises(ValueError):
+        patches_grads.patches_and_grads(img, pc[:, :1], 8, scale)
+    with pytest.raises(ValueError):
+        patches_grads.patches_and_grads(img, pc, 8, scale[:4])
+    with pytest.raises(ValueError):
+        patches_grads.patches_and_grads(img, pc, 32, scale)
+    with pytest.raises(ValueError):
+        patches_grads.patches_and_grads(img[:, ::2], pc, 8, scale)
+    with pytest.raises(ValueError):
+        patches_grads.patches_and_grads(img, pc.cpu(), 8, scale.cpu())
+
+
+def test_livo_pipeline_runs_through_the_kernel(cuda):
+    W, H, F = 320, 256, 200.0
+    rcl = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    cfg = Config()
+    cfg.grid_size = 32
+    cfg.outlier_threshold = 300.0
+    cfg.img_point_cov = 100.0
+    cfg.camera = CameraConfig(width=W, height=H, fx=F, fy=F, cx=(W - 1) / 2.0,
+                              cy=(H - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0])
+    cfg.Rcl = rcl.ravel().tolist()
+    cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                  tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
+                                  vmap_points=8192, vmap_table_size=1 << 15,
+                                  frame_ring=16, max_cands=4096)
+    ds = SyntheticDataset(duration=4.0, points_per_scan=4096, lidar_noise=0.004,
+                          seed=5, cam_hz=10.0, cam_size=(W, H), cam_f=F, Rcl=rcl)
+    pipe = Pipeline(cfg)
+    assert pipe.vio.device.type == "cuda"
+    for beg, pts, t_rel in ds.lidar_scans_fast():
+        pipe.push_lidar(beg, pts, t_rel)
+    for t, acc, gyr in ds.imu_stream():
+        pipe.push_imu(t, acc, gyr)
+    for t, img in ds.images():
+        pipe.push_img(t, img)
+    before = patches_grads.patches_and_grads.launches
+    outs = pipe.spin()
+    launches = patches_grads.patches_and_grads.launches - before
+    assert pipe.vio.steps > 10 and launches >= 3 * pipe.vio.steps
+    assert int(pipe.vio.vmap.n_pts) > 50 and pipe.vio.last_stats["tracked"] > 5
+    base = ds.traj.base_pos
+    e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
+         for o in outs if o.t >= ds.traj.t_static + 0.5]
+    assert np.sqrt(np.mean(np.square(e))) < 0.06

@@ -1,10 +1,12 @@
-"""Port parity end to end: one synthetic LIO run through both Pipelines,
-the CLI, and the port's import hygiene.
+"""Port parity end to end: one synthetic LIO run and one LIVO run through
+both Pipelines, the CLI, and the port's import hygiene.
 
-Tolerances: the same frames, every pose within 1 mm of the JAX
+Tolerances: LIO, the same frames, every pose within 1 mm of the JAX
 package's, ATE no worse than JAX's plus 0.5 mm. (On the bootstrap frame
 the JAX package may take its native C++ voxel filter where the port
-uses numpy; the two first maps differ at float32 rounding.)
+uses numpy; the two first maps differ at float32 rounding.) LIVO, the
+same frames, every lidar frame within 2 mm, visual-map points within 2%,
+ATE no worse than JAX's plus 1 mm.
 """
 import re
 import subprocess
@@ -15,13 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from fastlivo_tpu.config import CameraConfig as JCamera
 from fastlivo_tpu.config import CapacityConfig as JCapacity
 from fastlivo_tpu.config import Config as JConfig
 from fastlivo_tpu.io.synthetic import SyntheticDataset as JDataset
 from fastlivo_tpu.pipeline import Pipeline as JPipeline
 
 from fastlivo_tpu_torch import run as trun
-from fastlivo_tpu_torch.config import CapacityConfig, Config
+from fastlivo_tpu_torch.config import CameraConfig, CapacityConfig, Config
 from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
 from fastlivo_tpu_torch.pipeline import Pipeline
 
@@ -37,11 +40,41 @@ def small_config(cls_cfg, cls_cap):
     return cfg
 
 
+# camera: z forward = body +x, x right = body -y, y down = body -z
+RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+CW, CH, CF = 320, 256, 200.0
+
+
+def livo_config(cls_cfg, cls_cap, cls_cam):
+    """tests/test_pipeline_livo.py's configuration on the tiled map."""
+    cfg = cls_cfg()
+    cfg.img_enable = True
+    cfg.max_iteration = 6
+    cfg.filter_size_surf = 0.3
+    cfg.filter_size_map = 0.3
+    cfg.grid_size = 32
+    cfg.patch_size = 8
+    cfg.outlier_threshold = 300.0
+    cfg.img_point_cov = 100.0
+    cfg.camera = cls_cam(width=CW, height=CH, fx=CF, fy=CF, cx=(CW - 1) / 2.0,
+                         cy=(CH - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0])
+    cfg.Rcl = RCL.ravel().tolist()
+    cfg.Pcl = [0.0, 0.0, 0.0]
+    cfg.capacity = cls_cap(max_points=4096, max_raw_points=8192,
+                           max_imu_per_group=64, vmap_points=8192,
+                           vmap_table_size=1 << 15, vmap_voxel_cap=8,
+                           frame_ring=16, max_cands=4096,
+                           tiled_dir_dims=(32, 32, 16), tiled_pool=1024)
+    return cfg
+
+
 def _drive(pipe, ds):
     for beg, pts, t_rel in ds.lidar_scans_fast():
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in ds.imu_stream():
         pipe.push_imu(t, acc, gyr)
+    for t, img in ds.images():
+        pipe.push_img(t, img)
     return pipe.spin()
 
 
@@ -84,6 +117,61 @@ def test_synthetic_run_matches_jax():
     assert traj.shape == (len(outs_t), 8)
 
 
+def test_livo_run_matches_jax():
+    kw = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=5,
+              cam_hz=10.0, cam_size=(CW, CH), cam_f=CF, Rcl=RCL)
+    ds_j, ds_t = JDataset(**kw), SyntheticDataset(**kw)
+    pipe_j = JPipeline(livo_config(JConfig, JCapacity, JCamera))
+    outs_j = _drive(pipe_j, ds_j)
+    pipe = Pipeline(livo_config(Config, CapacityConfig, CameraConfig), device="cpu")
+    outs_t = _drive(pipe, ds_t)
+    assert len(outs_t) == len(outs_j) >= 25
+    for a, b in zip(outs_t, outs_j):
+        assert a.t == b.t
+        assert np.linalg.norm(a.pos - b.pos) < 2e-3, (a.t, a.pos, b.pos)
+    assert pipe.vio.fid == pipe_j.vio.fid >= 25  # image groups interleaved
+    n_t, n_j = int(pipe.vio.vmap.n_pts), int(pipe_j.vio.vmap.n_pts)
+    assert n_j > 50 and abs(n_t - n_j) <= 0.02 * n_j, (n_t, n_j)
+    assert pipe.vio.last_stats["tracked"] > 5
+    ate_t, ate_j = _ate(outs_t, ds_t), _ate(outs_j, ds_j)
+    assert ate_t <= ate_j + 1e-3, (ate_t, ate_j)
+    assert ate_t < 0.06
+
+
+def test_livo_mapping_restart_wipes_the_visual_map():
+    ds = SyntheticDataset(duration=3.0, points_per_scan=2048, lidar_noise=0.004,
+                          seed=5, cam_hz=10.0, cam_size=(CW, CH), cam_f=CF, Rcl=RCL)
+    pipe = Pipeline(livo_config(Config, CapacityConfig, CameraConfig), device="cpu")
+    _drive(pipe, ds)
+    fid = pipe.vio.fid
+    assert int(pipe.vio.vmap.n_pts) > 20
+    pipe._mapping_restart(1.0)
+    assert int(pipe.vio.vmap.n_pts) == 0 and pipe.vio.fid == fid
+    assert not pipe.map_built and pipe.auto_resets == 1
+
+
+def test_cli_livo_on_cpu(tmp_path, capsys):
+    out = tmp_path / "traj.txt"
+    cfg_yaml = tmp_path / "cfg.yaml"
+    cfg_yaml.write_text(
+        "img_enable: 1\ngrid_size: 32\npatch_size: 8\noutlier_threshold: 300\n"
+        "img_point_cov: 100\ncamera:\n  Rcl: [0, -1, 0, 0, 0, -1, 1, 0, 0]\n"
+        "  Pcl: [0, 0, 0]\ncapacity:\n  max_points: 4096\n  max_raw_points: 8192\n"
+        "  tiled_dir_dims: [32, 32, 16]\n  tiled_pool: 1024\n  vmap_points: 8192\n"
+        "  vmap_table_size: 32768\n  frame_ring: 16\n  max_cands: 4096\n")
+    cam_yaml = tmp_path / "cam.yaml"
+    cam_yaml.write_text("cam_width: 320\ncam_height: 256\ncam_fx: 200\ncam_fy: 200\n"
+                        "cam_cx: 159.5\ncam_cy: 127.5\n")
+    assert trun.main(["--config", str(cfg_yaml), "--camera", str(cam_yaml),
+                      "--synthetic", "--duration", "3", "--out", str(out),
+                      "--eval", "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    assert "eval: ate_rmse_m=" in printed
+    m = re.search(r"vio: frames=(\d+) map_points=(\d+)", printed)
+    assert m and int(m.group(1)) >= 15 and int(m.group(2)) > 0, printed
+    assert len(np.loadtxt(out, ndmin=2)) >= 15
+
+
 def test_cli_synthetic_on_cpu(tmp_path, capsys):
     out = tmp_path / "traj.txt"
     cfg_yaml = tmp_path / "cfg.yaml"
@@ -99,13 +187,17 @@ def test_cli_synthetic_on_cpu(tmp_path, capsys):
     rows = np.loadtxt(out, ndmin=2)
     assert rows.shape[1] == 8 and len(rows) >= 15
     with pytest.raises(SystemExit):
-        trun.main(["--synthetic"])  # the default config enables the camera
+        trun.main(["--device", "cpu"])  # rosbag replay is not ported
+    cfg_yaml.write_text("capacity:\n  map_backend: dense\n")
+    with pytest.raises(NotImplementedError, match="map_backend"):
+        trun.main(["--config", str(cfg_yaml), "--synthetic", "--device", "cpu"])
 
 
 def test_constructor_refuses_what_it_cannot_do():
     cfg = small_config(Config, CapacityConfig)
     cfg.img_enable = True
-    with pytest.raises(NotImplementedError, match="camera"):
+    cfg.debug = True  # the camera frame's overlay is not ported
+    with pytest.raises(NotImplementedError, match="debug"):
         Pipeline(cfg, device="cpu")
     for field, value in (("map_backend", "dense"), ("plane_fit", "ref"),
                          ("cache_knn", True)):
@@ -142,6 +234,20 @@ def test_sources_name_no_jax():
     assert len(files) > 15
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+def test_every_kernel_source_is_built_and_smoked():
+    """Each csrc/*.cu is in the builder's list and in chip_smoke.py's."""
+    import importlib.util
+
+    from fastlivo_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
+    assert len(cu) == 2
 
 
 def test_divergence_watchdog_restarts_mapping():
