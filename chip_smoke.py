@@ -7,19 +7,27 @@ Builds every CUDA kernel of the port from the sources in this checkout
 plain PyTorch version on the card, and drives two paths through
 `Pipeline` on `Config()`'s shipped capacities with 24000-point scans:
 the LiDAR-inertial path (LIO, camera off) and the LiDAR-inertial-visual
-path (LIVO, a 640x512 camera). Each path's trajectory is checked
-against the synthetic ground truth, and the port on the card against
-the port on the CPU on a small input. Both paths are profiled.
+path (LIVO, a 640x512 camera). The paths run the fused kernels: the LIO
+search in one launch (`knn5_plane_tiled`) and each photometric
+iteration's measurement in one launch (`photometric_err_H`); the
+standalone `knn5_plane` and `patches_and_grads` are held against their
+plain versions but are not on the paths. Each path's trajectory is
+checked against the synthetic ground truth, and the port on the card
+against the port on the CPU on a small input. Both paths are profiled,
+and so is the unfused composition they replaced, for the kernel counts
+under `lio.search` and `vio.photometric` before and after.
 
 Prints the card and its power limit, the build time, each kernel's
-time beside its bound, each path's time per frame, a `{"kernels": ...}`
-line, the `nvidia-smi` name and power limit, and as its last line
-`{"ok": true, "device": {...}}`. Any failure raises: the exit code is
-then not 0 and no result line is printed. Without CUDA, or without the
-package beside it, it fails the same way.
+time beside its bound and beside the unfused pair it replaced, each
+path's time per frame, a `{"kernels": ...}` line, the `nvidia-smi` name
+and power limit, and as its last line `{"ok": true, "device": {...}}`.
+Any failure raises: the exit code is then not 0 and no result line is
+printed. Without CUDA, or without the package beside it, it fails the
+same way.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -31,7 +39,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
-CUDA_SOURCES = ["knn5_plane", "patches_and_grads"]  # every csrc/*.cu of the port
+# every csrc/*.cu of the port
+CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane", "photometric_err_H", "patches_and_grads"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -219,12 +228,188 @@ def kernel_phase(dev, n=16384, m=27):
     return err
 
 
+@contextlib.contextmanager
+def unfused():
+    """The paths as they ran before the fused kernels: the LIO search as
+    tiled_map.knn_candidates + the standalone knn5_plane kernel, each
+    photometric measurement as the plain body sampling through the
+    standalone patches_and_grads kernel."""
+    from fastlivo_tpu_torch import lio, vio
+    from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    def search(m, pw, radius, threshold):
+        return knn_plane.knn5_plane(*tm.knn_candidates(m, pw, radius), pw, threshold)
+
+    def err_H(*a):
+        return photometric.photometric_err_H_plain(*a, sample=patches_grads.patches_and_grads)
+
+    saved = lio.knn5_plane_tiled, vio.photometric_err_H
+    lio.knn5_plane_tiled, vio.photometric_err_H = search, err_H
+    try:
+        yield
+    finally:
+        lio.knn5_plane_tiled, vio.photometric_err_H = saved
+
+
+@contextlib.contextmanager
+def spy(module, name, calls: list):
+    """Record the arguments of every call of module.<name>."""
+    real = getattr(module, name)
+
+    def wrapped(*a):
+        calls.append(a)
+        return real(*a)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def reset_counts():
+    from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
+
+    for fn in (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane,
+               photometric.photometric_err_H, patches_grads.patches_and_grads):
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
+
+    return {fn.__name__: fn.launches for fn in (
+        knn_plane.knn5_plane_tiled, knn_plane.knn5_plane,
+        photometric.photometric_err_H, patches_grads.patches_and_grads)}
+
+
+def tiled_check(m, q, label):
+    """knn5_plane_tiled against its plain composition
+    knn5_plane_plain(knn_candidates(...)) at radius 1 and 2 (M = 27, 125):
+    bit-exact, i.e. max_abs_err 0 and identical plane_ok. These launches
+    are not the path's."""
+    from fastlivo_tpu_torch.ops import knn_plane
+
+    err = 0.0
+    for radius in (1, 2):
+        got = knn_plane.knn5_plane_tiled(m, q, radius, 0.1)
+        torch.cuda.synchronize()
+        want = knn_plane.knn5_plane_tiled_plain(m, q, radius, 0.1)
+        e = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"knn5_plane_tiled {label} N={q.shape[0]} M={(2 * radius + 1) ** 3}: "
+              f"max_abs_err={e:.3g}, bit-exact {same}, {int(want[1].sum())} planes")
+        if not same:
+            raise AssertionError(f"knn5_plane_tiled {label} radius {radius} differs by {e}")
+        err = max(err, e)
+    return err
+
+
+def random_map(dev, n=16384):
+    """A tiled map holding random_block's found candidates (most of them
+    on local planes around the queries), and the queries."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    cand, found, q = random_block(n, 27, seed=1)
+    m = tm.build_host(cand[found], (128, 128, 64), 2048, 0.5, device=dev)
+    return m, torch.from_numpy(q).to(dev)
+
+
+def tiled_bound_ms(m, q, radius: int = 1):
+    """Least time for the fused search on these inputs: the queries, each
+    distinct directory entry (8 B), pool-cell hash behind a matching entry
+    (4 B) and live point (12 B) that the neighbourhoods touch read once,
+    21 B written per query, over HBM bandwidth; against ~65 operations
+    per candidate row (hash, indices, distance, selection) and ~200 per
+    query (the fit) over the float32 rate (integer operations run no
+    faster). Returns (ms, "bytes" | "operations", distinct counts)."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    dir_idx, pool_idx, tile_ok, chk = tm.candidate_cells(m, q, radius)
+    live = tile_ok & (m.cell_check[pool_idx] == chk)
+    n, M = dir_idx.shape
+    uniq = (torch.unique(dir_idx).numel(), torch.unique(pool_idx[tile_ok]).numel(),
+            torch.unique(pool_idx[live]).numel())
+    nbytes = n * (12 + 21) + uniq[0] * 8 + uniq[1] * 4 + uniq[2] * 12 + M * 12
+    ops = n * (65 * M + 200)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
+
+
+def photometric_bound_ms(G: int, P: int):
+    """Least time for one photometric measurement at (G, P): per point its
+    (P+3)^2 taps, its level of tr_patch, tr_pos, search level and valid
+    flag read once and its 44-float partial written and read once, plus
+    the pose, extrinsics and camera (~250 B) and the 44 outputs, over HBM
+    bandwidth; against ~160 float32 operations per pixel and ~250 per
+    point over the float32 rate. Returns (ms, "bytes" | "operations")."""
+    nbytes = G * ((P + 3) ** 2 * 4 + P * P * 4 + 12 + 4 + 1 + 4 + 2 * 44 * 4) + 250 + 44 * 4
+    ops = G * (P * P * 160 + 250)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def photometric_phase(dev, args):
+    """photometric_err_H against its plain version on the inputs of the
+    LIVO path's last measurement (G = 192 cells of a 640x512 image,
+    P = 8), at every robust mode: HᵀH and Hᵀz each within 1e-4 of its
+    largest entry, err and perr within rtol 1e-5; with every point
+    invalid, err and HT exactly 0. Times the kernel, the unfused pair it
+    replaced (the plain body sampling through the standalone
+    patches_and_grads kernel) and the plain version. These launches are
+    not the path's. Returns the max abs error over all outputs and the
+    times."""
+    from fastlivo_tpu_torch.ops import patches_grads
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    args = list(args)
+    G, P, level = args[1].shape[0], args[13], args[12]
+    err = 0.0
+    for robust in ("none", "huber", "tukey"):
+        a = args[:14] + [robust, args[15]]
+        got = ph.photometric_err_H(*a)
+        torch.cuda.synchronize()
+        want = ph.photometric_err_H_plain(*a)
+        rel = []
+        for name, g, w, tol in (("HTH", got[1], want[1], 1e-4), ("HTz", got[2], want[2], 1e-4)):
+            d = float((g - w).abs().max()) / float(w.abs().max())
+            rel.append(f"{name} {d:.3g} of max")
+            if not d <= tol:
+                raise AssertionError(f"photometric_err_H {robust} {name} off by {d:.3g} of max")
+        for name, g, w in (("err", got[0], want[0]), ("perr", got[3], want[3])):
+            d = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+            rel.append(f"{name} rel {d:.3g}")
+            if not d <= 1e-5:
+                raise AssertionError(f"photometric_err_H {robust} {name} off by rel {d:.3g}")
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        print(f"photometric_err_H G={G} P={P} level {level} robust {robust}: "
+              f"{', '.join(rel)}; max_abs_err={e:.3g} (|HT| up to "
+              f"{float(want[1].abs().max()):.3g})")
+        err = max(err, e)
+    a = args[:4] + [torch.zeros_like(args[4])] + args[5:]
+    got = ph.photometric_err_H(*a)
+    if float(got[0]) != 0.0 or got[1].any() or got[2].any():
+        raise AssertionError("photometric_err_H with nothing valid is not exactly 0")
+    print("photometric_err_H with every point invalid: err = 0, HT = 0 exactly")
+    ms = time_ms(lambda: ph.photometric_err_H(*args))
+    pair_ms = time_ms(lambda: ph.photometric_err_H_plain(
+        *args, sample=patches_grads.patches_and_grads))
+    plain_ms = time_ms(lambda: ph.photometric_err_H_plain(*args))
+    bound_ms, bound_by = photometric_bound_ms(G, P)
+    print(f"photometric_err_H G={G} P={P}: kernel {ms:.4f} ms, unfused pair (plain body + "
+          f"patches_and_grads kernel) {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}), library none; {nvidia_smi_line()}")
+    return err, ms, pair_ms, plain_ms, bound_ms, bound_by
+
+
 def path_phase(dev, duration=6.0, points_per_scan=24000):
-    """Pipeline(Config()) at its shipped capacities on `dev`; the kernel's
-    launch count is read around this run only."""
+    """Pipeline(Config()) at its shipped capacities on `dev`; the kernels'
+    launch counts are read around this run only. The fused search must
+    launch once per search, the standalone kernels never."""
+    from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.config import Config
     from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-    from fastlivo_tpu_torch.ops import knn_plane
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     cfg = Config()
@@ -242,13 +427,15 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
+    searches = []
     torch.cuda.synchronize()
-    knn_plane.knn5_plane.launches = 0
-    t0 = time.perf_counter()
-    outs = pipe.spin()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = knn_plane.knn5_plane.launches
+    reset_counts()
+    with spy(lio, "knn5_plane_tiled", searches):
+        t0 = time.perf_counter()
+        outs = pipe.spin()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts()
 
     steady = [o for o in outs if o.iters > 0]
     pos = np.array([o.pos for o in outs])
@@ -258,20 +445,22 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     ate = float(np.sqrt(np.mean(np.square(errs))))
     frame_ms = [1e3 * o.timing["total"] for o in steady]
     print(f"path: {len(outs)} frames ({len(steady)} steady) in {wall:.2f} s, "
-          f"knn5_plane launches {launches}, ATE {ate * 1e3:.3f} mm, "
+          f"{len(searches)} searches, launches {launches}, ATE {ate * 1e3:.3f} mm, "
           f"median steady frame {np.median(frame_ms):.2f} ms "
           f"(p90 {np.percentile(frame_ms, 90):.2f} ms), "
           f"n_active median {int(np.median([o.n_active for o in steady]))}; "
           f"{nvidia_smi_line()}")
     if len(outs) < 40 or len(steady) < 30:
         raise AssertionError(f"too few frames: {len(outs)} ({len(steady)} steady)")
-    if launches < len(steady):
-        raise AssertionError(f"knn5_plane launched {launches}x for {len(steady)} frames")
+    if (launches["knn5_plane_tiled"] != len(searches) or len(searches) < len(steady)
+            or launches["knn5_plane"] or launches["patches_and_grads"]):
+        raise AssertionError(f"launches {launches} for {len(searches)} searches, "
+                             f"{len(steady)} steady frames")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
-    return pipe, steady, launches
+    return pipe, launches
 
 
 def livo_config(cfg=None, W=640, H=512, F=400.0):
@@ -313,21 +502,28 @@ def push_all(pipe, ds, t_max=None, t_min=None):
             pipe.push_img(t, img)
 
 
-def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
+def livo_path_phase(dev, duration=6.0, points_per_scan=24000, fused=True):
     """Pipeline(Config()) with the camera on, at its shipped capacities
     (visual map 65536 points x 20 observations, 2^18 hash slots, a u8
-    pool of 256 images of 640x512). Both kernels' launch counts are read
-    around this run only. Camera-frame time: host wall of Vio.update,
-    its stats read included."""
-    from fastlivo_tpu_torch.ops import knn_plane, patches_grads
+    pool of 256 images of 640x512). The kernels' launch counts are read
+    around this run only: with `fused` the fused kernels launch once per
+    search and once per photometric iteration and the standalone ones
+    never; without it the run takes the unfused composition, for its
+    frame times. Camera-frame time: host wall of Vio.update, its stats
+    read included. Returns (launches, the last photometric call's
+    arguments, camera and lidar frame medians in ms)."""
+    from fastlivo_tpu_torch import lio, vio as vio_mod
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     cfg = livo_config()
     cap = cfg.capacity
-    print(f"livo config: camera {cfg.camera.width}x{cfg.camera.height} f={cfg.camera.fx}, "
-          f"grid {cfg.grid_size}, patch {cfg.patch_size}, max_iteration {cfg.max_iteration}, "
-          f"visual map {cap.vmap_points} pts x {cap.vmap_obs} obs, {cap.vmap_table_size} "
-          f"slots x {cap.vmap_voxel_cap}, pool {cap.frame_ring} x u8={cap.frame_ring_u8}")
+    label = "livo path" if fused else "livo path, unfused"
+    if fused:
+        print(f"livo config: camera {cfg.camera.width}x{cfg.camera.height} f={cfg.camera.fx}, "
+              f"grid {cfg.grid_size}, patch {cfg.patch_size}, max_iteration "
+              f"{cfg.max_iteration}, visual map {cap.vmap_points} pts x {cap.vmap_obs} obs, "
+              f"{cap.vmap_table_size} slots x {cap.vmap_voxel_cap}, pool "
+              f"{cap.frame_ring} x u8={cap.frame_ring_u8}")
     ds = livo_dataset(cfg, duration=duration, points_per_scan=points_per_scan,
                       lidar_noise=0.004, seed=0)
     pipe = Pipeline(cfg, device=dev)
@@ -345,15 +541,19 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         return out
 
     vio.update = timed_update
+    searches, measurements = [], []
     torch.cuda.synchronize()
-    knn_plane.knn5_plane.launches = 0
-    patches_grads.patches_and_grads.launches = 0
-    t0 = time.perf_counter()
-    outs = pipe.spin()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"knn5_plane": knn_plane.knn5_plane.launches,
-                "patches_and_grads": patches_grads.patches_and_grads.launches}
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        if not fused:
+            stack.enter_context(unfused())
+        stack.enter_context(spy(lio, "knn5_plane_tiled", searches))
+        stack.enter_context(spy(vio_mod, "photometric_err_H", measurements))
+        t0 = time.perf_counter()
+        outs = pipe.spin()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts()
     vio.update = update
 
     steady = [o for o in outs if o.iters > 0]
@@ -364,10 +564,11 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     ate = float(np.sqrt(np.mean(np.square(errs))))
     lid_ms = [1e3 * o.timing["total"] for o in steady]
     n_pts = int(vio.vmap.n_pts)
-    print(f"livo path: {len(outs)} lidar frames ({len(steady)} steady), {vio.fid} camera "
-          f"frames ({vio.steps} ran the frame step) in {wall:.2f} s; launches {launches}; "
+    print(f"{label}: {len(outs)} lidar frames ({len(steady)} steady), {vio.fid} camera "
+          f"frames ({vio.steps} ran the frame step) in {wall:.2f} s; {len(searches)} "
+          f"searches, {len(measurements)} photometric iterations; launches {launches}; "
           f"ATE {ate * 1e3:.3f} mm; visual map {n_pts} points, last {vio.last_stats}")
-    print(f"livo path: camera frame median {np.median(cam_ms):.2f} ms (p90 "
+    print(f"{label}: camera frame median {np.median(cam_ms):.2f} ms (p90 "
           f"{np.percentile(cam_ms, 90):.2f} ms) over {len(cam_ms)}; lidar frame median "
           f"{np.median(lid_ms):.2f} ms (p90 {np.percentile(lid_ms, 90):.2f} ms) over "
           f"{len(lid_ms)}; {nvidia_smi_line()}")
@@ -375,14 +576,19 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"too few frames: {len(steady)} steady, {vio.steps} camera")
     if n_pts <= 50 or vio.last_stats.get("tracked", 0) <= 5:
         raise AssertionError(f"visual map {n_pts} points, last {vio.last_stats}")
-    if launches["patches_and_grads"] < 3 * vio.steps or launches["knn5_plane"] < len(steady):
-        raise AssertionError(f"launches {launches} for {vio.steps} camera and "
-                             f"{len(steady)} lidar frames")
+    if len(measurements) < 3 * vio.steps or len(searches) < len(steady):
+        raise AssertionError(f"{len(measurements)} measurements, {len(searches)} searches")
+    want = ({"knn5_plane_tiled": len(searches), "knn5_plane": 0,
+             "photometric_err_H": len(measurements), "patches_and_grads": 0} if fused else
+            {"knn5_plane_tiled": 0, "knn5_plane": len(searches),
+             "photometric_err_H": 0, "patches_and_grads": len(measurements)})
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.06:
         raise AssertionError(f"LIVO ATE {ate:.4f} m >= 6 cm")
-    return launches
+    return launches, measurements[-1], float(np.median(cam_ms)), float(np.median(lid_ms))
 
 
 def livo_cpu_agreement(dev):
@@ -415,27 +621,31 @@ def livo_cpu_agreement(dev):
         raise AssertionError(f"{dev} and cpu differ by {dmax:.2e} m")
 
 
-def real_block(pipe, n):
-    """The search leg's input at the path's shape: the final map's
-    candidate block for the last scan's points at the posterior."""
-    from fastlivo_tpu_torch.ops import tiled_map as tm
-
+def real_queries(pipe, n):
+    """The search leg's input at the path's shape: the last scan's points
+    in the world frame at the posterior."""
     down, _active = pipe.last_effect
     rot = pipe.state.rot.to(torch.float32)
     pw = (down @ pipe.calib.lid_rot.T + pipe.calib.lid_off) @ rot.T \
         + pipe.state.pos.to(torch.float32)
     if pw.shape[0] != n:
         raise AssertionError(f"EKF batch {pw.shape[0]} != {n}")
-    cand, found = tm.knn_candidates(pipe.map, pw.contiguous(),
-                                    pipe.cfg.capacity.knn_voxel_radius)
-    return cand.contiguous(), found.contiguous(), pw.contiguous()
+    return pw.contiguous()
 
 
-def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000):
+def kernels_in(prof, stage: str) -> int:
+    """Device kernels launched under every range named `stage`."""
+    return sum(kernels_under(e) for e in prof.events()
+               if e.name == stage and str(e.device_type).endswith("CPU"))
+
+
+def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
     """Where a steady frame's time goes: torch.profiler over the frames
-    after the first `n_warm` scans of a second shipped-capacity run.
-    Prints the device busy share of the window and the device time and
-    launch count per frame of the largest kernel names."""
+    after the first `n_warm` scans of a second shipped-capacity run
+    (without `fused`, of the unfused composition: only its kernel count
+    under `lio.search` is printed). Prints the device busy share of the
+    window, the device time and launch count per frame of the largest
+    kernel names and the kernels under `lio.search` per frame."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch.config import Config
@@ -456,7 +666,11 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000):
     for beg, pts, t_rel in scans[n_warm:]:
         pipe.push_lidar(beg, pts, t_rel)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        if not fused:
+            stack.enter_context(unfused())
+        prof = stack.enter_context(
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -464,6 +678,11 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000):
     n = len(outs)
     if n == 0 or not all(o.iters > 0 for o in outs):
         raise AssertionError("profiled window holds no steady frames")
+    per_frame = kernels_in(prof, "lio.search") / n
+    print(f"profile ({'fused' if fused else 'unfused'}): {per_frame:.1f} device kernels "
+          f"under lio.search per steady frame")
+    if not fused:
+        return per_frame
     evs = prof.key_averages()
     stage = ("frame.", "lio.")  # the named ranges of frame_step/lio/pipeline
     # device kernels only: the ranges also appear as device-side spans
@@ -487,6 +706,7 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000):
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n:8.3f} ms/frame, "
               f"device {e.device_time_total / 1e3 / n:8.3f} ms/frame, "
               f"{e.count / n:.1f} calls/frame")
+    return per_frame
 
 
 def kernels_under(e) -> int:
@@ -494,11 +714,12 @@ def kernels_under(e) -> int:
     return len(getattr(e, "kernels", [])) + sum(kernels_under(c) for c in e.cpu_children)
 
 
-def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000):
+def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fused=True):
     """Where a camera frame's time goes: torch.profiler over the LIVO
-    frames after `t_warm` s of a second shipped-capacity LIVO run. Prints
-    each `vio.*` stage's host and device ms per camera frame and the
-    device kernels launched per camera frame."""
+    frames after `t_warm` s of a second shipped-capacity LIVO run
+    (without `fused`, of the unfused composition). Prints each `vio.*`
+    stage's host and device ms per camera frame, the device kernels
+    launched per camera frame and those under `vio.photometric`."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -512,7 +733,11 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000):
     push_all(pipe, ds, t_min=t_warm)
     torch.cuda.synchronize()
     steps0 = pipe.vio.steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        if not fused:
+            stack.enter_context(unfused())
+        prof = stack.enter_context(
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -530,14 +755,17 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000):
                and e.self_device_time_total > 0
                and not e.key.startswith(("frame.", "lio.", "vio."))) / 1e3
     per_cam = f"{n_k / n_cam:.0f}" if n_k else "not measured"
-    print(f"livo profile: {n_cam} camera frames, {len(outs)} lidar frames, "
+    photo = kernels_in(prof, "vio.photometric") / n_cam
+    print(f"livo profile ({'fused' if fused else 'unfused'}): {n_cam} camera frames, "
+          f"{len(outs)} lidar frames, "
           f"{1e3 * wall:.1f} ms wall (profiler on), device busy {busy:.2f} ms = "
           f"{100 * busy / (1e3 * wall):.1f}% of wall; device kernels per camera "
-          f"frame {per_cam}")
+          f"frame {per_cam}, under vio.photometric {photo:.1f}")
     for e in stages:
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"{e.count / n_cam:.1f} calls/camera frame")
+    return photo
 
 
 def cpu_agreement(dev):
@@ -578,6 +806,7 @@ def main() -> int:
     import fastlivo_tpu_torch  # noqa: F401  (fails outside the checkout)
     from fastlivo_tpu_torch.device import resolve_device
     from fastlivo_tpu_torch.ops import knn_plane
+    from fastlivo_tpu_torch.ops import tiled_map as tm
 
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -585,14 +814,20 @@ def main() -> int:
     print(f"device: {name} ({torch.cuda.device_count()} visible); nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"build: {build_all():.2f} s")
+    # what time_ms reads for a kernel that does nothing: the floor under
+    # every kernel time below
+    print(f"launch floor: an empty kernel {time_ms(lambda: torch.cuda._sleep(0)):.4f} ms")
 
     n, m = 16384, 27  # the main path's EKF batch at max_points, radius 1
     err_random = kernel_phase(dev, n, m)
     pg_err, pg_ms, pg_plain_ms, pg_bound_ms, pg_bound_by = patches_phase(dev)
-    pipe, steady, launches = path_phase(dev)
+    tiled_err = tiled_check(*random_map(dev, n), "random-block map")
+    pipe, lio_launches = path_phase(dev)
 
-    # the kernel on the path's own input: compare, then time it
-    cand, found, q = real_block(pipe, n)
+    # the search on the path's own map and queries: compare, then time
+    q = real_queries(pipe, n)
+    tiled_err = max(tiled_err, tiled_check(pipe.map, q, "path map"))
+    cand, found = tm.knn_candidates(pipe.map, q, 1)
     got = knn_plane.knn5_plane(cand, found, q)
     torch.cuda.synchronize()
     want = knn_plane.knn5_plane_plain(cand, found, q)
@@ -602,21 +837,61 @@ def main() -> int:
     bound_ms, bound_by = knn5_bound_ms(n, m)
     print(f"knn5_plane N={n} M={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}), library none; {smi}")
+    t_ms = time_ms(lambda: knn_plane.knn5_plane_tiled(pipe.map, q, 1, 0.1))
+    pair_ms = time_ms(lambda: knn_plane.knn5_plane(*tm.knn_candidates(pipe.map, q, 1), q, 0.1))
+    t_plain_ms = time_ms(lambda: knn_plane.knn5_plane_tiled_plain(pipe.map, q, 1, 0.1))
+    t_bound_ms, t_bound_by, uniq = tiled_bound_ms(pipe.map, q, 1)
+    print(f"knn5_plane_tiled N={n} M={m} on the path map: kernel {t_ms:.4f} ms, unfused pair "
+          f"(knn_candidates + knn5_plane kernel) {pair_ms:.4f} ms, plain {t_plain_ms:.4f} ms, "
+          f"bound {t_bound_ms:.5f} ms ({t_bound_by}; distinct directory entries, pool cells, "
+          f"live points {uniq}), library none; {smi}")
 
-    del pipe
+    del pipe, cand, found, got, want
     torch.cuda.empty_cache()
-    livo_launches = livo_path_phase(dev)
+    livo_launches, last_call, cam_fused, lid_fused = livo_path_phase(dev)
+    ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
+        photometric_phase(dev, last_call)
+    del last_call
+    # frame times of the unfused composition against the fused path, in
+    # turns (fused, unfused, unfused, fused): a process's earlier runs
+    # tend to be slower
+    cam, lid = {True: [cam_fused], False: []}, {True: [lid_fused], False: []}
+    for fused in (False, False, True):
+        _, _, c, l_ = livo_path_phase(dev, fused=fused)
+        cam[fused].append(c)
+        lid[fused].append(l_)
+    print(f"camera frame median per run: fused {cam[True]} ms, unfused {cam[False]} ms; "
+          f"lidar frame median per run: fused {lid[True]} ms, unfused {lid[False]} ms; {smi}")
 
     cpu_agreement(dev)
     livo_cpu_agreement(dev)
-    profile_phase(dev)
-    livo_profile_phase(dev)
+    search_k = [profile_phase(dev, fused=f) for f in (False, True)]
+    photo_k = [livo_profile_phase(dev, fused=f) for f in (False, True)]
+    print(f"device kernels under lio.search per steady lidar frame: unfused {search_k[0]:.1f}, "
+          f"fused {search_k[1]:.1f}; under vio.photometric per camera frame: unfused "
+          f"{photo_k[0]:.1f}, fused {photo_k[1]:.1f}")
+    if not (search_k[1] < search_k[0] and photo_k[1] < photo_k[0]):
+        raise AssertionError("the fused kernels did not cut the kernel counts")
 
     print(json.dumps({"kernels": [{
+        "name": "knn5_plane_tiled", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/knn5_plane_tiled.cu",
+        "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
+        "launches": lio_launches["knn5_plane_tiled"], "max_abs_err": tiled_err,
+        "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound_ms,
+        "bound_by": t_bound_by, "library_ms": None,
+    }, {
+        "name": "photometric_err_H", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/photometric_err_H.cu",
+        "replaces": "fastlivo_tpu/ops/pallas_image.py:180",
+        "launches": livo_launches["photometric_err_H"], "max_abs_err": ph_err,
+        "ms": ph_ms, "plain_ms": ph_plain_ms, "bound_ms": ph_bound_ms,
+        "bound_by": ph_bound_by, "library_ms": None,
+    }, {
         "name": "knn5_plane", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
-        "launches": launches, "max_abs_err": err, "ms": ms,
+        "launches": lio_launches["knn5_plane"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }, {

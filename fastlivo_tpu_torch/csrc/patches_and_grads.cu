@@ -17,7 +17,9 @@
 // gather); here the block's threads load the (P+3)^2 clamped taps
 // straight into shared memory through the read-only path, then one
 // thread per output pixel forms val, du and dv from shared memory. The
-// whole function (anchor and weights included) is this one launch.
+// whole function (anchor and weights included) is this one launch. The
+// sampling code lives in patch_sample.cuh, which the fused photometric
+// kernel (photometric_err_H.cu) shares.
 // Products and sums are evaluated in the order of the plain version
 // (ops/image.py::patches_and_grads: w_tl*a + w_tr*b + w_bl*c + w_br*d,
 // left to right); built with -fmad=false, every product rounds as there.
@@ -30,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "patch_sample.cuh"
+
 namespace {
 
 __global__ void patches_and_grads_kernel(const float* __restrict__ img,
@@ -41,51 +45,21 @@ __global__ void patches_and_grads_kernel(const float* __restrict__ img,
                                          int P) {
   extern __shared__ float taps[];  // (P+3) x (P+3)
   const int k = blockIdx.x;
-  const int n = P + 3;
   const int s = scale[k];
-  const float sf = (float)s;
-  const float u = pc[2 * k + 0];
-  const float v = pc[2 * k + 1];
-  // int32 arithmetic wraps as the plain version's does
-  const int32_t u_i = (int32_t)((uint32_t)(int32_t)floorf(u / sf) * (uint32_t)s);
-  const int32_t v_i = (int32_t)((uint32_t)(int32_t)floorf(v / sf) * (uint32_t)s);
-
-  const int origin = P / 2 + 1;
-  for (int t = threadIdx.x; t < n * n; t += blockDim.x) {
-    const int e = t / n;
-    const int f = t - e * n;
-    int r = (int32_t)((uint32_t)v_i + (uint32_t)(e - origin) * (uint32_t)s);
-    int c = (int32_t)((uint32_t)u_i + (uint32_t)(f - origin) * (uint32_t)s);
-    r = min(max(r, 0), H - 1);
-    c = min(max(c, 0), W - 1);
-    taps[t] = __ldg(img + (size_t)r * W + c);
-  }
+  const PatchAnchor a = patch_anchor(pc[2 * k + 0], pc[2 * k + 1], s);
+  load_taps(img, H, W, a, s, P, taps, threadIdx.x, blockDim.x);
   __syncthreads();
 
   const int t = threadIdx.x;
   if (t >= P * P) return;
-  const float su = (u - (float)u_i) / sf;
-  const float sv = (v - (float)v_i) / sf;
-  const float w_tl = (1.0f - su) * (1.0f - sv);
-  const float w_tr = su * (1.0f - sv);
-  const float w_bl = (1.0f - su) * sv;
-  const float w_br = su * sv;
   const int x = t / P;  // row of the patch (v)
   const int y = t - x * P;  // column (u)
-
-  // sample at stride offsets (a, b) in {-1, 0, 1}; grid origin at 1
-  auto sample = [&](int a, int b) {
-    const float* q = taps + (1 + a + x) * n + (1 + b + y);
-    float acc = w_tl * q[0];
-    acc = acc + w_tr * q[1];
-    acc = acc + w_bl * q[n];
-    acc = acc + w_br * q[n + 1];
-    return acc;
-  };
+  float v_, du_, dv_;
+  patch_val_grad(taps, P + 3, a, x, y, v_, du_, dv_);
   const size_t o = (size_t)k * P * P + t;
-  val[o] = sample(0, 0);
-  du[o] = 0.5f * (sample(0, 1) - sample(0, -1)) / sf;
-  dv[o] = 0.5f * (sample(1, 0) - sample(-1, 0)) / sf;
+  val[o] = v_;
+  du[o] = du_;
+  dv[o] = dv_;
 }
 
 }  // namespace

@@ -18,8 +18,9 @@ point set; the iteration protocol is the reference's
 The JAX package runs the loop as a `lax.while_loop`; here it is a host
 loop that reads the convergence flag once per iteration (at most
 max_iter + 1 reads), so `iters` is the JAX package's exactly. The search
-leg is the fused 5-NN + plane-fit kernel (ops/knn_plane.py) on the
-tiled map's candidate block: the JAX package's `pallas_knn=True` branch.
+leg is one kernel (ops/knn_plane.knn5_plane_tiled): the tiled-map
+neighbourhood gather, 5-NN selection and plane fit of the JAX package's
+`pallas_knn=True` branch (knn_candidates, then the Pallas knn5_plane).
 
 Numerics: the residual batch is float32; the 18-dim gain and state
 update are float64, with the exact f64 gain (ops/linalg.py).
@@ -35,7 +36,7 @@ from .ops import linalg as linalg_ops
 from .ops import plane as plane_ops
 from .ops import so3
 from .ops import tiled_map as tm
-from .ops.knn_plane import knn5_plane
+from .ops.knn_plane import knn5_plane_tiled
 from .state import NavState
 
 SQ_DIST_GATE = 5.0  # 5th-NN squared-distance gate (laserMapping.cpp:1549)
@@ -100,13 +101,6 @@ def lio_update(
         # point batch stays f32; the f64 pose casts down at the boundary
         return p_imu @ rot.to(dtype).T + pos.to(dtype)
 
-    def do_search(rot, pos):
-        pw = world_pts(rot, pos)
-        cand, fnd = tm.knn_candidates(m, pw, radius=knn_radius)
-        pabcd, plane_ok, nd2_5 = knn5_plane(cand, fnd, pw, PLANE_THRESH)
-        sel = (nd2_5 <= SQ_DIST_GATE) & pmask
-        return sel, pabcd, plane_ok
-
     # loop-invariant f64 prior terms
     P = prior.cov.to(f64) / laser_point_cov
     prior_x = torch.cat([prior.pos, prior.vel, prior.bg, prior.ba, prior.grav])
@@ -120,11 +114,12 @@ def lio_update(
     sel = pabcd = plane_ok = HTH6 = None
     while not stop:
         pos = x[0:3]
+        pw = world_pts(rot, pos)
         if search_en:
             with record_function("lio.search"):
-                sel, pabcd, plane_ok = do_search(rot, pos)
+                pabcd, plane_ok, nd2_5 = knn5_plane_tiled(m, pw, knn_radius, PLANE_THRESH)
+                sel = (nd2_5 <= SQ_DIST_GATE) & pmask
 
-        pw = world_pts(rot, pos)
         pd2 = plane_ops.point_to_plane(pabcd, pw)  # (N,)
         s = 1.0 - 0.9 * torch.abs(pd2) / body_norm_sqrt
         sel = sel & plane_ok & (s > S_GATE)

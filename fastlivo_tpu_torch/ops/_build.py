@@ -3,14 +3,16 @@
 Each source in `csrc/` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface under `build/fastlivo_tpu_torch/` at the
 repository root, and loaded with ctypes. The library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built when a module is imported.
+a hash of its source, the `csrc/*.cuh` headers it includes and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -18,9 +20,11 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
-# every csrc/<name>.cu: the fused 5-NN + plane fit (ops/knn_plane.py) and
-# the photometric patch + gradient sampling (ops/patches_grads.py)
-SOURCES = ("knn5_plane", "patches_and_grads")
+# every csrc/<name>.cu: the LIO search in one launch and the fused 5-NN +
+# plane fit on a gathered block (ops/knn_plane.py), one photometric EKF
+# iteration's measurement (ops/photometric.py) and the patch + gradient
+# sampling (ops/patches_grads.py)
+SOURCES = ("knn5_plane_tiled", "knn5_plane", "photometric_err_H", "patches_and_grads")
 BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so a kernel rounds every
 # product as its plain PyTorch version (one op per product) does; with
@@ -46,9 +50,16 @@ def _nvcc() -> str:
                        "the kernels (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+\.cuh)"', re.M)
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(src)
+    for header in _INCLUDE.findall(src):  # the package's own headers
+        h.update((CSRC / header.decode()).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -1,16 +1,24 @@
 """Fused 5-NN selection + TLS plane fit for the LIO search leg.
 
 `knn5_plane` is the port of the TPU kernel `knn5_plane`
-(fastlivo_tpu/ops/pallas_lio.py, `pl.pallas_call` at line 219). On a
-CUDA tensor it launches the hand-written kernel in
-csrc/knn5_plane.cu (built at first use, see _build.py); on a CPU tensor
-it runs `knn5_plane_plain`, the same arithmetic in torch ops, which is
-also the kernel's oracle on the card.
+(fastlivo_tpu/ops/pallas_lio.py, `pl.pallas_call` at line 219), with its
+signature: a candidate block in, planes out. On a CUDA tensor it
+launches the hand-written kernel in csrc/knn5_plane.cu (built at first
+use, see _build.py); on a CPU tensor it runs `knn5_plane_plain`, the same
+arithmetic in torch ops, which is also the kernel's oracle on the card.
 
-Contract (the JAX package's tests/test_pallas_lio.py): identical
-selection for distinct distances (ties to the lowest candidate row),
-nd2 at rtol 1e-5, planes at rtol 5e-3 / atol 5e-4 up to sign where both
-gates pass, gate mismatches under 1%.
+`knn5_plane_tiled` is the LIO search itself in one launch
+(csrc/knn5_plane_tiled.cu): the tiled map's neighbourhood gather
+(tiled_map.knn_candidates) fused into the selection and fit, so the
+candidate block is never written. Its plain version is the composition
+`knn5_plane_tiled_plain`; the kernel is bit-exact against it on the card.
+`lio.lio_update` calls it on every search.
+
+Contract of `knn5_plane` against the Pallas kernel (the JAX package's
+tests/test_pallas_lio.py): identical selection for distinct distances
+(ties to the lowest candidate row), nd2 at rtol 1e-5, planes at rtol
+5e-3 / atol 5e-4 up to sign where both gates pass, gate mismatches under
+1%.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ import ctypes
 import functools
 
 import torch
+
+from . import tiled_map as tm
 
 BIG = 3.0e37  # masked squared distance (float32-representable)
 
@@ -170,3 +180,82 @@ def knn5_plane(cand: torch.Tensor, found: torch.Tensor,
 
 
 knn5_plane.launches = 0
+
+
+def knn5_plane_tiled_plain(m: tm.TiledMap, queries: torch.Tensor, radius: int = 1,
+                           threshold: float = 0.1):
+    """The unfused search: `knn5_plane_plain` on the tiled map's
+    candidate block around each query (N, 3) f32, M = (2r+1)^3 voxels.
+    Returns (pabcd (N, 4), plane_ok (N,), nd2_5 (N,))."""
+    cand, found = tm.knn_candidates(m, queries, radius)
+    return knn5_plane_plain(cand, found, queries, threshold)
+
+
+def _check_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int):
+    if queries.ndim != 2 or queries.shape[1] != 3:
+        raise ValueError(f"knn5_plane_tiled: queries {tuple(queries.shape)}")
+    if radius not in (1, 2):
+        raise ValueError(f"knn5_plane_tiled: radius {radius}; the kernel takes "
+                         "1 or 2 (27 or 125 candidates)")
+    C = m.cell_check.shape[0]
+    want = [(queries, None, torch.float32), (m.dir_check, None, torch.int32),
+            (m.dir_slot, m.dir_check.shape, torch.int32),
+            (m.cell_check, (C,), torch.int32), (m.pts, (C, 3), torch.float32),
+            (m.voxel_size, (), torch.float32), (m.log2_dims, (3,), torch.int32)]
+    for t, shape, dtype in want:
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"knn5_plane_tiled: map shape {tuple(t.shape)}, want "
+                             f"{tuple(shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"knn5_plane_tiled: dtype {t.dtype}, want {dtype}")
+        if t.device != queries.device:
+            raise ValueError("knn5_plane_tiled: inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError("knn5_plane_tiled: inputs must be contiguous")
+    if queries.shape[0] >= 1 << 26 or C != m.slot_key.shape[0] * tm.TC or C >= 1 << 31:
+        raise ValueError("knn5_plane_tiled: too many queries or pool cells")
+
+
+@functools.cache
+def _tiled_launcher():
+    from . import _build
+
+    fn = _build.load("knn5_plane_tiled").knn5_plane_tiled_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def knn5_plane_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int = 1,
+                     threshold: float = 0.1):
+    """The LIO search: same signature and outputs as
+    `knn5_plane_tiled_plain`. A CUDA tensor launches the fused kernel on
+    the current stream (counted in `knn5_plane_tiled.launches`); a CPU
+    tensor runs the plain composition. No other device is taken and
+    nothing falls back."""
+    if queries.device.type == "cpu":
+        return knn5_plane_tiled_plain(m, queries, radius, threshold)
+    if queries.device.type != "cuda":
+        raise ValueError(f"knn5_plane_tiled: unsupported device {queries.device}")
+    _check_tiled(m, queries, radius)
+    N, dev = queries.shape[0], queries.device
+    offs = tm.neighbor_offsets(radius, dev)
+    pabcd = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    plane_ok = torch.empty(N, dtype=torch.bool, device=dev)
+    nd2_5 = torch.empty(N, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _tiled_launcher()(
+        queries.data_ptr(), m.dir_check.data_ptr(), m.dir_slot.data_ptr(),
+        m.cell_check.data_ptr(), m.pts.data_ptr(), m.voxel_size.data_ptr(),
+        m.log2_dims.data_ptr(), offs.data_ptr(), pabcd.data_ptr(),
+        plane_ok.data_ptr(), nd2_5.data_ptr(), N, offs.shape[0],
+        m.slot_key.shape[0], float(threshold), stream)
+    if err != 0:
+        raise RuntimeError(f"knn5_plane_tiled: kernel launch failed (cudaError {err})")
+    if N > 0:
+        knn5_plane_tiled.launches += 1
+    return pabcd, plane_ok, nd2_5
+
+
+knn5_plane_tiled.launches = 0

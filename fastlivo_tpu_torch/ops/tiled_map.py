@@ -23,6 +23,7 @@ first. `compact` returns a new map.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -195,20 +196,37 @@ def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor) -> TiledMap:
     return m._replace(n_alloc=n_alloc2, n_dropped=m.n_dropped + dropped)
 
 
-def knn_candidates(m: TiledMap, queries: torch.Tensor, radius: int = 1):
-    """Two-gather neighbourhood candidate block: (cpts (N, M, 3),
-    found (N, M)) with M = (2 * radius + 1)^3."""
+@functools.cache
+def neighbor_offsets(radius: int, device: torch.device) -> torch.Tensor:
+    """(M, 3) int32 neighbourhood offsets (`_neighbor_offsets` order) on
+    `device`, uploaded once: a search then copies nothing from the host
+    and never waits for the device."""
+    return torch.as_tensor(_neighbor_offsets(radius), device=device)
+
+
+def candidate_cells(m: TiledMap, queries: torch.Tensor, radius: int = 1):
+    """The directory half of `knn_candidates`: for each query and each of
+    its M = (2 * radius + 1)^3 neighbourhood voxels, (dir_idx (N, M) the
+    directory entry, pool_idx (N, M) the pool cell, tile_ok (N, M) the
+    entry holds the voxel's tile, chk (N, M) the tile hash)."""
     T = m.slot_key.shape[0]
     base = voxel_of(queries, m.voxel_size)
-    offs = torch.as_tensor(_neighbor_offsets(radius), device=queries.device)
+    offs = neighbor_offsets(radius, queries.device)
     cand = base[:, None, :] + offs[None, :, :]  # (N, M, 3)
     tkey, cofs = _tile_of(cand)
     dir_idx, chk = _dir_of(m, tkey)
     tile_ok = m.dir_check[dir_idx] == chk
     slot = m.dir_slot[dir_idx]
     pool_idx = torch.clamp(slot, 0, T - 1) * TC + cofs
+    return dir_idx, pool_idx, tile_ok, chk
+
+
+def knn_candidates(m: TiledMap, queries: torch.Tensor, radius: int = 1):
+    """Two-gather neighbourhood candidate block: (cpts (N, M, 3),
+    found (N, M)) with M = (2 * radius + 1)^3."""
+    _, pool_idx, tile_ok, chk = candidate_cells(m, queries, radius)
     found = tile_ok & (m.cell_check[pool_idx] == chk)
-    cpts = m.pts[pool_idx.reshape(-1)].reshape(*cand.shape[:2], 3)
+    cpts = m.pts[pool_idx.reshape(-1)].reshape(*pool_idx.shape, 3)
     return cpts, found
 
 

@@ -12,8 +12,9 @@ src/lidar_selection.cpp). Per camera frame (`detect`, :1027-1075):
      Shi-Tomasi-max scan point that beats the cell's map point.
   3. `photometric_update_levels` = ComputeJ/UpdateState (:743-983):
      coarse-to-fine iterated EKF on patch residuals with the
-     error-monotonicity rollback. Its patch and gradient sampling is the
-     CUDA kernel of ops/patches_grads.py.
+     error-monotonicity rollback. Each iteration's measurement (the
+     projection, the patch and gradient sampling, the Jacobians and the
+     [HᵀWH | HᵀWz] reduction) is one CUDA kernel, ops/photometric.py.
   4. `prep_observations` + visual_map.add_observations = addObservation
      (:913-965) at the posterior pose.
 
@@ -49,7 +50,7 @@ from .device import resolve_device
 from .ops import image as img_ops
 from .ops import linalg as linalg_ops
 from .ops import so3
-from .ops.patches_grads import patches_and_grads
+from .ops.photometric import _recip32, photometric_err_H
 from .ops.voxel_filter import voxel_downsample_device
 from .state import DIM_STATE, NavState
 
@@ -72,12 +73,6 @@ class TrackedSet(NamedTuple):
     valid: torch.Tensor  # (G,) bool
     cell_value: torch.Tensor  # (G,) f32 best map-point score per cell
     errors: torch.Tensor  # (G,) f32 photometric error
-
-
-def _recip32(c: float) -> float:
-    """The f32 reciprocal XLA multiplies by where JAX divides by the
-    constant `c` under jit."""
-    return float(np.float32(1.0) / np.float32(c))
 
 
 def _const(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -335,13 +330,14 @@ def photometric_update_levels(
     """The coarse-to-fine UpdateState cascade (lidar_selection.cpp:
     743-902, levels 2 -> 0 as :1052-1066 calls it), one host loop.
 
-    Each iteration samples the patches and gradients (the CUDA kernel on
-    the card), forms [HᵀH | Hᵀz] in one (6,7) product and takes the
-    prior-anchored f64 step. An iteration whose mean patch error grew
-    rolls the state back and ends its level, as do convergence and the
-    iteration budget; the next level starts afresh. One host read of two
-    flags per iteration. `robust`: IRLS weights "huber" (k=1.345) or "tukey"
-    (b=4.6851) on |res|/robust_scale, on the HᵀWH/HᵀWz rows only.
+    Each iteration's measurement [HᵀH | Hᵀz], mean error and per-point
+    errors is one call of ops/photometric.photometric_err_H (one kernel
+    launch on the card); the prior-anchored f64 step stays in torch. An
+    iteration whose mean patch error grew rolls the state back and ends
+    its level, as do convergence and the iteration budget; the next
+    level starts afresh. One host read of two flags per iteration.
+    `robust`: IRLS weights "huber" (k=1.345) or "tukey" (b=4.6851) on
+    |res|/robust_scale, on the HᵀWH/HᵀWz rows only.
 
     Returns (state, G (18,6) f64, per-point errors, mean_error (f64),
     iterations), the G and errors of the last level."""
@@ -353,58 +349,6 @@ def photometric_update_levels(
         return (state, torch.zeros((DIM_STATE, 6), dtype=F64, device=dev),
                 torch.full((G_,), 1e10, dtype=dtype, device=dev),
                 torch.tensor(1e10, dtype=F64, device=dev), 0)
-    fx, fy = cam.fx, cam.fy
-    if robust == "huber":
-        k_h = _const(1.345, img)
-    elif robust == "tukey":
-        inv_b = _const(_recip32(4.6851), img)
-    elif robust != "none":
-        raise ValueError(f"robust={robust!r}")
-    inv_rs = _const(_recip32(robust_scale), img)
-
-    def compute_err_H(rot, pos, level):
-        scale = torch.bitwise_left_shift(
-            torch.full_like(tr_slevel, 1 << level, dtype=I32), tr_slevel.to(I32))
-        rcw = Rci @ rot.to(dtype).T
-        pcw = -rcw @ pos.to(dtype) + Pci
-        pf = tr_pos @ rcw.T + pcw  # (G, 3)
-        front = pf[:, 2] > 1e-6
-        pc = cam_mod.world2cam(cam, pf)
-        val, du, dv = patches_and_grads(img, pc, P, scale)
-        res = val - tr_patch[:, level]  # (G, P, P)
-        zi = 1.0 / torch.where(front, pf[:, 2], 1.0)
-        zi2 = zi * zi
-        zero = torch.zeros_like(zi)
-        Jdpi = torch.stack([
-            torch.stack([fx * zi, zero, -fx * pf[:, 0] * zi2], -1),
-            torch.stack([zero, fy * zi, -fy * pf[:, 1] * zi2], -1),
-        ], dim=-2)  # (G, 2, 3)
-        # h = Jimg·Jdpi·[p_hat·Jdphi_dR − Jdp_dR | −Jdp_dt] (:826-832)
-        p_hat = so3.skew(pf)
-        Mg = torch.cat([torch.einsum("gde,ef->gdf", p_hat, Jdphi_dR) - Jdp_dR,
-                        (-rcw).expand(p_hat.shape)], dim=-1)  # (G, 3, 6)
-        N = torch.einsum("gcd,gdf->gcf", Jdpi, Mg)  # (G, 2, 6)
-        Jimg = torch.stack([du, dv], dim=-1)  # (G, P, P, 2)
-        h = torch.einsum("gxyc,gcf->gxyf", Jimg, N)  # (G, P, P, 6)
-        w = (tr_valid & front).to(dtype)[:, None, None]
-        res_w = res * w
-        n_meas = torch.clamp(torch.sum(w) * P * P, min=1.0)
-        perr = torch.sum(res_w * res_w, dim=(1, 2))  # (G,)
-        err = torch.sum(perr) / n_meas
-        if robust == "none":
-            wr = w[..., None]
-        else:
-            t = torch.abs(res) * inv_rs
-            if robust == "huber":
-                wh = torch.clamp(k_h / torch.clamp(t, min=1e-12), max=1.0)
-            else:
-                uu = torch.clamp(1.0 - (t * inv_b) ** 2, 0.0, 1.0)
-                wh = uu * uu
-            wr = (w * wh)[..., None]
-        hw = (h * wr).reshape(-1, 6)
-        rhs = torch.cat([h.reshape(-1, 6), res.reshape(-1, 1)], dim=1)
-        HT = hw.T @ rhs  # (6, 7)
-        return err, HT[:, 0:6], HT[:, 6], perr
 
     # loop-invariant f64 prior terms
     P_ = prior.cov.to(F64) / torch.as_tensor(img_point_cov, dtype=F64, device=dev)
@@ -412,7 +356,7 @@ def photometric_update_levels(
     gain = linalg_ops.kalman_gain6_f64
     big = lambda: torch.tensor(1e10, dtype=F64, device=dev)  # noqa: E731
 
-    rot = state.rot
+    rot = state.rot.contiguous()
     x = torch.cat([state.pos, state.vel, state.bg, state.ba, state.grav])
     o_rot, o_x = rot, x
     last_err = big()
@@ -421,7 +365,10 @@ def photometric_update_levels(
     it_l = its = li = 0
     done = False
     while not done:
-        err, HTH6, HTz, perr = compute_err_H(rot, x[0:3], levels[li])
+        lv = levels[li]
+        err, HTH6, HTz, perr = photometric_err_H(
+            img, tr_pos, tr_patch[:, lv], tr_slevel, tr_valid, rot, x[0:3], Rci, Pci,
+            Jdphi_dR, Jdp_dR, cam, lv, P, robust, robust_scale)
         HTH6 = HTH6.to(F64)
         K16 = gain(P_, HTH6)
         vec = torch.cat([so3.log(rot.T @ prior.rot), prior_x - x])

@@ -10,15 +10,22 @@ the fused 5-NN + plane-fit kernel against its plain version
 (tests/test_torch_knn_plane.py): nd2 at rtol 1e-5; planes at rtol 5e-3 /
 atol 5e-4 up to sign where both gates pass; gate mismatches under 1%.
 The patch + gradient kernel is bit-exact against its plain version (both
-round every product; the kernel is built with -fmad=false).
+round every product; the kernel is built with -fmad=false), and so is
+the fused LIO search against its plain composition
+knn5_plane_plain(knn_candidates(...)). The fused photometric measurement
+holds HᵀH and Hᵀz each within 1e-4 of its largest entry and err, perr
+within rtol 1e-5 of its plain version (its sums over the G·P² rows run in another order);
+with nothing to measure err and HT are exactly 0.
 """
 import numpy as np
 import pytest
 import torch
 
+from fastlivo_tpu_torch import camera
 from fastlivo_tpu_torch.config import CameraConfig, CapacityConfig, Config
 from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-from fastlivo_tpu_torch.ops import image, knn_plane, patches_grads
+from fastlivo_tpu_torch.ops import image, knn_plane, patches_grads, photometric, so3
+from fastlivo_tpu_torch.ops import tiled_map as tm
 from fastlivo_tpu_torch.pipeline import Pipeline
 
 pytestmark = pytest.mark.cuda
@@ -91,11 +98,12 @@ def test_pipeline_runs_through_the_kernel(cuda):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in ds.imu_stream():
         pipe.push_imu(t, acc, gyr)
-    before = knn_plane.knn5_plane.launches
+    before = knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane.launches
     outs = pipe.spin()
-    launches = knn_plane.knn5_plane.launches - before
+    launches = knn_plane.knn5_plane_tiled.launches - before[0]
     steady = [o for o in outs if o.iters > 0]
     assert len(steady) > 5 and launches >= len(steady)
+    assert knn_plane.knn5_plane.launches == before[1]  # the search is fused
     base = ds.traj.base_pos
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
@@ -188,12 +196,172 @@ def test_livo_pipeline_runs_through_the_kernel(cuda):
         pipe.push_imu(t, acc, gyr)
     for t, img in ds.images():
         pipe.push_img(t, img)
-    before = patches_grads.patches_and_grads.launches
+    before = (photometric.photometric_err_H.launches,
+              patches_grads.patches_and_grads.launches)
     outs = pipe.spin()
-    launches = patches_grads.patches_and_grads.launches - before
+    launches = photometric.photometric_err_H.launches - before[0]
     assert pipe.vio.steps > 10 and launches >= 3 * pipe.vio.steps
+    assert patches_grads.patches_and_grads.launches == before[1]  # fused
     assert int(pipe.vio.vmap.n_pts) > 50 and pipe.vio.last_stats["tracked"] > 5
     base = ds.traj.base_pos
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
     assert np.sqrt(np.mean(np.square(e))) < 0.06
+
+
+def surface(n, seed):
+    """Points on a gently curved surface over [-8, 8]^2 at negative
+    heights: negative voxel and tile coordinates, every 0.5 m voxel of
+    the surface occupied."""
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(-8, 8, n), rng.uniform(-8, 8, n)
+    z = 0.3 * np.sin(0.5 * x) + 0.2 * np.cos(0.3 * y) - 0.6 + rng.normal(0, 0.01, n)
+    return np.stack([x, y, z], 1).astype(np.float32)
+
+
+def search_queries(n=900, seed=11):
+    """Queries near the surface, a third of them on voxel boundaries
+    (multiples of the 0.5 m voxel in one to three axes)."""
+    q = surface(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    q += rng.normal(0, 0.05, q.shape).astype(np.float32)
+    k = n // 3
+    snap = rng.random((k, 3)) < 0.5
+    snap[:, 0] = True
+    q[:k] = np.where(snap, np.round(q[:k] * 2) / 2, q[:k])
+    return q
+
+
+@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("dims", [(32, 32, 16), (2, 2, 2)])  # (2, 2, 2): aliased tiles
+def test_knn5_plane_tiled_matches_plain(cuda, radius, dims):
+    m = tm.build_host(surface(40000, 3), dims, 256, 0.5, device=cuda)
+    q = torch.from_numpy(search_queries(5000)).to(cuda)
+    before = knn_plane.knn5_plane_tiled.launches
+    got = knn_plane.knn5_plane_tiled(m, q, radius, 0.1)
+    assert knn_plane.knn5_plane_tiled.launches == before + 1
+    want = knn_plane.knn5_plane_tiled_plain(m, q, radius, 0.1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.float() - w.float()).abs().max()
+    assert int(got[1].sum()) > 500  # planes were fitted
+
+
+def test_knn5_plane_tiled_refuses_bad_inputs(cuda):
+    m = tm.build_host(surface(2000, 3), (32, 32, 16), 64, 0.5, device=cuda)
+    q = torch.from_numpy(search_queries(64)).to(cuda)
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_tiled(m, q, 3)
+    with pytest.raises(TypeError):
+        knn_plane.knn5_plane_tiled(m, q.double(), 1)
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_tiled(m._replace(pts=m.pts.cpu()), q, 1)
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_tiled(m, q.t().contiguous().t(), 1)
+    n0 = knn_plane.knn5_plane_tiled(m, q[:0], 1)
+    assert all(t.shape[0] == 0 for t in n0)
+
+
+def photometric_inputs(dev, P=8, G=192, seed=0):
+    """One photometric iteration's inputs at the path's shapes: a textured
+    640x512 image, a camera with some distortion, G tracked points at
+    2-8 m (a few behind the camera, some near the borders), reference
+    patches of each level sampled where the points project plus noise of
+    0.5-40 grey levels (so the robust weights cover their range), search
+    levels 0..2 and 85% valid."""
+    img = patch_inputs(seed=seed)[0]
+    rng = np.random.default_rng(seed)
+    cam = camera.from_config(CameraConfig(width=640, height=512, fx=400.0, fy=400.0,
+                                          cx=319.5, cy=255.5,
+                                          d=[0.01, -0.005, 0.001, 0.0005]), "cpu")
+    Rci = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    Pci = np.array([0.05, -0.02, 0.1])
+    Pic = -Rci.T @ Pci
+    skew_pic = np.array([[0, -Pic[2], Pic[1]], [Pic[2], 0, -Pic[0]], [-Pic[1], Pic[0], 0]])
+    rot = so3.exp(torch.tensor([0.05, -0.1, 0.3], dtype=torch.float64))
+    pos = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+    z = rng.uniform(2, 8, G)
+    px = np.stack([rng.uniform(0, 639, G), rng.uniform(0, 511, G)], 1)
+    px[:G // 8, 0] = rng.uniform(0, 24, G // 8)
+    pf = np.stack([(px[:, 0] - 319.5) / 400 * z, (px[:, 1] - 255.5) / 400 * z, z], 1)
+    pf[-4:, 2] *= -1  # behind the camera
+    rcw = Rci.astype(np.float32) @ rot.numpy().astype(np.float32).T
+    pcw = -rcw @ pos.numpy().astype(np.float32) + Pci.astype(np.float32)
+    tr_pos = ((pf - pcw) @ rcw).astype(np.float32)  # rcwᵀ (pf - pcw), rcw orthonormal
+    slevel = rng.integers(0, 3, G).astype(np.int32)
+    pc = camera.world2cam(cam, torch.from_numpy(pf.astype(np.float32)))
+    sigma = rng.uniform(0.5, 40, G)[:, None, None]
+    patch = np.stack([
+        image.patches_and_grads(img, pc, P, torch.from_numpy((1 << lv) << slevel))[0].numpy()
+        + rng.normal(0, 1, (G, P, P)) * sigma for lv in range(3)], 1).astype(np.float32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cam = camera.from_config(CameraConfig(width=640, height=512, fx=400.0, fy=400.0,
+                                          cx=319.5, cy=255.5,
+                                          d=[0.01, -0.005, 0.001, 0.0005]), dev)
+    t = lambda a, **k: torch.as_tensor(a, **(k or f32))  # noqa: E731
+    return dict(img=img.to(dev), tr_pos=t(tr_pos), tr_patch=t(patch),
+                tr_slevel=t(slevel, device=dev), tr_valid=t(rng.random(G) < 0.85, device=dev),
+                rot=rot.to(dev), pos=pos.to(dev), Rci=t(Rci), Pci=t(Pci), Jdphi_dR=t(Rci),
+                Jdp_dR=t(-Rci @ skew_pic), cam=cam)
+
+
+def photometric_call(fn, x, level, P, robust, **kw):
+    return fn(x["img"], x["tr_pos"], x["tr_patch"][:, level], x["tr_slevel"], x["tr_valid"],
+              x["rot"], x["pos"], x["Rci"], x["Pci"], x["Jdphi_dR"], x["Jdp_dR"], x["cam"],
+              level, P, robust, **kw)
+
+
+@pytest.mark.parametrize("P", [4, 8])
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+def test_photometric_err_H_matches_plain(cuda, P, robust):
+    x = photometric_inputs(cuda, P=P, seed=P)
+    for level in (2, 0):
+        before = photometric.photometric_err_H.launches
+        err, HTH6, HTz, perr = photometric_call(photometric.photometric_err_H, x, level, P, robust)
+        assert photometric.photometric_err_H.launches == before + 1
+        want = photometric_call(photometric.photometric_err_H_plain, x, level, P, robust)
+        for g, w in ((HTH6, want[1]), (HTz, want[2])):  # each at 1e-4 of its max
+            scale = float(w.abs().max())
+            assert scale > 0
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                       atol=1e-4 * scale)
+        np.testing.assert_allclose(float(err), float(want[0]), rtol=1e-5)
+        np.testing.assert_allclose(perr.cpu().numpy(), want[3].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-30)
+        again = photometric_call(photometric.photometric_err_H, x, level, P, robust)
+        for a, b in zip(again, (err, HTH6, HTz, perr)):
+            assert torch.equal(a, b)  # no float atomics: the same every run
+
+
+def test_photometric_err_H_with_nothing_to_measure(cuda):
+    x = photometric_inputs(cuda)
+    x["tr_valid"] = torch.zeros_like(x["tr_valid"])
+    before = photometric.photometric_err_H.launches
+    err, HTH6, HTz, perr = photometric_call(photometric.photometric_err_H, x, 0, 8, "huber")
+    assert photometric.photometric_err_H.launches == before + 1
+    assert float(err) == 0.0 and not HTH6.any() and not HTz.any() and not perr.any()
+    empty = {k: (v[:0] if k.startswith("tr_") else v) for k, v in x.items()}
+    err, HTH6, HTz, perr = photometric_call(photometric.photometric_err_H, empty, 0, 8, "none")
+    assert photometric.photometric_err_H.launches == before + 1  # K = 0: no launch
+    assert float(err) == 0.0 and not HTH6.any() and not HTz.any() and perr.shape == (0,)
+
+
+def test_photometric_err_H_refuses_bad_inputs(cuda):
+    x = photometric_inputs(cuda, G=16)
+    call = lambda **kw: photometric_call(  # noqa: E731
+        photometric.photometric_err_H, {**x, **kw}, kw.pop("level", 0), 8, "none")
+    with pytest.raises(TypeError):
+        call(img=x["img"].double())
+    with pytest.raises(TypeError):
+        call(rot=x["rot"].float())
+    with pytest.raises(TypeError):
+        call(tr_slevel=x["tr_slevel"].long())
+    with pytest.raises(ValueError):
+        call(tr_pos=x["tr_pos"][:8])
+    with pytest.raises(ValueError):
+        call(tr_pos=x["tr_pos"].cpu())
+    with pytest.raises(ValueError):
+        call(rot=x["rot"].t())
+    with pytest.raises(ValueError):
+        photometric_call(photometric.photometric_err_H, x, 0, 8, "cauchy")
+    with pytest.raises(ValueError):
+        photometric_call(photometric.photometric_err_H, x, 0, 32, "none")

@@ -230,14 +230,15 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+jax\b|fastlivo_tpu\.", re.M)
-    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
     assert len(files) > 15
     for f in files:
         assert not pat.search(f.read_text()), f
 
 
 def test_every_kernel_source_is_built_and_smoked():
-    """Each csrc/*.cu is in the builder's list and in chip_smoke.py's."""
+    """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
+    two fused kernels of the main path and the two standalone ones."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -247,7 +248,7 @@ def test_every_kernel_source_is_built_and_smoked():
     spec.loader.exec_module(smoke)
     cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
-    assert len(cu) == 2
+    assert cu == ["knn5_plane", "knn5_plane_tiled", "patches_and_grads", "photometric_err_H"]
 
 
 def test_divergence_watchdog_restarts_mapping():

@@ -13,6 +13,10 @@ the same inputs. Tolerances:
     package's the mixed-precision one); G = K·HᵀH within 1e-4 and the
     posterior covariance within rtol 1e-3: HᵀH is taken at poses ~1e-6
     apart, and the image gradients change with the pixel position;
+  - one iteration's measurement (ops/photometric.photometric_err_H_plain)
+    at levels 0 and 2, each robust mode: per-point errors rtol 1e-4,
+    mean error rtol 1e-5, G = K·HᵀH within 1e-4, the step's position
+    within 2e-6 and rotation within 1e-6;
   - vio_frame_step: equal n_tracked and n_added;
   - with nothing tracked the photometric stage is an exact no-op.
 """
@@ -34,7 +38,7 @@ from fastlivo_tpu_torch import convert
 from fastlivo_tpu_torch import vio as tvio
 from fastlivo_tpu_torch.config import CameraConfig, CapacityConfig, Config
 from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-from fastlivo_tpu_torch.ops import patches_grads
+from fastlivo_tpu_torch.ops import linalg, photometric, so3
 
 W, H, F = 320, 256, 200.0
 
@@ -208,24 +212,65 @@ def test_photometric_update_one_level_matches_jax(scene):
 
 
 def test_photometric_update_runs_through_the_wrapper(scene, monkeypatch):
-    """Every iteration samples through ops/patches_grads.patches_and_grads
-    (the kernel's wrapper; on the CPU its plain version)."""
+    """Every iteration's measurement goes through
+    ops/photometric.photometric_err_H (the fused kernel's wrapper; on the
+    CPU its plain version), once per iteration, at the level in force."""
     _, tt, _, _ = tracked_both(scene)
     tv = scene["tv"]
     calls = []
-    real = tvio.patches_and_grads
+    real = tvio.photometric_err_H
 
     def spy(*a):
-        calls.append(a[3])
+        calls.append(a[12])  # the pyramid level
         return real(*a)
 
-    monkeypatch.setattr(tvio, "patches_and_grads", spy)
+    monkeypatch.setattr(tvio, "photometric_err_H", spy)
     pt = tstate(scene["prior"])
     _, _, _, _, its = tvio.photometric_update_levels(
         pt, pt, tv.cam, torch.from_numpy(scene["gray"]), tt.pos, tt.patch,
         tt.search_level, tt.valid, tv.Rci, tv.Pci, tv.Jdphi_dR, tv.Jdp_dR,
         tv._ipc_dev, 8, max_iter=6)
-    assert len(calls) == its >= 3 and real is patches_grads.patches_and_grads
+    assert len(calls) == its >= 3 and real is photometric.photometric_err_H
+    assert calls[0] == 2 and calls[-1] == 0 and calls == sorted(calls, reverse=True)
+
+
+@pytest.mark.parametrize("level", [0, 2])
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+def test_photometric_err_H_plain_matches_jax(scene, level, robust):
+    """One iteration's measurement at the perturbed prior against the JAX
+    package's first iteration of that level (`photometric_update_levels`
+    with max_iter=1, which steps from the prior by -K·Hᵀz): the per-point
+    and mean errors directly; HᵀH through G = K·HᵀH and Hᵀz through the
+    step, with the port's exact f64 gain on the port's HᵀH. The port
+    projects with explicit product sums (the kernel's order) where the
+    JAX package multiplies matrices: the pixel positions agree to a few
+    ulp, which moves a squared patch error by up to ~1e-4 of itself."""
+    tj, tt, _, _ = tracked_both(scene)
+    jv, tv = scene["jv"], scene["tv"]
+    prior = scene["prior"]
+    sj, Gj, perr_j, err_j, itj = jvio.photometric_update_levels(
+        prior, prior, jv.cam, jnp.asarray(scene["gray"]), tj.pos, tj.patch,
+        tj.search_level, tj.valid, jv.Rci, jv.Pci, jv.Jdphi_dR, jv.Jdp_dR,
+        img_point_cov=jv._ipc_dev, patch_size=8, levels=(level,), max_iter=1,
+        robust=robust)
+    assert int(itj) == 1
+    pt = tstate(prior)
+    err, HTH6, HTz, perr = photometric.photometric_err_H_plain(
+        torch.from_numpy(scene["gray"]), tt.pos, tt.patch[:, level], tt.search_level,
+        tt.valid, pt.rot, pt.pos, tv.Rci, tv.Pci, tv.Jdphi_dR, tv.Jdp_dR, tv.cam,
+        level, 8, robust)
+    valid = tt.valid.numpy()
+    assert valid.sum() > 10 and float(err) > 0
+    np.testing.assert_allclose(perr.numpy(), np.asarray(perr_j), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(float(err), float(err_j), rtol=1e-5)
+    P_ = pt.cov / float(tv.cfg.img_point_cov)
+    H64 = HTH6.double()
+    K = linalg.kalman_gain6_f64(P_, H64)
+    np.testing.assert_allclose((K @ H64).numpy(), np.asarray(Gj), atol=1e-4)
+    dx = -(K @ HTz.double())  # a step of ~8 mm and ~4 mrad here
+    np.testing.assert_allclose((pt.pos + dx[3:6]).numpy(), np.asarray(sj.pos), atol=2e-6)
+    rot = pt.rot @ so3.exp(dx[0:3])
+    np.testing.assert_allclose(rot.numpy(), np.asarray(sj.rot), atol=1e-6)
 
 
 def frame_step_both(sc, jmap, tmap):
