@@ -229,30 +229,46 @@ def kernel_phase(dev, n=16384, m=27):
 
 
 @contextlib.contextmanager
+def swapped(module, name, value):
+    """module.<name> = value for the duration; yields the original."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def unsampled_plain():
+    """The plain measurement sampling through the standalone
+    patches_and_grads kernel: the unfused pair the fused measurement
+    replaced."""
+    from fastlivo_tpu_torch.ops import image, patches_grads
+
+    return swapped(image, "patches_and_grads", patches_grads.patches_and_grads)
+
+
+@contextlib.contextmanager
 def unfused():
     """The paths as they ran before the fused kernels: the LIO search as
     tiled_map.knn_candidates + the standalone knn5_plane kernel, each
     photometric measurement as the plain body sampling through the
     standalone patches_and_grads kernel."""
     from fastlivo_tpu_torch import lio, vio
-    from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
+    from fastlivo_tpu_torch.ops import knn_plane, photometric
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
     def search(m, pw, radius, threshold):
         return knn_plane.knn5_plane(*tm.knn_candidates(m, pw, radius), pw, threshold)
 
-    def err_H(*a):
-        return photometric.photometric_err_H_plain(*a, sample=patches_grads.patches_and_grads)
-
-    saved = lio.knn5_plane_tiled, vio.photometric_err_H
-    lio.knn5_plane_tiled, vio.photometric_err_H = search, err_H
-    try:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(lio, "knn5_plane_tiled", search))
+        stack.enter_context(swapped(vio, "photometric_err_H",
+                                    photometric.photometric_err_H_plain))
+        stack.enter_context(unsampled_plain())
         yield
-    finally:
-        lio.knn5_plane_tiled, vio.photometric_err_H = saved
 
 
-@contextlib.contextmanager
 def spy(module, name, calls: list):
     """Record the arguments of every call of module.<name>."""
     real = getattr(module, name)
@@ -261,11 +277,7 @@ def spy(module, name, calls: list):
         calls.append(a)
         return real(*a)
 
-    setattr(module, name, wrapped)
-    try:
-        yield
-    finally:
-        setattr(module, name, real)
+    return swapped(module, name, wrapped)
 
 
 def reset_counts():
@@ -320,34 +332,72 @@ def tiled_bound_ms(m, q, radius: int = 1):
     """Least time for the fused search on these inputs: the queries, each
     distinct directory entry (8 B), pool-cell hash behind a matching entry
     (4 B) and live point (12 B) that the neighbourhoods touch read once,
-    21 B written per query, over HBM bandwidth; against ~65 operations
-    per candidate row (hash, indices, distance, selection) and ~200 per
-    query (the fit) over the float32 rate (integer operations run no
-    faster). Returns (ms, "bytes" | "operations", distinct counts)."""
+    21 B written per query, over HBM bandwidth; against the operations
+    these inputs need, counted from the kernel's source, over the float32
+    rate (integer operations run no faster): per query its voxel (6) and
+    the fit and gate of plane_fit.cuh (260); per candidate row its voxel,
+    tile, cell and directory indices (20), the directory test and slot
+    clamp (3) and one compare in each of the 5 selection rounds; per row
+    whose tile is in the directory the pool index and cell test (3); per
+    live row its squared distance (8); the 31-bit tile hash (30) once per
+    distinct tile of a neighbourhood. Returns (ms, "bytes" | "operations",
+    the distinct directory entries, pool cells, live points and tiles)."""
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
     dir_idx, pool_idx, tile_ok, chk = tm.candidate_cells(m, q, radius)
     live = tile_ok & (m.cell_check[pool_idx] == chk)
     n, M = dir_idx.shape
+    # a neighbourhood (radius <= 2) stays within one tile of its query's
+    # on each axis: code its tiles 0..26 and count the distinct ones
+    base = tm.voxel_of(q, m.voxel_size)
+    d = ((base[:, None, :] + tm.neighbor_offsets(radius, q.device)) >> 3) \
+        - (base[:, None, :] >> 3) + 1
+    code = torch.sort(d[..., 0] * 9 + d[..., 1] * 3 + d[..., 2], dim=1).values
+    tiles = n + int((code[:, 1:] != code[:, :-1]).sum())
     uniq = (torch.unique(dir_idx).numel(), torch.unique(pool_idx[tile_ok]).numel(),
-            torch.unique(pool_idx[live]).numel())
+            torch.unique(pool_idx[live]).numel(), tiles)
     nbytes = n * (12 + 21) + uniq[0] * 8 + uniq[1] * 4 + uniq[2] * 12 + M * 12
-    ops = n * (65 * M + 200)
+    ops = (n * (6 + 260) + n * M * (20 + 3 + 5) + 3 * int(tile_ok.sum())
+           + 8 * int(live.sum()) + 30 * tiles)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
 
 
-def photometric_bound_ms(G: int, P: int):
-    """Least time for one photometric measurement at (G, P): per point its
-    (P+3)^2 taps, its level of tr_patch, tr_pos, search level and valid
-    flag read once and its 44-float partial written and read once, plus
-    the pose, extrinsics and camera (~250 B) and the 44 outputs, over HBM
-    bandwidth; against ~160 float32 operations per pixel and ~250 per
-    point over the float32 rate. Returns (ms, "bytes" | "operations")."""
-    nbytes = G * ((P + 3) ** 2 * 4 + P * P * 4 + 12 + 4 + 1 + 4 + 2 * 44 * 4) + 250 + 44 * 4
-    ops = G * (P * P * 160 + 250)
+def photometric_bound_ms(args):
+    """Least time for one photometric measurement on these inputs
+    (photometric_err_H's arguments): the distinct image pixels of the
+    (P+3)^2 tap grids (4 B each; the grids from the plain version's own
+    sampling call), per point its level of tr_patch, tr_pos, search level
+    and valid flag read and its perr written, the pose, extrinsics,
+    Jacobian blocks and camera (248 B) read and the 44 outputs written,
+    each once, over HBM bandwidth; against the operations counted from the
+    kernel's source over the float32 rate: per pixel 5 bilinear samples
+    (7 each), du and dv (3 each), the residual, h (6 x 3), res_w and its
+    square, the robust weight (none 0, Huber 6, Tukey 9), the 48 products
+    of [h·wr·h | h·wr·res] and the 43 terms' sums; per point the
+    projection through world2cam (48), the anchor and weights (18), Jdpi,
+    Mg and N (132), 12 index operations per tap and 44 sums of the final
+    reduction; per launch the pose (75). Returns (ms, "bytes" |
+    "operations", distinct tap pixels)."""
+    from fastlivo_tpu_torch.ops import image
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    calls = []
+    with spy(image, "patches_and_grads", calls):
+        ph.photometric_err_H_plain(*args)
+    img, pc, P, scale = calls[0]
+    (H, W), G, n = img.shape, pc.shape[0], P + 3
+    u_i, v_i, _ = image._anchor_weights(pc, scale)
+    ext = torch.arange(n, device=pc.device) - (P // 2 + 1)
+    rows = (v_i[:, None].long() + ext * scale[:, None]).clamp(0, H - 1)
+    cols = (u_i[:, None].long() + ext * scale[:, None]).clamp(0, W - 1)
+    taps = torch.unique(rows[:, :, None] * W + cols[:, None, :]).numel()
+    nbytes = taps * 4 + G * (P * P * 4 + 12 + 4 + 1 + 4) + 248 + 44 * 4
+    per_px = (5 * 7 + 2 * 3 + 1 + 6 * 3 + 2 + {"none": 0, "huber": 6, "tukey": 9}[args[14]]
+              + 48 + 43)
+    ops = G * (P * P * per_px + 48 + 18 + 132 + 12 * n * n + 44) + 75
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), taps
 
 
 def photometric_phase(dev, args):
@@ -360,7 +410,6 @@ def photometric_phase(dev, args):
     patches_and_grads kernel) and the plain version. These launches are
     not the path's. Returns the max abs error over all outputs and the
     times."""
-    from fastlivo_tpu_torch.ops import patches_grads
     from fastlivo_tpu_torch.ops import photometric as ph
 
     args = list(args)
@@ -393,13 +442,14 @@ def photometric_phase(dev, args):
         raise AssertionError("photometric_err_H with nothing valid is not exactly 0")
     print("photometric_err_H with every point invalid: err = 0, HT = 0 exactly")
     ms = time_ms(lambda: ph.photometric_err_H(*args))
-    pair_ms = time_ms(lambda: ph.photometric_err_H_plain(
-        *args, sample=patches_grads.patches_and_grads))
+    with unsampled_plain():
+        pair_ms = time_ms(lambda: ph.photometric_err_H_plain(*args))
     plain_ms = time_ms(lambda: ph.photometric_err_H_plain(*args))
-    bound_ms, bound_by = photometric_bound_ms(G, P)
+    bound_ms, bound_by, taps = photometric_bound_ms(args)
     print(f"photometric_err_H G={G} P={P}: kernel {ms:.4f} ms, unfused pair (plain body + "
           f"patches_and_grads kernel) {pair_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by}), library none; {nvidia_smi_line()}")
+          f"{bound_ms:.6f} ms ({bound_by}; {taps} distinct tap pixels), library none; "
+          f"{nvidia_smi_line()}")
     return err, ms, pair_ms, plain_ms, bound_ms, bound_by
 
 
@@ -633,10 +683,23 @@ def real_queries(pipe, n):
     return pw.contiguous()
 
 
-def kernels_in(prof, stage: str) -> int:
-    """Device kernels launched under every range named `stage`."""
-    return sum(kernels_under(e) for e in prof.events()
-               if e.name == stage and str(e.device_type).endswith("CPU"))
+def kernel_names(e) -> list:
+    """Device kernels the profiler links to an event and its children."""
+    return [k.name for k in getattr(e, "kernels", [])] + [
+        name for c in e.cpu_children for name in kernel_names(c)]
+
+
+def kernels_in(prof, stages, launched: int):
+    """Device kernels launched under the ranges whose names start with
+    `stages`: those the profiler links to them, plus those of the
+    `launched` hand-written kernels (their launch counters over the
+    profiled window, all launched under these ranges) that it does not
+    link. Returns (count, hand-written launches it linked)."""
+    names = [name for e in prof.events()
+             if e.name.startswith(stages) and str(e.device_type).endswith("CPU")
+             for name in kernel_names(e)]
+    linked = sum(any(f"{s}_kernel" in name for s in CUDA_SOURCES) for name in names)
+    return len(names) + max(launched - linked, 0), linked
 
 
 def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
@@ -666,6 +729,7 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     for beg, pts, t_rel in scans[n_warm:]:
         pipe.push_lidar(beg, pts, t_rel)
     torch.cuda.synchronize()
+    reset_counts()
     with contextlib.ExitStack() as stack:
         if not fused:
             stack.enter_context(unfused())
@@ -675,12 +739,16 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
         outs = pipe.spin()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = read_counts()
     n = len(outs)
     if n == 0 or not all(o.iters > 0 for o in outs):
         raise AssertionError("profiled window holds no steady frames")
-    per_frame = kernels_in(prof, "lio.search") / n
+    launched = counts["knn5_plane_tiled"] + counts["knn5_plane"]
+    n_k, linked = kernels_in(prof, "lio.search", launched)
+    per_frame = n_k / n
     print(f"profile ({'fused' if fused else 'unfused'}): {per_frame:.1f} device kernels "
-          f"under lio.search per steady frame")
+          f"under lio.search per steady frame (the profiler linked {linked} of its "
+          f"{launched} hand-written launches to the range)")
     if not fused:
         return per_frame
     evs = prof.key_averages()
@@ -709,11 +777,6 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     return per_frame
 
 
-def kernels_under(e) -> int:
-    """Device kernels launched inside a profiler event and its children."""
-    return len(getattr(e, "kernels", [])) + sum(kernels_under(c) for c in e.cpu_children)
-
-
 def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fused=True):
     """Where a camera frame's time goes: torch.profiler over the LIVO
     frames after `t_warm` s of a second shipped-capacity LIVO run
@@ -733,6 +796,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     push_all(pipe, ds, t_min=t_warm)
     torch.cuda.synchronize()
     steps0 = pipe.vio.steps
+    reset_counts()
     with contextlib.ExitStack() as stack:
         if not fused:
             stack.enter_context(unfused())
@@ -742,6 +806,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
         outs = pipe.spin()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = read_counts()
     n_cam = pipe.vio.steps - steps0
     if n_cam == 0 or not outs:
         raise AssertionError("profiled LIVO window holds no camera frame")
@@ -749,18 +814,19 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     stages = sorted((e for e in evs if e.key.startswith("vio.")
                      and str(e.device_type).endswith("CPU")),
                     key=lambda e: -e.cpu_time_total)
-    n_k = sum(kernels_under(e) for e in prof.events()
-              if e.name.startswith("vio.") and str(e.device_type).endswith("CPU"))
+    launched = counts["photometric_err_H"] + counts["patches_and_grads"]
+    n_k, _ = kernels_in(prof, "vio.", launched)
+    n_photo, linked = kernels_in(prof, "vio.photometric", launched)
     busy = sum(e.self_device_time_total for e in evs if str(e.device_type).endswith("CUDA")
                and e.self_device_time_total > 0
                and not e.key.startswith(("frame.", "lio.", "vio."))) / 1e3
-    per_cam = f"{n_k / n_cam:.0f}" if n_k else "not measured"
-    photo = kernels_in(prof, "vio.photometric") / n_cam
+    photo = n_photo / n_cam
     print(f"livo profile ({'fused' if fused else 'unfused'}): {n_cam} camera frames, "
           f"{len(outs)} lidar frames, "
           f"{1e3 * wall:.1f} ms wall (profiler on), device busy {busy:.2f} ms = "
           f"{100 * busy / (1e3 * wall):.1f}% of wall; device kernels per camera "
-          f"frame {per_cam}, under vio.photometric {photo:.1f}")
+          f"frame {n_k / n_cam:.0f}, under vio.photometric {photo:.1f} (the profiler "
+          f"linked {linked} of its {launched} hand-written launches to the range)")
     for e in stages:
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
@@ -844,7 +910,7 @@ def main() -> int:
     print(f"knn5_plane_tiled N={n} M={m} on the path map: kernel {t_ms:.4f} ms, unfused pair "
           f"(knn_candidates + knn5_plane kernel) {pair_ms:.4f} ms, plain {t_plain_ms:.4f} ms, "
           f"bound {t_bound_ms:.5f} ms ({t_bound_by}; distinct directory entries, pool cells, "
-          f"live points {uniq}), library none; {smi}")
+          f"live points, neighbourhood tiles {uniq}), library none; {smi}")
 
     del pipe, cand, found, got, want
     torch.cuda.empty_cache()

@@ -36,14 +36,15 @@
 // it is bit-exact against its plain composition
 // knn5_plane_plain(*knn_candidates(...)).
 //
-// Bound on an H100: memory. The work reads each query (12 B), each
-// distinct directory entry the neighbourhoods touch (8 B), each distinct
-// pool cell behind a matching entry (4 B of hash) and each distinct live
-// cell's point (12 B), and writes 21 B per query; at the LIO path's
-// N = 16384, M = 27 the neighbourhoods overlap heavily, so chip_smoke.py
-// counts the distinct entries and cells of its inputs. The ~40 integer
-// operations per row (hash, indices) and the fit are far below the
-// card's rates.
+// Bound on an H100: the work reads each query (12 B), each distinct
+// directory entry the neighbourhoods touch (8 B), each distinct pool cell
+// behind a matching entry (4 B of hash) and each distinct live cell's
+// point (12 B), and writes 21 B per query; at the LIO path's N = 16384,
+// M = 27 the neighbourhoods overlap heavily, so these bytes are few and
+// the operations bound it: ~28 per candidate row (indices, directory
+// test, selection), a distance per live row, the tile hash once per
+// distinct tile of a neighbourhood and ~270 per query (voxel, fit).
+// chip_smoke.py counts both from its inputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

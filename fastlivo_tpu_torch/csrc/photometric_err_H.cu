@@ -37,13 +37,15 @@
 // sampling and the projection round as the plain version (-fmad=false);
 // only the order of the sums over G·P² rows differs from its matmul.
 //
-// Bound on an H100: bytes, at the path's G = 192, P = 8: per point
-// (P+3)² taps (484 B), its level of tr_patch (256 B), tr_pos, search
-// level and valid flag (17 B) and the 44-float partial written and read
-// again (352 B): ~0.21 MB, ~0.06 us at 3.35 TB/s; ~150 float operations
-// per pixel (~2 M) take ~0.03 us at 67 TFLOP/s. At that size the kernel
-// is bound by its dependent chain (loads -> projection -> taps -> sums ->
-// ticket -> final sum), i.e. by latency, not by the card.
+// Bound on an H100: bytes, at the path's G = 192, P = 8: per point its
+// (P+3)² taps (at most 484 B; chip_smoke.py counts the distinct pixels),
+// its level of tr_patch (256 B), tr_pos, search level and valid flag
+// (17 B) and its perr (4 B): ~0.15 MB, ~0.044 us at 3.35 TB/s (the
+// partials are this design's scratch, not the function's bytes); ~150
+// float operations per pixel and ~1.7 k per point (~2.2 M) take ~0.033 us
+// at 67 TFLOP/s. At that size the kernel is bound by its dependent chain
+// (loads -> projection -> taps -> sums -> ticket -> final sum), i.e. by
+// latency, not by the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

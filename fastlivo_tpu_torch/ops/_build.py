@@ -31,10 +31,13 @@ BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # contraction, nearly degenerate plane fits (two close eigenvalues) pick
 # a different eigenvector than their oracle. The kernels are bound by
 # memory, not by arithmetic. No --use_fast_math: the fits need the
-# accurate acosf/cosf/sqrtf.
+# accurate acosf/cosf/sqrtf. --cudart shared: the libraries launch through
+# the process's libcudart.so (the one PyTorch loaded, where the sonames
+# match), the runtime whose calls torch.profiler traces; `profiled` then
+# gives each launch an op to be linked to.
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "--cudart", "shared",
 ]
 
 _loaded: dict = {}
@@ -72,7 +75,12 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        nvcc = _nvcc()
+        # where no libcudart.so of that soname is loaded yet, the
+        # toolkit's own is found beside nvcc
+        rpath = Path(nvcc).resolve().parents[1] / "lib64"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xlinker", f"-rpath,{rpath}", "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
@@ -81,6 +89,20 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def profiled(name: str, fn):
+    """`fn` (a ctypes launch function) called inside a profiler op named
+    `name`: torch.profiler links a device kernel to the op around its
+    launch, not to a `record_function` range, so without one the
+    hand-written kernels stand unattributed in a trace."""
+    import torch
+
+    def call(*args):
+        with torch._C._profiler._RecordFunctionFast(name):
+            return fn(*args)
+
+    return call
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -150,7 +150,7 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return _build.profiled("knn5_plane", fn)
 
 
 def knn5_plane(cand: torch.Tensor, found: torch.Tensor,
@@ -224,7 +224,7 @@ def _tiled_launcher():
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return _build.profiled("knn5_plane_tiled", fn)
 
 
 def knn5_plane_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int = 1,

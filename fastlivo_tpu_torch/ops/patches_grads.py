@@ -55,7 +55,7 @@ def _launcher():
     fn = _build.load("patches_and_grads").patches_and_grads_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return _build.profiled("patches_and_grads", fn)
 
 
 def patches_and_grads(img: torch.Tensor, pc: torch.Tensor, patch_size: int,

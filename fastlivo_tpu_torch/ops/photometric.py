@@ -51,14 +51,11 @@ def _rows_times(p: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
 def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
                             Rci, Pci, Jdphi_dR, Jdp_dR, cam, level: int, P: int,
-                            robust: str = "none", robust_scale: float = 10.0,
-                            sample=image.patches_and_grads):
+                            robust: str = "none", robust_scale: float = 10.0):
     """The measurement at the pose (rot (3, 3), pos (3,), f64) for
     pyramid `level`: tr_pos (G, 3), tr_patch_l (G, P, P) the level's
     reference patches, tr_slevel (G,) int32, tr_valid (G,) bool. Returns
-    (err (), HTH6 (6, 6), HTz (6,), perr (G,)), all of img's dtype.
-    `sample` is the patch + gradient sampler (the plain one; the unfused
-    path with the standalone kernel passes that kernel's wrapper)."""
+    (err (), HTH6 (6, 6), HTz (6,), perr (G,)), all of img's dtype."""
     if robust not in ROBUST:
         raise ValueError(f"robust={robust!r}")
     dtype = img.dtype
@@ -69,7 +66,7 @@ def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, p
     pf = _rows_times(tr_pos, rcw) + pcw  # (G, 3)
     front = pf[:, 2] > 1e-6
     pc = cam_mod.world2cam(cam, pf)
-    val, du, dv = sample(img, pc, P, scale)
+    val, du, dv = image.patches_and_grads(img, pc, P, scale)
     res = val - tr_patch_l  # (G, P, P)
     zi = 1.0 / torch.where(front, pf[:, 2], 1.0)
     zi2 = zi * zi
@@ -149,7 +146,7 @@ def _launcher():
     fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    return _build.profiled("photometric_err_H", fn)
 
 
 _tickets: dict = {}
@@ -167,8 +164,7 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
 def photometric_err_H(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
                       Rci, Pci, Jdphi_dR, Jdp_dR, cam, level: int, P: int,
                       robust: str = "none", robust_scale: float = 10.0):
-    """`photometric_err_H_plain`'s signature and outputs (without its
-    `sample`). A CUDA tensor launches the fused kernel on the current
+    """`photometric_err_H_plain`'s signature and outputs. A CUDA tensor launches the fused kernel on the current
     stream (counted in `photometric_err_H.launches`); a CPU tensor runs
     the plain version. No other device is taken and nothing falls back."""
     if img.device.type == "cpu":

@@ -251,6 +251,24 @@ def test_every_kernel_source_is_built_and_smoked():
     assert cu == ["knn5_plane", "knn5_plane_tiled", "patches_and_grads", "photometric_err_H"]
 
 
+def test_kernel_launches_are_profiler_ops():
+    """A wrapped launch returns the launch function's value and stands in
+    a trace as an op of its kernel's name, inside the range it ran under:
+    the op a device kernel is linked to."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fastlivo_tpu_torch.ops import _build
+
+    calls = []
+    launch = _build.profiled("knn5_plane_tiled", lambda *a: calls.append(a) or 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("lio.search"):
+            assert launch(1, 2.0) == 0
+    assert calls == [(1, 2.0)]
+    (search,) = [e for e in prof.events() if e.name == "lio.search"]
+    assert [c.name for c in search.cpu_children] == ["knn5_plane_tiled"]
+
+
 def test_divergence_watchdog_restarts_mapping():
     """capacity.auto_reset_rms: an IMU gap in motion poisons the map; the
     watchdog restarts mapping and the run stays finite and bounded."""
