@@ -13,9 +13,15 @@ Layout (same module names as the JAX package):
   - imu.py      IMU init, propagation and scan undistortion.
   - lio.py      the point-to-plane iterated EKF update.
   - frame_step.py  the per-scan step: undistort -> filter -> EKF -> insert.
-  - pipeline.py the per-frame orchestrator (LiDAR-inertial path).
-  - convert.py  state and maps carried across from numpy arrays.
-  - run.py      CLI: `python -m fastlivo_tpu_torch.run --synthetic --no-img`.
+  - camera.py, visual_map.py, vio.py  the camera frame (VIO).
+  - pipeline.py the per-frame orchestrator (LIO and LIVO), with deferred
+                readback (readback.py), trace logs and warm start.
+  - replay.py   offline replay in blocks, one read per block.
+  - serve.py    the socket server (`python -m fastlivo_tpu_torch.serve`).
+  - convert.py, io/checkpoint.py  state and maps as numpy arrays / .npz.
+  - preprocess.py, features.py, io/rosbag.py, io/lz4.py  bag ingestion.
+  - run.py      CLI: `python -m fastlivo_tpu_torch.run --bag run.bag` or
+                `--synthetic`.
 
 Conventions: the navigation state and its covariance are float64, point
 batches float32. Entry points run on CUDA unless the caller passes

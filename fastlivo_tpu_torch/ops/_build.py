@@ -16,6 +16,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -41,6 +42,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: dict = {}
+_load_lock = threading.Lock()  # the server estimates on reader threads
 
 
 def _nvcc() -> str:
@@ -106,9 +108,14 @@ def profiled(name: str, fn):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library for csrc/<name>.cu, built first if needed.
+    Thread-safe; the launches take the calling thread's current stream
+    from their wrappers."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(name)))
+                _loaded[name] = lib
     return lib

@@ -21,10 +21,19 @@ device-to-host read of its packed stats row. The first frames (map
 bootstrap and the pre-EKF warm-up) take the staged path with the host
 voxel filter.
 
+Readback modes (outputs bit-identical to the synchronous path, later):
+  - `async_read`: the stats row is copied to the host without blocking
+    and read `async_depth` frames later (readback.DeferredRead); call
+    `finish()` at the end of a stream.
+  - `enable_block_read(E)` / replay.LivoBlockReplayer: the rows of E
+    events are stacked on the device and read in one copy per block.
+`log_dir` writes the reference's Log/ traces (logging_util.TraceLogger);
+`warm_start` restores an io/checkpoint snapshot.
+
 Not ported yet, and refused by the constructor: the dense and hash map
-backends, `plane_fit: ref`, `cache_knn` and the camera frame's `debug`
-overlay. Deferred readback, block replay, trace logging, visualisation
-and staged profiling are absent.
+backends, `plane_fit: ref`, `cache_knn`, and with images the camera
+frame's `debug` overlay and the RGB map cloud (`pcd_save_en`, which
+needs `Vio.colorize`). Visualisation and staged profiling are absent.
 """
 from __future__ import annotations
 
@@ -43,9 +52,10 @@ from . import visual_map as vmap_mod
 from .config import Config
 from .device import resolve_device
 from .frame_step import lidar_frame_step, stage_scan
-from .logging_util import rot_to_quat_wxyz
+from .logging_util import TraceLogger, rot_to_quat_wxyz
 from .ops import tiled_map as tmod
 from .ops.voxel_filter import voxel_downsample
+from .readback import DeferredRead
 from .state import NavState, identity_state, pack24
 from .sync import MeasureGroup, Synchronizer
 from .vio import Vio
@@ -72,16 +82,23 @@ class FrameOutput:
 
 
 class Pipeline:
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, log_dir=None):
         """`device`: where the state, the map and every kernel live;
-        CUDA unless the caller passes "cpu" (see device.py)."""
+        CUDA unless the caller passes "cpu" (see device.py). `log_dir`:
+        write the Log/ traces (mat_pre, mat_out, imu, pos_log and, with
+        pose_output_en, camera_pose) there."""
         cap = cfg.capacity
         if cfg.img_enable and cfg.debug:
             raise NotImplementedError(
                 "debug with images: the camera frame's overlay is not ported "
                 "yet; set debug = False")
+        if cfg.img_enable and cfg.pcd_save_en:
+            raise NotImplementedError(
+                "pcd_save_en with images: the RGB map cloud needs Vio.colorize, "
+                "which is not ported yet (ROADMAP item 8c)")
         lio_mod.check_supported(cap.map_backend, cap.plane_fit, cap.cache_knn)
         self.cfg = cfg
+        self.logger = TraceLogger(log_dir) if log_dir is not None else None
         self.device = resolve_device(device)
         dev = self.device
         # merged per-scan pose-table capacity: one segment per
@@ -122,6 +139,10 @@ class Pipeline:
         self._scan_id = None
         self.outputs: List[FrameOutput] = []
         self.on_frame = None  # per-frame callback, called with each FrameOutput
+        # device pose pack of the last IMU group (its last row is pack24
+        # of the propagated state); None once an update moved the state.
+        # Read only for the mat_pre trace row.
+        self._prop_pack_dev = None
         # host pack24 of the previous frame's posterior (from the frame's
         # stats read); feeds the local-map slider
         self._last_post = None
@@ -136,6 +157,25 @@ class Pipeline:
         # eval runs: collect the per-frame posterior covariance (NEES)
         self.collect_cov = False
         self.covs: List[np.ndarray] = []
+        # deferred readback (see the module doc): frames in flight, each
+        # with its DeferredRead and the host metadata of its output
+        self._async_read = False
+        self.async_depth = 1
+        self._pending: List[dict] = []
+        # block-packed readback (replay.BlockReadCollector); owned by the
+        # pipeline (flushed from spin/finish) when enable_block_read set it
+        self.read_collector = None
+        self._own_collector = False
+
+    @property
+    def async_read(self) -> bool:
+        return self._async_read
+
+    @async_read.setter
+    def async_read(self, v: bool):
+        self._async_read = bool(v)
+        if self.vio is not None:  # camera frames defer their stats too
+            self.vio.async_read = self._async_read
 
     def _make_map(self) -> tmod.TiledMap:
         cap = self.cfg.capacity
@@ -154,14 +194,99 @@ class Pipeline:
         self.sync.push_img(stamp, img)
 
     def spin(self) -> List[FrameOutput]:
-        """Process every ready measurement group; returns new outputs."""
+        """Process every ready measurement group; returns new outputs
+        (with deferred readback, a frame's output materializes later:
+        call `finish()` at the end of a stream)."""
         n0 = len(self.outputs)
         if self.sync.reset_flagged:
             self._reset_imu()
             self.sync.reset_flagged = False
         for g in self.sync.drain():
             self._process_group(g)
+            c = self.read_collector
+            if self._own_collector and c is not None and len(c) >= c.E:
+                c.flush()
+        if not self.async_read and self._pending:
+            self._resolve_pending()  # async_read was turned off mid-stream
         return self.outputs[n0:]
+
+    def finish(self) -> List[FrameOutput]:
+        """Resolve every deferred frame (end of stream); returns the late
+        outputs (none in the synchronous mode)."""
+        n0 = len(self.outputs)
+        if self._own_collector and self.read_collector is not None:
+            self.read_collector.drain()
+        self._resolve_pending()
+        if self.vio is not None:
+            self.vio.resolve_pending()
+        return self.outputs[n0:]
+
+    def enable_block_read(self, block: int) -> None:
+        """Live block-packed readback (`serve --block-read E`): the stats
+        rows of every `block` events (a lidar frame and a camera frame are
+        one event each) are read in one deferred copy, flushed from
+        `spin()`. Outputs are bit-identical, up to ~2*block events late.
+        Per-frame host consumers need per-frame reads and are refused."""
+        from .replay import BlockReadCollector
+
+        if (self.logger is not None or self.cfg.pcd_save_en
+                or self.on_frame is not None or self.materialize_dense
+                or self.collect_cov or self.cfg.debug):
+            raise ValueError(
+                "enable_block_read: per-frame consumers (logging, PCD, "
+                "on_frame, materialize_dense, collect_cov, debug) need "
+                "per-frame reads; use async_read instead")
+        c = BlockReadCollector(self, int(block))
+        self.read_collector = c
+        self._own_collector = True
+        if self.vio is not None:
+            self.vio.read_collector = c
+
+    def _resolve_oldest(self) -> Optional[FrameOutput]:
+        """Emit the oldest deferred frame (waits for its copy only)."""
+        if not self._pending:
+            return None
+        pend = self._pending.pop(0)
+        stats = pend["stats"].result()
+        dense = pend["dense"].result() if pend["dense"] is not None else None
+        self._map_occ_host = float(stats[28])
+        return self._emit_output(
+            scan=pend["scan"], post_pack=stats[3:27],
+            n_down=int(stats[0]), n_active=int(stats[1]), iters=int(stats[2]),
+            res_rms=float(stats[27]), dense_world=dense,
+            inten_np=pend["inten_np"], cov_handle=pend["cov_handle"],
+            timing=pend["timing"])
+
+    def _resolve_pending(self) -> None:
+        """Emit every deferred frame (stream end, reset)."""
+        while self._pending:
+            self._resolve_oldest()
+
+    def warm_start(self, state, m, visual=None, calib=None):
+        """Restore a snapshot (io/checkpoint.load's tuple), moved to this
+        pipeline's device. With `calib` the static IMU initialization is
+        skipped and the EKF engages on the first restored scan; without
+        it the maps load and IMU init re-runs on the live stream."""
+        dev = self.device
+
+        def to_dev(nt):
+            return type(nt)(*(t.to(dev) for t in nt))
+
+        self.state = to_dev(state)
+        self.map = to_dev(m)
+        self.map_built = True
+        self._map_occ_host = None
+        if visual is not None and self.vio is not None:
+            self.vio.vmap = to_dev(visual)
+            self.vio._n_pts_host = None
+        if calib is not None:
+            self.calib = to_dev(calib)
+            self.init_done = True
+        return self
+
+    def checkpointable_map(self) -> tmod.TiledMap:
+        """The map as io/checkpoint.save takes it."""
+        return self.map
 
     def _reset_imu(self):
         """Loop-back recovery (laserMapping.cpp:1273-1279 +
@@ -170,6 +295,7 @@ class Pipeline:
         and drop the propagation context. The state itself is kept."""
         warnings.warn("sensor loop-back detected: resetting IMU processor",
                       RuntimeWarning)
+        self._resolve_pending()  # emit the frames in flight first
         dev = self.device
         self.initializer = imu_mod.ImuInitializer()
         self.init_done = False
@@ -202,6 +328,7 @@ class Pipeline:
                 rot=torch.eye(3, **f64),
             )
             self.init_done = True
+            self._prop_pack_dev = None  # state changed outside propagation
             self.last_group_end = g.scan.beg_time if g.scan else float(g.imu_t[-1])
 
     def _propagate(self, g: MeasureGroup, end_time: float):
@@ -220,6 +347,8 @@ class Pipeline:
             self.last_imu = (g.imu_t[-1], g.imu_acc[-1], g.imu_gyr[-1])
 
         if self.last_group_end is None:
+            # also the warm restart: the first restored group anchors the
+            # IMU-time continuity at its own start
             self.last_group_end = (scan.beg_time if scan is not None
                                    else float(imu_t[0]))
         acc_avg, gyr_avg, dt, offs, valid, tail_dt, row0_off = imu_mod.prepare_pairs(
@@ -229,6 +358,11 @@ class Pipeline:
             last_end_time=self.last_group_end,
             max_pairs=cap,
         )
+        if self.logger is not None and self.first_lidar_time is not None:
+            # per-pair averaged IMU trace (fout_imu, IMU_Processing.cpp:681)
+            for i in np.nonzero(valid)[0]:
+                self.logger.log_imu(imu_t[i] - self.first_lidar_time,
+                                    acc_avg[i], gyr_avg[i])
         # pow2 bucket of the group's live pair count, grow-only
         n_rows = max(len(imu_t) - 1, 0)
         B = min(cap, 1 << max(3, int(max(n_rows - 1, 1)).bit_length()))
@@ -243,6 +377,7 @@ class Pipeline:
             self.acc_s_last, self.angvel_last, self.calib,
         )
         self.state = st
+        self._prop_pack_dev = pose_pack
         self.last_group_end = end_time
         # kept rows: row0 + the valid pairs (host-known, no device read)
         keep = np.concatenate([[True], valid[:B]])
@@ -285,6 +420,10 @@ class Pipeline:
             if scan is not None:
                 self.first_lidar_time = scan.beg_time
             return None
+        if self.first_lidar_time is None and scan is not None:
+            # warm restart with calib: backdate the epoch so that the EKF
+            # is engaged from the first restored frame
+            self.first_lidar_time = scan.beg_time - INIT_TIME
 
         t0 = time.perf_counter()
         end_time = scan.end_time if g.is_lidar_end else scan.beg_time + g.img_offset_time
@@ -296,9 +435,16 @@ class Pipeline:
             # on every image group once a lidar frame has run
             if self.vio is not None and self.ready and self.first_lidar_time is not None:
                 self.state = self.vio.update(self.state, self.state, g.img)
+                self._prop_pack_dev = None  # posterior != propagated
             return None
 
         # ---- lidar-end frame: undistort the whole scan ------------------
+        if self.logger is not None:
+            # the propagated (pre-update) state row: the group's pose
+            # pack ends with it (one read, paid only when logging)
+            pre = (self._prop_pack_dev[-1] if self._prop_pack_dev is not None
+                   else pack24(self.state))
+            self.logger.log_pre(scan.end_time, pre.cpu().numpy())
         with record_function("frame.pose_table"):
             pose_table = self._merged_pose_table()
         cap = self.cfg.capacity
@@ -364,7 +510,14 @@ class Pipeline:
                 dense_out=self.cfg.dense_map_enable or self.vio is not None,
             )
             self.state = st
+            self._prop_pack_dev = None  # posterior != propagated
             self.map = m2
+            if self.vio is not None:
+                # device-to-device handoff: only the row count is host-side
+                self.vio.set_last_cloud_device(dense_j, N)
+            self.last_effect = (down_j, active_j)
+            if self.async_read or self.read_collector is not None:
+                return self._defer(scan, inten_np, N, st, stats_j, dense_j, t0)
             with record_function("frame.stats_read"):
                 stats = stats_j.cpu().numpy()
             n_down, n_active, iters = int(stats[0]), int(stats[1]), int(stats[2])
@@ -375,10 +528,6 @@ class Pipeline:
                 need_dense = (self.cfg.pcd_save_en or self.on_frame is not None
                               or self.materialize_dense)
                 dense_world = dense_j[:N].cpu().numpy() if need_dense else None
-            if self.vio is not None:
-                # device-to-device handoff: only the row count is host-side
-                self.vio.set_last_cloud_device(dense_j, N)
-            self.last_effect = (down_j, active_j)
             t_undistort = t_down = t0
             t_ekf = t_map = time.perf_counter()
         else:
@@ -426,10 +575,12 @@ class Pipeline:
             if self.vio is not None:
                 self.vio.set_last_cloud(dense_world)
 
+        self._resolve_pending()  # keep the outputs in frame order
         return self._emit_output(
             scan=scan, post_pack=post_pack, n_down=n_down,
             n_active=n_active, iters=iters, res_rms=res_rms,
             dense_world=dense_world, inten_np=inten_np,
+            cov_handle=self.state.cov,
             timing={
                 "undistort": t_undistort - t0,
                 "downsample": t_down - t_undistort,
@@ -439,11 +590,41 @@ class Pipeline:
             },
         )
 
+    def _defer(self, scan, inten_np, N, st, stats_j, dense_j, t0) -> Optional[FrameOutput]:
+        """The fused frame's readback, deferred: to the block collector,
+        or started now and resolved `async_depth` frames later (after
+        this frame's dispatches). The covariance handle is this frame's:
+        a later frame replaces `self.state`."""
+        t_done = time.perf_counter()
+        timing = {"undistort": 0.0, "downsample": 0.0, "ekf": t_done - t0,
+                  "map": 0.0, "total": t_done - t0}
+        if self.read_collector is not None:
+            self.read_collector.add_lidar(stats_j, dict(
+                scan=scan, inten_np=inten_np, cov_handle=st.cov, timing=timing))
+            return None
+        need_dense = self.cfg.dense_map_enable and (
+            self.cfg.pcd_save_en or self.on_frame is not None
+            or self.materialize_dense)
+        self._pending.append(dict(
+            stats=DeferredRead(stats_j),
+            dense=DeferredRead(dense_j[:N]) if need_dense else None,
+            scan=scan, inten_np=inten_np, cov_handle=st.cov, timing=timing))
+        out = None
+        while len(self._pending) > self.async_depth:
+            out = self._resolve_oldest()
+        return out
+
     def _emit_output(self, *, scan, post_pack, n_down, n_active, iters,
-                     res_rms, dense_world, inten_np, timing) -> FrameOutput:
-        """Host-side frame finalization: FrameOutput, hooks, trajectory
-        and the divergence watchdog."""
+                     res_rms, dense_world, inten_np, cov_handle,
+                     timing) -> FrameOutput:
+        """Host-side frame finalization: trace logging, FrameOutput,
+        hooks, trajectory and the divergence watchdog. Shared by the
+        synchronous path and the deferred resolutions."""
         self._last_post = post_pack  # feeds next frame's map slider
+        if self.logger is not None:
+            self.logger.log_post(scan.end_time, post_pack, n_points=len(scan.pts))
+            self.logger.log_pos(scan.beg_time - (self.first_lidar_time or 0.0),
+                                post_pack)
         rot_np = np.array(post_pack[0:9]).reshape(3, 3)
         pos_np = np.array(post_pack[9:12])
         quat = rot_to_quat_wxyz(rot_np)
@@ -463,8 +644,19 @@ class Pipeline:
             if inten_np is not None:
                 out.intensity = np.asarray(inten_np[: len(dense_world)],
                                            np.float32)
+        if self.cfg.pose_output_en and self.logger is not None and self.vio is not None:
+            # camera_pose.txt (fout_tum, laserMapping.cpp:1738-1748): the
+            # world->camera pose of the latest camera frame, or from the
+            # current state before the first one
+            self.vio.resolve_pending()
+            if self.vio.last_rcw is not None:
+                rcw, pcw = self.vio.last_rcw, self.vio.last_pcw
+            else:
+                rcw = self.vio.Rci.cpu().numpy() @ rot_np.T
+                pcw = -rcw @ pos_np + self.vio.Pci.cpu().numpy()
+            self.logger.log_camera_pose(scan.beg_time, rcw, pcw)
         if self.collect_cov:
-            self.covs.append(self.state.cov.cpu().numpy())
+            self.covs.append(cov_handle.cpu().numpy())
         self.outputs.append(out)
         if self.on_frame is not None:
             self.on_frame(out)

@@ -32,8 +32,11 @@ Differences from the JAX package, none of which changes a result:
   - duplicate-index `set` scatters (the depth image) keep the last row,
     as XLA on the CPU does, by an explicit rule that holds on the card;
   - the visual map is updated in place (see visual_map.py).
-Not ported yet: `update_staged`, the asynchronous and block readers, the
-debug overlay, `colorize`, and the mesh/sharded forms.
+The frame's stats row is read at once, or deferred (`async_read`, read
+`async_depth` camera frames later) or handed to a block collector
+(`read_collector`, replay.BlockReadCollector), as the pipeline sets.
+Not ported yet: `update_staged`, the debug overlay, `colorize`, and the
+mesh/sharded forms.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from .ops import linalg as linalg_ops
 from .ops import so3
 from .ops.photometric import _recip32, photometric_err_H
 from .ops.voxel_filter import voxel_downsample_device
+from .readback import DeferredRead
 from .state import DIM_STATE, NavState
 
 CONV_ROT_DEG = 0.001  # lidar_selection.cpp:885
@@ -622,6 +626,12 @@ class Vio:
         self._n_pts_host: Optional[int] = None
         self.last_rcw: Optional[np.ndarray] = None  # frame T_f_w_ rotation
         self.last_pcw: Optional[np.ndarray] = None
+        # deferred stats reads (set through Pipeline.async_read) and the
+        # block collector (replay.BlockReadCollector)
+        self.async_read = False
+        self.async_depth = 1
+        self._pending: list = []
+        self.read_collector = None
 
     def _fresh_vmap(self) -> vmap_mod.VisualMap:
         """A new empty visual map at the configured capacities."""
@@ -717,9 +727,22 @@ class Vio:
         self.vmap = vm2
         self.fid += 1
         self.steps += 1
+        if self.read_collector is not None:
+            self.read_collector.add_cam(stats_j)
+            return st
+        if self.async_read:
+            self._pending.append(DeferredRead(stats_j))
+            while len(self._pending) > self.async_depth:
+                self._apply_stats(self._pending.pop(0).result())
+            return st
         with record_function("vio.stats_read"):
             self._apply_stats(stats_j.cpu().numpy())
         return st
+
+    def resolve_pending(self):
+        """Apply every deferred camera-frame stats row."""
+        while self._pending:
+            self._apply_stats(self._pending.pop(0).result())
 
     def _apply_stats(self, stats: np.ndarray):
         self.last_stats = {"tracked": int(stats[0]), "added": int(stats[1]),

@@ -16,6 +16,11 @@ knn5_plane_plain(knn_candidates(...)). The fused photometric measurement
 holds HᵀH and Hᵀz each within 1e-4 of its largest entry and err, perr
 within rtol 1e-5 of its plain version (its sums over the G·P² rows run in another order);
 with nothing to measure err and HT are exactly 0.
+
+Also the slice's paths on the card: block replay within 5 mm of the
+per-frame path (the bound of tests/test_replay.py), deferred and
+block-packed readback bit-identical to the synchronous path, and a
+checkpoint written on the card that loads on the CPU unchanged.
 """
 import numpy as np
 import pytest
@@ -365,3 +370,74 @@ def test_photometric_err_H_refuses_bad_inputs(cuda):
         photometric_call(photometric.photometric_err_H, x, 0, 8, "cauchy")
     with pytest.raises(ValueError):
         photometric_call(photometric.photometric_err_H, x, 0, 32, "none")
+
+
+def small_lio(device, **kw):
+    cfg = Config()
+    cfg.img_enable = False
+    cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                  tiled_dir_dims=(32, 32, 16), tiled_pool=1024)
+    ds = SyntheticDataset(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
+    pipe = Pipeline(cfg, device=device, **kw)
+    for beg, pts, t_rel in ds.lidar_scans_fast():
+        pipe.push_lidar(beg, pts, t_rel)
+    for t, acc, gyr in ds.imu_stream():
+        pipe.push_imu(t, acc, gyr)
+    return pipe
+
+
+@pytest.mark.parametrize("mode", ["scan", "packed"])
+def test_block_replay_on_the_card_matches_per_frame(cuda, mode):
+    """BlockReplayer (8) and LivoBlockReplayer (8) on the card against the
+    per-frame path on the card: same frames, within 5 mm (the bound of
+    tests/test_replay.py), through the fused search kernel."""
+    from fastlivo_tpu_torch.replay import BlockReplayer, LivoBlockReplayer
+
+    outs_ref = small_lio(cuda).spin()
+    pipe = small_lio(cuda)
+    before = knn_plane.knn5_plane_tiled.launches
+    rep = BlockReplayer if mode == "scan" else LivoBlockReplayer
+    outs = rep(pipe, 8).run()
+    assert knn_plane.knn5_plane_tiled.launches - before >= 20
+    assert len(outs) == len(outs_ref) >= 25
+    for a, b in zip(outs, outs_ref):
+        assert a.t == b.t and np.linalg.norm(a.pos - b.pos) < 5e-3
+
+
+def test_async_and_block_read_on_the_card_are_bit_identical(cuda):
+    ref = small_lio(cuda)
+    ref.collect_cov = True
+    outs_ref = ref.spin()
+    for mode in ("async", "block"):
+        pipe = small_lio(cuda)
+        if mode == "async":
+            pipe.collect_cov = True
+            pipe.async_read = True
+            pipe.async_depth = 2
+        else:
+            pipe.enable_block_read(4)
+        outs = pipe.spin() + pipe.finish()
+        assert len(outs) == len(outs_ref) >= 25
+        for a, b in zip(outs, outs_ref):
+            assert a.t == b.t and a.iters == b.iters and a.n_active == b.n_active
+            np.testing.assert_array_equal(a.pos, b.pos)
+            np.testing.assert_array_equal(a.quat, b.quat)
+        if mode == "async":
+            for c_a, c_b in zip(pipe.covs, ref.covs):
+                np.testing.assert_array_equal(c_a, c_b)
+
+
+def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
+    from fastlivo_tpu_torch.io import checkpoint as ckpt
+
+    pipe = small_lio(cuda)
+    pipe.spin()
+    ckpt.save(tmp_path / "ck.npz", pipe.state, pipe.map, None, calib=pipe.calib)
+    state, m, vmap, calib = ckpt.load(tmp_path / "ck.npz", device="cpu")
+    assert vmap is None and state.pos.device.type == "cpu"
+    for got, want in ((state, pipe.state), (m, pipe.map), (calib, pipe.calib)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a.numpy(), b.cpu().numpy())
+    cpu = Pipeline(pipe.cfg, device="cpu").warm_start(state, m, None, calib)
+    assert cpu.init_done and cpu.map_built

@@ -31,6 +31,13 @@ from fastlivo_tpu_torch.pipeline import Pipeline
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "fastlivo_tpu_torch"
 
+# The suite runs in parallel worker processes, each of which collects
+# this module. With torch's default of one OpenMP thread per core in
+# every worker, the spinning pools oversubscribe the cores and a port
+# test ran 12x slower beside three others (27 s alone, 319 s at -n 4);
+# one intra-op thread per worker keeps each near its solo time.
+torch.set_num_threads(1)
+
 
 def small_config(cls_cfg, cls_cap):
     cfg = cls_cfg()
@@ -187,7 +194,7 @@ def test_cli_synthetic_on_cpu(tmp_path, capsys):
     rows = np.loadtxt(out, ndmin=2)
     assert rows.shape[1] == 8 and len(rows) >= 15
     with pytest.raises(SystemExit):
-        trun.main(["--device", "cpu"])  # rosbag replay is not ported
+        trun.main(["--device", "cpu"])  # neither --bag nor --synthetic
     cfg_yaml.write_text("capacity:\n  map_backend: dense\n")
     with pytest.raises(NotImplementedError, match="map_backend"):
         trun.main(["--config", str(cfg_yaml), "--synthetic", "--device", "cpu"])
@@ -219,7 +226,11 @@ def test_default_device_is_cuda():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, fastlivo_tpu_torch.pipeline, fastlivo_tpu_torch.run, "
-            "fastlivo_tpu_torch.convert; "
+            "fastlivo_tpu_torch.convert, fastlivo_tpu_torch.replay, "
+            "fastlivo_tpu_torch.serve, fastlivo_tpu_torch.readback, "
+            "fastlivo_tpu_torch.preprocess, fastlivo_tpu_torch.features, "
+            "fastlivo_tpu_torch.io.checkpoint, fastlivo_tpu_torch.io.rosbag, "
+            "fastlivo_tpu_torch.io.lz4; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'fastlivo_tpu' or m.startswith('fastlivo_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -231,7 +242,10 @@ def test_import_pulls_in_no_jax():
 def test_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+jax\b|fastlivo_tpu\.", re.M)
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
-    assert len(files) > 15
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"replay.py", "serve.py", "readback.py", "preprocess.py", "features.py",
+            "io/checkpoint.py", "io/rosbag.py", "io/lz4.py"} <= names
+    files.append(ROOT / "chip_smoke.py")
     for f in files:
         assert not pat.search(f.read_text()), f
 
