@@ -257,6 +257,17 @@ def unsampled_plain():
     return swapped(image, "patches_and_grads", patches_grads.patches_and_grads)
 
 
+def check_composition(counts, fused, pairs, where):
+    """In a run of the fused composition every (fused, standalone) kernel
+    pair launched only its fused kernel; in one of the unfused composition
+    only its standalone kernel."""
+    for fk, sk in pairs:
+        on, off = (fk, sk) if fused else (sk, fk)
+        if counts[on] == 0 or counts[off] != 0:
+            raise AssertionError(f"{where}: {counts[on]} launches of {on}, "
+                                 f"{counts[off]} of {off}")
+
+
 @contextlib.contextmanager
 def unfused():
     """The paths as they ran before the fused kernels: the LIO search as
@@ -771,6 +782,7 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     n = len(outs)
     if n == 0 or not all(o.iters > 0 for o in outs):
         raise AssertionError("profiled window holds no steady frames")
+    check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane")], "lio profile")
     launched = counts["knn5_plane_tiled"] + counts["knn5_plane"]
     n_k, linked = kernels_in(prof, "lio.search", launched)
     per_frame = n_k / n
@@ -838,6 +850,9 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     n_cam = pipe.vio.steps - steps0
     if n_cam == 0 or not outs:
         raise AssertionError("profiled LIVO window holds no camera frame")
+    check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane"),
+                                      ("photometric_err_H", "patches_and_grads")],
+                      "livo profile")
     evs = prof.key_averages()
     stages = sorted((e for e in evs if e.key.startswith("vio.")
                      and str(e.device_type).endswith("CPU")),

@@ -3,7 +3,9 @@
 Each `*_from_arrays` takes a dict keyed by the NamedTuple's field names
 (the JAX package's field names, so `{f: np.asarray(v) for f, v in
 jax_state._asdict().items()}` converts its values) and a device; each
-`*_to_arrays` is the inverse. Dtypes are kept as given.
+`*_to_arrays` is the inverse, and returns arrays of its own: the maps
+are updated in place, so an array that shared a CPU tensor's memory would
+change with the next frame. Dtypes are kept as given.
 """
 from __future__ import annotations
 
@@ -21,8 +23,14 @@ def _from_arrays(cls, d: dict, device):
                   for f in cls._fields})
 
 
+def _own(t: torch.Tensor) -> np.ndarray:
+    # .cpu() copies a device tensor but returns a CPU tensor itself
+    t = t.detach()
+    return (t.clone() if t.device.type == "cpu" else t.cpu()).numpy()
+
+
 def _to_arrays(nt) -> dict:
-    return {f: getattr(nt, f).detach().cpu().numpy() for f in nt._fields}
+    return {f: _own(getattr(nt, f)) for f in nt._fields}
 
 
 def state_from_arrays(d: dict, device) -> NavState:

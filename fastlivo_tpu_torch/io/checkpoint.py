@@ -9,9 +9,9 @@ for key, so a snapshot written by either package loads into the other:
     vmap/<field>    VisualMap (LIVO only)
     calib/<field>   ImuCalib (lets a restored process skip IMU init)
 
-The port updates its maps in place on the device, so `save` copies every
-array to the host before it returns: the caller may run the next frame
-right after it.
+The port updates its maps in place, on the card and on the CPU alike, so
+`to_host` copies every array (a CPU tensor too) before it returns: the
+caller may run the next frame right after it.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from ..visual_map import VisualMap
 
 def to_host(state, m, visual=None, calib=None) -> dict:
     """The snapshot as a dict of host numpy arrays in the `.npz` layout
-    (a synchronous copy of every device array)."""
+    (a synchronous copy of every array, sharing no memory with the
+    tensors)."""
     out = {"map_type": np.array("tiled")}
     for prefix, nt in (("state", state), ("map", m), ("vmap", visual),
                        ("calib", calib)):

@@ -4,8 +4,7 @@ Port of the JAX package's replay.py. Two replayers:
 
   - `BlockReplayer` (LIO only): once the pipeline is in its steady
     state, K lidar frames run back to back in `lidar_block_step` (IMU
-    propagation -> undistortion -> voxel filter -> iterated EKF -> map
-    insert per frame), and the K frames' summaries are read in one packed
+    propagation, then the per-frame path's `lidar_frame_step`), and the K frames' summaries are read in one packed
     (K, 43) f64 copy. The JAX package chains the K steps in a `lax.scan`;
     here they are a host loop over the same per-frame functions. As in
     the JAX package, the sliding local map moves once per block, the
@@ -30,10 +29,9 @@ import numpy as np
 import torch
 
 from . import imu as imu_mod
-from . import lio as lio_mod
+from .frame_step import lidar_frame_step
 from .logging_util import rot_to_quat_wxyz
 from .ops import tiled_map as tmod
-from .ops import voxel_filter as vf
 from .readback import DeferredRead
 from .state import NavState
 
@@ -45,54 +43,37 @@ def lidar_block_step(state: NavState, m: tmod.TiledMap, calib: imu_mod.ImuCalib,
                      pts_raw, t_rel, rmask, acc_s_last, angvel_last,
                      filter_size_surf: torch.Tensor, laser_point_cov: float,
                      max_points: int, max_iter: int, knn_radius: int):
-    """K chained scan steps; inputs are stacked on a leading axis K.
+    """K chained scan steps; inputs are stacked on a leading axis K. Each
+    step is `imu.propagate` followed by the per-frame path's own
+    `frame_step.lidar_frame_step`.
 
     Returns (state', map' (the map, updated in place), acc_s_last',
-    angvel_last', ys) with ys one packed (K, 43) f64 tensor
-    (`_pack_summary`; tail = [n_active, iters, res_rms, map_occupancy])."""
+    angvel_last', ys) with ys one packed (K, 43) f64 tensor, one row per
+    frame: [pre rot9|pos3|vel3 (0:15), post rot9|pos3|vel3|bg3|ba3|grav3
+    (15:39), n_active, iters, res_rms, map_occupancy (39:43)]."""
     st, mm = state, m
     acc_s = acc_s_last.to(state.pos.dtype)
     angv = angvel_last.to(state.pos.dtype)
+    tail = torch.tensor([1, 2, 27, 28], device=pts_raw.device)
     ys = []
     for k in range(acc_avg.shape[0]):
         st1, pose, acc_s, angv = imu_mod.propagate(
             st, acc_avg[k], gyr_avg[k], dt[k], offs[k], pair_valid[k],
             tail_dt[k], acc_s, angv, calib, row0_off=row0_off[k])
-        und = imu_mod.undistort(st1, pose, pts_raw[k], t_rel[k], rmask[k], calib)
-        down, dmask = vf.voxel_downsample_device(und, rmask[k], filter_size_surf,
-                                                 max_points)
-        res = lio_mod.lio_update(
-            st1, mm, down, dmask, calib.lid_rot, calib.lid_off,
-            laser_point_cov=laser_point_cov, max_iter=max_iter,
-            knn_radius=knn_radius)
-        mm = tmod.insert(mm, res.pts_world, dmask)
-        n_safe = torch.clamp(res.n_active.to(F64), min=1.0)
-        act_res = torch.where(res.active, res.res.to(F64),
-                              torch.zeros((), dtype=F64, device=down.device))
-        res_rms = torch.sqrt(torch.sum(act_res ** 2) / n_safe)
-        it = torch.tensor(float(res.iters), dtype=F64, device=down.device)
-        ys.append(_pack_summary(st1, res.state,
-                                (res.n_active, it, res_rms, mm.n_alloc)))
-        st = res.state
+        st, mm, *_, stats = lidar_frame_step(
+            st1, mm, pose, calib, pts_raw[k], t_rel[k], rmask[k],
+            filter_size_surf, laser_point_cov, max_points, max_iter,
+            knn_radius, dense_out=False)
+        ys.append(torch.cat([st1.rot.reshape(9).to(F64), st1.pos.to(F64),
+                             st1.vel.to(F64), stats[3:27], stats[tail]]))
     return st, mm, acc_s, angv, torch.stack(ys)
 
 
 SUMMARY_TAIL = 39  # counters start here in a packed summary row
 
 
-def _pack_summary(st1: NavState, st2: NavState, tail) -> torch.Tensor:
-    """One f64 row per frame: [pre rot9|pos3|vel3 (0:15), post
-    rot9|pos3|vel3|bg3|ba3|grav3 (15:39), *tail counters (39:)]."""
-    return torch.cat([
-        st1.rot.reshape(9).to(F64), st1.pos.to(F64), st1.vel.to(F64),
-        st2.rot.reshape(9).to(F64), st2.pos.to(F64), st2.vel.to(F64),
-        st2.bg.to(F64), st2.ba.to(F64), st2.grav.to(F64),
-        torch.stack([t.to(F64) for t in tail]),
-    ])
-
-
 def _unpack_summary(rows: np.ndarray) -> dict:
-    """Host-side inverse of `_pack_summary` over (E, >= 39) rows."""
+    """Host-side inverse of `lidar_block_step`'s rows over (E, >= 39) rows."""
     E = len(rows)
     return {
         "pre_R": rows[:, 0:9].reshape(E, 3, 3),
