@@ -8,21 +8,27 @@ plain PyTorch version on the card, and drives two paths through
 `Pipeline` on `Config()`'s shipped capacities with 24000-point scans:
 the LiDAR-inertial path (LIO, camera off) and the LiDAR-inertial-visual
 path (LIVO, a 640x512 camera). The same LIO dataset then runs through
-the slice's other paths: block replay (`BlockReplayer(8)` and
+the other map backends and LIO options (the hash map, the dense grid,
+`cache_knn`, `plane_fit: ref`, `profile_every` and `BlockReplayer(8)` on
+the hash map; the hash and dense estimators are checkpointed) and
+through the slice's other paths: block replay (`BlockReplayer(8)` and
 `LivoBlockReplayer(8)`), a `serve.Server` on a Unix socket with
 `--autosave` and a second server warm-started from that file, and a bag
 of Avia scans replayed by `run.main --bag --block 8`; the LIVO dataset
-runs through `LivoBlockReplayer(8)` and is checkpointed. The paths run
-the fused kernels: the LIO search in one launch (`knn5_plane_tiled`) and
-each photometric iteration's measurement in one launch
-(`photometric_err_H`); each path's launches are counted around it. The
-standalone `knn5_plane` and `patches_and_grads` are held against their
-plain versions but are not on the paths. Each path's trajectory is
-checked against the per-frame path and the synthetic ground truth, and
-the port on the card against the port on the CPU on a small input. Both
-per-frame paths are profiled, and so is the unfused composition they
-replaced, for the kernel counts under `lio.search` and `vio.photometric`
-before and after.
+runs through `LivoBlockReplayer(8)` and is checkpointed. The tiled-map
+paths run the fused kernels: the LIO search in one launch
+(`knn5_plane_tiled`) and each photometric iteration's measurement in one
+launch (`photometric_err_H`); the hash, dense and `cache_knn` paths
+search through the standalone `knn5_plane`; each path's launches are
+counted around it. The standalone `patches_and_grads` is held against
+its plain version but is not on the paths. The hash and dense maps'
+operations run on the card and on the CPU on the same seeded points and
+must agree in every array; `rebuild` is timed at the shipped table. Each
+path's trajectory is checked against the per-frame path and the
+synthetic ground truth, and the port on the card against the port on the
+CPU on a small input. Both per-frame paths are profiled, and so is the
+unfused composition they replaced, for the kernel counts under
+`lio.search` and `vio.photometric` before and after.
 
 Prints the card and its power limit, the build time, each kernel's
 time beside its bound and beside the unfused pair it replaced, each
@@ -109,6 +115,25 @@ def time_ms(fn, reps: int = 30) -> float:
         else:
             break
     raise AssertionError("could not queue the timed calls ahead of the device")
+
+
+def event_ms(fn, reps: int = 10) -> float:
+    """Median time of one call alone between two CUDA events, the device
+    idle before it: the call's device timeline, with the gaps where the
+    device waited for the host's launches. For calls of more small
+    kernels than the CUDA launch queue holds, which `time_ms` cannot
+    queue ahead of the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def random_block(n, m=27, seed=0, drop=0.3):
@@ -1230,6 +1255,209 @@ def bag_phase(dev, ds, t0=100.0):
     return {"bag --block 8": (ms, launches)}
 
 
+def same_outputs(outs, ref) -> bool:
+    """Every frame of `outs` equal to `ref`'s, bit for bit (timing aside)."""
+    return len(outs) == len(ref) and all(
+        a.t == b.t and a.iters == b.iters and a.n_active == b.n_active
+        and a.n_points == b.n_points and a.res_rms == b.res_rms
+        and all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("pos", "quat", "vel"))
+        for a, b in zip(outs, ref))
+
+
+def lio_config(**capacity):
+    """`Config()` without the camera, at its shipped capacities but for
+    the given capacity fields."""
+    from fastlivo_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.img_enable = False
+    for k, v in capacity.items():
+        setattr(cfg.capacity, k, v)
+    return cfg
+
+
+def backend_paths_phase(dev, ds, ref, ref_ms):
+    """The LIO dataset of path_phase through the other map backends and
+    LIO options at shipped capacities: (a) the hash map (2^20 slots,
+    probe 12), (b) the dense grid (256 x 256 x 64), (c) tiled with
+    `cache_knn`, (d) tiled with `plane_fit: ref`, (e) tiled with
+    `profile_every` 8, (f) BlockReplayer(8) on the hash map. The hash,
+    dense, cache_knn and hash-block paths must search through the
+    standalone knn5_plane kernel and never the tiled one; plane_fit ref
+    through neither; profile_every must leave the per-frame outputs
+    unchanged in every bit; every ATE < 2 cm. Checkpoints the hash and
+    dense estimators. Returns ({path: (ms per frame, launches)}, {path:
+    its other numbers}, the hash path's pipeline, {map: checkpoint
+    numbers})."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+    from fastlivo_tpu_torch.pipeline import Pipeline
+    from fastlivo_tpu_torch.replay import BlockReplayer
+
+    runs = [("hash", lio_config(map_backend="hash"), None, 0),
+            ("dense", lio_config(map_backend="dense"), None, 0),
+            ("tiled cache_knn", lio_config(cache_knn=True), None, 0),
+            ("tiled plane_fit ref", lio_config(plane_fit="ref"), None, 0),
+            ("tiled profile_every 8", lio_config(), None, 8),
+            ("hash BlockReplayer(8)", lio_config(map_backend="hash"), BlockReplayer, 0)]
+    paths, extra, ckpts, hash_pipe = {}, {}, {}, None
+    for name, cfg, rep, every in runs:
+        cap = cfg.capacity
+        pipe = Pipeline(cfg, device=dev)
+        pipe.profile_every = every
+        push_all(pipe, ds)
+        gathers = []
+        mod = {"tiled": tm, "dense": dm, "hash": vm}[cap.map_backend]
+        with spy(mod, "knn_candidates", gathers):
+            outs, launches, wall = counted_run(
+                (lambda: rep(pipe, 8).run()) if rep else pipe.spin)
+        steady = [1e3 * o.timing["total"] for o in outs if o.iters > 0]
+        d, ate = max_diff(outs, ref), ate_of(outs, ds)
+        ms = wall / len(outs)
+        k, kt = launches["knn5_plane"], launches["knn5_plane_tiled"]
+        print(f"{name}: {len(outs)} frames ({len(steady)} steady), {ms:.2f} ms/lidar frame "
+              f"(tiled per-frame {ref_ms:.2f}), median steady frame {np.median(steady):.2f} ms, "
+              f"ATE {ate * 1e3:.3f} mm, max position difference to tiled per-frame "
+              f"{d * 1e3:.4f} mm, knn5_plane {k}, knn5_plane_tiled {kt}, {len(gathers)} "
+              f"candidate gathers ({cap.map_backend} map, cache_knn {cap.cache_knn}, "
+              f"plane_fit {cap.plane_fit}); {nvidia_smi_line()}")
+        if cap.plane_fit == "ref":
+            ok = k == 0 and kt == 0
+        elif every:
+            ok = kt > 0 and k == 0 and same_outputs(outs, ref)
+            print(f"{name}: last_stage_profile {pipe.last_stage_profile} ms, outputs "
+                  f"bit-identical to per-frame: {same_outputs(outs, ref)}")
+            ok = ok and set(pipe.last_stage_profile or ()) == {
+                "undistort", "downsample", "ekf", "map"}
+        else:
+            ok = k > 0 and kt == 0
+        if not ok or not ate < 0.02:
+            raise AssertionError(f"{name}: launches {launches}, ATE {ate:.4f} m")
+        paths[name] = (ms, launches)
+        extra[name] = {"median_steady_ms": float(np.median(steady)), "ate_mm": ate * 1e3,
+                       "max_diff_to_tiled_mm": d * 1e3, "candidate_gathers": len(gathers)}
+        if every:
+            extra[name]["last_stage_profile_ms"] = pipe.last_stage_profile
+        if name in ("hash", "dense"):
+            ckpts[name] = checkpoint_roundtrip(pipe, dev, f"lio {name}")
+        if name == "hash":
+            hash_pipe = pipe
+        del pipe
+    return paths, extra, hash_pipe, ckpts
+
+
+def colliding_voxels(T: int):
+    """Two voxel coordinates whose first probe slot in a table of T slots
+    is the same."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    k = np.stack(np.meshgrid(*[np.arange(-6, 6)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    slot = vm._slot_check(torch.from_numpy(k.astype(np.int32)), T - 1)[0].numpy()
+    order = np.argsort(slot, kind="stable")
+    i = np.nonzero(slot[order][1:] == slot[order][:-1])[0][0]
+    return k[order[[i, i + 1]]]
+
+
+def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
+    """The hash map (T slots) and the dense grid (`dims`, aliasing: it
+    spans 32 x 32 x 8 m, the points 40 m) built from seeded random points
+    on the card and on the CPU: three inserts (the first with two voxels
+    that claim one slot in the same round), knn_candidates at radius 1
+    and 2, delete_boxes and the hash map's rebuild; every array on the
+    card must equal the CPU's. Then times rebuild at a T_full table 75%
+    full. Returns (rebuild ms, its occupancy)."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    pts[:2] = (colliding_voxels(T) + 0.5) * 0.5
+    pts[2:n // 10] = pts[n // 10: 2 * (n // 10) - 2] + 0.05
+    valid = rng.random(n) > 0.05
+    valid[:2] = True
+    q = rng.uniform(-22, 22, (16384, 3)).astype(np.float32)
+    q[:2] = pts[:2]
+    lo, hi = np.float32([[-20, 0, -20]]), np.float32([[20, 20, 20]])
+    res = {}
+    for d in (dev, "cpu"):
+        t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+        # host copies: the maps are updated in place, and .cpu() of a CPU
+        # tensor is the tensor itself
+        snap = lambda ts: [x.to("cpu", copy=True) for x in ts]  # noqa: E731
+        got = []
+        for mod, m in ((vm, vm.empty_map(T, 0.5, device=d)),
+                       (dm, dm.empty_dense_map(dims, 0.5, device=d))):
+            for sl in (slice(0, n // 3), slice(n // 3, 2 * n // 3), slice(2 * n // 3, n)):
+                m = mod.insert(m, t(pts[sl]), t(valid[sl]))
+                got.append(snap(m))
+            for radius in (1, 2):
+                got.append(snap(mod.knn_candidates(m, t(q), radius, 12)))
+            if mod is vm and not bool(got[-1][1][:2, 0].all()):
+                raise AssertionError("a voxel of the duplicate claim was not stored")
+            m = mod.delete_boxes(m, t(lo), t(hi))
+            got.append(snap(m))
+            if mod is vm:
+                got.append(snap(vm.rebuild(m)))
+        res[str(d)] = got
+    card, cpu = res[str(dev)], res["cpu"]
+    differ = [i for i, (x, y) in enumerate(zip(card, cpu))
+              if not all(torch.equal(a, b) for a, b in zip(x, y))]
+    same = not differ
+    print(f"map ops, hash 2^{T.bit_length() - 1} slots ({int(cpu[2][2])} occupied) and dense "
+          f"{dims} ({int(cpu[9][2])} occupied) from {n} seeded points: insert x3 (with a "
+          f"duplicate claim), knn_candidates r=1,2, delete_boxes, rebuild: card equals CPU "
+          f"in every array: {same}")
+    if not same:
+        raise AssertionError(f"map ops on the card differ from the CPU at steps {differ}")
+
+    # rebuild at the shipped table, 75% full of distinct voxels (a block
+    # of 128 x 128 x k voxels)
+    n_full = 3 * T_full // 4
+    g = np.stack(np.unravel_index(np.arange(n_full), (128, 128, -(-n_full // 16384))), -1)
+    full = torch.from_numpy(((g - 64 + 0.5) * 0.5).astype(np.float32)).to(dev)
+    m = vm.insert(vm.empty_map(T_full, 0.5, device=dev), full,
+                  torch.ones(n_full, dtype=torch.bool, device=dev), 32)
+    occ = int(m.count) / T_full
+    rb_ms = event_ms(lambda: vm.rebuild(m))
+    kept = int(vm.rebuild(m).count)
+    print(f"rebuild: 2^{T_full.bit_length() - 1} slots at {100 * occ:.2f}% occupancy "
+          f"({n_full} voxels inserted at probe depth 32, {kept} kept by the rebuild), "
+          f"{rb_ms:.3f} ms per call alone (CUDA events); {nvidia_smi_line()}")
+    return rb_ms, occ
+
+
+def hash_block_phase(pipe, n=16384, m=27):
+    """The standalone knn5_plane on the hash path's own candidate block:
+    the last scan's EKF batch (N = 16384) at the posterior, M = 27
+    neighbourhood voxels from voxel_map.knn_candidates. Against its plain
+    version (the contract, and whether bit-exact), timed beside its
+    bound, its plain version and the block's knn_candidates. These
+    launches are not the path's. Returns (max_abs_err, ms, plain ms,
+    bound ms, bound by, knn_candidates ms)."""
+    from fastlivo_tpu_torch.ops import knn_plane
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    q = real_queries(pipe, n)
+    probe = pipe.cfg.capacity.max_probe
+    cand, found = vm.knn_candidates(pipe.map, q, 1, probe)
+    got = knn_plane.knn5_plane(cand, found, q)
+    torch.cuda.synchronize()
+    want = knn_plane.knn5_plane_plain(cand, found, q)
+    err = knn5_contract(got, want, min_both=1000)
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    ms = time_ms(lambda: knn_plane.knn5_plane(cand, found, q))
+    plain_ms = time_ms(lambda: knn_plane.knn5_plane_plain(cand, found, q))
+    cand_ms = time_ms(lambda: vm.knn_candidates(pipe.map, q, 1, probe))
+    bound_ms, bound_by = knn5_bound_ms(n, m)
+    print(f"knn5_plane N={n} M={m} on the hash path's block ({int(found.sum())} found "
+          f"candidates, {int(want[1].sum())} planes): contract ok, bit-exact {exact}, "
+          f"max_abs_err={err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), the block's knn_candidates {cand_ms:.4f} ms, "
+          f"library none; {nvidia_smi_line()}")
+    return err, ms, plain_ms, bound_ms, bound_by, cand_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1263,11 +1491,7 @@ def main() -> int:
     torch.cuda.synchronize()
     want = knn_plane.knn5_plane_plain(cand, found, q)
     err = max(err_random, knn5_contract(got, want, min_both=1000))
-    ms = time_ms(lambda: knn_plane.knn5_plane(cand, found, q))
-    plain_ms = time_ms(lambda: knn_plane.knn5_plane_plain(cand, found, q))
-    bound_ms, bound_by = knn5_bound_ms(n, m)
-    print(f"knn5_plane N={n} M={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by}), library none; {smi}")
+    print(f"knn5_plane N={n} M={m} on the tiled path's block: contract ok")
     t_ms = time_ms(lambda: knn_plane.knn5_plane_tiled(pipe.map, q, 1, 0.1))
     pair_ms = time_ms(lambda: knn_plane.knn5_plane(*tm.knn_candidates(pipe.map, q, 1), q, 0.1))
     t_plain_ms = time_ms(lambda: knn_plane.knn5_plane_tiled_plain(pipe.map, q, 1, 0.1))
@@ -1279,9 +1503,20 @@ def main() -> int:
 
     del pipe, cand, found, got, want
     torch.cuda.empty_cache()
+    # the other map backends and LIO options on the same LIO dataset; the
+    # standalone knn5_plane on the hash path's block; the maps' operations
+    paths = {"lio per-frame": (lio_ms, lio_launches)}
+    backend_paths, path_extra, hash_pipe, backend_ckpts = backend_paths_phase(
+        dev, lio_ds, lio_outs, lio_ms)
+    paths.update(backend_paths)
+    err_hash, ms, plain_ms, bound_ms, bound_by, cand_ms = hash_block_phase(hash_pipe, n, m)
+    err = max(err, err_hash)
+    del hash_pipe
+    torch.cuda.empty_cache()
+    rebuild_ms, rebuild_occ = map_ops_phase(dev)
+    torch.cuda.empty_cache()
     # the slice's other paths on the same LIO dataset: block replay,
     # serving with autosave and warm restart, bag replay
-    paths = {"lio per-frame": (lio_ms, lio_launches)}
     paths.update(lio_block_phase(dev, lio_ds, lio_outs, lio_ms))
     paths.update(serve_phase(dev, lio_ds, lio_outs))
     paths.update(bag_phase(dev, lio_ds))
@@ -1295,12 +1530,8 @@ def main() -> int:
     ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
         photometric_phase(dev, last_call)
     del last_call
-    # a second fused run: the run-to-run spread of the frame times (the
-    # unfused composition's frame times, which did not resolve above
-    # that spread, are no longer taken; its kernel counts are, below)
-    _, _, cam2, lid2, *_ = livo_path_phase(dev)
-    print(f"camera frame median per run: {[cam_fused, cam2]} ms; lidar frame median per "
-          f"run: {[lid_fused, lid2]} ms; {smi}")
+    print(f"camera frame median {cam_fused:.2f} ms, lidar frame median {lid_fused:.2f} ms; "
+          f"{smi}")
 
     cpu_agreement(dev)
     livo_cpu_agreement(dev)
@@ -1311,11 +1542,15 @@ def main() -> int:
           f"{photo_k[0]:.1f}, fused {photo_k[1]:.1f}")
     if not (search_k[1] < search_k[0] and photo_k[1] < photo_k[0]):
         raise AssertionError("the fused kernels did not cut the kernel counts")
+    ck_keys = ("copy_ms", "write_ms", "disk_mb", "array_mb")
     print(json.dumps({"paths": {
         k: {"ms_per_frame_or_gap_median": v[0],
             "gap_p90": v[1] if k.startswith("serve") else None,
-            "launches": v[-1]} for k, v in paths.items()},
-        "livo_checkpoint": dict(zip(("copy_ms", "write_ms", "disk_mb", "array_mb"), livo_ckpt)),
+            "launches": v[-1], **path_extra.get(k, {})} for k, v in paths.items()},
+        "livo_checkpoint": dict(zip(ck_keys, livo_ckpt)),
+        **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
+        "hash_rebuild": {"ms": rebuild_ms, "occupancy": rebuild_occ},
+        "hash_block_knn_candidates_ms": cand_ms,
         "nvidia_smi": smi}))
 
     print(json.dumps({"kernels": [{
@@ -1336,7 +1571,7 @@ def main() -> int:
         "name": "knn5_plane", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
-        "launches": lio_launches["knn5_plane"], "max_abs_err": err, "ms": ms,
+        "launches": backend_paths["hash"][1]["knn5_plane"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }, {

@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from .imu import ImuCalib, PoseTable
+from .ops.dense_map import DenseMap
 from .ops.tiled_map import TiledMap
+from .ops.voxel_map import VoxelMap
 from .state import NavState
 from .visual_map import VisualMap
 
@@ -49,9 +51,18 @@ def tiled_map_from_arrays(d: dict, device) -> TiledMap:
     return _from_arrays(TiledMap, d, device)
 
 
+def voxel_map_from_arrays(d: dict, device) -> VoxelMap:
+    return _from_arrays(VoxelMap, d, device)
+
+
+def dense_map_from_arrays(d: dict, device) -> DenseMap:
+    return _from_arrays(DenseMap, d, device)
+
+
 def visual_map_from_arrays(d: dict, device) -> VisualMap:
     return _from_arrays(VisualMap, d, device)
 
 
 state_to_arrays = calib_to_arrays = pose_table_to_arrays = _to_arrays
-tiled_map_to_arrays = visual_map_to_arrays = _to_arrays
+tiled_map_to_arrays = voxel_map_to_arrays = dense_map_to_arrays = _to_arrays
+visual_map_to_arrays = _to_arrays

@@ -2,9 +2,9 @@
 
 Port of the JAX package's frame_step.py: undistortion (imu.undistort)
 -> voxel filter (ops.voxel_filter.voxel_downsample_device) -> iterated
-EKF (lio.lio_update) -> map insertion (ops.tiled_map.insert). The JAX
-package fuses these into one jit and donates the map buffers; here they
-run eagerly and the map is updated in place. Each stage is a named
+EKF (lio.lio_update) -> map insertion (the map backend's insert). The
+JAX package fuses these into one jit and donates the map buffers; here
+they run eagerly and the map is updated in place. Each stage is a named
 `record_function` range ("frame.*"), which torch.profiler reports.
 """
 from __future__ import annotations
@@ -36,7 +36,7 @@ def stage_scan(w: torch.Tensor, R: int):
 
 def lidar_frame_step(
     state: NavState,  # propagated prior at scan end
-    m: tm.TiledMap,  # updated IN PLACE by the insert
+    m,  # any map backend, updated IN PLACE by the insert
     pose: imu_mod.PoseTable,  # merged per-scan table
     calib: imu_mod.ImuCalib,
     pts_raw: torch.Tensor,  # (R, 3) raw lidar-frame points
@@ -47,7 +47,10 @@ def lidar_frame_step(
     max_points: int,
     max_iter: int,
     knn_radius: int,
+    max_probe: int = 12,
     dense_out: bool = True,
+    cache_knn: bool = False,
+    plane_fit: str = "tls",
 ):
     """Returns (posterior state, map, down (max_points, 3), dmask,
     n_active, iters, pts_world_dense (R, 3) | zeros, active (max_points,),
@@ -56,7 +59,10 @@ def lidar_frame_step(
     `stats` packs [n_down, n_active, iters, pack24(posterior),
     residual_rms, map_occupancy] so the host reads every scalar it needs
     in one transfer. residual_rms is the posterior point-to-plane RMS
-    over the active rows (the online filter-health signal)."""
+    over the active rows (the online filter-health signal);
+    map_occupancy is the tiled map's allocated tiles or the hash and
+    dense maps' occupied entries. `max_probe` is the hash map's probe
+    depth, for the search and the insert."""
     with record_function("frame.undistort"):
         und = imu_mod.undistort(state, pose, pts_raw, t_rel, rmask, calib)
     with record_function("frame.voxel_filter"):
@@ -66,13 +72,15 @@ def lidar_frame_step(
         res = lio_mod.lio_update(
             state, m, down, dmask, calib.lid_rot, calib.lid_off,
             laser_point_cov=laser_point_cov, max_iter=max_iter,
-            knn_radius=knn_radius,
+            knn_radius=knn_radius, plane_fit=plane_fit, cache_knn=cache_knn,
+            max_probe=max_probe,
         )
     # map insert at the posterior (map_incremental, laserMapping.cpp:692):
     # res.pts_world IS the downsampled batch at the posterior pose
     f64 = torch.float64
+    mod = lio_mod.map_module(m)
     with record_function("frame.map_insert"):
-        m2 = tm.insert(m, res.pts_world, dmask)
+        m2 = mod.insert(m, res.pts_world, dmask, max_probe)
     if dense_out:
         rot32 = res.state.rot.to(down.dtype)
         pos32 = res.state.pos.to(down.dtype)
@@ -89,7 +97,7 @@ def lidar_frame_step(
     act_res = torch.where(res.active, res.res.to(f64),
                           torch.zeros((), dtype=f64, device=down.device))
     res_rms = torch.sqrt(torch.sum(act_res ** 2) / torch.clamp(n_act, min=1.0))
-    stats = torch.cat([head, pack24(res.state), res_rms[None],
-                       m2.n_alloc.to(f64)[None]])
+    occ = m2.n_alloc if mod is tm else m2.count
+    stats = torch.cat([head, pack24(res.state), res_rms[None], occ.to(f64)[None]])
     return (res.state, m2, down, dmask, res.n_active, res.iters,
             dense_world, res.active, stats)

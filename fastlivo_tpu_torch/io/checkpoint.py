@@ -3,9 +3,9 @@
 Port of the JAX package's io/checkpoint.py, with its `.npz` layout key
 for key, so a snapshot written by either package loads into the other:
 
-    map_type        "tiled" (the only backend the port has)
+    map_type        "tiled", "dense" or "voxel" (the hash map)
     state/<field>   NavState (f64)
-    map/<field>     TiledMap
+    map/<field>     TiledMap, DenseMap or VoxelMap
     vmap/<field>    VisualMap (LIVO only)
     calib/<field>   ImuCalib (lets a restored process skip IMU init)
 
@@ -20,14 +20,21 @@ from pathlib import Path
 import numpy as np
 
 from .. import convert
+from ..ops.dense_map import DenseMap
+from ..ops.tiled_map import TiledMap
+from ..ops.voxel_map import VoxelMap
 from ..visual_map import VisualMap
+
+# map_type -> the map's class, as the JAX package names them
+MAP_TYPES = {"voxel": VoxelMap, "dense": DenseMap, "tiled": TiledMap}
 
 
 def to_host(state, m, visual=None, calib=None) -> dict:
     """The snapshot as a dict of host numpy arrays in the `.npz` layout
     (a synchronous copy of every array, sharing no memory with the
     tensors)."""
-    out = {"map_type": np.array("tiled")}
+    out = {"map_type": np.array(
+        next(k for k, cls in MAP_TYPES.items() if isinstance(m, cls)))}
     for prefix, nt in (("state", state), ("map", m), ("vmap", visual),
                        ("calib", calib)):
         if nt is not None:
@@ -49,9 +56,11 @@ def save(path: str | Path, state, m, visual=None, calib=None) -> None:
 
 
 def load(path: str | Path, device=None):
-    """Returns (NavState, TiledMap, VisualMap | None, ImuCalib | None) on
-    `device` (CUDA unless given). Snapshots without a calib load with
-    calib None; `vmap/` fields the VisualMap no longer has are ignored."""
+    """Returns (NavState, map of the snapshot's backend, VisualMap | None,
+    ImuCalib | None) on `device` (CUDA unless given). A snapshot without
+    `map_type` holds a hash map, as in the JAX package; snapshots without
+    a calib load with calib None; `vmap/` fields the VisualMap no longer
+    has are ignored."""
     from ..device import resolve_device
 
     dev = resolve_device(device)
@@ -62,10 +71,9 @@ def load(path: str | Path, device=None):
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
     map_type = str(arrays.get("map_type", "voxel"))
-    if map_type != "tiled":
-        raise NotImplementedError(
-            f"checkpoint map_type {map_type!r}: only the tiled map is ported "
-            "(the dense and hash backends are ROADMAP Queue 1 item 10)")
+    if map_type not in MAP_TYPES:
+        raise ValueError(f"checkpoint map_type {map_type!r}: not one of "
+                         f"{tuple(MAP_TYPES)}")
 
     def part(prefix, keep=None):
         d = {k.split("/", 1)[1]: v for k, v in arrays.items()
@@ -75,7 +83,7 @@ def load(path: str | Path, device=None):
         return d
 
     state = convert.state_from_arrays(part("state"), dev)
-    m = convert.tiled_map_from_arrays(part("map"), dev)
+    m = convert._from_arrays(MAP_TYPES[map_type], part("map"), dev)
     vd = part("vmap", set(VisualMap._fields))
     visual = convert.visual_map_from_arrays(vd, dev) if vd else None
     cd = part("calib")

@@ -1,16 +1,44 @@
-"""Batched total-least-squares plane fitting.
+"""Batched plane fitting.
 
-Port of the JAX package's ops/plane.py: the smallest eigenvector of the
-centred 3x3 scatter in closed form (trigonometric cubic solution), then
-the plane in the reference's [n, d] form (esti_plane,
+Port of the JAX package's ops/plane.py. Two fits, both reporting the
+plane in the reference's [n, d] form (esti_plane,
 include/common_lib.h:449-493) with its all-neighbours-within-threshold
-validity gate.
+validity gate:
+  - `fit_plane` (`plane_fit: tls`, the default): the smallest
+    eigenvector of the centred 3x3 scatter in closed form
+    (trigonometric cubic solution);
+  - `fit_plane_ref` (`plane_fit: ref`): the reference's own
+    parametrisation, A·n = -1 solved by least squares in float64.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 solve through the adjugate (Cramer). A (..., 3, 3),
+    b (..., 3). A near-singular system gives a large solution, which the
+    validity gate downstream rejects."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a02 * a21 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c10 = a12 * a20 - a10 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a02 * a10 - a00 * a12
+    c20 = a10 * a21 - a11 * a20
+    c21 = a01 * a20 - a00 * a21
+    c22 = a00 * a11 - a01 * a10
+    det = a00 * c00 + a01 * c10 + a02 * c20
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+    x = c00 * b[..., 0] + c01 * b[..., 1] + c02 * b[..., 2]
+    y = c10 * b[..., 0] + c11 * b[..., 1] + c12 * b[..., 2]
+    z = c20 * b[..., 0] + c21 * b[..., 1] + c22 * b[..., 2]
+    return torch.stack([x, y, z], dim=-1) * inv_det[..., None]
 
 
 def sym3x3_min_eigvec(S: torch.Tensor) -> torch.Tensor:
@@ -85,6 +113,37 @@ def fit_plane(pts: torch.Tensor, valid: torch.Tensor | None = None,
     ok = torch.all(torch.where(valid, dist <= threshold, True), dim=-1)
     ok = ok & (nvalid >= 3.0) & torch.all(torch.isfinite(pabcd), dim=-1)
     return pabcd, ok
+
+
+def fit_plane_ref(pts: torch.Tensor, valid: torch.Tensor | None = None,
+                  threshold: float = 0.1):
+    """The reference's exact plane (esti_plane, common_lib.h:449-493):
+    the least-squares solution of A·n = -1 over the K neighbours, then
+    pabcd = [n / |n|, 1 / |n|]; valid iff every neighbour lies within
+    `threshold` of the normalised plane. The normal equations square the
+    conditioning, so the algebra runs in float64.
+
+    Same signature and returns as `fit_plane`. With a `valid` mask, rows
+    outside it do not constrain the fit and validity also needs all K
+    rows valid (the reference fits only a full neighbour set)."""
+    K = pts.shape[-2]
+    if valid is None:
+        valid = torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
+    f64 = torch.float64
+    p64 = pts.to(f64) * valid.to(f64)[..., None]
+    AtA = torch.einsum("...ki,...kj->...ij", p64, p64)
+    Atb = -torch.sum(p64, dim=-2)  # Aᵀ·(-1)
+    n = _solve3x3(AtA, Atb)
+    norm = torch.sqrt(torch.sum(n * n, dim=-1))
+    inv = 1.0 / torch.clamp(norm, min=1e-30)
+    normal = n * inv[..., None]
+    pabcd = torch.cat([normal, inv[..., None]], dim=-1)  # d = 1/|n| (:469)
+    dist = torch.abs(torch.einsum("...ki,...i->...k", pts.to(f64), normal)
+                     + inv[..., None])
+    ok = torch.all(torch.where(valid, dist <= threshold, True), dim=-1)
+    ok = (ok & (torch.sum(valid, dim=-1) == K) & (norm > 1e-30)
+          & torch.all(torch.isfinite(pabcd), dim=-1))
+    return pabcd.to(pts.dtype), ok
 
 
 def point_to_plane(pabcd: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,6 @@ first. `compact` returns a new map.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -31,8 +30,8 @@ import torch
 
 from ..device import resolve_device
 from .voxel_map import (
-    EMPTY_CHECK, _check31, _mix64_np, _neighbor_offsets,
-    topk_from_candidates, voxel_of,
+    EMPTY_CHECK, _check31, _mix64_np, neighbor_offsets, topk_from_candidates,
+    voxel_of,
 )
 
 TS = 8  # tile side (voxels); tile = TS^3 = 512 cells
@@ -112,8 +111,10 @@ def _scatter_(dst: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
     dst[idx[mask]] = val[mask]
 
 
-def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor) -> TiledMap:
+def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
+           max_probe: int = 0) -> TiledMap:
     """Insert-with-downsample (ikd_Tree.cpp:391-417 semantics), in place.
+    `max_probe` is accepted and ignored (the hash map's argument).
 
     One stable sort serves both winner selections: the key packs
     (dir_idx, in-tile cell, distance-to-centre bits), so the head of
@@ -196,14 +197,6 @@ def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor) -> TiledMap:
     return m._replace(n_alloc=n_alloc2, n_dropped=m.n_dropped + dropped)
 
 
-@functools.cache
-def neighbor_offsets(radius: int, device: torch.device) -> torch.Tensor:
-    """(M, 3) int32 neighbourhood offsets (`_neighbor_offsets` order) on
-    `device`, uploaded once: a search then copies nothing from the host
-    and never waits for the device."""
-    return torch.as_tensor(_neighbor_offsets(radius), device=device)
-
-
 def candidate_cells(m: TiledMap, queries: torch.Tensor, radius: int = 1):
     """The directory half of `knn_candidates`: for each query and each of
     its M = (2 * radius + 1)^3 neighbourhood voxels, (dir_idx (N, M) the
@@ -221,18 +214,21 @@ def candidate_cells(m: TiledMap, queries: torch.Tensor, radius: int = 1):
     return dir_idx, pool_idx, tile_ok, chk
 
 
-def knn_candidates(m: TiledMap, queries: torch.Tensor, radius: int = 1):
+def knn_candidates(m: TiledMap, queries: torch.Tensor, radius: int = 1,
+                   max_probe: int = 0):
     """Two-gather neighbourhood candidate block: (cpts (N, M, 3),
-    found (N, M)) with M = (2 * radius + 1)^3."""
+    found (N, M)) with M = (2 * radius + 1)^3. `max_probe` is accepted
+    and ignored (the hash map's argument)."""
     _, pool_idx, tile_ok, chk = candidate_cells(m, queries, radius)
     found = tile_ok & (m.cell_check[pool_idx] == chk)
     cpts = m.pts[pool_idx.reshape(-1)].reshape(*pool_idx.shape, 3)
     return cpts, found
 
 
-def knn(m: TiledMap, queries: torch.Tensor, k: int = 5, radius: int = 1):
+def knn(m: TiledMap, queries: torch.Tensor, k: int = 5, radius: int = 1,
+        max_probe: int = 0):
     """Bounded k-NN over the (2 * radius + 1)^3-voxel neighbourhood:
-    (neigh (N, k, 3), d2 (N, k), nvalid (N, k))."""
+    (neigh (N, k, 3), d2 (N, k), nvalid (N, k)). `max_probe` is ignored."""
     cpts, found = knn_candidates(m, queries, radius)
     return topk_from_candidates(cpts, found, queries, k)
 

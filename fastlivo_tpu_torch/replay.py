@@ -31,21 +31,25 @@ import torch
 from . import imu as imu_mod
 from .frame_step import lidar_frame_step
 from .logging_util import rot_to_quat_wxyz
-from .ops import tiled_map as tmod
 from .readback import DeferredRead
 from .state import NavState
 
 F64 = torch.float64
 
 
-def lidar_block_step(state: NavState, m: tmod.TiledMap, calib: imu_mod.ImuCalib,
+def lidar_block_step(state: NavState, m, calib: imu_mod.ImuCalib,
                      acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt, row0_off,
                      pts_raw, t_rel, rmask, acc_s_last, angvel_last,
                      filter_size_surf: torch.Tensor, laser_point_cov: float,
-                     max_points: int, max_iter: int, knn_radius: int):
-    """K chained scan steps; inputs are stacked on a leading axis K. Each
-    step is `imu.propagate` followed by the per-frame path's own
-    `frame_step.lidar_frame_step`.
+                     max_points: int, max_iter: int, knn_radius: int,
+                     max_probe: int = 12, plane_fit: str = "tls"):
+    """K chained scan steps on any map backend; inputs are stacked on a
+    leading axis K. Each step is `imu.propagate` followed by the
+    per-frame path's own `frame_step.lidar_frame_step`.
+
+    As in the JAX package, the block step takes `plane_fit` and
+    `max_probe` but not `cache_knn`: a `BlockReplayer` searches the map
+    at every search even when the config sets `cache_knn`.
 
     Returns (state', map' (the map, updated in place), acc_s_last',
     angvel_last', ys) with ys one packed (K, 43) f64 tensor, one row per
@@ -63,7 +67,7 @@ def lidar_block_step(state: NavState, m: tmod.TiledMap, calib: imu_mod.ImuCalib,
         st, mm, *_, stats = lidar_frame_step(
             st1, mm, pose, calib, pts_raw[k], t_rel[k], rmask[k],
             filter_size_surf, laser_point_cov, max_points, max_iter,
-            knn_radius, dense_out=False)
+            knn_radius, max_probe, dense_out=False, plane_fit=plane_fit)
         ys.append(torch.cat([st1.rot.reshape(9).to(F64), st1.pos.to(F64),
                              st1.vel.to(F64), stats[3:27], stats[tail]]))
     return st, mm, acc_s, angv, torch.stack(ys)
@@ -220,7 +224,7 @@ class BlockReplayer:
         if boxes and p.map_built:
             lo = torch.as_tensor(np.asarray([b[0] for b in boxes], np.float32), device=dev)
             hi = torch.as_tensor(np.asarray([b[1] for b in boxes], np.float32), device=dev)
-            p.map = tmod.delete_boxes(p.map, lo, hi)
+            p.map = p._map_mod.delete_boxes(p.map, lo, hi)
         p._maybe_rebuild()
         pre_bias_state = p.state
         arrays, ts = self._stage(groups)
@@ -231,7 +235,8 @@ class BlockReplayer:
             p.acc_s_last, p.angvel_last, p._fss_dev,
             laser_point_cov=float(p.cfg.laser_point_cov),
             max_points=min(cap.max_points, PTS.shape[1]),
-            max_iter=p.cfg.max_iteration, knn_radius=cap.knn_voxel_radius)
+            max_iter=p.cfg.max_iteration, knn_radius=cap.knn_voxel_radius,
+            max_probe=cap.max_probe, plane_fit=cap.plane_fit)
         p.state = st
         p.map = m2
         p.acc_s_last, p.angvel_last = acc_f, ang_f

@@ -15,7 +15,8 @@ same); `--block N` replays in blocks of N events with one read per block.
 Writes a TUM trajectory (t x y z qx qy qz qw, laserMapping.cpp:
 1738-1748), optionally the Log/ traces (`--log-dir`), the LIO-mode
 intensity cloud (`--pcd-out`), the map's points (`--map-pcd`) and a
-checkpoint (`--save-ckpt`), and prints per-stage timing. Without
+checkpoint (`--save-ckpt`), and prints per-stage timing (with
+`--profile-every N`, also each LIO stage's time on its own). Without
 `--config` (or `--launch`) the built-in `Config()` defaults are used.
 """
 from __future__ import annotations
@@ -232,6 +233,9 @@ def main(argv=None):
     ap.add_argument("--block-scan", action="store_true",
                     help="with --block in LIO mode: run each block's frames "
                     "in replay.lidar_block_step")
+    ap.add_argument("--profile-every", type=int, default=0,
+                    help="every N steady frames, also run the LIO stages one "
+                    "by one and print their times (laserMapping.cpp:1805)")
     ap.add_argument("--sync-read", action="store_true",
                     help="read each frame's results before the next frame "
                     "(by default offline replay defers the read one frame; "
@@ -266,6 +270,7 @@ def main(argv=None):
         cfg.pcd_save_en = True
 
     pipe = Pipeline(cfg, device=args.device, log_dir=args.log_dir)
+    pipe.profile_every = args.profile_every
     if not args.sync_read and not args.block:
         # offline default: frame N's read overlaps frame N+1's dispatch
         pipe.async_read = True
@@ -319,9 +324,7 @@ def main(argv=None):
             f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in m.items()))
     if args.map_pcd:
-        from .ops import tiled_map as tmod
-
-        pts_live, n_live = tmod.extract_points(pipe.map)
+        pts_live, n_live = pipe._map_mod.extract_points(pipe.map)
         save_pcd(args.map_pcd, pts_live)
         print(f"map pcd: {args.map_pcd} ({n_live} points)")
     if args.save_ckpt:
@@ -331,6 +334,9 @@ def main(argv=None):
                       pipe.vio.vmap if pipe.vio is not None else None,
                       calib=pipe.calib)
         print(f"checkpoint: {args.save_ckpt}")
+    if pipe.last_stage_profile:
+        print("stage profile (ms): " + " ".join(
+            f"{k}={v:.1f}" for k, v in pipe.last_stage_profile.items()))
     if pipe.logger is not None:
         pipe.logger.close()
     return 0

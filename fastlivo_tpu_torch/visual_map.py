@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .device import resolve_device
-from .ops.voxel_map import _slot_check
+from .ops.voxel_map import _last_wins, _slot_check
 
 VOXEL_SIZE = 0.5  # lidar_selection.cpp:210
 EMPTY = -2147483648  # free voxel-hash slot (int32 min)
@@ -116,18 +116,6 @@ def _put(dst: torch.Tensor, index: tuple, values: torch.Tensor,
     `rows` (from `_kept`) instead of dropping an out-of-range index. The
     kept indices must be unique."""
     dst[tuple(ix[rows] for ix in index)] = values[rows]
-
-
-def _last_wins(index: torch.Tensor, keep: torch.Tensor, size: int) -> torch.Tensor:
-    """(B,) bool: the row that a duplicate-index `set` scatter keeps, as
-    XLA on the CPU applies updates in row order (the last one stays).
-    `index` in [0, size); rows with keep False take no part."""
-    B = index.shape[0]
-    row = torch.arange(B, dtype=I64, device=index.device)
-    tgt = torch.where(keep, index.to(I64), torch.full_like(row, size))
-    last = torch.full((size + 1,), -1, dtype=I64, device=index.device)
-    last.scatter_reduce_(0, tgt, torch.where(keep, row, -1), "amax")
-    return keep & (last[tgt] == row)
 
 
 def _live_slot_refs(m: VisualMap) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Port parity for checkpoints, warm restart and the Log/ traces.
 
-A checkpoint written by either package loads into the other: a JAX
-snapshot restored into the port continues 10 frames within 1 mm of the
-JAX package continuing from the same file, and every array of a port
-snapshot loads into the JAX package unchanged. The `warm`/`warm.npz`
+A checkpoint written by either package loads into the other, on every
+map backend: a JAX snapshot (tiled or hash map) restored into the port
+continues 10 frames within 1 mm of the JAX package continuing from the
+same file, and every array of a port snapshot (tiled, hash or dense)
+loads into the JAX package unchanged, and back. A restored hash map,
+churned by deletions and re-inserts, rebuilds array-identical in both. The `warm`/`warm.npz`
 suffix and a snapshot without a calib behave as in the JAX package.
 
 The Log/ files of a port run hold the JAX run's rows: imu.txt and every
@@ -17,19 +19,24 @@ by up to ~3.4e-6 on this run (the trajectory tolerance elsewhere is
 """
 import numpy as np
 import pytest
+import torch
+import jax.numpy as jnp
 
 from fastlivo_tpu.config import CapacityConfig as JCapacity
 from fastlivo_tpu.config import Config as JConfig
 from fastlivo_tpu.io import checkpoint as jckpt
 from fastlivo_tpu.io.synthetic import SyntheticDataset as JDataset
+from fastlivo_tpu.ops import dense_map as jdm
+from fastlivo_tpu.ops import voxel_map as jvm
 from fastlivo_tpu.pipeline import Pipeline as JPipeline
 
 from fastlivo_tpu_torch.config import CameraConfig, CapacityConfig, Config
 from fastlivo_tpu_torch.io import checkpoint as ckpt
 from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+from fastlivo_tpu_torch.ops import voxel_map as tvm
 from fastlivo_tpu_torch.pipeline import Pipeline
 
-from test_torch_pipeline import CF, CH, CW, RCL, livo_config, small_config
+from test_torch_pipeline import CF, CH, CW, RCL, livo_config, other_backend, small_config
 
 KW = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=4)
 T_SPLIT = 2.5
@@ -148,13 +155,90 @@ def test_warm_suffix_and_snapshot_without_calib(tmp_path):
     assert fresh.map_built and not fresh.init_done  # IMU init re-runs
 
 
-def test_refuses_other_map_backends(tmp_path):
-    from fastlivo_tpu.ops import voxel_map as jvm
-    from fastlivo_tpu.state import identity_state
+@pytest.fixture(scope="module")
+def jax_hash_snapshot(tmp_path_factory):
+    """The JAX package's first half of KW on the hash map, with its calib."""
+    pipe = feed(JPipeline(other_backend(JConfig, JCapacity, "hash")), JDataset(**KW),
+                t_max=T_SPLIT)
+    outs = pipe.spin() + pipe.finish()
+    assert len(outs) >= 12 and type(pipe.map).__name__ == "VoxelMap"
+    path = tmp_path_factory.mktemp("ck") / "jax_hash.npz"
+    jckpt.save(path, pipe.state, pipe.map, None, calib=pipe.calib)
+    return path
 
-    jckpt.save(tmp_path / "hash.npz", identity_state(), jvm.empty_map(1 << 8, 0.5))
-    with pytest.raises(NotImplementedError, match="voxel"):
-        ckpt.load(tmp_path / "hash.npz", device="cpu")
+
+def test_refuses_other_map_backends(jax_hash_snapshot, tmp_path):
+    """A JAX hash-map snapshot loads into a port pipeline configured for
+    the tiled map (the snapshot's backend wins, as in the JAX package)
+    and continues within 1 mm of the JAX package; a map type that no
+    backend has is refused."""
+    jp = JPipeline(small_config(JConfig, JCapacity))
+    jp.warm_start(*jckpt.load(jax_hash_snapshot))
+    outs_j = feed(jp, JDataset(**KW), t_min=T_SPLIT).spin()
+    tp = Pipeline(small_config(Config, CapacityConfig), device="cpu")
+    tp.warm_start(*ckpt.load(jax_hash_snapshot, device="cpu"))
+    assert type(tp.map).__name__ == "VoxelMap" and tp._map_mod is tvm
+    outs_t = feed(tp, SyntheticDataset(**KW), t_min=T_SPLIT).spin()
+    assert len(outs_t) == len(outs_j) >= 10
+    assert all(o.iters > 0 for o in outs_t)
+    for a, b in zip(outs_t[:10], outs_j[:10]):
+        assert a.t == b.t
+        assert np.linalg.norm(a.pos - b.pos) < 1e-3, (a.t, a.pos, b.pos)
+    arrays = dict(np.load(jax_hash_snapshot))
+    arrays["map_type"] = np.array("octree")
+    np.savez(tmp_path / "octree.npz", **arrays)
+    with pytest.raises(ValueError, match="octree"):
+        ckpt.load(tmp_path / "octree.npz", device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_other_backend_checkpoints_both_directions(backend, tmp_path):
+    """A port snapshot of a hash or dense map loads into the JAX package
+    with every array unchanged; the JAX package's re-save of it loads
+    back into the port unchanged."""
+    pipe = feed(Pipeline(other_backend(Config, CapacityConfig, backend), device="cpu"),
+                SyntheticDataset(**KW), t_max=1.5)
+    pipe.spin()
+    assert pipe.map_built and int(pipe.map.count) > 500
+    path = tmp_path / "port.npz"
+    ckpt.save(path, pipe.state, pipe.checkpointable_map(), calib=pipe.calib)
+    assert str(np.load(path)["map_type"]) == {"hash": "voxel", "dense": "dense"}[backend]
+    state, m, _, calib = jckpt.load(path)
+    assert type(m) is {"hash": jvm.VoxelMap, "dense": jdm.DenseMap}[backend]
+    for got, want in ((state, pipe.state), (m, pipe.map), (calib, pipe.calib)):
+        got_np, want_np = as_np(got), {k: v.numpy() for k, v in want._asdict().items()}
+        assert got_np.keys() == want_np.keys()
+        for k in want_np:
+            assert got_np[k].dtype == want_np[k].dtype, k
+            np.testing.assert_array_equal(got_np[k], want_np[k], err_msg=k)
+    jckpt.save(tmp_path / "jax.npz", state, m, None, calib=calib)
+    _, m2, _, _ = ckpt.load(tmp_path / "jax.npz", device="cpu")
+    assert type(m2) is type(pipe.map)
+    for a, b in zip(m2, pipe.map):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_hash_rebuild_after_churn(jax_hash_snapshot):
+    """The restored hash map in both packages: half of it deleted, the
+    deleted region re-inserted at a shallow probe (holes in the chains
+    leave duplicate entries), then rebuilt: array-identical throughout."""
+    _, mj, _, _ = jckpt.load(jax_hash_snapshot)
+    _, mt, _, _ = ckpt.load(jax_hash_snapshot, device="cpu")
+    pts, n = tvm.extract_points(mt)
+    lo = np.array([[-20.0, 0.0, -5.0]], np.float32)
+    hi = np.array([[20.0, 20.0, 5.0]], np.float32)
+    mj = jvm.delete_boxes(mj, jnp.asarray(lo), jnp.asarray(hi))
+    mt = tvm.delete_boxes(mt, torch.from_numpy(lo), torch.from_numpy(hi))
+    assert 0 < int(mt.count) < n
+    again = pts + np.float32([0.01, -0.02, 0.015])
+    valid = np.ones(len(again), bool)
+    mj = jvm.insert(mj, jnp.asarray(again), jnp.asarray(valid), max_probe=4)
+    mt = tvm.insert(mt, torch.from_numpy(again), torch.from_numpy(valid), 4)
+    churned = int(mt.count)
+    mj, mt = jvm.rebuild(mj), tvm.rebuild(mt)
+    for k, v in mj._asdict().items():
+        np.testing.assert_array_equal(getattr(mt, k).numpy(), np.asarray(v), err_msg=k)
+    assert churned > int(mt.count) == len(tvm.extract_points(mt)[0]) > 0.5 * n
 
 
 def read_log(d, name):

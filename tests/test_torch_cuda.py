@@ -20,7 +20,11 @@ with nothing to measure err and HT are exactly 0.
 Also the slice's paths on the card: block replay within 5 mm of the
 per-frame path (the bound of tests/test_replay.py), deferred and
 block-packed readback bit-identical to the synchronous path, and a
-checkpoint written on the card that loads on the CPU unchanged.
+checkpoint written on the card that loads on the CPU unchanged. The hash
+and dense maps: their operations on the card array-identical to the
+CPU's, the standalone knn5_plane kernel bit-exact against its plain
+version on their candidate blocks, and their pipelines searching through
+it (never the tiled kernel).
 """
 import numpy as np
 import pytest
@@ -372,12 +376,17 @@ def test_photometric_err_H_refuses_bad_inputs(cuda):
         photometric_call(photometric.photometric_err_H, x, 0, 32, "none")
 
 
-def small_lio(device, **kw):
+LIO_DS = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
+
+
+def small_lio(device, backend="tiled", **kw):
     cfg = Config()
     cfg.img_enable = False
     cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
-                                  tiled_dir_dims=(32, 32, 16), tiled_pool=1024)
-    ds = SyntheticDataset(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
+                                  tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
+                                  map_backend=backend, map_table_size=1 << 16,
+                                  dense_dims=(64, 64, 16))
+    ds = SyntheticDataset(**LIO_DS)
     pipe = Pipeline(cfg, device=device, **kw)
     for beg, pts, t_rel in ds.lidar_scans_fast():
         pipe.push_lidar(beg, pts, t_rel)
@@ -441,3 +450,85 @@ def test_checkpoint_written_on_the_card_loads_on_the_cpu(cuda, tmp_path):
             np.testing.assert_array_equal(a.numpy(), b.cpu().numpy())
     cpu = Pipeline(pipe.cfg, device="cpu").warm_start(state, m, None, calib)
     assert cpu.init_done and cpu.map_built
+
+
+def hash_and_dense_maps(device, T=1 << 16, dims=(64, 64, 16)):
+    """The same seeded surface (negative coordinates, voxel-boundary
+    queries) in a hash table of T slots and a dense grid of `dims` cells
+    on `device`, through the backends' own inserts in three batches."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    pts = torch.from_numpy(surface(30000, 5)).to(device)
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+    valid[::13] = False
+    maps = [vm.empty_map(T, 0.5, device=device), dm.empty_dense_map(dims, 0.5, device=device)]
+    for mod, i in ((vm, 0), (dm, 1)):
+        for sl in (slice(0, 10000), slice(10000, 20000), slice(20000, 30000)):
+            maps[i] = mod.insert(maps[i], pts[sl], valid[sl])
+    return maps
+
+
+@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+def test_knn5_plane_on_hash_and_dense_blocks_bit_exact(cuda, radius):
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    q = torch.from_numpy(search_queries(5000)).to(cuda)
+    for mod, m in zip((vm, dm), hash_and_dense_maps(cuda)):
+        cand, found = mod.knn_candidates(m, q, radius, 12)
+        before = knn_plane.knn5_plane.launches
+        got = knn_plane.knn5_plane(cand, found, q, 0.1)
+        assert knn_plane.knn5_plane.launches == before + 1
+        want = knn_plane.knn5_plane_plain(cand, found, q, 0.1)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (mod.__name__, (g.float() - w.float()).abs().max())
+        assert int(got[1].sum()) > 500  # planes were fitted
+
+
+def test_map_ops_on_the_card_equal_the_cpu(cuda):
+    """insert (with a duplicate claim), knn_candidates, delete_boxes and
+    rebuild of the hash map, and the dense grid's insert (with aliased
+    cells), knn_candidates and delete_boxes: every array on the card
+    equals the CPU's."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    on_card = hash_and_dense_maps(cuda, T=1 << 11, dims=(16, 16, 8))
+    on_cpu = hash_and_dense_maps("cpu", T=1 << 11, dims=(16, 16, 8))
+    q = torch.from_numpy(search_queries(3000))
+    lo = torch.tensor([[-8.0, 0.0, -3.0]])
+    hi = torch.tensor([[8.0, 8.0, 3.0]])
+
+    def same(a, b, what):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y), what
+
+    for mod, mc, mh in zip((vm, dm), on_card, on_cpu):
+        same(mc, mh, f"{mod.__name__} insert")
+        if mod is vm:
+            assert int(mc.count) > 0.3 * mc.check.shape[0]  # long probe chains
+        same(mod.knn_candidates(mc, q.to(cuda), 1, 12), mod.knn_candidates(mh, q, 1, 12),
+             f"{mod.__name__} knn_candidates")
+        mc = mod.delete_boxes(mc, lo.to(cuda), hi.to(cuda))
+        mh = mod.delete_boxes(mh, lo, hi)
+        same(mc, mh, f"{mod.__name__} delete_boxes")
+        if mod is vm:
+            same(vm.rebuild(mc), vm.rebuild(mh), "rebuild")
+
+
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_other_backends_run_through_the_standalone_kernel(cuda, backend):
+    """A hash or dense pipeline searches through knn5_plane, never the
+    tiled kernel, and tracks the ground truth (ATE < 2 cm)."""
+    pipe = small_lio(cuda, backend)
+    before = knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane.launches
+    outs = pipe.spin()
+    assert knn_plane.knn5_plane_tiled.launches == before[0]
+    steady = [o for o in outs if o.iters > 0]
+    assert len(steady) > 5 and knn_plane.knn5_plane.launches - before[1] >= len(steady)
+    ds = SyntheticDataset(**LIO_DS)
+    base = ds.traj.base_pos
+    e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
+         for o in outs if o.t >= ds.traj.t_static + 0.5]
+    assert np.sqrt(np.mean(np.square(e))) < 0.02

@@ -2,7 +2,8 @@
 both Pipelines, the CLI, and the port's import hygiene.
 
 Tolerances: LIO, the same frames, every pose within 1 mm of the JAX
-package's, ATE no worse than JAX's plus 0.5 mm. (On the bootstrap frame
+package's, ATE no worse than JAX's plus 0.5 mm, on the tiled map and on
+the hash and dense maps. (On the bootstrap frame
 the JAX package may take its native C++ voxel filter where the port
 uses numpy; the two first maps differ at float32 rounding.) LIVO, the
 same frames, every lidar frame within 2 mm, visual-map points within 2%,
@@ -124,6 +125,60 @@ def test_synthetic_run_matches_jax():
     assert traj.shape == (len(outs_t), 8)
 
 
+def other_backend(cls_cfg, cls_cap, backend):
+    """small_config on the hash map (2^16 slots) or the dense grid
+    (64 x 64 x 16 cells: 32 x 32 x 8 m at 0.5 m)."""
+    cfg = small_config(cls_cfg, cls_cap)
+    cfg.capacity.map_backend = backend
+    cfg.capacity.map_table_size = 1 << 16
+    cfg.capacity.dense_dims = (64, 64, 16)
+    return cfg
+
+
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_other_backends_match_jax(backend):
+    kw = dict(duration=3.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
+    ds_j, ds_t = JDataset(**kw), SyntheticDataset(**kw)
+    outs_j = _drive(JPipeline(other_backend(JConfig, JCapacity, backend)), ds_j)
+    pipe = Pipeline(other_backend(Config, CapacityConfig, backend), device="cpu")
+    outs_t = _drive(pipe, ds_t)
+    assert type(pipe.map).__name__ == {"hash": "VoxelMap", "dense": "DenseMap"}[backend]
+    assert len(outs_t) == len(outs_j) >= 15
+    for a, b in zip(outs_t, outs_j):
+        assert a.t == b.t
+        assert np.linalg.norm(a.pos - b.pos) < 1e-3, (a.t, a.pos, b.pos)
+    assert sum(o.iters > 0 for o in outs_t) >= 12
+    ate_t, ate_j = _ate(outs_t, ds_t), _ate(outs_j, ds_j)
+    assert ate_t <= ate_j + 5e-4 and ate_t < 0.02, (ate_t, ate_j)
+
+
+def test_profile_every_leaves_the_outputs_bit_identical():
+    """Staged profiling on the hash map: every 4th steady frame's stages
+    run once more, each on its own; outputs and the final map are those
+    of a run without it, bit for bit."""
+    kw = dict(duration=3.0, points_per_scan=2048, lidar_noise=0.004, seed=3)
+    runs = []
+    for every in (0, 4):
+        pipe = Pipeline(other_backend(Config, CapacityConfig, "hash"), device="cpu")
+        pipe.profile_every = every
+        pipe.async_read = True  # the profile cadence holds on the deferred path
+        runs.append((pipe, _drive(pipe, SyntheticDataset(**kw)) + pipe.finish()))
+    (ref, outs_ref), (pipe, outs) = runs
+    assert ref.last_stage_profile is None
+    prof = pipe.last_stage_profile
+    assert set(prof) == {"undistort", "downsample", "ekf", "map"}
+    assert all(v > 0.0 for v in prof.values())
+    assert pipe._n_steady >= 8
+    assert len(outs) == len(outs_ref) >= 15
+    for a, b in zip(outs, outs_ref):
+        assert a.t == b.t and a.iters == b.iters and a.n_active == b.n_active
+        assert a.res_rms == b.res_rms
+        np.testing.assert_array_equal(a.pos, b.pos)
+        np.testing.assert_array_equal(a.quat, b.quat)
+    for x, y in zip(pipe.map, ref.map):
+        assert torch.equal(x, y)
+
+
 def test_livo_run_matches_jax():
     kw = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=5,
               cam_hz=10.0, cam_size=(CW, CH), cam_f=CF, Rcl=RCL)
@@ -195,9 +250,20 @@ def test_cli_synthetic_on_cpu(tmp_path, capsys):
     assert rows.shape[1] == 8 and len(rows) >= 15
     with pytest.raises(SystemExit):
         trun.main(["--device", "cpu"])  # neither --bag nor --synthetic
-    cfg_yaml.write_text("capacity:\n  map_backend: dense\n")
-    with pytest.raises(NotImplementedError, match="map_backend"):
-        trun.main(["--config", str(cfg_yaml), "--synthetic", "--device", "cpu"])
+    # the dense rolling grid through the CLI, with staged profiling and
+    # the map's points exported through its backend
+    cfg_yaml.write_text(
+        "img_enable: 0\nfilter_size_surf: 0.5\ncapacity:\n  map_backend: dense\n"
+        "  dense_dims: [64, 64, 16]\n  max_points: 4096\n  max_raw_points: 8192\n")
+    pcd = tmp_path / "map.pcd"
+    assert trun.main(["--config", str(cfg_yaml), "--synthetic", "--duration", "3",
+                      "--out", str(out), "--eval", "--device", "cpu",
+                      "--profile-every", "5", "--map-pcd", str(pcd)]) == 0
+    printed = capsys.readouterr().out
+    assert "frames=" in printed and "eval: ate_rmse_m=" in printed
+    assert "stage profile (ms): undistort=" in printed
+    m = re.search(r"map pcd: .* \((\d+) points\)", printed)
+    assert m and int(m.group(1)) > 1000, printed
 
 
 def test_constructor_refuses_what_it_cannot_do():
@@ -206,12 +272,11 @@ def test_constructor_refuses_what_it_cannot_do():
     cfg.debug = True  # the camera frame's overlay is not ported
     with pytest.raises(NotImplementedError, match="debug"):
         Pipeline(cfg, device="cpu")
-    for field, value in (("map_backend", "dense"), ("plane_fit", "ref"),
-                         ("cache_knn", True)):
-        cfg = small_config(Config, CapacityConfig)
-        setattr(cfg.capacity, field, value)
-        with pytest.raises(NotImplementedError):
-            Pipeline(cfg, device="cpu")
+    cfg = small_config(Config, CapacityConfig)
+    cfg.img_enable = True
+    cfg.pcd_save_en = True  # the RGB map cloud needs Vio.colorize
+    with pytest.raises(NotImplementedError, match="colorize"):
+        Pipeline(cfg, device="cpu")
 
 
 def test_default_device_is_cuda():
@@ -230,7 +295,7 @@ def test_import_pulls_in_no_jax():
             "fastlivo_tpu_torch.serve, fastlivo_tpu_torch.readback, "
             "fastlivo_tpu_torch.preprocess, fastlivo_tpu_torch.features, "
             "fastlivo_tpu_torch.io.checkpoint, fastlivo_tpu_torch.io.rosbag, "
-            "fastlivo_tpu_torch.io.lz4; "
+            "fastlivo_tpu_torch.io.lz4, fastlivo_tpu_torch.ops.dense_map; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'fastlivo_tpu' or m.startswith('fastlivo_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -244,7 +309,8 @@ def test_sources_name_no_jax():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"replay.py", "serve.py", "readback.py", "preprocess.py", "features.py",
-            "io/checkpoint.py", "io/rosbag.py", "io/lz4.py"} <= names
+            "io/checkpoint.py", "io/rosbag.py", "io/lz4.py", "ops/dense_map.py",
+            "ops/voxel_map.py"} <= names
     files.append(ROOT / "chip_smoke.py")
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -2,7 +2,8 @@
 
 The port's BlockReplayer against the JAX package's BlockReplayer (same
 frame count, every position within 1 mm, equal `iters` but on the frames
-where the two per-frame paths already differ by one iteration), its
+where the two per-frame paths already differ by one iteration), the same
+on the hash map (within 1 mm, `iters` equal on at least 90% of frames), its
 LivoBlockReplayer in both modes against the JAX package's (within 2 mm),
 a partial last block, and the port's deferred readbacks (`async_read` at
 depth 1 and 3, `enable_block_read`) bit-identical to its synchronous
@@ -24,7 +25,7 @@ from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
 from fastlivo_tpu_torch.pipeline import Pipeline
 from fastlivo_tpu_torch.replay import BlockReplayer, LivoBlockReplayer
 
-from test_torch_pipeline import CF, CH, CW, RCL, livo_config, small_config
+from test_torch_pipeline import CF, CH, CW, RCL, livo_config, other_backend, small_config
 
 LIO_KW = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
 LIVO_KW = dict(duration=3.0, points_per_scan=2048, lidar_noise=0.004, seed=5,
@@ -97,6 +98,25 @@ def test_block_replayer_matches_jax(block, per_frame_iter_mismatches):
     np.testing.assert_allclose([o.res_rms for o in outs_t],
                                [o.res_rms for o in outs_j], rtol=0.05, atol=1e-4)
     assert pipe.tum_trajectory().shape == (len(outs_t), 8)
+
+
+def test_block_replayer_on_the_hash_map_matches_jax():
+    """The block step on the hash map (its probe depth passed through);
+    `cache_knn` is set and, as in the JAX package, the block step leaves
+    it out."""
+    cfgs = [other_backend(c, k, "hash") for c, k in ((JConfig, JCapacity),
+                                                     (Config, CapacityConfig))]
+    for cfg in cfgs:
+        cfg.capacity.cache_knn = True
+        cfg.capacity.max_probe = 8
+    outs_j = JBlockReplayer(feed(JPipeline(cfgs[0]), JDataset(**LIO_KW)), block=8).run()
+    pipe = feed(Pipeline(cfgs[1], device="cpu"), SyntheticDataset(**LIO_KW))
+    outs_t = BlockReplayer(pipe, block=8).run()
+    assert type(pipe.map).__name__ == "VoxelMap"
+    assert sum(1 for o in outs_t if o.n_points == 0 and o.iters > 0) >= 20
+    assert_close(outs_t, outs_j, 1e-3)
+    differ = [i for i, (a, b) in enumerate(zip(outs_t, outs_j)) if a.iters != b.iters]
+    assert len(differ) <= 0.1 * len(outs_t), differ
 
 
 def test_livo_block_replayer_matches_jax_both_modes():
