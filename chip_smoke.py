@@ -3,39 +3,47 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in this checkout
-(one nvcc per source, all started together), holds each against its
-plain PyTorch version on the card, and drives two paths through
-`Pipeline` on `Config()`'s shipped capacities with 24000-point scans:
-the LiDAR-inertial path (LIO, camera off) and the LiDAR-inertial-visual
-path (LIVO, a 640x512 camera). The same LIO dataset then runs through
-the other map backends and LIO options (the hash map, the dense grid,
-`cache_knn`, `plane_fit: ref`, `profile_every` and `BlockReplayer(8)` on
-the hash map; the hash and dense estimators are checkpointed) and
-through the slice's other paths: block replay (`BlockReplayer(8)` and
+(one nvcc per source) and the native host library (native/ingest.cpp,
+one g++), all started together, holds each kernel against its plain
+PyTorch version on the card, runs a few frames of a discarded pipeline
+(so that no timed path is the process's first), and drives two paths
+through `Pipeline` on `Config()`'s shipped capacities with 24000-point
+scans: the LiDAR-inertial path (LIO, camera off) and the
+LiDAR-inertial-visual path (LIVO, a 640x512 camera). The first 24 frames
+of the same LIO dataset then run through the other map backends and LIO
+options (the hash map, the dense grid, `cache_knn`, `plane_fit: ref`,
+`profile_every` and `BlockReplayer(8)` on the hash map; the hash and
+dense estimators are checkpointed), and the whole dataset through the
+slice's other paths: block replay (`BlockReplayer(8)` and
 `LivoBlockReplayer(8)`), a `serve.Server` on a Unix socket with
 `--autosave` and a second server warm-started from that file, and a bag
 of Avia scans replayed by `run.main --bag --block 8`; the LIVO dataset
-runs through `LivoBlockReplayer(8)` and is checkpointed. The tiled-map
-paths run the fused kernels: the LIO search in one launch
-(`knn5_plane_tiled`) and each photometric iteration's measurement in one
-launch (`photometric_err_H`); the hash, dense and `cache_knn` paths
-search through the standalone `knn5_plane`; each path's launches are
-counted around it. The standalone `patches_and_grads` is held against
-its plain version but is not on the paths. The hash and dense maps'
-operations run on the card and on the CPU on the same seeded points and
-must agree in every array; `rebuild` is timed at the shipped table. Each
-path's trajectory is checked against the per-frame path and the
-synthetic ground truth, and the port on the card against the port on the
-CPU on a small input. Both per-frame paths are profiled, and so is the
-unfused composition they replaced, for the kernel counts under
-`lio.search` and `vio.photometric` before and after.
+runs through `LivoBlockReplayer(8)` and is checkpointed. Then (g) the
+LIVO dataset with `debug` and `pcd_save_en` (the overlay, `colorize`
+on the card against the CPU, the RGB cloud through `run.save_pcd` and
+`viz._load_pcd`), (h) `Vio.update_staged` against `Vio.update` on forked
+states at the same width, and (i) the native library against its numpy
+and Python twins, and a bootstrap frame through it. The tiled-map paths
+run the fused kernels: the LIO search in one launch (`knn5_plane_tiled`)
+and each photometric iteration's measurement in one launch
+(`photometric_err_H`, also on the staged path); the hash, dense and
+`cache_knn` paths search through the standalone `knn5_plane`; each
+path's launches are counted around it. The standalone
+`patches_and_grads` is held against its plain version but is not on the
+paths. The hash and dense maps' operations run on the card and on the
+CPU on the same seeded points and must agree in every array; `rebuild`
+is timed at the shipped table. Each path's trajectory is checked against
+the per-frame path and the synthetic ground truth, and the port on the
+card against the port on the CPU on a small input. Both per-frame paths
+are profiled, and so is the unfused composition they replaced, for the
+kernel counts under `lio.search` and `vio.photometric` before and after.
 
-Prints the card and its power limit, the build time, each kernel's
-time beside its bound and beside the unfused pair it replaced, each
-path's time per frame (for the server, the gaps between odometry lines)
-and launches in a `{"paths": ...}` line, a `{"kernels": ...}` line, the
-`nvidia-smi` name and power limit, and as its last line
-`{"ok": true, "device": {...}}`.
+Prints the card and its power limit, the build time, each phase's
+seconds, each kernel's time beside its bound and beside the unfused pair
+it replaced, each path's time per frame (for the server, the gaps
+between odometry lines) and launches in a `{"paths": ...}` line, a
+`{"kernels": ...}` line, the `nvidia-smi` name and power limit, and as
+its last line `{"ok": true, "device": {...}}`.
 Any failure raises: the exit code is then not 0 and no result line is
 printed. Without CUDA, or without the package beside it, it fails the
 same way.
@@ -69,13 +77,17 @@ def nvidia_smi_line() -> str:
 
 
 def build_all() -> float:
-    """One nvcc per source, all started together."""
+    """One nvcc per source and g++ for the native host library
+    (native/ingest.cpp), all started together."""
+    from fastlivo_tpu_torch import native
     from fastlivo_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(CUDA_SOURCES)) as ex:
+    with ThreadPoolExecutor(max_workers=len(CUDA_SOURCES) + 1) as ex:
+        host = ex.submit(native.build)
         for path in ex.map(_build.build, CUDA_SOURCES):
             print(f"built {path.name}")
+        print(f"built {host.result().name}")
     return time.perf_counter() - t0
 
 
@@ -445,6 +457,35 @@ def photometric_bound_ms(args):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), taps
 
 
+def photometric_compare(a, label="") -> float:
+    """photometric_err_H against its plain version on one call's arguments
+    `a`: HᵀH and Hᵀz each within 1e-4 of its largest entry, err and perr
+    within rtol 1e-5. Returns the max abs error over all outputs. This
+    launch is not the path's."""
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    G, P, level, robust = a[1].shape[0], a[13], a[12], a[14]
+    got = ph.photometric_err_H(*a)
+    torch.cuda.synchronize()
+    want = ph.photometric_err_H_plain(*a)
+    rel = []
+    for name, g, w, tol in (("HTH", got[1], want[1], 1e-4), ("HTz", got[2], want[2], 1e-4)):
+        d = float((g - w).abs().max()) / float(w.abs().max())
+        rel.append(f"{name} {d:.3g} of max")
+        if not d <= tol:
+            raise AssertionError(f"photometric_err_H {robust} {name} off by {d:.3g} of max")
+    for name, g, w in (("err", got[0], want[0]), ("perr", got[3], want[3])):
+        d = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+        rel.append(f"{name} rel {d:.3g}")
+        if not d <= 1e-5:
+            raise AssertionError(f"photometric_err_H {robust} {name} off by rel {d:.3g}")
+    e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f"photometric_err_H{label} G={G} P={P} level {level} robust {robust}: "
+          f"{', '.join(rel)}; max_abs_err={e:.3g} (|HT| up to "
+          f"{float(want[1].abs().max()):.3g})")
+    return e
+
+
 def photometric_phase(dev, args):
     """photometric_err_H against its plain version on the inputs of the
     LIVO path's last measurement (G = 192 cells of a 640x512 image,
@@ -458,29 +499,10 @@ def photometric_phase(dev, args):
     from fastlivo_tpu_torch.ops import photometric as ph
 
     args = list(args)
-    G, P, level = args[1].shape[0], args[13], args[12]
+    G, P = args[1].shape[0], args[13]
     err = 0.0
     for robust in ("none", "huber", "tukey"):
-        a = args[:14] + [robust, args[15]]
-        got = ph.photometric_err_H(*a)
-        torch.cuda.synchronize()
-        want = ph.photometric_err_H_plain(*a)
-        rel = []
-        for name, g, w, tol in (("HTH", got[1], want[1], 1e-4), ("HTz", got[2], want[2], 1e-4)):
-            d = float((g - w).abs().max()) / float(w.abs().max())
-            rel.append(f"{name} {d:.3g} of max")
-            if not d <= tol:
-                raise AssertionError(f"photometric_err_H {robust} {name} off by {d:.3g} of max")
-        for name, g, w in (("err", got[0], want[0]), ("perr", got[3], want[3])):
-            d = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
-            rel.append(f"{name} rel {d:.3g}")
-            if not d <= 1e-5:
-                raise AssertionError(f"photometric_err_H {robust} {name} off by rel {d:.3g}")
-        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        print(f"photometric_err_H G={G} P={P} level {level} robust {robust}: "
-              f"{', '.join(rel)}; max_abs_err={e:.3g} (|HT| up to "
-              f"{float(want[1].abs().max()):.3g})")
-        err = max(err, e)
+        err = max(err, photometric_compare(args[:14] + [robust, args[15]]))
     a = args[:4] + [torch.zeros_like(args[4])] + args[5:]
     got = ph.photometric_err_H(*a)
     if float(got[0]) != 0.0 or got[1].any() or got[2].any():
@@ -507,6 +529,7 @@ class Recorded:
 
     def __init__(self, ds):
         self.traj = ds.traj
+        self.room = ds.room
         self._scans = [(b, p, r.astype(np.float32).astype(np.float64))
                        for b, p, r in ds.lidar_scans_fast()]
         f32 = lambda v: np.asarray(v, np.float32).astype(np.float64)  # noqa: E731
@@ -1276,9 +1299,10 @@ def lio_config(**capacity):
     return cfg
 
 
-def backend_paths_phase(dev, ds, ref, ref_ms):
-    """The LIO dataset of path_phase through the other map backends and
-    LIO options at shipped capacities: (a) the hash map (2^20 slots,
+def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
+    """The first `frames` frames of the LIO dataset of path_phase (the
+    data up to the end of the next scan) through the other map backends
+    and LIO options at shipped capacities: (a) the hash map (2^20 slots,
     probe 12), (b) the dense grid (256 x 256 x 64), (c) tiled with
     `cache_knn`, (d) tiled with `plane_fit: ref`, (e) tiled with
     `profile_every` 8, (f) BlockReplayer(8) on the hash map. The hash,
@@ -1302,18 +1326,22 @@ def backend_paths_phase(dev, ds, ref, ref_ms):
             ("tiled profile_every 8", lio_config(), None, 8),
             ("hash BlockReplayer(8)", lio_config(map_backend="hash"), BlockReplayer, 0)]
     paths, extra, ckpts, hash_pipe = {}, {}, {}, None
+    t_max = ref[frames].t
     for name, cfg, rep, every in runs:
         cap = cfg.capacity
         pipe = Pipeline(cfg, device=dev)
         pipe.profile_every = every
-        push_all(pipe, ds)
+        push_all(pipe, ds, t_max=t_max)
         gathers = []
         mod = {"tiled": tm, "dense": dm, "hash": vm}[cap.map_backend]
         with spy(mod, "knn_candidates", gathers):
             outs, launches, wall = counted_run(
                 (lambda: rep(pipe, 8).run()) if rep else pipe.spin)
+        if len(outs) < frames:
+            raise AssertionError(f"{name}: {len(outs)} frames of {frames}")
+        pref = ref[:len(outs)]
         steady = [1e3 * o.timing["total"] for o in outs if o.iters > 0]
-        d, ate = max_diff(outs, ref), ate_of(outs, ds)
+        d, ate = max_diff(outs, pref), ate_of(outs, ds)
         ms = wall / len(outs)
         k, kt = launches["knn5_plane"], launches["knn5_plane_tiled"]
         print(f"{name}: {len(outs)} frames ({len(steady)} steady), {ms:.2f} ms/lidar frame "
@@ -1325,9 +1353,9 @@ def backend_paths_phase(dev, ds, ref, ref_ms):
         if cap.plane_fit == "ref":
             ok = k == 0 and kt == 0
         elif every:
-            ok = kt > 0 and k == 0 and same_outputs(outs, ref)
+            ok = kt > 0 and k == 0 and same_outputs(outs, pref)
             print(f"{name}: last_stage_profile {pipe.last_stage_profile} ms, outputs "
-                  f"bit-identical to per-frame: {same_outputs(outs, ref)}")
+                  f"bit-identical to per-frame: {same_outputs(outs, pref)}")
             ok = ok and set(pipe.last_stage_profile or ()) == {
                 "undistort", "downsample", "ekf", "map"}
         else:
@@ -1458,6 +1486,331 @@ def hash_block_phase(pipe, n=16384, m=27):
     return err, ms, plain_ms, bound_ms, bound_by, cand_ms
 
 
+def warmup_phase(dev, duration=2.0, points_per_scan=24000):
+    """A few frames of a discarded LIO pipeline at shipped capacities (a
+    dataset of its own seed), so that the first timed path is not the
+    process's first pipeline: its first launches, allocations and library
+    loads fall here. Returns the frames run."""
+    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    pipe = Pipeline(lio_config(), device=dev)
+    push_all(pipe, SyntheticDataset(duration=duration, points_per_scan=points_per_scan,
+                                    lidar_noise=0.004, seed=7))
+    outs = pipe.spin()
+    torch.cuda.synchronize()
+    if not any(o.iters > 0 for o in outs):
+        raise AssertionError(f"warm-up: {len(outs)} frames, none steady")
+    print(f"warm-up: {len(outs)} lidar frames of a discarded pipeline "
+          f"({sum(o.iters > 0 for o in outs)} steady)")
+    return len(outs)
+
+
+def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
+    """(g) The LIVO dataset of livo_path_phase through the per-frame path
+    with `debug` and `pcd_save_en`, at the same capacities. Neither option
+    changes what is computed: positions equal to the LIVO per-frame
+    path's, the same launches of both kernels. Checks one overlay byte for
+    byte against render_overlay of the same host arrays, Vio.colorize on
+    the card against the same call on a CPU Vio with the same image and
+    pose (masks may differ in at most 0.1% of the points, colours within
+    0.05 of 255 where both paint), and the RGB cloud written by
+    run.save_pcd and read back by viz._load_pcd (positions within 6e-5 m,
+    the ASCII writer's %.4f; packed colours equal). Returns (ms per lidar
+    frame, launches, numbers)."""
+    import io
+    import os
+    import tempfile
+
+    from fastlivo_tpu_torch import run, viz
+    from fastlivo_tpu_torch import vio as vio_mod
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    cfg = livo_config()
+    cfg.debug = cfg.pcd_save_en = True
+    pipe = Pipeline(cfg, device=dev)
+    push_all(pipe, ds)
+    drawn, tracked, dump = [], [], io.StringIO()
+    real = vio_mod.render_overlay
+    vio = pipe.vio
+    apply = vio._apply_stats
+
+    def record(*a):
+        drawn.append(a)
+        return real(*a)
+
+    def applied(stats):
+        tracked.append(int(stats[0]))
+        apply(stats)
+
+    vio._apply_stats = applied
+    with swapped(vio_mod, "render_overlay", record), contextlib.redirect_stdout(dump):
+        outs, launches, wall = counted_run(pipe.spin)
+    vio._apply_stats = apply
+    n_tracking = sum(t > 0 for t in tracked)
+    d = max_diff(outs, ref)
+    ms = wall / len(outs)
+    gray, px, perr, valid = drawn[-1]
+    same_overlay = np.array_equal(vio.last_overlay, real(gray, px, perr, valid))
+    # colorize: the same image, pose and points on a CPU Vio
+    pts = outs[-1].pts_world
+    m_c, rgb_c = vio.colorize(pts)
+    hv = vio_mod.Vio(cfg, device="cpu")
+    hv.last_bgr, hv.last_rcw, hv.last_pcw = vio.last_bgr, vio.last_rcw, vio.last_pcw
+    m_h, rgb_h = hv.colorize(pts)
+    del hv
+    mask_diff = int((m_c != m_h).sum())
+    both = m_c & m_h
+    rgb_err = float(np.abs(rgb_c[both] - rgb_h[both]).max())
+    acc = np.concatenate(pipe.rgb_cloud)
+    n_world = sum(len(o.pts_world) for o in outs if o.pts_world is not None)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rgb.pcd")
+        t0 = time.perf_counter()
+        run.save_pcd(path, acc[:, :3], acc[:, 3:6])
+        t1 = time.perf_counter()
+        p2, r2 = viz._load_pcd(path)
+        mb = os.path.getsize(path) / 1e6
+    pcd_pos_err = float(np.abs(p2 - acc[:, :3]).max())
+    pcd_same_rgb = np.array_equal(r2, np.asarray(acc[:, 3:6], np.uint32).astype(np.float32))
+    nums = {"max_diff_to_per_frame_mm": d * 1e3, "overlays": len(drawn),
+            "camera_steps_tracking": n_tracking,
+            "overlay_byte_equal": same_overlay, "colorize_points": len(pts),
+            "colorize_mask_diff": mask_diff, "colorize_max_rgb_diff": rgb_err,
+            "rgb_points": len(acc), "painted_share": len(acc) / n_world,
+            "pcd_mb": mb, "pcd_write_s": t1 - t0, "pcd_max_pos_err": pcd_pos_err,
+            "debug_show_lines": dump.getvalue().count("\n")}
+    print(f"(g) livo debug + pcd_save_en per-frame: {len(outs)} lidar frames, {vio.steps} "
+          f"camera steps, {ms:.2f} ms per lidar+camera pair (per-frame path {ref_ms:.2f}), max "
+          f"position difference to per-frame {d * 1e3:.4f} mm, launches {launches} (per-frame "
+          f"{ref_launches}); {len(drawn)} overlays for the {n_tracking} camera steps that "
+          f"tracked points (of {len(tracked)} read), the last byte-equal to render_overlay of "
+          f"its host arrays: {same_overlay}; colorize of {len(pts)} points, card vs CPU: "
+          f"{mask_diff} masks differ, max rgb difference {rgb_err:.3g}; RGB cloud "
+          f"{len(acc)} points, {100 * len(acc) / n_world:.1f}% of the {n_world} world points "
+          f"painted; PCD {mb:.1f} MB written in {t1 - t0:.2f} s, read back: max position "
+          f"error {pcd_pos_err:.3g} m, colours equal {pcd_same_rgb}; {nvidia_smi_line()}")
+    need_launches("(g)", launches, ["knn5_plane_tiled", "photometric_err_H"])
+    if not (d < 1e-9 and launches == ref_launches):
+        raise AssertionError(f"(g): {d:.3g} m from per-frame, launches {launches}")
+    if not (same_overlay and len(drawn) == n_tracking > len(tracked) // 2
+            and len(tracked) == vio.steps
+            and vio.last_overlay.shape == (cfg.camera.height, cfg.camera.width, 3)):
+        raise AssertionError(f"(g): {len(drawn)} overlays for {n_tracking} tracking steps, "
+                             f"{len(tracked)} reads for {vio.steps} steps")
+    if not (mask_diff <= 1e-3 * len(pts) and both.sum() > 100 and rgb_err <= 0.05):
+        raise AssertionError(f"(g) colorize: {mask_diff} masks differ, rgb {rgb_err}")
+    if not (len(acc) > 1000 and pcd_pos_err <= 6e-5 and pcd_same_rgb):
+        raise AssertionError(f"(g) RGB cloud: {len(acc)} points, PCD error {pcd_pos_err}")
+    return ms, launches, nums
+
+
+def fork_vio(v):
+    """A second Vio on the same state: the visual map, the image pool
+    included, is written in place, so it is cloned."""
+    import copy
+
+    f = copy.copy(v)
+    f.vmap = type(v.vmap)(*(t.clone() for t in v.vmap))
+    f._pending = []
+    return f
+
+
+def staged_phase(dev, ds, frames=10, t0=2.0, points=24000):
+    """(h) Vio.update_staged against Vio.update at the LIVO path's full
+    width (640x512, the shipped visual map), on `frames` camera frames of
+    the LIVO dataset from t0: its images, its ground-truth poses with a
+    (1, -0.8, 0.6) cm prior offset, `points`-point clouds of its room.
+    Each frame runs both on forked states and goes on from the fused one;
+    the JAX package's bounds (tests/test_vio.py): position and rotation
+    within 5e-4, covariance within 1e-4, tracked within 2, map size within
+    5%. The staged path's launches are counted around each staged call,
+    and its last photometric measurement is held against its plain
+    version. Returns (staged ms per camera frame, launches, numbers)."""
+    from fastlivo_tpu_torch import vio as vio_mod
+    from fastlivo_tpu_torch.state import identity_state
+
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def state(t, dpos=(0.0, 0.0, 0.0)):
+        rot, pos = ds.traj.pose(t)
+        return identity_state(dev)._replace(rot=torch.as_tensor(rot, **f64),
+                                            pos=torch.as_tensor(np.asarray(pos) + dpos, **f64))
+
+    def room_cloud(k):
+        return ds.room.sample_surface(points, np.random.default_rng(k)).astype(np.float32)
+
+    cams = [(t, img) for t, img in ds.images() if t >= t0][:frames + 1]
+    v = vio_mod.Vio(livo_config(), device=dev)
+    s0 = state(cams[0][0])
+    v.set_last_cloud(room_cloud(0))
+    v.update(s0, s0, cams[0][1])  # bootstrap: the first points
+    fused_ms, staged_ms, worst, calls = [], [], dict(pos=0.0, rot=0.0, cov=0.0, tracked=0,
+                                                     map=0.0), []
+    launches = {}
+    for k, (t, img) in enumerate(cams[1:], 1):
+        sp = state(t, (0.01, -0.008, 0.006))
+        v.set_last_cloud(room_cloud(k))
+        ref = fork_vio(v)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out_f = v.update(sp, sp, img)
+        torch.cuda.synchronize()
+        fused_ms.append(1e3 * (time.perf_counter() - t1))
+        calls.clear()
+        with spy(vio_mod, "photometric_err_H", calls):
+            out_s, lk, ms = counted_run(lambda: ref.update_staged(sp, sp, img))
+        staged_ms.append(ms)
+        launches = {n: launches.get(n, 0) + c for n, c in lk.items()}
+        nf, ns = int(v.vmap.n_pts), int(ref.vmap.n_pts)
+        dk = dict(pos=float((out_f.pos - out_s.pos).abs().max()),
+                  rot=float((out_f.rot - out_s.rot).abs().max()),
+                  cov=float((out_f.cov - out_s.cov).abs().max()),
+                  tracked=abs(v.last_stats["tracked"] - ref.last_stats["tracked"]),
+                  map=abs(nf - ns) / max(ns, 1))
+        worst = {n: max(worst[n], dk[n]) for n in worst}
+        if not (dk["pos"] <= 5e-4 and dk["rot"] <= 5e-4 and dk["cov"] <= 1e-4
+                and dk["tracked"] <= 2 and abs(nf - ns) <= max(3, 0.05 * ns)
+                and v.last_stats["tracked"] > 10):
+            raise AssertionError(f"(h) frame {k}: {dk}, tracked {v.last_stats} vs "
+                                 f"{ref.last_stats}, map {nf} vs {ns}")
+        del ref
+    ph_err = photometric_compare(list(calls[-1]), " (staged path's last call)")
+    nums = {"camera_frames": frames, "fused_ms_median": float(np.median(fused_ms)),
+            "staged_ms_median": float(np.median(staged_ms)), "worst": worst,
+            "photometric_max_abs_err": ph_err, "map_points": int(v.vmap.n_pts)}
+    cam = v.cfg.camera
+    print(f"(h) update_staged vs update, {frames} camera frames at {cam.width}x{cam.height}: "
+          f"worst position "
+          f"{worst['pos']:.3g}, rotation {worst['rot']:.3g}, covariance {worst['cov']:.3g}, "
+          f"tracked {worst['tracked']}, map size {100 * worst['map']:.2f}%; staged launches "
+          f"{launches}; ms per camera frame: staged median {np.median(staged_ms):.2f}, fused "
+          f"median {np.median(fused_ms):.2f}; {nvidia_smi_line()}")
+    need_launches("(h)", launches, ["photometric_err_H"])
+    if launches["photometric_err_H"] < 3 * frames or launches["patches_and_grads"]:
+        raise AssertionError(f"(h) staged launches {launches}")
+    return float(np.median(staged_ms)), launches, nums
+
+
+def host_ms(fn, reps=5) -> float:
+    """Median host wall of fn() over `reps` calls, in ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def feature_ring(n=4000, seed=11):
+    """One Avia ring of n points: a wavy wall with depth jumps and blind
+    dropouts (tests/test_features.py's native case, longer)."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(-0.6, 0.6, n)
+    r = 6.0 + 2.0 * np.sin(3 * ang) + rng.normal(0, 0.01, n)
+    r = np.where(rng.random(n) < 0.03, r * rng.uniform(1.5, 3.0, n), r)
+    r[rng.random(n) < 0.02] = 0.1
+    pl = np.stack([r * np.cos(ang), r * np.sin(ang), 0.1 * np.sin(7 * ang)], 1)
+    d = np.diff(pl, axis=0)
+    return (pl, np.linspace(0, 100, n), pl[:, 0] ** 2 + pl[:, 1] ** 2,
+            np.concatenate([np.sum(d * d, axis=1), [0.0]]))
+
+
+def native_phase(dev, ds, lio_outs):
+    """(i) The native host library (native/ingest.cpp, built by native.py
+    with g++ on this machine) must load. Each entry point against its
+    numpy or Python twin: the voxel filter on a scan of the LIO dataset
+    (rtol 1e-5 / atol 1e-4, tests/test_native.py's bounds), the Avia
+    decoder on its scans as Livox CustomPoints (rtol 1e-6), one ring of
+    ~4000 points through give_feature (exact), and an lz4 block and
+    xxh32 over 512 KiB of those CustomPoints, a bag chunk's payload
+    (exact); host times of each. A pipeline's bootstrap frame must filter
+    through it. Returns numbers."""
+    from fastlivo_tpu_torch import features, native
+    from fastlivo_tpu_torch import preprocess as pp
+    from fastlivo_tpu_torch.config import AVIA, PreprocessConfig
+    from fastlivo_tpu_torch.io import lz4
+    from fastlivo_tpu_torch.ops.voxel_filter import voxel_downsample
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("(i) the native library did not build or load")
+    livox = np.dtype([("offset_time", "<u4"), ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                      ("reflectivity", "u1"), ("tag", "u1"), ("line", "u1")])
+    raw = []
+    for _, pts, t_rel in ds.lidar_scans_fast()[20:22]:
+        arr = np.zeros(len(pts), livox)
+        arr["x"], arr["y"], arr["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
+        arr["offset_time"] = (t_rel * 1e9).astype(np.uint32)
+        arr["tag"] = 0x10
+        arr["line"] = np.arange(len(pts)) % 6
+        raw.append(arr)
+    raw = np.concatenate(raw)
+    pcfg = PreprocessConfig(lidar_type=AVIA, n_scans=6, blind=0.5, point_filter_num=2)
+    dec = native.decode_avia_native(raw, pcfg.n_scans, pcfg.blind, pcfg.point_filter_num)
+    xyz = np.stack([raw["x"], raw["y"], raw["z"]], 1).astype(np.float64)
+    ref_pts, ref_t = pp.decode_avia(xyz, raw["reflectivity"].astype(np.float32), raw["tag"],
+                                    raw["line"], raw["offset_time"].astype(np.float64), pcfg)
+    np.testing.assert_allclose(dec[0], ref_pts, rtol=1e-6)
+    np.testing.assert_allclose(dec[1], ref_t, atol=1e-12)
+    scan = ds.lidar_scans_fast()[20][1][:, :3].astype(np.float32)
+    got = native.voxel_downsample_native(scan, 0.5, max_out=16384)
+    want = voxel_downsample(scan, 0.5, max_out=16384)
+    if not np.array_equal(got[1], want[1]):
+        raise AssertionError("(i) voxel filter: the masks differ")
+    vox_err = float(np.abs(got[0] - want[0]).max())
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
+    vox_ms = (host_ms(lambda: native.voxel_downsample_native(scan, 0.5, max_out=16384)),
+              host_ms(lambda: voxel_downsample(scan, 0.5, max_out=16384)))
+    ring = feature_ring()
+    sn, cn = native.give_feature_ring_native(*ring, 1.0, 3, True)
+    sp, cp = features.give_feature(*ring, 1.0, 3, True)
+    if not (np.array_equal(sn, sp) and np.array_equal(cn, cp)):
+        raise AssertionError("(i) give_feature: native and Python differ")
+    ring_ms = (host_ms(lambda: native.give_feature_ring_native(*ring, 1.0, 3, True), 20),
+               host_ms(lambda: features.give_feature(*ring, 1.0, 3, True), 3))
+    data = raw.tobytes()[:512 << 10]
+    comp = lz4.compress_block(data)
+    out_n, out_p = bytearray(), bytearray()
+    lz4._decompress_block_native(lib, comp, out_n)
+    lz4._decompress_block_py(comp, out_p)
+    same_xxh = lz4.xxh32(data) == lz4._xxh32_py(data)
+    if not (bytes(out_n) == bytes(out_p) == data and same_xxh):
+        raise AssertionError("(i) lz4: native and Python differ")
+    lz4_ms = (host_ms(lambda: lz4._decompress_block_native(lib, comp, bytearray())),
+              host_ms(lambda: lz4._decompress_block_py(comp, bytearray()), 3))
+    xxh_ms = (host_ms(lambda: lz4.xxh32(data)), host_ms(lambda: lz4._xxh32_py(data), 3))
+    # a pipeline's bootstrap frame filters through the library
+    boot = []
+    real = native.voxel_downsample_native
+
+    def record(*a, **kw):
+        boot.append(real(*a, **kw))
+        return boot[-1]
+
+    pipe = Pipeline(lio_config(), device=dev)
+    push_all(pipe, ds, t_max=lio_outs[0].t + 0.05)
+    with swapped(native, "voxel_downsample_native", record):
+        pipe.spin()
+    if not (pipe.map_built and boot and all(b is not None for b in boot)):
+        raise AssertionError(f"(i) bootstrap: map built {pipe.map_built}, {len(boot)} calls")
+    nums = {"decoded_points": len(dec[0]), "voxel_filter_max_abs_err": vox_err,
+            "voxel_filter_ms": vox_ms, "ring_points": len(ring[0]),
+            "give_feature_ms": ring_ms, "lz4_bytes": len(data), "lz4_compressed": len(comp),
+            "lz4_decode_ms": lz4_ms, "xxh32_ms": xxh_ms, "bootstrap_calls": len(boot)}
+    print(f"(i) native library loaded; Avia decoder on {len(raw)} CustomPoints: "
+          f"{len(dec[0])} kept, within rtol 1e-6 of numpy; voxel filter "
+          f"on a {len(scan)}-point scan: max abs difference to numpy {vox_err:.3g}, native "
+          f"{vox_ms[0]:.2f} ms vs numpy {vox_ms[1]:.2f} ms; give_feature on a ring of "
+          f"{len(ring[0])} points: exact, native {ring_ms[0]:.3f} ms vs Python "
+          f"{ring_ms[1]:.1f} ms; lz4 block of {len(data)} bytes ({len(comp)} compressed): "
+          f"exact, native {lz4_ms[0]:.3f} ms vs Python {lz4_ms[1]:.1f} ms; xxh32 exact, "
+          f"native {xxh_ms[0]:.3f} ms vs Python {xxh_ms[1]:.1f} ms; the bootstrap frame "
+          f"filtered through it ({len(boot)} calls); host times; {nvidia_smi_line()}")
+    return nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1472,71 +1825,109 @@ def main() -> int:
     smi = nvidia_smi_line()
     print(f"device: {name} ({torch.cuda.device_count()} visible); nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"build: {build_all():.2f} s")
+    seconds = {}
+
+    @contextlib.contextmanager
+    def phase(label):
+        t0 = time.perf_counter()
+        yield
+        seconds[label] = time.perf_counter() - t0
+        print(f"phase {label}: {seconds[label]:.1f} s")
+
+    with phase("build"):
+        print(f"build: {build_all():.2f} s")
     # what time_ms reads for a kernel that does nothing: the floor under
     # every kernel time below
     print(f"launch floor: an empty kernel {time_ms(lambda: torch.cuda._sleep(0)):.4f} ms")
 
     n, m = 16384, 27  # the main path's EKF batch at max_points, radius 1
-    err_random = kernel_phase(dev, n, m)
-    pg_err, pg_ms, pg_plain_ms, pg_bound_ms, pg_bound_by = patches_phase(dev)
-    tiled_err = tiled_check(*random_map(dev, n), "random-block map")
-    pipe, lio_launches, lio_outs, lio_ds, lio_ms = path_phase(dev)
+    with phase("kernels"):
+        err_random = kernel_phase(dev, n, m)
+        pg_err, pg_ms, pg_plain_ms, pg_bound_ms, pg_bound_by = patches_phase(dev)
+        tiled_err = tiled_check(*random_map(dev, n), "random-block map")
+    with phase("warm-up"):
+        warmup_phase(dev)
+    with phase("lio per-frame"):
+        pipe, lio_launches, lio_outs, lio_ds, lio_ms = path_phase(dev)
 
-    # the search on the path's own map and queries: compare, then time
-    q = real_queries(pipe, n)
-    tiled_err = max(tiled_err, tiled_check(pipe.map, q, "path map"))
-    cand, found = tm.knn_candidates(pipe.map, q, 1)
-    got = knn_plane.knn5_plane(cand, found, q)
-    torch.cuda.synchronize()
-    want = knn_plane.knn5_plane_plain(cand, found, q)
-    err = max(err_random, knn5_contract(got, want, min_both=1000))
-    print(f"knn5_plane N={n} M={m} on the tiled path's block: contract ok")
-    t_ms = time_ms(lambda: knn_plane.knn5_plane_tiled(pipe.map, q, 1, 0.1))
-    pair_ms = time_ms(lambda: knn_plane.knn5_plane(*tm.knn_candidates(pipe.map, q, 1), q, 0.1))
-    t_plain_ms = time_ms(lambda: knn_plane.knn5_plane_tiled_plain(pipe.map, q, 1, 0.1))
-    t_bound_ms, t_bound_by, uniq = tiled_bound_ms(pipe.map, q, 1)
-    print(f"knn5_plane_tiled N={n} M={m} on the path map: kernel {t_ms:.4f} ms, unfused pair "
-          f"(knn_candidates + knn5_plane kernel) {pair_ms:.4f} ms, plain {t_plain_ms:.4f} ms, "
-          f"bound {t_bound_ms:.5f} ms ({t_bound_by}; distinct directory entries, pool cells, "
-          f"live points, neighbourhood tiles {uniq}), library none; {smi}")
-
-    del pipe, cand, found, got, want
-    torch.cuda.empty_cache()
+        # the search on the path's own map and queries: compare, then time
+        q = real_queries(pipe, n)
+        tiled_err = max(tiled_err, tiled_check(pipe.map, q, "path map"))
+        cand, found = tm.knn_candidates(pipe.map, q, 1)
+        got = knn_plane.knn5_plane(cand, found, q)
+        torch.cuda.synchronize()
+        want = knn_plane.knn5_plane_plain(cand, found, q)
+        err = max(err_random, knn5_contract(got, want, min_both=1000))
+        print(f"knn5_plane N={n} M={m} on the tiled path's block: contract ok")
+        t_ms = time_ms(lambda: knn_plane.knn5_plane_tiled(pipe.map, q, 1, 0.1))
+        pair_ms = time_ms(lambda: knn_plane.knn5_plane(*tm.knn_candidates(pipe.map, q, 1),
+                                                       q, 0.1))
+        t_plain_ms = time_ms(lambda: knn_plane.knn5_plane_tiled_plain(pipe.map, q, 1, 0.1))
+        t_bound_ms, t_bound_by, uniq = tiled_bound_ms(pipe.map, q, 1)
+        print(f"knn5_plane_tiled N={n} M={m} on the path map: kernel {t_ms:.4f} ms, unfused "
+              f"pair (knn_candidates + knn5_plane kernel) {pair_ms:.4f} ms, plain "
+              f"{t_plain_ms:.4f} ms, bound {t_bound_ms:.5f} ms ({t_bound_by}; distinct "
+              f"directory entries, pool cells, live points, neighbourhood tiles {uniq}), "
+              f"library none; {smi}")
+        del pipe, cand, found, got, want
+        torch.cuda.empty_cache()
     # the other map backends and LIO options on the same LIO dataset; the
     # standalone knn5_plane on the hash path's block; the maps' operations
     paths = {"lio per-frame": (lio_ms, lio_launches)}
-    backend_paths, path_extra, hash_pipe, backend_ckpts = backend_paths_phase(
-        dev, lio_ds, lio_outs, lio_ms)
-    paths.update(backend_paths)
-    err_hash, ms, plain_ms, bound_ms, bound_by, cand_ms = hash_block_phase(hash_pipe, n, m)
-    err = max(err, err_hash)
-    del hash_pipe
-    torch.cuda.empty_cache()
-    rebuild_ms, rebuild_occ = map_ops_phase(dev)
-    torch.cuda.empty_cache()
+    with phase("backends (a)-(f)"):
+        backend_paths, path_extra, hash_pipe, backend_ckpts = backend_paths_phase(
+            dev, lio_ds, lio_outs, lio_ms)
+        paths.update(backend_paths)
+        err_hash, ms, plain_ms, bound_ms, bound_by, cand_ms = hash_block_phase(hash_pipe, n, m)
+        err = max(err, err_hash)
+        del hash_pipe
+        torch.cuda.empty_cache()
+    with phase("map ops"):
+        rebuild_ms, rebuild_occ = map_ops_phase(dev)
+        torch.cuda.empty_cache()
     # the slice's other paths on the same LIO dataset: block replay,
     # serving with autosave and warm restart, bag replay
-    paths.update(lio_block_phase(dev, lio_ds, lio_outs, lio_ms))
-    paths.update(serve_phase(dev, lio_ds, lio_outs))
-    paths.update(bag_phase(dev, lio_ds))
-    torch.cuda.empty_cache()
-    (livo_launches, last_call, cam_fused, lid_fused, livo_outs, livo_ds,
-     livo_ms) = livo_path_phase(dev)
-    livo_paths, livo_ckpt = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
+    with phase("lio block replay"):
+        paths.update(lio_block_phase(dev, lio_ds, lio_outs, lio_ms))
+    with phase("serve"):
+        paths.update(serve_phase(dev, lio_ds, lio_outs))
+    with phase("bag"):
+        paths.update(bag_phase(dev, lio_ds))
+        torch.cuda.empty_cache()
+    with phase("livo per-frame"):
+        (livo_launches, last_call, cam_fused, lid_fused, livo_outs, livo_ds,
+         livo_ms) = livo_path_phase(dev)
+    with phase("livo block replay"):
+        livo_paths, livo_ckpt = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
     paths["livo per-frame"] = (livo_ms, livo_launches)
     paths.update(livo_paths)
+    with phase("(g) livo debug + pcd_save_en"):
+        g_ms, g_launches, g_nums = livo_debug_phase(dev, livo_ds, livo_outs, livo_ms,
+                                                    livo_launches)
+        paths["livo debug + pcd_save_en per-frame"] = (g_ms, g_launches)
+        path_extra["livo debug + pcd_save_en per-frame"] = g_nums
     del livo_outs
-    ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
-        photometric_phase(dev, last_call)
-    del last_call
+    torch.cuda.empty_cache()
+    with phase("(h) update_staged"):
+        h_ms, h_launches, h_nums = staged_phase(dev, livo_ds)
+        paths["vio update_staged"] = (h_ms, h_launches)
+        path_extra["vio update_staged"] = h_nums
+        torch.cuda.empty_cache()
+    with phase("(i) native"):
+        native_nums = native_phase(dev, lio_ds, lio_outs)
+    with phase("photometric kernel"):
+        ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
+            photometric_phase(dev, last_call)
+        del last_call
     print(f"camera frame median {cam_fused:.2f} ms, lidar frame median {lid_fused:.2f} ms; "
           f"{smi}")
 
-    cpu_agreement(dev)
-    livo_cpu_agreement(dev)
-    search_k = [profile_phase(dev, fused=f) for f in (False, True)]
-    photo_k = [livo_profile_phase(dev, fused=f) for f in (False, True)]
+    with phase("card vs cpu"):
+        cpu_agreement(dev)
+        livo_cpu_agreement(dev)
+    with phase("profiles"):
+        search_k = [profile_phase(dev, fused=f) for f in (False, True)]
+        photo_k = [livo_profile_phase(dev, fused=f) for f in (False, True)]
     print(f"device kernels under lio.search per steady lidar frame: unfused {search_k[0]:.1f}, "
           f"fused {search_k[1]:.1f}; under vio.photometric per camera frame: unfused "
           f"{photo_k[0]:.1f}, fused {photo_k[1]:.1f}")
@@ -1551,6 +1942,8 @@ def main() -> int:
         **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
         "hash_rebuild": {"ms": rebuild_ms, "occupancy": rebuild_occ},
         "hash_block_knn_candidates_ms": cand_ms,
+        "native": native_nums,
+        "phase_seconds": seconds,
         "nvidia_smi": smi}))
 
     print(json.dumps({"kernels": [{

@@ -21,12 +21,17 @@ blocks reference the previous 64 KiB window across block boundaries).
 Throughput is host-ingestion-path only (a few MB per bag chunk); the
 device pipeline never sees compressed bytes.
 
-The port's copy of the JAX package's io/lz4.py: the same pure-Python
-codec, without the optional C++ decoder (native/ingest.cpp).
+The port's copy of the JAX package's io/lz4.py, with the same C++ block
+decoder and xxh32 (native/ingest.cpp through the port's native.py, ~100x
+the pure-Python loops on MB-scale bag chunks); where the library cannot
+be built, the Python implementations below, the readable spec, run.
 """
 from __future__ import annotations
 
+import ctypes
 import struct
+
+from .. import native
 
 FRAME_MAGIC = 0x184D2204
 LEGACY_MAGIC = 0x184C2102
@@ -46,6 +51,13 @@ def _rotl(x: int, r: int) -> int:
 
 def xxh32(data: bytes, seed: int = 0) -> int:
     """xxHash32 (the checksum the LZ4 frame format uses)."""
+    lib = native.load()
+    if lib is not None:
+        return int(lib.xxh32_native(bytes(data), len(data), seed))
+    return _xxh32_py(data, seed)
+
+
+def _xxh32_py(data: bytes, seed: int = 0) -> int:
     n = len(data)
     i = 0
     if n >= 16:
@@ -82,6 +94,39 @@ def xxh32(data: bytes, seed: int = 0) -> int:
 def decompress_block(src: bytes, out: bytearray) -> None:
     """Decode one LZ4 block, appending to `out`. Match offsets may
     reach into bytes already in `out` (the linked-block window)."""
+    lib = native.load()
+    if lib is not None:
+        _decompress_block_native(lib, src, out)
+        return
+    _decompress_block_py(src, out)
+
+
+def _decompress_block_native(lib, src: bytes, out: bytearray) -> None:
+    pos = len(out)
+    # capacity guess: rosbag frames cap decompressed blocks at 4 MiB
+    # (legacy: 8 MiB), and a block never shrinks below ~its compressed
+    # size; over-guessing costs a multi-MB zero-fill per call, so start
+    # tight and grow 4x on the rare -2
+    extra = max(4 << 20, 2 * len(src))
+    while True:
+        cap = pos + extra
+        out.extend(b"\0" * (cap - len(out)))
+        buf = (ctypes.c_char * cap).from_buffer(out)
+        new_len = lib.lz4_decompress_block(bytes(src), len(src), buf,
+                                           pos, cap)
+        del buf  # release the exported buffer before resizing
+        if new_len == -2:  # output capacity exceeded: grow and retry
+            del out[pos:]
+            extra *= 4
+            continue
+        if new_len < 0:
+            del out[pos:]
+            raise ValueError("lz4: malformed block (native decoder)")
+        del out[new_len:]
+        return
+
+
+def _decompress_block_py(src: bytes, out: bytearray) -> None:
     i = 0
     n = len(src)
     while i < n:

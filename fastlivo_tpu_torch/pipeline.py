@@ -34,9 +34,11 @@ Readback modes (outputs bit-identical to the synchronous path, later):
 runs the four stages of every N-th steady frame once more, each on its
 own, and records their times in `last_stage_profile` (ms).
 
-Not ported yet, and refused by the constructor: with images, the camera
-frame's `debug` overlay and the RGB map cloud (`pcd_save_en`, which
-needs `Vio.colorize`). Visualisation is absent.
+With images, `pcd_save_en` paints each emitted frame's world cloud from
+the latest camera image (`Vio.colorize`) into `rgb_cloud`, and `debug`
+keeps the camera frame's reads synchronous for its overlay
+(`Vio.last_overlay`). `on_frame` is the visualization hook
+(viz.LiveViewer.update).
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from torch.profiler import record_function
 
 from . import imu as imu_mod
 from . import lio as lio_mod
+from . import native
 from . import visual_map as vmap_mod
 from .config import Config
 from .device import resolve_device
@@ -93,14 +96,6 @@ class Pipeline:
         write the Log/ traces (mat_pre, mat_out, imu, pos_log and, with
         pose_output_en, camera_pose) there."""
         cap = cfg.capacity
-        if cfg.img_enable and cfg.debug:
-            raise NotImplementedError(
-                "debug with images: the camera frame's overlay is not ported "
-                "yet; set debug = False")
-        if cfg.img_enable and cfg.pcd_save_en:
-            raise NotImplementedError(
-                "pcd_save_en with images: the RGB map cloud needs Vio.colorize, "
-                "which is not ported yet (ROADMAP item 8c)")
         lio_mod.check_supported(cap.map_backend, cap.plane_fit)
         self.cfg = cfg
         self.logger = TraceLogger(log_dir) if log_dir is not None else None
@@ -111,6 +106,7 @@ class Pipeline:
         # its start row
         self.max_scan_poses = max(8 * (cap.max_imu_per_group + 1), 128)
         self._decimation_warned = False
+        self.rgb_cloud: List[np.ndarray] = []  # accumulated (x, y, z, r, g, b) rows
         self.sync = Synchronizer(img_enable=cfg.img_enable)
         # the camera frame's state (visual map, image pool), on `device`
         self.vio: Optional[Vio] = Vio(cfg, device=dev) if cfg.img_enable else None
@@ -563,10 +559,14 @@ class Pipeline:
             )
             feats_undistort = und.cpu().numpy()[:N]
             t_undistort = time.perf_counter()
-            down, dmask = voxel_downsample(
-                feats_undistort, self.cfg.filter_size_surf,
-                max_out=cap.max_points,
-            )
+            # the C++ filter, as the JAX package's bootstrap takes it,
+            # else its numpy twin
+            got = native.voxel_downsample_native(
+                feats_undistort, self.cfg.filter_size_surf, max_out=cap.max_points)
+            if got is None:
+                got = voxel_downsample(feats_undistort, self.cfg.filter_size_surf,
+                                       max_out=cap.max_points)
+            down, dmask = got
             n_down = int(dmask.sum())
             t_down = time.perf_counter()
 
@@ -678,6 +678,14 @@ class Pipeline:
                 rcw = self.vio.Rci.cpu().numpy() @ rot_np.T
                 pcw = -rcw @ pos_np + self.vio.Pci.cpu().numpy()
             self.logger.log_camera_pose(scan.beg_time, rcw, pcw)
+        if self.cfg.pcd_save_en and self.vio is not None and out.pts_world is not None:
+            # the accumulated RGB world cloud (pcl_wait_save,
+            # laserMapping.cpp:726-746, 778): the frame's cloud painted from
+            # the latest image, in-frame points only
+            cmask, rgb = self.vio.colorize(out.pts_world)
+            if cmask.any():
+                self.rgb_cloud.append(
+                    np.concatenate([out.pts_world[cmask], rgb[cmask]], axis=1))
         if self.collect_cov:
             self.covs.append(cov_handle.cpu().numpy())
         self.outputs.append(out)

@@ -13,11 +13,14 @@ unless `--device cpu` is given. Offline replay defers each frame's
 readback by one frame (`--sync-read` turns that off; outputs are the
 same); `--block N` replays in blocks of N events with one read per block.
 Writes a TUM trajectory (t x y z qx qy qz qw, laserMapping.cpp:
-1738-1748), optionally the Log/ traces (`--log-dir`), the LIO-mode
-intensity cloud (`--pcd-out`), the map's points (`--map-pcd`) and a
-checkpoint (`--save-ckpt`), and prints per-stage timing (with
-`--profile-every N`, also each LIO stage's time on its own). Without
-`--config` (or `--launch`) the built-in `Config()` defaults are used.
+1738-1748), optionally the Log/ traces (`--log-dir`), the accumulated
+world cloud (`--pcd-out`: RGB-painted in LIVO mode, intensity in LIO
+mode), the map's points (`--map-pcd`), a checkpoint (`--save-ckpt`) and
+PNG frames of the cloud and path (`--viz-dir`, every `--viz-every`
+frames; needs matplotlib), and prints per-stage timing (with
+`--profile-every N`, also each LIO stage's time on its own). With
+`debug` in the config, reads stay synchronous. Without `--config` (or
+`--launch`) the built-in `Config()` defaults are used.
 """
 from __future__ import annotations
 
@@ -174,12 +177,15 @@ def run_synthetic(pipe: Pipeline, duration: float, points_per_scan: int = 8192,
     return len(outs), ds
 
 
-def save_pcd(path: str, pts: np.ndarray, intensity: np.ndarray | None = None):
+def save_pcd(path: str, pts: np.ndarray, rgb: np.ndarray | None = None,
+             intensity: np.ndarray | None = None):
     """Minimal ASCII PCD writer (pcd_save_en path, laserMapping.cpp:
-    1839-1855): PointXYZI with `intensity` (the reference's LIO-mode
-    cloud, README 4.1), else PointXYZ."""
+    1839-1855). With `rgb` (N, 3) in [0,255], writes the packed rgb
+    field of pcl::PointXYZRGB (the reference's LIVO RGB map cloud);
+    with `intensity` (N,), writes PointXYZI (the reference's LIO-mode
+    intensity-colored cloud, README 4.1); else PointXYZ."""
     with open(path, "w") as f:
-        if intensity is not None:
+        if rgb is None and intensity is not None:
             f.write(
                 "# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
                 "FIELDS x y z intensity\nSIZE 4 4 4 4\nTYPE F F F F\n"
@@ -189,6 +195,18 @@ def save_pcd(path: str, pts: np.ndarray, intensity: np.ndarray | None = None):
             np.savetxt(f, np.concatenate(
                 [pts[:, :3], np.asarray(intensity, np.float32)[:, None]], 1),
                 fmt="%.4f")
+            return
+        if rgb is not None:
+            packed = ((np.asarray(rgb[:, 0], np.uint32) << 16)
+                      | (np.asarray(rgb[:, 1], np.uint32) << 8)
+                      | np.asarray(rgb[:, 2], np.uint32)).view(np.int32)
+            f.write(
+                "# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+                "FIELDS x y z rgb\nSIZE 4 4 4 4\nTYPE F F F U\nCOUNT 1 1 1 1\n"
+                f"WIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+                f"POINTS {len(pts)}\nDATA ascii\n")
+            for p, c in zip(pts[:, :3], packed):
+                f.write("%.4f %.4f %.4f %d\n" % (p[0], p[1], p[2], c))
             return
         f.write(
             "# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
@@ -216,7 +234,8 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
     ap.add_argument("--log-dir", default=None, help="write the Log/ traces here")
     ap.add_argument("--pcd-out", default=None,
-                    help="LIO mode: write the accumulated intensity cloud")
+                    help="write the accumulated world cloud: RGB-painted in LIVO "
+                    "mode, intensity-colored in LIO mode")
     ap.add_argument("--map-pcd", default=None,
                     help="export the map's live points to a PCD at exit")
     ap.add_argument("--save-ckpt", default=None,
@@ -236,6 +255,12 @@ def main(argv=None):
     ap.add_argument("--profile-every", type=int, default=0,
                     help="every N steady frames, also run the LIO stages one "
                     "by one and print their times (laserMapping.cpp:1805)")
+    ap.add_argument("--viz-dir", default=None,
+                    help="live visualization: render the world cloud and path to "
+                    "PNG frames in this directory (latest.png tracks the newest; "
+                    "the rviz surface, laserMapping.cpp:1377-1389); needs matplotlib")
+    ap.add_argument("--viz-every", type=int, default=5,
+                    help="render every N-th frame (with --viz-dir)")
     ap.add_argument("--sync-read", action="store_true",
                     help="read each frame's results before the next frame "
                     "(by default offline replay defers the read one frame; "
@@ -264,16 +289,18 @@ def main(argv=None):
     if args.no_img or (args.bag and args.camera is None):
         cfg.img_enable = False
     if args.pcd_out:
-        if cfg.img_enable:
-            ap.error("--pcd-out in LIVO mode needs the RGB cloud (Vio.colorize), "
-                     "which is not ported yet; use --no-img or --map-pcd")
         cfg.pcd_save_en = True
 
     pipe = Pipeline(cfg, device=args.device, log_dir=args.log_dir)
     pipe.profile_every = args.profile_every
-    if not args.sync_read and not args.block:
-        # offline default: frame N's read overlaps frame N+1's dispatch
+    if not args.sync_read and not args.block and not cfg.debug:
+        # offline default: frame N's read overlaps frame N+1's dispatch;
+        # debug keeps sync reads for the overlay
         pipe.async_read = True
+    if args.viz_dir:
+        from .viz import LiveViewer
+
+        pipe.on_frame = LiveViewer(args.viz_dir, every=args.viz_every).update
     if args.load_ckpt:
         from .io import checkpoint as ckpt_mod
 
@@ -294,15 +321,20 @@ def main(argv=None):
     traj = pipe.tum_trajectory()
     if len(traj):
         write_tum(args.out, traj)
-    if args.pcd_out:
-        keep = [o for o in pipe.outputs if o.pts_world is not None]
-        if keep:
-            pts = np.concatenate([o.pts_world for o in keep])
-            inten = None
-            if all(o.intensity is not None and len(o.intensity) == len(o.pts_world)
-                   for o in keep):
-                inten = np.concatenate([o.intensity for o in keep])
-            save_pcd(args.pcd_out, pts, intensity=inten)
+    if args.pcd_out and pipe.outputs:
+        if pipe.rgb_cloud:
+            # the RGB world map (pcl_wait_save, laserMapping.cpp:778, 1841)
+            acc = np.concatenate(pipe.rgb_cloud)
+            save_pcd(args.pcd_out, acc[:, :3], acc[:, 3:6])
+        else:
+            keep = [o for o in pipe.outputs if o.pts_world is not None]
+            if keep:
+                pts = np.concatenate([o.pts_world for o in keep])
+                inten = None
+                if all(o.intensity is not None and len(o.intensity) == len(o.pts_world)
+                       for o in keep):
+                    inten = np.concatenate([o.intensity for o in keep])
+                save_pcd(args.pcd_out, pts, intensity=inten)
     tm = {}
     if pipe.outputs:
         tm = {k: float(np.mean([o.timing[k] for o in pipe.outputs])) * 1e3

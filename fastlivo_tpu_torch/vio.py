@@ -34,8 +34,12 @@ Differences from the JAX package, none of which changes a result:
   - the visual map is updated in place (see visual_map.py).
 The frame's stats row is read at once, or deferred (`async_read`, read
 `async_depth` camera frames later) or handed to a block collector
-(`read_collector`, replay.BlockReadCollector), as the pipeline sets.
-Not ported yet: `update_staged`, the debug overlay, `colorize`, and the
+(`read_collector`, replay.BlockReadCollector), as the pipeline sets;
+under `cfg.debug` it is always read at once, and the frame's tracked
+points are drawn on it (`render_overlay`, `Vio.last_overlay`).
+`Vio.update_staged` runs the same frame one stage at a time (the JAX
+package's unfused reference path), and `Vio.colorize` paints world points
+from the last camera image (the RGB map cloud). Not ported yet: the
 mesh/sharded forms.
 """
 from __future__ import annotations
@@ -579,6 +583,31 @@ def vio_frame_step(
             its, stats)
 
 
+def render_overlay(gray: np.ndarray, px: np.ndarray, errors: np.ndarray,
+                   valid: np.ndarray, radius: int = 6) -> np.ndarray:
+    """display_keypatch parity (lidar_selection.cpp:985-1005): RGB image
+    with filled circles at tracked points — green where the photometric
+    error < 8000, blue otherwise. Host numpy, as in the JAX package."""
+    H, W = gray.shape
+    rgb = np.stack([gray] * 3, -1).astype(np.uint8)
+    yy, xx = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    disk = (yy * yy + xx * xx) <= radius * radius
+    for (u, v), e, ok in zip(px, errors, valid):
+        if not ok:
+            continue
+        r0, c0 = int(v) - radius, int(u) - radius
+        r1, c1 = r0 + disk.shape[0], c0 + disk.shape[1]
+        rr0, cc0 = max(r0, 0), max(c0, 0)
+        rr1, cc1 = min(r1, H), min(c1, W)
+        if rr1 <= rr0 or cc1 <= cc0:
+            continue
+        sub = disk[rr0 - r0:rr1 - r0, cc0 - c0:cc1 - c0]
+        color = (0, 255, 0) if e < 8000 else (0, 0, 255)
+        for ch in range(3):
+            rgb[rr0:rr1, cc0:cc1, ch][sub] = color[ch]
+    return rgb
+
+
 class Vio:
     """Host-side orchestration of the per-image VIO step (the
     LidarSelector object, lidar_selection.h:37-171), on `device` (CUDA
@@ -626,6 +655,11 @@ class Vio:
         self._n_pts_host: Optional[int] = None
         self.last_rcw: Optional[np.ndarray] = None  # frame T_f_w_ rotation
         self.last_pcw: Optional[np.ndarray] = None
+        self.last_overlay: Optional[np.ndarray] = None  # /rgb_img under cfg.debug
+        # img_rgb (detect :1035), resized lazily from a snapshot of the raw
+        # frame: only colorize and visualization read it
+        self._last_bgr_cache: Optional[np.ndarray] = None
+        self._last_bgr_src: Optional[np.ndarray] = None
         # deferred stats reads (set through Pipeline.async_read) and the
         # block collector (replay.BlockReadCollector)
         self.async_read = False
@@ -650,6 +684,17 @@ class Vio:
         self.vmap = self._fresh_vmap()
         self._n_pts_host = None
         self.last_stats = {}
+
+    @property
+    def last_bgr(self) -> Optional[np.ndarray]:
+        if self._last_bgr_cache is None and self._last_bgr_src is not None:
+            self._last_bgr_cache = self._resize_color(self._last_bgr_src)
+        return self._last_bgr_cache
+
+    @last_bgr.setter
+    def last_bgr(self, v: Optional[np.ndarray]):
+        self._last_bgr_cache = v
+        self._last_bgr_src = None
 
     def set_last_cloud(self, pts_world: Optional[np.ndarray]):
         if pts_world is not None:
@@ -694,10 +739,29 @@ class Vio:
             return torch.as_tensor(img, device=dev).to(torch.float32)
         return torch.as_tensor(self._to_gray(img), device=dev)
 
+    def _resize_color(self, img: np.ndarray) -> np.ndarray:
+        """img_rgb: the color frame at the camera model's size (the
+        reference resizes before cloning it, detect :1029-1035), f32."""
+        img = np.asarray(img, np.float32)
+        H, W = self.cam.height, self.cam.width
+        if img.shape[:2] == (H, W):
+            return img
+        if img.shape[:2] == (2 * H, 2 * W):
+            if img.ndim == 3:
+                return img.reshape(H, 2, W, 2, -1).mean(axis=(1, 3))
+            return img.reshape(H, 2, W, 2).mean(axis=(1, 3))
+        if img.ndim == 3:
+            return np.stack([_bilinear_resize(img[..., c], H, W)
+                             for c in range(img.shape[2])], axis=-1)
+        return _bilinear_resize(img, H, W)
+
     def update(self, state: NavState, prior: NavState, img: np.ndarray) -> NavState:
         """The `detect` entry (lidar_selection.cpp:1027-1075): one
         `vio_frame_step` and one read of its stats row."""
         cfg = self.cfg
+        # the caller may reuse its frame buffer before colorize reads it
+        self._last_bgr_src = np.array(img, copy=True)
+        self._last_bgr_cache = None
         gray = self._gray_device(img)
         R = self.cloud_cap
         if self._last_cloud_dev is not None:
@@ -715,7 +779,7 @@ class Vio:
             cloud[:n] = self.last_cloud[:n, :3]
             cloud_dev = torch.as_tensor(cloud, device=self.device)
         meta = torch.tensor([n, self.fid], dtype=I32, device=self.device)
-        (st, vm2, _tidx, _tvalid, _opc, _perr, _err, _n_tracked, _n_added,
+        (st, vm2, _tidx, tvalid, opc, perr, _err, _n_tracked, _n_added,
          _its, stats_j) = vio_frame_step(
             self.vmap, self.cam, state, prior, gray, meta, cloud_dev,
             self.Rci, self.Pci, self.Jdphi_dR, self.Jdp_dR,
@@ -727,16 +791,22 @@ class Vio:
         self.vmap = vm2
         self.fid += 1
         self.steps += 1
-        if self.read_collector is not None:
+        # debug keeps the read synchronous: the overlay needs this frame's stats
+        if self.read_collector is not None and not cfg.debug:
             self.read_collector.add_cam(stats_j)
             return st
-        if self.async_read:
+        if self.async_read and not cfg.debug:
             self._pending.append(DeferredRead(stats_j))
             while len(self._pending) > self.async_depth:
                 self._apply_stats(self._pending.pop(0).result())
             return st
         with record_function("vio.stats_read"):
-            self._apply_stats(stats_j.cpu().numpy())
+            stats = stats_j.cpu().numpy()
+        self._apply_stats(stats)
+        if cfg.debug and stats[0] > 0:
+            self.last_overlay = render_overlay(
+                gray.cpu().numpy(), opc.cpu().numpy(), perr.cpu().numpy(),
+                tvalid.cpu().numpy())
         return st
 
     def resolve_pending(self):
@@ -750,3 +820,118 @@ class Vio:
         self.last_rcw = stats[4:13].reshape(3, 3).astype(np.float32)
         self.last_pcw = stats[13:16].astype(np.float32)
         self._n_pts_host = int(stats[28])
+
+    def update_staged(self, state: NavState, prior: NavState, img: np.ndarray) -> NavState:
+        """The camera frame one stage at a time, as the JAX package's
+        unfused reference path: for the fused-vs-staged equivalence test
+        and for debugging. It reads the host cloud (`set_last_cloud`), and
+        its 0.2 m voxel filter divides by the leaf (a device tensor), as
+        the JAX package's call from outside jit does; its photometric
+        iterations go through `photometric_update` level by level (2, 1,
+        0), with the default robust mode. The stats are read at once."""
+        cfg = self.cfg
+        dev = self.device
+        self._last_bgr_src = np.array(img, copy=True)
+        self._last_bgr_cache = None
+        gray = torch.as_tensor(self._to_gray(img), device=dev)
+        fid = self.fid
+        self.vmap = vmap_mod.push_image(self.vmap, gray, fid)
+
+        Rci, Pci = self.Rci.cpu().numpy(), self.Pci.cpu().numpy()
+
+        def cam_pose(st):  # world -> camera of a state, f32 on the host
+            rcw = Rci @ st.rot.cpu().numpy().astype(np.float32).T
+            return rcw, -rcw @ st.pos.cpu().numpy().astype(np.float32) + Pci
+
+        rcw_j, pcw_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
+
+        if self.last_cloud is None or len(self.last_cloud) < 10:
+            self.fid += 1
+            return state
+
+        R = self.cloud_cap
+        n = min(len(self.last_cloud), R)
+        cloud = np.zeros((R, 3), np.float32)
+        cloud[:n] = self.last_cloud[:n, :3]
+        cloud_j = torch.as_tensor(cloud, device=dev)
+        pg, pg_mask = voxel_downsample_device(
+            cloud_j, torch.arange(R, device=dev) < n, _const(VIO_LEAF, cloud_j),
+            self.max_pg)
+        vox, vox_mask = _dedup_voxels(pg, pg_mask, self.max_pg // 2)
+
+        stats = {"tracked": 0, "added": 0, "err": 0.0}
+        tracked = None
+        if int(self.vmap.n_pts) > 0:
+            tracked = select_tracked(
+                self.vmap, self.cam, rcw_j, pcw_j, gray, pg, pg_mask, vox, vox_mask,
+                cfg.outlier_threshold, cfg.ncc_thre, grid_size=self.grid_size,
+                patch_size=self.patch_size, gw=self.gw, gh=self.gh, ncc_en=cfg.ncc_en)
+            stats["tracked"] = int(tracked.valid.sum())
+            cell_value = tracked.cell_value
+        else:
+            cell_value = torch.zeros(self.gw * self.gh, dtype=torch.float32, device=dev)
+
+        # addSparseMap with the prior pose (:1054 runs before ComputeJ)
+        npos, npx, nscore, nadd = select_new_points(
+            self.cam, rcw_j, pcw_j, gray, pg, pg_mask, cell_value,
+            grid_size=self.grid_size, patch_size=self.patch_size, gw=self.gw, gh=self.gh)
+
+        if tracked is not None and stats["tracked"] > 0:
+            # the iterated photometric EKF, coarse to fine (:967-983)
+            for level in (2, 1, 0):
+                state, Gmat, perr, err, _its = photometric_update(
+                    state, prior, self.cam, gray, tracked.pos, tracked.patch,
+                    tracked.search_level, tracked.valid, self.Rci, self.Pci,
+                    self.Jdphi_dR, self.Jdp_dR, cfg.img_point_cov, self.patch_size,
+                    level=level, max_iter=cfg.max_iteration)
+            stats["err"] = float(err)
+            state = state._replace(cov=state.cov - Gmat @ state.cov[0:6, :])  # :980
+
+            # addObservation with the posterior pose (:1064)
+            rcw2_j, pcw2_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
+            opc, oscore, oadd = prep_observations(self.vmap, self.cam, rcw2_j, pcw2_j,
+                                                  gray, tracked.idx, tracked.valid)
+            self.vmap = vmap_mod.add_observations(
+                self.vmap, tracked.idx, opc, rcw2_j, pcw2_j, oscore, fid,
+                tracked.search_level, oadd)
+            if cfg.debug:
+                self.last_overlay = render_overlay(
+                    gray.cpu().numpy(), opc.cpu().numpy(), perr.cpu().numpy(),
+                    tracked.valid.cpu().numpy())
+
+        # new points carry the prior-pose first observation (:178-190)
+        self.vmap = vmap_mod.add_points(self.vmap, npos, npx, rcw_j, pcw_j, nscore,
+                                        fid, nadd)
+        stats["added"] = int(nadd.sum())
+        self.last_stats = stats
+        self.last_rcw, self.last_pcw = cam_pose(state)  # updateFrameState, :982
+        self.fid += 1
+        return state
+
+    def colorize(self, pts_world: np.ndarray):
+        """Paint world points from the most recent camera image
+        (publish_frame_world's RGB path, laserMapping.cpp:726-746): project
+        with the last applied frame pose (f32, host), world2cam on this
+        Vio's device, bilinear sample of the color image (f64, host).
+        Returns (mask, rgb) with rgb rows in [0, 255], r, g, b order."""
+        if self.last_bgr is None or self.last_rcw is None:
+            return np.zeros(len(pts_world), bool), np.zeros((len(pts_world), 3))
+        pc_cam = pts_world.astype(np.float32) @ self.last_rcw.T + self.last_pcw
+        mask = pc_cam[:, 2] > 0
+        px = cam_mod.world2cam(self.cam, torch.as_tensor(pc_cam, device=self.device))
+        px = px.cpu().numpy().astype(np.float64)
+        H, W = self.last_bgr.shape[:2]
+        mask &= (px[:, 0] >= 0) & (px[:, 0] < W - 1)
+        mask &= (px[:, 1] >= 0) & (px[:, 1] < H - 1)
+        x = np.clip(px[:, 0], 0, W - 2)
+        y = np.clip(px[:, 1], 0, H - 2)
+        x0, y0 = x.astype(np.int64), y.astype(np.int64)
+        fx, fy = (x - x0)[:, None], (y - y0)[:, None]
+        img = self.last_bgr.astype(np.float32)
+        if img.ndim == 2:
+            img = img[..., None].repeat(3, axis=2)
+        bgr = (img[y0, x0] * (1 - fx) * (1 - fy)
+               + img[y0, x0 + 1] * fx * (1 - fy)
+               + img[y0 + 1, x0] * (1 - fx) * fy
+               + img[y0 + 1, x0 + 1] * fx * fy)
+        return mask, bgr[:, ::-1]  # BGR -> RGB (getpixel rows, :741-743)

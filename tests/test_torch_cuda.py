@@ -25,6 +25,10 @@ and dense maps: their operations on the card array-identical to the
 CPU's, the standalone knn5_plane kernel bit-exact against its plain
 version on their candidate blocks, and their pipelines searching through
 it (never the tiled kernel).
+
+The camera frame's host-side surfaces on the card: Vio.colorize and
+Vio.update_staged against the CPU, and a LIVO run with the debug overlay
+and the RGB cloud against the CPU's.
 """
 import numpy as np
 import pytest
@@ -181,22 +185,33 @@ def test_patches_and_grads_refuses_bad_inputs(cuda):
         patches_grads.patches_and_grads(img, pc.cpu(), 8, scale.cpu())
 
 
-def test_livo_pipeline_runs_through_the_kernel(cuda):
-    W, H, F = 320, 256, 200.0
-    rcl = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+LW, LH, LF = 320, 256, 200.0
+RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+
+
+def small_livo_cfg():
     cfg = Config()
     cfg.grid_size = 32
     cfg.outlier_threshold = 300.0
     cfg.img_point_cov = 100.0
-    cfg.camera = CameraConfig(width=W, height=H, fx=F, fy=F, cx=(W - 1) / 2.0,
-                              cy=(H - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0])
-    cfg.Rcl = rcl.ravel().tolist()
+    cfg.camera = CameraConfig(width=LW, height=LH, fx=LF, fy=LF, cx=(LW - 1) / 2.0,
+                              cy=(LH - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0])
+    cfg.Rcl = RCL.ravel().tolist()
     cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
                                   tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
                                   vmap_points=8192, vmap_table_size=1 << 15,
                                   frame_ring=16, max_cands=4096)
-    ds = SyntheticDataset(duration=4.0, points_per_scan=4096, lidar_noise=0.004,
-                          seed=5, cam_hz=10.0, cam_size=(W, H), cam_f=F, Rcl=rcl)
+    return cfg
+
+
+def small_livo_data(duration=4.0):
+    return SyntheticDataset(duration=duration, points_per_scan=4096, lidar_noise=0.004,
+                            seed=5, cam_hz=10.0, cam_size=(LW, LH), cam_f=LF, Rcl=RCL)
+
+
+def test_livo_pipeline_runs_through_the_kernel(cuda):
+    cfg = small_livo_cfg()
+    ds = small_livo_data()
     pipe = Pipeline(cfg)
     assert pipe.vio.device.type == "cuda"
     for beg, pts, t_rel in ds.lidar_scans_fast():
@@ -532,3 +547,111 @@ def test_other_backends_run_through_the_standalone_kernel(cuda, backend):
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
     assert np.sqrt(np.mean(np.square(e))) < 0.02
+
+
+def vio_state(ds, t, dpos=(0.0, 0.0, 0.0), device="cpu"):
+    from fastlivo_tpu_torch.state import identity_state
+
+    rot, pos = ds.traj.pose(t)
+    s = identity_state(device)
+    return s._replace(rot=torch.as_tensor(rot, dtype=torch.float64, device=device),
+                      pos=torch.as_tensor(np.asarray(pos) + dpos, dtype=torch.float64,
+                                          device=device))
+
+
+def room_cloud(ds, seed, n=6000):
+    return ds.room.sample_surface(n, np.random.default_rng(seed)).astype(np.float32)
+
+
+def test_colorize_on_the_card_matches_the_cpu(cuda):
+    """Vio.colorize with its world2cam on the card: the CPU's masks and
+    colours within 1e-2 (of 255) on the same image, pose and points."""
+    from fastlivo_tpu_torch.vio import Vio
+
+    ds = small_livo_data()
+    rng = np.random.default_rng(5)
+    bgr = rng.integers(0, 256, (LH, LW, 3)).astype(np.uint8)
+    pts = np.concatenate([room_cloud(ds, 11, 20000), rng.uniform(-20, 20, (500, 3))])
+    res = []
+    for dev in (cuda, "cpu"):
+        v = Vio(small_livo_cfg(), device=dev)
+        s = vio_state(ds, 2.0, device=dev)
+        v.set_last_cloud(room_cloud(ds, 0))
+        v.update(s, s, ds.render_image(2.0))  # sets the frame pose
+        v.last_bgr = v._resize_color(bgr)
+        res.append(v.colorize(pts.astype(np.float32)))
+    (m_c, rgb_c), (m_h, rgb_h) = res
+    np.testing.assert_array_equal(m_c, m_h)
+    assert m_c.sum() > 300
+    np.testing.assert_allclose(rgb_c[m_c], rgb_h[m_h], atol=1e-2)
+
+
+def test_update_staged_on_the_card_matches_the_cpu(cuda):
+    """Vio.update_staged on the card against the CPU over three frames:
+    its photometric iterations launch photometric_err_H (at least three
+    per frame); tracked within 1, map size within 1%, position and
+    rotation within 1e-4."""
+    from fastlivo_tpu_torch.vio import Vio
+
+    ds = small_livo_data()
+    runs = []
+    for dev in (cuda, "cpu"):
+        cfg = small_livo_cfg()
+        cfg.debug = True
+        v = Vio(cfg, device=dev)
+        s = vio_state(ds, 2.0, device=dev)
+        v.set_last_cloud(room_cloud(ds, 0))
+        v.update_staged(s, s, ds.render_image(2.0))  # bootstrap
+        outs, launches = [], []
+        for k in range(1, 4):
+            t = 2.0 + 0.1 * k
+            sp = vio_state(ds, t, dpos=(0.01, -0.008, 0.006), device=dev)
+            v.set_last_cloud(room_cloud(ds, k))
+            before = photometric.photometric_err_H.launches
+            outs.append((v.update_staged(sp, sp, ds.render_image(t)), dict(v.last_stats),
+                         int(v.vmap.n_pts)))
+            launches.append(photometric.photometric_err_H.launches - before)
+        runs.append((outs, launches, v))
+    (card, l_card, v_card), (cpu, l_cpu, _) = runs
+    assert min(l_card) >= 3 and l_cpu == [0, 0, 0]
+    for (sa, st_a, n_a), (sb, st_b, n_b) in zip(card, cpu):
+        assert st_b["tracked"] > 10 and abs(st_a["tracked"] - st_b["tracked"]) <= 1
+        assert abs(n_a - n_b) <= 0.01 * n_b
+        np.testing.assert_allclose(sa.pos.cpu().numpy(), sb.pos.numpy(), atol=1e-4)
+        np.testing.assert_allclose(sa.rot.cpu().numpy(), sb.rot.numpy(), atol=1e-4)
+    assert v_card.last_overlay.shape == (LH, LW, 3)
+
+
+def test_debug_and_rgb_cloud_on_the_card(cuda):
+    """A LIVO run with `debug` and `pcd_save_en` on the card and on the
+    CPU: camera reads stay synchronous under `async_read`; the overlays
+    differ in at most 2% of their pixels and the RGB clouds have the same
+    chunks, row counts within 2%."""
+    import contextlib
+    import io
+
+    res = []
+    for dev in (cuda, "cpu"):
+        cfg = small_livo_cfg()
+        cfg.debug = cfg.pcd_save_en = True
+        pipe = Pipeline(cfg, device=dev)
+        pipe.async_read = True
+        ds = small_livo_data(3.0)
+        for beg, pts, t_rel in ds.lidar_scans_fast():
+            pipe.push_lidar(beg, pts, t_rel)
+        for t, acc, gyr in ds.imu_stream():
+            pipe.push_imu(t, acc, gyr)
+        for t, img in ds.images():
+            pipe.push_img(t, img)
+        with contextlib.redirect_stdout(io.StringIO()):  # debug_show's dump
+            pipe.spin()
+            assert not pipe.vio._pending
+            pipe.finish()
+        res.append(pipe)
+    card, cpu = res
+    ov_c, ov_h = card.vio.last_overlay, cpu.vio.last_overlay
+    assert ov_c.shape == ov_h.shape == (LH, LW, 3) and (ov_c[..., 1] == 255).sum() > 100
+    assert np.any(ov_c != ov_h, axis=-1).mean() <= 0.02
+    assert len(card.rgb_cloud) == len(cpu.rgb_cloud) >= 10
+    n_c, n_h = (sum(len(c) for c in p.rgb_cloud) for p in (card, cpu))
+    assert abs(n_c - n_h) <= 0.02 * n_h

@@ -3,12 +3,16 @@ both Pipelines, the CLI, and the port's import hygiene.
 
 Tolerances: LIO, the same frames, every pose within 1 mm of the JAX
 package's, ATE no worse than JAX's plus 0.5 mm, on the tiled map and on
-the hash and dense maps. (On the bootstrap frame
-the JAX package may take its native C++ voxel filter where the port
-uses numpy; the two first maps differ at float32 rounding.) LIVO, the
+the hash and dense maps. (Both bootstrap frames go through the same
+native C++ voxel filter; the first maps differ only where the
+undistortion rounds differently, tests/test_torch_native.py.) LIVO, the
 same frames, every lidar frame within 2 mm, visual-map points within 2%,
-ATE no worse than JAX's plus 1 mm.
+ATE no worse than JAX's plus 1 mm; with `pcd_save_en` and `debug`, the
+RGB cloud's chunks row for row (positions 1e-4 m, colours 0.01) and the
+overlay within 0.5% of its pixels.
 """
+import contextlib
+import io
 import re
 import subprocess
 import sys
@@ -267,16 +271,101 @@ def test_cli_synthetic_on_cpu(tmp_path, capsys):
 
 
 def test_constructor_refuses_what_it_cannot_do():
-    cfg = small_config(Config, CapacityConfig)
-    cfg.img_enable = True
-    cfg.debug = True  # the camera frame's overlay is not ported
-    with pytest.raises(NotImplementedError, match="debug"):
-        Pipeline(cfg, device="cpu")
-    cfg = small_config(Config, CapacityConfig)
-    cfg.img_enable = True
-    cfg.pcd_save_en = True  # the RGB map cloud needs Vio.colorize
-    with pytest.raises(NotImplementedError, match="colorize"):
-        Pipeline(cfg, device="cpu")
+    """The constructor refuses what the JAX package refuses (an unknown
+    map backend or plane fit) and nothing that the single-device JAX
+    package does: with images, `debug` and `pcd_save_en` construct, and no
+    module of the port raises NotImplementedError."""
+    for field, bad in (("map_backend", "octree"), ("plane_fit", "svd")):
+        cfg = small_config(Config, CapacityConfig)
+        setattr(cfg.capacity, field, bad)
+        with pytest.raises(ValueError, match=field):
+            Pipeline(cfg, device="cpu")
+    cfg = livo_config(Config, CapacityConfig, CameraConfig)
+    cfg.debug = cfg.pcd_save_en = True
+    pipe = Pipeline(cfg, device="cpu")
+    assert pipe.vio is not None and pipe.rgb_cloud == [] and pipe.vio.last_overlay is None
+    for f in ("pipeline.py", "run.py", "vio.py", "replay.py", "serve.py"):
+        assert "NotImplementedError" not in (PKG / f).read_text(), f
+
+
+@pytest.mark.parametrize("mode", ["sync", "async", "async_nodebug"])
+def test_livo_debug_and_rgb_cloud_match_jax(mode):
+    """A LIVO run with `pcd_save_en` (and `debug`, but in async_nodebug)
+    through both packages: the same painted chunks, each with the same
+    rows, positions within 1e-4 m and colours within 0.01 (of 255); the
+    last overlay within 0.5% of its pixels. Under debug the camera frame's
+    reads stay synchronous, also with `async_read`. Colorize pairs the
+    newest image with the newest applied camera pose: without debug under
+    `async_read` that pose is one camera frame older than the image, as
+    in the JAX package (reproduced for parity)."""
+    kw = dict(duration=3.0, points_per_scan=4096, lidar_noise=0.004, seed=5,
+              cam_hz=10.0, cam_size=(CW, CH), cam_f=CF, Rcl=RCL)
+    debug = mode != "async_nodebug"
+    runs = []
+    for P, make, D, dev in (
+            (JPipeline, lambda: livo_config(JConfig, JCapacity, JCamera), JDataset, None),
+            (Pipeline, lambda: livo_config(Config, CapacityConfig, CameraConfig),
+             SyntheticDataset, "cpu")):
+        cfg = make()
+        cfg.pcd_save_en, cfg.debug = True, debug
+        pipe = P(cfg) if dev is None else P(cfg, device=dev)
+        pipe.async_read = mode != "sync"
+        lags = []
+        if dev is not None:  # camera frames run but not yet applied, at each paint
+            real = pipe.vio.colorize
+            pipe.vio.colorize = lambda pts, v=pipe.vio: (lags.append(len(v._pending)),
+                                                          real(pts))[1]
+        with contextlib.redirect_stdout(io.StringIO()):  # debug_show's dump
+            outs = _drive(pipe, D(**kw)) + pipe.finish()
+        runs.append((pipe, outs, lags))
+    (pj, oj, _), (pt, ot, lags) = runs
+    assert len(ot) == len(oj) >= 15
+    for a, b in zip(ot, oj):
+        assert a.t == b.t and np.linalg.norm(a.pos - b.pos) < 2e-3
+    assert len(pt.rgb_cloud) == len(pj.rgb_cloud) >= 10
+    for ct, cj in zip(pt.rgb_cloud, pj.rgb_cloud):
+        assert ct.shape == cj.shape and ct.shape[1] == 6
+        np.testing.assert_allclose(ct[:, :3], cj[:, :3], atol=1e-4)
+        np.testing.assert_allclose(ct[:, 3:], cj[:, 3:], atol=1e-2)
+    rgb = np.concatenate(pt.rgb_cloud)[:, 3:]
+    assert len(rgb) > 5000 and rgb.min() >= 0 and rgb.max() <= 255 and rgb.std() > 5
+    # (before the first camera step nothing is pending)
+    assert set(lags[1:]) == ({1} if mode == "async_nodebug" else {0}), lags
+    if debug:
+        ov_t, ov_j = pt.vio.last_overlay, pj.vio.last_overlay
+        assert ov_t.shape == ov_j.shape == (CH, CW, 3) and ov_t.dtype == np.uint8
+        assert np.any(ov_t != ov_j, axis=-1).mean() <= 5e-3
+        assert (ov_t[..., 1] == 255).sum() > 100  # tracked points drawn
+    else:
+        assert pt.vio.last_overlay is None and pj.vio.last_overlay is None
+
+
+def test_cli_livo_pcd_out_and_viz_dir(tmp_path, capsys):
+    """`run --pcd-out` in LIVO mode writes the RGB cloud (pcl::PointXYZRGB
+    fields) and `--viz-dir` writes a PNG every `--viz-every` frames."""
+    pytest.importorskip("matplotlib")
+    from fastlivo_tpu_torch import viz
+
+    cfg_yaml, cam_yaml = tmp_path / "cfg.yaml", tmp_path / "cam.yaml"
+    cfg_yaml.write_text(
+        "img_enable: 1\ngrid_size: 32\npatch_size: 8\noutlier_threshold: 300\n"
+        "img_point_cov: 100\ncamera:\n  Rcl: [0, -1, 0, 0, 0, -1, 1, 0, 0]\n"
+        "  Pcl: [0, 0, 0]\ncapacity:\n  max_points: 4096\n  max_raw_points: 8192\n"
+        "  tiled_dir_dims: [32, 32, 16]\n  tiled_pool: 1024\n  vmap_points: 8192\n"
+        "  vmap_table_size: 32768\n  frame_ring: 16\n  max_cands: 4096\n")
+    cam_yaml.write_text("cam_width: 320\ncam_height: 256\ncam_fx: 200\ncam_fy: 200\n"
+                        "cam_cx: 159.5\ncam_cy: 127.5\n")
+    pcd, vdir = tmp_path / "rgb.pcd", tmp_path / "viz"
+    assert trun.main(["--config", str(cfg_yaml), "--camera", str(cam_yaml), "--synthetic",
+                      "--duration", "2.5", "--out", str(tmp_path / "t.txt"), "--device", "cpu",
+                      "--pcd-out", str(pcd), "--viz-dir", str(vdir), "--viz-every", "5"]) == 0
+    n = len(np.loadtxt(tmp_path / "t.txt", ndmin=2))
+    assert "FIELDS x y z rgb" in pcd.read_text()[:200]
+    pts, rgb = viz._load_pcd(pcd)
+    assert len(pts) > 1000 and np.isfinite(pts).all()
+    assert rgb.shape == pts.shape and rgb.max() <= 255 and rgb.std() > 5
+    assert len(list(vdir.glob("frame_*.png"))) == -(-n // 5)
+    assert (vdir / "latest.png").exists()
 
 
 def test_default_device_is_cuda():
@@ -295,7 +384,9 @@ def test_import_pulls_in_no_jax():
             "fastlivo_tpu_torch.serve, fastlivo_tpu_torch.readback, "
             "fastlivo_tpu_torch.preprocess, fastlivo_tpu_torch.features, "
             "fastlivo_tpu_torch.io.checkpoint, fastlivo_tpu_torch.io.rosbag, "
-            "fastlivo_tpu_torch.io.lz4, fastlivo_tpu_torch.ops.dense_map; "
+            "fastlivo_tpu_torch.io.lz4, fastlivo_tpu_torch.ops.dense_map, "
+            "fastlivo_tpu_torch.viz, fastlivo_tpu_torch.native, "
+            "fastlivo_tpu_torch.io.golden; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'fastlivo_tpu' or m.startswith('fastlivo_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -310,6 +401,7 @@ def test_sources_name_no_jax():
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"replay.py", "serve.py", "readback.py", "preprocess.py", "features.py",
             "io/checkpoint.py", "io/rosbag.py", "io/lz4.py", "ops/dense_map.py",
+            "viz.py", "native.py", "io/golden.py",
             "ops/voxel_map.py"} <= names
     files.append(ROOT / "chip_smoke.py")
     for f in files:

@@ -7,7 +7,9 @@ on the hash map (within 1 mm, `iters` equal on at least 90% of frames), its
 LivoBlockReplayer in both modes against the JAX package's (within 2 mm),
 a partial last block, and the port's deferred readbacks (`async_read` at
 depth 1 and 3, `enable_block_read`) bit-identical to its synchronous
-outputs.
+outputs; with `pcd_save_en` and `debug`, LivoBlockReplayer's per-frame
+fallback paints the same RGB cloud and draws the same overlay as the
+JAX package's.
 """
 import numpy as np
 import pytest
@@ -195,3 +197,35 @@ def test_block_replayer_refuses_livo():
     with pytest.raises(ValueError, match="LIO-only"):
         BlockReplayer(Pipeline(livo_config(Config, CapacityConfig, CameraConfig),
                                device="cpu"))
+
+
+def test_livo_block_replayer_fallback_paints_and_draws_as_jax():
+    """LivoBlockReplayer with `pcd_save_en` and `debug` falls back to
+    per-frame emission (E-deep deferred lidar reads, synchronous camera
+    reads under debug), as the JAX package's does: the same RGB cloud,
+    chunk for chunk (positions within 1e-4 m, colours within 0.01), and
+    the same last overlay within 0.5% of its pixels."""
+    import contextlib
+    import io
+
+    runs = []
+    for P, cfg, D, R, dev in (
+            (JPipeline, livo_config(JConfig, JCapacity, JCamera), JDataset,
+             JLivoBlockReplayer, None),
+            (Pipeline, livo_config(Config, CapacityConfig, CameraConfig), SyntheticDataset,
+             LivoBlockReplayer, "cpu")):
+        cfg.pcd_save_en = cfg.debug = True
+        pipe = feed(P(cfg) if dev is None else P(cfg, device=dev), D(**LIVO_KW))
+        with contextlib.redirect_stdout(io.StringIO()):  # debug_show's dump
+            outs = R(pipe, 4).run()
+        runs.append((pipe, outs))
+    (pj, oj), (pt, ot) = runs
+    assert_close(ot, oj, 2e-3)
+    assert len(pt.rgb_cloud) == len(pj.rgb_cloud) >= 10
+    for ct, cj in zip(pt.rgb_cloud, pj.rgb_cloud):
+        assert ct.shape == cj.shape
+        np.testing.assert_allclose(ct[:, :3], cj[:, :3], atol=1e-4)
+        np.testing.assert_allclose(ct[:, 3:], cj[:, 3:], atol=1e-2)
+    assert pt.vio.last_overlay is not None
+    assert np.any(pt.vio.last_overlay != pj.vio.last_overlay, axis=-1).mean() <= 5e-3
+    assert not pt.async_read and pt.read_collector is None  # restored after the run

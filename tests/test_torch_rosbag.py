@@ -161,8 +161,9 @@ def test_cli_bag_replay_matches_jax(lio_bag, block):
 
 def test_cli_bag_options(lio_bag, tmp_path):
     """--max-frames, --log-dir, --pcd-out (LIO intensity cloud),
-    --map-pcd and a --save-ckpt/--load-ckpt round trip; --pcd-out in LIVO
-    and --eval with --block are refused."""
+    --map-pcd and a --save-ckpt/--load-ckpt round trip; --eval with
+    --block is refused (--pcd-out in LIVO writes the RGB cloud:
+    test_torch_pipeline.py::test_cli_livo_pcd_out_and_viz_dir)."""
     d, _ = lio_bag
     base = ["--config", str(d / "cfg.yaml"), "--bag", str(d / "avia.bag"),
             "--device", "cpu"]
@@ -182,5 +183,3 @@ def test_cli_bag_options(lio_bag, tmp_path):
     assert len(np.loadtxt(tmp_path / "b.txt", ndmin=2)) >= 25
     with pytest.raises(SystemExit):
         trun.main(["--synthetic", "--eval", "--block", "4", "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        trun.main(["--synthetic", "--pcd-out", str(tmp_path / "x.pcd"), "--device", "cpu"])

@@ -18,8 +18,17 @@ the same inputs. Tolerances:
     mean error rtol 1e-5, G = K·HᵀH within 1e-4, the step's position
     within 2e-6 and rotation within 1e-6;
   - vio_frame_step: equal n_tracked and n_added;
-  - with nothing tracked the photometric stage is an exact no-op.
+  - with nothing tracked the photometric stage is an exact no-op;
+  - render_overlay byte for byte; colorize's masks and colours equal on
+    the same image, pose and points; last_bgr (the frame snapshot and its
+    lazy resize) equal at 1x and 2x the camera's size;
+  - update_staged against the JAX package's: equal tracked, added and
+    map size, the frame step's bounds on the state, the overlay within
+    0.5% of its pixels; against the port's fused update on forked states,
+    the JAX package's own bounds (tests/test_vio.py).
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -357,3 +366,152 @@ def test_vio_update_reads_one_stats_row(scene):
     assert v.last_rcw.shape == (3, 3) and np.isfinite(out.cov.numpy()).all()
     v.reset_map()
     assert int(v.vmap.n_pts) == 0 and v.fid == 2
+
+
+def fork(v: tvio.Vio) -> tvio.Vio:
+    """A second Vio on the same state: the port writes its visual map
+    (the image pool included) in place, so a shallow copy would share it."""
+    f = copy.copy(v)
+    f.vmap = type(v.vmap)(*(t.clone() for t in v.vmap))
+    f._pending = []
+    return f
+
+
+def port_vio_like(jv, debug=False):
+    """A port Vio holding the JAX Vio's visual map and frame counter."""
+    cfg = make_cfg(Config, CameraConfig, CapacityConfig)
+    cfg.debug = debug
+    tv = tvio.Vio(cfg, device="cpu")
+    tv.vmap = convert.visual_map_from_arrays(
+        {f: np.asarray(v) for f, v in jv.vmap._asdict().items()}, "cpu")
+    tv.fid = jv.fid
+    return tv
+
+
+def test_render_overlay_matches_jax_byte_for_byte():
+    rng = np.random.default_rng(3)
+    gray = rng.uniform(0, 255, (H, W)).astype(np.float32)
+    n = 64
+    px = np.stack([rng.uniform(-10, W + 10, n), rng.uniform(-10, H + 10, n)], 1)
+    px[:4] = [[0.2, 0.7], [W - 0.5, H - 0.1], [3.0, H - 2.0], [W + 5.9, 10.0]]
+    px = px.astype(np.float32)
+    err = rng.uniform(0, 16000, n).astype(np.float32)
+    valid = rng.random(n) > 0.2
+    got = tvio.render_overlay(gray, px, err, valid)
+    want = jvio.render_overlay(gray, px, err, valid)
+    assert got.dtype == np.uint8 and got.shape == (H, W, 3)
+    np.testing.assert_array_equal(got, want)
+    assert (got[..., 1] == 255).sum() > 0 and (got[..., 2] == 255).sum() > 0
+
+
+def test_colorize_matches_jax(scene):
+    """The same image, frame pose and points: equal masks and equal
+    colours (world2cam in f32, eager on both sides, rounds alike; the
+    bilinear sample is the same f64 numpy on the host)."""
+    jv = copy.copy(scene["jv"])
+    tv = port_vio_like(jv)
+    rng = np.random.default_rng(5)
+    bgr = rng.integers(0, 256, (H, W, 3)).astype(np.uint8)
+    jv.last_bgr = jv._resize_color(bgr)
+    tv.last_bgr = tv._resize_color(bgr)
+    tv.last_rcw, tv.last_pcw = jv.last_rcw, jv.last_pcw
+    pts = np.concatenate([cloud(scene["ds"], 11, 20000),
+                          rng.uniform(-20, 20, (500, 3))]).astype(np.float32)
+    m_t, rgb_t = tv.colorize(pts)
+    m_j, rgb_j = jv.colorize(pts)
+    np.testing.assert_array_equal(m_t, m_j)
+    assert 300 < m_t.sum() < len(pts)
+    np.testing.assert_array_equal(rgb_t, rgb_j)
+    # before any frame pose: nothing is painted
+    m0, rgb0 = tvio.Vio(tv.cfg, device="cpu").colorize(pts)
+    assert not m0.any() and rgb0.shape == (len(pts), 3)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_last_bgr_matches_jax(scene, scale):
+    """The frame snapshot and its lazy resize to the camera's size, for a
+    colour frame at 1x and 2x the camera's resolution."""
+    rng = np.random.default_rng(scale)
+    img = rng.integers(0, 256, (scale * H, scale * W, 3)).astype(np.uint8)
+    v = tvio.Vio(scene["tv"].cfg, device="cpu")
+    s = tstate(jstate(scene["ds"], 2.0))
+    v.update(s, s, img)  # no cloud yet: the push only, and the snapshot
+    want = scene["jv"]._resize_color(img.copy())
+    img[:] = 0  # the caller reuses its buffer
+    got = v.last_bgr
+    assert got.dtype == np.float32 and got.shape == (H, W, 3)
+    np.testing.assert_array_equal(got, want)
+    assert v.last_bgr is got  # resized once
+
+
+def staged_pair(sc, debug):
+    """The JAX and port staged paths on the same map, cloud and prior."""
+    jv = copy.copy(sc["jv"])
+    jv.cfg = copy.copy(jv.cfg)
+    jv.cfg.debug = debug
+    tv = port_vio_like(jv, debug)
+    c = cloud(sc["ds"], 9)
+    jv.set_last_cloud(c)
+    tv.set_last_cloud(c)
+    img = sc["ds"].render_image(2.3)
+    out_j = jv.update_staged(sc["prior"], sc["prior"], img)
+    pt = tstate(sc["prior"])
+    out_t = tv.update_staged(pt, pt, img)
+    return jv, tv, out_j, out_t
+
+
+@pytest.mark.parametrize("debug", [False, True])
+def test_update_staged_matches_jax(scene, debug):
+    """Port update_staged against JAX update_staged: equal tracked and
+    added counts and map size; posterior position within 1e-5, rotation
+    within 1e-6, covariance within rtol 1e-3 (the frame step's bounds);
+    the frame pose within 1e-5; under debug the overlay within 0.5% of
+    its pixels (a tracked point a rounding away from a pixel edge moves
+    its disc by one pixel)."""
+    jv, tv, sj, st = staged_pair(scene, debug)
+    assert tv.last_stats["tracked"] == jv.last_stats["tracked"] > 10
+    assert tv.last_stats["added"] == jv.last_stats["added"]
+    assert int(tv.vmap.n_pts) == int(jv.vmap.n_pts)
+    assert tv.fid == jv.fid
+    np.testing.assert_allclose(st.pos.numpy(), np.asarray(sj.pos), atol=1e-5)
+    np.testing.assert_allclose(st.rot.numpy(), np.asarray(sj.rot), atol=1e-6)
+    np.testing.assert_allclose(st.cov.numpy(), np.asarray(sj.cov), rtol=1e-3, atol=1e-10)
+    np.testing.assert_allclose(tv.last_rcw, jv.last_rcw, atol=1e-5)
+    np.testing.assert_allclose(tv.last_pcw, jv.last_pcw, atol=1e-5)
+    if debug:
+        assert tv.last_overlay.shape == jv.last_overlay.shape == (H, W, 3)
+        diff = np.any(tv.last_overlay != jv.last_overlay, axis=-1).mean()
+        assert diff <= 5e-3, diff
+    else:
+        assert tv.last_overlay is None and jv.last_overlay is None
+
+
+def test_update_staged_matches_fused(scene):
+    """Port staged against port fused on forked states over three frames,
+    at the JAX package's own bounds (tests/test_vio.py): position and
+    rotation within 5e-4, covariance within 1e-4, tracked within 2, map
+    size within 5%; the debug overlay is drawn on both paths."""
+    ds = scene["ds"]
+    cfg = make_cfg(Config, CameraConfig, CapacityConfig)
+    cfg.debug = True
+    v = tvio.Vio(cfg, device="cpu")
+    s = tstate(jstate(ds, 2.0))
+    v.set_last_cloud(cloud(ds, 0))
+    v.update(s, s, ds.render_image(2.0))  # bootstrap
+    for k in range(1, 4):
+        t = 2.0 + 0.1 * k
+        sp = tstate(jstate(ds, t, dpos=(0.01, -0.008, 0.006)))
+        v.set_last_cloud(cloud(ds, k))
+        img = ds.render_image(t)
+        ref = fork(v)
+        out_f = v.update(sp, sp, img)
+        out_s = ref.update_staged(sp, sp, img)
+        np.testing.assert_allclose(out_f.pos.numpy(), out_s.pos.numpy(), atol=5e-4)
+        np.testing.assert_allclose(out_f.rot.numpy(), out_s.rot.numpy(), atol=5e-4)
+        np.testing.assert_allclose(out_f.cov.numpy(), out_s.cov.numpy(), atol=1e-4)
+        assert abs(v.last_stats["tracked"] - ref.last_stats["tracked"]) <= 2
+        assert v.last_stats["tracked"] > 10
+        nf, ns = int(v.vmap.n_pts), int(ref.vmap.n_pts)
+        assert abs(nf - ns) <= max(3, 0.05 * ns), (nf, ns)
+        assert v.last_overlay.shape == ref.last_overlay.shape == (H, W, 3)
+        assert v.last_overlay is not ref.last_overlay
