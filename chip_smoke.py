@@ -23,7 +23,12 @@ LIVO dataset with `debug` and `pcd_save_en` (the overlay, `colorize`
 on the card against the CPU, the RGB cloud through `run.save_pcd` and
 `viz._load_pcd`), (h) `Vio.update_staged` against `Vio.update` on forked
 states at the same width, and (i) the native library against its numpy
-and Python twins, and a bootstrap frame through it. The tiled-map paths
+and Python twins, and a bootstrap frame through it, and (j) LIO over a
+device mesh on the first 24 LIO frames: a world of one on NCCL in this
+process and a world of two sharing the card under gloo (spawned by
+`parallel.launch`), each with the map replicated and block-sharded,
+against the per-frame path, then `run.main --mesh 1 --sharded-map` with
+its map PCD and checkpoint. The tiled-map paths
 run the fused kernels: the LIO search in one launch (`knn5_plane_tiled`)
 and each photometric iteration's measurement in one launch
 (`photometric_err_H`, also on the staged path); the hash, dense and
@@ -1811,6 +1816,170 @@ def native_phase(dev, ds, lio_outs):
     return nums
 
 
+def mesh_rank(rank, n, cfg, scans, imu, device, warm=8):
+    """(j)'s rank program (parallel.launch.launch): `warm` frames of a
+    discarded pipeline (the rank's first launches and connections), then
+    the replicated map and the sharded one, on `device`."""
+    from fastlivo_tpu_torch.parallel.launch import replay_rank
+
+    replay_rank(rank, n, cfg, scans[:warm], [s for s in imu if s[0] < scans[warm][0]],
+                device, False)
+    return [replay_rank(rank, n, cfg, scans, imu, device, sharded) for sharded in (False, True)]
+
+
+def map_bytes(m) -> int:
+    return sum(t.numel() * t.element_size() for t in m)
+
+
+def halo_check(pipe, mesh):
+    """knn5_plane_tiled on the input the sharded mesh path gives it: this
+    rank's rows of the last scan's queries against a halo snapshot of
+    the rank's shard over the scan's box, padded as
+    MeshRunner.lidar_frame_step pads it at radius 1; bit-exact against
+    its plain version (tiled_check)."""
+    from fastlivo_tpu_torch.parallel import sharded_map as sm
+
+    q = real_queries(pipe, pipe.last_effect[0].shape[0])
+    lo, hi = sm.scan_box(q, torch.ones(q.shape[0], dtype=torch.bool, device=q.device))
+    pad = 2 * pipe.map.voxel_size + 0.5
+    runner = pipe.mesh_runner
+    snap, dropped = sm.exchange_snapshot(pipe.map, lo - pad, hi + pad, runner.halo_tiles,
+                                         mesh, dir_dims=runner.snap_dims)
+    if int(dropped):
+        raise AssertionError(f"halo snapshot dropped {int(dropped)} tiles")
+    return tiled_check(snap, q[mesh.rows(q.shape[0])],
+                       f"halo snapshot (mesh {mesh.size}, {int(snap.n_alloc)} tiles)")
+
+
+def mesh_phase(dev, ds, ref, frames=24, duration=4.0):
+    """(j) LIO over a device mesh, on the first `frames` frames of the LIO
+    dataset of path_phase at shipped capacities:
+      - a world of one on NCCL in this process, with the map replicated
+        and sharded: positions against the per-frame prefix (0 for the
+        replicated map, <= 1 mm sharded), ms per frame, knn5_plane_tiled
+        launches, collectives per frame and map bytes per rank;
+      - a world of two sharing the card under gloo (NCCL refuses two ranks
+        on one card), spawned by parallel.launch: rank 0 within 1 mm of
+        the prefix, every rank launching the fused search, the sharded
+        run's per-rank pool half the replicated one's;
+      - `run.main --synthetic --no-img --mesh 1 --sharded-map --map-pcd
+        --save-ckpt` (one spawned NCCL rank): ATE < 2 cm, its checkpoint
+        loads into a single-device Pipeline with the PCD's points.
+    After the sharded world of one, knn5_plane_tiled is held against its
+    plain version on that run's halo snapshot (halo_check).
+    Returns ({path: (ms per frame, launches)}, {path: its other numbers},
+    the knn5_plane_tiled launches of all of them, the halo check's
+    max_abs_err)."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch.io import checkpoint as ckpt
+    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+    from fastlivo_tpu_torch.parallel.launch import free_port, launch
+    from fastlivo_tpu_torch.parallel.sharded import make_mesh
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    smi = nvidia_smi_line()
+    t_max = ref[frames].t
+    paths, extra, mesh_launches = {}, {}, 0
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1, device=dev)
+        # NCCL sets up its communicator at the first collective: not timed
+        mesh.all_reduce(mesh.all_gather(torch.zeros(1, device=mesh.device)))
+        for sharded in (False, True):
+            name = f"mesh 1 nccl {'sharded' if sharded else 'replicated'}"
+            pipe = Pipeline(lio_config(), device=mesh.device, mesh=mesh, sharded_map=sharded)
+            push_all(pipe, ds, t_max=t_max)
+            c0 = mesh.collectives
+            outs, launches, wall = counted_run(pipe.spin)
+            n_coll = mesh.collectives - c0
+            if len(outs) < frames:
+                raise AssertionError(f"{name}: {len(outs)} frames of {frames}")
+            d = max_diff(outs, ref[:len(outs)])
+            steady = sum(o.iters > 0 for o in outs)
+            nb = map_bytes(pipe.map)
+            print(f"{name}: {len(outs)} frames ({steady} steady), {wall / len(outs):.2f} ms/"
+                  f"frame, max position difference to per-frame {d * 1e3:.4f} mm, "
+                  f"knn5_plane_tiled {launches['knn5_plane_tiled']}, {n_coll / len(outs):.1f} "
+                  f"collectives/frame, map {nb / 1e6:.1f} MB per rank "
+                  f"({pipe.map.slot_key.shape[0]} tiles); {smi}")
+            if (d != 0.0 if not sharded else d > 1e-3) or launches["knn5_plane_tiled"] < steady:
+                raise AssertionError(f"{name}: difference {d} m, launches {launches}")
+            paths[name] = (wall / len(outs), launches)
+            extra[name] = {"max_diff_to_per_frame_mm": d * 1e3, "map_mb_per_rank": nb / 1e6,
+                           "collectives_per_frame": n_coll / len(outs)}
+            mesh_launches += launches["knn5_plane_tiled"]
+            if sharded:
+                halo_err = halo_check(pipe, mesh)
+            del pipe
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    scans = [s for s in ds.lidar_scans_fast() if s[0] < t_max]
+    imu = [s for s in ds.imu_stream() if s[0] < t_max]
+    t0 = time.perf_counter()
+    res = launch(mesh_rank, 2, (lio_config(), scans, imu, "cuda:0"), backend="gloo",
+                 timeout=300, deadline=600)
+    print(f"mesh 2 gloo: two ranks on cuda:0 spawned and run in {time.perf_counter() - t0:.1f} s")
+    pools = []
+    for mode, sharded in enumerate((False, True)):
+        name = f"mesh 2 gloo {'sharded' if sharded else 'replicated'}"
+        r0 = res[0][mode]
+        k = [r[mode]["knn5_plane_tiled"] for r in res]
+        d = float(np.abs(r0["pos"] - np.array([o.pos for o in ref[:len(r0["pos"])]])).max())
+        ms = 1e3 * r0["wall_s"] / len(r0["t"])
+        print(f"{name}: {len(r0['t'])} frames, {ms:.2f} ms/frame, max position difference "
+              f"to per-frame {d * 1e3:.4f} mm, knn5_plane_tiled per rank {k}, "
+              f"{r0['collectives'] / len(r0['t']):.1f} collectives/frame, map "
+              f"{r0['map_bytes'] / 1e6:.1f} MB per rank ({r0['pool_tiles']} tiles); {smi}")
+        if len(r0["t"]) < frames or d > 1e-3 or min(k) == 0:
+            raise AssertionError(f"{name}: {len(r0['t'])} frames, difference {d} m, "
+                                 f"launches {k}")
+        pools.append(r0["pool_tiles"])
+        paths[name] = (ms, {"knn5_plane_tiled": sum(k)})
+        extra[name] = {"max_diff_to_per_frame_mm": d * 1e3,
+                       "map_mb_per_rank": r0["map_bytes"] / 1e6,
+                       "collectives_per_frame": r0["collectives"] / len(r0["t"]),
+                       "knn5_plane_tiled_per_rank": k}
+        mesh_launches += sum(k)
+    if pools[1] * 2 != pools[0]:
+        raise AssertionError(f"per-shard pool {pools[1]} is not half of {pools[0]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, pcd, ck = (os.path.join(tmp, f) for f in ("traj.txt", "map.pcd", "ck.npz"))
+        t0 = time.perf_counter()
+        rc = run.main(["--synthetic", "--no-img", "--duration", str(duration), "--mesh", "1",
+                       "--sharded-map", "--out", out, "--map-pcd", pcd, "--save-ckpt", ck])
+        wall = time.perf_counter() - t0
+        traj = np.loadtxt(out)
+        truth = SyntheticDataset(duration=duration).traj
+        errs = [np.linalg.norm(row[1:4] - (truth.pose(row[0])[1] - truth.base_pos))
+                for row in traj if row[0] >= truth.t_static + 0.5]
+        ate = float(np.sqrt(np.mean(np.square(errs))))
+        with open(pcd) as f:
+            n_pcd = int(next(line for line in f if line.startswith("POINTS")).split()[1])
+        pipe = Pipeline(lio_config(), device=dev)
+        pipe.warm_start(*ckpt.load(ck, device=dev))
+        n_map = tm.extract_points(pipe.map)[1]
+    print(f"run --mesh 1 --sharded-map: rc {rc}, {len(traj)} poses in {wall:.1f} s (spawn "
+          f"included), ATE {ate * 1e3:.3f} mm, map PCD {n_pcd} points, checkpoint loaded "
+          f"into a single-device Pipeline with {n_map} points; {smi}")
+    if rc != 0 or not ate < 0.02 or n_map != n_pcd or n_pcd == 0:
+        raise AssertionError(f"run --mesh 1: rc {rc}, ATE {ate}, points {n_map} / {n_pcd}")
+    name = "run --mesh 1 --sharded-map (spawn included; launches in the rank)"
+    paths[name] = (1e3 * wall / len(traj), {})
+    extra[name] = {"ate_mm": ate * 1e3, "poses": len(traj), "map_points": n_pcd}
+    return paths, extra, mesh_launches, halo_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1915,6 +2084,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("(i) native"):
         native_nums = native_phase(dev, lio_ds, lio_outs)
+    with phase("(j) mesh"):
+        mesh_paths, mesh_extra, mesh_launches, halo_err = mesh_phase(dev, lio_ds, lio_outs)
+        tiled_err = max(tiled_err, halo_err)
+        paths.update(mesh_paths)
+        path_extra.update(mesh_extra)
+        torch.cuda.empty_cache()
     with phase("photometric kernel"):
         ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
             photometric_phase(dev, last_call)
@@ -1926,8 +2101,11 @@ def main() -> int:
         cpu_agreement(dev)
         livo_cpu_agreement(dev)
     with phase("profiles"):
-        search_k = [profile_phase(dev, fused=f) for f in (False, True)]
-        photo_k = [livo_profile_phase(dev, fused=f) for f in (False, True)]
+        # the unfused runs only count kernels: 5 profiled frames each
+        search_k = [profile_phase(dev, fused=False, duration=3.5),
+                    profile_phase(dev, fused=True)]
+        photo_k = [livo_profile_phase(dev, fused=False, duration=3.5),
+                   livo_profile_phase(dev, fused=True)]
     print(f"device kernels under lio.search per steady lidar frame: unfused {search_k[0]:.1f}, "
           f"fused {search_k[1]:.1f}; under vio.photometric per camera frame: unfused "
           f"{photo_k[0]:.1f}, fused {photo_k[1]:.1f}")
@@ -1952,7 +2130,7 @@ def main() -> int:
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
         "launches": lio_launches["knn5_plane_tiled"], "max_abs_err": tiled_err,
         "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound_ms,
-        "bound_by": t_bound_by, "library_ms": None,
+        "bound_by": t_bound_by, "library_ms": None, "mesh_launches": mesh_launches,
     }, {
         "name": "photometric_err_H", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/photometric_err_H.cu",

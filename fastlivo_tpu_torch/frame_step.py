@@ -77,27 +77,36 @@ def lidar_frame_step(
         )
     # map insert at the posterior (map_incremental, laserMapping.cpp:692):
     # res.pts_world IS the downsampled batch at the posterior pose
-    f64 = torch.float64
     mod = lio_mod.map_module(m)
     with record_function("frame.map_insert"):
         m2 = mod.insert(m, res.pts_world, dmask, max_probe)
+    occ = m2.n_alloc if mod is tm else m2.count
+    dense_world, stats = frame_outputs(res.state, res.n_active, res.iters, res.active,
+                                       res.res, dmask, und, rmask, calib, occ, dense_out)
+    return (res.state, m2, down, dmask, res.n_active, res.iters,
+            dense_world, res.active, stats)
+
+
+def frame_outputs(post: NavState, n_active, iters: int, active, resid, dmask, und, rmask,
+                  calib: imu_mod.ImuCalib, occ, dense_out: bool):
+    """The frame's dense world cloud (R, 3) at the posterior (zeros (1, 3)
+    without `dense_out`) and its stats row (see lidar_frame_step);
+    `active` and `resid` cover the whole downsampled batch, `occ` is the
+    map occupancy."""
+    f64 = torch.float64
+    dev = und.device
     if dense_out:
-        rot32 = res.state.rot.to(down.dtype)
-        pos32 = res.state.pos.to(down.dtype)
+        rot32 = post.rot.to(und.dtype)
+        pos32 = post.pos.to(und.dtype)
         dense_world = (und @ calib.lid_rot.T + calib.lid_off) @ rot32.T + pos32
         dense_world = torch.where(rmask[:, None], dense_world,
                                   torch.zeros_like(dense_world))
     else:
-        dense_world = torch.zeros((1, 3), dtype=down.dtype, device=down.device)
-    n_act = res.n_active.to(f64)
-    head = torch.stack([
-        dmask.sum().to(f64), n_act,
-        torch.tensor(float(res.iters), dtype=f64, device=down.device),
-    ])
-    act_res = torch.where(res.active, res.res.to(f64),
-                          torch.zeros((), dtype=f64, device=down.device))
+        dense_world = torch.zeros((1, 3), dtype=und.dtype, device=dev)
+    n_act = n_active.to(f64)
+    head = torch.stack([dmask.sum().to(f64), n_act,
+                        torch.tensor(float(iters), dtype=f64, device=dev)])
+    act_res = torch.where(active, resid.to(f64), torch.zeros((), dtype=f64, device=dev))
     res_rms = torch.sqrt(torch.sum(act_res ** 2) / torch.clamp(n_act, min=1.0))
-    occ = m2.n_alloc if mod is tm else m2.count
-    stats = torch.cat([head, pack24(res.state), res_rms[None], occ.to(f64)[None]])
-    return (res.state, m2, down, dmask, res.n_active, res.iters,
-            dense_world, res.active, stats)
+    stats = torch.cat([head, pack24(post), res_rms[None], occ.to(f64)[None]])
+    return dense_world, stats

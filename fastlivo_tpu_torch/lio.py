@@ -100,10 +100,14 @@ def lio_update(
     plane_fit: str = "tls",
     cache_knn: bool = False,
     max_probe: int = 12,
+    mesh=None,
 ) -> LioResult:
     """One scan's iterated point-to-plane EKF update
     (laserMapping.cpp:1506-1732). `max_probe`: the hash map's probe
-    depth (the other maps ignore it)."""
+    depth (the other maps ignore it). `mesh` (parallel.sharded.Mesh):
+    the batch is this rank's rows; the [HᵀH | Hᵀz] partials and the
+    active count are reduced over the mesh, so `state`, `n_active` and
+    `iters` are the same on every rank (JAX's `axis_name`)."""
     check_supported(plane_fit=plane_fit)
     mod = map_module(m)
     dtype = pts_body.dtype
@@ -175,6 +179,8 @@ def lio_update(
         hw = h * active.to(dtype)[:, None]
         # [HᵀH₆ | Hᵀz] in one (6, 7) product
         HT = hw.T @ torch.cat([h, -pd2[:, None]], dim=-1)
+        if mesh is not None:
+            HT = mesh.psum(HT)
         HTH6 = HT[:, 0:6].to(f64)
         HTz = HT[:, 6].to(f64)
 
@@ -205,12 +211,15 @@ def lio_update(
     pd2 = plane_ops.point_to_plane(pabcd, pw)
     s = 1.0 - 0.9 * torch.abs(pd2) / body_norm_sqrt
     active = sel & plane_ok & (s > S_GATE) & (torch.abs(pd2) <= RES_GATE)
+    n_act = active.sum(dtype=torch.int32)
+    if mesh is not None:
+        n_act = mesh.all_reduce(n_act)
     return LioResult(
         state=post,
         pts_world=pw,
         active=active,
         res=torch.abs(pd2),
-        n_active=active.sum(dtype=torch.int32),
+        n_active=n_act,
         iters=it + 1,
     )
 

@@ -30,6 +30,9 @@ Readback modes (outputs bit-identical to the synchronous path, later):
   - `enable_block_read(E)` / replay.LivoBlockReplayer: the rows of E
     events are stacked on the device and read in one copy per block.
 `log_dir` writes the reference's Log/ traces (logging_util.TraceLogger);
+`mesh` (parallel.sharded.Mesh) runs the steady frame over a device mesh,
+one Pipeline per rank on the same stream (parallel/product.MeshRunner),
+with the map replicated or, with `sharded_map`, block-sharded;
 `warm_start` restores an io/checkpoint snapshot. `profile_every` N > 0
 runs the four stages of every N-th steady frame once more, each on its
 own, and records their times in `last_stage_profile` (ms).
@@ -90,13 +93,45 @@ class FrameOutput:
 
 
 class Pipeline:
-    def __init__(self, cfg: Config, device=None, log_dir=None):
+    def __init__(self, cfg: Config, device=None, log_dir=None, mesh=None,
+                 sharded_map: bool = False):
         """`device`: where the state, the map and every kernel live;
         CUDA unless the caller passes "cpu" (see device.py). `log_dir`:
         write the Log/ traces (mat_pre, mat_out, imu, pos_log and, with
-        pose_output_en, camera_pose) there."""
+        pose_output_en, camera_pose) there; under a mesh rank 0 writes
+        them.
+
+        `mesh`: this rank's parallel.sharded.Mesh. Every rank builds its
+        Pipeline on the mesh's device and feeds it the same stream; the
+        steady frame runs over the mesh (parallel/product.MeshRunner).
+        Positions match the single-device path to f32-reduction epsilon.
+        `sharded_map` (needs a mesh and the tiled backend): block-shard
+        the map over the mesh, each rank's pool holding ~tiled_pool/N
+        tiles (parallel/sharded_backend.py). The camera under a mesh is
+        not ported yet."""
         cap = cfg.capacity
         lio_mod.check_supported(cap.map_backend, cap.plane_fit)
+        if sharded_map:
+            if mesh is None:
+                raise ValueError("sharded_map requires a mesh")
+            if cap.map_backend != "tiled":
+                raise ValueError("sharded_map requires the tiled map backend "
+                                 f"(map_backend={cap.map_backend!r})")
+        self.mesh_runner = None
+        if mesh is not None:
+            from .parallel.product import VIO_MESH_SLICE, MeshRunner
+
+            if cfg.img_enable:
+                raise ValueError(f"img_enable with a mesh: {VIO_MESH_SLICE}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+            self.mesh_runner = MeshRunner(mesh, sharded_map=sharded_map,
+                                          halo_tiles=cap.halo_tiles,
+                                          snap_dims=cap.tiled_dir_dims)
+            self.mesh_runner.check_capacity(cap)
+            if mesh.rank != 0:
+                log_dir = None  # rank 0 writes the traces
         self.cfg = cfg
         self.logger = TraceLogger(log_dir) if log_dir is not None else None
         self.device = resolve_device(device)
@@ -116,6 +151,10 @@ class Pipeline:
         self.calib: Optional[imu_mod.ImuCalib] = None
         self.state: NavState = identity_state(dev)
         self._map_mod = lio_mod.BACKENDS[cap.map_backend]
+        if sharded_map:
+            from .parallel.sharded_backend import ShardedTiledBackend
+
+            self._map_mod = ShardedTiledBackend(mesh)
         self.map = self._make_map()
         self.map_built = False
         self._rms_high_streak = 0
@@ -182,9 +221,15 @@ class Pipeline:
         if self.vio is not None:  # camera frames defer their stats too
             self.vio.async_read = self._async_read
 
+    @property
+    def _sharded(self) -> bool:
+        return getattr(self._map_mod, "is_sharded", False)
+
     def _make_map(self):
         """An empty map of this pipeline's backend."""
         cap, vs, dev = self.cfg.capacity, self.cfg.filter_size_map, self.device
+        if self._sharded:
+            return self._map_mod.empty(cap.tiled_dir_dims, cap.tiled_pool, vs)
         if self._map_mod is tmod:
             return tmod.empty_tiled_map(cap.tiled_dir_dims, cap.tiled_pool, vs,
                                         device=dev)
@@ -276,7 +321,12 @@ class Pipeline:
         pipeline's device. The snapshot's map backend replaces the
         config's. With `calib` the static IMU initialization is skipped
         and the EKF engages on the first restored scan; without it the
-        maps load and IMU init re-runs on the live stream."""
+        maps load and IMU init re-runs on the live stream. Under a
+        replicated mesh every rank restores the same snapshot; a sharded
+        map is refused (rebuild it from the stream)."""
+        if self._sharded:
+            raise ValueError("a sharded map cannot restore a single-device map "
+                             "checkpoint (rebuild the map from the stream)")
         dev = self.device
 
         def to_dev(nt):
@@ -296,7 +346,15 @@ class Pipeline:
         return self
 
     def checkpointable_map(self):
-        """The map as io/checkpoint.save takes it."""
+        """The map as io/checkpoint.save takes it. A sharded map merges
+        its shards' live points into one TiledMap (ownership is disjoint,
+        so tiled_map.build_host reproduces the content); this is a
+        collective, called on every rank."""
+        if self._sharded:
+            pts_all, _ = self._map_mod.extract_points(self.map)
+            cap = self.cfg.capacity
+            return tmod.build_host(pts_all, cap.tiled_dir_dims, cap.tiled_pool,
+                                   float(self.cfg.filter_size_map), device=self.device)
         return self.map
 
     def _reset_imu(self):
@@ -507,8 +565,10 @@ class Pipeline:
         if fused:
             # ---- steady state: the frame step, one stats read ----------
             pts_j, trel_j, pmask_j, B = self._stage_scan(pts_np, t_rel_np, N)
+            step = (lidar_frame_step if self.mesh_runner is None
+                    else self.mesh_runner.lidar_frame_step)
             (st, m2, down_j, dmask_j, _n_act, _iters,
-             dense_j, active_j, stats_j) = lidar_frame_step(
+             dense_j, active_j, stats_j) = step(
                 self.state, self.map, pose_table, self.calib,
                 pts_j, trel_j, pmask_j, self._fss_dev,
                 laser_point_cov=float(self.cfg.laser_point_cov),
@@ -745,7 +805,10 @@ class Pipeline:
         options and the results are dropped. The insert goes into a copy
         of the map, made outside the timed window, so the pipeline's
         outputs do not change. On CUDA each stage ends in a wait for the
-        device."""
+        device. Under a replicated mesh each rank runs the stages on its
+        own; a sharded map has no single-device stages (returns None)."""
+        if self._sharded:
+            return None
         cap = self.cfg.capacity
         dev = self.device
         calib = self.calib
@@ -799,7 +862,15 @@ class Pipeline:
             return
         self._frames_since_rebuild_check = 0
         occ = self._map_occ_host
-        if self._map_mod is tmod:
+        if self._sharded:
+            # the stats row carries the fullest shard's allocation; the
+            # per-shard pool is the binding constraint
+            if occ is None:
+                occ = self._map_mod.max_occupancy(self.map)
+            if occ > 0.85 * self._map_mod.pool_per_shard(self.map):
+                self.map = self._map_mod.compact(self.map)
+                self._map_occ_host = None
+        elif self._map_mod is tmod:
             if occ is None:
                 occ = float(self.map.n_alloc)
             if occ > 0.85 * self.map.slot_key.shape[0]:

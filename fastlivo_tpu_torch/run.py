@@ -21,6 +21,13 @@ frames; needs matplotlib), and prints per-stage timing (with
 `--profile-every N`, also each LIO stage's time on its own). With
 `debug` in the config, reads stay synchronous. Without `--config` (or
 `--launch`) the built-in `Config()` defaults are used.
+
+`--mesh N` runs LIO over N ranks, one spawned process each
+(parallel/launch.py): NCCL with one card per rank, or gloo with
+`--device cpu`. Every rank replays the same stream; the scan's rows are
+split over the ranks and the EKF's reductions cross the mesh
+(parallel/product.py). `--sharded-map` also block-shards the map over
+the ranks. Rank 0 writes every output file and prints the summary.
 """
 from __future__ import annotations
 
@@ -265,6 +272,16 @@ def main(argv=None):
                     help="read each frame's results before the next frame "
                     "(by default offline replay defers the read one frame; "
                     "the outputs are the same)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run LIO over N ranks, one process each (NCCL, one card "
+                    "per rank; gloo with --device cpu; 0 = one device). The "
+                    "scan's rows are split over the ranks; positions match one "
+                    "device to f32-reduction epsilon")
+    ap.add_argument("--sharded-map", action="store_true",
+                    help="with --mesh N: block-shard the map over the ranks "
+                    "(ownership-striped tile slabs, per-rank pool tiled_pool/N); "
+                    "the EKF searches a per-scan halo snapshot gathered from the "
+                    "owners (parallel/sharded_map.py)")
     ap.add_argument(
         "--eval", action="store_true",
         help="with --synthetic: print ATE RMSE vs the known trajectory and "
@@ -290,14 +307,48 @@ def main(argv=None):
         cfg.img_enable = False
     if args.pcd_out:
         cfg.pcd_save_en = True
+    if args.mesh:
+        if args.block:
+            # block replay is per device; the mesh runs per frame
+            ap.error("--mesh and --block are mutually exclusive")
+    elif args.sharded_map:
+        ap.error("--sharded-map requires --mesh N")
+    if args.sharded_map and args.load_ckpt:
+        ap.error("--sharded-map cannot restore a single-device map "
+                 "checkpoint (re-run without --sharded-map, or rebuild "
+                 "the map from the stream)")
+    if args.mesh:
+        from .parallel.launch import launch, mesh_backend
+        from .parallel.product import VIO_MESH_SLICE
 
-    pipe = Pipeline(cfg, device=args.device, log_dir=args.log_dir)
+        if cfg.img_enable:
+            ap.error(f"--mesh with the camera: {VIO_MESH_SLICE}; pass --no-img")
+        return launch(_run_rank, args.mesh, (args, cfg),
+                      backend=mesh_backend(args.device, args.mesh))[0]
+    return _run(args, cfg)
+
+
+def _run_rank(rank: int, n: int, args, cfg) -> int:
+    """`run --mesh N`'s rank program (parallel.launch.launch)."""
+    from .parallel.launch import rank_device
+    from .parallel.sharded import make_mesh
+
+    return _run(args, cfg, make_mesh(n, device=rank_device(args.device)))
+
+
+def _run(args, cfg, mesh=None) -> int:
+    """The run after argument parsing; under a mesh every rank runs it and
+    rank 0 writes the outputs (the map's gathers are collectives, called
+    on every rank)."""
+    lead = mesh is None or mesh.rank == 0
+    pipe = Pipeline(cfg, device=None if mesh else args.device, log_dir=args.log_dir,
+                    mesh=mesh, sharded_map=args.sharded_map)
     pipe.profile_every = args.profile_every
     if not args.sync_read and not args.block and not cfg.debug:
         # offline default: frame N's read overlaps frame N+1's dispatch;
         # debug keeps sync reads for the overlay
         pipe.async_read = True
-    if args.viz_dir:
+    if args.viz_dir and lead:
         from .viz import LiveViewer
 
         pipe.on_frame = LiveViewer(args.viz_dir, every=args.viz_every).update
@@ -318,6 +369,15 @@ def main(argv=None):
                               block_scan=args.block_scan)
     wall = time.perf_counter() - t0
 
+    if args.map_pcd:
+        pts_live, n_live = pipe._map_mod.extract_points(pipe.map)
+    ckpt_map = None
+    if args.save_ckpt and lead:
+        ckpt_map = pipe.checkpointable_map()
+    elif args.save_ckpt and pipe._sharded:  # join the shard gather of rank 0's checkpoint
+        pipe._map_mod.extract_points(pipe.map)
+    if not lead:
+        return 0
     traj = pipe.tum_trajectory()
     if len(traj):
         write_tum(args.out, traj)
@@ -339,7 +399,8 @@ def main(argv=None):
     if pipe.outputs:
         tm = {k: float(np.mean([o.timing[k] for o in pipe.outputs])) * 1e3
               for k in pipe.outputs[0].timing}
-    print(f"frames={n} wall={wall:.1f}s device={pipe.device} "
+    where = f"mesh={mesh.size}{'+sharded-map' if args.sharded_map else ''} " if mesh else ""
+    print(f"frames={n} wall={wall:.1f}s device={pipe.device} {where}"
           + " ".join(f"{k}={v:.1f}ms" for k, v in tm.items()))
     if pipe.vio is not None:
         print(f"vio: frames={pipe.vio.fid} map_points={int(pipe.vio.vmap.n_pts)} "
@@ -356,13 +417,12 @@ def main(argv=None):
             f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in m.items()))
     if args.map_pcd:
-        pts_live, n_live = pipe._map_mod.extract_points(pipe.map)
         save_pcd(args.map_pcd, pts_live)
         print(f"map pcd: {args.map_pcd} ({n_live} points)")
     if args.save_ckpt:
         from .io import checkpoint as ckpt_mod
 
-        ckpt_mod.save(args.save_ckpt, pipe.state, pipe.checkpointable_map(),
+        ckpt_mod.save(args.save_ckpt, pipe.state, ckpt_map,
                       pipe.vio.vmap if pipe.vio is not None else None,
                       calib=pipe.calib)
         print(f"checkpoint: {args.save_ckpt}")

@@ -25,23 +25,36 @@ and {"flushed": true} to the client that sent a FLUSH.
 
 Estimation runs on the per-connection reader threads, serialized by one
 lock; the kernels launch on the calling thread's current CUDA stream.
+
+`--mesh N` (LIO) runs N ranks, one process each (parallel/launch.py).
+Rank 0 owns the socket and the Server; before its Pipeline takes a
+message it broadcasts the message to the other ranks, whose Pipelines
+take the same sequence (`follow`). Autosaves and the shutdown travel in
+the same stream, so a sharded map's gather for a checkpoint runs at the
+same point on every rank. Only rank 0 answers clients.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import socket
 import struct
 import threading
+import time
 from collections import deque
 
 import numpy as np
+import torch.distributed as dist
 
 from .config import Config
 from .pipeline import Pipeline
 
 IMU, LIDAR, IMAGE, FLUSH = 0, 1, 2, 3
 MAX_MSG = 256 << 20  # reject absurd length prefixes (corrupt stream)
+# kinds that only the mesh's rank stream carries, never the socket
+NOOP, SNAPSHOT, SHUTDOWN = 16, 17, 18
+HEARTBEAT_S = 20.0  # an idle leader's NOOP period (well inside the timeout)
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes | None:
@@ -135,6 +148,66 @@ class _Sender:
                 return
 
 
+def apply_message(pipe: Pipeline, kind: int, payload: bytes) -> list:
+    """Decode one wire message into `pipe` and spin it; returns the new
+    outputs (a FLUSH also resolves the deferred frames)."""
+    if kind == IMU:
+        (stamp,) = struct.unpack_from("<d", payload, 1)
+        acc = np.frombuffer(payload, np.float32, 3, 9)
+        gyr = np.frombuffer(payload, np.float32, 3, 21)
+        pipe.push_imu(stamp, acc, gyr)
+    elif kind == LIDAR:
+        stamp, cnt = struct.unpack_from("<dI", payload, 1)
+        off = 1 + 8 + 4
+        pts = np.frombuffer(payload, np.float32, cnt * 3, off).reshape(cnt, 3)
+        t_rel = np.frombuffer(payload, np.float32, cnt, off + cnt * 12).astype(np.float64)
+        pipe.push_lidar(stamp, pts, t_rel)
+    elif kind == IMAGE:
+        stamp, h, w, ch = struct.unpack_from("<dHHB", payload, 1)
+        img = np.frombuffer(payload, np.uint8, h * w * ch, 14).reshape(h, w, ch)
+        if ch == 1:
+            img = img[..., 0]
+        pipe.push_img(stamp, img)
+    outs = pipe.spin()
+    if kind == FLUSH:
+        outs = outs + pipe.finish()  # a flush is a true barrier
+    return outs
+
+
+class RankStream:
+    """Rank 0's message stream to the other ranks of the world, over a gloo
+    group of its own (created on every rank, in the same order): the
+    messages, then NOOP heartbeats while idle, SNAPSHOT before each
+    checkpoint and SHUTDOWN at the end."""
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo",
+                                    timeout=datetime.timedelta(seconds=10 * HEARTBEAT_S))
+        self.last = time.monotonic()
+
+    def send(self, kind: int, payload: bytes = b"") -> None:
+        dist.broadcast_object_list([(kind, payload)], src=0, group=self.group)
+        self.last = time.monotonic()
+
+    def recv(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+def follow(pipe: Pipeline, stream: RankStream) -> None:
+    """A follower rank: feed `pipe` rank 0's messages until SHUTDOWN."""
+    while True:
+        kind, payload = stream.recv()
+        if kind == SHUTDOWN:
+            return
+        if kind == SNAPSHOT:
+            if pipe._sharded:  # join the shard gather of rank 0's checkpoint
+                pipe._map_mod.extract_points(pipe.map)
+        elif kind != NOOP:
+            apply_message(pipe, kind, payload)
+
+
 class Server:
     """Multi-connection server driving one Pipeline.
 
@@ -144,15 +217,19 @@ class Server:
     reference's single-threaded spinOnce cadence (:1260-1267)."""
 
     def __init__(self, cfg: Config, address, log_dir=None, autosave=None,
-                 autosave_every: int = 600, device=None):
+                 autosave_every: int = 600, device=None, mesh=None,
+                 sharded_map: bool = False):
         """`address`: a Unix socket path or a (host, port) tuple.
         `autosave`: optional .npz path; every `autosave_every` frames and
         at shutdown the estimator is snapshot there (io/checkpoint
         format; resume with `--load-ckpt` or Pipeline.warm_start). The
         arrays are copied to the host under the pipeline lock (the maps
         are updated in place); compression and the atomic file replace
-        run on a worker thread. `device`: CUDA unless given."""
-        self.pipe = Pipeline(cfg, device=device, log_dir=log_dir)
+        run on a worker thread. `device`: CUDA unless given. `mesh`: rank
+        0's mesh (see the module doc; `sharded_map` as for Pipeline)."""
+        self.pipe = Pipeline(cfg, device=device, log_dir=log_dir, mesh=mesh,
+                             sharded_map=sharded_map)
+        self.stream = RankStream() if mesh is not None else None
         self.autosave = autosave
         self.autosave_every = max(int(autosave_every), 1)
         self._frames_since_save = 0
@@ -187,6 +264,10 @@ class Server:
                     with self._conns_lock:
                         if self._n_ever and not self._conns:
                             break
+                    if (self.stream is not None
+                            and time.monotonic() - self.stream.last > HEARTBEAT_S):
+                        with self._pipe_lock:
+                            self.stream.send(NOOP)
                     continue
                 self._n_ever += 1
                 with self._conns_lock:
@@ -202,6 +283,9 @@ class Server:
                     self._snapshot()
                 if self._saver is not None:
                     self._saver.shutdown(wait=True)
+            if self.stream is not None:
+                with self._pipe_lock:
+                    self.stream.send(SHUTDOWN)
             if self.pipe.logger is not None:
                 self.pipe.logger.close()
             self._done.set()
@@ -258,29 +342,9 @@ class Server:
                 break
             kind = payload[0]
             with self._pipe_lock:
-                if kind == IMU:
-                    (stamp,) = struct.unpack_from("<d", payload, 1)
-                    acc = np.frombuffer(payload, np.float32, 3, 9)
-                    gyr = np.frombuffer(payload, np.float32, 3, 21)
-                    pipe.push_imu(stamp, acc, gyr)
-                elif kind == LIDAR:
-                    stamp, cnt = struct.unpack_from("<dI", payload, 1)
-                    off = 1 + 8 + 4
-                    pts = np.frombuffer(payload, np.float32, cnt * 3, off)
-                    pts = pts.reshape(cnt, 3)
-                    t_rel = np.frombuffer(
-                        payload, np.float32, cnt, off + cnt * 12).astype(np.float64)
-                    pipe.push_lidar(stamp, pts, t_rel)
-                elif kind == IMAGE:
-                    stamp, h, w, ch = struct.unpack_from("<dHHB", payload, 1)
-                    img = np.frombuffer(payload, np.uint8, h * w * ch, 14)
-                    img = img.reshape(h, w, ch)
-                    if ch == 1:
-                        img = img[..., 0]
-                    pipe.push_img(stamp, img)
-                outs = pipe.spin()
-                if kind == FLUSH:
-                    outs = outs + pipe.finish()  # a flush is a true barrier
+                if self.stream is not None and kind in (IMU, LIDAR, IMAGE, FLUSH):
+                    self.stream.send(kind, payload)  # before rank 0 takes it
+                outs = apply_message(pipe, kind, payload)
                 # broadcast inside the lock: queue appends do not block,
                 # and the odometry lines stay in order across publishers
                 for out in outs:
@@ -309,6 +373,8 @@ class Server:
         pipe = self.pipe
         if not pipe.map_built:
             return  # nothing worth a snapshot yet
+        if self.stream is not None:
+            self.stream.send(SNAPSHOT)
         arrays = ckpt_mod.to_host(
             pipe.state, pipe.checkpointable_map(),
             pipe.vio.vmap if pipe.vio is not None else None, pipe.calib)
@@ -363,6 +429,13 @@ def main(argv=None):
                     "shutdown")
     ap.add_argument("--autosave-every", type=int, default=600, metavar="N",
                     help="frames between autosaves (default 600 ~ 60 s at 10 Hz)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="LIO over N ranks, one process each (NCCL, one card per "
+                    "rank; gloo with --device cpu; 0 = one device); rank 0 owns "
+                    "the socket")
+    ap.add_argument("--sharded-map", action="store_true",
+                    help="with --mesh N: block-shard the map over the ranks "
+                    "(per-rank pool tiled_pool/N; per-scan halo snapshot search)")
     args = ap.parse_args(argv)
     if args.launch:
         from .config import parse_launch
@@ -379,24 +452,64 @@ def main(argv=None):
     cfg = load_config(args.config, args.camera)
     if args.camera is None:
         cfg.img_enable = False
-    addr = args.unix if args.unix else ("127.0.0.1", args.port)
-    srv = Server(cfg, addr, log_dir=args.log_dir, autosave=args.autosave,
-                 autosave_every=args.autosave_every, device=args.device)
+    if not args.mesh and args.sharded_map:
+        ap.error("--sharded-map requires --mesh N")
+    if args.sharded_map and args.load_ckpt:
+        ap.error("--sharded-map cannot restore a single-device map "
+                 "checkpoint (rebuild from the stream)")
+    if args.mesh:
+        from .parallel.launch import launch, mesh_backend
+        from .parallel.product import VIO_MESH_SLICE
+
+        if cfg.img_enable:
+            ap.error(f"--mesh with the camera: {VIO_MESH_SLICE}")
+        return launch(_serve_rank, args.mesh, (args, cfg),
+                      backend=mesh_backend(args.device, args.mesh))[0]
+    return _serve(args, cfg)
+
+
+def _setup(pipe: Pipeline, args) -> None:
+    """Warm start and readback options, the same on every rank."""
     if args.load_ckpt:
         from .io import checkpoint as ckpt_mod
 
         if os.path.exists(args.load_ckpt) or os.path.exists(args.load_ckpt + ".npz"):
-            srv.pipe.warm_start(*ckpt_mod.load(args.load_ckpt, device=srv.pipe.device))
+            pipe.warm_start(*ckpt_mod.load(args.load_ckpt, device=pipe.device))
             print("warm-started from checkpoint", flush=True)
         else:
             # the first boot of the crash-recovery pairing: no file yet
             print("checkpoint not found; starting cold", flush=True)
     if args.async_read:
-        srv.pipe.async_read = True
+        pipe.async_read = True
     if args.block_read:
-        srv.pipe.enable_block_read(args.block_read)
+        pipe.enable_block_read(args.block_read)
+
+
+def _serve(args, cfg, mesh=None) -> int:
+    addr = args.unix if args.unix else ("127.0.0.1", args.port)
+    srv = Server(cfg, addr, log_dir=args.log_dir, autosave=args.autosave,
+                 autosave_every=args.autosave_every,
+                 device=None if mesh else args.device, mesh=mesh,
+                 sharded_map=args.sharded_map)
+    _setup(srv.pipe, args)
     print(f"listening on {srv.address}", flush=True)
     srv.serve_forever()
+    return 0
+
+
+def _serve_rank(rank: int, n: int, args, cfg) -> int:
+    """`serve --mesh N`'s rank program (parallel.launch.launch): rank 0
+    serves, the others follow its stream."""
+    from .parallel.launch import rank_device
+    from .parallel.sharded import make_mesh
+
+    mesh = make_mesh(n, device=rank_device(args.device))
+    if rank == 0:
+        return _serve(args, cfg, mesh)
+    pipe = Pipeline(cfg, mesh=mesh, sharded_map=args.sharded_map)
+    stream = RankStream()  # after the Pipeline, as on rank 0
+    _setup(pipe, args)
+    follow(pipe, stream)
     return 0
 
 

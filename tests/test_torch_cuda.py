@@ -655,3 +655,58 @@ def test_debug_and_rgb_cloud_on_the_card(cuda):
     assert len(card.rgb_cloud) == len(cpu.rgb_cloud) >= 10
     n_c, n_h = (sum(len(c) for c in p.rgb_cloud) for p in (card, cpu))
     assert abs(n_c - n_h) <= 0.02 * n_h
+
+
+def mesh_lio_inputs():
+    """small_lio's configuration and its stream, drawn once."""
+    cfg = Config()
+    cfg.img_enable = False
+    cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                  tiled_dir_dims=(32, 32, 16), tiled_pool=1024)
+    ds = SyntheticDataset(**LIO_DS)
+    return cfg, list(ds.lidar_scans_fast()), list(ds.imu_stream())
+
+
+def single_device(cfg, scans, imu, device):
+    pipe = Pipeline(cfg, device=device)
+    for beg, pts, t_rel in scans:
+        pipe.push_lidar(beg, pts, t_rel)
+    for t, acc, gyr in imu:
+        pipe.push_imu(t, acc, gyr)
+    return pipe.spin() + pipe.finish()
+
+
+def test_mesh_of_one_on_nccl_is_the_single_device_path(cuda):
+    """A world of one on NCCL (its own process) against the single-device
+    path on the card: every frame bit for bit, through the fused search."""
+    from fastlivo_tpu_torch.parallel.launch import launch, replay_rank
+
+    cfg, scans, imu = mesh_lio_inputs()
+    ref = single_device(cfg, scans, imu, cuda)
+    (got,) = launch(replay_rank, 1, (cfg, scans, imu, None, False), backend="nccl",
+                    timeout=120, deadline=300)
+    assert len(got["t"]) == len(ref) >= 25
+    np.testing.assert_array_equal(got["t"], [o.t for o in ref])
+    np.testing.assert_array_equal(got["pos"], np.array([o.pos for o in ref]))
+    np.testing.assert_array_equal(got["quat"], np.array([o.quat for o in ref]))
+    np.testing.assert_array_equal(got["iters"], [o.iters for o in ref])
+    assert got["knn5_plane_tiled"] >= sum(o.iters > 0 for o in ref) > 20
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["replicated", "sharded_map"])
+def test_mesh_of_two_sharing_the_card(cuda, sharded):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one card), the
+    collectives staged through the host: within 1 mm of the single-device
+    path, the fused search launched in every rank."""
+    from fastlivo_tpu_torch.parallel.launch import launch, replay_rank
+
+    cfg, scans, imu = mesh_lio_inputs()
+    ref = np.array([o.pos for o in single_device(cfg, scans, imu, cuda)])
+    res = launch(replay_rank, 2, (cfg, scans, imu, "cuda:0", sharded), backend="gloo",
+                 timeout=120, deadline=300)
+    for r in res:
+        assert len(r["pos"]) == len(ref) >= 25
+        assert np.abs(r["pos"] - ref).max() < 1e-3
+        assert r["knn5_plane_tiled"] > 20 and r["n_dropped"] == 0
+    np.testing.assert_array_equal(res[0]["pos"], res[1]["pos"])
+    assert res[0]["pool_tiles"] == (512 if sharded else 1024)

@@ -386,7 +386,12 @@ def test_import_pulls_in_no_jax():
             "fastlivo_tpu_torch.io.checkpoint, fastlivo_tpu_torch.io.rosbag, "
             "fastlivo_tpu_torch.io.lz4, fastlivo_tpu_torch.ops.dense_map, "
             "fastlivo_tpu_torch.viz, fastlivo_tpu_torch.native, "
-            "fastlivo_tpu_torch.io.golden; "
+            "fastlivo_tpu_torch.io.golden, fastlivo_tpu_torch.parallel.sharded, "
+            "fastlivo_tpu_torch.parallel.launch, fastlivo_tpu_torch.parallel.sharded_map, "
+            "fastlivo_tpu_torch.parallel.sharded_backend, "
+            "fastlivo_tpu_torch.parallel.product; "
+            # the mesh tests' rank programs, which spawned ranks import
+            "sys.path.insert(0, 'tests'); import torch_mesh_ranks; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'fastlivo_tpu' or m.startswith('fastlivo_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -402,8 +407,10 @@ def test_sources_name_no_jax():
     assert {"replay.py", "serve.py", "readback.py", "preprocess.py", "features.py",
             "io/checkpoint.py", "io/rosbag.py", "io/lz4.py", "ops/dense_map.py",
             "viz.py", "native.py", "io/golden.py",
-            "ops/voxel_map.py"} <= names
-    files.append(ROOT / "chip_smoke.py")
+            "ops/voxel_map.py", "parallel/sharded.py", "parallel/launch.py",
+            "parallel/sharded_map.py", "parallel/sharded_backend.py",
+            "parallel/product.py"} <= names
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 
