@@ -23,15 +23,21 @@ LIVO dataset with `debug` and `pcd_save_en` (the overlay, `colorize`
 on the card against the CPU, the RGB cloud through `run.save_pcd` and
 `viz._load_pcd`), (h) `Vio.update_staged` against `Vio.update` on forked
 states at the same width, and (i) the native library against its numpy
-and Python twins, and a bootstrap frame through it, and (j) LIO over a
+and Python twins, and a bootstrap frame through it, (j) LIO over a
 device mesh on the first 24 LIO frames: a world of one on NCCL in this
 process and a world of two sharing the card under gloo (spawned by
 `parallel.launch`), each with the map replicated and block-sharded,
-against the per-frame path, then `run.main --mesh 1 --sharded-map` with
-its map PCD and checkpoint. The tiled-map paths
+against the per-frame path, and (k) LIVO over a device mesh on the
+first 24 lidar frames of the LIVO dataset, the same two worlds with the
+map replicated and with the map sharded and the camera's image pool and
+observation rings in per-rank slabs, against the single-device prefix,
+`photometric_err_H`'s partials (what a mesh sums) held against their
+plain version on one rank's slab, then `run.main --mesh 1 --sharded-map`
+with the camera and its checkpoint. The tiled-map paths
 run the fused kernels: the LIO search in one launch (`knn5_plane_tiled`)
 and each photometric iteration's measurement in one launch
-(`photometric_err_H`, also on the staged path); the hash, dense and
+(`photometric_err_H`, also on the staged path and in every rank of the
+mesh runs); the hash, dense and
 `cache_knn` paths search through the standalone `knn5_plane`; each
 path's launches are counted around it. The standalone
 `patches_and_grads` is held against its plain version but is not on the
@@ -335,9 +341,9 @@ def spy(module, name, calls: list):
     """Record the arguments of every call of module.<name>."""
     real = getattr(module, name)
 
-    def wrapped(*a):
+    def wrapped(*a, **kw):
         calls.append(a)
-        return real(*a)
+        return real(*a, **kw)
 
     return swapped(module, name, wrapped)
 
@@ -1816,6 +1822,27 @@ def native_phase(dev, ds, lio_outs):
     return nums
 
 
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A process group of one on NCCL in this process, and its mesh; the
+    communicator set up (at its first collective) before it is used."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fastlivo_tpu_torch.parallel.launch import free_port
+    from fastlivo_tpu_torch.parallel.sharded import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1, device=dev)
+        mesh.all_reduce(mesh.all_gather(torch.zeros(1, device=mesh.device)))
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
 def mesh_rank(rank, n, cfg, scans, imu, device, warm=8):
     """(j)'s rank program (parallel.launch.launch): `warm` frames of a
     discarded pipeline (the rank's first launches and connections), then
@@ -1851,7 +1878,7 @@ def halo_check(pipe, mesh):
                        f"halo snapshot (mesh {mesh.size}, {int(snap.n_alloc)} tiles)")
 
 
-def mesh_phase(dev, ds, ref, frames=24, duration=4.0):
+def mesh_phase(dev, ds, ref, frames=24):
     """(j) LIO over a device mesh, on the first `frames` frames of the LIO
     dataset of path_phase at shipped capacities:
       - a world of one on NCCL in this process, with the map replicated
@@ -1861,38 +1888,19 @@ def mesh_phase(dev, ds, ref, frames=24, duration=4.0):
       - a world of two sharing the card under gloo (NCCL refuses two ranks
         on one card), spawned by parallel.launch: rank 0 within 1 mm of
         the prefix, every rank launching the fused search, the sharded
-        run's per-rank pool half the replicated one's;
-      - `run.main --synthetic --no-img --mesh 1 --sharded-map --map-pcd
-        --save-ckpt` (one spawned NCCL rank): ATE < 2 cm, its checkpoint
-        loads into a single-device Pipeline with the PCD's points.
+        run's per-rank pool half the replicated one's.
     After the sharded world of one, knn5_plane_tiled is held against its
     plain version on that run's halo snapshot (halo_check).
     Returns ({path: (ms per frame, launches)}, {path: its other numbers},
     the knn5_plane_tiled launches of all of them, the halo check's
     max_abs_err)."""
-    import datetime
-    import os
-    import tempfile
-
-    import torch.distributed as dist
-
-    from fastlivo_tpu_torch import run
-    from fastlivo_tpu_torch.io import checkpoint as ckpt
-    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-    from fastlivo_tpu_torch.ops import tiled_map as tm
-    from fastlivo_tpu_torch.parallel.launch import free_port, launch
-    from fastlivo_tpu_torch.parallel.sharded import make_mesh
+    from fastlivo_tpu_torch.parallel.launch import launch
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     smi = nvidia_smi_line()
     t_max = ref[frames].t
     paths, extra, mesh_launches = {}, {}, 0
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
-                            world_size=1, timeout=datetime.timedelta(seconds=300))
-    try:
-        mesh = make_mesh(1, device=dev)
-        # NCCL sets up its communicator at the first collective: not timed
-        mesh.all_reduce(mesh.all_gather(torch.zeros(1, device=mesh.device)))
+    with world_of_one(dev) as mesh:
         for sharded in (False, True):
             name = f"mesh 1 nccl {'sharded' if sharded else 'replicated'}"
             pipe = Pipeline(lio_config(), device=mesh.device, mesh=mesh, sharded_map=sharded)
@@ -1920,8 +1928,6 @@ def mesh_phase(dev, ds, ref, frames=24, duration=4.0):
                 halo_err = halo_check(pipe, mesh)
             del pipe
             torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
 
     scans = [s for s in ds.lidar_scans_fast() if s[0] < t_max]
     imu = [s for s in ds.imu_stream() if s[0] < t_max]
@@ -1953,31 +1959,223 @@ def mesh_phase(dev, ds, ref, frames=24, duration=4.0):
     if pools[1] * 2 != pools[0]:
         raise AssertionError(f"per-shard pool {pools[1]} is not half of {pools[0]}")
 
+    return paths, extra, mesh_launches, halo_err
+
+
+def livo_mesh_rank(rank, n, cfg, scans, imu, images, device, warm=8):
+    """(k)'s rank program: `warm` frames of a discarded LIVO pipeline,
+    then the map replicated and sharded (the visual map in slabs)."""
+    from fastlivo_tpu_torch.parallel.launch import replay_rank
+
+    t_w = scans[warm][0]
+    replay_rank(rank, n, cfg, scans[:warm], [s for s in imu if s[0] < t_w], device, False,
+                [s for s in images if s[0] < t_w])
+    return [replay_rank(rank, n, cfg, scans, imu, device, sharded, images)
+            for sharded in (False, True)]
+
+
+def vmap_mb(v) -> float:
+    return sum(t.numel() * t.element_size() for t in v.vmap) / 1e6
+
+
+def partials_compare(a, rows, label) -> float:
+    """photometric_err_H's partials (what a mesh sums) against its plain
+    version on the rows `rows` of one call's arguments `a`: HᵀH | Hᵀz
+    within 1e-4 of its largest entry, Σperr within rtol 1e-5, n_meas
+    equal; with no valid row, n_meas 1 and everything else 0. Returns
+    the max abs error. These launches are not the path's."""
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    a = [x[rows].contiguous() if i in (1, 2, 3, 4) else x for i, x in enumerate(a)]
+    got = ph.photometric_err_H(*a, partials=True)
+    torch.cuda.synchronize()
+    want = ph.photometric_err_H_plain(*a, partials=True)
+    g, w = got[0].cpu().numpy(), want[0].cpu().numpy()
+    scale = float(np.abs(w[:42]).max())
+    d_ht = float(np.abs(g[:42] - w[:42]).max()) / max(scale, 1e-30)
+    d_num = abs(float(g[42]) - float(w[42])) / max(abs(float(w[42])), 1e-30)
+    if not (d_ht <= 1e-4 and d_num <= 1e-5 and g[43] == w[43]):
+        raise AssertionError(f"photometric_err_H partials {label}: HT {d_ht:.3g} of max, "
+                             f"Σperr rel {d_num:.3g}, n_meas {g[43]} vs {w[43]}")
+    e = max(float(np.abs(g - w).max()), float((got[1] - want[1]).abs().max()))
+    print(f"photometric_err_H partials on {label} ({a[1].shape[0]} cells): HT {d_ht:.3g} of "
+          f"max, Σperr rel {d_num:.3g}, n_meas {g[43]:.0f} equal; max_abs_err={e:.3g}")
+    none = list(a)
+    none[4] = torch.zeros_like(a[4])
+    got = ph.photometric_err_H(*none, partials=True)[0].cpu().numpy()
+    if got[43] != 1.0 or got[:43].any():
+        raise AssertionError(f"photometric_err_H partials with no valid cell: {got[40:]}")
+    return e
+
+
+def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
+    """(k) LIVO over a device mesh, on the first `frames` lidar frames of
+    the LIVO dataset of livo_path_phase at shipped capacities (640x512,
+    grid 40: G = 192 cells; a u8 pool of 256 images and 65536 x 20
+    observation rings):
+      - the single-device prefix on the same pushes (equal to the per-frame
+        path's first frames), its photometric_err_H launches counted;
+      - a world of one on NCCL in this process, with the map replicated
+        and with the map sharded and the visual map in slabs: 0.0000 mm
+        from the prefix, the same photometric_err_H launches, the visual
+        map's MB on the rank and collectives per camera frame;
+      - two ranks sharing the card under gloo: rank 0 within 2 mm of the
+        prefix, photometric_err_H launched in every rank, equal visual-map
+        points replicated and sharded, each rank's visual-map MB;
+      - photometric_err_H's partials against their plain version on the
+        arguments of the sharded world of one's last measurement: all G
+        cells and rank 0's slab of a world of two (G/2), and no valid cell;
+      - `run.main --synthetic --mesh 1 --sharded-map --map-pcd --save-ckpt`
+        with the camera (one spawned NCCL rank): LIVO ATE < 6 cm, and its
+        checkpoint loads into a single-device Pipeline with the whole pool
+        and exactly the PCD's map points (the sharded map's gather).
+    Returns ({path: (ms per lidar frame, launches)}, {path: its other
+    numbers}, photometric_err_H's launches over the mesh runs, the
+    partials' max_abs_err)."""
+    import os
+    import tempfile
+
+    from fastlivo_tpu_torch import run
+    from fastlivo_tpu_torch import vio as vio_mod
+    from fastlivo_tpu_torch.config import Config
+    from fastlivo_tpu_torch.io import checkpoint as ckpt
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+    from fastlivo_tpu_torch.parallel.launch import launch
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    smi = nvidia_smi_line()
+    t_max = ref[frames].t
+    paths, extra, mesh_launches = {}, {}, 0
+    pipe = Pipeline(livo_config(), device=dev)
+    push_all(pipe, ds, t_max=t_max)
+    prefix, want, wall = counted_run(pipe.spin)
+    d = max_diff(prefix, ref[:len(prefix)])
+    n_cam, n_pts = pipe.vio.steps, int(pipe.vio.vmap.n_pts)
+    print(f"livo prefix: {len(prefix)} lidar frames, {n_cam} camera steps, "
+          f"{wall / len(prefix):.2f} ms/frame, {d * 1e3:.4f} mm from the per-frame path, "
+          f"launches {want}, visual map {n_pts} points, {vmap_mb(pipe.vio):.1f} MB")
+    if len(prefix) < frames or d != 0.0 or n_cam < 10 or want["photometric_err_H"] == 0:
+        raise AssertionError(f"livo prefix: {len(prefix)} frames, {d} m, {n_cam} camera "
+                             f"steps, launches {want}")
+    del pipe
+    with world_of_one(dev) as mesh:
+        for sharded in (False, True):
+            name = f"livo mesh 1 nccl {'sharded' if sharded else 'replicated'}"
+            pipe = Pipeline(livo_config(), device=mesh.device, mesh=mesh, sharded_map=sharded)
+            push_all(pipe, ds, t_max=t_max)
+            calls, cam_coll = [], []
+            v = pipe.vio
+            update = v.update
+
+            def counted_update(*a):  # the collectives of the camera frames
+                c0 = mesh.collectives
+                out = update(*a)
+                cam_coll.append(mesh.collectives - c0)
+                return out
+
+            v.update = counted_update
+            c0 = mesh.collectives
+            with spy(vio_mod, "photometric_err_H", calls):
+                outs, launches, wall = counted_run(pipe.spin)
+            v.update = update
+            d = max_diff(outs, prefix)
+            coll = (mesh.collectives - c0 - sum(cam_coll)) / len(outs)
+            cam = sum(cam_coll) / max(v.steps, 1)
+            print(f"{name}: {len(outs)} frames, {v.steps} camera steps, "
+                  f"{wall / len(outs):.2f} ms/frame, {d * 1e3:.4f} mm from the prefix, "
+                  f"launches {launches}, visual map {int(v.vmap.n_pts)} points, "
+                  f"{vmap_mb(v):.1f} MB on the rank, {cam:.2f} collectives per camera "
+                  f"frame ({launches['photometric_err_H'] / max(v.steps, 1):.2f} photometric "
+                  f"iterations), {coll:.2f} per lidar frame; {smi}")
+            if (d != 0.0 or launches["photometric_err_H"] != want["photometric_err_H"]
+                    or int(v.vmap.n_pts) != n_pts):
+                raise AssertionError(f"{name}: {d} m, launches {launches} vs {want}")
+            paths[name] = (wall / len(outs), launches)
+            extra[name] = {"max_diff_to_prefix_mm": d * 1e3, "vmap_mb_per_rank": vmap_mb(v),
+                           "collectives_per_camera_frame": cam,
+                           "collectives_per_lidar_frame": coll, "vmap_points": n_pts}
+            mesh_launches += launches["photometric_err_H"]
+            last = calls[-1]
+            del pipe, v, update
+            torch.cuda.empty_cache()
+    G = last[1].shape[0]
+    err = max(partials_compare(last, slice(0, G), "a world of one's cells"),
+              partials_compare(last, slice(0, G // 2), "rank 0's slab of a world of two"))
+
+    scans = [s for s in ds.lidar_scans_fast() if s[0] < t_max]
+    imu = [s for s in ds.imu_stream() if s[0] < t_max]
+    images = [s for s in ds.images() if s[0] < t_max]
+    t0 = time.perf_counter()
+    res = launch(livo_mesh_rank, 2, (livo_config(), scans, imu, images, "cuda:0"),
+                 backend="gloo", timeout=300, deadline=900)
+    print(f"livo mesh 2 gloo: two ranks on cuda:0 spawned and run in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pts = []
+    for mode, sharded in enumerate((False, True)):
+        name = f"livo mesh 2 gloo {'sharded' if sharded else 'replicated'}"
+        r0 = res[0][mode]
+        k = [r[mode]["photometric_err_H"] for r in res]
+        mb = [r[mode]["vmap_bytes"] / 1e6 for r in res]
+        d = float(np.abs(r0["pos"] - np.array([o.pos for o in prefix[:len(r0["pos"])]])).max())
+        ms = 1e3 * r0["wall_s"] / len(r0["t"])
+        print(f"{name}: {len(r0['t'])} frames, {r0['vio_steps']} camera steps, {ms:.2f} ms/"
+              f"frame, max position difference to the prefix {d * 1e3:.4f} mm, "
+              f"photometric_err_H per rank {k}, visual map {r0['vmap_points']} points, "
+              f"{mb} MB per rank, {r0['collectives'] / len(r0['t']):.1f} collectives per "
+              f"lidar frame (the camera's included); {smi}")
+        if len(r0["t"]) < frames or d > 2e-3 or min(k) == 0:
+            raise AssertionError(f"{name}: {len(r0['t'])} frames, {d} m, launches {k}")
+        pts.append([r[mode]["vmap_points"] for r in res])
+        paths[name] = (ms, {"photometric_err_H": sum(k)})
+        extra[name] = {"max_diff_to_prefix_mm": d * 1e3, "vmap_mb_per_rank": mb,
+                       "photometric_err_H_per_rank": k, "vmap_points": r0["vmap_points"],
+                       "collectives_per_lidar_frame": r0["collectives"] / len(r0["t"])}
+        mesh_launches += sum(k)
+    if pts[0] != pts[1] or len(set(pts[0])) != 1:
+        raise AssertionError(f"visual-map points replicated {pts[0]} vs sharded {pts[1]}")
+
     with tempfile.TemporaryDirectory() as tmp:
-        out, pcd, ck = (os.path.join(tmp, f) for f in ("traj.txt", "map.pcd", "ck.npz"))
+        cfg_yaml, cam_yaml, out, pcd, ck = (os.path.join(tmp, f) for f in (
+            "livo.yaml", "cam.yaml", "traj.txt", "map.pcd", "ck.npz"))
+        cfg = livo_config()
+        cam = cfg.camera
+        with open(cfg_yaml, "w") as f:
+            f.write(f"img_enable: 1\noutlier_threshold: {cfg.outlier_threshold}\n"
+                    f"img_point_cov: {cfg.img_point_cov}\n"
+                    f"camera: {{Rcl: {list(cfg.Rcl)}, Pcl: {list(cfg.Pcl)}}}\n")
+        with open(cam_yaml, "w") as f:
+            f.write(f"cam_width: {cam.width}\ncam_height: {cam.height}\ncam_fx: {cam.fx}\n"
+                    f"cam_fy: {cam.fy}\ncam_cx: {cam.cx}\ncam_cy: {cam.cy}\n")
         t0 = time.perf_counter()
-        rc = run.main(["--synthetic", "--no-img", "--duration", str(duration), "--mesh", "1",
-                       "--sharded-map", "--out", out, "--map-pcd", pcd, "--save-ckpt", ck])
+        rc = run.main(["--config", cfg_yaml, "--camera", cam_yaml, "--synthetic",
+                       "--duration", str(duration), "--mesh", "1", "--sharded-map",
+                       "--out", out, "--map-pcd", pcd, "--save-ckpt", ck])
         wall = time.perf_counter() - t0
         traj = np.loadtxt(out)
-        truth = SyntheticDataset(duration=duration).traj
+        truth = livo_dataset(cfg, duration=duration).traj
         errs = [np.linalg.norm(row[1:4] - (truth.pose(row[0])[1] - truth.base_pos))
                 for row in traj if row[0] >= truth.t_static + 0.5]
         ate = float(np.sqrt(np.mean(np.square(errs))))
         with open(pcd) as f:
             n_pcd = int(next(line for line in f if line.startswith("POINTS")).split()[1])
-        pipe = Pipeline(lio_config(), device=dev)
+        pipe = Pipeline(livo_config(), device=dev)
         pipe.warm_start(*ckpt.load(ck, device=dev))
         n_map = tm.extract_points(pipe.map)[1]
-    print(f"run --mesh 1 --sharded-map: rc {rc}, {len(traj)} poses in {wall:.1f} s (spawn "
-          f"included), ATE {ate * 1e3:.3f} mm, map PCD {n_pcd} points, checkpoint loaded "
-          f"into a single-device Pipeline with {n_map} points; {smi}")
-    if rc != 0 or not ate < 0.02 or n_map != n_pcd or n_pcd == 0:
-        raise AssertionError(f"run --mesh 1: rc {rc}, ATE {ate}, points {n_map} / {n_pcd}")
-    name = "run --mesh 1 --sharded-map (spawn included; launches in the rank)"
+        v = pipe.vio.vmap
+        n_vis, slots = int(v.n_pts), int((v.img_fid >= 0).sum())
+    print(f"run --mesh 1 --sharded-map (LIVO): rc {rc}, {len(traj)} poses in {wall:.1f} s "
+          f"(spawn included), ATE {ate * 1e3:.3f} mm, map PCD {n_pcd} points, checkpoint "
+          f"loaded into a single-device Pipeline: map {n_map} points, visual map {n_vis} "
+          f"points, pool {v.imgs.shape[0]} slots ({slots} filled); {smi}")
+    if (rc != 0 or not ate < 0.06 or n_map != n_pcd or n_pcd == 0
+            or v.imgs.shape[0] != Config().capacity.frame_ring or n_vis == 0 or slots == 0):
+        raise AssertionError(f"run --mesh 1 LIVO: rc {rc}, ATE {ate}, map points "
+                             f"{n_map} / {n_pcd}, {n_vis} visual-map points")
+    name = "run --mesh 1 --sharded-map livo (spawn included; launches in the rank)"
     paths[name] = (1e3 * wall / len(traj), {})
-    extra[name] = {"ate_mm": ate * 1e3, "poses": len(traj), "map_points": n_pcd}
-    return paths, extra, mesh_launches, halo_err
+    extra[name] = {"ate_mm": ate * 1e3, "poses": len(traj), "map_points": n_pcd,
+                   "vmap_points": n_vis}
+    return paths, extra, mesh_launches, err
 
 
 def main() -> int:
@@ -2075,7 +2273,6 @@ def main() -> int:
                                                     livo_launches)
         paths["livo debug + pcd_save_en per-frame"] = (g_ms, g_launches)
         path_extra["livo debug + pcd_save_en per-frame"] = g_nums
-    del livo_outs
     torch.cuda.empty_cache()
     with phase("(h) update_staged"):
         h_ms, h_launches, h_nums = staged_phase(dev, livo_ds)
@@ -2089,6 +2286,13 @@ def main() -> int:
         tiled_err = max(tiled_err, halo_err)
         paths.update(mesh_paths)
         path_extra.update(mesh_extra)
+        torch.cuda.empty_cache()
+    with phase("(k) livo mesh"):
+        k_paths, k_extra, ph_mesh_launches, partials_err = livo_mesh_phase(
+            dev, livo_ds, livo_outs)
+        paths.update(k_paths)
+        path_extra.update(k_extra)
+        del livo_outs
         torch.cuda.empty_cache()
     with phase("photometric kernel"):
         ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
@@ -2135,9 +2339,10 @@ def main() -> int:
         "name": "photometric_err_H", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/photometric_err_H.cu",
         "replaces": "fastlivo_tpu/ops/pallas_image.py:180",
-        "launches": livo_launches["photometric_err_H"], "max_abs_err": ph_err,
+        "launches": livo_launches["photometric_err_H"],
+        "max_abs_err": max(ph_err, partials_err),
         "ms": ph_ms, "plain_ms": ph_plain_ms, "bound_ms": ph_bound_ms,
-        "bound_by": ph_bound_by, "library_ms": None,
+        "bound_by": ph_bound_by, "library_ms": None, "mesh_launches": ph_mesh_launches,
     }, {
         "name": "knn5_plane", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane.cu",

@@ -32,8 +32,10 @@
 // through shared memory 192 rows at a time, with 24 independent loads in
 // flight per thread (a first version whose warps waited on each L2 load
 // in turn took 21 us at G = 192), sums each quantity over the rows in a
-// fixed order, and writes HT (6, 7), err = Σperr / max(Σw·P·P, 1) and
-// n_meas. No float atomics: the result is the same from run to run. The
+// fixed order, and writes HT (6, 7), err = Σperr / max(Σw·P·P, 1),
+// n_meas and Σperr (over a device mesh the ranks sum [HT | Σperr |
+// n_meas] and divide after the sum, vio.photometric_update_levels). No
+// float atomics: the result is the same from run to run. The
 // sampling and the projection round as the plain version (-fmad=false);
 // only the order of the sums over G·P² rows differs from its matmul.
 //
@@ -81,7 +83,7 @@ struct Args {
   const float* dist;  // (4,) k1, k2, p1, p2
   float* partial;     // (G, NP) scratch
   int* ticket;        // one int, 0 between launches
-  float* out;         // HT (42), err, n_meas
+  float* out;         // HT (42), err, n_meas, Σperr
   float* perr;        // (G,)
   int H, W, P, level, patch_stride, robust;
   float k_h, inv_b, inv_rs;
@@ -285,6 +287,7 @@ __global__ void photometric_err_H_kernel(const Args a) {
     const float n_meas = fmaxf(tot[NT] * (float)a.P * (float)a.P, 1.0f);
     a.out[NH] = tot[NH] / n_meas;
     a.out[NH + 1] = n_meas;
+    a.out[NH + 2] = tot[NH];  // Σperr, the numerator a mesh sums
     *a.ticket = 0;
   }
 }
@@ -297,7 +300,7 @@ __global__ void photometric_err_H_kernel(const Args a) {
 // (G,) u8, rot (3, 3) / pos (3,) f64, Rci, Jdphi_dR, Jdp_dR (3, 3) and
 // Pci (3,) f32, the camera's fx, fy, cx, cy (f32 scalars) and dist (4,)
 // f32; scratch partial (G, 44) f32 and ticket (one int, 0); outputs out
-// (44,) f32 = [HT (6, 7) row-major, err, n_meas] and perr (G,) f32. All
+// (45,) f32 = [HT (6, 7) row-major, err, n_meas, Σperr] and perr (G,) f32. All
 // on the device. robust: 0 none, 1 Huber, 2 Tukey. Returns the launch's
 // cudaError_t (0 = cudaSuccess).
 extern "C" int photometric_err_H_launch(

@@ -23,16 +23,21 @@ from .. import convert
 from ..ops.dense_map import DenseMap
 from ..ops.tiled_map import TiledMap
 from ..ops.voxel_map import VoxelMap
-from ..visual_map import VisualMap
+from ..visual_map import VisualMap, gather_slabs
 
 # map_type -> the map's class, as the JAX package names them
 MAP_TYPES = {"voxel": VoxelMap, "dense": DenseMap, "tiled": TiledMap}
 
 
-def to_host(state, m, visual=None, calib=None) -> dict:
+def to_host(state, m, visual=None, calib=None, mesh=None) -> dict:
     """The snapshot as a dict of host numpy arrays in the `.npz` layout
     (a synchronous copy of every array, sharing no memory with the
-    tensors)."""
+    tensors). `mesh`: `visual` is this rank's slabs of the visual map
+    (the sharded pool, visual_map.py), gathered over the mesh first; a
+    collective, which every rank joins at the same point
+    (Pipeline.checkpoint_arrays)."""
+    if mesh is not None and visual is not None:
+        visual = gather_slabs(visual, mesh)
     out = {"map_type": np.array(
         next(k for k, cls in MAP_TYPES.items() if isinstance(m, cls)))}
     for prefix, nt in (("state", state), ("map", m), ("vmap", visual),

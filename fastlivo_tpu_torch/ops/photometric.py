@@ -13,10 +13,17 @@ reduction in one launch. On a CPU tensor it runs
 `photometric_err_H_plain`, the same arithmetic in torch ops, which is
 also the kernel's oracle on the card.
 
-Contract on the card: HT within rtol 1e-4 of max|HT| and err, perr
-within rtol 1e-5 of the plain version (the sums over the G·P² rows are
-taken in another order than its matmul; the projection and the sampling
-round as there); nothing tracked gives exactly err = 0 and HT = 0.
+`partials=True` returns the measurement as a device mesh sums it (the
+JAX package's psums, vio.py:650-654): [HT (42) | Σperr | n_meas], with
+this call's n_meas clamped to at least 1, so that a rank with nothing
+tracked still adds 1 to the denominator; the mean error is formed after
+the sum.
+
+Contract on the card: HT within rtol 1e-4 of max|HT| and err, perr,
+Σperr within rtol 1e-5 of the plain version (the sums over the G·P² rows
+are taken in another order than its matmul; the projection and the
+sampling round as there); n_meas equal; nothing tracked gives exactly
+err = 0, Σperr = 0, HT = 0 and n_meas = 1.
 """
 from __future__ import annotations
 
@@ -51,11 +58,13 @@ def _rows_times(p: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
 def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
                             Rci, Pci, Jdphi_dR, Jdp_dR, cam, level: int, P: int,
-                            robust: str = "none", robust_scale: float = 10.0):
+                            robust: str = "none", robust_scale: float = 10.0,
+                            partials: bool = False):
     """The measurement at the pose (rot (3, 3), pos (3,), f64) for
     pyramid `level`: tr_pos (G, 3), tr_patch_l (G, P, P) the level's
     reference patches, tr_slevel (G,) int32, tr_valid (G,) bool. Returns
-    (err (), HTH6 (6, 6), HTz (6,), perr (G,)), all of img's dtype."""
+    (err (), HTH6 (6, 6), HTz (6,), perr (G,)), all of img's dtype; with
+    `partials`, ([HT (42) | Σperr | n_meas] (44,), perr (G,))."""
     if robust not in ROBUST:
         raise ValueError(f"robust={robust!r}")
     dtype = img.dtype
@@ -104,6 +113,8 @@ def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, p
     hw = (h * wr).reshape(-1, 6)
     rhs = torch.cat([h.reshape(-1, 6), res.reshape(-1, 1)], dim=1)
     HT = hw.T @ rhs  # (6, 7)
+    if partials:
+        return torch.cat([HT.reshape(42), torch.sum(perr)[None], n_meas[None]]), perr
     return err, HT[:, 0:6], HT[:, 6], perr
 
 
@@ -163,14 +174,16 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
 
 def photometric_err_H(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
                       Rci, Pci, Jdphi_dR, Jdp_dR, cam, level: int, P: int,
-                      robust: str = "none", robust_scale: float = 10.0):
-    """`photometric_err_H_plain`'s signature and outputs. A CUDA tensor launches the fused kernel on the current
-    stream (counted in `photometric_err_H.launches`); a CPU tensor runs
-    the plain version. No other device is taken and nothing falls back."""
+                      robust: str = "none", robust_scale: float = 10.0,
+                      partials: bool = False):
+    """`photometric_err_H_plain`'s signature and outputs. A CUDA tensor
+    launches the fused kernel on the current stream (counted in
+    `photometric_err_H.launches`); a CPU tensor runs the plain version.
+    No other device is taken and nothing falls back."""
     if img.device.type == "cpu":
         return photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid,
                                        rot, pos, Rci, Pci, Jdphi_dR, Jdp_dR, cam,
-                                       level, P, robust, robust_scale)
+                                       level, P, robust, robust_scale, partials)
     if img.device.type != "cuda":
         raise ValueError(f"photometric_err_H: unsupported device {img.device}")
     if robust not in ROBUST:
@@ -180,8 +193,13 @@ def photometric_err_H(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
            Jdphi_dR, Jdp_dR, cam, level, P)
     G, (H, W) = tr_pos.shape[0], img.shape
     dev = img.device
-    # [HT (6, 7), err, n_meas]; nothing to reduce leaves err = 0, HT = 0
-    out = (torch.zeros if G == 0 else torch.empty)(44, dtype=torch.float32, device=dev)
+    # [HT (6, 7), err, n_meas, Σperr]; nothing to reduce leaves
+    # err = Σperr = 0, HT = 0 and n_meas = 1
+    if G == 0:
+        out = torch.zeros(45, dtype=torch.float32, device=dev)
+        out[43] = 1.0
+    else:
+        out = torch.empty(45, dtype=torch.float32, device=dev)
     perr = torch.empty(G, dtype=torch.float32, device=dev)
     if G > 0:
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -197,6 +215,8 @@ def photometric_err_H(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
             raise RuntimeError(
                 f"photometric_err_H: kernel launch failed (cudaError {err})")
         photometric_err_H.launches += 1
+    if partials:
+        return torch.cat([out[:42], out[44:45], out[43:44]]), perr
     HT = out[:42].view(6, 7)
     return out[42], HT[:, 0:6], HT[:, 6], perr
 

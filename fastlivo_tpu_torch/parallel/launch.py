@@ -122,14 +122,17 @@ def rank_device(device):
 
 
 def replay_rank(rank: int, n: int, cfg, scans, imu, device=None,
-                sharded_map: bool = False) -> dict:
+                sharded_map: bool = False, images=()) -> dict:
     """A rank program for `launch`: this rank's Pipeline over the mesh
-    (`make_mesh(n, device)`), fed `scans` [(beg, pts, t_rel)] and `imu`
-    [(t, acc, gyr)], all at once. Returns, as numpy: the frames' stamps,
-    positions, quaternions, active counts and iterations; the wall seconds
-    of the run; this rank's `knn5_plane_tiled` launches and collectives
-    during it; its map's bytes and pool tiles."""
-    from ..ops import knn_plane
+    (`make_mesh(n, device)`), fed `scans` [(beg, pts, t_rel)], `imu`
+    [(t, acc, gyr)] and, with the camera on, `images` [(t, img)], all at
+    once. Returns, as numpy: the frames' stamps, positions, quaternions,
+    active counts and iterations; the wall seconds of the run; this
+    rank's `knn5_plane_tiled` and `photometric_err_H` launches and
+    collectives during it; its map's bytes and pool tiles; with the
+    camera, the camera frames that ran the frame step, the visual map's
+    points and this rank's bytes of it."""
+    from ..ops import knn_plane, photometric
     from ..pipeline import Pipeline
     from .sharded import make_mesh
 
@@ -139,20 +142,29 @@ def replay_rank(rank: int, n: int, cfg, scans, imu, device=None,
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
+    for t, img in images:
+        pipe.push_img(t, img)
     sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
     sync()
-    k0, c0 = knn_plane.knn5_plane_tiled.launches, mesh.collectives
+    k0, p0, c0 = (knn_plane.knn5_plane_tiled.launches, photometric.photometric_err_H.launches,
+                  mesh.collectives)
     t0 = time.perf_counter()
     outs = pipe.spin() + pipe.finish()
     sync()
     wall = time.perf_counter() - t0
-    return dict(
+    out = dict(
         t=np.array([o.t for o in outs]), pos=np.array([o.pos for o in outs]),
         quat=np.array([o.quat for o in outs]),
         n_active=np.array([o.n_active for o in outs]),
         iters=np.array([o.iters for o in outs]), wall_s=wall,
         knn5_plane_tiled=knn_plane.knn5_plane_tiled.launches - k0,
+        photometric_err_H=photometric.photometric_err_H.launches - p0,
         collectives=mesh.collectives - c0,
         map_bytes=sum(t.numel() * t.element_size() for t in pipe.map),
         pool_tiles=pipe.map.slot_key.shape[0],
         n_dropped=int(pipe.map.n_dropped))
+    if pipe.vio is not None:
+        vm = pipe.vio.vmap
+        out.update(vio_steps=pipe.vio.steps, vmap_points=int(vm.n_pts),
+                   vmap_bytes=sum(t.numel() * t.element_size() for t in vm))
+    return out

@@ -1,9 +1,12 @@
-"""The per-frame LiDAR step over a device mesh (`Pipeline(mesh=...)`,
-`--mesh N` on the CLIs).
+"""The per-frame steps over a device mesh (`Pipeline(mesh=...)`, `--mesh N`
+on the CLIs).
 
 Port of the JAX package's parallel/product.py: `MeshRunner.lidar_frame_step`
-has the call and the returns of `frame_step.lidar_frame_step`. Every rank
-runs it on the same replicated inputs (SPMD, see sharded.py):
+has the call and the returns of `frame_step.lidar_frame_step`, and
+`MeshRunner.vio_frame_step` those of `vio.vio_frame_step`. Every rank
+runs them on the same replicated inputs (SPMD, see sharded.py).
+
+The LiDAR frame:
 
   - the raw scan's rows are split over the ranks; each undistorts its
     rows and the mesh all-gathers the scan (rank order = row order);
@@ -18,10 +21,19 @@ runs it on the same replicated inputs (SPMD, see sharded.py):
     (sharded_map.exchange_snapshot) and each rank inserts the tiles it
     owns into its shard.
 
+The camera frame (`vio.vio_frame_step(mesh=...)`): the candidate rows of
+the tracked-point search, the grid cells of its gates and warps, the
+new-point scoring rows and the photometric EKF's rows split over the
+ranks, combined by min / max all-reduces and a rank-order sum of the
+photometric partials; the tracked cells are gathered back for the map
+updates. With `sharded_map` the image pool and the observation rings
+are held in per-rank slabs (visual_map.py), read from their owners and
+written by their owners; everything else stays replicated.
+
 Numerical contract against one device: every per-row value is the same;
-only the grouping of the f32 [HᵀH | Hᵀz] row sums differs (rank partials
-summed in rank order). A mesh of one is the single-device step bit for
-bit. `vio_frame_step` (the camera frame over a mesh) is the next slice.
+only the grouping of the f32 [HᵀH | Hᵀz] (and the photometric [HᵀH |
+Hᵀz | Σperr]) row sums differs (rank partials summed in rank order). A
+mesh of one is the single-device step bit for bit.
 """
 from __future__ import annotations
 
@@ -30,16 +42,12 @@ from torch.profiler import record_function
 
 from .. import imu as imu_mod
 from .. import lio as lio_mod
+from .. import vio as vio_mod
 from ..frame_step import frame_outputs
 from ..ops import tiled_map as tm
 from ..ops import voxel_filter as vf
 from . import sharded_map as sm
 from .sharded import Mesh
-
-VIO_MESH_SLICE = ("the camera frame over a mesh (MeshRunner.vio_frame_step, "
-                  "Vio(mesh_runner=)) is not ported yet: it is the VIO-mesh slice, "
-                  "the last of the port")
-
 
 class MeshRunner:
     """The mesh frame steps for one rank. `check_capacity` refuses padded
@@ -138,5 +146,16 @@ class MeshRunner:
         return (res.state, m2, down, dmask, res.n_active, res.iters,
                 dense_world, active, stats)
 
-    def vio_frame_step(self, *args, **kwargs):
-        raise NotImplementedError(VIO_MESH_SLICE)
+    def vio_frame_step(self, vm, cam, state, prior, gray, meta, cloud, Rci, Pci,
+                       Jdphi_dR, Jdp_dR, outlier_threshold, ncc_thre, img_point_cov, *,
+                       grid_size, patch_size, gw, gh, ncc_en, max_iter, max_pg,
+                       robust="none"):
+        """`vio.vio_frame_step` over the mesh: the same returns, the same
+        on every rank but for the visual map's slabs under `sharded_map`
+        (`vm` is then this rank's slabs of the image pool and the
+        observation rings)."""
+        return vio_mod.vio_frame_step(
+            vm, cam, state, prior, gray, meta, cloud, Rci, Pci, Jdphi_dR, Jdp_dR,
+            outlier_threshold, ncc_thre, img_point_cov, grid_size=grid_size,
+            patch_size=patch_size, gw=gw, gh=gh, ncc_en=ncc_en, max_iter=max_iter,
+            max_pg=max_pg, robust=robust, mesh=self.mesh, pool_sharded=self.sharded_map)

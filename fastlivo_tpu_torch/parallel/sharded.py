@@ -1,5 +1,5 @@
-"""Residual rows over a device mesh: the mesh, its collectives, and the
-sharded LIO update and scan step.
+"""Residual rows over a device mesh: the mesh, its collectives, the
+sharded LIO update and scan step, and the sharded photometric update.
 
 Port of the JAX package's parallel/sharded.py. JAX's `shard_map` is one
 process driving N devices; here the mesh is SPMD over processes, one rank
@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from .. import imu as imu_mod
 from .. import lio as lio_mod
+from .. import vio as vio_mod
 from ..device import resolve_device
 from ..state import NavState
 
@@ -65,6 +66,16 @@ class Mesh:
             raise ValueError(f"{n} rows are not divisible by the mesh size {self.size}")
         k = n // self.size
         return slice(self.rank * k, (self.rank + 1) * k)
+
+    def slab(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of `t` zero-padded to a multiple of the mesh
+        size: rows [rank·L, (rank+1)·L), L = ceil(rows / size), as the JAX
+        package pads a batch before its dynamic slice."""
+        L = -(-t.shape[0] // self.size)
+        pad = L * self.size - t.shape[0]
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+        return t[self.rank * L:(self.rank + 1) * L]
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
@@ -207,3 +218,35 @@ def sharded_scan_step(
     wmask = mesh.all_gather(pmask[rows])
     m2 = lio_mod.map_module(m).insert(m, world, wmask, max_probe)
     return res.state, m2, res.n_active, acc_l, ang_l
+
+
+def sharded_photometric_update(
+    mesh: Mesh,
+    state: NavState,
+    prior: NavState,
+    cam,
+    img: torch.Tensor,
+    tr_pos: torch.Tensor,  # (G, 3), replicated; each rank takes its cell slab
+    tr_patch: torch.Tensor,  # (G, 3, P, P)
+    tr_slevel: torch.Tensor,  # (G,)
+    tr_valid: torch.Tensor,  # (G,)
+    Rci, Pci, Jdphi_dR, Jdp_dR,
+    img_point_cov: float,
+    patch_size: int,
+    level: int,
+    max_iter: int,
+    robust: str = "none",
+):
+    """`vio.photometric_update` with this rank's slab of the tracked set
+    (zero-padded to a multiple of the mesh size), the image and the
+    state replicated; the partials are summed in rank order each
+    iteration, so the ranks iterate in lockstep. Returns the same tuple
+    on every rank: (state, G (18, 6), per-point errors all-gathered to
+    the whole (G,) set, mean error, iterations); JAX returns the errors
+    row-sharded."""
+    st, Gmat, perr, err, its = vio_mod.photometric_update(
+        state, prior, cam, img, mesh.slab(tr_pos), mesh.slab(tr_patch),
+        mesh.slab(tr_slevel), mesh.slab(tr_valid), Rci, Pci, Jdphi_dR, Jdp_dR,
+        img_point_cov, patch_size, level=level, max_iter=max_iter, robust=robust,
+        mesh=mesh)
+    return st, Gmat, mesh.all_gather(perr)[:tr_pos.shape[0]], err, its

@@ -30,9 +30,11 @@ Readback modes (outputs bit-identical to the synchronous path, later):
   - `enable_block_read(E)` / replay.LivoBlockReplayer: the rows of E
     events are stacked on the device and read in one copy per block.
 `log_dir` writes the reference's Log/ traces (logging_util.TraceLogger);
-`mesh` (parallel.sharded.Mesh) runs the steady frame over a device mesh,
-one Pipeline per rank on the same stream (parallel/product.MeshRunner),
-with the map replicated or, with `sharded_map`, block-sharded;
+`mesh` (parallel.sharded.Mesh) runs the steady frame and the camera frame
+over a device mesh, one Pipeline per rank on the same stream
+(parallel/product.MeshRunner), with the map replicated or, with
+`sharded_map`, block-sharded and the visual map's image pool and
+observation rings in per-rank slabs;
 `warm_start` restores an io/checkpoint snapshot. `profile_every` N > 0
 runs the four stages of every N-th steady frame once more, each on its
 own, and records their times in `last_stage_profile` (ms).
@@ -61,6 +63,7 @@ from . import visual_map as vmap_mod
 from .config import Config
 from .device import resolve_device
 from .frame_step import lidar_frame_step, stage_scan
+from .io import checkpoint as ckpt_mod
 from .logging_util import TraceLogger, rot_to_quat_wxyz
 from .ops import dense_map as dm
 from .ops import tiled_map as tmod
@@ -107,8 +110,10 @@ class Pipeline:
         Positions match the single-device path to f32-reduction epsilon.
         `sharded_map` (needs a mesh and the tiled backend): block-shard
         the map over the mesh, each rank's pool holding ~tiled_pool/N
-        tiles (parallel/sharded_backend.py). The camera under a mesh is
-        not ported yet."""
+        tiles (parallel/sharded_backend.py), and the camera frame's image
+        pool and observation rings in per-rank slabs (vio.Vio). Under a
+        mesh rank 0 alone draws the debug overlay, paints `rgb_cloud`
+        and writes the traces."""
         cap = cfg.capacity
         lio_mod.check_supported(cap.map_backend, cap.plane_fit)
         if sharded_map:
@@ -118,11 +123,10 @@ class Pipeline:
                 raise ValueError("sharded_map requires the tiled map backend "
                                  f"(map_backend={cap.map_backend!r})")
         self.mesh_runner = None
+        self.lead = mesh is None or mesh.rank == 0
         if mesh is not None:
-            from .parallel.product import VIO_MESH_SLICE, MeshRunner
+            from .parallel.product import MeshRunner
 
-            if cfg.img_enable:
-                raise ValueError(f"img_enable with a mesh: {VIO_MESH_SLICE}")
             if device is not None and resolve_device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
             device = mesh.device
@@ -144,7 +148,8 @@ class Pipeline:
         self.rgb_cloud: List[np.ndarray] = []  # accumulated (x, y, z, r, g, b) rows
         self.sync = Synchronizer(img_enable=cfg.img_enable)
         # the camera frame's state (visual map, image pool), on `device`
-        self.vio: Optional[Vio] = Vio(cfg, device=dev) if cfg.img_enable else None
+        self.vio: Optional[Vio] = (Vio(cfg, device=dev, mesh_runner=self.mesh_runner)
+                                   if cfg.img_enable else None)
         self.ready = False  # a lidar-end frame has run (image gate)
         self.initializer = imu_mod.ImuInitializer()
         self.init_done = False
@@ -344,6 +349,22 @@ class Pipeline:
             self.calib = to_dev(calib)
             self.init_done = True
         return self
+
+    def checkpoint_arrays(self) -> Optional[dict]:
+        """io/checkpoint.to_host of the estimator (state, map, visual map,
+        calib). Under a mesh it is a collective that every rank calls at
+        the same point: a sharded map's points and the visual map's slabs
+        are gathered; rank 0 returns the arrays, the others None."""
+        vmap = None if self.vio is None else self.vio.vmap
+        mesh = self.vio.slab_mesh if self.vio is not None else None
+        if self.lead:
+            return ckpt_mod.to_host(self.state, self.checkpointable_map(), vmap,
+                                    self.calib, mesh=mesh)
+        if self._sharded:
+            self._map_mod.extract_points(self.map)
+        if mesh is not None:
+            vmap_mod.gather_slabs(vmap, mesh)
+        return None
 
     def checkpointable_map(self):
         """The map as io/checkpoint.save takes it. A sharded map merges
@@ -738,7 +759,8 @@ class Pipeline:
                 rcw = self.vio.Rci.cpu().numpy() @ rot_np.T
                 pcw = -rcw @ pos_np + self.vio.Pci.cpu().numpy()
             self.logger.log_camera_pose(scan.beg_time, rcw, pcw)
-        if self.cfg.pcd_save_en and self.vio is not None and out.pts_world is not None:
+        if (self.cfg.pcd_save_en and self.vio is not None and out.pts_world is not None
+                and self.lead):
             # the accumulated RGB world cloud (pcl_wait_save,
             # laserMapping.cpp:726-746, 778): the frame's cloud painted from
             # the latest image, in-frame points only
@@ -893,7 +915,7 @@ class Pipeline:
                 self.vio.vmap = vmap_mod.compact(
                     vmap, self.state.pos.to(torch.float32),
                     torch.tensor(self.cfg.cube_side_length, dtype=torch.float32,
-                                 device=self.device))
+                                 device=self.device), mesh=self.vio.slab_mesh)
                 self.vio._n_pts_host = None
 
     def _pad_scan_np(self, pts_np, t_rel_np, N):

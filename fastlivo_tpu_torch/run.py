@@ -22,12 +22,14 @@ frames; needs matplotlib), and prints per-stage timing (with
 `debug` in the config, reads stay synchronous. Without `--config` (or
 `--launch`) the built-in `Config()` defaults are used.
 
-`--mesh N` runs LIO over N ranks, one spawned process each
+`--mesh N` runs LIO or LIVO over N ranks, one spawned process each
 (parallel/launch.py): NCCL with one card per rank, or gloo with
-`--device cpu`. Every rank replays the same stream; the scan's rows are
-split over the ranks and the EKF's reductions cross the mesh
-(parallel/product.py). `--sharded-map` also block-shards the map over
-the ranks. Rank 0 writes every output file and prints the summary.
+`--device cpu`. Every rank replays the same stream; the scan's rows and
+the camera frame's candidate, cell and photometric rows are split over
+the ranks and the EKFs' reductions cross the mesh (parallel/product.py).
+`--sharded-map` also block-shards the map and holds the camera's image
+pool and observation rings in per-rank slabs. Rank 0 writes every output
+file and prints the summary.
 """
 from __future__ import annotations
 
@@ -273,10 +275,10 @@ def main(argv=None):
                     "(by default offline replay defers the read one frame; "
                     "the outputs are the same)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="run LIO over N ranks, one process each (NCCL, one card "
-                    "per rank; gloo with --device cpu; 0 = one device). The "
-                    "scan's rows are split over the ranks; positions match one "
-                    "device to f32-reduction epsilon")
+                    help="run LIO or LIVO over N ranks, one process each (NCCL, "
+                    "one card per rank; gloo with --device cpu; 0 = one device). "
+                    "The scan's and the camera frame's rows are split over the "
+                    "ranks; positions match one device to f32-reduction epsilon")
     ap.add_argument("--sharded-map", action="store_true",
                     help="with --mesh N: block-shard the map over the ranks "
                     "(ownership-striped tile slabs, per-rank pool tiled_pool/N); "
@@ -319,10 +321,7 @@ def main(argv=None):
                  "the map from the stream)")
     if args.mesh:
         from .parallel.launch import launch, mesh_backend
-        from .parallel.product import VIO_MESH_SLICE
 
-        if cfg.img_enable:
-            ap.error(f"--mesh with the camera: {VIO_MESH_SLICE}; pass --no-img")
         return launch(_run_rank, args.mesh, (args, cfg),
                       backend=mesh_backend(args.device, args.mesh))[0]
     return _run(args, cfg)
@@ -371,11 +370,8 @@ def _run(args, cfg, mesh=None) -> int:
 
     if args.map_pcd:
         pts_live, n_live = pipe._map_mod.extract_points(pipe.map)
-    ckpt_map = None
-    if args.save_ckpt and lead:
-        ckpt_map = pipe.checkpointable_map()
-    elif args.save_ckpt and pipe._sharded:  # join the shard gather of rank 0's checkpoint
-        pipe._map_mod.extract_points(pipe.map)
+    # a collective under a mesh: every rank joins, rank 0 gets the arrays
+    ckpt_arrays = pipe.checkpoint_arrays() if args.save_ckpt else None
     if not lead:
         return 0
     traj = pipe.tum_trajectory()
@@ -422,9 +418,7 @@ def _run(args, cfg, mesh=None) -> int:
     if args.save_ckpt:
         from .io import checkpoint as ckpt_mod
 
-        ckpt_mod.save(args.save_ckpt, pipe.state, ckpt_map,
-                      pipe.vio.vmap if pipe.vio is not None else None,
-                      calib=pipe.calib)
+        ckpt_mod.write(args.save_ckpt, ckpt_arrays)
         print(f"checkpoint: {args.save_ckpt}")
     if pipe.last_stage_profile:
         print("stage profile (ms): " + " ".join(

@@ -26,11 +26,12 @@ and {"flushed": true} to the client that sent a FLUSH.
 Estimation runs on the per-connection reader threads, serialized by one
 lock; the kernels launch on the calling thread's current CUDA stream.
 
-`--mesh N` (LIO) runs N ranks, one process each (parallel/launch.py).
-Rank 0 owns the socket and the Server; before its Pipeline takes a
-message it broadcasts the message to the other ranks, whose Pipelines
-take the same sequence (`follow`). Autosaves and the shutdown travel in
-the same stream, so a sharded map's gather for a checkpoint runs at the
+`--mesh N` (LIO or LIVO) runs N ranks, one process each
+(parallel/launch.py). Rank 0 owns the socket and the Server; before its
+Pipeline takes a message (images included) it broadcasts the message to
+the other ranks, whose Pipelines take the same sequence (`follow`).
+Autosaves and the shutdown travel in the same stream, so the gathers of
+a checkpoint (a sharded map's points, the visual map's slabs) run at the
 same point on every rank. Only rank 0 answers clients.
 """
 from __future__ import annotations
@@ -202,8 +203,7 @@ def follow(pipe: Pipeline, stream: RankStream) -> None:
         if kind == SHUTDOWN:
             return
         if kind == SNAPSHOT:
-            if pipe._sharded:  # join the shard gather of rank 0's checkpoint
-                pipe._map_mod.extract_points(pipe.map)
+            pipe.checkpoint_arrays()  # join the gathers of rank 0's checkpoint
         elif kind != NOOP:
             apply_message(pipe, kind, payload)
 
@@ -375,9 +375,7 @@ class Server:
             return  # nothing worth a snapshot yet
         if self.stream is not None:
             self.stream.send(SNAPSHOT)
-        arrays = ckpt_mod.to_host(
-            pipe.state, pipe.checkpointable_map(),
-            pipe.vio.vmap if pipe.vio is not None else None, pipe.calib)
+        arrays = pipe.checkpoint_arrays()
         self._frames_since_save = 0
         if self._saver is None:
             from concurrent.futures import ThreadPoolExecutor
@@ -430,9 +428,9 @@ def main(argv=None):
     ap.add_argument("--autosave-every", type=int, default=600, metavar="N",
                     help="frames between autosaves (default 600 ~ 60 s at 10 Hz)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="LIO over N ranks, one process each (NCCL, one card per "
-                    "rank; gloo with --device cpu; 0 = one device); rank 0 owns "
-                    "the socket")
+                    help="LIO or LIVO over N ranks, one process each (NCCL, one "
+                    "card per rank; gloo with --device cpu; 0 = one device); rank "
+                    "0 owns the socket")
     ap.add_argument("--sharded-map", action="store_true",
                     help="with --mesh N: block-shard the map over the ranks "
                     "(per-rank pool tiled_pool/N; per-scan halo snapshot search)")
@@ -459,10 +457,7 @@ def main(argv=None):
                  "checkpoint (rebuild from the stream)")
     if args.mesh:
         from .parallel.launch import launch, mesh_backend
-        from .parallel.product import VIO_MESH_SLICE
 
-        if cfg.img_enable:
-            ap.error(f"--mesh with the camera: {VIO_MESH_SLICE}")
         return launch(_serve_rank, args.mesh, (args, cfg),
                       backend=mesh_backend(args.device, args.mesh))[0]
     return _serve(args, cfg)

@@ -39,8 +39,15 @@ under `cfg.debug` it is always read at once, and the frame's tracked
 points are drawn on it (`render_overlay`, `Vio.last_overlay`).
 `Vio.update_staged` runs the same frame one stage at a time (the JAX
 package's unfused reference path), and `Vio.colorize` paints world points
-from the last camera image (the RGB map cloud). Not ported yet: the
-mesh/sharded forms.
+from the last camera image (the RGB map cloud).
+
+Over a device mesh (`mesh`, parallel.sharded.Mesh; the JAX package's
+`axis_name`), every input replicated, the row-heavy stages split their
+rows over the ranks and combine with min / max all-reduces (exact) and a
+rank-order sum of the photometric partials (`Mesh.psum`), so every rank
+holds the same bits; `pool_sharded` (the JAX package's `vmap_axis` /
+`obs_axis`) keeps the image pool and the observation rings in per-rank
+slabs (visual_map.py). `Vio(mesh_runner=)` runs the frame that way.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ from .device import resolve_device
 from .ops import image as img_ops
 from .ops import linalg as linalg_ops
 from .ops import so3
-from .ops.photometric import _recip32, photometric_err_H
+from .ops.photometric import _recip32, _rows_times, photometric_err_H
 from .ops.voxel_filter import voxel_downsample_device
 from .readback import DeferredRead
 from .state import DIM_STATE, NavState
@@ -90,11 +97,15 @@ def _const(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.tensor(v, dtype=dtype or like.dtype, device=like.device)
 
 
-def _pack_min(value_bits: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+def _pack_min(value_bits: torch.Tensor, row: torch.Tensor,
+              cap: int | None = None) -> torch.Tensor:
     """Pack (non-negative f32 bits, row) into int64 for a scatter-min
-    argmin; the row takes the low 20 bits."""
-    if row.shape[-1] >= (1 << 20):
-        raise ValueError(f"_pack_min: {row.shape[-1]} rows exceed the 20-bit row field")
+    argmin; the row takes the low 20 bits. `cap`: the row ids' range when
+    `row` holds global ids of a batch split over a mesh (its local length
+    understates them); else the row count."""
+    cap = row.shape[-1] if cap is None else cap
+    if cap >= (1 << 20):
+        raise ValueError(f"_pack_min: {cap} rows exceed the 20-bit row field")
     return (value_bits.to(I64) << 20) | row.to(I64)
 
 
@@ -167,8 +178,27 @@ def select_tracked(
     gw: int,
     gh: int,
     ncc_en: bool = False,
+    mesh=None,
+    pool_sharded: bool = False,
 ) -> TrackedSet:
-    """addFromSparseMap (lidar_selection.cpp:346-587), see the module doc."""
+    """addFromSparseMap (lidar_selection.cpp:346-587), see the module doc.
+
+    `mesh` (parallel.sharded.Mesh; every input replicated): each rank
+    scores its rows of the NC candidate rows (zero-padded to a multiple
+    of the mesh size), keyed by their global row, and the per-cell
+    winners combine with an all-reduce min (packed keys) and max
+    (`cell_value`); the winners' geometry is derived again from the
+    replicated map with the same per-row operations, so it equals the
+    single-device rows bit for bit. Phases 3-5 then run on this rank's
+    slab of ceil(G/n) cells, which is what the returned TrackedSet holds
+    (`cell_value` stays whole). `pool_sharded`: the image pool and the
+    observation rings are this rank's slabs (visual_map's slab layout);
+    phases 3-5 run on all G cells, the reference observations are
+    gathered from their owners, each rank warps the patches of the
+    images it holds and the mesh sums them (one owner per patch), and
+    the slab is cut at the end: the same output."""
+    if pool_sharded and mesh is None:
+        raise ValueError("pool_sharded (the sharded visual map) requires a mesh")
     H, W = img.shape
     dev = img.device
     G = gw * gh
@@ -195,28 +225,49 @@ def select_tracked(
     cidx = cidx.reshape(-1)
     cmask = cmask.reshape(-1)
     NC = cidx.shape[0]
-    safe = torch.clamp(cidx, 0, vm.pos.shape[0] - 1).long()
+    rows = torch.arange(NC, device=dev)
+    if mesh is None:
+        cidx_l, cmask_l, rows_l, NCp = cidx, cmask, rows, NC
+    else:  # this rank's rows of the padded batch, keyed by global row
+        cidx_l, cmask_l, rows_l = mesh.slab(cidx), mesh.slab(cmask), mesh.slab(rows)
+        NCp = cidx_l.shape[0] * mesh.size
+    NP = vm.pos.shape[0]
+    safe = torch.clamp(cidx_l, 0, NP - 1).long()
     cpos = vm.pos[safe]
     cvalue = vm.value[safe]
-    c_cam = cpos @ rcw.T + pcw
+    c_cam = _rows_times(cpos, rcw) + pcw
     front = c_cam[:, 2] > 0
     pc = cam_mod.world2cam(cam, c_cam)
-    ok = cmask & front & cam_mod.is_in_frame(cam, pc, border)
+    ok = cmask_l & front & cam_mod.is_in_frame(cam, pc, border)
     cell = _cells(pc, grid_size, gh, G)
     dist = torch.linalg.norm(campos[None, :] - cpos, dim=-1)
-    key = _pack_min(_f32_bits(dist), torch.arange(NC, device=dev))
+    key = _pack_min(_f32_bits(dist), rows_l, cap=NCp)
     key = torch.where(ok, key, INT64_MAX)
     cell_min = _scatter_min(G, cell, ok, key)
     # best map-point value per cell (map_value, :460-463)
     cell_value = torch.zeros(G + 1, dtype=img.dtype, device=dev).scatter_reduce_(
         0, torch.where(ok, cell, G).long(), torch.where(ok, cvalue, 0.0),
         "amax")[:G]
+    if mesh is not None:
+        cell_min = mesh.all_reduce(cell_min, "min")
+        cell_value = mesh.all_reduce(cell_value, "max")
     has_map = cell_min < INT64_MAX
     wsafe = torch.clamp(_winner_rows(cell_min), 0, NC - 1).long()
     widx = cidx[wsafe]
-    wpos = cpos[wsafe]
-    wcam = c_cam[wsafe]
-    wpc = pc[wsafe]
+    if mesh is None:
+        wpos = cpos[wsafe]
+        wcam = c_cam[wsafe]
+        wpc = pc[wsafe]
+    else:
+        # the winner's row is global: its geometry again from the map,
+        # with phase 2's per-row operations
+        wpos = vm.pos[torch.clamp(widx, 0, NP - 1).long()]
+        wcam = _rows_times(wpos, rcw) + pcw
+        wpc = cam_mod.world2cam(cam, wcam)
+        if not pool_sharded:  # phases 3-5 on this rank's cell slab
+            has_map, widx, wpos, wcam, wpc = (
+                mesh.slab(a) for a in (has_map, widx, wpos, wcam, wpc))
+    K = widx.shape[0]
 
     # --- phase 3: depth-continuity gate (:489-510) ------------------------
     offs = torch.arange(-half, half + 1, dtype=I32, device=dev)
@@ -224,15 +275,15 @@ def select_tracked(
     c0 = wpc[:, 0].to(I32)
     rr = torch.clamp(r0[:, None, None] + offs[None, :, None], 0, H - 1).long()
     cc = torch.clamp(c0[:, None, None] + offs[None, None, :], 0, W - 1).long()
-    dwin = depth[rr, cc]  # (G, 2h+1, 2h+1)
+    dwin = depth[rr, cc]  # (K, 2h+1, 2h+1)
     center = torch.zeros((2 * half + 1, 2 * half + 1), dtype=torch.bool, device=dev)
     center[half, half] = True
     broke = ((dwin != 0.0) & ~center[None]
              & (torch.abs(wcam[:, 2:3, None] - dwin) > DEPTH_CONT_GATE))
-    depth_ok = ~torch.any(broke.reshape(G, -1), dim=1)
+    depth_ok = ~torch.any(broke.reshape(K, -1), dim=1)
 
     # --- phase 4: reference observation + warp (:518-555) ----------------
-    ref = vmap_mod.close_view_obs(vm, widx, campos)
+    ref = vmap_mod.close_view_obs(vm, widx, campos, mesh if pool_sharded else None)
     t_ok = has_map & depth_ok & ref["ok"]
     depth_ref = torch.linalg.norm(ref["campos"] - wpos, dim=-1)
     # bearing from the stored pixel (Feature::f = cam2world(px))
@@ -256,7 +307,7 @@ def select_tracked(
     px_du = proj(xyz_du)
     px_dv = proj(xyz_dv)
     A = torch.stack([(px_du - px_cur) / half, (px_dv - px_cur) / half],
-                    dim=-1)  # (G, 2, 2) columns
+                    dim=-1)  # (K, 2, 2) columns
     detA = A[:, 0, 0] * A[:, 1, 1] - A[:, 0, 1] * A[:, 1, 0]
     search_level = (detA > 3.0).to(I32) + (detA > 12.0).to(I32)
     inv_det = 1.0 / torch.where(torch.abs(detA) < 1e-12,
@@ -265,10 +316,19 @@ def select_tracked(
         torch.stack([A[:, 1, 1], -A[:, 0, 1]], -1),
         torch.stack([-A[:, 1, 0], A[:, 0, 0]], -1),
     ], dim=-2) * inv_det[:, None, None]
+    slot = ref["slot"]
+    if pool_sharded:  # this rank's images only; the others zero
+        Rl = vm.imgs.shape[0]
+        loc = slot - mesh.rank * Rl
+        mine = (loc >= 0) & (loc < Rl)
+        slot = torch.clamp(loc, 0, Rl - 1)
     patches = torch.stack([
-        img_ops.affine_warp_patches(vm.imgs, ref["slot"], A_inv, ref["px"],
+        img_ops.affine_warp_patches(vm.imgs, slot, A_inv, ref["px"],
                                     P, search_level, lvl)
-        for lvl in range(3)], dim=1)  # (G, 3, P, P)
+        for lvl in range(3)], dim=1)  # (K, 3, P, P)
+    if pool_sharded:  # one owner per patch: the sum is exact
+        keep = mine[:, None, None, None]
+        patches = mesh.all_reduce(torch.where(keep, patches, torch.zeros_like(patches)))
 
     # --- phase 5: photometric outlier gate (:557-570) ---------------------
     cur_patch = img_ops.extract_patches(img, wpc, P, 1)
@@ -276,13 +336,16 @@ def select_tracked(
     thr = torch.as_tensor(outlier_threshold, dtype=img.dtype, device=dev)
     t_ok = t_ok & (err0 <= thr * P * P)
     if ncc_en:
-        a = patches[:, 0].reshape(G, -1)
-        b = cur_patch.reshape(G, -1)
+        a = patches[:, 0].reshape(K, -1)
+        b = cur_patch.reshape(K, -1)
         am = a - a.mean(-1, keepdim=True)
         bm = b - b.mean(-1, keepdim=True)
         ncc = torch.sum(am * bm, -1) / torch.sqrt(
             torch.sum(am * am, -1) * torch.sum(bm * bm, -1) + 1e-10)
         t_ok = t_ok & (ncc >= torch.as_tensor(ncc_thre, dtype=img.dtype, device=dev))
+    if pool_sharded:
+        widx, wpos, patches, search_level, t_ok, err0 = (
+            mesh.slab(a) for a in (widx, wpos, patches, search_level, t_ok, err0))
     return TrackedSet(idx=widx, pos=wpos, patch=patches,
                       search_level=search_level, valid=t_ok,
                       cell_value=cell_value, errors=err0)
@@ -291,28 +354,47 @@ def select_tracked(
 def select_new_points(cam: cam_mod.Camera, rcw: torch.Tensor, pcw: torch.Tensor,
                       img: torch.Tensor, pg: torch.Tensor, pg_mask: torch.Tensor,
                       cell_value: torch.Tensor, grid_size: int,
-                      patch_size: int, gw: int, gh: int):
+                      patch_size: int, gw: int, gh: int, mesh=None):
     """addSparseMap winner selection (:150-167 + :173-195): per cell the
     max-Shi-Tomasi scan point, added iff it beats the cell's map score.
-    Returns (pos (G,3), px (G,2), score (G,), add_mask (G,))."""
+    Returns (pos (G,3), px (G,2), score (G,), add_mask (G,)).
+
+    `mesh` (inputs replicated): each rank scores its rows of the M
+    candidates (zero-padded to a multiple of the mesh size), the per-cell
+    winners combine with an all-reduce min of packed keys, and the G
+    winners are projected and scored again from the replicated inputs
+    with the same per-row operations: every output is whole and equals
+    the single-device one bit for bit."""
     G = gw * gh
     border = (patch_size // 2 + 1) * 8
     M = pg.shape[0]
-    p_cam = pg @ rcw.T + pcw
+    rows = torch.arange(M, device=pg.device)
+    if mesh is None:
+        pg_l, mask_l, rows_l, Mp = pg, pg_mask, rows, M
+    else:
+        pg_l, mask_l, rows_l = mesh.slab(pg), mesh.slab(pg_mask), mesh.slab(rows)
+        Mp = pg_l.shape[0] * mesh.size
+    p_cam = _rows_times(pg_l, rcw) + pcw
     pc = cam_mod.world2cam(cam, p_cam)
-    ok = pg_mask & (p_cam[:, 2] > 0) & cam_mod.is_in_frame(cam, pc, border)
+    ok = mask_l & (p_cam[:, 2] > 0) & cam_mod.is_in_frame(cam, pc, border)
     score = img_ops.shi_tomasi(img, pc)
     cell = _cells(pc, grid_size, gh, G)
     # argmax by a packed scatter-min of (inverted score bits, row)
     inv_bits = 0x7FFFFFFF - _f32_bits(torch.clamp(score, min=0.0))
-    key = _pack_min(inv_bits, torch.arange(M, device=pg.device))
+    key = _pack_min(inv_bits, rows_l, cap=Mp)
     key = torch.where(ok, key, INT64_MAX)
     cell_min = _scatter_min(G, cell, ok, key)
+    if mesh is not None:
+        cell_min = mesh.all_reduce(cell_min, "min")
     found = cell_min < INT64_MAX
     row = torch.clamp(_winner_rows(cell_min), 0, M - 1).long()
-    wscore = score[row]
+    if mesh is None:
+        wscore, wpc = score[row], pc[row]
+    else:  # global winner rows: project and score them again
+        wpc = cam_mod.world2cam(cam, _rows_times(pg[row], rcw) + pcw)
+        wscore = img_ops.shi_tomasi(img, wpc)
     add = found & (wscore > cell_value)  # beats the map (:160)
-    return pg[row], pc[row], wscore, add
+    return pg[row], wpc, wscore, add
 
 
 def photometric_update_levels(
@@ -334,6 +416,7 @@ def photometric_update_levels(
     max_iter: int = 10,
     robust: str = "none",
     robust_scale: float = 10.0,
+    mesh=None,
 ):
     """The coarse-to-fine UpdateState cascade (lidar_selection.cpp:
     743-902, levels 2 -> 0 as :1052-1066 calls it), one host loop.
@@ -347,8 +430,17 @@ def photometric_update_levels(
     `robust`: IRLS weights "huber" (k=1.345) or "tukey" (b=4.6851) on
     |res|/robust_scale, on the HᵀWH/HᵀWz rows only.
 
+    `mesh` (parallel.sharded.Mesh): the tracked set is this rank's cell
+    slab, the image and the state replicated. Each iteration the ranks
+    sum [HᵀH | Hᵀz | Σperr | n_meas] in rank order (`Mesh.psum`, one
+    collective of 44 floats; each rank's n_meas clamped to at least 1,
+    as the JAX package's psums are), and form the mean error from the
+    sum: every rank runs the same f64 step on the same bits and reads
+    the same flags.
+
     Returns (state, G (18,6) f64, per-point errors, mean_error (f64),
-    iterations), the G and errors of the last level."""
+    iterations), the G and errors of the last level (under a mesh the
+    errors are this rank's slab)."""
     G_, P = tr_pos.shape[0], patch_size
     dtype = img.dtype
     dev = img.device
@@ -374,9 +466,16 @@ def photometric_update_levels(
     done = False
     while not done:
         lv = levels[li]
-        err, HTH6, HTz, perr = photometric_err_H(
-            img, tr_pos, tr_patch[:, lv], tr_slevel, tr_valid, rot, x[0:3], Rci, Pci,
-            Jdphi_dR, Jdp_dR, cam, lv, P, robust, robust_scale)
+        meas = (img, tr_pos, tr_patch[:, lv], tr_slevel, tr_valid, rot, x[0:3], Rci, Pci,
+                Jdphi_dR, Jdp_dR, cam, lv, P, robust, robust_scale)
+        if mesh is None:
+            err, HTH6, HTz, perr = photometric_err_H(*meas)
+        else:
+            parts, perr = photometric_err_H(*meas, partials=True)
+            tot = mesh.psum(parts)
+            HT = tot[:42].view(6, 7)
+            HTH6, HTz = HT[:, 0:6], HT[:, 6]
+            err = tot[42] / torch.clamp(tot[43], min=1.0)
         HTH6 = HTH6.to(F64)
         K16 = gain(P_, HTH6)
         vec = torch.cat([so3.log(rot.T @ prior.rot), prior_x - x])
@@ -411,13 +510,14 @@ def photometric_update_levels(
 def photometric_update(state, prior, cam, img, tr_pos, tr_patch, tr_slevel,
                        tr_valid, Rci, Pci, Jdphi_dR, Jdp_dR, img_point_cov,
                        patch_size: int, level: int, max_iter: int,
-                       robust: str = "none", robust_scale: float = 10.0):
-    """UpdateState for one pyramid level (lidar_selection.cpp:743-902)."""
+                       robust: str = "none", robust_scale: float = 10.0, mesh=None):
+    """UpdateState for one pyramid level (lidar_selection.cpp:743-902);
+    `mesh` as for photometric_update_levels."""
     return photometric_update_levels(
         state, prior, cam, img, tr_pos, tr_patch, tr_slevel, tr_valid,
         Rci, Pci, Jdphi_dR, Jdp_dR, img_point_cov, patch_size,
         levels=(level,), max_iter=max_iter, robust=robust,
-        robust_scale=robust_scale)
+        robust_scale=robust_scale, mesh=mesh)
 
 
 def _dedup_voxels(pg: torch.Tensor, pg_mask: torch.Tensor, max_vox: int):
@@ -459,16 +559,17 @@ def _dedup_voxels(pg: torch.Tensor, pg_mask: torch.Tensor, max_vox: int):
 
 def prep_observations(vm: vmap_mod.VisualMap, cam: cam_mod.Camera,
                       rcw: torch.Tensor, pcw: torch.Tensor, img: torch.Tensor,
-                      idx: torch.Tensor, valid: torch.Tensor):
+                      idx: torch.Tensor, valid: torch.Tensor, mesh=None):
     """addObservation conditions against the most recent observation
     (lidar_selection.cpp:928-950): add when Δp > 0.5 m, Δθ > 10 (radians
     compared with 10, as the reference does) or the pixel distance > 40.
-    Returns (px, score, add_mask)."""
+    Returns (px, score, add_mask). `mesh`: the rings are in slabs
+    (visual_map's slab layout), their fields gathered from the owners."""
     NP = vm.pos.shape[0]
     safe = torch.clamp(idx, 0, NP - 1)
     pf = vm.pos[safe.long()] @ rcw.T + pcw
     pc = cam_mod.world2cam(cam, pf)
-    o_px, o_rcw, o_pcw, _, o_fid, _ = vmap_mod._gather_obs(vm, safe)
+    o_px, o_rcw, o_pcw, _, o_fid, _ = vmap_mod._gather_obs(vm, safe, mesh)
     last = torch.argmax(o_fid, dim=-1)  # most recent observation
     K = safe.shape[0]
 
@@ -515,6 +616,8 @@ def vio_frame_step(
     max_iter: int,
     max_pg: int,
     robust: str = "none",
+    mesh=None,
+    pool_sharded: bool = False,
 ):
     """The whole camera frame (`detect`, lidar_selection.cpp:1027-1075):
     image pool push, voxel filter of the scan cloud, visible-voxel set,
@@ -525,15 +628,27 @@ def vio_frame_step(
     no-ops (HᵀH = Hᵀz = 0, the step pulls the state to the prior, which
     it equals at entry, and G = 0 leaves the covariance).
 
+    `mesh` (parallel.sharded.Mesh, every input replicated): the candidate
+    and new-point scoring and the photometric EKF split their rows over
+    the ranks (select_tracked, select_new_points,
+    photometric_update_levels); the tracked cell slabs are gathered back
+    to all G cells (one collective) for the map updates, which every rank
+    applies alike. `pool_sharded`: `vm` holds this rank's slabs of the
+    image pool and the observation rings; the push, the ring reads and
+    the ring writes go through their owners (visual_map's slab layout).
+
     Returns (state', vmap, tracked_idx, tracked_valid, obs_px, per-point
     errors, mean_err, n_tracked, n_added, iters, stats); `stats` (29,)
     f64 packs [n_tracked, n_added, mean_err, iters, rcw'(9), pcw'(3),
     0 (12), n_pts] for one device-to-host read."""
+    if pool_sharded and mesh is None:
+        raise ValueError("pool_sharded (the sharded visual map) requires a mesh")
     f32 = gray.dtype
     fid = meta[1]
+    slab_mesh = mesh if pool_sharded else None
     cloud_mask = torch.arange(cloud.shape[0], device=cloud.device) < meta[0]
     with record_function("vio.push"):
-        vm = vmap_mod.push_image(vm, gray, fid)
+        vm = vmap_mod.push_image(vm, gray, fid, slab_mesh)
     with record_function("vio.voxel_filter"):
         pg, pg_mask = voxel_downsample_device(
             cloud, cloud_mask, None, max_pg,
@@ -546,29 +661,38 @@ def vio_frame_step(
         tracked = select_tracked(
             vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask,
             outlier_threshold, ncc_thre, grid_size=grid_size,
-            patch_size=patch_size, gw=gw, gh=gh, ncc_en=ncc_en)
+            patch_size=patch_size, gw=gw, gh=gh, ncc_en=ncc_en, mesh=mesh,
+            pool_sharded=pool_sharded)
     with record_function("vio.select_new"):
         npos, npx, nscore, nadd = select_new_points(
             cam, rcw, pcw, gray, pg, pg_mask, tracked.cell_value,
-            grid_size=grid_size, patch_size=patch_size, gw=gw, gh=gh)
+            grid_size=grid_size, patch_size=patch_size, gw=gw, gh=gh, mesh=mesh)
     with record_function("vio.photometric"):
         st, Gmat, perr, err, its = photometric_update_levels(
             state, prior, cam, gray, tracked.pos, tracked.patch,
             tracked.search_level, tracked.valid, Rci, Pci, Jdphi_dR, Jdp_dR,
             img_point_cov=img_point_cov, patch_size=patch_size,
-            levels=(2, 1, 0), max_iter=max_iter, robust=robust)
+            levels=(2, 1, 0), max_iter=max_iter, robust=robust, mesh=mesh)
         # cov <- cov - G cov (:980); G = 0 when nothing was tracked
         st = st._replace(cov=st.cov - Gmat @ st.cov[0:6, :])
 
     with record_function("vio.observations"):
-        t_idx, t_valid = tracked.idx, tracked.valid
+        t_idx, t_valid, t_slevel = tracked.idx, tracked.valid, tracked.search_level
+        if mesh is not None:
+            # the cell slabs back to all G cells, in one int32 gather
+            # (perr travels as its bits)
+            cols = mesh.all_gather(torch.stack(
+                [t_idx, t_valid.to(I32), t_slevel, perr.view(I32)], 1))[:gw * gh]
+            t_idx, t_valid, t_slevel = cols[:, 0], cols[:, 1].bool(), cols[:, 2]
+            perr = cols[:, 3].contiguous().view(f32)
         rcw2 = Rci @ st.rot.to(f32).T
         pcw2 = -rcw2 @ st.pos.to(f32) + Pci
         opc, oscore, oadd = prep_observations(vm, cam, rcw2, pcw2, gray,
-                                              t_idx, t_valid)
+                                              t_idx, t_valid, slab_mesh)
         vm = vmap_mod.add_observations(vm, t_idx, opc, rcw2, pcw2, oscore,
-                                       fid, tracked.search_level, oadd)
-        vm = vmap_mod.add_points(vm, npos, npx, rcw, pcw, nscore, fid, nadd)
+                                       fid, t_slevel, oadd, slab_mesh)
+        vm = vmap_mod.add_points(vm, npos, npx, rcw, pcw, nscore, fid, nadd,
+                                 mesh=slab_mesh)
     n_tracked = t_valid.sum(dtype=I32)
     n_added = nadd.sum(dtype=I32)
     dev = gray.device
@@ -611,11 +735,29 @@ def render_overlay(gray: np.ndarray, px: np.ndarray, errors: np.ndarray,
 class Vio:
     """Host-side orchestration of the per-image VIO step (the
     LidarSelector object, lidar_selection.h:37-171), on `device` (CUDA
-    unless given)."""
+    unless given).
 
-    def __init__(self, cfg: Config, device=None):
+    `mesh_runner` (parallel.product.MeshRunner, set up by
+    `Pipeline(cfg, mesh=...)`): the camera frame runs over its mesh, on
+    the mesh's device, with the same outputs on every rank. With the
+    runner's `sharded_map` the image pool and the observation rings are
+    held in slabs, one per rank (`pool_sharded`, visual_map's slab
+    layout)."""
+
+    def __init__(self, cfg: Config, device=None, mesh_runner=None):
         cap = cfg.capacity
         self.cfg = cfg
+        self.mesh_runner = mesh_runner
+        self.mesh = None if mesh_runner is None else mesh_runner.mesh
+        if self.mesh is not None:
+            if device is not None and resolve_device(device) != self.mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {self.mesh.device}")
+            device = self.mesh.device
+        self.pool_sharded = bool(mesh_runner is not None and mesh_runner.sharded_map)
+        # the mesh of visual_map's slab layout, or None with the whole map here
+        self.slab_mesh = self.mesh if self.pool_sharded else None
+        # under a mesh, rank 0 alone draws the debug overlay
+        self.lead = self.mesh is None or self.mesh.rank == 0
         self.device = resolve_device(device)
         dev = self.device
         self.cam = cam_mod.from_config(cfg.camera, dev)
@@ -668,7 +810,8 @@ class Vio:
         self.read_collector = None
 
     def _fresh_vmap(self) -> vmap_mod.VisualMap:
-        """A new empty visual map at the configured capacities."""
+        """A new empty visual map at the configured capacities; with
+        `pool_sharded` only this rank's slabs of it."""
         cap, cfg = self.cfg.capacity, self.cfg
         return vmap_mod.empty_visual_map(
             n_points=cap.vmap_points, n_obs=cap.vmap_obs,
@@ -676,7 +819,14 @@ class Vio:
             ring=cap.frame_ring, height=cfg.camera.height,
             width=cfg.camera.width,
             img_dtype=torch.uint8 if cap.frame_ring_u8 else None,
-            device=self.device)
+            device=self.device, slabs=self.mesh.size if self.pool_sharded else 1)
+
+    def whole_vmap(self) -> vmap_mod.VisualMap:
+        """The whole visual map: with `pool_sharded` gathered from the
+        slabs (a collective: every rank calls it at the same point)."""
+        if self.pool_sharded:
+            return vmap_mod.gather_slabs(self.vmap, self.mesh)
+        return self.vmap
 
     def reset_map(self):
         """Discard the visual map (divergence-watchdog restart). The
@@ -771,7 +921,7 @@ class Vio:
             cloud_dev = None
             n = 0 if self.last_cloud is None else min(len(self.last_cloud), R)
         if n < 10:
-            self.vmap = vmap_mod.push_image(self.vmap, gray, self.fid)
+            self.vmap = vmap_mod.push_image(self.vmap, gray, self.fid, self.slab_mesh)
             self.fid += 1
             return state
         if cloud_dev is None:
@@ -779,8 +929,9 @@ class Vio:
             cloud[:n] = self.last_cloud[:n, :3]
             cloud_dev = torch.as_tensor(cloud, device=self.device)
         meta = torch.tensor([n, self.fid], dtype=I32, device=self.device)
+        step = vio_frame_step if self.mesh_runner is None else self.mesh_runner.vio_frame_step
         (st, vm2, _tidx, tvalid, opc, perr, _err, _n_tracked, _n_added,
-         _its, stats_j) = vio_frame_step(
+         _its, stats_j) = step(
             self.vmap, self.cam, state, prior, gray, meta, cloud_dev,
             self.Rci, self.Pci, self.Jdphi_dR, self.Jdp_dR,
             self._out_thre_dev, self._ncc_thre_dev, self._ipc_dev,
@@ -803,7 +954,7 @@ class Vio:
         with record_function("vio.stats_read"):
             stats = stats_j.cpu().numpy()
         self._apply_stats(stats)
-        if cfg.debug and stats[0] > 0:
+        if cfg.debug and stats[0] > 0 and self.lead:
             self.last_overlay = render_overlay(
                 gray.cpu().numpy(), opc.cpu().numpy(), perr.cpu().numpy(),
                 tvalid.cpu().numpy())
@@ -828,7 +979,20 @@ class Vio:
         its 0.2 m voxel filter divides by the leaf (a device tensor), as
         the JAX package's call from outside jit does; its photometric
         iterations go through `photometric_update` level by level (2, 1,
-        0), with the default robust mode. The stats are read at once."""
+        0), with the default robust mode. The stats are read at once.
+
+        Under a mesh every rank runs the single-device stages on its
+        replicated inputs; with `pool_sharded` the slabs are gathered into
+        the whole map first and cut again after (collectives)."""
+        if not self.pool_sharded:
+            return self._update_staged(state, prior, img)
+        self.vmap = self.whole_vmap()
+        try:
+            return self._update_staged(state, prior, img)
+        finally:
+            self.vmap = vmap_mod.shard_slabs(self.vmap, self.mesh.rank, self.mesh.size)
+
+    def _update_staged(self, state: NavState, prior: NavState, img: np.ndarray) -> NavState:
         cfg = self.cfg
         dev = self.device
         self._last_bgr_src = np.array(img, copy=True)
@@ -894,7 +1058,7 @@ class Vio:
             self.vmap = vmap_mod.add_observations(
                 self.vmap, tracked.idx, opc, rcw2_j, pcw2_j, oscore, fid,
                 tracked.search_level, oadd)
-            if cfg.debug:
+            if cfg.debug and self.lead:
                 self.last_overlay = render_overlay(
                     gray.cpu().numpy(), opc.cpu().numpy(), perr.cpu().numpy(),
                     tracked.valid.cpu().numpy())

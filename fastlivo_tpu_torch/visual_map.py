@@ -26,7 +26,16 @@ writes the kept rows only (`_put`, one host read of the kept count) or
 through a sentinel row. Where it scatters duplicate indices with `set`,
 XLA on the CPU keeps the LAST update; the port picks that winner
 explicitly (`_last_wins`), so both devices give the JAX package's result.
-Only the `obs_axis=None` (unsharded) forms are ported.
+
+Slabs (`Pipeline(mesh=, sharded_map=True)` with the camera): each rank of
+a parallel.sharded.Mesh holds a contiguous slab of the image pool
+(`imgs`, R/n slots) and of the observation rings (`obs_*`, NP/n point
+rows); every other field is replicated. The functions that read or write
+those fields take the `mesh` (None: the whole map on this rank; the JAX
+package's `obs_axis`): a rank reads the rows it owns, zeroes the rest
+and the mesh sums them (exact: one owner per element), and writes land
+on the owner only. `shard_slabs` / `gather_slabs` convert between the two
+layouts.
 """
 from __future__ import annotations
 
@@ -40,6 +49,9 @@ from .ops.voxel_map import _last_wins, _slot_check
 VOXEL_SIZE = 0.5  # lidar_selection.cpp:210
 EMPTY = -2147483648  # free voxel-hash slot (int32 min)
 I32, I64 = torch.int32, torch.int64
+# the fields held in slabs under a sharded pool (rows split over the mesh)
+SLAB_FIELDS = ("imgs", "obs_px", "obs_rcw", "obs_pcw", "obs_slot", "obs_fid",
+               "obs_level")
 
 
 class VisualMap(NamedTuple):
@@ -69,14 +81,20 @@ def empty_visual_map(n_points: int = 1 << 16, n_obs: int = 20,
                      table_size: int = 1 << 18, voxel_cap: int = 16,
                      ring: int = 64, height: int = 512, width: int = 640,
                      dtype=torch.float32, img_dtype=None,
-                     device=None) -> VisualMap:
+                     device=None, slabs: int = 1) -> VisualMap:
     """An empty map on `device` (CUDA unless given, see device.py).
     `img_dtype=torch.uint8` (the shipped `capacity.frame_ring_u8`) keeps
-    the pool quantized to u8, as the reference keeps its frames."""
+    the pool quantized to u8, as the reference keeps its frames.
+    `slabs` = n > 1: one rank's slabs of it on a mesh of n (SLAB_FIELDS
+    with `n_points` / n and `ring` / n rows; the slabs of an empty map
+    are all alike), never the whole pool and rings."""
     if table_size & (table_size - 1):
         raise ValueError(f"table_size must be a power of two, got {table_size}")
+    if n_points % slabs or ring % slabs:
+        raise ValueError(f"{slabs} slabs do not divide {n_points} points and {ring} images")
     dev = resolve_device(device)
     NP, KO, T, VC, R = n_points, n_obs, table_size, voxel_cap, ring
+    NPs, Rs = NP // slabs, R // slabs
     img_dtype = dtype if img_dtype is None else img_dtype
     f = dict(dtype=dtype, device=dev)
     i = dict(dtype=I32, device=dev)
@@ -85,16 +103,16 @@ def empty_visual_map(n_points: int = 1 << 16, n_obs: int = 20,
         value=torch.zeros(NP, **f),
         n_obs=torch.zeros(NP, **i),
         n_pts=torch.zeros((), **i),
-        obs_px=torch.zeros((NP, KO, 2), **f),
-        obs_rcw=torch.zeros((NP, KO, 3, 3), **f),
-        obs_pcw=torch.zeros((NP, KO, 3), **f),
-        obs_slot=torch.zeros((NP, KO), **i),
-        obs_fid=torch.full((NP, KO), -1, **i),
-        obs_level=torch.zeros((NP, KO), **i),
+        obs_px=torch.zeros((NPs, KO, 2), **f),
+        obs_rcw=torch.zeros((NPs, KO, 3, 3), **f),
+        obs_pcw=torch.zeros((NPs, KO, 3), **f),
+        obs_slot=torch.zeros((NPs, KO), **i),
+        obs_fid=torch.full((NPs, KO), -1, **i),
+        obs_level=torch.zeros((NPs, KO), **i),
         vox_keys=torch.full((T,), EMPTY, **i),
         vox_count=torch.zeros(T, **i),
         vox_idx=torch.zeros((T, VC), **i),
-        imgs=torch.zeros((R, height, width), dtype=img_dtype, device=dev),
+        imgs=torch.zeros((Rs, height, width), dtype=img_dtype, device=dev),
         img_fid=torch.full((R,), -1, **i),
     )
 
@@ -118,26 +136,68 @@ def _put(dst: torch.Tensor, index: tuple, values: torch.Tensor,
     dst[tuple(ix[rows] for ix in index)] = values[rows]
 
 
-def _live_slot_refs(m: VisualMap) -> torch.Tensor:
+def shard_slabs(m: VisualMap, rank: int, n: int) -> VisualMap:
+    """Rank `rank`'s slab layout of a whole map: rows [rank·k, (rank+1)·k)
+    of each SLAB_FIELDS array (k = rows / n; MeshRunner.check_capacity
+    refuses sizes that n does not divide), copied."""
+    def cut(a):
+        k = a.shape[0] // n
+        return a[rank * k:(rank + 1) * k].clone()
+
+    return m._replace(**{f: cut(getattr(m, f)) for f in SLAB_FIELDS})
+
+
+def gather_slabs(m: VisualMap, mesh) -> VisualMap:
+    """The whole map from every rank's slabs (a collective: every rank
+    calls it at the same point)."""
+    return m._replace(**{f: mesh.all_gather(getattr(m, f)) for f in SLAB_FIELDS})
+
+
+def _owned(m: VisualMap, rows: torch.Tensor, mesh):
+    """Global point rows -> (local ring row, owned by this rank) under
+    the slab layout."""
+    NPl = m.obs_fid.shape[0]
+    loc = rows - mesh.rank * NPl
+    return loc, (loc >= 0) & (loc < NPl)
+
+
+def _live_slot_refs(m: VisualMap, mesh=None) -> torch.Tensor:
     """(R,) i32 count of live observations referencing each pool slot: the
     point is allocated, the observation exists (fid >= 0) and the slot
     still stores that fid (the reference's shared_ptr refcount on
-    Feature::img)."""
-    NP, KO = m.obs_fid.shape
+    Feature::img). Under the slab layout each rank counts its ring rows
+    (alive by their global row) and the mesh sums the counts. R comes
+    from `img_fid`, which is never in slabs."""
+    NPl, KO = m.obs_fid.shape
     R = m.img_fid.shape[0]
-    alive = (torch.arange(NP, dtype=I32, device=m.pos.device) < m.n_pts)[:, None]
+    row0 = 0 if mesh is None else mesh.rank * NPl
+    alive = (row0 + torch.arange(NPl, dtype=I32, device=m.pos.device) < m.n_pts)[:, None]
     slot = torch.clamp(m.obs_slot, 0, R - 1)
     ok = alive & (m.obs_fid >= 0) & (m.img_fid[slot.long()] == m.obs_fid)
     tgt = torch.where(ok, slot, R).reshape(-1).long()
-    return torch.bincount(tgt, minlength=R + 1)[:R].to(I32)
+    refs = torch.bincount(tgt, minlength=R + 1)[:R].to(I32)
+    return refs if mesh is None else mesh.all_reduce(refs)
 
 
-def _gather_obs(m: VisualMap, safe: torch.Tensor):
+def _gather_obs(m: VisualMap, safe: torch.Tensor, mesh=None):
     """(K, KO, ...) obs fields of point rows `safe`: (px, rcw, pcw, slot,
-    fid, level)."""
+    fid, level). Under the slab layout each rank gathers the rows it owns
+    from its slab, zeroes the others, and the mesh sums them: two
+    collectives, one for the float fields and one for the integer ones."""
     s = safe.long()
-    return (m.obs_px[s], m.obs_rcw[s], m.obs_pcw[s], m.obs_slot[s],
-            m.obs_fid[s], m.obs_level[s])
+    if mesh is None:
+        return (m.obs_px[s], m.obs_rcw[s], m.obs_pcw[s], m.obs_slot[s],
+                m.obs_fid[s], m.obs_level[s])
+    K, KO = s.shape[0], m.obs_fid.shape[1]
+    loc, mine = _owned(m, s, mesh)
+    ls = torch.clamp(loc, 0, m.obs_fid.shape[0] - 1)
+    keep = mine[:, None, None]
+    f = torch.cat([m.obs_px[ls], m.obs_rcw[ls].reshape(K, KO, 9), m.obs_pcw[ls]], -1)
+    i = torch.stack([m.obs_slot[ls], m.obs_fid[ls], m.obs_level[ls]], -1)
+    f = mesh.all_reduce(torch.where(keep, f, torch.zeros_like(f)))
+    i = mesh.all_reduce(torch.where(keep, i, torch.zeros_like(i)))
+    return (f[..., 0:2], f[..., 2:11].reshape(K, KO, 3, 3), f[..., 11:14],
+            i[..., 0], i[..., 1], i[..., 2])
 
 
 def _slot_of_fid(m: VisualMap, fid: torch.Tensor) -> torch.Tensor:
@@ -146,12 +206,13 @@ def _slot_of_fid(m: VisualMap, fid: torch.Tensor) -> torch.Tensor:
     return torch.argmax((m.img_fid == fid).to(I32)).to(I32)
 
 
-def push_slot(m: VisualMap, fid: torch.Tensor) -> torch.Tensor:
+def push_slot(m: VisualMap, fid: torch.Tensor, mesh=None) -> torch.Tensor:
     """The pool slot `push_image` writes `fid` into: argmin of the key
     re-push (-2) < empty/dead (age rank) < live ((1+min(refs,200))*R +
     rank: fewest references, then oldest). Ranks are computed within the
-    pool, ties (the -1 empties) broken by slot index."""
-    refs = _live_slot_refs(m)
+    pool, ties (the -1 empties) broken by slot index. The same on every
+    rank under the slab layout (`mesh`: see the module doc)."""
+    refs = _live_slot_refs(m, mesh)
     R = m.img_fid.shape[0]
     sl = torch.arange(R, dtype=I32, device=m.img_fid.device)
     f = m.img_fid
@@ -164,25 +225,39 @@ def push_slot(m: VisualMap, fid: torch.Tensor) -> torch.Tensor:
     return torch.argmin(key).to(I32)
 
 
-def push_image(m: VisualMap, img: torch.Tensor, fid) -> VisualMap:
+def push_image(m: VisualMap, img: torch.Tensor, fid, mesh=None) -> VisualMap:
     """Store the frame's grayscale image in the pool, in place (slot
     policy in `push_slot`). A u8 pool stores round(clip(img, 0, 255)),
-    rounding half to even as the JAX package does."""
+    rounding half to even as the JAX package does. Under the slab layout
+    (`mesh`) every rank picks the slot from the replicated `img_fid` and
+    only the slot's owner writes the image."""
     fid = torch.as_tensor(fid, dtype=I32, device=m.img_fid.device)
-    slot = push_slot(m, fid).long().reshape(1)
+    slot = push_slot(m, fid, mesh).long().reshape(1)
     if not m.imgs.dtype.is_floating_point:
         img = torch.round(torch.clamp(img, 0.0, 255.0))
-    m.imgs.index_copy_(0, slot, img.to(m.imgs.dtype)[None])
+    img = img.to(m.imgs.dtype)[None]
+    if mesh is None:
+        m.imgs.index_copy_(0, slot, img)
+    else:
+        # the owner's row takes the image, another rank rewrites a row
+        # of its slab with itself (no host read of the slot)
+        Rl = m.imgs.shape[0]
+        loc = slot - mesh.rank * Rl
+        mine = (loc >= 0) & (loc < Rl)
+        loc = torch.clamp(loc, 0, Rl - 1)
+        m.imgs.index_copy_(0, loc, torch.where(mine[:, None, None], img, m.imgs[loc]))
     m.img_fid.index_copy_(0, slot, fid.reshape(1))
     return m
 
 
 def add_points(m: VisualMap, pts: torch.Tensor, px: torch.Tensor,
                rcw: torch.Tensor, pcw: torch.Tensor, value: torch.Tensor,
-               fid, mask: torch.Tensor, max_probe: int = 12) -> VisualMap:
+               fid, mask: torch.Tensor, max_probe: int = 12, mesh=None) -> VisualMap:
     """Batched AddPoint (lidar_selection.cpp:204-230) with the creation
     observation (addSparseMap :178-190, level 0), in place. Rows past the
-    point capacity are dropped."""
+    point capacity are dropped. Under the slab layout (`mesh`) the point
+    fields and the voxel index update on every rank alike and each
+    creation observation lands on its row's owner only."""
     dt = m.pos.dtype
     pts, px, value = (x.to(dt) for x in (pts, px, value))
     rcw, pcw = rcw.to(dt), pcw.to(dt)
@@ -196,19 +271,24 @@ def add_points(m: VisualMap, pts: torch.Tensor, px: torch.Tensor,
     n_new = mask.sum(dtype=I32)
 
     ix = (idx.long(),)
-    ix0 = (idx.long(), torch.zeros_like(idx, dtype=I64))
+    oidx, omask = idx.long(), mask
+    if mesh is not None:
+        oidx, mine = _owned(m, oidx, mesh)
+        omask = mask & mine
+    ix0 = (oidx, torch.zeros_like(oidx))
     slot = _slot_of_fid(m, fid)
     B = idx.shape[0]
     rows = _kept(mask)
     _put(m.pos, ix, pts, rows)
     _put(m.value, ix, value, rows)
     _put(m.n_obs, ix, torch.ones(B, dtype=I32, device=dev), rows)
-    _put(m.obs_px, ix0, px, rows)
-    _put(m.obs_rcw, ix0, rcw.expand(B, 3, 3), rows)
-    _put(m.obs_pcw, ix0, pcw.expand(B, 3), rows)
-    _put(m.obs_slot, ix0, slot.expand(B), rows)
-    _put(m.obs_fid, ix0, fid.expand(B), rows)
-    _put(m.obs_level, ix0, torch.zeros(B, dtype=I32, device=dev), rows)
+    orows = rows if mesh is None else _kept(omask)
+    _put(m.obs_px, ix0, px, orows)
+    _put(m.obs_rcw, ix0, rcw.expand(B, 3, 3), orows)
+    _put(m.obs_pcw, ix0, pcw.expand(B, 3), orows)
+    _put(m.obs_slot, ix0, slot.expand(B), orows)
+    _put(m.obs_fid, ix0, fid.expand(B), orows)
+    _put(m.obs_level, ix0, torch.zeros(B, dtype=I32, device=dev), orows)
     m = m._replace(n_pts=m.n_pts + n_new)
     _voxel_index_insert(m.vox_keys, m.vox_count, m.vox_idx, pts, idx, mask,
                         max_probe)
@@ -288,11 +368,16 @@ def _voxel_index_insert(vk, vc, vi, pts, idx, mask, max_probe):
     vc.index_add_(0, res_all[rows], inc[grp][rows])
 
 
-def compact(m: VisualMap, center: torch.Tensor, radius) -> VisualMap:
+def compact(m: VisualMap, center: torch.Tensor, radius, mesh=None) -> VisualMap:
     """Keep only points within `radius` (inf-norm) of `center`, compacted
     to the front in their order; blank the dropped rows' observations and
     rebuild the voxel index. New tensors (the visual analogue of the
-    sliding local map, triggered on a load factor)."""
+    sliding local map, triggered on a load factor). Under the slab layout
+    (`mesh`) every rank gathers the slabs, compacts the whole map and
+    keeps its slabs of the result (a collective)."""
+    if mesh is not None:
+        whole = compact(gather_slabs(m, mesh), center, radius)
+        return shard_slabs(whole, mesh.rank, mesh.size)
     NP = m.pos.shape[0]
     dev = m.pos.device
     alive = torch.arange(NP, dtype=I32, device=dev) < m.n_pts
@@ -345,16 +430,18 @@ def _camposes(o_pcw: torch.Tensor, o_rcw: torch.Tensor) -> torch.Tensor:
     return -torch.einsum("koj,koji->koi", o_pcw, o_rcw)
 
 
-def close_view_obs(m: VisualMap, idx: torch.Tensor, campos: torch.Tensor):
+def close_view_obs(m: VisualMap, idx: torch.Tensor, campos: torch.Tensor,
+                   mesh=None):
     """Point::getCloseViewObs (point.cpp:141-178) batched over point
     indices (K,): the observation whose viewing ray has the largest
     cosine to the current one; rejected below cos 60 deg or when its
     image slot was recycled. Returns a dict of the chosen observation's
-    fields + ok (K,)."""
+    fields + ok (K,). Under the slab layout (`mesh`) the fields are
+    gathered from their owners and the choice runs on every rank alike."""
     K = idx.shape[0]
     R = m.img_fid.shape[0]
     safe = torch.clamp(idx, 0, m.pos.shape[0] - 1)
-    o_px, o_rcw, o_pcw, o_slot, o_fid, o_level = _gather_obs(m, safe)
+    o_px, o_rcw, o_pcw, o_slot, o_fid, o_level = _gather_obs(m, safe, mesh)
     pos = m.pos[safe.long()]  # (K, 3)
     obs_dir = campos[None, :] - pos
     obs_dir = obs_dir / (torch.linalg.norm(obs_dir, dim=-1, keepdim=True) + 1e-12)
@@ -381,10 +468,12 @@ def close_view_obs(m: VisualMap, idx: torch.Tensor, campos: torch.Tensor):
 def add_observations(m: VisualMap, idx: torch.Tensor, px: torch.Tensor,
                      rcw: torch.Tensor, pcw: torch.Tensor,
                      value: torch.Tensor, fid, level: torch.Tensor,
-                     mask: torch.Tensor) -> VisualMap:
+                     mask: torch.Tensor, mesh=None) -> VisualMap:
     """Batched addObservation append (lidar_selection.cpp:913-965), in
     place: a full ring overwrites its furthest-view observation
-    (getFurthestViewObs, point.cpp:219-247). `idx` (K,) unique."""
+    (getFurthestViewObs, point.cpp:219-247). `idx` (K,) unique. Under the
+    slab layout (`mesh`) every rank computes the write plan from the
+    owner-gathered rings and each observation lands on its row's owner."""
     dt = m.pos.dtype
     px, value = px.to(dt), value.to(dt)
     rcw, pcw = rcw.to(dt), pcw.to(dt)
@@ -396,21 +485,26 @@ def add_observations(m: VisualMap, idx: torch.Tensor, px: torch.Tensor,
     campos = -pcw @ rcw
     n = m.n_obs[safe]
     full = n >= KO
-    _, o_rcw, o_pcw, _, o_fid, _ = _gather_obs(m, safe)
+    _, o_rcw, o_pcw, _, o_fid, _ = _gather_obs(m, safe, mesh)
     dist = torch.linalg.norm(_camposes(o_pcw, o_rcw) - campos[None, None, :], dim=-1)
     dist = torch.where(o_fid >= 0, dist, torch.full_like(dist, -1.0))
     evict = torch.argmax(dist, dim=-1)
     w = torch.where(full, evict, torch.clamp(n, max=KO - 1).long())
     K = safe.shape[0]
     slot = _slot_of_fid(m, fid)
-    ix, ixw = (safe,), (safe, w)
+    ix = (safe,)
     rows = _kept(mask)
     _put(m.value, ix, value, rows)
     _put(m.n_obs, ix, torch.clamp(n + 1, max=KO), rows)
-    _put(m.obs_px, ixw, px, rows)
-    _put(m.obs_rcw, ixw, rcw.expand(K, 3, 3), rows)
-    _put(m.obs_pcw, ixw, pcw.expand(K, 3), rows)
-    _put(m.obs_slot, ixw, slot.expand(K), rows)
-    _put(m.obs_fid, ixw, fid.expand(K), rows)
-    _put(m.obs_level, ixw, level.to(I32), rows)
+    if mesh is None:
+        ixw, orows = (safe, w), rows
+    else:
+        loc, mine = _owned(m, safe, mesh)
+        ixw, orows = (loc, w), _kept(mask & mine)
+    _put(m.obs_px, ixw, px, orows)
+    _put(m.obs_rcw, ixw, rcw.expand(K, 3, 3), orows)
+    _put(m.obs_pcw, ixw, pcw.expand(K, 3), orows)
+    _put(m.obs_slot, ixw, slot.expand(K), orows)
+    _put(m.obs_fid, ixw, fid.expand(K), orows)
+    _put(m.obs_level, ixw, level.to(I32), orows)
     return m

@@ -15,7 +15,10 @@ the fused LIO search against its plain composition
 knn5_plane_plain(knn_candidates(...)). The fused photometric measurement
 holds HᵀH and Hᵀz each within 1e-4 of its largest entry and err, perr
 within rtol 1e-5 of its plain version (its sums over the G·P² rows run in another order);
-with nothing to measure err and HT are exactly 0.
+with nothing to measure err and HT are exactly 0. Its partials (what a
+mesh sums: [HT | Σperr | n_meas]) hold the same bounds, Σperr at rtol
+1e-5 and n_meas equal, on a full slab and on a slab with no valid cell
+(n_meas 1, the rest 0).
 
 Also the slice's paths on the card: block replay within 5 mm of the
 per-frame path (the bound of tests/test_replay.py), deferred and
@@ -28,7 +31,8 @@ it (never the tiled kernel).
 
 The camera frame's host-side surfaces on the card: Vio.colorize and
 Vio.update_staged against the CPU, and a LIVO run with the debug overlay
-and the RGB cloud against the CPU's.
+and the RGB cloud against the CPU's. Over a mesh: LIO and LIVO worlds of
+one on NCCL, bit for bit the single-device path.
 """
 import numpy as np
 import pytest
@@ -367,6 +371,34 @@ def test_photometric_err_H_with_nothing_to_measure(cuda):
     err, HTH6, HTz, perr = photometric_call(photometric.photometric_err_H, empty, 0, 8, "none")
     assert photometric.photometric_err_H.launches == before + 1  # K = 0: no launch
     assert float(err) == 0.0 and not HTH6.any() and not HTz.any() and perr.shape == (0,)
+
+
+@pytest.mark.parametrize("valid", ["full", "none"])
+def test_photometric_err_H_partials_match_plain(cuda, valid):
+    """The partials a mesh sums, on one rank's slab of 48 cells."""
+    x = photometric_inputs(cuda)
+    x = {k: (v[:48].contiguous() if k.startswith("tr_") else v) for k, v in x.items()}
+    if valid == "none":
+        x["tr_valid"] = torch.zeros_like(x["tr_valid"])
+    before = photometric.photometric_err_H.launches
+    parts, perr = photometric_call(photometric.photometric_err_H, x, 1, 8, "none",
+                                   partials=True)
+    assert photometric.photometric_err_H.launches == before + 1
+    want, wperr = photometric_call(photometric.photometric_err_H_plain, x, 1, 8, "none",
+                                   partials=True)
+    parts, want = parts.cpu().numpy(), want.cpu().numpy()
+    assert parts.shape == want.shape == (44,)
+    assert parts[43] == want[43]  # n_meas, clamped to at least 1
+    if valid == "none":
+        assert parts[43] == 1.0 and not parts[:43].any() and not perr.any()
+        return
+    scale = np.abs(want[:42]).max()
+    np.testing.assert_allclose(parts[:42], want[:42], rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(parts[42], want[42], rtol=1e-5)
+    np.testing.assert_allclose(perr.cpu().numpy(), wperr.cpu().numpy(), rtol=1e-5,
+                               atol=1e-30)
+    err = photometric_call(photometric.photometric_err_H, x, 1, 8, "none")[0]
+    assert float(err) == float(np.float32(parts[42]) / np.float32(parts[43]))
 
 
 def test_photometric_err_H_refuses_bad_inputs(cuda):
@@ -710,3 +742,34 @@ def test_mesh_of_two_sharing_the_card(cuda, sharded):
         assert r["knn5_plane_tiled"] > 20 and r["n_dropped"] == 0
     np.testing.assert_array_equal(res[0]["pos"], res[1]["pos"])
     assert res[0]["pool_tiles"] == (512 if sharded else 1024)
+
+
+def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda):
+    """A LIVO world of one on NCCL, replicated and with the pool in slabs:
+    every frame bit for bit the single-device LIVO path, with as many
+    photometric_err_H launches."""
+    from fastlivo_tpu_torch.parallel.launch import launch
+
+    from torch_mesh_ranks import livo_mesh_rank
+
+    cfg = small_livo_cfg()
+    ds = small_livo_data()
+    scans, imu, images = list(ds.lidar_scans_fast()), list(ds.imu_stream()), ds.images()
+    pipe = Pipeline(cfg, device=cuda)
+    for beg, pts, t_rel in scans:
+        pipe.push_lidar(beg, pts, t_rel)
+    for t, acc, gyr in imu:
+        pipe.push_imu(t, acc, gyr)
+    for t, img in images:
+        pipe.push_img(t, img)
+    before = photometric.photometric_err_H.launches
+    ref = pipe.spin() + pipe.finish()
+    launches = photometric.photometric_err_H.launches - before
+    (got,) = launch(livo_mesh_rank, 1, (cfg, scans, imu, images), backend="nccl",
+                    timeout=120, deadline=300)
+    for r in got:
+        assert len(r["t"]) == len(ref) >= 25
+        np.testing.assert_array_equal(r["pos"], np.array([o.pos for o in ref]))
+        np.testing.assert_array_equal(r["quat"], np.array([o.quat for o in ref]))
+        assert r["photometric_err_H"] == launches >= 3 * pipe.vio.steps > 30
+        assert r["vmap_points"] == int(pipe.vio.vmap.n_pts)

@@ -11,8 +11,11 @@ conftest's virtual CPU devices.
 - `serve --mesh 2 [--sharded-map]` on a Unix socket: the odometry lines
   of JAX's `Server(cfg, mesh=make_mesh(2))` for the same messages, every
   position within 1 mm; the autosave (its gather is a collective) loads.
-- The command-line refusals word for word JAX's; the camera and missing
-  cards refused before any rank starts.
+- LIVO (a 320x256 camera): `run --synthetic --mesh 2` within 2 mm of
+  JAX's `run_synthetic` through `Pipeline(cfg, mesh=make_mesh(2))`
+  (`serve --mesh 2` with images: tests/test_torch_vio_mesh_pipeline.py).
+- The command-line refusals word for word JAX's; missing cards refused
+  before any rank starts.
 """
 import os
 import threading
@@ -40,6 +43,12 @@ from test_torch_serve import KW, connect, events, read_lines
 # tests/test_mesh_product.py::_pipeline_cfg(False)'s capacities
 MESH_YAML = ("capacity: {max_raw_points: 8192, max_points: 4096, max_cands: 8192, "
              "vmap_points: 4096, frame_ring: 16}\n")
+# and _pipeline_cfg(True)'s camera settings, with its 320x256 camera
+LIVO_YAML = MESH_YAML + ("img_enable: 1\ngrid_size: 32\noutlier_threshold: 300\n"
+                         "img_point_cov: 100\ncamera: {Rcl: [0, -1, 0, 0, 0, -1, 1, 0, 0], "
+                         "Pcl: [0, 0, 0]}\n")
+CAM_YAML = ("cam_width: 320\ncam_height: 256\ncam_fx: 200\ncam_fy: 200\n"
+            "cam_cx: 159.5\ncam_cy: 127.5\n")
 SMALL_YAML = ("capacity: {max_points: 4096, max_raw_points: 8192, "
               "tiled_dir_dims: [32, 32, 16], tiled_pool: 1024}\n")
 
@@ -188,8 +197,31 @@ def test_cli_errors_match_jax(yamls, capsys, entry, argv):
     assert error_line(tmain, argv, capsys) == want
 
 
-def test_cli_refuses_camera_and_missing_cards(yamls, capsys):
-    msg = error_line(run.main, ["--synthetic", "--mesh", "2", "--device", "cpu"], capsys)
-    assert "--mesh with the camera" in msg and "VIO-mesh slice" in msg
+@pytest.fixture(scope="module")
+def livo_yamls(tmp_path_factory):
+    d = tmp_path_factory.mktemp("livo")
+    (d / "livo.yaml").write_text(LIVO_YAML)
+    (d / "cam.yaml").write_text(CAM_YAML)
+    return str(d / "livo.yaml"), str(d / "cam.yaml")
+
+
+def test_cli_refuses_camera_and_missing_cards(livo_yamls, yamls, tmp_path):
+    """The camera is no longer refused with a mesh: `run --synthetic
+    --mesh 2` in LIVO mode runs and stays within 2 mm of JAX's
+    run_synthetic through its mesh Pipeline. Missing cards are still
+    refused before any rank starts."""
+    cfg = jload_config(*livo_yamls)
+    pipe = JPipeline(cfg, mesh=jmake_mesh(2))
+    jrun_synthetic(pipe, 2.5, True)
+    want = pipe.tum_trajectory()
+    out = str(tmp_path / "traj.txt")
+    assert run.main(["--config", livo_yamls[0], "--camera", livo_yamls[1], "--synthetic",
+                     "--duration", "2.5", "--device", "cpu", "--mesh", "2",
+                     "--out", out]) == 0
+    traj = np.loadtxt(out)
+    assert traj.shape == want.shape and len(traj) >= 10
+    np.testing.assert_allclose(traj[:, 0], want[:, 0], rtol=0, atol=1e-9)
+    assert np.abs(traj[:, 1:4] - want[:, 1:4]).max() < 2e-3
+    assert pipe.vio.vmap.n_pts > 20
     with pytest.raises(ValueError, match="needs 2 cards"):
         run.main(["--config", yamls[1], "--synthetic", "--no-img", "--mesh", "2"])

@@ -12,9 +12,13 @@ package on the conftest's virtual CPU devices.
   `Pipeline(cfg, mesh=make_mesh(2))` on the same ~2 s of synthetic scans
   and IMU: positions within 1 mm, quaternions within 1e-5; the sharded
   run's per-rank pool is half the replicated one's.
-- The refusals: the camera with a mesh (it names the VIO-mesh slice), a
-  sharded map on another backend or restoring a checkpoint, and
-  `check_capacity` with JAX's messages.
+- The camera with a mesh: a LIVO Pipeline on a mesh of 2 holds the
+  visual map as JAX's does (the image pool and the observation rings
+  whole, or in per-rank slabs of JAX's shard shape with `sharded_map`),
+  and a sharded visual map without a mesh is refused (the whole camera
+  frame over a mesh: tests/test_torch_vio_mesh*.py).
+- The refusals: a sharded map on another backend or restoring a
+  checkpoint, and `check_capacity` with JAX's messages.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -199,10 +203,23 @@ def refusals():
 
 
 def test_camera_with_a_mesh_is_refused(refusals):
-    for key in ("camera", "vio_step"):
-        assert "VIO-mesh slice" in refusals[key], refusals[key]
-    assert refusals["camera"].startswith("ValueError: img_enable with a mesh")
-    assert refusals["vio_step"].startswith("NotImplementedError")
+    """The camera runs on a mesh now: each LIVO Pipeline of a world of 2
+    lays its visual map out as JAX's `Pipeline(cfg, mesh=make_mesh(2))`
+    does; what is still refused is a sharded visual map without a mesh
+    (JAX: `vmap_axis` without `axis_name`)."""
+    jmesh = jmake_mesh(2)
+    for sharded, got in zip((False, True), refusals["camera"]):
+        cfg = mesh_cfg(JConfig)
+        cfg.img_enable = True
+        jv = JPipeline(cfg, mesh=jmesh, sharded_map=sharded).vio
+        assert got["pool_sharded"] == jv.pool_sharded == sharded
+        for name in ("imgs", "obs_fid", "pos"):
+            shard = jv.vmap._asdict()[name].addressable_shards[0].data.shape
+            assert got[{"obs_fid": "obs"}.get(name, name)] == tuple(shard), name
+        assert got["on_mesh_device"]
+    assert refusals["camera"][1]["imgs"][0] * 2 == mesh_cfg(Config).capacity.frame_ring
+    assert refusals["pool_without_mesh"] == (
+        "ValueError: pool_sharded (the sharded visual map) requires a mesh")
 
 
 def test_sharded_map_refusals(refusals):

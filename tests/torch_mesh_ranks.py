@@ -1,5 +1,5 @@
 """Rank programs for the port's mesh tests (tests/test_torch_sharded*.py,
-test_torch_mesh_product.py).
+test_torch_mesh_product.py, test_torch_vio_mesh*.py).
 
 `fastlivo_tpu_torch.parallel.launch.launch` runs each in spawned gloo
 ranks on the CPU, which import this module by name: it imports torch,
@@ -20,6 +20,7 @@ from fastlivo_tpu_torch.parallel.product import MeshRunner
 from fastlivo_tpu_torch.parallel.sharded import (
     make_mesh, sharded_lio_update, sharded_scan_step)
 from fastlivo_tpu_torch.parallel.sharded_backend import ShardedTiledBackend
+from fastlivo_tpu_torch.visual_map import SLAB_FIELDS
 
 
 def t(a):
@@ -179,11 +180,14 @@ def pipelines_rank(rank, n, cfg, scans, imu):
 
 
 def refusals_rank(rank, n, cfg):
-    """The messages of what a mesh refuses: the camera, a sharded map on
-    another backend or restoring a checkpoint, the camera step, padded
-    capacities the mesh size does not divide."""
+    """The messages of what a mesh refuses (a sharded map on another
+    backend or restoring a checkpoint, padded capacities the mesh size
+    does not divide, a sharded visual map without a mesh), and the
+    camera's layout on a mesh: each LIVO Pipeline's pool and ring shapes
+    on this rank, replicated and with `sharded_map`."""
     import dataclasses
 
+    from fastlivo_tpu_torch import vio as tvio
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     mesh = make_mesh(n, device="cpu")
@@ -191,7 +195,7 @@ def refusals_rank(rank, n, cfg):
     def message(fn):
         try:
             fn()
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             return f"{type(e).__name__}: {e}"
         return None
 
@@ -200,17 +204,24 @@ def refusals_rank(rank, n, cfg):
         return c
 
     out = dict(
-        camera=message(lambda: Pipeline(dataclasses.replace(cfg, img_enable=True),
-                                        mesh=mesh)),
         backend=message(lambda: Pipeline(with_cap(map_backend="hash"), mesh=mesh,
                                          sharded_map=True)),
-        vio_step=message(lambda: MeshRunner(mesh).vio_frame_step()),
+        pool_without_mesh=message(lambda: tvio.select_tracked(
+            *[None] * 11, grid_size=32, patch_size=8, gw=1, gh=1, pool_sharded=True)),
         max_points=message(lambda: MeshRunner(mesh).check_capacity(
             with_cap(max_points=1001).capacity)),
         frame_ring=message(lambda: MeshRunner(mesh, sharded_map=True).check_capacity(
             with_cap(frame_ring=7).capacity)),
         frame_ring_replicated=message(lambda: MeshRunner(mesh).check_capacity(
             with_cap(frame_ring=7).capacity)))
+    livo = dataclasses.replace(cfg, img_enable=True)
+    out["camera"] = []
+    for sharded in (False, True):
+        v = Pipeline(livo, mesh=mesh, sharded_map=sharded).vio
+        out["camera"].append(dict(
+            pool_sharded=v.pool_sharded, imgs=tuple(v.vmap.imgs.shape),
+            obs=tuple(v.vmap.obs_fid.shape), pos=tuple(v.vmap.pos.shape),
+            on_mesh_device=v.device == mesh.device))
     pipe = Pipeline(cfg, mesh=mesh, sharded_map=True)
     out["warm_start"] = message(lambda: pipe.warm_start(pipe.state, pipe.map))
     out["profile"] = pipe._profile_stages(None, None, None, None)
@@ -230,3 +241,169 @@ def blockmap_step_rank(rank, n, world, mask, dims, pool, vs, state, prop, calib,
         torch.ones(len(scan), dtype=torch.bool), **kw)
     return dict(state=convert.state_to_arrays(st), shard=arrays(local2),
                 n_active=int(n_act), snap_tiles=int(snap_tiles))
+
+
+def vio_arrays(nt) -> dict:
+    return {f: v.numpy().copy() for f, v in nt._asdict().items()}
+
+
+def vio_stages_rank(rank, n, scenes, steps=False):
+    """Each stage of the camera frame over the mesh, on each scene (the
+    inputs tests/test_torch_vio_mesh.py makes): select_tracked with the
+    map replicated and with the pool in slabs, select_new_points, and on
+    a `full` scene the photometric cascade and sharded_photometric_update
+    on the scene's tracked set and the visual map's owner forms on this
+    rank's slabs; with `steps`, MeshRunner.vio_frame_step both ways
+    instead."""
+    from fastlivo_tpu_torch import vio as tvio
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.parallel.sharded import sharded_photometric_update
+
+    mesh = make_mesh(n, device="cpu")
+    out = []
+    for sc in scenes:
+        v = tvio.Vio(sc["cfg"], device="cpu")
+        whole = lambda: convert.visual_map_from_arrays(sc["vmap"], "cpu")  # noqa: E731
+        slabs = lambda: tvm.shard_slabs(whole(), rank, n)  # noqa: E731
+        kw = dict(grid_size=v.grid_size, patch_size=v.patch_size, gw=v.gw, gh=v.gh)
+        prior = convert.state_from_arrays(sc["prior"], "cpu")
+        if steps:
+            out.append(frame_steps(mesh, v, prior, whole, slabs, sc, kw))
+            continue
+        c0 = mesh.collectives
+        sel = (t(sc["rcw"]), t(sc["pcw"]), t(sc["gray"]), t(sc["pg"]), t(sc["pg_mask"]),
+               t(sc["vox"]), t(sc["vox_mask"]), v._out_thre_dev, v._ncc_thre_dev)
+        r = dict(tracked={})
+        for pool in (False, True):
+            ts = tvio.select_tracked(slabs() if pool else whole(), v.cam, *sel, **kw,
+                                     mesh=mesh, pool_sharded=pool)
+            r["tracked"][pool] = vio_arrays(ts)
+        r["new"] = numpy(tvio.select_new_points(
+            v.cam, *sel[:5], t(sc["cell_value"]), **kw, mesh=mesh))
+        r["select_collectives"] = mesh.collectives - c0
+        tr = [t(sc["tracked"][f]) for f in ("pos", "patch", "search_level", "valid")]
+        if not sc["full"]:  # the selection stages only
+            out.append(r)
+            continue
+        rows = [mesh.slab(a) for a in tr]
+        c0 = mesh.collectives
+        st, G, perr, err, its = tvio.photometric_update_levels(
+            prior, prior, v.cam, t(sc["gray"]), *rows, v.Rci, v.Pci, v.Jdphi_dR,
+            v.Jdp_dR, img_point_cov=v._ipc_dev, patch_size=v.patch_size,
+            max_iter=sc["cfg"].max_iteration, mesh=mesh)
+        r["photo"] = dict(state=convert.state_to_arrays(st), G=G.numpy(),
+                          perr=perr.numpy(), err=float(err), iters=its,
+                          collectives=mesh.collectives - c0)
+        st, G, perr, err, its = sharded_photometric_update(
+            mesh, prior, prior, v.cam, t(sc["gray"]), *tr, v.Rci, v.Pci, v.Jdphi_dR,
+            v.Jdp_dR, float(sc["cfg"].img_point_cov), v.patch_size, level=0,
+            max_iter=4)
+        r["photo1"] = dict(state=convert.state_to_arrays(st), G=G.numpy(),
+                           perr=perr.numpy(), err=float(err), iters=its)
+        r["ops"] = visual_ops(mesh, slabs, sc["ops"])
+        out.append(r)
+    return out
+
+
+def frame_steps(mesh, v, prior, whole, slabs, sc, kw):
+    """MeshRunner.vio_frame_step with the map replicated and in slabs."""
+    r = {}
+    for pool in (False, True):
+        runner = MeshRunner(mesh, sharded_map=pool)
+        vm = slabs() if pool else whole()
+        o = runner.vio_frame_step(
+            vm, v.cam, prior, prior, t(sc["gray"]), t(sc["meta"]), t(sc["cloud"]),
+            v.Rci, v.Pci, v.Jdphi_dR, v.Jdp_dR, v._out_thre_dev, v._ncc_thre_dev,
+            v._ipc_dev, **kw, ncc_en=False, max_iter=sc["cfg"].max_iteration,
+            max_pg=v.max_pg)
+        r[pool] = dict(state=convert.state_to_arrays(o[0]), vmap=vio_arrays(o[1]),
+                       idx=o[2].numpy(), valid=o[3].numpy(), perr=o[5].numpy(),
+                       iters=o[9], stats=o[10].numpy())
+    return r
+
+
+def visual_ops(mesh, slabs, a):
+    """visual_map's owner forms on this rank's slabs of the scene's map:
+    the slot refcounts, the ring gather, the push slot and push, a point
+    batch, the close-view choice, an observation batch and compaction."""
+    from fastlivo_tpu_torch import visual_map as tvm
+
+    fid = torch.tensor(a["fid"], dtype=torch.int32)
+    r = dict(refs=tvm._live_slot_refs(slabs(), mesh).numpy(),
+             gather=numpy(tvm._gather_obs(slabs(), t(a["idx"]), mesh)),
+             slot=int(tvm.push_slot(slabs(), fid, mesh)))
+    r["push"] = vio_arrays(tvm.push_image(slabs(), t(a["img"]), fid, mesh))
+    r["add_points"] = vio_arrays(tvm.add_points(
+        slabs(), t(a["pts"]), t(a["px"]), t(a["rcw"]), t(a["pcw"]), t(a["value"]), fid,
+        t(a["mask"]), mesh=mesh))
+    cv = tvm.close_view_obs(slabs(), t(a["idx"]), t(a["campos"]), mesh)
+    r["close_view"] = {k: v.numpy() for k, v in cv.items()}
+    r["add_observations"] = vio_arrays(tvm.add_observations(
+        slabs(), t(a["obs_idx"]), t(a["obs_px"]), t(a["rcw"]), t(a["pcw"]),
+        t(a["obs_value"]), fid, t(a["obs_level"]), t(a["obs_mask"]), mesh))
+    r["compact"] = vio_arrays(tvm.compact(slabs(), t(a["center"]),
+                                          torch.tensor(a["radius"]), mesh))
+    return r
+
+
+def livo_pipelines_rank(rank, n, cfg, scans, imu, images, ckpt_path, staged):
+    """A LIVO Pipeline over the mesh with the map replicated, then with
+    the map sharded and the visual map in slabs, on the same stream. Per
+    run: the trajectory and counts of replay_rank's kind, the whole
+    visual map (gathered), the load-factor compaction forced through
+    Pipeline._maybe_rebuild (its whole map), a camera frame through
+    Vio.update_staged (`staged`: a host world cloud and an image; the
+    state and the whole map after it), and, sharded, a checkpoint
+    written by rank 0 to `ckpt_path` (every rank joins its gathers)."""
+    from fastlivo_tpu_torch import pipeline as pl
+    from fastlivo_tpu_torch.io import checkpoint as ckpt
+
+    mesh = make_mesh(n, device="cpu")
+    out = []
+    for sharded in (False, True):
+        pipe = pl.Pipeline(cfg, mesh=mesh, sharded_map=sharded)
+        for beg, pts, t_rel in scans:
+            pipe.push_lidar(beg, pts, t_rel)
+        for t_, acc, gyr in imu:
+            pipe.push_imu(t_, acc, gyr)
+        for t_, img in images:
+            pipe.push_img(t_, img)
+        c0 = mesh.collectives
+        outs = pipe.spin() + pipe.finish()
+        vm = pipe.vio.vmap
+        r = dict(t=np.array([o.t for o in outs]), pos=np.array([o.pos for o in outs]),
+                 quat=np.array([o.quat for o in outs]), vio_steps=pipe.vio.steps,
+                 collectives=mesh.collectives - c0,
+                 vmap_bytes=sum(x.numel() * x.element_size() for x in vm),
+                 slab_bytes=sum(getattr(vm, f).numel() * getattr(vm, f).element_size()
+                                for f in SLAB_FIELDS),
+                 imgs_rows=vm.imgs.shape[0], obs_rows=vm.obs_fid.shape[0],
+                 state_pos=pipe.state.pos.numpy().copy(),
+                 whole=vio_arrays(pipe.vio.whole_vmap()))
+        if sharded:
+            arrays = pipe.checkpoint_arrays()
+            if rank == 0:
+                ckpt.write(ckpt_path, arrays)
+        # the visual map's load-factor compaction, forced
+        pipe._frames_since_rebuild_check = pl.REBUILD_CHECK_EVERY - 1
+        pipe.vio._n_pts_host = cfg.capacity.vmap_points
+        pipe._maybe_rebuild()
+        r["compacted"] = vio_arrays(pipe.vio.whole_vmap())
+        r["compacted_rows"] = pipe.vio.vmap.obs_fid.shape[0]
+        cloud, img = staged
+        pipe.vio.set_last_cloud(cloud)
+        st = pipe.vio.update_staged(pipe.state, pipe.state, img)
+        r["staged"] = dict(state=convert.state_to_arrays(st), stats=pipe.vio.last_stats,
+                           whole=vio_arrays(pipe.vio.whole_vmap()),
+                           obs_rows=pipe.vio.vmap.obs_fid.shape[0])
+        out.append(r)
+    return out
+
+
+def livo_mesh_rank(rank, n, cfg, scans, imu, images, device=None):
+    """parallel.launch.replay_rank with images, with the map replicated
+    and then sharded (the visual map in slabs)."""
+    from fastlivo_tpu_torch.parallel.launch import replay_rank
+
+    return [replay_rank(rank, n, cfg, scans, imu, device, sharded, images)
+            for sharded in (False, True)]
