@@ -37,12 +37,16 @@ with the camera and its checkpoint. The tiled-map paths
 run the fused kernels: the LIO search in one launch (`knn5_plane_tiled`)
 and each photometric iteration's measurement in one launch
 (`photometric_err_H`, also on the staged path and in every rank of the
-mesh runs); the hash, dense and
-`cache_knn` paths search through the standalone `knn5_plane`; each
-path's launches are counted around it. The standalone
-`patches_and_grads` is held against its plain version but is not on the
-paths. The hash and dense maps' operations run on the card and on the
-CPU on the same seeded points and must agree in every array; `rebuild`
+mesh runs); the hash and dense paths search in one launch too
+(`knn5_plane_hashed`, the map walk fused in; no `knn_candidates` call),
+and `cache_knn` re-ranks its one gather per frame with the standalone
+`knn5_plane` (slab-staged through TMA bulk copies); each path's launches
+are counted around it. The fused hash and dense searches and
+`knn5_plane` are also held against their plain versions on those
+paths' maps and timed there. The standalone `patches_and_grads` is held
+against its plain version but is not on the paths. The hash and dense
+maps' operations run on the card and on the CPU on the same seeded
+points and must agree in every array; `rebuild`
 is timed at the shipped table. Each path's trajectory is checked against
 the per-frame path and the synthetic ground truth, and the port on the
 card against the port on the CPU on a small input. Both per-frame paths
@@ -74,7 +78,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 # every csrc/*.cu of the port
-CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane", "photometric_err_H", "patches_and_grads"]
+CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
+                "patches_and_grads"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -272,16 +277,24 @@ def patches_phase(dev):
 
 
 def kernel_phase(dev, n=16384, m=27):
-    """knn5_plane against knn5_plane_plain on a seeded block at the main
-    path's shape. These launches are not the path's."""
+    """knn5_plane against knn5_plane_plain on seeded blocks at the main
+    path's shape, M = 27, and at M = 125 with a ragged last slab (N - 5
+    queries): bit-exact, so also within the contract. These launches are
+    not the path's."""
     from fastlivo_tpu_torch.ops import knn_plane
 
-    cand, found, q = (torch.from_numpy(a).to(dev) for a in random_block(n, m))
-    got = knn_plane.knn5_plane(cand, found, q)
-    torch.cuda.synchronize()
-    want = knn_plane.knn5_plane_plain(cand, found, q)
-    err = knn5_contract(got, want, min_both=n // 4)
-    print(f"knn5_plane random block N={n} M={m}: contract ok, max_abs_err={err:.3g}")
+    err = 0.0
+    for mm, nn in ((m, n), (125, n - 5)):
+        cand, found, q = (torch.from_numpy(a).to(dev) for a in random_block(nn, mm))
+        got = knn_plane.knn5_plane(cand, found, q)
+        torch.cuda.synchronize()
+        want = knn_plane.knn5_plane_plain(cand, found, q)
+        err = max(err, knn5_contract(got, want, min_both=nn // 4))
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"knn5_plane random block N={nn} M={mm}: contract ok, bit-exact {exact}, "
+              f"max_abs_err={err:.3g}")
+        if not exact:
+            raise AssertionError(f"knn5_plane M={mm} is not bit-exact")
     return err
 
 
@@ -319,18 +332,19 @@ def check_composition(counts, fused, pairs, where):
 @contextlib.contextmanager
 def unfused():
     """The paths as they ran before the fused kernels: the LIO search as
-    tiled_map.knn_candidates + the standalone knn5_plane kernel, each
-    photometric measurement as the plain body sampling through the
-    standalone patches_and_grads kernel."""
+    the map's knn_candidates + the standalone knn5_plane kernel (tiled,
+    hash and dense), each photometric measurement as the plain body
+    sampling through the standalone patches_and_grads kernel."""
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
-    from fastlivo_tpu_torch.ops import tiled_map as tm
 
-    def search(m, pw, radius, threshold):
-        return knn_plane.knn5_plane(*tm.knn_candidates(m, pw, radius), pw, threshold)
+    def search(m, pw, radius, threshold, max_probe):
+        mod = lio.map_module(m)
+        return knn_plane.knn5_plane(*mod.knn_candidates(m, pw, radius, max_probe), pw,
+                                    threshold)
 
     with contextlib.ExitStack() as stack:
-        stack.enter_context(swapped(lio, "knn5_plane_tiled", search))
+        stack.enter_context(swapped(lio, "knn5_plane_search", search))
         stack.enter_context(swapped(vio, "photometric_err_H",
                                     photometric.photometric_err_H_plain))
         stack.enter_context(unsampled_plain())
@@ -348,20 +362,21 @@ def spy(module, name, calls: list):
     return swapped(module, name, wrapped)
 
 
-def reset_counts():
+def counted_wrappers():
+    """Every kernel wrapper of the port, each with its launch count."""
     from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
 
-    for fn in (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane,
-               photometric.photometric_err_H, patches_grads.patches_and_grads):
+    return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
+            photometric.photometric_err_H, patches_grads.patches_and_grads)
+
+
+def reset_counts():
+    for fn in counted_wrappers():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
-
-    return {fn.__name__: fn.launches for fn in (
-        knn_plane.knn5_plane_tiled, knn_plane.knn5_plane,
-        photometric.photometric_err_H, patches_grads.patches_and_grads)}
+    return {fn.__name__: fn.launches for fn in counted_wrappers()}
 
 
 def tiled_check(m, q, label):
@@ -584,7 +599,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     searches = []
     torch.cuda.synchronize()
     reset_counts()
-    with spy(lio, "knn5_plane_tiled", searches):
+    with spy(lio, "knn5_plane_search", searches):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -607,7 +622,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     if len(outs) < 40 or len(steady) < 30:
         raise AssertionError(f"too few frames: {len(outs)} ({len(steady)} steady)")
     if (launches["knn5_plane_tiled"] != len(searches) or len(searches) < len(steady)
-            or launches["knn5_plane"] or launches["patches_and_grads"]):
+            or launches["knn5_plane"] or launches["knn5_plane_hashed"]
+            or launches["patches_and_grads"]):
         raise AssertionError(f"launches {launches} for {len(searches)} searches, "
                              f"{len(steady)} steady frames")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
@@ -696,7 +712,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     searches, measurements = [], []
     torch.cuda.synchronize()
     reset_counts()
-    with spy(lio, "knn5_plane_tiled", searches), \
+    with spy(lio, "knn5_plane_search", searches), \
             spy(vio_mod, "photometric_err_H", measurements):
         t0 = time.perf_counter()
         outs = pipe.spin()
@@ -727,7 +743,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"visual map {n_pts} points, last {vio.last_stats}")
     if len(measurements) < 3 * vio.steps or len(searches) < len(steady):
         raise AssertionError(f"{len(measurements)} measurements, {len(searches)} searches")
-    want = {"knn5_plane_tiled": len(searches), "knn5_plane": 0,
+    want = {"knn5_plane_tiled": len(searches), "knn5_plane_hashed": 0, "knn5_plane": 0,
             "photometric_err_H": len(measurements), "patches_and_grads": 0}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
@@ -1317,13 +1333,15 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
     probe 12), (b) the dense grid (256 x 256 x 64), (c) tiled with
     `cache_knn`, (d) tiled with `plane_fit: ref`, (e) tiled with
     `profile_every` 8, (f) BlockReplayer(8) on the hash map. The hash,
-    dense, cache_knn and hash-block paths must search through the
-    standalone knn5_plane kernel and never the tiled one; plane_fit ref
-    through neither; profile_every must leave the per-frame outputs
+    dense and hash-block paths must search through their fused kernel
+    knn5_plane_hashed alone (no knn5_plane, no tiled kernel, no call of
+    the backend's knn_candidates); cache_knn through knn5_plane alone,
+    with one knn_candidates gather per frame that ran the EKF; plane_fit
+    ref through no kernel; profile_every must leave the per-frame outputs
     unchanged in every bit; every ATE < 2 cm. Checkpoints the hash and
     dense estimators. Returns ({path: (ms per frame, launches)}, {path:
-    its other numbers}, the hash path's pipeline, {map: checkpoint
-    numbers})."""
+    its other numbers}, {"hash": the hash path's pipeline, "dense": the
+    dense path's}, {map: checkpoint numbers})."""
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_map as vm
@@ -1336,7 +1354,7 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
             ("tiled plane_fit ref", lio_config(plane_fit="ref"), None, 0),
             ("tiled profile_every 8", lio_config(), None, 8),
             ("hash BlockReplayer(8)", lio_config(map_backend="hash"), BlockReplayer, 0)]
-    paths, extra, ckpts, hash_pipe = {}, {}, {}, None
+    paths, extra, ckpts, pipes = {}, {}, {}, {}
     t_max = ref[frames].t
     for name, cfg, rep, every in runs:
         cap = cfg.capacity
@@ -1355,24 +1373,28 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
         d, ate = max_diff(outs, pref), ate_of(outs, ds)
         ms = wall / len(outs)
         k, kt = launches["knn5_plane"], launches["knn5_plane_tiled"]
+        kh, ng = launches["knn5_plane_hashed"], len(gathers)
         print(f"{name}: {len(outs)} frames ({len(steady)} steady), {ms:.2f} ms/lidar frame "
               f"(tiled per-frame {ref_ms:.2f}), median steady frame {np.median(steady):.2f} ms, "
               f"ATE {ate * 1e3:.3f} mm, max position difference to tiled per-frame "
-              f"{d * 1e3:.4f} mm, knn5_plane {k}, knn5_plane_tiled {kt}, {len(gathers)} "
-              f"candidate gathers ({cap.map_backend} map, cache_knn {cap.cache_knn}, "
-              f"plane_fit {cap.plane_fit}); {nvidia_smi_line()}")
+              f"{d * 1e3:.4f} mm, knn5_plane_hashed {kh}, knn5_plane {k}, knn5_plane_tiled "
+              f"{kt}, {ng} candidate gathers ({cap.map_backend} map, cache_knn "
+              f"{cap.cache_knn}, plane_fit {cap.plane_fit}); {nvidia_smi_line()}")
         if cap.plane_fit == "ref":
-            ok = k == 0 and kt == 0
+            ok = k == 0 and kt == 0 and kh == 0
         elif every:
-            ok = kt > 0 and k == 0 and same_outputs(outs, pref)
+            ok = kt > 0 and k == 0 and kh == 0 and same_outputs(outs, pref)
             print(f"{name}: last_stage_profile {pipe.last_stage_profile} ms, outputs "
                   f"bit-identical to per-frame: {same_outputs(outs, pref)}")
             ok = ok and set(pipe.last_stage_profile or ()) == {
                 "undistort", "downsample", "ekf", "map"}
-        else:
-            ok = k > 0 and kt == 0
+        elif cap.cache_knn:
+            ok = k > 0 and kt == 0 and kh == 0 and len(steady) <= ng <= len(outs)
+        else:  # hash, dense, hash BlockReplayer(8)
+            ok = kh >= len(steady) and k == 0 and kt == 0 and ng == 0
         if not ok or not ate < 0.02:
-            raise AssertionError(f"{name}: launches {launches}, ATE {ate:.4f} m")
+            raise AssertionError(f"{name}: launches {launches}, {ng} candidate gathers, "
+                                 f"ATE {ate:.4f} m")
         paths[name] = (ms, launches)
         extra[name] = {"median_steady_ms": float(np.median(steady)), "ate_mm": ate * 1e3,
                        "max_diff_to_tiled_mm": d * 1e3, "candidate_gathers": len(gathers)}
@@ -1380,10 +1402,9 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
             extra[name]["last_stage_profile_ms"] = pipe.last_stage_profile
         if name in ("hash", "dense"):
             ckpts[name] = checkpoint_roundtrip(pipe, dev, f"lio {name}")
-        if name == "hash":
-            hash_pipe = pipe
+            pipes[name] = pipe
         del pipe
-    return paths, extra, hash_pipe, ckpts
+    return paths, extra, pipes, ckpts
 
 
 def colliding_voxels(T: int):
@@ -1466,35 +1487,171 @@ def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
     return rb_ms, occ
 
 
-def hash_block_phase(pipe, n=16384, m=27):
-    """The standalone knn5_plane on the hash path's own candidate block:
-    the last scan's EKF batch (N = 16384) at the posterior, M = 27
-    neighbourhood voxels from voxel_map.knn_candidates. Against its plain
-    version (the contract, and whether bit-exact), timed beside its
-    bound, its plain version and the block's knn_candidates. These
-    launches are not the path's. Returns (max_abs_err, ms, plain ms,
-    bound ms, bound by, knn_candidates ms)."""
-    from fastlivo_tpu_torch.ops import knn_plane
+MIX_OPS = 29  # hash_mix.cuh's mix3: three murmur finalizers (8 each) and the chain (5)
+
+
+def hashed_bound_ms(m, q, radius: int = 1, max_probe: int = 12):
+    """Least time for knn5_plane_hashed on these inputs: the queries, each
+    distinct check word the rows probe (4 B) and each distinct found point
+    (12 B) read once, 21 B written per query, over HBM bandwidth; against
+    the operations these inputs need, counted from the kernel's source,
+    over the float32 rate (integer operations run no faster): per query
+    its voxel (6) and the fit and gate of plane_fit.cuh (260); per
+    candidate row the murmur mix of its voxel (MIX_OPS; the key varies per
+    row), its offset sums and slot or cell index (hash 6, dense 12) and
+    one compare in each of the 5 selection rounds; per probe actually
+    taken its compare and advance (3; a hash row stops at its first match,
+    a missing voxel takes all `max_probe`; a dense row takes one); per
+    found row its squared distance (8). Returns (ms, "bytes" |
+    "operations", (distinct probed words, distinct found points, probes
+    taken, found rows))."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
+    cand = vm.voxel_of(q, m.voxel_size)[:, None, :] + vm.neighbor_offsets(radius, q.device)
+    n, M = cand.shape[:2]
+    if isinstance(m, dm.DenseMap):
+        cell, chk = dm._cell_check(m, cand)
+        cell = cell.long()
+        found = m.check[cell] == chk
+        words, res, probes, index_ops = torch.unique(cell).numel(), cell, n * M, 12
+    else:
+        mask = m.check.shape[0] - 1
+        slot, chk = vm._slot_check(cand, mask)
+        slot = slot.long()
+        found = torch.zeros_like(slot, dtype=torch.bool)
+        res = torch.zeros_like(slot)
+        probed, probes = [], 0
+        for _ in range(max_probe):
+            active = ~found
+            probed.append(slot[active])
+            probes += int(active.sum())
+            hit = (m.check[slot] == chk) & active
+            res = torch.where(hit, slot, res)
+            found |= hit
+            slot = (slot + 1) & mask
+        words, index_ops = torch.unique(torch.cat(probed)).numel(), 6
+    n_found = int(found.sum())
+    uniq = (words, torch.unique(res[found]).numel(), probes, n_found)
+    nbytes = n * (12 + 21) + uniq[0] * 4 + uniq[1] * 12 + M * 12
+    ops = (n * (6 + 260) + n * M * (MIX_OPS + index_ops + 5) + 3 * probes
+           + 8 * n_found)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
+
+
+def search_kernels(pipe, fused: bool, calls: int = 3) -> float:
+    """Device kernels under `lio.search` in one lidar frame's EKF: the
+    mean over `calls` lio_update calls on the pipeline's map, state and
+    last scan (without `fused`, through the unfused composition), under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastlivo_tpu_torch import lio
+
+    cap, cfg = pipe.cfg.capacity, pipe.cfg
+    down, _active = pipe.last_effect
+    pmask = torch.ones(down.shape[0], dtype=torch.bool, device=down.device)
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        if not fused:
+            stack.enter_context(unfused())
+        prof = stack.enter_context(
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        for _ in range(calls):
+            lio.lio_update(pipe.state, pipe.map, down, pmask, pipe.calib.lid_rot,
+                           pipe.calib.lid_off, laser_point_cov=float(cfg.laser_point_cov),
+                           max_iter=cfg.max_iteration, knn_radius=cap.knn_voxel_radius,
+                           plane_fit=cap.plane_fit, cache_knn=cap.cache_knn,
+                           max_probe=cap.max_probe)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    check_composition(counts, fused, [("knn5_plane_hashed", "knn5_plane")],
+                      f"{cap.map_backend} search profile")
+    launched = counts["knn5_plane_hashed"] + counts["knn5_plane"]
+    n_k, _linked = kernels_in(prof, "lio.search", launched)
+    return n_k / calls
+
+
+def hashed_phase(pipes, n=16384, m=27) -> dict:
+    """The fused search on the hash and dense paths' own maps and last
+    scans (the EKF batch, N = 16384, at the posterior): bit-exact against
+    its plain composition at M = 27 and 125, timed at M = 27 beside its
+    bound, its plain version and the unfused pair it replaced (the
+    backend's knn_candidates + the knn5_plane kernel). Then the
+    slab-staged knn5_plane on the hash path's candidate block (M = 27):
+    bit-exact against its plain version, timed beside its bound, its plain
+    version and the block's knn_candidates. Then the device kernels under
+    `lio.search` in one lidar frame's EKF on the hash map, fused and
+    unfused. These launches are not the paths'. Returns {"hash": ...,
+    "dense": ..., "knn5_plane": ..., "search_kernels_per_frame": ...}."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import knn_plane
+
+    smi, out = nvidia_smi_line(), {}
+    for name in ("hash", "dense"):
+        pipe = pipes[name]
+        mp, probe = pipe.map, pipe.cfg.capacity.max_probe
+        mod = lio.map_module(mp)
+        q = real_queries(pipe, n)
+        err = 0.0
+        for radius in (1, 2):
+            got = knn_plane.knn5_plane_hashed(mp, q, radius, 0.1, probe)
+            torch.cuda.synchronize()
+            want = knn_plane.knn5_plane_hashed_plain(mp, q, radius, 0.1, probe)
+            e = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"knn5_plane_hashed {name} path map N={n} M={(2 * radius + 1) ** 3}: "
+                  f"max_abs_err={e:.3g}, bit-exact {same}, {int(want[1].sum())} planes")
+            if not same:
+                raise AssertionError(f"knn5_plane_hashed {name} radius {radius} differs by {e}")
+            err = max(err, e)
+        ms = time_ms(lambda: knn_plane.knn5_plane_hashed(mp, q, 1, 0.1, probe))
+        pair_ms = time_ms(lambda: knn_plane.knn5_plane(
+            *mod.knn_candidates(mp, q, 1, probe), q, 0.1))
+        plain_ms = time_ms(lambda: knn_plane.knn5_plane_hashed_plain(mp, q, 1, 0.1, probe))
+        bound_ms, bound_by, uniq = hashed_bound_ms(mp, q, 1, probe)
+        print(f"knn5_plane_hashed N={n} M={m} on the {name} path map: kernel {ms:.4f} ms, "
+              f"unfused pair (knn_candidates + knn5_plane kernel) {pair_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; distinct probed "
+              f"words, found points, probes taken, found rows {uniq}), library none; {smi}")
+        out[name] = {"ms": ms, "pair_ms": pair_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err, "probed_words": uniq[0],
+                     "found_points": uniq[1], "probes": uniq[2], "found_rows": uniq[3]}
+
+    pipe = pipes["hash"]
+    mp, probe = pipe.map, pipe.cfg.capacity.max_probe
     q = real_queries(pipe, n)
-    probe = pipe.cfg.capacity.max_probe
-    cand, found = vm.knn_candidates(pipe.map, q, 1, probe)
+    mod = lio.map_module(mp)
+    cand, found = mod.knn_candidates(mp, q, 1, probe)
     got = knn_plane.knn5_plane(cand, found, q)
     torch.cuda.synchronize()
     want = knn_plane.knn5_plane_plain(cand, found, q)
     err = knn5_contract(got, want, min_both=1000)
     exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    if not exact:
+        raise AssertionError("knn5_plane on the hash path's block is not bit-exact")
     ms = time_ms(lambda: knn_plane.knn5_plane(cand, found, q))
     plain_ms = time_ms(lambda: knn_plane.knn5_plane_plain(cand, found, q))
-    cand_ms = time_ms(lambda: vm.knn_candidates(pipe.map, q, 1, probe))
+    cand_ms = time_ms(lambda: mod.knn_candidates(mp, q, 1, probe))
     bound_ms, bound_by = knn5_bound_ms(n, m)
     print(f"knn5_plane N={n} M={m} on the hash path's block ({int(found.sum())} found "
-          f"candidates, {int(want[1].sum())} planes): contract ok, bit-exact {exact}, "
+          f"candidates, {int(want[1].sum())} planes): bit-exact {exact}, "
           f"max_abs_err={err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), the block's knn_candidates {cand_ms:.4f} ms, "
-          f"library none; {nvidia_smi_line()}")
-    return err, ms, plain_ms, bound_ms, bound_by, cand_ms
+          f"{bound_ms:.5f} ms ({bound_by}), the block's knn_candidates {cand_ms:.4f} ms, "
+          f"library none; {smi}")
+    out["knn5_plane"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": err,
+                         "knn_candidates_ms": cand_ms}
+    del cand, found, got, want
+    k = {"unfused": search_kernels(pipe, False), "fused": search_kernels(pipe, True)}
+    print(f"device kernels under lio.search per lidar frame's EKF on the hash map: unfused "
+          f"{k['unfused']:.1f}, fused {k['fused']:.1f}")
+    if not k["fused"] < k["unfused"]:
+        raise AssertionError(f"the fused search did not cut the kernel count: {k}")
+    out["search_kernels_per_frame"] = k
+    return out
 
 
 def warmup_phase(dev, duration=2.0, points_per_scan=24000):
@@ -2239,15 +2396,17 @@ def main() -> int:
         del pipe, cand, found, got, want
         torch.cuda.empty_cache()
     # the other map backends and LIO options on the same LIO dataset; the
-    # standalone knn5_plane on the hash path's block; the maps' operations
+    # fused hash and dense searches and the standalone knn5_plane on their
+    # paths' maps; the maps' operations
     paths = {"lio per-frame": (lio_ms, lio_launches)}
     with phase("backends (a)-(f)"):
-        backend_paths, path_extra, hash_pipe, backend_ckpts = backend_paths_phase(
+        backend_paths, path_extra, backend_pipes, backend_ckpts = backend_paths_phase(
             dev, lio_ds, lio_outs, lio_ms)
         paths.update(backend_paths)
-        err_hash, ms, plain_ms, bound_ms, bound_by, cand_ms = hash_block_phase(hash_pipe, n, m)
-        err = max(err, err_hash)
-        del hash_pipe
+    with phase("hash and dense search kernels"):
+        hashed = hashed_phase(backend_pipes, n, m)
+        err = max(err, hashed["knn5_plane"]["max_abs_err"])
+        del backend_pipes
         torch.cuda.empty_cache()
     with phase("map ops"):
         rebuild_ms, rebuild_occ = map_ops_phase(dev)
@@ -2305,11 +2464,12 @@ def main() -> int:
         cpu_agreement(dev)
         livo_cpu_agreement(dev)
     with phase("profiles"):
-        # the unfused runs only count kernels: 5 profiled frames each
-        search_k = [profile_phase(dev, fused=False, duration=3.5),
-                    profile_phase(dev, fused=True)]
-        photo_k = [livo_profile_phase(dev, fused=False, duration=3.5),
-                   livo_profile_phase(dev, fused=True)]
+        # the unfused runs only count kernels: 3 profiled frames each; the
+        # fused ones 10
+        search_k = [profile_phase(dev, fused=False, duration=3.3),
+                    profile_phase(dev, fused=True, duration=4.0)]
+        photo_k = [livo_profile_phase(dev, fused=False, duration=3.3),
+                   livo_profile_phase(dev, fused=True, duration=4.0)]
     print(f"device kernels under lio.search per steady lidar frame: unfused {search_k[0]:.1f}, "
           f"fused {search_k[1]:.1f}; under vio.photometric per camera frame: unfused "
           f"{photo_k[0]:.1f}, fused {photo_k[1]:.1f}")
@@ -2323,7 +2483,7 @@ def main() -> int:
         "livo_checkpoint": dict(zip(ck_keys, livo_ckpt)),
         **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
         "hash_rebuild": {"ms": rebuild_ms, "occupancy": rebuild_occ},
-        "hash_block_knn_candidates_ms": cand_ms,
+        "hashed_search": hashed,
         "native": native_nums,
         "phase_seconds": seconds,
         "nvidia_smi": smi}))
@@ -2344,11 +2504,24 @@ def main() -> int:
         "ms": ph_ms, "plain_ms": ph_plain_ms, "bound_ms": ph_bound_ms,
         "bound_by": ph_bound_by, "library_ms": None, "mesh_launches": ph_mesh_launches,
     }, {
+        "name": "knn5_plane_hashed", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/knn5_plane_hashed.cu",
+        "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
+        "launches": backend_paths["hash"][1]["knn5_plane_hashed"],
+        "max_abs_err": max(hashed["hash"]["max_abs_err"], hashed["dense"]["max_abs_err"]),
+        "ms": hashed["hash"]["ms"], "plain_ms": hashed["hash"]["plain_ms"],
+        "bound_ms": hashed["hash"]["bound_ms"], "bound_by": hashed["hash"]["bound_by"],
+        "library_ms": None, "unfused_pair_ms": hashed["hash"]["pair_ms"],
+        "dense": {k: hashed["dense"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "pair_ms")},
+        "launches_per_path": {k: backend_paths[k][1]["knn5_plane_hashed"] for k in (
+            "hash", "dense", "hash BlockReplayer(8)")},
+    }, {
         "name": "knn5_plane", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
-        "launches": backend_paths["hash"][1]["knn5_plane"], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "launches": backend_paths["tiled cache_knn"][1]["knn5_plane"], "max_abs_err": err,
+        **{k: hashed["knn5_plane"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }, {
         "name": "patches_and_grads", "route": "cuda",

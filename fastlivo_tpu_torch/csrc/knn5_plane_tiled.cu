@@ -11,7 +11,7 @@
 //   directory index and the 31-bit tile hash (_tile_of, _dir_of,
 //   _check31 with its murmur mix, bit-identical) -> directory hit when
 //   dir_check == hash, pool cell live when cell_check == hash -> squared
-//   distance to the stored point, BIG where missing -> five rounds of
+//   distance to the stored point, KNN5_BIG where missing -> five rounds of
 //   min-select, ties to the lowest row -> the plane fit and gate of
 //   plane_fit.cuh.
 // Outputs as knn5_plane.cu: pabcd (N, 4), plane_ok (N,), nd2_5 (N,).
@@ -19,13 +19,14 @@
 // Design: a group of L lanes per query (L = 4 at M = 27, eight queries
 // per warp; L = 16 at M = 125), lane j of a group owning candidate rows
 // j, j + L, j + 2L, ... (7 or 8 rows). Each lane walks directory -> pool
-// for its rows
-// itself, so the (N, M, 3) candidate block and its (N, M) index and mask
-// tensors of the unfused path are never written; a lane reads a pool
-// cell and its point only where its directory entry matched. A round of the top-5 is a local strict-`<` scan
-// over the lane's rows and a butterfly over the group (__shfl_xor_sync)
-// on (d2, row), the lower row winning a tie; the owning lane hands the
-// winner's point over with __shfl_sync. Every lane of a group then
+// for its rows itself, so the (N, M, 3) candidate block and its (N, M)
+// index and mask tensors of the unfused path are never written; a lane
+// reads a pool cell and its point only where its directory entry
+// matched. The top-5 is knn5_select.cuh's group selection (a strict-`<`
+// scan over the lane's rows, a butterfly over the group on (d2, row),
+// the lower row winning a tie), the tile hash hash_mix.cuh's murmur
+// chain; both are shared with the other 5-NN kernels. Every lane of a
+// group then
 // evaluates the fit, so one pass of the fit's instructions (the bulk of
 // a query's: acosf, cosf, two divisions and a square root, unfused
 // multiply-adds) serves eight queries at M = 27; the group's first lane
@@ -49,31 +50,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash_mix.cuh"
+#include "knn5_select.cuh"
 #include "plane_fit.cuh"
 
 namespace {
 
-constexpr float BIG = 3.0e37f;
 constexpr int TC = 512;  // cells per tile
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// voxel_map._check31: the chained murmur mix of a tile coordinate, low 31
-// bits (uint32 arithmetic wraps as the plain version's masked int64 does)
-__device__ __forceinline__ int32_t check31(int32_t x, int32_t y, int32_t z) {
-  uint32_t h = fmix32((uint32_t)x * 0x9E3779B1u);
-  h = fmix32(h ^ ((uint32_t)y * 0x85EBCA77u));
-  h = fmix32(h ^ ((uint32_t)z * 0xC2B2AE3Du));
-  return (int32_t)(h & 0x7FFFFFFFu);
-}
 
 template <int M, int L>
 __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
@@ -86,9 +69,7 @@ __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
     float threshold) {
   constexpr int R = (M + L - 1) / L;  // rows per lane
   const int gid = (int)((blockIdx.x * blockDim.x + threadIdx.x) / L);
-  const int lane = threadIdx.x & 31;
-  const int sub = lane % L;          // the lane's place in its group
-  const int base = lane - sub;       // the group's first lane
+  const int sub = (threadIdx.x & 31) % L;  // the lane's place in its group
   // every lane takes part in the shuffles: a group past the end works on
   // the last query and writes nothing
   const bool live_q = gid < n;
@@ -109,7 +90,7 @@ __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int j = sub + L * r;
-    d2[r] = BIG;
+    d2[r] = KNN5_BIG;
     cx[r] = cy[r] = cz[r] = 0.0f;
     if (j < M) {
       // int32 sums wrap as the plain version's do
@@ -145,53 +126,7 @@ __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
   }
 
   float nx[5], ny[5], nz[5];
-  float dmin = BIG;
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    // the lane's own rows, ascending: strict < keeps the lowest row
-    float bd = d2[0];
-    int br = sub;
-#pragma unroll
-    for (int r = 1; r < R; ++r) {
-      if (d2[r] < bd) {
-        bd = d2[r];
-        br = sub + L * r;
-      }
-    }
-    // butterfly over the group on (d2, row); every lane ends with the min
-#pragma unroll
-    for (int m = L / 2; m >= 1; m >>= 1) {
-      const float od = __shfl_xor_sync(FULL, bd, m);
-      const int orow = __shfl_xor_sync(FULL, br, m);
-      if (od < bd || (od == bd && orow < br)) {
-        bd = od;
-        br = orow;
-      }
-    }
-    dmin = bd;
-    const int owner = base + br % L;
-    const int rr = br / L;
-    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r == rr) {
-        sx = cx[r];
-        sy = cy[r];
-        sz = cz[r];
-      }
-    }
-    sx = __shfl_sync(FULL, sx, owner);
-    sy = __shfl_sync(FULL, sy, owner);
-    sz = __shfl_sync(FULL, sz, owner);
-    const bool v = dmin < BIG * 0.5f;
-    nx[k] = v ? sx : 0.0f;
-    ny[k] = v ? sy : 0.0f;
-    nz[k] = v ? sz : 0.0f;
-    if (lane == owner) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) d2[r] = (r == rr) ? BIG : d2[r];
-    }
-  }
+  const float dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
 
   float ux, uy, uz, d;
   const bool ok = plane5_fit(nx, ny, nz, threshold, ux, uy, uz, d);

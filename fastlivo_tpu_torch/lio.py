@@ -18,15 +18,16 @@ point set; the iteration protocol is the reference's
 The JAX package runs the loop as a `lax.while_loop`; here it is a host
 loop that reads the convergence flag once per iteration (at most
 max_iter + 1 reads), so `iters` is the JAX package's exactly. The search
-follows the JAX package's `pallas_knn=True` branch (the map's
+computes the JAX package's `pallas_knn=True` branch (the map's
 knn_candidates, then the Pallas knn5_plane), by map backend and option:
-  - tiled map, no cache: one kernel (ops/knn_plane.knn5_plane_tiled),
-    the neighbourhood gather fused into the 5-NN selection and fit;
-  - hash or dense map, no cache: the backend's knn_candidates, then the
-    knn5_plane kernel;
+  - no cache, any backend: one kernel (ops/knn_plane.knn5_plane_search:
+    knn5_plane_tiled on the tiled map, knn5_plane_hashed on the hash or
+    dense map), the map's neighbourhood gather (the tiles, the hash
+    probes or the dense grid's computed cells) fused into the 5-NN
+    selection and fit;
   - `cache_knn`, any backend: the candidate block gathered once at the
-    prior pose, then the knn5_plane kernel on that block against the
-    moved queries at every search;
+    prior pose (the backend's knn_candidates), then the knn5_plane kernel
+    on that block against the moved queries at every search;
   - `plane_fit: ref`: the backend's knn (or the re-rank of the cached
     block), then plane.fit_plane_ref, in torch ops (no kernel fits the
     reference's plane; the JAX package runs no Pallas kernel there).
@@ -47,7 +48,7 @@ from .ops import plane as plane_ops
 from .ops import so3
 from .ops import tiled_map as tm
 from .ops import voxel_map as vm
-from .ops.knn_plane import knn5_plane, knn5_plane_tiled
+from .ops.knn_plane import knn5_plane, knn5_plane_search
 from .state import NavState
 
 BACKENDS = {"tiled": tm, "dense": dm, "hash": vm}  # capacity.map_backend
@@ -142,10 +143,7 @@ def lio_update(
             return pabcd, ok, nd2[:, -1]
         if cache_knn:
             return knn5_plane(cand0, found0, pw, PLANE_THRESH)
-        if mod is tm:
-            return knn5_plane_tiled(m, pw, knn_radius, PLANE_THRESH)
-        return knn5_plane(*mod.knn_candidates(m, pw, knn_radius, max_probe), pw,
-                          PLANE_THRESH)
+        return knn5_plane_search(m, pw, knn_radius, PLANE_THRESH, max_probe)
 
     # loop-invariant f64 prior terms
     P = prior.cov.to(f64) / laser_point_cov

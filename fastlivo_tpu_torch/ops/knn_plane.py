@@ -6,13 +6,18 @@ signature: a candidate block in, planes out. On a CUDA tensor it
 launches the hand-written kernel in csrc/knn5_plane.cu (built at first
 use, see _build.py); on a CPU tensor it runs `knn5_plane_plain`, the same
 arithmetic in torch ops, which is also the kernel's oracle on the card.
+`lio.lio_update` calls it under `cache_knn`, on the block gathered once
+per frame.
 
-`knn5_plane_tiled` is the LIO search itself in one launch
-(csrc/knn5_plane_tiled.cu): the tiled map's neighbourhood gather
-(tiled_map.knn_candidates) fused into the selection and fit, so the
-candidate block is never written. Its plain version is the composition
-`knn5_plane_tiled_plain`; the kernel is bit-exact against it on the card.
-`lio.lio_update` calls it on every search.
+`knn5_plane_tiled` and `knn5_plane_hashed` are the LIO search itself in
+one launch: the map's neighbourhood gather (tiled_map.knn_candidates,
+voxel_map.knn_candidates on the hash map, dense_map.knn_candidates on
+the dense grid) fused into the selection and fit, so the candidate block
+is never written (csrc/knn5_plane_tiled.cu, csrc/knn5_plane_hashed.cu).
+Their plain versions are the compositions `knn5_plane_tiled_plain` and
+`knn5_plane_hashed_plain`; the kernels are bit-exact against them on the
+card. `knn5_plane_search` picks one by the map's type; `lio.lio_update`
+calls it on every search without a cache.
 
 Contract of `knn5_plane` against the Pallas kernel (the JAX package's
 tests/test_pallas_lio.py): identical selection for distinct distances
@@ -27,7 +32,9 @@ import functools
 
 import torch
 
+from . import dense_map as dm
 from . import tiled_map as tm
+from . import voxel_map as vm
 
 BIG = 3.0e37  # masked squared distance (float32-representable)
 
@@ -175,7 +182,8 @@ def knn5_plane(cand: torch.Tensor, found: torch.Tensor,
                  N, M, float(threshold), stream)
     if err != 0:
         raise RuntimeError(f"knn5_plane: kernel launch failed (cudaError {err})")
-    knn5_plane.launches += 1
+    if N > 0:
+        knn5_plane.launches += 1
     return pabcd, plane_ok, nd2_5
 
 
@@ -191,6 +199,20 @@ def knn5_plane_tiled_plain(m: tm.TiledMap, queries: torch.Tensor, radius: int = 
     return knn5_plane_plain(cand, found, queries, threshold)
 
 
+def _check_map_inputs(name: str, queries: torch.Tensor, want):
+    """Each (tensor, shape or None, dtype) of `want` has that shape and
+    dtype and is contiguous on the queries' device."""
+    for t, shape, dtype in want:
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: map shape {tuple(t.shape)}, want {tuple(shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+        if t.device != queries.device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def _check_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int):
     if queries.ndim != 2 or queries.shape[1] != 3:
         raise ValueError(f"knn5_plane_tiled: queries {tuple(queries.shape)}")
@@ -198,20 +220,11 @@ def _check_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int):
         raise ValueError(f"knn5_plane_tiled: radius {radius}; the kernel takes "
                          "1 or 2 (27 or 125 candidates)")
     C = m.cell_check.shape[0]
-    want = [(queries, None, torch.float32), (m.dir_check, None, torch.int32),
-            (m.dir_slot, m.dir_check.shape, torch.int32),
-            (m.cell_check, (C,), torch.int32), (m.pts, (C, 3), torch.float32),
-            (m.voxel_size, (), torch.float32), (m.log2_dims, (3,), torch.int32)]
-    for t, shape, dtype in want:
-        if shape is not None and tuple(t.shape) != tuple(shape):
-            raise ValueError(f"knn5_plane_tiled: map shape {tuple(t.shape)}, want "
-                             f"{tuple(shape)}")
-        if t.dtype != dtype:
-            raise TypeError(f"knn5_plane_tiled: dtype {t.dtype}, want {dtype}")
-        if t.device != queries.device:
-            raise ValueError("knn5_plane_tiled: inputs on different devices")
-        if not t.is_contiguous():
-            raise ValueError("knn5_plane_tiled: inputs must be contiguous")
+    _check_map_inputs("knn5_plane_tiled", queries, [
+        (queries, None, torch.float32), (m.dir_check, None, torch.int32),
+        (m.dir_slot, m.dir_check.shape, torch.int32), (m.cell_check, (C,), torch.int32),
+        (m.pts, (C, 3), torch.float32), (m.voxel_size, (), torch.float32),
+        (m.log2_dims, (3,), torch.int32)])
     if queries.shape[0] >= 1 << 26 or C != m.slot_key.shape[0] * tm.TC or C >= 1 << 31:
         raise ValueError("knn5_plane_tiled: too many queries or pool cells")
 
@@ -259,3 +272,101 @@ def knn5_plane_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int = 1,
 
 
 knn5_plane_tiled.launches = 0
+
+
+def _hashed_module(m):
+    """The backend module of a hash or dense map, and the kernel's
+    backend code (0 hash, 1 dense)."""
+    if isinstance(m, vm.VoxelMap):
+        return vm, 0
+    if isinstance(m, dm.DenseMap):
+        return dm, 1
+    raise TypeError(f"knn5_plane_hashed: not a hash or dense map: {type(m).__name__}")
+
+
+def knn5_plane_hashed_plain(m, queries: torch.Tensor, radius: int = 1,
+                            threshold: float = 0.1, max_probe: int = 12):
+    """The unfused search on the hash map (voxel_map.VoxelMap, `max_probe`
+    slots per voxel) or the dense grid (dense_map.DenseMap, `max_probe`
+    ignored): `knn5_plane_plain` on the backend's candidate block around
+    each query (N, 3) f32, M = (2r+1)^3 voxels. Returns (pabcd (N, 4),
+    plane_ok (N,), nd2_5 (N,))."""
+    mod, _ = _hashed_module(m)
+    return knn5_plane_plain(*mod.knn_candidates(m, queries, radius, max_probe),
+                            queries, threshold)
+
+
+def _check_hashed(m, queries: torch.Tensor, radius: int, max_probe: int):
+    _, backend = _hashed_module(m)
+    if queries.ndim != 2 or queries.shape[1] != 3:
+        raise ValueError(f"knn5_plane_hashed: queries {tuple(queries.shape)}")
+    if radius not in (1, 2):
+        raise ValueError(f"knn5_plane_hashed: radius {radius}; the kernel takes "
+                         "1 or 2 (27 or 125 candidates)")
+    if backend == 0 and not 0 <= max_probe < 1 << 31:
+        raise ValueError(f"knn5_plane_hashed: max_probe {max_probe}")
+    T = m.check.shape[0]
+    want = [(queries, None, torch.float32), (m.check, (T,), torch.int32),
+            (m.pts, (T, 3), torch.float32), (m.voxel_size, (), torch.float32)]
+    if backend == 1:
+        want.append((m.log2_dims, (3,), torch.int32))
+    _check_map_inputs("knn5_plane_hashed", queries, want)
+    if T & (T - 1) or not 0 < T < 1 << 31 or queries.shape[0] >= 1 << 26:
+        raise ValueError("knn5_plane_hashed: the table must have a power-of-two "
+                         "size below 2^31 and the queries be fewer than 2^26")
+
+
+@functools.cache
+def _hashed_launcher():
+    from . import _build
+
+    fn = _build.load("knn5_plane_hashed").knn5_plane_hashed_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return _build.profiled("knn5_plane_hashed", fn)
+
+
+def knn5_plane_hashed(m, queries: torch.Tensor, radius: int = 1,
+                      threshold: float = 0.1, max_probe: int = 12):
+    """The LIO search on the hash map or the dense grid: same signature and
+    outputs as `knn5_plane_hashed_plain`. A CUDA tensor launches the fused
+    kernel on the current stream (counted in `knn5_plane_hashed.launches`);
+    a CPU tensor runs the plain composition. No other device is taken and
+    nothing falls back."""
+    if queries.device.type == "cpu":
+        return knn5_plane_hashed_plain(m, queries, radius, threshold, max_probe)
+    if queries.device.type != "cuda":
+        raise ValueError(f"knn5_plane_hashed: unsupported device {queries.device}")
+    _check_hashed(m, queries, radius, max_probe)
+    _, backend = _hashed_module(m)
+    N, dev = queries.shape[0], queries.device
+    offs = vm.neighbor_offsets(radius, dev)
+    pabcd = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    plane_ok = torch.empty(N, dtype=torch.bool, device=dev)
+    nd2_5 = torch.empty(N, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _hashed_launcher()(
+        queries.data_ptr(), m.check.data_ptr(), m.pts.data_ptr(),
+        m.voxel_size.data_ptr(), m.log2_dims.data_ptr() if backend else None,
+        offs.data_ptr(), pabcd.data_ptr(), plane_ok.data_ptr(), nd2_5.data_ptr(),
+        N, offs.shape[0], m.check.shape[0], backend, int(max_probe),
+        float(threshold), stream)
+    if err != 0:
+        raise RuntimeError(f"knn5_plane_hashed: kernel launch failed (cudaError {err})")
+    if N > 0:
+        knn5_plane_hashed.launches += 1
+    return pabcd, plane_ok, nd2_5
+
+
+knn5_plane_hashed.launches = 0
+
+
+def knn5_plane_search(m, queries: torch.Tensor, radius: int = 1,
+                      threshold: float = 0.1, max_probe: int = 12):
+    """The LIO search on any map in one launch: `knn5_plane_tiled` on the
+    tiled map, `knn5_plane_hashed` on the hash map or the dense grid
+    (`max_probe` is the hash map's)."""
+    if isinstance(m, tm.TiledMap):
+        return knn5_plane_tiled(m, queries, radius, threshold)
+    return knn5_plane_hashed(m, queries, radius, threshold, max_probe)

@@ -8,10 +8,11 @@ JAX is not installed:
 Also: the device voxel filter is deterministic on the card. Contract of
 the fused 5-NN + plane-fit kernel against its plain version
 (tests/test_torch_knn_plane.py): nd2 at rtol 1e-5; planes at rtol 5e-3 /
-atol 5e-4 up to sign where both gates pass; gate mismatches under 1%.
-The patch + gradient kernel is bit-exact against its plain version (both
-round every product; the kernel is built with -fmad=false), and so is
-the fused LIO search against its plain composition
+atol 5e-4 up to sign where both gates pass; gate mismatches under 1%;
+the slab-staged kernel is also bit-exact against it. The patch +
+gradient kernel is bit-exact against its plain version (both round every
+product; the kernel is built with -fmad=false), and so are the fused LIO
+searches (tiled; hash and dense) against their plain compositions
 knn5_plane_plain(knn_candidates(...)). The fused photometric measurement
 holds HᵀH and Hᵀz each within 1e-4 of its largest entry and err, perr
 within rtol 1e-5 of its plain version (its sums over the G·P² rows run in another order);
@@ -27,7 +28,8 @@ checkpoint written on the card that loads on the CPU unchanged. The hash
 and dense maps: their operations on the card array-identical to the
 CPU's, the standalone knn5_plane kernel bit-exact against its plain
 version on their candidate blocks, and their pipelines searching through
-it (never the tiled kernel).
+knn5_plane_hashed (never knn5_plane, the tiled kernel or
+knn_candidates); cache_knn through one gather per frame and knn5_plane.
 
 The camera frame's host-side surfaces on the card: Vio.colorize and
 Vio.update_staged against the CPU, and a LIVO run with the debug overlay
@@ -88,12 +90,40 @@ def assert_contract(pab_a, ok_a, nd2_a, pab_b, ok_b, nd2_b, min_both=200):
 
 @pytest.mark.parametrize("m", [27, 125])
 def test_knn5_plane_kernel_matches_plain(cuda, m):
-    cand, found, q = (torch.from_numpy(a).to(cuda) for a in random_block(5000, m, 4))
-    before = knn_plane.knn5_plane.launches
+    """The slab-staged kernel on random blocks: bit-exact against its plain
+    version (so also within the contract), for N a multiple of its slab
+    of 32 queries and not (a ragged last slab, whose bytes past its last
+    whole 16 are copied by lanes), down to one query."""
+    cand, found, q = (torch.from_numpy(a).to(cuda) for a in random_block(5007, m, 4))
+    for n in (4992, 5007, 37, 1):
+        before = knn_plane.knn5_plane.launches
+        got = knn_plane.knn5_plane(cand[:n], found[:n], q[:n])
+        assert knn_plane.knn5_plane.launches == before + 1
+        want = knn_plane.knn5_plane_plain(cand[:n], found[:n], q[:n])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (n, (g.float() - w.float()).abs().max())
     got = [t.cpu().numpy() for t in knn_plane.knn5_plane(cand, found, q)]
-    assert knn_plane.knn5_plane.launches == before + 1
     want = [t.cpu().numpy() for t in knn_plane.knn5_plane_plain(cand, found, q)]
     assert_contract(*got, *want, min_both=1000)
+
+
+@pytest.mark.parametrize("m", [27, 125])
+def test_knn5_plane_kernel_stages_unaligned_inputs(cuda, m):
+    """Inputs whose base is not 16-byte aligned (contiguous views one
+    element into larger tensors) are read by each thread from device
+    memory, not staged: bit-exact too."""
+    cand, found, q = (torch.from_numpy(a).to(cuda) for a in random_block(999, m, 6))
+    views = []
+    for t in (cand, found, q):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        views.append(v)
+    got = knn_plane.knn5_plane(*views)
+    want = knn_plane.knn5_plane_plain(cand, found, q)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_knn5_plane_refuses_bad_inputs(cuda):
@@ -426,13 +456,13 @@ def test_photometric_err_H_refuses_bad_inputs(cuda):
 LIO_DS = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
 
 
-def small_lio(device, backend="tiled", **kw):
+def small_lio(device, backend="tiled", cache_knn=False, **kw):
     cfg = Config()
     cfg.img_enable = False
     cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
                                   tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
                                   map_backend=backend, map_table_size=1 << 16,
-                                  dense_dims=(64, 64, 16))
+                                  dense_dims=(64, 64, 16), cache_knn=cache_knn)
     ds = SyntheticDataset(**LIO_DS)
     pipe = Pipeline(cfg, device=device, **kw)
     for beg, pts, t_rel in ds.lidar_scans_fast():
@@ -564,21 +594,207 @@ def test_map_ops_on_the_card_equal_the_cpu(cuda):
             same(vm.rebuild(mc), vm.rebuild(mh), "rebuild")
 
 
+def counts():
+    return {f.__name__: f.launches for f in (
+        knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane)}
+
+
+def gathers_spied(monkeypatch, mod, calls: list):
+    """Record the calls of mod.knn_candidates (the unfused search's
+    gather)."""
+    real = mod.knn_candidates
+
+    def spy(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(mod, "knn_candidates", spy)
+
+
 @pytest.mark.parametrize("backend", ["hash", "dense"])
-def test_other_backends_run_through_the_standalone_kernel(cuda, backend):
-    """A hash or dense pipeline searches through knn5_plane, never the
-    tiled kernel, and tracks the ground truth (ATE < 2 cm)."""
+def test_hash_and_dense_pipelines_run_through_the_fused_search(cuda, backend, monkeypatch):
+    """A hash or dense pipeline searches through its fused kernel,
+    knn5_plane_hashed: never the standalone knn5_plane or the tiled
+    kernel, never the backend's knn_candidates; it tracks the ground truth
+    (ATE < 2 cm)."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
     pipe = small_lio(cuda, backend)
-    before = knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane.launches
+    calls = []
+    gathers_spied(monkeypatch, {"hash": vm, "dense": dm}[backend], calls)
+    before = counts()
     outs = pipe.spin()
-    assert knn_plane.knn5_plane_tiled.launches == before[0]
+    launched = {k: v - before[k] for k, v in counts().items()}
     steady = [o for o in outs if o.iters > 0]
-    assert len(steady) > 5 and knn_plane.knn5_plane.launches - before[1] >= len(steady)
+    assert len(steady) > 5 and launched["knn5_plane_hashed"] >= len(steady)
+    assert launched["knn5_plane"] == launched["knn5_plane_tiled"] == 0 and not calls
     ds = SyntheticDataset(**LIO_DS)
     base = ds.traj.base_pos
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
     assert np.sqrt(np.mean(np.square(e))) < 0.02
+
+
+@pytest.mark.parametrize("backend", ["tiled", "hash"])
+def test_cache_knn_runs_through_knn5_plane(cuda, backend, monkeypatch):
+    """Under cache_knn the search still gathers once per frame (the
+    backend's knn_candidates) and re-ranks that block with knn5_plane at
+    every search; neither fused search runs."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    pipe = small_lio(cuda, backend, cache_knn=True)
+    calls = []
+    gathers_spied(monkeypatch, {"tiled": tm, "hash": vm}[backend], calls)
+    before = counts()
+    outs = pipe.spin()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    steady = [o for o in outs if o.iters > 0]
+    assert len(steady) > 5 and len(steady) <= len(calls) <= len(outs)
+    assert launched["knn5_plane"] >= len(calls)
+    assert launched["knn5_plane_tiled"] == launched["knn5_plane_hashed"] == 0
+
+
+def colliding_keys(T: int):
+    """Two voxel coordinates in [-6, 6)^3 whose first probe slot in a
+    table of T slots is the same."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    k = np.stack(np.meshgrid(*[np.arange(-6, 6)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    slot = vm._slot_check(torch.from_numpy(k.astype(np.int32)), T - 1)[0].numpy()
+    order = np.argsort(slot, kind="stable")
+    i = np.nonzero(slot[order][1:] == slot[order][:-1])[0][0]
+    return k[order[[i, i + 1]]]
+
+
+def search_maps(device, T=1 << 12, dims=(16, 16, 8)):
+    """The hash table (T slots) and the dense grid (`dims`) of the fused
+    search's tests, from one seeded surface (negative coordinates) through
+    the backends' own inserts in three batches: two voxels of one first
+    slot inserted in one batch (a duplicate claim), then delete_boxes of
+    80 scattered voxels, which leaves holes inside the hash map's probe
+    chains; the dense grid spans 8 x 8 x 4 m of the 16 x 16 m surface, so
+    its cells alias. (The deleted voxels are single ones, not a box edge:
+    five picks along a straight edge are collinear, any normal across the
+    line fits them, and two correct fits, the JAX kernel's with its
+    polynomial acos and the plain version's, then part ways.) Returns
+    ({"hash": map, "dense": map}, the two voxels' centres (2, 3))."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    pair = ((colliding_keys(T) + 0.5) * 0.5).astype(np.float32)
+    pts = torch.from_numpy(np.concatenate([pair, surface(20000, 5)])).to(device)
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+    valid[7::13] = False
+    pick = np.random.default_rng(8).choice(np.arange(2, pts.shape[0]), 80, replace=False)
+    centre = (torch.floor(pts[pick] / 0.5) + 0.5) * 0.5
+    lo, hi = centre - 0.1, centre + 0.1
+    maps = {}
+    for name, mod, m in (("hash", vm, vm.empty_map(T, 0.5, device=device)),
+                         ("dense", dm, dm.empty_dense_map(dims, 0.5, device=device))):
+        for sl in (slice(0, 7000), slice(7000, 14000), slice(14000, None)):
+            m = mod.insert(m, pts[sl], valid[sl])
+        maps[name] = mod.delete_boxes(m, lo, hi)
+    return maps, pair
+
+
+def hashed_queries(pair, n=16384):
+    """search_queries(n) with the two colliding voxels' centres first."""
+    q = search_queries(n, seed=13)
+    q[:2] = pair
+    return q
+
+
+def search_traps(m, q, radius, max_probe=12) -> int:
+    """How many candidate rows meet the map's trap: on the hash map a voxel
+    found behind an empty slot of its chain, on the dense grid a cell that
+    holds another voxel (aliased, so not found)."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    q = q.to(m.check.device)
+    cand = vm.voxel_of(q, m.voxel_size)[:, None, :] + vm.neighbor_offsets(radius, q.device)
+    if isinstance(m, dm.DenseMap):
+        cell, chk = dm._cell_check(m, cand)
+        cur = m.check[cell.long()]
+        return int(((cur != vm.EMPTY_CHECK) & (cur != chk)).sum())
+    mask = m.check.shape[0] - 1
+    slot, chk = vm._slot_check(cand, mask)
+    slot = slot.long()
+    found = torch.zeros_like(slot, dtype=torch.bool)
+    hole = torch.zeros_like(found)
+    behind = torch.zeros_like(found)
+    for _ in range(max_probe):
+        cur = m.check[slot]
+        hit = (cur == chk) & ~found
+        behind |= hit & hole
+        found |= hit
+        hole |= (cur == vm.EMPTY_CHECK) & ~found
+        slot = (slot + 1) & mask
+    return int(behind.sum())
+
+
+@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("backend,probe", [("hash", 12), ("hash", 32), ("dense", 12)])
+def test_knn5_plane_hashed_matches_plain(cuda, backend, probe, radius):
+    """The fused search on the hash map and the dense grid, bit-exact
+    against its plain composition knn5_plane_plain(knn_candidates(...)) on
+    every output, at N = 0, 1, 37 and 16384, on maps with holes inside
+    probe chains, a duplicate claim, negative coordinates and aliased
+    cells."""
+    maps, pair = search_maps(cuda)
+    m = maps[backend]
+    q = torch.from_numpy(hashed_queries(pair)).to(cuda)
+    assert search_traps(m, q, radius, probe) > 0
+    for n in (0, 1, 37, q.shape[0]):
+        before = knn_plane.knn5_plane_hashed.launches
+        got = knn_plane.knn5_plane_hashed(m, q[:n], radius, 0.1, probe)
+        assert knn_plane.knn5_plane_hashed.launches == before + (n > 0)
+        want = knn_plane.knn5_plane_hashed_plain(m, q[:n], radius, 0.1, probe)
+        for g, w in zip(got, want):
+            assert g.shape[0] == n and torch.equal(g, w), \
+                (n, (g.float() - w.float()).abs().max())
+    assert int(got[1].sum()) > 2000  # planes were fitted
+
+
+def test_knn5_plane_hashed_probes_an_unaligned_table(cuda):
+    """A hash table whose check words do not start on 16 bytes (a view one
+    word into a larger tensor) is probed one word a load: bit-exact
+    too."""
+    maps, pair = search_maps(cuda)
+    m = maps["hash"]
+    buf = torch.empty(m.check.shape[0] + 1, dtype=torch.int32, device=cuda)
+    check = buf[1:]
+    check.copy_(m.check)
+    assert check.data_ptr() % 16
+    m = m._replace(check=check)
+    q = torch.from_numpy(hashed_queries(pair, 5000)).to(cuda)
+    for radius in (1, 2):
+        got = knn_plane.knn5_plane_hashed(m, q, radius, 0.1, 12)
+        want = knn_plane.knn5_plane_hashed_plain(m, q, radius, 0.1, 12)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_knn5_plane_hashed_refuses_bad_inputs(cuda):
+    maps, pair = search_maps(cuda)
+    q = torch.from_numpy(hashed_queries(pair, 64)).to(cuda)
+    h, d = maps["hash"], maps["dense"]
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_hashed(h, q, 3)
+    with pytest.raises(TypeError):
+        knn_plane.knn5_plane_hashed(h, q.double(), 1)
+    with pytest.raises(TypeError):
+        knn_plane.knn5_plane_hashed(d._replace(log2_dims=d.log2_dims.long()), q, 1)
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_hashed(h._replace(pts=h.pts.cpu()), q, 1)
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_hashed(h, q.t().contiguous().t(), 1)
+    with pytest.raises(TypeError):
+        knn_plane.knn5_plane_hashed(tm.build_host(surface(200, 1), (8, 8, 8), 8, 0.5,
+                                                  device=cuda), q, 1)
+    n0 = knn_plane.knn5_plane_hashed(d, q[:0], 1)
+    assert all(t.shape[0] == 0 for t in n0)
 
 
 def vio_state(ds, t, dpos=(0.0, 0.0, 0.0), device="cpu"):

@@ -13,6 +13,13 @@ bit for bit, and that composition meets the JAX package's tiled search
 (knn_candidates, then the Pallas kernel in interpret mode) under the
 contract above, on maps with negative tile coordinates and with aliased
 tiles (a 2x2x2 directory), for queries on voxel boundaries.
+
+The fused search on the hash map and the dense grid `knn5_plane_hashed`
+likewise: its CPU wrapper is its plain composition, bit for bit, and
+that composition meets the JAX package's knn_candidates + Pallas kernel
+(interpret mode) under the contract, at M = 27 and 125 and probe depths
+12 and 32, on maps with holes inside probe chains (delete_boxes), two
+voxels of one first slot, negative coordinates and aliased dense cells.
 """
 import numpy as np
 import pytest
@@ -28,7 +35,10 @@ from fastlivo_tpu_torch.ops import knn_plane
 
 from fastlivo_tpu_torch.ops import tiled_map as ttm
 
-from test_torch_cuda import assert_contract, random_block, search_queries, surface
+from test_torch_cuda import (
+    assert_contract, hashed_queries, random_block, search_maps, search_queries, search_traps,
+    surface,
+)
 
 
 def _plain(cand, found, q):
@@ -133,3 +143,82 @@ def test_tiled_search_checks_inputs():
     with pytest.raises(ValueError):
         knn_plane._check_tiled(mt, q.t().contiguous().t(), 1)
     knn_plane._check_tiled(mt, q, 1)
+
+
+def jax_map(m):
+    """The JAX package's map of the same arrays (hash or dense)."""
+    from fastlivo_tpu.ops import dense_map as jdm
+    from fastlivo_tpu.ops import voxel_map as jvm
+
+    arr = [jnp.asarray(t.numpy()) for t in m]
+    return (jdm.DenseMap if hasattr(m, "log2_dims") else jvm.VoxelMap)(*arr)
+
+
+@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("backend,probe", [("hash", 12), ("hash", 32), ("dense", 12)])
+def test_hashed_search_wrapper_is_plain_and_matches_jax(backend, probe, radius):
+    """The fused search on the hash map and the dense grid: on the CPU its
+    wrapper is its plain composition knn5_plane_plain(knn_candidates(...)),
+    bit for bit and uncounted, and that composition meets the JAX
+    package's search (knn_candidates, then the Pallas kernel in interpret
+    mode) under the kernel's contract, on maps with holes inside probe
+    chains, a duplicate claim, negative coordinates and aliased cells."""
+    from fastlivo_tpu.ops import dense_map as jdm
+    from fastlivo_tpu.ops import voxel_map as jvm
+
+    from fastlivo_tpu_torch.ops import dense_map as tdm
+    from fastlivo_tpu_torch.ops import voxel_map as tvm
+
+    maps, pair = search_maps("cpu")
+    m = maps[backend]
+    q = hashed_queries(pair, 1200)
+    qt = torch.from_numpy(q)
+    assert search_traps(m, qt, radius, probe) > 0 and (q < 0).any()
+    before = knn_plane.knn5_plane_hashed.launches
+    got = knn_plane.knn5_plane_hashed(m, qt, radius, 0.1, probe)
+    tmod = tdm if backend == "dense" else tvm
+    want = knn_plane.knn5_plane_plain(*tmod.knn_candidates(m, qt, radius, probe), qt, 0.1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert knn_plane.knn5_plane_hashed.launches == before
+    jmod = jdm if backend == "dense" else jvm
+    cand, found = jmod.knn_candidates(jax_map(m), jnp.asarray(q), radius, probe)
+    np.testing.assert_array_equal(np.asarray(found), want_found := tmod.knn_candidates(
+        m, qt, radius, probe)[1].numpy())
+    assert want_found.any() and not want_found.all()
+    pj = pallas_lio.knn5_plane(cand, found, jnp.asarray(q), interpret=True)
+    assert_contract(*[t.numpy() for t in got], *[np.asarray(a) for a in pj], min_both=100)
+    if backend == "hash":  # both voxels of the duplicate claim are found
+        assert found[:2, 0].all()
+
+
+def test_hashed_search_checks_inputs():
+    maps, pair = search_maps("cpu")
+    h, d = maps["hash"], maps["dense"]
+    q = torch.from_numpy(hashed_queries(pair, 16))
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h, q, 3, 12)
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h, q, 1, -1)
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h, q[:, :2].contiguous(), 1, 12)
+    with pytest.raises(TypeError):
+        knn_plane._check_hashed(h, q.double(), 1, 12)
+    with pytest.raises(TypeError):
+        knn_plane._check_hashed(h._replace(pts=h.pts.double()), q, 1, 12)
+    with pytest.raises(TypeError):
+        knn_plane._check_hashed(d._replace(log2_dims=d.log2_dims.long()), q, 1, 12)
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h._replace(pts=h.pts[:-1]), q, 1, 12)
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h._replace(check=h.check[:-1], pts=h.pts[:-1]), q, 1, 12)
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h, q.t().contiguous().t(), 1, 12)
+    with pytest.raises(ValueError):
+        knn_plane._check_hashed(h._replace(voxel_size=h.voxel_size.to("meta")), q, 1, 12)
+    with pytest.raises(TypeError):
+        knn_plane._check_hashed(both_maps((32, 32, 16))[0], q, 1, 12)
+    with pytest.raises(ValueError):
+        knn_plane.knn5_plane_hashed(h, q.to("meta"), 1)
+    knn_plane._check_hashed(h, q, 1, 12)
+    knn_plane._check_hashed(d, q, 2, 0)

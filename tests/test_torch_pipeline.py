@@ -417,7 +417,8 @@ def test_sources_name_no_jax():
 
 def test_every_kernel_source_is_built_and_smoked():
     """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
-    two fused kernels of the main path and the two standalone ones."""
+    fused searches (tiled; hash and dense), the fused photometric
+    measurement and the two standalone kernels."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -427,7 +428,8 @@ def test_every_kernel_source_is_built_and_smoked():
     spec.loader.exec_module(smoke)
     cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
-    assert cu == ["knn5_plane", "knn5_plane_tiled", "patches_and_grads", "photometric_err_H"]
+    assert cu == ["knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled", "patches_and_grads",
+                  "photometric_err_H"]
 
 
 def test_kernel_launches_are_profiler_ops():
