@@ -41,7 +41,12 @@ mesh runs); the hash and dense paths search in one launch too
 (`knn5_plane_hashed`, the map walk fused in; no `knn_candidates` call),
 and `cache_knn` re-ranks its one gather per frame with the standalone
 `knn5_plane` (slab-staged through TMA bulk copies); each path's launches
-are counted around it. The fused hash and dense searches and
+are counted around it. IMU propagation runs as one launch of
+`imu_propagate` per measurement group on every path (every rank of the
+mesh runs included); the kernel is held against the plain loop at 8, 32
+and 64 pairs, and the LIO and LIVO per-frame paths run again with the
+plain loop swapped in, for the positions and frame times before and
+after. The fused hash and dense searches and
 `knn5_plane` are also held against their plain versions on those
 paths' maps and timed there. The standalone `patches_and_grads` is held
 against its plain version but is not on the paths. The hash and dense
@@ -50,8 +55,10 @@ points and must agree in every array; `rebuild`
 is timed at the shipped table. Each path's trajectory is checked against
 the per-frame path and the synthetic ground truth, and the port on the
 card against the port on the CPU on a small input. Both per-frame paths
-are profiled, and so is the unfused composition they replaced, for the
-kernel counts under `lio.search` and `vio.photometric` before and after.
+are profiled, and so is the unfused composition they replaced (the plain
+IMU loop included), for the device kernels per frame, the kernel counts
+under `lio.search`, `vio.photometric` and `frame.propagate` and the host
+time of `frame.propagate` before and after.
 
 Prints the card and its power limit, the build time, each phase's
 seconds, each kernel's time beside its bound and beside the unfused pair
@@ -77,9 +84,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data sheet)
 # every csrc/*.cu of the port
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
-                "patches_and_grads"]
+                "patches_and_grads", "imu_propagate"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -276,6 +284,104 @@ def patches_phase(dev):
     return err, ms, plain_ms, bound_ms, bound_by
 
 
+# f64 operations of imu_propagate.cu, counted from its source: per valid
+# pair thread 0's step (w, a, two Exp, the F and Q blocks, rot, acc_w,
+# pos, vel: 404) and the two products on F's nonzeros with Q's entries
+# (1242 + 1260); once per group the tail (160)
+IMU_OPS_PER_PAIR = 2906
+IMU_OPS_TAIL = 160
+
+
+def imu_inputs(dev, B, n_valid, seed):
+    """One measurement group as the pipeline stages it: a 200 Hz IMU
+    stream over `n_valid` intervals through imu.prepare_pairs into a
+    B-pair wire (the pairs past n_valid padded), the calibration of
+    ImuInitializer over 200 static samples, and a random f64 state (SPD
+    covariance); acc_s_last and angvel_last f64, as after the first
+    group. Returns (state, wire, acc_s_last, angvel_last, calib)."""
+    from fastlivo_tpu_torch import imu
+    from fastlivo_tpu_torch.ops import so3
+    from fastlivo_tpu_torch.state import NavState
+
+    rng = np.random.default_rng(seed)
+    init = imu.ImuInitializer()
+    for _ in range(imu.MAX_INI_COUNT):
+        init.push(np.array([0.1, -0.2, 9.79]) + rng.normal(0, 0.02, 3),
+                  rng.normal(0, 0.003, 3))
+    calib = init.calib(1.0, 1.0, np.eye(3), np.zeros(3), device=dev)
+    t = 10.0 + np.arange(n_valid + 1) * 0.005 + rng.uniform(-2e-4, 2e-4, n_valid + 1)
+    acc = np.array([0.1, -0.2, 9.79]) + rng.normal(0, 0.5, (n_valid + 1, 3))
+    gyr = np.array([0.3, -0.2, 0.5]) + rng.normal(0, 1.0, (n_valid + 1, 3))
+    pairs = imu.prepare_pairs(t, acc, gyr, beg_time=t[0] - 0.02, end_time=t[-1] + 0.002,
+                              last_end_time=t[0], max_pairs=B)
+    wire = torch.from_numpy(imu.pack_pairs_wire(*pairs)).to(dev)
+    A = rng.normal(size=(18, 18)) * 0.01
+    f64 = dict(dtype=torch.float64, device=dev)
+    state = NavState(
+        rot=so3.exp(torch.as_tensor(rng.normal(size=3) * 0.5, **f64)),
+        pos=torch.as_tensor(rng.normal(size=3), **f64),
+        vel=torch.as_tensor(rng.normal(size=3) * 0.5, **f64),
+        bg=torch.as_tensor(init.mean_gyr, **f64), ba=torch.zeros(3, **f64),
+        grav=torch.as_tensor(init.gravity(), **f64),
+        cov=torch.as_tensor(A @ A.T + np.eye(18) * 1e-3, **f64))
+    return (state, wire, torch.as_tensor(acc[0], **f64), torch.as_tensor(gyr[0], **f64),
+            calib)
+
+
+def imu_bound_ms(B: int, n_valid: int):
+    """Least time for one group's propagation: the (B+1, 9) f32 wire, the
+    f64 state, covariance and segment-start acc / gyro, the f32
+    calibration read once, the f64 end state, covariance, (B+2, 24) pose
+    pack and carried acc / gyro written once, over HBM bandwidth; against
+    the f64 operations these `n_valid` pairs need over the f64 rate.
+    Neither counts the chain of B dependent steps, which bounds the
+    kernel. Returns (ms, "bytes" | "operations")."""
+    nbytes = ((B + 1) * 9 * 4 + (9 + 5 * 3 + 18 * 18 + 6) * 8 + 13 * 4
+              + (9 + 3 + 3 + 18 * 18 + (B + 2) * 24 + 6) * 8)
+    ops = n_valid * IMU_OPS_PER_PAIR + IMU_OPS_TAIL
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def imu_phase(dev):
+    """imu_propagate against the plain loop (imu.propagate_wire_plain, its
+    18x18 products through cuBLAS) on the card at B = 8 (8 valid pairs),
+    32 (21 valid: a 10 Hz lidar group at 200 Hz in the pipeline's bucket)
+    and 64 (64 valid): every output within 1e-10. Times both at each B:
+    the kernel between queued CUDA events (time_ms), the plain loop alone
+    between two events (event_ms: its ~150 small kernels per pair overflow
+    the launch queue). These launches are not the path's. Returns {B:
+    numbers}."""
+    from fastlivo_tpu_torch import imu
+    from fastlivo_tpu_torch.ops import imu_scan
+
+    def flat(out):  # (state, pack, acc, gyr) -> its tensors
+        return (*out[0], *out[1:])
+
+    res = {}
+    for B, nv in ((8, 8), (32, 21), (64, 64)):
+        s, w, a, g, calib = imu_inputs(dev, B, nv, seed=B)
+        got = flat(imu_scan.imu_propagate(s, w, a, g, calib))
+        torch.cuda.synchronize()
+        want = flat(imu.propagate_wire_plain(s, w, a, g, calib))
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        again = flat(imu_scan.imu_propagate(s, w, a, g, calib))
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        ms = time_ms(lambda: imu_scan.imu_propagate(s, w, a, g, calib))
+        plain_ms = event_ms(lambda: imu.propagate_wire_plain(s, w, a, g, calib), reps=5)
+        bound_ms, bound_by = imu_bound_ms(B, nv)
+        print(f"imu_propagate B={B} ({nv} valid pairs): max_abs_err={err:.3g} against the "
+              f"plain loop, two launches bit-equal {same}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; the chain is {B} "
+              f"dependent steps), library none; {nvidia_smi_line()}")
+        if not (err <= 1e-10 and same):
+            raise AssertionError(f"imu_propagate B={B}: {err} from the plain loop, "
+                                 f"repeatable {same}")
+        res[B] = {"valid_pairs": nv, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by}
+    return res
+
+
 def kernel_phase(dev, n=16384, m=27):
     """knn5_plane against knn5_plane_plain on seeded blocks at the main
     path's shape, M = 27, and at M = 125 with a ragged last slab (N - 5
@@ -330,11 +436,23 @@ def check_composition(counts, fused, pairs, where):
 
 
 @contextlib.contextmanager
+def plain_propagation():
+    """IMU propagation as the plain loop (imu.propagate_plain, ~150 small
+    kernels per pair), as the paths ran it before imu_propagate.cu."""
+    from fastlivo_tpu_torch import imu
+
+    with swapped(imu, "propagate_wire", imu.propagate_wire_plain), \
+            swapped(imu, "propagate", imu.propagate_plain):
+        yield
+
+
+@contextlib.contextmanager
 def unfused():
-    """The paths as they ran before the fused kernels: the LIO search as
-    the map's knn_candidates + the standalone knn5_plane kernel (tiled,
-    hash and dense), each photometric measurement as the plain body
-    sampling through the standalone patches_and_grads kernel."""
+    """The paths as they ran before the fused kernels and the IMU kernel:
+    the LIO search as the map's knn_candidates + the standalone knn5_plane
+    kernel (tiled, hash and dense), each photometric measurement as the
+    plain body sampling through the standalone patches_and_grads kernel,
+    IMU propagation as the plain loop."""
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
 
@@ -348,6 +466,7 @@ def unfused():
         stack.enter_context(swapped(vio, "photometric_err_H",
                                     photometric.photometric_err_H_plain))
         stack.enter_context(unsampled_plain())
+        stack.enter_context(plain_propagation())
         yield
 
 
@@ -364,10 +483,11 @@ def spy(module, name, calls: list):
 
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
-    from fastlivo_tpu_torch.ops import knn_plane, patches_grads, photometric
+    from fastlivo_tpu_torch.ops import imu_scan, knn_plane, patches_grads, photometric
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
-            photometric.photometric_err_H, patches_grads.patches_and_grads)
+            photometric.photometric_err_H, patches_grads.patches_and_grads,
+            imu_scan.imu_propagate)
 
 
 def reset_counts():
@@ -575,7 +695,9 @@ class Recorded:
 def path_phase(dev, duration=6.0, points_per_scan=24000):
     """Pipeline(Config()) at its shipped capacities on `dev`; the kernels'
     launch counts are read around this run only. The fused search must
-    launch once per search, the standalone kernels never."""
+    launch once per search, the standalone kernels never, imu_propagate
+    once per propagated group."""
+    from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.config import Config
     from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
@@ -596,10 +718,10 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
-    searches = []
+    searches, groups = [], []
     torch.cuda.synchronize()
     reset_counts()
-    with spy(lio, "knn5_plane_search", searches):
+    with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -614,7 +736,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     ate = float(np.sqrt(np.mean(np.square(errs))))
     frame_ms = [1e3 * o.timing["total"] for o in steady]
     print(f"path: {len(outs)} frames ({len(steady)} steady) in {wall:.2f} s, "
-          f"{len(searches)} searches, launches {launches}, ATE {ate * 1e3:.3f} mm, "
+          f"{len(searches)} searches, {len(groups)} propagated groups, launches {launches}, "
+          f"ATE {ate * 1e3:.3f} mm, "
           f"median steady frame {np.median(frame_ms):.2f} ms "
           f"(p90 {np.percentile(frame_ms, 90):.2f} ms), "
           f"n_active median {int(np.median([o.n_active for o in steady]))}; "
@@ -623,9 +746,9 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"too few frames: {len(outs)} ({len(steady)} steady)")
     if (launches["knn5_plane_tiled"] != len(searches) or len(searches) < len(steady)
             or launches["knn5_plane"] or launches["knn5_plane_hashed"]
-            or launches["patches_and_grads"]):
+            or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)):
         raise AssertionError(f"launches {launches} for {len(searches)} searches, "
-                             f"{len(steady)} steady frames")
+                             f"{len(groups)} groups, {len(steady)} steady frames")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.02:
@@ -682,6 +805,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     Returns (launches, the last photometric call's arguments, camera and
     lidar frame medians in ms, the outputs, the dataset, wall ms per
     lidar frame)."""
+    from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio, vio as vio_mod
     from fastlivo_tpu_torch.pipeline import Pipeline
 
@@ -709,11 +833,12 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         return out
 
     vio.update = timed_update
-    searches, measurements = [], []
+    searches, measurements, groups = [], [], []
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), \
-            spy(vio_mod, "photometric_err_H", measurements):
+            spy(vio_mod, "photometric_err_H", measurements), \
+            spy(imu_mod, "propagate_wire", groups):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -731,7 +856,8 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     n_pts = int(vio.vmap.n_pts)
     print(f"livo path: {len(outs)} lidar frames ({len(steady)} steady), {vio.fid} camera "
           f"frames ({vio.steps} ran the frame step) in {wall:.2f} s; {len(searches)} "
-          f"searches, {len(measurements)} photometric iterations; launches {launches}; "
+          f"searches, {len(measurements)} photometric iterations, {len(groups)} propagated "
+          f"groups; launches {launches}; "
           f"ATE {ate * 1e3:.3f} mm; visual map {n_pts} points, last {vio.last_stats}")
     print(f"livo path: camera frame median {np.median(cam_ms):.2f} ms (p90 "
           f"{np.percentile(cam_ms, 90):.2f} ms) over {len(cam_ms)}; lidar frame median "
@@ -744,7 +870,8 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     if len(measurements) < 3 * vio.steps or len(searches) < len(steady):
         raise AssertionError(f"{len(measurements)} measurements, {len(searches)} searches")
     want = {"knn5_plane_tiled": len(searches), "knn5_plane_hashed": 0, "knn5_plane": 0,
-            "photometric_err_H": len(measurements), "patches_and_grads": 0}
+            "photometric_err_H": len(measurements), "patches_and_grads": 0,
+            "imu_propagate": len(groups)}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
@@ -785,6 +912,41 @@ def livo_cpu_agreement(dev):
         raise AssertionError(f"{dev} and cpu differ by {dmax:.2e} m")
 
 
+def plain_propagation_phase(dev, lio_ds, lio_ref, livo_ds, livo_ref):
+    """The LIO and LIVO per-frame paths of path_phase and livo_path_phase
+    on the same data, with the plain IMU loop swapped in for the kernel
+    (plain_propagation): no imu_propagate launch, and the kernel's paths
+    within 1 mm (LIO) and 2 mm (LIVO) of these in every frame. Prints the
+    median steady lidar frame of both. Returns ({path: (ms per lidar
+    frame, launches)}, {path: its other numbers})."""
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    paths, extra = {}, {}
+    for name, cfg, ds, ref, tol in (
+            ("lio per-frame, plain IMU loop", lio_config(), lio_ds, lio_ref, 1e-3),
+            ("livo per-frame, plain IMU loop", livo_config(), livo_ds, livo_ref, 2e-3)):
+        pipe = Pipeline(cfg, device=dev)
+        push_all(pipe, ds)
+        with plain_propagation():
+            outs, launches, wall = counted_run(pipe.spin)
+        d = max_diff(outs, ref)
+        med, med_ref = (float(np.median([1e3 * o.timing["total"] for o in r if o.iters > 0]))
+                        for r in (outs, ref))
+        print(f"{name}: {len(outs)} lidar frames, {wall / len(outs):.2f} ms/lidar frame, "
+              f"median steady lidar frame {med:.2f} ms (with imu_propagate {med_ref:.2f} ms), "
+              f"max position difference to the kernel's path {d * 1e3:.4f} mm, launches "
+              f"{launches}; {nvidia_smi_line()}")
+        if launches["imu_propagate"] or not d < tol:
+            raise AssertionError(f"{name}: {d:.3g} m from the kernel's path, launches "
+                                 f"{launches}")
+        paths[name] = (wall / len(outs), launches)
+        extra[name] = {"median_steady_ms": med, "median_steady_ms_with_kernel": med_ref,
+                       "max_diff_to_kernel_path_mm": d * 1e3}
+        del pipe
+        torch.cuda.empty_cache()
+    return paths, extra
+
+
 def real_queries(pipe, n):
     """The search leg's input at the path's shape: the last scan's points
     in the world frame at the posterior."""
@@ -816,13 +978,30 @@ def kernels_in(prof, stages, launched: int):
     return len(names) + max(launched - linked, 0), linked
 
 
+def stage_ms(evs, name, n):
+    """(host, device) ms per frame under the profiler range `name`."""
+    e = [e for e in evs if e.key == name and str(e.device_type).endswith("CPU")]
+    return ((e[0].cpu_time_total / 1e3 / n, e[0].device_time_total / 1e3 / n) if e
+            else (0.0, 0.0))
+
+
+def device_kernels(evs, ranges):
+    """The profiler's device kernels (not the device-side spans of the
+    named `ranges`)."""
+    return [e for e in evs if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0 and not e.key.startswith(ranges)]
+
+
 def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
     """Where a steady frame's time goes: torch.profiler over the frames
     after the first `n_warm` scans of a second shipped-capacity run
-    (without `fused`, of the unfused composition: only its kernel count
-    under `lio.search` is printed). Prints the device busy share of the
-    window, the device time and launch count per frame of the largest
-    kernel names and the kernels under `lio.search` per frame."""
+    (without `fused`, of the unfused composition, the plain IMU loop
+    included). Prints the device busy share of the window, device kernels
+    per frame, `frame.propagate`'s host and device ms and device kernels
+    per frame and the kernels under `lio.search` per frame; with `fused`
+    also the largest kernel names and every stage. Returns
+    {"search_kernels", "propagate_kernels", "kernels", "propagate_host_ms",
+    "propagate_device_ms"} per frame."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch.config import Config
@@ -858,25 +1037,29 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     if n == 0 or not all(o.iters > 0 for o in outs):
         raise AssertionError("profiled window holds no steady frames")
     check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane")], "lio profile")
+    if (counts["imu_propagate"] > 0) != fused:
+        raise AssertionError(f"lio profile ({'fused' if fused else 'unfused'}): {counts}")
     launched = counts["knn5_plane_tiled"] + counts["knn5_plane"]
     n_k, linked = kernels_in(prof, "lio.search", launched)
-    per_frame = n_k / n
-    print(f"profile ({'fused' if fused else 'unfused'}): {per_frame:.1f} device kernels "
-          f"under lio.search per steady frame (the profiler linked {linked} of its "
-          f"{launched} hand-written launches to the range)")
-    if not fused:
-        return per_frame
+    n_p, _ = kernels_in(prof, "frame.propagate", counts["imu_propagate"])
     evs = prof.key_averages()
     stage = ("frame.", "lio.")  # the named ranges of frame_step/lio/pipeline
-    # device kernels only: the ranges also appear as device-side spans
-    kernels = [e for e in evs if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0 and not e.key.startswith(stage)]
+    kernels = device_kernels(evs, stage)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"profile: {n} steady frames, {1e3 * wall / n:.2f} ms/frame wall "
+    prop_host, prop_dev = stage_ms(evs, "frame.propagate", n)
+    label = "fused" if fused else "unfused, plain IMU loop"
+    print(f"profile ({label}): {n} steady frames, {1e3 * wall / n:.2f} ms/frame wall "
           f"(profiler on), device busy {busy_ms / n:.3f} ms/frame = "
-          f"{100 * busy_ms / (1e3 * wall):.1f}% of wall, "
-          f"{launches / n:.0f} device kernels/frame")
+          f"{100 * busy_ms / (1e3 * wall):.1f}% of wall, {launches / n:.0f} device "
+          f"kernels/frame, frame.propagate host {prop_host:.3f} ms/frame (device "
+          f"{prop_dev:.3f}, {n_p / n:.1f} device kernels), {n_k / n:.1f} device kernels "
+          f"under lio.search per frame (the "
+          f"profiler linked {linked} of its {launched} hand-written launches to the range)")
+    res = {"search_kernels": n_k / n, "propagate_kernels": n_p / n, "kernels": launches / n,
+           "propagate_host_ms": prop_host, "propagate_device_ms": prop_dev}
+    if not fused:
+        return res
     if not kernels:
         print("profile: the profiler saw no device time")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -889,7 +1072,7 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n:8.3f} ms/frame, "
               f"device {e.device_time_total / 1e3 / n:8.3f} ms/frame, "
               f"{e.count / n:.1f} calls/frame")
-    return per_frame
+    return res
 
 
 def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fused=True):
@@ -897,7 +1080,11 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     frames after `t_warm` s of a second shipped-capacity LIVO run
     (without `fused`, of the unfused composition). Prints each `vio.*`
     stage's host and device ms per camera frame, the device kernels
-    launched per camera frame and those under `vio.photometric`."""
+    launched per camera frame under `vio.*` and under `vio.photometric`,
+    and per lidar + camera pair all device kernels of the window and
+    `frame.propagate`'s host ms and device kernels (a lidar and an image
+    group). Returns {"photometric_kernels", "kernels_per_pair",
+    "propagate_kernels_per_pair", "propagate_host_ms"}."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -928,6 +1115,8 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane"),
                                       ("photometric_err_H", "patches_and_grads")],
                       "livo profile")
+    if (counts["imu_propagate"] > 0) != fused:
+        raise AssertionError(f"livo profile ({'fused' if fused else 'unfused'}): {counts}")
     evs = prof.key_averages()
     stages = sorted((e for e in evs if e.key.startswith("vio.")
                      and str(e.device_type).endswith("CPU")),
@@ -935,21 +1124,26 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     launched = counts["photometric_err_H"] + counts["patches_and_grads"]
     n_k, _ = kernels_in(prof, "vio.", launched)
     n_photo, linked = kernels_in(prof, "vio.photometric", launched)
-    busy = sum(e.self_device_time_total for e in evs if str(e.device_type).endswith("CUDA")
-               and e.self_device_time_total > 0
-               and not e.key.startswith(("frame.", "lio.", "vio."))) / 1e3
+    n_p, _ = kernels_in(prof, "frame.propagate", counts["imu_propagate"])
+    kernels = device_kernels(evs, ("frame.", "lio.", "vio."))
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    per_pair = sum(e.count for e in kernels) / n_cam
+    prop_host, _ = stage_ms(evs, "frame.propagate", n_cam)
     photo = n_photo / n_cam
-    print(f"livo profile ({'fused' if fused else 'unfused'}): {n_cam} camera frames, "
-          f"{len(outs)} lidar frames, "
+    print(f"livo profile ({'fused' if fused else 'unfused, plain IMU loop'}): {n_cam} camera "
+          f"frames, {len(outs)} lidar frames, "
           f"{1e3 * wall:.1f} ms wall (profiler on), device busy {busy:.2f} ms = "
           f"{100 * busy / (1e3 * wall):.1f}% of wall; device kernels per camera "
-          f"frame {n_k / n_cam:.0f}, under vio.photometric {photo:.1f} (the profiler "
-          f"linked {linked} of its {launched} hand-written launches to the range)")
+          f"frame under vio.* {n_k / n_cam:.0f}, under vio.photometric {photo:.1f} (the "
+          f"profiler linked {linked} of its {launched} hand-written launches to the range); "
+          f"per lidar + camera pair {per_pair:.0f} device kernels, frame.propagate host "
+          f"{prop_host:.3f} ms and {n_p / n_cam:.1f} device kernels")
     for e in stages:
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"{e.count / n_cam:.1f} calls/camera frame")
-    return photo
+    return {"photometric_kernels": photo, "kernels_per_pair": per_pair,
+            "propagate_kernels_per_pair": n_p / n_cam, "propagate_host_ms": prop_host}
 
 
 def cpu_agreement(dev):
@@ -1039,7 +1233,7 @@ def lio_block_phase(dev, ds, ref, ref_ms):
         print(f"{name}: {len(outs)} frames, {ms:.2f} ms/lidar frame (per-frame path "
               f"{ref_ms:.2f}), max position difference to per-frame {d * 1e3:.4f} mm, "
               f"ATE {ate * 1e3:.3f} mm, launches {launches}; {nvidia_smi_line()}")
-        need_launches(name, launches, ["knn5_plane_tiled"])
+        need_launches(name, launches, ["knn5_plane_tiled", "imu_propagate"])
         if not (d < 5e-3 and ate < 0.02):
             raise AssertionError(f"{name}: {d:.4f} m from per-frame, ATE {ate:.4f} m")
         res[name] = (ms, launches)
@@ -1095,7 +1289,8 @@ def livo_block_phase(dev, ds, ref, ref_ms):
           f"steps, {ms:.2f} ms per lidar+camera pair (per-frame path {ref_ms:.2f}), max "
           f"position difference to per-frame {d * 1e3:.4f} mm, ATE {ate * 1e3:.3f} mm, "
           f"launches {launches}; {nvidia_smi_line()}")
-    need_launches("livo block", launches, ["knn5_plane_tiled", "photometric_err_H"])
+    need_launches("livo block", launches, ["knn5_plane_tiled", "photometric_err_H",
+                                           "imu_propagate"])
     if not (d < 1e-2 and ate < 0.06):
         raise AssertionError(f"livo block: {d:.4f} m from per-frame, ATE {ate:.4f} m")
     ck = checkpoint_roundtrip(pipe, dev, "livo")
@@ -1190,7 +1385,7 @@ def serve_phase(dev, ds, ref, split=4.0):
               f"{np.median(gaps):.2f} ms p90 {np.percentile(gaps, 90):.2f} ms, max position "
               f"difference to per-frame {dmax:.3g} m, launches {launches}, autosave "
               f"{mb:.2f} MB; {nvidia_smi_line()}")
-        need_launches("serve", launches, ["knn5_plane_tiled"])
+        need_launches("serve", launches, ["knn5_plane_tiled", "imu_propagate"])
         if n < 15 or not same_t or not dmax < 1e-6:
             raise AssertionError(f"serve: {n} lines, stamps equal {same_t}, {dmax:.3g} m")
         res["serve"] = (float(np.median(gaps)), float(np.percentile(gaps, 90)), launches)
@@ -1206,7 +1401,7 @@ def serve_phase(dev, ds, ref, split=4.0):
     print(f"serve warm restart: {len(lines2)} lines, first 5 errors "
           f"{[round(float(e) * 1e3, 3) for e in errs[:5]]} mm, RMS {rms * 1e3:.3f} mm, gap median "
           f"{np.median(gaps2):.2f} ms, launches {launches2}; {nvidia_smi_line()}")
-    need_launches("serve warm restart", launches2, ["knn5_plane_tiled"])
+    need_launches("serve warm restart", launches2, ["knn5_plane_tiled", "imu_propagate"])
     if len(lines2) < 10 or not (max(errs[:5]) < 0.05 and rms < 0.03):
         raise AssertionError(f"warm restart: {len(lines2)} lines, errors {errs[:5]}, RMS {rms}")
     res["serve warm restart"] = (float(np.median(gaps2)), float(np.percentile(gaps2, 90)),
@@ -1299,7 +1494,7 @@ def bag_phase(dev, ds, t0=100.0):
     print(f"bag: {n_msgs} messages, {mb:.1f} MB, through run.main --bag --block 8: "
           f"{len(traj)} frames, {ms:.2f} ms/lidar frame (reading and decoding included), "
           f"ATE {ate * 1e3:.3f} mm, launches {launches}; {nvidia_smi_line()}")
-    need_launches("bag", launches, ["knn5_plane_tiled"])
+    need_launches("bag", launches, ["knn5_plane_tiled", "imu_propagate"])
     if len(traj) < 30 or not np.isfinite(traj).all() or not ate < 0.02:
         raise AssertionError(f"bag: {len(traj)} frames, ATE {ate:.4f} m")
     return {"bag --block 8": (ms, launches)}
@@ -1392,7 +1587,7 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
             ok = k > 0 and kt == 0 and kh == 0 and len(steady) <= ng <= len(outs)
         else:  # hash, dense, hash BlockReplayer(8)
             ok = kh >= len(steady) and k == 0 and kt == 0 and ng == 0
-        if not ok or not ate < 0.02:
+        if not ok or not launches["imu_propagate"] or not ate < 0.02:
             raise AssertionError(f"{name}: launches {launches}, {ng} candidate gathers, "
                                  f"ATE {ate:.4f} m")
         paths[name] = (ms, launches)
@@ -1758,7 +1953,7 @@ def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
           f"{len(acc)} points, {100 * len(acc) / n_world:.1f}% of the {n_world} world points "
           f"painted; PCD {mb:.1f} MB written in {t1 - t0:.2f} s, read back: max position "
           f"error {pcd_pos_err:.3g} m, colours equal {pcd_same_rgb}; {nvidia_smi_line()}")
-    need_launches("(g)", launches, ["knn5_plane_tiled", "photometric_err_H"])
+    need_launches("(g)", launches, ["knn5_plane_tiled", "photometric_err_H", "imu_propagate"])
     if not (d < 1e-9 and launches == ref_launches):
         raise AssertionError(f"(g): {d:.3g} m from per-frame, launches {launches}")
     if not (same_overlay and len(drawn) == n_tracking > len(tracked) // 2
@@ -2000,6 +2195,14 @@ def world_of_one(dev):
         dist.destroy_process_group()
 
 
+def counted_rank(rank, n, fn, *args):
+    """A rank program that runs `fn(rank, n, *args)` with the kernels'
+    counts set to 0 just before; returns (its result, the rank's
+    launches), so a spawned run's launches reach the parent."""
+    reset_counts()
+    return fn(rank, n, *args), read_counts()
+
+
 def mesh_rank(rank, n, cfg, scans, imu, device, warm=8):
     """(j)'s rank program (parallel.launch.launch): `warm` frames of a
     discarded pipeline (the rank's first launches and connections), then
@@ -2075,7 +2278,8 @@ def mesh_phase(dev, ds, ref, frames=24):
                   f"knn5_plane_tiled {launches['knn5_plane_tiled']}, {n_coll / len(outs):.1f} "
                   f"collectives/frame, map {nb / 1e6:.1f} MB per rank "
                   f"({pipe.map.slot_key.shape[0]} tiles); {smi}")
-            if (d != 0.0 if not sharded else d > 1e-3) or launches["knn5_plane_tiled"] < steady:
+            if ((d != 0.0 if not sharded else d > 1e-3) or launches["knn5_plane_tiled"] < steady
+                    or not launches["imu_propagate"]):
                 raise AssertionError(f"{name}: difference {d} m, launches {launches}")
             paths[name] = (wall / len(outs), launches)
             extra[name] = {"max_diff_to_per_frame_mm": d * 1e3, "map_mb_per_rank": nb / 1e6,
@@ -2097,17 +2301,18 @@ def mesh_phase(dev, ds, ref, frames=24):
         name = f"mesh 2 gloo {'sharded' if sharded else 'replicated'}"
         r0 = res[0][mode]
         k = [r[mode]["knn5_plane_tiled"] for r in res]
+        ki = [r[mode]["imu_propagate"] for r in res]
         d = float(np.abs(r0["pos"] - np.array([o.pos for o in ref[:len(r0["pos"])]])).max())
         ms = 1e3 * r0["wall_s"] / len(r0["t"])
         print(f"{name}: {len(r0['t'])} frames, {ms:.2f} ms/frame, max position difference "
-              f"to per-frame {d * 1e3:.4f} mm, knn5_plane_tiled per rank {k}, "
-              f"{r0['collectives'] / len(r0['t']):.1f} collectives/frame, map "
+              f"to per-frame {d * 1e3:.4f} mm, knn5_plane_tiled per rank {k}, imu_propagate "
+              f"per rank {ki}, {r0['collectives'] / len(r0['t']):.1f} collectives/frame, map "
               f"{r0['map_bytes'] / 1e6:.1f} MB per rank ({r0['pool_tiles']} tiles); {smi}")
-        if len(r0["t"]) < frames or d > 1e-3 or min(k) == 0:
+        if len(r0["t"]) < frames or d > 1e-3 or min(k) == 0 or min(ki) == 0:
             raise AssertionError(f"{name}: {len(r0['t'])} frames, difference {d} m, "
-                                 f"launches {k}")
+                                 f"launches {k}, {ki}")
         pools.append(r0["pool_tiles"])
-        paths[name] = (ms, {"knn5_plane_tiled": sum(k)})
+        paths[name] = (ms, {"knn5_plane_tiled": sum(k), "imu_propagate": sum(ki)})
         extra[name] = {"max_diff_to_per_frame_mm": d * 1e3,
                        "map_mb_per_rank": r0["map_bytes"] / 1e6,
                        "collectives_per_frame": r0["collectives"] / len(r0["t"]),
@@ -2183,7 +2388,8 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
         arguments of the sharded world of one's last measurement: all G
         cells and rank 0's slab of a world of two (G/2), and no valid cell;
       - `run.main --synthetic --mesh 1 --sharded-map --map-pcd --save-ckpt`
-        with the camera (one spawned NCCL rank): LIVO ATE < 6 cm, and its
+        with the camera (one spawned NCCL rank, its launches counted in
+        the rank): LIVO ATE < 6 cm, every kernel of the path launched, and its
         checkpoint loads into a single-device Pipeline with the whole pool
         and exactly the PCD's map points (the sharded map's gather).
     Returns ({path: (ms per lidar frame, launches)}, {path: its other
@@ -2197,6 +2403,7 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
     from fastlivo_tpu_torch.config import Config
     from fastlivo_tpu_torch.io import checkpoint as ckpt
     from fastlivo_tpu_torch.ops import tiled_map as tm
+    from fastlivo_tpu_torch.parallel import launch as plaunch
     from fastlivo_tpu_torch.parallel.launch import launch
     from fastlivo_tpu_torch.pipeline import Pipeline
 
@@ -2211,7 +2418,8 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
     print(f"livo prefix: {len(prefix)} lidar frames, {n_cam} camera steps, "
           f"{wall / len(prefix):.2f} ms/frame, {d * 1e3:.4f} mm from the per-frame path, "
           f"launches {want}, visual map {n_pts} points, {vmap_mb(pipe.vio):.1f} MB")
-    if len(prefix) < frames or d != 0.0 or n_cam < 10 or want["photometric_err_H"] == 0:
+    if (len(prefix) < frames or d != 0.0 or n_cam < 10 or want["photometric_err_H"] == 0
+            or want["imu_propagate"] == 0):
         raise AssertionError(f"livo prefix: {len(prefix)} frames, {d} m, {n_cam} camera "
                              f"steps, launches {want}")
     del pipe
@@ -2245,6 +2453,7 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
                   f"frame ({launches['photometric_err_H'] / max(v.steps, 1):.2f} photometric "
                   f"iterations), {coll:.2f} per lidar frame; {smi}")
             if (d != 0.0 or launches["photometric_err_H"] != want["photometric_err_H"]
+                    or launches["imu_propagate"] != want["imu_propagate"]
                     or int(v.vmap.n_pts) != n_pts):
                 raise AssertionError(f"{name}: {d} m, launches {launches} vs {want}")
             paths[name] = (wall / len(outs), launches)
@@ -2272,18 +2481,20 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
         name = f"livo mesh 2 gloo {'sharded' if sharded else 'replicated'}"
         r0 = res[0][mode]
         k = [r[mode]["photometric_err_H"] for r in res]
+        ki = [r[mode]["imu_propagate"] for r in res]
         mb = [r[mode]["vmap_bytes"] / 1e6 for r in res]
         d = float(np.abs(r0["pos"] - np.array([o.pos for o in prefix[:len(r0["pos"])]])).max())
         ms = 1e3 * r0["wall_s"] / len(r0["t"])
         print(f"{name}: {len(r0['t'])} frames, {r0['vio_steps']} camera steps, {ms:.2f} ms/"
               f"frame, max position difference to the prefix {d * 1e3:.4f} mm, "
-              f"photometric_err_H per rank {k}, visual map {r0['vmap_points']} points, "
+              f"photometric_err_H per rank {k}, imu_propagate per rank {ki}, visual map "
+              f"{r0['vmap_points']} points, "
               f"{mb} MB per rank, {r0['collectives'] / len(r0['t']):.1f} collectives per "
               f"lidar frame (the camera's included); {smi}")
-        if len(r0["t"]) < frames or d > 2e-3 or min(k) == 0:
-            raise AssertionError(f"{name}: {len(r0['t'])} frames, {d} m, launches {k}")
+        if len(r0["t"]) < frames or d > 2e-3 or min(k) == 0 or min(ki) == 0:
+            raise AssertionError(f"{name}: {len(r0['t'])} frames, {d} m, launches {k}, {ki}")
         pts.append([r[mode]["vmap_points"] for r in res])
-        paths[name] = (ms, {"photometric_err_H": sum(k)})
+        paths[name] = (ms, {"photometric_err_H": sum(k), "imu_propagate": sum(ki)})
         extra[name] = {"max_diff_to_prefix_mm": d * 1e3, "vmap_mb_per_rank": mb,
                        "photometric_err_H_per_rank": k, "vmap_points": r0["vmap_points"],
                        "collectives_per_lidar_frame": r0["collectives"] / len(r0["t"])}
@@ -2303,11 +2514,25 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
         with open(cam_yaml, "w") as f:
             f.write(f"cam_width: {cam.width}\ncam_height: {cam.height}\ncam_fx: {cam.fx}\n"
                     f"cam_fy: {cam.fy}\ncam_cx: {cam.cx}\ncam_cy: {cam.cy}\n")
+        # run.main spawns its ranks through parallel.launch.launch; each
+        # rank runs under counted_rank, which hands back its launches
+        rank_launches = []
+
+        def counting_launch(fn, n, args=(), **kw):
+            res = launch(counted_rank, n, (fn, *args), **kw)
+            rank_launches.extend(c for _, c in res)
+            return [r for r, _ in res]
+
         t0 = time.perf_counter()
-        rc = run.main(["--config", cfg_yaml, "--camera", cam_yaml, "--synthetic",
-                       "--duration", str(duration), "--mesh", "1", "--sharded-map",
-                       "--out", out, "--map-pcd", pcd, "--save-ckpt", ck])
+        plaunch.launch = counting_launch
+        try:
+            rc = run.main(["--config", cfg_yaml, "--camera", cam_yaml, "--synthetic",
+                           "--duration", str(duration), "--mesh", "1", "--sharded-map",
+                           "--out", out, "--map-pcd", pcd, "--save-ckpt", ck])
+        finally:
+            plaunch.launch = launch
         wall = time.perf_counter() - t0
+        launches = {k: sum(c[k] for c in rank_launches) for k in rank_launches[0]}
         traj = np.loadtxt(out)
         truth = livo_dataset(cfg, duration=duration).traj
         errs = [np.linalg.norm(row[1:4] - (truth.pose(row[0])[1] - truth.base_pos))
@@ -2323,13 +2548,16 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
     print(f"run --mesh 1 --sharded-map (LIVO): rc {rc}, {len(traj)} poses in {wall:.1f} s "
           f"(spawn included), ATE {ate * 1e3:.3f} mm, map PCD {n_pcd} points, checkpoint "
           f"loaded into a single-device Pipeline: map {n_map} points, visual map {n_vis} "
-          f"points, pool {v.imgs.shape[0]} slots ({slots} filled); {smi}")
+          f"points, pool {v.imgs.shape[0]} slots ({slots} filled), launches in the rank "
+          f"{launches}; {smi}")
+    need_launches("run --mesh 1 LIVO", launches,
+                  ["knn5_plane_tiled", "photometric_err_H", "imu_propagate"])
     if (rc != 0 or not ate < 0.06 or n_map != n_pcd or n_pcd == 0
             or v.imgs.shape[0] != Config().capacity.frame_ring or n_vis == 0 or slots == 0):
         raise AssertionError(f"run --mesh 1 LIVO: rc {rc}, ATE {ate}, map points "
                              f"{n_map} / {n_pcd}, {n_vis} visual-map points")
     name = "run --mesh 1 --sharded-map livo (spawn included; launches in the rank)"
-    paths[name] = (1e3 * wall / len(traj), {})
+    paths[name] = (1e3 * wall / len(traj), launches)
     extra[name] = {"ate_mm": ate * 1e3, "poses": len(traj), "map_points": n_pcd,
                    "vmap_points": n_vis}
     return paths, extra, mesh_launches, err
@@ -2369,6 +2597,7 @@ def main() -> int:
         err_random = kernel_phase(dev, n, m)
         pg_err, pg_ms, pg_plain_ms, pg_bound_ms, pg_bound_by = patches_phase(dev)
         tiled_err = tiled_check(*random_map(dev, n), "random-block map")
+        imu_res = imu_phase(dev)
     with phase("warm-up"):
         warmup_phase(dev)
     with phase("lio per-frame"):
@@ -2427,6 +2656,10 @@ def main() -> int:
         livo_paths, livo_ckpt = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
     paths["livo per-frame"] = (livo_ms, livo_launches)
     paths.update(livo_paths)
+    with phase("plain IMU loop paths"):
+        pp_paths, pp_extra = plain_propagation_phase(dev, lio_ds, lio_outs, livo_ds, livo_outs)
+        paths.update(pp_paths)
+        path_extra.update(pp_extra)
     with phase("(g) livo debug + pcd_save_en"):
         g_ms, g_launches, g_nums = livo_debug_phase(dev, livo_ds, livo_outs, livo_ms,
                                                     livo_launches)
@@ -2464,16 +2697,26 @@ def main() -> int:
         cpu_agreement(dev)
         livo_cpu_agreement(dev)
     with phase("profiles"):
-        # the unfused runs only count kernels: 3 profiled frames each; the
-        # fused ones 10
-        search_k = [profile_phase(dev, fused=False, duration=3.3),
-                    profile_phase(dev, fused=True, duration=4.0)]
-        photo_k = [livo_profile_phase(dev, fused=False, duration=3.3),
-                   livo_profile_phase(dev, fused=True, duration=4.0)]
-    print(f"device kernels under lio.search per steady lidar frame: unfused {search_k[0]:.1f}, "
-          f"fused {search_k[1]:.1f}; under vio.photometric per camera frame: unfused "
-          f"{photo_k[0]:.1f}, fused {photo_k[1]:.1f}")
-    if not (search_k[1] < search_k[0] and photo_k[1] < photo_k[0]):
+        # 10 profiled frames each, unfused and fused
+        lio_prof = [profile_phase(dev, fused=f, duration=4.0) for f in (False, True)]
+        livo_prof = [livo_profile_phase(dev, fused=f, duration=4.0) for f in (False, True)]
+    (lu, lf), (vu, vf) = lio_prof, livo_prof
+    print(f"per steady lidar frame, unfused (plain IMU loop) -> fused: device kernels "
+          f"{lu['kernels']:.0f} -> {lf['kernels']:.0f}, under lio.search "
+          f"{lu['search_kernels']:.1f} -> {lf['search_kernels']:.1f}, under frame.propagate "
+          f"{lu['propagate_kernels']:.1f} -> {lf['propagate_kernels']:.1f}, frame.propagate "
+          f"host {lu['propagate_host_ms']:.3f} -> {lf['propagate_host_ms']:.3f} ms; per LIVO "
+          f"lidar + camera pair: device kernels {vu['kernels_per_pair']:.0f} -> "
+          f"{vf['kernels_per_pair']:.0f}, under frame.propagate "
+          f"{vu['propagate_kernels_per_pair']:.1f} -> {vf['propagate_kernels_per_pair']:.1f}, "
+          f"frame.propagate host {vu['propagate_host_ms']:.3f} "
+          f"-> {vf['propagate_host_ms']:.3f} ms; under vio.photometric per camera frame "
+          f"{vu['photometric_kernels']:.1f} -> {vf['photometric_kernels']:.1f}; {smi}")
+    if not (lf["search_kernels"] < lu["search_kernels"] and lf["kernels"] < lu["kernels"]
+            and vf["photometric_kernels"] < vu["photometric_kernels"]
+            and vf["kernels_per_pair"] < vu["kernels_per_pair"]
+            and lf["propagate_kernels"] < lu["propagate_kernels"]
+            and vf["propagate_kernels_per_pair"] < vu["propagate_kernels_per_pair"]):
         raise AssertionError("the fused kernels did not cut the kernel counts")
     ck_keys = ("copy_ms", "write_ms", "disk_mb", "array_mb")
     print(json.dumps({"paths": {
@@ -2483,6 +2726,8 @@ def main() -> int:
         "livo_checkpoint": dict(zip(ck_keys, livo_ckpt)),
         **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
         "hash_rebuild": {"ms": rebuild_ms, "occupancy": rebuild_occ},
+        "profile": {"lio": dict(zip(("unfused", "fused"), lio_prof)),
+                    "livo": dict(zip(("unfused", "fused"), livo_prof))},
         "hashed_search": hashed,
         "native": native_nums,
         "phase_seconds": seconds,
@@ -2530,6 +2775,16 @@ def main() -> int:
         "launches": livo_launches["patches_and_grads"], "max_abs_err": pg_err,
         "ms": pg_ms, "plain_ms": pg_plain_ms, "bound_ms": pg_bound_ms,
         "bound_by": pg_bound_by, "library_ms": None,
+    }, {
+        "name": "imu_propagate", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/imu_propagate.cu",
+        "replaces": "fastlivo_tpu/imu.py:314 (lax.scan, no Pallas kernel)",
+        "launches": lio_launches["imu_propagate"],
+        "max_abs_err": max(v["max_abs_err"] for v in imu_res.values()),
+        **{k: imu_res[32][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "pairs": 32, "chain_steps": 32, "by_pairs": imu_res,
+        "launches_per_path": {k: v[-1]["imu_propagate"] for k, v in paths.items()},
+        "mesh_launches": sum(v[-1]["imu_propagate"] for k, v in paths.items() if "mesh" in k),
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,13 @@ Port of the JAX package's imu.py (the reference's ImuProcess,
 src/IMU_Processing.cpp):
 
   - static initialization (IMU_init, :137-181): host-side numpy;
-  - forward state+covariance propagation (UndistortPcl :657-755): a loop
-    over padded IMU sample pairs with a validity mask; the 18x18
-    transition F_x and process noise blocks are the reference's
-    (:701-717);
+  - forward state+covariance propagation (UndistortPcl :657-755) over
+    padded IMU sample pairs with a validity mask; the 18x18 transition
+    F_x and process noise blocks are the reference's (:701-717). On a
+    CUDA state one launch of the kernel in csrc/imu_propagate.cu
+    (ops/imu_scan.py) runs a whole group, as the JAX package's one
+    `lax.scan`; on a CPU state the plain loop `propagate_plain`, which is
+    also the kernel's oracle;
   - backward per-point undistortion (:774-808), vectorized: each point
     finds its IMU pose interval by searchsorted and applies the
     closed-form compensation transform.
@@ -30,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .ops import so3
+from .ops import imu_scan, so3
 from .state import DIM_STATE, G_M_S2, NavState, pack24
 
 BIG_T = 1e30
@@ -98,15 +101,44 @@ def merge_pose_packs(packs, flat_idx: torch.Tensor, row_valid: torch.Tensor,
     )
 
 
+def pose_views(pack: torch.Tensor) -> PoseTable:
+    """The PoseTable in rows 0..M-1 of an (M+1, 24) pose pack
+    (`_pack_pose`'s layout), its fields f64 views of the pack's columns."""
+    base = pack[:-1]
+    return PoseTable(offs=base[:, 0], rot=base[:, 1:10].reshape(-1, 3, 3),
+                     pos=base[:, 10:13], vel=base[:, 13:16], acc=base[:, 16:19],
+                     gyr=base[:, 19:22])
+
+
+def _wire(acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt, row0_off):
+    """`pack_pairs_wire` of `propagate`'s arguments, built on their device
+    (no host copy). The kernel reads row0_off as the wire's f32, so a
+    Python float must be one exactly."""
+    if isinstance(row0_off, torch.Tensor):
+        row0 = row0_off.reshape(1)
+    elif float(np.float32(row0_off)) == row0_off:
+        row0 = torch.full((1,), row0_off, dtype=acc_avg.dtype, device=acc_avg.device)
+    else:
+        raise ValueError(f"row0_off {row0_off!r} is not a float32 value")
+    last = torch.cat([tail_dt.reshape(1), row0, acc_avg.new_zeros(7)])
+    return torch.cat([torch.cat([acc_avg, gyr_avg, dt[:, None], offs[:, None],
+                                 pair_valid[:, None].to(acc_avg.dtype)], dim=1),
+                      last[None]])
+
+
 def propagate_packed(s, acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt,
                      acc_s_last, angvel_last, calib, row0_off=0.0):
     """`propagate` returning (state, (M+1, 24) pose pack, acc_s_last',
     angvel_last')."""
-    st, pose, a_last, g_last = propagate(
-        s, acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt,
-        acc_s_last, angvel_last, calib, row0_off,
-    )
-    return st, _pack_pose(pose, st), a_last, g_last
+    if s.pos.device.type == "cpu":
+        st, pose, a_last, g_last = propagate_plain(
+            s, acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt,
+            acc_s_last, angvel_last, calib, row0_off,
+        )
+        return st, _pack_pose(pose, st), a_last, g_last
+    return imu_scan.imu_propagate(
+        s, _wire(acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt, row0_off),
+        acc_s_last, angvel_last, calib)
 
 
 def pack_pairs_wire(acc_avg, gyr_avg, dt, offs, valid, tail_dt, row0_off):
@@ -125,13 +157,22 @@ def pack_pairs_wire(acc_avg, gyr_avg, dt, offs, valid, tail_dt, row0_off):
 
 
 def propagate_wire(s, wire: torch.Tensor, acc_s_last, angvel_last, calib):
-    """`propagate_packed` fed from one `pack_pairs_wire` array."""
+    """`propagate_packed` fed from one `pack_pairs_wire` array: on a CUDA
+    state one kernel launch, on a CPU state the plain loop."""
+    if s.pos.device.type == "cpu":
+        return propagate_wire_plain(s, wire, acc_s_last, angvel_last, calib)
+    return imu_scan.imu_propagate(s, wire, acc_s_last, angvel_last, calib)
+
+
+def propagate_wire_plain(s, wire: torch.Tensor, acc_s_last, angvel_last, calib):
+    """`propagate_wire` through the plain loop, on any device."""
     P = wire.shape[0] - 1
-    return propagate_packed(
+    st, pose, a_last, g_last = propagate_plain(
         s, wire[:P, 0:3], wire[:P, 3:6], wire[:P, 6], wire[:P, 7],
         wire[:P, 8] > 0.5, wire[P, 0], acc_s_last, angvel_last, calib,
         row0_off=wire[P, 1],
     )
+    return st, _pack_pose(pose, st), a_last, g_last
 
 
 class ImuInitializer:
@@ -203,7 +244,21 @@ class ImuInitializer:
         )
 
 
-def propagate(
+def propagate(s: NavState, acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt,
+              acc_s_last, angvel_last, calib: ImuCalib, row0_off=0.0):
+    """Forward propagation over one measurement group (`propagate_plain`'s
+    arguments and results). On a CUDA state the arrays go into one wire on
+    the device and through one kernel launch; the PoseTable's fields are
+    then f64 views of the kernel's pose pack."""
+    args = (s, acc_avg, gyr_avg, dt, offs, pair_valid, tail_dt, acc_s_last, angvel_last,
+            calib, row0_off)
+    if s.pos.device.type == "cpu":
+        return propagate_plain(*args)
+    st, pack, a_last, g_last = propagate_packed(*args)
+    return st, pose_views(pack), a_last, g_last
+
+
+def propagate_plain(
     s: NavState,
     acc_avg: torch.Tensor,  # (P, 3) raw pairwise-averaged accelerometer
     gyr_avg: torch.Tensor,  # (P, 3) raw pairwise-averaged gyro
@@ -216,7 +271,9 @@ def propagate(
     calib: ImuCalib,
     row0_off=0.0,  # segment-start offset from scan begin
 ):
-    """Forward propagation over one measurement group.
+    """Forward propagation over one measurement group, as a plain loop
+    (one eager iteration per pair, ~150 small kernels on a card): the CPU
+    path and, on any device, the kernel's oracle.
 
     Returns (state at segment end, PoseTable of P+1 rows, acc_s_last',
     angvel_last'). Mirrors IMU_Processing.cpp:657-755 (state/cov

@@ -31,6 +31,11 @@ version on their candidate blocks, and their pipelines searching through
 knn5_plane_hashed (never knn5_plane, the tiled kernel or
 knn_candidates); cache_knn through one gather per frame and knn5_plane.
 
+IMU propagation: the imu_propagate kernel within 1e-10 of the plain loop
+imu.propagate_plain on the card (its 18x18 products through cuBLAS) over
+tests/torch_imu_cases.py's groups, bit-equal across launches, one launch
+per entry-point call and per propagated group of a LIO and a LIVO run.
+
 The camera frame's host-side surfaces on the card: Vio.colorize and
 Vio.update_staged against the CPU, and a LIVO run with the debug overlay
 and the RGB cloud against the CPU's. Over a mesh: LIO and LIVO worlds of
@@ -989,3 +994,123 @@ def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda):
         np.testing.assert_array_equal(r["quat"], np.array([o.quat for o in ref]))
         assert r["photometric_err_H"] == launches >= 3 * pipe.vio.steps > 30
         assert r["vmap_points"] == int(pipe.vio.vmap.n_pts)
+
+
+def imu_inputs(name, device):
+    """tests/torch_imu_cases.py's case on `device`: (state, calib, wires,
+    acc0, gyr0), acc0 and gyr0 the pipeline's f32 zeros."""
+    import torch_imu_cases as cases
+
+    st, cal, wires, a0, g0 = cases.case(name)
+    return (cases.torch_state(st, device), cases.torch_calib(cal, device),
+            [torch.from_numpy(w).to(device) for w in wires],
+            torch.from_numpy(a0).to(device), torch.from_numpy(g0).to(device))
+
+
+IMU_CASES = ["b8", "b32_padded", "b64", "leading_skipped", "no_valid_pair", "negative_tail",
+             "small_angle", "chain_of_three"]
+
+
+@pytest.mark.parametrize("name", IMU_CASES)
+def test_imu_propagate_kernel_matches_plain(cuda, name):
+    """The kernel against the plain loop on the card (its 18x18 products
+    through cuBLAS), group by group of the case with the state and
+    acc / gyro carried: every output within 1e-10 absolute."""
+    from fastlivo_tpu_torch import imu
+    from fastlivo_tpu_torch.ops import imu_scan
+
+    s, calib, wires, a, g = imu_inputs(name, cuda)
+    sp, ap, gp = s, a, g
+    for w in wires:
+        s, pack, a, g = imu_scan.imu_propagate(s, w, a, g, calib)
+        torch.cuda.synchronize()
+        sp, pack_p, ap, gp = imu.propagate_wire_plain(sp, w, ap, gp, calib)
+        for got, want in zip((*s, pack, a, g), (*sp, pack_p, ap, gp)):
+            assert got.dtype == want.dtype == torch.float64 and got.shape == want.shape
+            assert float((got - want).abs().max()) <= 1e-10
+
+
+def test_imu_propagate_is_deterministic_and_counted(cuda):
+    """Two launches on the same inputs are bit-equal; propagate_wire,
+    propagate_packed and propagate each launch the kernel exactly once,
+    and propagate's PoseTable holds the pack's rows."""
+    import torch_imu_cases as cases
+
+    from fastlivo_tpu_torch import imu
+    from fastlivo_tpu_torch.ops import imu_scan
+
+    s, calib, (w,), a, g = imu_inputs("b32_padded", cuda)
+    n0 = imu_scan.imu_propagate.launches
+    one = imu.propagate_wire(s, w, a, g, calib)
+    assert imu_scan.imu_propagate.launches == n0 + 1
+    two = imu.propagate_wire(s, w, a, g, calib)
+    assert imu_scan.imu_propagate.launches == n0 + 2
+    for x, y in zip((*one[0], *one[1:]), (*two[0], *two[1:])):
+        assert torch.equal(x, y)
+    packed = imu.propagate_packed(s, *cases.wire_arrays(w)[:6], a, g, calib,
+                                  row0_off=w[-1, 1])
+    assert imu_scan.imu_propagate.launches == n0 + 3 and torch.equal(packed[1], one[1])
+    st, pose, a2, g2 = imu.propagate(s, *cases.wire_arrays(w)[:6], a, g, calib,
+                                     row0_off=float(cases.ROW0_OFF))
+    assert imu_scan.imu_propagate.launches == n0 + 4
+    assert torch.equal(pose.offs, one[1][:-1, 0]) and torch.equal(pose.gyr, one[1][:-1, 19:22])
+    assert torch.equal(st.cov, one[0].cov) and torch.equal(a2, one[2])
+
+
+def test_imu_propagate_refuses_bad_inputs(cuda):
+    from fastlivo_tpu_torch.ops import imu_scan
+
+    s, calib, (w,), a, g = imu_inputs("b8", cuda)
+    with pytest.raises(TypeError):
+        imu_scan.imu_propagate(s._replace(cov=s.cov.float()), w, a, g, calib)
+    with pytest.raises(TypeError):
+        imu_scan.imu_propagate(s, w.double(), a, g, calib)
+    with pytest.raises(ValueError):
+        imu_scan.imu_propagate(s, torch.zeros((imu_scan.MAX_PAIRS + 2, 9), device=cuda),
+                               a, g, calib)
+    with pytest.raises(ValueError):
+        imu_scan.imu_propagate(s._replace(pos=s.pos.cpu()), w, a, g, calib)
+
+
+@pytest.mark.parametrize("camera", [False, True], ids=["lio", "livo"])
+def test_pipeline_propagates_through_the_kernel(cuda, camera, monkeypatch):
+    """A short LIO and LIVO run: one imu_propagate launch per propagated
+    group (lidar and image groups), the plain loop never runs, and the
+    path tracks the ground truth."""
+    from fastlivo_tpu_torch import imu
+    from fastlivo_tpu_torch.ops import imu_scan
+
+    groups, plain = [], []
+    real = imu.propagate_wire
+
+    def wire_spy(*a, **kw):
+        groups.append(a[1].shape[0])
+        return real(*a, **kw)
+
+    def plain_spy(*a, **kw):
+        plain.append(a)
+        raise AssertionError("the plain loop ran on the card")
+
+    monkeypatch.setattr(imu, "propagate_wire", wire_spy)
+    monkeypatch.setattr(imu, "propagate_plain", plain_spy)
+    if camera:
+        ds = small_livo_data()
+        pipe = Pipeline(small_livo_cfg(), device=cuda)
+        for beg, pts, t_rel in ds.lidar_scans_fast():
+            pipe.push_lidar(beg, pts, t_rel)
+        for t, acc, gyr in ds.imu_stream():
+            pipe.push_imu(t, acc, gyr)
+        for t, img in ds.images():
+            pipe.push_img(t, img)
+    else:
+        ds, pipe = SyntheticDataset(**LIO_DS), small_lio(cuda)
+    n0 = imu_scan.imu_propagate.launches
+    outs = pipe.spin()
+    launched = imu_scan.imu_propagate.launches - n0
+    assert not plain and launched == len(groups) >= len(outs) > 25
+    if camera:
+        assert launched > len(outs) + 10 and pipe.vio.steps > 10  # image groups too
+    base = ds.traj.base_pos
+    e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
+         for o in outs if o.t >= ds.traj.t_static + 0.5]
+    assert np.sqrt(np.mean(np.square(e))) < (0.06 if camera else 0.02)
