@@ -33,20 +33,28 @@ map replicated and with the map sharded and the camera's image pool and
 observation rings in per-rank slabs, against the single-device prefix,
 `photometric_err_H`'s partials (what a mesh sums) held against their
 plain version on one rank's slab, then `run.main --mesh 1 --sharded-map`
-with the camera and its checkpoint. The tiled-map paths
+with the camera and its checkpoint, and (l) a LIO run with a 4 kHz IMU
+in 512-pair groups on the card against the CPU. The tiled-map paths
 run the fused kernels: the LIO search in one launch (`knn5_plane_tiled`)
-and each photometric iteration's measurement in one launch
-(`photometric_err_H`, also on the staged path and in every rank of the
-mesh runs); the hash and dense paths search in one launch too
+and each camera frame's coarse-to-fine photometric cascade in one launch
+(`photometric_cascade`: every iteration's measurement, f64 step and
+carry on the card; the staged path launches it once per level), each
+recorded cascade held after its path's run against the host loop on its
+inputs (bit-equal with the step kernel, equal iterations with the plain
+step); over a mesh the cascade is a host loop of one `photometric_err_H`
+(the measurement's partials) and one `photometric_step` launch per
+iteration in every rank; the hash and dense paths search in one launch too
 (`knn5_plane_hashed`, the map walk fused in; no `knn_candidates` call),
 and `cache_knn` re-ranks its one gather per frame with the standalone
 `knn5_plane` (slab-staged through TMA bulk copies); each path's launches
 are counted around it. IMU propagation runs as one launch of
 `imu_propagate` per measurement group on every path (every rank of the
-mesh runs included); the kernel is held against the plain loop at 8, 32
-and 64 pairs, and the LIO and LIVO per-frame paths run again with the
-plain loop swapped in, for the positions and frame times before and
-after. The fused hash and dense searches and
+mesh runs included); the kernel is held against the plain loop at 8, 32,
+64, 256, 300 and 512 pairs, and the LIO and LIVO per-frame paths run
+again with the plain loop swapped in, for the positions and frame times
+before and after. The cascade is held against the host loop at every
+robust mode on the LIVO path's last camera frame and timed beside it, and
+the step kernel against its plain version. The fused hash and dense searches and
 `knn5_plane` are also held against their plain versions on those
 paths' maps and timed there. The standalone `patches_and_grads` is held
 against its plain version but is not on the paths. The hash and dense
@@ -56,9 +64,10 @@ is timed at the shipped table. Each path's trajectory is checked against
 the per-frame path and the synthetic ground truth, and the port on the
 card against the port on the CPU on a small input. Both per-frame paths
 are profiled, and so is the unfused composition they replaced (the plain
-IMU loop included), for the device kernels per frame, the kernel counts
-under `lio.search`, `vio.photometric` and `frame.propagate` and the host
-time of `frame.propagate` before and after.
+IMU loop and the photometric host loop with its plain step included),
+for the device kernels per frame, the kernel counts under `lio.search`,
+`vio.photometric` and `frame.propagate` and the host time of
+`frame.propagate` and `vio.photometric` before and after.
 
 Prints the card and its power limit, the build time, each phase's
 seconds, each kernel's time beside its bound and beside the unfused pair
@@ -87,7 +96,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data sheet)
 # every csrc/*.cu of the port
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
-                "patches_and_grads", "imu_propagate"]
+                "photometric_cascade", "patches_and_grads", "imu_propagate"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -346,11 +355,14 @@ def imu_bound_ms(B: int, n_valid: int):
 def imu_phase(dev):
     """imu_propagate against the plain loop (imu.propagate_wire_plain, its
     18x18 products through cuBLAS) on the card at B = 8 (8 valid pairs),
-    32 (21 valid: a 10 Hz lidar group at 200 Hz in the pipeline's bucket)
-    and 64 (64 valid): every output within 1e-10. Times both at each B:
-    the kernel between queued CUDA events (time_ms), the plain loop alone
-    between two events (event_ms: its ~150 small kernels per pair overflow
-    the launch queue). These launches are not the path's. Returns {B:
+    32 (21 valid: a 10 Hz lidar group at 200 Hz in the pipeline's bucket),
+    64 (64 valid), and past the old 256-pair cap and the kernel's 64-pair
+    chunk: 256 (256 valid), 300 (300 valid, not a power of two) and 512
+    (400 valid: a 10 Hz group of a 4 kHz IMU): every output within 1e-10,
+    two launches bit-equal. Times both at each B: the kernel between queued
+    CUDA events (time_ms), the plain loop alone between two events
+    (event_ms: its ~150 small kernels per pair overflow the launch queue;
+    one call at B >= 256). These launches are not the path's. Returns {B:
     numbers}."""
     from fastlivo_tpu_torch import imu
     from fastlivo_tpu_torch.ops import imu_scan
@@ -359,7 +371,7 @@ def imu_phase(dev):
         return (*out[0], *out[1:])
 
     res = {}
-    for B, nv in ((8, 8), (32, 21), (64, 64)):
+    for B, nv in ((8, 8), (32, 21), (64, 64), (256, 256), (300, 300), (512, 400)):
         s, w, a, g, calib = imu_inputs(dev, B, nv, seed=B)
         got = flat(imu_scan.imu_propagate(s, w, a, g, calib))
         torch.cuda.synchronize()
@@ -368,7 +380,8 @@ def imu_phase(dev):
         again = flat(imu_scan.imu_propagate(s, w, a, g, calib))
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         ms = time_ms(lambda: imu_scan.imu_propagate(s, w, a, g, calib))
-        plain_ms = event_ms(lambda: imu.propagate_wire_plain(s, w, a, g, calib), reps=5)
+        plain_ms = event_ms(lambda: imu.propagate_wire_plain(s, w, a, g, calib),
+                            reps=5 if B <= 64 else 1)
         bound_ms, bound_by = imu_bound_ms(B, nv)
         print(f"imu_propagate B={B} ({nv} valid pairs): max_abs_err={err:.3g} against the "
               f"plain loop, two launches bit-equal {same}; kernel {ms:.4f} ms, plain "
@@ -447,12 +460,49 @@ def plain_propagation():
 
 
 @contextlib.contextmanager
+def photometric_host_loop():
+    """The photometric cascade as the paths ran it before
+    photometric_cascade.cu: the host loop vio.photometric_loop, one
+    photometric_err_H launch and the f64 step in torch ops
+    (photometric_step_plain) per iteration, two flags read back
+    (scripts/torch_camera_frame_ab.py runs the LIVO path both ways)."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import photometric
+
+    with swapped(vio, "photometric_cascade", vio.photometric_loop), \
+            swapped(vio, "photometric_step", photometric.photometric_step_plain):
+        yield
+
+
+@contextlib.contextmanager
+def timed_camera_frames(vio, cam_ms: list):
+    """Append the host wall (ms) of each Vio.update that runs the frame
+    step, its stats read included, to cam_ms."""
+    update = vio.update
+
+    def timed(*a):
+        steps = vio.steps
+        t0 = time.perf_counter()
+        out = update(*a)
+        if vio.steps > steps:
+            cam_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    vio.update = timed
+    try:
+        yield
+    finally:
+        vio.update = update
+
+
+@contextlib.contextmanager
 def unfused():
-    """The paths as they ran before the fused kernels and the IMU kernel:
-    the LIO search as the map's knn_candidates + the standalone knn5_plane
-    kernel (tiled, hash and dense), each photometric measurement as the
-    plain body sampling through the standalone patches_and_grads kernel,
-    IMU propagation as the plain loop."""
+    """The paths as they ran before the fused kernels, the IMU kernel and
+    the photometric cascade: the LIO search as the map's knn_candidates +
+    the standalone knn5_plane kernel (tiled, hash and dense), the
+    photometric cascade as the host loop with each measurement the plain
+    body sampling through the standalone patches_and_grads kernel and each
+    step photometric_step_plain, IMU propagation as the plain loop."""
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
 
@@ -463,6 +513,7 @@ def unfused():
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(swapped(lio, "knn5_plane_search", search))
+        stack.enter_context(photometric_host_loop())
         stack.enter_context(swapped(vio, "photometric_err_H",
                                     photometric.photometric_err_H_plain))
         stack.enter_context(unsampled_plain())
@@ -481,12 +532,69 @@ def spy(module, name, calls: list):
     return swapped(module, name, wrapped)
 
 
+@contextlib.contextmanager
+def recorded_cascades(calls: list):
+    """Record every photometric_cascade call of the paths (vio's) as
+    (arguments, outputs), the outputs left on the card: no host read."""
+    from fastlivo_tpu_torch import vio
+
+    real = vio.photometric_cascade
+
+    def wrapped(*a):
+        out = real(*a)
+        calls.append((a, out))
+        return out
+
+    with swapped(vio, "photometric_cascade", wrapped):
+        yield
+
+
+def check_cascades(calls, label) -> dict:
+    """Each recorded cascade against the host loop vio.photometric_loop on
+    its own inputs, after the path's run (these launches are not the
+    path's; the counts are restored): with the step kernel every output
+    bit-equal, with photometric_step_plain the same iterations, rot and x
+    within 1e-9 and G within 1e-9 of its largest entry. Returns numbers."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    counts = read_counts()
+    iters, pose_d, g_d = [], 0.0, 0.0
+    for k, (a, out) in enumerate(calls):
+        its = int(out[5])
+        loop = vio.photometric_loop(*a)
+        same = loop[5] == its and all(torch.equal(x, y) for x, y in zip(out[:5], loop[:5]))
+        with swapped(vio, "photometric_step", ph.photometric_step_plain):
+            plain = vio.photometric_loop(*a)
+        d = max(float((out[0] - plain[0]).abs().max()), float((out[1] - plain[1]).abs().max()))
+        g = float((out[2] - plain[2]).abs().max())
+        scale = float(plain[2].abs().max())
+        if not (same and plain[5] == its and d <= 1e-9 and g <= 1e-9 * scale):
+            raise AssertionError(f"{label} cascade {k}: {its} iterations, the host loop "
+                                 f"{loop[5]} (bit-equal {same}), with the plain step "
+                                 f"{plain[5]}, pose {d:.3g}, G {g:.3g} of {scale:.3g}")
+        iters.append(its)
+        pose_d, g_d = max(pose_d, d), max(g_d, g / max(scale, 1e-300))
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    nums = {"cascades": len(calls), "iterations": sum(iters),
+            "iterations_min_max": [min(iters, default=0), max(iters, default=0)],
+            "bit_equal_to_the_host_loop": True, "plain_step_pose_max_diff": pose_d,
+            "plain_step_G_max_rel_diff": g_d}
+    print(f"{label}: {len(calls)} photometric_cascade calls, {sum(iters)} iterations "
+          f"({nums['iterations_min_max']} a call), each bit-equal to the host loop with the "
+          f"step kernel and of equal iterations with photometric_step_plain (pose within "
+          f"{pose_d:.3g}, G within {g_d:.3g} of its largest entry)")
+    return nums
+
+
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
     from fastlivo_tpu_torch.ops import imu_scan, knn_plane, patches_grads, photometric
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
-            photometric.photometric_err_H, patches_grads.patches_and_grads,
+            photometric.photometric_err_H, photometric.photometric_cascade,
+            photometric.photometric_step, patches_grads.patches_and_grads,
             imu_scan.imu_propagate)
 
 
@@ -582,6 +690,17 @@ def photometric_bound_ms(args):
     Mg and N (132), 12 index operations per tap and 44 sums of the final
     reduction; per launch the pose (75). Returns (ms, "bytes" |
     "operations", distinct tap pixels)."""
+    taps, ops = photometric_taps_ops(args)
+    G, P = args[1].shape[0], args[13]
+    nbytes = taps.numel() * 4 + G * (P * P * 4 + 12 + 4 + 1 + 4) + 248 + 44 * 4
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), taps.numel()
+
+
+def photometric_taps_ops(args):
+    """One measurement's distinct tap pixels (flat image indices of the
+    (P+3)^2 grids, from the plain version's own sampling call) and its
+    float32 operations (photometric_bound_ms's count)."""
     from fastlivo_tpu_torch.ops import image
     from fastlivo_tpu_torch.ops import photometric as ph
 
@@ -594,13 +713,140 @@ def photometric_bound_ms(args):
     ext = torch.arange(n, device=pc.device) - (P // 2 + 1)
     rows = (v_i[:, None].long() + ext * scale[:, None]).clamp(0, H - 1)
     cols = (u_i[:, None].long() + ext * scale[:, None]).clamp(0, W - 1)
-    taps = torch.unique(rows[:, :, None] * W + cols[:, None, :]).numel()
-    nbytes = taps * 4 + G * (P * P * 4 + 12 + 4 + 1 + 4) + 248 + 44 * 4
+    taps = torch.unique(rows[:, :, None] * W + cols[:, None, :])
     per_px = (5 * 7 + 2 * 3 + 1 + 6 * 3 + 2 + {"none": 0, "huber": 6, "tukey": 9}[args[14]]
               + 48 + 43)
-    ops = G * (P * P * per_px + 48 + 18 + 132 + 12 * n * n + 44) + 75
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), taps
+    return taps, G * (P * P * per_px + 48 + 18 + 132 + 12 * n * n + 44) + 75
+
+
+# f64 operations of one photometric step (step_warp in
+# photometric_cascade.cu, counted from its source): widening HT (42), A =
+# HᵀH₆ P' + I (402), the 6x6 elimination with its 24-wide rows (1656),
+# rotᵀ prior.rot and Log (65), vec (15), t (72), sol (216), G = K HᵀH₆
+# (1188), Exp and rot' (105), the norms (12), x' (15)
+STEP_OPS = 3788
+# its bytes: P' (18, 18), the prior's and the pose's rot and x (f64), HT
+# (42 f32) read; rot', x', G (f64) and the flag written
+STEP_BYTES = (324 + 2 * (9 + 15)) * 8 + 42 * 4 + (9 + 15 + 108) * 8 + 1
+
+
+def step_bound_ms():
+    t_b, t_o = STEP_BYTES / HBM_BYTES_PER_S, STEP_OPS / F64_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def cascade_bound_ms(measurements, levels_used):
+    """Least time for one cascade on these inputs: `measurements` are the
+    photometric_err_H arguments of each of its iterations (the host loop's
+    on the same inputs). Bytes: the distinct image pixels of all the
+    iterations' tap grids, the reference patches of the levels used, each
+    point's position, search level and valid flag, the pose, prior, P'
+    and camera read once, and the pose, G, per-point errors, mean error and
+    count written once. Operations: each iteration's float32 measurement
+    (photometric_taps_ops) over the f32 rate plus its f64 step (STEP_OPS)
+    over the f64 rate. Returns (ms, "bytes" | "operations", distinct
+    pixels)."""
+    taps, ops32 = [], 0
+    for a in measurements:
+        t, o = photometric_taps_ops(a)
+        taps.append(t)
+        ops32 += o
+    n_taps = torch.unique(torch.cat(taps)).numel()
+    G, P = measurements[0][1].shape[0], measurements[0][13]
+    nbytes = (n_taps * 4 + levels_used * G * P * P * 4 + G * (12 + 4 + 1) + 248
+              + (324 + 2 * (9 + 15)) * 8 + (9 + 15 + 108) * 8 + G * 4 + 8 + 4)
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = ops32 / F32_OPS_PER_S + len(measurements) * STEP_OPS / F64_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), n_taps
+
+
+def cascade_phase(dev, a):
+    """photometric_cascade on the LIVO path's last cascade call `a`, at
+    every robust mode, against the host loop vio.photometric_loop on the
+    same inputs: with the step kernel every output bit-equal; with
+    photometric_step_plain equal iterations, rot and x within 1e-9, G
+    within 1e-9 of its largest entry, perr and err within rtol 1e-5. The
+    step kernel against photometric_step_plain on the call's first
+    iteration (rot', x', G within 1e-12, the same flag). Times, on the
+    path's own robust mode: the cascade (queued CUDA events) against the
+    host loop with the kernels, with the plain step, and with everything
+    plain (one call alone between two events: the loop reads two flags an
+    iteration), and the host wall of a cascade call and of the loop; the
+    step kernel against its plain version. These launches are not the
+    path's. Returns {"cascade": numbers, "step": numbers}."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    a = list(a)
+    loop = vio.photometric_loop
+    err, iters = 0.0, {}
+    for robust in ("none", "huber", "tukey"):
+        ar = a[:18] + [robust, a[19]]
+        got = ph.photometric_cascade(*ar)
+        its = int(got[5])
+        want = loop(*ar)
+        same = want[5] == its and all(torch.equal(x, y) for x, y in zip(got[:5], want[:5]))
+        with swapped(vio, "photometric_step", ph.photometric_step_plain):
+            plain = loop(*ar)
+        d = max(float((got[0] - plain[0]).abs().max()), float((got[1] - plain[1]).abs().max()))
+        g = float((got[2] - plain[2]).abs().max()) / max(float(plain[2].abs().max()), 1e-300)
+        rp = float(((got[3] - plain[3]).abs() / plain[3].abs().clamp(min=1e-30)).max())
+        re = abs(float(got[4]) - float(plain[4])) / max(abs(float(plain[4])), 1e-300)
+        print(f"photometric_cascade robust {robust}: {its} iterations, bit-equal to the host "
+              f"loop with the step kernel {same}; with photometric_step_plain {plain[5]} "
+              f"iterations, pose {d:.3g}, G {g:.3g} of max, perr rel {rp:.3g}, err rel "
+              f"{re:.3g}; grid {ph.photometric_cascade.grid} blocks")
+        if not (same and plain[5] == its and d <= 1e-9 and g <= 1e-9 and rp <= 1e-5
+                and re <= 1e-5):
+            raise AssertionError(f"photometric_cascade {robust} disagrees with the host loop")
+        err = max(err, d)
+        iters[robust] = its
+    robust = a[18]
+    its = iters[robust]
+    ms = time_ms(lambda: ph.photometric_cascade(*a))
+    loop_ms = event_ms(lambda: loop(*a), reps=5)
+    with swapped(vio, "photometric_step", ph.photometric_step_plain):
+        loop_plain_step_ms = event_ms(lambda: loop(*a), reps=5)
+    with swapped(vio, "photometric_step", ph.photometric_step_plain), \
+            swapped(vio, "photometric_err_H", ph.photometric_err_H_plain):
+        plain_ms = event_ms(lambda: loop(*a), reps=5)
+        loop_host_ms = host_ms(lambda: loop(*a))
+    cascade_host_ms = host_ms(lambda: ph.photometric_cascade(*a))
+    meas = []
+    with spy(vio, "photometric_err_H", meas):
+        loop(*a)
+    bound, by, n_taps = cascade_bound_ms([list(m) for m in meas], len(set(a[15])))
+
+    # the step on the call's first iteration
+    m0 = measurement_args(a)
+    HT = ph.photometric_err_H(*m0, partials=True)[0][:42].view(6, 7)
+    sargs = (a[5], a[6], a[7], a[8], a[9], HT)
+    got = ph.photometric_step(*sargs)
+    want = ph.photometric_step_plain(*sargs)
+    s_err = max(float((x - y).abs().max()) for x, y in zip(
+        (got[0], got[1], got[3]), (want[0], want[1], want[3])))
+    if not (s_err <= 1e-12 and bool(got[2]) == bool(want[2])):
+        raise AssertionError(f"photometric_step: {s_err:.3g} from its plain version")
+    s_ms = time_ms(lambda: ph.photometric_step(*sargs))
+    s_plain_ms = event_ms(lambda: ph.photometric_step_plain(*sargs), reps=10)
+    s_bound, s_by = step_bound_ms()
+    smi = nvidia_smi_line()
+    print(f"photometric_cascade G={a[1].shape[0]} P={a[16]} levels {tuple(a[15])} robust "
+          f"{robust}: {its} iterations in {ms:.4f} ms ({ms / its:.4f} ms an iteration; host "
+          f"{cascade_host_ms:.3f} ms a call); the host loop {loop_ms:.4f} ms with the kernels "
+          f"({loop_ms / its:.4f} an iteration), {loop_plain_step_ms:.4f} with the plain step, "
+          f"{plain_ms:.4f} all plain (host {loop_host_ms:.3f} ms); bound {bound:.6f} ms "
+          f"({by}; {n_taps} distinct tap pixels over the iterations), library none; {smi}")
+    print(f"photometric_step: max_abs_err={s_err:.3g} against its plain version; kernel "
+          f"{s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, bound {s_bound:.7f} ms ({s_by}), "
+          f"library none; {smi}")
+    return {"cascade": {"max_abs_err": err, "iterations": iters, "ms": ms,
+                        "ms_per_iteration": ms / its, "host_ms": cascade_host_ms,
+                        "loop_ms": loop_ms, "loop_ms_per_iteration": loop_ms / its,
+                        "loop_plain_step_ms": loop_plain_step_ms, "plain_ms": plain_ms,
+                        "plain_host_ms": loop_host_ms, "bound_ms": bound, "bound_by": by},
+            "step": {"max_abs_err": s_err, "ms": s_ms, "plain_ms": s_plain_ms,
+                     "bound_ms": s_bound, "bound_by": s_by}}
 
 
 def photometric_compare(a, label="") -> float:
@@ -630,6 +876,17 @@ def photometric_compare(a, label="") -> float:
           f"{', '.join(rel)}; max_abs_err={e:.3g} (|HT| up to "
           f"{float(want[1].abs().max()):.3g})")
     return e
+
+
+def measurement_args(a, level=None) -> list:
+    """photometric_err_H's arguments for the first iteration of a cascade
+    call whose arguments are `a` (photometric_cascade's, vio.photometric_
+    loop's): its start pose, at `level` (default its first level)."""
+    (img, tr_pos, tr_patch, tr_slevel, tr_valid, rot, x, _prot, _px, _P, Rci, Pci, Jdphi_dR,
+     Jdp_dR, cam, levels, P, _max_iter, robust, robust_scale) = a
+    lv = levels[0] if level is None else level
+    return [img, tr_pos, tr_patch[:, lv], tr_slevel, tr_valid, rot, x[0:3], Rci, Pci,
+            Jdphi_dR, Jdp_dR, cam, lv, P, robust, robust_scale]
 
 
 def photometric_phase(dev, args):
@@ -799,14 +1056,16 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     """Pipeline(Config()) with the camera on, at its shipped capacities
     (visual map 65536 points x 20 observations, 2^18 hash slots, a u8
     pool of 256 images of 640x512). The kernels' launch counts are read
-    around this run only: the fused kernels launch once per search and
-    once per photometric iteration and the standalone ones never.
-    Camera-frame time: host wall of Vio.update, its stats read included.
-    Returns (launches, the last photometric call's arguments, camera and
-    lidar frame medians in ms, the outputs, the dataset, wall ms per
-    lidar frame)."""
+    around this run only: the fused search once per search, the
+    photometric cascade once per camera frame step, the standalone kernels,
+    photometric_err_H and photometric_step never. Camera-frame time: host
+    wall of Vio.update, its stats read included. After the run every
+    cascade is held against the host loop on its inputs (check_cascades).
+    Returns (launches, the recorded cascade calls, camera and lidar frame
+    medians in ms, the outputs, the dataset, wall ms per lidar frame, the
+    cascades' numbers)."""
     from fastlivo_tpu_torch import imu as imu_mod
-    from fastlivo_tpu_torch import lio, vio as vio_mod
+    from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     cfg = livo_config()
@@ -821,30 +1080,16 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     pipe = Pipeline(cfg, device=dev)
     push_all(pipe, ds)
     vio = pipe.vio
-    cam_ms = []
-    update = vio.update
-
-    def timed_update(*a):
-        steps = vio.steps
-        t0 = time.perf_counter()
-        out = update(*a)
-        if vio.steps > steps:
-            cam_ms.append(1e3 * (time.perf_counter() - t0))
-        return out
-
-    vio.update = timed_update
-    searches, measurements, groups = [], [], []
+    cam_ms, searches, cascades, groups = [], [], [], []
     torch.cuda.synchronize()
     reset_counts()
-    with spy(lio, "knn5_plane_search", searches), \
-            spy(vio_mod, "photometric_err_H", measurements), \
-            spy(imu_mod, "propagate_wire", groups):
+    with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
+            spy(imu_mod, "propagate_wire", groups), timed_camera_frames(vio, cam_ms):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_counts()
-    vio.update = update
 
     steady = [o for o in outs if o.iters > 0]
     pos = np.array([o.pos for o in outs])
@@ -856,7 +1101,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     n_pts = int(vio.vmap.n_pts)
     print(f"livo path: {len(outs)} lidar frames ({len(steady)} steady), {vio.fid} camera "
           f"frames ({vio.steps} ran the frame step) in {wall:.2f} s; {len(searches)} "
-          f"searches, {len(measurements)} photometric iterations, {len(groups)} propagated "
+          f"searches, {len(cascades)} photometric cascades, {len(groups)} propagated "
           f"groups; launches {launches}; "
           f"ATE {ate * 1e3:.3f} mm; visual map {n_pts} points, last {vio.last_stats}")
     print(f"livo path: camera frame median {np.median(cam_ms):.2f} ms (p90 "
@@ -867,19 +1112,20 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"too few frames: {len(steady)} steady, {vio.steps} camera")
     if n_pts <= 50 or vio.last_stats.get("tracked", 0) <= 5:
         raise AssertionError(f"visual map {n_pts} points, last {vio.last_stats}")
-    if len(measurements) < 3 * vio.steps or len(searches) < len(steady):
-        raise AssertionError(f"{len(measurements)} measurements, {len(searches)} searches")
+    if len(cascades) != vio.steps or len(searches) < len(steady):
+        raise AssertionError(f"{len(cascades)} cascades, {len(searches)} searches")
     want = {"knn5_plane_tiled": len(searches), "knn5_plane_hashed": 0, "knn5_plane": 0,
-            "photometric_err_H": len(measurements), "patches_and_grads": 0,
-            "imu_propagate": len(groups)}
+            "photometric_err_H": 0, "photometric_cascade": vio.steps, "photometric_step": 0,
+            "patches_and_grads": 0, "imu_propagate": len(groups)}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.06:
         raise AssertionError(f"LIVO ATE {ate:.4f} m >= 6 cm")
-    return (launches, measurements[-1], float(np.median(cam_ms)), float(np.median(lid_ms)),
-            outs, ds, 1e3 * wall / len(outs))
+    nums = check_cascades(cascades, "livo per-frame")
+    return (launches, cascades, float(np.median(cam_ms)), float(np.median(lid_ms)),
+            outs, ds, 1e3 * wall / len(outs), nums)
 
 
 def livo_cpu_agreement(dev):
@@ -1083,8 +1329,9 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     launched per camera frame under `vio.*` and under `vio.photometric`,
     and per lidar + camera pair all device kernels of the window and
     `frame.propagate`'s host ms and device kernels (a lidar and an image
-    group). Returns {"photometric_kernels", "kernels_per_pair",
-    "propagate_kernels_per_pair", "propagate_host_ms"}."""
+    group). Returns {"photometric_kernels", "photometric_host_ms",
+    "photometric_device_ms", "kernels_per_pair", "propagate_kernels_per_pair",
+    "propagate_host_ms"}."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -1113,15 +1360,17 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     if n_cam == 0 or not outs:
         raise AssertionError("profiled LIVO window holds no camera frame")
     check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane"),
-                                      ("photometric_err_H", "patches_and_grads")],
+                                      ("photometric_cascade", "patches_and_grads")],
                       "livo profile")
+    if counts["photometric_err_H"] or counts["photometric_step"]:
+        raise AssertionError(f"livo profile: the host loop's kernels launched, {counts}")
     if (counts["imu_propagate"] > 0) != fused:
         raise AssertionError(f"livo profile ({'fused' if fused else 'unfused'}): {counts}")
     evs = prof.key_averages()
     stages = sorted((e for e in evs if e.key.startswith("vio.")
                      and str(e.device_type).endswith("CPU")),
                     key=lambda e: -e.cpu_time_total)
-    launched = counts["photometric_err_H"] + counts["patches_and_grads"]
+    launched = counts["photometric_cascade"] + counts["patches_and_grads"]
     n_k, _ = kernels_in(prof, "vio.", launched)
     n_photo, linked = kernels_in(prof, "vio.photometric", launched)
     n_p, _ = kernels_in(prof, "frame.propagate", counts["imu_propagate"])
@@ -1129,6 +1378,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     per_pair = sum(e.count for e in kernels) / n_cam
     prop_host, _ = stage_ms(evs, "frame.propagate", n_cam)
+    photo_host, photo_dev = stage_ms(evs, "vio.photometric", n_cam)
     photo = n_photo / n_cam
     print(f"livo profile ({'fused' if fused else 'unfused, plain IMU loop'}): {n_cam} camera "
           f"frames, {len(outs)} lidar frames, "
@@ -1142,7 +1392,8 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"{e.count / n_cam:.1f} calls/camera frame")
-    return {"photometric_kernels": photo, "kernels_per_pair": per_pair,
+    return {"photometric_kernels": photo, "photometric_host_ms": photo_host,
+            "photometric_device_ms": photo_dev, "kernels_per_pair": per_pair,
             "propagate_kernels_per_pair": n_p / n_cam, "propagate_host_ms": prop_host}
 
 
@@ -1175,6 +1426,50 @@ def cpu_agreement(dev):
           f"difference {dmax * 1e3:.4f} mm")
     if not dmax < 1e-3:
         raise AssertionError(f"{dev} and cpu differ by {dmax:.2e} m")
+
+
+def imu_4khz_phase(dev, duration=3.0):
+    """A short LIO run with a 4 kHz IMU and capacity.max_imu_per_group 512
+    (~400 pairs a 10 Hz group, the 512 bucket) on the card and on the
+    CPU, 4096-point scans: one imu_propagate launch per propagated
+    group, the 512 bucket reached, every frame within 1 mm of the CPU's.
+    Returns (ms per lidar frame, launches, numbers)."""
+    from fastlivo_tpu_torch import imu as imu_mod
+    from fastlivo_tpu_torch.config import CapacityConfig, Config
+    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    res = []
+    for d in (dev, "cpu"):
+        cfg = Config()
+        cfg.img_enable = False
+        cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                      tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
+                                      max_imu_per_group=512)
+        ds = SyntheticDataset(duration=duration, points_per_scan=4096, lidar_noise=0.004,
+                              seed=3, imu_hz=4000.0)
+        pipe = Pipeline(cfg, device=d)
+        for beg, pts, t_rel in ds.lidar_scans_fast():
+            pipe.push_lidar(beg, pts, t_rel)
+        for t, acc, gyr in ds.imu_stream():
+            pipe.push_imu(t, acc, gyr)
+        groups = []
+        with spy(imu_mod, "propagate_wire", groups):
+            outs, launches, wall = counted_run(lambda: pipe.spin() + pipe.finish())
+        res.append((outs, launches, wall, groups, pipe._imu_bucket))
+    (a, la, wa, ga, ba), (b, _, _, _, bb) = res
+    d = max_diff(a, b)
+    pairs = max(int(g[1].shape[0]) - 1 for g in ga)
+    print(f"4 kHz IMU, max_imu_per_group 512, {dev} vs cpu: {len(a)} frames, "
+          f"{len(ga)} propagated groups of up to {pairs} pairs (bucket {ba}), "
+          f"{la['imu_propagate']} imu_propagate launches, {wa / len(a):.2f} ms per lidar frame "
+          f"on the card, max position difference {d * 1e3:.4f} mm; {nvidia_smi_line()}")
+    if not (len(a) >= 20 and la["imu_propagate"] == len(ga) >= len(a) and ba == bb == 512
+            and pairs == 512 and d < 1e-3):
+        raise AssertionError(f"4 kHz IMU: {len(a)} frames, launches {la}, groups {len(ga)}, "
+                             f"buckets {ba} / {bb}, {d} m")
+    return wa / len(a), la, {"max_diff_to_cpu_mm": d * 1e3, "groups": len(ga),
+                             "bucket": ba}
 
 
 def ate_of(outs, ds, t_offset=0.0):
@@ -1274,27 +1569,36 @@ def checkpoint_roundtrip(pipe, dev, label):
 
 def livo_block_phase(dev, ds, ref, ref_ms):
     """The LIVO dataset of livo_path_phase through LivoBlockReplayer(8):
-    the per-frame path's frames within 1 cm, ATE < 6 cm, both fused
-    kernels launched; then a checkpoint of the LIVO estimator (geometric
-    and visual maps at shipped capacities)."""
+    the per-frame path's frames within 1 cm, ATE < 6 cm, the fused search
+    and the IMU kernel launched, the photometric cascade once per camera
+    frame step and each cascade held against the host loop; then a
+    checkpoint of the LIVO estimator (geometric and visual maps at shipped
+    capacities). Returns ({path: (ms, launches)}, the checkpoint's
+    numbers, the cascades' numbers)."""
     from fastlivo_tpu_torch.pipeline import Pipeline
     from fastlivo_tpu_torch.replay import LivoBlockReplayer
 
     pipe = Pipeline(livo_config(), device=dev)
     push_all(pipe, ds)
-    outs, launches, wall = counted_run(lambda: LivoBlockReplayer(pipe, 8).run())
+    cascades = []
+    with recorded_cascades(cascades):
+        outs, launches, wall = counted_run(lambda: LivoBlockReplayer(pipe, 8).run())
     d, ate = max_diff(outs, ref), ate_of(outs, ds)
     ms = wall / len(outs)
     print(f"livo LivoBlockReplayer(8): {len(outs)} lidar frames, {pipe.vio.steps} camera "
           f"steps, {ms:.2f} ms per lidar+camera pair (per-frame path {ref_ms:.2f}), max "
           f"position difference to per-frame {d * 1e3:.4f} mm, ATE {ate * 1e3:.3f} mm, "
           f"launches {launches}; {nvidia_smi_line()}")
-    need_launches("livo block", launches, ["knn5_plane_tiled", "photometric_err_H",
+    need_launches("livo block", launches, ["knn5_plane_tiled", "photometric_cascade",
                                            "imu_propagate"])
     if not (d < 1e-2 and ate < 0.06):
         raise AssertionError(f"livo block: {d:.4f} m from per-frame, ATE {ate:.4f} m")
+    if not launches["photometric_cascade"] == pipe.vio.steps == len(cascades) or \
+            launches["photometric_err_H"] or launches["photometric_step"]:
+        raise AssertionError(f"livo block: launches {launches} for {pipe.vio.steps} steps")
+    nums = check_cascades(cascades, "livo LivoBlockReplayer(8)")
     ck = checkpoint_roundtrip(pipe, dev, "livo")
-    return {"livo LivoBlockReplayer(8)": (ms, launches)}, ck
+    return {"livo LivoBlockReplayer(8)": (ms, launches)}, ck, nums
 
 
 def lio_messages(ds, t_min=None, t_max=None):
@@ -1907,9 +2211,12 @@ def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
         apply(stats)
 
     vio._apply_stats = applied
-    with swapped(vio_mod, "render_overlay", record), contextlib.redirect_stdout(dump):
+    cascades = []
+    with swapped(vio_mod, "render_overlay", record), contextlib.redirect_stdout(dump), \
+            recorded_cascades(cascades):
         outs, launches, wall = counted_run(pipe.spin)
     vio._apply_stats = apply
+    c_nums = check_cascades(cascades, "(g)")
     n_tracking = sum(t > 0 for t in tracked)
     d = max_diff(outs, ref)
     ms = wall / len(outs)
@@ -1942,7 +2249,7 @@ def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
             "colorize_mask_diff": mask_diff, "colorize_max_rgb_diff": rgb_err,
             "rgb_points": len(acc), "painted_share": len(acc) / n_world,
             "pcd_mb": mb, "pcd_write_s": t1 - t0, "pcd_max_pos_err": pcd_pos_err,
-            "debug_show_lines": dump.getvalue().count("\n")}
+            "debug_show_lines": dump.getvalue().count("\n"), "cascades": c_nums}
     print(f"(g) livo debug + pcd_save_en per-frame: {len(outs)} lidar frames, {vio.steps} "
           f"camera steps, {ms:.2f} ms per lidar+camera pair (per-frame path {ref_ms:.2f}), max "
           f"position difference to per-frame {d * 1e3:.4f} mm, launches {launches} (per-frame "
@@ -1953,8 +2260,9 @@ def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
           f"{len(acc)} points, {100 * len(acc) / n_world:.1f}% of the {n_world} world points "
           f"painted; PCD {mb:.1f} MB written in {t1 - t0:.2f} s, read back: max position "
           f"error {pcd_pos_err:.3g} m, colours equal {pcd_same_rgb}; {nvidia_smi_line()}")
-    need_launches("(g)", launches, ["knn5_plane_tiled", "photometric_err_H", "imu_propagate"])
-    if not (d < 1e-9 and launches == ref_launches):
+    need_launches("(g)", launches, ["knn5_plane_tiled", "photometric_cascade", "imu_propagate"])
+    if not (d < 1e-9 and launches == ref_launches
+            and launches["photometric_cascade"] == vio.steps == len(cascades)):
         raise AssertionError(f"(g): {d:.3g} m from per-frame, launches {launches}")
     if not (same_overlay and len(drawn) == n_tracking > len(tracked) // 2
             and len(tracked) == vio.steps
@@ -1987,9 +2295,11 @@ def staged_phase(dev, ds, frames=10, t0=2.0, points=24000):
     Each frame runs both on forked states and goes on from the fused one;
     the JAX package's bounds (tests/test_vio.py): position and rotation
     within 5e-4, covariance within 1e-4, tracked within 2, map size within
-    5%. The staged path's launches are counted around each staged call,
-    and its last photometric measurement is held against its plain
-    version. Returns (staged ms per camera frame, launches, numbers)."""
+    5%. The staged path's launches are counted around each staged call
+    (three photometric_cascade launches a frame, one per level), its
+    cascades are held against the host loop, and the measurement of its
+    last cascade's first iteration against its plain version. Returns
+    (staged ms per camera frame, launches, numbers)."""
     from fastlivo_tpu_torch import vio as vio_mod
     from fastlivo_tpu_torch.state import identity_state
 
@@ -2020,8 +2330,7 @@ def staged_phase(dev, ds, frames=10, t0=2.0, points=24000):
         out_f = v.update(sp, sp, img)
         torch.cuda.synchronize()
         fused_ms.append(1e3 * (time.perf_counter() - t1))
-        calls.clear()
-        with spy(vio_mod, "photometric_err_H", calls):
+        with recorded_cascades(calls):
             out_s, lk, ms = counted_run(lambda: ref.update_staged(sp, sp, img))
         staged_ms.append(ms)
         launches = {n: launches.get(n, 0) + c for n, c in lk.items()}
@@ -2038,10 +2347,12 @@ def staged_phase(dev, ds, frames=10, t0=2.0, points=24000):
             raise AssertionError(f"(h) frame {k}: {dk}, tracked {v.last_stats} vs "
                                  f"{ref.last_stats}, map {nf} vs {ns}")
         del ref
-    ph_err = photometric_compare(list(calls[-1]), " (staged path's last call)")
+    c_nums = check_cascades(calls, "(h) staged")
+    ph_err = photometric_compare(measurement_args(calls[-1][0]), " (staged path's last call)")
     nums = {"camera_frames": frames, "fused_ms_median": float(np.median(fused_ms)),
             "staged_ms_median": float(np.median(staged_ms)), "worst": worst,
-            "photometric_max_abs_err": ph_err, "map_points": int(v.vmap.n_pts)}
+            "photometric_max_abs_err": ph_err, "map_points": int(v.vmap.n_pts),
+            "cascades": c_nums}
     cam = v.cfg.camera
     print(f"(h) update_staged vs update, {frames} camera frames at {cam.width}x{cam.height}: "
           f"worst position "
@@ -2049,8 +2360,9 @@ def staged_phase(dev, ds, frames=10, t0=2.0, points=24000):
           f"tracked {worst['tracked']}, map size {100 * worst['map']:.2f}%; staged launches "
           f"{launches}; ms per camera frame: staged median {np.median(staged_ms):.2f}, fused "
           f"median {np.median(fused_ms):.2f}; {nvidia_smi_line()}")
-    need_launches("(h)", launches, ["photometric_err_H"])
-    if launches["photometric_err_H"] < 3 * frames or launches["patches_and_grads"]:
+    need_launches("(h)", launches, ["photometric_cascade"])
+    if (launches["photometric_cascade"] != 3 * frames or launches["photometric_err_H"]
+            or launches["photometric_step"] or launches["patches_and_grads"]):
         raise AssertionError(f"(h) staged launches {launches}")
     return float(np.median(staged_ms)), launches, nums
 
@@ -2376,14 +2688,18 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
     grid 40: G = 192 cells; a u8 pool of 256 images and 65536 x 20
     observation rings):
       - the single-device prefix on the same pushes (equal to the per-frame
-        path's first frames), its photometric_err_H launches counted;
+        path's first frames): one photometric_cascade launch per camera
+        frame, their iterations summed;
       - a world of one on NCCL in this process, with the map replicated
         and with the map sharded and the visual map in slabs: 0.0000 mm
-        from the prefix, the same photometric_err_H launches, the visual
-        map's MB on the rank and collectives per camera frame;
+        from the prefix, the host loop's photometric_err_H and
+        photometric_step launched once per iteration of the prefix's
+        cascades and no cascade, the visual map's MB on the rank and
+        collectives per camera frame;
       - two ranks sharing the card under gloo: rank 0 within 2 mm of the
-        prefix, photometric_err_H launched in every rank, equal visual-map
-        points replicated and sharded, each rank's visual-map MB;
+        prefix, photometric_err_H and photometric_step launched in every
+        rank and no cascade, equal visual-map points replicated and
+        sharded, each rank's visual-map MB;
       - photometric_err_H's partials against their plain version on the
         arguments of the sharded world of one's last measurement: all G
         cells and rank 0's slab of a world of two (G/2), and no valid cell;
@@ -2393,8 +2709,8 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
         checkpoint loads into a single-device Pipeline with the whole pool
         and exactly the PCD's map points (the sharded map's gather).
     Returns ({path: (ms per lidar frame, launches)}, {path: its other
-    numbers}, photometric_err_H's launches over the mesh runs, the
-    partials' max_abs_err)."""
+    numbers}, photometric_err_H's and photometric_step's launches over the
+    mesh runs, the partials' max_abs_err)."""
     import os
     import tempfile
 
@@ -2409,19 +2725,25 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
 
     smi = nvidia_smi_line()
     t_max = ref[frames].t
-    paths, extra, mesh_launches = {}, {}, 0
+    paths, extra, mesh_launches, step_launches = {}, {}, 0, 0
     pipe = Pipeline(livo_config(), device=dev)
     push_all(pipe, ds, t_max=t_max)
-    prefix, want, wall = counted_run(pipe.spin)
+    cascades = []
+    with recorded_cascades(cascades):
+        prefix, want, wall = counted_run(pipe.spin)
     d = max_diff(prefix, ref[:len(prefix)])
     n_cam, n_pts = pipe.vio.steps, int(pipe.vio.vmap.n_pts)
+    iters = sum(int(out[5]) for _, out in cascades)
     print(f"livo prefix: {len(prefix)} lidar frames, {n_cam} camera steps, "
           f"{wall / len(prefix):.2f} ms/frame, {d * 1e3:.4f} mm from the per-frame path, "
-          f"launches {want}, visual map {n_pts} points, {vmap_mb(pipe.vio):.1f} MB")
-    if (len(prefix) < frames or d != 0.0 or n_cam < 10 or want["photometric_err_H"] == 0
-            or want["imu_propagate"] == 0):
+          f"launches {want}, {iters} photometric iterations, visual map {n_pts} points, "
+          f"{vmap_mb(pipe.vio):.1f} MB")
+    if (len(prefix) < frames or d != 0.0 or n_cam < 10
+            or not want["photometric_cascade"] == n_cam == len(cascades)
+            or want["imu_propagate"] == 0 or iters < 3 * n_cam):
         raise AssertionError(f"livo prefix: {len(prefix)} frames, {d} m, {n_cam} camera "
-                             f"steps, launches {want}")
+                             f"steps, launches {want}, {iters} iterations")
+    del cascades
     del pipe
     with world_of_one(dev) as mesh:
         for sharded in (False, True):
@@ -2452,15 +2774,18 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
                   f"{vmap_mb(v):.1f} MB on the rank, {cam:.2f} collectives per camera "
                   f"frame ({launches['photometric_err_H'] / max(v.steps, 1):.2f} photometric "
                   f"iterations), {coll:.2f} per lidar frame; {smi}")
-            if (d != 0.0 or launches["photometric_err_H"] != want["photometric_err_H"]
+            if (d != 0.0 or not launches["photometric_err_H"] == launches["photometric_step"]
+                    == iters or launches["photometric_cascade"]
                     or launches["imu_propagate"] != want["imu_propagate"]
                     or int(v.vmap.n_pts) != n_pts):
-                raise AssertionError(f"{name}: {d} m, launches {launches} vs {want}")
+                raise AssertionError(f"{name}: {d} m, launches {launches} vs {want}, "
+                                     f"{iters} iterations in the prefix")
             paths[name] = (wall / len(outs), launches)
             extra[name] = {"max_diff_to_prefix_mm": d * 1e3, "vmap_mb_per_rank": vmap_mb(v),
                            "collectives_per_camera_frame": cam,
                            "collectives_per_lidar_frame": coll, "vmap_points": n_pts}
             mesh_launches += launches["photometric_err_H"]
+            step_launches += launches["photometric_step"]
             last = calls[-1]
             del pipe, v, update
             torch.cuda.empty_cache()
@@ -2481,24 +2806,31 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
         name = f"livo mesh 2 gloo {'sharded' if sharded else 'replicated'}"
         r0 = res[0][mode]
         k = [r[mode]["photometric_err_H"] for r in res]
+        ks = [r[mode]["photometric_step"] for r in res]
+        kc = [r[mode]["photometric_cascade"] for r in res]
         ki = [r[mode]["imu_propagate"] for r in res]
         mb = [r[mode]["vmap_bytes"] / 1e6 for r in res]
         d = float(np.abs(r0["pos"] - np.array([o.pos for o in prefix[:len(r0["pos"])]])).max())
         ms = 1e3 * r0["wall_s"] / len(r0["t"])
         print(f"{name}: {len(r0['t'])} frames, {r0['vio_steps']} camera steps, {ms:.2f} ms/"
               f"frame, max position difference to the prefix {d * 1e3:.4f} mm, "
-              f"photometric_err_H per rank {k}, imu_propagate per rank {ki}, visual map "
+              f"photometric_err_H per rank {k}, photometric_step {ks}, photometric_cascade "
+              f"{kc}, imu_propagate per rank {ki}, visual map "
               f"{r0['vmap_points']} points, "
               f"{mb} MB per rank, {r0['collectives'] / len(r0['t']):.1f} collectives per "
               f"lidar frame (the camera's included); {smi}")
-        if len(r0["t"]) < frames or d > 2e-3 or min(k) == 0 or min(ki) == 0:
-            raise AssertionError(f"{name}: {len(r0['t'])} frames, {d} m, launches {k}, {ki}")
+        if (len(r0["t"]) < frames or d > 2e-3 or min(k) == 0 or ks != k or any(kc)
+                or min(ki) == 0):
+            raise AssertionError(f"{name}: {len(r0['t'])} frames, {d} m, launches {k}, "
+                                 f"{ks}, {kc}, {ki}")
         pts.append([r[mode]["vmap_points"] for r in res])
-        paths[name] = (ms, {"photometric_err_H": sum(k), "imu_propagate": sum(ki)})
+        paths[name] = (ms, {"photometric_err_H": sum(k), "photometric_step": sum(ks),
+                            "photometric_cascade": sum(kc), "imu_propagate": sum(ki)})
         extra[name] = {"max_diff_to_prefix_mm": d * 1e3, "vmap_mb_per_rank": mb,
                        "photometric_err_H_per_rank": k, "vmap_points": r0["vmap_points"],
                        "collectives_per_lidar_frame": r0["collectives"] / len(r0["t"])}
         mesh_launches += sum(k)
+        step_launches += sum(ks)
     if pts[0] != pts[1] or len(set(pts[0])) != 1:
         raise AssertionError(f"visual-map points replicated {pts[0]} vs sharded {pts[1]}")
 
@@ -2551,8 +2883,8 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
           f"points, pool {v.imgs.shape[0]} slots ({slots} filled), launches in the rank "
           f"{launches}; {smi}")
     need_launches("run --mesh 1 LIVO", launches,
-                  ["knn5_plane_tiled", "photometric_err_H", "imu_propagate"])
-    if (rc != 0 or not ate < 0.06 or n_map != n_pcd or n_pcd == 0
+                  ["knn5_plane_tiled", "photometric_err_H", "photometric_step", "imu_propagate"])
+    if (rc != 0 or not ate < 0.06 or launches["photometric_cascade"] or n_map != n_pcd or n_pcd == 0
             or v.imgs.shape[0] != Config().capacity.frame_ring or n_vis == 0 or slots == 0):
         raise AssertionError(f"run --mesh 1 LIVO: rc {rc}, ATE {ate}, map points "
                              f"{n_map} / {n_pcd}, {n_vis} visual-map points")
@@ -2560,7 +2892,7 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
     paths[name] = (1e3 * wall / len(traj), launches)
     extra[name] = {"ate_mm": ate * 1e3, "poses": len(traj), "map_points": n_pcd,
                    "vmap_points": n_vis}
-    return paths, extra, mesh_launches, err
+    return paths, extra, (mesh_launches, step_launches), err
 
 
 def main() -> int:
@@ -2650,12 +2982,16 @@ def main() -> int:
         paths.update(bag_phase(dev, lio_ds))
         torch.cuda.empty_cache()
     with phase("livo per-frame"):
-        (livo_launches, last_call, cam_fused, lid_fused, livo_outs, livo_ds,
-         livo_ms) = livo_path_phase(dev)
+        (livo_launches, cascades, cam_fused, lid_fused, livo_outs, livo_ds,
+         livo_ms, casc_nums) = livo_path_phase(dev)
+        last_call = cascades[-1][0]
+        del cascades
     with phase("livo block replay"):
-        livo_paths, livo_ckpt = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
+        livo_paths, livo_ckpt, block_casc = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
     paths["livo per-frame"] = (livo_ms, livo_launches)
+    path_extra["livo per-frame"] = {"cascades": casc_nums}
     paths.update(livo_paths)
+    path_extra["livo LivoBlockReplayer(8)"] = {"cascades": block_casc}
     with phase("plain IMU loop paths"):
         pp_paths, pp_extra = plain_propagation_phase(dev, lio_ds, lio_outs, livo_ds, livo_outs)
         paths.update(pp_paths)
@@ -2686,9 +3022,10 @@ def main() -> int:
         path_extra.update(k_extra)
         del livo_outs
         torch.cuda.empty_cache()
-    with phase("photometric kernel"):
+    with phase("photometric kernels"):
         ph_err, ph_ms, ph_pair_ms, ph_plain_ms, ph_bound_ms, ph_bound_by = \
-            photometric_phase(dev, last_call)
+            photometric_phase(dev, measurement_args(last_call, level=0))
+        casc = cascade_phase(dev, last_call)
         del last_call
     print(f"camera frame median {cam_fused:.2f} ms, lidar frame median {lid_fused:.2f} ms; "
           f"{smi}")
@@ -2696,6 +3033,10 @@ def main() -> int:
     with phase("card vs cpu"):
         cpu_agreement(dev)
         livo_cpu_agreement(dev)
+    with phase("(l) 4 kHz IMU"):
+        l_ms, l_launches, l_nums = imu_4khz_phase(dev)
+        paths["lio 4 kHz IMU, 512-pair groups"] = (l_ms, l_launches)
+        path_extra["lio 4 kHz IMU, 512-pair groups"] = l_nums
     with phase("profiles"):
         # 10 profiled frames each, unfused and fused
         lio_prof = [profile_phase(dev, fused=f, duration=4.0) for f in (False, True)]
@@ -2711,7 +3052,9 @@ def main() -> int:
           f"{vu['propagate_kernels_per_pair']:.1f} -> {vf['propagate_kernels_per_pair']:.1f}, "
           f"frame.propagate host {vu['propagate_host_ms']:.3f} "
           f"-> {vf['propagate_host_ms']:.3f} ms; under vio.photometric per camera frame "
-          f"{vu['photometric_kernels']:.1f} -> {vf['photometric_kernels']:.1f}; {smi}")
+          f"{vu['photometric_kernels']:.1f} -> {vf['photometric_kernels']:.1f} kernels, host "
+          f"{vu['photometric_host_ms']:.3f} -> {vf['photometric_host_ms']:.3f} ms, device "
+          f"{vu['photometric_device_ms']:.3f} -> {vf['photometric_device_ms']:.3f} ms; {smi}")
     if not (lf["search_kernels"] < lu["search_kernels"] and lf["kernels"] < lu["kernels"]
             and vf["photometric_kernels"] < vu["photometric_kernels"]
             and vf["kernels_per_pair"] < vu["kernels_per_pair"]
@@ -2744,10 +3087,36 @@ def main() -> int:
         "name": "photometric_err_H", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/photometric_err_H.cu",
         "replaces": "fastlivo_tpu/ops/pallas_image.py:180",
-        "launches": livo_launches["photometric_err_H"],
+        "launches": ph_mesh_launches[0], "path": "(k) livo mesh (the host loop)",
         "max_abs_err": max(ph_err, partials_err),
         "ms": ph_ms, "plain_ms": ph_plain_ms, "bound_ms": ph_bound_ms,
-        "bound_by": ph_bound_by, "library_ms": None, "mesh_launches": ph_mesh_launches,
+        "bound_by": ph_bound_by, "library_ms": None,
+        "launches_per_path": {k: v[-1]["photometric_err_H"] for k, v in paths.items()
+                              if v[-1].get("photometric_err_H")},
+    }, {
+        "name": "photometric_cascade", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/photometric_cascade.cu",
+        "replaces": "fastlivo_tpu/vio.py:723 (the while_loop around "
+                    "fastlivo_tpu/ops/pallas_image.py:180)",
+        "launches": livo_launches["photometric_cascade"],
+        "max_abs_err": casc["cascade"]["max_abs_err"],
+        **{k: casc["cascade"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{k: casc["cascade"][k] for k in (
+            "iterations", "ms_per_iteration", "host_ms", "loop_ms", "loop_ms_per_iteration",
+            "loop_plain_step_ms", "plain_host_ms")},
+        "launches_per_path": {k: v[-1]["photometric_cascade"] for k, v in paths.items()
+                              if v[-1].get("photometric_cascade")},
+    }, {
+        "name": "photometric_step", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/photometric_cascade.cu",
+        "replaces": "fastlivo_tpu/vio.py:669-691 (the while_loop body's step, over a mesh)",
+        "launches": ph_mesh_launches[1], "path": "(k) livo mesh (the host loop)",
+        "max_abs_err": casc["step"]["max_abs_err"],
+        **{k: casc["step"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "launches_per_path": {k: v[-1]["photometric_step"] for k, v in paths.items()
+                              if v[-1].get("photometric_step")},
     }, {
         "name": "knn5_plane_hashed", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane_hashed.cu",

@@ -24,12 +24,13 @@ CSRC = PKG_DIR / "csrc"
 # every csrc/<name>.cu: the LIO search in one launch on the tiled map and
 # on the hash and dense maps, and the fused 5-NN + plane fit on a
 # gathered block, which the search runs under `cache_knn`
-# (ops/knn_plane.py); one photometric EKF iteration's measurement
-# (ops/photometric.py); the patch + gradient sampling
-# (ops/patches_grads.py), the TPU kernel's signature, on no path; one
-# measurement group's IMU propagation (ops/imu_scan.py)
+# (ops/knn_plane.py); one photometric EKF iteration's measurement, and
+# the whole photometric cascade and its step alone (ops/photometric.py);
+# the patch + gradient sampling (ops/patches_grads.py), the TPU kernel's
+# signature, on no path; one measurement group's IMU propagation
+# (ops/imu_scan.py)
 SOURCES = ("knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
-           "patches_and_grads", "imu_propagate")
+           "photometric_cascade", "patches_and_grads", "imu_propagate")
 BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so a kernel rounds every
 # product as its plain PyTorch version (one op per product) does; with

@@ -24,17 +24,16 @@ import torch
 
 from ..state import DIM_STATE, NavState
 
-MAX_PAIRS = 256  # the kernel keeps a group's wire in shared memory
 F32, F64 = torch.float32, torch.float64
 
 
 def check_inputs(s: NavState, wire, acc0, gyr0, calib) -> int:
     """Raise unless the kernel takes these inputs: a (B+1, 9) f32 wire
-    with 1 <= B <= MAX_PAIRS, an f64 state, f64 (3,) acc0 and gyr0, an f32
+    with B >= 1, an f64 state, f64 (3,) acc0 and gyr0, an f32
     calibration, all contiguous on the wire's device. Returns B."""
-    if wire.ndim != 2 or wire.shape[1] != 9 or not 2 <= wire.shape[0] <= MAX_PAIRS + 1:
+    if wire.ndim != 2 or wire.shape[1] != 9 or wire.shape[0] < 2:
         raise ValueError(f"imu_propagate: wire {tuple(wire.shape)}, want (B+1, 9) with "
-                         f"1 <= B <= {MAX_PAIRS}")
+                         f"B >= 1")
     if wire.dtype != F32:
         raise TypeError(f"imu_propagate: wire must be float32, got {wire.dtype}")
     shapes = {"rot": (3, 3), "cov": (DIM_STATE, DIM_STATE)}

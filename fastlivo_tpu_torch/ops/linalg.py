@@ -27,3 +27,28 @@ def kalman_gain6_f64(P: torch.Tensor, HTH6: torch.Tensor) -> torch.Tensor:
     # not wait for the device
     X, _ = torch.linalg.solve_ex(A.T, P[:, 0:6].T)
     return X.T
+
+
+def gj_solve6(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve S X = B (S (n, n), B (n, m) or (n,)) by Gauss-Jordan with
+    partial pivoting, the elimination the photometric step kernel runs on
+    its 6x6 system (csrc/photometric_cascade.cu, `step_warp`) and the JAX
+    package's `gj_solve`: at column k the first row of the largest |entry|
+    at or below the diagonal is swapped up, the row divided by its pivot,
+    and every other row less its factor times that row. The plain version
+    of the kernel's solve (one host read of the pivot row per column)."""
+    vec = B.ndim == 1
+    A = torch.cat([S, (B[:, None] if vec else B).to(S.dtype)], dim=1)
+    n = S.shape[0]
+    rows = torch.arange(n, device=S.device)
+    for k in range(n):
+        col = torch.where(rows >= k, torch.abs(A[:, k]), torch.full_like(A[:, k], -1.0))
+        p = int(torch.argmax(col))
+        if p != k:
+            A[[k, p]] = A[[p, k]]
+        A[k] = A[k] / A[k, k]
+        fac = A[:, k].clone()
+        fac[k] = 0.0
+        A = A - fac[:, None] * A[k][None, :]
+    X = A[:, n:]
+    return X[:, 0] if vec else X

@@ -24,6 +24,28 @@ Contract on the card: HT within rtol 1e-4 of max|HT| and err, perr,
 are taken in another order than its matmul; the projection and the
 sampling round as there); n_meas equal; nothing tracked gives exactly
 err = 0, Σperr = 0, HT = 0 and n_meas = 1.
+
+`photometric_step` is one iteration's prior-anchored f64 step
+(lidar_selection.cpp:861-878; the JAX package's while_loop body,
+vio.py:669-691): the gain K = P'[:, :6] (HᵀH₆ P'[:6, :6] + I₆)⁻¹, the
+solution, the next pose, G = K·HᵀH₆ and the convergence flag. On a CUDA
+tensor it launches the one-warp kernel of csrc/photometric_cascade.cu (a
+6x6 Gauss-Jordan with partial pivoting, `linalg.gj_solve6`'s elimination);
+on a CPU tensor it runs `photometric_step_plain` (the LU solve of
+`linalg.kalman_gain6_f64`). Contract on the card: within 1e-12 of the
+plain version.
+
+`photometric_cascade` is the whole coarse-to-fine cascade in one launch
+(the JAX package's `jax.lax.while_loop`, vio.py:723): every iteration's
+measurement (the code of csrc/photometric_err_H.cu), step and carry on
+the card, with no host read and no launch between iterations. It takes
+CUDA tensors only; its plain version is the host loop
+`vio.photometric_loop` (one `photometric_err_H` and one `photometric_step`
+per iteration, two flags read), which the CPU runs. Contract on the card
+against that loop: the measurement bit-equal to `photometric_err_H`'s on
+the same pose, and so, with `photometric_step`'s kernel, every output
+bit-equal; with `photometric_step_plain`, equal iterations, rot and pos
+within 1e-9, G within 1e-9 of its largest entry.
 """
 from __future__ import annotations
 
@@ -34,13 +56,17 @@ import numpy as np
 import torch
 
 from .. import camera as cam_mod
-from . import image, so3
+from . import image, linalg, so3
 
 ROBUST = {"none": 0, "huber": 1, "tukey": 2}
 HUBER_K = 1.345  # vk::robust_cost defaults (lidar_selection.cpp:75-78)
 TUKEY_B = 4.6851
 MAX_PATCH = 16  # (P+3)^2 taps fit one block of threads
 I32 = torch.int32
+F32, F64 = torch.float32, torch.float64
+CONV_ROT_DEG = 0.001  # lidar_selection.cpp:885
+CONV_POS_CM = 0.001
+MAX_LEVELS = 8  # the cascade's level list
 
 
 def _recip32(c: float) -> float:
@@ -222,3 +248,145 @@ def photometric_err_H(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
 
 
 photometric_err_H.launches = 0
+
+
+def photometric_step_plain(rot, x, prior_rot, prior_x, P_, HT):
+    """One iteration's prior-anchored step from the pose (rot (3, 3), x =
+    [pos, vel, bg, ba, grav] (15,), f64) with HT = [HᵀH₆ | Hᵀz] (6, 7) f32
+    and P' = prior.cov / img_point_cov (18, 18) f64. Returns (rot' (3, 3),
+    x' (15,), conv () bool, G = K·HᵀH₆ (18, 6)), all f64 but conv."""
+    HTH6, HTz = HT[:, 0:6].to(F64), HT[:, 6].to(F64)
+    K16 = linalg.kalman_gain6_f64(P_, HTH6)
+    vec = torch.cat([so3.log(rot.T @ prior_rot), prior_x - x])
+    sol = vec - K16 @ (HTz + HTH6 @ vec[0:6])
+    n_rot = rot @ so3.exp(sol[0:3])
+    n_x = x + sol[3:18]
+    conv = ((torch.linalg.norm(sol[0:3]) * 57.3 < CONV_ROT_DEG)
+            & (torch.linalg.norm(sol[3:6]) * 100.0 < CONV_POS_CM))
+    return n_rot, n_x, conv, K16 @ HTH6
+
+
+def _require(name, t, shape, dtype, dev):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if t.device != dev:
+        raise ValueError(f"{name}: on {t.device}, want {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_step(where, rot, x, prior_rot, prior_x, P_):
+    dev = rot.device
+    for name, t, shape in (("rot", rot, (3, 3)), ("x", x, (15,)),
+                           ("prior_rot", prior_rot, (3, 3)),
+                           ("prior_x", prior_x, (15,)), ("P'", P_, (18, 18))):
+        _require(f"{where}: {name}", t, shape, F64, dev)
+
+
+@functools.cache
+def _step_launcher():
+    from . import _build
+
+    fn = _build.load("photometric_cascade").photometric_step_launch
+    fn.argtypes = [ctypes.c_void_p] * 11
+    fn.restype = ctypes.c_int
+    return _build.profiled("photometric_step", fn)
+
+
+def photometric_step(rot, x, prior_rot, prior_x, P_, HT):
+    """`photometric_step_plain`'s signature and outputs. A CUDA tensor
+    launches the one-warp step kernel on the current stream (counted in
+    `photometric_step.launches`); a CPU tensor runs the plain version. No
+    other device is taken and nothing falls back."""
+    if rot.device.type == "cpu":
+        return photometric_step_plain(rot, x, prior_rot, prior_x, P_, HT)
+    if rot.device.type != "cuda":
+        raise ValueError(f"photometric_step: unsupported device {rot.device}")
+    _check_step("photometric_step", rot, x, prior_rot, prior_x, P_)
+    _require("photometric_step: HT", HT, (6, 7), F32, rot.device)
+    out = dict(dtype=F64, device=rot.device)
+    n_rot, n_x, G = torch.empty((3, 3), **out), torch.empty(15, **out), torch.empty((18, 6), **out)
+    conv = torch.empty(1, dtype=torch.bool, device=rot.device)
+    ptrs = [t.data_ptr() for t in (P_, prior_rot, prior_x, rot, x, HT, n_rot, n_x, conv, G)]
+    err = _step_launcher()(*ptrs, torch.cuda.current_stream(rot.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"photometric_step: kernel launch failed (cudaError {err})")
+    photometric_step.launches += 1
+    return n_rot, n_x, conv[0], G
+
+
+photometric_step.launches = 0
+
+
+@functools.cache
+def _cascade_launcher():
+    from . import _build
+
+    fn = _build.load("photometric_cascade").photometric_cascade_launch
+    fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return _build.profiled("photometric_cascade", fn)
+
+
+def photometric_cascade(img, tr_pos, tr_patch, tr_slevel, tr_valid, rot, x, prior_rot,
+                        prior_x, P_, Rci, Pci, Jdphi_dR, Jdp_dR, cam, levels, P: int,
+                        max_iter: int, robust: str = "none", robust_scale: float = 10.0):
+    """The cascade over `levels` (coarse to fine, each an index into
+    tr_patch (G, L, P, P)) from the pose (rot (3, 3), x (15,), f64) toward
+    the prior (prior_rot, prior_x, P' = prior.cov / img_point_cov (18,
+    18)), at most `max_iter` (>= 1) iterations a level, in one cooperative
+    launch on the current stream (counted in
+    `photometric_cascade.launches`; the blocks launched in
+    `photometric_cascade.grid`). Returns (rot (3, 3), x (15,), G (18, 6),
+    per-point errors (G,), mean error () f64, iterations () int32), all on
+    the card; nothing is read back. A tensor on any other device raises:
+    the CPU runs `vio.photometric_loop`. So does a card on which the grid
+    cannot be co-resident."""
+    if img.device.type != "cuda":
+        raise ValueError(f"photometric_cascade: the kernel needs CUDA tensors, got {img.device}")
+    if robust not in ROBUST:
+        raise ValueError(f"robust={robust!r}")
+    P, max_iter, levels = int(P), int(max_iter), [int(v) for v in levels]
+    if tr_patch.ndim != 4 or not tr_patch.is_contiguous():
+        raise ValueError(f"photometric_cascade: tr_patch {tuple(tr_patch.shape)} must be a "
+                         "contiguous (G, L, P, P) block")
+    if not 1 <= len(levels) <= MAX_LEVELS or not all(0 <= v < tr_patch.shape[1] for v in levels):
+        raise ValueError(f"photometric_cascade: levels {levels} for {tr_patch.shape[1]} planes")
+    if max_iter < 1:
+        raise ValueError(f"photometric_cascade: max_iter {max_iter} < 1")
+    _check(img, tr_pos, tr_patch[:, levels[0]], tr_slevel, tr_valid, rot, x[0:3], Rci, Pci,
+           Jdphi_dR, Jdp_dR, cam, max(levels), P)
+    _check_step("photometric_cascade", rot, x, prior_rot, prior_x, P_)
+    G, (H, W) = tr_pos.shape[0], img.shape
+    dev = img.device
+    f64 = dict(dtype=F64, device=dev)
+    rot_out, x_out = torch.empty((3, 3), **f64), torch.empty(15, **f64)
+    Gmat, last_err = torch.empty((18, 6), **f64), torch.empty((), **f64)
+    perr = torch.empty(G, dtype=F32, device=dev)
+    its = torch.empty((), dtype=I32, device=dev)
+    cur, ctl = torch.empty(24, **f64), torch.empty(2, dtype=I32, device=dev)
+    partial = torch.empty((max(G, 1), 44), dtype=F32, device=dev)
+    perr_cur = torch.empty(max(G, 1), dtype=F32, device=dev)
+    ptrs = [t.data_ptr() for t in (
+        img, tr_pos, tr_patch, tr_slevel, tr_valid, Rci, Pci, Jdphi_dR, Jdp_dR, cam.fx,
+        cam.fy, cam.cx, cam.cy, cam.d, P_, prior_rot, prior_x, rot, x, cur, ctl, partial,
+        perr_cur, rot_out, x_out, Gmat, perr, last_err, its)]
+    grid = ctypes.c_int(0)
+    err = _cascade_launcher()(
+        *ptrs, (ctypes.c_int * len(levels))(*levels), len(levels), max_iter, G, H, W, P,
+        tr_patch.stride(0), ROBUST[robust], HUBER_K, _recip32(TUKEY_B),
+        _recip32(robust_scale), ctypes.byref(grid),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"photometric_cascade: kernel launch failed (cudaError {err})")
+    photometric_cascade.launches += 1
+    photometric_cascade.grid = grid.value
+    return rot_out, x_out, Gmat, perr, last_err, its
+
+
+photometric_cascade.launches = 0
+photometric_cascade.grid = 0

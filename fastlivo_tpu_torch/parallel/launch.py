@@ -128,8 +128,9 @@ def replay_rank(rank: int, n: int, cfg, scans, imu, device=None,
     [(t, acc, gyr)] and, with the camera on, `images` [(t, img)], all at
     once. Returns, as numpy: the frames' stamps, positions, quaternions,
     active counts and iterations; the wall seconds of the run; this
-    rank's `knn5_plane_tiled`, `photometric_err_H` and `imu_propagate`
-    launches and collectives during it; its map's bytes and pool tiles;
+    rank's `knn5_plane_tiled`, `photometric_err_H`, `photometric_step`,
+    `photometric_cascade` and `imu_propagate` launches and collectives
+    during it; its map's bytes and pool tiles;
     with the camera, the camera frames that ran the frame step, the
     visual map's points and this rank's bytes of it."""
     from ..ops import imu_scan, knn_plane, photometric
@@ -149,6 +150,7 @@ def replay_rank(rank: int, n: int, cfg, scans, imu, device=None,
     k0, p0, i0, c0 = (knn_plane.knn5_plane_tiled.launches,
                       photometric.photometric_err_H.launches, imu_scan.imu_propagate.launches,
                       mesh.collectives)
+    s0, q0 = photometric.photometric_step.launches, photometric.photometric_cascade.launches
     t0 = time.perf_counter()
     outs = pipe.spin() + pipe.finish()
     sync()
@@ -160,6 +162,8 @@ def replay_rank(rank: int, n: int, cfg, scans, imu, device=None,
         iters=np.array([o.iters for o in outs]), wall_s=wall,
         knn5_plane_tiled=knn_plane.knn5_plane_tiled.launches - k0,
         photometric_err_H=photometric.photometric_err_H.launches - p0,
+        photometric_step=photometric.photometric_step.launches - s0,
+        photometric_cascade=photometric.photometric_cascade.launches - q0,
         imu_propagate=imu_scan.imu_propagate.launches - i0,
         collectives=mesh.collectives - c0,
         map_bytes=sum(t.numel() * t.element_size() for t in pipe.map),

@@ -259,12 +259,13 @@ def test_livo_pipeline_runs_through_the_kernel(cuda):
         pipe.push_imu(t, acc, gyr)
     for t, img in ds.images():
         pipe.push_img(t, img)
-    before = (photometric.photometric_err_H.launches,
-              patches_grads.patches_and_grads.launches)
+    before = (photometric.photometric_cascade.launches, photometric.photometric_err_H.launches,
+              photometric.photometric_step.launches, patches_grads.patches_and_grads.launches)
     outs = pipe.spin()
-    launches = photometric.photometric_err_H.launches - before[0]
-    assert pipe.vio.steps > 10 and launches >= 3 * pipe.vio.steps
-    assert patches_grads.patches_and_grads.launches == before[1]  # fused
+    launches = photometric.photometric_cascade.launches - before[0]
+    assert launches == pipe.vio.steps > 10  # the whole cascade: one launch a frame
+    assert (photometric.photometric_err_H.launches, photometric.photometric_step.launches,
+            patches_grads.patches_and_grads.launches) == before[1:]  # fused
     assert int(pipe.vio.vmap.n_pts) > 50 and pipe.vio.last_stats["tracked"] > 5
     base = ds.traj.base_pos
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
@@ -456,6 +457,197 @@ def test_photometric_err_H_refuses_bad_inputs(cuda):
         photometric_call(photometric.photometric_err_H, x, 0, 8, "cauchy")
     with pytest.raises(ValueError):
         photometric_call(photometric.photometric_err_H, x, 0, 32, "none")
+
+
+def cascade_args(x, robust="none", levels=(2, 1, 0), max_iter=10):
+    """photometric_cascade's arguments on photometric_inputs' scene, from a
+    pose ~2 cm and ~5 mrad off the one the reference patches were sampled
+    at, toward a prior at that start pose (as the pipeline calls it), with
+    P' = cov / img_point_cov of a filter's covariance."""
+    dev = x["img"].device
+    f64 = dict(dtype=torch.float64, device=dev)
+    rot = x["rot"] @ so3.exp(torch.tensor([0.004, -0.003, 0.002], **f64))
+    pos = x["pos"] + torch.tensor([0.02, -0.015, 0.01], **f64)
+    xs = torch.cat([pos, torch.tensor([0.3, -0.1, 0.0, 1e-3, -2e-3, 5e-4, 0.01, 0.02, -0.01,
+                                       0.0, 0.0, -9.81], **f64)])
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(18, 18)) * 0.003
+    cov = A @ A.T + np.diag(np.r_[np.full(3, 1e-4), np.full(3, 1e-3), np.full(12, 1e-4)])
+    P_ = torch.as_tensor(cov / 100.0, **f64)
+    return (x["img"], x["tr_pos"], x["tr_patch"], x["tr_slevel"], x["tr_valid"],
+            rot.contiguous(), xs, rot.contiguous(), xs.clone(), P_, x["Rci"], x["Pci"],
+            x["Jdphi_dR"], x["Jdp_dR"], x["cam"], levels, 8, max_iter, robust, 10.0)
+
+
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+def test_photometric_cascade_matches_the_host_loop(cuda, robust, monkeypatch):
+    """The cascade in one launch against the host loop vio.photometric_loop
+    on the same inputs: with the step kernel every output bit-equal (the
+    same measurement and step code, the same order); with the plain step
+    (photometric_step_plain, an LU solve) the same iterations, rot and
+    pos within 1e-9, G within 1e-9 of its largest entry, the errors
+    within rtol 1e-5. Two launches are bit-equal."""
+    from fastlivo_tpu_torch import vio
+
+    args = cascade_args(photometric_inputs(cuda), robust)
+    n = [photometric.photometric_cascade.launches, photometric.photometric_err_H.launches,
+         photometric.photometric_step.launches]
+    got = photometric.photometric_cascade(*args)
+    assert photometric.photometric_cascade.launches == n[0] + 1
+    assert 1 <= photometric.photometric_cascade.grid <= 192
+    loop = vio.photometric_loop(*args)
+    its = int(got[5])
+    assert its == loop[5] >= 4 and got[5].dtype == torch.int32
+    assert photometric.photometric_err_H.launches - n[1] == its
+    assert photometric.photometric_step.launches - n[2] == its
+    for g, w, name in zip(got, loop, ("rot", "x", "G", "perr", "err")):
+        assert torch.equal(g, w), name
+    monkeypatch.setattr(vio, "photometric_step", photometric.photometric_step_plain)
+    plain = vio.photometric_loop(*args)
+    assert plain[5] == its
+    np.testing.assert_allclose(got[0].cpu().numpy(), plain[0].cpu().numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got[1].cpu().numpy(), plain[1].cpu().numpy(), rtol=0, atol=1e-9)
+    scale = float(plain[2].abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(got[2].cpu().numpy(), plain[2].cpu().numpy(), rtol=0,
+                               atol=1e-9 * scale)
+    np.testing.assert_allclose(got[3].cpu().numpy(), plain[3].cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(float(got[4]), float(plain[4]), rtol=1e-5)
+    again = photometric.photometric_cascade(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_photometric_cascade_edge_cases(cuda):
+    """Nothing valid: one iteration a level (err 0 is never above the
+    level's start), G = 0 and the errors 0; nothing tracked (G = 0):
+    the same, on one block; one level of max_iter 1: one iteration."""
+    x = photometric_inputs(cuda)
+    none = {**x, "tr_valid": torch.zeros_like(x["tr_valid"])}
+    got = photometric.photometric_cascade(*cascade_args(none))
+    assert int(got[5]) == 3 and not got[2].any() and not got[3].any() and float(got[4]) == 0
+    empty = {k: (v[:0] if k.startswith("tr_") else v) for k, v in x.items()}
+    got = photometric.photometric_cascade(*cascade_args(empty))
+    assert photometric.photometric_cascade.grid == 1
+    assert int(got[5]) == 3 and not got[2].any() and got[3].shape == (0,)
+    got = photometric.photometric_cascade(*cascade_args(x, levels=(1,), max_iter=1))
+    assert int(got[5]) == 1
+
+
+def step_args(dev, seed):
+    """A pose, a prior a few mm and mrad away, P' and [HᵀH₆ | Hᵀz] as the
+    measurement gives it (f32), seeded with numpy."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    rot = so3.exp(torch.as_tensor(rng.normal(size=3) * 0.8, **f64))
+    prior_rot = rot @ so3.exp(torch.as_tensor(rng.normal(size=3) * 3e-3, **f64))
+    x = rng.normal(size=15)
+    A = rng.normal(size=(18, 18)) * np.r_[np.full(6, 1e-2), np.full(12, 3e-2)]
+    J = rng.normal(size=(200, 6)) * rng.uniform(10.0, 300.0, 6)
+    HT = np.concatenate([J.T @ J, (J.T @ rng.normal(size=200) * 20.0)[:, None]], 1)
+    return (rot.contiguous(), torch.as_tensor(x, **f64), prior_rot.contiguous(),
+            torch.as_tensor(x + rng.normal(size=15) * 5e-3, **f64),
+            torch.as_tensor((A @ A.T + np.eye(18) * 1e-4) / 100.0, **f64),
+            torch.as_tensor(HT, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_photometric_step_matches_plain(cuda, seed):
+    """The mesh path's one-warp step against photometric_step_plain: rot,
+    x and G within 1e-12, the same convergence flag; repeats bit-equal."""
+    args = step_args(cuda, seed)
+    n0 = photometric.photometric_step.launches
+    got = photometric.photometric_step(*args)
+    assert photometric.photometric_step.launches == n0 + 1
+    want = photometric.photometric_step_plain(*args)
+    for g, w, name in zip(got, want, ("rot", "x", "conv", "G")):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if name == "conv":
+            assert bool(g) == bool(w)
+        else:
+            assert float((g - w).abs().max()) <= 1e-12, name
+    again = photometric.photometric_step(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    HT0 = args[5].clone()
+    HT0[:, 6] = 0.0
+    conv = photometric.photometric_step(args[0], args[1], args[0], args[1], args[4], HT0)[2]
+    assert bool(conv)  # at the prior with no residual: a zero step
+
+
+def test_photometric_update_levels_is_one_launch_with_no_host_read(cuda):
+    """On one card photometric_update_levels makes exactly one cascade
+    launch and no synchronising call (torch's sync debug mode set to
+    raise) between its call and its return; no photometric_err_H or
+    photometric_step launch."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.state import identity_state
+
+    x = photometric_inputs(cuda)
+    a = cascade_args(x)
+    s = identity_state(cuda)
+    s = s._replace(rot=a[5], pos=a[6][0:3].clone(), vel=a[6][3:6].clone(),
+                   bg=a[6][6:9].clone(), ba=a[6][9:12].clone(), grav=a[6][12:15].clone(),
+                   cov=a[9] * 100.0)
+    ipc = torch.tensor(100.0, dtype=torch.float64, device=cuda)
+    call = lambda: vio.photometric_update_levels(  # noqa: E731
+        s, s, x["cam"], x["img"], x["tr_pos"], x["tr_patch"], x["tr_slevel"], x["tr_valid"],
+        x["Rci"], x["Pci"], x["Jdphi_dR"], x["Jdp_dR"], ipc, 8)
+    want = call()  # built and warm
+    torch.cuda.synchronize()
+    n = [photometric.photometric_cascade.launches, photometric.photometric_err_H.launches,
+         photometric.photometric_step.launches]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [photometric.photometric_cascade.launches, photometric.photometric_err_H.launches,
+            photometric.photometric_step.launches] == [n[0] + 1, n[1], n[2]]
+    assert got[4].device.type == "cuda" and isinstance(got[4], torch.Tensor)
+    assert torch.equal(got[0].pos, want[0].pos) and torch.equal(got[1], want[1])
+    assert int(got[4]) >= 3
+
+
+def test_photometric_cascade_and_step_refuse_bad_inputs(cuda):
+    x = photometric_inputs(cuda, G=16)
+    a = list(cascade_args(x))
+
+    def cascade(**kw):
+        names = ("img", "tr_pos", "tr_patch", "tr_slevel", "tr_valid", "rot", "x",
+                 "prior_rot", "prior_x", "P_", "Rci", "Pci", "Jdphi_dR", "Jdp_dR", "cam",
+                 "levels", "P", "max_iter", "robust", "robust_scale")
+        b = dict(zip(names, a))
+        b.update(kw)
+        return photometric.photometric_cascade(*b.values())
+
+    n0 = photometric.photometric_cascade.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        cascade(img=a[0].cpu())
+    with pytest.raises(ValueError):
+        cascade(tr_pos=a[1].cpu())
+    with pytest.raises(TypeError):
+        cascade(rot=a[5].float())
+    with pytest.raises(ValueError):
+        cascade(x=a[6][:12])
+    with pytest.raises(ValueError):
+        cascade(P_=a[9].t())  # not contiguous
+    with pytest.raises(ValueError):
+        cascade(tr_patch=a[2][:, :, ::2, :])
+    with pytest.raises(ValueError):
+        cascade(levels=(3,))  # no such plane
+    with pytest.raises(ValueError):
+        cascade(levels=())
+    with pytest.raises(ValueError):
+        cascade(max_iter=0)
+    with pytest.raises(ValueError):
+        cascade(robust="cauchy")
+    assert photometric.photometric_cascade.launches == n0
+    s = list(step_args(cuda, 0))
+    n0 = photometric.photometric_step.launches
+    for k, bad, err in ((5, s[5].double(), TypeError), (4, s[4][:6, :6], ValueError),
+                        (1, s[1].cpu(), ValueError), (0, s[0].t(), ValueError)):
+        with pytest.raises(err):
+            photometric.photometric_step(*(bad if i == k else t for i, t in enumerate(s)))
+    assert photometric.photometric_step.launches == n0
 
 
 LIO_DS = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
@@ -841,9 +1033,9 @@ def test_colorize_on_the_card_matches_the_cpu(cuda):
 
 def test_update_staged_on_the_card_matches_the_cpu(cuda):
     """Vio.update_staged on the card against the CPU over three frames:
-    its photometric iterations launch photometric_err_H (at least three
-    per frame); tracked within 1, map size within 1%, position and
-    rotation within 1e-4."""
+    its three photometric_update calls a frame (one level each) launch
+    photometric_cascade once each; tracked within 1, map size within 1%,
+    position and rotation within 1e-4."""
     from fastlivo_tpu_torch.vio import Vio
 
     ds = small_livo_data()
@@ -860,13 +1052,13 @@ def test_update_staged_on_the_card_matches_the_cpu(cuda):
             t = 2.0 + 0.1 * k
             sp = vio_state(ds, t, dpos=(0.01, -0.008, 0.006), device=dev)
             v.set_last_cloud(room_cloud(ds, k))
-            before = photometric.photometric_err_H.launches
+            before = photometric.photometric_cascade.launches
             outs.append((v.update_staged(sp, sp, ds.render_image(t)), dict(v.last_stats),
                          int(v.vmap.n_pts)))
-            launches.append(photometric.photometric_err_H.launches - before)
+            launches.append(photometric.photometric_cascade.launches - before)
         runs.append((outs, launches, v))
     (card, l_card, v_card), (cpu, l_cpu, _) = runs
-    assert min(l_card) >= 3 and l_cpu == [0, 0, 0]
+    assert l_card == [3, 3, 3] and l_cpu == [0, 0, 0]
     for (sa, st_a, n_a), (sb, st_b, n_b) in zip(card, cpu):
         assert st_b["tracked"] > 10 and abs(st_a["tracked"] - st_b["tracked"]) <= 1
         assert abs(n_a - n_b) <= 0.01 * n_b
@@ -965,13 +1157,26 @@ def test_mesh_of_two_sharing_the_card(cuda, sharded):
     assert res[0]["pool_tiles"] == (512 if sharded else 1024)
 
 
-def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda):
+def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda, monkeypatch):
     """A LIVO world of one on NCCL, replicated and with the pool in slabs:
-    every frame bit for bit the single-device LIVO path, with as many
-    photometric_err_H launches."""
+    every frame bit for bit the single-device LIVO path (one cascade
+    launch a camera frame), its host loop launching photometric_err_H and
+    photometric_step once per iteration of the single device's
+    cascades."""
+    from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch.parallel.launch import launch
 
     from torch_mesh_ranks import livo_mesh_rank
+
+    its = []
+    real = vio.photometric_cascade
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        its.append(out[5])
+        return out
+
+    monkeypatch.setattr(vio, "photometric_cascade", record)
 
     cfg = small_livo_cfg()
     ds = small_livo_data()
@@ -983,16 +1188,17 @@ def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda):
         pipe.push_imu(t, acc, gyr)
     for t, img in images:
         pipe.push_img(t, img)
-    before = photometric.photometric_err_H.launches
     ref = pipe.spin() + pipe.finish()
-    launches = photometric.photometric_err_H.launches - before
+    assert len(its) == pipe.vio.steps > 10
+    iterations = sum(int(k) for k in its)
     (got,) = launch(livo_mesh_rank, 1, (cfg, scans, imu, images), backend="nccl",
                     timeout=120, deadline=300)
     for r in got:
         assert len(r["t"]) == len(ref) >= 25
         np.testing.assert_array_equal(r["pos"], np.array([o.pos for o in ref]))
         np.testing.assert_array_equal(r["quat"], np.array([o.quat for o in ref]))
-        assert r["photometric_err_H"] == launches >= 3 * pipe.vio.steps > 30
+        assert r["photometric_err_H"] == r["photometric_step"] == iterations >= 3 * len(its)
+        assert r["photometric_cascade"] == 0
         assert r["vmap_points"] == int(pipe.vio.vmap.n_pts)
 
 
@@ -1008,7 +1214,7 @@ def imu_inputs(name, device):
 
 
 IMU_CASES = ["b8", "b32_padded", "b64", "leading_skipped", "no_valid_pair", "negative_tail",
-             "small_angle", "chain_of_three"]
+             "small_angle", "chain_of_three", "b256", "b300", "b512", "b1024"]
 
 
 @pytest.mark.parametrize("name", IMU_CASES)
@@ -1065,9 +1271,8 @@ def test_imu_propagate_refuses_bad_inputs(cuda):
         imu_scan.imu_propagate(s._replace(cov=s.cov.float()), w, a, g, calib)
     with pytest.raises(TypeError):
         imu_scan.imu_propagate(s, w.double(), a, g, calib)
-    with pytest.raises(ValueError):
-        imu_scan.imu_propagate(s, torch.zeros((imu_scan.MAX_PAIRS + 2, 9), device=cuda),
-                               a, g, calib)
+    with pytest.raises(ValueError):  # no pair: the one wire length refused
+        imu_scan.imu_propagate(s, torch.zeros((1, 9), device=cuda), a, g, calib)
     with pytest.raises(ValueError):
         imu_scan.imu_propagate(s._replace(pos=s.pos.cpu()), w, a, g, calib)
 
@@ -1114,3 +1319,36 @@ def test_pipeline_propagates_through_the_kernel(cuda, camera, monkeypatch):
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
     assert np.sqrt(np.mean(np.square(e))) < (0.06 if camera else 0.02)
+
+
+def test_pipeline_at_4khz_imu_with_512_pair_groups(cuda):
+    """A LIO run with a 4 kHz IMU and capacity.max_imu_per_group 512
+    (~400 pairs a 10 Hz group, the 512 bucket): one imu_propagate launch
+    per propagated group, no refusal, positions within 1 mm of the same
+    run on the CPU."""
+    from fastlivo_tpu_torch.ops import imu_scan
+
+    outs, groups, buckets = [], [], []
+    for dev in (cuda, "cpu"):
+        cfg = Config()
+        cfg.img_enable = False
+        cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                      tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
+                                      max_imu_per_group=512)
+        ds = SyntheticDataset(duration=3.0, points_per_scan=4096, lidar_noise=0.004, seed=3,
+                              imu_hz=4000.0)
+        pipe = Pipeline(cfg, device=dev)
+        for beg, pts, t_rel in ds.lidar_scans_fast():
+            pipe.push_lidar(beg, pts, t_rel)
+        for t, acc, gyr in ds.imu_stream():
+            pipe.push_imu(t, acc, gyr)
+        n0 = imu_scan.imu_propagate.launches
+        outs.append(pipe.spin() + pipe.finish())
+        groups.append(imu_scan.imu_propagate.launches - n0)
+        buckets.append(pipe._imu_bucket)
+    card, cpu = outs
+    assert groups[1] == 0 and groups[0] >= len(card) >= 20
+    assert buckets == [512, 512]
+    np.testing.assert_array_equal([o.t for o in card], [o.t for o in cpu])
+    d = np.abs(np.array([o.pos for o in card]) - np.array([o.pos for o in cpu])).max()
+    assert d < 1e-3, d

@@ -2,7 +2,8 @@
 
 `propagate_wire`, `propagate_packed` and `propagate` of the port against
 the JAX package's on the same seeded groups (tests/torch_imu_cases.py):
-B = 8, 32 (padded) and 64, leading skipped pairs, a group with no valid
+B = 8, 32 (padded) and 64, past the kernel's 64-pair chunk at 256, 300,
+512 and 1024 (no cap), leading skipped pairs, a group with no valid
 pair, a negative tail, gyro samples below so3.exp's small-angle
 threshold, and a chain of three groups carrying acc_s_last / angvel_last
 from the pipeline's f32 zeros. Tolerance atol 1e-10 (f64 recursion on f32
@@ -113,9 +114,12 @@ def check_args(**change):
 
 
 def test_wrapper_checks_accept_the_pipeline_inputs():
+    """Any B >= 1: the kernel has no pair cap (a 4 kHz IMU fills a bucket
+    of 512 pairs per 10 Hz group)."""
     assert imu_scan.check_inputs(**check_args()) == 8
-    w = torch.zeros((imu_scan.MAX_PAIRS + 1, 9))
-    assert imu_scan.check_inputs(**check_args(wire=w)) == imu_scan.MAX_PAIRS
+    for B in (512, 300):
+        w = torch.zeros((B + 1, 9))
+        assert imu_scan.check_inputs(**check_args(wire=w)) == B
 
 
 @pytest.mark.parametrize("bad", ["f32_state", "f64_wire", "b_over_limit", "mixed_devices",
@@ -126,7 +130,9 @@ def test_wrapper_checks_refuse(bad):
     change, err = {
         "f32_state": ({"s": s._replace(cov=s.cov.float())}, TypeError),
         "f64_wire": ({"wire": w.double()}, TypeError),
-        "b_over_limit": ({"wire": torch.zeros((imu_scan.MAX_PAIRS + 2, 9))}, ValueError),
+        # once a wire over the 256-pair cap; with no cap left, the wire
+        # the kernel still refuses: one row, no pair
+        "b_over_limit": ({"wire": torch.zeros((1, 9))}, ValueError),
         "mixed_devices": ({"wire": torch.empty((9, 9), device="meta")}, ValueError),
         "f64_calib": ({"calib": a["calib"]._replace(cov_acc=a["calib"].cov_acc.double())},
                       TypeError),

@@ -409,7 +409,8 @@ def test_sources_name_no_jax():
             "viz.py", "native.py", "io/golden.py",
             "ops/voxel_map.py", "parallel/sharded.py", "parallel/launch.py",
             "parallel/sharded_map.py", "parallel/sharded_backend.py",
-            "parallel/product.py"} <= names
+            "parallel/product.py", "csrc/photometric_cascade.cu",
+            "csrc/photometric_measure.cuh", "csrc/so3.cuh"} <= names
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py",
               ROOT / "tests" / "torch_imu_cases.py"]
     for f in files:
@@ -419,7 +420,8 @@ def test_sources_name_no_jax():
 def test_every_kernel_source_is_built_and_smoked():
     """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
     fused searches (tiled; hash and dense), the fused photometric
-    measurement, the two standalone kernels and the IMU propagation."""
+    measurement, the photometric cascade and step, the two standalone
+    kernels and the IMU propagation."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -430,7 +432,7 @@ def test_every_kernel_source_is_built_and_smoked():
     cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
     assert cu == ["imu_propagate", "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
-                  "patches_and_grads", "photometric_err_H"]
+                  "patches_and_grads", "photometric_cascade", "photometric_err_H"]
 
 
 def test_kernel_launches_are_profiler_ops():

@@ -229,9 +229,9 @@ def test_photometric_update_runs_through_the_wrapper(scene, monkeypatch):
     calls = []
     real = tvio.photometric_err_H
 
-    def spy(*a):
+    def spy(*a, **kw):
         calls.append(a[12])  # the pyramid level
-        return real(*a)
+        return real(*a, **kw)
 
     monkeypatch.setattr(tvio, "photometric_err_H", spy)
     pt = tstate(scene["prior"])

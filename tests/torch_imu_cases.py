@@ -27,6 +27,12 @@ CASES = {
     "small_angle": [(16, 0, 12, 0.003, True)],
     "chain_of_three": [(16, 1, 12, 0.002, False), (16, 0, 10, -0.001, False),
                        (32, 0, 20, 0.003, False)],
+    # past the kernel's chunk of 64 pairs: whole chunks, a ragged last one
+    # after leading skipped pairs, padding inside a chunk
+    "b256": [(256, 0, 256, 0.002, False)],
+    "b300": [(300, 2, 280, -0.001, False)],
+    "b512": [(512, 0, 400, 0.003, False)],
+    "b1024": [(1024, 0, 1024, 0.001, False)],
 }
 
 
