@@ -35,15 +35,24 @@ observation rings in per-rank slabs, against the single-device prefix,
 plain version on one rank's slab, then `run.main --mesh 1 --sharded-map`
 with the camera and its checkpoint, and (l) a LIO run with a 4 kHz IMU
 in 512-pair groups on the card against the CPU. The tiled-map paths
-run the fused kernels: the LIO search in one launch (`knn5_plane_tiled`)
-and each camera frame's coarse-to-fine photometric cascade in one launch
+run the fused kernels: each scan's LIO iterated EKF in one launch
+(`lio_cascade`: every iteration's search, the walk of `knn5_plane_tiled`,
+the gates and rows, the fixed-order [HᵀH | Hᵀz] and the f64 step on the
+card; each call of the LIO and LIVO per-frame paths recorded with a copy
+of the map's search arrays and held after the run against the host loop
+`lio.lio_loop` on its inputs: bit-equal with the step kernel, equal
+iterations with the plain step; then timed beside the loop and given its
+bound), and each camera frame's coarse-to-fine photometric cascade in one launch
 (`photometric_cascade`: every iteration's measurement, f64 step and
 carry on the card; the staged path launches it once per level), each
 recorded cascade held after its path's run against the host loop on its
 inputs (bit-equal with the step kernel, equal iterations with the plain
 step); over a mesh the cascade is a host loop of one `photometric_err_H`
 (the measurement's partials) and one `photometric_step` launch per
-iteration in every rank; the hash and dense paths search in one launch too
+iteration in every rank, and the LIO EKF the host loop of one
+`knn5_plane_tiled` launch per search and one `photometric_step` launch
+(the shared step kernel, fed -Hᵀz) per iteration; the hash and dense
+paths run that host loop too, and search in one launch
 (`knn5_plane_hashed`, the map walk fused in; no `knn_candidates` call),
 and `cache_knn` re-ranks its one gather per frame with the standalone
 `knn5_plane` (slab-staged through TMA bulk copies); each path's launches
@@ -66,8 +75,9 @@ card against the port on the CPU on a small input. Both per-frame paths
 are profiled, and so is the unfused composition they replaced (the plain
 IMU loop and the photometric host loop with its plain step included),
 for the device kernels per frame, the kernel counts under `lio.search`,
-`vio.photometric` and `frame.propagate` and the host time of
-`frame.propagate` and `vio.photometric` before and after.
+`frame.lio_update`, `vio.photometric` and `frame.propagate` and the host
+time of `frame.lio_update`, `frame.propagate` and `vio.photometric`
+before and after.
 
 Prints the card and its power limit, the build time, each phase's
 seconds, each kernel's time beside its bound and beside the unfused pair
@@ -96,7 +106,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data sheet)
 # every csrc/*.cu of the port
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
-                "photometric_cascade", "patches_and_grads", "imu_propagate"]
+                "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -496,13 +506,28 @@ def timed_camera_frames(vio, cam_ms: list):
 
 
 @contextlib.contextmanager
+def lio_host_loop():
+    """The LIO EKF as the paths ran it before lio_cascade.cu: the host loop
+    lio.lio_loop on every map, one search launch an iteration with search
+    and the f64 step in torch ops (photometric_step_plain), one flag read
+    an iteration."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import photometric
+
+    with swapped(lio, "cascade_applies", lambda *a, **kw: False), \
+            swapped(lio, "photometric_step", photometric.photometric_step_plain):
+        yield
+
+
+@contextlib.contextmanager
 def unfused():
     """The paths as they ran before the fused kernels, the IMU kernel and
-    the photometric cascade: the LIO search as the map's knn_candidates +
-    the standalone knn5_plane kernel (tiled, hash and dense), the
-    photometric cascade as the host loop with each measurement the plain
-    body sampling through the standalone patches_and_grads kernel and each
-    step photometric_step_plain, IMU propagation as the plain loop."""
+    the two cascades: the LIO EKF as the host loop (lio_host_loop) with
+    its search the map's knn_candidates + the standalone knn5_plane kernel
+    (tiled, hash and dense), the photometric cascade as the host loop with
+    each measurement the plain body sampling through the standalone
+    patches_and_grads kernel and each step photometric_step_plain, IMU
+    propagation as the plain loop."""
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
 
@@ -512,6 +537,7 @@ def unfused():
                                     threshold)
 
     with contextlib.ExitStack() as stack:
+        stack.enter_context(lio_host_loop())
         stack.enter_context(swapped(lio, "knn5_plane_search", search))
         stack.enter_context(photometric_host_loop())
         stack.enter_context(swapped(vio, "photometric_err_H",
@@ -588,14 +614,113 @@ def check_cascades(calls, label) -> dict:
     return nums
 
 
+@contextlib.contextmanager
+def recorded_lio(calls: list):
+    """Record every lio_cascade call of the paths (lio's) as (arguments,
+    outputs): the map's search arrays copied on the card first (the insert
+    after the EKF writes the map in place), the outputs left there; no
+    host read."""
+    from fastlivo_tpu_torch import lio
+
+    real = lio.lio_cascade
+
+    def wrapped(m, *a):
+        snap = m._replace(dir_check=m.dir_check.clone(), dir_slot=m.dir_slot.clone(),
+                          cell_check=m.cell_check.clone(), pts=m.pts.clone())
+        out = real(m, *a)
+        calls.append(((snap, *a), out))
+        return out
+
+    with swapped(lio, "lio_cascade", wrapped):
+        yield
+
+
+def lio_loop_on(a, plain_search=False):
+    """lio.lio_loop on a lio_cascade call's arguments `a`, its search
+    knn5_plane_tiled (the cascade's walk, launched alone) or, with
+    `plain_search`, knn5_plane_tiled_plain (torch ops, bit-exact with the
+    walk)."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import knn_plane
+
+    m, radius, threshold = a[0], a[10], a[11]
+    knn = knn_plane.knn5_plane_tiled_plain if plain_search else knn_plane.knn5_plane_tiled
+    return lio.lio_loop(lambda pw: knn(m, pw, radius, threshold), *a[1:10])
+
+
+def lio_same(out, loop) -> bool:
+    """A lio_cascade's outputs bit-equal to a host loop's, iterations too."""
+    return loop[6] == int(out[6]) and all(torch.equal(x, y) for x, y in zip(out[:6], loop[:6]))
+
+
+def max_abs_diff(got, want) -> float:
+    """The largest |got - want| over pairs of tensors of any dtype."""
+    return max((float((x.double() - y.double()).abs().max()) for x, y in zip(got, want)
+                if x.numel()), default=0.0)
+
+
+def check_lio_cascades(calls, label) -> dict:
+    """Each recorded LIO cascade against the host loop lio.lio_loop on its
+    own inputs, after the path's run (these launches are not the path's;
+    the counts are restored): with the step kernel every output (rot, x,
+    G, sel, pabcd, plane_ok, iterations) bit-equal, the loop's search
+    knn5_plane_tiled (which runs the cascade's walk) and also
+    knn5_plane_tiled_plain (torch ops, so the walk is held against plain
+    code at every iteration's pose); all plain (that search and
+    photometric_step_plain) the same iterations and rot and x within 1e-9.
+    Returns numbers."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    counts = read_counts()
+    iters, err, pose_d = [], 0.0, 0.0
+    for k, (a, out) in enumerate(calls):
+        its = int(out[6])
+        loop = lio_loop_on(a)
+        loop_ps = lio_loop_on(a, plain_search=True)
+        same, same_ps = lio_same(out, loop), lio_same(out, loop_ps)
+        e = max(max_abs_diff(out[:6], loop[:6]), max_abs_diff(out[:6], loop_ps[:6]))
+        with swapped(lio, "photometric_step", ph.photometric_step_plain):
+            plain = lio_loop_on(a, plain_search=True)
+        d = max(float((out[0] - plain[0]).abs().max()), float((out[1] - plain[1]).abs().max()))
+        if not (same and same_ps and plain[6] == its and d <= 1e-9):
+            raise AssertionError(f"{label} lio_cascade {k}: {its} iterations, the host loop "
+                                 f"{loop[6]} (bit-equal {same}), with the plain search "
+                                 f"{loop_ps[6]} (bit-equal {same_ps}; max_abs_err {e:.3g}), "
+                                 f"all plain {plain[6]}, pose {d:.3g}")
+        iters.append(its)
+        err, pose_d = max(err, e), max(pose_d, d)
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    nums = {"cascades": len(calls), "iterations": sum(iters),
+            "iterations_min_max": [min(iters, default=0), max(iters, default=0)],
+            "bit_equal_to_the_host_loop": True, "max_abs_err": err,
+            "plain_step_pose_max_diff": pose_d}
+    print(f"{label}: {len(calls)} lio_cascade calls, {sum(iters)} iterations "
+          f"({nums['iterations_min_max']} a call), each bit-equal to the host loop with the "
+          f"step kernel (its search knn5_plane_tiled, and knn5_plane_tiled_plain) and of "
+          f"equal iterations all plain (pose within {pose_d:.3g})")
+    return nums
+
+
+def need_cascade(label, launches, ekfs=None):
+    """The LIO EKF on one card: lio_cascade launched (once per EKF where
+    their number `ekfs` is given), knn5_plane_tiled never."""
+    n = launches["lio_cascade"]
+    if n == 0 or launches["knn5_plane_tiled"] or (ekfs is not None and n != ekfs):
+        raise AssertionError(f"{label}: launches {launches}, want one lio_cascade for each "
+                             f"of {ekfs} EKFs and no knn5_plane_tiled")
+
+
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
-    from fastlivo_tpu_torch.ops import imu_scan, knn_plane, patches_grads, photometric
+    from fastlivo_tpu_torch.ops import imu_scan, knn_plane, lio_cascade, patches_grads
+    from fastlivo_tpu_torch.ops import photometric
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
             photometric.photometric_err_H, photometric.photometric_cascade,
             photometric.photometric_step, patches_grads.patches_and_grads,
-            imu_scan.imu_propagate)
+            imu_scan.imu_propagate, lio_cascade.lio_cascade)
 
 
 def reset_counts():
@@ -640,19 +765,31 @@ def random_map(dev, n=16384):
 
 
 def tiled_bound_ms(m, q, radius: int = 1):
-    """Least time for the fused search on these inputs: the queries, each
-    distinct directory entry (8 B), pool-cell hash behind a matching entry
-    (4 B) and live point (12 B) that the neighbourhoods touch read once,
-    21 B written per query, over HBM bandwidth; against the operations
-    these inputs need, counted from the kernel's source, over the float32
-    rate (integer operations run no faster): per query its voxel (6) and
-    the fit and gate of plane_fit.cuh (260); per candidate row its voxel,
-    tile, cell and directory indices (20), the directory test and slot
-    clamp (3) and one compare in each of the 5 selection rounds; per row
-    whose tile is in the directory the pool index and cell test (3); per
-    live row its squared distance (8); the 31-bit tile hash (30) once per
-    distinct tile of a neighbourhood. Returns (ms, "bytes" | "operations",
-    the distinct directory entries, pool cells, live points and tiles)."""
+    """Least time for the fused search on these inputs: the queries (12 B)
+    read and 21 B written per query, and the map bytes of tiled_work, over
+    HBM bandwidth; against tiled_work's operations over the float32 rate.
+    Returns (ms, "bytes" | "operations", the distinct directory entries,
+    pool cells, live points and tiles)."""
+    map_bytes, ops, uniq = tiled_work(m, q, radius)
+    nbytes = q.shape[0] * (12 + 21) + map_bytes
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
+
+
+def tiled_work(m, q, radius: int = 1):
+    """The map bytes and the operations of the tiled search of the queries
+    q: each distinct directory entry (8 B), pool-cell hash behind a
+    matching entry (4 B) and live point (12 B) that the neighbourhoods
+    touch, and the offsets, read once; the operations these inputs need,
+    counted from knn5_tiled_walk.cuh (integer operations run no faster
+    than float32 ones): per query its voxel (6) and the fit and gate of
+    plane_fit.cuh (260); per candidate row its voxel, tile, cell and
+    directory indices (20), the directory test and slot clamp (3) and one
+    compare in each of the 5 selection rounds; per row whose tile is in
+    the directory the pool index and cell test (3); per live row its
+    squared distance (8); the 31-bit tile hash (30) once per distinct tile
+    of a neighbourhood. Returns (map bytes, operations, the distinct
+    directory entries, pool cells, live points and tiles)."""
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
     dir_idx, pool_idx, tile_ok, chk = tm.candidate_cells(m, q, radius)
@@ -667,10 +804,38 @@ def tiled_bound_ms(m, q, radius: int = 1):
     tiles = n + int((code[:, 1:] != code[:, :-1]).sum())
     uniq = (torch.unique(dir_idx).numel(), torch.unique(pool_idx[tile_ok]).numel(),
             torch.unique(pool_idx[live]).numel(), tiles)
-    nbytes = n * (12 + 21) + uniq[0] * 8 + uniq[1] * 4 + uniq[2] * 12 + M * 12
+    map_bytes = uniq[0] * 8 + uniq[1] * 4 + uniq[2] * 12 + M * 12
     ops = (n * (6 + 260) + n * M * (20 + 3 + 5) + 3 * int(tile_ok.sum())
            + 8 * int(live.sum()) + 30 * tiles)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return map_bytes, ops, uniq
+
+
+# f32 operations of one row of one LIO cascade iteration (lio_cascade.cu,
+# counted from its source): the world point (18), the plane distance (6),
+# the s score (4), the gates (4), Rᵀn (15), the cross product (9), z (1),
+# the weighted row (6), its 42 products and their share of the chunk tree
+# (42)
+LIO_ROW_OPS = 147
+
+
+def lio_cascade_bound_ms(m, pws, n, iters, radius):
+    """Least time for one LIO cascade on these inputs: `pws` are the world
+    points of each of its search iterations, stacked (the host loop's on
+    the same inputs), n the scan's points, `iters` its iterations. Bytes:
+    the map entries all the searches touch (tiled_work over the stacked
+    points: the union of the searches' entries), each point's p_imu,
+    |p|^(1/2) and mask (17 B), P', the prior and the start pose read once;
+    sel, the plane and plane_ok (18 B a point), rot, x, G and the count
+    written once. Operations: the searches' (tiled_work) and each
+    iteration's rows (LIO_ROW_OPS) over the float32 rate, plus each
+    iteration's f64 step (STEP_OPS) over the f64 rate. Returns (ms,
+    "bytes" | "operations", the distinct directory entries, pool cells,
+    live points and tiles over the searches)."""
+    map_bytes, ops32, uniq = tiled_work(m, pws, radius)
+    nbytes = (map_bytes + n * (17 + 18) + (324 + 2 * (9 + 15)) * 8 + (9 + 15 + 108) * 8
+              + 4)
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = (ops32 + iters * n * LIO_ROW_OPS) / F32_OPS_PER_S + iters * STEP_OPS / F64_OPS_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
 
 
@@ -849,6 +1014,67 @@ def cascade_phase(dev, a):
                      "bound_ms": s_bound, "bound_by": s_by}}
 
 
+def lio_cascade_phase(a):
+    """lio_cascade on the LIO path's last call `a` (its arguments, the
+    map's search arrays as they were): held against the host loop
+    lio.lio_loop (bit-equal with the step kernel, its search
+    knn5_plane_tiled and knn5_plane_tiled_plain; all plain the same
+    iterations and the pose within 1e-9), then timed beside it.
+    Times: the cascade (queued CUDA events), a call's host wall, and the
+    host loop with the kernels (knn5_plane_tiled and the step kernel),
+    with the plain step, and all plain (the search knn5_plane_tiled_plain),
+    each one call alone between two events (the loop reads a flag an
+    iteration), with its host wall. The bound from the inputs of every
+    search iteration (lio_cascade_bound_ms). These launches are not the
+    path's. Returns numbers."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import knn_plane
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+    from fastlivo_tpu_torch.ops import photometric as ph
+
+    m, radius, threshold = a[0], a[10], a[11]
+    got = lc.lio_cascade(*a)
+    its = int(got[6])
+    want, want_ps = lio_loop_on(a), lio_loop_on(a, plain_search=True)
+    err = max(max_abs_diff(got[:6], want[:6]), max_abs_diff(got[:6], want_ps[:6]))
+    if not (lio_same(got, want) and lio_same(got, want_ps)):
+        raise AssertionError(f"lio_cascade differs from the host loop on the path's last "
+                             f"call by {err:.3g}")
+    ms = time_ms(lambda: lc.lio_cascade(*a))
+    host = host_ms(lambda: lc.lio_cascade(*a))
+    loop_ms, loop_host = event_ms(lambda: lio_loop_on(a), reps=5), host_ms(lambda: lio_loop_on(a))
+    with swapped(lio, "photometric_step", ph.photometric_step_plain):
+        loop_plain_step_ms = event_ms(lambda: lio_loop_on(a), reps=5)
+        all_plain = lio_loop_on(a, plain_search=True)
+        pose_d = max(float((got[0] - all_plain[0]).abs().max()),
+                     float((got[1] - all_plain[1]).abs().max()))
+        if not (all_plain[6] == its and pose_d <= 1e-9):
+            raise AssertionError(f"lio_cascade: {its} iterations, all plain {all_plain[6]}, "
+                                 f"pose {pose_d:.3g}")
+        plain_ms = event_ms(lambda: lio_loop_on(a, plain_search=True), reps=5)
+        plain_host = host_ms(lambda: lio_loop_on(a, plain_search=True))
+    pws = []
+    lio.lio_loop(lambda pw: (pws.append(pw), knn_plane.knn5_plane_tiled(m, pw, radius,
+                                                                         threshold))[1],
+                 *a[1:10])
+    n = a[1].shape[0]
+    bound, by, uniq = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius)
+    print(f"lio_cascade N={n} M={(2 * radius + 1) ** 3} on the path map: {its} iterations "
+          f"({len(pws)} searching) in {ms:.4f} ms ({ms / its:.4f} ms an iteration; host "
+          f"{host:.3f} ms a call), grid {lc.lio_cascade.grid} blocks; the host loop "
+          f"{loop_ms:.4f} ms with the kernels (host {loop_host:.3f} ms), {loop_plain_step_ms:.4f} "
+          f"with the plain step, {plain_ms:.4f} all plain (host {plain_host:.3f} ms; pose "
+          f"within {pose_d:.3g}); bit-equal with the kernel and the plain search; bound "
+          f"{bound:.6f} ms ({by}; distinct directory entries, pool cells, live points, "
+          f"neighbourhood tiles over the searches {uniq}), library none; {nvidia_smi_line()}")
+    return {"max_abs_err": err, "iterations": its, "searches": len(pws), "ms": ms,
+            "ms_per_iteration": ms / its, "host_ms": host, "grid": lc.lio_cascade.grid,
+            "loop_ms": loop_ms, "loop_host_ms": loop_host,
+            "loop_plain_step_ms": loop_plain_step_ms, "plain_ms": plain_ms,
+            "plain_host_ms": plain_host, "all_plain_pose_max_diff": pose_d,
+            "bound_ms": bound, "bound_by": by}
+
+
 def photometric_compare(a, label="") -> float:
     """photometric_err_H against its plain version on one call's arguments
     `a`: HᵀH and Hᵀz each within 1e-4 of its largest entry, err and perr
@@ -951,9 +1177,14 @@ class Recorded:
 
 def path_phase(dev, duration=6.0, points_per_scan=24000):
     """Pipeline(Config()) at its shipped capacities on `dev`; the kernels'
-    launch counts are read around this run only. The fused search must
-    launch once per search, the standalone kernels never, imu_propagate
-    once per propagated group."""
+    launch counts are read around this run only. The LIO cascade must
+    launch once per steady frame (each recorded: lio_cascade's inputs and
+    outputs, no host read), the searches and the step kernel never (the
+    cascade searches inside), imu_propagate once per propagated group.
+    After the run every cascade is held against the host loop on its
+    inputs (check_lio_cascades). Returns (the pipeline, the launches, the
+    outputs, the dataset, wall ms per frame, the last cascade call's
+    arguments, the cascades' numbers)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.config import Config
@@ -975,10 +1206,11 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
-    searches, groups = [], []
+    searches, groups, cascades = [], [], []
     torch.cuda.synchronize()
     reset_counts()
-    with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups):
+    with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups), \
+            recorded_lio(cascades):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -993,7 +1225,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     ate = float(np.sqrt(np.mean(np.square(errs))))
     frame_ms = [1e3 * o.timing["total"] for o in steady]
     print(f"path: {len(outs)} frames ({len(steady)} steady) in {wall:.2f} s, "
-          f"{len(searches)} searches, {len(groups)} propagated groups, launches {launches}, "
+          f"{len(cascades)} LIO cascades, {len(searches)} searches outside them, "
+          f"{len(groups)} propagated groups, launches {launches}, "
           f"ATE {ate * 1e3:.3f} mm, "
           f"median steady frame {np.median(frame_ms):.2f} ms "
           f"(p90 {np.percentile(frame_ms, 90):.2f} ms), "
@@ -1001,16 +1234,19 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
           f"{nvidia_smi_line()}")
     if len(outs) < 40 or len(steady) < 30:
         raise AssertionError(f"too few frames: {len(outs)} ({len(steady)} steady)")
-    if (launches["knn5_plane_tiled"] != len(searches) or len(searches) < len(steady)
-            or launches["knn5_plane"] or launches["knn5_plane_hashed"]
+    need_cascade("lio per-frame", launches, len(steady))
+    if (len(cascades) != len(steady) or searches or launches["knn5_plane"]
+            or launches["knn5_plane_hashed"] or launches["photometric_step"]
             or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)):
-        raise AssertionError(f"launches {launches} for {len(searches)} searches, "
-                             f"{len(groups)} groups, {len(steady)} steady frames")
+        raise AssertionError(f"launches {launches} for {len(cascades)} cascades, "
+                             f"{len(searches)} searches, {len(groups)} groups, "
+                             f"{len(steady)} steady frames")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
-    return pipe, launches, outs, ds, 1e3 * wall / len(outs)
+    nums = check_lio_cascades(cascades, "lio per-frame")
+    return pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums
 
 
 def livo_config(cfg=None, W=640, H=512, F=400.0):
@@ -1080,11 +1316,12 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     pipe = Pipeline(cfg, device=dev)
     push_all(pipe, ds)
     vio = pipe.vio
-    cam_ms, searches, cascades, groups = [], [], [], []
+    cam_ms, searches, cascades, groups, lio_calls = [], [], [], [], []
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
-            spy(imu_mod, "propagate_wire", groups), timed_camera_frames(vio, cam_ms):
+            spy(imu_mod, "propagate_wire", groups), timed_camera_frames(vio, cam_ms), \
+            recorded_lio(lio_calls):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -1100,8 +1337,9 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     lid_ms = [1e3 * o.timing["total"] for o in steady]
     n_pts = int(vio.vmap.n_pts)
     print(f"livo path: {len(outs)} lidar frames ({len(steady)} steady), {vio.fid} camera "
-          f"frames ({vio.steps} ran the frame step) in {wall:.2f} s; {len(searches)} "
-          f"searches, {len(cascades)} photometric cascades, {len(groups)} propagated "
+          f"frames ({vio.steps} ran the frame step) in {wall:.2f} s; {len(lio_calls)} LIO "
+          f"cascades, {len(searches)} searches outside them, {len(cascades)} photometric "
+          f"cascades, {len(groups)} propagated "
           f"groups; launches {launches}; "
           f"ATE {ate * 1e3:.3f} mm; visual map {n_pts} points, last {vio.last_stats}")
     print(f"livo path: camera frame median {np.median(cam_ms):.2f} ms (p90 "
@@ -1112,11 +1350,13 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"too few frames: {len(steady)} steady, {vio.steps} camera")
     if n_pts <= 50 or vio.last_stats.get("tracked", 0) <= 5:
         raise AssertionError(f"visual map {n_pts} points, last {vio.last_stats}")
-    if len(cascades) != vio.steps or len(searches) < len(steady):
-        raise AssertionError(f"{len(cascades)} cascades, {len(searches)} searches")
-    want = {"knn5_plane_tiled": len(searches), "knn5_plane_hashed": 0, "knn5_plane": 0,
+    if len(cascades) != vio.steps or searches or len(lio_calls) != len(steady):
+        raise AssertionError(f"{len(cascades)} cascades, {len(lio_calls)} LIO cascades, "
+                             f"{len(searches)} searches")
+    want = {"knn5_plane_tiled": 0, "knn5_plane_hashed": 0, "knn5_plane": 0,
             "photometric_err_H": 0, "photometric_cascade": vio.steps, "photometric_step": 0,
-            "patches_and_grads": 0, "imu_propagate": len(groups)}
+            "patches_and_grads": 0, "imu_propagate": len(groups),
+            "lio_cascade": len(steady)}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
@@ -1124,8 +1364,9 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     if not ate < 0.06:
         raise AssertionError(f"LIVO ATE {ate:.4f} m >= 6 cm")
     nums = check_cascades(cascades, "livo per-frame")
+    lio_nums = check_lio_cascades(lio_calls, "livo per-frame")
     return (launches, cascades, float(np.median(cam_ms)), float(np.median(lid_ms)),
-            outs, ds, 1e3 * wall / len(outs), nums)
+            outs, ds, 1e3 * wall / len(outs), nums, lio_nums)
 
 
 def livo_cpu_agreement(dev):
@@ -1244,10 +1485,12 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     (without `fused`, of the unfused composition, the plain IMU loop
     included). Prints the device busy share of the window, device kernels
     per frame, `frame.propagate`'s host and device ms and device kernels
-    per frame and the kernels under `lio.search` per frame; with `fused`
-    also the largest kernel names and every stage. Returns
+    per frame, the kernels under `lio.search` per frame, and the device
+    kernels and host and device ms under `frame.lio_update` per frame;
+    with `fused` also the largest kernel names and every stage. Returns
     {"search_kernels", "propagate_kernels", "kernels", "propagate_host_ms",
-    "propagate_device_ms"} per frame."""
+    "propagate_device_ms", "lio_update_kernels", "lio_update_host_ms",
+    "lio_update_device_ms"} per frame."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch.config import Config
@@ -1282,28 +1525,35 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     n = len(outs)
     if n == 0 or not all(o.iters > 0 for o in outs):
         raise AssertionError("profiled window holds no steady frames")
-    check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane")], "lio profile")
-    if (counts["imu_propagate"] > 0) != fused:
+    check_composition(counts, fused, [("lio_cascade", "knn5_plane")], "lio profile")
+    if (counts["imu_propagate"] > 0) != fused or counts["knn5_plane_tiled"]:
         raise AssertionError(f"lio profile ({'fused' if fused else 'unfused'}): {counts}")
-    launched = counts["knn5_plane_tiled"] + counts["knn5_plane"]
+    launched = counts["knn5_plane"]
     n_k, linked = kernels_in(prof, "lio.search", launched)
     n_p, _ = kernels_in(prof, "frame.propagate", counts["imu_propagate"])
+    n_l, _ = kernels_in(prof, "frame.lio_update", counts["lio_cascade"] + counts["knn5_plane"]
+                        + counts["photometric_step"])
     evs = prof.key_averages()
     stage = ("frame.", "lio.")  # the named ranges of frame_step/lio/pipeline
     kernels = device_kernels(evs, stage)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     prop_host, prop_dev = stage_ms(evs, "frame.propagate", n)
-    label = "fused" if fused else "unfused, plain IMU loop"
+    lio_host, lio_dev = stage_ms(evs, "frame.lio_update", n)
+    label = "fused" if fused else "unfused, plain IMU loop, LIO host loop"
     print(f"profile ({label}): {n} steady frames, {1e3 * wall / n:.2f} ms/frame wall "
           f"(profiler on), device busy {busy_ms / n:.3f} ms/frame = "
           f"{100 * busy_ms / (1e3 * wall):.1f}% of wall, {launches / n:.0f} device "
           f"kernels/frame, frame.propagate host {prop_host:.3f} ms/frame (device "
           f"{prop_dev:.3f}, {n_p / n:.1f} device kernels), {n_k / n:.1f} device kernels "
           f"under lio.search per frame (the "
-          f"profiler linked {linked} of its {launched} hand-written launches to the range)")
+          f"profiler linked {linked} of its {launched} hand-written launches to the range), "
+          f"frame.lio_update host {lio_host:.3f} ms/frame (device {lio_dev:.3f}, "
+          f"{n_l / n:.1f} device kernels)")
     res = {"search_kernels": n_k / n, "propagate_kernels": n_p / n, "kernels": launches / n,
-           "propagate_host_ms": prop_host, "propagate_device_ms": prop_dev}
+           "propagate_host_ms": prop_host, "propagate_device_ms": prop_dev,
+           "lio_update_kernels": n_l / n, "lio_update_host_ms": lio_host,
+           "lio_update_device_ms": lio_dev}
     if not fused:
         return res
     if not kernels:
@@ -1359,7 +1609,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     n_cam = pipe.vio.steps - steps0
     if n_cam == 0 or not outs:
         raise AssertionError("profiled LIVO window holds no camera frame")
-    check_composition(counts, fused, [("knn5_plane_tiled", "knn5_plane"),
+    check_composition(counts, fused, [("lio_cascade", "knn5_plane"),
                                       ("photometric_cascade", "patches_and_grads")],
                       "livo profile")
     if counts["photometric_err_H"] or counts["photometric_step"]:
@@ -1509,8 +1759,8 @@ def need_launches(label, launches, names):
 def lio_block_phase(dev, ds, ref, ref_ms):
     """The LIO dataset of path_phase through BlockReplayer(8) and
     LivoBlockReplayer(8) at shipped capacities: the per-frame path's
-    frames, each within 5 mm of it, ATE < 2 cm, through the fused
-    search. Returns {path: (ms per lidar frame, launches)}."""
+    frames, each within 5 mm of it, ATE < 2 cm, each EKF one LIO cascade
+    launch. Returns {path: (ms per lidar frame, launches)}."""
     from fastlivo_tpu_torch.config import Config
     from fastlivo_tpu_torch.pipeline import Pipeline
     from fastlivo_tpu_torch.replay import BlockReplayer, LivoBlockReplayer
@@ -1528,7 +1778,8 @@ def lio_block_phase(dev, ds, ref, ref_ms):
         print(f"{name}: {len(outs)} frames, {ms:.2f} ms/lidar frame (per-frame path "
               f"{ref_ms:.2f}), max position difference to per-frame {d * 1e3:.4f} mm, "
               f"ATE {ate * 1e3:.3f} mm, launches {launches}; {nvidia_smi_line()}")
-        need_launches(name, launches, ["knn5_plane_tiled", "imu_propagate"])
+        need_launches(name, launches, ["imu_propagate"])
+        need_cascade(name, launches, sum(o.iters > 0 for o in outs))
         if not (d < 5e-3 and ate < 0.02):
             raise AssertionError(f"{name}: {d:.4f} m from per-frame, ATE {ate:.4f} m")
         res[name] = (ms, launches)
@@ -1571,7 +1822,8 @@ def livo_block_phase(dev, ds, ref, ref_ms):
     """The LIVO dataset of livo_path_phase through LivoBlockReplayer(8):
     the per-frame path's frames within 1 cm, ATE < 6 cm, the fused search
     and the IMU kernel launched, the photometric cascade once per camera
-    frame step and each cascade held against the host loop; then a
+    frame step and each cascade held against the host loop, each EKF one
+    LIO cascade launch; then a
     checkpoint of the LIVO estimator (geometric and visual maps at shipped
     capacities). Returns ({path: (ms, launches)}, the checkpoint's
     numbers, the cascades' numbers)."""
@@ -1589,8 +1841,8 @@ def livo_block_phase(dev, ds, ref, ref_ms):
           f"steps, {ms:.2f} ms per lidar+camera pair (per-frame path {ref_ms:.2f}), max "
           f"position difference to per-frame {d * 1e3:.4f} mm, ATE {ate * 1e3:.3f} mm, "
           f"launches {launches}; {nvidia_smi_line()}")
-    need_launches("livo block", launches, ["knn5_plane_tiled", "photometric_cascade",
-                                           "imu_propagate"])
+    need_launches("livo block", launches, ["photometric_cascade", "imu_propagate"])
+    need_cascade("livo block", launches, sum(o.iters > 0 for o in outs))
     if not (d < 1e-2 and ate < 0.06):
         raise AssertionError(f"livo block: {d:.4f} m from per-frame, ATE {ate:.4f} m")
     if not launches["photometric_cascade"] == pipe.vio.steps == len(cascades) or \
@@ -1689,7 +1941,8 @@ def serve_phase(dev, ds, ref, split=4.0):
               f"{np.median(gaps):.2f} ms p90 {np.percentile(gaps, 90):.2f} ms, max position "
               f"difference to per-frame {dmax:.3g} m, launches {launches}, autosave "
               f"{mb:.2f} MB; {nvidia_smi_line()}")
-        need_launches("serve", launches, ["knn5_plane_tiled", "imu_propagate"])
+        need_launches("serve", launches, ["imu_propagate"])
+        need_cascade("serve", launches)
         if n < 15 or not same_t or not dmax < 1e-6:
             raise AssertionError(f"serve: {n} lines, stamps equal {same_t}, {dmax:.3g} m")
         res["serve"] = (float(np.median(gaps)), float(np.percentile(gaps, 90)), launches)
@@ -1705,7 +1958,8 @@ def serve_phase(dev, ds, ref, split=4.0):
     print(f"serve warm restart: {len(lines2)} lines, first 5 errors "
           f"{[round(float(e) * 1e3, 3) for e in errs[:5]]} mm, RMS {rms * 1e3:.3f} mm, gap median "
           f"{np.median(gaps2):.2f} ms, launches {launches2}; {nvidia_smi_line()}")
-    need_launches("serve warm restart", launches2, ["knn5_plane_tiled", "imu_propagate"])
+    need_launches("serve warm restart", launches2, ["imu_propagate"])
+    need_cascade("serve warm restart", launches2)
     if len(lines2) < 10 or not (max(errs[:5]) < 0.05 and rms < 0.03):
         raise AssertionError(f"warm restart: {len(lines2)} lines, errors {errs[:5]}, RMS {rms}")
     res["serve warm restart"] = (float(np.median(gaps2)), float(np.percentile(gaps2, 90)),
@@ -1798,7 +2052,8 @@ def bag_phase(dev, ds, t0=100.0):
     print(f"bag: {n_msgs} messages, {mb:.1f} MB, through run.main --bag --block 8: "
           f"{len(traj)} frames, {ms:.2f} ms/lidar frame (reading and decoding included), "
           f"ATE {ate * 1e3:.3f} mm, launches {launches}; {nvidia_smi_line()}")
-    need_launches("bag", launches, ["knn5_plane_tiled", "imu_propagate"])
+    need_launches("bag", launches, ["imu_propagate"])
+    need_cascade("bag", launches)
     if len(traj) < 30 or not np.isfinite(traj).all() or not ate < 0.02:
         raise AssertionError(f"bag: {len(traj)} frames, ATE {ate:.4f} m")
     return {"bag --block 8": (ms, launches)}
@@ -1840,7 +2095,9 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
     unchanged in every bit; every ATE < 2 cm. Checkpoints the hash and
     dense estimators. Returns ({path: (ms per frame, launches)}, {path:
     its other numbers}, {"hash": the hash path's pipeline, "dense": the
-    dense path's}, {map: checkpoint numbers})."""
+    dense path's}, {map: checkpoint numbers}). The host loop of these
+    paths (all but profile_every, whose EKF is one LIO cascade launch, and
+    whose profiled frames add one each) runs the step kernel."""
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_map as vm
@@ -1872,25 +2129,26 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
         d, ate = max_diff(outs, pref), ate_of(outs, ds)
         ms = wall / len(outs)
         k, kt = launches["knn5_plane"], launches["knn5_plane_tiled"]
-        kh, ng = launches["knn5_plane_hashed"], len(gathers)
+        kh, ng, kc = launches["knn5_plane_hashed"], len(gathers), launches["lio_cascade"]
         print(f"{name}: {len(outs)} frames ({len(steady)} steady), {ms:.2f} ms/lidar frame "
               f"(tiled per-frame {ref_ms:.2f}), median steady frame {np.median(steady):.2f} ms, "
               f"ATE {ate * 1e3:.3f} mm, max position difference to tiled per-frame "
               f"{d * 1e3:.4f} mm, knn5_plane_hashed {kh}, knn5_plane {k}, knn5_plane_tiled "
-              f"{kt}, {ng} candidate gathers ({cap.map_backend} map, cache_knn "
+              f"{kt}, lio_cascade {kc}, {ng} candidate gathers ({cap.map_backend} map, cache_knn "
               f"{cap.cache_knn}, plane_fit {cap.plane_fit}); {nvidia_smi_line()}")
         if cap.plane_fit == "ref":
-            ok = k == 0 and kt == 0 and kh == 0
-        elif every:
-            ok = kt > 0 and k == 0 and kh == 0 and same_outputs(outs, pref)
+            ok = k == 0 and kt == 0 and kh == 0 and kc == 0
+        elif every:  # one cascade per EKF, the profiled ones included
+            ok = kc >= len(steady) and kt == 0 and k == 0 and kh == 0 and same_outputs(
+                outs, pref)
             print(f"{name}: last_stage_profile {pipe.last_stage_profile} ms, outputs "
                   f"bit-identical to per-frame: {same_outputs(outs, pref)}")
             ok = ok and set(pipe.last_stage_profile or ()) == {
                 "undistort", "downsample", "ekf", "map"}
         elif cap.cache_knn:
-            ok = k > 0 and kt == 0 and kh == 0 and len(steady) <= ng <= len(outs)
+            ok = k > 0 and kt == 0 and kh == 0 and kc == 0 and len(steady) <= ng <= len(outs)
         else:  # hash, dense, hash BlockReplayer(8)
-            ok = kh >= len(steady) and k == 0 and kt == 0 and ng == 0
+            ok = kh >= len(steady) and k == 0 and kt == 0 and kc == 0 and ng == 0
         if not ok or not launches["imu_propagate"] or not ate < 0.02:
             raise AssertionError(f"{name}: launches {launches}, {ng} candidate gathers, "
                                  f"ATE {ate:.4f} m")
@@ -2260,7 +2518,7 @@ def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
           f"{len(acc)} points, {100 * len(acc) / n_world:.1f}% of the {n_world} world points "
           f"painted; PCD {mb:.1f} MB written in {t1 - t0:.2f} s, read back: max position "
           f"error {pcd_pos_err:.3g} m, colours equal {pcd_same_rgb}; {nvidia_smi_line()}")
-    need_launches("(g)", launches, ["knn5_plane_tiled", "photometric_cascade", "imu_propagate"])
+    need_launches("(g)", launches, ["lio_cascade", "photometric_cascade", "imu_propagate"])
     if not (d < 1e-9 and launches == ref_launches
             and launches["photometric_cascade"] == vio.steps == len(cascades)):
         raise AssertionError(f"(g): {d:.3g} m from per-frame, launches {launches}")
@@ -2692,9 +2950,10 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
         frame, their iterations summed;
       - a world of one on NCCL in this process, with the map replicated
         and with the map sharded and the visual map in slabs: 0.0000 mm
-        from the prefix, the host loop's photometric_err_H and
-        photometric_step launched once per iteration of the prefix's
-        cascades and no cascade, the visual map's MB on the rank and
+        from the prefix, the host loop's photometric_err_H launched once
+        per iteration of the prefix's cascades, photometric_step once per
+        iteration of those and of the LIO host loops, no cascade, the
+        visual map's MB on the rank and
         collectives per camera frame;
       - two ranks sharing the card under gloo: rank 0 within 2 mm of the
         prefix, photometric_err_H and photometric_step launched in every
@@ -2774,8 +3033,12 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
                   f"{vmap_mb(v):.1f} MB on the rank, {cam:.2f} collectives per camera "
                   f"frame ({launches['photometric_err_H'] / max(v.steps, 1):.2f} photometric "
                   f"iterations), {coll:.2f} per lidar frame; {smi}")
-            if (d != 0.0 or not launches["photometric_err_H"] == launches["photometric_step"]
-                    == iters or launches["photometric_cascade"]
+            # the step kernel: once per photometric iteration and once per
+            # iteration of each lidar frame's LIO host loop
+            lio_its = sum(o.iters for o in outs)
+            if (d != 0.0 or launches["photometric_err_H"] != iters
+                    or launches["photometric_step"] != iters + lio_its
+                    or launches["photometric_cascade"]
                     or launches["imu_propagate"] != want["imu_propagate"]
                     or int(v.vmap.n_pts) != n_pts):
                 raise AssertionError(f"{name}: {d} m, launches {launches} vs {want}, "
@@ -2819,8 +3082,9 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
               f"{r0['vmap_points']} points, "
               f"{mb} MB per rank, {r0['collectives'] / len(r0['t']):.1f} collectives per "
               f"lidar frame (the camera's included); {smi}")
-        if (len(r0["t"]) < frames or d > 2e-3 or min(k) == 0 or ks != k or any(kc)
-                or min(ki) == 0):
+        lio_its = [int(np.sum(r[mode]["iters"])) for r in res]
+        if (len(r0["t"]) < frames or d > 2e-3 or min(k) == 0 or any(kc) or min(ki) == 0
+                or ks != [a + b for a, b in zip(k, lio_its)]):
             raise AssertionError(f"{name}: {len(r0['t'])} frames, {d} m, launches {k}, "
                                  f"{ks}, {kc}, {ki}")
         pts.append([r[mode]["vmap_points"] for r in res])
@@ -2933,7 +3197,9 @@ def main() -> int:
     with phase("warm-up"):
         warmup_phase(dev)
     with phase("lio per-frame"):
-        pipe, lio_launches, lio_outs, lio_ds, lio_ms = path_phase(dev)
+        pipe, lio_launches, lio_outs, lio_ds, lio_ms, lio_call, lio_nums = path_phase(dev)
+        lio_casc = lio_cascade_phase(lio_call)
+        del lio_call
 
         # the search on the path's own map and queries: compare, then time
         q = real_queries(pipe, n)
@@ -2960,10 +3226,12 @@ def main() -> int:
     # fused hash and dense searches and the standalone knn5_plane on their
     # paths' maps; the maps' operations
     paths = {"lio per-frame": (lio_ms, lio_launches)}
+    lio_extra = {"lio per-frame": {"lio_cascades": lio_nums}}
     with phase("backends (a)-(f)"):
         backend_paths, path_extra, backend_pipes, backend_ckpts = backend_paths_phase(
             dev, lio_ds, lio_outs, lio_ms)
         paths.update(backend_paths)
+        path_extra.update(lio_extra)
     with phase("hash and dense search kernels"):
         hashed = hashed_phase(backend_pipes, n, m)
         err = max(err, hashed["knn5_plane"]["max_abs_err"])
@@ -2983,13 +3251,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("livo per-frame"):
         (livo_launches, cascades, cam_fused, lid_fused, livo_outs, livo_ds,
-         livo_ms, casc_nums) = livo_path_phase(dev)
+         livo_ms, casc_nums, livo_lio_nums) = livo_path_phase(dev)
         last_call = cascades[-1][0]
         del cascades
     with phase("livo block replay"):
         livo_paths, livo_ckpt, block_casc = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
     paths["livo per-frame"] = (livo_ms, livo_launches)
-    path_extra["livo per-frame"] = {"cascades": casc_nums}
+    path_extra["livo per-frame"] = {"cascades": casc_nums, "lio_cascades": livo_lio_nums}
     paths.update(livo_paths)
     path_extra["livo LivoBlockReplayer(8)"] = {"cascades": block_casc}
     with phase("plain IMU loop paths"):
@@ -3044,7 +3312,11 @@ def main() -> int:
     (lu, lf), (vu, vf) = lio_prof, livo_prof
     print(f"per steady lidar frame, unfused (plain IMU loop) -> fused: device kernels "
           f"{lu['kernels']:.0f} -> {lf['kernels']:.0f}, under lio.search "
-          f"{lu['search_kernels']:.1f} -> {lf['search_kernels']:.1f}, under frame.propagate "
+          f"{lu['search_kernels']:.1f} -> {lf['search_kernels']:.1f}, under frame.lio_update "
+          f"{lu['lio_update_kernels']:.1f} -> {lf['lio_update_kernels']:.1f} (host "
+          f"{lu['lio_update_host_ms']:.3f} -> {lf['lio_update_host_ms']:.3f} ms, device "
+          f"{lu['lio_update_device_ms']:.3f} -> {lf['lio_update_device_ms']:.3f} ms), "
+          f"under frame.propagate "
           f"{lu['propagate_kernels']:.1f} -> {lf['propagate_kernels']:.1f}, frame.propagate "
           f"host {lu['propagate_host_ms']:.3f} -> {lf['propagate_host_ms']:.3f} ms; per LIVO "
           f"lidar + camera pair: device kernels {vu['kernels_per_pair']:.0f} -> "
@@ -3056,6 +3328,7 @@ def main() -> int:
           f"{vu['photometric_host_ms']:.3f} -> {vf['photometric_host_ms']:.3f} ms, device "
           f"{vu['photometric_device_ms']:.3f} -> {vf['photometric_device_ms']:.3f} ms; {smi}")
     if not (lf["search_kernels"] < lu["search_kernels"] and lf["kernels"] < lu["kernels"]
+            and lf["lio_update_kernels"] < lu["lio_update_kernels"]
             and vf["photometric_kernels"] < vu["photometric_kernels"]
             and vf["kernels_per_pair"] < vu["kernels_per_pair"]
             and lf["propagate_kernels"] < lu["propagate_kernels"]
@@ -3080,9 +3353,27 @@ def main() -> int:
         "name": "knn5_plane_tiled", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane_tiled.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
-        "launches": lio_launches["knn5_plane_tiled"], "max_abs_err": tiled_err,
+        "launches": mesh_launches, "path": "(j) lio mesh (the host loop)",
+        "max_abs_err": tiled_err,
         "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound_ms,
-        "bound_by": t_bound_by, "library_ms": None, "mesh_launches": mesh_launches,
+        "bound_by": t_bound_by, "library_ms": None,
+        "launches_per_path": {k: v[-1]["knn5_plane_tiled"] for k, v in paths.items()
+                              if v[-1].get("knn5_plane_tiled")},
+    }, {
+        "name": "lio_cascade", "route": "cuda",
+        "source": "fastlivo_tpu_torch/csrc/lio_cascade.cu",
+        "replaces": "fastlivo_tpu/lio.py:256 (the while_loop around "
+                    "fastlivo_tpu/ops/pallas_lio.py:219)",
+        "launches": lio_launches["lio_cascade"],
+        "max_abs_err": max(lio_casc["max_abs_err"], lio_nums["max_abs_err"],
+                           livo_lio_nums["max_abs_err"]),
+        **{k: lio_casc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{k: lio_casc[k] for k in (
+            "iterations", "searches", "ms_per_iteration", "host_ms", "grid", "loop_ms",
+            "loop_host_ms", "loop_plain_step_ms", "plain_host_ms")},
+        "launches_per_path": {k: v[-1]["lio_cascade"] for k, v in paths.items()
+                              if v[-1].get("lio_cascade")},
     }, {
         "name": "photometric_err_H", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/photometric_err_H.cu",

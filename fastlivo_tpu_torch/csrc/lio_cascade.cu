@@ -1,0 +1,400 @@
+// The LIO iterated EKF of one scan in one launch, on the tiled map, for
+// Hopper.
+//
+// lio_cascade replaces the device program the JAX package compiles from
+// the `jax.lax.while_loop` of fastlivo_tpu/lio.py::lio_update (the loop at
+// :256, its body :188-238), whose search runs the TPU kernel
+// fastlivo_tpu/ops/pallas_lio.py::knn5_plane (`pl.pallas_call` at :219) on
+// the tiled map's candidate block. Each iteration, at the pose in force:
+//   on an iteration with search_en, the search of knn5_tiled_walk.cuh (the
+//   tiled map's walk, the five nearest, the TLS plane fit) for every point
+//   of the scan in the world frame;
+//   the gates (laserMapping.cpp:1549-1600; their values are arguments, as
+//   lio.py sets them): sel = nd2_5 <= sq_dist_gate & pmask at a search,
+//   pd2 = n·p + d, s = 1 - 0.9 |pd2| / |p_body|^(1/2), sel &= plane_ok &
+//   s > s_gate, active = sel & |pd2| <= res_gate;
+//   the H rows [p_imu × Rᵀn, n] and z = -pd2, and [HᵀH₆ | Hᵀz] as the
+//   per-row products h_r·active·[h | z]_c summed in a fixed order
+//   (ops/lio_cascade.py::fixed_order_sum): a halving tree over each chunk
+//   of 64 rows, then over each group of 64 chunk sums, and so on;
+//   the step of ekf_step.cuh fed -Hᵀz (the LIO step's bits) with the LIO
+//   convergence thresholds (arguments), and the rematch / stop state machine
+//   (laserMapping.cpp:1700-1705; the JAX package's lio.py:233-235).
+// After the loop: rot, x, G = K HᵀH₆ of the last iteration, sel, pabcd,
+// plane_ok and the iteration count. The plain version is the host loop
+// lio.py::lio_loop (knn5_plane_tiled, the gates in torch ops, the same
+// fixed-order sum and the step kernel or its plain version).
+//
+// Bound (chip_smoke.py's lio_cascade_bound_ms): the larger of the bytes
+// (the map entries the searches touch, each point's inputs and outputs,
+// the pose and prior, once each) over HBM bandwidth and the operations
+// (the searches', ~120 a row each iteration, the f64 steps) over the f32 and
+// f64 rates. Neither counts the dependent chain that holds the launch far
+// above it: the chunk trees, a grid barrier, the chunk-sum trees and the
+// f64 step in one block, a second barrier, every iteration. Design: one
+// cooperative, persistent launch (cudaLaunchCooperativeKernel) of as many
+// 256-thread blocks as can be co-resident, at most one per chunk of 64
+// rows; block b owns chunks b, b + grid, ... for the whole launch and
+// keeps their p_imu, |p_body|^(1/2), mask, sel, plane and plane_ok in
+// shared memory across the iterations (the while_loop's carry). No host
+// read and no launch between iterations, so the search pays no launch
+// and no host round trip; no float atomics (the grid barrier is the only
+// atomic). Built with -fmad=false: every product rounds alone, as in the
+// plain version's torch ops.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hash_mix.cuh"
+#include "knn5_select.cuh"
+#include "plane_fit.cuh"
+#include "knn5_tiled_walk.cuh"
+#include "so3.cuh"
+#include "ekf_step.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NWARP = THREADS / 32;
+constexpr int CH = 64;  // rows of a chunk, and chunk sums of a group
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+struct Lio {
+  TiledView mp;
+  const float* p_imu;       // (n, 3) the scan in the IMU frame
+  const float* bns;         // (n,) |p_body|^(1/2)
+  const uint8_t* pmask;     // (n,)
+  const double* Pp;         // (18, 18) P' = prior.cov / laser_point_cov
+  const double* prior_rot;  // (3, 3)
+  const double* prior_x;    // (15,)
+  const double* rot0;       // (3, 3) the state's
+  const double* x0;         // (15,)
+  double* cur;              // scratch (24): the next iteration's rot, x
+  int* ctl;                 // scratch (2): search_en, stop
+  float* part;              // scratch (max(nch, 1), 42): the chunk sums
+  float* part2;             // scratch (max(ceil(nch / 64), 1), 42)
+  double* rot_out;          // (3, 3)
+  double* x_out;            // (15,)
+  double* Gmat;             // (18, 6)
+  uint8_t* sel_out;         // (n,)
+  float* pabcd_out;         // (n, 4)
+  uint8_t* ok_out;          // (n,)
+  int* its;                 // ()
+  int n, nch, cpb, max_iter;
+  float threshold;              // the plane fit's
+  float sq_dist_gate, s_gate, res_gate;
+  double conv_rot_deg, conv_pos_cm;
+};
+
+// The block's dynamic shared memory for `cpb` chunks: per owned row p_imu
+// (3), |p|^(1/2) (1) and the plane (4) as floats and one byte of flags
+// (bit 0 pmask, 1 sel, 2 plane_ok); the chunk's world points (3 x 64) and
+// its products (64 x 42).
+__host__ __device__ constexpr size_t smem_bytes(int cpb) {
+  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH) * sizeof(float) + (size_t)cpb * CH;
+}
+
+// Warp `warp` of the block sums columns warp, warp + 8, ... of the (64,
+// 42) rows in red by a halving tree (row i + row i + 32, then lanes i and
+// i + 16, 8, 4, 2, 1): ops/lio_cascade.py::fixed_order_sum's order.
+// Column c's sum goes to out[c].
+__device__ __forceinline__ void tree64(const float* red, float* out, int warp, int lane) {
+  for (int col = warp; col < EKF_NH; col += NWARP) {
+    float v = red[lane * EKF_NH + col] + red[(lane + 32) * EKF_NH + col];
+#pragma unroll
+    for (int s = 16; s >= 1; s >>= 1) v = v + __shfl_down_sync(FULL_MASK, v, s);
+    if (lane == 0) out[col] = v;
+  }
+}
+
+// Block 0: the nch chunk sums in part reduced to tot (42) in the fixed
+// order: groups of 64 staged into red (zeros past the end) and summed by
+// tree64, level by level, part and part2 in turn holding a level's sums,
+// until one is left. Every thread of the block calls.
+__device__ void reduce_chunks(float* part, float* part2, int nch, float* red, float* tot,
+                              int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  if (nch <= 1) {
+    if (tid < EKF_NH) tot[tid] = nch == 1 ? __ldcg(part + tid) : 0.0f;
+    __syncthreads();
+    return;
+  }
+  float* src = part;
+  float* dst = part2;
+  for (int cnt = nch; cnt > 1;) {
+    const int groups = (cnt + CH - 1) / CH;
+    for (int g = 0; g < groups; ++g) {
+      const float* s = src + (size_t)g * CH * EKF_NH;
+      for (int e = tid; e < CH * EKF_NH; e += THREADS)
+        red[e] = g * CH + e / EKF_NH < cnt ? __ldcg(s + e) : 0.0f;
+      __syncthreads();
+      tree64(red, groups == 1 ? tot : dst + (size_t)g * EKF_NH, warp, lane);
+      __syncthreads();
+    }
+    float* t = src;
+    src = dst;
+    dst = t;
+    cnt = groups;
+  }
+}
+
+template <int M, int L>
+__global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
+  extern __shared__ float smem[];
+  __shared__ Step st;
+  __shared__ Prior pr;
+  __shared__ float pose[12];  // rot (3, 3) and pos (3) in f32
+  __shared__ float tot[EKF_NH];
+  __shared__ double crot[9], cx[NX];  // block 0: the pose
+  __shared__ int it_s, rematch_s;     // block 0: the state machine
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool lead = blockIdx.x == 0;
+  const int R = c.cpb * CH;  // rows a block owns
+  float* s_p = smem;          // (3, R) p_imu
+  float* s_bns = s_p + 3 * R;  // (R,)
+  float* s_pl = s_bns + R;    // (4, R) the plane
+  float* s_pw = s_pl + 4 * R;  // (3, CH) a chunk's world points
+  float* red = s_pw + 3 * CH;  // (CH, 42) a chunk's products
+  uint8_t* s_fl = reinterpret_cast<uint8_t*>(red + CH * EKF_NH);  // (R,) flags
+
+  // the owned rows: chunk k of this block is blockIdx.x + k * gridDim.x
+  for (int e = tid; e < R; e += THREADS) {
+    const int row = (blockIdx.x + (e / CH) * gridDim.x) * CH + e % CH;
+    const bool in = row < c.n && blockIdx.x + (e / CH) * gridDim.x < c.nch;
+    for (int j = 0; j < 3; ++j) s_p[j * R + e] = in ? c.p_imu[3 * (size_t)row + j] : 0.0f;
+    s_bns[e] = in ? c.bns[row] : 1.0f;
+    s_fl[e] = in ? (c.pmask[row] ? 1 : 0) : 0;
+  }
+  if (lead) {
+    load_prior(c.Pp, c.prior_rot, c.prior_x, pr, tid, THREADS);
+    if (tid < 9) crot[tid] = c.rot0[tid];
+    if (tid < NX) cx[tid] = c.x0[tid];
+    if (tid == 0) {
+      it_s = -1;
+      rematch_s = 0;
+    }
+  }
+  __syncthreads();
+
+  for (int iter = 0;; ++iter) {
+    const double* rsrc = iter == 0 ? c.rot0 : c.cur;
+    const double* xsrc = iter == 0 ? c.x0 : c.cur + 9;
+    const bool search = iter == 0 || __ldcg(c.ctl) != 0;
+    // the pose in f32, as the plain version casts it (rot.to(f32))
+    if (tid < 12) pose[tid] = (float)(tid < 9 ? __ldcg(rsrc + tid) : __ldcg(xsrc + tid - 9));
+    __syncthreads();
+
+    for (int k = 0; k < c.cpb; ++k) {
+      const int chunk = blockIdx.x + k * gridDim.x;
+      if (chunk >= c.nch) break;  // uniform over the block
+      const int r0 = k * CH;
+      // the chunk's world points: p_imu rot32ᵀ + pos32, three products
+      // summed left to right (lio.world_points)
+      if (tid < CH) {
+        const float px = s_p[r0 + tid], py = s_p[R + r0 + tid], pz = s_p[2 * R + r0 + tid];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          s_pw[j * CH + tid] =
+              ((px * pose[3 * j] + py * pose[3 * j + 1]) + pz * pose[3 * j + 2]) + pose[9 + j];
+      }
+      __syncthreads();
+      if (search) {
+        // L lanes a query: THREADS / L queries a pass (rows past n walk at
+        // a harmless point and write nothing)
+        for (int q0 = 0; q0 < CH; q0 += THREADS / L) {
+          const int q = q0 + tid / L, sub = tid % L;
+          float pl[4], dmin;
+          const bool ok = knn5_tiled_walk<M, L>(c.mp, s_pw[q], s_pw[CH + q], s_pw[2 * CH + q],
+                                                sub, c.threshold, pl, dmin);
+          if (sub == 0 && chunk * CH + q < c.n) {
+            const int lr = r0 + q;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s_pl[j * R + lr] = pl[j];
+            const int pm = s_fl[lr] & 1;
+            const int sel = pm && dmin <= c.sq_dist_gate;
+            s_fl[lr] = (uint8_t)(pm | (sel << 1) | ((ok ? 1 : 0) << 2));
+          }
+        }
+        __syncthreads();
+      }
+      // the gates, the H row and its 42 products (zeros past n)
+      if (tid < CH) {
+        const int lr = r0 + tid;
+        float* out = red + tid * EKF_NH;
+        if (chunk * CH + tid < c.n) {
+          const float px = s_pw[tid], py = s_pw[CH + tid], pz = s_pw[2 * CH + tid];
+          const float a = s_pl[lr], b = s_pl[R + lr], cc = s_pl[2 * R + lr],
+                      d = s_pl[3 * R + lr];
+          const float pd2 = ((a * px + b * py) + cc * pz) + d;
+          const float s = 1.0f - (0.9f * fabsf(pd2)) / s_bns[lr];
+          const int fl = s_fl[lr];
+          const int sel = ((fl >> 1) & 1) && ((fl >> 2) & 1) && s > c.s_gate;
+          s_fl[lr] = (uint8_t)((fl & 5) | (sel << 1));
+          const float w = (sel && fabsf(pd2) <= c.res_gate) ? 1.0f : 0.0f;
+          // Rᵀn: (n0 R[0][j] + n1 R[1][j]) + n2 R[2][j]
+          float v[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) v[j] = (a * pose[j] + b * pose[3 + j]) + cc * pose[6 + j];
+          const float ix = s_p[lr], iy = s_p[R + lr], iz = s_p[2 * R + lr];
+          const float h[6] = {iy * v[2] - iz * v[1], iz * v[0] - ix * v[2],
+                              ix * v[1] - iy * v[0], a, b, cc};
+          const float rhs[7] = {h[0], h[1], h[2], h[3], h[4], h[5], -pd2};
+#pragma unroll
+          for (int r = 0; r < 6; ++r) {
+            const float hw = h[r] * w;
+#pragma unroll
+            for (int q = 0; q < 7; ++q) out[r * 7 + q] = hw * rhs[q];
+          }
+        } else {
+          for (int e = 0; e < EKF_NH; ++e) out[e] = 0.0f;
+        }
+      }
+      __syncthreads();
+      tree64(red, c.part + (size_t)chunk * EKF_NH, warp, lane);
+      __syncthreads();
+    }
+    grid.sync();
+
+    if (lead) {
+      reduce_chunks(c.part, c.part2, c.nch, red, tot, tid);
+      if (tid < 6) tot[7 * tid + 6] = -tot[7 * tid + 6];  // the photometric form
+      __syncthreads();
+      if (tid < 32) step_warp(pr, crot, cx, tot, st, tid, c.conv_rot_deg, c.conv_pos_cm);
+      __syncthreads();
+      if (tid == 0) {
+        const int it = it_s;
+        const bool rematch = st.conv || (rematch_s == 0 && it == c.max_iter - 2);
+        rematch_s += rematch ? 1 : 0;
+        const bool stop = rematch_s >= 2 || it == c.max_iter - 1;
+        it_s = it + 1;
+        for (int k = 0; k < 9; ++k) c.cur[k] = crot[k] = st.nrot[k];
+        for (int k = 0; k < NX; ++k) c.cur[9 + k] = cx[k] = st.nx[k];
+        c.ctl[0] = rematch ? 1 : 0;
+        c.ctl[1] = stop ? 1 : 0;
+      }
+    }
+    grid.sync();
+    if (__ldcg(c.ctl + 1)) break;
+  }
+
+  for (int e = tid; e < R; e += THREADS) {
+    const int chunk = blockIdx.x + (e / CH) * gridDim.x;
+    const int row = chunk * CH + e % CH;
+    if (chunk < c.nch && row < c.n) {
+      c.sel_out[row] = (s_fl[e] >> 1) & 1;
+      c.ok_out[row] = (s_fl[e] >> 2) & 1;
+      for (int j = 0; j < 4; ++j) c.pabcd_out[4 * (size_t)row + j] = s_pl[j * R + e];
+    }
+  }
+  if (lead) {
+    __syncthreads();
+    if (tid < 9) c.rot_out[tid] = crot[tid];
+    if (tid < NX) c.x_out[tid] = cx[tid];
+    for (int e = tid; e < DS * 6; e += THREADS) c.Gmat[e] = st.G[e / 6][e - (e / 6) * 6];
+    if (tid == 0) *c.its = it_s + 1;
+  }
+}
+
+template <int M, int L>
+int launch(Lio& c, int* grid_out, cudaStream_t stream) {
+  auto kernel = lio_cascade_kernel<M, L>;
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // chunks per block: the fewest for which the grid is co-resident
+  int cpb = 1, grid = 1;
+  size_t smem = 0;
+  for (;;) {
+    smem = smem_bytes(cpb);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    const int resident = per_sm * sms;
+    grid = c.nch < 1 ? 1 : (c.nch + cpb - 1) / cpb;
+    if (grid <= resident) break;
+    cpb = (c.nch + resident - 1) / resident;
+  }
+  c.cpb = cpb;
+  *grid_out = grid;
+  void* args[] = {&c};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, smem,
+                                  stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The cascade on n >= 0 points: the tiled map (dir_check, dir_slot (D,)
+// int32, cell_check (T*512,) int32, pts (T*512, 3) f32, voxel_size () f32,
+// log2_dims (3,) int32) and the offsets (m, 3) int32, m 27 (radius 1) or
+// 125 (radius 2); p_imu (n, 3) f32, bns (n,) f32, pmask (n,) u8; P' (18,
+// 18), the prior's rot (3, 3) and x (15,), the state's rot and x, f64;
+// scratch cur (24) f64, ctl (2) int, part (max(nch, 1), 42) f32 and part2
+// (max(ceil(nch / 64), 1), 42) f32 with nch = ceil(n / 64); outputs rot
+// (3, 3), x (15,), Gmat (18, 6) f64, sel (n,) u8, pabcd (n, 4) f32,
+// plane_ok (n,) u8 and its () int32. All contiguous on the device. The
+// plane fit's threshold, the gates on nd2_5, s and |pd2|, and the
+// convergence thresholds in degrees and centimetres.
+// `grid_out` receives the number of blocks launched. Returns the launch's
+// cudaError_t (0 = cudaSuccess); cudaErrorCooperativeLaunchTooLarge where
+// not even one block fits on an SM.
+extern "C" int lio_cascade_launch(
+    const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
+    const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
+    const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
+    const void* prior_x, const void* rot0, const void* x0, void* cur, void* ctl, void* part,
+    void* part2, void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out,
+    void* ok_out, void* its, int n, int m, int T, int max_iter, float threshold,
+    float sq_dist_gate, float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm,
+    int* grid_out, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Lio c;
+  c.mp = TiledView{static_cast<const int32_t*>(dir_check), static_cast<const int32_t*>(dir_slot),
+                   static_cast<const int32_t*>(cell_check), static_cast<const float*>(pts),
+                   static_cast<const float*>(voxel_size), static_cast<const int32_t*>(log2_dims),
+                   static_cast<const int32_t*>(offsets), T};
+  c.p_imu = static_cast<const float*>(p_imu);
+  c.bns = static_cast<const float*>(bns);
+  c.pmask = static_cast<const uint8_t*>(pmask);
+  c.Pp = static_cast<const double*>(Pp);
+  c.prior_rot = static_cast<const double*>(prior_rot);
+  c.prior_x = static_cast<const double*>(prior_x);
+  c.rot0 = static_cast<const double*>(rot0);
+  c.x0 = static_cast<const double*>(x0);
+  c.cur = static_cast<double*>(cur);
+  c.ctl = static_cast<int*>(ctl);
+  c.part = static_cast<float*>(part);
+  c.part2 = static_cast<float*>(part2);
+  c.rot_out = static_cast<double*>(rot_out);
+  c.x_out = static_cast<double*>(x_out);
+  c.Gmat = static_cast<double*>(Gmat);
+  c.sel_out = static_cast<uint8_t*>(sel_out);
+  c.pabcd_out = static_cast<float*>(pabcd_out);
+  c.ok_out = static_cast<uint8_t*>(ok_out);
+  c.its = static_cast<int*>(its);
+  c.n = n;
+  c.nch = (n + CH - 1) / CH;
+  c.cpb = 1;
+  c.max_iter = max_iter;
+  c.threshold = threshold;
+  c.sq_dist_gate = sq_dist_gate;
+  c.s_gate = s_gate;
+  c.res_gate = res_gate;
+  c.conv_rot_deg = conv_rot_deg;
+  c.conv_pos_cm = conv_pos_cm;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (m == 27) return launch<27, 4>(c, grid_out, s);
+  if (m == 125) return launch<125, 16>(c, grid_out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

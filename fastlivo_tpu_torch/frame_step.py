@@ -87,12 +87,13 @@ def lidar_frame_step(
             dense_world, res.active, stats)
 
 
-def frame_outputs(post: NavState, n_active, iters: int, active, resid, dmask, und, rmask,
+def frame_outputs(post: NavState, n_active, iters, active, resid, dmask, und, rmask,
                   calib: imu_mod.ImuCalib, occ, dense_out: bool):
     """The frame's dense world cloud (R, 3) at the posterior (zeros (1, 3)
     without `dense_out`) and its stats row (see lidar_frame_step);
     `active` and `resid` cover the whole downsampled batch, `occ` is the
-    map occupancy."""
+    map occupancy, `iters` a host int or a device int (the LIO cascade's,
+    which reaches the host with the stats row, no read of its own)."""
     f64 = torch.float64
     dev = und.device
     if dense_out:
@@ -105,7 +106,7 @@ def frame_outputs(post: NavState, n_active, iters: int, active, resid, dmask, un
         dense_world = torch.zeros((1, 3), dtype=und.dtype, device=dev)
     n_act = n_active.to(f64)
     head = torch.stack([dmask.sum().to(f64), n_act,
-                        torch.tensor(float(iters), dtype=f64, device=dev)])
+                        torch.as_tensor(iters, device=dev).to(f64).reshape(())])
     act_res = torch.where(active, resid.to(f64), torch.zeros((), dtype=f64, device=dev))
     res_rms = torch.sqrt(torch.sum(act_res ** 2) / torch.clamp(n_act, min=1.0))
     stats = torch.cat([head, pack24(post), res_rms[None], occ.to(f64)[None]])

@@ -28,9 +28,10 @@ CSRC = PKG_DIR / "csrc"
 # the whole photometric cascade and its step alone (ops/photometric.py);
 # the patch + gradient sampling (ops/patches_grads.py), the TPU kernel's
 # signature, on no path; one measurement group's IMU propagation
-# (ops/imu_scan.py)
+# (ops/imu_scan.py); the LIO iterated EKF of one scan on the tiled map
+# (ops/lio_cascade.py)
 SOURCES = ("knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
-           "photometric_cascade", "patches_and_grads", "imu_propagate")
+           "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade")
 BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so a kernel rounds every
 # product as its plain PyTorch version (one op per product) does; with

@@ -28,9 +28,11 @@ err = 0, Σperr = 0, HT = 0 and n_meas = 1.
 `photometric_step` is one iteration's prior-anchored f64 step
 (lidar_selection.cpp:861-878; the JAX package's while_loop body,
 vio.py:669-691): the gain K = P'[:, :6] (HᵀH₆ P'[:6, :6] + I₆)⁻¹, the
-solution, the next pose, G = K·HᵀH₆ and the convergence flag. On a CUDA
-tensor it launches the one-warp kernel of csrc/photometric_cascade.cu (a
-6x6 Gauss-Jordan with partial pivoting, `linalg.gj_solve6`'s elimination);
+solution, the next pose, G = K·HᵀH₆ and the convergence flag. The LIO
+host loop (`lio.lio_loop`) runs it too, fed -Hᵀz with the LIO thresholds
+(`conv`). On a CUDA tensor it launches the one-warp kernel of
+csrc/photometric_cascade.cu (ekf_step.cuh: a 6x6 Gauss-Jordan with
+partial pivoting, `linalg.gj_solve6`'s elimination);
 on a CPU tensor it runs `photometric_step_plain` (the LU solve of
 `linalg.kalman_gain6_f64`). Contract on the card: within 1e-12 of the
 plain version.
@@ -250,19 +252,22 @@ def photometric_err_H(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
 photometric_err_H.launches = 0
 
 
-def photometric_step_plain(rot, x, prior_rot, prior_x, P_, HT):
+def photometric_step_plain(rot, x, prior_rot, prior_x, P_, HT,
+                           conv=(CONV_ROT_DEG, CONV_POS_CM)):
     """One iteration's prior-anchored step from the pose (rot (3, 3), x =
     [pos, vel, bg, ba, grav] (15,), f64) with HT = [HᵀH₆ | Hᵀz] (6, 7) f32
-    and P' = prior.cov / img_point_cov (18, 18) f64. Returns (rot' (3, 3),
-    x' (15,), conv () bool, G = K·HᵀH₆ (18, 6)), all f64 but conv."""
+    and P' = prior.cov / img_point_cov (18, 18) f64, converged when
+    |sol[:3]|·57.3 < conv[0] and |sol[3:6]|·100 < conv[1]. Returns (rot'
+    (3, 3), x' (15,), conv () bool, G = K·HᵀH₆ (18, 6)), all f64 but conv.
+    The LIO step (lio.py) is this step fed -Hᵀz with its own thresholds."""
     HTH6, HTz = HT[:, 0:6].to(F64), HT[:, 6].to(F64)
     K16 = linalg.kalman_gain6_f64(P_, HTH6)
     vec = torch.cat([so3.log(rot.T @ prior_rot), prior_x - x])
     sol = vec - K16 @ (HTz + HTH6 @ vec[0:6])
     n_rot = rot @ so3.exp(sol[0:3])
     n_x = x + sol[3:18]
-    conv = ((torch.linalg.norm(sol[0:3]) * 57.3 < CONV_ROT_DEG)
-            & (torch.linalg.norm(sol[3:6]) * 100.0 < CONV_POS_CM))
+    conv = ((torch.linalg.norm(sol[0:3]) * 57.3 < conv[0])
+            & (torch.linalg.norm(sol[3:6]) * 100.0 < conv[1]))
     return n_rot, n_x, conv, K16 @ HTH6
 
 
@@ -290,31 +295,32 @@ def _step_launcher():
     from . import _build
 
     fn = _build.load("photometric_cascade").photometric_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 11
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return _build.profiled("photometric_step", fn)
 
 
-def photometric_step(rot, x, prior_rot, prior_x, P_, HT):
+def photometric_step(rot, x, prior_rot, prior_x, P_, HT, conv=(CONV_ROT_DEG, CONV_POS_CM)):
     """`photometric_step_plain`'s signature and outputs. A CUDA tensor
     launches the one-warp step kernel on the current stream (counted in
     `photometric_step.launches`); a CPU tensor runs the plain version. No
     other device is taken and nothing falls back."""
     if rot.device.type == "cpu":
-        return photometric_step_plain(rot, x, prior_rot, prior_x, P_, HT)
+        return photometric_step_plain(rot, x, prior_rot, prior_x, P_, HT, conv)
     if rot.device.type != "cuda":
         raise ValueError(f"photometric_step: unsupported device {rot.device}")
     _check_step("photometric_step", rot, x, prior_rot, prior_x, P_)
     _require("photometric_step: HT", HT, (6, 7), F32, rot.device)
     out = dict(dtype=F64, device=rot.device)
     n_rot, n_x, G = torch.empty((3, 3), **out), torch.empty(15, **out), torch.empty((18, 6), **out)
-    conv = torch.empty(1, dtype=torch.bool, device=rot.device)
-    ptrs = [t.data_ptr() for t in (P_, prior_rot, prior_x, rot, x, HT, n_rot, n_x, conv, G)]
-    err = _step_launcher()(*ptrs, torch.cuda.current_stream(rot.device).cuda_stream)
+    flag = torch.empty(1, dtype=torch.bool, device=rot.device)
+    ptrs = [t.data_ptr() for t in (P_, prior_rot, prior_x, rot, x, HT, n_rot, n_x, flag, G)]
+    err = _step_launcher()(*ptrs, float(conv[0]), float(conv[1]),
+                           torch.cuda.current_stream(rot.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"photometric_step: kernel launch failed (cudaError {err})")
     photometric_step.launches += 1
-    return n_rot, n_x, conv[0], G
+    return n_rot, n_x, flag[0], G
 
 
 photometric_step.launches = 0

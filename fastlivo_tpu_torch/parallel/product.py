@@ -125,8 +125,10 @@ class MeshRunner:
         # insert at the replicated posterior (map_incremental,
         # laserMapping.cpp:692): the whole batch into the replicated map,
         # or each rank's owned tiles into its shard
-        world = ((down @ calib.lid_rot.T + calib.lid_off) @ res.state.rot.to(down.dtype).T
-                 + res.state.pos.to(down.dtype))
+        # the whole batch at the posterior, as the single device's
+        # lio_update forms its pts_world (lio.world_points), row for row
+        world = lio_mod.world_points(down @ calib.lid_rot.T + calib.lid_off,
+                                     res.state.rot, res.state.pos)
         with record_function("frame.map_insert"):
             if self.sharded_map:
                 m2 = sm.shard_insert(m, world, dmask, mesh.rank, self.n)

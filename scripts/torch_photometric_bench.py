@@ -5,7 +5,8 @@ Usage: python scripts/torch_photometric_bench.py [--variant TREE ...]
            [--g 192] [--reps 30]
 
 Each variant is csrc/photometric_err_H.cu and, where the checkout has
-it, csrc/photometric_cascade.cu of the checkout at TREE, relative to this
+it, csrc/photometric_cascade.cu (the cascade and the step alone) of the
+checkout at TREE, relative to this
 one (default: this one, `.`; e.g. `build/parent` for an unpacked parent
 commit), built with this checkout's nvcc flags into
 build/fastlivo_tpu_torch/photometric_bench/ and launched through this
@@ -15,7 +16,10 @@ at 2-8 m whose reference patches were sampled at a pose ~2 cm and ~5
 mrad from the start pose, 85% valid, P = 8, the cascade over levels
 (2, 1, 0) with at most 10 iterations a level. Each variant's outputs are
 compared bit for bit with the first variant's: one photometric_err_H
-launch at level 0 and one cascade. The variants are then timed in turns,
+launch at level 0, one cascade and one step (at the start pose, on the
+plain measurement's [HᵀH | Hᵀz]; a step kernel without the convergence
+thresholds among its arguments is called without them). The variants
+are then timed in turns,
 forwards and backwards (A B ... B A), each a median of `--reps` queued
 calls (chip_smoke.time_ms), beside an empty kernel. Prints one JSON line
 with the card's `nvidia-smi` name and power limit.
@@ -50,7 +54,10 @@ def build(tree: str, name: str):
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
-    return ctypes.CDLL(out)
+    lib = ctypes.CDLL(out)
+    with open(src, "rb") as fh:
+        lib.source = fh.read()
+    return lib
 
 
 def inputs(dev, G, seed=0):
@@ -121,7 +128,9 @@ def main():
     a = inputs(dev, args.g)
     meas = [a[0], a[1], a[2][:, 0], a[3], a[4], a[5], a[6][0:3], a[10], a[11], a[12], a[13],
             a[14], 0, a[16], a[18], a[19]]
-    real = (ph._launcher, ph._cascade_launcher)
+    HT = ph.photometric_err_H_plain(*meas, partials=True)[0][:42].view(6, 7).contiguous()
+    step = (a[5], a[6], a[7], a[8], a[9], HT)
+    real = (ph._launcher, ph._cascade_launcher, ph._step_launcher)
     calls, outs = {}, {}
     try:
         for v in variants:
@@ -131,7 +140,9 @@ def main():
                     ("photometric_err_H", libs[0], "_launcher",
                      lambda: ph.photometric_err_H(*meas)),
                     ("photometric_cascade", libs[1], "_cascade_launcher",
-                     lambda: ph.photometric_cascade(*a))):
+                     lambda: ph.photometric_cascade(*a)),
+                    ("photometric_step", libs[1], "_step_launcher",
+                     lambda: ph.photometric_step(*step))):
                 if lib is None:
                     continue
 
@@ -144,9 +155,9 @@ def main():
                 torch.cuda.synchronize()
                 calls[(kernel, v)] = call
     finally:
-        ph._launcher, ph._cascade_launcher = real
+        ph._launcher, ph._cascade_launcher, ph._step_launcher = real
     res = {}
-    for kernel in ("photometric_err_H", "photometric_cascade"):
+    for kernel in ("photometric_err_H", "photometric_cascade", "photometric_step"):
         vs = [v for v in variants if (kernel, v) in calls]
         ref = outs[(kernel, vs[0])]
         equal = {v: all(torch.equal(x, y) for x, y in zip(outs[(kernel, v)], ref)) for v in vs}
@@ -158,7 +169,7 @@ def main():
         res[kernel] = {"ms": times, "bit_equal_to_first": equal, "empty_kernel_ms": empty}
         if kernel == "photometric_cascade":
             res[kernel]["iterations"] = int(ref[5])
-    ph._launcher, ph._cascade_launcher = real
+    ph._launcher, ph._cascade_launcher, ph._step_launcher = real
     print(json.dumps({"variants": variants, "g": args.g, "runs": res,
                       "card": chip_smoke.nvidia_smi_line()}))
 
@@ -172,6 +183,18 @@ def _bind(lib, kernel):
         fn = lib.photometric_err_H_launch
         fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    elif kernel == "photometric_step":
+        fn = lib.photometric_step_launch
+        fn.restype = ctypes.c_int
+        if b"conv_rot_deg" in lib.source:
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_double] * 2 + [ctypes.c_void_p]
+            return _build.profiled(kernel, fn)
+        fn.argtypes = [ctypes.c_void_p] * 11  # its thresholds were constants
+
+        def old(*args):  # (10 pointers, conv_rot, conv_pos, stream)
+            return fn(*args[:10], args[12])
+
+        return _build.profiled(kernel, old)
     else:
         fn = lib.photometric_cascade_launch
         fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.POINTER(ctypes.c_int)]

@@ -40,6 +40,14 @@ The camera frame's host-side surfaces on the card: Vio.colorize and
 Vio.update_staged against the CPU, and a LIVO run with the debug overlay
 and the RGB cloud against the CPU's. Over a mesh: LIO and LIVO worlds of
 one on NCCL, bit for bit the single-device path.
+
+The LIO cascade (ops/lio_cascade.lio_cascade): every output bit-equal to
+the host loop lio.lio_loop with the step kernel, on a random map, on a
+16384-point frame, with no valid point, at max_iter 1 and on a frame
+that converges at its first iteration; equal iterations and the pose
+within 1e-9 with photometric_step_plain; lio_update on one card one
+launch with no host read on the tiled map, the host loop on the others;
+bad inputs refused.
 """
 import numpy as np
 import pytest
@@ -150,12 +158,16 @@ def test_pipeline_runs_through_the_kernel(cuda):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in ds.imu_stream():
         pipe.push_imu(t, acc, gyr)
-    before = knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane.launches
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    before = (lio_cascade.lio_cascade.launches, knn_plane.knn5_plane_tiled.launches,
+              knn_plane.knn5_plane.launches)
     outs = pipe.spin()
-    launches = knn_plane.knn5_plane_tiled.launches - before[0]
+    launches = lio_cascade.lio_cascade.launches - before[0]
     steady = [o for o in outs if o.iters > 0]
-    assert len(steady) > 5 and launches >= len(steady)
-    assert knn_plane.knn5_plane.launches == before[1]  # the search is fused
+    # one cascade per EKF, its search inside: no search launch of its own
+    assert len(steady) > 5 and launches == len(steady)
+    assert (knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane.launches) == before[1:]
     base = ds.traj.base_pos
     e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
          for o in outs if o.t >= ds.traj.t_static + 0.5]
@@ -673,15 +685,16 @@ def small_lio(device, backend="tiled", cache_knn=False, **kw):
 def test_block_replay_on_the_card_matches_per_frame(cuda, mode):
     """BlockReplayer (8) and LivoBlockReplayer (8) on the card against the
     per-frame path on the card: same frames, within 5 mm (the bound of
-    tests/test_replay.py), through the fused search kernel."""
+    tests/test_replay.py), each EKF one LIO cascade launch."""
+    from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.replay import BlockReplayer, LivoBlockReplayer
 
     outs_ref = small_lio(cuda).spin()
     pipe = small_lio(cuda)
-    before = knn_plane.knn5_plane_tiled.launches
+    before = lio_cascade.lio_cascade.launches
     rep = BlockReplayer if mode == "scan" else LivoBlockReplayer
     outs = rep(pipe, 8).run()
-    assert knn_plane.knn5_plane_tiled.launches - before >= 20
+    assert lio_cascade.lio_cascade.launches - before >= 20
     assert len(outs) == len(outs_ref) >= 25
     for a, b in zip(outs, outs_ref):
         assert a.t == b.t and np.linalg.norm(a.pos - b.pos) < 5e-3
@@ -1162,7 +1175,8 @@ def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda, monkeypatch):
     every frame bit for bit the single-device LIVO path (one cascade
     launch a camera frame), its host loop launching photometric_err_H and
     photometric_step once per iteration of the single device's
-    cascades."""
+    cascades (and the step once per iteration of each lidar frame's LIO
+    host loop)."""
     from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch.parallel.launch import launch
 
@@ -1197,7 +1211,8 @@ def test_livo_mesh_of_one_on_nccl_is_the_single_device_path(cuda, monkeypatch):
         assert len(r["t"]) == len(ref) >= 25
         np.testing.assert_array_equal(r["pos"], np.array([o.pos for o in ref]))
         np.testing.assert_array_equal(r["quat"], np.array([o.quat for o in ref]))
-        assert r["photometric_err_H"] == r["photometric_step"] == iterations >= 3 * len(its)
+        assert r["photometric_err_H"] == iterations >= 3 * len(its)
+        assert r["photometric_step"] == iterations + int(np.sum(r["iters"]))
         assert r["photometric_cascade"] == 0
         assert r["vmap_points"] == int(pipe.vio.vmap.n_pts)
 
@@ -1352,3 +1367,264 @@ def test_pipeline_at_4khz_imu_with_512_pair_groups(cuda):
     np.testing.assert_array_equal([o.t for o in card], [o.t for o in cpu])
     d = np.abs(np.array([o.pos for o in card]) - np.array([o.pos for o in cpu])).max()
     assert d < 1e-3, d
+
+
+def lio_case(device, case):
+    """A tiled map and a scan (body frame = IMU frame) for the LIO
+    cascade, with a prior off the truth: "random" (random_block's local
+    planes, 5000 points, radius 1), "random_r2" (radius 2), "frame" (16384
+    points of the curved surface, the path's batch), "no_valid" (nothing
+    valid), "max_iter_1", "converged" (noise-free points at the true
+    pose: the first step converges). Returns (map, body, pmask, rot, x,
+    P', max_iter, radius)."""
+    from fastlivo_tpu_torch.ops import so3 as so3_ops
+
+    f64 = dict(dtype=torch.float64, device=device)
+    radius, max_iter = (2 if case == "random_r2" else 1), (1 if case == "max_iter_1" else 4)
+    if case.startswith("random"):
+        cand, found, q = random_block(5000, 27, seed=1)
+        m = tm.build_host(cand[found], (128, 128, 64), 2048, 0.5, device=device)
+        body = q
+    else:
+        world = surface(120000, 7)
+        rng = np.random.default_rng(8)
+        if case == "converged":  # a flat floor, the scan on it exactly
+            world[:, 2] = np.float32(-0.6)
+        m = tm.build_host(world, (32, 32, 16), 1024, 0.5, device=device)
+        body = world[rng.choice(len(world), 16384, replace=False)]
+        if case != "converged":
+            body = body + rng.normal(0, 0.005, body.shape).astype(np.float32)
+    body = torch.from_numpy(np.ascontiguousarray(body)).to(device)
+    pmask = torch.ones(body.shape[0], dtype=torch.bool, device=device)
+    pmask[::17] = False
+    if case == "no_valid":
+        pmask[:] = False
+    if case == "converged":
+        rot, x = torch.eye(3, **f64), torch.zeros(15, **f64)
+    else:
+        rot = so3_ops.exp(torch.tensor([0.004, -0.003, 0.006], **f64))
+        x = torch.zeros(15, **f64)
+        x[0:3] = torch.tensor([0.03, -0.02, 0.015], **f64)
+    P_ = torch.eye(18, **f64) * (0.01 / 0.001)
+    return m, body, pmask, rot.contiguous(), x, P_, max_iter, radius
+
+
+def lio_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, plain_search=False):
+    """lio.lio_loop from the pose (rot, x), the prior, its search
+    knn5_plane_tiled (knn5_plane_tiled_plain with `plain_search`) and its
+    step lio's photometric_step."""
+    from fastlivo_tpu_torch import lio
+
+    knn = knn_plane.knn5_plane_tiled_plain if plain_search else knn_plane.knn5_plane_tiled
+    return lio.lio_loop(lambda pw: knn(m, pw, radius, lio.PLANE_THRESH), body, bns, pmask, rot,
+                        x, rot, x, P_, max_iter)
+
+
+def lio_cascade_and_loop(m, body, pmask, rot, x, P_, max_iter, radius):
+    """The cascade and the host loop (the step kernel) on the same inputs."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
+    got = lio_cascade.lio_cascade(m, body, bns, pmask, rot, x, rot, x, P_, max_iter, radius,
+                                  lio.PLANE_THRESH, lio.GATES, lio.CONV)
+    return got, lio_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius), bns
+
+
+def assert_lio_equal(got, loop, label):
+    """The cascade's outputs `got` bit-equal to a host loop's `loop`."""
+    assert int(got[6]) == loop[6], (label, int(got[6]), loop[6])
+    for g, w, name in zip(got[:6], loop[:6], ("rot", "x", "G", "sel", "pabcd", "plane_ok")):
+        assert torch.equal(g, w), (label, name, (g.double() - w.double()).abs().max())
+
+
+@pytest.mark.parametrize("case", ["random", "random_r2", "frame", "no_valid", "max_iter_1",
+                                  "converged"])
+def test_lio_cascade_matches_the_host_loop(cuda, case, monkeypatch):
+    """Every output bit-equal to lio_loop with the step kernel, its search
+    knn5_plane_tiled and also knn5_plane_tiled_plain (so the walk the
+    cascade shares with knn5_plane_tiled is held against plain torch at
+    every iteration's pose); all plain (the plain search and
+    photometric_step_plain) the same iterations and the pose within 1e-9."""
+    from fastlivo_tpu_torch import lio
+
+    args = lio_case(cuda, case)
+    got, loop, bns = lio_cascade_and_loop(*args)
+    its = int(got[6])
+    assert got[6].dtype == torch.int32
+    assert_lio_equal(got, loop, (case, "knn5_plane_tiled"))
+    m, body, pmask, rot, x, P_, max_iter, radius = args
+    plain_search = lio_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, True)
+    assert_lio_equal(got, plain_search, (case, "knn5_plane_tiled_plain"))
+    monkeypatch.setattr(lio, "photometric_step", photometric.photometric_step_plain)
+    plain = lio_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, True)
+    assert plain[6] == its
+    d = max(float((got[0] - plain[0]).abs().max()), float((got[1] - plain[1]).abs().max()))
+    assert d <= 1e-9, d
+    if case == "no_valid":
+        assert not got[3].any() and its == 2  # nothing measured: converged at once
+    elif case == "max_iter_1":  # iterCount -1 and 0, the second a rematch
+        assert its == 2
+    elif case == "converged":
+        assert its == 2 and int(got[3].sum()) > 10000
+    else:  # selected rows fed the updates
+        assert int(got[3].sum()) > (10000 if case == "frame" else 100)
+        assert 2 <= its <= max_iter + 1
+
+
+@pytest.mark.parametrize("route", ["tiled", "hash", "dense", "cache_knn", "ref"])
+def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
+    """lio_update on one card: on the tiled map with the TLS fit one
+    lio_cascade launch, no search launch and no synchronising call (torch's
+    sync debug mode set to raise), iters a device int; on the hash and
+    dense maps, with cache_knn and with plane_fit ref the host loop."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+    from fastlivo_tpu_torch.state import identity_state
+
+    m, body, pmask, rot, x, P_, max_iter, radius = lio_case(cuda, "frame")
+    if route in ("hash", "dense"):
+        m = hash_and_dense_maps(cuda)[route == "dense"]
+    s = identity_state(cuda)
+    s = s._replace(rot=rot, pos=x[0:3].clone(), cov=P_ * 0.001)
+    eye = torch.eye(3, device=cuda)
+    call = lambda: lio.lio_update(  # noqa: E731
+        s, m, body, pmask, eye, torch.zeros(3, device=cuda), 0.001, max_iter=max_iter,
+        knn_radius=radius, cache_knn=route == "cache_knn",
+        plane_fit="ref" if route == "ref" else "tls")
+    want = call()  # built and warm
+    torch.cuda.synchronize()
+    n0 = (lio_cascade.lio_cascade.launches, knn_plane.knn5_plane_tiled.launches)
+    if route == "tiled":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n1 = (lio_cascade.lio_cascade.launches, knn_plane.knn5_plane_tiled.launches)
+    assert torch.equal(got.state.pos, want.state.pos)
+    if route == "tiled":
+        assert n1 == (n0[0] + 1, n0[1])
+        assert isinstance(got.iters, torch.Tensor) and got.iters.device.type == "cuda"
+    else:
+        assert n1[0] == n0[0] and isinstance(got.iters, int)
+    assert int(got.n_active) > 1000
+
+
+def test_lio_cascade_refuses_bad_inputs(cuda):
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    m, body, pmask, rot, x, P_, max_iter, _ = lio_case(cuda, "random")
+    bns = torch.ones(body.shape[0], device=cuda)
+    good = dict(m=m, p_imu=body, bns=bns, pmask=pmask, rot=rot, x=x, prior_rot=rot,
+                prior_x=x, P_=P_, max_iter=max_iter, radius=1, threshold=lio.PLANE_THRESH,
+                gates=lio.GATES, conv=lio.CONV)
+    n0 = lio_cascade.lio_cascade.launches
+    for kw, err in ((dict(p_imu=body.cpu()), ValueError), (dict(radius=3), ValueError),
+                    (dict(p_imu=body.double()), TypeError), (dict(bns=bns[:10]), ValueError),
+                    (dict(pmask=pmask.to(torch.uint8)), TypeError),
+                    (dict(rot=rot.float()), TypeError), (dict(x=x[:12]), ValueError),
+                    (dict(P_=P_.t()[:, :17]), ValueError),
+                    (dict(m=m._replace(pts=m.pts.cpu())), ValueError)):
+        with pytest.raises(err):
+            lio_cascade.lio_cascade(**{**good, **kw})
+    assert lio_cascade.lio_cascade.launches == n0
+
+
+GUARD = 64  # sentinel elements before and after each array (keeps 16-byte alignment)
+
+
+def guarded(t):
+    """t's values inside a buffer whose GUARD elements before and after
+    hold a sentinel (NaN for floats, 0xA5 bytes otherwise). Returns
+    (buffer, the contiguous view of t's shape)."""
+    u8 = t.dtype == torch.bool
+    dtype = torch.uint8 if u8 else t.dtype
+    fill = float("nan") if dtype.is_floating_point else (0xA5 if u8 else -0x5A5A5A5)
+    buf = torch.full((t.numel() + 2 * GUARD,), fill, dtype=dtype, device=t.device)
+    v = buf[GUARD:GUARD + t.numel()]
+    v = (v.view(torch.bool) if u8 else v).view(t.shape)
+    v.copy_(t)
+    return buf, v
+
+
+def launch_guarded(launch, inputs, outputs):
+    """`launch(*input views, *output views)` (a kernel's C entry point on
+    the views' pointers) on copies of inputs and outputs inside guarded
+    buffers. Asserts it returned 0, wrote no byte of any input and no byte
+    of the outputs' guard bands; returns the output views."""
+    ins, outs = [guarded(t) for t in inputs], [guarded(t) for t in outputs]
+    before = [b.view(torch.uint8).clone() for b, _ in ins + outs]
+    assert launch(*[v for _, v in ins + outs]) == 0
+    torch.cuda.synchronize()
+    for k, ((b, _), b0) in enumerate(zip(ins + outs, before)):
+        after, nb = b.view(torch.uint8), GUARD * b.element_size()
+        if k < len(ins):
+            assert torch.equal(after, b0), f"input {k} written"
+        else:
+            assert torch.equal(after[:nb], b0[:nb]) and torch.equal(after[-nb:], b0[-nb:]), \
+                f"output {k - len(ins)}: a guard band written"
+    return [v for _, v in outs]
+
+
+@pytest.mark.parametrize("kernel", ["knn5_plane_27", "knn5_plane_125", "knn5_plane_tiled",
+                                    "lio_cascade"])
+def test_kernels_write_only_their_outputs(cuda, kernel):
+    """The stand-in for compute-sanitizer's memcheck, which refuses the
+    card machine ("Device not supported"): each kernel launched on its
+    inputs and outputs inside guard-banded buffers at a ragged size (16379
+    rows: the TMA slab path's partial last slab, the cascade's partial
+    last chunk) writes no input and nothing outside its outputs, and its
+    outputs equal the plain version's bit for bit."""
+    import ctypes
+
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    n = 16379
+    out3 = lambda: [torch.empty((n, 4), device=cuda), torch.empty(n, dtype=torch.bool,  # noqa
+                                                                  device=cuda),
+                    torch.empty(n, device=cuda)]
+    if kernel in ("knn5_plane_27", "knn5_plane_125"):
+        m = int(kernel.split("_")[-1])
+        ins = [torch.from_numpy(a).to(cuda) for a in random_block(n, m, 9)]
+        got = launch_guarded(lambda c, f, q, pa, ok, nd: knn_plane._launcher()(
+            *ptr(c, f, q, pa, ok, nd), n, m, 0.1, stream), ins, out3())
+        want = knn_plane.knn5_plane_plain(*ins)
+    else:
+        mp, body, pmask, rot, x, P_, max_iter, radius = lio_case(cuda, "frame")
+        body, pmask = body[:n].contiguous(), pmask[:n].contiguous()
+        offs = tm.neighbor_offsets(radius, cuda)
+        maps = [mp.dir_check, mp.dir_slot, mp.cell_check, mp.pts, mp.voxel_size, mp.log2_dims,
+                offs]
+        T = mp.slot_key.shape[0]
+        if kernel == "knn5_plane_tiled":
+            got = launch_guarded(lambda q, *r: knn_plane._tiled_launcher()(
+                *ptr(q, *r), n, offs.shape[0], T, 0.1, stream), [body] + maps, out3())
+            want = knn_plane.knn5_plane_tiled_plain(mp, body, radius, 0.1)
+        else:
+            bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
+            nch = -(-n // lc.CHUNK)
+            f64 = dict(dtype=torch.float64, device=cuda)
+            outs = [torch.empty(24, **f64), torch.empty(2, dtype=torch.int32, device=cuda),
+                    torch.empty((nch, 42), device=cuda),
+                    torch.empty((-(-nch // lc.CHUNK), 42), device=cuda),
+                    torch.empty((3, 3), **f64), torch.empty(15, **f64),
+                    torch.empty((18, 6), **f64)] + out3()[1:2] + out3()[0:1] + out3()[1:2] \
+                + [torch.empty((), dtype=torch.int32, device=cuda)]
+            grid = ctypes.c_int(0)
+            got = launch_guarded(lambda *v: lc._launcher()(
+                *ptr(*v), n, offs.shape[0], T, max_iter, lio.PLANE_THRESH, *lio.GATES, *lio.CONV,
+                ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
+            got = got[4:7] + got[7:10] + [got[10]]  # rot, x, G, sel, pabcd, plane_ok, its
+            for plain_search in (False, True):
+                loop = lio_host_loop(mp, body, bns, pmask, rot, x, P_, max_iter, radius,
+                                     plain_search)
+                assert_lio_equal(got, loop, plain_search)
+            got, want = got[:6], loop[:6]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+

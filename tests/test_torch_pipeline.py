@@ -421,7 +421,7 @@ def test_every_kernel_source_is_built_and_smoked():
     """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
     fused searches (tiled; hash and dense), the fused photometric
     measurement, the photometric cascade and step, the two standalone
-    kernels and the IMU propagation."""
+    kernels, the IMU propagation and the LIO cascade."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -432,7 +432,8 @@ def test_every_kernel_source_is_built_and_smoked():
     cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
     assert cu == ["imu_propagate", "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
-                  "patches_and_grads", "photometric_cascade", "photometric_err_H"]
+                  "lio_cascade", "patches_and_grads", "photometric_cascade",
+                  "photometric_err_H"]
 
 
 def test_kernel_launches_are_profiler_ops():
