@@ -106,7 +106,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data sheet)
 # every csrc/*.cu of the port
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
-                "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade"]
+                "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
+                "vio_select", "vio_observations"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -527,7 +528,8 @@ def unfused():
     (tiled, hash and dense), the photometric cascade as the host loop with
     each measurement the plain body sampling through the standalone
     patches_and_grads kernel and each step photometric_step_plain, IMU
-    propagation as the plain loop."""
+    propagation as the plain loop, the camera frame's selection and map
+    upkeep as their torch code (no vio_select, no vio_observations)."""
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
 
@@ -544,6 +546,7 @@ def unfused():
                                     photometric.photometric_err_H_plain))
         stack.enter_context(unsampled_plain())
         stack.enter_context(plain_propagation())
+        stack.enter_context(swapped(vio, "frame_kernels_apply", lambda *a, **kw: False))
         yield
 
 
@@ -703,6 +706,110 @@ def check_lio_cascades(calls, label) -> dict:
     return nums
 
 
+def clone_map(vm):
+    return vm._replace(**{f: getattr(vm, f).clone() for f in vm._fields})
+
+
+@contextlib.contextmanager
+def recorded_vio(calls: list):
+    """Record every camera frame's vio_select call (vio's) with a copy of
+    the visual map on the card, the image pool included (the next frames
+    write it in place), and the same frame's vio_observations arguments
+    and outputs (the map it starts from is that copy: vio_select writes no
+    map field). No host read."""
+    from fastlivo_tpu_torch import vio
+
+    real_sel, real_obs = vio.vio_select, vio.vio_observations
+    seen = [0]
+
+    def sel(vm, *a, **kw):
+        frame = seen[0]
+        seen[0] += 1
+        snap = clone_map(vm)
+        out = real_sel(vm, *a, **kw)
+        calls.append({"select": (snap, a, kw, out), "frame": frame})
+        return out
+
+    def obs(vm, *a):
+        out = real_obs(vm, *a)
+        if calls and "obs" not in calls[-1]:
+            calls[-1]["obs"] = (a, out)
+        return out
+
+    with swapped(vio, "vio_select", sel), swapped(vio, "vio_observations", obs):
+        yield
+
+
+def bits_diff(x, y) -> float:
+    """0.0 where x and y have equal bits (NaN where both are NaN), else the
+    largest |x - y| (inf for a shape, type or NaN mismatch)."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return float("inf")
+    if not x.dtype.is_floating_point:
+        return float((x.long() - y.long()).abs().max()) if x.numel() else 0.0
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    same = (x.view(bits) == y.view(bits)) | (torch.isnan(x) & torch.isnan(y))
+    if bool(same.all()):
+        return 0.0
+    if bool((torch.isnan(x) != torch.isnan(y)).any()):
+        return float("inf")
+    return float((x.double() - y.double()).abs().max())
+
+
+def check_vio_calls(calls, label) -> dict:
+    """Each recorded camera frame after the path's run (these launches
+    are not the path's; the counts are restored): vio_select against
+    vio_select_plain on its copy of the map, every output bit-equal; then
+    vio_observations launched again on one copy of that map and its plain
+    version on another, every map field, the pixels and the scores
+    bit-equal, and the replayed launch's pixels, scores and point count
+    equal to the path's own. Returns numbers."""
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+    from fastlivo_tpu_torch.ops import vio_select as vs
+    from fastlivo_tpu_torch.vio import TrackedSet
+    from fastlivo_tpu_torch.visual_map import VisualMap
+
+    counts = read_counts()
+    err, tracked, added, frames = 0.0, 0, 0, []
+    for k, rec in enumerate(calls):
+        snap, a, kw, out = rec["select"]
+        plain = vs.vio_select_plain(snap, *a, **kw)
+        names = list(TrackedSet._fields) + ["new_pos", "new_px", "new_score", "new_add"]
+        d = {n: bits_diff(x, y) for n, x, y in zip(
+            names, list(out[0]) + list(out[1]), list(plain[0]) + list(plain[1]))}
+        oa, oout = rec["obs"]
+        got = vo.vio_observations(clone_map(snap), *oa)
+        want = vo.vio_observations_plain(clone_map(snap), *oa)
+        d.update({f: bits_diff(getattr(got[0], f), getattr(want[0], f))
+                  for f in VisualMap._fields})
+        d.update(opc=bits_diff(got[1], want[1]), oscore=bits_diff(got[2], want[2]),
+                 path_opc=bits_diff(oout[1], got[1]), path_oscore=bits_diff(oout[2], got[2]),
+                 path_n_pts=bits_diff(oout[0].n_pts, got[0].n_pts))
+        bad = {n: v for n, v in d.items() if v != 0.0}
+        if bad:
+            raise AssertionError(f"{label} camera frame {rec['frame']}: not bit-equal to the "
+                                 f"plain versions: {bad}")
+        tracked += int(out[0].valid.sum())
+        added += int(out[1][3].sum())
+        frames.append(rec["frame"])
+        err = max(err, max(d.values()))
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    nums = {"camera_frames_checked": len(calls), "frames": frames, "tracked": tracked,
+            "added": added, "bit_equal_to_plain": True, "max_abs_err": err}
+    print(f"{label}: vio_select and vio_observations of {len(calls)} camera frames "
+          f"({tracked} cells tracked, {added} points added) bit-equal to their plain "
+          f"versions on copies of the map")
+    return nums
+
+
+def need_vio(label, launches, steps):
+    """One vio_select and one vio_observations launch per camera frame step."""
+    if not launches["vio_select"] == launches["vio_observations"] == steps:
+        raise AssertionError(f"{label}: launches {launches}, want one vio_select and one "
+                             f"vio_observations for each of {steps} camera steps")
+
+
 def need_cascade(label, launches, ekfs=None):
     """The LIO EKF on one card: lio_cascade launched (once per EKF where
     their number `ekfs` is given), knn5_plane_tiled never."""
@@ -715,12 +822,13 @@ def need_cascade(label, launches, ekfs=None):
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
     from fastlivo_tpu_torch.ops import imu_scan, knn_plane, lio_cascade, patches_grads
-    from fastlivo_tpu_torch.ops import photometric
+    from fastlivo_tpu_torch.ops import photometric, vio_observations, vio_select
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
             photometric.photometric_err_H, photometric.photometric_cascade,
             photometric.photometric_step, patches_grads.patches_and_grads,
-            imu_scan.imu_propagate, lio_cascade.lio_cascade)
+            imu_scan.imu_propagate, lio_cascade.lio_cascade, vio_select.vio_select,
+            vio_observations.vio_observations)
 
 
 def reset_counts():
@@ -1014,6 +1122,157 @@ def cascade_phase(dev, a):
                      "bound_ms": s_bound, "bound_by": s_by}}
 
 
+# f32 operations, counted from the kernels' expressions: a scan row's
+# transform, projection and gates; its Shi-Tomasi score (64 taps x 7, three
+# 63-add trees, the eigenvalue); a gathered candidate; a cell's chain (three
+# 8-step undistortions, three projections, the warp), a patch pixel at one
+# level and at the level-0 gates; an observation's view cosine; a tracked
+# row's prep stage and its ring's eviction distances
+SEL_ROW_OPS, SEL_ST_OPS, SEL_CAND_OPS = 60, 649, 60
+SEL_CELL_OPS, SEL_PIXEL_OPS, SEL_OBS_OPS = 850, 30, 40
+OBS_ROW_OPS, OBS_RING_OPS = 120 + 649, 20
+
+
+def window_pixels(H, W, px, size) -> int:
+    """Distinct pixels of an H x W image under size x size windows around
+    floor(px) (rows of (K, 2) pixels): the taps a kernel reads once each."""
+    import torch.nn.functional as F
+
+    ind = torch.zeros((1, 1, H, W), device=px.device)
+    u = torch.clamp(torch.floor(px[:, 0]).long(), 0, W - 1)
+    v = torch.clamp(torch.floor(px[:, 1]).long(), 0, H - 1)
+    ind[0, 0, v, u] = 1.0
+    half = size // 2
+    pad = F.pad(ind, (half, size - 1 - half, half, size - 1 - half))
+    return int(F.max_pool2d(pad, size, stride=1).sum())
+
+
+def vio_select_bound_ms(snap, a, kw, out):
+    """The least time of vio_select on a recorded call (bytes, each input
+    read once, each output written once, counted from this call's data:
+    the scan cloud and voxel set; the image pixels under the in-frame
+    rows' 10x10 Shi-Tomasi windows and the tracked cells' (P+1)^2 current
+    patches; the voxel slots probed up to the first hit, the found slots'
+    counts and index rows, the valid candidates' positions and values;
+    the candidate cells' winners, their KO-entry rings and image ids and
+    3 x (P+1)^2 pool taps; the outputs) over HBM bandwidth, against the
+    f32 operations (the SEL_* counts) over the f32 rate. Returns (ms,
+    "bytes" or "operations", bytes, operations)."""
+    from fastlivo_tpu_torch import camera as cam_mod
+    from fastlivo_tpu_torch import vio as vio_mod
+    from fastlivo_tpu_torch import visual_map as vmap_mod
+    from fastlivo_tpu_torch.ops.photometric import _rows_times
+    from fastlivo_tpu_torch.ops.voxel_map import _slot_check
+
+    cam, rcw, pcw, img, pg, pg_mask, vox, vox_mask = a[:8]
+    P, G = kw["patch_size"], kw["gw"] * kw["gh"]
+    H, W = img.shape
+    M, Nv = pg.shape[0], vox.shape[0]
+    T, VC = snap.vox_idx.shape
+    KO = snap.obs_fid.shape[1]
+    pool_b = snap.imgs.element_size()
+    border = (P // 2 + 1) * 8
+    p_cam = _rows_times(pg, rcw) + pcw
+    pc = cam_mod.world2cam(cam, p_cam)
+    ok = pg_mask & (p_cam[:, 2] > 0) & cam_mod.is_in_frame(cam, pc, border)
+    tracked, new = out
+    # the candidates, and the cells that hold one
+    cidx, cvalid = (t.reshape(-1) for t in vmap_mod.gather_voxel_points(snap, vox, vox_mask))
+    c_cam = _rows_times(snap.pos[torch.clamp(cidx, 0, snap.pos.shape[0] - 1).long()],
+                        rcw) + pcw
+    cpc = cam_mod.world2cam(cam, c_cam)
+    cok = cvalid & (c_cam[:, 2] > 0) & cam_mod.is_in_frame(cam, cpc, border)
+    has_map = torch.zeros(G, dtype=torch.bool, device=img.device)
+    has_map[vio_mod._cells(cpc[cok], kw["grid_size"], kw["gh"], G).long()] = True
+    wpc = cam_mod.world2cam(cam, _rows_times(tracked.pos, rcw) + pcw)
+    pix = window_pixels(H, W, torch.cat([pc[ok], wpc[has_map]]), 10)
+    slot, check = _slot_check(vox, T - 1)
+    probes = (slot[:, None] + torch.arange(12, device=vox.device)) & (T - 1)
+    hit = snap.vox_keys[probes.long()] == check[:, None]
+    found = hit.any(1) & vox_mask
+    n_probe = torch.where(found, torch.argmax(hit.int(), 1) + 1, 12)[vox_mask].sum()
+    n_found, n_cand, n_cells = int(found.sum()), int(cvalid.sum()), int(has_map.sum())
+    n_ok = int(ok.sum())
+    byts = (13 * (M + Nv) + 4 * pix + 4 * int(n_probe) + n_found * 4 * (1 + VC)
+            + n_cand * 16 + n_cells * (12 + 8 + KO * 60 + 3 * (P + 1) ** 2 * pool_b)
+            + G * (4 + 12 + 12 * P * P + 4 + 1 + 4 + 4 + 12 + 8 + 4 + 1))
+    ops = (n_ok * (SEL_ROW_OPS + SEL_ST_OPS) + n_cand * SEL_CAND_OPS
+           + n_cells * (SEL_CELL_OPS + 4 * P * P * SEL_PIXEL_OPS + KO * SEL_OBS_OPS))
+    t_b, t_o = 1e3 * byts / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
+
+
+def vio_observations_bound_ms(snap, oa, out):
+    """The least time of vio_observations on a recorded call: the rows'
+    inputs (34 bytes a row), their points, ring ids and most recent
+    observation, the image pixels under their Shi-Tomasi windows, the
+    image ids (for the pool slot), the full rings' poses where a kept
+    observation evicts, the kept observations' and new points' writes,
+    one probed slot, the count and an index entry for each new point, and
+    the outputs, over HBM bandwidth, against the f32 operations (OBS_*)
+    over the f32 rate. Returns (ms, bound_by, bytes, operations)."""
+    vm2, opc, _ = out
+    cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx, nscore, nadd, fid = oa
+    B = t_idx.shape[0]
+    H, W = img.shape
+    KO = snap.obs_fid.shape[1]
+    R = snap.img_fid.shape[0]
+    safe = torch.clamp(t_idx, 0, snap.pos.shape[0] - 1).long()
+    obs_fid_after = vm2.obs_fid[safe]
+    kept = (obs_fid_after != snap.obs_fid[safe]).any(1) & t_valid
+    full = snap.n_obs[safe] >= KO
+    n_new = int(vm2.n_pts) - int(snap.n_pts)
+    n_kept, n_evict = int(kept.sum()), int((kept & full).sum())
+    pix = window_pixels(H, W, opc, 10)
+    byts = (34 * B + B * (12 + 4 * KO + 56 + 4) + 4 * pix + 4 * R + n_evict * KO * 48
+            + n_kept * 76 + n_new * (88 + 4 + 8 + 4) + 12 * B + 4)
+    ops = B * OBS_ROW_OPS + n_evict * KO * OBS_RING_OPS
+    t_b, t_o = 1e3 * byts / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
+
+
+def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
+    """vio_select and vio_observations timed at the main path's shapes on a
+    recorded camera frame (rec: recorded_vio's), each against its plain
+    version and its bound. The kernels: median of 30 queued calls between
+    CUDA events (time_ms); vio_observations runs on one copy of the map,
+    which each call writes again (the same rows, the rings one entry on).
+    The plain versions: one call alone between two CUDA events, the device
+    idle before it (event_ms: their host reads stall the queue), the
+    observations' on another copy. No library call computes either.
+    Returns {"vio_select": {...}, "vio_observations": {...}}."""
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    counts = read_counts()
+    snap, a, kw, out = rec["select"]
+    oa, oout = rec["obs"]
+    res = {}
+    ms = time_ms(lambda: vs.vio_select(snap, *a, **kw))
+    grid = vs.vio_select.grid
+    plain_ms = event_ms(lambda: vs.vio_select_plain(snap, *a, **kw), reps=10)
+    bound, by, byts, ops = vio_select_bound_ms(snap, a, kw, out)
+    res["vio_select"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                         "bytes": byts, "ops": ops, "grid": grid,
+                         "tracked": int(out[0].valid.sum()), "added": int(out[1][3].sum())}
+    after = vo.vio_observations_plain(clone_map(snap), *oa)
+    m1, m2 = clone_map(snap), clone_map(snap)
+    ms = time_ms(lambda: vo.vio_observations(m1, *oa))
+    plain_ms = event_ms(lambda: vo.vio_observations_plain(m2, *oa), reps=10)
+    bound, by, byts, ops = vio_observations_bound_ms(snap, oa, after)
+    del after, m1, m2
+    res["vio_observations"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                               "bound_by": by, "bytes": byts, "ops": ops}
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    smi = nvidia_smi_line()
+    for name, r in res.items():
+        print(f"{name} on {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} bytes, "
+              f"{r['ops']} f32 operations), library none; {smi}")
+    return res
+
+
 def lio_cascade_phase(a):
     """lio_cascade on the LIO path's last call `a` (its arguments, the
     map's search arrays as they were): held against the host loop
@@ -1297,9 +1556,13 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     photometric_err_H and photometric_step never. Camera-frame time: host
     wall of Vio.update, its stats read included. After the run every
     cascade is held against the host loop on its inputs (check_cascades).
-    Returns (launches, the recorded cascade calls, camera and lidar frame
-    medians in ms, the outputs, the dataset, wall ms per lidar frame, the
-    cascades' numbers)."""
+    Every camera frame's vio_select and vio_observations calls are
+    recorded with a copy of the visual map and held after the run against
+    their plain versions (check_vio_calls). Returns (launches, the
+    recorded cascade calls, camera and lidar frame medians in ms, the
+    outputs, the dataset, wall ms per lidar frame, the cascades', the LIO
+    cascades' and the camera frames' numbers, the last recorded camera
+    frame)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -1316,12 +1579,12 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     pipe = Pipeline(cfg, device=dev)
     push_all(pipe, ds)
     vio = pipe.vio
-    cam_ms, searches, cascades, groups, lio_calls = [], [], [], [], []
+    cam_ms, searches, cascades, groups, lio_calls, vio_calls = [], [], [], [], [], []
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
             spy(imu_mod, "propagate_wire", groups), timed_camera_frames(vio, cam_ms), \
-            recorded_lio(lio_calls):
+            recorded_lio(lio_calls), recorded_vio(vio_calls):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -1350,13 +1613,16 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"too few frames: {len(steady)} steady, {vio.steps} camera")
     if n_pts <= 50 or vio.last_stats.get("tracked", 0) <= 5:
         raise AssertionError(f"visual map {n_pts} points, last {vio.last_stats}")
-    if len(cascades) != vio.steps or searches or len(lio_calls) != len(steady):
+    if (len(cascades) != vio.steps or searches or len(lio_calls) != len(steady)
+            or len(vio_calls) != vio.steps):
         raise AssertionError(f"{len(cascades)} cascades, {len(lio_calls)} LIO cascades, "
-                             f"{len(searches)} searches")
+                             f"{len(searches)} searches, {len(vio_calls)} camera frames "
+                             f"recorded")
     want = {"knn5_plane_tiled": 0, "knn5_plane_hashed": 0, "knn5_plane": 0,
             "photometric_err_H": 0, "photometric_cascade": vio.steps, "photometric_step": 0,
             "patches_and_grads": 0, "imu_propagate": len(groups),
-            "lio_cascade": len(steady)}
+            "lio_cascade": len(steady), "vio_select": vio.steps,
+            "vio_observations": vio.steps}
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
@@ -1365,8 +1631,10 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"LIVO ATE {ate:.4f} m >= 6 cm")
     nums = check_cascades(cascades, "livo per-frame")
     lio_nums = check_lio_cascades(lio_calls, "livo per-frame")
+    del lio_calls
+    vio_nums = check_vio_calls(vio_calls, "livo per-frame")
     return (launches, cascades, float(np.median(cam_ms)), float(np.median(lid_ms)),
-            outs, ds, 1e3 * wall / len(outs), nums, lio_nums)
+            outs, ds, 1e3 * wall / len(outs), nums, lio_nums, vio_nums, vio_calls[-1])
 
 
 def livo_cpu_agreement(dev):
@@ -1463,6 +1731,11 @@ def kernels_in(prof, stages, launched: int):
              for name in kernel_names(e)]
     linked = sum(any(f"{s}_kernel" in name for s in CUDA_SOURCES) for name in names)
     return len(names) + max(launched - linked, 0), linked
+
+
+def cpu_op_names(e) -> list:
+    """The names of the host ops under a profiler event, at every depth."""
+    return [n for c in e.cpu_children for n in [c.name] + cpu_op_names(c)]
 
 
 def stage_ms(evs, name, n):
@@ -1614,14 +1887,27 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
                       "livo profile")
     if counts["photometric_err_H"] or counts["photometric_step"]:
         raise AssertionError(f"livo profile: the host loop's kernels launched, {counts}")
-    if (counts["imu_propagate"] > 0) != fused:
+    if (counts["imu_propagate"] > 0) != fused or not (
+            counts["vio_select"] == counts["vio_observations"] == (n_cam if fused else 0)):
         raise AssertionError(f"livo profile ({'fused' if fused else 'unfused'}): {counts}")
     evs = prof.key_averages()
+    # what runs under vio.observations: no host read on the kernels' route
+    under = [n for e in prof.events() if e.name == "vio.observations"
+             and str(e.device_type).endswith("CPU") for n in cpu_op_names(e)]
+    reads = sum(n in ("aten::nonzero", "aten::item", "aten::_local_scalar_dense")
+                for n in under)
+    if fused and reads:
+        raise AssertionError(f"livo profile: {reads} host reads under vio.observations")
     stages = sorted((e for e in evs if e.key.startswith("vio.")
                      and str(e.device_type).endswith("CPU")),
                     key=lambda e: -e.cpu_time_total)
     launched = counts["photometric_cascade"] + counts["patches_and_grads"]
-    n_k, _ = kernels_in(prof, "vio.", launched)
+    n_k, _ = kernels_in(prof, "vio.", launched + counts["vio_select"]
+                        + counts["vio_observations"])
+    n_sel, _ = kernels_in(prof, "vio.select", counts["vio_select"])
+    n_obs, _ = kernels_in(prof, "vio.observations", counts["vio_observations"])
+    sel_host = sum(stage_ms(evs, r, n_cam)[0] for r in ("vio.select_tracked", "vio.select_new"))
+    obs_host = stage_ms(evs, "vio.observations", n_cam)[0]
     n_photo, linked = kernels_in(prof, "vio.photometric", launched)
     n_p, _ = kernels_in(prof, "frame.propagate", counts["imu_propagate"])
     kernels = device_kernels(evs, ("frame.", "lio.", "vio."))
@@ -1637,14 +1923,24 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
           f"frame under vio.* {n_k / n_cam:.0f}, under vio.photometric {photo:.1f} (the "
           f"profiler linked {linked} of its {launched} hand-written launches to the range); "
           f"per lidar + camera pair {per_pair:.0f} device kernels, frame.propagate host "
-          f"{prop_host:.3f} ms and {n_p / n_cam:.1f} device kernels")
+          f"{prop_host:.3f} ms and {n_p / n_cam:.1f} device kernels; under vio.select_* "
+          f"{n_sel / n_cam:.1f} device kernels and {sel_host:.3f} ms host per camera frame, "
+          f"under vio.observations {n_obs / n_cam:.1f} and {obs_host:.3f} ms, host reads "
+          f"there {reads}")
     for e in stages:
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"{e.count / n_cam:.1f} calls/camera frame")
     return {"photometric_kernels": photo, "photometric_host_ms": photo_host,
             "photometric_device_ms": photo_dev, "kernels_per_pair": per_pair,
-            "propagate_kernels_per_pair": n_p / n_cam, "propagate_host_ms": prop_host}
+            "propagate_kernels_per_pair": n_p / n_cam, "propagate_host_ms": prop_host,
+            "select_kernels": n_sel / n_cam, "select_host_ms": sel_host,
+            "observations_kernels": n_obs / n_cam, "observations_host_ms": obs_host,
+            "observations_host_reads": reads, "camera_frames": n_cam,
+            "device_busy_share": busy / (1e3 * wall),
+            "stages": {e.key: {"host_ms": e.cpu_time_total / 1e3 / n_cam,
+                               "device_ms": e.device_time_total / 1e3 / n_cam}
+                       for e in stages}}
 
 
 def cpu_agreement(dev):
@@ -1835,6 +2131,7 @@ def livo_block_phase(dev, ds, ref, ref_ms):
     cascades = []
     with recorded_cascades(cascades):
         outs, launches, wall = counted_run(lambda: LivoBlockReplayer(pipe, 8).run())
+    need_vio("livo block", launches, pipe.vio.steps)
     d, ate = max_diff(outs, ref), ate_of(outs, ds)
     ms = wall / len(outs)
     print(f"livo LivoBlockReplayer(8): {len(outs)} lidar frames, {pipe.vio.steps} camera "
@@ -2519,6 +2816,7 @@ def livo_debug_phase(dev, ds, ref, ref_ms, ref_launches):
           f"painted; PCD {mb:.1f} MB written in {t1 - t0:.2f} s, read back: max position "
           f"error {pcd_pos_err:.3g} m, colours equal {pcd_same_rgb}; {nvidia_smi_line()}")
     need_launches("(g)", launches, ["lio_cascade", "photometric_cascade", "imu_propagate"])
+    need_vio("(g)", launches, vio.steps)
     if not (d < 1e-9 and launches == ref_launches
             and launches["photometric_cascade"] == vio.steps == len(cascades)):
         raise AssertionError(f"(g): {d:.3g} m from per-frame, launches {launches}")
@@ -2619,6 +2917,7 @@ def staged_phase(dev, ds, frames=10, t0=2.0, points=24000):
           f"{launches}; ms per camera frame: staged median {np.median(staged_ms):.2f}, fused "
           f"median {np.median(fused_ms):.2f}; {nvidia_smi_line()}")
     need_launches("(h)", launches, ["photometric_cascade"])
+    need_vio("(h) staged", launches, frames)
     if (launches["photometric_cascade"] != 3 * frames or launches["photometric_err_H"]
             or launches["photometric_step"] or launches["patches_and_grads"]):
         raise AssertionError(f"(h) staged launches {launches}")
@@ -2999,6 +3298,7 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
           f"{vmap_mb(pipe.vio):.1f} MB")
     if (len(prefix) < frames or d != 0.0 or n_cam < 10
             or not want["photometric_cascade"] == n_cam == len(cascades)
+            or not want["vio_select"] == want["vio_observations"] == n_cam
             or want["imu_propagate"] == 0 or iters < 3 * n_cam):
         raise AssertionError(f"livo prefix: {len(prefix)} frames, {d} m, {n_cam} camera "
                              f"steps, launches {want}, {iters} iterations")
@@ -3038,7 +3338,8 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
             lio_its = sum(o.iters for o in outs)
             if (d != 0.0 or launches["photometric_err_H"] != iters
                     or launches["photometric_step"] != iters + lio_its
-                    or launches["photometric_cascade"]
+                    or launches["photometric_cascade"] or launches["vio_select"]
+                    or launches["vio_observations"]
                     or launches["imu_propagate"] != want["imu_propagate"]
                     or int(v.vmap.n_pts) != n_pts):
                 raise AssertionError(f"{name}: {d} m, launches {launches} vs {want}, "
@@ -3148,7 +3449,8 @@ def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
           f"{launches}; {smi}")
     need_launches("run --mesh 1 LIVO", launches,
                   ["knn5_plane_tiled", "photometric_err_H", "photometric_step", "imu_propagate"])
-    if (rc != 0 or not ate < 0.06 or launches["photometric_cascade"] or n_map != n_pcd or n_pcd == 0
+    if (rc != 0 or not ate < 0.06 or launches["photometric_cascade"] or launches["vio_select"]
+            or launches["vio_observations"] or n_map != n_pcd or n_pcd == 0
             or v.imgs.shape[0] != Config().capacity.frame_ring or n_vis == 0 or slots == 0):
         raise AssertionError(f"run --mesh 1 LIVO: rc {rc}, ATE {ate}, map points "
                              f"{n_map} / {n_pcd}, {n_vis} visual-map points")
@@ -3251,13 +3553,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("livo per-frame"):
         (livo_launches, cascades, cam_fused, lid_fused, livo_outs, livo_ds,
-         livo_ms, casc_nums, livo_lio_nums) = livo_path_phase(dev)
+         livo_ms, casc_nums, livo_lio_nums, vio_nums, vio_rec) = livo_path_phase(dev)
         last_call = cascades[-1][0]
         del cascades
+        vio_res = vio_kernels_phase(vio_rec)
+        del vio_rec
+        torch.cuda.empty_cache()
     with phase("livo block replay"):
         livo_paths, livo_ckpt, block_casc = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
     paths["livo per-frame"] = (livo_ms, livo_launches)
-    path_extra["livo per-frame"] = {"cascades": casc_nums, "lio_cascades": livo_lio_nums}
+    path_extra["livo per-frame"] = {"cascades": casc_nums, "lio_cascades": livo_lio_nums,
+                                    "camera_frames": vio_nums}
     paths.update(livo_paths)
     path_extra["livo LivoBlockReplayer(8)"] = {"cascades": block_casc}
     with phase("plain IMU loop paths"):
@@ -3332,7 +3638,9 @@ def main() -> int:
             and vf["photometric_kernels"] < vu["photometric_kernels"]
             and vf["kernels_per_pair"] < vu["kernels_per_pair"]
             and lf["propagate_kernels"] < lu["propagate_kernels"]
-            and vf["propagate_kernels_per_pair"] < vu["propagate_kernels_per_pair"]):
+            and vf["propagate_kernels_per_pair"] < vu["propagate_kernels_per_pair"]
+            and vf["select_kernels"] < vu["select_kernels"]
+            and vf["observations_kernels"] < vu["observations_kernels"]):
         raise AssertionError("the fused kernels did not cut the kernel counts")
     ck_keys = ("copy_ms", "write_ms", "disk_mb", "array_mb")
     print(json.dumps({"paths": {
@@ -3408,7 +3716,22 @@ def main() -> int:
         "library_ms": None,
         "launches_per_path": {k: v[-1]["photometric_step"] for k, v in paths.items()
                               if v[-1].get("photometric_step")},
-    }, {
+    }, *[{
+        "name": name, "route": "cuda",
+        "source": f"fastlivo_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": livo_launches[name], "path": "livo per-frame",
+        "max_abs_err": vio_nums["max_abs_err"],
+        **{k: vio_res[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{k: v for k, v in vio_res[name].items() if k in ("bytes", "ops", "grid")},
+        "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
+    } for name, replaces in (
+        ("vio_select", "fastlivo_tpu/vio.py:130-484 (select_tracked and select_new_points, "
+                       "jitted XLA; no Pallas kernel)"),
+        ("vio_observations", "fastlivo_tpu/vio.py:972 and fastlivo_tpu/visual_map.py:243, "
+                             ":494 (prep_observations, add_points, add_observations, jitted "
+                             "XLA; no Pallas kernel)"))], {
         "name": "knn5_plane_hashed", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane_hashed.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",

@@ -70,7 +70,8 @@ def cam2world(cam: Camera, px: torch.Tensor) -> torch.Tensor:
                       (px[..., 1] - cam.cy) / cam.fy], dim=-1)
     xn = undistort(cam, xd)
     f = torch.cat([xn, torch.ones_like(xn[..., :1])], dim=-1)
-    return f / torch.linalg.norm(f, dim=-1, keepdim=True)
+    # the norm as sqrt((x² + y²) + 1²), the camera-frame kernels' order
+    return f / torch.sqrt((xn[..., 0:1] * xn[..., 0:1] + xn[..., 1:2] * xn[..., 1:2]) + 1.0)
 
 
 def is_in_frame(cam: Camera, px: torch.Tensor, border: int = 0) -> torch.Tensor:

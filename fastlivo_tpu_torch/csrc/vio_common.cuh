@@ -1,0 +1,180 @@
+// Device code shared by csrc/vio_select.cu and csrc/vio_observations.cu
+// (the camera frame's selection and its visual-map upkeep), so that the
+// two cannot drift apart: the pinhole camera with radial-tangential
+// distortion (camera.py's world2cam, cam2world), the 3x3 products and
+// norms in the order of ops/linalg.py (norm3, matvec3, mat3) and
+// ops/photometric.py::_rows_times, the Shi-Tomasi score of
+// ops/image.py::shi_tomasi (its 8x8 box sums in `halving_sum`'s order, by
+// one warp) and the warp's halving sum over a patch. Each expression
+// follows its plain version's order of operations (built with
+// -fmad=false, every product rounds alone). Include after hash_mix.cuh
+// (the voxel hash).
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+namespace vio {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int32_t EMPTY = -2147483647 - 1;  // a free voxel-hash slot (visual_map.EMPTY)
+
+struct Cam {
+  float fx, fy, cx, cy, k1, k2, p1, p2;
+};
+
+// camera.py's Camera from its 0-d device tensors fx, fy, cx, cy and d (4,)
+__device__ __forceinline__ Cam load_cam(const float* fx, const float* fy, const float* cx,
+                                        const float* cy, const float* d) {
+  return Cam{__ldg(fx), __ldg(fy), __ldg(cx), __ldg(cy),
+             __ldg(d),  __ldg(d + 1), __ldg(d + 2), __ldg(d + 3)};
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+
+// int32 a + b wrapping as torch's int32 tensors do
+__device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+
+// torch.clamp(x, min=lo): NaN stays NaN
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+// y = p @ Rᵀ + t for one row p (3,) and R (3, 3) row-major:
+// y_i = ((p0 R_i0 + p1 R_i1) + p2 R_i2) + t_i (_rows_times(p, R) + t)
+__device__ __forceinline__ void rows_times_add(const float* p, const float* R, const float* t,
+                                               float* y) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    y[i] = ((p[0] * R[3 * i] + p[1] * R[3 * i + 1]) + p[2] * R[3 * i + 2]) + t[i];
+}
+
+// the camera centre -(pcw @ rcw): c_j = -((p0 R_0j + p1 R_1j) + p2 R_2j)
+__device__ __forceinline__ void campos_of(const float* R, const float* p, float* c) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) c[j] = -((p[0] * R[j] + p[1] * R[3 + j]) + p[2] * R[6 + j]);
+}
+
+__device__ __forceinline__ float norm3(float x, float y, float z) {
+  return sqrtf((x * x + y * y) + z * z);
+}
+
+// camera.distort on normalized coordinates
+__device__ __forceinline__ void distort(const Cam& c, float x, float y, float& xd, float& yd) {
+  const float r2 = x * x + y * y;
+  const float radial = (1.0f + c.k1 * r2) + (c.k2 * r2) * r2;
+  xd = (x * radial + ((2.0f * c.p1) * x) * y) + c.p2 * (r2 + (2.0f * x) * x);
+  yd = (y * radial + c.p1 * (r2 + (2.0f * y) * y)) + ((2.0f * c.p2) * x) * y;
+}
+
+// camera.world2cam: camera-frame point -> distorted pixel (no z check)
+__device__ __forceinline__ void world2cam(const Cam& c, const float* p, float& u, float& v) {
+  const float xn = p[0] / p[2];
+  const float yn = p[1] / p[2];
+  float xd, yd;
+  distort(c, xn, yn, xd, yd);
+  u = c.fx * xd + c.cx;
+  v = c.fy * yd + c.cy;
+}
+
+// camera.cam2world: pixel -> unit bearing (the 8-step undistortion)
+__device__ __forceinline__ void cam2world(const Cam& c, float pu, float pv, float* f) {
+  const float xd = (pu - c.cx) / c.fx;
+  const float yd = (pv - c.cy) / c.fy;
+  float xn = xd, yn = yd;
+  for (int k = 0; k < 8; ++k) {
+    float dx, dy;
+    distort(c, xn, yn, dx, dy);
+    const float nx = xd - (dx - xn);
+    const float ny = yd - (dy - yn);
+    xn = nx;
+    yn = ny;
+  }
+  const float nrm = sqrtf((xn * xn + yn * yn) + 1.0f);
+  f[0] = xn / nrm;
+  f[1] = yn / nrm;
+  f[2] = 1.0f / nrm;
+}
+
+// camera.is_in_frame with the truncation to int
+__device__ __forceinline__ bool in_frame(float u, float v, int W, int H, int border) {
+  const int ui = (int)u, vi = (int)v;
+  return ui >= border && ui < W - border && vi >= border && vi < H - border;
+}
+
+// vio._cells: int(u * (1/grid)) * gh + int(v * (1/grid)), clamped to the
+// grid (the products in int32, wrapping)
+__device__ __forceinline__ int cell_of(float u, float v, float inv_grid, int gh, int G) {
+  const int32_t cu = (int32_t)(u * inv_grid), cv = (int32_t)(v * inv_grid);
+  return clampi((int32_t)((uint32_t)cu * (uint32_t)gh + (uint32_t)cv), 0, G - 1);
+}
+
+// image.halving_sum over 64 values held two a lane (x[lane], x[lane + 32]),
+// summed in the tree's order; every lane gets the sum
+__device__ __forceinline__ float warp_tree64(float lo, float hi) {
+  float s = lo + hi;
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) s = s + __shfl_down_sync(FULL, s, off);
+  return __shfl_sync(FULL, s, 0);
+}
+
+// image.shi_tomasi at floor(pu, pv), by all 32 lanes of a warp: lane l
+// takes the window's taps l and l + 32 (row-major over the 8x8 window
+// rooted at (v - 4, u - 4), every index clamped); every lane gets the score
+__device__ __forceinline__ float shi_tomasi_warp(const float* __restrict__ img, int H, int W,
+                                                 float pu, float pv, int lane) {
+  const int u = clampi((int)floorf(pu), 0, W - 1);
+  const int v = clampi((int)floorf(pv), 0, H - 1);
+  float gx[2], gy[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = lane + 32 * h;
+    const int r = clampi(v - 4 + (t >> 3), 0, H - 1);
+    const int c = clampi(u - 4 + (t & 7), 0, W - 1);
+    const float* row = img + (size_t)r * W;
+    gx[h] = 0.5f * (__ldg(row + min(c + 1, W - 1)) - __ldg(row + max(c - 1, 0)));
+    gy[h] = 0.5f * (__ldg(img + (size_t)min(r + 1, H - 1) * W + c) -
+                    __ldg(img + (size_t)max(r - 1, 0) * W + c));
+  }
+  // / 32 (the half box area) is exact as * (1/32)
+  const float xx = warp_tree64(gx[0] * gx[0], gx[1] * gx[1]) * 0.03125f;
+  const float yy = warp_tree64(gy[0] * gy[0], gy[1] * gy[1]) * 0.03125f;
+  const float xy = warp_tree64(gx[0] * gy[0], gx[1] * gy[1]) * 0.03125f;
+  const float tr = xx + yy;
+  const float det = xx * yy - xy * xy;
+  const float disc = sqrtf(clamp_min(tr * tr - 4.0f * det, 0.0f));
+  return 0.5f * (tr - disc);
+}
+
+// torch.argmax's order over (value, index): NaN above everything, then
+// the larger value, then the lower index
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return na && nb ? ia < ib : na;
+  return a > b || (a == b && ia < ib);
+}
+
+// the warp's argmax over one (value, index) a lane; every lane gets it
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, v, off);
+    const int oi = __shfl_xor_sync(FULL, i, off);
+    if (beats(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// voxel_map._slot_check: the probe slot and the 31-bit verification hash
+__device__ __forceinline__ void slot_check(int32_t x, int32_t y, int32_t z, int tmask,
+                                           int& slot, int32_t& check) {
+  const uint32_t h = mix3(x, y, z);
+  slot = (int32_t)(h >> 13) & tmask;
+  check = (int32_t)(h & 0x7FFFFFFFu);
+}
+
+}  // namespace vio

@@ -10,7 +10,8 @@ Port of the JAX package's ops/image.py (the reference's per-pixel loops):
     the plain version of the CUDA kernel (ops/patches_grads.py); it
     evaluates every product and sum in the order the kernel does.
   - `shi_tomasi` = vk::shiTomasiScore: the smaller eigenvalue of the
-    8x8-box structure tensor at integer pixel positions.
+    8x8-box structure tensor at integer pixel positions, its box sums in
+    the order of the camera-frame kernels (`halving_sum`).
   - `affine_warp_patches` = LidarSelector::warpAffine.
 
 Every function is batched over the leading point axis and gathers with
@@ -19,7 +20,6 @@ clamped indices (callers gate with in-frame borders first).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def _gather(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -121,32 +121,49 @@ def patches_and_grads(img: torch.Tensor, pc: torch.Tensor, patch_size: int,
     return val, du, dv
 
 
+def halving_sum(x: torch.Tensor, width: int = 64) -> torch.Tensor:
+    """Sum over the last axis in the camera-frame kernels' order: the
+    axis padded with zeros to `width` (a power of two, at least its
+    length), then halved until one is left (element i plus element
+    i + width/2, then i + width/4, ...): a warp's shuffle tree over two
+    elements a lane."""
+    n = x.shape[-1]
+    if n > width or width & (width - 1):
+        raise ValueError(f"halving_sum: {n} elements in a width of {width}")
+    if n < width:
+        x = torch.cat([x, x.new_zeros((*x.shape[:-1], width - n))], dim=-1)
+    s = width // 2
+    while s:
+        x = x[..., :s] + x[..., s:2 * s]
+        s //= 2
+    return x[..., 0]
+
+
 def shi_tomasi(img: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     """vk::shiTomasiScore at integer positions floor(pc): (K, 2) -> (K,).
 
-    Dense centred-difference gradient products, one 8x8 box sum over the
-    image (window rooted at (v-4, u-4), edge-padded like the JAX
-    package's reduce_window), then three gathers per point. The box sum
-    adds in another order than XLA's reduce_window: a few ulp."""
+    Per point the 8x8 window rooted at (v-4, u-4) of centred-difference
+    gradients (every index clamped to the image: the JAX package's
+    edge-padded gradient maps and reduce_window), its three products
+    summed by `halving_sum` over the window's 64 taps in row-major order
+    (the kernels' order; the JAX package's reduce_window adds in its own:
+    a few ulp), over the half box area; then the smaller eigenvalue."""
     half = 4
     box = 2 * half
     area = box * box / 2.0
     H, W = img.shape
-    ip = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    gx = 0.5 * (ip[1:-1, 2:] - ip[1:-1, :-2])
-    gy = 0.5 * (ip[2:, 1:-1] - ip[:-2, 1:-1])
-
-    def box8(x):
-        xp = F.pad(x[None, None], (half, half - 1, half, half - 1),
-                   mode="replicate")
-        return F.avg_pool2d(xp, box, stride=1, divisor_override=1)[0, 0]
-
-    dXX = box8(gx * gx) / area
-    dYY = box8(gy * gy) / area
-    dXY = box8(gx * gy) / area
-    u = torch.clamp(torch.floor(pc[..., 0]).to(torch.int32), 0, W - 1).long()
-    v = torch.clamp(torch.floor(pc[..., 1]).to(torch.int32), 0, H - 1).long()
-    xx, yy, xy = dXX[v, u], dYY[v, u], dXY[v, u]
+    u = torch.clamp(torch.floor(pc[..., 0]).to(torch.int32), 0, W - 1)
+    v = torch.clamp(torch.floor(pc[..., 1]).to(torch.int32), 0, H - 1)
+    off = torch.arange(box, dtype=torch.int32, device=img.device) - half
+    r = torch.clamp(v[:, None] + off, 0, H - 1)[:, :, None].expand(-1, box, box)
+    c = torch.clamp(u[:, None] + off, 0, W - 1)[:, None, :].expand(-1, box, box)
+    gx = 0.5 * (_gather(img, r, c + 1) - _gather(img, r, c - 1))
+    gy = 0.5 * (_gather(img, r + 1, c) - _gather(img, r - 1, c))
+    K = pc.shape[0]
+    flat = lambda t: t.reshape(K, box * box)  # noqa: E731
+    xx = halving_sum(flat(gx * gx)) / area
+    yy = halving_sum(flat(gy * gy)) / area
+    xy = halving_sum(flat(gx * gy)) / area
     tr = xx + yy
     det = xx * yy - xy * xy
     disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))

@@ -52,3 +52,29 @@ def gj_solve6(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         A = A - fac[:, None] * A[k][None, :]
     X = A[:, n:]
     return X[:, 0] if vec else X
+
+
+# 3-vectors and 3x3 products as the camera-frame kernels evaluate them
+# (csrc/vio_common.cuh): each sum left to right, one rounding per product.
+# A matmul's order and multiply-adds are the BLAS's own, and
+# torch.linalg.norm's reduction order is its own on each device.
+
+def norm3(x: torch.Tensor) -> torch.Tensor:
+    """|x| over the last axis of (..., 3): sqrt((x0² + x1²) + x2²)."""
+    return torch.sqrt((x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2])
+
+
+def norm2(x: torch.Tensor) -> torch.Tensor:
+    """|x| over the last axis of (..., 2)."""
+    return torch.sqrt(x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1])
+
+
+def matvec3(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """M @ x for (..., 3, 3) and (..., 3), broadcast over the batch."""
+    return (M[..., 0] * x[..., 0:1] + M[..., 1] * x[..., 1:2]) + M[..., 2] * x[..., 2:3]
+
+
+def mat3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for (..., 3, 3) matrices, broadcast over the batch."""
+    return ((A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :])
+            + A[..., :, 2:3] * B[..., 2:3, :])

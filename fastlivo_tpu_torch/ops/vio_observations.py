@@ -1,0 +1,104 @@
+"""The camera frame's visual-map upkeep in one launch, in place.
+
+`vio_observations` is the port of the jitted XLA code of the JAX
+package's `fastlivo_tpu/vio.py::prep_observations` and
+`fastlivo_tpu/visual_map.py::add_observations` and `add_points` (with its
+voxel-index insert); not a Pallas kernel. On CUDA tensors it launches the
+hand-written one-block kernel in csrc/vio_observations.cu (built at first
+use, see _build.py): the observation gates at the posterior pose, the
+ring appends and evictions, the new points and their creation
+observation, the voxel hash's claims and appends, written into the map's
+tensors in place, with no host read (the map's point count stays on the
+device). On CPU tensors it runs the plain version, `vio.prep_observations`
+followed by `visual_map.add_observations` and `visual_map.add_points`
+(each reads its count of kept rows back to the host), which is also the
+kernel's oracle on the card.
+
+Contract on the card: every field of the map after the call, and the
+returned pixels and scores, bit-equal to the plain version's.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .photometric import _require
+from .vio_select import MAX_PROBE, check_cam, check_map
+
+I32, F32 = torch.int32, torch.float32
+MAX_ROWS = 2048  # the rows' shared-memory arrays of the one block
+
+
+def vio_observations_plain(vm, cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel, rcw, pcw,
+                           npos, npx, nscore, nadd, fid):
+    """prep_observations at the posterior pose (rcw2, pcw2), then
+    add_observations of the tracked rows it keeps and add_points of the
+    new points with the prior pose's observation (rcw, pcw). Returns (the
+    map, opc (B, 2), oscore (B,))."""
+    from .. import vio
+    from .. import visual_map as vmap_mod
+
+    opc, oscore, oadd = vio.prep_observations(vm, cam, rcw2, pcw2, img, t_idx, t_valid)
+    vm = vmap_mod.add_observations(vm, t_idx, opc, rcw2, pcw2, oscore, fid, t_slevel, oadd)
+    vm = vmap_mod.add_points(vm, npos, npx, rcw, pcw, nscore, fid, nadd, MAX_PROBE)
+    return vm, opc, oscore
+
+
+@functools.cache
+def _launcher():
+    from . import _build
+
+    fn = _build.load("vio_observations").vio_observations_launch
+    fn.argtypes = [ctypes.c_void_p] * 35 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return _build.profiled("vio_observations", fn)
+
+
+def vio_observations(vm, cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx,
+                     nscore, nadd, fid):
+    """`vio_observations_plain`'s signature and outputs. A CUDA frame
+    launches the kernel on the current stream (counted in
+    `vio_observations.launches`), which writes the map's tensors in place
+    and returns the map with a new n_pts tensor; a CPU frame runs the
+    plain version. No other device is taken and nothing falls back."""
+    if img.device.type == "cpu":
+        return vio_observations_plain(vm, cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel,
+                                      rcw, pcw, npos, npx, nscore, nadd, fid)
+    if img.device.type != "cuda":
+        raise ValueError(f"vio_observations: unsupported device {img.device}")
+    dev = img.device
+    NP, KO, T, VC, R = check_map("vio_observations", vm, dev)
+    check_cam("vio_observations", cam, dev)
+    B = t_idx.shape[0]
+    if img.ndim != 2 or not 1 <= B <= MAX_ROWS:
+        raise ValueError(f"vio_observations: frame {tuple(img.shape)}, {B} rows (1.."
+                         f"{MAX_ROWS})")
+    H, W = img.shape
+    fid = torch.as_tensor(fid, dtype=I32, device=dev)
+    for name, t, shape, dtype in (
+            ("img", img, (H, W), F32), ("rcw2", rcw2, (3, 3), F32), ("pcw2", pcw2, (3,), F32),
+            ("rcw", rcw, (3, 3), F32), ("pcw", pcw, (3,), F32), ("fid", fid, (), I32),
+            ("t_idx", t_idx, (B,), I32), ("t_valid", t_valid, (B,), torch.bool),
+            ("t_slevel", t_slevel, (B,), I32), ("npos", npos, (B, 3), F32),
+            ("npx", npx, (B, 2), F32), ("nscore", nscore, (B,), F32),
+            ("nadd", nadd, (B,), torch.bool)):
+        _require(f"vio_observations: {name}", t, shape, dtype, dev)
+    opc, oscore = torch.empty((B, 2), dtype=F32, device=dev), torch.empty(B, dtype=F32,
+                                                                          device=dev)
+    n_pts = torch.empty((), dtype=I32, device=dev)
+    ptrs = [t.data_ptr() for t in (
+        vm.pos, vm.value, vm.n_obs, vm.n_pts, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot,
+        vm.obs_fid, vm.obs_level, vm.vox_keys, vm.vox_count, vm.vox_idx, vm.img_fid, cam.fx,
+        cam.fy, cam.cx, cam.cy, cam.d, img, rcw2, pcw2, rcw, pcw, fid, t_idx, t_valid,
+        t_slevel, npos, npx, nscore, nadd, opc, oscore, n_pts)]
+    err = _launcher()(*ptrs, NP, KO, T, VC, R, H, W, B, MAX_PROBE,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vio_observations: kernel launch failed (cudaError {err})")
+    vio_observations.launches += 1
+    return vm._replace(n_pts=n_pts), opc, oscore
+
+
+vio_observations.launches = 0

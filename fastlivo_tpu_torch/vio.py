@@ -19,6 +19,11 @@ src/lidar_selection.cpp). Per camera frame (`detect`, :1027-1075):
      host loop of one measurement kernel and one step per iteration.
   4. `prep_observations` + visual_map.add_observations = addObservation
      (:913-965) at the posterior pose.
+On one card stages 1-2 are one launch, ops/vio_select.vio_select, and
+stage 4 with the new points' insertion one more, ops/vio_observations.
+vio_observations (`frame_kernels_apply`); the torch functions here and
+in visual_map.py are their plain versions, which the CPU and a mesh run,
+with every product, norm and box sum written in the kernels' order.
 
 `vio_frame_step` runs the whole frame; `Vio` holds the map and feeds it.
 
@@ -54,6 +59,7 @@ slabs (visual_map.py). `Vio(mesh_runner=)` runs the frame that way.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -65,8 +71,11 @@ from . import visual_map as vmap_mod
 from .config import Config
 from .device import resolve_device
 from .ops import image as img_ops
+from .ops.linalg import mat3, matvec3, norm2, norm3
 from .ops.photometric import (_recip32, _rows_times, photometric_cascade, photometric_err_H,
                               photometric_step)
+from .ops.vio_observations import vio_observations
+from .ops.vio_select import vio_select
 from .ops.voxel_filter import voxel_downsample_device
 from .readback import DeferredRead
 from .state import DIM_STATE, NavState
@@ -93,8 +102,14 @@ class TrackedSet(NamedTuple):
 def _const(v, like: torch.Tensor, dtype=None) -> torch.Tensor:
     """A 0-d tensor on `like`'s device, so that an operation with it runs
     in one form on both devices (CUDA multiplies by the reciprocal of a
-    CPU-scalar divisor instead of dividing)."""
-    return torch.tensor(v, dtype=dtype or like.dtype, device=like.device)
+    CPU-scalar divisor instead of dividing). Made once per value, type
+    and device: a copy from the host to the card waits for it."""
+    return _device_const(float(v), dtype or like.dtype, like.device)
+
+
+@functools.cache
+def _device_const(v: float, dtype, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=dtype, device=device)
 
 
 def _pack_min(value_bits: torch.Tensor, row: torch.Tensor,
@@ -161,6 +176,16 @@ def _winner_rows(cell_min: torch.Tensor) -> torch.Tensor:
     return (cell_min & 0xFFFFF).to(I32)
 
 
+def _campos(rcw: torch.Tensor, pcw: torch.Tensor) -> torch.Tensor:
+    """The camera centre -pcw @ rcw, its sum left to right."""
+    return -((pcw[0] * rcw[0] + pcw[1] * rcw[1]) + pcw[2] * rcw[2])
+
+
+def _patch_sum(x: torch.Tensor) -> torch.Tensor:
+    """(K, n <= 64) -> (K,): a patch's sum in the kernel's order."""
+    return img_ops.halving_sum(x, max(64, 1 << (x.shape[-1] - 1).bit_length()))
+
+
 def select_tracked(
     vm: vmap_mod.VisualMap,
     cam: cam_mod.Camera,
@@ -205,10 +230,10 @@ def select_tracked(
     P = patch_size
     half = P // 2
     border = (half + 1) * 8  # isInFrame margin (:399, :446)
-    campos = -pcw @ rcw
+    campos = _campos(rcw, pcw)
 
     # --- phase 1: sparse depth image (:378-411, plain pinhole) ----------
-    pt_c = pg @ rcw.T + pcw
+    pt_c = _rows_times(pg, rcw) + pcw
     z = pt_c[:, 2]
     u = cam.fx * pt_c[:, 0] / z + cam.cx
     v = cam.fy * pt_c[:, 1] / z + cam.cy
@@ -240,13 +265,15 @@ def select_tracked(
     pc = cam_mod.world2cam(cam, c_cam)
     ok = cmask_l & front & cam_mod.is_in_frame(cam, pc, border)
     cell = _cells(pc, grid_size, gh, G)
-    dist = torch.linalg.norm(campos[None, :] - cpos, dim=-1)
+    dist = norm3(campos[None, :] - cpos)
     key = _pack_min(_f32_bits(dist), rows_l, cap=NCp)
     key = torch.where(ok, key, INT64_MAX)
     cell_min = _scatter_min(G, cell, ok, key)
-    # best map-point value per cell (map_value, :460-463)
+    # best map-point value per cell (map_value, :460-463), from 0: a
+    # value that is not above 0 (-0.0 too) leaves the cell's 0, which is
+    # the kernel's int32 max over the f32 bits
     cell_value = torch.zeros(G + 1, dtype=img.dtype, device=dev).scatter_reduce_(
-        0, torch.where(ok, cell, G).long(), torch.where(ok, cvalue, 0.0),
+        0, torch.where(ok, cell, G).long(), torch.where(ok & (cvalue > 0), cvalue, 0.0),
         "amax")[:G]
     if mesh is not None:
         cell_min = mesh.all_reduce(cell_min, "min")
@@ -285,7 +312,7 @@ def select_tracked(
     # --- phase 4: reference observation + warp (:518-555) ----------------
     ref = vmap_mod.close_view_obs(vm, widx, campos, mesh if pool_sharded else None)
     t_ok = has_map & depth_ok & ref["ok"]
-    depth_ref = torch.linalg.norm(ref["campos"] - wpos, dim=-1)
+    depth_ref = norm3(ref["campos"] - wpos)
     # bearing from the stored pixel (Feature::f = cam2world(px))
     f_ref = cam_mod.cam2world(cam, ref["px"])
     xyz_ref = f_ref * depth_ref[:, None]
@@ -297,16 +324,17 @@ def select_tracked(
     xyz_du = f_du * (xyz_ref[:, 2] / f_du[:, 2])[:, None]
     xyz_dv = f_dv * (xyz_ref[:, 2] / f_dv[:, 2])[:, None]
     # T_cur_ref
-    R_cr = torch.einsum("ij,kmj->kim", rcw, ref["rcw"])  # rcw @ ref_rcw^T
-    t_cr = pcw[None, :] - torch.einsum("kim,km->ki", R_cr, ref["pcw"])
+    R_cr = mat3(rcw, ref["rcw"].transpose(-1, -2))  # rcw @ ref_rcw^T
+    t_cr = pcw[None, :] - matvec3(R_cr, ref["pcw"])
 
     def proj(x):
-        return cam_mod.world2cam(cam, torch.einsum("kim,km->ki", R_cr, x) + t_cr)
+        return cam_mod.world2cam(cam, matvec3(R_cr, x) + t_cr)
 
     px_cur = proj(xyz_ref)
     px_du = proj(xyz_du)
     px_dv = proj(xyz_dv)
-    A = torch.stack([(px_du - px_cur) / half, (px_dv - px_cur) / half],
+    inv_half = _recip32(half)  # the JAX package's / half under jit
+    A = torch.stack([(px_du - px_cur) * inv_half, (px_dv - px_cur) * inv_half],
                     dim=-1)  # (K, 2, 2) columns
     detA = A[:, 0, 0] * A[:, 1, 1] - A[:, 0, 1] * A[:, 1, 0]
     search_level = (detA > 3.0).to(I32) + (detA > 12.0).to(I32)
@@ -331,17 +359,20 @@ def select_tracked(
         patches = mesh.all_reduce(torch.where(keep, patches, torch.zeros_like(patches)))
 
     # --- phase 5: photometric outlier gate (:557-570) ---------------------
+    # every sum over a patch in `halving_sum`'s order (the kernel's)
     cur_patch = img_ops.extract_patches(img, wpc, P, 1)
-    err0 = torch.sum((patches[:, 0] - cur_patch) ** 2, dim=(-2, -1))
+    d0 = (patches[:, 0] - cur_patch).reshape(K, P * P)
+    err0 = _patch_sum(d0 * d0)
     thr = torch.as_tensor(outlier_threshold, dtype=img.dtype, device=dev)
     t_ok = t_ok & (err0 <= thr * P * P)
     if ncc_en:
         a = patches[:, 0].reshape(K, -1)
         b = cur_patch.reshape(K, -1)
-        am = a - a.mean(-1, keepdim=True)
-        bm = b - b.mean(-1, keepdim=True)
-        ncc = torch.sum(am * bm, -1) / torch.sqrt(
-            torch.sum(am * am, -1) * torch.sum(bm * bm, -1) + 1e-10)
+        inv_n = _recip32(P * P)
+        am = a - (_patch_sum(a) * inv_n)[:, None]
+        bm = b - (_patch_sum(b) * inv_n)[:, None]
+        ncc = _patch_sum(am * bm) / torch.sqrt(
+            _patch_sum(am * am) * _patch_sum(bm * bm) + 1e-10)
         t_ok = t_ok & (ncc >= torch.as_tensor(ncc_thre, dtype=img.dtype, device=dev))
     if pool_sharded:
         widx, wpos, patches, search_level, t_ok, err0 = (
@@ -565,8 +596,9 @@ def _dedup_voxels(pg: torch.Tensor, pg_mask: torch.Tensor, max_vox: int):
     # unique destinations; the sentinel row max_vox takes the dropped
     vox = torch.zeros((max_vox + 1, 3), dtype=I32, device=dev)
     vox[out_idx] = keys
-    vmask = torch.zeros(max_vox + 1, dtype=torch.bool, device=dev)
-    vmask[out_idx] = True
+    # index_fill_ takes the value as a kernel argument: assigning True
+    # copies it to the card first, which the host waits for
+    vmask = torch.zeros(max_vox + 1, dtype=torch.bool, device=dev).index_fill_(0, out_idx, True)
     return vox[:max_vox], vmask[:max_vox]
 
 
@@ -580,7 +612,7 @@ def prep_observations(vm: vmap_mod.VisualMap, cam: cam_mod.Camera,
     (visual_map's slab layout), their fields gathered from the owners."""
     NP = vm.pos.shape[0]
     safe = torch.clamp(idx, 0, NP - 1)
-    pf = vm.pos[safe.long()] @ rcw.T + pcw
+    pf = _rows_times(vm.pos[safe.long()], rcw) + pcw
     pc = cam_mod.world2cam(cam, pf)
     o_px, o_rcw, o_pcw, _, o_fid, _ = vmap_mod._gather_obs(vm, safe, mesh)
     last = torch.argmax(o_fid, dim=-1)  # most recent observation
@@ -593,16 +625,33 @@ def prep_observations(vm: vmap_mod.VisualMap, cam: cam_mod.Camera,
     ref_rcw, ref_pcw, ref_px = take(o_rcw), take(o_pcw), take(o_px)
     # the JAX package's einsum("kij,mj->kim", ref_rcw, rcw.T), which is
     # ref_rcw @ rcw (its comment says ref_rcw @ rcw^T)
-    Rd = torch.einsum("kij,mj->kim", ref_rcw, rcw.T)
-    td = ref_pcw - torch.einsum("kim,m->ki", Rd, pcw)
-    delta_p = torch.linalg.norm(td, dim=-1)
+    Rd = mat3(ref_rcw, rcw)
+    td = ref_pcw - matvec3(Rd, pcw)
+    delta_p = norm3(td)
     tr = Rd[:, 0, 0] + Rd[:, 1, 1] + Rd[:, 2, 2]
     delta_theta = torch.where(
         tr > 3.0 - 1e-6, torch.zeros_like(tr),
         torch.arccos(torch.clamp(0.5 * (tr - 1.0), -1.0, 1.0)))
-    pix_dist = torch.linalg.norm(pc - ref_px, dim=-1)
+    pix_dist = norm2(pc - ref_px)
     add = valid & ((delta_p > 0.5) | (delta_theta > 10.0) | (pix_dist > 40.0))
     return pc, img_ops.shi_tomasi(img, pc), add
+
+
+def frame_kernels_apply(device, mesh=None) -> bool:
+    """Whether the camera frame's selection and visual-map upkeep run as
+    one vio_select and one vio_observations launch: on one CUDA device,
+    with no mesh (so without the mesh's slab layout, `pool_sharded`).
+    Everywhere else they run the torch code, select_tracked +
+    select_new_points and prep_observations + add_observations +
+    add_points, which are the kernels' plain versions."""
+    return mesh is None and torch.device(device).type == "cuda"
+
+
+def _cam_pose(Rci: torch.Tensor, Pci: torch.Tensor, st: NavState):
+    """World -> camera of a state: rcw = Rci @ rot32ᵀ, pcw = -(rcw @
+    pos32) + Pci, each sum left to right (photometric_err_H_plain's)."""
+    rcw = _rows_times(Rci, st.rot.to(Rci.dtype))
+    return rcw, -_rows_times(st.pos.to(Rci.dtype), rcw) + Pci
 
 
 def vio_frame_step(
@@ -639,7 +688,11 @@ def vio_frame_step(
     new-point insertion. Each stage is a named `record_function` range
     ("vio.*"). With zero tracked points the photometric stages are exact
     no-ops (HᵀH = Hᵀz = 0, the step pulls the state to the prior, which
-    it equals at entry, and G = 0 leaves the covariance).
+    it equals at entry, and G = 0 leaves the covariance). Where
+    `frame_kernels_apply` (one CUDA device, no mesh), both selections are
+    one vio_select launch (under "vio.select_tracked") and the map upkeep
+    one vio_observations launch, so that nothing is read back before the
+    stats row.
 
     `mesh` (parallel.sharded.Mesh, every input replicated): the candidate
     and new-point scoring and the photometric EKF split their rows over
@@ -668,18 +721,23 @@ def vio_frame_step(
             inv_leaf=_const(_recip32(VIO_LEAF), cloud))
         vox, vox_mask = _dedup_voxels(pg, pg_mask, max_pg // 2)
 
-    rcw = Rci @ state.rot.to(f32).T
-    pcw = -rcw @ state.pos.to(f32) + Pci
-    with record_function("vio.select_tracked"):
-        tracked = select_tracked(
-            vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask,
-            outlier_threshold, ncc_thre, grid_size=grid_size,
-            patch_size=patch_size, gw=gw, gh=gh, ncc_en=ncc_en, mesh=mesh,
-            pool_sharded=pool_sharded)
-    with record_function("vio.select_new"):
-        npos, npx, nscore, nadd = select_new_points(
-            cam, rcw, pcw, gray, pg, pg_mask, tracked.cell_value,
-            grid_size=grid_size, patch_size=patch_size, gw=gw, gh=gh, mesh=mesh)
+    rcw, pcw = _cam_pose(Rci, Pci, state)
+    fused = frame_kernels_apply(gray.device, mesh)
+    sel = dict(grid_size=grid_size, patch_size=patch_size, gw=gw, gh=gh)
+    if fused:  # both selections in one launch
+        with record_function("vio.select_tracked"):
+            tracked, (npos, npx, nscore, nadd) = vio_select(
+                vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask, outlier_threshold,
+                ncc_thre, ncc_en=ncc_en, **sel)
+    else:
+        with record_function("vio.select_tracked"):
+            tracked = select_tracked(
+                vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask,
+                outlier_threshold, ncc_thre, ncc_en=ncc_en, mesh=mesh,
+                pool_sharded=pool_sharded, **sel)
+        with record_function("vio.select_new"):
+            npos, npx, nscore, nadd = select_new_points(
+                cam, rcw, pcw, gray, pg, pg_mask, tracked.cell_value, mesh=mesh, **sel)
     with record_function("vio.photometric"):
         st, Gmat, perr, err, its = photometric_update_levels(
             state, prior, cam, gray, tracked.pos, tracked.patch,
@@ -698,14 +756,17 @@ def vio_frame_step(
                 [t_idx, t_valid.to(I32), t_slevel, perr.view(I32)], 1))[:gw * gh]
             t_idx, t_valid, t_slevel = cols[:, 0], cols[:, 1].bool(), cols[:, 2]
             perr = cols[:, 3].contiguous().view(f32)
-        rcw2 = Rci @ st.rot.to(f32).T
-        pcw2 = -rcw2 @ st.pos.to(f32) + Pci
-        opc, oscore, oadd = prep_observations(vm, cam, rcw2, pcw2, gray,
-                                              t_idx, t_valid, slab_mesh)
-        vm = vmap_mod.add_observations(vm, t_idx, opc, rcw2, pcw2, oscore,
-                                       fid, t_slevel, oadd, slab_mesh)
-        vm = vmap_mod.add_points(vm, npos, npx, rcw, pcw, nscore, fid, nadd,
-                                 mesh=slab_mesh)
+        rcw2, pcw2 = _cam_pose(Rci, Pci, st)
+        if fused:  # in place, in one launch, with no host read
+            vm, opc, _ = vio_observations(vm, cam, gray, rcw2, pcw2, t_idx, t_valid,
+                                          t_slevel, rcw, pcw, npos, npx, nscore, nadd, fid)
+        else:
+            opc, oscore, oadd = prep_observations(vm, cam, rcw2, pcw2, gray,
+                                                  t_idx, t_valid, slab_mesh)
+            vm = vmap_mod.add_observations(vm, t_idx, opc, rcw2, pcw2, oscore,
+                                           fid, t_slevel, oadd, slab_mesh)
+            vm = vmap_mod.add_points(vm, npos, npx, rcw, pcw, nscore, fid, nadd,
+                                     mesh=slab_mesh)
     n_tracked = t_valid.sum(dtype=I32)
     n_added = nadd.sum(dtype=I32)
     dev = gray.device
@@ -1038,20 +1099,28 @@ class Vio:
 
         stats = {"tracked": 0, "added": 0, "err": 0.0}
         tracked = None
-        if int(self.vmap.n_pts) > 0:
-            tracked = select_tracked(
+        sel = dict(grid_size=self.grid_size, patch_size=self.patch_size, gw=self.gw,
+                   gh=self.gh)
+        # one CUDA device: vio_frame_step's two kernels (an empty map
+        # tracks nothing there, as the skipped selection here)
+        fused = frame_kernels_apply(dev, self.mesh)
+        if fused:
+            tracked, (npos, npx, nscore, nadd) = vio_select(
                 self.vmap, self.cam, rcw_j, pcw_j, gray, pg, pg_mask, vox, vox_mask,
-                cfg.outlier_threshold, cfg.ncc_thre, grid_size=self.grid_size,
-                patch_size=self.patch_size, gw=self.gw, gh=self.gh, ncc_en=cfg.ncc_en)
+                cfg.outlier_threshold, cfg.ncc_thre, ncc_en=cfg.ncc_en, **sel)
             stats["tracked"] = int(tracked.valid.sum())
-            cell_value = tracked.cell_value
         else:
-            cell_value = torch.zeros(self.gw * self.gh, dtype=torch.float32, device=dev)
-
-        # addSparseMap with the prior pose (:1054 runs before ComputeJ)
-        npos, npx, nscore, nadd = select_new_points(
-            self.cam, rcw_j, pcw_j, gray, pg, pg_mask, cell_value,
-            grid_size=self.grid_size, patch_size=self.patch_size, gw=self.gw, gh=self.gh)
+            if int(self.vmap.n_pts) > 0:
+                tracked = select_tracked(
+                    self.vmap, self.cam, rcw_j, pcw_j, gray, pg, pg_mask, vox, vox_mask,
+                    cfg.outlier_threshold, cfg.ncc_thre, ncc_en=cfg.ncc_en, **sel)
+                stats["tracked"] = int(tracked.valid.sum())
+                cell_value = tracked.cell_value
+            else:
+                cell_value = torch.zeros(self.gw * self.gh, dtype=torch.float32, device=dev)
+            # addSparseMap with the prior pose (:1054 runs before ComputeJ)
+            npos, npx, nscore, nadd = select_new_points(
+                self.cam, rcw_j, pcw_j, gray, pg, pg_mask, cell_value, **sel)
 
         if tracked is not None and stats["tracked"] > 0:
             # the iterated photometric EKF, coarse to fine (:967-983)
@@ -1064,21 +1133,26 @@ class Vio:
             stats["err"] = float(err)
             state = state._replace(cov=state.cov - Gmat @ state.cov[0:6, :])  # :980
 
-            # addObservation with the posterior pose (:1064)
-            rcw2_j, pcw2_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
-            opc, oscore, oadd = prep_observations(self.vmap, self.cam, rcw2_j, pcw2_j,
-                                                  gray, tracked.idx, tracked.valid)
-            self.vmap = vmap_mod.add_observations(
-                self.vmap, tracked.idx, opc, rcw2_j, pcw2_j, oscore, fid,
-                tracked.search_level, oadd)
-            if cfg.debug and self.lead:
-                self.last_overlay = render_overlay(
-                    gray.cpu().numpy(), opc.cpu().numpy(), perr.cpu().numpy(),
-                    tracked.valid.cpu().numpy())
-
-        # new points carry the prior-pose first observation (:178-190)
-        self.vmap = vmap_mod.add_points(self.vmap, npos, npx, rcw_j, pcw_j, nscore,
-                                        fid, nadd)
+        # addObservation with the posterior pose (:1064); new points carry
+        # the prior-pose first observation (:178-190)
+        rcw2_j, pcw2_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
+        if fused:  # nothing tracked: no observation passes the gates
+            self.vmap, opc, _ = vio_observations(
+                self.vmap, self.cam, gray, rcw2_j, pcw2_j, tracked.idx, tracked.valid,
+                tracked.search_level, rcw_j, pcw_j, npos, npx, nscore, nadd, fid)
+        else:
+            if stats["tracked"] > 0:
+                opc, oscore, oadd = prep_observations(self.vmap, self.cam, rcw2_j, pcw2_j,
+                                                      gray, tracked.idx, tracked.valid)
+                self.vmap = vmap_mod.add_observations(
+                    self.vmap, tracked.idx, opc, rcw2_j, pcw2_j, oscore, fid,
+                    tracked.search_level, oadd)
+            self.vmap = vmap_mod.add_points(self.vmap, npos, npx, rcw_j, pcw_j, nscore,
+                                            fid, nadd)
+        if stats["tracked"] > 0 and cfg.debug and self.lead:
+            self.last_overlay = render_overlay(
+                gray.cpu().numpy(), opc.cpu().numpy(), perr.cpu().numpy(),
+                tracked.valid.cpu().numpy())
         stats["added"] = int(nadd.sum())
         self.last_stats = stats
         self.last_rcw, self.last_pcw = cam_pose(state)  # updateFrameState, :982

@@ -44,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from .device import resolve_device
+from .ops.linalg import norm3
 from .ops.voxel_map import _last_wins, _slot_check
 
 VOXEL_SIZE = 0.5  # lidar_selection.cpp:210
@@ -175,7 +176,10 @@ def _live_slot_refs(m: VisualMap, mesh=None) -> torch.Tensor:
     slot = torch.clamp(m.obs_slot, 0, R - 1)
     ok = alive & (m.obs_fid >= 0) & (m.img_fid[slot.long()] == m.obs_fid)
     tgt = torch.where(ok, slot, R).reshape(-1).long()
-    refs = torch.bincount(tgt, minlength=R + 1)[:R].to(I32)
+    # an integer index_add (order-free): bincount reads its maximum back
+    # to the host
+    refs = torch.zeros(R + 1, dtype=I32, device=tgt.device).index_add_(
+        0, tgt, torch.ones_like(tgt, dtype=I32))[:R]
     return refs if mesh is None else mesh.all_reduce(refs)
 
 
@@ -426,8 +430,11 @@ def gather_voxel_points(m: VisualMap, vox: torch.Tensor, vmask: torch.Tensor,
 
 
 def _camposes(o_pcw: torch.Tensor, o_rcw: torch.Tensor) -> torch.Tensor:
-    """Camera centres -pcw @ rcw of (K, KO) stored poses -> (K, KO, 3)."""
-    return -torch.einsum("koj,koji->koi", o_pcw, o_rcw)
+    """Camera centres -pcw @ rcw of (K, KO) stored poses -> (K, KO, 3),
+    each sum left to right (the camera-frame kernels' order)."""
+    p = o_pcw[..., None]
+    return -((p[..., 0, :] * o_rcw[..., 0, :] + p[..., 1, :] * o_rcw[..., 1, :])
+             + p[..., 2, :] * o_rcw[..., 2, :])
 
 
 def close_view_obs(m: VisualMap, idx: torch.Tensor, campos: torch.Tensor,
@@ -444,11 +451,12 @@ def close_view_obs(m: VisualMap, idx: torch.Tensor, campos: torch.Tensor,
     o_px, o_rcw, o_pcw, o_slot, o_fid, o_level = _gather_obs(m, safe, mesh)
     pos = m.pos[safe.long()]  # (K, 3)
     obs_dir = campos[None, :] - pos
-    obs_dir = obs_dir / (torch.linalg.norm(obs_dir, dim=-1, keepdim=True) + 1e-12)
+    obs_dir = obs_dir / (norm3(obs_dir)[..., None] + 1e-12)
     camposes = _camposes(o_pcw, o_rcw)
     dirs = camposes - pos[:, None, :]
-    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
-    cos = torch.einsum("kj,koj->ko", obs_dir, dirs)
+    dirs = dirs / (norm3(dirs)[..., None] + 1e-12)
+    od = obs_dir[:, None, :]
+    cos = (od[..., 0] * dirs[..., 0] + od[..., 1] * dirs[..., 1]) + od[..., 2] * dirs[..., 2]
     usable = (o_fid >= 0) & (m.img_fid[torch.clamp(o_slot, 0, R - 1).long()] == o_fid)
     cos = torch.where(usable, cos, torch.full_like(cos, -2.0))
     best = torch.argmax(cos, dim=-1)  # (K,), first maximum
@@ -482,11 +490,11 @@ def add_observations(m: VisualMap, idx: torch.Tensor, px: torch.Tensor,
     dev = m.pos.device
     fid = torch.as_tensor(fid, dtype=I32, device=dev)
     safe = torch.clamp(idx, 0, NP - 1).long()
-    campos = -pcw @ rcw
+    campos = _camposes(pcw, rcw)
     n = m.n_obs[safe]
     full = n >= KO
     _, o_rcw, o_pcw, _, o_fid, _ = _gather_obs(m, safe, mesh)
-    dist = torch.linalg.norm(_camposes(o_pcw, o_rcw) - campos[None, None, :], dim=-1)
+    dist = norm3(_camposes(o_pcw, o_rcw) - campos[None, None, :])
     dist = torch.where(o_fid >= 0, dist, torch.full_like(dist, -1.0))
     evict = torch.argmax(dist, dim=-1)
     w = torch.where(full, evict, torch.clamp(n, max=KO - 1).long())

@@ -1541,7 +1541,8 @@ def guarded(t):
     (buffer, the contiguous view of t's shape)."""
     u8 = t.dtype == torch.bool
     dtype = torch.uint8 if u8 else t.dtype
-    fill = float("nan") if dtype.is_floating_point else (0xA5 if u8 else -0x5A5A5A5)
+    fill = float("nan") if dtype.is_floating_point else (
+        0xA5 if dtype == torch.uint8 else -0x5A5A5A5)
     buf = torch.full((t.numel() + 2 * GUARD,), fill, dtype=dtype, device=t.device)
     v = buf[GUARD:GUARD + t.numel()]
     v = (v.view(torch.bool) if u8 else v).view(t.shape)
@@ -1569,18 +1570,25 @@ def launch_guarded(launch, inputs, outputs):
 
 
 @pytest.mark.parametrize("kernel", ["knn5_plane_27", "knn5_plane_125", "knn5_plane_tiled",
-                                    "lio_cascade"])
+                                    "lio_cascade", "vio_select", "vio_observations"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
     inputs and outputs inside guard-banded buffers at a ragged size (16379
     rows: the TMA slab path's partial last slab, the cascade's partial
     last chunk) writes no input and nothing outside its outputs, and its
-    outputs equal the plain version's bit for bit."""
+    outputs equal the plain version's bit for bit. The camera-frame
+    kernels at the main path's widths: vio_select's scratch and outputs
+    are its outputs; vio_observations writes the map in place, so the map
+    arrays are its outputs and after the launch every byte of them equals
+    the plain version's map (nothing written outside its writes)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade as lc
+
+    if kernel.startswith("vio_"):
+        return vio_write_only(cuda, kernel)
 
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     stream = torch.cuda.current_stream(cuda).cuda_stream
@@ -1628,3 +1636,423 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
+
+
+# --- the camera frame's selection and map upkeep (vio_select, vio_observations)
+
+FW, FH, FF = 640, 512, 400.0  # the main path's camera: 16 x 12 cells of 40 px
+
+
+def full_cam(device):
+    return camera.from_config(CameraConfig(width=FW, height=FH, fx=FF, fy=FF, cx=(FW - 1) / 2.0,
+                                           cy=(FH - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0]), device)
+
+
+def clone_map(vm):
+    return vm._replace(**{f: getattr(vm, f).clone() for f in vm._fields})
+
+
+def bit_equal(x, y) -> bool:
+    """Equal bits (NaN at the same places counts as equal)."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if not x.dtype.is_floating_point:
+        return torch.equal(x, y)
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    same = x.view(bits) == y.view(bits)
+    return bool((same | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+def texture(rng, H=FH, W=FW):
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = 128.0 + 50.0 * np.sin(xx / 7.0 + rng.uniform(0, 6)) * np.cos(yy / 11.0)
+    img += 30.0 * np.sin((xx + 2 * yy) / 23.0) + rng.normal(0, 6.0, (H, W))
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def small_pose(rng, scale=1.0):
+    rot = so3.exp(torch.as_tensor(rng.normal(0, 0.03 * scale, 3), dtype=torch.float64))
+    return (rot.numpy().astype(np.float32),
+            rng.normal(0, 0.15 * scale, 3).astype(np.float32))
+
+
+def project(cam, pts, rcw, pcw):
+    pc = torch.as_tensor(pts @ rcw.T + pcw, device=cam.fx.device)
+    return camera.world2cam(cam, pc).cpu().numpy().astype(np.float32)
+
+
+def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
+    """A visual map at the shipped capacities (65536 points x 20
+    observations, 2^18 slots x 8, a pool of 256 640x512 images, u8 or
+    f32), grown by the port's own map operations on the card: `frames`
+    noisy copies of one texture pushed at poses within ~1 mrad and ~5 mm
+    of the identity (so that the warped patches match and cells track),
+    192 points a frame in front of the camera (some of them with a value
+    of 0 or below), the first three frames' points observed again every
+    frame (their rings fill) and 150 random others; then a frame of the
+    texture near the identity pose, its scan cloud (8192 rows: noisy
+    copies of map points and free points) and voxels. Returns the
+    vio_select arguments as a dict."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch import visual_map as tvm
+
+    rng = np.random.default_rng(seed)
+    cam = full_cam(dev)
+    vm = tvm.empty_visual_map(n_points=1 << 16, n_obs=20, table_size=1 << 18, voxel_cap=8,
+                              ring=256, height=FH, width=FW,
+                              img_dtype=torch.uint8 if u8 else None, device=dev)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    base = texture(rng)
+    for f in range(frames):
+        img = base + rng.normal(0, 2.0, base.shape).astype(np.float32)
+        vm = tvm.push_image(vm, t(img), f)
+        rcw, pcw = small_pose(rng, 0.03)
+        z = rng.uniform(2.0, 8.0, 192)
+        pts = np.stack([z * rng.uniform(-0.6, 0.6, 192), z * rng.uniform(-0.45, 0.45, 192),
+                        z], -1).astype(np.float32)
+        val = rng.uniform(-5.0, 50.0, 192).astype(np.float32)
+        vm = tvm.add_points(vm, t(pts), t(project(cam, pts, rcw, pcw)), t(rcw), t(pcw),
+                            t(val), f, t(rng.random(192) < 0.9))
+        n = int(vm.n_pts)
+        if f > 0:
+            idx = np.unique(np.concatenate([np.arange(min(n, 576)),
+                                            rng.integers(0, n, 150)])).astype(np.int32)
+            K = len(idx)
+            ppos = vm.pos[t(idx).long()].cpu().numpy()
+            vm = tvm.add_observations(
+                vm, t(idx), t(project(cam, ppos, rcw, pcw)), t(rcw), t(pcw),
+                t(rng.uniform(0, 50, K).astype(np.float32)), f,
+                t(rng.integers(0, 3, K).astype(np.int32)), t(rng.random(K) < 0.9))
+    gray = t(base)
+    rcw, pcw = small_pose(rng, 0.03)
+    n = int(vm.n_pts)
+    M = 8192
+    pos = vm.pos[:n].cpu().numpy()
+    pg = np.zeros((M, 3), np.float32)
+    k = min(n, 3000)
+    pg[:k] = pos[rng.permutation(n)[:k]] + rng.normal(0, 0.05, (k, 3))
+    z = rng.uniform(1.0, 10.0, 2000)
+    pg[k:k + 2000] = np.stack([z * rng.uniform(-0.9, 0.9, 2000),
+                               z * rng.uniform(-0.7, 0.7, 2000), z], -1)
+    pg_mask = np.arange(M) < k + 2000
+    pg_mask[rng.integers(0, k + 2000, 300)] = False
+    pg, pg_mask = t(pg.astype(np.float32)), t(pg_mask)
+    vox, vox_mask = vio._dedup_voxels(pg, pg_mask, M // 2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return dict(vm=vm, cam=cam, rcw=t(rcw), pcw=t(pcw), img=gray, pg=pg, pg_mask=pg_mask,
+                vox=vox, vox_mask=vox_mask, outlier_threshold=torch.tensor(300.0, **f32),
+                ncc_thre=torch.tensor(0.5, **f32), grid_size=grid, patch_size=P,
+                gw=FW // grid, gh=FH // grid, ncc_en=ncc)
+
+
+def obs_args(a, sel, seed=1):
+    """vio_observations' arguments after vio_select's outputs `sel` on the
+    frame `a`: a posterior pose 0.6 m from the prior (so that the tracked
+    rows pass the Δp gate and write their rings), the pool's last frame
+    id."""
+    tracked, (npos, npx, nscore, nadd) = sel
+    rng = np.random.default_rng(seed)
+    drot, dpos = small_pose(rng, 0.1)
+    dpos[0] += 0.6
+    dev = a["img"].device
+    rcw2 = (torch.as_tensor(drot, device=dev) @ a["rcw"]).contiguous()
+    pcw2 = (a["pcw"] + torch.as_tensor(dpos, device=dev)).contiguous()
+    fid = (a["vm"].img_fid.max()).to(torch.int32)
+    return (a["cam"], a["img"], rcw2, pcw2, tracked.idx, tracked.valid, tracked.search_level,
+            a["rcw"], a["pcw"], npos, npx, nscore, nadd, fid)
+
+
+def assert_select_equal(got, want):
+    from fastlivo_tpu_torch.vio import TrackedSet
+
+    for f in TrackedSet._fields:
+        assert bit_equal(getattr(got[0], f), getattr(want[0], f)), f
+    for name, x, y in zip(("pos", "px", "score", "add"), got[1], want[1]):
+        assert bit_equal(x, y), name
+
+
+def assert_obs_equal(got, want):
+    from fastlivo_tpu_torch.visual_map import VisualMap
+
+    for f in VisualMap._fields:
+        assert bit_equal(getattr(got[0], f), getattr(want[0], f)), f
+    assert bit_equal(got[1], want[1]) and bit_equal(got[2], want[2])
+
+
+def select_both(a):
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    kw = {k: v for k, v in a.items() if k != "vm"}
+    got = vs.vio_select(a["vm"], **kw)
+    want = vs.vio_select_plain(a["vm"], **kw)
+    return got, want
+
+
+def obs_both(vm, args):
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+
+    got = vo.vio_observations(clone_map(vm), *args)
+    want = vo.vio_observations_plain(clone_map(vm), *args)
+    return got, want
+
+
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("ncc", [False, True], ids=["ncc_off", "ncc_on"])
+def test_vio_select_and_observations_match_plain_on_a_random_map(cuda, u8, ncc):
+    """At the main path's widths on a random visual map: vio_select
+    bit-equal to select_tracked + select_new_points, and vio_observations
+    (from a copy of the map) bit-equal to prep_observations +
+    add_observations + add_points in every map field, the pixels and the
+    scores; cells tracked, points added, full rings evicted."""
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    a = random_vio_frame(cuda, u8=u8, seed=3 + u8, ncc=ncc)
+    n0 = vs.vio_select.launches
+    got, want = select_both(a)
+    assert vs.vio_select.launches == n0 + 1
+    assert_select_equal(got, want)
+    tracked, new = got
+    assert int(tracked.valid.sum()) > 20 and int(new[3].sum()) > 5
+    full = a["vm"].n_obs[tracked.idx.long()] >= a["vm"].obs_fid.shape[1]
+    assert int((full & tracked.valid).sum()) > 0  # some writes evict
+    g2, w2 = obs_both(a["vm"], obs_args(a, got))
+    assert_obs_equal(g2, w2)
+    assert int(g2[0].n_pts) > int(a["vm"].n_pts)
+
+
+def test_vio_kernels_at_patch_4_and_320_cells(cuda):
+    """4x4 patches (a YAML config's default) and 32-pixel cells (20 x 16 =
+    320 cells, more rows than the upkeep block's 256 threads): both
+    kernels bit-equal to their plain versions."""
+    a = random_vio_frame(cuda, seed=8, P=4, grid=32, ncc=True)
+    got, want = select_both(a)
+    assert_select_equal(got, want)
+    assert got[0].patch.shape == (320, 3, 4, 4) and int(got[0].valid.sum()) > 20
+    g2, w2 = obs_both(a["vm"], obs_args(a, got))
+    assert_obs_equal(g2, w2)
+    assert int(g2[0].n_pts) > int(a["vm"].n_pts)
+
+
+def test_vio_kernels_with_nothing_tracked_or_added(cuda):
+    """No candidate voxel and no scan row: nothing tracked, nothing
+    added, every cell value 0, the map unchanged; both bit-equal to the
+    plain versions. And a full point pool: the new points dropped."""
+    a = random_vio_frame(cuda, seed=5, frames=4)
+    a["vox_mask"] = torch.zeros_like(a["vox_mask"])
+    a["pg_mask"] = torch.zeros_like(a["pg_mask"])
+    got, want = select_both(a)
+    assert_select_equal(got, want)
+    assert not bool(got[0].valid.any()) and not bool(got[1][3].any())
+    assert not bool(got[0].cell_value.any())
+    before = clone_map(a["vm"])
+    g2, w2 = obs_both(a["vm"], obs_args(a, got))
+    assert_obs_equal(g2, w2)
+    assert all(bit_equal(getattr(g2[0], f), getattr(before, f)) for f in before._fields)
+    # the pool of points full but for 3 rows: 3 of the new points kept
+    b = random_vio_frame(cuda, seed=6, frames=4)
+    got = select_both(b)[0]
+    assert int(got[1][3].sum()) > 3
+    vm = b["vm"]._replace(n_pts=torch.tensor(b["vm"].pos.shape[0] - 3, dtype=torch.int32,
+                                             device=cuda))
+    g3, w3 = obs_both(vm, obs_args(b, got))
+    assert_obs_equal(g3, w3)
+    assert int(g3[0].n_pts) == vm.pos.shape[0]
+
+
+def livo_calls(dev, monkeypatch, u8=True, frames=6):
+    """Vio.update at the main path's widths over `frames` camera frames of
+    the synthetic room; every vio_select call recorded with a copy of the
+    map (which vio_observations writes in place later) and the next
+    vio_observations call's arguments."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+
+    cfg = Config()
+    cfg.img_enable = True
+    cfg.outlier_threshold = 300.0
+    cfg.img_point_cov = 100.0
+    cfg.camera = CameraConfig(width=FW, height=FH, fx=FF, fy=FF, cx=(FW - 1) / 2.0,
+                              cy=(FH - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0])
+    cfg.Rcl = RCL.ravel().tolist()
+    cfg.capacity.frame_ring_u8 = u8
+    ds = SyntheticDataset(duration=4.0, cam_size=(FW, FH), cam_f=FF, cam_hz=10.0, Rcl=RCL)
+    calls = []
+    real_sel, real_obs = vio.vio_select, vio.vio_observations
+
+    def sel(vm, *a, **kw):
+        snap = clone_map(vm)
+        out = real_sel(vm, *a, **kw)
+        calls.append({"select": (snap, a, kw, out)})
+        return out
+
+    def obs(vm, *a):
+        calls[-1]["obs"] = a
+        return real_obs(vm, *a)
+
+    monkeypatch.setattr(vio, "vio_select", sel)
+    monkeypatch.setattr(vio, "vio_observations", obs)
+    v = vio.Vio(cfg, device=dev)
+    for k in range(frames):
+        t = 2.0 + 0.1 * k
+        s = vio_state(ds, t, dpos=(0.004 * (k > 0), -0.003 * (k > 0), 0.0), device=dev)
+        v.set_last_cloud(room_cloud(ds, k, n=24000))
+        v.update(s, s, ds.render_image(t))
+    return calls, v, ds
+
+
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+def test_vio_kernels_match_plain_on_a_map_grown_by_livo(cuda, monkeypatch, u8):
+    """Every camera frame of a LIVO run (Vio.update, 640x512, shipped
+    capacities): the recorded vio_select call bit-equal to the plain
+    version on its copy of the map, and vio_observations on two copies of
+    that map (the kernel's, the plain version's) bit-equal in every field;
+    the run's own outputs equal the replayed kernel's."""
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    calls, v, _ = livo_calls(cuda, monkeypatch, u8)
+    assert len(calls) == v.steps >= 5 and v.last_stats["tracked"] > 10
+    for rec in calls:
+        snap, a, kw, out = rec["select"]
+        assert_select_equal(out, vs.vio_select_plain(clone_map(snap), *a, **kw))
+        g2, w2 = obs_both(snap, rec["obs"])
+        assert_obs_equal(g2, w2)
+
+
+def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatch):
+    """On one card vio_frame_step launches vio_select, photometric_cascade
+    and vio_observations once each, and makes no synchronising call
+    (torch's sync debug mode set to raise) between its call and its
+    return; its n_tracked, n_added and iterations equal the plain
+    route's (vio.frame_kernels_apply patched to False) on a copy of the
+    map."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    calls, v, ds = livo_calls(cuda, monkeypatch, frames=4)
+    snap, a, kw, _ = calls[-1]["select"]
+    cam, gray = a[0], a[3]
+    monkeypatch.setattr(vio, "vio_select", vs.vio_select)
+    monkeypatch.setattr(vio, "vio_observations", vo.vio_observations)
+    ds_state = vio_state(ds, 2.3, dpos=(0.004, -0.003, 0.0), device=cuda)
+    n = min(len(v.last_cloud), v.cloud_cap)
+    cloud = np.zeros((v.cloud_cap, 3), np.float32)
+    cloud[:n] = v.last_cloud[:n, :3]
+    cloud = torch.as_tensor(cloud, device=cuda)
+    meta = torch.tensor([n, v.fid], dtype=torch.int32, device=cuda)
+
+    def step(vm):
+        return vio.vio_frame_step(
+            vm, cam, ds_state, ds_state, gray, meta, cloud, v.Rci, v.Pci, v.Jdphi_dR,
+            v.Jdp_dR, v._out_thre_dev, v._ncc_thre_dev, v._ipc_dev, grid_size=v.grid_size,
+            patch_size=v.patch_size, gw=v.gw, gh=v.gh, ncc_en=False, max_iter=10,
+            max_pg=v.max_pg)
+
+    step(clone_map(snap))  # warm
+    torch.cuda.synchronize()
+    n = [vs.vio_select.launches, vo.vio_observations.launches,
+         photometric.photometric_cascade.launches]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = step(clone_map(snap))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [vs.vio_select.launches, vo.vio_observations.launches,
+            photometric.photometric_cascade.launches] == [n[0] + 1, n[1] + 1, n[2] + 1]
+    monkeypatch.setattr(vio, "frame_kernels_apply", lambda *a, **kw: False)
+    plain = step(clone_map(snap))
+    assert [vs.vio_select.launches, vo.vio_observations.launches] == [n[0] + 1, n[1] + 1]
+    assert int(fused[7]) == int(plain[7]) > 0 and int(fused[8]) == int(plain[8])
+    assert int(fused[9]) == int(plain[9])
+    assert bit_equal(fused[10], plain[10])
+
+
+def test_vio_kernels_refuse_bad_inputs(cuda):
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    a = random_vio_frame(cuda, seed=7, frames=2)
+    kw = {k: v for k, v in a.items() if k != "vm"}
+    n0 = vs.vio_select.launches
+    for bad, err in ((dict(patch_size=10), ValueError), (dict(pg=a["pg"].double()), TypeError),
+                     (dict(pg_mask=a["pg_mask"][:-1]), ValueError),
+                     (dict(rcw=a["rcw"].t()), ValueError),
+                     (dict(img=a["img"][:, :-1]), ValueError)):
+        with pytest.raises(err):
+            vs.vio_select(a["vm"], **{**kw, **bad})
+    with pytest.raises(TypeError):
+        vs.vio_select(a["vm"]._replace(vox_idx=a["vm"].vox_idx.long()), **kw)
+    assert vs.vio_select.launches == n0
+    args = obs_args(a, vs.vio_select(a["vm"], **kw))
+    n1 = vo.vio_observations.launches
+    for k, bad in ((4, args[4].long()), (5, args[5][:-1]), (1, args[1].double())):
+        with pytest.raises((TypeError, ValueError)):
+            vo.vio_observations(a["vm"], *args[:k], bad, *args[k + 1:])
+    assert vo.vio_observations.launches == n1
+
+
+def vio_write_only(dev, kernel):
+    """test_kernels_write_only_their_outputs' camera-frame cases."""
+    import ctypes
+
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    a = random_vio_frame(dev, seed=11, frames=12)
+    vm, cam = a["vm"], a["cam"]
+    NP, KO = vm.obs_fid.shape
+    T, VC = vm.vox_idx.shape
+    R = vm.img_fid.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    sel = vs.vio_select_plain(vm, **{k: v for k, v in a.items() if k != "vm"})
+    i32, f32 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.float32, device=dev)
+    G, M, P = 192, a["pg"].shape[0], 8
+    if kernel == "vio_select":
+        Nv = a["vox"].shape[0]
+        ins = [vm.pos, vm.value, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot, vm.obs_fid,
+               vm.vox_keys, vm.vox_count, vm.vox_idx, vm.imgs, vm.img_fid, cam.fx, cam.fy,
+               cam.cx, cam.cy, cam.d, a["rcw"], a["pcw"], a["img"], a["pg"], a["pg_mask"],
+               a["vox"], a["vox_mask"], a["outlier_threshold"], a["ncc_thre"]]
+        scratch = [torch.empty(G, dtype=torch.int64, device=dev),
+                   torch.empty(G, dtype=torch.int64, device=dev), torch.empty(FH * FW, **i32),
+                   torch.empty(Nv * VC, **i32), torch.empty(M, **f32),
+                   torch.empty((M, 2), **f32), torch.empty(M, **f32)]
+        outs = [torch.empty(G, **i32), torch.empty((G, 3), **f32),
+                torch.empty((G, 3, P, P), **f32), torch.empty(G, **i32),
+                torch.empty(G, dtype=torch.bool, device=dev), torch.empty(G, **f32),
+                torch.empty(G, **f32), torch.empty((G, 3), **f32), torch.empty((G, 2), **f32),
+                torch.empty(G, **f32), torch.empty(G, dtype=torch.bool, device=dev)]
+        grid = ctypes.c_int(0)
+        got = launch_guarded(lambda *v: vs._launcher()(
+            *ptr(*v), NP, KO, T, VC, R, FH, FW, M, Nv, 40, FH // 40, G, P, 0, 12, 1,
+            ctypes.byref(grid), stream), ins, scratch + outs)[len(scratch):]
+        want = list(sel[0]) + list(sel[1])
+        names = list(sel[0]._fields) + ["pos", "px", "score", "add"]
+    else:
+        args = obs_args(a, sel)
+        wm, wopc, wosc = vo.vio_observations_plain(clone_map(vm), *args)
+        (cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx, nscore, nadd,
+         fid) = args
+        B = t_idx.shape[0]
+        ins = [vm.n_pts, vm.img_fid, cam.fx, cam.fy, cam.cx, cam.cy, cam.d, img, rcw2, pcw2,
+               rcw, pcw, fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd]
+        names = ["pos", "value", "n_obs", "obs_px", "obs_rcw", "obs_pcw", "obs_slot",
+                 "obs_fid", "obs_level", "vox_keys", "vox_count", "vox_idx"]
+        outs = [getattr(vm, f) for f in names] + [torch.empty((B, 2), **f32),
+                                                  torch.empty(B, **f32), torch.empty((), **i32)]
+
+        def launch(n_pts, img_fid, fx, fy, cx, cy, d, img, rcw2, pcw2, rcw, pcw, fid, t_idx,
+                   t_valid, t_slevel, npos, npx, nscore, nadd, pos, value, n_obs, obs_px,
+                   obs_rcw, obs_pcw, obs_slot, obs_fid, obs_level, vk, vc, vi, opc, osc, npo):
+            return vo._launcher()(*ptr(
+                pos, value, n_obs, n_pts, obs_px, obs_rcw, obs_pcw, obs_slot, obs_fid,
+                obs_level, vk, vc, vi, img_fid, fx, fy, cx, cy, d, img, rcw2, pcw2, rcw, pcw,
+                fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd, opc, osc, npo),
+                NP, KO, T, VC, R, FH, FW, B, 12, stream)
+
+        got = launch_guarded(launch, ins, outs)
+        want = [getattr(wm, f) for f in names] + [wopc, wosc, wm.n_pts]
+        names = names + ["opc", "oscore", "n_pts"]
+    for g, w, name in zip(got, want, names):
+        assert bit_equal(g, w), name

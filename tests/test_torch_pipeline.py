@@ -421,7 +421,8 @@ def test_every_kernel_source_is_built_and_smoked():
     """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
     fused searches (tiled; hash and dense), the fused photometric
     measurement, the photometric cascade and step, the two standalone
-    kernels, the IMU propagation and the LIO cascade."""
+    kernels, the IMU propagation, the LIO cascade and the camera frame's
+    selection and map upkeep."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -433,7 +434,7 @@ def test_every_kernel_source_is_built_and_smoked():
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
     assert cu == ["imu_propagate", "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
                   "lio_cascade", "patches_and_grads", "photometric_cascade",
-                  "photometric_err_H"]
+                  "photometric_err_H", "vio_observations", "vio_select"]
 
 
 def test_kernel_launches_are_profiler_ops():

@@ -1,0 +1,267 @@
+"""Port parity: the camera frame's selection and visual-map upkeep, the
+plain versions of the vio_select and vio_observations kernels, against
+the JAX package.
+
+On the CPU `ops/vio_select.vio_select` runs select_tracked +
+select_new_points and `ops/vio_observations.vio_observations` runs
+prep_observations + add_observations + add_points (their plain versions,
+in the kernels' order of operations); the kernels themselves run only on
+the card (tests/test_torch_cuda.py). The inputs are test_torch_vio.py's
+scene: a visual map grown by the JAX package's Vio over three rendered
+frames, and a next frame at a perturbed prior. Tolerances:
+  - vio_select against JAX's select_tracked + select_new_points, with the
+    u8 and the f32 pool, ncc_en on and off: idx, valid, search_level,
+    cell_value and the add mask equal; patches atol 1e-3 and positions
+    rtol 1e-6 where valid; errors rtol 1e-4 where valid; the new points'
+    positions equal and scores rtol 1e-4 where added (the Shi-Tomasi box
+    sums and the products run in another order than XLA's: a few ulp);
+  - vio_observations against JAX's prep_observations + add_observations
+    + add_points: every integer field of the map equal; the float fields
+    equal where copied from inputs (positions, poses), within atol 1e-3
+    (pixels) and rtol 1e-4 (scores) where computed; on the scene's frame,
+    on the same map with every ring full (evictions), with the point pool
+    full but for three rows (the new points past it dropped), and with
+    two new voxels whose probe chains start at the same free slot;
+  - an empty frame (no scan row, no voxel): nothing tracked or added,
+    the map unchanged, as in JAX;
+  - vio.frame_kernels_apply: True on a CUDA device without a mesh, False
+    on the CPU, over a mesh and with the pool in slabs.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fastlivo_tpu import vio as jvio
+from fastlivo_tpu import visual_map as jvm
+from fastlivo_tpu.ops.voxel_map import _slot_check as jslot
+
+from fastlivo_tpu_torch import convert
+from fastlivo_tpu_torch import vio as tvio
+from fastlivo_tpu_torch import visual_map as tvm
+from fastlivo_tpu_torch.ops import vio_observations as vo
+from fastlivo_tpu_torch.ops import vio_select as vs
+from test_torch_vio import scene, stage_inputs  # noqa: F401  (fixture)
+
+INT_FIELDS = ("n_obs", "n_pts", "obs_slot", "obs_fid", "obs_level", "vox_keys", "vox_count",
+              "vox_idx", "img_fid", "imgs")
+
+
+def arrays(m):
+    return {f: np.array(v) for f, v in m._asdict().items()}
+
+
+def both_maps(d):
+    """The JAX and the port's map from one set of numpy arrays."""
+    return (jvm.VisualMap(**{f: jnp.asarray(v) for f, v in d.items()}),
+            convert.visual_map_from_arrays(d, "cpu"))
+
+
+def statics(jv):
+    return dict(grid_size=jv.grid_size, patch_size=jv.patch_size, gw=jv.gw, gh=jv.gh)
+
+
+def select_both(sc, d, pg, pm, vox, vm, ncc=False):
+    jv, tv = sc["jv"], sc["tv"]
+    jmap, tmap = both_maps(d)
+    kw = statics(jv)
+    thr = np.float32(0.5 if ncc else 100.0)
+    tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+                             jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
+                             jnp.asarray(vox), jnp.asarray(vm), jv._out_thre_dev,
+                             jnp.float32(thr), ncc_en=ncc, **kw)
+    nj = jvio.select_new_points(jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+                                jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
+                                tj.cell_value, **kw)
+    t = torch.from_numpy
+    got = vs.vio_select(tmap, tv.cam, t(sc["rcw"]), t(sc["pcw"]), t(sc["gray"]), t(pg), t(pm),
+                        t(vox), t(vm), tv._out_thre_dev, torch.tensor(thr), ncc_en=ncc, **kw)
+    return (tj, nj), got
+
+
+def assert_select_close(want, got):
+    (tj, nj), (tt, nt) = want, got
+    valid = np.asarray(tj.valid)
+    for f in ("valid", "idx", "search_level", "cell_value"):
+        np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(tj, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(tt.patch.numpy()[valid], np.asarray(tj.patch)[valid], atol=1e-3)
+    np.testing.assert_allclose(tt.pos.numpy()[valid], np.asarray(tj.pos)[valid], rtol=1e-6)
+    np.testing.assert_allclose(tt.errors.numpy()[valid], np.asarray(tj.errors)[valid],
+                               rtol=1e-4)
+    add = np.asarray(nj[3])
+    np.testing.assert_array_equal(nt[3].numpy(), add)
+    np.testing.assert_array_equal(nt[0].numpy()[add], np.asarray(nj[0])[add])
+    np.testing.assert_allclose(nt[1].numpy()[add], np.asarray(nj[1])[add], atol=1e-3)
+    np.testing.assert_allclose(nt[2].numpy()[add], np.asarray(nj[2])[add], rtol=1e-4)
+    return valid, add
+
+
+@pytest.mark.parametrize("pool", ["u8", "f32"])
+@pytest.mark.parametrize("ncc", [False, True], ids=["ncc_off", "ncc_on"])
+def test_vio_select_matches_jax(scene, pool, ncc):  # noqa: F811
+    (pg, pm, vox, vm), _ = stage_inputs(scene)
+    d = arrays(scene["jv"].vmap)
+    assert d["imgs"].dtype == np.uint8
+    if pool == "f32":
+        d["imgs"] = d["imgs"].astype(np.float32)
+    want, got = select_both(scene, d, pg, pm, vox, vm, ncc)
+    valid, add = assert_select_close(want, got)
+    assert valid.sum() > 10 and add.sum() > 5
+
+
+def frame_inputs(sc, d):
+    """The scene's next frame selected by the JAX package on the map `d`,
+    its image pushed first; the posterior pose 0.6 m from the prior (every
+    tracked row passes the Δp gate). Returns (the map arrays after the
+    push, the observation inputs as numpy)."""
+    jv = sc["jv"]
+    (pg, pm, vox, vm), _ = stage_inputs(sc)
+    fid = np.int32(jv.fid)
+    jmap = jvm.push_image(both_maps(d)[0], jnp.asarray(sc["gray"]), jnp.int32(fid))
+    d = arrays(jmap)
+    kw = statics(jv)
+    tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+                             jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
+                             jnp.asarray(vox), jnp.asarray(vm), jv._out_thre_dev,
+                             jv._ncc_thre_dev, **kw)
+    nj = jvio.select_new_points(jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+                                jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
+                                tj.cell_value, **kw)
+    pcw2 = (sc["pcw"] + np.array([0.6, 0.0, 0.0], np.float32)).astype(np.float32)
+    inp = dict(rcw2=sc["rcw"], pcw2=pcw2, idx=np.array(tj.idx), valid=np.array(tj.valid),
+               slevel=np.array(tj.search_level), npos=np.array(nj[0]), npx=np.array(nj[1]),
+               nscore=np.array(nj[2]), nadd=np.array(nj[3]), fid=fid)
+    return d, inp
+
+
+def observations_both(sc, d, inp):
+    jv, tv = sc["jv"], sc["tv"]
+    jmap, tmap = both_maps(d)
+    j = {k: jnp.asarray(v) for k, v in inp.items()}
+    gray = jnp.asarray(sc["gray"])
+    rcw, pcw = jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"])
+    opc, osc, oadd = jvio.prep_observations(jmap, jv.cam, j["rcw2"], j["pcw2"], gray, j["idx"],
+                                            j["valid"])
+    jmap = jvm.add_observations(jmap, j["idx"], opc, j["rcw2"], j["pcw2"], osc, j["fid"],
+                                j["slevel"], oadd)
+    jmap = jvm.add_points(jmap, j["npos"], j["npx"], rcw, pcw, j["nscore"], j["fid"],
+                          j["nadd"])
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in inp.items()}
+    tmap, topc, tosc = vo.vio_observations(
+        tmap, tv.cam, torch.from_numpy(sc["gray"]), t["rcw2"], t["pcw2"], t["idx"], t["valid"],
+        t["slevel"], torch.from_numpy(sc["rcw"]), torch.from_numpy(sc["pcw"]), t["npos"],
+        t["npx"], t["nscore"], t["nadd"], t["fid"])
+    a, b = arrays(jmap), convert.visual_map_to_arrays(tmap)
+    for f in tvm.VisualMap._fields:
+        assert a[f].dtype == b[f].dtype and a[f].shape == b[f].shape, f
+        if f in INT_FIELDS + ("pos", "obs_rcw", "obs_pcw"):
+            np.testing.assert_array_equal(b[f], a[f], err_msg=f)
+        elif f == "value":
+            np.testing.assert_allclose(b[f], a[f], rtol=1e-4, atol=1e-6, err_msg=f)
+        else:
+            np.testing.assert_allclose(b[f], a[f], atol=1e-3, err_msg=f)
+    valid = inp["valid"]
+    np.testing.assert_allclose(topc.numpy()[valid], np.asarray(opc)[valid], atol=1e-3)
+    np.testing.assert_allclose(tosc.numpy()[valid], np.asarray(osc)[valid], rtol=1e-4)
+    return arrays(jmap), np.asarray(oadd)
+
+
+def fill_rings(d, rng):
+    """Every live point's ring full: each empty entry a copy of entry 0
+    at a pose moved by up to 0.3 m, so that the furthest view differs."""
+    n = int(d["n_pts"])
+    KO = d["obs_fid"].shape[1]
+    for f in ("obs_px", "obs_rcw", "obs_pcw", "obs_slot", "obs_fid", "obs_level"):
+        d[f] = d[f].copy()
+    for p in range(n):
+        for o in range(int(d["n_obs"][p]), KO):
+            for f in ("obs_px", "obs_rcw", "obs_slot", "obs_fid", "obs_level"):
+                d[f][p, o] = d[f][p, 0]
+            d["obs_pcw"][p, o] = d["obs_pcw"][p, 0] + rng.uniform(-0.3, 0.3, 3)
+    d["n_obs"] = np.where(np.arange(len(d["n_obs"])) < n, KO, d["n_obs"]).astype(np.int32)
+    return d
+
+
+@pytest.mark.parametrize("case", ["frame", "full_rings", "pool_full", "shared_slot"])
+def test_vio_observations_matches_jax(scene, case):  # noqa: F811
+    d, inp = frame_inputs(scene, arrays(scene["jv"].vmap))
+    n0, NP = int(d["n_pts"]), d["pos"].shape[0]
+    assert inp["valid"].sum() > 10 and inp["nadd"].sum() > 5
+    if case == "full_rings":
+        d = fill_rings(d, np.random.default_rng(4))
+    if case == "pool_full":
+        d["n_pts"] = np.asarray(NP - 3, np.int32)
+    if case == "shared_slot":
+        # two voxels whose probe chains start at one free slot, both added
+        T = d["vox_keys"].shape[0]
+        grid = np.stack(np.meshgrid(*[np.arange(-8, 8)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        slot, check = (np.asarray(a) for a in jslot(jnp.asarray(grid, jnp.int32), T - 1))
+        free = (d["vox_keys"] == tvm.EMPTY) & (np.roll(d["vox_keys"], -1) == tvm.EMPTY)
+        first = {}
+        for i in range(len(grid)):
+            j = first.setdefault(slot[i], i)
+            if j != i and check[i] != check[j] and free[slot[i]]:
+                a, b = j, i
+                break
+        rows = np.flatnonzero(inp["nadd"])[:2]
+        inp["npos"] = inp["npos"].copy()
+        inp["npos"][rows] = (grid[[a, b]] + 0.5) * 0.5
+    after, oadd = observations_both(scene, d, inp)
+    kept = int(inp["nadd"].sum())
+    if case == "pool_full":
+        assert int(after["n_pts"]) == NP and kept > 3
+    else:
+        assert int(after["n_pts"]) == n0 + kept
+    assert oadd.sum() == inp["valid"].sum()  # the 0.6 m step adds every tracked row
+    if case == "full_rings":
+        idx = inp["idx"][inp["valid"]]
+        assert (after["n_obs"][idx] == d["obs_fid"].shape[1]).all()
+    if case == "shared_slot":
+        s0 = slot[a]
+        keys = after["vox_keys"]
+        T = len(keys)
+        assert {keys[s0], keys[(s0 + 1) % T]} == {check[a], check[b]}
+
+
+def test_empty_frame_matches_jax(scene):  # noqa: F811
+    (pg, pm, vox, vm), _ = stage_inputs(scene)
+    d = arrays(scene["jv"].vmap)
+    want, got = select_both(scene, d, pg, np.zeros_like(pm), vox, np.zeros_like(vm))
+    valid, add = assert_select_close(want, got)
+    assert not valid.any() and not add.any() and not got[0].cell_value.any()
+    d2, inp = frame_inputs(scene, d)
+    inp.update(valid=np.zeros_like(inp["valid"]), nadd=np.zeros_like(inp["nadd"]))
+    after, _ = observations_both(scene, d2, inp)
+    for f, v in d2.items():
+        np.testing.assert_array_equal(after[f], v, err_msg=f)
+
+
+@pytest.mark.parametrize("case", ["cuda", "cpu", "mesh", "pool_sharded"])
+def test_frame_kernels_apply(case):
+    """The routing rule of vio_frame_step and Vio.update_staged: the
+    kernels on one CUDA device with no mesh, the torch code elsewhere (the
+    pool in slabs, `pool_sharded`, needs a mesh: vio_frame_step refuses
+    it without one)."""
+    dev = "cpu" if case == "cpu" else torch.device("cuda")
+    mesh = object() if case in ("mesh", "pool_sharded") else None
+    assert tvio.frame_kernels_apply(dev, mesh) == (case == "cuda")
+    if case == "pool_sharded":
+        with pytest.raises(ValueError, match="requires a mesh"):
+            tvio.vio_frame_step(*[None] * 14, grid_size=40, patch_size=8, gw=16, gh=12,
+                                ncc_en=False, max_iter=1, max_pg=8, pool_sharded=True)
+
+
+def test_cpu_frame_takes_the_plain_versions(scene, monkeypatch):  # noqa: F811
+    """On the CPU the wrappers run their plain versions and launch
+    nothing; vio_frame_step calls the torch code itself."""
+    calls = []
+    monkeypatch.setattr(vs, "_launcher", lambda: calls.append("select"))
+    monkeypatch.setattr(vo, "_launcher", lambda: calls.append("observations"))
+    (pg, pm, vox, vm), _ = stage_inputs(scene)
+    n = (vs.vio_select.launches, vo.vio_observations.launches)
+    _, got = select_both(scene, arrays(scene["jv"].vmap), pg, pm, vox, vm)
+    d, inp = frame_inputs(scene, arrays(scene["jv"].vmap))
+    observations_both(scene, d, inp)
+    assert not calls and (vs.vio_select.launches, vo.vio_observations.launches) == n
+    assert int(got[0].valid.sum()) > 10
