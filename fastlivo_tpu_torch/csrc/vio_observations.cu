@@ -45,6 +45,7 @@
 
 #include "hash_mix.cuh"
 #include "vio_common.cuh"
+#include "vio_stamps.cuh"
 
 namespace {
 
@@ -128,6 +129,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
   __shared__ int sh_first, sh_ngrp;
   __shared__ float rcw2[9], pcw2[3], campos2[3], rcw[9], pcw[3];
 
+  VIO_STAMP_START();
   const vio::Cam cam = vio::load_cam(o.fx, o.fy, o.cx, o.cy, o.dist);
   const int32_t fid = __ldg(o.fid);
   if (tid < 9) {
@@ -146,6 +148,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     if (o.img_fid[r] == fid) atomicMin(&sh_first, r);
   __syncthreads();
   const int slot = sh_first < o.R ? sh_first : 0;
+  VIO_STAMP(1);
 
   // prep_observations, one warp per row
   for (int k = warp; k < B; k += THREADS / 32) {
@@ -199,6 +202,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     }
   }
   __syncthreads();
+  VIO_STAMP(2);
 
   // add_observations: the ring entry of each row, then the kept rows' writes
   for (int k = tid; k < B; k += THREADS) {
@@ -223,6 +227,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     s_n[k] = min(n + 1, o.KO);
   }
   __syncthreads();
+  VIO_STAMP(3);
   for (int k = tid; k < B; k += THREADS) {
     if (!s_add[k]) continue;
     const int safe = vio::clampi(o.t_idx[k], 0, o.NP - 1);
@@ -237,6 +242,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     o.obs_fid[e] = fid;
     o.obs_level[e] = __ldg(o.t_slevel + k);
   }
+  VIO_STAMP(4);
 
   // add_points: the mask within capacity, in mask order
   if (tid == 0) {
@@ -253,6 +259,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     *o.n_pts_out = np0 + c2;
   }
   __syncthreads();
+  VIO_STAMP(5);
   for (int i = tid; i < B; i += THREADS) {
     const int m2 = s_m2[i];
     for (int k3 = 0; k3 < 3; ++k3)
@@ -273,6 +280,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     o.obs_level[e] = 0;
   }
   __syncthreads();
+  VIO_STAMP(6);
 
   // _voxel_index_insert: the rows in (z, y, x, row) order, by counting
   for (int i = tid; i < B; i += THREADS) {
@@ -281,6 +289,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     s_row[pos] = i;
   }
   __syncthreads();
+  VIO_STAMP(7);
   const int tmask = o.T - 1;
   for (int p = tid; p < B; p += THREADS) {
     const int i = s_row[p];
@@ -311,6 +320,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     sh_ngrp = g + 1;
   }
   __syncthreads();
+  VIO_STAMP(8);
   for (int round = 0; round < o.max_probe; ++round) {
     for (int p = tid; p < B; p += THREADS) {
       const int32_t cur = o.vox_keys[s_slot[p]];
@@ -333,6 +343,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     }
     __syncthreads();
   }
+  VIO_STAMP(9);
   for (int g = tid; g < sh_ngrp; g += THREADS) {
     s_gres[g] = o.T;
     s_inc[g] = 0;
@@ -360,9 +371,12 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     }
     if (s_lead[p] && ra < o.T) atomicAdd(o.vox_count + ra, s_inc[s_grp[p]]);
   }
+  VIO_STAMP(10);
 }
 
 }  // namespace
+
+VIO_STAMPS_EXPORT(vio_observations)
 
 // The map upkeep of one camera frame over B rows (the grid cells), in
 // place. Pointers, all contiguous on the device: the visual map's pos (NP,

@@ -52,6 +52,7 @@
 
 #include "hash_mix.cuh"
 #include "vio_common.cuh"
+#include "vio_stamps.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -387,6 +388,7 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   const int lane = threadIdx.x & 31;
   const int gt = blockIdx.x * THREADS + threadIdx.x, nt = gridDim.x * THREADS;
   const int gw = gt >> 5, nw = nt >> 5;
+  VIO_STAMP_START();
   const vio::Cam cam = vio::load_cam(s.fx, s.fy, s.cx, s.cy, s.dist);
   float rcw[9], pcw[3], campos[3];
   for (int k = 0; k < 9; ++k) rcw[k] = __ldg(s.rcw + k);
@@ -401,13 +403,20 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
     s.cell_value[c] = 0.0f;
   }
   grid.sync();
+  VIO_STAMP(1);
   for (int r = gw; r < s.M; r += nw) scan_row(s, cam, rcw, pcw, r, lane);
+  VIO_STAMP(2);
   for (int v = gt; v < s.Nv; v += nt) voxel_rows(s, cam, rcw, pcw, campos, v);
+  VIO_STAMP(3);
   grid.sync();
+  VIO_STAMP(4);
   for (int c = gw; c < s.G; c += nw) cell_pass(s, cam, rcw, pcw, campos, c, lane);
+  VIO_STAMP(5);
 }
 
 }  // namespace
+
+VIO_STAMPS_EXPORT(vio_select)
 
 // The selection of one camera frame. Pointers, all contiguous on the
 // device: the visual map's pos (NP, 3), value (NP,), obs_px (NP, KO, 2),
