@@ -774,17 +774,20 @@ def check_vio_calls(calls, label) -> dict:
     for k, rec in enumerate(calls):
         snap, a, kw, out = rec["select"]
         plain = vs.vio_select_plain(snap, *a, **kw)
-        names = list(TrackedSet._fields) + ["new_pos", "new_px", "new_score", "new_add"]
+        names = list(TrackedSet._fields) + ["new_pos", "new_px", "new_score", "new_add",
+                                            "rcw", "pcw"]
         d = {n: bits_diff(x, y) for n, x, y in zip(
-            names, list(out[0]) + list(out[1]), list(plain[0]) + list(plain[1]))}
+            names, [*out[0], *out[1], *out[2]], [*plain[0], *plain[1], *plain[2]])}
         oa, oout = rec["obs"]
         got = vo.vio_observations(clone_map(snap), *oa)
         want = vo.vio_observations_plain(clone_map(snap), *oa)
         d.update({f: bits_diff(getattr(got[0], f), getattr(want[0], f))
                   for f in VisualMap._fields})
         d.update(opc=bits_diff(got[1], want[1]), oscore=bits_diff(got[2], want[2]),
+                 rcw2=bits_diff(got[3][0], want[3][0]), pcw2=bits_diff(got[3][1], want[3][1]),
                  path_opc=bits_diff(oout[1], got[1]), path_oscore=bits_diff(oout[2], got[2]),
-                 path_n_pts=bits_diff(oout[0].n_pts, got[0].n_pts))
+                 path_n_pts=bits_diff(oout[0].n_pts, got[0].n_pts),
+                 path_pcw2=bits_diff(oout[3][1], got[3][1]))
         bad = {n: v for n, v in d.items() if v != 0.0}
         if bad:
             raise AssertionError(f"{label} camera frame {rec['frame']}: not bit-equal to the "
@@ -1131,6 +1134,9 @@ def cascade_phase(dev, a):
 SEL_ROW_OPS, SEL_ST_OPS, SEL_CAND_OPS = 60, 649, 60
 SEL_CELL_OPS, SEL_PIXEL_OPS, SEL_OBS_OPS = 850, 30, 40
 OBS_ROW_OPS, OBS_RING_OPS = 120 + 649, 20
+# a kernel's pose: the state's rot (3, 3) and pos (3,) f64 and Rci, Pci
+# f32 read, the camera pose rcw (3, 3), pcw (3,) f32 written
+POSE_BYTES = 72 + 24 + 36 + 12 + 36 + 12
 
 
 def window_pixels(H, W, px, size) -> int:
@@ -1155,7 +1161,8 @@ def vio_select_bound_ms(snap, a, kw, out):
     patches; the voxel slots probed up to the first hit, the found slots'
     counts and index rows, the valid candidates' positions and values;
     the candidate cells' winners, their KO-entry rings and image ids and
-    3 x (P+1)^2 pool taps; the outputs) over HBM bandwidth, against the
+    3 x (P+1)^2 pool taps; the state's pose, the extrinsics and the
+    outputs, the camera pose among them) over HBM bandwidth, against the
     f32 operations (the SEL_* counts) over the f32 rate. Returns (ms,
     "bytes" or "operations", bytes, operations)."""
     from fastlivo_tpu_torch import camera as cam_mod
@@ -1164,7 +1171,8 @@ def vio_select_bound_ms(snap, a, kw, out):
     from fastlivo_tpu_torch.ops.photometric import _rows_times
     from fastlivo_tpu_torch.ops.voxel_map import _slot_check
 
-    cam, rcw, pcw, img, pg, pg_mask, vox, vox_mask = a[:8]
+    cam, _, _, _, _, img, pg, pg_mask, vox, vox_mask = a[:10]
+    rcw, pcw = out[2]
     P, G = kw["patch_size"], kw["gw"] * kw["gh"]
     H, W = img.shape
     M, Nv = pg.shape[0], vox.shape[0]
@@ -1175,7 +1183,7 @@ def vio_select_bound_ms(snap, a, kw, out):
     p_cam = _rows_times(pg, rcw) + pcw
     pc = cam_mod.world2cam(cam, p_cam)
     ok = pg_mask & (p_cam[:, 2] > 0) & cam_mod.is_in_frame(cam, pc, border)
-    tracked, new = out
+    tracked, new = out[:2]
     # the candidates, and the cells that hold one
     cidx, cvalid = (t.reshape(-1) for t in vmap_mod.gather_voxel_points(snap, vox, vox_mask))
     c_cam = _rows_times(snap.pos[torch.clamp(cidx, 0, snap.pos.shape[0] - 1).long()],
@@ -1195,7 +1203,7 @@ def vio_select_bound_ms(snap, a, kw, out):
     n_ok = int(ok.sum())
     byts = (13 * (M + Nv) + 4 * pix + 4 * int(n_probe) + n_found * 4 * (1 + VC)
             + n_cand * 16 + n_cells * (12 + 8 + KO * 60 + 3 * (P + 1) ** 2 * pool_b)
-            + G * (4 + 12 + 12 * P * P + 4 + 1 + 4 + 4 + 12 + 8 + 4 + 1))
+            + G * (4 + 12 + 12 * P * P + 4 + 1 + 4 + 4 + 12 + 8 + 4 + 1) + POSE_BYTES)
     ops = (n_ok * (SEL_ROW_OPS + SEL_ST_OPS) + n_cand * SEL_CAND_OPS
            + n_cells * (SEL_CELL_OPS + 4 * P * P * SEL_PIXEL_OPS + KO * SEL_OBS_OPS))
     t_b, t_o = 1e3 * byts / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
@@ -1208,11 +1216,12 @@ def vio_observations_bound_ms(snap, oa, out):
     observation, the image pixels under their Shi-Tomasi windows, the
     image ids (for the pool slot), the full rings' poses where a kept
     observation evicts, the kept observations' and new points' writes,
-    one probed slot, the count and an index entry for each new point, and
-    the outputs, over HBM bandwidth, against the f32 operations (OBS_*)
-    over the f32 rate. Returns (ms, bound_by, bytes, operations)."""
-    vm2, opc, _ = out
-    cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx, nscore, nadd, fid = oa
+    one probed slot, the count and an index entry for each new point, the
+    state's pose, the extrinsics and the outputs (the posterior camera
+    pose among them), over HBM bandwidth, against the f32 operations
+    (OBS_*) over the f32 rate. Returns (ms, bound_by, bytes, operations)."""
+    vm2, opc = out[:2]
+    img, t_idx, t_valid = oa[1], oa[6], oa[7]
     B = t_idx.shape[0]
     H, W = img.shape
     KO = snap.obs_fid.shape[1]
@@ -1225,7 +1234,7 @@ def vio_observations_bound_ms(snap, oa, out):
     n_kept, n_evict = int(kept.sum()), int((kept & full).sum())
     pix = window_pixels(H, W, opc, 10)
     byts = (34 * B + B * (12 + 4 * KO + 56 + 4) + 4 * pix + 4 * R + n_evict * KO * 48
-            + n_kept * 76 + n_new * (88 + 4 + 8 + 4) + 12 * B + 4)
+            + n_kept * 76 + n_new * (88 + 4 + 8 + 4) + 12 * B + 4 + POSE_BYTES)
     ops = B * OBS_ROW_OPS + n_evict * KO * OBS_RING_OPS
     t_b, t_o = 1e3 * byts / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
@@ -1239,7 +1248,9 @@ def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
     which each call writes again (the same rows, the rings one entry on).
     The plain versions: one call alone between two CUDA events, the device
     idle before it (event_ms: their host reads stall the queue), the
-    observations' on another copy. No library call computes either.
+    observations' on another copy. No library call computes either. Also
+    each wrapper's host wall a call (host_ms: the checks, the allocations
+    and the launch, not waiting for the device).
     Returns {"vio_select": {...}, "vio_observations": {...}}."""
     from fastlivo_tpu_torch.ops import vio_observations as vo
     from fastlivo_tpu_torch.ops import vio_select as vs
@@ -1249,27 +1260,31 @@ def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
     oa, oout = rec["obs"]
     res = {}
     ms = time_ms(lambda: vs.vio_select(snap, *a, **kw))
+    host = host_ms(lambda: vs.vio_select(snap, *a, **kw), reps=30)
     grid = vs.vio_select.grid
     plain_ms = event_ms(lambda: vs.vio_select_plain(snap, *a, **kw), reps=10)
     bound, by, byts, ops = vio_select_bound_ms(snap, a, kw, out)
     res["vio_select"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                         "bytes": byts, "ops": ops, "grid": grid,
+                         "bytes": byts, "ops": ops, "grid": grid, "host_ms": host,
                          "tracked": int(out[0].valid.sum()), "added": int(out[1][3].sum())}
     after = vo.vio_observations_plain(clone_map(snap), *oa)
     m1, m2 = clone_map(snap), clone_map(snap)
     ms = time_ms(lambda: vo.vio_observations(m1, *oa))
+    host = host_ms(lambda: vo.vio_observations(m1, *oa), reps=30)
     plain_ms = event_ms(lambda: vo.vio_observations_plain(m2, *oa), reps=10)
     bound, by, byts, ops = vio_observations_bound_ms(snap, oa, after)
     del after, m1, m2
     res["vio_observations"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                               "bound_by": by, "bytes": byts, "ops": ops}
+                               "bound_by": by, "bytes": byts, "ops": ops,
+                               "grid": vo.vio_observations.grid, "host_ms": host}
     for fn in counted_wrappers():
         fn.launches = counts[fn.__name__]
     smi = nvidia_smi_line()
     for name, r in res.items():
-        print(f"{name} on {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} bytes, "
-              f"{r['ops']} f32 operations), library none; {smi}")
+        print(f"{name} on {label}: kernel {r['ms']:.4f} ms ({r['grid']} blocks; host "
+              f"{r['host_ms']:.4f} ms a call), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 "
+              f"operations), library none; {smi}")
     return res
 
 
@@ -1906,6 +1921,10 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
                         + counts["vio_observations"])
     n_sel, _ = kernels_in(prof, "vio.select", counts["vio_select"])
     n_obs, _ = kernels_in(prof, "vio.observations", counts["vio_observations"])
+    if fused and (n_sel > n_cam or n_obs > 2 * n_cam):
+        raise AssertionError(f"livo profile: {n_sel} kernels under vio.select_*, {n_obs} under "
+                             f"vio.observations for {n_cam} camera frames (at most 1 and 2 "
+                             "a frame: the poses are computed in the kernels)")
     sel_host = sum(stage_ms(evs, r, n_cam)[0] for r in ("vio.select_tracked", "vio.select_new"))
     obs_host = stage_ms(evs, "vio.observations", n_cam)[0]
     n_photo, linked = kernels_in(prof, "vio.photometric", launched)
@@ -3724,7 +3743,7 @@ def main() -> int:
         "max_abs_err": vio_nums["max_abs_err"],
         **{k: vio_res[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        **{k: v for k, v in vio_res[name].items() if k in ("bytes", "ops", "grid")},
+        **{k: v for k, v in vio_res[name].items() if k in ("bytes", "ops", "grid", "host_ms")},
         "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
     } for name, replaces in (
         ("vio_select", "fastlivo_tpu/vio.py:130-484 (select_tracked and select_new_points, "

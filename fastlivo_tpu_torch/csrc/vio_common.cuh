@@ -3,9 +3,9 @@
 // two cannot drift apart: the pinhole camera with radial-tangential
 // distortion (camera.py's world2cam, cam2world), the 3x3 products and
 // norms in the order of ops/linalg.py (norm3, matvec3, mat3) and
-// ops/photometric.py::_rows_times, the Shi-Tomasi score of
+// ops/photometric.py::_rows_times, vio._cam_pose, the Shi-Tomasi score of
 // ops/image.py::shi_tomasi (its 8x8 box sums in `halving_sum`'s order, by
-// one warp) and the warp's halving sum over a patch. Each expression
+// a half-warp) and the warp's halving sum over a patch. Each expression
 // follows its plain version's order of operations (built with
 // -fmad=false, every product rounds alone). Include after hash_mix.cuh
 // (the voxel hash).
@@ -49,6 +49,33 @@ __device__ __forceinline__ void rows_times_add(const float* p, const float* R, c
 #pragma unroll
   for (int i = 0; i < 3; ++i)
     y[i] = ((p[0] * R[3 * i] + p[1] * R[3 * i + 1]) + p[2] * R[3 * i + 2]) + t[i];
+}
+
+// vio._cam_pose: the state's rot and pos rounded to f32 (.to(f32)), then
+// rcw = Rci @ rot32ᵀ and pcw = -(pos32 @ rcwᵀ) + Pci, each sum left to
+// right (_rows_times); one thread
+__device__ __forceinline__ void cam_pose(const double* rot, const double* pos, const float* Rci,
+                                         const float* Pci, float* rcw, float* pcw) {
+  float r[9], ci[9], p[3], y[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    r[k] = (float)__ldg(rot + k);
+    ci[k] = __ldg(Rci + k);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p[k] = (float)__ldg(pos + k);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      y[3 * i + j] =
+          (ci[3 * i] * r[3 * j] + ci[3 * i + 1] * r[3 * j + 1]) + ci[3 * i + 2] * r[3 * j + 2];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pcw[i] = -((p[0] * y[3 * i] + p[1] * y[3 * i + 1]) + p[2] * y[3 * i + 2]) + __ldg(Pci + i);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) rcw[3 * i + j] = y[3 * i + j];
+  }
 }
 
 // the camera centre -(pcw @ rcw): c_j = -((p0 R_0j + p1 R_1j) + p2 R_2j)
@@ -120,17 +147,30 @@ __device__ __forceinline__ float warp_tree64(float lo, float hi) {
   return __shfl_sync(FULL, s, 0);
 }
 
-// image.shi_tomasi at floor(pu, pv), by all 32 lanes of a warp: lane l
-// takes the window's taps l and l + 32 (row-major over the 8x8 window
-// rooted at (v - 4, u - 4), every index clamped); every lane gets the score
-__device__ __forceinline__ float shi_tomasi_warp(const float* __restrict__ img, int H, int W,
-                                                 float pu, float pv, int lane) {
+// image.halving_sum over 64 values held four a lane of a half-warp
+// (x[hl + 16 h], h = 0..3; hmask its lanes), summed in the tree's order
+// (the first two levels in the lane: (x[i] + x[i + 32]) + (x[i + 16] +
+// x[i + 48])); every lane of the half gets the sum
+__device__ __forceinline__ float half_tree64(float a0, float a1, float a2, float a3,
+                                             unsigned hmask) {
+  float s = (a0 + a2) + (a1 + a3);
+#pragma unroll
+  for (int off = 8; off >= 1; off >>= 1) s = s + __shfl_down_sync(hmask, s, off, 16);
+  return __shfl_sync(hmask, s, 0, 16);
+}
+
+// image.shi_tomasi at floor(pu, pv), by the 16 lanes of a half-warp: lane
+// hl takes the taps hl + 16 h, h = 0..3, of the 8x8 window rooted at
+// (v - 4, u - 4) (row-major, every index clamped); every lane of the half
+// gets the score
+__device__ __forceinline__ float shi_tomasi_half(const float* __restrict__ img, int H, int W,
+                                                 float pu, float pv, int hl, unsigned hmask) {
   const int u = clampi((int)floorf(pu), 0, W - 1);
   const int v = clampi((int)floorf(pv), 0, H - 1);
-  float gx[2], gy[2];
+  float gx[4], gy[4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int t = lane + 32 * h;
+  for (int h = 0; h < 4; ++h) {
+    const int t = hl + 16 * h;
     const int r = clampi(v - 4 + (t >> 3), 0, H - 1);
     const int c = clampi(u - 4 + (t & 7), 0, W - 1);
     const float* row = img + (size_t)r * W;
@@ -138,10 +178,12 @@ __device__ __forceinline__ float shi_tomasi_warp(const float* __restrict__ img, 
     gy[h] = 0.5f * (__ldg(img + (size_t)min(r + 1, H - 1) * W + c) -
                     __ldg(img + (size_t)max(r - 1, 0) * W + c));
   }
-  // / 32 (the half box area) is exact as * (1/32)
-  const float xx = warp_tree64(gx[0] * gx[0], gx[1] * gx[1]) * 0.03125f;
-  const float yy = warp_tree64(gy[0] * gy[0], gy[1] * gy[1]) * 0.03125f;
-  const float xy = warp_tree64(gx[0] * gy[0], gx[1] * gy[1]) * 0.03125f;
+  const float xx = half_tree64(gx[0] * gx[0], gx[1] * gx[1], gx[2] * gx[2], gx[3] * gx[3],
+                               hmask) * 0.03125f;
+  const float yy = half_tree64(gy[0] * gy[0], gy[1] * gy[1], gy[2] * gy[2], gy[3] * gy[3],
+                               hmask) * 0.03125f;
+  const float xy = half_tree64(gx[0] * gy[0], gx[1] * gy[1], gx[2] * gy[2], gx[3] * gy[3],
+                               hmask) * 0.03125f;
   const float tr = xx + yy;
   const float det = xx * yy - xy * xy;
   const float disc = sqrtf(clamp_min(tr * tr - 4.0f * det, 0.0f));

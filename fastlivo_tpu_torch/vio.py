@@ -647,11 +647,12 @@ def frame_kernels_apply(device, mesh=None) -> bool:
     return mesh is None and torch.device(device).type == "cuda"
 
 
-def _cam_pose(Rci: torch.Tensor, Pci: torch.Tensor, st: NavState):
-    """World -> camera of a state: rcw = Rci @ rot32ᵀ, pcw = -(rcw @
-    pos32) + Pci, each sum left to right (photometric_err_H_plain's)."""
-    rcw = _rows_times(Rci, st.rot.to(Rci.dtype))
-    return rcw, -_rows_times(st.pos.to(Rci.dtype), rcw) + Pci
+def _cam_pose(Rci: torch.Tensor, Pci: torch.Tensor, rot: torch.Tensor, pos: torch.Tensor):
+    """World -> camera of a state's rot and pos: rcw = Rci @ rot32ᵀ, pcw =
+    -(rcw @ pos32) + Pci, each sum left to right (photometric_err_H_plain's;
+    vio_select and vio_observations compute it in the same order)."""
+    rcw = _rows_times(Rci, rot.to(Rci.dtype))
+    return rcw, -_rows_times(pos.to(Rci.dtype), rcw) + Pci
 
 
 def vio_frame_step(
@@ -721,15 +722,15 @@ def vio_frame_step(
             inv_leaf=_const(_recip32(VIO_LEAF), cloud))
         vox, vox_mask = _dedup_voxels(pg, pg_mask, max_pg // 2)
 
-    rcw, pcw = _cam_pose(Rci, Pci, state)
     fused = frame_kernels_apply(gray.device, mesh)
     sel = dict(grid_size=grid_size, patch_size=patch_size, gw=gw, gh=gh)
-    if fused:  # both selections in one launch
+    if fused:  # the pose and both selections in one launch
         with record_function("vio.select_tracked"):
-            tracked, (npos, npx, nscore, nadd) = vio_select(
-                vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask, outlier_threshold,
-                ncc_thre, ncc_en=ncc_en, **sel)
+            tracked, (npos, npx, nscore, nadd), (rcw, pcw) = vio_select(
+                vm, cam, state.rot.contiguous(), state.pos.contiguous(), Rci, Pci, gray, pg,
+                pg_mask, vox, vox_mask, outlier_threshold, ncc_thre, ncc_en=ncc_en, **sel)
     else:
+        rcw, pcw = _cam_pose(Rci, Pci, state.rot, state.pos)
         with record_function("vio.select_tracked"):
             tracked = select_tracked(
                 vm, cam, rcw, pcw, gray, pg, pg_mask, vox, vox_mask,
@@ -756,11 +757,12 @@ def vio_frame_step(
                 [t_idx, t_valid.to(I32), t_slevel, perr.view(I32)], 1))[:gw * gh]
             t_idx, t_valid, t_slevel = cols[:, 0], cols[:, 1].bool(), cols[:, 2]
             perr = cols[:, 3].contiguous().view(f32)
-        rcw2, pcw2 = _cam_pose(Rci, Pci, st)
-        if fused:  # in place, in one launch, with no host read
-            vm, opc, _ = vio_observations(vm, cam, gray, rcw2, pcw2, t_idx, t_valid,
-                                          t_slevel, rcw, pcw, npos, npx, nscore, nadd, fid)
+        if fused:  # the pose and the upkeep in place, in one launch, with no host read
+            vm, opc, _, (rcw2, pcw2) = vio_observations(
+                vm, cam, gray, st.rot.contiguous(), st.pos.contiguous(), Rci, Pci, t_idx,
+                t_valid, t_slevel, rcw, pcw, npos, npx, nscore, nadd, fid)
         else:
+            rcw2, pcw2 = _cam_pose(Rci, Pci, st.rot, st.pos)
             opc, oscore, oadd = prep_observations(vm, cam, rcw2, pcw2, gray,
                                                   t_idx, t_valid, slab_mesh)
             vm = vmap_mod.add_observations(vm, t_idx, opc, rcw2, pcw2, oscore,
@@ -1081,8 +1083,6 @@ class Vio:
             rcw = Rci @ st.rot.cpu().numpy().astype(np.float32).T
             return rcw, -rcw @ st.pos.cpu().numpy().astype(np.float32) + Pci
 
-        rcw_j, pcw_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
-
         if self.last_cloud is None or len(self.last_cloud) < 10:
             self.fid += 1
             return state
@@ -1104,12 +1104,14 @@ class Vio:
         # one CUDA device: vio_frame_step's two kernels (an empty map
         # tracks nothing there, as the skipped selection here)
         fused = frame_kernels_apply(dev, self.mesh)
-        if fused:
-            tracked, (npos, npx, nscore, nadd) = vio_select(
-                self.vmap, self.cam, rcw_j, pcw_j, gray, pg, pg_mask, vox, vox_mask,
-                cfg.outlier_threshold, cfg.ncc_thre, ncc_en=cfg.ncc_en, **sel)
+        if fused:  # the kernels compute the camera poses from the states
+            tracked, (npos, npx, nscore, nadd), (rcw_k, pcw_k) = vio_select(
+                self.vmap, self.cam, state.rot.contiguous(), state.pos.contiguous(), self.Rci,
+                self.Pci, gray, pg, pg_mask, vox, vox_mask, cfg.outlier_threshold,
+                cfg.ncc_thre, ncc_en=cfg.ncc_en, **sel)
             stats["tracked"] = int(tracked.valid.sum())
         else:
+            rcw_j, pcw_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
             if int(self.vmap.n_pts) > 0:
                 tracked = select_tracked(
                     self.vmap, self.cam, rcw_j, pcw_j, gray, pg, pg_mask, vox, vox_mask,
@@ -1135,12 +1137,13 @@ class Vio:
 
         # addObservation with the posterior pose (:1064); new points carry
         # the prior-pose first observation (:178-190)
-        rcw2_j, pcw2_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
         if fused:  # nothing tracked: no observation passes the gates
-            self.vmap, opc, _ = vio_observations(
-                self.vmap, self.cam, gray, rcw2_j, pcw2_j, tracked.idx, tracked.valid,
-                tracked.search_level, rcw_j, pcw_j, npos, npx, nscore, nadd, fid)
+            self.vmap, opc, _, _ = vio_observations(
+                self.vmap, self.cam, gray, state.rot.contiguous(), state.pos.contiguous(),
+                self.Rci, self.Pci, tracked.idx, tracked.valid, tracked.search_level, rcw_k,
+                pcw_k, npos, npx, nscore, nadd, fid)
         else:
+            rcw2_j, pcw2_j = (torch.as_tensor(a, device=dev) for a in cam_pose(state))
             if stats["tracked"] > 0:
                 opc, oscore, oadd = prep_observations(self.vmap, self.cam, rcw2_j, pcw2_j,
                                                       gray, tracked.idx, tracked.valid)

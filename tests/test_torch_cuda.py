@@ -1690,9 +1690,10 @@ def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
     192 points a frame in front of the camera (some of them with a value
     of 0 or below), the first three frames' points observed again every
     frame (their rings fill) and 150 random others; then a frame of the
-    texture near the identity pose, its scan cloud (8192 rows: noisy
-    copies of map points and free points) and voxels. Returns the
-    vio_select arguments as a dict."""
+    texture at a state and extrinsics whose camera pose is near the
+    identity (vio._cam_pose of rot, pos, Rci, Pci), its scan cloud (8192
+    rows: noisy copies of map points and free points) and voxels. Returns
+    the vio_select arguments as a dict."""
     from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch import visual_map as tvm
 
@@ -1724,7 +1725,11 @@ def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
                 t(rng.uniform(0, 50, K).astype(np.float32)), f,
                 t(rng.integers(0, 3, K).astype(np.int32)), t(rng.random(K) < 0.9))
     gray = t(base)
-    rcw, pcw = small_pose(rng, 0.03)
+    f64 = dict(dtype=torch.float64, device=dev)
+    srot = so3.exp(torch.as_tensor(rng.normal(0, 0.0009, 3), **f64)).contiguous()
+    spos = torch.as_tensor(rng.normal(0, 0.0045, 3), **f64)
+    Rci = so3.exp(torch.as_tensor(rng.normal(0, 0.0009, 3), **f64)).float().contiguous()
+    Pci = torch.as_tensor(rng.normal(0, 0.003, 3), dtype=torch.float32, device=dev)
     n = int(vm.n_pts)
     M = 8192
     pos = vm.pos[:n].cpu().numpy()
@@ -1739,7 +1744,8 @@ def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
     pg, pg_mask = t(pg.astype(np.float32)), t(pg_mask)
     vox, vox_mask = vio._dedup_voxels(pg, pg_mask, M // 2)
     f32 = dict(dtype=torch.float32, device=dev)
-    return dict(vm=vm, cam=cam, rcw=t(rcw), pcw=t(pcw), img=gray, pg=pg, pg_mask=pg_mask,
+    return dict(vm=vm, cam=cam, rot=srot, pos=spos, Rci=Rci, Pci=Pci, img=gray, pg=pg,
+                pg_mask=pg_mask,
                 vox=vox, vox_mask=vox_mask, outlier_threshold=torch.tensor(300.0, **f32),
                 ncc_thre=torch.tensor(0.5, **f32), grid_size=grid, patch_size=P,
                 gw=FW // grid, gh=FH // grid, ncc_en=ncc)
@@ -1747,19 +1753,20 @@ def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
 
 def obs_args(a, sel, seed=1):
     """vio_observations' arguments after vio_select's outputs `sel` on the
-    frame `a`: a posterior pose 0.6 m from the prior (so that the tracked
-    rows pass the Δp gate and write their rings), the pool's last frame
-    id."""
-    tracked, (npos, npx, nscore, nadd) = sel
+    frame `a`: a posterior state 0.6 m from the prior (so that the tracked
+    rows pass the Δp gate and write their rings), the prior camera pose
+    from `sel`, the pool's last frame id."""
+    tracked, (npos, npx, nscore, nadd), (rcw, pcw) = sel
     rng = np.random.default_rng(seed)
-    drot, dpos = small_pose(rng, 0.1)
-    dpos[0] += 0.6
     dev = a["img"].device
-    rcw2 = (torch.as_tensor(drot, device=dev) @ a["rcw"]).contiguous()
-    pcw2 = (a["pcw"] + torch.as_tensor(dpos, device=dev)).contiguous()
+    f64 = dict(dtype=torch.float64, device=dev)
+    drot = so3.exp(torch.as_tensor(rng.normal(0, 0.003, 3), **f64))
+    dpos = rng.normal(0, 0.015, 3) + np.array([0.6, 0.0, 0.0])
+    rot2 = (drot @ a["rot"]).contiguous()
+    pos2 = a["pos"] + torch.as_tensor(dpos, **f64)
     fid = (a["vm"].img_fid.max()).to(torch.int32)
-    return (a["cam"], a["img"], rcw2, pcw2, tracked.idx, tracked.valid, tracked.search_level,
-            a["rcw"], a["pcw"], npos, npx, nscore, nadd, fid)
+    return (a["cam"], a["img"], rot2, pos2, a["Rci"], a["Pci"], tracked.idx, tracked.valid,
+            tracked.search_level, rcw, pcw, npos, npx, nscore, nadd, fid)
 
 
 def assert_select_equal(got, want):
@@ -1767,7 +1774,8 @@ def assert_select_equal(got, want):
 
     for f in TrackedSet._fields:
         assert bit_equal(getattr(got[0], f), getattr(want[0], f)), f
-    for name, x, y in zip(("pos", "px", "score", "add"), got[1], want[1]):
+    for name, x, y in zip(("pos", "px", "score", "add", "rcw", "pcw"), [*got[1], *got[2]],
+                          [*want[1], *want[2]]):
         assert bit_equal(x, y), name
 
 
@@ -1777,6 +1785,7 @@ def assert_obs_equal(got, want):
     for f in VisualMap._fields:
         assert bit_equal(getattr(got[0], f), getattr(want[0], f)), f
     assert bit_equal(got[1], want[1]) and bit_equal(got[2], want[2])
+    assert bit_equal(got[3][0], want[3][0]) and bit_equal(got[3][1], want[3][1])
 
 
 def select_both(a):
@@ -1811,7 +1820,7 @@ def test_vio_select_and_observations_match_plain_on_a_random_map(cuda, u8, ncc):
     got, want = select_both(a)
     assert vs.vio_select.launches == n0 + 1
     assert_select_equal(got, want)
-    tracked, new = got
+    tracked, new, _ = got
     assert int(tracked.valid.sum()) > 20 and int(new[3].sum()) > 5
     full = a["vm"].n_obs[tracked.idx.long()] >= a["vm"].obs_fid.shape[1]
     assert int((full & tracked.valid).sum()) > 0  # some writes evict
@@ -1857,6 +1866,165 @@ def test_vio_kernels_with_nothing_tracked_or_added(cuda):
     g3, w3 = obs_both(vm, obs_args(b, got))
     assert_obs_equal(g3, w3)
     assert int(g3[0].n_pts) == vm.pos.shape[0]
+
+
+def claim_case(dev, case, rng):
+    """vio_observations' map and arguments on a random frame with new
+    points placed for the voxel-claim cases: `one_voxel`, six new points
+    in one new voxel (a leader and its followers); `shared_slot`, two new
+    voxels whose probe chains start at one free slot (a contested claim,
+    the later voxel in key order keeps it, the other probes on); `rounds`,
+    three new voxels whose first three probed slots hold other checks
+    (claimed in the fourth round, with followers) beside new voxels that
+    settle in the first round and points of voxels already in the map."""
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import vio_select as vs
+    from fastlivo_tpu_torch.ops.voxel_map import _slot_check
+
+    a = random_vio_frame(dev, seed=13, frames=6)
+    kw = {k: v for k, v in a.items() if k != "vm"}
+    args = list(obs_args(a, vs.vio_select(a["vm"], **kw)))
+    vm = clone_map(a["vm"])
+    T = vm.vox_keys.shape[0]
+    keys = vm.vox_keys.cpu().numpy()
+    B = args[6].shape[0]
+    npos = np.zeros((B, 3), np.float32)
+    nadd = np.zeros(B, bool)
+    # candidate voxels 2-8 m ahead, none of them in the map yet
+    grid = np.stack(np.meshgrid(np.arange(-6, 6), np.arange(-4, 4), np.arange(4, 16),
+                                indexing="ij"), -1).reshape(-1, 3).astype(np.int32)
+    slot, check = (x.cpu().numpy() for x in _slot_check(torch.from_numpy(grid), T - 1))
+    new = ~np.isin(check, keys)
+    free = (keys == tvm.EMPTY) & (np.roll(keys, -1) == tvm.EMPTY)
+
+    def put(rows, vox):  # new points at random places inside voxel `vox`
+        npos[rows] = (vox + rng.uniform(0.05, 0.95, (len(rows), 3))) * 0.5
+        nadd[rows] = True
+
+    if case == "one_voxel":
+        v = grid[np.flatnonzero(new)[0]]
+        put(np.arange(10, 16), v)
+        want = {"voxels": 1}
+    elif case == "shared_slot":
+        first = {}
+        for i in np.flatnonzero(new & free[slot]):
+            j = first.setdefault(slot[i], i)
+            if j != i and check[i] != check[j]:
+                break
+        else:
+            raise AssertionError("no two new voxels share a free first slot")
+        put(np.array([3, 4]), grid[j])
+        put(np.array([40, 41, 42]), grid[i])
+        want = {"voxels": 2, "slots": (slot[i], (slot[i] + 1) % T)}
+    else:
+        idx = np.flatnonzero(new)
+        busy = idx[:3]
+        keys = keys.copy()
+        for k, i in enumerate(busy):  # three other checks ahead of each
+            for r in range(3):
+                keys[(slot[i] + r) % T] = 1000 + 10 * k + r
+        for k, i in enumerate(busy):
+            put(np.arange(20 + 4 * k, 23 + 4 * k), grid[i])
+        for k, i in enumerate(idx[3:9]):  # the first round
+            put(np.array([60 + k]), grid[i])
+        vm = vm._replace(vox_keys=torch.as_tensor(keys, device=dev))
+        want = {"voxels": 9, "busy": [slot[i] for i in busy]}
+    # and points of voxels the map already holds
+    old = vm.pos[:int(vm.n_pts)][:4].cpu().numpy()
+    npos[100:104] = old
+    nadd[100:104] = True
+    args[11] = torch.as_tensor(npos, device=dev)
+    args[14] = torch.as_tensor(nadd, device=dev)
+    return vm, tuple(args), want
+
+
+@pytest.mark.parametrize("case", ["one_voxel", "shared_slot", "rounds"])
+def test_vio_observations_voxel_claims(cuda, case):
+    """The voxel hash's claim rounds in the kernel (claim_case): bit-equal
+    to the plain version in every map field; every new voxel holds its
+    points in row order, the contested slot went to one voxel and the
+    other took the next, the busy chains were claimed past the other
+    checks."""
+    from fastlivo_tpu_torch.ops.voxel_map import _slot_check
+
+    rng = np.random.default_rng(21)
+    vm, args, want = claim_case(cuda, case, rng)
+    got, ref = obs_both(vm, args)
+    assert_obs_equal(got, ref)
+    m = got[0]
+    n0, n1 = int(vm.n_pts), int(m.n_pts)
+    nadd = args[14].cpu().numpy()
+    assert n1 == n0 + int(nadd.sum())
+    keys = torch.floor(args[11][args[14]] / 0.5).to(torch.int32)
+    T = m.vox_keys.shape[0]
+    slot, check = _slot_check(keys, T - 1)
+    added = (m.vox_keys != vm.vox_keys).sum().item()
+    assert added == want["voxels"]
+    VC = m.vox_idx.shape[1]
+    for k in range(keys.shape[0]):  # each new point's row in its voxel
+        s = [(int(slot[k]) + r) % T for r in range(12)]
+        hit = [x for x in s if int(m.vox_keys[x]) == int(check[k])]
+        assert hit
+        cnt = int(m.vox_count[hit[0]])
+        if cnt <= VC:
+            assert n0 + k in m.vox_idx[hit[0]][:cnt].tolist()
+    if case == "shared_slot":
+        a, b = want["slots"]
+        assert int(m.vox_keys[a]) != int(vm.vox_keys[a]) != int(m.vox_keys[b])
+    if case == "rounds":
+        for s0 in want["busy"]:
+            assert int(m.vox_keys[(s0 + 3) % T]) != int(vm.vox_keys[(s0 + 3) % T])
+
+
+def test_vio_observations_at_2048_rows(cuda):
+    """B = 2048 rows (the wrapper's limit; 2049 refused): tracked rows of
+    distinct points, the invalid rows' indices anywhere in the pool (some
+    of them the rows the new points take), new points sharing voxels;
+    bit-equal to the plain version, also with the point pool full but for
+    100 rows, and with n_pts 50 below the map's last point (tracked rows
+    that the new points then take again, their rings partly filled)."""
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+
+    a = random_vio_frame(cuda, seed=17, frames=8)
+    vm = a["vm"]
+    rng = np.random.default_rng(23)
+    B, NP, n = 2048, vm.pos.shape[0], int(vm.n_pts)
+    t = lambda x, **kw: torch.as_tensor(x, device=cuda, **kw)  # noqa: E731
+    idx = rng.integers(0, NP, B).astype(np.int32)
+    idx[rng.integers(0, B, 64)] = rng.integers(n, n + 300, 64)  # aliasing new rows
+    k = min(n, 1200)
+    rows = rng.permutation(B)[:k]
+    idx[rows] = rng.permutation(n)[:k]
+    valid = np.zeros(B, bool)
+    valid[rows] = rng.random(k) < 0.8
+    z = rng.uniform(2.0, 8.0, B)
+    npos = np.stack([z * rng.uniform(-0.6, 0.6, B), z * rng.uniform(-0.45, 0.45, B), z], -1)
+    npos[1::3] = npos[0::3][:len(npos[1::3])]  # shared voxels
+    f64 = dict(dtype=torch.float64)
+    rot2 = (so3.exp(t(rng.normal(0, 0.003, 3), **f64)) @ a["rot"]).contiguous()
+    pos2 = a["pos"] + t(rng.normal(0, 0.015, 3) + [0.6, 0.0, 0.0], **f64)
+    args = (a["cam"], a["img"], rot2, pos2, a["Rci"], a["Pci"], t(idx), t(valid),
+            t(rng.integers(0, 3, B).astype(np.int32)), a["Rci"].clone(), a["Pci"].clone(),
+            t(npos.astype(np.float32)), t(rng.uniform(0, 600, (B, 2)).astype(np.float32)),
+            t(rng.uniform(0, 50, B).astype(np.float32)), t(rng.random(B) < 0.5),
+            (vm.img_fid.max()).to(torch.int32))
+    got, want = obs_both(vm, args)
+    assert_obs_equal(got, want)
+    assert int(got[0].n_pts) > n + 500
+    assert vo.vio_observations.grid >= 2
+    full = vm._replace(n_pts=torch.tensor(NP - 100, dtype=torch.int32, device=cuda))
+    got, want = obs_both(full, args)
+    assert_obs_equal(got, want)
+    assert int(got[0].n_pts) == NP
+    shrunk = vm._replace(n_pts=torch.tensor(n - 50, dtype=torch.int32, device=cuda))
+    retaken = valid & (idx >= n - 50) & (idx < n)
+    assert retaken.sum() > 10 and (vm.n_obs[n - 50:n] > 1).any()
+    got, want = obs_both(shrunk, args)
+    assert_obs_equal(got, want)
+    with pytest.raises(ValueError):
+        vo.vio_observations(vm, *args[:6], *(torch.cat([x, x[:1]]) for x in args[6:9]),
+                            *args[9:11], *(torch.cat([x, x[:1]]) for x in args[11:15]),
+                            args[15])
 
 
 def livo_calls(dev, monkeypatch, u8=True, frames=6):
@@ -1931,7 +2099,7 @@ def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatc
 
     calls, v, ds = livo_calls(cuda, monkeypatch, frames=4)
     snap, a, kw, _ = calls[-1]["select"]
-    cam, gray = a[0], a[3]
+    cam, gray = a[0], a[5]
     monkeypatch.setattr(vio, "vio_select", vs.vio_select)
     monkeypatch.setattr(vio, "vio_observations", vo.vio_observations)
     ds_state = vio_state(ds, 2.3, dpos=(0.004, -0.003, 0.0), device=cuda)
@@ -1976,7 +2144,8 @@ def test_vio_kernels_refuse_bad_inputs(cuda):
     n0 = vs.vio_select.launches
     for bad, err in ((dict(patch_size=10), ValueError), (dict(pg=a["pg"].double()), TypeError),
                      (dict(pg_mask=a["pg_mask"][:-1]), ValueError),
-                     (dict(rcw=a["rcw"].t()), ValueError),
+                     (dict(rot=a["rot"].t()), ValueError),
+                     (dict(Rci=a["Rci"].double()), TypeError),
                      (dict(img=a["img"][:, :-1]), ValueError)):
         with pytest.raises(err):
             vs.vio_select(a["vm"], **{**kw, **bad})
@@ -1985,7 +2154,8 @@ def test_vio_kernels_refuse_bad_inputs(cuda):
     assert vs.vio_select.launches == n0
     args = obs_args(a, vs.vio_select(a["vm"], **kw))
     n1 = vo.vio_observations.launches
-    for k, bad in ((4, args[4].long()), (5, args[5][:-1]), (1, args[1].double())):
+    for k, bad in ((6, args[6].long()), (7, args[7][:-1]), (1, args[1].double()),
+                   (2, args[2].float()), (3, args[3][:2])):
         with pytest.raises((TypeError, ValueError)):
             vo.vio_observations(a["vm"], *args[:k], bad, *args[k + 1:])
     assert vo.vio_observations.launches == n1
@@ -2012,47 +2182,52 @@ def vio_write_only(dev, kernel):
         Nv = a["vox"].shape[0]
         ins = [vm.pos, vm.value, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot, vm.obs_fid,
                vm.vox_keys, vm.vox_count, vm.vox_idx, vm.imgs, vm.img_fid, cam.fx, cam.fy,
-               cam.cx, cam.cy, cam.d, a["rcw"], a["pcw"], a["img"], a["pg"], a["pg_mask"],
-               a["vox"], a["vox_mask"], a["outlier_threshold"], a["ncc_thre"]]
+               cam.cx, cam.cy, cam.d, a["rot"], a["pos"], a["Rci"], a["Pci"], a["img"],
+               a["pg"], a["pg_mask"], a["vox"], a["vox_mask"], a["outlier_threshold"],
+               a["ncc_thre"]]
         scratch = [torch.empty(G, dtype=torch.int64, device=dev),
                    torch.empty(G, dtype=torch.int64, device=dev), torch.empty(FH * FW, **i32),
-                   torch.empty(Nv * VC, **i32), torch.empty(M, **f32),
+                   torch.empty((Nv * VC, 4), **f32), torch.empty(M, **f32),
                    torch.empty((M, 2), **f32), torch.empty(M, **f32)]
         outs = [torch.empty(G, **i32), torch.empty((G, 3), **f32),
                 torch.empty((G, 3, P, P), **f32), torch.empty(G, **i32),
                 torch.empty(G, dtype=torch.bool, device=dev), torch.empty(G, **f32),
                 torch.empty(G, **f32), torch.empty((G, 3), **f32), torch.empty((G, 2), **f32),
-                torch.empty(G, **f32), torch.empty(G, dtype=torch.bool, device=dev)]
+                torch.empty(G, **f32), torch.empty(G, dtype=torch.bool, device=dev),
+                torch.empty((3, 3), **f32), torch.empty(3, **f32)]
         grid = ctypes.c_int(0)
         got = launch_guarded(lambda *v: vs._launcher()(
             *ptr(*v), NP, KO, T, VC, R, FH, FW, M, Nv, 40, FH // 40, G, P, 0, 12, 1,
             ctypes.byref(grid), stream), ins, scratch + outs)[len(scratch):]
-        want = list(sel[0]) + list(sel[1])
-        names = list(sel[0]._fields) + ["pos", "px", "score", "add"]
+        want = [*sel[0], *sel[1], *sel[2]]
+        names = list(sel[0]._fields) + ["pos", "px", "score", "add", "rcw", "pcw"]
     else:
         args = obs_args(a, sel)
-        wm, wopc, wosc = vo.vio_observations_plain(clone_map(vm), *args)
-        (cam, img, rcw2, pcw2, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx, nscore, nadd,
-         fid) = args
+        wm, wopc, wosc, wpose = vo.vio_observations_plain(clone_map(vm), *args)
+        (cam, img, rot2, pos2, Rci, Pci, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx, nscore,
+         nadd, fid) = args
         B = t_idx.shape[0]
-        ins = [vm.n_pts, vm.img_fid, cam.fx, cam.fy, cam.cx, cam.cy, cam.d, img, rcw2, pcw2,
-               rcw, pcw, fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd]
+        ins = [vm.n_pts, vm.img_fid, cam.fx, cam.fy, cam.cx, cam.cy, cam.d, img, rot2, pos2,
+               Rci, Pci, rcw, pcw, fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd]
         names = ["pos", "value", "n_obs", "obs_px", "obs_rcw", "obs_pcw", "obs_slot",
                  "obs_fid", "obs_level", "vox_keys", "vox_count", "vox_idx"]
-        outs = [getattr(vm, f) for f in names] + [torch.empty((B, 2), **f32),
-                                                  torch.empty(B, **f32), torch.empty((), **i32)]
+        outs = [getattr(vm, f) for f in names] + [
+            torch.empty((B, 2), **f32), torch.empty(B, **f32), torch.empty((), **i32),
+            torch.empty((3, 3), **f32), torch.empty(3, **f32), torch.empty(B, **i32)]
 
-        def launch(n_pts, img_fid, fx, fy, cx, cy, d, img, rcw2, pcw2, rcw, pcw, fid, t_idx,
-                   t_valid, t_slevel, npos, npx, nscore, nadd, pos, value, n_obs, obs_px,
-                   obs_rcw, obs_pcw, obs_slot, obs_fid, obs_level, vk, vc, vi, opc, osc, npo):
+        def launch(n_pts, img_fid, fx, fy, cx, cy, d, img, rot2, pos2, Rci, Pci, rcw, pcw, fid,
+                   t_idx, t_valid, t_slevel, npos, npx, nscore, nadd, pos, value, n_obs, obs_px,
+                   obs_rcw, obs_pcw, obs_slot, obs_fid, obs_level, vk, vc, vi, opc, osc, npo,
+                   rcw2, pcw2, nrow):
+            grid = ctypes.c_int(0)
             return vo._launcher()(*ptr(
                 pos, value, n_obs, n_pts, obs_px, obs_rcw, obs_pcw, obs_slot, obs_fid,
-                obs_level, vk, vc, vi, img_fid, fx, fy, cx, cy, d, img, rcw2, pcw2, rcw, pcw,
-                fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd, opc, osc, npo),
-                NP, KO, T, VC, R, FH, FW, B, 12, stream)
+                obs_level, vk, vc, vi, img_fid, fx, fy, cx, cy, d, img, rot2, pos2, Rci, Pci,
+                rcw, pcw, fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd, opc, osc, npo,
+                rcw2, pcw2, nrow), NP, KO, T, VC, R, FH, FW, B, 12, ctypes.byref(grid), stream)
 
-        got = launch_guarded(launch, ins, outs)
-        want = [getattr(wm, f) for f in names] + [wopc, wosc, wm.n_pts]
-        names = names + ["opc", "oscore", "n_pts"]
+        got = launch_guarded(launch, ins, outs)[:-1]  # the scratch last
+        want = [getattr(wm, f) for f in names] + [wopc, wosc, wm.n_pts, *wpose]
+        names = names + ["opc", "oscore", "n_pts", "rcw2", "pcw2"]
     for g, w, name in zip(got, want, names):
         assert bit_equal(g, w), name

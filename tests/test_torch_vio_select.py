@@ -25,7 +25,14 @@ frames, and a next frame at a perturbed prior. Tolerances:
   - an empty frame (no scan row, no voxel): nothing tracked or added,
     the map unchanged, as in JAX;
   - vio.frame_kernels_apply: True on a CUDA device without a mesh, False
-    on the CPU, over a mesh and with the pool in slabs.
+    on the CPU, over a mesh and with the pool in slabs;
+  - the camera poses: both wrappers take a state's rot and pos (f64) with
+    the extrinsics and return the pose they used, equal to vio._cam_pose
+    and within 1e-6 of the JAX package's `Rci @ rot32.T`, `-rcw @ pos32 +
+    Pci` (a matmul's order: a few ulp); vio_select on the scene's prior,
+    vio_observations on the posterior with every ring full and with the
+    point pool full. The JAX side is fed the port's poses, so that both
+    select and update the same frame.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -61,26 +68,38 @@ def statics(jv):
     return dict(grid_size=jv.grid_size, patch_size=jv.patch_size, gw=jv.gw, gh=jv.gh)
 
 
+def state_pose(sc, dpos=(0.0, 0.0, 0.0)):
+    """The scene's prior state moved by `dpos` (world, m): its rot and pos
+    (f64 tensors), the extrinsics, and the port's camera pose of it
+    (vio._cam_pose) as f32 numpy, which the JAX side is fed."""
+    tv = sc["tv"]
+    rot = torch.from_numpy(np.array(sc["prior"].rot, np.float64))
+    pos = torch.from_numpy(np.asarray(sc["prior"].pos, np.float64) + np.asarray(dpos))
+    rcw, pcw = tvio._cam_pose(tv.Rci, tv.Pci, rot, pos)
+    return (rot, pos, tv.Rci, tv.Pci), rcw.numpy(), pcw.numpy()
+
+
 def select_both(sc, d, pg, pm, vox, vm, ncc=False):
     jv, tv = sc["jv"], sc["tv"]
     jmap, tmap = both_maps(d)
     kw = statics(jv)
     thr = np.float32(0.5 if ncc else 100.0)
-    tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+    state, rcw, pcw = state_pose(sc)
+    tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(rcw), jnp.asarray(pcw),
                              jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
                              jnp.asarray(vox), jnp.asarray(vm), jv._out_thre_dev,
                              jnp.float32(thr), ncc_en=ncc, **kw)
-    nj = jvio.select_new_points(jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+    nj = jvio.select_new_points(jv.cam, jnp.asarray(rcw), jnp.asarray(pcw),
                                 jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
                                 tj.cell_value, **kw)
     t = torch.from_numpy
-    got = vs.vio_select(tmap, tv.cam, t(sc["rcw"]), t(sc["pcw"]), t(sc["gray"]), t(pg), t(pm),
-                        t(vox), t(vm), tv._out_thre_dev, torch.tensor(thr), ncc_en=ncc, **kw)
+    got = vs.vio_select(tmap, tv.cam, *state, t(sc["gray"]), t(pg), t(pm), t(vox), t(vm),
+                        tv._out_thre_dev, torch.tensor(thr), ncc_en=ncc, **kw)
     return (tj, nj), got
 
 
 def assert_select_close(want, got):
-    (tj, nj), (tt, nt) = want, got
+    (tj, nj), (tt, nt, _) = want, got
     valid = np.asarray(tj.valid)
     for f in ("valid", "idx", "search_level", "cell_value"):
         np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(tj, f)),
@@ -114,22 +133,25 @@ def frame_inputs(sc, d):
     """The scene's next frame selected by the JAX package on the map `d`,
     its image pushed first; the posterior pose 0.6 m from the prior (every
     tracked row passes the Δp gate). Returns (the map arrays after the
-    push, the observation inputs as numpy)."""
+    push, the observation inputs as numpy: the posterior state rot2, pos2,
+    the poses rcw2, pcw2 and rcw, pcw of the posterior and the prior)."""
     jv = sc["jv"]
     (pg, pm, vox, vm), _ = stage_inputs(sc)
     fid = np.int32(jv.fid)
     jmap = jvm.push_image(both_maps(d)[0], jnp.asarray(sc["gray"]), jnp.int32(fid))
     d = arrays(jmap)
     kw = statics(jv)
-    tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+    _, rcw, pcw = state_pose(sc)
+    tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(rcw), jnp.asarray(pcw),
                              jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
                              jnp.asarray(vox), jnp.asarray(vm), jv._out_thre_dev,
                              jv._ncc_thre_dev, **kw)
-    nj = jvio.select_new_points(jv.cam, jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"]),
+    nj = jvio.select_new_points(jv.cam, jnp.asarray(rcw), jnp.asarray(pcw),
                                 jnp.asarray(sc["gray"]), jnp.asarray(pg), jnp.asarray(pm),
                                 tj.cell_value, **kw)
-    pcw2 = (sc["pcw"] + np.array([0.6, 0.0, 0.0], np.float32)).astype(np.float32)
-    inp = dict(rcw2=sc["rcw"], pcw2=pcw2, idx=np.array(tj.idx), valid=np.array(tj.valid),
+    (rot2, pos2, _, _), rcw2, pcw2 = state_pose(sc, (0.6, 0.0, 0.0))
+    inp = dict(rot2=rot2.numpy(), pos2=pos2.numpy(), rcw2=rcw2, pcw2=pcw2, rcw=rcw, pcw=pcw,
+               idx=np.array(tj.idx), valid=np.array(tj.valid),
                slevel=np.array(tj.search_level), npos=np.array(nj[0]), npx=np.array(nj[1]),
                nscore=np.array(nj[2]), nadd=np.array(nj[3]), fid=fid)
     return d, inp
@@ -138,20 +160,21 @@ def frame_inputs(sc, d):
 def observations_both(sc, d, inp):
     jv, tv = sc["jv"], sc["tv"]
     jmap, tmap = both_maps(d)
-    j = {k: jnp.asarray(v) for k, v in inp.items()}
+    j = {k: jnp.asarray(v) for k, v in inp.items() if k not in ("rot2", "pos2")}
     gray = jnp.asarray(sc["gray"])
-    rcw, pcw = jnp.asarray(sc["rcw"]), jnp.asarray(sc["pcw"])
     opc, osc, oadd = jvio.prep_observations(jmap, jv.cam, j["rcw2"], j["pcw2"], gray, j["idx"],
                                             j["valid"])
     jmap = jvm.add_observations(jmap, j["idx"], opc, j["rcw2"], j["pcw2"], osc, j["fid"],
                                 j["slevel"], oadd)
-    jmap = jvm.add_points(jmap, j["npos"], j["npx"], rcw, pcw, j["nscore"], j["fid"],
-                          j["nadd"])
+    jmap = jvm.add_points(jmap, j["npos"], j["npx"], j["rcw"], j["pcw"], j["nscore"],
+                          j["fid"], j["nadd"])
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in inp.items()}
-    tmap, topc, tosc = vo.vio_observations(
-        tmap, tv.cam, torch.from_numpy(sc["gray"]), t["rcw2"], t["pcw2"], t["idx"], t["valid"],
-        t["slevel"], torch.from_numpy(sc["rcw"]), torch.from_numpy(sc["pcw"]), t["npos"],
-        t["npx"], t["nscore"], t["nadd"], t["fid"])
+    tmap, topc, tosc, pose2 = vo.vio_observations(
+        tmap, tv.cam, torch.from_numpy(sc["gray"]), t["rot2"], t["pos2"], tv.Rci, tv.Pci,
+        t["idx"], t["valid"], t["slevel"], t["rcw"], t["pcw"], t["npos"], t["npx"],
+        t["nscore"], t["nadd"], t["fid"])
+    np.testing.assert_array_equal(pose2[0].numpy(), inp["rcw2"])
+    np.testing.assert_array_equal(pose2[1].numpy(), inp["pcw2"])
     a, b = arrays(jmap), convert.visual_map_to_arrays(tmap)
     for f in tvm.VisualMap._fields:
         assert a[f].dtype == b[f].dtype and a[f].shape == b[f].shape, f
@@ -164,7 +187,7 @@ def observations_both(sc, d, inp):
     valid = inp["valid"]
     np.testing.assert_allclose(topc.numpy()[valid], np.asarray(opc)[valid], atol=1e-3)
     np.testing.assert_allclose(tosc.numpy()[valid], np.asarray(osc)[valid], rtol=1e-4)
-    return arrays(jmap), np.asarray(oadd)
+    return arrays(jmap), np.asarray(oadd), pose2
 
 
 def fill_rings(d, rng):
@@ -207,7 +230,7 @@ def test_vio_observations_matches_jax(scene, case):  # noqa: F811
         rows = np.flatnonzero(inp["nadd"])[:2]
         inp["npos"] = inp["npos"].copy()
         inp["npos"][rows] = (grid[[a, b]] + 0.5) * 0.5
-    after, oadd = observations_both(scene, d, inp)
+    after, oadd, _ = observations_both(scene, d, inp)
     kept = int(inp["nadd"].sum())
     if case == "pool_full":
         assert int(after["n_pts"]) == NP and kept > 3
@@ -232,7 +255,7 @@ def test_empty_frame_matches_jax(scene):  # noqa: F811
     assert not valid.any() and not add.any() and not got[0].cell_value.any()
     d2, inp = frame_inputs(scene, d)
     inp.update(valid=np.zeros_like(inp["valid"]), nadd=np.zeros_like(inp["nadd"]))
-    after, _ = observations_both(scene, d2, inp)
+    after, _, _ = observations_both(scene, d2, inp)
     for f, v in d2.items():
         np.testing.assert_array_equal(after[f], v, err_msg=f)
 
@@ -265,3 +288,43 @@ def test_cpu_frame_takes_the_plain_versions(scene, monkeypatch):  # noqa: F811
     observations_both(scene, d, inp)
     assert not calls and (vs.vio_select.launches, vo.vio_observations.launches) == n
     assert int(got[0].valid.sum()) > 10
+
+
+def jax_pose(Rci, Pci, rot, pos):
+    """The JAX package's camera pose of a state (fastlivo_tpu/vio.py's
+    `Rci @ rot32.T`, `-rcw @ pos32 + Pci`), as numpy."""
+    rcw = jnp.asarray(Rci.numpy()) @ jnp.asarray(rot.numpy(), jnp.float32).T
+    pcw = -rcw @ jnp.asarray(pos.numpy(), jnp.float32) + jnp.asarray(Pci.numpy())
+    return np.asarray(rcw), np.asarray(pcw)
+
+
+@pytest.mark.parametrize("case", ["select", "full_rings", "pool_full"])
+def test_poses_from_the_state(scene, case):  # noqa: F811
+    """Each wrapper's pose is the state's (vio._cam_pose, bit for bit) and
+    the JAX package's within 1e-6: vio_select's of the prior state, and
+    vio_observations' of the posterior one, also with every ring full
+    and with the point pool full (where the kept observations evict and
+    the new points are dropped)."""
+    if case == "select":
+        (pg, pm, vox, vm), _ = stage_inputs(scene)
+        _, got = select_both(scene, arrays(scene["jv"].vmap), pg, pm, vox, vm)
+        (rot, pos, Rci, Pci), _, _ = state_pose(scene)
+        rcw, pcw = got[2]
+    else:
+        d, inp = frame_inputs(scene, arrays(scene["jv"].vmap))
+        if case == "full_rings":
+            d = fill_rings(d, np.random.default_rng(5))
+        else:
+            d["n_pts"] = np.asarray(d["pos"].shape[0] - 2, np.int32)
+        after, oadd, (rcw, pcw) = observations_both(scene, d, inp)
+        assert oadd.sum() > 10
+        if case == "pool_full":
+            assert int(after["n_pts"]) == d["pos"].shape[0]
+        rot, pos = torch.from_numpy(inp["rot2"]), torch.from_numpy(inp["pos2"])
+        Rci, Pci = scene["tv"].Rci, scene["tv"].Pci
+    want = tvio._cam_pose(Rci, Pci, rot, pos)
+    assert rcw.dtype == pcw.dtype == torch.float32
+    assert torch.equal(rcw, want[0]) and torch.equal(pcw, want[1])
+    jr, jp = jax_pose(Rci, Pci, rot, pos)
+    np.testing.assert_allclose(rcw.numpy(), jr, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(pcw.numpy(), jp, rtol=0, atol=1e-6)
