@@ -52,6 +52,7 @@
 #include "knn5_tiled_walk.cuh"
 #include "so3.cuh"
 #include "ekf_step.cuh"
+#include "phase_stamps.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -154,6 +155,7 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool lead = blockIdx.x == 0;
   const int R = c.cpb * CH;  // rows a block owns
+  PHASE_STAMP_START();
   float* s_p = smem;          // (3, R) p_imu
   float* s_bns = s_p + 3 * R;  // (R,)
   float* s_pl = s_bns + R;    // (4, R) the plane
@@ -181,6 +183,7 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
   __syncthreads();
 
   for (int iter = 0;; ++iter) {
+    PHASE_STAMP_IT(iter, 0);
     const double* rsrc = iter == 0 ? c.rot0 : c.cur;
     const double* xsrc = iter == 0 ? c.x0 : c.cur + 9;
     const bool search = iter == 0 || __ldcg(c.ctl) != 0;
@@ -257,14 +260,18 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
       tree64(red, c.part + (size_t)chunk * EKF_NH, warp, lane);
       __syncthreads();
     }
+    PHASE_STAMP_IT(iter, 1);
     grid.sync();
+    PHASE_STAMP_IT(iter, 2);
 
     if (lead) {
       reduce_chunks(c.part, c.part2, c.nch, red, tot, tid);
       if (tid < 6) tot[7 * tid + 6] = -tot[7 * tid + 6];  // the photometric form
       __syncthreads();
+      PHASE_STAMP_IT(iter, 3);
       if (tid < 32) step_warp(pr, crot, cx, tot, st, tid, c.conv_rot_deg, c.conv_pos_cm);
       __syncthreads();
+      PHASE_STAMP_IT(iter, 4);
       if (tid == 0) {
         const int it = it_s;
         const bool rematch = st.conv || (rematch_s == 0 && it == c.max_iter - 2);
@@ -276,8 +283,10 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
         c.ctl[0] = rematch ? 1 : 0;
         c.ctl[1] = stop ? 1 : 0;
       }
+      PHASE_STAMP_IT(iter, 5);
     }
     grid.sync();
+    PHASE_STAMP_IT(iter, 6);
     if (__ldcg(c.ctl + 1)) break;
   }
 
@@ -297,6 +306,7 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
     for (int e = tid; e < DS * 6; e += THREADS) c.Gmat[e] = st.G[e / 6][e - (e / 6) * 6];
     if (tid == 0) *c.its = it_s + 1;
   }
+  PHASE_STAMP(1);
 }
 
 template <int M, int L>
@@ -334,6 +344,8 @@ int launch(Lio& c, int* grid_out, cudaStream_t stream) {
 }
 
 }  // namespace
+
+PHASE_STAMPS_EXPORT(lio_cascade)
 
 // The cascade on n >= 0 points: the tiled map (dir_check, dir_slot (D,)
 // int32, cell_check (T*512,) int32, pts (T*512, 3) f32, voxel_size () f32,

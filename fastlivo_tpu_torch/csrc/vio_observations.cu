@@ -55,7 +55,7 @@
 
 #include "hash_mix.cuh"
 #include "vio_common.cuh"
-#include "vio_stamps.cuh"
+#include "phase_stamps.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -301,7 +301,7 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
   }
   if (tid == 0) *o.n_pts_out = np0 + n_new;
   __syncthreads();
-  VIO_STAMP(7);
+  PHASE_STAMP(7);
   // (z, y, x, row) order by counting: against the kept rows, S threads a
   // row (a power of two, adjacent lanes, each a share of the kept rows,
   // their counts summed by shuffles), and against the others at once
@@ -332,7 +332,7 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
     }
   }
   __syncthreads();
-  VIO_STAMP(8);
+  PHASE_STAMP(8);
   const int tmask = o.T - 1;
   for (int p = tid; p < B; p += THREADS) {
     const int i = s.row[p];
@@ -364,7 +364,7 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
   }
   __syncthreads();
   for (int p = tid; p < B; p += THREADS) s.rank[p] = p - s.first[s.grp[p]];
-  VIO_STAMP(9);
+  PHASE_STAMP(9);
   // claim rounds while a leader is pending (a follower never claims)
   int round = 0;
   for (;;) {
@@ -404,7 +404,7 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
     ++round;
     if (!__syncthreads_or(pending) || round == o.max_probe) break;
   }
-  VIO_STAMP(10);
+  PHASE_STAMP(10);
   // the followers still pending probe on: no claim changes the table now
   for (int p = tid; p < B; p += THREADS) {
     if (s.done[p]) continue;
@@ -469,7 +469,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
   __shared__ float rcw2[9], pcw2[3], campos2[3], rcw[9], pcw[3];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool inserter = blockIdx.x == gridDim.x - 1;
-  VIO_STAMP_START();
+  PHASE_STAMP_START();
   if (tid == 0) sh_first = o.R;
   if (tid == 0) vio::cam_pose(o.rot, o.spos, o.Rci, o.Pci, rcw2, pcw2);
   if (tid < 9) rcw[tid] = __ldg(o.rcw + tid);
@@ -484,7 +484,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
   const int np0 = __ldg(o.n_pts);
   __syncthreads();
   const int slot = sh_first < o.R ? sh_first : 0;  // visual_map._slot_of_fid
-  VIO_STAMP(1);
+  PHASE_STAMP(1);
 
   const int nwarps = (gridDim.x - 1) * WARPS;
   const int gw = blockIdx.x * WARPS + warp;
@@ -503,18 +503,18 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
       a += o.B;
     }
     insert_hash(o, s, s_w, np0);
-    VIO_STAMP(5);
+    PHASE_STAMP(5);
   } else {
     const vio::Cam cam = vio::load_cam(o.fx, o.fy, o.cx, o.cy, o.dist);
     for (int k = gw, j = 0; k < o.B; k += nwarps, ++j) {
       const int pack = prep_row(o, cam, rcw2, pcw2, campos2, k, lane);
       if (lane == 0) sm[j * WARPS + warp] = pack;
     }
-    VIO_STAMP(6);
+    PHASE_STAMP(6);
   }
-  VIO_STAMP(2);
+  PHASE_STAMP(2);
   grid.sync();
-  VIO_STAMP(3);
+  PHASE_STAMP(3);
   // the writes, the new rows spread over every warp of the grid
   if (!inserter) {
     const int n_new = __ldcg(o.n_pts_out) - np0;
@@ -526,7 +526,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     const int r = __ldcg(o.nrow + i);
     if (r >= 0) write_new_row(o, rcw, pcw, slot, fid, i, r, lane);
   }
-  VIO_STAMP(4);
+  PHASE_STAMP(4);
 }
 
 struct DevInfo {
@@ -536,7 +536,7 @@ DevInfo g_dev[MAX_DEV];
 
 }  // namespace
 
-VIO_STAMPS_EXPORT(vio_observations)
+PHASE_STAMPS_EXPORT(vio_observations)
 
 // The map upkeep of one camera frame over B rows (the grid cells), in
 // place. Pointers, all contiguous on the device: the visual map's pos (NP,

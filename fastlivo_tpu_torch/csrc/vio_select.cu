@@ -60,7 +60,7 @@
 
 #include "hash_mix.cuh"
 #include "vio_common.cuh"
-#include "vio_stamps.cuh"
+#include "phase_stamps.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -473,7 +473,7 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gt = blockIdx.x * THREADS + threadIdx.x, nt = gridDim.x * THREADS;
   const int gw = gt >> 5, nw = nt >> 5;
-  VIO_STAMP_START();
+  PHASE_STAMP_START();
   if (threadIdx.x == 0) vio::cam_pose(s.rot, s.spos, s.Rci, s.Pci, sh_rcw, sh_pcw);
 
   const size_t HW = (size_t)s.H * s.W;
@@ -491,7 +491,7 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   }
   for (int r = threadIdx.x; r < s.R; r += THREADS) sh_img_fid[r] = __ldg(s.img_fid + r);
   __syncthreads();
-  VIO_STAMP(5);
+  PHASE_STAMP(5);
   const vio::Cam cam = vio::load_cam(s.fx, s.fy, s.cx, s.cy, s.dist);
   float rcw[9], pcw[3], campos[3];
   for (int k = 0; k < 9; ++k) rcw[k] = sh_rcw[k];
@@ -500,7 +500,7 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   if (blockIdx.x == 0 && threadIdx.x < 9) s.rcw_out[threadIdx.x] = rcw[threadIdx.x];
   if (blockIdx.x == 0 && threadIdx.x < 3) s.pcw_out[threadIdx.x] = pcw[threadIdx.x];
   grid.sync();
-  VIO_STAMP(1);
+  PHASE_STAMP(1);
   // a half-warp a voxel, then a half-warp a scan row: the voxels first
   // (their chain is the longer)
   const int nvp = (s.Nv + 1) / 2, nrp = (s.M + 1) / 2;
@@ -515,9 +515,9 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
       if (r < s.M) scan_row(s, cam, rcw, pcw, r, hl, hmask);
     }
   }
-  VIO_STAMP(2);
+  PHASE_STAMP(2);
   grid.sync();
-  VIO_STAMP(3);
+  PHASE_STAMP(3);
   // four warps a cell, the cells spread over the blocks
   const int role = warp & 3;
   CellSh& sh = csh[warp >> 2];
@@ -538,7 +538,7 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
     if (live && role == 0) cell_gates(s, w, c, lane, sh);
     __syncthreads();
   }
-  VIO_STAMP(4);
+  PHASE_STAMP(4);
 }
 
 struct DevInfo {
@@ -548,7 +548,7 @@ DevInfo g_dev[MAX_DEV];
 
 }  // namespace
 
-VIO_STAMPS_EXPORT(vio_select)
+PHASE_STAMPS_EXPORT(vio_select)
 
 // The selection of one camera frame. Pointers, all contiguous on the
 // device: the visual map's pos (NP, 3), value (NP,), obs_px (NP, KO, 2),

@@ -33,7 +33,8 @@ backwards (A B ... B A), each a median of `--reps` queued calls
 (chip_smoke.time_ms; vio_observations on one copy of the map, which each
 call writes again), beside an empty kernel, with the launcher's host
 wall a call (chip_smoke.host_ms over `--reps` calls). A `--stamps`
-variant is built again with -DVIO_PHASE_STAMPS (csrc/vio_stamps.cuh) and
+variant is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh; and
+-DVIO_PHASE_STAMPS, the define of a checkout older than that header) and
 launched `--reps` times alone, synchronised, reading its phase stamps
 after each launch: the median of each phase (ms, %globaltimer) beside the
 median of the stamped launch's first-to-last stamp. Prints one JSON line
@@ -76,12 +77,12 @@ PHASES = {
 
 def build(tree: str, name: str, stamps: bool):
     """csrc/<name>.cu of `tree`, compiled with this checkout's flags (and
-    -DVIO_PHASE_STAMPS); its source kept on the library as `source`."""
+    the stamps' defines); its source kept on the library as `source`."""
     from fastlivo_tpu_torch.ops import _build
 
     csrc = os.path.join(tree, "fastlivo_tpu_torch", "csrc")
     src = os.path.join(csrc, f"{name}.cu")
-    flags = _build.NVCC_FLAGS + (["-DVIO_PHASE_STAMPS"] if stamps else [])
+    flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS", "-DVIO_PHASE_STAMPS"] if stamps else [])
     h = hashlib.sha256(os.path.abspath(src).encode())
     for f in sorted(os.listdir(csrc)):
         with open(os.path.join(csrc, f), "rb") as fh:
@@ -320,7 +321,7 @@ def stamped(lib, name, launch, reps):
 
     if not hasattr(lib, f"{name}_stamps"):
         raise SystemExit(f"torch_vio_kernels_bench: {name} of this checkout has no phase "
-                         "stamps (csrc/vio_stamps.cuh)")
+                         "stamps (csrc/phase_stamps.cuh)")
     read = getattr(lib, f"{name}_stamps")
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     read.restype = ctypes.c_int
