@@ -2,7 +2,7 @@
 card, and whether their outputs are bit-equal.
 
 Usage: python scripts/torch_photometric_bench.py [--variant TREE ...]
-           [--g 192] [--reps 30]
+           [--stamps TREE ...] [--g 192] [--reps 30] [--out FILE]
 
 Each variant is csrc/photometric_err_H.cu and, where the checkout has
 it, csrc/photometric_cascade.cu (the cascade and the step alone) of the
@@ -18,11 +18,16 @@ mrad from the start pose, 85% valid, P = 8, the cascade over levels
 compared bit for bit with the first variant's: one photometric_err_H
 launch at level 0, one cascade and one step (at the start pose, on the
 plain measurement's [HᵀH | Hᵀz]; a step kernel without the convergence
-thresholds among its arguments is called without them). The variants
-are then timed in turns,
+thresholds among its arguments is called without them); each cascade
+also with the host loop vio.photometric_loop (this checkout's
+measurement and step kernels). The variants are then timed in turns,
 forwards and backwards (A B ... B A), each a median of `--reps` queued
-calls (chip_smoke.time_ms), beside an empty kernel. Prints one JSON line
-with the card's `nvidia-smi` name and power limit.
+calls (chip_smoke.time_ms), beside an empty kernel. A `--stamps` variant
+is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh) and its
+cascade launched `--reps` times alone, synchronised, reading its phase
+stamps after each launch: each phase summed over the iterations
+(stamped_phases), the median over the launches. Prints one JSON line with
+the card's `nvidia-smi` name and power limit (and writes it to `--out`).
 """
 import argparse
 import ctypes
@@ -36,28 +41,79 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def build(tree: str, name: str):
+# a cascade's phases: (name, from boundary, to boundary) of each
+# iteration's PHASE_STAMP_IT slots; a kernel without a boundary (one grid
+# barrier an iteration has no 6) reports no such phase
+PHASES = [("measurement or search", 0, 1), ("barrier", 1, 2), ("reduction", 2, 3),
+          ("step", 3, 4), ("carry", 4, 5), ("second barrier", 5, 6)]
+IT_BASE, IT_MAX, IT_NPH = 16, 64, 8  # csrc/phase_stamps.cuh
+
+
+def build(tree: str, name: str, stamps: bool = False):
+    """csrc/<name>.cu of the checkout at `tree`, compiled with this
+    checkout's flags (and -DPHASE_STAMPS) into
+    build/fastlivo_tpu_torch/photometric_bench/; None where the checkout
+    has no such source. Its source is kept on the library as `source`."""
     from fastlivo_tpu_torch.ops import _build
 
     src = os.path.join(tree, "fastlivo_tpu_torch", "csrc", f"{name}.cu")
     if not os.path.exists(src):
         return None
+    flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS"] if stamps else [])
     h = hashlib.sha256(os.path.abspath(src).encode())
     for f in sorted(os.listdir(os.path.dirname(src))):
         with open(os.path.join(os.path.dirname(src), f), "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(_build.NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     out_dir = _build.BUILD_DIR / "photometric_bench"
     out_dir.mkdir(parents=True, exist_ok=True)
     out = str(out_dir / f"lib{name}-{h.hexdigest()[:12]}.so")
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    if not os.path.exists(out):
+        res = subprocess.run([_build._nvcc(), *flags, "-o", out, src], capture_output=True,
+                             text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
     lib = ctypes.CDLL(out)
     with open(src, "rb") as fh:
         lib.source = fh.read()
     return lib
+
+
+def stamped_phases(lib, name, launch, reps):
+    """The stamped cascade `launch` `reps` times alone (after one warm-up
+    launch), synchronised, its stamps read after each: per launch each
+    phase summed over the recorded iterations, the setup (kernel start to
+    the first iteration) and the total (kernel start to its last block's
+    end); the median of each over the launches (ms), with the iterations
+    recorded."""
+    import numpy as np
+    import torch
+
+    if not hasattr(lib, f"{name}_stamps"):
+        raise SystemExit(f"{name} of this checkout has no phase stamps (csrc/phase_stamps.cuh)")
+    read = getattr(lib, f"{name}_stamps")
+    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    read.restype = ctypes.c_int
+    n = IT_BASE + IT_MAX * IT_NPH
+    buf = (ctypes.c_ulonglong * n)()
+    read(buf, n)  # reset
+    rows = []
+    for _ in range(reps + 1):
+        launch()
+        torch.cuda.synchronize()
+        if read(buf, n):
+            raise RuntimeError(f"{name}: reading the stamps failed")
+        t = np.array(buf[IT_BASE:], dtype=np.float64).reshape(IT_MAX, IT_NPH)
+        its = int((t[:, 0] > 0).sum())
+        t = t[:its]
+        row = {"setup": (t[0, 0] - buf[0]) / 1e6, "total": (int(buf[1]) - int(buf[0])) / 1e6,
+               "iterations": its}
+        for label, a, b in PHASES:
+            if (t[:, b] > 0).all():
+                row[label] = float((t[:, b] - t[:, a]).sum()) / 1e6
+        rows.append(row)
+    rows = rows[1:]  # the first launch warms up
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
 
 
 def inputs(dev, G, seed=0):
@@ -112,14 +168,17 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--variant", action="append", default=None)
+    ap.add_argument("--stamps", action="append", default=[])
     ap.add_argument("--g", type=int, default=192)
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
     variants = args.variant or ["."]
 
     import torch
 
     import chip_smoke
+    from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch.ops import photometric as ph
 
     if not torch.cuda.is_available():
@@ -131,6 +190,7 @@ def main():
     HT = ph.photometric_err_H_plain(*meas, partials=True)[0][:42].view(6, 7).contiguous()
     step = (a[5], a[6], a[7], a[8], a[9], HT)
     real = (ph._launcher, ph._cascade_launcher, ph._step_launcher)
+    loop = vio.photometric_loop(*a)
     calls, outs = {}, {}
     try:
         for v in variants:
@@ -169,9 +229,26 @@ def main():
         res[kernel] = {"ms": times, "bit_equal_to_first": equal, "empty_kernel_ms": empty}
         if kernel == "photometric_cascade":
             res[kernel]["iterations"] = int(ref[5])
-    ph._launcher, ph._cascade_launcher, ph._step_launcher = real
-    print(json.dumps({"variants": variants, "g": args.g, "runs": res,
-                      "card": chip_smoke.nvidia_smi_line()}))
+            res[kernel]["bit_equal_to_host_loop"] = {
+                v: int(outs[(kernel, v)][5]) == loop[5]
+                and all(torch.equal(x, y) for x, y in zip(outs[(kernel, v)][:5], loop[:5]))
+                for v in vs}
+    stamps = {}
+    try:
+        for v in args.stamps:
+            bound = _bind(build(os.path.join(ROOT, v), "photometric_cascade", stamps=True),
+                          "photometric_cascade")
+            ph._cascade_launcher = lambda bound=bound: bound
+            stamps[v] = stamped_phases(bound.lib, "photometric_cascade",
+                                       lambda: ph.photometric_cascade(*a), args.reps)
+    finally:
+        ph._launcher, ph._cascade_launcher, ph._step_launcher = real
+    line = json.dumps({"variants": variants, "g": args.g, "runs": res, "stamps": stamps,
+                       "card": chip_smoke.nvidia_smi_line()})
+    print(line)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
 
 
 def _bind(lib, kernel):
@@ -201,7 +278,9 @@ def _bind(lib, kernel):
                        + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return _build.profiled(kernel, fn)
+    call = _build.profiled(kernel, fn)
+    call.lib = lib
+    return call
 
 
 if __name__ == "__main__":
