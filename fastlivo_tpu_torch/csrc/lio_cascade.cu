@@ -31,16 +31,25 @@
 // (the searches', ~120 a row each iteration, the f64 steps) over the f32 and
 // f64 rates. Neither counts the dependent chain that holds the launch far
 // above it: the chunk trees, a grid barrier, the chunk-sum trees and the
-// f64 step in one block, a second barrier, every iteration. Design: one
-// cooperative, persistent launch (cudaLaunchCooperativeKernel) of as many
-// 256-thread blocks as can be co-resident, at most one per chunk of 64
-// rows; block b owns chunks b, b + grid, ... for the whole launch and
-// keeps their p_imu, |p_body|^(1/2), mask, sel, plane and plane_ok in
-// shared memory across the iterations (the while_loop's carry). No host
-// read and no launch between iterations, so the search pays no launch
-// and no host round trip; no float atomics (the grid barrier is the only
-// atomic). Built with -fmad=false: every product rounds alone, as in the
-// plain version's torch ops.
+// f64 step, every iteration. Design: one cooperative, persistent launch
+// (cudaLaunchCooperativeKernel) of as many 256-thread blocks as can be
+// co-resident, at most one per chunk of 64 rows; block b owns chunks b, b
+// + grid, ... for the whole launch and keeps their p_imu, |p_body|^(1/2),
+// mask, sel, plane and plane_ok in shared memory across the iterations
+// (the while_loop's carry). Each iteration: the block's chunks (while the
+// first chunk's gates run, a spare warp forms the step's vec, Log on the
+// pose only), their sums into the chunk sums of the iteration's parity
+// (double-buffered: a block that starts iteration i + 1 never writes what
+// a slower block still reads of iteration i), one grid barrier, then every
+// block reduces the chunk sums (the first level through L2, the levels
+// above it in its own shared memory), runs the step in one warp's
+// registers and the state machine in one thread, and so holds the same
+// next pose and flags as every other block: no second barrier. Block 0
+// writes the pose, G and the count. No host read and no launch between
+// iterations, so the search pays no launch and no host round trip; no
+// float atomics (the grid barrier is the only atomic). Built with
+// -fmad=false: every product rounds alone, as in the plain version's torch
+// ops.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,7 +69,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-constexpr int CH = 64;  // rows of a chunk, and chunk sums of a group
+constexpr int CH = 64;  // rows of a chunk, and sums of a group at every level
+constexpr int TB = 12;  // a warp's groups of a level loaded at once
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct Lio {
@@ -73,10 +83,10 @@ struct Lio {
   const double* prior_x;    // (15,)
   const double* rot0;       // (3, 3) the state's
   const double* x0;         // (15,)
-  double* cur;              // scratch (24): the next iteration's rot, x
-  int* ctl;                 // scratch (2): search_en, stop
-  float* part;              // scratch (max(nch, 1), 42): the chunk sums
-  float* part2;             // scratch (max(ceil(nch / 64), 1), 42)
+  double* cur;              // scratch (24): block 0's next rot, x (epoch flag)
+  int* ctl;                 // scratch (4): its search_en, stop, epoch
+  float* part;              // scratch (2, 42, stride): the chunk sums by parity
+  int stride;               // max(nch, 1)
   double* rot_out;          // (3, 3)
   double* x_out;            // (15,)
   double* Gmat;             // (18, 6)
@@ -90,67 +100,128 @@ struct Lio {
   double conv_rot_deg, conv_pos_cm;
 };
 
-// The block's dynamic shared memory for `cpb` chunks: per owned row p_imu
-// (3), |p|^(1/2) (1) and the plane (4) as floats and one byte of flags
-// (bit 0 pmask, 1 sel, 2 plane_ok); the chunk's world points (3 x 64) and
-// its products (64 x 42).
-__host__ __device__ constexpr size_t smem_bytes(int cpb) {
-  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH) * sizeof(float) + (size_t)cpb * CH;
+// Groups of 64 at the first level of the chunk sums' reduction, and at
+// the second.
+__host__ __device__ constexpr int groups1(int nch) { return (nch + CH - 1) / CH; }
+__host__ __device__ constexpr int groups2(int nch) { return (groups1(nch) + CH - 1) / CH; }
+
+// The block's dynamic shared memory for `cpb` chunks of nch: per owned
+// row p_imu (3), |p|^(1/2) (1) and the plane (4) as floats; the chunk's
+// world points (3 x 64) and its products (64 x 42); the reduction's level
+// sums above the first (42 x groups1, 42 x groups2, in turn); one byte of
+// flags per owned row (bit 0 pmask, 1 sel, 2 plane_ok).
+__host__ __device__ constexpr size_t smem_bytes(int cpb, int nch) {
+  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH
+                  + EKF_NH * (groups1(nch) + groups2(nch))) * sizeof(float)
+         + (size_t)cpb * CH;
 }
 
-// Warp `warp` of the block sums columns warp, warp + 8, ... of the (64,
-// 42) rows in red by a halving tree (row i + row i + 32, then lanes i and
-// i + 16, 8, 4, 2, 1): ops/lio_cascade.py::fixed_order_sum's order.
-// Column c's sum goes to out[c].
-__device__ __forceinline__ void tree64(const float* red, float* out, int warp, int lane) {
-  for (int col = warp; col < EKF_NH; col += NWARP) {
-    float v = red[lane * EKF_NH + col] + red[(lane + 32) * EKF_NH + col];
+// The halving tree of ops/lio_cascade.py::fixed_order_sum over 64 values,
+// lane i holding values i and i + 32: their sum, then lanes i and i + 16,
+// 8, 4, 2, 1. The total in lane 0.
+__device__ __forceinline__ float tree64_pair(float lo, float hi) {
+  float v = lo + hi;
 #pragma unroll
-    for (int s = 16; s >= 1; s >>= 1) v = v + __shfl_down_sync(FULL_MASK, v, s);
-    if (lane == 0) out[col] = v;
+  for (int s = 16; s >= 1; s >>= 1) v = v + __shfl_down_sync(FULL_MASK, v, s);
+  return v;
+}
+
+// Warp `warp` of the block sums columns warp, warp + 8, ... of a chunk's
+// (64, 42) rows in red; column c's sum goes to out[c * ostride].
+__device__ __forceinline__ void tree64(const float* red, float* out, int ostride, int warp,
+                                       int lane) {
+  for (int col = warp; col < EKF_NH; col += NWARP) {
+    const float v = tree64_pair(red[lane * EKF_NH + col], red[(lane + 32) * EKF_NH + col]);
+    if (lane == 0) out[(size_t)col * ostride] = v;
   }
 }
 
-// Block 0: the nch chunk sums in part reduced to tot (42) in the fixed
-// order: groups of 64 staged into red (zeros past the end) and summed by
-// tree64, level by level, part and part2 in turn holding a level's sums,
-// until one is left. Every thread of the block calls.
-__device__ void reduce_chunks(float* part, float* part2, int nch, float* red, float* tot,
-                              int tid) {
+template <bool kL2>
+__device__ __forceinline__ float ld(const float* p) {
+  if constexpr (kL2) return __ldcg(p);  // other blocks', written before the grid barrier
+  else return *p;
+}
+
+// One level of the fixed order, by the whole block: the cnt values of
+// each of the 42 columns (value i of column c at in[c * stride + i]) in
+// groups of 64, zeros past cnt, each group summed by tree64_pair into
+// out[c * ostride + group]; a warp's (group, column) pairs TB at a time,
+// their loads in flight together.
+template <bool kL2>
+__device__ void tree_level(const float* in, int stride, int cnt, float* out, int ostride,
+                           int warp, int lane) {
+  const int T = groups1(cnt) * EKF_NH;
+  for (int t0 = warp; t0 < T; t0 += NWARP * TB) {
+    float lo[TB], hi[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const int t = t0 + b * NWARP;
+      const int g = t / EKF_NH, col = t - g * EKF_NH;
+      const int i = g * CH + lane;
+      const float* src = in + (size_t)col * stride;
+      lo[b] = t < T && i < cnt ? ld<kL2>(src + i) : 0.0f;
+      hi[b] = t < T && i + 32 < cnt ? ld<kL2>(src + i + 32) : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float v = tree64_pair(lo[b], hi[b]);
+      const int t = t0 + b * NWARP;
+      if (lane == 0 && t < T) out[(size_t)(t % EKF_NH) * ostride + t / EKF_NH] = v;
+    }
+  }
+}
+
+// The nch chunk sums (column-major in part, row stride `stride`) reduced
+// to tot (42) in the fixed order: one chunk is its own total; otherwise
+// groups of 64 level by level, the first level through L2, the ones above
+// it in the block's shared memory (lv1, lv2 in turn), until one group is
+// left. Every thread of the block calls; ends with a block barrier. Past
+// 64² chunks (n > 262144) there is a third level and more, each in the
+// same two buffers.
+__device__ void reduce_chunks(const float* part, int stride, int nch, float* lv1, float* lv2,
+                              float* tot, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
   if (nch <= 1) {
-    if (tid < EKF_NH) tot[tid] = nch == 1 ? __ldcg(part + tid) : 0.0f;
+    if (tid < EKF_NH) tot[tid] = nch == 1 ? __ldcg(part + (size_t)tid * stride) : 0.0f;
     __syncthreads();
     return;
   }
-  float* src = part;
-  float* dst = part2;
-  for (int cnt = nch; cnt > 1;) {
-    const int groups = (cnt + CH - 1) / CH;
-    for (int g = 0; g < groups; ++g) {
-      const float* s = src + (size_t)g * CH * EKF_NH;
-      for (int e = tid; e < CH * EKF_NH; e += THREADS)
-        red[e] = g * CH + e / EKF_NH < cnt ? __ldcg(s + e) : 0.0f;
-      __syncthreads();
-      tree64(red, groups == 1 ? tot : dst + (size_t)g * EKF_NH, warp, lane);
-      __syncthreads();
-    }
-    float* t = src;
-    src = dst;
-    dst = t;
-    cnt = groups;
+  const float* in = part;
+  int istride = stride, cnt = nch;
+  float* bufs[2] = {lv1, lv2};
+  for (int level = 0;; ++level) {
+    const int groups = groups1(cnt);
+    float* out = groups == 1 ? tot : bufs[level & 1];
+    const int ostride = groups == 1 ? 1 : groups;
+    if (level == 0) tree_level<true>(in, istride, cnt, out, ostride, warp, lane);
+    else tree_level<false>(in, istride, cnt, out, ostride, warp, lane);
+    __syncthreads();
+    if (groups == 1) return;
+    in = out;
+    istride = cnt = groups;
   }
 }
 
+#ifdef CASCADE_EPOCH_FLAG
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+#endif
+
 template <int M, int L>
-__global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
+__global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   extern __shared__ float smem[];
   __shared__ Step st;
   __shared__ Prior pr;
   __shared__ float pose[12];  // rot (3, 3) and pos (3) in f32
   __shared__ float tot[EKF_NH];
-  __shared__ double crot[9], cx[NX];  // block 0: the pose
-  __shared__ int it_s, rematch_s;     // block 0: the state machine
+  __shared__ double crot[9], cx[NX];                // the pose in force
+  __shared__ int it_s, rematch_s, search_s, stop_s;  // the state machine
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool lead = blockIdx.x == 0;
@@ -161,7 +232,9 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
   float* s_pl = s_bns + R;    // (4, R) the plane
   float* s_pw = s_pl + 4 * R;  // (3, CH) a chunk's world points
   float* red = s_pw + 3 * CH;  // (CH, 42) a chunk's products
-  uint8_t* s_fl = reinterpret_cast<uint8_t*>(red + CH * EKF_NH);  // (R,) flags
+  float* lv1 = red + CH * EKF_NH;               // (42, groups1)
+  float* lv2 = lv1 + EKF_NH * groups1(c.nch);  // (42, groups2)
+  uint8_t* s_fl = reinterpret_cast<uint8_t*>(lv2 + EKF_NH * groups2(c.nch));  // (R,) flags
 
   // the owned rows: chunk k of this block is blockIdx.x + k * gridDim.x
   for (int e = tid; e < R; e += THREADS) {
@@ -171,24 +244,24 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
     s_bns[e] = in ? c.bns[row] : 1.0f;
     s_fl[e] = in ? (c.pmask[row] ? 1 : 0) : 0;
   }
-  if (lead) {
-    load_prior(c.Pp, c.prior_rot, c.prior_x, pr, tid, THREADS);
-    if (tid < 9) crot[tid] = c.rot0[tid];
-    if (tid < NX) cx[tid] = c.x0[tid];
-    if (tid == 0) {
-      it_s = -1;
-      rematch_s = 0;
-    }
+  if (tid < 9) crot[tid] = c.rot0[tid];
+  if (tid < NX) cx[tid] = c.x0[tid];
+  if (tid == 0) {
+    it_s = -1;
+    rematch_s = stop_s = 0;
+    search_s = 1;
+#ifdef CASCADE_EPOCH_FLAG
+    if (lead) c.ctl[2] = 0;  // ordered before any wait by the grid barrier
+#endif
   }
-  __syncthreads();
+  load_prior(c.Pp, c.prior_rot, c.prior_x, pr, tid, THREADS);
 
   for (int iter = 0;; ++iter) {
     PHASE_STAMP_IT(iter, 0);
-    const double* rsrc = iter == 0 ? c.rot0 : c.cur;
-    const double* xsrc = iter == 0 ? c.x0 : c.cur + 9;
-    const bool search = iter == 0 || __ldcg(c.ctl) != 0;
+    float* part = c.part + (size_t)(iter & 1) * EKF_NH * c.stride;
+    const bool search = search_s != 0;
     // the pose in f32, as the plain version casts it (rot.to(f32))
-    if (tid < 12) pose[tid] = (float)(tid < 9 ? __ldcg(rsrc + tid) : __ldcg(xsrc + tid - 9));
+    if (tid < 12) pose[tid] = (float)(tid < 9 ? crot[tid] : cx[tid - 9]);
     __syncthreads();
 
     for (int k = 0; k < c.cpb; ++k) {
@@ -224,7 +297,8 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
         }
         __syncthreads();
       }
-      // the gates, the H row and its 42 products (zeros past n)
+      // the gates, the H row and its 42 products (zeros past n); the
+      // last warp forms the step's vec meanwhile
       if (tid < CH) {
         const int lr = r0 + tid;
         float* out = red + tid * EKF_NH;
@@ -255,39 +329,64 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
         } else {
           for (int e = 0; e < EKF_NH; ++e) out[e] = 0.0f;
         }
+      } else if (k == 0 && warp == NWARP - 1) {
+        step_vec(pr, crot, cx, st.vec, lane);
       }
       __syncthreads();
-      tree64(red, c.part + (size_t)chunk * EKF_NH, warp, lane);
+      tree64(red, part + chunk, c.stride, warp, lane);
       __syncthreads();
     }
+    if (blockIdx.x >= c.nch && warp == NWARP - 1) step_vec(pr, crot, cx, st.vec, lane);
     PHASE_STAMP_IT(iter, 1);
     grid.sync();
     PHASE_STAMP_IT(iter, 2);
 
+#ifdef CASCADE_EPOCH_FLAG
     if (lead) {
-      reduce_chunks(c.part, c.part2, c.nch, red, tot, tid);
-      if (tid < 6) tot[7 * tid + 6] = -tot[7 * tid + 6];  // the photometric form
-      __syncthreads();
-      PHASE_STAMP_IT(iter, 3);
-      if (tid < 32) step_warp(pr, crot, cx, tot, st, tid, c.conv_rot_deg, c.conv_pos_cm);
-      __syncthreads();
-      PHASE_STAMP_IT(iter, 4);
-      if (tid == 0) {
-        const int it = it_s;
-        const bool rematch = st.conv || (rematch_s == 0 && it == c.max_iter - 2);
-        rematch_s += rematch ? 1 : 0;
-        const bool stop = rematch_s >= 2 || it == c.max_iter - 1;
-        it_s = it + 1;
-        for (int k = 0; k < 9; ++k) c.cur[k] = crot[k] = st.nrot[k];
-        for (int k = 0; k < NX; ++k) c.cur[9 + k] = cx[k] = st.nx[k];
-        c.ctl[0] = rematch ? 1 : 0;
-        c.ctl[1] = stop ? 1 : 0;
-      }
-      PHASE_STAMP_IT(iter, 5);
+#endif
+    reduce_chunks(part, c.stride, c.nch, lv1, lv2, tot, tid);
+    if (tid < 6) tot[7 * tid + 6] = -tot[7 * tid + 6];  // the photometric form
+    __syncthreads();
+    PHASE_STAMP_IT(iter, 3);
+    if (warp == 0) step_warp(pr, crot, cx, tot, st, lane, c.conv_rot_deg, c.conv_pos_cm, 0);
+    __syncthreads();
+    PHASE_STAMP_IT(iter, 4);
+    if (tid == 0) {
+      const int it = it_s;
+      const bool rematch = st.conv || (rematch_s == 0 && it == c.max_iter - 2);
+      rematch_s += rematch ? 1 : 0;
+      const bool stop = rematch_s >= 2 || it == c.max_iter - 1;
+      it_s = it + 1;
+      for (int k = 0; k < 9; ++k) crot[k] = st.nrot[k];
+      for (int k = 0; k < NX; ++k) cx[k] = st.nx[k];
+      search_s = rematch ? 1 : 0;
+      stop_s = stop ? 1 : 0;
+#ifdef CASCADE_EPOCH_FLAG
+      for (int k = 0; k < 9; ++k) c.cur[k] = crot[k];
+      for (int k = 0; k < NX; ++k) c.cur[9 + k] = cx[k];
+      c.ctl[0] = search_s;
+      c.ctl[1] = stop_s;
+      __threadfence();
+      st_release(c.ctl + 2, iter + 1);
+#endif
     }
-    grid.sync();
-    PHASE_STAMP_IT(iter, 6);
-    if (__ldcg(c.ctl + 1)) break;
+#ifdef CASCADE_EPOCH_FLAG
+    } else {  // wait for block 0's step, then take its pose and flags
+      if (tid == 0)
+        while (ld_acquire(c.ctl + 2) <= iter) {
+        }
+      __syncthreads();
+      if (tid < 9) crot[tid] = __ldcg(c.cur + tid);
+      else if (tid < 9 + NX) cx[tid - 9] = __ldcg(c.cur + tid);
+      else if (tid == 24) {
+        search_s = __ldcg(c.ctl);
+        stop_s = __ldcg(c.ctl + 1);
+      }
+    }
+#endif
+    __syncthreads();
+    PHASE_STAMP_IT(iter, 5);
+    if (stop_s) break;
   }
 
   for (int e = tid; e < R; e += THREADS) {
@@ -300,10 +399,9 @@ __global__ void __launch_bounds__(THREADS) lio_cascade_kernel(const Lio c) {
     }
   }
   if (lead) {
-    __syncthreads();
     if (tid < 9) c.rot_out[tid] = crot[tid];
     if (tid < NX) c.x_out[tid] = cx[tid];
-    for (int e = tid; e < DS * 6; e += THREADS) c.Gmat[e] = st.G[e / 6][e - (e / 6) * 6];
+    step_gain(st, 0, c.Gmat, tid, THREADS);
     if (tid == 0) *c.its = it_s + 1;
   }
   PHASE_STAMP(1);
@@ -322,7 +420,7 @@ int launch(Lio& c, int* grid_out, cudaStream_t stream) {
   int cpb = 1, grid = 1;
   size_t smem = 0;
   for (;;) {
-    smem = smem_bytes(cpb);
+    smem = smem_bytes(cpb, c.nch);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     int per_sm = 0;
     if (e == cudaSuccess)
@@ -352,24 +450,24 @@ PHASE_STAMPS_EXPORT(lio_cascade)
 // log2_dims (3,) int32) and the offsets (m, 3) int32, m 27 (radius 1) or
 // 125 (radius 2); p_imu (n, 3) f32, bns (n,) f32, pmask (n,) u8; P' (18,
 // 18), the prior's rot (3, 3) and x (15,), the state's rot and x, f64;
-// scratch cur (24) f64, ctl (2) int, part (max(nch, 1), 42) f32 and part2
-// (max(ceil(nch / 64), 1), 42) f32 with nch = ceil(n / 64); outputs rot
-// (3, 3), x (15,), Gmat (18, 6) f64, sel (n,) u8, pabcd (n, 4) f32,
-// plane_ok (n,) u8 and its () int32. All contiguous on the device. The
-// plane fit's threshold, the gates on nd2_5, s and |pd2|, and the
-// convergence thresholds in degrees and centimetres.
+// scratch cur (24) f64, ctl (4) int and part (2, 42, max(nch, 1)) f32 with
+// nch = ceil(n / 64); outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
+// (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
+// contiguous on the device. The plane fit's threshold, the gates on nd2_5,
+// s and |pd2|, and the convergence thresholds in degrees and centimetres.
 // `grid_out` receives the number of blocks launched. Returns the launch's
 // cudaError_t (0 = cudaSuccess); cudaErrorCooperativeLaunchTooLarge where
-// not even one block fits on an SM.
+// not even one block fits on an SM (or the shared memory of a huge n does
+// not fit).
 extern "C" int lio_cascade_launch(
     const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
     const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
     const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
     const void* prior_x, const void* rot0, const void* x0, void* cur, void* ctl, void* part,
-    void* part2, void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out,
-    void* ok_out, void* its, int n, int m, int T, int max_iter, float threshold,
-    float sq_dist_gate, float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm,
-    int* grid_out, void* stream) {
+    void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
+    void* its, int n, int m, int T, int max_iter, float threshold, float sq_dist_gate,
+    float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm, int* grid_out,
+    void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   Lio c;
   c.mp = TiledView{static_cast<const int32_t*>(dir_check), static_cast<const int32_t*>(dir_slot),
@@ -387,7 +485,6 @@ extern "C" int lio_cascade_launch(
   c.cur = static_cast<double*>(cur);
   c.ctl = static_cast<int*>(ctl);
   c.part = static_cast<float*>(part);
-  c.part2 = static_cast<float*>(part2);
   c.rot_out = static_cast<double*>(rot_out);
   c.x_out = static_cast<double*>(x_out);
   c.Gmat = static_cast<double*>(Gmat);
@@ -397,6 +494,7 @@ extern "C" int lio_cascade_launch(
   c.its = static_cast<int*>(its);
   c.n = n;
   c.nch = (n + CH - 1) / CH;
+  c.stride = c.nch < 1 ? 1 : c.nch;
   c.cpb = 1;
   c.max_iter = max_iter;
   c.threshold = threshold;

@@ -79,7 +79,7 @@ __global__ void photometric_err_H_kernel(const Args a) {
   const int tid = threadIdx.x;
 
   load_pose(a.rot, a.pos, pose);
-  measure_point(a.m, pose, a.level, a.m.tr_patch, g, smem, a.partial, a.perr);
+  measure_point(a.m, pose, a.level, a.m.tr_patch, g, smem, a.partial, a.perr, blockDim.x);
   __threadfence();  // the partial is visible before the ticket is taken
   __syncthreads();
   if (tid == 0) s_last = (atomicAdd(a.ticket, 1) == G - 1);

@@ -4,9 +4,10 @@
 // the two cannot drift apart: per tracked point the projection, the
 // (P+3)^2 taps, the 43 terms per pixel and the block's fixed-order sums
 // (measure_point), and over the G points the fixed-order sum of their
-// partials (reduce_partials). Include after patch_sample.cuh. Each
-// expression follows ops/photometric.py::photometric_err_H_plain in its
-// order of operations (built with -fmad=false).
+// partials (reduce_partials, the order of ops/photometric.py::
+// partials_sum). Include after patch_sample.cuh. Each expression follows
+// ops/photometric.py::photometric_err_H_plain in its order of operations
+// (built with -fmad=false).
 #pragma once
 
 #include <stdint.h>
@@ -16,8 +17,8 @@ namespace {
 constexpr int NH = 42;      // [HᵀWH | HᵀWz], 6 x 7 row-major
 constexpr int NT = NH + 1;  // a pixel's terms: the 42 products and res_w²
 constexpr int NP = NH + 2;  // a point's partial: the 42 sums, perr, weight
-constexpr int CH = 192;     // partial rows staged at a time by the reduction
-constexpr int LB = 24;      // loads in flight per thread while staging
+constexpr int NCH = 8 * NP;  // the reduction's chains: 8 interleaved per quantity
+constexpr int RB = 24;       // rows of a chain loaded at once
 constexpr unsigned FULL = 0xffffffffu;
 enum { ROBUST_NONE = 0, ROBUST_HUBER = 1, ROBUST_TUKEY = 2 };
 
@@ -51,10 +52,16 @@ __host__ __device__ inline int meas_threads(int P) {
 }
 
 // Shared floats of a block: the taps, the warp sums or the reduction's
-// staged rows, and the reduction's totals.
+// chain sums, and the reduction's totals.
 __host__ __device__ inline int meas_red_floats(int threads) {
   const int nwarps = threads / 32;
-  return nwarps * NT > CH * NP ? nwarps * NT : CH * NP;
+  return nwarps * NT > NCH ? nwarps * NT : NCH;
+}
+
+// A barrier of the first nt threads of the block (nt a multiple of 32):
+// the measurement's, which the warps past them do not join.
+__device__ __forceinline__ void meas_sync(int nt) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
 }
 __host__ __device__ inline int meas_smem_floats(int P, int threads) {
   return (P + 3) * (P + 3) + meas_red_floats(threads) + NP;
@@ -76,15 +83,16 @@ __device__ __forceinline__ void load_pose(const double* rot, const double* pos,
   __syncthreads();
 }
 
-// Point g's measurement at the pose load_pose left in `pose` (rot32 (9),
-// pos32 (3)) and pyramid `level`, by the whole block: writes the 44-float
-// partial[g] (the 42 sums, its perr, its weight) and perr[g]. `patch` is
-// tr_patch offset to the level's plane.
+// Point g's measurement at the pose in `pose` (rot32 (9), pos32 (3), in
+// shared memory) and pyramid `level`, by the block's first nt threads
+// (meas_threads(P) or more, a multiple of 32; their own barriers): writes
+// the 44-float partial[g] (the 42 sums, its perr, its weight) and perr[g].
+// `patch` is tr_patch offset to the level's plane.
 __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, int level,
                                               const float* patch, int g, float* smem,
-                                              float* partial, float* perr) {
+                                              float* partial, float* perr, int nt) {
   const int n = a.P + 3;
-  const int nwarps = blockDim.x >> 5;
+  const int nwarps = nt >> 5;
   float* taps = smem;         // n * n
   float* red = taps + n * n;  // nwarps x NT
   const int tid = threadIdx.x;
@@ -139,7 +147,7 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
 
   const int s = (1 << level) << a.tr_slevel[g];
   const PatchAnchor an = patch_anchor(u, v, s);
-  load_taps(a.img, a.H, a.W, an, s, a.P, taps, tid, blockDim.x);
+  load_taps(a.img, a.H, a.W, an, s, a.P, taps, tid, nt);
 
   // N = Jdpi · Mg (2 x 6), Mg = [skew(pf)·Jdphi_dR - Jdp_dR | -rcw]
   const float zi = 1.0f / (front ? pf[2] : 1.0f);
@@ -168,7 +176,7 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
     N1[f] = (J[1][0] * Mg[0][f] + J[1][1] * Mg[1][f]) + J[1][2] * Mg[2][f];
   }
   const float w = (a.tr_valid[g] != 0 && front) ? 1.0f : 0.0f;
-  __syncthreads();  // taps loaded
+  meas_sync(nt);  // taps loaded
 
   float acc[NT];
 #pragma unroll
@@ -212,7 +220,7 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
     const float t = warp_sum(acc[q]);
     if (lane == 0) red[warp * NT + q] = t;
   }
-  __syncthreads();
+  meas_sync(nt);
   if (tid < NT) {
     float t = red[tid];
     for (int k = 1; k < nwarps; ++k) t = t + red[k * NT + tid];
@@ -223,46 +231,64 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
   }
 }
 
-// The G partials summed by one block into tot[0:NP] (shared memory), CH
-// rows at a time through shared memory (every thread keeps LB independent
-// loads in flight, read through L2), each quantity summed by one thread
-// over the rows in order, in eight interleaved partial sums. Ends with a
-// block barrier; tot then holds the 42 sums, Σperr and Σweight.
+// The G partials summed by the whole block into tot[0:NP] (shared
+// memory) in a fixed order: quantity q's rows g < G8 = G - G % 8 in eight
+// interleaved chains (row g into chain g % 8, in row order), the last G %
+// 8 rows after chain 0's, each chain from 0.0f; then ((t0 + t1) + (t2 +
+// t3)) + ((t4 + t5) + (t6 + t7)). Each of the 8 x NP chains is one
+// thread's, read through L2 RB rows at a time, a thread's two chains at
+// once. Ends with a block barrier; tot then holds the 42 sums, Σperr and
+// Σweight.
 __device__ __forceinline__ void reduce_partials(const float* partial, int G, float* smem,
                                                 int P) {
-  const int tid = threadIdx.x;
-  float* rows = smem + (P + 3) * (P + 3);  // CH x NP, over the warp sums
-  float* tot = rows + meas_red_floats(blockDim.x);
-  float t[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int g0 = 0; g0 < G; g0 += CH) {
-    const int nr = min(CH, G - g0);
-    const int nv = nr * NP;
-    const float* src = partial + (size_t)g0 * NP;
-    for (int b = 0; b < nv; b += LB * blockDim.x) {
-      float v[LB];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float* chains = smem + (P + 3) * (P + 3);  // NCH, over the warp sums
+  float* tot = chains + meas_red_floats(nt);
+  const int G8 = G - (G & 7);
+  for (int u0 = tid; u0 < NCH; u0 += 2 * nt) {
+    const int u[2] = {u0, u0 + nt};
+    const bool two = u[1] < NCH;
+    int jj[2], q[2];
+    float t[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < LB; ++j) {
-        const int e = b + j * blockDim.x + tid;
-        v[j] = e < nv ? __ldcg(src + e) : 0.0f;
+    for (int k = 0; k < 2; ++k) {
+      jj[k] = (two || k == 0 ? u[k] : u[0]) / NP;
+      q[k] = (two || k == 0 ? u[k] : u[0]) - jj[k] * NP;
+    }
+    int g = 0;  // chain k's rows jj[k] + g, jj[k] + g + 8, ...
+    for (; g + 8 * (RB - 1) + 7 < G8; g += 8 * RB) {
+      float v[2][RB];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+          v[k][i] = __ldcg(partial + (size_t)(jj[k] + g + 8 * i) * NP + q[k]);
       }
 #pragma unroll
-      for (int j = 0; j < LB; ++j) {
-        const int e = b + j * blockDim.x + tid;
-        if (e < nv) rows[e] = v[j];
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int i = 0; i < RB; ++i) t[k] = t[k] + v[k][i];
       }
     }
-    __syncthreads();
-    if (tid < NP) {
-      int r = 0;
-      for (; r + 8 <= nr; r += 8) {
+    for (; g < G8; g += 8) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) t[j] = t[j] + rows[(r + j) * NP + tid];
-      }
-      for (; r < nr; ++r) t[0] = t[0] + rows[r * NP + tid];
+      for (int k = 0; k < 2; ++k) t[k] = t[k] + __ldcg(partial + (size_t)(jj[k] + g) * NP + q[k]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (jj[k] == 0) {
+        for (int r = G8; r < G; ++r) t[k] = t[k] + __ldcg(partial + (size_t)r * NP + q[k]);
+      }
+    }
+    chains[u[0]] = t[0];
+    if (two) chains[u[1]] = t[1];
   }
-  if (tid < NP) tot[tid] = ((t[0] + t[1]) + (t[2] + t[3])) + ((t[4] + t[5]) + (t[6] + t[7]));
+  __syncthreads();
+  if (tid < NP) {
+    const float* c = chains + tid;
+    tot[tid] = ((c[0] + c[NP]) + (c[2 * NP] + c[3 * NP])) +
+               ((c[4 * NP] + c[5 * NP]) + (c[6 * NP] + c[7 * NP]));
+  }
   __syncthreads();
 }
 

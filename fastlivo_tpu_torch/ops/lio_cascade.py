@@ -66,7 +66,7 @@ def _launcher():
     from . import _build
 
     fn = _build.load("lio_cascade").lio_cascade_launch
-    fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
                    + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
@@ -107,13 +107,12 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     plane_ok = torch.empty(N, dtype=torch.bool, device=dev)
     pabcd = torch.empty((N, 4), dtype=F32, device=dev)
     its = torch.empty((), dtype=torch.int32, device=dev)
-    cur, ctl = torch.empty(24, **f64), torch.empty(2, dtype=torch.int32, device=dev)
-    part = torch.empty((max(nch, 1), 42), dtype=F32, device=dev)
-    part2 = torch.empty((max(-(-nch // CHUNK), 1), 42), dtype=F32, device=dev)
+    cur, ctl = torch.empty(24, **f64), torch.empty(4, dtype=torch.int32, device=dev)
+    part = torch.empty((2, 42, max(nch, 1)), dtype=F32, device=dev)  # by parity
     ptrs = [t.data_ptr() for t in (
         m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs, p_imu,
-        bns, pmask, P_, prior_rot, prior_x, rot, x, cur, ctl, part, part2, rot_out, x_out,
-        Gmat, sel, pabcd, plane_ok, its)]
+        bns, pmask, P_, prior_rot, prior_x, rot, x, cur, ctl, part, rot_out, x_out, Gmat, sel,
+        pabcd, plane_ok, its)]
     grid = ctypes.c_int(0)
     err = _launcher()(*ptrs, N, offs.shape[0], m.slot_key.shape[0], int(max_iter),
                       float(threshold), *(float(g) for g in gates),

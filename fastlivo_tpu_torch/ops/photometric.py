@@ -13,6 +13,10 @@ reduction in one launch. On a CPU tensor it runs
 `photometric_err_H_plain`, the same arithmetic in torch ops, which is
 also the kernel's oracle on the card.
 
+`partials_sum` is the order in which both measurement kernels sum the
+per-point partials (csrc/photometric_measure.cuh::reduce_partials): eight
+interleaved chains a quantity, then a fixed tree of the eight.
+
 `partials=True` returns the measurement as a device mesh sums it (the
 JAX package's psums, vio.py:650-654): [HT (42) | Σperr | n_meas], with
 this call's n_meas clamped to at least 1, so that a rank with nothing
@@ -175,6 +179,22 @@ def _check(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos, Rci, Pci,
     # the level slice of a (G, 3, P, P) block: contiguous (P, P) planes
     if tr_patch_l.stride()[1:] != (P, 1):
         raise ValueError("photometric_err_H: tr_patch planes must be contiguous")
+
+
+def partials_sum(partial: torch.Tensor) -> torch.Tensor:
+    """(G, K) -> (K,): the rows summed in the measurement kernels' order.
+    Rows g < G8 = G - G % 8 go into eight interleaved chains (row g into
+    chain g % 8, in row order, each chain from 0.0), the last G % 8 rows
+    after chain 0's; then ((t0 + t1) + (t2 + t3)) + ((t4 + t5) + (t6 +
+    t7)). Zero rows give zeros."""
+    G, K = partial.shape
+    G8 = G - G % 8
+    t = partial.new_zeros((8, K))
+    for row8 in partial[:G8].view(-1, 8, K):
+        t = t + row8
+    for r in range(G8, G):
+        t[0] = t[0] + partial[r]
+    return ((t[0] + t[1]) + (t[2] + t[3])) + ((t[4] + t[5]) + (t[6] + t[7]))
 
 
 @functools.cache
@@ -374,9 +394,9 @@ def photometric_cascade(img, tr_pos, tr_patch, tr_slevel, tr_valid, rot, x, prio
     Gmat, last_err = torch.empty((18, 6), **f64), torch.empty((), **f64)
     perr = torch.empty(G, dtype=F32, device=dev)
     its = torch.empty((), dtype=I32, device=dev)
-    cur, ctl = torch.empty(24, **f64), torch.empty(2, dtype=I32, device=dev)
-    partial = torch.empty((max(G, 1), 44), dtype=F32, device=dev)
-    perr_cur = torch.empty(max(G, 1), dtype=F32, device=dev)
+    cur, ctl = torch.empty(24, **f64), torch.empty(4, dtype=I32, device=dev)
+    partial = torch.empty((2, max(G, 1), 44), dtype=F32, device=dev)  # by parity
+    perr_cur = torch.empty((2, max(G, 1)), dtype=F32, device=dev)
     ptrs = [t.data_ptr() for t in (
         img, tr_pos, tr_patch, tr_slevel, tr_valid, Rci, Pci, Jdphi_dR, Jdp_dR, cam.fx,
         cam.fy, cam.cx, cam.cy, cam.d, P_, prior_rot, prior_x, rot, x, cur, ctl, partial,

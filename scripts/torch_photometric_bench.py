@@ -8,7 +8,7 @@ Each variant is csrc/photometric_err_H.cu and, where the checkout has
 it, csrc/photometric_cascade.cu (the cascade and the step alone) of the
 checkout at TREE, relative to this
 one (default: this one, `.`; e.g. `build/parent` for an unpacked parent
-commit), built with this checkout's nvcc flags into
+commit; TREE+NAME adds -DNAME to its build), built with this checkout's nvcc flags into
 build/fastlivo_tpu_torch/photometric_bench/ and launched through this
 checkout's wrappers (ops/photometric.py). The inputs are seeded: a
 textured 640x512 image, a camera with some distortion, G tracked points
@@ -53,13 +53,17 @@ def build(tree: str, name: str, stamps: bool = False):
     """csrc/<name>.cu of the checkout at `tree`, compiled with this
     checkout's flags (and -DPHASE_STAMPS) into
     build/fastlivo_tpu_torch/photometric_bench/; None where the checkout
-    has no such source. Its source is kept on the library as `source`."""
+    has no such source. A tree written TREE+NAME is TREE built with -DNAME
+    as well (a variant a source selects at build time). Its source is kept
+    on the library as `source`."""
     from fastlivo_tpu_torch.ops import _build
 
+    tree, *defines = tree.split("+")
     src = os.path.join(tree, "fastlivo_tpu_torch", "csrc", f"{name}.cu")
     if not os.path.exists(src):
         return None
-    flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS"] if stamps else [])
+    flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS"] if stamps else []) \
+        + [f"-D{d}" for d in defines]
     h = hashlib.sha256(os.path.abspath(src).encode())
     for f in sorted(os.listdir(os.path.dirname(src))):
         with open(os.path.join(os.path.dirname(src), f), "rb") as fh:

@@ -43,8 +43,9 @@ one on NCCL, bit for bit the single-device path.
 
 The LIO cascade (ops/lio_cascade.lio_cascade): every output bit-equal to
 the host loop lio.lio_loop with the step kernel, on a random map, on a
-16384-point frame, with no valid point, at max_iter 1 and on a frame
-that converges at its first iteration; equal iterations and the pose
+16384-point frame, with no valid point, at max_iter 1, on a frame
+that converges at its first iteration, with more chunks than blocks
+and with more than 64² chunks; equal iterations and the pose
 within 1e-9 with photometric_step_plain; lio_update on one card one
 launch with no host read on the tiled map, the host loop on the others;
 bad inputs refused.
@@ -449,6 +450,31 @@ def test_photometric_err_H_partials_match_plain(cuda, valid):
     assert float(err) == float(np.float32(parts[42]) / np.float32(parts[43]))
 
 
+@pytest.mark.parametrize("G", [1, 7, 8, 192, 193])
+def test_photometric_err_H_sums_partials_in_the_fixed_order(cuda, G):
+    """The measurement kernel's last block sums the G per-point partials
+    it leaves in its scratch in photometric.partials_sum's order: HT, Σperr
+    and n_meas bit for bit at G = 1, 7, 8 (the eight chains), 192 and 193,
+    and err their quotient."""
+    x = photometric_inputs(cuda, G=G, seed=G)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    partial = torch.empty((G, 44), device=cuda)
+    out, perr = torch.empty(45, device=cuda), torch.empty(G, device=cuda)
+    cam, tp = x["cam"], x["tr_patch"][:, 0]
+    ptrs = [t.data_ptr() for t in (
+        x["img"], x["tr_pos"], tp, x["tr_slevel"], x["tr_valid"], x["rot"], x["pos"], x["Rci"],
+        x["Pci"], x["Jdphi_dR"], x["Jdp_dR"], cam.fx, cam.fy, cam.cx, cam.cy, cam.d, partial,
+        photometric._ticket(cuda, stream), out, perr)]
+    assert photometric._launcher()(*ptrs, G, 512, 640, 8, 0, tp.stride(0), 0,
+                                   photometric.HUBER_K, photometric._recip32(photometric.TUKEY_B),
+                                   photometric._recip32(10.0), stream) == 0
+    ps = photometric.partials_sum(partial)
+    n_meas = torch.clamp((ps[43] * 8.0) * 8.0, min=1.0)
+    assert torch.equal(out[:42], ps[:42]) and torch.equal(out[44], ps[42])
+    assert torch.equal(out[43], n_meas) and torch.equal(out[42], ps[42] / n_meas)
+    assert torch.equal(perr, partial[:, 42])
+
+
 def test_photometric_err_H_refuses_bad_inputs(cuda):
     x = photometric_inputs(cuda, G=16)
     call = lambda **kw: photometric_call(  # noqa: E731
@@ -545,6 +571,46 @@ def test_photometric_cascade_edge_cases(cuda):
     assert int(got[5]) == 1
 
 
+@pytest.mark.parametrize("case", ["one_point", "more_points_than_blocks", "rollback"])
+def test_photometric_cascade_at_the_grid_edges(cuda, case, monkeypatch):
+    """Every output bit-equal to the host loop with the step kernel, equal
+    iterations: one tracked point (a grid of one block); 1000 points, more
+    than the grid's blocks (blocks measure several points, the reduction
+    its longest chains); and one level of up to 30 iterations that ends by
+    a rollback (the last measured error above the one kept)."""
+    from fastlivo_tpu_torch import vio
+
+    if case == "one_point":
+        x = photometric_inputs(cuda, G=8)
+        x = {k: (v[:1] if k.startswith("tr_") else v) for k, v in x.items()}
+        x["tr_valid"] = torch.ones_like(x["tr_valid"])
+        args = cascade_args(x)
+    elif case == "more_points_than_blocks":
+        args = cascade_args(photometric_inputs(cuda, G=1000, seed=4))
+    else:
+        args = cascade_args(photometric_inputs(cuda), levels=(0,), max_iter=30)
+    got = photometric.photometric_cascade(*args)
+    grid = photometric.photometric_cascade.grid
+    errs, measure = [], vio.photometric_err_H
+
+    def spy(*a, **kw):
+        out = measure(*a, **kw)
+        errs.append(float(out[0][42] / torch.clamp(out[0][43], min=1.0)))
+        return out
+
+    monkeypatch.setattr(vio, "photometric_err_H", spy)
+    loop = vio.photometric_loop(*args)
+    assert int(got[5]) == loop[5] == len(errs)
+    for g, w, name in zip(got, loop, ("rot", "x", "G", "perr", "err")):
+        assert torch.equal(g, w), name
+    if case == "one_point":
+        assert grid == 1 and loop[5] >= 3
+    elif case == "more_points_than_blocks":
+        assert grid < 1000
+    else:
+        assert loop[5] < 30 and errs[-1] > float(got[4])
+
+
 def step_args(dev, seed):
     """A pose, a prior a few mm and mrad away, P' and [HᵀH₆ | Hᵀz] as the
     measurement gives it (f32), seeded with numpy."""
@@ -583,6 +649,37 @@ def test_photometric_step_matches_plain(cuda, seed):
     HT0[:, 6] = 0.0
     conv = photometric.photometric_step(args[0], args[1], args[0], args[1], args[4], HT0)[2]
     assert bool(conv)  # at the prior with no residual: a zero step
+
+
+# the rotation angle between the pose and the prior: Log's branches (trace
+# above 3 - 1e-6: θ = 0; θ below 1e-3: scale 0.5) and, with no measurement
+# and the prior's x (sol = vec), Exp's (|sol[:3]|² below 1e-12)
+STEP_EDGES = {"identity": 0.0, "theta_5e-4": 5e-4, "theta_below_1e-3": 0.999e-3,
+              "theta_above_1e-3": 1.001e-3, "theta_3e-3": 3e-3, "theta_half": 0.5,
+              "theta_near_pi": np.pi - 1e-2, "sol_below_1e-6": 0.999e-6,
+              "sol_above_1e-6": 1.001e-6}
+
+
+@pytest.mark.parametrize("case", list(STEP_EDGES))
+def test_photometric_step_at_log_exp_edges(cuda, case):
+    """The step kernel against photometric_step_plain at the branch edges
+    of Log and Exp (the prior's rotation STEP_EDGES[case] from the pose's;
+    the "sol_" cases with [HᵀH₆ | Hᵀz] = 0 and the prior's x): rot, x and G
+    within 1e-12, the same convergence flag."""
+    rot, x, _, prior_x, P_, HT = step_args(cuda, 5)
+    axis = torch.tensor([0.3, -0.5, 0.8], dtype=torch.float64, device=cuda)
+    prior_rot = (rot @ so3.exp(axis / torch.linalg.norm(axis) * STEP_EDGES[case])).contiguous()
+    if case.startswith("sol_"):
+        HT, prior_x = torch.zeros_like(HT), x.clone()
+    args = (rot, x, prior_rot, prior_x, P_, HT)
+    got = photometric.photometric_step(*args)
+    want = photometric.photometric_step_plain(*args)
+    assert bool(got[2]) == bool(want[2])
+    for g, w, name in zip(got, want, ("rot", "x", "conv", "G")):
+        if name != "conv":
+            assert float((g - w).abs().max()) <= 1e-12, name
+    if case.startswith("sol_"):
+        assert bool(got[2])
 
 
 def test_photometric_update_levels_is_one_launch_with_no_host_read(cuda):
@@ -1375,8 +1472,10 @@ def lio_case(device, case):
     planes, 5000 points, radius 1), "random_r2" (radius 2), "frame" (16384
     points of the curved surface, the path's batch), "no_valid" (nothing
     valid), "max_iter_1", "converged" (noise-free points at the true
-    pose: the first step converges). Returns (map, body, pmask, rot, x,
-    P', max_iter, radius)."""
+    pose: the first step converges), "many_chunks" (40000 points: more
+    chunks than the grid's blocks, past one group of 64 chunk sums),
+    "past_4096_chunks" (300000 points: a third level of chunk sums).
+    Returns (map, body, pmask, rot, x, P', max_iter, radius)."""
     from fastlivo_tpu_torch.ops import so3 as so3_ops
 
     f64 = dict(dtype=torch.float64, device=device)
@@ -1391,7 +1490,8 @@ def lio_case(device, case):
         if case == "converged":  # a flat floor, the scan on it exactly
             world[:, 2] = np.float32(-0.6)
         m = tm.build_host(world, (32, 32, 16), 1024, 0.5, device=device)
-        body = world[rng.choice(len(world), 16384, replace=False)]
+        n = {"many_chunks": 40000, "past_4096_chunks": 300000}.get(case, 16384)
+        body = world[rng.choice(len(world), n, replace=n > len(world))]
         if case != "converged":
             body = body + rng.normal(0, 0.005, body.shape).astype(np.float32)
     body = torch.from_numpy(np.ascontiguousarray(body)).to(device)
@@ -1439,7 +1539,7 @@ def assert_lio_equal(got, loop, label):
 
 
 @pytest.mark.parametrize("case", ["random", "random_r2", "frame", "no_valid", "max_iter_1",
-                                  "converged"])
+                                  "converged", "many_chunks", "past_4096_chunks"])
 def test_lio_cascade_matches_the_host_loop(cuda, case, monkeypatch):
     """Every output bit-equal to lio_loop with the step kernel, its search
     knn5_plane_tiled and also knn5_plane_tiled_plain (so the walk the
@@ -1447,10 +1547,14 @@ def test_lio_cascade_matches_the_host_loop(cuda, case, monkeypatch):
     every iteration's pose); all plain (the plain search and
     photometric_step_plain) the same iterations and the pose within 1e-9."""
     from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
 
     args = lio_case(cuda, case)
     got, loop, bns = lio_cascade_and_loop(*args)
     its = int(got[6])
+    nch = -(-args[1].shape[0] // lio_cascade.CHUNK)
+    if case in ("many_chunks", "past_4096_chunks"):  # blocks own several chunks
+        assert lio_cascade.lio_cascade.grid < nch and nch > (4096 if case[0] == "p" else 64)
     assert got[6].dtype == torch.int32
     assert_lio_equal(got, loop, (case, "knn5_plane_tiled"))
     m, body, pmask, rot, x, P_, max_iter, radius = args
@@ -1617,9 +1721,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
             bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
             nch = -(-n // lc.CHUNK)
             f64 = dict(dtype=torch.float64, device=cuda)
-            outs = [torch.empty(24, **f64), torch.empty(2, dtype=torch.int32, device=cuda),
-                    torch.empty((nch, 42), device=cuda),
-                    torch.empty((-(-nch // lc.CHUNK), 42), device=cuda),
+            outs = [torch.empty(24, **f64), torch.empty(4, dtype=torch.int32, device=cuda),
+                    torch.empty((2, 42, nch), device=cuda),
                     torch.empty((3, 3), **f64), torch.empty(15, **f64),
                     torch.empty((18, 6), **f64)] + out3()[1:2] + out3()[0:1] + out3()[1:2] \
                 + [torch.empty((), dtype=torch.int32, device=cuda)]
@@ -1627,7 +1730,7 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
             got = launch_guarded(lambda *v: lc._launcher()(
                 *ptr(*v), n, offs.shape[0], T, max_iter, lio.PLANE_THRESH, *lio.GATES, *lio.CONV,
                 ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
-            got = got[4:7] + got[7:10] + [got[10]]  # rot, x, G, sel, pabcd, plane_ok, its
+            got = got[3:6] + got[6:9] + [got[9]]  # rot, x, G, sel, pabcd, plane_ok, its
             for plain_search in (False, True):
                 loop = lio_host_loop(mp, body, bns, pmask, rot, x, P_, max_iter, radius,
                                      plain_search)

@@ -9,6 +9,12 @@ Here, on seeded inputs (numpy) and the camera scene of test_torch_vio:
     exp, the expressions of vio.py:669-691) on the same f64 inputs:
     within 1e-12 (two f64 solves of a 6x6 system, LU there and
     Gauss-Jordan here, agree to a few ulp of the gain);
+  - the same at the branch edges of Log and Exp (the rotation between the
+    pose and the prior at 0, on both sides of θ = 1e-3 and of trace 3 -
+    1e-6, at 0.5 and near π; |sol[:3]|² on both sides of 1e-12);
+  - `photometric.partials_sum`, the order in which the measurement kernels
+    sum the per-point partials, bit for bit against a numpy transcription
+    at G = 1, 7, 8 (the eight chains), 192 and 193;
   - `linalg.gj_solve6`, the plain mirror of the step kernel's elimination,
     against the JAX package's `gj_solve` on well-conditioned systems and
     on ones that need pivoting: within 1e-13;
@@ -79,6 +85,77 @@ def test_step_plain_matches_jax(seed):
             assert bool(g) == bool(w)
         else:
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-12, err_msg=name)
+
+
+# the rotation angle between the pose and the prior (about one axis):
+# Log's branches (trace above 3 - 1e-6: θ = 0; θ below 1e-3: scale 0.5)
+# and, with no measurement and the prior's x (sol = vec), Exp's (|sol[:3]|²
+# below 1e-12: the Taylor forms)
+EDGE_ANGLES = {"identity": 0.0, "theta_5e-4": 5e-4, "theta_below_1e-3": 0.999e-3,
+               "theta_above_1e-3": 1.001e-3, "theta_3e-3": 3e-3, "theta_half": 0.5,
+               "theta_near_pi": np.pi - 1e-2, "sol_below_1e-6": 0.999e-6,
+               "sol_above_1e-6": 1.001e-6}
+
+
+def edge_inputs(case):
+    """step_inputs(5) with the prior's rotation EDGE_ANGLES[case] from the
+    pose's; for the "sol_" cases [HᵀH₆ | Hᵀz] = 0 and prior_x = x, so that
+    sol = vec and |sol[:3]| is that angle."""
+    rot, x, _, prior_x, P_, HT = step_inputs(5)
+    axis = np.array([0.3, -0.5, 0.8]) / np.linalg.norm([0.3, -0.5, 0.8])
+    prior_rot = rot @ np.array(jso3.exp(jnp.asarray(axis * EDGE_ANGLES[case])))
+    if case.startswith("sol_"):
+        HT, prior_x = np.zeros_like(HT), x.copy()
+    return rot, x, prior_rot, prior_x, P_, HT
+
+
+@pytest.mark.parametrize("case", list(EDGE_ANGLES))
+def test_step_plain_matches_jax_at_log_exp_edges(case):
+    args = edge_inputs(case)
+    want = [np.asarray(a) for a in jax_step(*args)]
+    got = photometric.photometric_step_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                                               for a in args))
+    for g, w, name in zip(got, want, ("rot", "x", "conv", "G")):
+        if name == "conv":
+            assert bool(g) == bool(w)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-12, err_msg=name)
+    if case.startswith("sol_"):  # the step is the Log: sol[:3]·sol[:3] on its side of 1e-12
+        sol = np.asarray(jso3.log(jnp.asarray(args[0].T @ args[2])))
+        assert (float(sol @ sol) < 1e-12) == (case == "sol_below_1e-6")
+        assert bool(got[2])
+
+
+def partials_sum_numpy(p):
+    """The kernels' order, written out per quantity in float32 scalars."""
+    G, K = p.shape
+    G8 = G - G % 8
+    out = np.empty(K, np.float32)
+    for q in range(K):
+        t = [np.float32(0.0)] * 8
+        for g in range(G8):
+            t[g % 8] = np.float32(t[g % 8] + p[g, q])
+        for g in range(G8, G):
+            t[0] = np.float32(t[0] + p[g, q])
+        out[q] = np.float32(np.float32(np.float32(t[0] + t[1]) + np.float32(t[2] + t[3]))
+                            + np.float32(np.float32(t[4] + t[5]) + np.float32(t[6] + t[7])))
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 7, 8, 192, 193])
+def test_partials_sum_is_the_kernels_order(G):
+    """Bit for bit against the numpy transcription, on rows whose sums
+    depend on the order (magnitudes 1e-3 to 1e4, a column of -0.0 that
+    the chains' +0.0 start turns into +0.0); and near the f32 sum."""
+    rng = np.random.default_rng(G)
+    p = (rng.normal(size=(G, 44)) * 10.0 ** rng.uniform(-3, 4, (G, 44))).astype(np.float32)
+    p[:, 5] = -0.0
+    got = photometric.partials_sum(torch.from_numpy(p)).numpy()
+    want = partials_sum_numpy(p)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert not np.signbit(got[5])
+    np.testing.assert_allclose(got, p.astype(np.float64).sum(0), rtol=1e-4,
+                               atol=1e-6 * np.abs(p).sum(0).max())
 
 
 def test_step_plain_converges_on_the_prior():
