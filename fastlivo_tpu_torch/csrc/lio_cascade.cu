@@ -70,7 +70,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int CH = 64;  // rows of a chunk, and sums of a group at every level
-constexpr int TB = 12;  // a warp's groups of a level loaded at once
+constexpr int SL = 4 * CH;  // chunk sums of a column staged at a time
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct Lio {
@@ -83,10 +83,8 @@ struct Lio {
   const double* prior_x;    // (15,)
   const double* rot0;       // (3, 3) the state's
   const double* x0;         // (15,)
-  double* cur;              // scratch (24): block 0's next rot, x (epoch flag)
-  int* ctl;                 // scratch (4): its search_en, stop, epoch
   float* part;              // scratch (2, 42, stride): the chunk sums by parity
-  int stride;               // max(nch, 1)
+  int stride;               // max(nch, 1) rounded up to 4: 16-byte columns
   double* rot_out;          // (3, 3)
   double* x_out;            // (15,)
   double* Gmat;             // (18, 6)
@@ -107,13 +105,24 @@ __host__ __device__ constexpr int groups2(int nch) { return (groups1(nch) + CH -
 
 // The block's dynamic shared memory for `cpb` chunks of nch: per owned
 // row p_imu (3), |p|^(1/2) (1) and the plane (4) as floats; the chunk's
-// world points (3 x 64) and its products (64 x 42); the reduction's level
-// sums above the first (42 x groups1, 42 x groups2, in turn); one byte of
-// flags per owned row (bit 0 pmask, 1 sel, 2 plane_ok).
+// world points (3 x 64) and its products (64 x 42); the reduction's staged
+// chunk sums (42 x SL) and level sums above the first (42 x groups1, 42 x
+// groups2, in turn); one byte of flags per owned row (bit 0 pmask, 1 sel,
+// 2 plane_ok).
 __host__ __device__ constexpr size_t smem_bytes(int cpb, int nch) {
-  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH
+  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH + EKF_NH * SL
                   + EKF_NH * (groups1(nch) + groups2(nch))) * sizeof(float)
          + (size_t)cpb * CH;
+}
+
+// 16 bytes from device memory (through L2, as another block wrote them
+// before the grid barrier) into shared memory, asynchronously: no register
+// holds them, so a thread keeps all its pieces in flight at once
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
 // The halving tree of ops/lio_cascade.py::fixed_order_sum over 64 values,
@@ -136,20 +145,14 @@ __device__ __forceinline__ void tree64(const float* red, float* out, int ostride
   }
 }
 
-template <bool kL2>
-__device__ __forceinline__ float ld(const float* p) {
-  if constexpr (kL2) return __ldcg(p);  // other blocks', written before the grid barrier
-  else return *p;
-}
-
-// One level of the fixed order, by the whole block: the cnt values of
-// each of the 42 columns (value i of column c at in[c * stride + i]) in
-// groups of 64, zeros past cnt, each group summed by tree64_pair into
-// out[c * ostride + group]; a warp's (group, column) pairs TB at a time,
-// their loads in flight together.
-template <bool kL2>
+// One level of the fixed order, by the whole block, from shared memory:
+// the cnt values of each of the 42 columns (value i of column c at in[c *
+// stride + i]) in groups of 64, zeros past cnt, each group summed by
+// tree64_pair into out[c * ostride + group], a warp's (group, column)
+// pairs four at a time.
 __device__ void tree_level(const float* in, int stride, int cnt, float* out, int ostride,
                            int warp, int lane) {
+  constexpr int TB = 4;
   const int T = groups1(cnt) * EKF_NH;
   for (int t0 = warp; t0 < T; t0 += NWARP * TB) {
     float lo[TB], hi[TB];
@@ -158,64 +161,63 @@ __device__ void tree_level(const float* in, int stride, int cnt, float* out, int
       const int t = t0 + b * NWARP;
       const int g = t / EKF_NH, col = t - g * EKF_NH;
       const int i = g * CH + lane;
-      const float* src = in + (size_t)col * stride;
-      lo[b] = t < T && i < cnt ? ld<kL2>(src + i) : 0.0f;
-      hi[b] = t < T && i + 32 < cnt ? ld<kL2>(src + i + 32) : 0.0f;
+      const float* src = in + col * stride;
+      lo[b] = t < T && i < cnt ? src[i] : 0.0f;
+      hi[b] = t < T && i + 32 < cnt ? src[i + 32] : 0.0f;
     }
 #pragma unroll
     for (int b = 0; b < TB; ++b) {
       const float v = tree64_pair(lo[b], hi[b]);
       const int t = t0 + b * NWARP;
-      if (lane == 0 && t < T) out[(size_t)(t % EKF_NH) * ostride + t / EKF_NH] = v;
+      if (lane == 0 && t < T) out[(t % EKF_NH) * ostride + t / EKF_NH] = v;
     }
   }
 }
 
-// The nch chunk sums (column-major in part, row stride `stride`) reduced
-// to tot (42) in the fixed order: one chunk is its own total; otherwise
-// groups of 64 level by level, the first level through L2, the ones above
-// it in the block's shared memory (lv1, lv2 in turn), until one group is
-// left. Every thread of the block calls; ends with a block barrier. Past
-// 64² chunks (n > 262144) there is a third level and more, each in the
-// same two buffers.
-__device__ void reduce_chunks(const float* part, int stride, int nch, float* lv1, float* lv2,
-                              float* tot, int tid) {
+// The nch chunk sums (column-major in part, column stride `stride`)
+// reduced to tot (42) in the fixed order: one chunk is its own total;
+// otherwise groups of 64 level by level until one group is left. The
+// first level stages SL chunk sums of every column at a time into `stage`
+// (cp.async through L2, every piece in flight at once); the levels above
+// it read the block's shared memory (lv1, lv2 in turn). Every thread of
+// the block calls; ends with a block barrier. Past 64² chunks (n >
+// 262144) there is a third level and more, each in the same two buffers.
+__device__ void reduce_chunks(const float* part, int stride, int nch, float* stage, float* lv1,
+                              float* lv2, float* tot, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
   if (nch <= 1) {
     if (tid < EKF_NH) tot[tid] = nch == 1 ? __ldcg(part + (size_t)tid * stride) : 0.0f;
     __syncthreads();
     return;
   }
-  const float* in = part;
-  int istride = stride, cnt = nch;
-  float* bufs[2] = {lv1, lv2};
-  for (int level = 0;; ++level) {
-    const int groups = groups1(cnt);
-    float* out = groups == 1 ? tot : bufs[level & 1];
-    const int ostride = groups == 1 ? 1 : groups;
-    if (level == 0) tree_level<true>(in, istride, cnt, out, ostride, warp, lane);
-    else tree_level<false>(in, istride, cnt, out, ostride, warp, lane);
+  int cnt = groups1(nch);
+  float* out = cnt == 1 ? tot : lv1;
+  const int ostride = cnt == 1 ? 1 : cnt;
+  for (int s0 = 0; s0 < nch; s0 += SL) {  // the first level, SL chunk sums at a time
+    const int len = min(SL, nch - s0), q = (len + 3) >> 2;  // 16-byte pieces a column
+    for (int e = tid; e < EKF_NH * q; e += THREADS) {
+      const int col = e / q, k = e - col * q;
+      cp_async16(stage + col * SL + 4 * k, part + (size_t)col * stride + s0 + 4 * k);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    if (groups == 1) return;
-    in = out;
-    istride = cnt = groups;
+    tree_level(stage, SL, len, out + s0 / CH, ostride, warp, lane);
+    __syncthreads();
+  }
+  float* bufs[2] = {lv1, lv2};
+  for (int level = 1; cnt > 1; ++level) {
+    const float* in = out;
+    const int groups = groups1(cnt);
+    out = groups == 1 ? tot : bufs[level & 1];
+    tree_level(in, cnt, cnt, out, groups == 1 ? 1 : groups, warp, lane);
+    __syncthreads();
+    cnt = groups;
   }
 }
 
-#ifdef CASCADE_EPOCH_FLAG
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-#endif
-
 template <int M, int L>
 __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ Step st;
   __shared__ Prior pr;
   __shared__ float pose[12];  // rot (3, 3) and pos (3) in f32
@@ -232,7 +234,8 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   float* s_pl = s_bns + R;    // (4, R) the plane
   float* s_pw = s_pl + 4 * R;  // (3, CH) a chunk's world points
   float* red = s_pw + 3 * CH;  // (CH, 42) a chunk's products
-  float* lv1 = red + CH * EKF_NH;               // (42, groups1)
+  float* stage = red + CH * EKF_NH;             // (42, SL) staged chunk sums
+  float* lv1 = stage + EKF_NH * SL;             // (42, groups1)
   float* lv2 = lv1 + EKF_NH * groups1(c.nch);  // (42, groups2)
   uint8_t* s_fl = reinterpret_cast<uint8_t*>(lv2 + EKF_NH * groups2(c.nch));  // (R,) flags
 
@@ -250,9 +253,6 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
     it_s = -1;
     rematch_s = stop_s = 0;
     search_s = 1;
-#ifdef CASCADE_EPOCH_FLAG
-    if (lead) c.ctl[2] = 0;  // ordered before any wait by the grid barrier
-#endif
   }
   load_prior(c.Pp, c.prior_rot, c.prior_x, pr, tid, THREADS);
 
@@ -341,10 +341,7 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
     grid.sync();
     PHASE_STAMP_IT(iter, 2);
 
-#ifdef CASCADE_EPOCH_FLAG
-    if (lead) {
-#endif
-    reduce_chunks(part, c.stride, c.nch, lv1, lv2, tot, tid);
+    reduce_chunks(part, c.stride, c.nch, stage, lv1, lv2, tot, tid);
     if (tid < 6) tot[7 * tid + 6] = -tot[7 * tid + 6];  // the photometric form
     __syncthreads();
     PHASE_STAMP_IT(iter, 3);
@@ -361,29 +358,7 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
       for (int k = 0; k < NX; ++k) cx[k] = st.nx[k];
       search_s = rematch ? 1 : 0;
       stop_s = stop ? 1 : 0;
-#ifdef CASCADE_EPOCH_FLAG
-      for (int k = 0; k < 9; ++k) c.cur[k] = crot[k];
-      for (int k = 0; k < NX; ++k) c.cur[9 + k] = cx[k];
-      c.ctl[0] = search_s;
-      c.ctl[1] = stop_s;
-      __threadfence();
-      st_release(c.ctl + 2, iter + 1);
-#endif
     }
-#ifdef CASCADE_EPOCH_FLAG
-    } else {  // wait for block 0's step, then take its pose and flags
-      if (tid == 0)
-        while (ld_acquire(c.ctl + 2) <= iter) {
-        }
-      __syncthreads();
-      if (tid < 9) crot[tid] = __ldcg(c.cur + tid);
-      else if (tid < 9 + NX) cx[tid - 9] = __ldcg(c.cur + tid);
-      else if (tid == 24) {
-        search_s = __ldcg(c.ctl);
-        stop_s = __ldcg(c.ctl + 1);
-      }
-    }
-#endif
     __syncthreads();
     PHASE_STAMP_IT(iter, 5);
     if (stop_s) break;
@@ -450,8 +425,9 @@ PHASE_STAMPS_EXPORT(lio_cascade)
 // log2_dims (3,) int32) and the offsets (m, 3) int32, m 27 (radius 1) or
 // 125 (radius 2); p_imu (n, 3) f32, bns (n,) f32, pmask (n,) u8; P' (18,
 // 18), the prior's rot (3, 3) and x (15,), the state's rot and x, f64;
-// scratch cur (24) f64, ctl (4) int and part (2, 42, max(nch, 1)) f32 with
-// nch = ceil(n / 64); outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
+// scratch part (2, 42, stride) f32 (by the iteration's parity) with nch =
+// ceil(n / 64) and stride = max(nch, 1) rounded up to a multiple of 4;
+// outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
 // (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
 // contiguous on the device. The plane fit's threshold, the gates on nd2_5,
 // s and |pd2|, and the convergence thresholds in degrees and centimetres.
@@ -463,7 +439,7 @@ extern "C" int lio_cascade_launch(
     const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
     const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
     const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
-    const void* prior_x, const void* rot0, const void* x0, void* cur, void* ctl, void* part,
+    const void* prior_x, const void* rot0, const void* x0, void* part,
     void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
     void* its, int n, int m, int T, int max_iter, float threshold, float sq_dist_gate,
     float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm, int* grid_out,
@@ -482,8 +458,6 @@ extern "C" int lio_cascade_launch(
   c.prior_x = static_cast<const double*>(prior_x);
   c.rot0 = static_cast<const double*>(rot0);
   c.x0 = static_cast<const double*>(x0);
-  c.cur = static_cast<double*>(cur);
-  c.ctl = static_cast<int*>(ctl);
   c.part = static_cast<float*>(part);
   c.rot_out = static_cast<double*>(rot_out);
   c.x_out = static_cast<double*>(x_out);
@@ -494,7 +468,7 @@ extern "C" int lio_cascade_launch(
   c.its = static_cast<int*>(its);
   c.n = n;
   c.nch = (n + CH - 1) / CH;
-  c.stride = c.nch < 1 ? 1 : c.nch;
+  c.stride = ((c.nch < 1 ? 1 : c.nch) + 3) & ~3;
   c.cpb = 1;
   c.max_iter = max_iter;
   c.threshold = threshold;

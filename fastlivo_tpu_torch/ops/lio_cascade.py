@@ -61,12 +61,20 @@ def fixed_order_sum(rows: torch.Tensor) -> torch.Tensor:
             return x[0]
 
 
+def part_shape(n: int) -> tuple:
+    """The kernel's chunk-sum scratch for n points: (2, 42, stride), one
+    half per iteration parity, a column per quantity, stride = the chunks
+    (at least 1) rounded up to 4 (16-byte columns, copied into shared
+    memory 16 bytes at a time)."""
+    return (2, 42, -(-max(-(-n // CHUNK), 1) // 4) * 4)
+
+
 @functools.cache
 def _launcher():
     from . import _build
 
     fn = _build.load("lio_cascade").lio_cascade_launch
-    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
                    + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
@@ -99,7 +107,6 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     if rot.device != dev:
         raise ValueError("lio_cascade: inputs on different devices")
     offs = tm.neighbor_offsets(radius, dev)
-    nch = -(-N // CHUNK)
     f64 = dict(dtype=F64, device=dev)
     rot_out, x_out, Gmat = (torch.empty((3, 3), **f64), torch.empty(15, **f64),
                             torch.empty((18, 6), **f64))
@@ -107,12 +114,11 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     plane_ok = torch.empty(N, dtype=torch.bool, device=dev)
     pabcd = torch.empty((N, 4), dtype=F32, device=dev)
     its = torch.empty((), dtype=torch.int32, device=dev)
-    cur, ctl = torch.empty(24, **f64), torch.empty(4, dtype=torch.int32, device=dev)
-    part = torch.empty((2, 42, max(nch, 1)), dtype=F32, device=dev)  # by parity
+    part = torch.empty(part_shape(N), dtype=F32, device=dev)
     ptrs = [t.data_ptr() for t in (
         m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs, p_imu,
-        bns, pmask, P_, prior_rot, prior_x, rot, x, cur, ctl, part, rot_out, x_out, Gmat, sel,
-        pabcd, plane_ok, its)]
+        bns, pmask, P_, prior_rot, prior_x, rot, x, part, rot_out, x_out, Gmat, sel, pabcd,
+        plane_ok, its)]
     grid = ctypes.c_int(0)
     err = _launcher()(*ptrs, N, offs.shape[0], m.slot_key.shape[0], int(max_iter),
                       float(threshold), *(float(g) for g in gates),

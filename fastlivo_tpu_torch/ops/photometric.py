@@ -351,7 +351,7 @@ def _cascade_launcher():
     from . import _build
 
     fn = _build.load("photometric_cascade").photometric_cascade_launch
-    fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_int)]
                    + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -394,13 +394,12 @@ def photometric_cascade(img, tr_pos, tr_patch, tr_slevel, tr_valid, rot, x, prio
     Gmat, last_err = torch.empty((18, 6), **f64), torch.empty((), **f64)
     perr = torch.empty(G, dtype=F32, device=dev)
     its = torch.empty((), dtype=I32, device=dev)
-    cur, ctl = torch.empty(24, **f64), torch.empty(4, dtype=I32, device=dev)
     partial = torch.empty((2, max(G, 1), 44), dtype=F32, device=dev)  # by parity
     perr_cur = torch.empty((2, max(G, 1)), dtype=F32, device=dev)
     ptrs = [t.data_ptr() for t in (
         img, tr_pos, tr_patch, tr_slevel, tr_valid, Rci, Pci, Jdphi_dR, Jdp_dR, cam.fx,
-        cam.fy, cam.cx, cam.cy, cam.d, P_, prior_rot, prior_x, rot, x, cur, ctl, partial,
-        perr_cur, rot_out, x_out, Gmat, perr, last_err, its)]
+        cam.fy, cam.cx, cam.cy, cam.d, P_, prior_rot, prior_x, rot, x, partial, perr_cur,
+        rot_out, x_out, Gmat, perr, last_err, its)]
     grid = ctypes.c_int(0)
     err = _cascade_launcher()(
         *ptrs, (ctypes.c_int * len(levels))(*levels), len(levels), max_iter, G, H, W, P,

@@ -10,8 +10,8 @@ this one (default: this one, `.`; e.g. `build/parent` for an unpacked
 parent commit; TREE+NAME adds -DNAME to its build), built with this checkout's nvcc flags into
 build/fastlivo_tpu_torch/photometric_bench/ and launched through this
 checkout's wrapper (ops/lio_cascade.py; a launcher of the older
-signature, with a second level of chunk sums in device scratch, gets
-that scratch).
+signature, with the pose, the flags and a second level of chunk sums in
+device scratch, gets that scratch).
 The inputs are seeded, at the LIO path's shapes: a tiled map at the
 shipped directory dims (128 x 128 x 64 tiles of 8³ voxels of 0.5 m)
 holding 120000 points of a gently curved surface, a scan of `--n` of
@@ -95,10 +95,12 @@ def same(got, want) -> bool:
 
 def bind(lib):
     """The variant's launch function with this checkout's ctypes signature
-    (ops/lio_cascade.py's launcher). A launcher that still takes a second
-    chunk-sum level `part2` after `part` gets one of its own: a call of
-    this checkout's signature is passed on with that pointer added (this
-    checkout's part, cur and ctl are at least as large as it needs)."""
+    (ops/lio_cascade.py's launcher). A launcher that still takes the pose
+    and flags in device scratch (cur (24) f64 and ctl (2) int32 after x0)
+    and a second level of chunk sums (part2 after part) gets scratch of
+    its own: a call of this checkout's signature is passed on with those
+    pointers added (this checkout's part is at least as large as it
+    needs)."""
     import torch
 
     from fastlivo_tpu_torch.ops import _build
@@ -107,24 +109,23 @@ def bind(lib):
     fn.restype = ctypes.c_int
     tail = [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_double] * 2 \
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    with open(os.path.join(ROOT, "fastlivo_tpu_torch", "csrc", "lio_cascade.cu"), "rb") as fh:
-        here_old = b"void* part2" in fh.read()
-    if (b"void* part2" in lib.source) == here_old:
-        fn.argtypes = [ctypes.c_void_p] * (26 if here_old else 25) + tail
+    if b"void* part2" not in lib.source:
+        fn.argtypes = [ctypes.c_void_p] * 23 + tail
         call = _build.profiled("lio_cascade", fn)
-    elif here_old:
-        raise SystemExit("torch_lio_cascade_bench: run a newer variant from its own checkout")
     else:
         fn.argtypes = [ctypes.c_void_p] * 26 + tail
-        part2 = {}
+        scratch = {}
 
-        def call(*args):  # 15 inputs, cur, ctl, part, 7 outputs, then n, ...
-            n = args[25]
-            if n not in part2:
+        def call(*args):  # 15 inputs, part, 7 outputs, then n, ...
+            n = args[23]
+            if n not in scratch:
                 nch = max(-(-n // 64), 1)
-                part2[n] = torch.empty((max(-(-nch // 64), 1), 42), device="cuda")
+                scratch[n] = [torch.empty(24, dtype=torch.float64, device="cuda"),
+                              torch.empty(2, dtype=torch.int32, device="cuda"),
+                              torch.empty((max(-(-nch // 64), 1), 42), device="cuda")]
+            cur, ctl, part2 = (t.data_ptr() for t in scratch[n])
             with torch._C._profiler._RecordFunctionFast("lio_cascade"):
-                return fn(*args[:18], part2[n].data_ptr(), *args[18:])
+                return fn(*args[:15], cur, ctl, args[15], part2, *args[16:])
     call.lib = lib
     return call
 

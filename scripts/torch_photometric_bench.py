@@ -278,9 +278,23 @@ def _bind(lib, kernel):
         return _build.profiled(kernel, old)
     else:
         fn = lib.photometric_cascade_launch
-        fn.argtypes = ([ctypes.c_void_p] * 29 + [ctypes.POINTER(ctypes.c_int)]
-                       + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        tail = ([ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8 + [ctypes.c_float] * 3
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        if b"void* ctl" in lib.source:  # the pose and level in device scratch
+            import torch
+
+            fn.argtypes = [ctypes.c_void_p] * 29 + tail
+            cur = torch.empty(24, dtype=torch.float64, device="cuda")
+            ctl = torch.empty(2, dtype=torch.int32, device="cuda")
+
+            def old(*args):  # 19 inputs, partial, perr_cur, 6 outputs, ...
+                return fn(*args[:19], cur.data_ptr(), ctl.data_ptr(), *args[19:])
+
+            call = _build.profiled(kernel, old)
+            call.lib = lib
+            return call
+        fn.argtypes = [ctypes.c_void_p] * 27 + tail
     fn.restype = ctypes.c_int
     call = _build.profiled(kernel, fn)
     call.lib = lib
