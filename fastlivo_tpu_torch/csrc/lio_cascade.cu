@@ -38,14 +38,16 @@
 // mask, sel, plane and plane_ok in shared memory across the iterations
 // (the while_loop's carry). Each iteration: the block's chunks (while the
 // first chunk's gates run, a spare warp forms the step's vec, Log on the
-// pose only), their sums into the chunk sums of the iteration's parity
-// (double-buffered: a block that starts iteration i + 1 never writes what
-// a slower block still reads of iteration i), one grid barrier, then every
-// block reduces the chunk sums (the first level through L2, the levels
-// above it in its own shared memory), runs the step in one warp's
-// registers and the state machine in one thread, and so holds the same
-// next pose and flags as every other block: no second barrier. Block 0
-// writes the pose, G and the count. No host read and no launch between
+// pose only), their sums into the chunk sums of the iteration's parity,
+// and the block whose chunk completes a group of 64 (an int ticket per
+// group, taken after a fence and reset by that block) sums the group into
+// the group sums; one grid barrier; then every block reads the few group
+// sums, reduces them in its own shared memory, runs the step in one
+// warp's registers and the state machine in one thread, and so holds the
+// same next pose and flags as every other block: no second barrier. The
+// chunk and group sums are double-buffered by the iteration's parity, so
+// a block that starts iteration i + 1 never writes what a slower block
+// still reads of iteration i. Block 0 writes the pose, G and the count. No host read and no launch between
 // iterations, so the search pays no launch and no host round trip; no
 // float atomics (the grid barrier is the only atomic). Built with
 // -fmad=false: every product rounds alone, as in the plain version's torch
@@ -70,7 +72,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int CH = 64;  // rows of a chunk, and sums of a group at every level
-constexpr int SL = 4 * CH;  // chunk sums of a column staged at a time
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct Lio {
@@ -84,7 +85,9 @@ struct Lio {
   const double* rot0;       // (3, 3) the state's
   const double* x0;         // (15,)
   float* part;              // scratch (2, 42, stride): the chunk sums by parity
-  int stride;               // max(nch, 1) rounded up to 4: 16-byte columns
+  float* gsum;              // scratch (2, 42, gstride): the group sums by parity
+  int* tickets;             // scratch (groups1(nch),): 0 between launches
+  int stride, gstride;      // max(nch, 1), max(groups1(nch), 1), rounded up to 4
   double* rot_out;          // (3, 3)
   double* x_out;            // (15,)
   double* Gmat;             // (18, 6)
@@ -105,12 +108,12 @@ __host__ __device__ constexpr int groups2(int nch) { return (groups1(nch) + CH -
 
 // The block's dynamic shared memory for `cpb` chunks of nch: per owned
 // row p_imu (3), |p|^(1/2) (1) and the plane (4) as floats; the chunk's
-// world points (3 x 64) and its products (64 x 42); the reduction's staged
-// chunk sums (42 x SL) and level sums above the first (42 x groups1, 42 x
+// world points (3 x 64) and its products (64 x 42), or a group's chunk
+// sums (42 x 64); the level sums above the first (42 x groups1, 42 x
 // groups2, in turn); one byte of flags per owned row (bit 0 pmask, 1 sel,
 // 2 plane_ok).
 __host__ __device__ constexpr size_t smem_bytes(int cpb, int nch) {
-  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH + EKF_NH * SL
+  return (size_t)(8 * cpb * CH + 3 * CH + CH * EKF_NH
                   + EKF_NH * (groups1(nch) + groups2(nch))) * sizeof(float)
          + (size_t)cpb * CH;
 }
@@ -174,41 +177,52 @@ __device__ void tree_level(const float* in, int stride, int cnt, float* out, int
   }
 }
 
-// The nch chunk sums (column-major in part, column stride `stride`)
-// reduced to tot (42) in the fixed order: one chunk is its own total;
-// otherwise groups of 64 level by level until one group is left. The
-// first level stages SL chunk sums of every column at a time into `stage`
-// (cp.async through L2, every piece in flight at once); the levels above
-// it read the block's shared memory (lv1, lv2 in turn). Every thread of
-// the block calls; ends with a block barrier. Past 64² chunks (n >
-// 262144) there is a third level and more, each in the same two buffers.
-__device__ void reduce_chunks(const float* part, int stride, int nch, float* stage, float* lv1,
-                              float* lv2, float* tot, int tid) {
+// The sum of group g of the chunk sums (chunks 64 g .. 64 g + cnt - 1,
+// column-major in part, column stride `stride`), by the block whose chunk
+// completed the group: the group's 42 columns staged into `stage` (42 x
+// 64; cp.async through L2, every piece in flight at once), tree64_pair
+// over each (zeros past cnt), column c's sum to gsum[c * gstride + g].
+__device__ void group_sum(const float* part, int stride, int g, int cnt, float* stage,
+                          float* gsum, int gstride, int tid) {
+  const int q = (cnt + 3) >> 2;  // 16-byte pieces a column
+  for (int e = tid; e < EKF_NH * q; e += THREADS) {
+    const int col = e / q, k = e - col * q;
+    cp_async16(stage + col * CH + 4 * k, part + (size_t)col * stride + g * CH + 4 * k);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  tree_level(stage, CH, cnt, gsum + g, gstride, tid >> 5, tid & 31);
+}
+
+// tot (42) from the chunk sums in the fixed order, after the grid
+// barrier: one chunk is its own total; otherwise the group sums (gsum,
+// column stride gstride, formed before the barrier by group_sum) and,
+// with more than one group, the levels above them in the block's shared
+// memory (lv1 holds the group sums, then lv2 and lv1 in turn), groups of
+// 64 until one is left. Every thread of the block calls; ends with a
+// block barrier. Past 64² chunks (n > 262144) there is a third level and
+// more, each in the same two buffers.
+__device__ void reduce_chunks(const float* part, int stride, const float* gsum, int gstride,
+                              int nch, float* lv1, float* lv2, float* tot, int tid) {
   const int warp = tid >> 5, lane = tid & 31;
-  if (nch <= 1) {
-    if (tid < EKF_NH) tot[tid] = nch == 1 ? __ldcg(part + (size_t)tid * stride) : 0.0f;
+  int cnt = groups1(nch);
+  if (cnt <= 1) {
+    if (tid < EKF_NH)
+      tot[tid] = nch == 0 ? 0.0f
+                          : __ldcg(nch == 1 ? part + (size_t)tid * stride : gsum + tid * gstride);
     __syncthreads();
     return;
   }
-  int cnt = groups1(nch);
-  float* out = cnt == 1 ? tot : lv1;
-  const int ostride = cnt == 1 ? 1 : cnt;
-  for (int s0 = 0; s0 < nch; s0 += SL) {  // the first level, SL chunk sums at a time
-    const int len = min(SL, nch - s0), q = (len + 3) >> 2;  // 16-byte pieces a column
-    for (int e = tid; e < EKF_NH * q; e += THREADS) {
-      const int col = e / q, k = e - col * q;
-      cp_async16(stage + col * SL + 4 * k, part + (size_t)col * stride + s0 + 4 * k);
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    tree_level(stage, SL, len, out + s0 / CH, ostride, warp, lane);
-    __syncthreads();
+  for (int e = tid; e < EKF_NH * cnt; e += THREADS) {
+    const int col = e / cnt, g = e - col * cnt;
+    lv1[e] = __ldcg(gsum + col * gstride + g);
   }
+  __syncthreads();
   float* bufs[2] = {lv1, lv2};
   for (int level = 1; cnt > 1; ++level) {
-    const float* in = out;
+    const float* in = bufs[(level & 1) ^ 1];
     const int groups = groups1(cnt);
-    out = groups == 1 ? tot : bufs[level & 1];
+    float* out = groups == 1 ? tot : bufs[level & 1];
     tree_level(in, cnt, cnt, out, groups == 1 ? 1 : groups, warp, lane);
     __syncthreads();
     cnt = groups;
@@ -224,6 +238,7 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   __shared__ float tot[EKF_NH];
   __shared__ double crot[9], cx[NX];                // the pose in force
   __shared__ int it_s, rematch_s, search_s, stop_s;  // the state machine
+  __shared__ int last_s;                             // this block completed a group
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool lead = blockIdx.x == 0;
@@ -234,8 +249,7 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   float* s_pl = s_bns + R;    // (4, R) the plane
   float* s_pw = s_pl + 4 * R;  // (3, CH) a chunk's world points
   float* red = s_pw + 3 * CH;  // (CH, 42) a chunk's products
-  float* stage = red + CH * EKF_NH;             // (42, SL) staged chunk sums
-  float* lv1 = stage + EKF_NH * SL;             // (42, groups1)
+  float* lv1 = red + CH * EKF_NH;               // (42, groups1)
   float* lv2 = lv1 + EKF_NH * groups1(c.nch);  // (42, groups2)
   uint8_t* s_fl = reinterpret_cast<uint8_t*>(lv2 + EKF_NH * groups2(c.nch));  // (R,) flags
 
@@ -259,6 +273,7 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   for (int iter = 0;; ++iter) {
     PHASE_STAMP_IT(iter, 0);
     float* part = c.part + (size_t)(iter & 1) * EKF_NH * c.stride;
+    float* gsum = c.gsum + (size_t)(iter & 1) * EKF_NH * c.gstride;
     const bool search = search_s != 0;
     // the pose in f32, as the plain version casts it (rot.to(f32))
     if (tid < 12) pose[tid] = (float)(tid < 9 ? crot[tid] : cx[tid - 9]);
@@ -334,6 +349,20 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
       }
       __syncthreads();
       tree64(red, part + chunk, c.stride, warp, lane);
+      if (c.nch > 1) {  // the block that completes a group of 64 sums it
+        __threadfence();  // the chunk sum is visible before the ticket is taken
+        __syncthreads();
+        const int g = chunk / CH, cnt = min(CH, c.nch - g * CH);
+        if (tid == 0) {
+          last_s = atomicAdd(c.tickets + g, 1) == cnt - 1;
+          if (last_s) c.tickets[g] = 0;  // every other chunk of g has taken one
+        }
+        __syncthreads();
+        if (last_s) {
+          __threadfence();
+          group_sum(part, c.stride, g, cnt, red, gsum, c.gstride, tid);
+        }
+      }
       __syncthreads();
     }
     if (blockIdx.x >= c.nch && warp == NWARP - 1) step_vec(pr, crot, cx, st.vec, lane);
@@ -341,7 +370,7 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
     grid.sync();
     PHASE_STAMP_IT(iter, 2);
 
-    reduce_chunks(part, c.stride, c.nch, stage, lv1, lv2, tot, tid);
+    reduce_chunks(part, c.stride, gsum, c.gstride, c.nch, lv1, lv2, tot, tid);
     if (tid < 6) tot[7 * tid + 6] = -tot[7 * tid + 6];  // the photometric form
     __syncthreads();
     PHASE_STAMP_IT(iter, 3);
@@ -425,9 +454,11 @@ PHASE_STAMPS_EXPORT(lio_cascade)
 // log2_dims (3,) int32) and the offsets (m, 3) int32, m 27 (radius 1) or
 // 125 (radius 2); p_imu (n, 3) f32, bns (n,) f32, pmask (n,) u8; P' (18,
 // 18), the prior's rot (3, 3) and x (15,), the state's rot and x, f64;
-// scratch part (2, 42, stride) f32 (by the iteration's parity) with nch =
-// ceil(n / 64) and stride = max(nch, 1) rounded up to a multiple of 4;
-// outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
+// scratch part (2, 42, stride) and gsum (2, 42, gstride) f32 (by the
+// iteration's parity) and tickets (max(groups, 1),) int32, zero before
+// the launch and left at zero, with nch = ceil(n / 64), groups = ceil(nch
+// / 64), stride = max(nch, 1) and gstride = max(groups, 1), each rounded
+// up to a multiple of 4; outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
 // (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
 // contiguous on the device. The plane fit's threshold, the gates on nd2_5,
 // s and |pd2|, and the convergence thresholds in degrees and centimetres.
@@ -439,7 +470,8 @@ extern "C" int lio_cascade_launch(
     const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
     const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
     const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
-    const void* prior_x, const void* rot0, const void* x0, void* part,
+    const void* prior_x, const void* rot0, const void* x0, void* part, void* gsum,
+    void* tickets,
     void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
     void* its, int n, int m, int T, int max_iter, float threshold, float sq_dist_gate,
     float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm, int* grid_out,
@@ -459,6 +491,8 @@ extern "C" int lio_cascade_launch(
   c.rot0 = static_cast<const double*>(rot0);
   c.x0 = static_cast<const double*>(x0);
   c.part = static_cast<float*>(part);
+  c.gsum = static_cast<float*>(gsum);
+  c.tickets = static_cast<int*>(tickets);
   c.rot_out = static_cast<double*>(rot_out);
   c.x_out = static_cast<double*>(x_out);
   c.Gmat = static_cast<double*>(Gmat);
@@ -469,6 +503,7 @@ extern "C" int lio_cascade_launch(
   c.n = n;
   c.nch = (n + CH - 1) / CH;
   c.stride = ((c.nch < 1 ? 1 : c.nch) + 3) & ~3;
+  c.gstride = ((groups1(c.nch) < 1 ? 1 : groups1(c.nch)) + 3) & ~3;
   c.cpb = 1;
   c.max_iter = max_iter;
   c.threshold = threshold;

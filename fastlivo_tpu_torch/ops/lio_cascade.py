@@ -61,12 +61,32 @@ def fixed_order_sum(rows: torch.Tensor) -> torch.Tensor:
             return x[0]
 
 
-def part_shape(n: int) -> tuple:
-    """The kernel's chunk-sum scratch for n points: (2, 42, stride), one
-    half per iteration parity, a column per quantity, stride = the chunks
-    (at least 1) rounded up to 4 (16-byte columns, copied into shared
-    memory 16 bytes at a time)."""
-    return (2, 42, -(-max(-(-n // CHUNK), 1) // 4) * 4)
+def _round4(k: int) -> int:
+    return -(-max(k, 1) // 4) * 4
+
+
+def scratch_shapes(n: int) -> tuple:
+    """The kernel's sum scratch for n points: the chunk sums (2, 42,
+    stride) and the group sums (2, 42, gstride), one half per iteration
+    parity, a column per quantity; stride and gstride the chunks and the
+    groups of CHUNK chunks (at least 1) rounded up to 4 (16-byte columns,
+    copied into shared memory 16 bytes at a time); and the group tickets
+    (groups,)."""
+    nch = -(-n // CHUNK)
+    groups = -(-nch // CHUNK)
+    return (2, 42, _round4(nch)), (2, 42, _round4(groups)), (max(groups, 1),)
+
+
+_tickets: dict = {}
+
+
+def _group_tickets(device: torch.device, stream: int, k: int) -> torch.Tensor:
+    """The kernel's group tickets for launches on `stream`: k ints at
+    least, zeroed once; every launch leaves them at 0."""
+    t = _tickets.get((device, stream))
+    if t is None or t.numel() < k:
+        t = _tickets[(device, stream)] = torch.zeros(k, dtype=torch.int32, device=device)
+    return t
 
 
 @functools.cache
@@ -74,7 +94,7 @@ def _launcher():
     from . import _build
 
     fn = _build.load("lio_cascade").lio_cascade_launch
-    fn.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
                    + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
@@ -114,16 +134,19 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     plane_ok = torch.empty(N, dtype=torch.bool, device=dev)
     pabcd = torch.empty((N, 4), dtype=F32, device=dev)
     its = torch.empty((), dtype=torch.int32, device=dev)
-    part = torch.empty(part_shape(N), dtype=F32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part_s, gsum_s, tick_s = scratch_shapes(N)
+    part, gsum = torch.empty(part_s, dtype=F32, device=dev), torch.empty(gsum_s, dtype=F32,
+                                                                           device=dev)
     ptrs = [t.data_ptr() for t in (
         m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs, p_imu,
-        bns, pmask, P_, prior_rot, prior_x, rot, x, part, rot_out, x_out, Gmat, sel, pabcd,
-        plane_ok, its)]
+        bns, pmask, P_, prior_rot, prior_x, rot, x, part, gsum,
+        _group_tickets(dev, stream, tick_s[0]), rot_out, x_out, Gmat, sel, pabcd, plane_ok,
+        its)]
     grid = ctypes.c_int(0)
     err = _launcher()(*ptrs, N, offs.shape[0], m.slot_key.shape[0], int(max_iter),
                       float(threshold), *(float(g) for g in gates),
-                      *(float(c) for c in conv), ctypes.byref(grid),
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      *(float(c) for c in conv), ctypes.byref(grid), stream)
     if err != 0:
         raise RuntimeError(f"lio_cascade: kernel launch failed (cudaError {err})")
     lio_cascade.launches += 1

@@ -97,10 +97,10 @@ def bind(lib):
     """The variant's launch function with this checkout's ctypes signature
     (ops/lio_cascade.py's launcher). A launcher that still takes the pose
     and flags in device scratch (cur (24) f64 and ctl (2) int32 after x0)
-    and a second level of chunk sums (part2 after part) gets scratch of
-    its own: a call of this checkout's signature is passed on with those
-    pointers added (this checkout's part is at least as large as it
-    needs)."""
+    and a second level of chunk sums (part2 after part), and no group sums
+    or tickets, gets scratch of its own: a call of this checkout's
+    signature is passed on with those pointers in place of gsum and
+    tickets (this checkout's part is at least as large as it needs)."""
     import torch
 
     from fastlivo_tpu_torch.ops import _build
@@ -110,14 +110,14 @@ def bind(lib):
     tail = [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_double] * 2 \
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     if b"void* part2" not in lib.source:
-        fn.argtypes = [ctypes.c_void_p] * 23 + tail
+        fn.argtypes = [ctypes.c_void_p] * 25 + tail
         call = _build.profiled("lio_cascade", fn)
     else:
         fn.argtypes = [ctypes.c_void_p] * 26 + tail
         scratch = {}
 
-        def call(*args):  # 15 inputs, part, 7 outputs, then n, ...
-            n = args[23]
+        def call(*args):  # 15 inputs, part, gsum, tickets, 7 outputs, then n, ...
+            n = args[25]
             if n not in scratch:
                 nch = max(-(-n // 64), 1)
                 scratch[n] = [torch.empty(24, dtype=torch.float64, device="cuda"),
@@ -125,7 +125,7 @@ def bind(lib):
                               torch.empty((max(-(-nch // 64), 1), 42), device="cuda")]
             cur, ctl, part2 = (t.data_ptr() for t in scratch[n])
             with torch._C._profiler._RecordFunctionFast("lio_cascade"):
-                return fn(*args[:15], cur, ctl, args[15], part2, *args[16:])
+                return fn(*args[:15], cur, ctl, args[15], part2, *args[18:])
     call.lib = lib
     return call
 

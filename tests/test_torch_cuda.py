@@ -31,6 +31,13 @@ version on their candidate blocks, and their pipelines searching through
 knn5_plane_hashed (never knn5_plane, the tiled kernel or
 knn_candidates); cache_knn through one gather per frame and knn5_plane.
 
+The photometric cascade bit-equal to the host loop vio.photometric_loop
+with the step kernel, also at one tracked point, at more points than the
+grid's blocks and on a level that ends by a rollback; the step kernel
+within 1e-12 of photometric_step_plain, also at the branch edges of Log
+and Exp; the measurement kernel's sum of its per-point partials bit for
+bit in photometric.partials_sum's order at G = 1, 7, 8, 192 and 193.
+
 IMU propagation: the imu_propagate kernel within 1e-10 of the plain loop
 imu.propagate_plain on the card (its 18x18 products through cuBLAS) over
 tests/torch_imu_cases.py's groups, bit-equal across launches, one launch
@@ -1731,14 +1738,18 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         else:
             bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
             f64 = dict(dtype=torch.float64, device=cuda)
-            outs = [torch.empty(lc.part_shape(n), device=cuda), torch.empty((3, 3), **f64),
-                    torch.empty(15, **f64), torch.empty((18, 6), **f64)] + out3()[1:2] \
-                + out3()[0:1] + out3()[1:2] + [torch.empty((), dtype=torch.int32, device=cuda)]
+            part_s, gsum_s, tick_s = lc.scratch_shapes(n)
+            outs = [torch.empty(part_s, device=cuda), torch.empty(gsum_s, device=cuda),
+                    torch.zeros(tick_s, dtype=torch.int32, device=cuda),
+                    torch.empty((3, 3), **f64), torch.empty(15, **f64),
+                    torch.empty((18, 6), **f64)] + out3()[1:2] + out3()[0:1] + out3()[1:2] \
+                + [torch.empty((), dtype=torch.int32, device=cuda)]
             grid = ctypes.c_int(0)
             got = launch_guarded(lambda *v: lc._launcher()(
                 *ptr(*v), n, offs.shape[0], T, max_iter, lio.PLANE_THRESH, *lio.GATES, *lio.CONV,
                 ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
-            got = got[1:4] + got[4:7] + [got[7]]  # rot, x, G, sel, pabcd, plane_ok, its
+            assert not got[2].any()  # the group tickets left at 0
+            got = got[3:6] + got[6:9] + [got[9]]  # rot, x, G, sel, pabcd, plane_ok, its
             for plain_search in (False, True):
                 loop = lio_host_loop(mp, body, bns, pmask, rot, x, P_, max_iter, radius,
                                      plain_search)
