@@ -47,11 +47,11 @@
 // same next pose and flags as every other block: no second barrier. The
 // chunk and group sums are double-buffered by the iteration's parity, so
 // a block that starts iteration i + 1 never writes what a slower block
-// still reads of iteration i. Block 0 writes the pose, G and the count. No host read and no launch between
-// iterations, so the search pays no launch and no host round trip; no
-// float atomics (the grid barrier is the only atomic). Built with
-// -fmad=false: every product rounds alone, as in the plain version's torch
-// ops.
+// still reads of iteration i. Block 0 writes the pose, G and the count.
+// No host read and no launch between iterations, so the search pays no
+// launch and no host round trip; no float atomics (the integer tickets
+// and the grid barrier are the only atomics). Built with -fmad=false:
+// every product rounds alone, as in the plain version's torch ops.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -6,15 +6,17 @@ Usage: python scripts/torch_photometric_bench.py [--variant TREE ...]
 
 Each variant is csrc/photometric_err_H.cu and, where the checkout has
 it, csrc/photometric_cascade.cu (the cascade and the step alone) of the
-checkout at TREE, relative to this
-one (default: this one, `.`; e.g. `build/parent` for an unpacked parent
-commit; TREE+NAME adds -DNAME to its build), built with this checkout's nvcc flags into
+checkout at TREE, relative to this one (default: this one, `.`; e.g.
+`build/parent` for an unpacked parent commit; TREE+NAME adds -DNAME to
+its build), built with this checkout's nvcc flags into
 build/fastlivo_tpu_torch/photometric_bench/ and launched through this
-checkout's wrappers (ops/photometric.py). The inputs are seeded: a
+checkout's wrappers (ops/photometric.py; a cascade launcher that still
+takes the pose and level in device scratch gets its own). The inputs
+are seeded: a
 textured 640x512 image, a camera with some distortion, G tracked points
 at 2-8 m whose reference patches were sampled at a pose ~2 cm and ~5
-mrad from the start pose, 85% valid, P = 8, the cascade over levels
-(2, 1, 0) with at most 10 iterations a level. Each variant's outputs are
+mrad from the start pose, 85% valid, P = 8, the cascade over levels (2,
+1, 0) with at most 10 iterations a level. Each variant's outputs are
 compared bit for bit with the first variant's: one photometric_err_H
 launch at level 0, one cascade and one step (at the start pose, on the
 plain measurement's [HᵀH | Hᵀz]; a step kernel without the convergence
@@ -26,8 +28,9 @@ calls (chip_smoke.time_ms), beside an empty kernel. A `--stamps` variant
 is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh) and its
 cascade launched `--reps` times alone, synchronised, reading its phase
 stamps after each launch: each phase summed over the iterations
-(stamped_phases), the median over the launches. Prints one JSON line with
-the card's `nvidia-smi` name and power limit (and writes it to `--out`).
+(stamped_phases), the median over the launches. Prints one JSON line
+with the card's `nvidia-smi` name and power limit (and writes it to
+`--out`).
 """
 import argparse
 import ctypes
