@@ -33,10 +33,9 @@
 // the counter for the next launch on the stream) sums each quantity over
 // the G partials in a fixed order (ops/photometric.py::partials_sum:
 // eight interleaved chains a quantity, each chain a thread's with its 24
-// loads through L2 in flight at once; on an H100 at G = 192 the kernel
-// took 21 us where its warps waited on each L2 load in turn, 12.5 us
-// where 44 threads summed the rows staged through shared memory, 11.5 us
-// so), and writes HT (6, 7), err = Σperr / max(Σw·P·P, 1), n_meas and
+// loads through L2 in flight at once: the latency of those loads bounds
+// it, and a version whose warps waited on each in turn took 21 us at G =
+// 192), and writes HT (6, 7), err = Σperr / max(Σw·P·P, 1), n_meas and
 // Σperr (over a device mesh the ranks sum [HT | Σperr |
 // n_meas] and divide after the sum, vio.photometric_loop). No
 // float atomics: the result is the same from run to run. The

@@ -7,27 +7,27 @@ Usage: python scripts/torch_lio_cascade_bench.py [--variant TREE ...]
 
 Each variant is csrc/lio_cascade.cu of the checkout at TREE, relative to
 this one (default: this one, `.`; e.g. `build/parent` for an unpacked
-parent commit; TREE+NAME adds -DNAME to its build), built with this
-checkout's nvcc flags into build/fastlivo_tpu_torch/photometric_bench/
-and launched through this checkout's wrapper (ops/lio_cascade.py; a
-launcher of the older signature, with the pose, the flags and a second
-level of chunk sums in device scratch, gets that scratch). The inputs
-are seeded, at the LIO path's shapes: a tiled map at the shipped
-directory dims (128 x 128 x 64 tiles of 8³ voxels of 0.5 m) holding
-120000 points of a gently curved surface, a scan of `--n` of them (drawn
-with replacement past 120000) with 5 mm noise (every 17th masked out), a
-start pose ~6 mrad and ~4 cm off, P' = 10 I, max_iter 4, radius 1 (M =
-27). Each variant's outputs are compared bit for bit with the first
-variant's and with the host loop lio.lio_loop (this checkout's
-knn5_plane_tiled and step kernel; also with knn5_plane_tiled_plain). The
-variants are then timed in turns, forwards and backwards (A B ... B A),
-each a median of `--reps` queued calls (chip_smoke.time_ms), beside an
-empty kernel. A `--stamps` variant is built again with -DPHASE_STAMPS
-(csrc/phase_stamps.cuh) and launched `--reps` times alone, synchronised,
-reading its phase stamps after each launch: each phase summed over the
-iterations, the median over the launches
-(torch_photometric_bench.stamped_phases). Prints one JSON line with the
-card's `nvidia-smi` name and power limit (and writes it to `--out`).
+parent commit), built with this checkout's nvcc flags into
+build/fastlivo_tpu_torch/photometric_bench/ and launched through this
+checkout's wrapper (ops/lio_cascade.py; a launcher of the older
+signature, with the pose, the flags and a second level of chunk sums in
+device scratch, gets that scratch). The inputs are seeded, at the LIO
+path's shapes: a tiled map at the shipped directory dims (128 x 128 x 64
+tiles of 8³ voxels of 0.5 m) holding 120000 points of a gently curved
+surface, a scan of `--n` of them (drawn with replacement past 120000)
+with 5 mm noise (every 17th masked out), a start pose ~6 mrad and ~4 cm
+off, P' = 10 I, max_iter 4, radius 1 (M = 27). Each variant's outputs
+are compared bit for bit with the first variant's and with the host loop
+lio.lio_loop (this checkout's knn5_plane_tiled and step kernel; also
+with knn5_plane_tiled_plain). The variants are then timed in turns,
+forwards and backwards (A B ... B A), each a median of `--reps` queued
+calls (chip_smoke.time_ms), beside an empty kernel. A `--stamps` variant
+is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh) and launched
+`--reps` times alone, synchronised, reading its phase stamps after each
+launch: each phase summed over the iterations, the median over the
+launches (torch_photometric_bench.stamped_phases). Prints one JSON line
+with the card's `nvidia-smi` name and power limit (and writes it to
+`--out`).
 """
 import argparse
 import ctypes

@@ -7,30 +7,28 @@ Usage: python scripts/torch_photometric_bench.py [--variant TREE ...]
 Each variant is csrc/photometric_err_H.cu and, where the checkout has
 it, csrc/photometric_cascade.cu (the cascade and the step alone) of the
 checkout at TREE, relative to this one (default: this one, `.`; e.g.
-`build/parent` for an unpacked parent commit; TREE+NAME adds -DNAME to
-its build), built with this checkout's nvcc flags into
-build/fastlivo_tpu_torch/photometric_bench/ and launched through this
-checkout's wrappers (ops/photometric.py; a cascade launcher that still
-takes the pose and level in device scratch gets its own). The inputs
-are seeded: a
-textured 640x512 image, a camera with some distortion, G tracked points
-at 2-8 m whose reference patches were sampled at a pose ~2 cm and ~5
-mrad from the start pose, 85% valid, P = 8, the cascade over levels (2,
-1, 0) with at most 10 iterations a level. Each variant's outputs are
-compared bit for bit with the first variant's: one photometric_err_H
-launch at level 0, one cascade and one step (at the start pose, on the
-plain measurement's [HᵀH | Hᵀz]; a step kernel without the convergence
-thresholds among its arguments is called without them); each cascade
-also with the host loop vio.photometric_loop (this checkout's
-measurement and step kernels). The variants are then timed in turns,
-forwards and backwards (A B ... B A), each a median of `--reps` queued
-calls (chip_smoke.time_ms), beside an empty kernel. A `--stamps` variant
-is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh) and its
-cascade launched `--reps` times alone, synchronised, reading its phase
-stamps after each launch: each phase summed over the iterations
-(stamped_phases), the median over the launches. Prints one JSON line
-with the card's `nvidia-smi` name and power limit (and writes it to
-`--out`).
+`build/parent` for an unpacked parent commit), built with this
+checkout's nvcc flags into build/fastlivo_tpu_torch/photometric_bench/
+and launched through this checkout's wrappers (ops/photometric.py; a
+cascade launcher that still takes the pose and level in device scratch
+gets its own). The inputs are seeded: a textured 640x512 image, a camera
+with some distortion, G tracked points at 2-8 m whose reference patches
+were sampled at a pose ~2 cm and ~5 mrad from the start pose, 85% valid,
+P = 8, the cascade over levels (2, 1, 0) with at most 10 iterations a
+level. Each variant's outputs are compared bit for bit with the first
+variant's: one photometric_err_H launch at level 0, one cascade and one
+step (at the start pose, on the plain measurement's [HᵀH | Hᵀz]; a step
+kernel without the convergence thresholds among its arguments is called
+without them); each cascade also with the host loop vio.photometric_loop
+(this checkout's measurement and step kernels). The variants are then
+timed in turns, forwards and backwards (A B ... B A), each a median of
+`--reps` queued calls (chip_smoke.time_ms), beside an empty kernel. A
+`--stamps` variant is built again with -DPHASE_STAMPS
+(csrc/phase_stamps.cuh) and its cascade launched `--reps` times alone,
+synchronised, reading its phase stamps after each launch: each phase
+summed over the iterations (stamped_phases), the median over the
+launches. Prints one JSON line with the card's `nvidia-smi` name and
+power limit (and writes it to `--out`).
 """
 import argparse
 import ctypes
@@ -56,17 +54,13 @@ def build(tree: str, name: str, stamps: bool = False):
     """csrc/<name>.cu of the checkout at `tree`, compiled with this
     checkout's flags (and -DPHASE_STAMPS) into
     build/fastlivo_tpu_torch/photometric_bench/; None where the checkout
-    has no such source. A tree written TREE+NAME is TREE built with -DNAME
-    as well (a variant a source selects at build time). Its source is kept
-    on the library as `source`."""
+    has no such source. Its source is kept on the library as `source`."""
     from fastlivo_tpu_torch.ops import _build
 
-    tree, *defines = tree.split("+")
     src = os.path.join(tree, "fastlivo_tpu_torch", "csrc", f"{name}.cu")
     if not os.path.exists(src):
         return None
-    flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS"] if stamps else []) \
-        + [f"-D{d}" for d in defines]
+    flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS"] if stamps else [])
     h = hashlib.sha256(os.path.abspath(src).encode())
     for f in sorted(os.listdir(os.path.dirname(src))):
         with open(os.path.join(os.path.dirname(src), f), "rb") as fh:
