@@ -136,8 +136,8 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     its = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     part_s, gsum_s, tick_s = scratch_shapes(N)
-    part, gsum = torch.empty(part_s, dtype=F32, device=dev), torch.empty(gsum_s, dtype=F32,
-                                                                           device=dev)
+    part = torch.empty(part_s, dtype=F32, device=dev)
+    gsum = torch.empty(gsum_s, dtype=F32, device=dev)
     ptrs = [t.data_ptr() for t in (
         m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs, p_imu,
         bns, pmask, P_, prior_rot, prior_x, rot, x, part, gsum,
