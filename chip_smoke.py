@@ -34,7 +34,16 @@ observation rings in per-rank slabs, against the single-device prefix,
 `photometric_err_H`'s partials (what a mesh sums) held against their
 plain version on one rank's slab, then `run.main --mesh 1 --sharded-map`
 with the camera and its checkpoint, and (l) a LIO run with a 4 kHz IMU
-in 512-pair groups on the card against the CPU. The tiled-map paths
+in 512-pair groups on the card against the CPU, with the first frame
+where the card's and the CPU's downsampled scans or EKF iterations
+differ. The tiled map's box delete (`tiled_delete_boxes`) and the voxel
+filter's segmented centroid (`voxel_centroids`) launch once per tracker
+update and once per filtered scan or camera cloud on every single-card
+path; both are held against their plain versions on the LIO path's final
+map and on its last scan and the LIVO path's last camera cloud (the
+centroid bit for bit against the plain version run on the CPU), with
+overflow, NaN and -0.0 rows, and timed beside their bounds and, for the
+centroid, torch.segment_reduce. The tiled-map paths
 run the fused kernels: each scan's LIO iterated EKF in one launch
 (`lio_cascade`: every iteration's search, the walk of `knn5_plane_tiled`,
 the gates and rows, the fixed-order [HᵀH | Hᵀz] and the f64 step on the
@@ -77,7 +86,8 @@ IMU loop and the photometric host loop with its plain step included),
 for the device kernels per frame, the kernel counts under `lio.search`,
 `frame.lio_update`, `vio.photometric` and `frame.propagate` and the host
 time of `frame.lio_update`, `frame.propagate` and `vio.photometric`
-before and after.
+before and after, and the host and device time of `frame.map_insert`,
+`frame.delete_boxes`, `frame.voxel_filter` and `vio.voxel_filter`.
 
 Prints the card and its power limit, the build time, each phase's
 seconds, each kernel's time beside its bound and beside the unfused pair
@@ -107,7 +117,7 @@ F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data
 # every csrc/*.cu of the port
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
                 "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
-                "vio_select", "vio_observations"]
+                "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -529,9 +539,13 @@ def unfused():
     each measurement the plain body sampling through the standalone
     patches_and_grads kernel and each step photometric_step_plain, IMU
     propagation as the plain loop, the camera frame's selection and map
-    upkeep as their torch code (no vio_select, no vio_observations)."""
+    upkeep as their torch code (no vio_select, no vio_observations), the
+    box delete and the voxel filter's centroid as their torch code (no
+    tiled_delete_boxes, no voxel_centroids)."""
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     def search(m, pw, radius, threshold, max_probe):
         mod = lio.map_module(m)
@@ -547,6 +561,8 @@ def unfused():
         stack.enter_context(unsampled_plain())
         stack.enter_context(plain_propagation())
         stack.enter_context(swapped(vio, "frame_kernels_apply", lambda *a, **kw: False))
+        stack.enter_context(swapped(tm, "delete_boxes", tm.delete_boxes_plain))
+        stack.enter_context(swapped(vf, "voxel_centroids", vf.voxel_centroids_plain))
         yield
 
 
@@ -559,6 +575,45 @@ def spy(module, name, calls: list):
         return real(*a, **kw)
 
     return swapped(module, name, wrapped)
+
+
+@contextlib.contextmanager
+def recorded_boxes(pipe, sets: list):
+    """Append the boxes (B, 2, 3) f32 of every tracker update that the
+    pipeline deletes (the map built); the counted wrapper
+    tiled_map.delete_boxes itself is not replaced."""
+    tracker = pipe.tracker
+    update = tracker.update
+
+    def wrapped(pos):
+        boxes = update(pos)
+        if boxes and pipe.map_built:
+            sets.append(np.asarray(boxes, np.float32))
+        return boxes
+
+    tracker.update = wrapped
+    try:
+        yield
+    finally:
+        tracker.update = update
+
+
+@contextlib.contextmanager
+def recorded_filter(module, rec: dict):
+    """Count the calls of module.voxel_downsample_device in rec["n"] and
+    keep the last one's arguments in rec["last"] (tensors copied on the
+    card, no host read)."""
+    real = module.voxel_downsample_device
+    rec.setdefault("n", 0)
+
+    def wrapped(*a, **kw):
+        rec["n"] += 1
+        cp = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        rec["last"] = ([cp(v) for v in a], {k: cp(v) for k, v in kw.items()})
+        return real(*a, **kw)
+
+    with swapped(module, "voxel_downsample_device", wrapped):
+        yield
 
 
 @contextlib.contextmanager
@@ -825,13 +880,15 @@ def need_cascade(label, launches, ekfs=None):
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
     from fastlivo_tpu_torch.ops import imu_scan, knn_plane, lio_cascade, patches_grads
-    from fastlivo_tpu_torch.ops import photometric, vio_observations, vio_select
+    from fastlivo_tpu_torch.ops import photometric, tiled_map, vio_observations, vio_select
+    from fastlivo_tpu_torch.ops import voxel_filter
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
             photometric.photometric_err_H, photometric.photometric_cascade,
             photometric.photometric_step, patches_grads.patches_and_grads,
             imu_scan.imu_propagate, lio_cascade.lio_cascade, vio_select.vio_select,
-            vio_observations.vio_observations)
+            vio_observations.vio_observations, tiled_map.delete_boxes,
+            voxel_filter.voxel_centroids)
 
 
 def reset_counts():
@@ -1288,6 +1345,218 @@ def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
     return res
 
 
+DELETE_OPS_PER_CELL = 9  # the voxel, its centre, the or into the kill mask
+DELETE_OPS_PER_BOX = 6  # six compares a cell and box (the torch code's count)
+
+
+def delete_bound_ms(m, n_boxes: int, killed: int):
+    """(bound ms, "bytes" | "operations", bytes, ops) of one box delete: it
+    reads slot_key (12 B a slot), the voxel size and the boxes and writes
+    4 B per cleared cell; (9 + 6 B) operations per pool cell."""
+    T = m.slot_key.shape[0]
+    byts = 12 * T + 4 + 24 * n_boxes + 4 * killed
+    ops = (DELETE_OPS_PER_CELL + DELETE_OPS_PER_BOX * n_boxes) * T * 512
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
+
+
+def centroid_bound_ms(packed, pts, max_out: int):
+    """(bound ms, "bytes" | "operations", bytes, ops) of one centroid pass:
+    it reads each row's order entry and key (16 B) and each valid row's C
+    floats, and writes max_out rows of C floats and a mask byte; ~8
+    operations a row (head test, count, the division's share) and C adds a
+    valid row."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    N, C = pts.shape
+    nvalid = int((packed != vf.INVALID).sum())
+    byts = 16 * N + 4 * C * nvalid + (4 * C + 1) * max_out
+    ops = 8 * N + C * nvalid + C * max_out
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
+
+
+def face_boxes(m, rng, n_boxes: int):
+    """n_boxes boxes around live cells of the map whose faces lie on cell
+    centres (inclusive on both sides: the test's edge), 1 to 40 voxels
+    from the cell on each side."""
+    from fastlivo_tpu_torch.ops import voxel_map as vmap
+
+    T = m.slot_key.shape[0]
+    chk = vmap._check31(m.slot_key)
+    live = (m.cell_check.view(T, 512) == chk[:, None]) & (
+        torch.arange(T, device=chk.device) < m.n_alloc)[:, None]
+    cells = torch.nonzero(live.view(-1)).view(-1).cpu().numpy()
+    pick = cells[rng.integers(0, len(cells), n_boxes)]
+    sk = m.slot_key.cpu().numpy()[pick // 512].astype(np.int64)
+    c = pick % 512
+    v = sk * 8 + np.stack([c >> 6, (c >> 3) & 7, c & 7], -1)
+    vs = np.float32(m.voxel_size.item())
+    ctr = lambda k: (k.astype(np.float32) + np.float32(0.5)) * vs  # noqa: E731
+    lo = ctr(v - rng.integers(1, 41, v.shape))
+    hi = ctr(v + rng.integers(1, 41, v.shape))
+    dev = m.slot_key.device
+    return (torch.from_numpy(lo.astype(np.float32)).to(dev),
+            torch.from_numpy(hi.astype(np.float32)).to(dev))
+
+
+def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
+    """The LIO frame's map-stage kernels against their plain versions on
+    the card, then timed (these launches are not the paths'; the counts
+    are restored). tiled_delete_boxes: on the LIO per-frame path's final
+    map (Config()'s 16384 slots x 512 cells) and on that map compacted,
+    with the tracker's last three box sets of
+    the path and with 1, 3 and 6 boxes around live cells whose faces lie
+    on cell centres: every field equal to delete_boxes_plain's (the
+    compacted map is compacted after 6 other face boxes cleared whole
+    tiles, so that slots past n_alloc keep stale keys). Timed on
+    the tracker's last boxes (the path's input) and on the 6 face boxes,
+    beside the plain version; no library call computes it.
+    voxel_centroids: on the LIO path's last scan and the LIVO path's last
+    camera cloud, as run, with max_out at half the voxels (overflow), and
+    with NaN, inf and -0.0 rows: bit-equal to voxel_centroids_plain run
+    on the CPU on the same sorted keys, the whole filter
+    (voxel_downsample_device on the card) bit-equal to
+    voxel_downsample_device_plain on the CPU, and whether the card's own
+    plain version (torch.segment_reduce on the card) gives the same bits.
+    Timed as run beside the plain version and the library call
+    torch.segment_reduce on the same rows and lengths. Returns
+    {"tiled_delete_boxes": {...}, "voxel_centroids": {...}}."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    counts = read_counts()
+    smi = nvidia_smi_line()
+    dev = lio_map.slot_key.device
+    rng = np.random.default_rng(16)
+    tracker = {f"tracker {k}": (torch.from_numpy(b[:, 0].copy()).to(dev),
+                                torch.from_numpy(b[:, 1].copy()).to(dev))
+               for k, b in enumerate(box_sets[-3:])}
+    # compacted after clearing whole tiles: stale slots past n_alloc
+    maps = {"path map": lio_map, "compacted": tm.compact(
+        tm.delete_boxes_plain(clone_map(lio_map), *face_boxes(lio_map, rng, 6)))}
+    n_alloc = int(maps["compacted"].n_alloc)
+    stale = int((maps["compacted"].slot_key[n_alloc:] != 0).any(dim=1).sum())
+    killed = {}
+    for label, m in maps.items():
+        faces = {f"faces {B}": face_boxes(m, rng, B) for B in (1, 3, 6)}
+        if label == "path map":
+            flo, fhi = faces["faces 6"]
+        for name, (lo, hi) in {**tracker, **faces}.items():
+            want = tm.delete_boxes_plain(clone_map(m), lo, hi)
+            got = tm.delete_boxes(clone_map(m), lo, hi)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            k = int((want.cell_check == tm.EMPTY_CHECK).sum()
+                    - (m.cell_check == tm.EMPTY_CHECK).sum())
+            killed[f"{label}, {name}"] = k
+            if not same or (name.startswith("faces") and k == 0):
+                raise AssertionError(f"tiled_delete_boxes on the {label}, {name} boxes: "
+                                     f"equal {same}, {k} cells cleared")
+            del want, got
+    print(f"tiled_delete_boxes on the LIO path's map ({lio_map.slot_key.shape[0]} slots, "
+          f"{int(lio_map.n_alloc)} allocated) and compacted ({n_alloc} allocated, {stale} "
+          f"stale slots past them): every field equal to the plain version for the "
+          f"tracker's and the face boxes; cells cleared {killed}")
+    lo, hi = tracker[f"tracker {len(tracker) - 1}"]
+    mt = clone_map(lio_map)
+    ms = time_ms(lambda: tm.delete_boxes(mt, lo, hi))
+    ms6 = time_ms(lambda: tm.delete_boxes(mt, flo, fhi))
+    mp = clone_map(lio_map)
+    plain_ms = time_ms(lambda: tm.delete_boxes_plain(mp, lo, hi))
+    plain6 = time_ms(lambda: tm.delete_boxes_plain(mp, flo, fhi))
+    del mt, mp
+    k_path = killed[f"path map, tracker {len(tracker) - 1}"]
+    bound, by, byts, ops = delete_bound_ms(lio_map, lo.shape[0], k_path)
+    bound6, by6, _, _ = delete_bound_ms(lio_map, 6, killed["path map, faces 6"])
+    res = {"tiled_delete_boxes": {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "bytes": byts,
+        "ops": ops, "boxes": int(lo.shape[0]), "cells_cleared": k_path,
+        "faces_6": {"ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
+                    "cells_cleared": killed["path map, faces 6"]},
+        "max_abs_err": 0.0, "cases": len(killed)}}
+    print(f"tiled_delete_boxes, the tracker's {lo.shape[0]} boxes ({k_path} cells cleared): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}: "
+          f"{byts} bytes, {ops} operations), library none; 6 face boxes "
+          f"({killed['path map, faces 6']} cells): kernel {ms6:.4f} ms, plain {plain6:.4f} "
+          f"ms, bound {bound6:.5f} ms ({by6}); {smi}")
+
+    cases, card_plain_same, card_plain_err = {}, True, 0.0
+    timed = {}
+    for src, (a, kw) in (("lio scan", lio_filter), ("camera cloud", cam_filter)):
+        pts, valid, leaf, max_out = a[0], a[1], a[2], a[3]
+        inv = kw.get("inv_leaf")
+        packed, order = vf._sorted_keys(pts, valid, leaf, inv)
+        nseg = int(vf.voxel_centroids_plain(packed, order, pts, max_out)[1].sum())
+        bad = pts.clone()
+        bad[:8] = float("nan")
+        bad[8:16, 1] = float("inf")
+        bad[16:64] = -0.0
+        bvalid = valid.clone()
+        bvalid[:64] = True
+        for case, (p, v, mo) in {"as run": (pts, valid, max_out),
+                                 "overflow": (pts, valid, max(nseg // 2, 1)),
+                                 "nan, inf, -0.0 rows": (bad, bvalid, max_out)}.items():
+            pk, od = vf._sorted_keys(p, v, leaf, inv)
+            got = vf.voxel_centroids(pk, od, p, mo)
+            cpu = vf.voxel_centroids_plain(pk.cpu(), od.cpu(), p.cpu(), mo)
+            card = vf.voxel_centroids_plain(pk, od, p, mo)
+            full = vf.voxel_downsample_device(p, v, leaf, mo, **kw)
+            full_cpu = vf.voxel_downsample_device_plain(
+                p.cpu(), v.cpu(), None if leaf is None else leaf.cpu(), mo,
+                **{k: t.cpu() for k, t in kw.items()})
+            torch.cuda.synchronize()
+            same = all(bits_diff(x.cpu(), y) == 0.0 for x, y in zip(got + full, cpu + full_cpu))
+            csame = all(bits_diff(x.cpu(), y) == 0.0 for x, y in zip(card, cpu))
+            cerr = float((card[0].cpu() - cpu[0]).abs().max())
+            card_plain_same &= csame
+            card_plain_err = max(card_plain_err, cerr)
+            cases[f"{src}, {case}"] = {"rows": int(p.shape[0]), "max_out": mo,
+                                       "voxels": int(cpu[1].sum()),
+                                       "card_plain_bit_equal": csame}
+            if not same or int(cpu[1].sum()) == 0:
+                raise AssertionError(f"voxel_centroids on the {src}, {case}: bit-equal to the "
+                                     f"CPU {same}, {int(cpu[1].sum())} voxels")
+        # timed as run
+        # the library call's inputs, as voxel_centroids_plain forms them
+        sp = packed[order]
+        vs = sp != vf.INVALID
+        data = torch.where(vs[:, None], pts[order], torch.zeros_like(pts))
+        lengths = torch.zeros(max_out + 1, dtype=torch.int64, device=dev)
+        head = torch.ones_like(sp, dtype=torch.bool)
+        head[1:] = sp[1:] != sp[:-1]
+        sg = torch.clamp(torch.where(vs, torch.cumsum((head & vs).long(), 0) - 1,
+                                     torch.full_like(sp, max_out)), max=max_out)
+        lengths.index_add_(0, sg, torch.ones_like(sg))
+        k_ms = time_ms(lambda: vf.voxel_centroids(packed, order, pts, max_out))
+        p_ms = event_ms(lambda: vf.voxel_centroids_plain(packed, order, pts, max_out), reps=30)
+        lib_ms = event_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0,
+                                                       unsafe=True, initial=0.0), reps=30)
+        f_ms = time_ms(lambda: vf.voxel_downsample_device(pts, valid, leaf, max_out, **kw))
+        fp_ms = event_ms(lambda: vf.voxel_downsample_device_plain(pts, valid, leaf, max_out,
+                                                                  **kw), reps=30)
+        bound, by, byts, ops = centroid_bound_ms(packed, pts, max_out)
+        timed[src] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
+                      "bound_by": by, "bytes": byts, "ops": ops, "grid": vf.voxel_centroids.grid,
+                      "rows": int(pts.shape[0]), "max_out": max_out, "voxels": nseg,
+                      "filter_ms": f_ms, "filter_plain_ms": fp_ms}
+        print(f"voxel_centroids on the {src} ({pts.shape[0]} rows, {nseg} voxels into "
+              f"{max_out}): kernel {k_ms:.4f} ms ({vf.voxel_centroids.grid} blocks), plain "
+              f"{p_ms:.4f} ms, library torch.segment_reduce {lib_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}: {byts} bytes, {ops} operations); the whole filter "
+              f"(sort + kernel) {f_ms:.4f} ms, plain {fp_ms:.4f} ms; {smi}")
+    print(f"voxel_centroids bit-equal to the plain version on the CPU in every case "
+          f"{list(cases)}; the card's plain version bit-equal too: {card_plain_same} "
+          f"(max abs difference {card_plain_err:.3g})")
+    res["voxel_centroids"] = {**timed["lio scan"], "camera": timed["camera cloud"],
+                              "max_abs_err": 0.0, "cases": cases,
+                              "card_plain_bit_equal": card_plain_same,
+                              "card_plain_max_abs_diff": card_plain_err}
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    return res
+
+
 def lio_cascade_phase(a):
     """lio_cascade on the LIO path's last call `a` (its arguments, the
     map's search arrays as they were): held against the host loop
@@ -1458,10 +1727,13 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     After the run every cascade is held against the host loop on its
     inputs (check_lio_cascades). Returns (the pipeline, the launches, the
     outputs, the dataset, wall ms per frame, the last cascade call's
-    arguments, the cascades' numbers)."""
+    arguments, the cascades' numbers, the boxes deleted, the last voxel
+    filter call's arguments). tiled_delete_boxes must launch once per
+    tracker update with boxes, voxel_centroids once per steady frame."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.config import Config
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
     from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
     from fastlivo_tpu_torch.pipeline import Pipeline
 
@@ -1480,11 +1752,11 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
-    searches, groups, cascades = [], [], []
+    searches, groups, cascades, boxes, filt = [], [], [], [], {}
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups), \
-            recorded_lio(cascades):
+            recorded_lio(cascades), recorded_boxes(pipe, boxes), recorded_filter(vf, filt):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -1511,16 +1783,20 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     need_cascade("lio per-frame", launches, len(steady))
     if (len(cascades) != len(steady) or searches or launches["knn5_plane"]
             or launches["knn5_plane_hashed"] or launches["photometric_step"]
-            or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)):
+            or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)
+            or launches["delete_boxes"] != len(boxes) or not boxes
+            or not launches["voxel_centroids"] == filt["n"] == len(steady)):
         raise AssertionError(f"launches {launches} for {len(cascades)} cascades, "
                              f"{len(searches)} searches, {len(groups)} groups, "
-                             f"{len(steady)} steady frames")
+                             f"{len(steady)} steady frames, {len(boxes)} box deletes, "
+                             f"{filt['n']} voxel filters")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
     nums = check_lio_cascades(cascades, "lio per-frame")
-    return pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums
+    return (pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums, boxes,
+            filt["last"])
 
 
 def livo_config(cfg=None, W=640, H=512, F=400.0):
@@ -1577,9 +1853,14 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     recorded cascade calls, camera and lidar frame medians in ms, the
     outputs, the dataset, wall ms per lidar frame, the cascades', the LIO
     cascades' and the camera frames' numbers, the last recorded camera
-    frame)."""
+    frame, the last camera voxel filter call's arguments).
+    tiled_delete_boxes must launch once per tracker update with boxes,
+    voxel_centroids once per steady lidar frame and once per camera frame
+    step."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch import vio as vio_mod
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     cfg = livo_config()
@@ -1595,11 +1876,13 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     push_all(pipe, ds)
     vio = pipe.vio
     cam_ms, searches, cascades, groups, lio_calls, vio_calls = [], [], [], [], [], []
+    boxes, lid_filt, cam_filt = [], {}, {}
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
             spy(imu_mod, "propagate_wire", groups), timed_camera_frames(vio, cam_ms), \
-            recorded_lio(lio_calls), recorded_vio(vio_calls):
+            recorded_lio(lio_calls), recorded_vio(vio_calls), recorded_boxes(pipe, boxes), \
+            recorded_filter(vf, lid_filt), recorded_filter(vio_mod, cam_filt):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -1637,9 +1920,11 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "photometric_err_H": 0, "photometric_cascade": vio.steps, "photometric_step": 0,
             "patches_and_grads": 0, "imu_propagate": len(groups),
             "lio_cascade": len(steady), "vio_select": vio.steps,
-            "vio_observations": vio.steps}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, want {want}")
+            "vio_observations": vio.steps, "delete_boxes": len(boxes),
+            "voxel_centroids": lid_filt["n"] + cam_filt["n"]}
+    if launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps:
+        raise AssertionError(f"launches {launches}, want {want}, {lid_filt['n']} lidar and "
+                             f"{cam_filt['n']} camera voxel filters")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.06:
@@ -1649,7 +1934,8 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     del lio_calls
     vio_nums = check_vio_calls(vio_calls, "livo per-frame")
     return (launches, cascades, float(np.median(cam_ms)), float(np.median(lid_ms)),
-            outs, ds, 1e3 * wall / len(outs), nums, lio_nums, vio_nums, vio_calls[-1])
+            outs, ds, 1e3 * wall / len(outs), nums, lio_nums, vio_nums, vio_calls[-1],
+            cam_filt["last"])
 
 
 def livo_cpu_agreement(dev):
@@ -1841,7 +2127,11 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     res = {"search_kernels": n_k / n, "propagate_kernels": n_p / n, "kernels": launches / n,
            "propagate_host_ms": prop_host, "propagate_device_ms": prop_dev,
            "lio_update_kernels": n_l / n, "lio_update_host_ms": lio_host,
-           "lio_update_device_ms": lio_dev}
+           "lio_update_device_ms": lio_dev, "device_busy_share": busy_ms / (1e3 * wall),
+           "stages": {e.key: {"host_ms": e.cpu_time_total / 1e3 / n,
+                              "device_ms": e.device_time_total / 1e3 / n}
+                      for e in evs if e.key.startswith(stage)
+                      and str(e.device_type).endswith("CPU")}}
     if not fused:
         return res
     if not kernels:
@@ -1998,8 +2288,13 @@ def imu_4khz_phase(dev, duration=3.0):
     (~400 pairs a 10 Hz group, the 512 bucket) on the card and on the
     CPU, 4096-point scans: one imu_propagate launch per propagated
     group, the 512 bucket reached, every frame within 1 mm of the CPU's.
-    Returns (ms per lidar frame, launches, numbers)."""
+    Each steady frame's downsampled scan and EKF iterations are recorded on
+    both devices, and the first frame where the card's and the CPU's
+    downsampled points differ in a bit, in their voxel set, or in their
+    iterations is printed. Returns (ms per lidar frame, launches,
+    numbers)."""
     from fastlivo_tpu_torch import imu as imu_mod
+    from fastlivo_tpu_torch import pipeline as pipeline_mod
     from fastlivo_tpu_torch.config import CapacityConfig, Config
     from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -2018,12 +2313,36 @@ def imu_4khz_phase(dev, duration=3.0):
             pipe.push_lidar(beg, pts, t_rel)
         for t, acc, gyr in ds.imu_stream():
             pipe.push_imu(t, acc, gyr)
-        groups = []
-        with spy(imu_mod, "propagate_wire", groups):
+        groups, steps = [], []
+        real = pipeline_mod.lidar_frame_step
+
+        def recorded(*args, **kw):
+            out = real(*args, **kw)
+            steps.append((out[2], out[3], out[5]))  # down, dmask, iters (fresh tensors)
+            return out
+
+        with spy(imu_mod, "propagate_wire", groups), \
+                swapped(pipeline_mod, "lidar_frame_step", recorded):
             outs, launches, wall = counted_run(lambda: pipe.spin() + pipe.finish())
-        res.append((outs, launches, wall, groups, pipe._imu_bucket))
-    (a, la, wa, ga, ba), (b, _, _, _, bb) = res
+        res.append((outs, launches, wall, groups, pipe._imu_bucket, steps))
+    (a, la, wa, ga, ba, sa), (b, _, _, _, bb, sb) = res
     d = max_diff(a, b)
+    first = {"bits": None, "voxel_set": None, "iters": None}
+    for k, ((da, ma, ia), (db, mb, ib)) in enumerate(zip(sa, sb)):
+        da, ma = da.cpu(), ma.cpu()
+        if first["bits"] is None and bits_diff(da, db) != 0.0:
+            first["bits"] = k
+        if first["voxel_set"] is None and not torch.equal(ma, mb):
+            first["voxel_set"] = k
+        if first["iters"] is None and int(ia) != int(ib):
+            first["iters"] = k
+    pos_d = [float(np.linalg.norm(x.pos - y.pos)) for x, y in zip(a, b)]
+    first_pos = next((k for k, e in enumerate(pos_d) if e > 0.0), None)
+    print(f"4 kHz IMU, card vs cpu, over {len(sa)} frame steps ({len(sb)} on the CPU): the "
+          f"first step whose downsampled points differ in a bit {first['bits']}, in their "
+          f"voxel set {first['voxel_set']}, in EKF iterations {first['iters']}; the first "
+          f"frame whose position differs {first_pos} of {len(a)} "
+          f"({pos_d[first_pos] * 1e3 if first_pos is not None else 0.0:.3g} mm there)")
     pairs = max(int(g[1].shape[0]) - 1 for g in ga)
     print(f"4 kHz IMU, max_imu_per_group 512, {dev} vs cpu: {len(a)} frames, "
           f"{len(ga)} propagated groups of up to {pairs} pairs (bucket {ba}), "
@@ -2034,7 +2353,8 @@ def imu_4khz_phase(dev, duration=3.0):
         raise AssertionError(f"4 kHz IMU: {len(a)} frames, launches {la}, groups {len(ga)}, "
                              f"buckets {ba} / {bb}, {d} m")
     return wa / len(a), la, {"max_diff_to_cpu_mm": d * 1e3, "groups": len(ga),
-                             "bucket": ba}
+                             "bucket": ba, "first_step_differing": first,
+                             "first_frame_position_differs": first_pos}
 
 
 def ate_of(outs, ds, t_offset=0.0):
@@ -3518,7 +3838,9 @@ def main() -> int:
     with phase("warm-up"):
         warmup_phase(dev)
     with phase("lio per-frame"):
-        pipe, lio_launches, lio_outs, lio_ds, lio_ms, lio_call, lio_nums = path_phase(dev)
+        (pipe, lio_launches, lio_outs, lio_ds, lio_ms, lio_call, lio_nums, lio_boxes,
+         lio_filter) = path_phase(dev)
+        lio_map = pipe.map  # for the map-stage kernels, after the LIVO path
         lio_casc = lio_cascade_phase(lio_call)
         del lio_call
 
@@ -3572,11 +3894,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("livo per-frame"):
         (livo_launches, cascades, cam_fused, lid_fused, livo_outs, livo_ds,
-         livo_ms, casc_nums, livo_lio_nums, vio_nums, vio_rec) = livo_path_phase(dev)
+         livo_ms, casc_nums, livo_lio_nums, vio_nums, vio_rec, cam_filter) = livo_path_phase(dev)
         last_call = cascades[-1][0]
         del cascades
         vio_res = vio_kernels_phase(vio_rec)
         del vio_rec
+        torch.cuda.empty_cache()
+    with phase("map stage kernels"):
+        stages = map_stages_phase(lio_map, lio_boxes, lio_filter, cam_filter)
+        del lio_map, lio_filter, cam_filter
         torch.cuda.empty_cache()
     with phase("livo block replay"):
         livo_paths, livo_ckpt, block_casc = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
@@ -3631,9 +3957,12 @@ def main() -> int:
         paths["lio 4 kHz IMU, 512-pair groups"] = (l_ms, l_launches)
         path_extra["lio 4 kHz IMU, 512-pair groups"] = l_nums
     with phase("profiles"):
-        # 10 profiled frames each, unfused and fused
-        lio_prof = [profile_phase(dev, fused=f, duration=4.0) for f in (False, True)]
-        livo_prof = [livo_profile_phase(dev, fused=f, duration=4.0) for f in (False, True)]
+        # 9-10 profiled frames fused, 4-5 unfused (whose ~5000 kernels a
+        # frame make the profiler's processing the costliest part of the run)
+        lio_prof = [profile_phase(dev, fused=f, duration=4.0 if f else 3.5)
+                    for f in (False, True)]
+        livo_prof = [livo_profile_phase(dev, fused=f, duration=4.0 if f else 3.5)
+                     for f in (False, True)]
     (lu, lf), (vu, vf) = lio_prof, livo_prof
     print(f"per steady lidar frame, unfused (plain IMU loop) -> fused: device kernels "
           f"{lu['kernels']:.0f} -> {lf['kernels']:.0f}, under lio.search "
@@ -3652,6 +3981,17 @@ def main() -> int:
           f"{vu['photometric_kernels']:.1f} -> {vf['photometric_kernels']:.1f} kernels, host "
           f"{vu['photometric_host_ms']:.3f} -> {vf['photometric_host_ms']:.3f} ms, device "
           f"{vu['photometric_device_ms']:.3f} -> {vf['photometric_device_ms']:.3f} ms; {smi}")
+    sl, sv = lf["stages"], vf["stages"]
+    ms2 = lambda d, k: (f"{d.get(k, {}).get('host_ms', 0.0):.3f} host / "  # noqa: E731
+                        f"{d.get(k, {}).get('device_ms', 0.0):.3f} device")
+    print(f"map stages per steady LIO frame, ms: frame.map_insert {ms2(sl, 'frame.map_insert')}"
+          f", frame.delete_boxes {ms2(sl, 'frame.delete_boxes')}, frame.voxel_filter "
+          f"{ms2(sl, 'frame.voxel_filter')}; per camera frame vio.voxel_filter "
+          f"{ms2(sv, 'vio.voxel_filter')}; device kernels per LIO frame {lu['kernels']:.0f} "
+          f"-> {lf['kernels']:.0f} (device busy {100 * lu['device_busy_share']:.1f}% -> "
+          f"{100 * lf['device_busy_share']:.1f}% of wall), per LIVO pair "
+          f"{vu['kernels_per_pair']:.0f} -> {vf['kernels_per_pair']:.0f} (unfused -> fused, "
+          f"the unfused with the plain box delete and centroid); {smi}")
     if not (lf["search_kernels"] < lu["search_kernels"] and lf["kernels"] < lu["kernels"]
             and lf["lio_update_kernels"] < lu["lio_update_kernels"]
             and vf["photometric_kernels"] < vu["photometric_kernels"]
@@ -3787,7 +4127,24 @@ def main() -> int:
         "library_ms": None, "pairs": 32, "chain_steps": 32, "by_pairs": imu_res,
         "launches_per_path": {k: v[-1]["imu_propagate"] for k, v in paths.items()},
         "mesh_launches": sum(v[-1]["imu_propagate"] for k, v in paths.items() if "mesh" in k),
-    }]}))
+    }, *[{
+        "name": name, "route": "cuda",
+        "source": f"fastlivo_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": lio_launches[counter], "path": "lio per-frame",
+        **{k: stages[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+        "library_ms": stages[name].get("library_ms"),
+        **{k: v for k, v in stages[name].items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "launches_per_path": {k: v[-1][counter] for k, v in paths.items()
+                              if v[-1].get(counter)},
+    } for name, counter, replaces in (
+        ("tiled_delete_boxes", "delete_boxes",
+         "fastlivo_tpu/ops/tiled_map.py:246-260 (delete_boxes, jitted XLA; no Pallas kernel)"),
+        ("voxel_centroids", "voxel_centroids",
+         "fastlivo_tpu/ops/voxel_filter.py:54-71 (voxel_downsample_device after its argsort, "
+         "jitted XLA; no Pallas kernel)"))]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -3,37 +3,29 @@ of its points (the reference's `pcl::VoxelGrid` scan filter,
 laserMapping.cpp:172-173 with leaf `filter_size_surf`).
 
 Port of the JAX package's ops/voxel_filter.py: the device filter of the
-fused frame step and the host (numpy) filter of the bootstrap frames.
+fused frame step and the host (numpy) filter of the bootstrap frames. On
+CUDA the device filter's segmented centroid after the sort is one launch
+of the hand-written kernel csrc/voxel_centroids.cu (built at first use,
+see _build.py); its plain version `voxel_centroids_plain`, the torch code
+the CPU runs, is the kernel's oracle. Contract on the card: bit-equal to
+the plain version run on the CPU on the same inputs.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
+from .photometric import _require
 
-def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
-                            leaf: torch.Tensor | None, max_out: int,
-                            inv_leaf: torch.Tensor | None = None):
-    """Centroid voxel filter with a fixed output capacity, on pts' device.
+INVALID = 1 << 62  # the packed key of a dropped row: sorts after every voxel
 
-    Packed-key stable sort, then a segmented sum into `max_out` rows;
-    rows past the capacity and invalid rows go to one extra sentinel row
-    that is cut off. Output order is sorted-voxel-key order. Non-finite
-    points are dropped (pcl::VoxelGrid's is-finite skip).
 
-    Each segment is summed in row order (`segment_reduce` over the sorted
-    rows), on CUDA as on the CPU: the result does not change from run to
-    run, as an atomic `index_add_` would.
-
-    Args:   pts (N, C>=3) f32; valid (N,) bool; leaf: 0-d f32 tensor on
-            pts' device (see voxel_map.voxel_of for why not a float);
-            or, instead of `leaf`, `inv_leaf`: the keys are then
-            floor(pts * inv_leaf). The JAX package's fused camera step
-            passes its 0.2 m leaf as a constant, which XLA turns into a
-            multiply by the f32 reciprocal; `inv_leaf` computes that form.
-    Returns (out (max_out, C), mask (max_out,)).
-    """
-    N, C = pts.shape
+def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
+    """The packed voxel key of each row (the invalid marker 2^62 where the
+    row is invalid or not finite) and their stable argsort."""
     valid = valid & torch.all(torch.isfinite(pts[:, :3]), dim=-1)
     keys = torch.floor(pts[:, :3] / leaf if inv_leaf is None
                        else pts[:, :3] * inv_leaf)
@@ -46,11 +38,53 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
         | ((keys[:, 1] + (1 << 19)) & 0xFFFFF) << 20
         | ((keys[:, 2] + (1 << 19)) & 0xFFFFF)
     )
-    packed = torch.where(valid, packed, torch.full_like(packed, 1 << 62))
-    order = torch.argsort(packed, stable=True)
+    packed = torch.where(valid, packed, torch.full_like(packed, INVALID))
+    return packed, torch.argsort(packed, stable=True)
+
+
+def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
+                            leaf: torch.Tensor | None, max_out: int,
+                            inv_leaf: torch.Tensor | None = None):
+    """Centroid voxel filter with a fixed output capacity, on pts' device.
+
+    Packed-key stable sort, then the segmented centroid of
+    `voxel_centroids` into `max_out` rows (one kernel launch on CUDA);
+    rows past the capacity and invalid rows are dropped. Output order is
+    sorted-voxel-key order. Non-finite points are dropped
+    (pcl::VoxelGrid's is-finite skip). Each segment is summed in row
+    order, on CUDA as on the CPU.
+
+    Args:   pts (N, C>=3) f32; valid (N,) bool; leaf: 0-d f32 tensor on
+            pts' device (see voxel_map.voxel_of for why not a float);
+            or, instead of `leaf`, `inv_leaf`: the keys are then
+            floor(pts * inv_leaf). The JAX package's fused camera step
+            passes its 0.2 m leaf as a constant, which XLA turns into a
+            multiply by the f32 reciprocal; `inv_leaf` computes that form.
+    Returns (out (max_out, C), mask (max_out,)).
+    """
+    packed, order = _sorted_keys(pts, valid, leaf, inv_leaf)
+    return voxel_centroids(packed, order, pts.contiguous(), max_out)
+
+
+def voxel_downsample_device_plain(pts: torch.Tensor, valid: torch.Tensor,
+                                  leaf: torch.Tensor | None, max_out: int,
+                                  inv_leaf: torch.Tensor | None = None):
+    """`voxel_downsample_device` in torch ops on any device (the sort and
+    `voxel_centroids_plain`): the kernel's oracle."""
+    packed, order = _sorted_keys(pts, valid, leaf, inv_leaf)
+    return voxel_centroids_plain(packed, order, pts, max_out)
+
+
+def voxel_centroids_plain(packed: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
+                          max_out: int):
+    """The segmented centroid after the sort: rows in `order` (the stable
+    argsort of the packed keys `packed`, INVALID for a dropped row),
+    segments the runs of equal valid keys, segment g < max_out summed in
+    row order from +0.0 (`segment_reduce`) and divided by its length.
+    Returns (out (max_out, C), mask (max_out,))."""
     sp = packed[order]
     ps = pts[order]
-    vs = valid[order]
+    vs = sp != INVALID
     start = torch.ones_like(vs)
     start[1:] = sp[1:] != sp[:-1]
     start &= vs
@@ -68,6 +102,56 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
     mask = cnt > 0
     out = sums / torch.clamp(cnt, min=1.0)[:, None]
     return torch.where(mask[:, None], out, torch.zeros_like(out)), mask
+
+
+@functools.cache
+def _launcher():
+    from . import _build
+
+    fn = _build.load("voxel_centroids").voxel_centroids_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return _build.profiled("voxel_centroids", fn)
+
+
+def voxel_centroids(packed: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
+                    max_out: int):
+    """`voxel_centroids_plain`'s signature and outputs. CUDA tensors launch
+    the kernel of csrc/voxel_centroids.cu on the current stream (counted
+    in `voxel_centroids.launches`; its blocks in `voxel_centroids.grid`)
+    with no host read; CPU tensors run the plain version. No other device
+    is taken and nothing falls back."""
+    if pts.device.type == "cpu":
+        return voxel_centroids_plain(packed, order, pts, max_out)
+    if pts.device.type != "cuda":
+        raise ValueError(f"voxel_centroids: unsupported device {pts.device}")
+    dev = pts.device
+    if pts.ndim != 2 or pts.shape[1] < 1 or max_out < 0:
+        raise ValueError(f"voxel_centroids: pts {tuple(pts.shape)}, max_out {max_out}")
+    N, C = pts.shape
+    for name, t, shape, dtype in (("packed", packed, (N,), torch.int64),
+                                  ("order", order, (N,), torch.int64),
+                                  ("pts", pts, (N, C), torch.float32)):
+        _require(f"voxel_centroids: {name}", t, shape, dtype, dev)
+    out = torch.empty((max_out, C), dtype=torch.float32, device=dev)
+    mask = torch.empty(max_out, dtype=torch.bool, device=dev)
+    start = torch.empty(max_out + 1, dtype=torch.int32, device=dev)
+    counts = torch.empty(2 * max(-(-N // 256), 1), dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
+    err = _launcher()(*[t.data_ptr() for t in (packed, order, pts, out, mask, start, counts)],
+                      N, C, max_out, ctypes.byref(grid),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"voxel_centroids: kernel launch failed (cudaError {err})")
+    if max_out > 0:
+        voxel_centroids.launches += 1
+    voxel_centroids.grid = grid.value
+    return out, mask
+
+
+voxel_centroids.launches = 0
+voxel_centroids.grid = 0
 
 
 def voxel_downsample(pts: np.ndarray, leaf: float,

@@ -56,6 +56,15 @@ and with more than 64² chunks; equal iterations and the pose
 within 1e-9 with photometric_step_plain; lio_update on one card one
 launch with no host read on the tiled map, the host loop on the others;
 bad inputs refused.
+
+The LIO frame's map stages: tiled_delete_boxes bit-equal to
+delete_boxes_plain on built and compacted maps (stale slots past n_alloc)
+with the tracker's boxes and with boxes whose faces lie on cell centres;
+voxel_centroids bit-equal to voxel_centroids_plain run on the CPU (a LIO
+scan, a camera cloud, -0.0, NaN and inf rows, overflow, no valid row, and
+600000 rows: several tiles a block); both writing only their outputs; the
+whole steady lidar_frame_step and delete_boxes with device boxes without
+a synchronising call.
 """
 import itertools
 
@@ -1692,7 +1701,8 @@ def launch_guarded(launch, inputs, outputs):
 
 
 @pytest.mark.parametrize("kernel", ["knn5_plane_27", "knn5_plane_125", "knn5_plane_tiled",
-                                    "lio_cascade", "vio_select", "vio_observations"])
+                                    "lio_cascade", "vio_select", "vio_observations",
+                                    "tiled_delete_boxes", "voxel_centroids"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -1703,7 +1713,10 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     kernels at the main path's widths: vio_select's scratch and outputs
     are its outputs; vio_observations writes the map in place, so the map
     arrays are its outputs and after the launch every byte of them equals
-    the plain version's map (nothing written outside its writes)."""
+    the plain version's map (nothing written outside its writes). The
+    LIO frame's map stages: tiled_delete_boxes writes the pool's cell
+    checks in place (its output, every byte equal to the plain version's
+    after the launch); voxel_centroids at 16379 rows into 8191."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -1711,6 +1724,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
 
     if kernel.startswith("vio_"):
         return vio_write_only(cuda, kernel)
+    if kernel in ("tiled_delete_boxes", "voxel_centroids"):
+        return map_stage_write_only(cuda, kernel)
 
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     stream = torch.cuda.current_stream(cuda).cuda_stream
@@ -2353,3 +2368,237 @@ def vio_write_only(dev, kernel):
         names = names + ["opc", "oscore", "n_pts", "rcw2", "pcw2"]
     for g, w, name in zip(got, want, names):
         assert bit_equal(g, w), name
+
+
+# --- the LIO frame's map stages (tiled_delete_boxes, voxel_centroids) --------
+
+def centre32(v, vs=0.5):
+    """The f32 centre of voxel v, as the kernel and the torch code round it."""
+    return (np.float32(v) + np.float32(0.5)) * np.float32(vs)
+
+
+def stage_map(dev, n=200000, pool=4096, dims=(64, 64, 16), seed=0, compacted=False):
+    """A tiled map of surface-like points over +-60 m (negative tiles
+    included); with `compacted`, a slab cleared and the map compacted, so
+    that slots past n_alloc keep stale keys and cells."""
+    rng = np.random.default_rng(seed)
+    p = np.stack([rng.uniform(-60, 60, n), rng.uniform(-60, 60, n),
+                  np.abs(np.sin(0.1 * rng.uniform(-60, 60, n))) * 6 - 3], 1).astype(np.float32)
+    m = tm.build_host(p, dims, pool, 0.5, device=dev)
+    if compacted:
+        lo = torch.tensor([[-60.0, -60.0, -5.0]], device=dev)
+        hi = torch.tensor([[-20.0, 60.0, 5.0]], device=dev)
+        m = tm.compact(tm.delete_boxes_plain(m, lo, hi))
+        assert int(m.n_alloc) < pool and bool((m.slot_key[int(m.n_alloc):] != 0).any())
+    return m
+
+
+def face_boxes(dev, B, seed):
+    """B random boxes whose faces lie on cell centres (inclusive on both
+    sides), one with a NaN bound when B > 2."""
+    rng = np.random.default_rng(seed)
+    v = np.sort(rng.integers(-120, 120, (B, 3, 2)), axis=-1)
+    v[:, 2] = np.sort(rng.integers(-8, 8, (B, 2)), axis=-1)
+    lo, hi = centre32(v[..., 0]), centre32(v[..., 1])
+    if B > 2:
+        lo[2, 1] = np.nan
+    return (torch.from_numpy(lo.astype(np.float32)).to(dev),
+            torch.from_numpy(hi.astype(np.float32)).to(dev))
+
+
+TRACKER_BOXES = [  # lasermap_fov_segment's slabs at Config()'s cube (one per axis side)
+    ((-1000.0, -1000.0, -1000.0), (-550.0, 1000.0, 1000.0)),
+    ((-1000.0, 550.0, -1000.0), (1000.0, 1000.0, 1000.0)),
+    ((-1000.0, -1000.0, -1000.0), (1000.0, 1000.0, -550.0))]
+
+
+@pytest.mark.parametrize("boxes", ["tracker", "faces_1", "faces_3", "faces_6", "inert"])
+@pytest.mark.parametrize("compacted", [False, True], ids=["built", "compacted"])
+def test_tiled_delete_boxes_matches_plain(cuda, boxes, compacted):
+    """The kernel clears exactly the plain version's cells, bit for bit,
+    in every slot (stale ones past n_alloc included), and writes no other
+    field."""
+    m = stage_map(cuda, compacted=compacted)
+    if boxes == "tracker":
+        lo, hi = (torch.tensor([b[i] for b in TRACKER_BOXES], device=cuda) for i in (0, 1))
+    elif boxes == "inert":
+        lo, hi = torch.ones((2, 3), device=cuda), torch.zeros((2, 3), device=cuda)
+    else:
+        lo, hi = face_boxes(cuda, int(boxes.split("_")[1]), seed=len(boxes))
+    want = tm.delete_boxes_plain(clone_map(m), lo, hi)
+    n0 = tm.delete_boxes.launches
+    got = tm.delete_boxes(clone_map(m), lo, hi)
+    torch.cuda.synchronize()
+    assert tm.delete_boxes.launches == n0 + 1
+    for f, g, w in zip(m._fields, got, want):
+        assert torch.equal(g, w), f
+    killed = int((want.cell_check == tm.EMPTY_CHECK).sum() - (m.cell_check == tm.EMPTY_CHECK).sum())
+    assert (killed > 0) == boxes.startswith("faces")
+
+
+def test_tiled_delete_boxes_makes_no_synchronising_call(cuda):
+    """Given device boxes, delete_boxes is one launch and no synchronising
+    call (torch's sync debug mode set to raise)."""
+    m = stage_map(cuda)
+    lo, hi = face_boxes(cuda, 3, seed=5)
+    want = tm.delete_boxes_plain(clone_map(m), lo, hi)
+    tm.delete_boxes(clone_map(m), lo, hi)  # built and warm
+    got = clone_map(m)
+    torch.cuda.synchronize()
+    n0 = tm.delete_boxes.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tm.delete_boxes(got, lo, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tm.delete_boxes.launches == n0 + 1
+    assert torch.equal(got.cell_check, want.cell_check)
+
+
+def filter_case(case, seed=0):
+    """(pts (N, 3) f32, valid, leaf or None, inv_leaf or None, max_out) of
+    the two callers' shapes and edges."""
+    rng = np.random.default_rng(seed)
+    n, max_out, leaf, inv = 32768, 16384, 0.5, None
+    if case == "camera":  # the camera frame's 0.2 m leaf as a reciprocal
+        n, max_out, leaf, inv = 32768, 8192, None, np.float32(1.0) / np.float32(0.2)
+    if case == "large":  # more rows than the grid's threads: several tiles a block
+        n = 600000
+    p = rng.uniform(-25, 25, (n, 3)).astype(np.float32)
+    p[: n // 3] = p[n // 3: 2 * (n // 3)] + rng.normal(0, 0.1, (n // 3, 3))
+    valid = rng.random(n) > 0.05
+    if case == "lio":
+        valid[24000:] = False  # a 24000-point scan in the 32768-row buffer
+    if case == "edges":
+        p[:64] = np.float32(-0.0)
+        p[64:100, 1] = np.float32(-0.0)
+        p[100, 0], p[101, 1], p[102, 2], p[103] = np.nan, np.inf, -np.inf, np.nan
+        max_out = 3000  # overflow: more voxels than rows
+    if case == "all_invalid":
+        valid[:] = False
+    return p, valid, leaf, inv, max_out
+
+
+@pytest.mark.parametrize("case", ["lio", "camera", "edges", "all_invalid", "large"])
+def test_voxel_centroids_match_the_cpu_bit_for_bit(cuda, case):
+    """voxel_downsample_device on the card (one voxel_centroids launch after
+    the sort) gives the plain version's bits run on the CPU, and the same
+    bits on every launch; the card's plain version (torch.segment_reduce
+    on the card) within 1e-6."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    p, valid, leaf, inv, max_out = filter_case(case)
+    args = [torch.from_numpy(p), torch.from_numpy(valid)]
+    kw = {}
+    if inv is not None:
+        kw["inv_leaf"] = torch.tensor(inv)
+    lf = None if leaf is None else torch.tensor(leaf, dtype=torch.float32)
+    want = vf.voxel_downsample_device(*args, lf, max_out, **kw)
+    dargs = [a.to(cuda) for a in args]
+    dkw = {k: v.to(cuda) for k, v in kw.items()}
+    dlf = None if lf is None else lf.to(cuda)
+    n0 = vf.voxel_centroids.launches
+    runs = [vf.voxel_downsample_device(*dargs, dlf, max_out, **dkw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert vf.voxel_centroids.launches == n0 + 2
+    for out, mask in runs:
+        assert torch.equal(mask.cpu(), want[1])
+        assert torch.equal(out.cpu().view(torch.int32), want[0].view(torch.int32))
+    plain = vf.voxel_downsample_device_plain(*dargs, dlf, max_out, **dkw)
+    assert torch.equal(plain[1].cpu(), want[1])
+    np.testing.assert_allclose(plain[0].cpu().numpy(), want[0].numpy(), rtol=1e-6, atol=1e-6)
+    if case != "all_invalid":
+        assert int(want[1].sum()) > 1000
+
+
+def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
+    """The whole steady lidar_frame_step on one card (the tiled map, the
+    LIO cascade, the TLS fit, no cache_knn): the undistortion, the voxel
+    filter (the sort and one voxel_centroids launch), the cascade (one
+    lio_cascade launch), the insert and the frame's outputs make no
+    synchronising call (torch's sync debug mode set to raise), and give the
+    same bits as the same step called without the mode."""
+    from fastlivo_tpu_torch import frame_step, pipeline
+    from fastlivo_tpu_torch.ops import lio_cascade
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    calls = []
+    real = pipeline.lidar_frame_step
+
+    def spy(*a, **kw):
+        calls.append((a[:1] + (clone_map(a[1]),) + a[2:], kw))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pipeline, "lidar_frame_step", spy)
+    pipe = small_lio(cuda)
+    pipe.spin()
+    assert len(calls) > 5
+    a, kw = calls[-1]
+    want = frame_step.lidar_frame_step(*(a[:1] + (clone_map(a[1]),) + a[2:]), **kw)
+    torch.cuda.synchronize()
+    counts = lambda: (vf.voxel_centroids.launches, lio_cascade.lio_cascade.launches,  # noqa
+                      knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches)
+    n0 = counts()
+    m = clone_map(a[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = frame_step.lidar_frame_step(*(a[:1] + (m,) + a[2:]), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
+    for g, w in zip(got[2:], want[2:]):
+        assert bit_equal(g, w)
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+    assert all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
+
+
+def test_lio_pipeline_runs_the_map_stage_kernels(cuda):
+    """A LIO run on the card clears its boxes through tiled_delete_boxes
+    and filters every steady scan through voxel_centroids."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    pipe = small_lio(cuda)
+    n0 = (tm.delete_boxes.launches, vf.voxel_centroids.launches)
+    outs = pipe.spin()
+    steady = [o for o in outs if o.iters > 0]
+    assert len(steady) > 5
+    assert tm.delete_boxes.launches - n0[0] >= len(steady)  # the tracker fires each frame
+    assert vf.voxel_centroids.launches - n0[1] == len(steady)
+
+
+def map_stage_write_only(dev, kernel):
+    """test_kernels_write_only_their_outputs' map-stage cases."""
+    import ctypes
+
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    if kernel == "tiled_delete_boxes":
+        m = stage_map(dev, compacted=True)
+        lo, hi = face_boxes(dev, 4, seed=3)
+        T = m.slot_key.shape[0]
+        got = launch_guarded(lambda sk, vs, a, b, cc: tm._delete_launcher()(
+            *ptr(sk, vs, a, b, cc), 4, T, tm.EMPTY_CHECK, stream),
+            [m.slot_key, m.voxel_size, lo, hi], [m.cell_check])
+        want = [tm.delete_boxes_plain(clone_map(m), lo, hi).cell_check]
+    else:
+        p, valid, leaf, _, _ = filter_case("edges")
+        n, max_out = 16379, 8191
+        pts = torch.from_numpy(p[:n]).to(dev)
+        packed, order = vf._sorted_keys(pts, torch.from_numpy(valid[:n]).to(dev),
+                                        torch.tensor(leaf, device=dev), None)
+        outs = [torch.empty((max_out, 3), device=dev),
+                torch.empty(max_out, dtype=torch.bool, device=dev),
+                torch.empty(max_out + 1, dtype=torch.int32, device=dev),
+                torch.empty(2 * (-(-n // 256)), dtype=torch.int32, device=dev)]
+        grid = ctypes.c_int(0)
+        got = launch_guarded(lambda k, o, x, *r: vf._launcher()(
+            *ptr(k, o, x, *r), n, 3, max_out, ctypes.byref(grid), stream),
+            [packed, order, pts], outs)[:2]
+        want = vf.voxel_centroids_plain(packed.cpu(), order.cpu(), pts.cpu(), max_out)
+        got = [g.cpu() for g in got]
+    for g, w in zip(got, want):
+        assert bit_equal(g, w)

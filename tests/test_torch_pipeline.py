@@ -421,8 +421,9 @@ def test_every_kernel_source_is_built_and_smoked():
     """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
     fused searches (tiled; hash and dense), the fused photometric
     measurement, the photometric cascade and step, the two standalone
-    kernels, the IMU propagation, the LIO cascade and the camera frame's
-    selection and map upkeep."""
+    kernels, the IMU propagation, the LIO cascade, the camera frame's
+    selection and map upkeep, the tiled map's box delete and the voxel
+    filter's segmented centroid."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -434,7 +435,8 @@ def test_every_kernel_source_is_built_and_smoked():
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
     assert cu == ["imu_propagate", "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
                   "lio_cascade", "patches_and_grads", "photometric_cascade",
-                  "photometric_err_H", "vio_observations", "vio_select"]
+                  "photometric_err_H", "tiled_delete_boxes", "vio_observations",
+                  "vio_select", "voxel_centroids"]
 
 
 def test_kernel_launches_are_profiler_ops():
