@@ -486,7 +486,7 @@ def photometric_host_loop():
     photometric_cascade.cu: the host loop vio.photometric_loop, one
     photometric_err_H launch and the f64 step in torch ops
     (photometric_step_plain) per iteration, two flags read back
-    (scripts/torch_camera_frame_ab.py runs the LIVO path both ways)."""
+    (scripts/torch_lidar_frame_ab.py runs the LIVO path both ways)."""
     from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch.ops import photometric
 
@@ -601,19 +601,23 @@ def recorded_boxes(pipe, sets: list):
 @contextlib.contextmanager
 def recorded_filter(module, rec: dict):
     """Count the calls of module.voxel_downsample_device in rec["n"] and
-    keep the last one's arguments in rec["last"] (tensors copied on the
-    card, no host read)."""
+    keep the last one's arguments in rec["last"]: a reference while the
+    context is open (nothing copied or read in a timed window), copied on
+    the card when it closes."""
     real = module.voxel_downsample_device
     rec.setdefault("n", 0)
 
     def wrapped(*a, **kw):
         rec["n"] += 1
-        cp = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
-        rec["last"] = ([cp(v) for v in a], {k: cp(v) for k, v in kw.items()})
+        rec["last"] = (a, kw)
         return real(*a, **kw)
 
     with swapped(module, "voxel_downsample_device", wrapped):
         yield
+    if "last" in rec:
+        cp = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        a, kw = rec["last"]
+        rec["last"] = ([cp(v) for v in a], {k: cp(v) for k, v in kw.items()})
 
 
 @contextlib.contextmanager
@@ -1345,17 +1349,20 @@ def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
     return res
 
 
-DELETE_OPS_PER_CELL = 9  # the voxel, its centre, the or into the kill mask
-DELETE_OPS_PER_BOX = 6  # six compares a cell and box (the torch code's count)
+DELETE_OPS_PER_CENTRE = 3  # the voxel's float, + 0.5, x voxel_size
+DELETE_OPS_PER_TEST = 2  # lo <= c, c <= hi
 
 
 def delete_bound_ms(m, n_boxes: int, killed: int):
     """(bound ms, "bytes" | "operations", bytes, ops) of one box delete: it
     reads slot_key (12 B a slot), the voxel size and the boxes and writes
-    4 B per cleared cell; (9 + 6 B) operations per pool cell."""
+    4 B per cleared cell. A cell lies in a box iff each of its three
+    in-tile offsets does on its axis, so the work a slot needs is its 24
+    axis centres (8 offsets x 3 axes) and two compares of each against
+    each box: (3 + 2 B) x 24 operations a slot, not a decision per cell."""
     T = m.slot_key.shape[0]
     byts = 12 * T + 4 + 24 * n_boxes + 4 * killed
-    ops = (DELETE_OPS_PER_CELL + DELETE_OPS_PER_BOX * n_boxes) * T * 512
+    ops = (DELETE_OPS_PER_CENTRE + DELETE_OPS_PER_TEST * n_boxes) * 24 * T
     t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
 
@@ -1417,7 +1424,7 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
     with NaN, inf and -0.0 rows: bit-equal to voxel_centroids_plain run
     on the CPU on the same sorted keys, the whole filter
     (voxel_downsample_device on the card) bit-equal to
-    voxel_downsample_device_plain on the CPU, and whether the card's own
+    voxel_downsample_device on the CPU, and whether the card's own
     plain version (torch.segment_reduce on the card) gives the same bits.
     Timed as run beside the plain version and the library call
     torch.segment_reduce on the same rows and lengths. Returns
@@ -1502,7 +1509,7 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
             cpu = vf.voxel_centroids_plain(pk.cpu(), od.cpu(), p.cpu(), mo)
             card = vf.voxel_centroids_plain(pk, od, p, mo)
             full = vf.voxel_downsample_device(p, v, leaf, mo, **kw)
-            full_cpu = vf.voxel_downsample_device_plain(
+            full_cpu = vf.voxel_downsample_device(
                 p.cpu(), v.cpu(), None if leaf is None else leaf.cpu(), mo,
                 **{k: t.cpu() for k, t in kw.items()})
             torch.cuda.synchronize()
@@ -1533,8 +1540,9 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
         lib_ms = event_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0,
                                                        unsafe=True, initial=0.0), reps=30)
         f_ms = time_ms(lambda: vf.voxel_downsample_device(pts, valid, leaf, max_out, **kw))
-        fp_ms = event_ms(lambda: vf.voxel_downsample_device_plain(pts, valid, leaf, max_out,
-                                                                  **kw), reps=30)
+        with swapped(vf, "voxel_centroids", vf.voxel_centroids_plain):
+            fp_ms = event_ms(lambda: vf.voxel_downsample_device(pts, valid, leaf, max_out, **kw),
+                             reps=30)
         bound, by, byts, ops = centroid_bound_ms(packed, pts, max_out)
         timed[src] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
                       "bound_by": by, "bytes": byts, "ops": ops, "grid": vf.voxel_centroids.grid,

@@ -27,9 +27,11 @@
 // cell for cell, and needs no monotonicity of the centre in v.
 //
 // Bound on an H100: the work reads slot_key (12 B a slot) and the boxes
-// and writes 4 B per killed cell; its operations, counted as the torch
-// code does them (about 9 + 6 B per cell: the voxel, the centre, the six
-// compares and the or per box), bound it at the shipped 8.39M cells.
+// and writes 4 B per killed cell; by the per-axis split it needs 24 axis
+// centres a slot (3 operations each) and two compares of each against
+// each box, (3 + 2 B) x 24 operations a slot. At the shipped 16384 slots
+// the bytes bind for a few boxes (~0.06 us), far below one launch, so the
+// kernel is bound by its launch and the latency of one slot's warp.
 // chip_smoke.py counts both from its inputs.
 
 #include <cuda_runtime.h>

@@ -66,15 +66,6 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
     return voxel_centroids(packed, order, pts.contiguous(), max_out)
 
 
-def voxel_downsample_device_plain(pts: torch.Tensor, valid: torch.Tensor,
-                                  leaf: torch.Tensor | None, max_out: int,
-                                  inv_leaf: torch.Tensor | None = None):
-    """`voxel_downsample_device` in torch ops on any device (the sort and
-    `voxel_centroids_plain`): the kernel's oracle."""
-    packed, order = _sorted_keys(pts, valid, leaf, inv_leaf)
-    return voxel_centroids_plain(packed, order, pts, max_out)
-
-
 def voxel_centroids_plain(packed: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
                           max_out: int):
     """The segmented centroid after the sort: rows in `order` (the stable

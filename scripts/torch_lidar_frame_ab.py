@@ -1,97 +1,300 @@
-"""The lidar frame with the LIO cascade against the host loop it replaced,
+"""The steady LIO and LIVO frames of several checkouts and arms of the port,
 in turns on one card.
 
-Usage: python scripts/torch_lidar_frame_ab.py [--rounds 3] [--duration 6]
+Usage: python scripts/torch_lidar_frame_ab.py [--variant TREE ...] [--arm ARM ...]
+           [--paths lio livo] [--rounds 3] [--duration 6] [--profile]
 
-Runs chip_smoke.py's LIO per-frame path (Pipeline(Config()) at the
-shipped capacities, camera off, 24000-point scans) and its LIVO per-frame
-path (a 640x512 camera), the same recorded datasets every run,
-`--rounds` times in each of three arms, in turns: the LIO cascade (one
-lio_cascade launch per EKF); the host loop lio.lio_loop with the step
-kernel (one knn5_plane_tiled launch per search iteration, the gates and
-rows in torch ops, one photometric_step launch and one flag read per
-iteration: what a mesh and the other maps run); the host loop with the
-f64 step in torch ops (chip_smoke.lio_host_loop, the EKF as it ran before
-the cascade). Each run is a fresh pipeline, after one discarded run of
-each path. Prints, per run, the steady lidar frame's median and p90 (host
-wall of the frame, its stats read included) and the wall per lidar frame
-(LIO) or per lidar + camera pair (LIVO), then one JSON line with every
-run's numbers and the card's `nvidia-smi` name and power limit.
+A variant is a tree and an arm. Each tree holds `fastlivo_tpu_torch/` and
+its `chip_smoke.py` (the repository itself, ".", or a parent unpacked
+with `git archive <commit> | tar -x -C build/parent`), relative to the
+repository root; each runs in a process of its own that imports that
+tree's package (its kernels built at first use under TREE/build/), stays
+up for the whole comparison and runs only when asked, so the runs of all
+variants go in turns, forwards and backwards (A B B A ...). The arms:
+"as shipped"; "host loop, step kernel", the LIO EKF as the host loop
+lio.lio_loop (one knn5_plane_tiled and one photometric_step launch and
+one flag read an iteration: what a mesh and the other maps run); "host
+loop, torch step", that loop with the f64 step in torch ops
+(chip_smoke.lio_host_loop, the EKF before the cascade); "plain
+selection", the camera frame's selection and map upkeep as their torch
+code (vio.frame_kernels_apply False: ~2600 launches and four host reads
+a frame); "photometric host loop", the photometric cascade as the host
+loop it replaced (chip_smoke.photometric_host_loop); "cascade,
+synchronised", the cascade followed by torch.cuda.synchronize(). The LIO
+arms act on both paths, the camera arms on the LIVO path only.
+
+A run is a fresh pipeline on one path, after one discarded run of each
+path in its process: chip_smoke.py's LIO per-frame path (Pipeline(Config())
+at the shipped capacities, camera off, 24000-point scans of
+SyntheticDataset(duration, seed 0)) or its LIVO per-frame path
+(chip_smoke.livo_config: a 640x512 camera), the same recorded datasets
+every run. It reports the steady lidar frame's median and p90 host wall
+(FrameOutput.timing["total"], the stats read included), the wall per
+lidar frame or lidar + camera pair, on LIVO the camera frame's median and
+p90 (host wall of Vio.update), and the median host wall per call of the
+map insert, the box delete and the two voxel filters, unsynchronised and
+unprofiled (a stage that reads the device waits there). With --profile,
+each variant then runs once more under torch.profiler: a second dataset
+(4 s, seed 1), LIO from its 31st scan and LIVO from 3 s: host and device
+ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
+frame or lidar + camera pair and the device-busy share of the window.
+Prints one line per run, then one JSON line with every run and the card's
+`nvidia-smi` name and power limit.
 """
 import argparse
 import contextlib
+import functools
 import json
 import os
+import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+ARMS = ("as shipped", "host loop, step kernel", "host loop, torch step", "plain selection",
+        "photometric host loop", "cascade, synchronised")
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__,
-                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--duration", type=float, default=6.0)
-    args = ap.parse_args()
+def stage_times(evs, prefix, n):
+    """Host and device ms per frame (of n) of every range named prefix*."""
+    return {e.key: {"host_ms": e.cpu_time_total / 1e3 / n,
+                    "device_ms": e.device_time_total / 1e3 / n}
+            for e in evs if e.key.startswith(prefix) and str(e.device_type).endswith("CPU")}
 
-    import numpy as np
-    import torch
 
-    import chip_smoke as cs
-    from fastlivo_tpu_torch import lio
-    from fastlivo_tpu_torch.config import Config
-    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-    from fastlivo_tpu_torch.pipeline import Pipeline
+class Worker:
+    """One tree's package in this process: the datasets, the arms and the
+    runs the coordinator asks for."""
 
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_lidar_frame_ab: needs a CUDA device")
-    dev = torch.device("cuda")
+    def __init__(self, tree: str, duration: float):
+        sys.path[:0] = [os.path.abspath(os.path.join(ROOT, tree)), ROOT]
+        import torch
 
-    def lio_config():
-        cfg = Config()
-        cfg.img_enable = False
-        return cfg
+        import chip_smoke as cs
+        from fastlivo_tpu_torch import lio, vio
+        from fastlivo_tpu_torch.config import Config
+        from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+        from fastlivo_tpu_torch.ops import tiled_map, voxel_filter
 
-    data = {"lio": (lio_config, cs.Recorded(SyntheticDataset(
-                duration=args.duration, points_per_scan=24000, lidar_noise=0.004, seed=0))),
-            "livo": (cs.livo_config, cs.Recorded(cs.livo_dataset(
-                cs.livo_config(), duration=args.duration, points_per_scan=24000,
-                lidar_noise=0.004, seed=0)))}
-    arms = {"cascade": contextlib.nullcontext,
+        if not torch.cuda.is_available():
+            raise SystemExit("torch_lidar_frame_ab: needs a CUDA device")
+        self.torch, self.cs, self.dev = torch, cs, torch.device("cuda")
+
+        def lio_config():
+            cfg = Config()
+            cfg.img_enable = False
+            return cfg
+
+        self.configs = {"lio": lio_config, "livo": cs.livo_config}
+        self.data = {"lio": cs.Recorded(SyntheticDataset(
+                         duration=duration, points_per_scan=24000, lidar_noise=0.004, seed=0)),
+                     "livo": cs.Recorded(cs.livo_dataset(
+                         cs.livo_config(), duration=duration, points_per_scan=24000,
+                         lidar_noise=0.004, seed=0))}
+        self.profile_data = {
+            "lio": cs.Recorded(SyntheticDataset(duration=4.0, points_per_scan=24000,
+                                                lidar_noise=0.004, seed=1)),
+            "livo": cs.Recorded(cs.livo_dataset(cs.livo_config(), duration=4.0,
+                                                points_per_scan=24000, lidar_noise=0.004,
+                                                seed=1))}
+        cascade = vio.photometric_cascade
+
+        def synchronised(*a):
+            out = cascade(*a)
+            torch.cuda.synchronize()
+            return out
+
+        self.arms = {
+            "as shipped": contextlib.nullcontext,
             "host loop, step kernel": lambda: cs.swapped(lio, "cascade_applies",
                                                          lambda *a, **kw: False),
-            "host loop, torch step": cs.lio_host_loop}
+            "host loop, torch step": cs.lio_host_loop,
+            "plain selection": lambda: cs.swapped(vio, "frame_kernels_apply",
+                                                  lambda *a, **kw: False),
+            "photometric host loop": cs.photometric_host_loop,
+            "cascade, synchronised": lambda: cs.swapped(vio, "photometric_cascade",
+                                                        synchronised)}
+        self.stages = {"map_insert": (tiled_map, "insert"),
+                       "delete_boxes": (tiled_map, "delete_boxes"),
+                       "voxel_filter": (voxel_filter, "voxel_downsample_device"),
+                       "vio.voxel_filter": (vio, "voxel_downsample_device")}
+        for path in self.configs:  # discarded: builds and warms
+            self.run(path, "as shipped")
 
-    def run(path, arm):
-        make_cfg, ds = data[path]
-        pipe = Pipeline(make_cfg(), device=dev)
-        cs.push_all(pipe, ds)
+    @contextlib.contextmanager
+    def host_walls(self, walls: dict):
+        """Append each timed stage's host wall (ms) per call to walls[stage]."""
+        def timed(name, real):
+            @functools.wraps(real)  # a kernel wrapper counts on its module's name
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                walls.setdefault(name, []).append(1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for name, (mod, attr) in self.stages.items():
+                stack.enter_context(self.cs.swapped(mod, attr, timed(name, getattr(mod, attr))))
+            yield
+
+    def pipeline(self, path):
+        from fastlivo_tpu_torch.pipeline import Pipeline
+
+        return Pipeline(self.configs[path](), device=self.dev)
+
+    def run(self, path, arm):
+        import numpy as np
+
+        torch, cs = self.torch, self.cs
+        pipe = self.pipeline(path)
+        cs.push_all(pipe, self.data[path])
+        cam, walls = [], {}
         torch.cuda.synchronize()
-        with arms[arm]():
+        with self.arms[arm](), self.host_walls(walls), (
+                cs.timed_camera_frames(pipe.vio, cam) if pipe.vio is not None
+                else contextlib.nullcontext()):
             t0 = time.perf_counter()
             outs = pipe.spin()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         lid = [1e3 * o.timing["total"] for o in outs if o.iters > 0]
-        return {"path": path, "ekf": arm, "lidar_median_ms": float(np.median(lid)),
-                "lidar_p90_ms": float(np.percentile(lid, 90)),
-                "ms_per_frame_or_pair": 1e3 * wall / len(outs), "steady_frames": len(lid)}
+        res = {"lidar_median_ms": float(np.median(lid)),
+               "lidar_p90_ms": float(np.percentile(lid, 90)), "steady_frames": len(lid),
+               "ms_per_frame_or_pair": 1e3 * wall / len(outs),
+               "stage_host_ms": {k: float(np.median(v)) for k, v in walls.items()}}
+        if cam:
+            res.update(camera_median_ms=float(np.median(cam)),
+                       camera_p90_ms=float(np.percentile(cam, 90)), camera_frames=len(cam))
+        del pipe
+        torch.cuda.empty_cache()
+        return res
 
-    for path in data:  # discarded: each path's first pipeline
-        run(path, "cascade")
-    runs = []
-    for k in range(args.rounds * len(arms)):
-        arm = list(arms)[k % len(arms)]
-        for path in data:
-            r = run(path, arm)
-            runs.append(r)
-            print(f"run {k} {path}: {arm}: steady lidar frame median {r['lidar_median_ms']:.2f} "
-                  f"ms (p90 {r['lidar_p90_ms']:.2f}), {r['ms_per_frame_or_pair']:.2f} ms per "
-                  f"{'lidar frame' if path == 'lio' else 'lidar + camera pair'}", flush=True)
-            torch.cuda.empty_cache()
-    print(json.dumps({"runs": runs, "card": cs.nvidia_smi_line()}))
+    def profile(self, path, arm):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch, cs = self.torch, self.cs
+        ds = self.profile_data[path]
+        split = ds.lidar_scans_fast()[30][0] if path == "lio" else 3.0
+        pipe = self.pipeline(path)
+        cs.push_all(pipe, ds, t_max=split)
+        with self.arms[arm]():
+            pipe.spin()
+            cs.push_all(pipe, ds, t_min=split)
+            steps = pipe.vio.steps if pipe.vio is not None else 0
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                outs = pipe.spin()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        evs = prof.key_averages()
+        ranges = ("frame.", "lio.", "vio.")
+        kernels = [e for e in evs if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0 and not e.key.startswith(ranges)]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        n = len(outs) if path == "lio" else pipe.vio.steps - steps
+        res = {"frames": n, "profiled_ms_per_frame": 1e3 * wall / n,
+               "kernels_per_frame": sum(e.count for e in kernels) / n,
+               "device_busy_share": busy / (1e3 * wall),
+               "stages": stage_times(evs, "frame." if path == "lio" else "vio.", n)}
+        del pipe
+        torch.cuda.empty_cache()
+        return res
+
+
+def serve(tree: str, duration: float):
+    """The worker's loop: one JSON command a line on stdin, one RESULT line
+    an answer on stdout."""
+    w = Worker(tree, duration)
+    print("RESULT " + json.dumps({"ready": True}), flush=True)
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        fn = w.profile if cmd.get("profile") else w.run
+        print("RESULT " + json.dumps(fn(cmd["path"], cmd["arm"])), flush=True)
+
+
+def ask(proc, tree, cmd=None):
+    if cmd is not None:
+        proc.stdin.write(json.dumps(cmd) + "\n")
+        proc.stdin.flush()
+    for line in proc.stdout:
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+        print(line, end="", file=sys.stderr)
+    raise SystemExit(f"{tree}: worker ended (rc {proc.wait()})")
+
+
+def describe(path, r):
+    s = (f"steady lidar frame median {r['lidar_median_ms']:.2f} ms (p90 "
+         f"{r['lidar_p90_ms']:.2f}), {r['ms_per_frame_or_pair']:.2f} ms per "
+         f"{'lidar frame' if path == 'lio' else 'lidar + camera pair'}")
+    if "camera_median_ms" in r:
+        s += (f", camera frame median {r['camera_median_ms']:.2f} ms (p90 "
+              f"{r['camera_p90_ms']:.2f})")
+    return s + "; host ms a call " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["stage_host_ms"].items())
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--variant", action="append", default=None, metavar="TREE")
+    ap.add_argument("--arm", action="append", default=None, choices=ARMS)
+    ap.add_argument("--paths", nargs="+", default=["lio", "livo"], choices=["lio", "livo"])
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--duration", type=float, default=6.0)
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker is not None:
+        serve(args.worker, args.duration)
+        return
+    trees = args.variant or ["."]
+    variants = [(t, a) for t in trees for a in (args.arm or ["as shipped"])]
+    procs = {}
+    try:
+        for t in trees:
+            procs[t] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker", t,
+                 "--duration", str(args.duration)],
+                cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for t, p in procs.items():
+            ask(p, t)
+        runs = []
+        for r in range(args.rounds):
+            for tree, arm in (variants if r % 2 == 0 else variants[::-1]):
+                for path in args.paths:
+                    res = ask(procs[tree], tree, {"path": path, "arm": arm})
+                    runs.append({"tree": tree, "arm": arm, "path": path, "round": r, **res})
+                    print(f"{tree}, {arm}, {path}: {describe(path, res)}", flush=True)
+        profiles = []
+        for tree, arm in (variants if args.profile else []):
+            for path in args.paths:
+                res = ask(procs[tree], tree, {"path": path, "arm": arm, "profile": True})
+                profiles.append({"tree": tree, "arm": arm, "path": path, **res})
+                print(f"{tree}, {arm}, {path} profiled: {res['profiled_ms_per_frame']:.2f} ms "
+                      f"a {'frame' if path == 'lio' else 'camera frame'}, "
+                      f"{res['kernels_per_frame']:.0f} kernels a "
+                      f"{'lidar frame' if path == 'lio' else 'lidar + camera pair'}, device "
+                      f"busy {100 * res['device_busy_share']:.1f}%; host / device ms " + ", ".join(
+                          f"{k} {v['host_ms']:.3f} / {v['device_ms']:.3f}"
+                          for k, v in sorted(res["stages"].items(),
+                                             key=lambda kv: -kv[1]["host_ms"])), flush=True)
+    finally:
+        for p in procs.values():
+            with contextlib.suppress(OSError):
+                p.stdin.close()
+        for p in procs.values():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(json.dumps({"variants": variants, "runs": runs, "profiles": profiles, "card": smi}))
 
 
 if __name__ == "__main__":

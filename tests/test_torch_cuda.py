@@ -2480,7 +2480,7 @@ def filter_case(case, seed=0):
 
 
 @pytest.mark.parametrize("case", ["lio", "camera", "edges", "all_invalid", "large"])
-def test_voxel_centroids_match_the_cpu_bit_for_bit(cuda, case):
+def test_voxel_centroids_match_the_cpu_bit_for_bit(cuda, case, monkeypatch):
     """voxel_downsample_device on the card (one voxel_centroids launch after
     the sort) gives the plain version's bits run on the CPU, and the same
     bits on every launch; the card's plain version (torch.segment_reduce
@@ -2504,7 +2504,8 @@ def test_voxel_centroids_match_the_cpu_bit_for_bit(cuda, case):
     for out, mask in runs:
         assert torch.equal(mask.cpu(), want[1])
         assert torch.equal(out.cpu().view(torch.int32), want[0].view(torch.int32))
-    plain = vf.voxel_downsample_device_plain(*dargs, dlf, max_out, **dkw)
+    monkeypatch.setattr(vf, "voxel_centroids", vf.voxel_centroids_plain)
+    plain = vf.voxel_downsample_device(*dargs, dlf, max_out, **dkw)
     assert torch.equal(plain[1].cpu(), want[1])
     np.testing.assert_allclose(plain[0].cpu().numpy(), want[0].numpy(), rtol=1e-6, atol=1e-6)
     if case != "all_invalid":

@@ -218,7 +218,8 @@ def test_scatter_writes_only_the_masked_rows(shape, written):
     val = torch.from_numpy(rng.normal(size=(B,) + tail).astype(np.float32))
     want = dst.clone()
     want[idx[mask].long()] = val[mask]
-    ttm._scatter_(dst, ttm._drop_rows(mask), idx, val)
+    src, some, (at,) = ttm._drop_rows(mask, idx)
+    ttm._scatter_(dst, src, some, at, val)
     assert torch.equal(dst, want)
 
 
