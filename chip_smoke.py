@@ -1367,16 +1367,16 @@ def delete_bound_ms(m, n_boxes: int, killed: int):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
 
 
-def centroid_bound_ms(packed, pts, max_out: int):
+def centroid_bound_ms(keys, pts, max_out: int):
     """(bound ms, "bytes" | "operations", bytes, ops) of one centroid pass:
-    it reads each row's order entry and key (16 B) and each valid row's C
-    floats, and writes max_out rows of C floats and a mask byte; ~8
-    operations a row (head test, count, the division's share) and C adds a
-    valid row."""
+    it reads each row's order entry and sorted key (16 B) and each valid
+    row's C floats, and writes max_out rows of C floats and a mask byte;
+    ~8 operations a row (head test, count, the division's share) and C
+    adds a valid row."""
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     N, C = pts.shape
-    nvalid = int((packed != vf.INVALID).sum())
+    nvalid = int((keys != vf.INVALID).sum())
     byts = 16 * N + 4 * C * nvalid + (4 * C + 1) * max_out
     ops = 8 * N + C * nvalid + C * max_out
     t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
@@ -1468,6 +1468,7 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
     lo, hi = tracker[f"tracker {len(tracker) - 1}"]
     mt = clone_map(lio_map)
     ms = time_ms(lambda: tm.delete_boxes(mt, lo, hi))
+    grid = tm.delete_boxes.grid
     ms6 = time_ms(lambda: tm.delete_boxes(mt, flo, fhi))
     mp = clone_map(lio_map)
     plain_ms = time_ms(lambda: tm.delete_boxes_plain(mp, lo, hi))
@@ -1478,12 +1479,12 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
     bound6, by6, _, _ = delete_bound_ms(lio_map, 6, killed["path map, faces 6"])
     res = {"tiled_delete_boxes": {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "bytes": byts,
-        "ops": ops, "boxes": int(lo.shape[0]), "cells_cleared": k_path,
+        "ops": ops, "grid": grid, "boxes": int(lo.shape[0]), "cells_cleared": k_path,
         "faces_6": {"ms": ms6, "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6,
                     "cells_cleared": killed["path map, faces 6"]},
         "max_abs_err": 0.0, "cases": len(killed)}}
     print(f"tiled_delete_boxes, the tracker's {lo.shape[0]} boxes ({k_path} cells cleared): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}: "
+          f"kernel {ms:.4f} ms ({grid} blocks), plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}: "
           f"{byts} bytes, {ops} operations), library none; 6 face boxes "
           f"({killed['path map, faces 6']} cells): kernel {ms6:.4f} ms, plain {plain6:.4f} "
           f"ms, bound {bound6:.5f} ms ({by6}); {smi}")
@@ -1493,8 +1494,10 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
     for src, (a, kw) in (("lio scan", lio_filter), ("camera cloud", cam_filter)):
         pts, valid, leaf, max_out = a[0], a[1], a[2], a[3]
         inv = kw.get("inv_leaf")
-        packed, order = vf._sorted_keys(pts, valid, leaf, inv)
-        nseg = int(vf.voxel_centroids_plain(packed, order, pts, max_out)[1].sum())
+        keys, order = vf._sorted_keys(pts, valid, leaf, inv)
+        nseg = int(vf.voxel_centroids_plain(keys, order, pts, max_out)[1].sum())
+        runs = torch.unique_consecutive(keys[keys != vf.INVALID], return_counts=True)[1]
+        longest = int(runs.max()) if runs.numel() else 0
         bad = pts.clone()
         bad[:8] = float("nan")
         bad[8:16, 1] = float("inf")
@@ -1526,30 +1529,30 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
                                      f"CPU {same}, {int(cpu[1].sum())} voxels")
         # timed as run
         # the library call's inputs, as voxel_centroids_plain forms them
-        sp = packed[order]
-        vs = sp != vf.INVALID
+        vs = keys != vf.INVALID
         data = torch.where(vs[:, None], pts[order], torch.zeros_like(pts))
         lengths = torch.zeros(max_out + 1, dtype=torch.int64, device=dev)
-        head = torch.ones_like(sp, dtype=torch.bool)
-        head[1:] = sp[1:] != sp[:-1]
+        head = torch.ones_like(keys, dtype=torch.bool)
+        head[1:] = keys[1:] != keys[:-1]
         sg = torch.clamp(torch.where(vs, torch.cumsum((head & vs).long(), 0) - 1,
-                                     torch.full_like(sp, max_out)), max=max_out)
+                                     torch.full_like(keys, max_out)), max=max_out)
         lengths.index_add_(0, sg, torch.ones_like(sg))
-        k_ms = time_ms(lambda: vf.voxel_centroids(packed, order, pts, max_out))
-        p_ms = event_ms(lambda: vf.voxel_centroids_plain(packed, order, pts, max_out), reps=30)
+        k_ms = time_ms(lambda: vf.voxel_centroids(keys, order, pts, max_out))
+        p_ms = event_ms(lambda: vf.voxel_centroids_plain(keys, order, pts, max_out), reps=30)
         lib_ms = event_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0,
                                                        unsafe=True, initial=0.0), reps=30)
         f_ms = time_ms(lambda: vf.voxel_downsample_device(pts, valid, leaf, max_out, **kw))
         with swapped(vf, "voxel_centroids", vf.voxel_centroids_plain):
             fp_ms = event_ms(lambda: vf.voxel_downsample_device(pts, valid, leaf, max_out, **kw),
                              reps=30)
-        bound, by, byts, ops = centroid_bound_ms(packed, pts, max_out)
+        bound, by, byts, ops = centroid_bound_ms(keys, pts, max_out)
         timed[src] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
                       "bound_by": by, "bytes": byts, "ops": ops, "grid": vf.voxel_centroids.grid,
                       "rows": int(pts.shape[0]), "max_out": max_out, "voxels": nseg,
-                      "filter_ms": f_ms, "filter_plain_ms": fp_ms}
+                      "longest_run": longest, "filter_ms": f_ms, "filter_plain_ms": fp_ms}
         print(f"voxel_centroids on the {src} ({pts.shape[0]} rows, {nseg} voxels into "
-              f"{max_out}): kernel {k_ms:.4f} ms ({vf.voxel_centroids.grid} blocks), plain "
+              f"{max_out}, the longest {longest} rows): kernel {k_ms:.4f} ms "
+              f"({vf.voxel_centroids.grid} blocks), plain "
               f"{p_ms:.4f} ms, library torch.segment_reduce {lib_ms:.4f} ms, bound "
               f"{bound:.5f} ms ({by}: {byts} bytes, {ops} operations); the whole filter "
               f"(sort + kernel) {f_ms:.4f} ms, plain {fp_ms:.4f} ms; {smi}")

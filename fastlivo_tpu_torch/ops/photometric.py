@@ -211,12 +211,13 @@ def _launcher():
 _tickets: dict = {}
 
 
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's last-block counter for launches on `stream`: one int,
-    zeroed once; every launch leaves it at 0."""
+def _ticket(device: torch.device, stream: int, k: int = 1) -> torch.Tensor:
+    """Counters for launches on `stream` that every launch leaves at 0: k
+    ints at least, zeroed once (photometric_err_H's last-block counter;
+    voxel_centroids' ticket, finished blocks and tile status words)."""
     t = _tickets.get((device, stream))
-    if t is None:
-        t = _tickets[(device, stream)] = torch.zeros(1, dtype=I32, device=device)
+    if t is None or t.numel() < k:
+        t = _tickets[(device, stream)] = torch.zeros(k, dtype=I32, device=device)
     return t
 
 

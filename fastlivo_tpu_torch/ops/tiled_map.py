@@ -288,9 +288,15 @@ def _delete_launcher():
     from . import _build
 
     fn = _build.load("tiled_delete_boxes").tiled_delete_boxes_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return _build.profiled("tiled_delete_boxes", fn)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def delete_boxes(m: TiledMap, boxes_lo: torch.Tensor,
@@ -299,8 +305,9 @@ def delete_boxes(m: TiledMap, boxes_lo: torch.Tensor,
     (Delete_Point_Boxes role, ikd_Tree.cpp:501), in every pool slot.
     boxes_lo/hi: (B, 3) f32 on the map's device. A map on CUDA launches
     the kernel of csrc/tiled_delete_boxes.cu on the current stream
-    (counted in `delete_boxes.launches`), which reads the slots' keys and
-    the boxes and writes only the cleared cells, with no host read; a map
+    (counted in `delete_boxes.launches`; its blocks, one wave at most, in
+    `delete_boxes.grid`), which reads the slots' keys and the boxes (any
+    number) and writes only the cleared cells, with no host read; a map
     on the CPU runs `delete_boxes_plain`. No other device is taken and
     nothing falls back."""
     dev = m.cell_check.device
@@ -319,17 +326,20 @@ def delete_boxes(m: TiledMap, boxes_lo: torch.Tensor,
         _require(f"delete_boxes: {name}", t, shape, dtype, dev)
     if B == 0 or T == 0:
         return m
+    grid = ctypes.c_int(0)
     err = _delete_launcher()(
         m.slot_key.data_ptr(), m.voxel_size.data_ptr(), boxes_lo.data_ptr(),
-        boxes_hi.data_ptr(), m.cell_check.data_ptr(), B, T, EMPTY_CHECK,
-        torch.cuda.current_stream(dev).cuda_stream)
+        boxes_hi.data_ptr(), m.cell_check.data_ptr(), B, T, EMPTY_CHECK, _sm_count(dev),
+        ctypes.byref(grid), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"delete_boxes: kernel launch failed (cudaError {err})")
     delete_boxes.launches += 1
+    delete_boxes.grid = grid.value
     return m
 
 
 delete_boxes.launches = 0
+delete_boxes.grid = 0
 
 
 def compact(m: TiledMap) -> TiledMap:

@@ -6,8 +6,9 @@ Port of the JAX package's ops/voxel_filter.py: the device filter of the
 fused frame step and the host (numpy) filter of the bootstrap frames. On
 CUDA the device filter's segmented centroid after the sort is one launch
 of the hand-written kernel csrc/voxel_centroids.cu (built at first use,
-see _build.py); its plain version `voxel_centroids_plain`, the torch code
-the CPU runs, is the kernel's oracle. Contract on the card: bit-equal to
+see _build.py), which reads the sorted keys as torch.sort returns them;
+its plain version `voxel_centroids_plain`, the torch code the CPU runs,
+is the kernel's oracle. Contract on the card: bit-equal to
 the plain version run on the CPU on the same inputs.
 """
 from __future__ import annotations
@@ -18,14 +19,15 @@ import functools
 import numpy as np
 import torch
 
-from .photometric import _require
+from .photometric import _require, _ticket
 
 INVALID = 1 << 62  # the packed key of a dropped row: sorts after every voxel
 
 
 def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
-    """The packed voxel key of each row (the invalid marker 2^62 where the
-    row is invalid or not finite) and their stable argsort."""
+    """The packed voxel keys (the invalid marker 2^62 where the row is
+    invalid or not finite) in sorted order, and the stable sort's
+    permutation `order` (sorted row r is row order[r])."""
     valid = valid & torch.all(torch.isfinite(pts[:, :3]), dim=-1)
     keys = torch.floor(pts[:, :3] / leaf if inv_leaf is None
                        else pts[:, :3] * inv_leaf)
@@ -39,7 +41,7 @@ def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
         | ((keys[:, 2] + (1 << 19)) & 0xFFFFF)
     )
     packed = torch.where(valid, packed, torch.full_like(packed, INVALID))
-    return packed, torch.argsort(packed, stable=True)
+    return torch.sort(packed, stable=True)
 
 
 def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
@@ -62,22 +64,21 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
             multiply by the f32 reciprocal; `inv_leaf` computes that form.
     Returns (out (max_out, C), mask (max_out,)).
     """
-    packed, order = _sorted_keys(pts, valid, leaf, inv_leaf)
-    return voxel_centroids(packed, order, pts.contiguous(), max_out)
+    keys, order = _sorted_keys(pts, valid, leaf, inv_leaf)
+    return voxel_centroids(keys, order, pts.contiguous(), max_out)
 
 
-def voxel_centroids_plain(packed: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
+def voxel_centroids_plain(keys: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
                           max_out: int):
-    """The segmented centroid after the sort: rows in `order` (the stable
-    argsort of the packed keys `packed`, INVALID for a dropped row),
-    segments the runs of equal valid keys, segment g < max_out summed in
-    row order from +0.0 (`segment_reduce`) and divided by its length.
-    Returns (out (max_out, C), mask (max_out,))."""
-    sp = packed[order]
+    """The segmented centroid after the sort: `keys` the packed keys in
+    sorted order (INVALID for a dropped row, sorted last), sorted row r
+    the row pts[order[r]]; segments the runs of equal valid keys, segment
+    g < max_out summed in row order from +0.0 (`segment_reduce`) and
+    divided by its length. Returns (out (max_out, C), mask (max_out,))."""
     ps = pts[order]
-    vs = sp != INVALID
+    vs = keys != INVALID
     start = torch.ones_like(vs)
-    start[1:] = sp[1:] != sp[:-1]
+    start[1:] = keys[1:] != keys[:-1]
     start &= vs
     seg = torch.cumsum(start.to(torch.int64), 0) - 1
     seg = torch.where(vs, seg, torch.full_like(seg, max_out))
@@ -96,43 +97,53 @@ def voxel_centroids_plain(packed: torch.Tensor, order: torch.Tensor, pts: torch.
 
 
 @functools.cache
-def _launcher():
+def _library():
     from . import _build
 
-    fn = _build.load("voxel_centroids").voxel_centroids_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    lib = _build.load("voxel_centroids")
+    fn = lib.voxel_centroids_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return _build.profiled("voxel_centroids", fn)
+    size = lib.voxel_centroids_scratch_ints
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    size.restype = ctypes.c_int
+    return _build.profiled("voxel_centroids", fn), size
 
 
-def voxel_centroids(packed: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
+def voxel_centroids(keys: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,
                     max_out: int):
     """`voxel_centroids_plain`'s signature and outputs. CUDA tensors launch
     the kernel of csrc/voxel_centroids.cu on the current stream (counted
     in `voxel_centroids.launches`; its blocks in `voxel_centroids.grid`)
-    with no host read; CPU tensors run the plain version. No other device
-    is taken and nothing falls back."""
+    with no host read and no device query; CPU tensors run the plain
+    version. No other device is taken and nothing falls back: 2^30 rows
+    or more, or more than 160 columns, raise."""
     if pts.device.type == "cpu":
-        return voxel_centroids_plain(packed, order, pts, max_out)
+        return voxel_centroids_plain(keys, order, pts, max_out)
     if pts.device.type != "cuda":
         raise ValueError(f"voxel_centroids: unsupported device {pts.device}")
     dev = pts.device
     if pts.ndim != 2 or pts.shape[1] < 1 or max_out < 0:
         raise ValueError(f"voxel_centroids: pts {tuple(pts.shape)}, max_out {max_out}")
     N, C = pts.shape
-    for name, t, shape, dtype in (("packed", packed, (N,), torch.int64),
+    for name, t, shape, dtype in (("keys", keys, (N,), torch.int64),
                                   ("order", order, (N,), torch.int64),
                                   ("pts", pts, (N, C), torch.float32)):
         _require(f"voxel_centroids: {name}", t, shape, dtype, dev)
+    launch, size = _library()
+    k = size(N, C)
+    if k < 0:
+        raise ValueError(f"voxel_centroids: {N} rows of {C} columns (the kernel takes "
+                         f"fewer than 2^30 rows of at most 160 columns)")
     out = torch.empty((max_out, C), dtype=torch.float32, device=dev)
     mask = torch.empty(max_out, dtype=torch.bool, device=dev)
-    start = torch.empty(max_out + 1, dtype=torch.int32, device=dev)
-    counts = torch.empty(2 * max(-(-N // 256), 1), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _ticket(dev, stream, k)  # left at 0 by every launch
     grid = ctypes.c_int(0)
-    err = _launcher()(*[t.data_ptr() for t in (packed, order, pts, out, mask, start, counts)],
-                      N, C, max_out, ctypes.byref(grid),
-                      torch.cuda.current_stream(dev).cuda_stream)
+    err = launch(keys.data_ptr(), order.data_ptr(), pts.data_ptr(), out.data_ptr(),
+                 mask.data_ptr(), scratch.data_ptr(), N, C, max_out, ctypes.byref(grid),
+                 stream)
     if err != 0:
         raise RuntimeError(f"voxel_centroids: kernel launch failed (cudaError {err})")
     if max_out > 0:

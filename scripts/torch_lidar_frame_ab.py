@@ -37,7 +37,9 @@ unprofiled (a stage that reads the device waits there). With --profile,
 each variant then runs once more under torch.profiler: a second dataset
 (4 s, seed 1), LIO from its 31st scan and LIVO from 3 s: host and device
 ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
-frame or lidar + camera pair and the device-busy share of the window.
+frame or lidar + camera pair, the device-busy share of the window and the
+map stages' kernels (voxel_centroids, tiled_delete_boxes): launches per
+frame and device us a launch.
 Prints one line per run, then one JSON line with every run and the card's
 `nvidia-smi` name and power limit.
 """
@@ -51,6 +53,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel")
 ARMS = ("as shipped", "host loop, step kernel", "host loop, torch step", "plain selection",
         "photometric host loop", "cascade, synchronised")
 
@@ -194,10 +197,14 @@ class Worker:
                    and e.self_device_time_total > 0 and not e.key.startswith(ranges)]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         n = len(outs) if path == "lio" else pipe.vio.steps - steps
+        stage_kernels = {name: {"per_frame": e.count / n,
+                                "device_us": e.self_device_time_total / e.count}
+                         for e in kernels for name in MAP_STAGE_KERNELS if name in e.key}
         res = {"frames": n, "profiled_ms_per_frame": 1e3 * wall / n,
                "kernels_per_frame": sum(e.count for e in kernels) / n,
                "device_busy_share": busy / (1e3 * wall),
-               "stages": stage_times(evs, "frame." if path == "lio" else "vio.", n)}
+               "stages": stage_times(evs, "frame." if path == "lio" else "vio.", n),
+               "map_stage_kernels": stage_kernels}
         del pipe
         torch.cuda.empty_cache()
         return res
@@ -280,7 +287,10 @@ def main():
                       f"busy {100 * res['device_busy_share']:.1f}%; host / device ms " + ", ".join(
                           f"{k} {v['host_ms']:.3f} / {v['device_ms']:.3f}"
                           for k, v in sorted(res["stages"].items(),
-                                             key=lambda kv: -kv[1]["host_ms"])), flush=True)
+                                             key=lambda kv: -kv[1]["host_ms"]))
+                      + "; kernels " + ", ".join(
+                          f"{k} {v['per_frame']:.2f} a frame, {v['device_us']:.2f} us"
+                          for k, v in res["map_stage_kernels"].items()), flush=True)
     finally:
         for p in procs.values():
             with contextlib.suppress(OSError):

@@ -59,12 +59,14 @@ bad inputs refused.
 
 The LIO frame's map stages: tiled_delete_boxes bit-equal to
 delete_boxes_plain on built and compacted maps (stale slots past n_alloc)
-with the tracker's boxes and with boxes whose faces lie on cell centres;
-voxel_centroids bit-equal to voxel_centroids_plain run on the CPU (a LIO
-scan, a camera cloud, -0.0, NaN and inf rows, overflow, no valid row, and
-600000 rows: several tiles a block); both writing only their outputs; the
-whole steady lidar_frame_step and delete_boxes with device boxes without
-a synchronising call.
+with the tracker's boxes and with 1 to 300 boxes whose faces lie on cell
+centres; voxel_centroids bit-equal to voxel_centroids_plain run on the
+CPU (a LIO scan, a camera cloud, -0.0, NaN and inf rows, overflow, no
+valid row, 600000 rows, one voxel of 5000 rows, a run across every tile
+end, N = 1, N = one tile + 1, max_out = 1); both writing only their
+outputs, the centroid's scratch left at 0; the whole steady
+lidar_frame_step and delete_boxes with device boxes without a
+synchronising call.
 """
 import itertools
 
@@ -1716,7 +1718,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     the plain version's map (nothing written outside its writes). The
     LIO frame's map stages: tiled_delete_boxes writes the pool's cell
     checks in place (its output, every byte equal to the plain version's
-    after the launch); voxel_centroids at 16379 rows into 8191."""
+    after the launch); voxel_centroids at 16379 rows into 8191, its
+    scratch (ticket, finished blocks, tile status words) back at 0."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -2412,12 +2415,14 @@ TRACKER_BOXES = [  # lasermap_fov_segment's slabs at Config()'s cube (one per ax
     ((-1000.0, -1000.0, -1000.0), (1000.0, 1000.0, -550.0))]
 
 
-@pytest.mark.parametrize("boxes", ["tracker", "faces_1", "faces_3", "faces_6", "inert"])
+@pytest.mark.parametrize("boxes", ["tracker", "faces_1", "faces_3", "faces_6", "inert",
+                                   "faces_40", "faces_300"])
 @pytest.mark.parametrize("compacted", [False, True], ids=["built", "compacted"])
 def test_tiled_delete_boxes_matches_plain(cuda, boxes, compacted):
     """The kernel clears exactly the plain version's cells, bit for bit,
     in every slot (stale ones past n_alloc included), and writes no other
-    field."""
+    field; with 40 boxes (all staged at once, NaN bounds among them) and
+    300 (staged in turns), in one wave of blocks."""
     m = stage_map(cuda, compacted=compacted)
     if boxes == "tracker":
         lo, hi = (torch.tensor([b[i] for b in TRACKER_BOXES], device=cuda) for i in (0, 1))
@@ -2430,6 +2435,8 @@ def test_tiled_delete_boxes_matches_plain(cuda, boxes, compacted):
     got = tm.delete_boxes(clone_map(m), lo, hi)
     torch.cuda.synchronize()
     assert tm.delete_boxes.launches == n0 + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 0 < tm.delete_boxes.grid <= 8 * sms
     for f, g, w in zip(m._fields, got, want):
         assert torch.equal(g, w), f
     killed = int((want.cell_check == tm.EMPTY_CHECK).sum() - (m.cell_check == tm.EMPTY_CHECK).sum())
@@ -2462,7 +2469,7 @@ def filter_case(case, seed=0):
     n, max_out, leaf, inv = 32768, 16384, 0.5, None
     if case == "camera":  # the camera frame's 0.2 m leaf as a reciprocal
         n, max_out, leaf, inv = 32768, 8192, None, np.float32(1.0) / np.float32(0.2)
-    if case == "large":  # more rows than the grid's threads: several tiles a block
+    if case == "large":  # 586 tiles: look-back windows of 32 status words
         n = 600000
     p = rng.uniform(-25, 25, (n, 3)).astype(np.float32)
     p[: n // 3] = p[n // 3: 2 * (n // 3)] + rng.normal(0, 0.1, (n // 3, 3))
@@ -2476,15 +2483,30 @@ def filter_case(case, seed=0):
         max_out = 3000  # overflow: more voxels than rows
     if case == "all_invalid":
         valid[:] = False
+    if case == "long_run":  # one voxel of 5000 rows: a run past several tiles
+        p[:5000] = np.float32(0.25) + rng.uniform(-0.2, 0.2, (5000, 3)).astype(np.float32)
+        valid[:5000] = True
+    if case == "crossing":  # runs of 600 rows: every 1024-row tile ends inside one
+        v = np.arange(n) // 600
+        p = np.stack([0.5 * v + 0.25, np.full(n, 0.25), np.full(n, 0.25)], 1)
+        p = (p + rng.uniform(-0.2, 0.2, (n, 3))).astype(np.float32)
+        valid[:] = True
+    if case in ("n1", "tile_plus_1"):  # one row; one tile and a row
+        n = 1 if case == "n1" else 1025
+        p, valid = p[:n], np.ones(n, bool)
+    if case == "max_out_1":
+        max_out = 1
     return p, valid, leaf, inv, max_out
 
 
-@pytest.mark.parametrize("case", ["lio", "camera", "edges", "all_invalid", "large"])
+@pytest.mark.parametrize("case", ["lio", "camera", "edges", "all_invalid", "large",
+                                  "long_run", "crossing", "n1", "tile_plus_1", "max_out_1"])
 def test_voxel_centroids_match_the_cpu_bit_for_bit(cuda, case, monkeypatch):
     """voxel_downsample_device on the card (one voxel_centroids launch after
     the sort) gives the plain version's bits run on the CPU, and the same
     bits on every launch; the card's plain version (torch.segment_reduce
-    on the card) within 1e-6."""
+    on the card) within 1e-6. Also one voxel holding 5000 rows, a run
+    across every tile end, N = 1, N = one tile + 1 and max_out = 1."""
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     p, valid, leaf, inv, max_out = filter_case(case)
@@ -2508,8 +2530,43 @@ def test_voxel_centroids_match_the_cpu_bit_for_bit(cuda, case, monkeypatch):
     plain = vf.voxel_downsample_device(*dargs, dlf, max_out, **dkw)
     assert torch.equal(plain[1].cpu(), want[1])
     np.testing.assert_allclose(plain[0].cpu().numpy(), want[0].numpy(), rtol=1e-6, atol=1e-6)
-    if case != "all_invalid":
+    if case in ("lio", "camera", "edges", "large"):
         assert int(want[1].sum()) > 1000
+    expect = {"n1": 1, "max_out_1": 1, "crossing": -(-len(p) // 600)}
+    if case in expect:
+        assert int(want[1].sum()) == expect[case]
+    if case == "long_run":
+        keys, _ = vf._sorted_keys(*args, lf, None)
+        assert int(torch.unique_consecutive(keys, return_counts=True)[1].max()) >= 5000
+
+
+@pytest.mark.parametrize("cols", [1, 5, 12, 160])
+def test_voxel_centroids_any_width_matches_the_cpu(cuda, cols):
+    """Rows of 1 to 160 columns through the kernel's general-width
+    instance (its tile shrinks so that a tile's rows fit in shared memory:
+    1024 rows at 5 columns, 512 at 12, 32 at 160, 1024 tiles then): the
+    plain version's bits on the CPU, the scratch back at 0; 161 columns
+    raise."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    p, valid, leaf, _, max_out = filter_case("lio")
+    rng = np.random.default_rng(cols)
+    x = np.concatenate([p, rng.normal(0, 5, (len(p), 160)).astype(np.float32)], 1)
+    x = torch.from_numpy(np.ascontiguousarray(x[:, :cols]))
+    keys, order = vf._sorted_keys(torch.from_numpy(p), torch.from_numpy(valid),
+                                  torch.tensor(leaf, dtype=torch.float32), None)
+    want = vf.voxel_centroids_plain(keys, order, x, max_out)
+    dk, do = keys.to(cuda), order.to(cuda)
+    got = vf.voxel_centroids(dk, do, x.to(cuda), max_out)
+    torch.cuda.synchronize()
+    assert all(bit_equal(g.cpu(), w) for g, w in zip(got, want))
+    from fastlivo_tpu_torch.ops import photometric
+
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not photometric._ticket(got[0].device, stream).any()
+    if cols == 160:
+        with pytest.raises(ValueError):
+            vf.voxel_centroids(dk, do, torch.zeros((len(p), 161), device=cuda), max_out)
 
 
 def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
@@ -2581,25 +2638,28 @@ def map_stage_write_only(dev, kernel):
         m = stage_map(dev, compacted=True)
         lo, hi = face_boxes(dev, 4, seed=3)
         T = m.slot_key.shape[0]
+        grid = ctypes.c_int(0)
         got = launch_guarded(lambda sk, vs, a, b, cc: tm._delete_launcher()(
-            *ptr(sk, vs, a, b, cc), 4, T, tm.EMPTY_CHECK, stream),
+            *ptr(sk, vs, a, b, cc), 4, T, tm.EMPTY_CHECK, tm._sm_count(dev),
+            ctypes.byref(grid), stream),
             [m.slot_key, m.voxel_size, lo, hi], [m.cell_check])
         want = [tm.delete_boxes_plain(clone_map(m), lo, hi).cell_check]
     else:
         p, valid, leaf, _, _ = filter_case("edges")
         n, max_out = 16379, 8191
         pts = torch.from_numpy(p[:n]).to(dev)
-        packed, order = vf._sorted_keys(pts, torch.from_numpy(valid[:n]).to(dev),
-                                        torch.tensor(leaf, device=dev), None)
+        keys, order = vf._sorted_keys(pts, torch.from_numpy(valid[:n]).to(dev),
+                                      torch.tensor(leaf, device=dev), None)
+        launch, size = vf._library()
         outs = [torch.empty((max_out, 3), device=dev),
                 torch.empty(max_out, dtype=torch.bool, device=dev),
-                torch.empty(max_out + 1, dtype=torch.int32, device=dev),
-                torch.empty(2 * (-(-n // 256)), dtype=torch.int32, device=dev)]
+                torch.zeros(size(n, 3), dtype=torch.int32, device=dev)]  # the scratch
         grid = ctypes.c_int(0)
-        got = launch_guarded(lambda k, o, x, *r: vf._launcher()(
+        got = launch_guarded(lambda k, o, x, *r: launch(
             *ptr(k, o, x, *r), n, 3, max_out, ctypes.byref(grid), stream),
-            [packed, order, pts], outs)[:2]
-        want = vf.voxel_centroids_plain(packed.cpu(), order.cpu(), pts.cpu(), max_out)
-        got = [g.cpu() for g in got]
+            [keys, order, pts], outs)
+        assert not got[2].any()  # the ticket, the block count and the tile status words
+        want = vf.voxel_centroids_plain(keys.cpu(), order.cpu(), pts.cpu(), max_out)
+        got = [g.cpu() for g in got[:2]]
     for g, w in zip(got, want):
         assert bit_equal(g, w)

@@ -11,8 +11,11 @@ field; the filter's masks equal and its centroids within rtol and atol
 1e-6 (the bound of tests/test_torch_tiled_map.py: the JAX package's
 scatter-add against a segment sum). The kernels' orders are also written
 out in numpy here and held bit for bit against the plain versions: the
-centroid as a row-order sum from +0.0 and an IEEE division, the box
-delete as per-axis masks of each tile's eight offsets. On the CPU no
+centroid as a row-order sum from +0.0 and an IEEE division, and as the
+kernel decomposes it (tiles, heads counted per tile, segment numbers by
+look-back, runs continued past tile ends with one accumulator); the box
+delete as per-axis masks of each tile's eight offsets, tested a slot a
+lane and written for the hit slots only. On the CPU no
 stage of the steady frame around the EKF reads the device (no item,
 nonzero, boolean-mask index or tensor built from host data).
 """
@@ -87,6 +90,21 @@ BOX_CASES = {
 }
 
 
+def many_boxes(n=40, seed=4):
+    """n small boxes with faces on cell centres, every fifth with a NaN
+    bound on one axis."""
+    rng = np.random.default_rng(seed)
+    v = np.sort(rng.integers(-60, 60, (n, 3, 2)), axis=-1)
+    v[:, 2] = np.sort(rng.integers(-4, 4, (n, 2)), axis=-1)
+    lo, hi = centre(v[..., 0]), centre(v[..., 1])
+    lo[::5, 1] = np.nan
+    hi[2::5, 0] = np.nan
+    return [(tuple(a), tuple(b)) for a, b in zip(lo, hi)]
+
+
+BOX_CASES["many"] = many_boxes()
+
+
 def boxes(case):
     b = np.asarray(BOX_CASES[case], np.float32)
     return b[:, 0].copy(), b[:, 1].copy()
@@ -121,40 +139,56 @@ def test_delete_boxes_after_compact_clears_stale_slots(case):
     assert_maps_equal(mt, mj)
 
 
-def delete_by_axis_masks(slot_key, voxel_size, lo, hi, cell_check, empty):
-    """csrc/tiled_delete_boxes.cu's order in numpy: per slot and box the
-    8-bit masks of the offsets whose centre lies in the box on x, y and
-    z; a cell (i, j, k) is cleared when, for some box, bit i of x, j of y
-    and k of z are set."""
+def delete_lane_per_slot(slot_key, voxel_size, lo, hi, cell_check, empty):
+    """csrc/tiled_delete_boxes.cu's order in numpy. The test, a slot a
+    lane: the slot's 24 per-axis centres (int32 wrap of slot_key * 8 +
+    offset) and, per box, the 8-bit masks of the offsets whose centre lies
+    in the box on x, y and z; the slot is hit when some box's three masks
+    are all non-zero. The write pass, for the hit slots only: cell (i, j,
+    k) is cleared when, for some box, bit i of x, j of y and k of z are
+    set. Returns (cell_check after, hit (T,))."""
     T = slot_key.shape[0]
     v = (slot_key.astype(np.uint32)[:, :, None] * np.uint32(8)
          + np.arange(8, dtype=np.uint32)).astype(np.int32)  # (T, 3, 8), int32 wrap
     c = (v.astype(np.float32) + np.float32(0.5)) * np.float32(voxel_size)
-    kill = np.zeros((T, 8, 8, 8), bool)
-    for b in range(lo.shape[0]):
-        inside = (c >= lo[b][None, :, None]) & (c <= hi[b][None, :, None])  # (T, 3, 8)
-        kill |= (inside[:, 0, :, None, None] & inside[:, 1, None, :, None]
-                 & inside[:, 2, None, None, :])
+    inside = [(c >= lo[b][None, :, None]) & (c <= hi[b][None, :, None])  # (T, 3, 8)
+              for b in range(lo.shape[0])]
+    hit = np.zeros(T, bool)
+    for m in inside:
+        hit |= m.any(axis=2).all(axis=1)
     out = cell_check.copy()
-    out[kill.reshape(-1)] = empty
-    return out
+    for s in np.flatnonzero(hit):
+        kill = np.zeros((8, 8, 8), bool)
+        for m in inside:
+            kill |= m[s, 0][:, None, None] & m[s, 1][None, :, None] & m[s, 2][None, None, :]
+        out[s * 512:(s + 1) * 512][kill.reshape(-1)] = empty
+    return out, hit
 
 
 @pytest.mark.parametrize("case", list(BOX_CASES))
 def test_delete_boxes_axis_masks_equal_the_plain_version(case):
     """The kernel's decomposition of the box test into per-axis offset
-    masks clears exactly the plain version's cells, stale slots and int32
-    wrap of the voxel coordinate included."""
+    masks, a slot a lane, with writes for the hit slots only, clears
+    exactly the plain version's cells: stale slots past n_alloc after
+    `compact` and the int32 wrap of their voxel coordinate included; a
+    slot that is not hit keeps every cell."""
     mt, _ = both_maps(8, batches=stream(8, n_batches=2))
+    slab = torch.tensor([[-30.0, -30.0, -5.0]]), torch.tensor([[-16.0, 30.0, 5.0]])
+    mt = ttm.compact(ttm.delete_boxes_plain(mt, *slab))
+    n_alloc = int(mt.n_alloc)
+    assert bool((mt.slot_key[n_alloc:] != 0).any())  # stale keys past n_alloc
     sk = mt.slot_key.clone()
     sk[-3] = torch.tensor([2 ** 28 - 1, -(2 ** 28), 3], dtype=torch.int32)  # wraps
+    sk[n_alloc - 1] = torch.tensor([-(2 ** 28) + 1, 2 ** 28 - 2, -1], dtype=torch.int32)
     mt = mt._replace(slot_key=sk)
     lo, hi = boxes(case)
     want = ttm.delete_boxes_plain(mt._replace(cell_check=mt.cell_check.clone()),
                                   torch.from_numpy(lo), torch.from_numpy(hi)).cell_check
-    got = delete_by_axis_masks(sk.numpy(), float(mt.voxel_size), lo, hi,
-                               mt.cell_check.numpy(), ttm.EMPTY_CHECK)
+    got, hit = delete_lane_per_slot(sk.numpy(), float(mt.voxel_size), lo, hi,
+                                    mt.cell_check.numpy(), ttm.EMPTY_CHECK)
     np.testing.assert_array_equal(got, want.numpy())
+    changed = (got != mt.cell_check.numpy()).reshape(-1, 512).any(axis=1)
+    assert not (changed & ~hit).any()
     assert int((want == ttm.EMPTY_CHECK).sum()) > int((mt.cell_check == ttm.EMPTY_CHECK).sum()) \
         or case == "inert"
 
@@ -268,15 +302,13 @@ def test_voxel_downsample_device_matches_jax(case, max_out):
         assert not np.signbit(rows[rows == 0]).any()
 
 
-def centroids_in_row_order(packed, order, pts, max_out):
-    """csrc/voxel_centroids.cu's order in numpy: heads of the sorted valid
-    keys, each run summed row by row in f32 from +0.0, divided by its
-    length in f32."""
-    sp = packed[order]
-    nvalid = int(np.sum(sp != tvf.INVALID))
+def centroids_in_row_order(keys, order, pts, max_out):
+    """The kernel's sums in numpy: heads of the sorted valid keys, each run
+    summed row by row in f32 from +0.0, divided by its length in f32."""
+    nvalid = int(np.sum(keys != tvf.INVALID))
     out = np.zeros((max_out, pts.shape[1]), np.float32)
     mask = np.zeros(max_out, bool)
-    heads = [r for r in range(nvalid) if r == 0 or sp[r] != sp[r - 1]]
+    heads = [r for r in range(nvalid) if r == 0 or keys[r] != keys[r - 1]]
     for g, s0 in enumerate(heads[:max_out]):
         s1 = heads[g + 1] if g + 1 < len(heads) else nvalid
         acc = np.zeros(pts.shape[1], np.float32)
@@ -290,20 +322,143 @@ def centroids_in_row_order(packed, order, pts, max_out):
 @pytest.mark.parametrize("case,max_out", FILTER_CASES + [("inv_leaf", 2048)])
 def test_voxel_centroids_plain_is_the_kernels_row_order(case, max_out):
     """The plain version run on the CPU (the kernel's oracle) sums each run
-    in row order from +0.0: bit for bit the kernel's order."""
+    in row order from +0.0: bit for bit the kernel's order. The keys come
+    sorted, with `order` the stable sort's permutation of them."""
     p, valid = scan("dense" if case == "inv_leaf" else case)
     pt = torch.from_numpy(p)
     leaf = torch.tensor(0.2 if case == "inv_leaf" else 0.5, dtype=torch.float32)
     kw = dict(inv_leaf=1.0 / leaf) if case == "inv_leaf" else {}
-    packed, order = tvf._sorted_keys(pt, torch.from_numpy(valid),
-                                     None if kw else leaf, kw.get("inv_leaf"))
-    got = tvf.voxel_centroids_plain(packed, order, pt, max_out)
-    want = centroids_in_row_order(packed.numpy(), order.numpy(), p, max_out)
+    keys, order = tvf._sorted_keys(pt, torch.from_numpy(valid),
+                                   None if kw else leaf, kw.get("inv_leaf"))
+    assert bool((keys[1:] >= keys[:-1]).all())
+    got = tvf.voxel_centroids_plain(keys, order, pt, max_out)
+    want = centroids_in_row_order(keys.numpy(), order.numpy(), p, max_out)
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     np.testing.assert_array_equal(got[0].numpy().view(np.int32), want[0].view(np.int32))
     full = tvf.voxel_downsample_device(pt, torch.from_numpy(valid), None if kw else leaf,
                                        max_out, **kw)
     assert all(torch.equal(a, b) for a, b in zip(full, got))
+
+
+def segments_before(agg, incl, inclusive, t, width=32):
+    """The kernel's decoupled look-back for tile t: windows of `width`
+    earlier tiles, nearest first, each adding a tile's own count (its
+    aggregate) until it meets one that holds its inclusive prefix."""
+    total = 0
+    for base in range(t - 1, -1, -width):
+        for i in range(base, base - width, -1):
+            if i < 0 or inclusive[i]:
+                total += incl[i] if i >= 0 else 0
+                return total
+            total += agg[i]
+    return total
+
+
+def centroids_by_tiles(keys, order, pts, max_out, tile, ext=32, seed=0):
+    """csrc/voxel_centroids.cu's decomposition in numpy. Tiles of `tile`
+    sorted rows; each tile's heads (valid, key unlike the row before) and
+    their count; the tile's first segment number by look-back over the
+    earlier tiles, each holding its aggregate or, at random, its inclusive
+    prefix; each head's run summed in row order from +0.0 by the head's
+    tile: to the next head in the tile, else on past the tile's end, the
+    `ext` rows staged after it and then spans of tile + ext rows, while
+    the key holds, one accumulator carried through the chunks; rows nseg
+    .. max_out - 1 zero. Returns (out, mask, {sorted head row: segment})."""
+    rng = np.random.default_rng(seed)
+    N, C = pts.shape
+    ntiles = -(-N // tile)
+    heads = [[r for r in range(t * tile, min(N, (t + 1) * tile))
+              if keys[r] != tvf.INVALID and (r == 0 or keys[r] != keys[r - 1])]
+             for t in range(ntiles)]
+    agg = np.array([len(h) for h in heads], np.int64)
+    incl = np.cumsum(agg)
+    inclusive = rng.random(ntiles) < 0.5
+    inclusive[:1] = True  # tile 0 publishes its inclusive prefix at once
+    out = np.zeros((max_out, C), np.float32)
+    mask = np.zeros(max_out, bool)
+    seg = {}
+    for t in range(ntiles):
+        excl = segments_before(agg, incl, inclusive, t)
+        assert excl == (incl[t - 1] if t else 0)
+        end = min(N, (t + 1) * tile)
+        seg.update({s0: excl + h for h, s0 in enumerate(heads[t])})
+        for h, s0 in enumerate(heads[t]):
+            g = excl + h
+            if g >= max_out:
+                break
+            if h + 1 < len(heads[t]):
+                chunks = [(s0, heads[t][h + 1])]
+            else:  # the tile's valid rows, then on past its end while the key holds
+                r = s0
+                while r < end and keys[r] == keys[s0]:
+                    r += 1
+                chunks, lim = [(s0, r)], ext
+                while r == end and r < N:
+                    e = r
+                    while e < min(N, r + lim) and keys[e] == keys[s0]:
+                        e += 1
+                    chunks.append((r, e))
+                    end, r, lim = r + lim, e, tile + ext
+            acc = np.zeros(C, np.float32)
+            for a, b in chunks:  # each chunk continues the accumulator
+                for r in range(a, b):
+                    acc = (acc + pts[order[r]]).astype(np.float32)
+            out[g] = acc / np.float32(chunks[-1][1] - s0)
+            mask[g] = True
+    nseg = segments_before(agg, incl, inclusive, ntiles)
+    assert nseg == (incl[-1] if ntiles else 0)
+    out[nseg:] = 0.0
+    mask[nseg:] = False
+    return out, mask, seg
+
+
+def run_case(case, n=4000, seed=9):
+    """(keys sorted, order, pts, max_out): runs of chosen lengths in
+    sorted key order, then invalid rows; pts in a random row order."""
+    rng = np.random.default_rng(seed)
+    C = 5 if case == "five_columns" else 3
+    if case == "long_runs":  # longer than a tile and its staged rows: spans
+        lengths = [1, 2500, 3, 1100, 40, 33, 32, 31]
+    elif case == "all_invalid":
+        lengths = []
+    else:  # short and mid runs crossing tile ends of 1, 7, 32 and 1024 rows
+        lengths = list(rng.integers(1, 80, 200))
+    lengths = [x for x in np.cumsum(lengths) if x <= n]
+    keys = np.full(n, tvf.INVALID, np.int64)
+    prev = 0
+    for v, stop in enumerate(lengths):
+        keys[prev:stop] = 1000 + 7 * v
+        prev = stop
+    order = rng.permutation(n).astype(np.int64)
+    pts = np.zeros((n, C), np.float32)
+    pts[order] = rng.normal(0, 20, (n, C)).astype(np.float32)
+    pts[order[:60]] = np.float32(-0.0)  # a run of -0.0 rows sums to +0.0
+    pts[order[70], 1] = np.nan  # propagates through its run
+    pts[order[75], 2] = np.inf
+    max_out = {"overflow": 50, "max_out_1": 1}.get(case, 4096)
+    return keys, order, pts, max_out
+
+
+@pytest.mark.parametrize("tile", [1, 7, 32, 1024])
+@pytest.mark.parametrize("case", ["crossing", "long_runs", "overflow", "max_out_1",
+                                  "all_invalid", "five_columns"])
+def test_voxel_centroids_tile_decomposition_is_the_plain_version(case, tile):
+    """The kernel's decomposition (tiles, look-back, runs continued past
+    tile ends in chunks with one accumulator, the fill past the segments)
+    gives voxel_centroids_plain's segment numbers and bits."""
+    keys, order, pts, max_out = run_case(case)
+    out, mask, seg = centroids_by_tiles(keys, order, pts, max_out, tile)
+    got = tvf.voxel_centroids_plain(torch.from_numpy(keys), torch.from_numpy(order),
+                                    torch.from_numpy(pts), max_out)
+    np.testing.assert_array_equal(got[1].numpy(), mask)
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32), out.view(np.int32))
+    valid = keys != tvf.INVALID
+    head = valid & np.r_[True, keys[1:] != keys[:-1]]
+    assert sorted(seg) == list(np.flatnonzero(head))
+    assert [seg[r] for r in sorted(seg)] == list(range(len(seg)))
+    if case != "all_invalid":  # a -0.0 run first; a NaN further on where kept
+        assert mask.any() and not np.signbit(out[0]).any()
+        assert np.isnan(out).any() == (max_out > 1)
 
 
 def test_kernel_wrappers_refuse_other_devices():
