@@ -117,7 +117,8 @@ F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data
 # every csrc/*.cu of the port
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
                 "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
-                "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids"]
+                "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
+                "tiled_insert", "undistort"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -540,8 +541,10 @@ def unfused():
     patches_and_grads kernel and each step photometric_step_plain, IMU
     propagation as the plain loop, the camera frame's selection and map
     upkeep as their torch code (no vio_select, no vio_observations), the
-    box delete and the voxel filter's centroid as their torch code (no
-    tiled_delete_boxes, no voxel_centroids)."""
+    box delete, the voxel filter's centroid, the map insert and the
+    undistortion as their torch code (no tiled_delete_boxes, no
+    voxel_centroids, no tiled_insert_*, no undistort)."""
+    from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio, vio
     from fastlivo_tpu_torch.ops import knn_plane, photometric
     from fastlivo_tpu_torch.ops import tiled_map as tm
@@ -563,6 +566,9 @@ def unfused():
         stack.enter_context(swapped(vio, "frame_kernels_apply", lambda *a, **kw: False))
         stack.enter_context(swapped(tm, "delete_boxes", tm.delete_boxes_plain))
         stack.enter_context(swapped(vf, "voxel_centroids", vf.voxel_centroids_plain))
+        stack.enter_context(swapped(tm, "insert", lambda m, p, v, max_probe=0:
+                                    tm.insert_plain(m, p, v)))
+        stack.enter_context(swapped(imu_mod, "undistort", imu_mod.undistort_plain))
         yield
 
 
@@ -599,12 +605,13 @@ def recorded_boxes(pipe, sets: list):
 
 
 @contextlib.contextmanager
-def recorded_filter(module, rec: dict):
-    """Count the calls of module.voxel_downsample_device in rec["n"] and
-    keep the last one's arguments in rec["last"]: a reference while the
-    context is open (nothing copied or read in a timed window), copied on
-    the card when it closes."""
-    real = module.voxel_downsample_device
+def recorded_calls(module, rec: dict, name="voxel_downsample_device"):
+    """Count the calls of module.<name> in rec["n"] and keep the last
+    one's arguments in rec["last"]: a reference while the context is open
+    (nothing copied or read in a timed window), its tensors copied on the
+    card when it closes. Never a counted kernel wrapper: each counts
+    through its own module-level name."""
+    real = getattr(module, name)
     rec.setdefault("n", 0)
 
     def wrapped(*a, **kw):
@@ -612,7 +619,7 @@ def recorded_filter(module, rec: dict):
         rec["last"] = (a, kw)
         return real(*a, **kw)
 
-    with swapped(module, "voxel_downsample_device", wrapped):
+    with swapped(module, name, wrapped):
         yield
     if "last" in rec:
         cp = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
@@ -884,6 +891,7 @@ def need_cascade(label, launches, ekfs=None):
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
     from fastlivo_tpu_torch.ops import imu_scan, knn_plane, lio_cascade, patches_grads
+    from fastlivo_tpu_torch import imu
     from fastlivo_tpu_torch.ops import photometric, tiled_map, vio_observations, vio_select
     from fastlivo_tpu_torch.ops import voxel_filter
 
@@ -892,7 +900,8 @@ def counted_wrappers():
             photometric.photometric_step, patches_grads.patches_and_grads,
             imu_scan.imu_propagate, lio_cascade.lio_cascade, vio_select.vio_select,
             vio_observations.vio_observations, tiled_map.delete_boxes,
-            voxel_filter.voxel_centroids)
+            voxel_filter.voxel_centroids, tiled_map.insert_keys, tiled_map.insert_tiles,
+            tiled_map.insert_cells, imu.undistort)
 
 
 def reset_counts():
@@ -1383,6 +1392,229 @@ def centroid_bound_ms(keys, pts, max_out: int):
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
 
 
+INSERT_KEY_OPS = 70  # a row: 3 divisions, floors, casts; tile, cell, directory bits; the
+# hash (3 multiplies, 3 finalizers of 7); the centre and distance; the key
+INSERT_ROW_OPS = 6  # a sorted row's head test and its share of the scan
+INSERT_HEAD_OPS = 20  # a tile head: flag, rank, overflow test, its point's tile key
+CELL_ROW_OPS = 8  # a sorted row: ok test, head test, dropped count
+CELL_WINNER_OPS = 30  # a run's winner: its slot, cell, centre and the stored distance
+
+
+def insert_work(m, pts, valid):
+    """The counts one insert of pts into m needs, from the plain passes on
+    a copy: {"rows", "heads" (tile heads), "written" (heads that do not
+    overflow the pool), "winners" (cell runs with an ok row), "cells"
+    (cells whose check or point changed)}."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    mp = clone_map(m)
+    D, T = m.dir_check.shape[0], m.slot_key.shape[0]
+    gkey, rows = tm.insert_keys_plain(mp, pts, valid)
+    sg, order = torch.sort(gkey, stable=True)
+    sdir = sg >> 40
+    heads = tm._head(sdir) & (sdir < D)
+    fresh = int((mp.dir_check[sdir[heads]] == tm.EMPTY_CHECK).sum())
+    overflow = max(0, int(mp.n_alloc) + fresh - T)
+    _, n_dropped = tm.insert_tiles_plain(mp, pts, rows, sg, order)
+    ok = valid & (mp.dir_check[rows[0]] == rows[1])
+    scell = (sg >> 31)[ok[order]]
+    cc, cp = mp.cell_check.clone(), mp.pts.clone()
+    tm.insert_cells_plain(mp, pts, valid, rows, sg, order, n_dropped)
+    changed = (mp.cell_check != cc) | (mp.pts != cp).any(dim=1)
+    return {"rows": int(pts.shape[0]), "heads": int(heads.sum()),
+            "written": int(heads.sum()) - overflow,
+            "winners": int(torch.unique_consecutive(scell).numel()),
+            "cells": int(changed.sum())}
+
+
+def insert_bounds(work):
+    """{pass: (bound ms, "bytes" | "operations", bytes, ops)} of the insert's
+    three passes for `insert_work`'s counts. Keys: each row's point and
+    mask read (13 B), its key and five row values written (28 B). Tiles:
+    the sorted key and order (16 B) and the flag (4 B) a row; a head's
+    directory index, check and entry (12 B); a written head's point and
+    slot read (16 B), its entry and slot key written (20 B). Cells: a
+    sorted row's key, order, mask, directory index, check and entry (29
+    B); a winner's slot, cell, distance, point, stored point and check (40
+    B); a written cell's check and point (16 B)."""
+    B, W, Wd, H, Wc = (work[k] for k in ("rows", "heads", "written", "winners", "cells"))
+    out = {}
+    for name, byts, ops in (
+            ("tiled_insert_keys", 41 * B + 16, INSERT_KEY_OPS * B),
+            ("tiled_insert_tiles", 20 * B + 12 * W + 36 * Wd + 16,
+             INSERT_ROW_OPS * B + INSERT_HEAD_OPS * W),
+            ("tiled_insert_cells", 29 * B + 40 * H + 16 * Wc + 8,
+             CELL_ROW_OPS * B + CELL_WINNER_OPS * H)):
+        t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops)
+    return out
+
+
+UNDISTORT_POINT_OPS = 219  # a masked point past the search: Exp (t^2, root, sin, cos,
+# a, b, K K, I + a K + b K K), R_k Exp, T, the three mat-vecs
+UNDISTORT_FRAME_OPS = 60  # R_li^T R_e^T and R_li^T t_li, once
+
+
+def undistort_bound_ms(args):
+    """(bound ms, "bytes" | "operations", bytes, ops) of one undistortion:
+    each point, its time and mask read and its result written (29 B), the
+    pose table and the state and calibration once; 219 operations a
+    masked point and 3 a step of its binary search over the M offsets."""
+    st, pose, pts, t_rel, pmask, calib = args
+    N, M = pts.shape[0], pose.offs.shape[0]
+    elt = pose.offs.element_size()
+    byts = 29 * N + 22 * M * elt + 12 * 8 + 12 * 4
+    nm = int(pmask.sum())
+    ops = nm * (UNDISTORT_POINT_OPS + 3 * int(np.ceil(np.log2(M + 1)))) + UNDISTORT_FRAME_OPS
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops
+
+
+def to_cpu(x):
+    """A tensor, or a NamedTuple of tensors, on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    return type(x)(*(to_cpu(v) for v in x))
+
+
+def frame_kernels_phase(lio_map, maps, rec, smi):
+    """The LIO frame's insert and undistortion kernels against their plain
+    versions (these launches are not the paths'; map_stages_phase restores
+    the counts). tiled_insert_*: the LIO path's last insert batch into a
+    copy of its final map, into the compacted map (stale slots), into an
+    empty map of the shipped capacity (every tile fresh) and into one of
+    half as many slots as the batch has tiles (the pool overflows): every
+    TiledMap field equal to
+    insert_plain's on the card and on the CPU; each pass's outputs equal
+    to its plain pass's on the path map. Timed on the path map, the batch
+    inserted again at every call (its tiles live, few cells nearer),
+    beside the plain passes, the whole insert beside insert_plain and the
+    sort alone. undistort: the path's last frame step's scan and pose
+    table (f32) and that table in f64: bit-equal to undistort_plain on the
+    card, within 1e-5 m of it on the CPU. Timed beside the plain version.
+    No library call computes either. Returns {kernel: numbers}."""
+    from fastlivo_tpu_torch import imu as imu_mod
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    (_, pts, valid, *_), _ = rec["insert"]
+    dev = pts.device
+    dims = [1 << int(x) for x in lio_map.log2_dims.cpu()]
+    T = lio_map.slot_key.shape[0]
+    vs = float(lio_map.voxel_size)
+    D = lio_map.dir_check.shape[0]
+    sdir = torch.sort(tm.insert_keys_plain(lio_map, pts, valid)[0])[0] >> 40
+    tiles = int(torch.unique_consecutive(sdir[sdir < D]).numel())  # the batch's tiles
+    small = f"{max(tiles // 2, 1)} slots"
+    cases = {"path map": lio_map, "compacted": maps["compacted"],
+             "empty": tm.empty_tiled_map(dims, T, vs, device=dev),
+             small: tm.empty_tiled_map(dims, max(tiles // 2, 1), vs, device=dev)}
+    checked = {}
+    for label, m in cases.items():
+        want = tm.insert_plain(clone_map(m), pts, valid)
+        cpu = tm.insert_plain(to_cpu(clone_map(m)), pts.cpu(), valid.cpu())
+        got = tm.insert(clone_map(m), pts, valid)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        same_cpu = all(torch.equal(g.cpu(), w) for g, w in zip(got, cpu))
+        checked[label] = {"n_alloc": int(got.n_alloc), "n_dropped": int(got.n_dropped)}
+        if not (same and same_cpu):
+            raise AssertionError(f"tiled_insert on the {label} map: equal to insert_plain on "
+                                 f"the card {same}, on the CPU {same_cpu}")
+        del want, cpu, got
+    if not checked[small]["n_dropped"] > 0:
+        raise AssertionError(f"tiled_insert: no row dropped in {small} {checked}")
+    # each pass against its plain pass, on the path map
+    mp, mk = clone_map(lio_map), clone_map(lio_map)
+    gkey, rows = tm.insert_keys_plain(mp, pts, valid)
+    g2, r2 = tm.insert_keys(mk, pts, valid)
+    sg, order = torch.sort(gkey, stable=True)
+    pc = tm.insert_tiles_plain(mp, pts, rows, sg, order)
+    kc = tm.insert_tiles(mk, pts, r2, sg, order)
+    tm.insert_cells_plain(mp, pts, valid, rows, sg, order, pc[1])
+    tm.insert_cells(mk, pts, valid, r2, sg, order, kc[1])
+    torch.cuda.synchronize()
+    passes = (torch.equal(g2, gkey) and torch.equal(r2[:4], rows[:4])
+              and all(torch.equal(a, b) for a, b in zip(kc, pc))
+              and all(torch.equal(a, b) for a, b in zip(mk, mp)))
+    if not passes:
+        raise AssertionError("tiled_insert: a pass differs from its plain pass on the path map")
+    print(f"tiled_insert (keys, tiles, cells around the sort) on the LIO path's last batch "
+          f"({pts.shape[0]} rows, {int(valid.sum())} valid): every field equal to insert_plain "
+          f"on the card and on the CPU, into {checked}; each pass equal to its plain pass")
+
+    work = insert_work(lio_map, pts, valid)
+    bounds = insert_bounds(work)
+    mt, mq = clone_map(lio_map), clone_map(lio_map)
+    rows_k = tm.insert_keys(mt, pts, valid)[1]
+    n_d = torch.zeros((), dtype=torch.int32, device=dev)
+    timed = {
+        "tiled_insert_keys": (lambda: tm.insert_keys(mt, pts, valid),
+                              lambda: tm.insert_keys_plain(mq, pts, valid)),
+        "tiled_insert_tiles": (lambda: tm.insert_tiles(mt, pts, rows_k, sg, order),
+                               lambda: tm.insert_tiles_plain(mq, pts, rows, sg, order)),
+        "tiled_insert_cells": (lambda: tm.insert_cells(mt, pts, valid, rows_k, sg, order, n_d),
+                               lambda: tm.insert_cells_plain(mq, pts, valid, rows, sg, order,
+                                                             n_d)),
+    }
+    res = {}
+    for name, (kern, plain) in timed.items():
+        ms = time_ms(kern)
+        plain_ms = event_ms(plain, reps=30)
+        b, by, byts, ops = bounds[name]
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "bytes": byts, "ops": ops, "library_ms": None, "max_abs_err": 0.0,
+                     **work}
+        print(f"{name} on the LIO path's last batch, re-inserted into its map ({work}): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by}: {byts} "
+              f"bytes, {ops} operations), library none; {smi}")
+    whole = time_ms(lambda: tm.insert(mt, pts, valid))
+    whole_plain = event_ms(lambda: tm.insert_plain(mq, pts, valid), reps=30)
+    sort_ms = time_ms(lambda: torch.sort(gkey, stable=True))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        tm.insert(mt, pts, valid)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    res["tiled_insert_keys"].update(insert_ms=whole, insert_plain_ms=whole_plain,
+                                    sort_ms=sort_ms, insert_host_ms=host_ms, cases=checked)
+    print(f"the whole insert (three launches around the sort): {whole:.4f} ms on the card, "
+          f"the sort alone {sort_ms:.4f} ms, insert_plain {whole_plain:.4f} ms; host "
+          f"{host_ms:.4f} ms a call; {smi}")
+    del mt, mq, mp, mk
+
+    # the undistortion on the path's last frame step
+    (st, _m, pose, calib, pts_raw, t_rel, rmask, *_), _ = rec["frame"]
+    args = (st, pose, pts_raw, t_rel, rmask, calib)
+    pose64 = type(pose)(*(f.double() for f in pose))
+    err, share = 0.0, {}
+    for label, a in (("f32 pose", args), ("f64 pose", (st, pose64) + args[2:])):
+        want = imu_mod.undistort_plain(*a)
+        got = imu_mod.undistort(*a)
+        cpu = imu_mod.undistort_plain(*(to_cpu(x) for x in a))
+        torch.cuda.synchronize()
+        d = bits_diff(got, want)
+        e = float((got.cpu() - cpu).abs().max())
+        share[label] = float((got.cpu().view(torch.int32) == cpu.view(torch.int32)).float().mean())
+        err = max(err, e)
+        if d != 0.0 or not e < 1e-5:
+            raise AssertionError(f"undistort, {label}: {d} from the plain version on the card, "
+                                 f"{e} m from the CPU's")
+    ms = time_ms(lambda: imu_mod.undistort(*args))
+    plain_ms = event_ms(lambda: imu_mod.undistort_plain(*args), reps=30)
+    b, by, byts, ops = undistort_bound_ms(args)
+    res["undistort"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                        "bytes": byts, "ops": ops, "library_ms": None, "max_abs_err": 0.0,
+                        "max_abs_diff_to_cpu": err, "cpu_bit_equal_share": share,
+                        "points": int(pts_raw.shape[0]), "masked": int(rmask.sum()),
+                        "pose_rows": int(pose.offs.shape[0])}
+    print(f"undistort on the LIO path's last scan ({pts_raw.shape[0]} rows, {int(rmask.sum())} "
+          f"points, {pose.offs.shape[0]} pose rows): bit-equal to undistort_plain on the card "
+          f"(f32 and f64 pose tables), {err:.3g} m from the CPU's (bit-equal share {share}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by}: {byts} bytes, "
+          f"{ops} operations), library none; {smi}")
+    return res
+
+
 def face_boxes(m, rng, n_boxes: int):
     """n_boxes boxes around live cells of the map whose faces lie on cell
     centres (inclusive on both sides: the test's edge), 1 to 40 voxels
@@ -1407,7 +1639,7 @@ def face_boxes(m, rng, n_boxes: int):
             torch.from_numpy(hi.astype(np.float32)).to(dev))
 
 
-def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
+def map_stages_phase(lio_map, box_sets, lio_rec, cam_filter):
     """The LIO frame's map-stage kernels against their plain versions on
     the card, then timed (these launches are not the paths'; the counts
     are restored). tiled_delete_boxes: on the LIO per-frame path's final
@@ -1427,8 +1659,11 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
     voxel_downsample_device on the CPU, and whether the card's own
     plain version (torch.segment_reduce on the card) gives the same bits.
     Timed as run beside the plain version and the library call
-    torch.segment_reduce on the same rows and lengths. Returns
-    {"tiled_delete_boxes": {...}, "voxel_centroids": {...}}."""
+    torch.segment_reduce on the same rows and lengths. Then the insert
+    and the undistortion (frame_kernels_phase, on the LIO path's last
+    insert and frame step: `lio_rec`, with its last voxel filter's
+    arguments). Returns {"tiled_delete_boxes": {...}, "voxel_centroids":
+    {...}, "tiled_insert_keys": ..., "undistort": {...}}."""
     from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
@@ -1491,7 +1726,7 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
 
     cases, card_plain_same, card_plain_err = {}, True, 0.0
     timed = {}
-    for src, (a, kw) in (("lio scan", lio_filter), ("camera cloud", cam_filter)):
+    for src, (a, kw) in (("lio scan", lio_rec["filter"]), ("camera cloud", cam_filter)):
         pts, valid, leaf, max_out = a[0], a[1], a[2], a[3]
         inv = kw.get("inv_leaf")
         keys, order = vf._sorted_keys(pts, valid, leaf, inv)
@@ -1563,6 +1798,7 @@ def map_stages_phase(lio_map, box_sets, lio_filter, cam_filter):
                               "max_abs_err": 0.0, "cases": cases,
                               "card_plain_bit_equal": card_plain_same,
                               "card_plain_max_abs_diff": card_plain_err}
+    res.update(frame_kernels_phase(lio_map, maps, lio_rec, smi))
     for fn in counted_wrappers():
         fn.launches = counts[fn.__name__]
     return res
@@ -1738,12 +1974,17 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     After the run every cascade is held against the host loop on its
     inputs (check_lio_cascades). Returns (the pipeline, the launches, the
     outputs, the dataset, wall ms per frame, the last cascade call's
-    arguments, the cascades' numbers, the boxes deleted, the last voxel
-    filter call's arguments). tiled_delete_boxes must launch once per
-    tracker update with boxes, voxel_centroids once per steady frame."""
+    arguments, the cascades' numbers, the boxes deleted, {"filter": the
+    last voxel filter call's arguments, "insert": the last map insert's,
+    "frame": the last lidar_frame_step's}). tiled_delete_boxes must
+    launch once per tracker update with boxes, voxel_centroids once per
+    steady frame, the insert's three passes once per insert, undistort
+    once per frame step and bootstrap scan."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch import pipeline as pipeline_mod
     from fastlivo_tpu_torch.config import Config
+    from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_filter as vf
     from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -1763,11 +2004,13 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
-    searches, groups, cascades, boxes, filt = [], [], [], [], {}
+    searches, groups, cascades, boxes, filt, ins, step = [], [], [], [], {}, {}, {}
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups), \
-            recorded_lio(cascades), recorded_boxes(pipe, boxes), recorded_filter(vf, filt):
+            recorded_lio(cascades), recorded_boxes(pipe, boxes), recorded_calls(vf, filt), \
+            recorded_calls(tm, ins, "insert"), \
+            recorded_calls(pipeline_mod, step, "lidar_frame_step"):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -1796,18 +2039,22 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
             or launches["knn5_plane_hashed"] or launches["photometric_step"]
             or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)
             or launches["delete_boxes"] != len(boxes) or not boxes
-            or not launches["voxel_centroids"] == filt["n"] == len(steady)):
+            or not launches["voxel_centroids"] == filt["n"] == len(steady)
+            or not (launches["insert_keys"] == launches["insert_tiles"]
+                    == launches["insert_cells"] == ins["n"] > len(steady) - 1)
+            or not launches["undistort"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches} for {len(cascades)} cascades, "
                              f"{len(searches)} searches, {len(groups)} groups, "
                              f"{len(steady)} steady frames, {len(boxes)} box deletes, "
-                             f"{filt['n']} voxel filters")
+                             f"{filt['n']} voxel filters, {ins['n']} inserts, "
+                             f"{step['n']} frame steps")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
         raise AssertionError("non-finite state")
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
     nums = check_lio_cascades(cascades, "lio per-frame")
     return (pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums, boxes,
-            filt["last"])
+            {"filter": filt["last"], "insert": ins["last"], "frame": step["last"]})
 
 
 def livo_config(cfg=None, W=640, H=512, F=400.0):
@@ -1867,10 +2114,13 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     frame, the last camera voxel filter call's arguments).
     tiled_delete_boxes must launch once per tracker update with boxes,
     voxel_centroids once per steady lidar frame and once per camera frame
-    step."""
+    step, the insert's three passes once per insert, undistort once per
+    lidar frame step and bootstrap scan."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch import pipeline as pipeline_mod
     from fastlivo_tpu_torch import vio as vio_mod
+    from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_filter as vf
     from fastlivo_tpu_torch.pipeline import Pipeline
 
@@ -1887,13 +2137,15 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     push_all(pipe, ds)
     vio = pipe.vio
     cam_ms, searches, cascades, groups, lio_calls, vio_calls = [], [], [], [], [], []
-    boxes, lid_filt, cam_filt = [], {}, {}
+    boxes, lid_filt, cam_filt, ins, step = [], {}, {}, {}, {}
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
             spy(imu_mod, "propagate_wire", groups), timed_camera_frames(vio, cam_ms), \
             recorded_lio(lio_calls), recorded_vio(vio_calls), recorded_boxes(pipe, boxes), \
-            recorded_filter(vf, lid_filt), recorded_filter(vio_mod, cam_filt):
+            recorded_calls(vf, lid_filt), recorded_calls(vio_mod, cam_filt), \
+            recorded_calls(tm, ins, "insert"), \
+            recorded_calls(pipeline_mod, step, "lidar_frame_step"):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -1932,8 +2184,11 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "patches_and_grads": 0, "imu_propagate": len(groups),
             "lio_cascade": len(steady), "vio_select": vio.steps,
             "vio_observations": vio.steps, "delete_boxes": len(boxes),
-            "voxel_centroids": lid_filt["n"] + cam_filt["n"]}
-    if launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps:
+            "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": ins["n"],
+            "insert_tiles": ins["n"], "insert_cells": ins["n"],
+            "undistort": max(launches["undistort"], step["n"])}
+    if (launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps
+            or not ins["n"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches}, want {want}, {lid_filt['n']} lidar and "
                              f"{cam_filt['n']} camera voxel filters")
     if not (np.isfinite(pos).all() and torch.isfinite(pipe.state.cov).all()):
@@ -2324,19 +2579,35 @@ def imu_4khz_phase(dev, duration=3.0):
             pipe.push_lidar(beg, pts, t_rel)
         for t, acc, gyr in ds.imu_stream():
             pipe.push_imu(t, acc, gyr)
-        groups, steps = [], []
+        groups, steps, und_args = [], [], []
         real = pipeline_mod.lidar_frame_step
 
         def recorded(*args, **kw):
             out = real(*args, **kw)
             steps.append((out[2], out[3], out[5]))  # down, dmask, iters (fresh tensors)
+            # undistort's arguments: the state, pose table and scan are fresh each step
+            und_args.append((args[0], args[2], args[4], args[5], args[6], args[3]))
             return out
 
         with spy(imu_mod, "propagate_wire", groups), \
                 swapped(pipeline_mod, "lidar_frame_step", recorded):
             outs, launches, wall = counted_run(lambda: pipe.spin() + pipe.finish())
         res.append((outs, launches, wall, groups, pipe._imu_bucket, steps))
+        if d == dev:
+            card_und = und_args
     (a, la, wa, ga, ba, sa), (b, _, _, _, bb, sb) = res
+    # the undistortion alone, on each card step's own inputs: the kernel
+    # against the plain version on the CPU (sinf / cosf their only
+    # difference since the plain version's sums are the kernel's)
+    und_same, und_err, und_first = 0, 0.0, None
+    for k, args in enumerate(card_und):
+        got = imu_mod.undistort(*args).cpu()
+        want = imu_mod.undistort_plain(*(to_cpu(x) for x in args))
+        if bits_diff(got, want) == 0.0:
+            und_same += 1
+        elif und_first is None:
+            und_first = k
+        und_err = max(und_err, float((got - want).abs().max()))
     d = max_diff(a, b)
     first = {"bits": None, "voxel_set": None, "iters": None}
     for k, ((da, ma, ia), (db, mb, ib)) in enumerate(zip(sa, sb)):
@@ -2353,7 +2624,10 @@ def imu_4khz_phase(dev, duration=3.0):
           f"first step whose downsampled points differ in a bit {first['bits']}, in their "
           f"voxel set {first['voxel_set']}, in EKF iterations {first['iters']}; the first "
           f"frame whose position differs {first_pos} of {len(a)} "
-          f"({pos_d[first_pos] * 1e3 if first_pos is not None else 0.0:.3g} mm there)")
+          f"({pos_d[first_pos] * 1e3 if first_pos is not None else 0.0:.3g} mm there); the "
+          f"undistortion on each card step's inputs, kernel against the CPU's plain version: "
+          f"bit-equal at {und_same} of {len(card_und)} steps (the first differing "
+          f"{und_first}), max difference {und_err:.3g} m")
     pairs = max(int(g[1].shape[0]) - 1 for g in ga)
     print(f"4 kHz IMU, max_imu_per_group 512, {dev} vs cpu: {len(a)} frames, "
           f"{len(ga)} propagated groups of up to {pairs} pairs (bucket {ba}), "
@@ -2365,7 +2639,10 @@ def imu_4khz_phase(dev, duration=3.0):
                              f"buckets {ba} / {bb}, {d} m")
     return wa / len(a), la, {"max_diff_to_cpu_mm": d * 1e3, "groups": len(ga),
                              "bucket": ba, "first_step_differing": first,
-                             "first_frame_position_differs": first_pos}
+                             "first_frame_position_differs": first_pos,
+                             "undistort_bit_equal_steps": und_same,
+                             "undistort_first_differing_step": und_first,
+                             "undistort_max_abs_diff_m": und_err}
 
 
 def ate_of(outs, ds, t_offset=0.0):
@@ -3589,7 +3866,7 @@ def partials_compare(a, rows, label) -> float:
     return e
 
 
-def livo_mesh_phase(dev, ds, ref, frames=24, duration=4.0):
+def livo_mesh_phase(dev, ds, ref, frames=24, duration=3.0):
     """(k) LIVO over a device mesh, on the first `frames` lidar frames of
     the LIVO dataset of livo_path_phase at shipped capacities (640x512,
     grid 40: G = 192 cells; a u8 pool of 256 images and 65536 x 20
@@ -3850,7 +4127,7 @@ def main() -> int:
         warmup_phase(dev)
     with phase("lio per-frame"):
         (pipe, lio_launches, lio_outs, lio_ds, lio_ms, lio_call, lio_nums, lio_boxes,
-         lio_filter) = path_phase(dev)
+         lio_rec) = path_phase(dev)
         lio_map = pipe.map  # for the map-stage kernels, after the LIVO path
         lio_casc = lio_cascade_phase(lio_call)
         del lio_call
@@ -3912,8 +4189,8 @@ def main() -> int:
         del vio_rec
         torch.cuda.empty_cache()
     with phase("map stage kernels"):
-        stages = map_stages_phase(lio_map, lio_boxes, lio_filter, cam_filter)
-        del lio_map, lio_filter, cam_filter
+        stages = map_stages_phase(lio_map, lio_boxes, lio_rec, cam_filter)
+        del lio_map, lio_rec, cam_filter
         torch.cuda.empty_cache()
     with phase("livo block replay"):
         livo_paths, livo_ckpt, block_casc = livo_block_phase(dev, livo_ds, livo_outs, livo_ms)
@@ -3968,11 +4245,11 @@ def main() -> int:
         paths["lio 4 kHz IMU, 512-pair groups"] = (l_ms, l_launches)
         path_extra["lio 4 kHz IMU, 512-pair groups"] = l_nums
     with phase("profiles"):
-        # 9-10 profiled frames fused, 4-5 unfused (whose ~5000 kernels a
+        # 9-10 profiled frames fused, 2-3 unfused (whose ~5000 kernels a
         # frame make the profiler's processing the costliest part of the run)
-        lio_prof = [profile_phase(dev, fused=f, duration=4.0 if f else 3.5)
+        lio_prof = [profile_phase(dev, fused=f, duration=4.0 if f else 3.3)
                     for f in (False, True)]
-        livo_prof = [livo_profile_phase(dev, fused=f, duration=4.0 if f else 3.5)
+        livo_prof = [livo_profile_phase(dev, fused=f, duration=4.0 if f else 3.3)
                      for f in (False, True)]
     (lu, lf), (vu, vf) = lio_prof, livo_prof
     print(f"per steady lidar frame, unfused (plain IMU loop) -> fused: device kernels "
@@ -3996,13 +4273,14 @@ def main() -> int:
     ms2 = lambda d, k: (f"{d.get(k, {}).get('host_ms', 0.0):.3f} host / "  # noqa: E731
                         f"{d.get(k, {}).get('device_ms', 0.0):.3f} device")
     print(f"map stages per steady LIO frame, ms: frame.map_insert {ms2(sl, 'frame.map_insert')}"
+          f", frame.undistort {ms2(sl, 'frame.undistort')}"
           f", frame.delete_boxes {ms2(sl, 'frame.delete_boxes')}, frame.voxel_filter "
           f"{ms2(sl, 'frame.voxel_filter')}; per camera frame vio.voxel_filter "
           f"{ms2(sv, 'vio.voxel_filter')}; device kernels per LIO frame {lu['kernels']:.0f} "
           f"-> {lf['kernels']:.0f} (device busy {100 * lu['device_busy_share']:.1f}% -> "
           f"{100 * lf['device_busy_share']:.1f}% of wall), per LIVO pair "
           f"{vu['kernels_per_pair']:.0f} -> {vf['kernels_per_pair']:.0f} (unfused -> fused, "
-          f"the unfused with the plain box delete and centroid); {smi}")
+          f"the unfused with the plain box delete, centroid, insert and undistortion); {smi}")
     if not (lf["search_kernels"] < lu["search_kernels"] and lf["kernels"] < lu["kernels"]
             and lf["lio_update_kernels"] < lu["lio_update_kernels"]
             and vf["photometric_kernels"] < vu["photometric_kernels"]
@@ -4140,7 +4418,7 @@ def main() -> int:
         "mesh_launches": sum(v[-1]["imu_propagate"] for k, v in paths.items() if "mesh" in k),
     }, *[{
         "name": name, "route": "cuda",
-        "source": f"fastlivo_tpu_torch/csrc/{name}.cu",
+        "source": f"fastlivo_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
         "launches": lio_launches[counter], "path": "lio per-frame",
         **{k: stages[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4150,12 +4428,23 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "launches_per_path": {k: v[-1][counter] for k, v in paths.items()
                               if v[-1].get(counter)},
-    } for name, counter, replaces in (
-        ("tiled_delete_boxes", "delete_boxes",
+    } for name, counter, source, replaces in (
+        ("tiled_delete_boxes", "delete_boxes", "tiled_delete_boxes",
          "fastlivo_tpu/ops/tiled_map.py:246-260 (delete_boxes, jitted XLA; no Pallas kernel)"),
-        ("voxel_centroids", "voxel_centroids",
+        ("voxel_centroids", "voxel_centroids", "voxel_centroids",
          "fastlivo_tpu/ops/voxel_filter.py:54-71 (voxel_downsample_device after its argsort, "
-         "jitted XLA; no Pallas kernel)"))]]}))
+         "jitted XLA; no Pallas kernel)"),
+        ("tiled_insert_keys", "insert_keys", "tiled_insert",
+         "fastlivo_tpu/ops/tiled_map.py:121-137 (insert before its argsort: keys, tiles, "
+         "hash, distance, packed key; jitted XLA; no Pallas kernel)"),
+        ("tiled_insert_tiles", "insert_tiles", "tiled_insert",
+         "fastlivo_tpu/ops/tiled_map.py:139-168 (insert: tile heads, allocation cumsum, "
+         "directory writes; jitted XLA; no Pallas kernel)"),
+        ("tiled_insert_cells", "insert_cells", "tiled_insert",
+         "fastlivo_tpu/ops/tiled_map.py:170-200 (insert: first-ok cell winners by cumsum and "
+         "cummax, cell writes; jitted XLA; no Pallas kernel)"),
+        ("undistort", "undistort", "undistort",
+         "fastlivo_tpu/imu.py:354-398 (undistort, jitted XLA; no Pallas kernel)"))]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

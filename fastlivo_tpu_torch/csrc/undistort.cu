@@ -1,0 +1,187 @@
+// The scan's backward undistortion, for Hopper: one thread a point.
+//
+// Replaces no TPU kernel: it is the port of the jitted XLA code of
+// fastlivo_tpu/imu.py::undistort (:354-398, the reference's backward pass,
+// IMU_Processing.cpp:774-808), whose torch version imu.undistort_plain is
+// some 150 small torch ops. For each point with pmask set:
+//
+//   k   = searchsorted(offs, t, left) - 1, clamped to [0, M - 1]: the
+//         lower bound of torch's searchsorted (`!(offs[mid] >= t)`, mid =
+//         lo + ((hi - lo) >> 1)) on the f32 offsets, which hold duplicates
+//         and BIG_T padding;
+//   dt  = t - offs[k];
+//   R_i = R_k Exp(gyr_k dt): the HEAD row's rotation and gyro (row k holds
+//         the previous pair's averages; the reference's convention, kept);
+//         Exp is Rodrigues in f32, I + a K + b K K with its 3x3 products
+//         written out, a = sin(t)/t and b = (1 - cos(t))/t^2, or the Taylor
+//         forms 1 - t^2/6 and 1/2 - t^2/24 below t^2 = 1e-12 (t^2 clamped
+//         at 1e-14 before the root), as ops/so3.py::exp;
+//   T   = ((pos_k + vel_k dt) + ((0.5 acc_k) dt) dt) - s_end.pos;
+//   out = (R_li^T R_e^T) (R_i (R_li p + t_li) + T) - R_li^T t_li;
+//
+// a point without pmask is copied. Each 3-term sum runs left to right,
+// each product rounds alone (-fmad=false), and the pose table and the
+// segment-end state are cast to f32 where undistort_plain casts them, so
+// the kernel gives undistort_plain's bits on the card (sinf, cosf, sqrtf
+// and the divisions are CUDA's accurate ones there). The frame's
+// constants (R_li^T R_e^T, R_li^T t_li) are formed by every thread from
+// the same inputs in the same order: 60 operations, cheaper than a second
+// launch or a block barrier.
+//
+// Bound on an H100: 29 bytes a point (the point, its time and mask, the
+// result) and the pose table once; about 220 operations a point. At the
+// LIO scan's 32768 rows memory binds it (~0.3 us), far below a launch, so
+// the kernel is held by its launch and by each thread's chain: the binary
+// search's dependent loads, the pose row, sinf / cosf, then the products.
+// chip_smoke.py counts the bound from its inputs.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr float T2_MIN = 1e-14f;    // float32(so3._SMALL ** 2)
+constexpr float T2_SMALL = 1e-12f;  // float32((10 so3._SMALL) ** 2)
+
+template <typename P>
+struct Pose {  // the pose table's fields; a row of each at `stride` elements
+  const P* offs;
+  const P* rot;  // a row: 9 contiguous values, row-major
+  const P* pos;
+  const P* vel;
+  const P* acc;
+  const P* gyr;
+  long long s_offs, s_rot, s_pos, s_vel, s_acc, s_gyr;
+  int M;
+};
+
+// C = A B for 3x3 matrices: each entry (a0 b0 + a1 b1) + a2 b2
+__device__ __forceinline__ void mat3(const float A[3][3], const float B[3][3], float C[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) C[i][j] = (A[i][0] * B[0][j] + A[i][1] * B[1][j]) + A[i][2] * B[2][j];
+}
+
+template <typename P>
+__global__ void __launch_bounds__(THREADS) undistort_kernel(
+    Pose<P> pose, const double* __restrict__ s_rot, const double* __restrict__ s_pos,
+    const float* __restrict__ lid_rot, const float* __restrict__ lid_off,
+    const float* __restrict__ pts, const float* __restrict__ t_rel,
+    const bool* __restrict__ pmask, float* __restrict__ out, int N) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i >= N) return;
+  const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
+  if (!pmask[i]) {
+    out[3 * i] = x;
+    out[3 * i + 1] = y;
+    out[3 * i + 2] = z;
+    return;
+  }
+  const float t = t_rel[i];
+  long long lo = 0, hi = pose.M;
+  while (lo < hi) {
+    const long long mid = lo + ((hi - lo) >> 1);
+    if (!((float)pose.offs[mid * pose.s_offs] >= t))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  long long k = lo - 1;
+  k = k < 0 ? 0 : (k > pose.M - 1 ? pose.M - 1 : k);
+  const float dt = t - (float)pose.offs[k * pose.s_offs];
+
+  // Exp(gyr_k dt)
+  float phi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) phi[a] = (float)pose.gyr[k * pose.s_gyr + a] * dt;
+  const float t2 = (phi[0] * phi[0] + phi[1] * phi[1]) + phi[2] * phi[2];
+  const float th = sqrtf(t2 < T2_MIN ? T2_MIN : t2);  // a NaN stays NaN, as torch.clamp
+  const bool small = t2 < T2_SMALL;
+  const float ca = small ? 1.0f - t2 / 6.0f : sinf(th) / th;
+  const float cb = small ? 0.5f - t2 / 24.0f : (1.0f - cosf(th)) / (th * th);
+  const float K[3][3] = {{0.0f, -phi[2], phi[1]}, {phi[2], 0.0f, -phi[0]},
+                         {-phi[1], phi[0], 0.0f}};
+  float K2[3][3], E[3][3], Rh[3][3], Ri[3][3];
+  mat3(K, K, K2);
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      E[a][b] = ((a == b ? 1.0f : 0.0f) + ca * K[a][b]) + cb * K2[a][b];
+      Rh[a][b] = (float)pose.rot[k * pose.s_rot + 3 * a + b];
+    }
+  mat3(Rh, E, Ri);
+
+  float L[3][3], off[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    off[a] = lid_off[a];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) L[a][b] = lid_rot[3 * a + b];
+  }
+  float T[3], q[3], pw[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float acc = (float)pose.acc[k * pose.s_acc + a];
+    T[a] = (((float)pose.pos[k * pose.s_pos + a] + (float)pose.vel[k * pose.s_vel + a] * dt)
+            + ((0.5f * acc) * dt) * dt) - (float)s_pos[a];
+    q[a] = ((L[a][0] * x + L[a][1] * y) + L[a][2] * z) + off[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) pw[a] = ((Ri[a][0] * q[0] + Ri[a][1] * q[1]) + Ri[a][2] * q[2]) + T[a];
+  // the frame's constants: ext = R_li^T R_e^T, c = R_li^T t_li
+  float Re[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) Re[a][b] = (float)s_rot[3 * a + b];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float ext[3];
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      ext[b] = (L[0][a] * Re[b][0] + L[1][a] * Re[b][1]) + L[2][a] * Re[b][2];
+    const float c = (L[0][a] * off[0] + L[1][a] * off[1]) + L[2][a] * off[2];
+    out[3 * i + a] = ((ext[0] * pw[0] + ext[1] * pw[1]) + ext[2] * pw[2]) - c;
+  }
+}
+
+template <typename P>
+int launch(const void* const* f, const long long* strides, int M, const void* s_rot,
+           const void* s_pos, const void* lid_rot, const void* lid_off, const void* pts,
+           const void* t_rel, const void* pmask, void* out, int N, cudaStream_t stream) {
+  Pose<P> pose{static_cast<const P*>(f[0]), static_cast<const P*>(f[1]),
+               static_cast<const P*>(f[2]), static_cast<const P*>(f[3]),
+               static_cast<const P*>(f[4]), static_cast<const P*>(f[5]),
+               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5], M};
+  undistort_kernel<P><<<(N + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+      pose, static_cast<const double*>(s_rot), static_cast<const double*>(s_pos),
+      static_cast<const float*>(lid_rot), static_cast<const float*>(lid_off),
+      static_cast<const float*>(pts), static_cast<const float*>(t_rel),
+      static_cast<const bool*>(pmask), static_cast<float*>(out), N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface for ctypes. fields: the pose table's offs, rot, pos, vel,
+// acc, gyr (M rows, f64 if pose_f64 else f32; a row's values contiguous,
+// rows `strides[j]` elements apart); s_rot (3, 3) and s_pos (3,) f64;
+// lid_rot (3, 3) and lid_off (3,) f32; pts (N, 3) f32, t_rel (N,) f32,
+// pmask (N,) bool; out (N, 3) f32. Returns the launch's cudaError_t (0 =
+// cudaSuccess); N = 0 launches nothing.
+extern "C" int undistort_launch(const void* const* fields, const long long* strides, int M,
+                                int pose_f64, const void* s_rot, const void* s_pos,
+                                const void* lid_rot, const void* lid_off, const void* pts,
+                                const void* t_rel, const void* pmask, void* out, int N,
+                                void* stream) {
+  if (N <= 0) return 0;
+  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pose_f64 ? launch<double>(fields, strides, M, s_rot, s_pos, lid_rot, lid_off, pts,
+                                   t_rel, pmask, out, N, s)
+                  : launch<float>(fields, strides, M, s_rot, s_pos, lid_rot, lid_off, pts,
+                                  t_rel, pmask, out, N, s);
+}

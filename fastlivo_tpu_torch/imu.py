@@ -13,7 +13,10 @@ src/IMU_Processing.cpp):
     also the kernel's oracle;
   - backward per-point undistortion (:774-808), vectorized: each point
     finds its IMU pose interval by searchsorted and applies the
-    closed-form compensation transform.
+    closed-form compensation transform. On CUDA points one launch of the
+    kernel in csrc/undistort.cu; on the CPU the plain version
+    `undistort_plain`, the kernel's oracle, whose sums and products are
+    written out in the kernel's order.
 
 Absolute timestamps never reach the device: the host computes per-pair
 dt and per-sample offsets (relative to the scan begin) in float64 and
@@ -27,13 +30,16 @@ than the pose table are extrapolated backward from the first pose.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .ops import imu_scan, so3
+from .ops import imu_scan, linalg, so3
+from .ops.photometric import _require
 from .state import DIM_STATE, G_M_S2, NavState, pack24
 
 BIG_T = 1e30
@@ -362,10 +368,25 @@ def propagate_plain(
     return out_state, pose, acc_last, gyr_last
 
 
-def undistort(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
-              t_rel: torch.Tensor, pmask: torch.Tensor,
-              calib: ImuCalib) -> torch.Tensor:
-    """Motion-compensate points (N, 3) to the segment-end lidar frame.
+def _exp32(phi: torch.Tensor) -> torch.Tensor:
+    """so3.exp for (N, 3) f32 rotation vectors with every 3-term sum and
+    3x3 product written out in csrc/undistort.cu's order: t^2 = (x^2 +
+    y^2) + z^2 and I + a K + b (K K), with so3.exp's Taylor branch."""
+    t2 = (phi[:, 0] * phi[:, 0] + phi[:, 1] * phi[:, 1]) + phi[:, 2] * phi[:, 2]
+    t = torch.sqrt(torch.clamp(t2, min=so3._SMALL ** 2))
+    small = t2 < (so3._SMALL * 10.0) ** 2
+    a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / (t * t))
+    k = so3.skew(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return (eye + a[:, None, None] * k) + b[:, None, None] * linalg.mat3(k, k)
+
+
+def undistort_plain(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
+                    t_rel: torch.Tensor, pmask: torch.Tensor,
+                    calib: ImuCalib) -> torch.Tensor:
+    """`undistort` in torch ops, on any device, every sum and product in
+    the kernel's order (the CPU's path and the kernel's oracle).
 
     Vectorized backward pass (IMU_Processing.cpp:774-808):
       P' = (R_li^T R_e^T) (R_i (R_li P + t_li) + T_ei) - R_li^T t_li
@@ -382,8 +403,7 @@ def undistort(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
     # as the PREVIOUS pair's averages; reproduced deliberately. Do not
     # "fix" to pose.gyr[k+1].
     R_head = pose.rot[k].to(dtype)  # (N, 3, 3)
-    w = pose.gyr[k].to(dtype)
-    R_i = R_head @ so3.exp(w * dt)
+    R_i = linalg.mat3(R_head, _exp32(pose.gyr[k].to(dtype) * dt))
     T_ei = (
         pose.pos[k].to(dtype)
         + pose.vel[k].to(dtype) * dt
@@ -391,11 +411,91 @@ def undistort(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
         - s_end.pos.to(dtype)
     )
 
-    p_imu = pts @ calib.lid_rot.T + calib.lid_off
-    p_world_rel = torch.einsum("nij,nj->ni", R_i, p_imu) + T_ei
-    ext = calib.lid_rot.T @ s_end.rot.to(dtype).T
-    p_out = p_world_rel @ ext.T - calib.lid_rot.T @ calib.lid_off
+    p_imu = linalg.matvec3(calib.lid_rot, pts) + calib.lid_off
+    p_world_rel = linalg.matvec3(R_i, p_imu) + T_ei
+    ext = linalg.mat3(calib.lid_rot.T, s_end.rot.to(dtype).T)
+    p_out = (linalg.matvec3(ext, p_world_rel)
+             - linalg.matvec3(calib.lid_rot.T, calib.lid_off))
     return torch.where(pmask[:, None], p_out, pts)
+
+
+def _pose_rows(t: torch.Tensor, dtype, inner: tuple):
+    """(tensor, row stride) of a pose field whose rows the kernel reads:
+    each row's values contiguous, rows any stride apart (the f64 views of
+    a pose pack, the f32 views of a merged table) or copied if not."""
+    t = t.to(dtype)
+    if t.shape[1:] != inner:
+        raise ValueError(f"undistort: pose field of shape {tuple(t.shape)}")
+    want = [1] * len(inner)
+    for j in range(len(inner) - 2, -1, -1):
+        want[j] = want[j + 1] * inner[j + 1]
+    if list(t.stride()[1:]) != want or t.stride(0) < 0:
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+@functools.cache
+def _undistort_launcher():
+    from .ops import _build
+
+    fn = _build.load("undistort").undistort_launch
+    P = ctypes.c_void_p
+    fn.argtypes = [P, P, ctypes.c_int, ctypes.c_int] + [P] * 8 + [ctypes.c_int, P]
+    fn.restype = ctypes.c_int
+    return _build.profiled("undistort", fn)
+
+
+def undistort(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
+              t_rel: torch.Tensor, pmask: torch.Tensor,
+              calib: ImuCalib) -> torch.Tensor:
+    """Motion-compensate points (N, 3) to the segment-end lidar frame
+    (`undistort_plain`'s arguments and result). CUDA points take one
+    launch of csrc/undistort.cu on the current stream (counted in
+    `undistort.launches`), with no host read: the pose table's fields as
+    they lie (f32 or f64, rows any stride apart), the state f64, the rest
+    f32; CPU points run `undistort_plain`. No other device is taken and
+    nothing falls back."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return undistort_plain(s_end, pose, pts, t_rel, pmask, calib)
+    if dev.type != "cuda":
+        raise ValueError(f"undistort: unsupported device {dev}")
+    N, M = pts.shape[0], pose.offs.shape[0]
+    f64 = torch.float64
+    for name, t, shape, dtype in (("pts", pts, (N, 3), torch.float32),
+                                  ("t_rel", t_rel, (N,), torch.float32),
+                                  ("pmask", pmask, (N,), torch.bool),
+                                  ("lid_rot", calib.lid_rot, (3, 3), torch.float32),
+                                  ("lid_off", calib.lid_off, (3,), torch.float32),
+                                  ("state rot", s_end.rot, (3, 3), f64),
+                                  ("state pos", s_end.pos, (3,), f64)):
+        _require(f"undistort: {name}", t, shape, dtype, dev)
+    fields = (pose.offs, pose.rot, pose.pos, pose.vel, pose.acc, pose.gyr)
+    pdt = torch.float32 if all(f.dtype == torch.float32 for f in fields) else f64
+    rows = [_pose_rows(f, pdt, inner) for f, inner in zip(
+        fields, ((), (3, 3), (3,), (3,), (3,), (3,)))]
+    for f, _ in rows:
+        if f.device != dev or f.shape[0] != M:
+            raise ValueError(f"undistort: pose field of {f.shape[0]} rows on {f.device}, "
+                             f"want {M} on {dev}")
+    out = torch.empty_like(pts)
+    if N == 0:
+        return out
+    if M == 0:
+        raise ValueError("undistort: an empty pose table")
+    ptrs = (ctypes.c_void_p * 6)(*[f.data_ptr() for f, _ in rows])
+    strides = (ctypes.c_longlong * 6)(*[s for _, s in rows])
+    err = _undistort_launcher()(
+        ptrs, strides, M, int(pdt == f64), s_end.rot.data_ptr(), s_end.pos.data_ptr(),
+        calib.lid_rot.data_ptr(), calib.lid_off.data_ptr(), pts.data_ptr(), t_rel.data_ptr(),
+        pmask.data_ptr(), out.data_ptr(), N, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"undistort: kernel launch failed (cudaError {err})")
+    undistort.launches += 1
+    return out
+
+
+undistort.launches = 0
 
 
 def prepare_pairs(imu_t: np.ndarray, imu_acc: np.ndarray, imu_gyr: np.ndarray,

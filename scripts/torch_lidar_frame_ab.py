@@ -33,13 +33,14 @@ every run. It reports the steady lidar frame's median and p90 host wall
 lidar frame or lidar + camera pair, on LIVO the camera frame's median and
 p90 (host wall of Vio.update), and the median host wall per call of the
 map insert, the box delete and the two voxel filters, unsynchronised and
-unprofiled (a stage that reads the device waits there). With --profile,
+unprofiled (a stage that reads the device waits there), and of the
+undistortion. With --profile,
 each variant then runs once more under torch.profiler: a second dataset
 (4 s, seed 1), LIO from its 31st scan and LIVO from 3 s: host and device
 ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
 frame or lidar + camera pair, the device-busy share of the window and the
-map stages' kernels (voxel_centroids, tiled_delete_boxes): launches per
-frame and device us a launch.
+map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
+three passes, undistort): launches per frame and device us a launch.
 Prints one line per run, then one JSON line with every run and the card's
 `nvidia-smi` name and power limit.
 """
@@ -53,7 +54,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel")
+MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel",
+                     "tiled_insert_keys_kernel", "tiled_insert_tiles_kernel",
+                     "tiled_insert_cells_kernel", "undistort_kernel")
 ARMS = ("as shipped", "host loop, step kernel", "host loop, torch step", "plain selection",
         "photometric host loop", "cascade, synchronised")
 
@@ -74,7 +77,7 @@ class Worker:
         import torch
 
         import chip_smoke as cs
-        from fastlivo_tpu_torch import lio, vio
+        from fastlivo_tpu_torch import imu, lio, vio
         from fastlivo_tpu_torch.config import Config
         from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
         from fastlivo_tpu_torch.ops import tiled_map, voxel_filter
@@ -117,7 +120,7 @@ class Worker:
             "photometric host loop": cs.photometric_host_loop,
             "cascade, synchronised": lambda: cs.swapped(vio, "photometric_cascade",
                                                         synchronised)}
-        self.stages = {"map_insert": (tiled_map, "insert"),
+        self.stages = {"undistort": (imu, "undistort"), "map_insert": (tiled_map, "insert"),
                        "delete_boxes": (tiled_map, "delete_boxes"),
                        "voxel_filter": (voxel_filter, "voxel_downsample_device"),
                        "vio.voxel_filter": (vio, "voxel_downsample_device")}

@@ -1704,7 +1704,9 @@ def launch_guarded(launch, inputs, outputs):
 
 @pytest.mark.parametrize("kernel", ["knn5_plane_27", "knn5_plane_125", "knn5_plane_tiled",
                                     "lio_cascade", "vio_select", "vio_observations",
-                                    "tiled_delete_boxes", "voxel_centroids"])
+                                    "tiled_delete_boxes", "voxel_centroids",
+                                    "tiled_insert_keys", "tiled_insert_tiles",
+                                    "tiled_insert_cells", "undistort"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -1719,7 +1721,12 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     LIO frame's map stages: tiled_delete_boxes writes the pool's cell
     checks in place (its output, every byte equal to the plain version's
     after the launch); voxel_centroids at 16379 rows into 8191, its
-    scratch (ticket, finished blocks, tile status words) back at 0."""
+    scratch (ticket, finished blocks, tile status words) back at 0. The
+    insert's three passes on a compacted map at 16379 rows, each on the
+    plain passes' inputs (the map arrays they write in place are their
+    outputs, every byte equal to the plain pass's after the launch; the
+    tiles pass also writes the head flags in rows[4]); undistort at 16379
+    points."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -1729,6 +1736,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         return vio_write_only(cuda, kernel)
     if kernel in ("tiled_delete_boxes", "voxel_centroids"):
         return map_stage_write_only(cuda, kernel)
+    if kernel.startswith("tiled_insert") or kernel == "undistort":
+        return frame_kernel_write_only(cuda, kernel)
 
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     stream = torch.cuda.current_stream(cuda).cuda_stream
@@ -2571,12 +2580,14 @@ def test_voxel_centroids_any_width_matches_the_cpu(cuda, cols):
 
 def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     """The whole steady lidar_frame_step on one card (the tiled map, the
-    LIO cascade, the TLS fit, no cache_knn): the undistortion, the voxel
-    filter (the sort and one voxel_centroids launch), the cascade (one
-    lio_cascade launch), the insert and the frame's outputs make no
+    LIO cascade, the TLS fit, no cache_knn): the undistortion (one
+    undistort launch), the voxel filter (the sort and one voxel_centroids
+    launch), the cascade (one lio_cascade launch), the insert (the sort and
+    its three passes' launches) and the frame's outputs make no
     synchronising call (torch's sync debug mode set to raise), and give the
     same bits as the same step called without the mode."""
     from fastlivo_tpu_torch import frame_step, pipeline
+    from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
@@ -2595,7 +2606,9 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     want = frame_step.lidar_frame_step(*(a[:1] + (clone_map(a[1]),) + a[2:]), **kw)
     torch.cuda.synchronize()
     counts = lambda: (vf.voxel_centroids.launches, lio_cascade.lio_cascade.launches,  # noqa
-                      knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches)
+                      knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches,
+                      tm.insert_keys.launches, tm.insert_tiles.launches,
+                      tm.insert_cells.launches, imu_mod.undistort.launches)
     n0 = counts()
     m = clone_map(a[1])
     torch.cuda.synchronize()
@@ -2604,7 +2617,8 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
         got = frame_step.lidar_frame_step(*(a[:1] + (m,) + a[2:]), **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
+    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + 1, n0[5] + 1, n0[6] + 1,
+                        n0[7] + 1)
     assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
     for g, w in zip(got[2:], want[2:]):
         assert bit_equal(g, w)
@@ -2612,18 +2626,31 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     assert all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
 
 
-def test_lio_pipeline_runs_the_map_stage_kernels(cuda):
-    """A LIO run on the card clears its boxes through tiled_delete_boxes
-    and filters every steady scan through voxel_centroids."""
+def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
+    """A LIO run on the card clears its boxes through tiled_delete_boxes,
+    filters every steady scan through voxel_centroids, undistorts every
+    scan (the steady ones and the bootstrap's) through undistort and makes
+    every insert (the steady scans' and the one that builds the map)
+    through the insert's three passes."""
+    from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
+    inserts = []
+    real = tm.insert
+    monkeypatch.setattr(tm, "insert", lambda *a: inserts.append(1) or real(*a))
     pipe = small_lio(cuda)
-    n0 = (tm.delete_boxes.launches, vf.voxel_centroids.launches)
+    count = lambda: (tm.delete_boxes.launches, vf.voxel_centroids.launches,  # noqa: E731
+                     imu_mod.undistort.launches, tm.insert_keys.launches,
+                     tm.insert_tiles.launches, tm.insert_cells.launches)
+    n0 = count()
     outs = pipe.spin()
     steady = [o for o in outs if o.iters > 0]
+    n = [b - a for a, b in zip(n0, count())]
     assert len(steady) > 5
-    assert tm.delete_boxes.launches - n0[0] >= len(steady)  # the tracker fires each frame
-    assert vf.voxel_centroids.launches - n0[1] == len(steady)
+    assert n[0] >= len(steady)  # the tracker fires each frame
+    assert n[1] == len(steady)
+    assert n[2] > len(steady)  # and the bootstrap scans
+    assert n[3] == n[4] == n[5] == len(inserts) > len(steady)
 
 
 def map_stage_write_only(dev, kernel):
@@ -2661,5 +2688,248 @@ def map_stage_write_only(dev, kernel):
         assert not got[2].any()  # the ticket, the block count and the tile status words
         want = vf.voxel_centroids_plain(keys.cpu(), order.cpu(), pts.cpu(), max_out)
         got = [g.cpu() for g in got[:2]]
+    for g, w in zip(got, want):
+        assert bit_equal(g, w)
+
+
+# --- the LIO frame's insert and undistortion --------------------------------
+
+def frame_cases():
+    import torch_frame_cases
+
+    return torch_frame_cases
+
+
+def replay_insert(dev, case, step_fn):
+    """tests/torch_frame_cases.py's insert stream on a card map and a CPU
+    map side by side; step_fn(card map, CPU map, pts, valid) at each
+    insert returns the two maps after it."""
+    fc = frame_cases()
+    dims, pool, steps = fc.insert_case(case)
+    mc = tm.empty_tiled_map(dims, pool, fc.VOX, device=dev)
+    mh = tm.empty_tiled_map(dims, pool, fc.VOX, device="cpu")
+    for step in steps:
+        if step[0] == "compact":
+            lo, hi = (torch.from_numpy(b[None]) for b in step[1:])
+            mc = tm.compact(tm.delete_boxes_plain(mc, lo.to(dev), hi.to(dev)))
+            mh = tm.compact(tm.delete_boxes_plain(mh, lo, hi))
+            continue
+        mc, mh = step_fn(mc, mh, torch.from_numpy(step[1]), torch.from_numpy(step[2]))
+    return mc, mh
+
+
+def insert_launches():
+    return (tm.insert_keys.launches, tm.insert_tiles.launches, tm.insert_cells.launches)
+
+
+@pytest.mark.parametrize("case", ["stream", "aliasing", "overflow", "head_not_ok", "compacted",
+                                  "empty", "one_row", "all_invalid"])
+def test_tiled_insert_matches_plain(cuda, case):
+    """insert on a card map (three launches around the sort; at B = 0 the
+    tiles pass alone) leaves every TiledMap field equal to insert_plain's
+    on the card and on the CPU after every batch of tests/
+    torch_frame_cases.py's streams: directory aliasing, pool overflow,
+    runs whose sorted head is not ok, a compacted map with stale slots,
+    B = 0 and 1, no valid row."""
+    def step(mc, mh, p, v):
+        want_card = tm.insert_plain(clone_map(mc), p.to(cuda), v.to(cuda))
+        want_cpu = tm.insert_plain(mh, p, v)
+        n0 = insert_launches()
+        got = tm.insert(mc, p.to(cuda), v.to(cuda))
+        torch.cuda.synchronize()
+        B = p.shape[0]
+        assert insert_launches() == (n0[0] + (B > 0), n0[1] + 1, n0[2] + (B > 0))
+        for f, g, wc, wh in zip(got._fields, got, want_card, want_cpu):
+            assert torch.equal(g, wc), f
+            assert torch.equal(g.cpu(), wh), f
+        return got, want_cpu
+
+    mc, _ = replay_insert(cuda, case, step)
+    if case == "overflow":
+        assert int(mc.n_dropped) > 0 and int(mc.n_alloc) == mc.slot_key.shape[0]
+
+
+def frame_insert_batch(dev, n=16384, seed=4):
+    """A LIO frame's insert: n rows over the stage map's +-60 m (new tiles
+    and stored cells), a tenth of them near-duplicates, 5% invalid."""
+    rng = np.random.default_rng(seed)
+    p = np.stack([rng.uniform(-70, 70, n), rng.uniform(-70, 70, n),
+                  np.abs(np.sin(0.1 * rng.uniform(-60, 60, n))) * 6 - 3], 1)
+    k = n // 10
+    p[:k] = p[k:2 * k] + rng.normal(0, 0.05, (k, 3))
+    return (torch.from_numpy(p.astype(np.float32)).to(dev),
+            torch.from_numpy(rng.random(n) > 0.05).to(dev))
+
+
+@pytest.mark.parametrize("pool", [4096, 1200])
+def test_tiled_insert_passes_match_plain_at_frame_size(cuda, pool):
+    """At a LIO frame's 16384 rows into a built map (and one whose pool
+    overflows): each pass's kernel gives its plain pass's outputs on the
+    card (the keys and rows; the directory, slot keys and counts; the
+    cells and the dropped count), the whole insert every field of
+    insert_plain's on the card and on the CPU, twice in a row."""
+    m = stage_map(cuda, pool=pool)
+    p, v = frame_insert_batch(cuda)
+    mp, mk = clone_map(m), clone_map(m)
+    gkey, rows = tm.insert_keys_plain(mp, p, v)
+    g2, r2 = tm.insert_keys(mk, p, v)
+    assert torch.equal(gkey, g2) and torch.equal(rows, r2)
+    sg, order = torch.sort(gkey, stable=True)
+    plain_counts = tm.insert_tiles_plain(mp, p, rows.clone(), sg, order)
+    counts = tm.insert_tiles(mk, p, r2, sg, order)
+    for f in ("dir_check", "dir_slot", "slot_key"):
+        assert torch.equal(getattr(mk, f), getattr(mp, f)), f
+    assert [int(x) for x in counts] == [int(x) for x in plain_counts]
+    assert torch.equal(r2[:4], rows[:4])
+    flags = r2[4]
+    assert bool(((flags == 0) | (flags == 1) | (flags == 2)).all()) and bool((flags == 2).any())
+    tm.insert_cells_plain(mp, p, v, rows, sg, order, plain_counts[1])
+    tm.insert_cells(mk, p, v, r2, sg, order, counts[1])
+    torch.cuda.synchronize()
+    for f in ("cell_check", "pts"):
+        assert torch.equal(getattr(mk, f), getattr(mp, f)), f
+    assert int(counts[1]) == int(plain_counts[1])
+    if pool < 4096:
+        assert int(counts[1]) > int(m.n_dropped)
+    mc, mh = clone_map(m), type(m)(*(t.cpu() for t in m))
+    for _ in range(2):
+        mc = tm.insert(mc, p, v)
+        mh = tm.insert_plain(mh, p.cpu(), v.cpu())
+        torch.cuda.synchronize()
+        for f, g, w in zip(mc._fields, mc, mh):
+            assert torch.equal(g.cpu(), w), f
+
+
+def undistort_args(dev, d, pose="f32"):
+    """undistort's arguments from a torch_frame_cases dict on `dev`. pose:
+    "f32" (contiguous), "f64" (contiguous) or "pack" (the f64 column views
+    of a pose pack, as imu.propagate returns on the card)."""
+    from fastlivo_tpu_torch import imu as imu_mod
+    from fastlivo_tpu_torch.state import NavState
+
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+    f64 = torch.float64
+    z3 = t(np.zeros(3), f64)
+    st = NavState(t(d["state_rot"], f64), t(d["state_pos"], f64), z3, z3, z3, z3,
+                  t(np.eye(18), f64))
+    M = len(d["offs"])
+    if pose == "pack":
+        pack = np.zeros((M + 1, 24))
+        pack[:M, 0], pack[:M, 1:10] = d["offs"], d["rot"].reshape(M, 9)
+        for j, f in enumerate(("pos", "vel", "acc", "gyr")):
+            pack[:M, 10 + 3 * j:13 + 3 * j] = d[f]
+        table = imu_mod.pose_views(t(pack, f64))
+    else:
+        dt = torch.float32 if pose == "f32" else f64
+        table = imu_mod.PoseTable(*(t(d[f], dt) for f in ("offs", "rot", "pos", "vel", "acc",
+                                                          "gyr")))
+    z = t(np.zeros(3), torch.float32)
+    calib = imu_mod.ImuCalib(t(1.0, torch.float32), z, z, z, z, t(d["lid_rot"]), t(d["lid_off"]))
+    return st, table, t(d["pts"]), t(d["t_rel"]), t(d["pmask"]), calib
+
+
+@pytest.mark.parametrize("pose", ["f32", "f64", "pack"])
+@pytest.mark.parametrize("case", ["scan", "small_angle", "offset_hits", "masked", "table_512"])
+def test_undistort_matches_plain(cuda, case, pose):
+    """undistort on the card (one launch) gives undistort_plain's bits on
+    the card, and within 1e-5 m of undistort_plain on the CPU (CUDA's
+    sinf / cosf against the CPU's); with the pose table f32, f64, or the
+    f64 column views of a pose pack (rows 24 values apart)."""
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    d = frame_cases().undistort_case(case)
+    args = undistort_args(cuda, d, pose)
+    want = imu_mod.undistort_plain(*args)
+    n0 = imu_mod.undistort.launches
+    got = imu_mod.undistort(*args)
+    torch.cuda.synchronize()
+    assert imu_mod.undistort.launches == n0 + 1
+    assert bit_equal(got, want)
+    cpu = imu_mod.undistort_plain(*undistort_args("cpu", d, pose))
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-5)
+    pm = d["pmask"]
+    assert bit_equal(got.cpu()[~torch.from_numpy(pm)], torch.from_numpy(d["pts"][~pm]))
+
+
+def test_undistort_and_insert_refuse_bad_inputs(cuda):
+    """Inputs the kernels do not take raise: CPU points for a card map,
+    an f32 state, an f64 calibration, a mask that is not bool."""
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    st, table, pts, t_rel, pmask, calib = undistort_args(cuda, frame_cases().undistort_case(
+        "scan"))
+    with pytest.raises(TypeError):
+        imu_mod.undistort(st._replace(rot=st.rot.float()), table, pts, t_rel, pmask, calib)
+    with pytest.raises(TypeError):
+        imu_mod.undistort(st, table, pts, t_rel, pmask,
+                          calib._replace(lid_rot=calib.lid_rot.double()))
+    m = stage_map(cuda)
+    p, v = frame_insert_batch(cuda, n=100)
+    with pytest.raises(ValueError):
+        tm.insert(m, p.cpu(), v)
+    with pytest.raises(TypeError):
+        tm.insert(m, p, v.to(torch.uint8))
+
+
+def frame_kernel_write_only(dev, kernel):
+    """test_kernels_write_only_their_outputs' insert and undistortion
+    cases."""
+    import ctypes
+
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    n = 16379
+    if kernel == "undistort":
+        d = frame_cases().undistort_case("table_512")
+        d["pts"], d["t_rel"], d["pmask"] = (np.resize(d[k], (n,) + d[k].shape[1:])
+                                            for k in ("pts", "t_rel", "pmask"))
+        st, table, pts, t_rel, pmask, calib = undistort_args(dev, d)
+        launch = imu_mod._undistort_launcher()
+        M = table.offs.shape[0]
+
+        def run(o, r, ps, v, a, g, sr, sp, lr, lo, x, tr, pm, out):
+            fields = (ctypes.c_void_p * 6)(*ptr(o, r, ps, v, a, g))
+            strides = (ctypes.c_longlong * 6)(1, 9, 3, 3, 3, 3)
+            return launch(fields, strides, M, 0, *ptr(sr, sp, lr, lo, x, tr, pm, out), n, stream)
+
+        got = launch_guarded(run, [*table, st.rot, st.pos, calib.lid_rot, calib.lid_off, pts,
+                                   t_rel, pmask], [torch.empty_like(pts)])
+        want = [imu_mod.undistort_plain(st, table, pts, t_rel, pmask, calib)]
+    else:
+        m = stage_map(dev, compacted=True)
+        p, v = frame_insert_batch(dev, n=n)
+        keys, tiles, cells = tm._insert_launchers()
+        B, D, T = n, m.dir_check.shape[0], m.slot_key.shape[0]
+        mp = clone_map(m)
+        gkey, rows = tm.insert_keys_plain(mp, p, v)
+        sg, order = torch.sort(gkey, stable=True)
+        if kernel == "tiled_insert_keys":
+            got = launch_guarded(lambda *a: keys(*ptr(*a), B, D, stream),
+                                 [p, v, m.voxel_size, m.log2_dims],
+                                 [torch.empty_like(gkey), torch.empty_like(rows)])
+            want = [gkey, rows]
+        elif kernel == "tiled_insert_tiles":
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            got = launch_guarded(
+                lambda s, o, x, vs, na, nd, r, dc, ds, sk, nao, ndo: tiles(
+                    *ptr(s, o, r, x, vs, dc, ds, sk, na, nd, nao, ndo), B, D, T, tm.EMPTY_CHECK,
+                    stream),
+                [sg, order, p, m.voxel_size, m.n_alloc, m.n_dropped],
+                [rows, m.dir_check, m.dir_slot, m.slot_key, zero, zero])
+            n_alloc, n_dropped = tm.insert_tiles_plain(mp, p, rows, sg, order)
+            got[0] = got[0][:4]
+            want = [rows[:4], mp.dir_check, mp.dir_slot, mp.slot_key, n_alloc, n_dropped]
+        else:
+            n_alloc, n_dropped = tm.insert_tiles_plain(mp, p, rows, sg, order)
+            before = n_dropped.clone()
+            got = launch_guarded(
+                lambda s, o, r, x, vv, vs, dc, ds, cc, pool, nd: cells(
+                    *ptr(s, o, r, x, vv, vs, dc, ds, cc, pool, nd), B, D, T, stream),
+                [sg, order, rows, p, v, m.voxel_size, mp.dir_check, mp.dir_slot],
+                [m.cell_check, m.pts, before])
+            tm.insert_cells_plain(mp, p, v, rows, sg, order, n_dropped)
+            want = [mp.cell_check, mp.pts, n_dropped]
     for g, w in zip(got, want):
         assert bit_equal(g, w)

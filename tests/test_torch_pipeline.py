@@ -412,7 +412,7 @@ def test_sources_name_no_jax():
             "parallel/product.py", "csrc/photometric_cascade.cu",
             "csrc/photometric_measure.cuh", "csrc/so3.cuh"} <= names
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py",
-              ROOT / "tests" / "torch_imu_cases.py"]
+              ROOT / "tests" / "torch_imu_cases.py", ROOT / "tests" / "torch_frame_cases.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -422,8 +422,8 @@ def test_every_kernel_source_is_built_and_smoked():
     fused searches (tiled; hash and dense), the fused photometric
     measurement, the photometric cascade and step, the two standalone
     kernels, the IMU propagation, the LIO cascade, the camera frame's
-    selection and map upkeep, the tiled map's box delete and the voxel
-    filter's segmented centroid."""
+    selection and map upkeep, the tiled map's box delete and insert, the
+    voxel filter's segmented centroid and the scan's undistortion."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -435,8 +435,8 @@ def test_every_kernel_source_is_built_and_smoked():
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
     assert cu == ["imu_propagate", "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
                   "lio_cascade", "patches_and_grads", "photometric_cascade",
-                  "photometric_err_H", "tiled_delete_boxes", "vio_observations",
-                  "vio_select", "voxel_centroids"]
+                  "photometric_err_H", "tiled_delete_boxes", "tiled_insert", "undistort",
+                  "vio_observations", "vio_select", "voxel_centroids"]
 
 
 def test_kernel_launches_are_profiler_ops():
