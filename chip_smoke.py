@@ -102,6 +102,7 @@ same way.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -605,24 +606,27 @@ def recorded_boxes(pipe, sets: list):
 
 
 @contextlib.contextmanager
-def recorded_calls(module, rec: dict, name="voxel_downsample_device"):
+def recorded_calls(module, rec: dict, name="voxel_downsample_device", first=False):
     """Count the calls of module.<name> in rec["n"] and keep the last
     one's arguments in rec["last"]: a reference while the context is open
     (nothing copied or read in a timed window), its tensors copied on the
-    card when it closes. Never a counted kernel wrapper: each counts
-    through its own module-level name."""
+    card when it closes; with `first`, the first call's arguments copied
+    on the card in rec["first"] when it is made. Never a counted kernel
+    wrapper: each counts through its own module-level name."""
     real = getattr(module, name)
     rec.setdefault("n", 0)
+    cp = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
 
     def wrapped(*a, **kw):
         rec["n"] += 1
         rec["last"] = (a, kw)
+        if first and "first" not in rec:
+            rec["first"] = ([cp(v) for v in a], {k: cp(v) for k, v in kw.items()})
         return real(*a, **kw)
 
     with swapped(module, name, wrapped):
         yield
     if "last" in rec:
-        cp = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
         a, kw = rec["last"]
         rec["last"] = ([cp(v) for v in a], {k: cp(v) for k, v in kw.items()})
 
@@ -1567,6 +1571,41 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
         print(f"{name} on the LIO path's last batch, re-inserted into its map ({work}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by}: {byts} "
               f"bytes, {ops} operations), library none; {smi}")
+    # the tiles pass where every head is fresh: the bootstrap batch into an
+    # empty map, each timed call into a map of its own (a directory
+    # written by one call has the batch's tiles live for the next)
+    (_, bpts, bvalid, *_), _ = rec["first"]
+    empty = tm.empty_tiled_map(dims, T, vs, device=dev)
+    bkey, brows = tm.insert_keys_plain(empty, bpts, bvalid)
+    bsg, border = torch.sort(bkey, stable=True)
+    fresh_maps = [empty._replace(dir_check=empty.dir_check.clone(),
+                                 dir_slot=empty.dir_slot.clone(),
+                                 slot_key=empty.slot_key.clone()) for _ in range(80)]
+    want_b = tm.insert_tiles_plain(fresh_maps[0], bpts, brows, bsg, border)
+    got_b = tm.insert_tiles(fresh_maps[1], bpts, brows.clone(), bsg, border)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(getattr(fresh_maps[0], f), getattr(fresh_maps[1], f))
+                for f in ("dir_check", "dir_slot", "slot_key"))
+            and [int(x) for x in got_b] == [int(x) for x in want_b]):
+        raise AssertionError("tiled_insert_tiles: the bootstrap batch into an empty map "
+                             "differs from insert_tiles_plain")
+    # 33 calls when the first batch queues ahead of the device; past 66 the
+    # maps come round again, their heads then aliased
+    calls, plain_calls = itertools.cycle(fresh_maps[2:68]), iter(fresh_maps[68:])
+    fresh_ms = time_ms(lambda: tm.insert_tiles(next(calls), bpts, brows, bsg, border))
+    fresh_plain_ms = event_ms(lambda: tm.insert_tiles_plain(
+        next(plain_calls), bpts, brows, bsg, border), reps=10)
+    bwork = insert_work(empty, bpts, bvalid)
+    b, by, byts, ops = insert_bounds(bwork)["tiled_insert_tiles"]
+    res["tiled_insert_tiles"]["fresh_heads"] = {
+        "ms": fresh_ms, "plain_ms": fresh_plain_ms, "bound_ms": b, "bound_by": by,
+        "bytes": byts, "ops": ops, "grid": tm.insert_tiles.grid, **bwork}
+    print(f"tiled_insert_tiles on the LIO path's bootstrap batch into an empty map ({bwork}, "
+          f"every head fresh; {tm.insert_tiles.grid} blocks): kernel {fresh_ms:.4f} ms, "
+          f"plain {fresh_plain_ms:.4f} ms (a fresh map each call), bound {b:.5f} ms "
+          f"({by}: {byts} bytes, {ops} operations); {smi}")
+    del fresh_maps, empty, calls, plain_calls
+
     whole = time_ms(lambda: tm.insert(mt, pts, valid))
     whole_plain = event_ms(lambda: tm.insert_plain(mq, pts, valid), reps=30)
     sort_ms = time_ms(lambda: torch.sort(gkey, stable=True))
@@ -2009,7 +2048,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups), \
             recorded_lio(cascades), recorded_boxes(pipe, boxes), recorded_calls(vf, filt), \
-            recorded_calls(tm, ins, "insert"), \
+            recorded_calls(tm, ins, "insert", first=True), \
             recorded_calls(pipeline_mod, step, "lidar_frame_step"):
         t0 = time.perf_counter()
         outs = pipe.spin()
@@ -2054,7 +2093,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
     nums = check_lio_cascades(cascades, "lio per-frame")
     return (pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums, boxes,
-            {"filter": filt["last"], "insert": ins["last"], "frame": step["last"]})
+            {"filter": filt["last"], "insert": ins["last"], "first": ins["first"],
+             "frame": step["last"]})
 
 
 def livo_config(cfg=None, W=640, H=512, F=400.0):
@@ -2319,6 +2359,10 @@ def device_kernels(evs, ranges):
             and e.self_device_time_total > 0 and not e.key.startswith(ranges)]
 
 
+MAP_STAGE_KERNELS = ("voxel_centroids", "tiled_delete_boxes", "tiled_insert_keys",
+                     "tiled_insert_tiles", "tiled_insert_cells", "undistort")
+
+
 def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
     """Where a steady frame's time goes: torch.profiler over the frames
     after the first `n_warm` scans of a second shipped-capacity run
@@ -2402,6 +2446,13 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
         return res
     if not kernels:
         print("profile: the profiler saw no device time")
+    # the map stages' hand-written kernels: launches a frame, device us a launch
+    res["map_stage_kernels"] = {
+        name: {"per_frame": e.count / n, "device_us": e.self_device_time_total / e.count}
+        for e in kernels for name in MAP_STAGE_KERNELS if name + "_kernel" in e.key}
+    print("profile: map-stage kernels " + ", ".join(
+        f"{k} {v['per_frame']:.2f} a frame, {v['device_us']:.2f} us a launch"
+        for k, v in res["map_stage_kernels"].items()) + f"; {nvidia_smi_line()}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.4f} ms/frame "
               f"{e.count / n:7.1f} launches/frame  {e.key[:80]}")
@@ -2518,14 +2569,120 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
                        for e in stages}}
 
 
+def fingerprint(m) -> int:
+    """An order-sensitive sum of every map array's bits, on its device: two
+    maps with equal fingerprints are, but for a collision, equal."""
+    total = 0
+    for t in m:
+        b = t.reshape(-1)
+        b = (b.view(torch.int32) if b.element_size() == 4 else b.view(torch.int64)
+             if b.element_size() == 8 else b.to(torch.int32)).long()
+        w = torch.arange(b.numel(), device=b.device) % 1000003 + 1
+        total = (total * 1000033 + int((b * w).sum())) % (1 << 61)
+    return total
+
+
+@contextlib.contextmanager
+def traced_steps(trace: dict):
+    """Record, on the CPU, the bootstrap insert's batch (trace["boot"])
+    and at each lidar_frame_step (trace["steps"]): the map's fingerprint
+    before it, the propagated state and pose table, the undistortion's
+    arguments (kept on their device), the downsampled points and mask,
+    the EKF iterations and the posterior state. Not for a timed run: every
+    step reads the device."""
+    from fastlivo_tpu_torch import pipeline as pipeline_mod
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    real_step, real_insert = pipeline_mod.lidar_frame_step, tm.insert
+    trace["steps"] = []
+
+    def insert(m, pts, valid, *a):
+        if "boot" not in trace:
+            trace["boot"] = (pts.cpu(), valid.cpu())
+        return real_insert(m, pts, valid, *a)
+
+    def step(*args, **kw):
+        st, m, pose = args[0], args[1], args[2]
+        rec = {"map": fingerprint(m), "state": (st.rot.cpu(), st.pos.cpu()),
+               "pose": to_cpu(pose),
+               "und_args": (st, pose, args[4], args[5], args[6], args[3])}
+        out = real_step(*args, **kw)
+        rec.update(down=out[2].cpu(), dmask=out[3].cpu(), iters=int(out[5]),
+                   post=(out[0].rot.cpu(), out[0].pos.cpu()))
+        trace["steps"].append(rec)
+        return out
+
+    with swapped(pipeline_mod, "lidar_frame_step", step), swapped(tm, "insert", insert):
+        yield
+
+
+def undistort_on_own_inputs(und_args) -> tuple:
+    """The undistortion on each card step's own inputs, the kernel against
+    the plain version on the CPU: (steps bit-equal, the first step that
+    differs or None, the largest difference in m)."""
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    same, first, err = 0, None, 0.0
+    for k, args in enumerate(und_args):
+        got = imu_mod.undistort(*args).cpu()
+        want = imu_mod.undistort_plain(*(to_cpu(x) for x in args))
+        if bits_diff(got, want) == 0.0:
+            same += 1
+        elif first is None:
+            first = k
+        err = max(err, float((got - want).abs().max()))
+    return same, first, err
+
+
+STAGES = ("map", "propagation", "undistortion", "downsampled points", "voxel set",
+          "EKF iterations", "posterior")
+
+
+def first_difference(card: dict, cpu: dict) -> dict:
+    """The first step and stage (STAGES, in the frame's order) at which the
+    card's trace and the CPU's differ, and the bootstrap batch's
+    difference: the map before the step (fingerprint), the propagated
+    state and pose table (bits), the undistorted scan (each device's own
+    kernel or plain version on its own inputs), the downsampled points
+    (bits), their voxel set (mask), the EKF iterations and the posterior
+    state (bits); and the first step at which each stage differs."""
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    boot = max(bits_diff(a, b) for a, b in zip(card["boot"], cpu["boot"]))
+    first = None
+    by_stage = dict.fromkeys(STAGES)  # the first step at which each stage differs
+    for k, (a, b) in enumerate(zip(card["steps"], cpu["steps"])):
+        und_a = imu_mod.undistort(*a["und_args"]).cpu()
+        und_b = imu_mod.undistort_plain(*b["und_args"])
+        diffs = {
+            "map": 0.0 if a["map"] == b["map"] else float("inf"),
+            "propagation": max([bits_diff(x, y) for x, y in zip(a["state"], b["state"])]
+                               + [bits_diff(x, y) for x, y in zip(a["pose"], b["pose"])]),
+            "undistortion": bits_diff(und_a, und_b),
+            "downsampled points": bits_diff(a["down"], b["down"]),
+            "voxel set": 0.0 if torch.equal(a["dmask"], b["dmask"]) else float("inf"),
+            "EKF iterations": float(abs(a["iters"] - b["iters"])),
+            "posterior": max(bits_diff(x, y) for x, y in zip(a["post"], b["post"]))}
+        for stage in STAGES:
+            if diffs[stage] != 0.0 and by_stage[stage] is None:
+                by_stage[stage] = k
+            if diffs[stage] != 0.0 and first is None:
+                first = {"step": k, "stage": stage, "difference": diffs[stage]}
+    return {**(first or {"step": None, "stage": None, "difference": 0.0}),
+            "first_step_by_stage": by_stage, "bootstrap_batch_difference": boot}
+
+
 def cpu_agreement(dev):
     """A small input through the port on the card and on the CPU (its
-    plain versions): every frame within 1 mm."""
+    plain versions): every frame within 1 mm. Prints, on a line of its
+    own, the first step and stage at which the two differ
+    (first_difference) and the undistortion on each card step's own
+    inputs against the CPU's plain version. Returns those numbers."""
     from fastlivo_tpu_torch.config import CapacityConfig, Config
     from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
     from fastlivo_tpu_torch.pipeline import Pipeline
 
-    res = []
+    res, traces = [], []
     for d in (dev, "cpu"):
         cfg = Config()
         cfg.img_enable = False
@@ -2538,15 +2695,34 @@ def cpu_agreement(dev):
             pipe.push_lidar(beg, pts, t_rel)
         for t, acc, gyr in ds.imu_stream():
             pipe.push_imu(t, acc, gyr)
-        res.append(pipe.spin())
+        trace = {}
+        with traced_steps(trace):
+            res.append(pipe.spin())
+        traces.append(trace)
     a, b = res
     if len(a) != len(b) or len(a) < 25:
         raise AssertionError(f"frames {len(a)} on {dev} vs {len(b)} on cpu")
     dmax = max(np.linalg.norm(x.pos - y.pos) for x, y in zip(a, b))
+    first = first_difference(*traces)
+    same, und_first, und_err = undistort_on_own_inputs(
+        [r["und_args"] for r in traces[0]["steps"]])
+    pos_d = [float(np.linalg.norm(x.pos - y.pos)) for x, y in zip(a, b)]
+    first_pos = next((k for k, e in enumerate(pos_d) if e > 0.0), None)
+    print(f"small input, {dev} vs cpu, first difference over {len(traces[0]['steps'])} frame "
+          f"steps: step {first['step']}, stage {first['stage']} ({first['difference']:.3g}; "
+          f"stages in order {', '.join(STAGES)}; each stage's first differing step "
+          f"{first['first_step_by_stage']}), the bootstrap batch "
+          f"{first['bootstrap_batch_difference']:.3g} apart; the undistortion on each card "
+          f"step's inputs, kernel against the CPU's plain version: bit-equal at {same} of "
+          f"{len(traces[0]['steps'])} steps (the first differing {und_first}), max difference "
+          f"{und_err:.3g} m; the first frame whose position differs {first_pos}")
     print(f"small input, {dev} vs cpu: {len(a)} frames, max position "
           f"difference {dmax * 1e3:.4f} mm")
     if not dmax < 1e-3:
         raise AssertionError(f"{dev} and cpu differ by {dmax:.2e} m")
+    return {"max_diff_to_cpu_mm": dmax * 1e3, "first_difference": first,
+            "undistort_bit_equal_steps": same, "undistort_first_differing_step": und_first,
+            "undistort_max_abs_diff_m": und_err, "first_frame_position_differs": first_pos}
 
 
 def imu_4khz_phase(dev, duration=3.0):
@@ -2599,15 +2775,7 @@ def imu_4khz_phase(dev, duration=3.0):
     # the undistortion alone, on each card step's own inputs: the kernel
     # against the plain version on the CPU (sinf / cosf their only
     # difference since the plain version's sums are the kernel's)
-    und_same, und_err, und_first = 0, 0.0, None
-    for k, args in enumerate(card_und):
-        got = imu_mod.undistort(*args).cpu()
-        want = imu_mod.undistort_plain(*(to_cpu(x) for x in args))
-        if bits_diff(got, want) == 0.0:
-            und_same += 1
-        elif und_first is None:
-            und_first = k
-        und_err = max(und_err, float((got - want).abs().max()))
+    und_same, und_first, und_err = undistort_on_own_inputs(card_und)
     d = max_diff(a, b)
     first = {"bits": None, "voxel_set": None, "iters": None}
     for k, ((da, ma, ia), (db, mb, ib)) in enumerate(zip(sa, sb)):
@@ -3866,7 +4034,7 @@ def partials_compare(a, rows, label) -> float:
     return e
 
 
-def livo_mesh_phase(dev, ds, ref, frames=24, duration=3.0):
+def livo_mesh_phase(dev, ds, ref, frames=16, duration=3.0):
     """(k) LIVO over a device mesh, on the first `frames` lidar frames of
     the LIVO dataset of livo_path_phase at shipped capacities (640x512,
     grid 40: G = 192 cells; a u8 pool of 256 images and 65536 x 20
@@ -4238,7 +4406,7 @@ def main() -> int:
           f"{smi}")
 
     with phase("card vs cpu"):
-        cpu_agreement(dev)
+        agreement = cpu_agreement(dev)
         livo_cpu_agreement(dev)
     with phase("(l) 4 kHz IMU"):
         l_ms, l_launches, l_nums = imu_4khz_phase(dev)
@@ -4298,6 +4466,7 @@ def main() -> int:
         "livo_checkpoint": dict(zip(ck_keys, livo_ckpt)),
         **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
         "hash_rebuild": {"ms": rebuild_ms, "occupancy": rebuild_occ},
+        "card_vs_cpu_small_lio": agreement,
         "profile": {"lio": dict(zip(("unfused", "fused"), lio_prof)),
                     "livo": dict(zip(("unfused", "fused"), livo_prof))},
         "hashed_search": hashed,
@@ -4305,6 +4474,9 @@ def main() -> int:
         "phase_seconds": seconds,
         "nvidia_smi": smi}))
 
+    for k, v in lf.get("map_stage_kernels", {}).items():  # the profiler's time a launch
+        if k in stages:
+            stages[k]["profiler_us_a_launch"] = v["device_us"]
     print(json.dumps({"kernels": [{
         "name": "knn5_plane_tiled", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/knn5_plane_tiled.cu",

@@ -23,24 +23,39 @@
 // each product rounds alone (-fmad=false), and the pose table and the
 // segment-end state are cast to f32 where undistort_plain casts them, so
 // the kernel gives undistort_plain's bits on the card (sinf, cosf, sqrtf
-// and the divisions are CUDA's accurate ones there). The frame's
-// constants (R_li^T R_e^T, R_li^T t_li) are formed by every thread from
-// the same inputs in the same order: 60 operations, cheaper than a second
-// launch or a block barrier.
+// and the divisions are CUDA's accurate ones there).
 //
 // Bound on an H100: 29 bytes a point (the point, its time and mask, the
 // result) and the pose table once; about 220 operations a point. At the
 // LIO scan's 32768 rows memory binds it (~0.3 us), far below a launch, so
-// the kernel is held by its launch and by each thread's chain: the binary
-// search's dependent loads, the pose row, sinf / cosf, then the products.
+// the kernel is held by its launch and by each thread's chain of steps.
 // chip_smoke.py counts the bound from its inputs.
+//
+// Design: one thread a point, 256 a block. Each block first stages the M
+// offsets in dynamic shared memory (coalesced loads, the table's own
+// dtype; M <= MAX_M) while warp 0 forms the frame's constants once
+// (R_li^T R_e^T and R_li^T t_li in undistort_plain's order, and the
+// calibration and the state's position cast to f32) and every
+// thread's point, time and mask are in flight; one barrier. The search
+// then runs in shared memory with torch's probes, so it finds the same row
+// whatever the offsets' order (padding, duplicates, NaN), and the pose
+// row's 21 values are loaded as one batch of independent loads before
+// the Exp and the products. With -DPHASE_STAMPS (phase_stamps.cuh) the
+// kernel stamps the staged table (1), the searched rows (2) and its end
+// (3).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "phase_stamps.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
+// the largest pose table: Pipeline.max_scan_poses = 8 (max_imu_per_group
+// + 1) at max_imu_per_group 512; 32.8 KB of f64 offsets, under the 48 KB
+// of dynamic shared memory a launch has without opting in
+constexpr int MAX_M = 4104;
 constexpr float T2_MIN = 1e-14f;    // float32(so3._SMALL ** 2)
 constexpr float T2_SMALL = 1e-12f;  // float32((10 so3._SMALL) ** 2)
 
@@ -70,82 +85,117 @@ __global__ void __launch_bounds__(THREADS) undistort_kernel(
     const float* __restrict__ lid_rot, const float* __restrict__ lid_off,
     const float* __restrict__ pts, const float* __restrict__ t_rel,
     const bool* __restrict__ pmask, float* __restrict__ out, int N) {
+  extern __shared__ double s_dyn[];  // the M offsets, as P
+  P* s_offs = reinterpret_cast<P*>(s_dyn);
+  __shared__ float s_ext[3][3], s_c[3], s_L[3][3], s_off[3], s_spos[3];
+  PHASE_STAMP_START();
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= N) return;
-  const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
-  if (!pmask[i]) {
+  const int M = pose.M;
+  const bool in = i < N;
+  float x = 0.0f, y = 0.0f, z = 0.0f, t = 0.0f;
+  bool act = false;
+  if (in) {  // in flight while the block stages the table
+    x = pts[3 * i];
+    y = pts[3 * i + 1];
+    z = pts[3 * i + 2];
+    t = t_rel[i];
+    act = pmask[i];
+  }
+  for (int r = threadIdx.x; r < M; r += THREADS) s_offs[r] = pose.offs[r * pose.s_offs];
+  if (threadIdx.x < 32) {
+    // the frame's constants: ext = R_li^T R_e^T (lanes 0-8), c = R_li^T
+    // t_li (9-11); the calibration (12-23) and the state's position in f32
+    // (24-26)
+    const int l = threadIdx.x;
+    if (l < 9) {
+      const int a = l / 3, b = l % 3;
+      s_ext[a][b] = (lid_rot[a] * (float)s_rot[3 * b] + lid_rot[3 + a] * (float)s_rot[3 * b + 1])
+                    + lid_rot[6 + a] * (float)s_rot[3 * b + 2];
+    } else if (l < 12) {
+      const int a = l - 9;
+      s_c[a] = (lid_rot[a] * lid_off[0] + lid_rot[3 + a] * lid_off[1]) + lid_rot[6 + a] * lid_off[2];
+    } else if (l < 21) {
+      s_L[(l - 12) / 3][(l - 12) % 3] = lid_rot[l - 12];
+    } else if (l < 24) {
+      s_off[l - 21] = lid_off[l - 21];
+    } else if (l < 27) {
+      s_spos[l - 24] = (float)s_pos[l - 24];
+    }
+  }
+  __syncthreads();
+  PHASE_STAMP(1);
+
+  // torch.searchsorted's lower bound on the staged offsets
+  int k = 0;
+  if (act) {
+    int lo = 0, hi = M;
+    while (lo < hi) {
+      const int mid = lo + ((hi - lo) >> 1);
+      if (!((float)s_offs[mid] >= t))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    k = lo - 1;
+    k = k < 0 ? 0 : (k > M - 1 ? M - 1 : k);
+  }
+  PHASE_STAMP(2);
+
+  if (act) {
+    const float dt = t - (float)s_offs[k];
+    // the pose row: 21 independent loads
+    float Rh[3][3], pk[3], vk[3], ak[3], gk[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) Rh[a][b] = (float)pose.rot[k * pose.s_rot + 3 * a + b];
+      pk[a] = (float)pose.pos[k * pose.s_pos + a];
+      vk[a] = (float)pose.vel[k * pose.s_vel + a];
+      ak[a] = (float)pose.acc[k * pose.s_acc + a];
+      gk[a] = (float)pose.gyr[k * pose.s_gyr + a];
+    }
+
+    // Exp(gyr_k dt)
+    float phi[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) phi[a] = gk[a] * dt;
+    const float t2 = (phi[0] * phi[0] + phi[1] * phi[1]) + phi[2] * phi[2];
+    const float th = sqrtf(t2 < T2_MIN ? T2_MIN : t2);  // a NaN stays NaN, as torch.clamp
+    const bool small = t2 < T2_SMALL;
+    const float ca = small ? 1.0f - t2 / 6.0f : sinf(th) / th;
+    const float cb = small ? 0.5f - t2 / 24.0f : (1.0f - cosf(th)) / (th * th);
+    const float K[3][3] = {{0.0f, -phi[2], phi[1]}, {phi[2], 0.0f, -phi[0]},
+                           {-phi[1], phi[0], 0.0f}};
+    float K2[3][3], E[3][3], Ri[3][3];
+    mat3(K, K, K2);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) E[a][b] = ((a == b ? 1.0f : 0.0f) + ca * K[a][b]) + cb * K2[a][b];
+    mat3(Rh, E, Ri);
+
+    float T[3], q[3], pw[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      T[a] = ((pk[a] + vk[a] * dt) + ((0.5f * ak[a]) * dt) * dt) - s_spos[a];
+      q[a] = ((s_L[a][0] * x + s_L[a][1] * y) + s_L[a][2] * z) + s_off[a];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) pw[a] = ((Ri[a][0] * q[0] + Ri[a][1] * q[1]) + Ri[a][2] * q[2]) + T[a];
+    float o[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      o[a] = ((s_ext[a][0] * pw[0] + s_ext[a][1] * pw[1]) + s_ext[a][2] * pw[2]) - s_c[a];
+    x = o[0];
+    y = o[1];
+    z = o[2];
+  }
+  if (in) {  // a point without pmask is copied
     out[3 * i] = x;
     out[3 * i + 1] = y;
     out[3 * i + 2] = z;
-    return;
   }
-  const float t = t_rel[i];
-  long long lo = 0, hi = pose.M;
-  while (lo < hi) {
-    const long long mid = lo + ((hi - lo) >> 1);
-    if (!((float)pose.offs[mid * pose.s_offs] >= t))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  long long k = lo - 1;
-  k = k < 0 ? 0 : (k > pose.M - 1 ? pose.M - 1 : k);
-  const float dt = t - (float)pose.offs[k * pose.s_offs];
-
-  // Exp(gyr_k dt)
-  float phi[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) phi[a] = (float)pose.gyr[k * pose.s_gyr + a] * dt;
-  const float t2 = (phi[0] * phi[0] + phi[1] * phi[1]) + phi[2] * phi[2];
-  const float th = sqrtf(t2 < T2_MIN ? T2_MIN : t2);  // a NaN stays NaN, as torch.clamp
-  const bool small = t2 < T2_SMALL;
-  const float ca = small ? 1.0f - t2 / 6.0f : sinf(th) / th;
-  const float cb = small ? 0.5f - t2 / 24.0f : (1.0f - cosf(th)) / (th * th);
-  const float K[3][3] = {{0.0f, -phi[2], phi[1]}, {phi[2], 0.0f, -phi[0]},
-                         {-phi[1], phi[0], 0.0f}};
-  float K2[3][3], E[3][3], Rh[3][3], Ri[3][3];
-  mat3(K, K, K2);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      E[a][b] = ((a == b ? 1.0f : 0.0f) + ca * K[a][b]) + cb * K2[a][b];
-      Rh[a][b] = (float)pose.rot[k * pose.s_rot + 3 * a + b];
-    }
-  mat3(Rh, E, Ri);
-
-  float L[3][3], off[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    off[a] = lid_off[a];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) L[a][b] = lid_rot[3 * a + b];
-  }
-  float T[3], q[3], pw[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float acc = (float)pose.acc[k * pose.s_acc + a];
-    T[a] = (((float)pose.pos[k * pose.s_pos + a] + (float)pose.vel[k * pose.s_vel + a] * dt)
-            + ((0.5f * acc) * dt) * dt) - (float)s_pos[a];
-    q[a] = ((L[a][0] * x + L[a][1] * y) + L[a][2] * z) + off[a];
-  }
-#pragma unroll
-  for (int a = 0; a < 3; ++a) pw[a] = ((Ri[a][0] * q[0] + Ri[a][1] * q[1]) + Ri[a][2] * q[2]) + T[a];
-  // the frame's constants: ext = R_li^T R_e^T, c = R_li^T t_li
-  float Re[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) Re[a][b] = (float)s_rot[3 * a + b];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float ext[3];
-#pragma unroll
-    for (int b = 0; b < 3; ++b)
-      ext[b] = (L[0][a] * Re[b][0] + L[1][a] * Re[b][1]) + L[2][a] * Re[b][2];
-    const float c = (L[0][a] * off[0] + L[1][a] * off[1]) + L[2][a] * off[2];
-    out[3 * i + a] = ((ext[0] * pw[0] + ext[1] * pw[1]) + ext[2] * pw[2]) - c;
-  }
+  PHASE_STAMP(3);
 }
 
 template <typename P>
@@ -156,7 +206,7 @@ int launch(const void* const* f, const long long* strides, int M, const void* s_
                static_cast<const P*>(f[2]), static_cast<const P*>(f[3]),
                static_cast<const P*>(f[4]), static_cast<const P*>(f[5]),
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5], M};
-  undistort_kernel<P><<<(N + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+  undistort_kernel<P><<<(N + THREADS - 1) / THREADS, THREADS, M * sizeof(P), stream>>>(
       pose, static_cast<const double*>(s_rot), static_cast<const double*>(s_pos),
       static_cast<const float*>(lid_rot), static_cast<const float*>(lid_off),
       static_cast<const float*>(pts), static_cast<const float*>(t_rel),
@@ -171,17 +221,20 @@ int launch(const void* const* f, const long long* strides, int M, const void* s_
 // rows `strides[j]` elements apart); s_rot (3, 3) and s_pos (3,) f64;
 // lid_rot (3, 3) and lid_off (3,) f32; pts (N, 3) f32, t_rel (N,) f32,
 // pmask (N,) bool; out (N, 3) f32. Returns the launch's cudaError_t (0 =
-// cudaSuccess); N = 0 launches nothing.
+// cudaSuccess; cudaErrorInvalidValue for M < 1 or M > MAX_M); N = 0
+// launches nothing.
 extern "C" int undistort_launch(const void* const* fields, const long long* strides, int M,
                                 int pose_f64, const void* s_rot, const void* s_pos,
                                 const void* lid_rot, const void* lid_off, const void* pts,
                                 const void* t_rel, const void* pmask, void* out, int N,
                                 void* stream) {
   if (N <= 0) return 0;
-  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || M > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return pose_f64 ? launch<double>(fields, strides, M, s_rot, s_pos, lid_rot, lid_off, pts,
                                    t_rel, pmask, out, N, s)
                   : launch<float>(fields, strides, M, s_rot, s_pos, lid_rot, lid_off, pts,
                                   t_rel, pmask, out, N, s);
 }
+
+PHASE_STAMPS_EXPORT(undistort)

@@ -41,8 +41,9 @@
 // rows after the tile that continue its last run. Then warp 0 finds the
 // tile's first segment number by decoupled look-back over the earlier
 // tiles' words (an aggregate or an inclusive prefix in each, 32 words a
-// step) and publishes its inclusive prefix; tiles are handed out in launch
-// order, so a look-back only waits on a tile that is already running.
+// step; lookback.cuh) and publishes its inclusive prefix; tiles are
+// handed out in launch order, so a look-back only waits on a tile that is
+// already running.
 // Meanwhile warps 1-7 sum the runs: a thread per run (per group of up to 4
 // columns where C > 4), its columns' chains side by side in registers,
 // each adding the staged rows in row order from +0.0. Not a warp or a
@@ -67,7 +68,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
+
+using lookback::FLAG_A;
+using lookback::FLAG_P;
+using lookback::VALUE;
+using lookback::store_status;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -80,9 +88,6 @@ constexpr int FILL_ROWS = 1024;                // output rows a fill block
 constexpr int CG = 4;                          // columns a thread sums side by side
 constexpr long long INVALID = 1LL << 62;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned FLAG_A = 1u << 30;          // status: the tile's own count
-constexpr unsigned FLAG_P = 2u << 30;          // status: the count up to its end
-constexpr unsigned VALUE = FLAG_A - 1u;
 
 // the tile's rows for C columns: the largest power of two <= MAX_TILE (at
 // least 32) whose rows and EXT more fit in the staging buffer
@@ -101,35 +106,6 @@ struct Args {
   unsigned* scratch;       // [ticket, blocks done, status of each tile], all 0
   int n, c, max_out, tile, ntiles, nfill;
 };
-
-__device__ __forceinline__ unsigned load_status(const unsigned* p) {
-  return *reinterpret_cast<const volatile unsigned*>(p);
-}
-
-__device__ __forceinline__ void store_status(unsigned* p, unsigned v) {
-  *reinterpret_cast<volatile unsigned*>(p) = v;
-}
-
-// The segments of tiles 0 .. t - 1 (a whole warp; every lane returns it):
-// lane l reads the status of tile base - l, waits while it is unpublished,
-// and the warp adds the aggregates down to the nearest inclusive prefix.
-__device__ int segments_before(const unsigned* status, int t) {
-  const int lane = threadIdx.x & 31;
-  int total = 0;
-  for (int base = t - 1; base >= 0; base -= 32) {
-    const int i = base - lane;
-    unsigned s = i >= 0 ? load_status(status + i) : FLAG_P;  // nothing before tile 0
-    while (__any_sync(FULL, s == 0u))
-      if (s == 0u) s = load_status(status + i);
-    const unsigned p = __ballot_sync(FULL, (s & FLAG_P) != 0u);
-    const int stop = p ? __ffs(p) - 1 : 31;
-    int v = lane <= stop ? static_cast<int>(s & VALUE) : 0;
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    total += v;
-    if (p) break;
-  }
-  return total;
-}
 
 // CC: the column count when fixed at compile time (3), else 0 (a.c)
 template <int CC>
@@ -241,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) voxel_centroids_kernel(Args a) {
           if (c0 + j < C) acc[j] = acc[j] + s_pts[r * C + c0 + j];
     };
     if (warp == 0) {
-      const int excl = tile ? segments_before(status, tile) : 0;
+      const int excl = tile ? lookback::count_before(status, tile) : 0;
       if (lane == 0) {
         s_excl = excl;
         if (tile) store_status(status + tile, FLAG_P | static_cast<unsigned>(excl + H));
@@ -312,7 +288,7 @@ __global__ void __launch_bounds__(THREADS) voxel_centroids_kernel(Args a) {
   } else {
     // a fill block: its share of the rows nseg .. max_out - 1
     if (warp == 0) {
-      const int nseg = segments_before(status, a.ntiles);
+      const int nseg = lookback::count_before(status, a.ntiles);
       if (lane == 0) s_nseg = nseg;
     }
     __syncthreads();

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .photometric import _require
+from .photometric import _require, _ticket
 from .voxel_map import (
     EMPTY_CHECK, _check31, _mix64_np, neighbor_offsets, topk_from_candidates,
     voxel_of,
@@ -288,14 +288,16 @@ def _insert_launchers():
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     keys, tiles, cells = (lib.tiled_insert_keys_launch, lib.tiled_insert_tiles_launch,
                           lib.tiled_insert_cells_launch)
+    size = lib.tiled_insert_tiles_scratch_ints
     keys.argtypes = [P] * 6 + [I, L, P]
-    tiles.argtypes = [P] * 12 + [I, L, I, I, P]
+    tiles.argtypes = [P] * 13 + [I, L, I, I, ctypes.POINTER(I), P]
     cells.argtypes = [P] * 11 + [I, L, I, P]
-    for fn in (keys, tiles, cells):
+    size.argtypes = [I]
+    for fn in (keys, tiles, cells, size):
         fn.restype = ctypes.c_int
     return (_build.profiled("tiled_insert_keys", keys),
             _build.profiled("tiled_insert_tiles", tiles),
-            _build.profiled("tiled_insert_cells", cells))
+            _build.profiled("tiled_insert_cells", cells), size)
 
 
 def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, order=None):
@@ -352,20 +354,32 @@ def insert_keys(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
 def insert_tiles(m: TiledMap, pts: torch.Tensor, rows: torch.Tensor, sg: torch.Tensor,
                  order: torch.Tensor):
     """`insert_tiles_plain`'s signature and outputs: on a CUDA map one
-    launch of tiled_insert_tiles (one block; counted in
-    `insert_tiles.launches`, also at B = 0), which also writes the head
-    flags into rows[4]; on a CPU map the plain version."""
+    ordinary launch of tiled_insert_tiles (2 ceil(B / 1024) blocks, 2 at
+    B = 0, in `insert_tiles.grid`; counted in `insert_tiles.launches`,
+    also at B = 0), which also writes the head flags into rows[4], with
+    no host read and no device query; its ticket, counts and status words
+    are the stream's scratch (`photometric._ticket`), left at 0. On a CPU
+    map the plain version. 2^30 rows or more raise."""
     if m.dir_check.device.type == "cpu":
         return insert_tiles_plain(m, pts, rows, sg, order)
     dev, B, D, T = _check_insert("insert_tiles", m, pts, rows=rows, sg=sg, order=order)
+    _, launch, _, size = _insert_launchers()
+    k = size(B)
+    if k < 0:
+        raise ValueError(f"insert_tiles: {B} rows (the kernel takes fewer than 2^30)")
     out = torch.empty(2, dtype=torch.int32, device=dev)
     n_alloc, n_dropped = out[0], out[1]
-    _raise_on("insert_tiles", _insert_launchers()[1](
+    stream = _stream(dev)
+    scratch = _ticket(dev, stream, k)  # left at 0 by every launch
+    grid = ctypes.c_int(0)
+    _raise_on("insert_tiles", launch(
         sg.data_ptr(), order.data_ptr(), rows.data_ptr(), pts.data_ptr(),
         m.voxel_size.data_ptr(), m.dir_check.data_ptr(), m.dir_slot.data_ptr(),
         m.slot_key.data_ptr(), m.n_alloc.data_ptr(), m.n_dropped.data_ptr(),
-        n_alloc.data_ptr(), n_dropped.data_ptr(), B, D, T, EMPTY_CHECK, _stream(dev)))
+        n_alloc.data_ptr(), n_dropped.data_ptr(), scratch.data_ptr(), B, D, T, EMPTY_CHECK,
+        ctypes.byref(grid), stream))
     insert_tiles.launches += 1
+    insert_tiles.grid = grid.value
     return n_alloc, n_dropped
 
 
@@ -388,6 +402,7 @@ def insert_cells(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor, rows: torc
 
 
 insert_keys.launches = insert_tiles.launches = insert_cells.launches = 0
+insert_tiles.grid = 0
 
 
 def candidate_cells(m: TiledMap, queries: torch.Tensor, radius: int = 1):

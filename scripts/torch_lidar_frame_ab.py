@@ -3,6 +3,7 @@ in turns on one card.
 
 Usage: python scripts/torch_lidar_frame_ab.py [--variant TREE ...] [--arm ARM ...]
            [--paths lio livo] [--rounds 3] [--duration 6] [--profile]
+           [--kernel-rounds N] [--stamps]
 
 A variant is a tree and an arm. Each tree holds `fastlivo_tpu_torch/` and
 its `chip_smoke.py` (the repository itself, ".", or a parent unpacked
@@ -41,6 +42,18 @@ ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
 frame or lidar + camera pair, the device-busy share of the window and the
 map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
 three passes, undistort): launches per frame and device us a launch.
+With --kernel-rounds N, each tree then times, N times in turns, its own
+wrappers on the LIO path's recorded calls (chip_smoke.time_ms, device
+time between CUDA events with the calls queued ahead of the device): the
+insert's tiles pass on the last batch re-inserted into the final map
+(every head aliased) and on the bootstrap batch into an empty map (every
+head fresh; a map of its own for each call), the last frame step's
+undistortion and the last scan's voxel centroid. With --stamps, a tree
+whose csrc/undistort.cu stamps its phases (csrc/phase_stamps.cuh) builds
+it again with -DPHASE_STAMPS and launches it alone, synchronised, 30
+times on that scan: the median of each phase (staging the offsets and
+the frame's constants, the search, the rest) and the whole launch; the
+%globaltimer ticks by 0.512 us on the H100.
 Prints one line per run, then one JSON line with every run and the card's
 `nvidia-smi` name and power limit.
 """
@@ -213,6 +226,137 @@ class Worker:
         return res
 
 
+    def record_lio(self):
+        """The LIO path's first and last insert, its last frame step and its
+        last voxel filter, each call's tensors copied on the card, and the
+        final map (once a worker)."""
+        if getattr(self, "recorded", None) is not None:
+            return self.recorded
+        torch, cs = self.torch, self.cs
+        from fastlivo_tpu_torch import pipeline as pipeline_mod
+        from fastlivo_tpu_torch.ops import tiled_map, voxel_filter
+
+        rec = {}
+        cp = lambda a: [v.clone() if isinstance(v, torch.Tensor) else v for v in a]  # noqa
+
+        def keep(name, real, first=False):
+            def call(*a, **kw):
+                if not (first and name in rec):
+                    rec[name] = cp(a)
+                return real(*a, **kw)
+            return call
+
+        pipe = self.pipeline("lio")
+        cs.push_all(pipe, self.data["lio"])
+        with contextlib.ExitStack() as stack:
+            for mod, attr, name, first in (
+                    (tiled_map, "insert", "first_insert", True),
+                    (tiled_map, "insert", "insert", False),
+                    (pipeline_mod, "lidar_frame_step", "step", False),
+                    (voxel_filter, "voxel_downsample_device", "filter", False)):
+                stack.enter_context(cs.swapped(mod, attr, keep(name, getattr(mod, attr), first)))
+            pipe.spin()
+        torch.cuda.synchronize()
+        rec["map"] = pipe.map
+        self.recorded = rec
+        return rec
+
+    def kernel_times(self):
+        """This tree's wrappers timed on the recorded calls (ms): the tiles
+        pass with every head aliased and with every head fresh, the
+        undistortion and the voxel centroid."""
+        torch, cs = self.torch, self.cs
+        import itertools
+
+        from fastlivo_tpu_torch import imu
+        from fastlivo_tpu_torch.ops import tiled_map as tm
+        from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+        rec = self.record_lio()
+        m = rec["map"]
+        clone = lambda mp: type(mp)(*(t.clone() for t in mp))  # noqa: E731
+        _, pts, valid = rec["insert"][:3]
+        mt = clone(m)
+        gkey, rows = tm.insert_keys_plain(mt, pts, valid)
+        sg, order = torch.sort(gkey, stable=True)
+        res = {"tiles_aliased": cs.time_ms(lambda: tm.insert_tiles(mt, pts, rows, sg, order))}
+        _, bpts, bvalid = rec["first_insert"][:3]
+        dims = [1 << int(x) for x in m.log2_dims.cpu()]
+        empty = tm.empty_tiled_map(dims, m.slot_key.shape[0], float(m.voxel_size),
+                                   device=self.dev)
+        bkey, brows = tm.insert_keys_plain(empty, bpts, bvalid)
+        bsg, border = torch.sort(bkey, stable=True)
+        maps = itertools.cycle([empty._replace(
+            dir_check=empty.dir_check.clone(), dir_slot=empty.dir_slot.clone(),
+            slot_key=empty.slot_key.clone()) for _ in range(66)])
+        res["tiles_fresh"] = cs.time_ms(
+            lambda: tm.insert_tiles(next(maps), bpts, brows, bsg, border))
+        args = self.undistort_args(rec)
+        res["undistort"] = cs.time_ms(lambda: imu.undistort(*args))
+        und, rmask, leaf, max_out = rec["filter"][:4]
+        keys, vorder = vf._sorted_keys(und, rmask, leaf, None)
+        res["voxel_centroids"] = cs.time_ms(lambda: vf.voxel_centroids(keys, vorder, und,
+                                                                        max_out))
+        del maps, empty, mt
+        torch.cuda.empty_cache()
+        return res
+
+    @staticmethod
+    def undistort_args(rec):
+        st, _m, pose, calib, pts_raw, t_rel, rmask = rec["step"][:7]
+        return st, pose, pts_raw, t_rel, rmask, calib
+
+    def stamps(self, tree: str, reps: int = 30):
+        """undistort.cu built with -DPHASE_STAMPS, launched alone `reps`
+        times on the recorded scan: {phase: median ms}; None where the
+        tree's kernel has no stamps."""
+        import ctypes
+
+        import numpy as np
+
+        torch = self.torch
+        from fastlivo_tpu_torch import imu
+        from fastlivo_tpu_torch.ops import _build
+
+        src = _build.CSRC / "undistort.cu"
+        if "PHASE_STAMPS_EXPORT(undistort)" not in src.read_text():
+            return None
+        out = _build.BUILD_DIR / "stamps" / "libundistort-stamped.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DPHASE_STAMPS", "-o",
+                              str(out), str(src)], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+        lib = ctypes.CDLL(str(out))
+        read = lib.undistort_stamps
+        read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        read.restype = ctypes.c_int
+        buf = (ctypes.c_ulonglong * 4)()
+        args = self.undistort_args(self.record_lio())
+        shipped = _build._loaded.get("undistort")
+        _build._loaded["undistort"] = lib
+        imu._undistort_launcher.cache_clear()
+        rows = []
+        try:
+            read(buf, 4)  # reset
+            for _ in range(reps + 1):
+                imu.undistort(*args)
+                torch.cuda.synchronize()
+                if read(buf, 4):
+                    raise RuntimeError("undistort: reading the stamps failed")
+                t = [int(x) for x in buf]
+                rows.append({"staged": (t[1] - t[0]) / 1e6, "searched": (t[2] - t[1]) / 1e6,
+                             "rest": (t[3] - t[2]) / 1e6, "total": (t[3] - t[0]) / 1e6})
+        finally:
+            if shipped is None:
+                _build._loaded.pop("undistort")
+            else:
+                _build._loaded["undistort"] = shipped
+            imu._undistort_launcher.cache_clear()
+        rows = rows[1:]  # the first launch warms up
+        return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
 def serve(tree: str, duration: float):
     """The worker's loop: one JSON command a line on stdin, one RESULT line
     an answer on stdout."""
@@ -220,8 +364,15 @@ def serve(tree: str, duration: float):
     print("RESULT " + json.dumps({"ready": True}), flush=True)
     for line in sys.stdin:
         cmd = json.loads(line)
-        fn = w.profile if cmd.get("profile") else w.run
-        print("RESULT " + json.dumps(fn(cmd["path"], cmd["arm"])), flush=True)
+        if cmd.get("kernels"):
+            out = w.kernel_times()
+        elif cmd.get("stamps"):
+            out = w.stamps(tree)
+        elif cmd.get("profile"):
+            out = w.profile(cmd["path"], cmd["arm"])
+        else:
+            out = w.run(cmd["path"], cmd["arm"])
+        print("RESULT " + json.dumps(out), flush=True)
 
 
 def ask(proc, tree, cmd=None):
@@ -255,6 +406,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--duration", type=float, default=6.0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--kernel-rounds", type=int, default=0)
+    ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
@@ -294,6 +447,17 @@ def main():
                       + "; kernels " + ", ".join(
                           f"{k} {v['per_frame']:.2f} a frame, {v['device_us']:.2f} us"
                           for k, v in res["map_stage_kernels"].items()), flush=True)
+        kernels = []
+        for r in range(args.kernel_rounds):
+            for tree in (trees if r % 2 == 0 else trees[::-1]):
+                res = ask(procs[tree], tree, {"kernels": True})
+                kernels.append({"tree": tree, "round": r, **res})
+                print(f"{tree} kernels (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()),
+                      flush=True)
+        stamps = {}
+        for tree in (trees if args.stamps else []):
+            stamps[tree] = ask(procs[tree], tree, {"stamps": True})
+            print(f"{tree} undistort phase stamps (ms, median of 30): {stamps[tree]}", flush=True)
     finally:
         for p in procs.values():
             with contextlib.suppress(OSError):
@@ -307,7 +471,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
-    print(json.dumps({"variants": variants, "runs": runs, "profiles": profiles, "card": smi}))
+    print(json.dumps({"variants": variants, "runs": runs, "profiles": profiles,
+                      "kernels": kernels, "stamps": stamps, "card": smi}))
 
 
 if __name__ == "__main__":

@@ -1725,8 +1725,9 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     insert's three passes on a compacted map at 16379 rows, each on the
     plain passes' inputs (the map arrays they write in place are their
     outputs, every byte equal to the plain pass's after the launch; the
-    tiles pass also writes the head flags in rows[4]); undistort at 16379
-    points."""
+    tiles pass also writes the head flags in rows[4], over 32 blocks, its
+    scratch (ticket, marked tiles, finished blocks, status words) back at
+    0); undistort at 16379 points."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -2722,15 +2723,26 @@ def insert_launches():
     return (tm.insert_keys.launches, tm.insert_tiles.launches, tm.insert_cells.launches)
 
 
+def tiles_scratch_clear(dev) -> bool:
+    """The stream's scratch (photometric._ticket), which the tiles pass
+    shares with the other ticketed kernels, all 0."""
+    from fastlivo_tpu_torch.ops import photometric
+
+    return not photometric._ticket(dev, torch.cuda.current_stream(dev).cuda_stream).any()
+
+
 @pytest.mark.parametrize("case", ["stream", "aliasing", "overflow", "head_not_ok", "compacted",
-                                  "empty", "one_row", "all_invalid"])
+                                  "empty", "one_row", "all_invalid", "straddle",
+                                  "overflow_mid_tile"])
 def test_tiled_insert_matches_plain(cuda, case):
     """insert on a card map (three launches around the sort; at B = 0 the
-    tiles pass alone) leaves every TiledMap field equal to insert_plain's
-    on the card and on the CPU after every batch of tests/
-    torch_frame_cases.py's streams: directory aliasing, pool overflow,
-    runs whose sorted head is not ok, a compacted map with stale slots,
-    B = 0 and 1, no valid row."""
+    tiles pass alone, over 2 blocks, else 2 ceil(B / 1024)) leaves every
+    TiledMap field equal to insert_plain's on the card and on the CPU
+    after every batch of tests/torch_frame_cases.py's streams: directory
+    aliasing, pool overflow (also in the middle of a tile), fresh heads on
+    both sides of a tile end, runs whose sorted head is not ok, a
+    compacted map with stale slots, B = 0 and 1, no valid row; the
+    stream's scratch back at 0 after every launch."""
     def step(mc, mh, p, v):
         want_card = tm.insert_plain(clone_map(mc), p.to(cuda), v.to(cuda))
         want_cpu = tm.insert_plain(mh, p, v)
@@ -2739,6 +2751,7 @@ def test_tiled_insert_matches_plain(cuda, case):
         torch.cuda.synchronize()
         B = p.shape[0]
         assert insert_launches() == (n0[0] + (B > 0), n0[1] + 1, n0[2] + (B > 0))
+        assert tm.insert_tiles.grid == 2 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
         for f, g, wc, wh in zip(got._fields, got, want_card, want_cpu):
             assert torch.equal(g, wc), f
             assert torch.equal(g.cpu(), wh), f
@@ -2800,6 +2813,47 @@ def test_tiled_insert_passes_match_plain_at_frame_size(cuda, pool):
             assert torch.equal(g.cpu(), w), f
 
 
+@pytest.mark.parametrize("into", ["built", "empty"])
+@pytest.mark.parametrize("B", [0, 1, 1023, 1025, 65536])
+def test_tiled_insert_tiles_at_row_counts(cuda, B, into):
+    """The tiles pass around tile ends (B = 1023, 1025: one tile and a
+    second of one row), alone at B = 0 and 1, and at 65536 rows (128
+    blocks), into a built map and into an empty one whose every tile head
+    is fresh and whose 64 slots overflow part way (rows past T): its
+    directory, slot keys, counts and flags equal the plain pass's, the
+    whole insert every field of insert_plain's on the card and on the
+    CPU, and the scratch is back at 0 after each launch."""
+    m = (stage_map(cuda, n=20000, pool=4096) if into == "built"
+         else tm.empty_tiled_map((64, 64, 16), 64, 0.5, device=cuda))
+    p, v = frame_insert_batch(cuda, n=B, seed=B)
+    mp, mk = clone_map(m), clone_map(m)
+    gkey, rows = tm.insert_keys_plain(mp, p, v)
+    sg, order = torch.sort(gkey, stable=True)
+    r2 = rows.clone()
+    want = tm.insert_tiles_plain(mp, p, rows, sg, order)
+    got = tm.insert_tiles(mk, p, r2, sg, order)
+    torch.cuda.synchronize()
+    assert tm.insert_tiles.grid == 2 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
+    for f in ("dir_check", "dir_slot", "slot_key"):
+        assert torch.equal(getattr(mk, f), getattr(mp, f)), f
+    assert [int(x) for x in got] == [int(x) for x in want]
+    heads = tm._head(sg >> 40) & ((sg >> 40) < m.dir_check.shape[0])
+    flags = torch.zeros(B, dtype=torch.int32, device=cuda)
+    flags[order[heads]] = torch.where(m.dir_check[rows[0][order[heads]]] != tm.EMPTY_CHECK, 1, 2
+                                      ).to(torch.int32)
+    assert torch.equal(r2[4], flags) and torch.equal(r2[:4], rows[:4])
+    if into == "empty" and B > 1000:
+        assert bool((flags != 1).all()) and int((flags == 2).sum()) > 64  # rows past T
+        assert int(got[0]) == 64
+    mc, mh = clone_map(m), type(m)(*(t.cpu() for t in m))
+    mc = tm.insert(mc, p, v)
+    mh = tm.insert_plain(mh, p.cpu(), v.cpu())
+    torch.cuda.synchronize()
+    for f, g, w in zip(mc._fields, mc, mh):
+        assert torch.equal(g.cpu(), w), f
+    assert tiles_scratch_clear(cuda)
+
+
 def undistort_args(dev, d, pose="f32"):
     """undistort's arguments from a torch_frame_cases dict on `dev`. pose:
     "f32" (contiguous), "f64" (contiguous) or "pack" (the f64 column views
@@ -2829,12 +2883,14 @@ def undistort_args(dev, d, pose="f32"):
 
 
 @pytest.mark.parametrize("pose", ["f32", "f64", "pack"])
-@pytest.mark.parametrize("case", ["scan", "small_angle", "offset_hits", "masked", "table_512"])
+@pytest.mark.parametrize("case", ["scan", "small_angle", "offset_hits", "masked", "table_512",
+                                  "table_2", "table_max"])
 def test_undistort_matches_plain(cuda, case, pose):
     """undistort on the card (one launch) gives undistort_plain's bits on
     the card, and within 1e-5 m of undistort_plain on the CPU (CUDA's
     sinf / cosf against the CPU's); with the pose table f32, f64, or the
-    f64 column views of a pose pack (rows 24 values apart)."""
+    f64 column views of a pose pack (rows 24 values apart), from 2 rows
+    to the largest table the kernel stages in shared memory."""
     from fastlivo_tpu_torch import imu as imu_mod
 
     d = frame_cases().undistort_case(case)
@@ -2849,6 +2905,33 @@ def test_undistort_matches_plain(cuda, case, pose):
     np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-5)
     pm = d["pmask"]
     assert bit_equal(got.cpu()[~torch.from_numpy(pm)], torch.from_numpy(d["pts"][~pm]))
+
+
+def test_undistort_refuses_tables_past_shared_memory(cuda):
+    """A pose table of more than UNDISTORT_MAX_M rows (the kernel's MAX_M)
+    raises in the wrapper, launches nothing, and the launcher itself
+    refuses it; UNDISTORT_MAX_M rows run."""
+    import ctypes
+
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    d = frame_cases().undistort_case("table_max")
+    st, table, pts, t_rel, pmask, calib = undistort_args(cuda, d)
+    big = imu_mod.PoseTable(*(torch.cat([f, f[-1:]]) for f in table))
+    n0 = imu_mod.undistort.launches
+    with pytest.raises(ValueError):
+        imu_mod.undistort(st, big, pts, t_rel, pmask, calib)
+    assert imu_mod.undistort.launches == n0
+    out = torch.empty_like(pts)
+    fields = (ctypes.c_void_p * 6)(*[f.data_ptr() for f in big])
+    strides = (ctypes.c_longlong * 6)(1, 9, 3, 3, 3, 3)
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    assert imu_mod._undistort_launcher()(
+        fields, strides, big.offs.shape[0], 0,
+        *ptr(st.rot, st.pos, calib.lid_rot, calib.lid_off, pts, t_rel, pmask, out),
+        pts.shape[0], torch.cuda.current_stream(cuda).cuda_stream) != 0
+    imu_mod.undistort(st, table, pts, t_rel, pmask, calib)
+    assert imu_mod.undistort.launches == n0 + 1
 
 
 def test_undistort_and_insert_refuse_bad_inputs(cuda):
@@ -2900,7 +2983,7 @@ def frame_kernel_write_only(dev, kernel):
     else:
         m = stage_map(dev, compacted=True)
         p, v = frame_insert_batch(dev, n=n)
-        keys, tiles, cells = tm._insert_launchers()
+        keys, tiles, cells, size = tm._insert_launchers()
         B, D, T = n, m.dir_check.shape[0], m.slot_key.shape[0]
         mp = clone_map(m)
         gkey, rows = tm.insert_keys_plain(mp, p, v)
@@ -2912,12 +2995,15 @@ def frame_kernel_write_only(dev, kernel):
             want = [gkey, rows]
         elif kernel == "tiled_insert_tiles":
             zero = torch.zeros((), dtype=torch.int32, device=dev)
+            scratch = torch.zeros(size(B), dtype=torch.int32, device=dev)
+            grid = ctypes.c_int(0)
             got = launch_guarded(
-                lambda s, o, x, vs, na, nd, r, dc, ds, sk, nao, ndo: tiles(
-                    *ptr(s, o, r, x, vs, dc, ds, sk, na, nd, nao, ndo), B, D, T, tm.EMPTY_CHECK,
-                    stream),
+                lambda s, o, x, vs, na, nd, r, dc, ds, sk, nao, ndo, sc: tiles(
+                    *ptr(s, o, r, x, vs, dc, ds, sk, na, nd, nao, ndo, sc), B, D, T,
+                    tm.EMPTY_CHECK, ctypes.byref(grid), stream),
                 [sg, order, p, m.voxel_size, m.n_alloc, m.n_dropped],
-                [rows, m.dir_check, m.dir_slot, m.slot_key, zero, zero])
+                [rows, m.dir_check, m.dir_slot, m.slot_key, zero, zero, scratch])
+            assert grid.value == 2 * 16 and not got.pop().any()  # the scratch back at 0
             n_alloc, n_dropped = tm.insert_tiles_plain(mp, p, rows, sg, order)
             got[0] = got[0][:4]
             want = [rows[:4], mp.dir_check, mp.dir_slot, mp.slot_key, n_alloc, n_dropped]

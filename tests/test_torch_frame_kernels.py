@@ -9,12 +9,20 @@ for bit (tests/test_torch_cuda.py). Here:
 
   - the kernels' passes written out in numpy as the kernels run them
     (keys a row at a time; tile heads flagged from the directory as it
-    was, then ranked by a block scan over the rows in chunks of the
-    block's threads; each cell run walked from its head to its first ok
-    row) give insert_plain's map bit for bit, batch by batch, on streams
-    with directory aliasing, pool overflow, runs whose sorted head is
-    not ok, a compacted map with stale slots, B = 0 and 1 and no valid
-    row; and each plain pass's outputs equal the model's;
+    was by blocks of sorted positions, then ranked by blocks of rows in
+    their original order, each prefix found by look-back over the
+    blocks' status words; each cell run walked from its head to its
+    first ok row) give insert_plain's map bit for bit, batch by batch, at
+    tiles of 1, 7, 32 and 1024 rows, on streams with directory aliasing,
+    pool overflow (also in the middle of a tile), fresh heads on both
+    sides of a tile end, runs whose sorted head is not ok, a compacted
+    map with stale slots, B = 0 and 1 and no valid row; and each plain
+    pass's outputs equal the model's;
+  - the undistortion's search in shared memory, with torch's probes,
+    finds torch.searchsorted's rows on sorted, padded, unsorted and
+    duplicate offsets and NaN times, at M = 1, 2, 520 and the largest
+    table the kernel stages, which is the pipeline's at 512 IMU pairs a
+    group;
   - insert_plain equals the JAX package's insert, field by field;
   - undistort_plain is within 1e-5 m of the JAX package's undistort
     (its sums run in another order: f32 roundings of points within 20 m
@@ -39,7 +47,8 @@ from fastlivo_tpu_torch import imu as timu
 from fastlivo_tpu_torch.ops import tiled_map as ttm
 from fastlivo_tpu_torch.ops.voxel_map import _mix64_np
 
-from torch_frame_cases import INSERT_CASES, UNDISTORT_CASES, VOX, insert_case, undistort_case
+from torch_frame_cases import (INSERT_CASES, UNDISTORT_CASES, UNDISTORT_MAX_M, VOX, insert_case,
+                               undistort_case)
 
 torch.set_num_threads(1)
 F32, EMPTY = np.float32, ttm.EMPTY_CHECK
@@ -71,36 +80,71 @@ def keys_model(m, p, valid):
     return gkey, rows
 
 
-def tiles_model(m, p, rows, sg, order, threads=1024):
-    """tiled_insert_tiles: the tile heads flag their rows (1 aliased, 2
-    fresh) from the directory before any write; then chunks of `threads`
-    rows in row order, a block scan ranking the fresh heads, each head
-    that does not overflow writing its entry and its slot's key. Writes
-    m in place; returns (n_alloc, n_dropped)."""
+FLAG_A, FLAG_P = 1 << 30, 2 << 30  # csrc/lookback.cuh's status words
+
+
+def count_before(status, t):
+    """lookback.cuh's count_before: the warp reads 32 status words a step
+    (lane l the word of tile base - l, tile -1 an inclusive 0) and adds
+    the values down to the nearest inclusive prefix."""
+    total = 0
+    for base in range(t - 1, -1, -32):
+        words = [status[base - l] if base - l >= 0 else FLAG_P for l in range(32)]
+        assert all(w != 0 for w in words)  # every earlier tile has published
+        stop = next((l for l, w in enumerate(words) if w & FLAG_P), None)
+        total += sum(w & (FLAG_A - 1) for w in words[:32 if stop is None else stop + 1])
+        if stop is not None:
+            break
+    return total
+
+
+def tiles_model(m, p, rows, sg, order, tile=1024, seed=0):
+    """tiled_insert_tiles as its blocks run: the marking blocks, one a
+    tile of `tile` sorted positions (here in a shuffled order), flag each
+    tile head's row (1 aliased, 2 fresh) from the directory before any
+    write; then the ranking blocks, one a tile of `tile` rows in their
+    original order: each counts its fresh heads and publishes the count
+    (an aggregate; tile 0 an inclusive prefix), and then, in a shuffled
+    order, finds its exclusive prefix by look-back over the status words,
+    publishes its inclusive prefix, and each of its heads that does not
+    overflow the pool writes its entry and its slot's key (a fresh head's
+    rank: n_alloc + prefix + its in-tile inclusive count - 1). Writes m
+    in place; returns (n_alloc, n_dropped)."""
     D, T = len(m["dir_check"]), len(m["slot_key"])
     vs = F32(m["voxel_size"])
     B = len(p)
+    nt = max(1, -(-B // tile))
+    rng = np.random.default_rng(seed)
     flag = rows[4]
-    for r in range(B):
-        sdir = sg[r] >> 40
-        if sdir < D and (r == 0 or (sg[r - 1] >> 40) != sdir):
-            row = order[r]
-            flag[row] = 1 if m["dir_check"][rows[0, row]] != EMPTY else 2
-    base, carry = int(m["n_alloc"]), 0
-    for c0 in range(0, B, threads):
-        f = flag[c0:c0 + threads]
-        incl = np.cumsum(f == 2)
-        for j in np.nonzero(f)[0]:
-            i, d = c0 + j, rows[0, c0 + j]
-            new_slot = base + carry + int(incl[j]) - 1
-            if f[j] == 2 and new_slot >= T:
+    for t in rng.permutation(nt):  # the marking blocks, in any order
+        for r in range(t * tile, min(B, (t + 1) * tile)):
+            sdir = sg[r] >> 40  # a valid row's directory index
+            if sdir < D and (r == 0 or (sg[r - 1] >> 40) != sdir):
+                flag[order[r]] = 1 if m["dir_check"][sdir] != EMPTY else 2
+    slot0 = m["dir_slot"].copy()  # what an aliased head reads (only it writes its entry)
+    counts = [int(np.sum(flag[j * tile:(j + 1) * tile] == 2)) for j in range(nt)]
+    status = [FLAG_P | counts[0]] + [FLAG_A | c for c in counts[1:]]
+    base, total = int(m["n_alloc"]), None
+    for j in [0, *(1 + rng.permutation(nt - 1))]:  # the look-backs, in any order
+        excl = count_before(status, j) if j else 0
+        status[j] = FLAG_P | (excl + counts[j])
+        if j == nt - 1:
+            total = excl + counts[j]
+        rank = excl
+        for i in range(j * tile, min(B, (j + 1) * tile)):
+            f, d = flag[i], rows[0, i]
+            if not f:
                 continue
-            slot_w = m["dir_slot"][d] if f[j] == 1 else new_slot
+            rank += f == 2
+            new_slot = base + rank - 1
+            if f == 2 and new_slot >= T:
+                continue
+            slot_w = slot0[d] if f == 1 else new_slot
             m["dir_check"][d] = rows[1, i]
             m["dir_slot"][d] = slot_w
-            m["slot_key"][slot_w] = np.floor(p[i] / vs).astype(np.int32) >> 3
-        carry += int(incl[-1]) if len(incl) else 0
-    return np.int32(min(base + carry, T)), np.int32(m["n_dropped"])
+            if 0 <= slot_w < T:
+                m["slot_key"][slot_w] = np.floor(p[i] / vs).astype(np.int32) >> 3
+    return np.int32(min(base + total, T)), np.int32(m["n_dropped"])
 
 
 def cells_model(m, p, valid, rows, sg, order, n_dropped):
@@ -130,13 +174,13 @@ def cells_model(m, p, valid, rows, sg, order, n_dropped):
     return np.int32(n_dropped + np.sum(valid & ~ok))
 
 
-def insert_model(m, p, valid, threads=1024):
+def insert_model(m, p, valid, tile=1024):
     """The three passes around the stable sort, on numpy copies of m."""
     m = {k: v.copy() for k, v in m.items()}
     gkey, rows = keys_model(m, p, valid)
     order = np.argsort(gkey, kind="stable")
     sg = gkey[order]
-    m["n_alloc"], n_dropped = tiles_model(m, p, rows, sg, order, threads)
+    m["n_alloc"], n_dropped = tiles_model(m, p, rows, sg, order, tile)
     m["n_dropped"] = cells_model(m, p, valid, rows, sg, order, n_dropped)
     return m
 
@@ -160,22 +204,23 @@ def replay(case, step_fn):
     return m
 
 
-@pytest.mark.parametrize("threads", [1024, 7])
+@pytest.mark.parametrize("tile", [1024, 7, 1, 32])
 @pytest.mark.parametrize("case", INSERT_CASES)
-def test_insert_passes_in_numpy_are_insert_plain(case, threads):
-    """The kernels' passes, written out in numpy (with the scan's chunk of
-    1024 rows, and of 7 so that small batches carry ranks across
-    chunks), give insert_plain's map bit for bit after every batch."""
+def test_insert_passes_in_numpy_are_insert_plain(case, tile):
+    """The kernels' passes, written out in numpy (the tiles pass with its
+    tiles of 1024 rows, and of 1, 7 and 32 so that small batches carry
+    ranks across tiles, through the look-back), give insert_plain's map
+    bit for bit after every batch."""
     def check(before, p, v, m):
-        want = insert_model(before, p, v, threads)
+        want = insert_model(before, p, v, tile)
         got = convert.tiled_map_to_arrays(m)
         for f in want:
             np.testing.assert_array_equal(got[f], want[f], err_msg=f)
 
     m = replay(case, check)
-    if case in ("overflow", "aliasing"):
+    if case in ("overflow", "aliasing", "overflow_mid_tile"):
         assert int(m.n_dropped) > 0
-    if case == "overflow":
+    if case in ("overflow", "overflow_mid_tile"):
         assert int(m.n_alloc) == m.slot_key.shape[0]
 
 
@@ -233,7 +278,113 @@ def test_insert_plain_matches_jax(case):
             np.testing.assert_array_equal(got[f], np.array(w), err_msg=f)
 
 
+def test_new_insert_cases_cover_tile_ends():
+    """The straddle case's second batch has fresh heads on both sides of
+    the 1024-row tile ends and aliased heads in the same tiles; the
+    overflow_mid_tile case's pool overflows at a fresh head in the middle
+    of its second tile."""
+    for case in ("straddle", "overflow_mid_tile"):
+        heads = []
+
+        def check(before, p, v, m):
+            mk = {k: x.copy() for k, x in before.items()}
+            gk, rk = keys_model(mk, p, v)
+            order = np.argsort(gk, kind="stable")
+            tiles_model(mk, p, rk, gk[order], order)
+            heads.append((rk[4].copy(), int(before["n_alloc"]), len(before["slot_key"])))
+
+        replay(case, check)
+        flag, n_alloc, T = heads[-1]
+        fresh = np.nonzero(flag == 2)[0]
+        if case == "straddle":
+            assert {1020, 1027, 2044, 2051} <= set(fresh.tolist())
+            assert (flag[:1024] == 1).any() and (flag[1024:2048] == 1).any()
+        else:
+            first_over = fresh[T - n_alloc]  # the first fresh head past the pool
+            assert 1024 < first_over < 2048 and first_over % 1024 > 32
+
+
 # --- the undistortion -------------------------------------------------------
+
+def search_model(offs, t):
+    """csrc/undistort.cu's search over the staged offsets, a point at a
+    time: torch's lower bound (mid = lo + ((hi - lo) >> 1), go right
+    while !(offs[mid] >= t))."""
+    out = np.empty(len(t), np.int64)
+    for i, ti in enumerate(t):
+        lo, hi = 0, len(offs)
+        while lo < hi:
+            mid = lo + ((hi - lo) >> 1)
+            if not (offs[mid] >= ti):
+                lo = mid + 1
+            else:
+                hi = mid
+        out[i] = lo
+    return out
+
+
+@pytest.mark.parametrize("kind", ["padded", "unsorted", "duplicates", "nan_times"])
+@pytest.mark.parametrize("M", [1, 2, 520, UNDISTORT_MAX_M])
+def test_shared_memory_search_takes_torchs_probes(M, kind):
+    """The kernel's search finds torch.searchsorted's (left) row on any
+    table: the plain version's oracle, whatever the offsets' order."""
+    rng = np.random.default_rng(M + len(kind))
+    n_live = max(1, (3 * M) // 4)
+    offs = np.full(M, np.float32(1e30), np.float32)  # BIG_T padding
+    offs[:n_live] = np.sort(rng.uniform(-0.004, 0.1, n_live)).astype(np.float32)
+    if kind == "unsorted":
+        offs = rng.permutation(offs)
+    if kind == "duplicates":
+        offs[:n_live] = np.repeat(offs[:n_live:3], 3)[:n_live]
+    t = np.concatenate([rng.uniform(-0.01, 0.12, 600), offs[:50],
+                        [np.float32(1e30), np.inf, -np.inf]]).astype(np.float32)
+    if kind == "nan_times":
+        t[::7] = np.nan
+    want = torch.searchsorted(torch.from_numpy(offs), torch.from_numpy(t), right=False)
+    np.testing.assert_array_equal(search_model(offs, t), want.numpy())
+
+
+def test_undistort_table_limit_is_the_pipelines():
+    """The kernel's MAX_M (csrc/undistort.cu) is imu.UNDISTORT_MAX_M, the
+    pipeline's merged table at max_imu_per_group 512, and the shipped
+    configuration's table fits."""
+    from fastlivo_tpu_torch.config import CapacityConfig, Config
+    from fastlivo_tpu_torch.ops import _build
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    src = (_build.CSRC / "undistort.cu").read_text()
+    assert f"constexpr int MAX_M = {timu.UNDISTORT_MAX_M};" in src
+    assert timu.UNDISTORT_MAX_M == UNDISTORT_MAX_M
+    sizes = {}
+    for per_group in (Config().capacity.max_imu_per_group, 512):
+        cfg = Config()
+        cfg.img_enable = False
+        cfg.capacity = CapacityConfig(max_points=256, max_raw_points=512,
+                                      tiled_dir_dims=(4, 4, 4), tiled_pool=8,
+                                      max_imu_per_group=per_group)
+        sizes[per_group] = Pipeline(cfg, device="cpu").max_scan_poses
+    assert sizes[512] == timu.UNDISTORT_MAX_M and sizes[64] == 520
+
+
+def test_lookback_header_serves_both_kernels(tmp_path, monkeypatch):
+    """csrc/lookback.cuh is included by voxel_centroids.cu and
+    tiled_insert.cu, and an edit of it changes both libraries' tags (so
+    both rebuild), not the others'."""
+    import shutil
+
+    from fastlivo_tpu_torch.ops import _build
+
+    users = sorted(n for n in _build.SOURCES
+                   if '#include "lookback.cuh"' in (_build.CSRC / f"{n}.cu").read_text())
+    assert users == ["tiled_insert", "voxel_centroids"]
+    before = {n: _build.library_path(n).name for n in _build.SOURCES}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    (csrc / "lookback.cuh").write_text((csrc / "lookback.cuh").read_text() + "\n// edit\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    after = {n: _build.library_path(n).name for n in _build.SOURCES}
+    assert sorted(n for n in before if before[n] != after[n]) == users
+
 
 def undistort_inputs(d, pose_dtype=np.float32):
     """(JAX args, port args on the CPU) of undistort_case's dict."""

@@ -12,8 +12,10 @@ import numpy as np
 VOX = 0.5
 BIG_T = 1e30
 INSERT_CASES = ["stream", "aliasing", "overflow", "head_not_ok", "compacted", "empty",
-                "one_row", "all_invalid"]
-UNDISTORT_CASES = ["scan", "small_angle", "offset_hits", "masked", "table_512"]
+                "one_row", "all_invalid", "straddle", "overflow_mid_tile"]
+UNDISTORT_CASES = ["scan", "small_angle", "offset_hits", "masked", "table_512", "table_2",
+                   "table_max"]
+UNDISTORT_MAX_M = 4104  # imu.UNDISTORT_MAX_M: 8 (512 + 1) rows
 
 
 def stream(seed, n_batches=4, n=1500, span=30.0):
@@ -46,6 +48,37 @@ def head_not_ok_batch(rng, first_loser: bool):
     return np.concatenate([special, p]), np.concatenate([np.ones(4, bool), v])
 
 
+def tile_grid_batch(rng, tiles, n):
+    """n rows in the given tiles ((k, 3) int tile coordinates of 4 m cubes
+    at VOX = 0.5), row i in tiles[i % k], inside the tile by 0.1 m."""
+    t = np.asarray(tiles, np.float64)[np.arange(n) % len(tiles)]
+    return (t * 8 * VOX + rng.uniform(0.1, 8 * VOX - 0.1, (n, 3))).astype(np.float32)
+
+
+def straddle_batches(rng):
+    """Fresh tile heads on both sides of the 1024-row tile ends: a batch
+    that fills 5 tiles, then 3000 rows in those 5 (aliased heads) with
+    single rows of new tiles at rows 1020-1027 and 2044-2051."""
+    old = [(i, 1, 1) for i in range(5)]
+    first = tile_grid_batch(rng, old, 600)
+    p = tile_grid_batch(rng, old, 3000)
+    fresh = list(range(1020, 1028)) + list(range(2044, 2052))
+    p[fresh] = tile_grid_batch(rng, [(i % 8, 3 + i // 8, 2) for i in range(len(fresh))],
+                               len(fresh))
+    return [("insert", first, np.ones(600, bool)), ("insert", p, np.ones(3000, bool))]
+
+
+def overflow_mid_tile_batch(rng):
+    """3000 rows over 100 new tiles of a 10 x 10 grid, 30 consecutive rows
+    a tile: the fresh heads come every ~30 rows, so a 40-slot pool
+    overflows at the 41st, in the middle of the second 1024-row tile."""
+    tiles = [(i % 10, i // 10, 0) for i in range(100)]
+    n = 3000
+    t = np.asarray(tiles, np.float64)[np.arange(n) // 30]
+    p = (t * 8 * VOX + rng.uniform(0.1, 8 * VOX - 0.1, (n, 3))).astype(np.float32)
+    return [("insert", p, rng.random(n) > 0.02)]
+
+
 def insert_case(case):
     rng = np.random.default_rng(len(case))
     dims, pool = (32, 32, 16), 1024
@@ -71,6 +104,10 @@ def insert_case(case):
         b = stream(7, n_batches=2)
         return dims, pool, ins([(b[0][0][:1], np.ones(1, bool)), b[1],
                                 (b[0][0][1:2], np.ones(1, bool))])
+    if case == "straddle":
+        return dims, pool, straddle_batches(rng)
+    if case == "overflow_mid_tile":
+        return dims, 40, overflow_mid_tile_batch(rng)
     if case == "all_invalid":
         b = stream(8, n_batches=2)
         return dims, pool, ins([(b[0][0], np.zeros(len(b[0][1]), bool)), b[1],
@@ -97,11 +134,15 @@ def undistort_case(case, seed=0):
     M, n_pairs, N, gyr_scale = 64, 40, 4000, 0.4
     if case == "table_512":  # a 4 kHz IMU: 512 pairs a scan
         M, n_pairs, N = 512, 400, 8000
+    if case == "table_2":  # the smallest table with a search: row 0 twice
+        M, n_pairs = 2, 2
+    if case == "table_max":  # the largest table the kernel stages
+        M, n_pairs, N = UNDISTORT_MAX_M, 4000, 8000
     if case == "small_angle":  # every row in the Taylor branch (t^2 < 1e-12)
         gyr_scale = 1e-7
     row0 = np.float32(-0.004)
     offs = np.full(M, BIG_T, np.float32)
-    lead = 3  # leading skipped pairs alias row 0's offset
+    lead = min(3, n_pairs - 1)  # leading skipped pairs alias row 0's offset
     offs[:lead + 1] = row0
     offs[lead + 1:n_pairs] = np.sort(rng.uniform(0.0, 0.1, n_pairs - lead - 1)).astype(np.float32)
     gyr = rng.normal(0, gyr_scale, (M, 3))
