@@ -905,7 +905,7 @@ def counted_wrappers():
             imu_scan.imu_propagate, lio_cascade.lio_cascade, vio_select.vio_select,
             vio_observations.vio_observations, tiled_map.delete_boxes,
             voxel_filter.voxel_centroids, tiled_map.insert_keys, tiled_map.insert_tiles,
-            tiled_map.insert_cells, imu.undistort)
+            imu.undistort)
 
 
 def reset_counts():
@@ -1399,56 +1399,69 @@ def centroid_bound_ms(keys, pts, max_out: int):
 INSERT_KEY_OPS = 70  # a row: 3 divisions, floors, casts; tile, cell, directory bits; the
 # hash (3 multiplies, 3 finalizers of 7); the centre and distance; the key
 INSERT_ROW_OPS = 6  # a sorted row's head test and its share of the scan
-INSERT_HEAD_OPS = 20  # a tile head: flag, rank, overflow test, its point's tile key
-CELL_ROW_OPS = 8  # a sorted row: ok test, head test, dropped count
+INSERT_HEAD_OPS = 20  # a tile winner: flag, rank, overflow test, its point's tile key
+INSERT_WALK_OPS = 2  # a row of a directory group's first cell run: key test, distance test
+CELL_ROW_OPS = 8  # a sorted row: head test, ok test, distance test, dropped count
 CELL_WINNER_OPS = 30  # a run's winner: its slot, cell, centre and the stored distance
 
 
 def insert_work(m, pts, valid):
     """The counts one insert of pts into m needs, from the plain passes on
-    a copy: {"rows", "heads" (tile heads), "written" (heads that do not
-    overflow the pool), "winners" (cell runs with an ok row), "cells"
-    (cells whose check or point changed)}."""
+    a copy: {"rows", "heads" (directory groups: tile winners), "walked"
+    (rows of the groups' first cell runs, which the marking walks),
+    "written" (winners that do not overflow the pool), "runs" ((dir_idx,
+    cell) runs), "winners" (runs with an ok row), "cells" (cells whose
+    check or point changed)}."""
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
     mp = clone_map(m)
-    D, T = m.dir_check.shape[0], m.slot_key.shape[0]
+    T = m.slot_key.shape[0]
     gkey, rows = tm.insert_keys_plain(mp, pts, valid)
     sg, order = torch.sort(gkey, stable=True)
-    sdir = sg >> 40
-    heads = tm._head(sdir) & (sdir < D)
+    sval = sg < 0
+    sdir = (sg.to(torch.int64) + tm.KEY_BIAS) >> 9
+    heads = tm._head(sdir) & sval
+    run, start = tm._runs(sg)
     fresh = int((mp.dir_check[sdir[heads]] == tm.EMPTY_CHECK).sum())
     overflow = max(0, int(mp.n_alloc) + fresh - T)
     _, n_dropped = tm.insert_tiles_plain(mp, pts, rows, sg, order)
     ok = valid & (mp.dir_check[rows[0]] == rows[1])
-    scell = (sg >> 31)[ok[order]]
     cc, cp = mp.cell_check.clone(), mp.pts.clone()
     tm.insert_cells_plain(mp, pts, valid, rows, sg, order, n_dropped)
     changed = (mp.cell_check != cc) | (mp.pts != cp).any(dim=1)
     return {"rows": int(pts.shape[0]), "heads": int(heads.sum()),
-            "written": int(heads.sum()) - overflow,
-            "winners": int(torch.unique_consecutive(scell).numel()),
+            "walked": int((heads[start] & sval).sum()),
+            "written": int(heads.sum()) - overflow, "runs": int((tm._head(sg) & sval).sum()),
+            "winners": int(torch.unique(run[ok[order]]).numel()),
             "cells": int(changed.sum())}
 
 
 def insert_bounds(work):
-    """{pass: (bound ms, "bytes" | "operations", bytes, ops)} of the insert's
-    three passes for `insert_work`'s counts. Keys: each row's point and
-    mask read (13 B), its key and five row values written (28 B). Tiles:
-    the sorted key and order (16 B) and the flag (4 B) a row; a head's
-    directory index, check and entry (12 B); a written head's point and
-    slot read (16 B), its entry and slot key written (20 B). Cells: a
-    sorted row's key, order, mask, directory index, check and entry (29
-    B); a winner's slot, cell, distance, point, stored point and check (40
-    B); a written cell's check and point (16 B)."""
-    B, W, Wd, H, Wc = (work[k] for k in ("rows", "heads", "written", "winners", "cells"))
+    """{kernel: (bound ms, "bytes" | "operations", bytes, ops)} of the
+    insert's two launches for `insert_work`'s counts, and of the cells
+    pass inside the second. tiled_insert_keys: each row's point and mask
+    read (13 B), its 32-bit key and five row values written (24 B).
+    tiled_insert_tiles, both passes: a sorted position's key and order
+    (12 B) and its row's directory index, check, distance bits and point
+    (24 B) read once; a directory group's entry and slot read (8 B) and
+    its winner's flag written (4 B); a written winner's entry and slot key
+    written (20 B); a run winner's stored cell and check read (16 B); a
+    written cell's check and point (16 B). tiled_insert_cells alone: a
+    sorted position's key, order, check, distance bits and point (32 B),
+    a run's directory entry (8 B), its winner's stored cell (16 B), a
+    written cell (16 B). Operations: ~70 a row for the keys; a head test
+    and scan share a row, 2 a walked row and 20 a winner for the tiles
+    pass; 8 a row and 30 a run winner for the cells pass."""
+    B, W, Wk, Wd, R, H, Wc = (work[k] for k in (
+        "rows", "heads", "walked", "written", "runs", "winners", "cells"))
+    tiles_ops = INSERT_ROW_OPS * B + INSERT_WALK_OPS * Wk + INSERT_HEAD_OPS * W
+    cells_ops = CELL_ROW_OPS * B + CELL_WINNER_OPS * H
     out = {}
     for name, byts, ops in (
-            ("tiled_insert_keys", 41 * B + 16, INSERT_KEY_OPS * B),
-            ("tiled_insert_tiles", 20 * B + 12 * W + 36 * Wd + 16,
-             INSERT_ROW_OPS * B + INSERT_HEAD_OPS * W),
-            ("tiled_insert_cells", 29 * B + 40 * H + 16 * Wc + 8,
-             CELL_ROW_OPS * B + CELL_WINNER_OPS * H)):
+            ("tiled_insert_keys", 37 * B + 16, INSERT_KEY_OPS * B),
+            ("tiled_insert_tiles", 36 * B + 12 * W + 20 * Wd + 16 * H + 16 * Wc + 16,
+             tiles_ops + cells_ops),
+            ("tiled_insert_cells", 32 * B + 8 * R + 16 * H + 16 * Wc + 4, cells_ops)):
         t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations", byts, ops)
     return out
@@ -1484,19 +1497,25 @@ def to_cpu(x):
 def frame_kernels_phase(lio_map, maps, rec, smi):
     """The LIO frame's insert and undistortion kernels against their plain
     versions (these launches are not the paths'; map_stages_phase restores
-    the counts). tiled_insert_*: the LIO path's last insert batch into a
-    copy of its final map, into the compacted map (stale slots), into an
-    empty map of the shipped capacity (every tile fresh) and into one of
-    half as many slots as the batch has tiles (the pool overflows): every
-    TiledMap field equal to
-    insert_plain's on the card and on the CPU; each pass's outputs equal
-    to its plain pass's on the path map. Timed on the path map, the batch
-    inserted again at every call (its tiles live, few cells nearer),
-    beside the plain passes, the whole insert beside insert_plain and the
-    sort alone. undistort: the path's last frame step's scan and pose
-    table (f32) and that table in f64: bit-equal to undistort_plain on the
-    card, within 1e-5 m of it on the CPU. Timed beside the plain version.
-    No library call computes either. Returns {kernel: numbers}."""
+    the counts). The insert: the LIO path's last insert batch into a copy
+    of its final map, into the compacted map (stale slots), into an empty
+    map of the shipped capacity (every tile fresh) and into one of half as
+    many slots as the batch has tiles (the pool overflows): every TiledMap
+    field equal to insert_plain's on the card and on the CPU; on the path
+    map tiled_insert_keys' int32 keys and rows equal to the plain pass's,
+    and the second launch (tiled_insert_tiles, whose blocks also run the
+    cells pass, tiled_insert_cells) the plain tiles and cells passes'
+    directory, slot keys, cells and counts. Timed on the path map, the
+    batch inserted again at every call (its tiles live, few cells
+    nearer), beside the plain passes (the cells pass's row: the same
+    launch, beside insert_cells_plain), the second launch also on the
+    bootstrap batch into empty maps (every winner fresh), the whole insert
+    beside insert_plain, and the stable sort of the batch's keys at 64
+    bits (the JAX package's dir_idx << 40 | cell << 31 | distance bits)
+    and at 32, in turns. undistort: the path's last frame step's scan and
+    pose table (f32) and that table in f64: bit-equal to undistort_plain on
+    the card, within 1e-5 m of it on the CPU. Timed beside the plain
+    version. No library call computes either. Returns {kernel: numbers}."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
@@ -1505,9 +1524,9 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
     dims = [1 << int(x) for x in lio_map.log2_dims.cpu()]
     T = lio_map.slot_key.shape[0]
     vs = float(lio_map.voxel_size)
-    D = lio_map.dir_check.shape[0]
-    sdir = torch.sort(tm.insert_keys_plain(lio_map, pts, valid)[0])[0] >> 40
-    tiles = int(torch.unique_consecutive(sdir[sdir < D]).numel())  # the batch's tiles
+    sg = torch.sort(tm.insert_keys_plain(lio_map, pts, valid)[0])[0]
+    sdir = (sg[sg < 0].to(torch.int64) + tm.KEY_BIAS) >> 9
+    tiles = int(torch.unique_consecutive(sdir).numel())  # the batch's tiles
     small = f"{max(tiles // 2, 1)} slots"
     cases = {"path map": lio_map, "compacted": maps["compacted"],
              "empty": tm.empty_tiled_map(dims, T, vs, device=dev),
@@ -1527,98 +1546,113 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
         del want, cpu, got
     if not checked[small]["n_dropped"] > 0:
         raise AssertionError(f"tiled_insert: no row dropped in {small} {checked}")
-    # each pass against its plain pass, on the path map
+    # each launch against its plain passes, on the path map
     mp, mk = clone_map(lio_map), clone_map(lio_map)
     gkey, rows = tm.insert_keys_plain(mp, pts, valid)
     g2, r2 = tm.insert_keys(mk, pts, valid)
     sg, order = torch.sort(gkey, stable=True)
-    pc = tm.insert_tiles_plain(mp, pts, rows, sg, order)
-    kc = tm.insert_tiles(mk, pts, r2, sg, order)
-    tm.insert_cells_plain(mp, pts, valid, rows, sg, order, pc[1])
-    tm.insert_cells(mk, pts, valid, r2, sg, order, kc[1])
+    pc = tm.insert_sorted_plain(mp, pts, valid, rows, sg, order)
+    kc = tm.insert_tiles(mk, pts, valid, r2, sg, order)
     torch.cuda.synchronize()
-    passes = (torch.equal(g2, gkey) and torch.equal(r2[:4], rows[:4])
+    passes = (g2.dtype == torch.int32 and torch.equal(g2, gkey)
+              and torch.equal(r2[:4], rows[:4])
               and all(torch.equal(a, b) for a, b in zip(kc, pc))
               and all(torch.equal(a, b) for a, b in zip(mk, mp)))
     if not passes:
-        raise AssertionError("tiled_insert: a pass differs from its plain pass on the path map")
-    print(f"tiled_insert (keys, tiles, cells around the sort) on the LIO path's last batch "
-          f"({pts.shape[0]} rows, {int(valid.sum())} valid): every field equal to insert_plain "
-          f"on the card and on the CPU, into {checked}; each pass equal to its plain pass")
+        raise AssertionError("tiled_insert: a launch differs from its plain passes on the "
+                             "path map")
+    print(f"tiled_insert (keys; the sort of 32-bit keys; tiles and cells in one launch) on the "
+          f"LIO path's last batch ({pts.shape[0]} rows, {int(valid.sum())} valid): every field "
+          f"equal to insert_plain on the card and on the CPU, into {checked}; each launch equal "
+          f"to its plain passes")
 
     work = insert_work(lio_map, pts, valid)
     bounds = insert_bounds(work)
     mt, mq = clone_map(lio_map), clone_map(lio_map)
     rows_k = tm.insert_keys(mt, pts, valid)[1]
     n_d = torch.zeros((), dtype=torch.int32, device=dev)
+    second = time_ms(lambda: tm.insert_tiles(mt, pts, valid, rows_k, sg, order))
     timed = {
         "tiled_insert_keys": (lambda: tm.insert_keys(mt, pts, valid),
                               lambda: tm.insert_keys_plain(mq, pts, valid)),
-        "tiled_insert_tiles": (lambda: tm.insert_tiles(mt, pts, rows_k, sg, order),
-                               lambda: tm.insert_tiles_plain(mq, pts, rows, sg, order)),
-        "tiled_insert_cells": (lambda: tm.insert_cells(mt, pts, valid, rows_k, sg, order, n_d),
-                               lambda: tm.insert_cells_plain(mq, pts, valid, rows, sg, order,
-                                                             n_d)),
+        "tiled_insert_tiles": (
+            None, lambda: tm.insert_sorted_plain(mq, pts, valid, rows, sg, order)),
+        "tiled_insert_cells": (
+            None, lambda: tm.insert_cells_plain(mq, pts, valid, rows, sg, order, n_d)),
     }
     res = {}
     for name, (kern, plain) in timed.items():
-        ms = time_ms(kern)
+        ms = time_ms(kern) if kern is not None else second
         plain_ms = event_ms(plain, reps=30)
         b, by, byts, ops = bounds[name]
         res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "bytes": byts, "ops": ops, "library_ms": None, "max_abs_err": 0.0,
                      **work}
-        print(f"{name} on the LIO path's last batch, re-inserted into its map ({work}): "
+        what = ("the cells pass inside tiled_insert_tiles' launch (the launch's time)"
+                if name == "tiled_insert_cells" else name)
+        print(f"{what} on the LIO path's last batch, re-inserted into its map ({work}): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by}: {byts} "
               f"bytes, {ops} operations), library none; {smi}")
-    # the tiles pass where every head is fresh: the bootstrap batch into an
-    # empty map, each timed call into a map of its own (a directory
-    # written by one call has the batch's tiles live for the next)
+    res["tiled_insert_cells"]["in_launch"] = "tiled_insert_tiles"
+    # the second launch where every winner is fresh: the bootstrap batch
+    # into an empty map, each timed call into a map of its own (a
+    # directory written by one call has the batch's tiles live for the
+    # next); the timed maps share one pool, so after the first call the
+    # cells the calls find are live and equal to theirs (the bound counts
+    # the first call's cell writes)
     (_, bpts, bvalid, *_), _ = rec["first"]
     empty = tm.empty_tiled_map(dims, T, vs, device=dev)
+    bwork = insert_work(empty, bpts, bvalid)
     bkey, brows = tm.insert_keys_plain(empty, bpts, bvalid)
     bsg, border = torch.sort(bkey, stable=True)
     fresh_maps = [empty._replace(dir_check=empty.dir_check.clone(),
                                  dir_slot=empty.dir_slot.clone(),
                                  slot_key=empty.slot_key.clone()) for _ in range(80)]
-    want_b = tm.insert_tiles_plain(fresh_maps[0], bpts, brows, bsg, border)
-    got_b = tm.insert_tiles(fresh_maps[1], bpts, brows.clone(), bsg, border)
+    compared = [clone_map(fresh_maps[k]) for k in (0, 1)]
+    want_b = tm.insert_sorted_plain(compared[0], bpts, bvalid, brows, bsg, border)
+    got_b = tm.insert_tiles(compared[1], bpts, bvalid, brows.clone(), bsg, border)
     torch.cuda.synchronize()
-    if not (all(torch.equal(getattr(fresh_maps[0], f), getattr(fresh_maps[1], f))
-                for f in ("dir_check", "dir_slot", "slot_key"))
+    if not (all(torch.equal(g, w) for g, w in zip(compared[1], compared[0]))
             and [int(x) for x in got_b] == [int(x) for x in want_b]):
         raise AssertionError("tiled_insert_tiles: the bootstrap batch into an empty map "
-                             "differs from insert_tiles_plain")
+                             "differs from the plain tiles and cells passes")
     # 33 calls when the first batch queues ahead of the device; past 66 the
-    # maps come round again, their heads then aliased
+    # maps come round again, their winners then aliased
     calls, plain_calls = itertools.cycle(fresh_maps[2:68]), iter(fresh_maps[68:])
-    fresh_ms = time_ms(lambda: tm.insert_tiles(next(calls), bpts, brows, bsg, border))
-    fresh_plain_ms = event_ms(lambda: tm.insert_tiles_plain(
-        next(plain_calls), bpts, brows, bsg, border), reps=10)
-    bwork = insert_work(empty, bpts, bvalid)
+    fresh_ms = time_ms(lambda: tm.insert_tiles(next(calls), bpts, bvalid, brows, bsg, border))
+    fresh_plain_ms = event_ms(lambda: tm.insert_sorted_plain(
+        next(plain_calls), bpts, bvalid, brows, bsg, border), reps=10)
     b, by, byts, ops = insert_bounds(bwork)["tiled_insert_tiles"]
     res["tiled_insert_tiles"]["fresh_heads"] = {
         "ms": fresh_ms, "plain_ms": fresh_plain_ms, "bound_ms": b, "bound_by": by,
         "bytes": byts, "ops": ops, "grid": tm.insert_tiles.grid, **bwork}
     print(f"tiled_insert_tiles on the LIO path's bootstrap batch into an empty map ({bwork}, "
-          f"every head fresh; {tm.insert_tiles.grid} blocks): kernel {fresh_ms:.4f} ms, "
+          f"every winner fresh; {tm.insert_tiles.grid} blocks): kernel {fresh_ms:.4f} ms, "
           f"plain {fresh_plain_ms:.4f} ms (a fresh map each call), bound {b:.5f} ms "
           f"({by}: {byts} bytes, {ops} operations); {smi}")
-    del fresh_maps, empty, calls, plain_calls
+    del fresh_maps, compared, empty, calls, plain_calls
 
     whole = time_ms(lambda: tm.insert(mt, pts, valid))
     whole_plain = event_ms(lambda: tm.insert_plain(mq, pts, valid), reps=30)
-    sort_ms = time_ms(lambda: torch.sort(gkey, stable=True))
+    # the sort at both widths, in turns
+    cell = (rows[0].to(torch.int64) << 9) | rows[2]
+    D = lio_map.dir_check.shape[0]
+    keys = {64: torch.where(valid, (cell << 31) | rows[3].to(torch.int64), D << 40), 32: gkey}
+    sorts = {64: [], 32: []}
+    for width in (64, 32, 32, 64):
+        sorts[width].append(time_ms(lambda: torch.sort(keys[width], stable=True)))
+    sort_ms = {w: sum(v) / len(v) for w, v in sorts.items()}
     t0 = time.perf_counter()
     for _ in range(20):
         tm.insert(mt, pts, valid)
     host_ms = 1e3 * (time.perf_counter() - t0) / 20
     torch.cuda.synchronize()
     res["tiled_insert_keys"].update(insert_ms=whole, insert_plain_ms=whole_plain,
-                                    sort_ms=sort_ms, insert_host_ms=host_ms, cases=checked)
-    print(f"the whole insert (three launches around the sort): {whole:.4f} ms on the card, "
-          f"the sort alone {sort_ms:.4f} ms, insert_plain {whole_plain:.4f} ms; host "
-          f"{host_ms:.4f} ms a call; {smi}")
+                                    sort_ms=sort_ms[32], sort_64_ms=sort_ms[64],
+                                    insert_host_ms=host_ms, cases=checked)
+    print(f"the whole insert (two launches around the sort): {whole:.4f} ms on the card, "
+          f"the sort alone {sort_ms[32]:.4f} ms (of the 64-bit key {sort_ms[64]:.4f} ms), "
+          f"insert_plain {whole_plain:.4f} ms; host {host_ms:.4f} ms a call; {smi}")
     del mt, mq, mp, mk
 
     # the undistortion on the path's last frame step
@@ -2079,8 +2113,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
             or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)
             or launches["delete_boxes"] != len(boxes) or not boxes
             or not launches["voxel_centroids"] == filt["n"] == len(steady)
-            or not (launches["insert_keys"] == launches["insert_tiles"]
-                    == launches["insert_cells"] == ins["n"] > len(steady) - 1)
+            or not (launches["insert_keys"] == launches["insert_tiles"] == ins["n"]
+                    > len(steady) - 1)
             or not launches["undistort"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches} for {len(cascades)} cascades, "
                              f"{len(searches)} searches, {len(groups)} groups, "
@@ -2225,7 +2259,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "lio_cascade": len(steady), "vio_select": vio.steps,
             "vio_observations": vio.steps, "delete_boxes": len(boxes),
             "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": ins["n"],
-            "insert_tiles": ins["n"], "insert_cells": ins["n"],
+            "insert_tiles": ins["n"],
             "undistort": max(launches["undistort"], step["n"])}
     if (launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps
             or not ins["n"] >= step["n"] == len(steady)):
@@ -2360,7 +2394,7 @@ def device_kernels(evs, ranges):
 
 
 MAP_STAGE_KERNELS = ("voxel_centroids", "tiled_delete_boxes", "tiled_insert_keys",
-                     "tiled_insert_tiles", "tiled_insert_cells", "undistort")
+                     "tiled_insert_tiles", "undistort")
 
 
 def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
@@ -4610,11 +4644,13 @@ def main() -> int:
          "fastlivo_tpu/ops/tiled_map.py:121-137 (insert before its argsort: keys, tiles, "
          "hash, distance, packed key; jitted XLA; no Pallas kernel)"),
         ("tiled_insert_tiles", "insert_tiles", "tiled_insert",
-         "fastlivo_tpu/ops/tiled_map.py:139-168 (insert: tile heads, allocation cumsum, "
-         "directory writes; jitted XLA; no Pallas kernel)"),
-        ("tiled_insert_cells", "insert_cells", "tiled_insert",
+         "fastlivo_tpu/ops/tiled_map.py:139-200 (insert after its argsort: tile winners, "
+         "allocation cumsum, directory writes, then its cells; jitted XLA; no Pallas "
+         "kernel)"),
+        ("tiled_insert_cells", "insert_tiles", "tiled_insert",
          "fastlivo_tpu/ops/tiled_map.py:170-200 (insert: first-ok cell winners by cumsum and "
-         "cummax, cell writes; jitted XLA; no Pallas kernel)"),
+         "cummax, cell writes; jitted XLA; no Pallas kernel; here the cells pass inside "
+         "tiled_insert_tiles' launch)"),
         ("undistort", "undistort", "undistort",
          "fastlivo_tpu/imu.py:354-398 (undistort, jitted XLA; no Pallas kernel)"))]]}))
     print(smi)

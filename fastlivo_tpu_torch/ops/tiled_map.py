@@ -137,13 +137,17 @@ def _scatter_(dst: torch.Tensor, src: torch.Tensor, some: torch.Tensor,
     dst[at] = torch.where(some.view((1,) * val.ndim), val[src], dst[0])
 
 
+KEY_BIAS = 1 << 31  # the sort key: (dir_idx << 9 | cell) - 2^31
+
+
 def insert_keys_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
     """The insert's first pass (the kernel tiled_insert_keys' oracle):
-    (gkey (B,) int64, rows (5, B) int32). The key packs (dir_idx, in-tile
-    cell, the distance to the voxel centre's bits), D << 40 for an
-    invalid row; rows holds each row's [dir_idx, tile check, cell,
-    distance bits, 0] (the last row: the tiles pass's head flags)."""
-    D = m.dir_check.shape[0]
+    (gkey (B,) int32, rows (5, B) int32). The key is (dir_idx << 9 |
+    in-tile cell) - 2^31, negative for every valid row at any directory of
+    up to 2^22 entries, and 0 for an invalid row, which sorts after them
+    all; rows holds each row's [dir_idx, tile check, cell, distance to the
+    voxel centre's bits, 0] (the last row: the tiles pass's winner
+    flags)."""
     keys = voxel_of(pts, m.voxel_size)
     tkey, cofs = _tile_of(keys)
     dir_idx, chk = _dir_of(m, tkey)
@@ -152,30 +156,49 @@ def insert_keys_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
     d2c = e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
     # non-negative float: the bit pattern orders like the value
     d2c_bits = d2c.to(torch.float32).view(torch.int32)
-    gkey = (dir_idx.to(torch.int64) << 40) | (cofs.to(torch.int64) << 31) | d2c_bits.to(torch.int64)
-    gkey = torch.where(valid, gkey, torch.full_like(gkey, D << 40))
+    cell = (dir_idx.to(torch.int64) << 9) | cofs
+    gkey = torch.where(valid, cell - KEY_BIAS, 0).to(torch.int32)
     return gkey, torch.stack([dir_idx, chk, cofs, d2c_bits, torch.zeros_like(chk)])
+
+
+def _runs(sg: torch.Tensor):
+    """Each sorted position's run of equal keys: (the run's index, its
+    first position)."""
+    new = _head(sg)
+    pos = torch.arange(sg.shape[0], device=sg.device)
+    return torch.cumsum(new, 0) - 1, torch.cummax(torch.where(new, pos, 0), 0).values
+
+
+def _least_in_runs(run: torch.Tensor, sbits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """True at the sorted position of each run's least (distance bits,
+    position) among the positions in `mask`: the JAX package's first row
+    of the run in its (distance, row) order."""
+    pos = torch.arange(run.shape[0], device=run.device)
+    big = torch.iinfo(torch.int64).max
+    v = torch.where(mask, (sbits.to(torch.int64) << 32) | pos, big)
+    least = torch.full_like(v, big).scatter_reduce_(0, run, v, "amin")
+    return mask & (least[run] == v)
 
 
 def insert_tiles_plain(m: TiledMap, pts: torch.Tensor, rows: torch.Tensor,
                        sg: torch.Tensor, order: torch.Tensor):
-    """The insert's second pass (the kernel tiled_insert_tiles' oracle),
-    on the sorted keys `sg` and the stable sort's `order`: the head of
-    each dir_idx group is its tile's winner. Writes the winners'
-    directory entries and slot keys in place; returns (n_alloc',
-    n_dropped copied)."""
+    """The insert's second pass (the tiles pass of the kernel
+    tiled_insert_tiles), on the sorted keys `sg` and the stable sort's
+    `order`: each dir_idx group's winner is the least (distance bits, row)
+    of its first cell run. Writes the winners' directory entries and slot
+    keys in place; returns (n_alloc', n_dropped copied)."""
     T = m.slot_key.shape[0]
-    D = m.dir_check.shape[0]
     B = pts.shape[0]
     dir_idx, chk = rows[0], rows[1]
     tkey = voxel_of(pts, m.voxel_size) >> 3
-    sdir = sg >> 40  # == dir_idx for valid rows, D for invalid
-    tile_head = _head(sdir) & (sdir < D)
+    sval = sg < 0  # a valid row's key
+    tile_head = _head((sg.to(torch.int64) + KEY_BIAS) >> 9) & sval
+    run, start = _runs(sg)
     is_winner = torch.empty(B, dtype=torch.bool, device=pts.device)
-    is_winner[order] = tile_head
+    is_winner[order] = _least_in_runs(run, rows[3][order], sval) & tile_head[start]
 
     # aliased tiles reuse the evicted occupant's slot (its old cells
-    # self-invalidate by hash mismatch); fresh tiles allocate. Heads of
+    # self-invalidate by hash mismatch); fresh tiles allocate. Winners of
     # already-live tiles rewrite their current directory values.
     cur_chk = m.dir_check[dir_idx]
     cur_slot = m.dir_slot[dir_idx]
@@ -198,12 +221,12 @@ def insert_tiles_plain(m: TiledMap, pts: torch.Tensor, rows: torch.Tensor,
 def insert_cells_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
                        rows: torch.Tensor, sg: torch.Tensor, order: torch.Tensor,
                        n_dropped: torch.Tensor) -> None:
-    """The insert's third pass (the kernel tiled_insert_cells' oracle),
-    after the directory writes: each (dir_idx, cell) group's nearest ok
-    row replaces its stored cell where that is dead or farther. Writes
-    the cells in place and adds the dropped rows to `n_dropped`."""
+    """The insert's third pass (the cells pass of the kernel
+    tiled_insert_tiles), after the directory writes: each (dir_idx, cell)
+    run's least (distance bits, row) ok row replaces its stored cell where
+    that is dead or farther. Writes the cells in place and adds the
+    dropped rows to `n_dropped`."""
     T = m.slot_key.shape[0]
-    D = m.dir_check.shape[0]
     B = pts.shape[0]
     dir_idx, chk, cofs = rows[0], rows[1], rows[2]
     d2c = rows[3].view(torch.float32)
@@ -215,46 +238,44 @@ def insert_cells_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
     ok = valid & (got_chk == chk)
     pool_idx = torch.clamp(slot, 0, T - 1) * TC + cofs
 
-    # cell winner = the FIRST ok row of each (dir_idx, cofs) group in
-    # distance order (the group head can be a row of a directory-
-    # aliasing losing tile, or a dropped row)
-    scell = sg >> 31  # == (dir_idx << 9) | cofs for valid rows
-    cell_head = _head(scell) & ((sg >> 40) < D)
-    ok_s = ok[order].to(torch.int32)
-    csum = torch.cumsum(ok_s, 0, dtype=torch.int32)
-    excl = csum - ok_s
-    base = torch.cummax(
-        torch.where(cell_head, excl, torch.full_like(excl, -1)), 0).values
-    first_ok_s = (ok_s > 0) & (csum - base == 1)
+    # cell winner = the nearest ok row of each (dir_idx, cofs) run (the
+    # run can hold rows of a directory-aliasing losing tile, or dropped
+    # rows), the first in row order among equal distances
     cell_winner = torch.empty(B, dtype=torch.bool, device=pts.device)
-    cell_winner[order] = first_ok_s
+    cell_winner[order] = _least_in_runs(_runs(sg)[0], rows[3][order], ok[order])
 
     stored = m.pts[pool_idx]
     stored_live = m.cell_check[pool_idx] == chk
     es = stored - center
     stored_d2c = es[:, 0] * es[:, 0] + es[:, 1] * es[:, 1] + es[:, 2] * es[:, 2]
     src, some, (at_cell,) = _drop_rows(
-        cell_winner & ok & (~stored_live | (d2c < stored_d2c)), pool_idx)
+        cell_winner & (~stored_live | (d2c < stored_d2c)), pool_idx)
     _scatter_(m.cell_check, src, some, at_cell, chk)
     _scatter_(m.pts, src, some, at_cell, pts)
     n_dropped += (valid & ~ok).sum(dtype=torch.int32)
 
 
-def _insert_passes(m: TiledMap, pts, valid, keys_pass, tiles_pass, cells_pass) -> TiledMap:
+def _insert_passes(m: TiledMap, pts, valid, keys_pass, sorted_pass) -> TiledMap:
     if m.dir_check.shape[0] > 1 << 22:
         raise ValueError("directory too large for the packed sort key")
     gkey, rows = keys_pass(m, pts, valid)
     sg, order = torch.sort(gkey, stable=True)
-    n_alloc, n_dropped = tiles_pass(m, pts, rows, sg, order)
-    cells_pass(m, pts, valid, rows, sg, order, n_dropped)
+    n_alloc, n_dropped = sorted_pass(m, pts, valid, rows, sg, order)
     return m._replace(n_alloc=n_alloc, n_dropped=n_dropped)
+
+
+def insert_sorted_plain(m: TiledMap, pts, valid, rows, sg, order):
+    """The plain tiles and cells passes on the sorted keys: what
+    `insert_tiles`' one launch computes, and its oracle."""
+    n_alloc, n_dropped = insert_tiles_plain(m, pts, rows, sg, order)
+    insert_cells_plain(m, pts, valid, rows, sg, order, n_dropped)
+    return n_alloc, n_dropped
 
 
 def insert_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor) -> TiledMap:
     """`insert` in torch ops, on any device: the three passes' plain
     versions around the stable sort. The kernels' oracle."""
-    return _insert_passes(m, pts, valid, insert_keys_plain, insert_tiles_plain,
-                          insert_cells_plain)
+    return _insert_passes(m, pts, valid, insert_keys_plain, insert_sorted_plain)
 
 
 def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
@@ -263,21 +284,23 @@ def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
     (n_alloc and n_dropped are new tensors). `max_probe` is accepted and
     ignored (the hash map's argument).
 
-    One stable sort serves both winner selections: the key packs
-    (dir_idx, in-tile cell, distance-to-centre bits), so the head of
-    each dir_idx group is the tile winner and the first surviving row of
-    each (dir_idx, cell) group is the nearest-to-centre cell winner. A map
-    on CUDA runs the three kernels of csrc/tiled_insert.cu around the
-    sort (`insert_keys`, `insert_tiles`, `insert_cells`, each counted in
-    its `.launches`), with no host read; a map on the CPU runs
-    `insert_plain`. No other device is taken and nothing falls back."""
+    One stable sort on the 32-bit key (dir_idx, in-tile cell) serves
+    both winner selections: each dir_idx group's tile winner is the
+    nearest-to-centre row of its first cell run, and each (dir_idx, cell)
+    run's cell winner its nearest row that the directory entry holds after
+    the tile writes, the first in row order among equal distances: the
+    JAX package's heads of its (dir_idx, cell, distance) sort. A map on
+    CUDA runs the two kernels of csrc/tiled_insert.cu around the sort
+    (`insert_keys`, then `insert_tiles`, whose one launch also runs the
+    cells pass; each counted in its `.launches`), with no host read; a map
+    on the CPU runs `insert_plain`. No other device is taken and nothing
+    falls back."""
     dev = m.dir_check.device
     if dev.type == "cpu":
         return insert_plain(m, pts, valid)
     if dev.type != "cuda":
         raise ValueError(f"insert: unsupported device {dev}")
-    return _insert_passes(m, pts.contiguous(), valid, insert_keys, insert_tiles,
-                          insert_cells)
+    return _insert_passes(m, pts.contiguous(), valid, insert_keys, insert_tiles)
 
 
 @functools.cache
@@ -285,19 +308,16 @@ def _insert_launchers():
     from . import _build
 
     lib = _build.load("tiled_insert")
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    keys, tiles, cells = (lib.tiled_insert_keys_launch, lib.tiled_insert_tiles_launch,
-                          lib.tiled_insert_cells_launch)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    keys, tiles = lib.tiled_insert_keys_launch, lib.tiled_insert_tiles_launch
     size = lib.tiled_insert_tiles_scratch_ints
-    keys.argtypes = [P] * 6 + [I, L, P]
-    tiles.argtypes = [P] * 13 + [I, L, I, I, ctypes.POINTER(I), P]
-    cells.argtypes = [P] * 11 + [I, L, I, P]
+    keys.argtypes = [P] * 6 + [I, P]
+    tiles.argtypes = [P] * 15 + [I, I, I, ctypes.POINTER(I), P]
     size.argtypes = [I]
-    for fn in (keys, tiles, cells, size):
+    for fn in (keys, tiles, size):
         fn.restype = ctypes.c_int
     return (_build.profiled("tiled_insert_keys", keys),
-            _build.profiled("tiled_insert_tiles", tiles),
-            _build.profiled("tiled_insert_cells", cells), size)
+            _build.profiled("tiled_insert_tiles", tiles), size)
 
 
 def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, order=None):
@@ -309,7 +329,7 @@ def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, 
     i32 = torch.int32
     for name, t, shape, dtype in (
             ("pts", pts, (B, 3), torch.float32), ("valid", valid, (B,), torch.bool),
-            ("rows", rows, (5, B), i32), ("sorted keys", sg, (B,), torch.int64),
+            ("rows", rows, (5, B), i32), ("sorted keys", sg, (B,), i32),
             ("order", order, (B,), torch.int64),
             ("dir_check", m.dir_check, (D,), i32), ("dir_slot", m.dir_slot, (D,), i32),
             ("cell_check", m.cell_check, (T * TC,), i32),
@@ -322,7 +342,7 @@ def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, 
             _require(f"{where}: {name}", t, shape, dtype, dev)
     if D > 1 << 22 or T < 1 or B >= 1 << 31:
         raise ValueError(f"{where}: {B} rows, directory {D}, pool {T} tiles")
-    return dev, B, D, T
+    return dev, B, T
 
 
 def _raise_on(where: str, err: int) -> None:
@@ -340,30 +360,33 @@ def insert_keys(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
     at B = 0), on a CPU map the plain version."""
     if m.dir_check.device.type == "cpu":
         return insert_keys_plain(m, pts, valid)
-    dev, B, D, _ = _check_insert("insert_keys", m, pts, valid)
-    gkey = torch.empty(B, dtype=torch.int64, device=dev)
+    dev, B, _ = _check_insert("insert_keys", m, pts, valid)
+    gkey = torch.empty(B, dtype=torch.int32, device=dev)
     rows = torch.empty((5, B), dtype=torch.int32, device=dev)
     if B:
         _raise_on("insert_keys", _insert_launchers()[0](
             pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(), m.log2_dims.data_ptr(),
-            gkey.data_ptr(), rows.data_ptr(), B, D, _stream(dev)))
+            gkey.data_ptr(), rows.data_ptr(), B, _stream(dev)))
         insert_keys.launches += 1
     return gkey, rows
 
 
-def insert_tiles(m: TiledMap, pts: torch.Tensor, rows: torch.Tensor, sg: torch.Tensor,
-                 order: torch.Tensor):
-    """`insert_tiles_plain`'s signature and outputs: on a CUDA map one
-    ordinary launch of tiled_insert_tiles (2 ceil(B / 1024) blocks, 2 at
+def insert_tiles(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
+                 sg: torch.Tensor, order: torch.Tensor):
+    """The tiles pass and the cells pass on the sorted keys: returns
+    (n_alloc', n_dropped') and writes the map in place. On a CUDA map one
+    ordinary launch of tiled_insert_tiles (3 ceil(B / 1024) blocks, 3 at
     B = 0, in `insert_tiles.grid`; counted in `insert_tiles.launches`,
-    also at B = 0), which also writes the head flags into rows[4], with
+    also at B = 0), which also writes the winner flags into rows[4], with
     no host read and no device query; its ticket, counts and status words
-    are the stream's scratch (`photometric._ticket`), left at 0. On a CPU
-    map the plain version. 2^30 rows or more raise."""
+    are the stream's scratch (`photometric._ticket`), left at 0. The
+    launch takes a row as valid where its sorted key is (sg < 0), so it
+    reads no `valid`. On a CPU map `insert_sorted_plain`. 2^30 rows or
+    more raise."""
     if m.dir_check.device.type == "cpu":
-        return insert_tiles_plain(m, pts, rows, sg, order)
-    dev, B, D, T = _check_insert("insert_tiles", m, pts, rows=rows, sg=sg, order=order)
-    _, launch, _, size = _insert_launchers()
+        return insert_sorted_plain(m, pts, valid, rows, sg, order)
+    dev, B, T = _check_insert("insert_tiles", m, pts, valid, rows, sg, order)
+    _, launch, size = _insert_launchers()
     k = size(B)
     if k < 0:
         raise ValueError(f"insert_tiles: {B} rows (the kernel takes fewer than 2^30)")
@@ -375,9 +398,9 @@ def insert_tiles(m: TiledMap, pts: torch.Tensor, rows: torch.Tensor, sg: torch.T
     _raise_on("insert_tiles", launch(
         sg.data_ptr(), order.data_ptr(), rows.data_ptr(), pts.data_ptr(),
         m.voxel_size.data_ptr(), m.dir_check.data_ptr(), m.dir_slot.data_ptr(),
-        m.slot_key.data_ptr(), m.n_alloc.data_ptr(), m.n_dropped.data_ptr(),
-        n_alloc.data_ptr(), n_dropped.data_ptr(), scratch.data_ptr(), B, D, T, EMPTY_CHECK,
-        ctypes.byref(grid), stream))
+        m.slot_key.data_ptr(), m.cell_check.data_ptr(), m.pts.data_ptr(),
+        m.n_alloc.data_ptr(), m.n_dropped.data_ptr(), n_alloc.data_ptr(), n_dropped.data_ptr(),
+        scratch.data_ptr(), B, T, EMPTY_CHECK, ctypes.byref(grid), stream))
     insert_tiles.launches += 1
     insert_tiles.grid = grid.value
     return n_alloc, n_dropped
@@ -385,23 +408,16 @@ def insert_tiles(m: TiledMap, pts: torch.Tensor, rows: torch.Tensor, sg: torch.T
 
 def insert_cells(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
                  sg: torch.Tensor, order: torch.Tensor, n_dropped: torch.Tensor) -> None:
-    """`insert_cells_plain`'s signature and effects: on a CUDA map one
-    launch of tiled_insert_cells (counted in `insert_cells.launches`;
-    none at B = 0), on a CPU map the plain version."""
-    if m.dir_check.device.type == "cpu":
-        return insert_cells_plain(m, pts, valid, rows, sg, order, n_dropped)
-    dev, B, D, T = _check_insert("insert_cells", m, pts, valid, rows, sg, order)
-    _require("insert_cells: n_dropped", n_dropped, (), torch.int32, dev)
-    if B:
-        _raise_on("insert_cells", _insert_launchers()[2](
-            sg.data_ptr(), order.data_ptr(), rows.data_ptr(), pts.data_ptr(), valid.data_ptr(),
-            m.voxel_size.data_ptr(), m.dir_check.data_ptr(), m.dir_slot.data_ptr(),
-            m.cell_check.data_ptr(), m.pts.data_ptr(), n_dropped.data_ptr(), B, D, T,
-            _stream(dev)))
-        insert_cells.launches += 1
+    """The cells pass on a CPU map: `insert_cells_plain`. On a CUDA map
+    the pass runs inside `insert_tiles`' launch (its third ticket range),
+    so a call here raises."""
+    if m.dir_check.device.type != "cpu":
+        raise ValueError(f"insert_cells: on a {m.dir_check.device} map the cells pass runs "
+                         f"inside insert_tiles' launch")
+    insert_cells_plain(m, pts, valid, rows, sg, order, n_dropped)
 
 
-insert_keys.launches = insert_tiles.launches = insert_cells.launches = 0
+insert_keys.launches = insert_tiles.launches = 0
 insert_tiles.grid = 0
 
 

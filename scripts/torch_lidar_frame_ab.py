@@ -41,19 +41,28 @@ each variant then runs once more under torch.profiler: a second dataset
 ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
 frame or lidar + camera pair, the device-busy share of the window and the
 map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
-three passes, undistort): launches per frame and device us a launch.
+launches, undistort): launches per frame and device us a launch.
 With --kernel-rounds N, each tree then times, N times in turns, its own
 wrappers on the LIO path's recorded calls (chip_smoke.time_ms, device
-time between CUDA events with the calls queued ahead of the device): the
-insert's tiles pass on the last batch re-inserted into the final map
-(every head aliased) and on the bootstrap batch into an empty map (every
-head fresh; a map of its own for each call), the last frame step's
-undistortion and the last scan's voxel centroid. With --stamps, a tree
-whose csrc/undistort.cu stamps its phases (csrc/phase_stamps.cuh) builds
-it again with -DPHASE_STAMPS and launches it alone, synchronised, 30
-times on that scan: the median of each phase (staging the offsets and
-the frame's constants, the search, the rest) and the whole launch; the
-%globaltimer ticks by 0.512 us on the H100.
+time between CUDA events with the calls queued ahead of the device): what
+the insert runs after its sort (one launch, or the separate tiles and
+cells launches of a tree from before they were one) on the last batch
+re-inserted into the final map (every winner aliased) and on the
+bootstrap batch into an empty map (every winner fresh; a directory of
+its own for each call), the stable sort of the last batch's key at 64
+bits (the JAX package's packing) and at 32 bits, in turns, the whole
+insert, the last frame step's undistortion and the
+last scan's voxel centroid. With --stamps, a tree whose
+csrc/undistort.cu or csrc/tiled_insert.cu stamps its phases
+(csrc/phase_stamps.cuh) builds each again with -DPHASE_STAMPS and
+launches it alone, synchronised, 30 times: undistort on that scan (the
+median of each phase: staging the offsets and the frame's constants, the
+search, the rest; and the whole launch), the insert's second launch on
+the last batch re-inserted into the final map (the median time from the
+first block's start to the last block past each boundary: marked, the
+ranking past its wait and its look-back, ranked, the cells gathered,
+past their wait, their runs walked, written, the end); the %globaltimer ticks by 0.512 us
+on the H100.
 Prints one line per run, then one JSON line with every run and the card's
 `nvidia-smi` name and power limit.
 """
@@ -262,15 +271,26 @@ class Worker:
         return rec
 
     def kernel_times(self):
-        """This tree's wrappers timed on the recorded calls (ms): the tiles
-        pass with every head aliased and with every head fresh, the
-        undistortion and the voxel centroid."""
+        """This tree's wrappers timed on the recorded calls (ms): what runs
+        after the insert's sort (the tiles and cells launches, or the one
+        launch of both where `insert_tiles` takes `valid`) with every winner
+        aliased and with every winner fresh, the stable sort of the batch's
+        key at 64 and 32 bits in turns, the whole insert, the undistortion
+        and the voxel centroid."""
         torch, cs = self.torch, self.cs
+        import inspect
         import itertools
 
         from fastlivo_tpu_torch import imu
         from fastlivo_tpu_torch.ops import tiled_map as tm
         from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+        if "valid" in inspect.signature(tm.insert_tiles).parameters:
+            post_sort = tm.insert_tiles
+        else:  # two launches after the sort
+            def post_sort(mm, p, v, r, s, o):
+                n = tm.insert_tiles(mm, p, r, s, o)
+                tm.insert_cells(mm, p, v, r, s, o, n[1])
 
         rec = self.record_lio()
         m = rec["map"]
@@ -279,18 +299,32 @@ class Worker:
         mt = clone(m)
         gkey, rows = tm.insert_keys_plain(mt, pts, valid)
         sg, order = torch.sort(gkey, stable=True)
-        res = {"tiles_aliased": cs.time_ms(lambda: tm.insert_tiles(mt, pts, rows, sg, order))}
+        res = {"post_sort_aliased": cs.time_ms(lambda: post_sort(mt, pts, valid, rows, sg,
+                                                                 order))}
+        # the insert's stable sort on the batch's key at both widths, in turns:
+        # dir << 40 | cell << 31 | distance bits (D << 40 invalid), and
+        # (dir << 9 | cell) - 2^31 (0 invalid)
+        cell = (rows[0].to(torch.int64) << 9) | rows[2]
+        D = m.dir_check.shape[0]
+        keys = {"sort_64": torch.where(valid, (cell << 31) | rows[3].to(torch.int64), D << 40),
+                "sort_32": torch.where(valid, cell - (1 << 31), 0).to(torch.int32)}
+        sorts = {k: [] for k in keys}
+        for k in ("sort_64", "sort_32", "sort_32", "sort_64"):
+            sorts[k].append(cs.time_ms(lambda: torch.sort(keys[k], stable=True)))
+        res.update({k: sum(v) / len(v) for k, v in sorts.items()})
+        res["insert"] = cs.time_ms(lambda: tm.insert(mt, pts, valid))
         _, bpts, bvalid = rec["first_insert"][:3]
         dims = [1 << int(x) for x in m.log2_dims.cpu()]
         empty = tm.empty_tiled_map(dims, m.slot_key.shape[0], float(m.voxel_size),
                                    device=self.dev)
         bkey, brows = tm.insert_keys_plain(empty, bpts, bvalid)
         bsg, border = torch.sort(bkey, stable=True)
+        # a directory each call, one pool: the cells after the first call live
         maps = itertools.cycle([empty._replace(
             dir_check=empty.dir_check.clone(), dir_slot=empty.dir_slot.clone(),
             slot_key=empty.slot_key.clone()) for _ in range(66)])
-        res["tiles_fresh"] = cs.time_ms(
-            lambda: tm.insert_tiles(next(maps), bpts, brows, bsg, border))
+        res["post_sort_fresh"] = cs.time_ms(
+            lambda: post_sort(next(maps), bpts, bvalid, brows, bsg, border))
         args = self.undistort_args(rec)
         res["undistort"] = cs.time_ms(lambda: imu.undistort(*args))
         und, rmask, leaf, max_out = rec["filter"][:4]
@@ -306,10 +340,22 @@ class Worker:
         st, _m, pose, calib, pts_raw, t_rel, rmask = rec["step"][:7]
         return st, pose, pts_raw, t_rel, rmask, calib
 
+    # the stamped kernels: {library: (phase names, boundary 1 .. n each ends)}
+    STAMPED = {
+        "undistort": ("staged", "searched", "rest"),
+        "tiled_insert": ("marked", "ranking past its wait", "ranking past its look-back",
+                         "ranked", "cells gathered", "cells past their wait",
+                         "cells walked", "cells written", "end")}
+
     def stamps(self, tree: str, reps: int = 30):
-        """undistort.cu built with -DPHASE_STAMPS, launched alone `reps`
-        times on the recorded scan: {phase: median ms}; None where the
-        tree's kernel has no stamps."""
+        """Each stamped kernel (STAMPED) built with -DPHASE_STAMPS and
+        launched alone `reps` times, synchronised, on the recorded calls:
+        undistort on the last frame step's scan; the insert's second
+        launch (tiled_insert_tiles) on the last batch re-inserted into the
+        final map. {library: {phase: median ms}}: undistort's phases one
+        after another, the insert's each boundary's time from the launch's
+        first block start (the last block to cross it; phase_stamps.cuh);
+        None where the tree's source has no stamps."""
         import ctypes
 
         import numpy as np
@@ -317,44 +363,64 @@ class Worker:
         torch = self.torch
         from fastlivo_tpu_torch import imu
         from fastlivo_tpu_torch.ops import _build
+        from fastlivo_tpu_torch.ops import tiled_map as tm
 
-        src = _build.CSRC / "undistort.cu"
-        if "PHASE_STAMPS_EXPORT(undistort)" not in src.read_text():
-            return None
-        out = _build.BUILD_DIR / "stamps" / "libundistort-stamped.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DPHASE_STAMPS", "-o",
-                              str(out), str(src)], capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
-        lib = ctypes.CDLL(str(out))
-        read = lib.undistort_stamps
-        read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
-        read.restype = ctypes.c_int
-        buf = (ctypes.c_ulonglong * 4)()
-        args = self.undistort_args(self.record_lio())
-        shipped = _build._loaded.get("undistort")
-        _build._loaded["undistort"] = lib
-        imu._undistort_launcher.cache_clear()
-        rows = []
-        try:
-            read(buf, 4)  # reset
-            for _ in range(reps + 1):
-                imu.undistort(*args)
-                torch.cuda.synchronize()
-                if read(buf, 4):
-                    raise RuntimeError("undistort: reading the stamps failed")
-                t = [int(x) for x in buf]
-                rows.append({"staged": (t[1] - t[0]) / 1e6, "searched": (t[2] - t[1]) / 1e6,
-                             "rest": (t[3] - t[2]) / 1e6, "total": (t[3] - t[0]) / 1e6})
-        finally:
-            if shipped is None:
-                _build._loaded.pop("undistort")
-            else:
-                _build._loaded["undistort"] = shipped
-            imu._undistort_launcher.cache_clear()
-        rows = rows[1:]  # the first launch warms up
-        return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+        rec = self.record_lio()
+        und = self.undistort_args(rec)
+        m = type(rec["map"])(*(t.clone() for t in rec["map"]))
+        _, pts, valid = rec["insert"][:3]
+        gkey, rows = tm.insert_keys_plain(m, pts, valid)
+        sg, order = torch.sort(gkey, stable=True)
+        calls = {"undistort": (lambda: imu.undistort(*und), imu._undistort_launcher),
+                 "tiled_insert": (lambda: tm.insert_tiles(m, pts, valid, rows, sg, order),
+                                  tm._insert_launchers)}
+        out = {}
+        for name, phases in self.STAMPED.items():
+            src = _build.CSRC / f"{name}.cu"
+            if f"PHASE_STAMPS_EXPORT({name})" not in src.read_text():
+                out[name] = None
+                continue
+            lib_path = _build.BUILD_DIR / "stamps" / f"lib{name}-stamped.so"
+            lib_path.parent.mkdir(parents=True, exist_ok=True)
+            res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DPHASE_STAMPS", "-o",
+                                  str(lib_path), str(src)], capture_output=True, text=True)
+            if res.returncode:
+                raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+            lib = ctypes.CDLL(str(lib_path))
+            read = getattr(lib, f"{name}_stamps")
+            read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+            read.restype = ctypes.c_int
+            n = len(phases) + 1
+            buf = (ctypes.c_ulonglong * n)()
+            call, launchers = calls[name]
+            shipped = _build._loaded.get(name)
+            _build._loaded[name] = lib
+            launchers.cache_clear()
+            rows_ms = []
+            try:
+                read(buf, n)  # reset
+                for _ in range(reps + 1):
+                    call()
+                    torch.cuda.synchronize()
+                    if read(buf, n):
+                        raise RuntimeError(f"{name}: reading the stamps failed")
+                    t = [int(x) for x in buf]
+                    if name == "undistort":
+                        ms = [(t[k] - t[k - 1]) / 1e6 for k in range(1, n)] + [
+                            (t[-1] - t[0]) / 1e6]
+                        rows_ms.append(dict(zip(phases + ("total",), ms)))
+                    else:
+                        rows_ms.append({p: (t[k + 1] - t[0]) / 1e6
+                                        for k, p in enumerate(phases)})
+            finally:
+                if shipped is None:
+                    _build._loaded.pop(name)
+                else:
+                    _build._loaded[name] = shipped
+                launchers.cache_clear()
+            rows_ms = rows_ms[1:]  # the first launch warms up
+            out[name] = {k: float(np.median([r[k] for r in rows_ms])) for k in rows_ms[0]}
+        return out
 
 
 def serve(tree: str, duration: float):
@@ -457,7 +523,7 @@ def main():
         stamps = {}
         for tree in (trees if args.stamps else []):
             stamps[tree] = ask(procs[tree], tree, {"stamps": True})
-            print(f"{tree} undistort phase stamps (ms, median of 30): {stamps[tree]}", flush=True)
+            print(f"{tree} phase stamps (ms, median of 30): {stamps[tree]}", flush=True)
     finally:
         for p in procs.values():
             with contextlib.suppress(OSError):

@@ -1722,12 +1722,14 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     checks in place (its output, every byte equal to the plain version's
     after the launch); voxel_centroids at 16379 rows into 8191, its
     scratch (ticket, finished blocks, tile status words) back at 0. The
-    insert's three passes on a compacted map at 16379 rows, each on the
+    insert's two launches on a compacted map at 16379 rows, each on the
     plain passes' inputs (the map arrays they write in place are their
-    outputs, every byte equal to the plain pass's after the launch; the
-    tiles pass also writes the head flags in rows[4], over 32 blocks, its
-    scratch (ticket, marked tiles, finished blocks, status words) back at
-    0); undistort at 16379 points."""
+    outputs, every byte equal to the plain passes' after the launch):
+    tiled_insert_keys; tiled_insert_tiles, which writes the winner flags
+    in rows[4] and runs the cells pass too, over 48 blocks, its scratch
+    (ticket, marked tiles, ranked tiles, finished blocks, status words)
+    back at 0, on the map as built and (tiled_insert_cells) on one whose
+    pool overflows; undistort at 16379 points."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -2584,7 +2586,7 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     LIO cascade, the TLS fit, no cache_knn): the undistortion (one
     undistort launch), the voxel filter (the sort and one voxel_centroids
     launch), the cascade (one lio_cascade launch), the insert (the sort and
-    its three passes' launches) and the frame's outputs make no
+    its two launches) and the frame's outputs make no
     synchronising call (torch's sync debug mode set to raise), and give the
     same bits as the same step called without the mode."""
     from fastlivo_tpu_torch import frame_step, pipeline
@@ -2609,7 +2611,7 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     counts = lambda: (vf.voxel_centroids.launches, lio_cascade.lio_cascade.launches,  # noqa
                       knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches,
                       tm.insert_keys.launches, tm.insert_tiles.launches,
-                      tm.insert_cells.launches, imu_mod.undistort.launches)
+                      imu_mod.undistort.launches)
     n0 = counts()
     m = clone_map(a[1])
     torch.cuda.synchronize()
@@ -2618,8 +2620,7 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
         got = frame_step.lidar_frame_step(*(a[:1] + (m,) + a[2:]), **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + 1, n0[5] + 1, n0[6] + 1,
-                        n0[7] + 1)
+    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + 1, n0[5] + 1, n0[6] + 1)
     assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
     for g, w in zip(got[2:], want[2:]):
         assert bit_equal(g, w)
@@ -2632,7 +2633,7 @@ def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
     filters every steady scan through voxel_centroids, undistorts every
     scan (the steady ones and the bootstrap's) through undistort and makes
     every insert (the steady scans' and the one that builds the map)
-    through the insert's three passes."""
+    through the insert's two launches."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
@@ -2642,7 +2643,7 @@ def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
     pipe = small_lio(cuda)
     count = lambda: (tm.delete_boxes.launches, vf.voxel_centroids.launches,  # noqa: E731
                      imu_mod.undistort.launches, tm.insert_keys.launches,
-                     tm.insert_tiles.launches, tm.insert_cells.launches)
+                     tm.insert_tiles.launches)
     n0 = count()
     outs = pipe.spin()
     steady = [o for o in outs if o.iters > 0]
@@ -2651,7 +2652,7 @@ def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
     assert n[0] >= len(steady)  # the tracker fires each frame
     assert n[1] == len(steady)
     assert n[2] > len(steady)  # and the bootstrap scans
-    assert n[3] == n[4] == n[5] == len(inserts) > len(steady)
+    assert n[3] == n[4] == len(inserts) > len(steady)
 
 
 def map_stage_write_only(dev, kernel):
@@ -2720,29 +2721,44 @@ def replay_insert(dev, case, step_fn):
 
 
 def insert_launches():
-    return (tm.insert_keys.launches, tm.insert_tiles.launches, tm.insert_cells.launches)
+    return (tm.insert_keys.launches, tm.insert_tiles.launches)
 
 
 def tiles_scratch_clear(dev) -> bool:
-    """The stream's scratch (photometric._ticket), which the tiles pass
-    shares with the other ticketed kernels, all 0."""
+    """The stream's scratch (photometric._ticket), which the insert's
+    second launch shares with the other ticketed kernels, all 0."""
     from fastlivo_tpu_torch.ops import photometric
 
     return not photometric._ticket(dev, torch.cuda.current_stream(dev).cuda_stream).any()
 
 
+def winner_flags(m, rows, sg, order):
+    """The flags the tiles pass writes: 1 at each aliased tile winner's
+    row, 2 at a fresh one's, from the map before the insert."""
+    tile_head = tm._head((sg.to(torch.int64) + tm.KEY_BIAS) >> 9) & (sg < 0)
+    run, start = tm._runs(sg)
+    win = order[tm._least_in_runs(run, rows[3][order], sg < 0) & tile_head[start]]
+    flags = torch.zeros(sg.shape[0], dtype=torch.int32, device=sg.device)
+    flags[win] = torch.where(m.dir_check[rows[0][win]] != tm.EMPTY_CHECK, 1, 2).to(torch.int32)
+    return flags
+
+
 @pytest.mark.parametrize("case", ["stream", "aliasing", "overflow", "head_not_ok", "compacted",
                                   "empty", "one_row", "all_invalid", "straddle",
-                                  "overflow_mid_tile"])
+                                  "overflow_mid_tile", "nearest_later", "equal_bits",
+                                  "long_run", "dir_2_22"])
 def test_tiled_insert_matches_plain(cuda, case):
-    """insert on a card map (three launches around the sort; at B = 0 the
-    tiles pass alone, over 2 blocks, else 2 ceil(B / 1024)) leaves every
-    TiledMap field equal to insert_plain's on the card and on the CPU
-    after every batch of tests/torch_frame_cases.py's streams: directory
-    aliasing, pool overflow (also in the middle of a tile), fresh heads on
-    both sides of a tile end, runs whose sorted head is not ok, a
-    compacted map with stale slots, B = 0 and 1, no valid row; the
-    stream's scratch back at 0 after every launch."""
+    """insert on a card map (the keys launch, the sort of 32-bit keys and
+    one launch of the tiles and cells passes; at B = 0 that launch alone,
+    over 3 blocks, else 3 ceil(B / 1024)) leaves every TiledMap field
+    equal to insert_plain's on the card and on the CPU after every batch
+    of tests/torch_frame_cases.py's streams: directory aliasing, pool
+    overflow (also in the middle of a tile), fresh winners on both sides
+    of a tile end, runs whose first row is not ok, a compacted map with
+    stale slots, B = 0 and 1, no valid row, nearest rows after farther
+    ones, equal distances, runs longer than a tile and across tile ends,
+    a directory of 2^22 entries with a row in its last cell; the stream's
+    scratch back at 0 after every launch."""
     def step(mc, mh, p, v):
         want_card = tm.insert_plain(clone_map(mc), p.to(cuda), v.to(cuda))
         want_cpu = tm.insert_plain(mh, p, v)
@@ -2750,8 +2766,8 @@ def test_tiled_insert_matches_plain(cuda, case):
         got = tm.insert(mc, p.to(cuda), v.to(cuda))
         torch.cuda.synchronize()
         B = p.shape[0]
-        assert insert_launches() == (n0[0] + (B > 0), n0[1] + 1, n0[2] + (B > 0))
-        assert tm.insert_tiles.grid == 2 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
+        assert insert_launches() == (n0[0] + (B > 0), n0[1] + 1)
+        assert tm.insert_tiles.grid == 3 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
         for f, g, wc, wh in zip(got._fields, got, want_card, want_cpu):
             assert torch.equal(g, wc), f
             assert torch.equal(g.cpu(), wh), f
@@ -2777,33 +2793,31 @@ def frame_insert_batch(dev, n=16384, seed=4):
 @pytest.mark.parametrize("pool", [4096, 1200])
 def test_tiled_insert_passes_match_plain_at_frame_size(cuda, pool):
     """At a LIO frame's 16384 rows into a built map (and one whose pool
-    overflows): each pass's kernel gives its plain pass's outputs on the
-    card (the keys and rows; the directory, slot keys and counts; the
-    cells and the dropped count), the whole insert every field of
-    insert_plain's on the card and on the CPU, twice in a row."""
+    overflows): the keys kernel gives the plain pass's int32 keys and
+    rows, the second launch the plain tiles and cells passes' directory,
+    slot keys, cells and counts, and the flags at the tile winners; the
+    whole insert every field of insert_plain's on the card and on the
+    CPU, twice in a row; insert_cells refuses a card map."""
     m = stage_map(cuda, pool=pool)
     p, v = frame_insert_batch(cuda)
     mp, mk = clone_map(m), clone_map(m)
     gkey, rows = tm.insert_keys_plain(mp, p, v)
     g2, r2 = tm.insert_keys(mk, p, v)
-    assert torch.equal(gkey, g2) and torch.equal(rows, r2)
+    assert g2.dtype == torch.int32 and torch.equal(gkey, g2) and torch.equal(rows, r2)
     sg, order = torch.sort(gkey, stable=True)
-    plain_counts = tm.insert_tiles_plain(mp, p, rows.clone(), sg, order)
-    counts = tm.insert_tiles(mk, p, r2, sg, order)
-    for f in ("dir_check", "dir_slot", "slot_key"):
+    flags = winner_flags(m, rows, sg, order)
+    plain_counts = tm.insert_sorted_plain(mp, p, v, rows.clone(), sg, order)
+    counts = tm.insert_tiles(mk, p, v, r2, sg, order)
+    torch.cuda.synchronize()
+    for f in ("dir_check", "dir_slot", "slot_key", "cell_check", "pts"):
         assert torch.equal(getattr(mk, f), getattr(mp, f)), f
     assert [int(x) for x in counts] == [int(x) for x in plain_counts]
-    assert torch.equal(r2[:4], rows[:4])
-    flags = r2[4]
-    assert bool(((flags == 0) | (flags == 1) | (flags == 2)).all()) and bool((flags == 2).any())
-    tm.insert_cells_plain(mp, p, v, rows, sg, order, plain_counts[1])
-    tm.insert_cells(mk, p, v, r2, sg, order, counts[1])
-    torch.cuda.synchronize()
-    for f in ("cell_check", "pts"):
-        assert torch.equal(getattr(mk, f), getattr(mp, f)), f
-    assert int(counts[1]) == int(plain_counts[1])
+    assert torch.equal(r2[:4], rows[:4]) and torch.equal(r2[4], flags)
+    assert bool((flags == 2).any())
     if pool < 4096:
         assert int(counts[1]) > int(m.n_dropped)
+    with pytest.raises(ValueError):
+        tm.insert_cells(mk, p, v, r2, sg, order, counts[1])
     mc, mh = clone_map(m), type(m)(*(t.cpu() for t in m))
     for _ in range(2):
         mc = tm.insert(mc, p, v)
@@ -2816,13 +2830,13 @@ def test_tiled_insert_passes_match_plain_at_frame_size(cuda, pool):
 @pytest.mark.parametrize("into", ["built", "empty"])
 @pytest.mark.parametrize("B", [0, 1, 1023, 1025, 65536])
 def test_tiled_insert_tiles_at_row_counts(cuda, B, into):
-    """The tiles pass around tile ends (B = 1023, 1025: one tile and a
-    second of one row), alone at B = 0 and 1, and at 65536 rows (128
-    blocks), into a built map and into an empty one whose every tile head
-    is fresh and whose 64 slots overflow part way (rows past T): its
-    directory, slot keys, counts and flags equal the plain pass's, the
-    whole insert every field of insert_plain's on the card and on the
-    CPU, and the scratch is back at 0 after each launch."""
+    """The second launch around tile ends (B = 1023, 1025: one tile and a
+    second of one row), alone at B = 0 and 1, and at 65536 rows (192
+    blocks), into a built map and into an empty one whose every tile
+    winner is fresh and whose 64 slots overflow part way (rows past T):
+    its directory, slot keys, cells, counts and flags equal the plain
+    passes', the whole insert every field of insert_plain's on the card
+    and on the CPU, and the scratch is back at 0 after each launch."""
     m = (stage_map(cuda, n=20000, pool=4096) if into == "built"
          else tm.empty_tiled_map((64, 64, 16), 64, 0.5, device=cuda))
     p, v = frame_insert_batch(cuda, n=B, seed=B)
@@ -2830,17 +2844,14 @@ def test_tiled_insert_tiles_at_row_counts(cuda, B, into):
     gkey, rows = tm.insert_keys_plain(mp, p, v)
     sg, order = torch.sort(gkey, stable=True)
     r2 = rows.clone()
-    want = tm.insert_tiles_plain(mp, p, rows, sg, order)
-    got = tm.insert_tiles(mk, p, r2, sg, order)
+    flags = winner_flags(m, rows, sg, order)
+    want = tm.insert_sorted_plain(mp, p, v, rows, sg, order)
+    got = tm.insert_tiles(mk, p, v, r2, sg, order)
     torch.cuda.synchronize()
-    assert tm.insert_tiles.grid == 2 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
-    for f in ("dir_check", "dir_slot", "slot_key"):
+    assert tm.insert_tiles.grid == 3 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
+    for f in ("dir_check", "dir_slot", "slot_key", "cell_check", "pts"):
         assert torch.equal(getattr(mk, f), getattr(mp, f)), f
     assert [int(x) for x in got] == [int(x) for x in want]
-    heads = tm._head(sg >> 40) & ((sg >> 40) < m.dir_check.shape[0])
-    flags = torch.zeros(B, dtype=torch.int32, device=cuda)
-    flags[order[heads]] = torch.where(m.dir_check[rows[0][order[heads]]] != tm.EMPTY_CHECK, 1, 2
-                                      ).to(torch.int32)
     assert torch.equal(r2[4], flags) and torch.equal(r2[:4], rows[:4])
     if into == "empty" and B > 1000:
         assert bool((flags != 1).all()) and int((flags == 2).sum()) > 64  # rows past T
@@ -2852,6 +2863,42 @@ def test_tiled_insert_tiles_at_row_counts(cuda, B, into):
     for f, g, w in zip(mc._fields, mc, mh):
         assert torch.equal(g.cpu(), w), f
     assert tiles_scratch_clear(cuda)
+
+
+def test_tiled_insert_long_runs_and_the_largest_directory(cuda):
+    """The second launch where one voxel holds 5000 rows (a run across
+    four block ends, its nearest row in the last block, with a nearer row
+    of a directory-aliasing tile that is dropped) beside runs that end on
+    and just past a block end, into a (2, 2, 2) directory; and a
+    directory of 2^22 entries (dir_idx << 9 | cell reaches 2^31 - 1) with
+    rows in its last entry's last cell and invalid rows after them: every
+    field equal to insert_plain's on the card and on the CPU."""
+    rng = np.random.default_rng(20)
+    vox = lambda v, n: (np.asarray(v, np.float64) + rng.uniform(0.05, 0.95, (n, 3))) * 0.5  # noqa
+    long_run = vox([0, 0, 1], 5000)
+    long_run[::4] = vox([16, 0, 1], 1250)  # an aliasing tile's rows, dropped
+    long_run[4097] = [0.2501, 0.25, 0.75]  # the nearest ok row
+    long_run[4098] = [8.25, 0.25, 0.75]  # nearer, not ok
+    p1 = np.concatenate([vox([0, 0, 0], 1024), vox([1, 0, 0], 1), long_run,
+                         vox([2, 0, 0], 1023), vox([3, 0, 0], 1025)])
+    edge = np.array([[-0.2, -0.3, -0.1], [-0.24, -0.26, -0.25], [-0.26, -0.24, -0.27]])
+    p2 = np.concatenate([edge, rng.uniform(-3, 3, (3000, 3))])
+    for dims, pts in (((2, 2, 2), p1), ((256, 256, 64), p2)):
+        pts = torch.from_numpy(pts.astype(np.float32))
+        valid = torch.from_numpy(rng.random(len(pts)) > 0.05)
+        valid[:3] = True
+        mc = tm.empty_tiled_map(dims, 64, 0.5, device=cuda)
+        mh = tm.empty_tiled_map(dims, 64, 0.5, device="cpu")
+        for _ in range(2):
+            want = tm.insert_plain(clone_map(mc), pts.to(cuda), valid.to(cuda))
+            mc = tm.insert(mc, pts.to(cuda), valid.to(cuda))
+            mh = tm.insert_plain(mh, pts, valid)
+            torch.cuda.synchronize()
+            for f, g, w, h in zip(mc._fields, mc, want, mh):
+                assert torch.equal(g, w) and torch.equal(g.cpu(), h), f
+            assert tiles_scratch_clear(cuda)
+        if dims == (256, 256, 64):
+            assert int(tm.insert_keys_plain(mh, pts, valid)[0][0]) == -1
 
 
 def undistort_args(dev, d, pose="f32"):
@@ -2981,41 +3028,37 @@ def frame_kernel_write_only(dev, kernel):
                                    t_rel, pmask], [torch.empty_like(pts)])
         want = [imu_mod.undistort_plain(st, table, pts, t_rel, pmask, calib)]
     else:
-        m = stage_map(dev, compacted=True)
+        m = stage_map(dev, compacted=True, pool=4096 if kernel != "tiled_insert_cells" else 600)
         p, v = frame_insert_batch(dev, n=n)
-        keys, tiles, cells, size = tm._insert_launchers()
-        B, D, T = n, m.dir_check.shape[0], m.slot_key.shape[0]
+        keys, tiles, size = tm._insert_launchers()
+        B, T = n, m.slot_key.shape[0]
         mp = clone_map(m)
         gkey, rows = tm.insert_keys_plain(mp, p, v)
         sg, order = torch.sort(gkey, stable=True)
         if kernel == "tiled_insert_keys":
-            got = launch_guarded(lambda *a: keys(*ptr(*a), B, D, stream),
+            got = launch_guarded(lambda *a: keys(*ptr(*a), B, stream),
                                  [p, v, m.voxel_size, m.log2_dims],
                                  [torch.empty_like(gkey), torch.empty_like(rows)])
             want = [gkey, rows]
-        elif kernel == "tiled_insert_tiles":
+        else:  # the second launch: the tiles pass, and the cells pass in it
             zero = torch.zeros((), dtype=torch.int32, device=dev)
             scratch = torch.zeros(size(B), dtype=torch.int32, device=dev)
             grid = ctypes.c_int(0)
             got = launch_guarded(
-                lambda s, o, x, vs, na, nd, r, dc, ds, sk, nao, ndo, sc: tiles(
-                    *ptr(s, o, r, x, vs, dc, ds, sk, na, nd, nao, ndo, sc), B, D, T,
+                lambda s, o, x, vs, na, nd, r, dc, ds, sk, cc, pool, nao, ndo, sc: tiles(
+                    *ptr(s, o, r, x, vs, dc, ds, sk, cc, pool, na, nd, nao, ndo, sc), B, T,
                     tm.EMPTY_CHECK, ctypes.byref(grid), stream),
                 [sg, order, p, m.voxel_size, m.n_alloc, m.n_dropped],
-                [rows, m.dir_check, m.dir_slot, m.slot_key, zero, zero, scratch])
-            assert grid.value == 2 * 16 and not got.pop().any()  # the scratch back at 0
-            n_alloc, n_dropped = tm.insert_tiles_plain(mp, p, rows, sg, order)
+                [rows.clone(), m.dir_check, m.dir_slot, m.slot_key, m.cell_check, m.pts, zero,
+                 zero.clone(), scratch])
+            assert grid.value == 3 * 16 and not got.pop().any()  # the scratch back at 0
+            flags = winner_flags(m, rows, sg, order)
+            n_alloc, n_dropped = tm.insert_sorted_plain(mp, p, v, rows, sg, order)
+            assert torch.equal(got[0][4], flags)
             got[0] = got[0][:4]
-            want = [rows[:4], mp.dir_check, mp.dir_slot, mp.slot_key, n_alloc, n_dropped]
-        else:
-            n_alloc, n_dropped = tm.insert_tiles_plain(mp, p, rows, sg, order)
-            before = n_dropped.clone()
-            got = launch_guarded(
-                lambda s, o, r, x, vv, vs, dc, ds, cc, pool, nd: cells(
-                    *ptr(s, o, r, x, vv, vs, dc, ds, cc, pool, nd), B, D, T, stream),
-                [sg, order, rows, p, v, m.voxel_size, mp.dir_check, mp.dir_slot],
-                [m.cell_check, m.pts, before])
-            tm.insert_cells_plain(mp, p, v, rows, sg, order, n_dropped)
-            want = [mp.cell_check, mp.pts, n_dropped]
+            want = [rows[:4], mp.dir_check, mp.dir_slot, mp.slot_key, mp.cell_check, mp.pts,
+                    n_alloc, n_dropped]
+            if kernel == "tiled_insert_cells":
+                assert int(n_dropped) > int(m.n_dropped)  # the pool overflows
     for g, w in zip(got, want):
         assert bit_equal(g, w)

@@ -1,23 +1,27 @@
 """Port parity: the plain versions of the LIO frame's insert and
 undistortion kernels, on the CPU.
 
-`tiled_map.insert` on a CUDA map runs three kernels around one stable
-sort (csrc/tiled_insert.cu), `imu.undistort` on CUDA points one
-(csrc/undistort.cu); on the CPU their plain versions `insert_plain` and
-`undistort_plain` run, and the card tests hold the kernels to them bit
-for bit (tests/test_torch_cuda.py). Here:
+`tiled_map.insert` on a CUDA map runs two kernels around one stable sort
+of 32-bit keys (csrc/tiled_insert.cu), `imu.undistort` on CUDA points
+one (csrc/undistort.cu); on the CPU their plain versions `insert_plain`
+and `undistort_plain` run, and the card tests hold the kernels to them
+bit for bit (tests/test_torch_cuda.py). Here:
 
   - the kernels' passes written out in numpy as the kernels run them
-    (keys a row at a time; tile heads flagged from the directory as it
+    (keys a row at a time; tile winners, each the nearest row of its
+    directory group's first cell run, flagged from the directory as it
     was by blocks of sorted positions, then ranked by blocks of rows in
     their original order, each prefix found by look-back over the
-    blocks' status words; each cell run walked from its head to its
-    first ok row) give insert_plain's map bit for bit, batch by batch, at
-    tiles of 1, 7, 32 and 1024 rows, on streams with directory aliasing,
-    pool overflow (also in the middle of a tile), fresh heads on both
-    sides of a tile end, runs whose sorted head is not ok, a compacted
-    map with stale slots, B = 0 and 1 and no valid row; and each plain
-    pass's outputs equal the model's;
+    blocks' status words; each cell run's nearest ok row found by the
+    block of sorted positions that holds the run's first row, reading on
+    past its end) give insert_plain's map bit for bit, batch by batch, at
+    blocks of 1, 7, 32 and 1024 rows, on streams with directory aliasing,
+    pool overflow (also in the middle of a tile), fresh winners on both
+    sides of a tile end, runs whose first row is not ok, a compacted map
+    with stale slots, B = 0 and 1, no valid row, nearest rows after
+    farther ones, equal distances, runs longer than a tile and across
+    tile ends, and a directory of 2^22 entries with a row in its last
+    cell; and each plain pass's outputs equal the model's;
   - the undistortion's search in shared memory, with torch's probes,
     finds torch.searchsorted's rows on sorted, padded, unsorted and
     duplicate offsets and NaN times, at M = 1, 2, 520 and the largest
@@ -57,12 +61,11 @@ F32, EMPTY = np.float32, ttm.EMPTY_CHECK
 # --- the insert's passes in numpy -------------------------------------------
 
 def keys_model(m, p, valid):
-    """tiled_insert_keys, a row at a time: (gkey, rows (5, B))."""
+    """tiled_insert_keys, a row at a time: (gkey (B,) int32, rows (5, B))."""
     vs = F32(m["voxel_size"])
     l0, l1, l2 = (int(x) for x in m["log2_dims"])
-    D = len(m["dir_check"])
     B = len(p)
-    gkey = np.zeros(B, np.int64)
+    gkey = np.zeros(B, np.int32)
     rows = np.zeros((5, B), np.int32)
     for i in range(B):
         k = np.floor(p[i] / vs).astype(np.int32)
@@ -74,10 +77,14 @@ def keys_model(m, p, valid):
         e = p[i] - (k.astype(F32) + F32(0.5)) * vs
         d2c = (e[0] * e[0] + e[1] * e[1]) + e[2] * e[2]
         bits = np.array(d2c, F32).view(np.int32)
-        key = (np.int64(d) << 40) | (np.int64(cofs) << 31) | np.int64(bits)
-        gkey[i] = key if valid[i] else np.int64(D) << 40
+        gkey[i] = ((int(d) << 9) | int(cofs)) - (1 << 31) if valid[i] else 0
         rows[:4, i] = d, chk, cofs, bits
     return gkey, rows
+
+
+def key_cell(key):
+    """A valid row's sort key -> its dir_idx << 9 | cell."""
+    return int(key) + (1 << 31)
 
 
 FLAG_A, FLAG_P = 1 << 30, 2 << 30  # csrc/lookback.cuh's status words
@@ -99,29 +106,52 @@ def count_before(status, t):
 
 
 def tiles_model(m, p, rows, sg, order, tile=1024, seed=0):
-    """tiled_insert_tiles as its blocks run: the marking blocks, one a
-    tile of `tile` sorted positions (here in a shuffled order), flag each
-    tile head's row (1 aliased, 2 fresh) from the directory before any
-    write; then the ranking blocks, one a tile of `tile` rows in their
-    original order: each counts its fresh heads and publishes the count
-    (an aggregate; tile 0 an inclusive prefix), and then, in a shuffled
-    order, finds its exclusive prefix by look-back over the status words,
-    publishes its inclusive prefix, and each of its heads that does not
-    overflow the pool writes its entry and its slot's key (a fresh head's
-    rank: n_alloc + prefix + its in-tile inclusive count - 1). Writes m
-    in place; returns (n_alloc, n_dropped)."""
-    D, T = len(m["dir_check"]), len(m["slot_key"])
+    """The tiles pass of tiled_insert_tiles as its blocks run: the marking
+    blocks, one a tile of `tile` sorted positions (here in a shuffled
+    order), stage their positions' keys, rows and distance bits; a thread
+    at a directory group's first position walks the group's first cell
+    run (on past the block's end, from the sorted arrays, where the run
+    goes on) for its least (distance bits, position) and flags that row
+    (1 aliased, 2 fresh) from the directory before any write; then the
+    ranking blocks, one a tile of `tile` rows in their original order:
+    each counts its fresh winners and publishes the count (an aggregate;
+    tile 0 an inclusive prefix), and then, in a shuffled order, finds its
+    exclusive prefix by look-back over the status words, publishes its
+    inclusive prefix, and each of its winners that does not overflow the
+    pool writes its entry and its slot's key (a fresh winner's rank:
+    n_alloc + prefix + its in-tile inclusive count - 1). Writes m in
+    place; returns (n_alloc, n_dropped)."""
+    T = len(m["slot_key"])
     vs = F32(m["voxel_size"])
     B = len(p)
     nt = max(1, -(-B // tile))
     rng = np.random.default_rng(seed)
     flag = rows[4]
     for t in rng.permutation(nt):  # the marking blocks, in any order
-        for r in range(t * tile, min(B, (t + 1) * tile)):
-            sdir = sg[r] >> 40  # a valid row's directory index
-            if sdir < D and (r == 0 or (sg[r - 1] >> 40) != sdir):
-                flag[order[r]] = 1 if m["dir_check"][sdir] != EMPTY else 2
-    slot0 = m["dir_slot"].copy()  # what an aliased head reads (only it writes its entry)
+        r0 = t * tile
+        sk = sg[r0:r0 + tile]
+        srow = order[r0:r0 + tile]
+        sbits = rows[3, srow]
+        n = len(sk)
+        for x in range(n):
+            k = sk[x]
+            prev = sk[x - 1] if x else (sg[r0 - 1] if r0 else 0)
+            if k >= 0 or (prev < 0 and key_cell(prev) >> 9 == key_cell(k) >> 9):
+                continue  # invalid, or not its directory group's first position
+            best, row = sbits[x], srow[x]
+            y = x + 1
+            while y < n and sk[y] == k:
+                if sbits[y] < best:
+                    best, row = sbits[y], srow[y]
+                y += 1
+            if y == n:  # past the block's end
+                for r in range(r0 + n, B):
+                    if sg[r] != k:
+                        break
+                    if rows[3, order[r]] < best:
+                        best, row = rows[3, order[r]], order[r]
+            flag[row] = 1 if m["dir_check"][key_cell(k) >> 9] != EMPTY else 2
+    slot0 = m["dir_slot"].copy()  # what an aliased winner reads (only it writes its entry)
     counts = [int(np.sum(flag[j * tile:(j + 1) * tile] == 2)) for j in range(nt)]
     status = [FLAG_P | counts[0]] + [FLAG_A | c for c in counts[1:]]
     base, total = int(m["n_alloc"]), None
@@ -147,41 +177,73 @@ def tiles_model(m, p, rows, sg, order, tile=1024, seed=0):
     return np.int32(min(base + total, T)), np.int32(m["n_dropped"])
 
 
-def cells_model(m, p, valid, rows, sg, order, n_dropped):
-    """tiled_insert_cells: each (dir_idx, cell) run's head walks to the
-    run's first ok row, which replaces a dead or farther stored cell;
-    the valid rows that are not ok add to n_dropped."""
-    D, T = len(m["dir_check"]), len(m["slot_key"])
+def cells_model(m, p, rows, sg, order, n_dropped, tile=1024, seed=0):
+    """The cells pass of tiled_insert_tiles as its blocks run, one a tile
+    of `tile` sorted positions (here in a shuffled order), after every
+    directory write: a block stages its positions' keys, checks, distance
+    bits and points; a thread at a (dir_idx, cell) run's first position
+    reads the run's directory entry and walks the run (on past the block's
+    end, from the sorted arrays, where it goes on): the rows whose check
+    is the entry's are ok, the others dropped, and the least (distance
+    bits, position) ok row replaces a dead or farther stored cell. Each
+    block adds its dropped rows to n_dropped."""
+    T = len(m["slot_key"])
     vs = F32(m["voxel_size"])
     B = len(p)
-    ok = valid & (m["dir_check"][rows[0]] == rows[1])
-    for r in range(B):
-        scell = sg[r] >> 31
-        if (sg[r] >> 40) >= D or (r > 0 and (sg[r - 1] >> 31) == scell):
-            continue
-        q = r
-        while q < B and (sg[q] >> 31) == scell and not ok[order[q]]:
-            q += 1
-        if q == B or (sg[q] >> 31) != scell:
-            continue
-        w = order[q]
-        cell = int(np.clip(m["dir_slot"][rows[0, w]], 0, T - 1)) * 512 + rows[2, w]
-        es = m["pts"][cell] - (np.floor(p[w] / vs).astype(np.int32).astype(F32) + F32(0.5)) * vs
-        stored = (es[0] * es[0] + es[1] * es[1]) + es[2] * es[2]
-        if m["cell_check"][cell] != rows[1, w] or rows[3, w:w + 1].view(F32)[0] < stored:
-            m["cell_check"][cell] = rows[1, w]
-            m["pts"][cell] = p[w]
-    return np.int32(n_dropped + np.sum(valid & ~ok))
+    nt = max(1, -(-B // tile))
+    for c in np.random.default_rng(seed).permutation(nt):
+        r0 = c * tile
+        sk = sg[r0:r0 + tile]
+        srow = order[r0:r0 + tile]
+        schk, sbits, sp = rows[1, srow], rows[3, srow], p[srow]
+        n, dropped = len(sk), 0
+        for x in range(n):
+            k = sk[x]
+            prev = sk[x - 1] if x else (sg[r0 - 1] if r0 else 0)
+            if k >= 0 or (r0 + x > 0 and prev == k):
+                continue  # invalid, or not its run's first position
+            d = key_cell(k) >> 9
+            cur, slot = m["dir_check"][d], m["dir_slot"][d]
+            best = None  # (distance bits, point)
+            y = x
+            while y < n and sk[y] == k:
+                if schk[y] != cur:
+                    dropped += 1
+                elif best is None or sbits[y] < best[0]:
+                    best = sbits[y], sp[y]
+                y += 1
+            if y == n:  # past the block's end
+                for r in range(r0 + n, B):
+                    if sg[r] != k:
+                        break
+                    w = order[r]
+                    if rows[1, w] != cur:
+                        dropped += 1
+                    elif best is None or rows[3, w] < best[0]:
+                        best = rows[3, w], p[w]
+            if best is None:
+                continue
+            cell = int(np.clip(slot, 0, T - 1)) * 512 + (key_cell(k) & 511)
+            bits, pw = best
+            es = m["pts"][cell] - (np.floor(pw / vs).astype(np.int32).astype(F32)
+                                   + F32(0.5)) * vs
+            stored = (es[0] * es[0] + es[1] * es[1]) + es[2] * es[2]
+            if m["cell_check"][cell] != cur or np.array(bits, np.int32).view(F32) < stored:
+                m["cell_check"][cell] = cur
+                m["pts"][cell] = pw
+        n_dropped = np.int32(n_dropped + dropped)
+    return n_dropped
 
 
 def insert_model(m, p, valid, tile=1024):
-    """The three passes around the stable sort, on numpy copies of m."""
+    """The keys pass, the stable sort and the second launch's tiles and
+    cells passes, on numpy copies of m."""
     m = {k: v.copy() for k, v in m.items()}
     gkey, rows = keys_model(m, p, valid)
     order = np.argsort(gkey, kind="stable")
     sg = gkey[order]
     m["n_alloc"], n_dropped = tiles_model(m, p, rows, sg, order, tile)
-    m["n_dropped"] = cells_model(m, p, valid, rows, sg, order, n_dropped)
+    m["n_dropped"] = cells_model(m, p, rows, sg, order, n_dropped, tile)
     return m
 
 
@@ -207,10 +269,10 @@ def replay(case, step_fn):
 @pytest.mark.parametrize("tile", [1024, 7, 1, 32])
 @pytest.mark.parametrize("case", INSERT_CASES)
 def test_insert_passes_in_numpy_are_insert_plain(case, tile):
-    """The kernels' passes, written out in numpy (the tiles pass with its
-    tiles of 1024 rows, and of 1, 7 and 32 so that small batches carry
-    ranks across tiles, through the look-back), give insert_plain's map
-    bit for bit after every batch."""
+    """The kernels' passes, written out in numpy (the second launch with
+    its blocks of 1024 rows, and of 1, 7 and 32 so that small batches
+    carry ranks across tiles, through the look-back, and runs across
+    blocks), give insert_plain's map bit for bit after every batch."""
     def check(before, p, v, m):
         want = insert_model(before, p, v, tile)
         got = convert.tiled_map_to_arrays(m)
@@ -227,8 +289,8 @@ def test_insert_passes_in_numpy_are_insert_plain(case, tile):
 @pytest.mark.parametrize("case", INSERT_CASES)
 def test_insert_plain_passes_match_the_model(case):
     """Each plain pass's outputs (keys and rows; the directory, slot keys
-    and counts; the cells) equal the numpy model's; where a run's sorted
-    head is not ok, the second row of the run wins its cell."""
+    and counts; the cells) equal the numpy model's; where a run's first
+    row is not ok, another row of the run wins its cell."""
     def check(before, p, v, m):
         mt = convert.tiled_map_from_arrays(before, "cpu")
         pt, vt = torch.from_numpy(p), torch.from_numpy(v)
@@ -245,7 +307,7 @@ def test_insert_plain_passes_match_the_model(case):
         for f in ("dir_check", "dir_slot", "slot_key"):
             np.testing.assert_array_equal(getattr(mt, f).numpy(), mk[f], err_msg=f)
         ttm.insert_cells_plain(mt, pt, vt, rows, sg, order, n_dropped)
-        wd = cells_model(mk, p, v, rk, sg.numpy(), order_np, want[1])
+        wd = cells_model(mk, p, rk, sg.numpy(), order_np, want[1])
         assert int(n_dropped) == int(wd)
         for f in ("cell_check", "pts"):
             np.testing.assert_array_equal(getattr(mt, f).numpy(), mk[f], err_msg=f)
@@ -302,6 +364,56 @@ def test_new_insert_cases_cover_tile_ends():
         else:
             first_over = fresh[T - n_alloc]  # the first fresh head past the pool
             assert 1024 < first_over < 2048 and first_over % 1024 > 32
+
+
+def test_narrow_key_cases_cover_their_edges():
+    """The narrow key's cases hold what they are for: in nearest_later a
+    tile winner that is not its run's first row (in both aliasing tiles'
+    turns); in equal_bits a first cell run of equal distances; in
+    long_run a run of more than 1024 sorted positions across tile ends
+    whose nearest row is not ok and lies past the run's first block; in
+    dir_2_22 the largest key, -1, of a row in the directory's last cell,
+    with invalid rows (key 0) after it."""
+    seen = {}
+
+    def flags_of(case):
+        out = []
+
+        def check(before, p, v, m):
+            mk = {k: x.copy() for k, x in before.items()}
+            gk, rk = keys_model(mk, p, v)
+            order = np.argsort(gk, kind="stable")
+            tiles_model(mk, p, rk, gk[order], order)
+            out.append((gk, rk, order))
+
+        replay(case, check)
+        return out
+
+    for case in ("nearest_later", "equal_bits", "long_run", "dir_2_22"):
+        seen[case] = flags_of(case)
+    # nearest_later: the winning tile's nearest row 2 wins the entry over
+    # rows 0 and 1, and C's nearest row 5 over row 4
+    for gk, rk, order in seen["nearest_later"]:
+        assert rk[4, 2] and not rk[4, 0] and not rk[4, 1] and rk[4, 5] and not rk[4, 4]
+    assert len({int(rk[1, 2]) for _, rk, _ in seen["nearest_later"]}) == 2
+    # equal_bits: equal distance bits in the first batch's run; its first
+    # row (B's) wins, then A's first row
+    (gk, rk, _), (gk2, rk2, _), _ = seen["equal_bits"]
+    assert len(set(gk.tolist())) == 1 and len(set(rk[3].tolist())) == 1
+    assert rk[4, 0] > 0 and not rk[4, 1:].any() and rk2[4, 0] > 0 and not rk2[4, 1:].any()
+    # long_run: the cell 1 run covers sorted positions 1000-3999
+    gk, rk, order = seen["long_run"][0]
+    sg = gk[order]
+    assert (sg[1000:4000] == sg[1000]).all() and sg[999] != sg[1000] and sg[4000] == 0
+    assert order[3899] == 3899 and order[3900] == 3900 and rk[3, 3900] < rk[3, 3899]
+    assert rk[1, 3900] != rk[1, 3899]  # the nearer row is B's, not ok once A holds the entry
+    # dir_2_22: a row keyed -1 (dir_idx 2^22 - 1, cell 511), invalid rows after it
+    for gk, rk, order in seen["dir_2_22"]:
+        sg = gk[order]
+        assert gk[0] == -1 and rk[0, 0] == (1 << 22) - 1 and rk[2, 0] == 511
+        last_valid = int(np.nonzero(sg < 0)[0][-1])
+        assert sg[last_valid] == -1 and (sg[last_valid + 1:] == 0).all()
+        assert last_valid + 1 < len(sg)
 
 
 # --- the undistortion -------------------------------------------------------

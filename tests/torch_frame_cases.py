@@ -12,7 +12,8 @@ import numpy as np
 VOX = 0.5
 BIG_T = 1e30
 INSERT_CASES = ["stream", "aliasing", "overflow", "head_not_ok", "compacted", "empty",
-                "one_row", "all_invalid", "straddle", "overflow_mid_tile"]
+                "one_row", "all_invalid", "straddle", "overflow_mid_tile", "nearest_later",
+                "equal_bits", "long_run", "dir_2_22"]
 UNDISTORT_CASES = ["scan", "small_angle", "offset_hits", "masked", "table_512", "table_2",
                    "table_max"]
 UNDISTORT_MAX_M = 4104  # imu.UNDISTORT_MAX_M: 8 (512 + 1) rows
@@ -79,6 +80,82 @@ def overflow_mid_tile_batch(rng):
     return [("insert", p, rng.random(n) > 0.02)]
 
 
+def nearest_later_batch(rng, a_wins: bool):
+    """Tiles A (0, 0, 0) and B (2, 0, 0) share the entry 0 of a (2, 2, 2)
+    directory, and their cell 0 (voxels (0, 0, 0) and (16, 0, 0)) heads
+    it: the run's nearest row comes after two farther ones, one of each
+    tile, so its tile wins (A where a_wins). Tile C (1, 0, 0) alone on its
+    entry: the nearest row of its first cell run after a farther one, and
+    a nearer row in a later cell. Plus surface rows."""
+    c = np.array([[0.25, 0.25, 0.25], [8.25, 0.25, 0.25]], np.float32)  # A's, B's cell 0
+    win, lose = (c[0], c[1]) if a_wins else (c[1], c[0])
+    special = np.array([
+        win + [0.2, 0.2, 0.2],      # the winning tile, far (0.12 m^2)
+        lose + [0.1, 0.0, 0.0],     # the losing tile, nearer (0.01)
+        win + [0.01, 0.0, 0.0],     # the winning tile, nearest (1e-4)
+        lose + [0.2, 0.0, 0.0],     # the losing tile again
+        [4.45, 0.45, 0.45],         # C's cell 0 (voxel (8, 0, 0)), far
+        [4.26, 0.25, 0.25],         # C's cell 0, nearest
+        [4.75, 0.75, 0.751],        # C's cell 73 (voxel (9, 1, 1)), nearer than both
+    ], np.float32)
+    p, v = stream(int(rng.integers(1 << 30)), n_batches=1, n=300)[0]
+    return np.concatenate([special, p]), np.concatenate([np.ones(len(special), bool), v])
+
+
+def equal_bits_batches():
+    """Rows at equal distances from their voxel centre, so equal distance
+    bits: the cell 0 of tiles A (0, 0, 0) and B (2, 0, 0), which share
+    the entry 0 of a (2, 2, 2) directory, at 0.125 m either side of their
+    centres (exact in f32). First B's row, then A's two: B wins the entry
+    and its row the cell; then A's row at -0.125, B's, A's at +0.125: A
+    wins with its earlier row; then A's +0.125 row alone, no nearer than
+    the stored one, which stays. An exact duplicate row in the first two
+    batches."""
+    a0, a1 = [0.125, 0.25, 0.25], [0.375, 0.25, 0.25]
+    b = [8.125, 0.25, 0.25]
+    batches = [[b, a1, a0, b], [a0, b, a1, a0], [a1]]
+    return [("insert", np.array(x, np.float32), np.ones(len(x), bool)) for x in batches]
+
+
+def long_run_batches(rng):
+    """Runs longer than a 1024-row tile, in a (2, 2, 2) directory: first
+    1000 rows of tile A (0, 0, 0) in its cell 0, then 3000 rows in its
+    cell 1 with every third row of tile B (2, 0, 0), which aliases A, in
+    the same cell (B's rows are dropped): the cell 1 run spans sorted
+    positions 1000-3999, across three tile ends, with its nearest ok row
+    at 3899 and a nearer dropped row at 3900, and 20 invalid rows after
+    them. Then B takes the entry: 1500 rows in its cell 0, the nearest
+    last."""
+    vs = 0.5
+
+    def voxel_rows(vox, n):
+        return ((np.asarray(vox, np.float64) + rng.uniform(0.05, 0.95, (n, 3))) * vs)
+
+    x = voxel_rows([0, 0, 0], 1000)
+    y = voxel_rows([0, 0, 1], 3000)
+    y[::3] = voxel_rows([16, 0, 1], 1000)
+    y[2900] = [8.25, 0.25, 0.75]  # B's row at its voxel centre: the nearest, not ok
+    y[2899] = [0.2501, 0.25, 0.75]  # A's nearest, at sorted position 3899
+    first = np.concatenate([x, y, voxel_rows([3, 3, 3], 20)]).astype(np.float32)
+    valid = np.ones(len(first), bool)
+    valid[-20:] = False
+    second = voxel_rows([16, 0, 0], 1500)
+    second[-1] = [8.2501, 0.25, 0.25]
+    return [("insert", first, valid),
+            ("insert", second.astype(np.float32), np.ones(1500, bool))]
+
+
+def dir_2_22_batch(rng):
+    """A directory of 2^22 entries, (256, 256, 64) tiles, the JAX
+    package's largest: a row in its last entry's last cell (tile (-1, -1,
+    -1), voxel (-1, -1, -1), key 2^31 - 1 - 2^31 = -1) and a nearer one
+    after it, surface rows around the origin (many in the last entries),
+    and invalid rows (key 0) after them in the sort."""
+    p, v = stream(int(rng.integers(1 << 30)), n_batches=1, n=600, span=3.0)[0]
+    last = np.array([[-0.2, -0.3, -0.1], [-0.24, -0.26, -0.25]], np.float32)
+    return np.concatenate([last, p]), np.concatenate([np.ones(2, bool), v])
+
+
 def insert_case(case):
     rng = np.random.default_rng(len(case))
     dims, pool = (32, 32, 16), 1024
@@ -108,6 +185,15 @@ def insert_case(case):
         return dims, pool, straddle_batches(rng)
     if case == "overflow_mid_tile":
         return dims, 40, overflow_mid_tile_batch(rng)
+    if case == "nearest_later":
+        return (2, 2, 2), 64, [("insert",) + nearest_later_batch(rng, f)
+                               for f in (True, False, True)]
+    if case == "equal_bits":
+        return (2, 2, 2), 64, equal_bits_batches()
+    if case == "long_run":
+        return (2, 2, 2), 64, long_run_batches(rng)
+    if case == "dir_2_22":
+        return (256, 256, 64), 64, [("insert",) + dir_2_22_batch(rng) for _ in range(2)]
     if case == "all_invalid":
         b = stream(8, n_batches=2)
         return dims, pool, ins([(b[0][0], np.zeros(len(b[0][1]), bool)), b[1],
