@@ -33,10 +33,15 @@ map replicated and with the map sharded and the camera's image pool and
 observation rings in per-rank slabs, against the single-device prefix,
 `photometric_err_H`'s partials (what a mesh sums) held against their
 plain version on one rank's slab, then `run.main --mesh 1 --sharded-map`
-with the camera and its checkpoint, and (l) a LIO run with a 4 kHz IMU
+with the camera and its checkpoint, (l) a LIO run with a 4 kHz IMU
 in 512-pair groups on the card against the CPU, with the first frame
 where the card's and the CPU's downsampled scans or EKF iterations
-differ. The tiled map's box delete (`tiled_delete_boxes`) and the voxel
+differ, and (m) LIVO at patch size 12, grid 10 (3264 cells on the
+640x512 camera) and max_imu_per_group 1024 (8200-row pose tables) with
+a 2 kHz IMU, on the card against the CPU: every layout past the
+kernels' shared-memory stages on a path, each camera frame's vio_select
+and vio_observations and each photometric cascade held against their
+plain versions, and the changed kernels timed at those sizes. The tiled map's box delete (`tiled_delete_boxes`) and the voxel
 filter's segmented centroid (`voxel_centroids`) launch once per tracker
 update and once per filtered scan or camera cloud on every single-card
 path; both are held against their plain versions on the LIO path's final
@@ -2308,6 +2313,145 @@ def livo_cpu_agreement(dev):
         raise AssertionError(f"{dev} and cpu differ by {dmax:.2e} m")
 
 
+def wide_config(W=640, H=512, F=400.0, grid=10):
+    """livo_config at patch_size 12, grid_size 10 (64 x 51 = 3264 cells on
+    the 640x512 camera) and max_imu_per_group 1024 (a scan pose table of
+    8200 rows): each changed kernel past its shared-memory stage
+    (vio_select's 256-wide patch trees, vio_observations' insert arrays
+    past 2048 rows, undistort's offsets past 4104 rows), at capacities
+    that the CPU runs too: 4096-point scans, a 32 x 32 x 16 tiled
+    directory of 1024 tiles, the shipped visual map (65536 points x 20
+    observations, 2^18 slots), a pool of 16 u8 images."""
+    from fastlivo_tpu_torch.config import CapacityConfig, Config
+
+    cfg = Config()
+    cfg.patch_size = 12
+    cfg.grid_size = grid
+    cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                  tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
+                                  frame_ring=16, max_imu_per_group=1024)
+    return livo_config(cfg, W=W, H=H, F=F)
+
+
+def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
+    """LIVO at wide_config() (a 2 kHz IMU; the scan pose table has 8200
+    rows whatever the rate) on the card
+    and on the CPU, the same recorded data. The card run's kernels
+    counted around it: vio_select, vio_observations and
+    photometric_cascade once per camera frame step, undistort once per
+    lidar frame step and bootstrap scan (every table of 8200 rows). After
+    it every camera frame's vio_select and vio_observations are held
+    against their plain versions (check_vio_calls) and every cascade
+    against its host loop (check_cascades); the card's positions within
+    2 mm of the CPU's. Then the changed kernels are timed at these sizes
+    (vio_select on the last camera frame at patch sizes 8, 12 and 16,
+    vio_observations on it, undistort on the last frame step) beside
+    their plain versions and bounds. Returns (ms per lidar frame,
+    launches, numbers)."""
+    from fastlivo_tpu_torch import imu as imu_mod
+    from fastlivo_tpu_torch import pipeline as pipeline_mod
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+    from fastlivo_tpu_torch.ops import vio_select as vs
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    cfg = cfg or wide_config()
+    G = (cfg.camera.width // cfg.grid_size) * (cfg.camera.height // cfg.grid_size)
+    ds = Recorded(livo_dataset(cfg, duration=duration, points_per_scan=4096,
+                               lidar_noise=0.004, seed=7, imu_hz=imu_hz))
+    pipe = Pipeline(cfg, device=dev)
+    push_all(pipe, ds)
+    vio_calls, cascades, step = [], [], {}
+    with recorded_vio(vio_calls), recorded_cascades(cascades), \
+            recorded_calls(pipeline_mod, step, "lidar_frame_step"):
+        outs, launches, wall = counted_run(pipe.spin)
+    steps = pipe.vio.steps
+    M = pipe.max_scan_poses
+    print(f"wide livo (patch {cfg.patch_size}, grid {cfg.grid_size}: {G} cells, "
+          f"max_imu_per_group {cfg.capacity.max_imu_per_group}: {M} pose rows, IMU bucket "
+          f"{pipe._imu_bucket}): {len(outs)} lidar frames, {steps} camera steps in "
+          f"{wall / 1e3:.2f} s, launches {launches}, visual map {int(pipe.vio.vmap.n_pts)} "
+          f"points, last {pipe.vio.last_stats}")
+    if len(outs) < 20 or steps < 10 or step["n"] < 10:
+        raise AssertionError(f"wide livo: {len(outs)} frames, {steps} camera steps")
+    need_vio("wide livo", launches, steps)
+    if (launches["photometric_cascade"] != steps or launches["undistort"] < step["n"]
+            or len(cascades) != steps or len(vio_calls) != steps):
+        raise AssertionError(f"wide livo: launches {launches}, {steps} camera steps, "
+                             f"{step['n']} frame steps")
+    nums = {"cells": G, "patch_size": cfg.patch_size, "pose_rows": M,
+            "imu_bucket": pipe._imu_bucket, "camera_steps": steps,
+            "tracked_last": pipe.vio.last_stats.get("tracked", 0)}
+    nums["camera_frames"] = check_vio_calls(vio_calls, "wide livo")
+    nums["cascades"] = check_cascades(cascades, "wide livo")
+    del cascades
+    cpu = Pipeline(cfg, device="cpu")
+    push_all(cpu, ds)
+    t0 = time.perf_counter()
+    ref = cpu.spin()
+    cpu_s = time.perf_counter() - t0
+    d = max_diff(outs, ref)
+    nums.update(cpu_seconds=cpu_s, max_diff_to_cpu_mm=d * 1e3,
+                tracked=nums["camera_frames"]["tracked"])
+    print(f"wide livo: card against CPU over {len(outs)} lidar frames: max position "
+          f"difference {d * 1e3:.4f} mm (CPU run {cpu_s:.1f} s)")
+    if not d < 2e-3:
+        raise AssertionError(f"wide livo: card and CPU differ by {d:.3g} m")
+    del cpu, ref
+
+    # the changed kernels at these sizes (these launches are not the path's)
+    counts = read_counts()
+    rec = vio_calls[-1]
+    del vio_calls
+    snap, a, kw, out = rec["select"]
+    oa, _ = rec["obs"]
+    sel = {}
+    for P in (8, 12, 16):
+        kp = dict(kw, patch_size=P)
+        o = vs.vio_select(snap, *a, **kp)
+        want = vs.vio_select_plain(snap, *a, **kp)
+        d = max(bits_diff(x, y) for x, y in zip([*o[0], *o[1], *o[2]],
+                                                [*want[0], *want[1], *want[2]]))
+        if d != 0.0:
+            raise AssertionError(f"wide livo: vio_select at patch size {P}: {d} from the plain "
+                                 "version")
+        b, by, byts, ops = vio_select_bound_ms(snap, a, kp, o)
+        sel[P] = {"ms": time_ms(lambda: vs.vio_select(snap, *a, **kp)),
+                  "plain_ms": event_ms(lambda: vs.vio_select_plain(snap, *a, **kp), reps=5),
+                  "bound_ms": b, "bound_by": by, "bytes": byts, "ops": ops,
+                  "grid": vs.vio_select.grid, "tracked": int(o[0].valid.sum())}
+    after = vo.vio_observations_plain(clone_map(snap), *oa)
+    m1, m2 = clone_map(snap), clone_map(snap)
+    b, by, byts, ops = vio_observations_bound_ms(snap, oa, after)
+    obs = {"ms": time_ms(lambda: vo.vio_observations(m1, *oa)),
+           "plain_ms": event_ms(lambda: vo.vio_observations_plain(m2, *oa), reps=5),
+           "bound_ms": b, "bound_by": by, "bytes": byts, "ops": ops,
+           "grid": vo.vio_observations.grid, "rows": G}
+    del after, m1, m2, snap, rec
+    (st, _m, pose, calib, pts_raw, t_rel, rmask, *_), _ = step["last"]
+    ua = (st, pose, pts_raw, t_rel, rmask, calib)
+    if bits_diff(imu_mod.undistort(*ua), imu_mod.undistort_plain(*ua)) != 0.0:
+        raise AssertionError("wide livo: undistort not bit-equal to undistort_plain")
+    b, by, byts, ops = undistort_bound_ms(ua)
+    und = {"ms": time_ms(lambda: imu_mod.undistort(*ua)),
+           "plain_ms": event_ms(lambda: imu_mod.undistort_plain(*ua), reps=30),
+           "bound_ms": b, "bound_by": by, "bytes": byts, "ops": ops,
+           "pose_rows": int(pose.offs.shape[0]), "points": int(pts_raw.shape[0])}
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    smi = nvidia_smi_line()
+    for P, r in sel.items():
+        print(f"wide livo: vio_select at G={G}, P={P} on the last camera frame: kernel "
+              f"{r['ms']:.4f} ms ({r['grid']} blocks, {r['tracked']} tracked), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); {smi}")
+    print(f"wide livo: vio_observations at G={G}: kernel {obs['ms']:.4f} ms ({obs['grid']} "
+          f"blocks), plain {obs['plain_ms']:.4f} ms, bound {obs['bound_ms']:.5f} ms "
+          f"({obs['bound_by']}); undistort at M={und['pose_rows']} ({und['points']} rows): "
+          f"kernel {und['ms']:.4f} ms, plain {und['plain_ms']:.4f} ms, bound "
+          f"{und['bound_ms']:.5f} ms ({und['bound_by']}); {smi}")
+    nums.update(vio_select=sel, vio_observations=obs, undistort=und)
+    return wall / len(outs), launches, nums
+
+
 def plain_propagation_phase(dev, lio_ds, lio_ref, livo_ds, livo_ref):
     """The LIO and LIVO per-frame paths of path_phase and livo_path_phase
     on the same data, with the plain IMU loop swapped in for the kernel
@@ -4068,7 +4212,7 @@ def partials_compare(a, rows, label) -> float:
     return e
 
 
-def livo_mesh_phase(dev, ds, ref, frames=16, duration=3.0):
+def livo_mesh_phase(dev, ds, ref, frames=12, duration=3.0):
     """(k) LIVO over a device mesh, on the first `frames` lidar frames of
     the LIVO dataset of livo_path_phase at shipped capacities (640x512,
     grid 40: G = 192 cells; a u8 pool of 256 images and 65536 x 20
@@ -4446,6 +4590,26 @@ def main() -> int:
         l_ms, l_launches, l_nums = imu_4khz_phase(dev)
         paths["lio 4 kHz IMU, 512-pair groups"] = (l_ms, l_launches)
         path_extra["lio 4 kHz IMU, 512-pair groups"] = l_nums
+    with phase("(m) wide livo"):
+        wide_name = "livo patch 12, grid 10 (3264 cells), max_imu_per_group 1024"
+        m_ms, m_launches, wide = wide_phase(dev)
+        paths[wide_name] = (m_ms, m_launches)
+        path_extra[wide_name] = {k: wide[k] for k in (
+            "cells", "patch_size", "pose_rows", "imu_bucket", "camera_steps", "tracked",
+            "max_diff_to_cpu_mm", "cpu_seconds")}
+        torch.cuda.empty_cache()
+    old = {"undistort": stages["undistort"], **vio_res}
+    print("changed kernels, shipped size -> wide size (ms, kernel / bound): undistort "
+          f"M={old['undistort']['pose_rows']} {old['undistort']['ms']:.4f} / "
+          f"{old['undistort']['bound_ms']:.5f} -> M={wide['undistort']['pose_rows']} "
+          f"{wide['undistort']['ms']:.4f} / {wide['undistort']['bound_ms']:.5f}; vio_select "
+          f"G=192 P=8 {old['vio_select']['ms']:.4f} / {old['vio_select']['bound_ms']:.5f} -> "
+          + ", ".join(f"G={wide['cells']} P={P} {r['ms']:.4f} / {r['bound_ms']:.5f}"
+                      for P, r in wide["vio_select"].items())
+          + f"; vio_observations G=192 {old['vio_observations']['ms']:.4f} / "
+          f"{old['vio_observations']['bound_ms']:.5f} -> G={wide['cells']} "
+          f"{wide['vio_observations']['ms']:.4f} / {wide['vio_observations']['bound_ms']:.5f}"
+          f"; {smi}")
     with phase("profiles"):
         # 9-10 profiled frames fused, 2-3 unfused (whose ~5000 kernels a
         # frame make the profiler's processing the costliest part of the run)
@@ -4579,6 +4743,7 @@ def main() -> int:
         **{k: vio_res[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         **{k: v for k, v in vio_res[name].items() if k in ("bytes", "ops", "grid", "host_ms")},
+        "wide": wide[name],
         "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
     } for name, replaces in (
         ("vio_select", "fastlivo_tpu/vio.py:130-484 (select_tracked and select_new_points, "
@@ -4632,6 +4797,7 @@ def main() -> int:
         "library_ms": stages[name].get("library_ms"),
         **{k: v for k, v in stages[name].items() if k not in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **({"wide": wide["undistort"]} if name == "undistort" else {}),
         "launches_per_path": {k: v[-1][counter] for k, v in paths.items()
                               if v[-1].get(counter)},
     } for name, counter, source, replaces in (

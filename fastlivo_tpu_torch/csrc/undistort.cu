@@ -31,14 +31,19 @@
 // the kernel is held by its launch and by each thread's chain of steps.
 // chip_smoke.py counts the bound from its inputs.
 //
-// Design: one thread a point, 256 a block. Each block first stages the M
-// offsets in dynamic shared memory (coalesced loads, the table's own
-// dtype; M <= MAX_M) while warp 0 forms the frame's constants once
+// Design: one thread a point, 256 a block. A table of at most STAGE_M
+// rows (the pipeline's up to max_imu_per_group 512): each block first
+// stages the M offsets in dynamic shared memory (coalesced loads, the
+// table's own dtype) while warp 0 forms the frame's constants once
 // (R_li^T R_e^T and R_li^T t_li in undistort_plain's order, and the
 // calibration and the state's position cast to f32) and every
 // thread's point, time and mask are in flight; one barrier. The search
 // then runs in shared memory with torch's probes, so it finds the same row
-// whatever the offsets' order (padding, duplicates, NaN), and the pose
+// whatever the offsets' order (padding, duplicates, NaN). A larger table
+// (the launch picks the layout by M, a template parameter) is not staged:
+// the same search, probe for probe, reads the offsets where they lie in
+// global memory (its top levels stay in L1 and L2), so any M the int
+// indices hold runs in the same one launch and gives the same bits. The pose
 // row's 21 values are loaded as one batch of independent loads before
 // the Exp and the products. With -DPHASE_STAMPS (phase_stamps.cuh) the
 // kernel stamps the staged table (1), the searched rows (2) and its end
@@ -52,10 +57,11 @@
 namespace {
 
 constexpr int THREADS = 256;
-// the largest pose table: Pipeline.max_scan_poses = 8 (max_imu_per_group
-// + 1) at max_imu_per_group 512; 32.8 KB of f64 offsets, under the 48 KB
-// of dynamic shared memory a launch has without opting in
-constexpr int MAX_M = 4104;
+// the largest pose table staged in shared memory: Pipeline.max_scan_poses
+// = 8 (max_imu_per_group + 1) at max_imu_per_group 512; 32.8 KB of f64
+// offsets, under the 48 KB of dynamic shared memory a launch has without
+// opting in. A larger table is searched in global memory.
+constexpr int STAGE_M = 4104;
 constexpr float T2_MIN = 1e-14f;    // float32(so3._SMALL ** 2)
 constexpr float T2_SMALL = 1e-12f;  // float32((10 so3._SMALL) ** 2)
 
@@ -79,13 +85,13 @@ __device__ __forceinline__ void mat3(const float A[3][3], const float B[3][3], f
     for (int j = 0; j < 3; ++j) C[i][j] = (A[i][0] * B[0][j] + A[i][1] * B[1][j]) + A[i][2] * B[2][j];
 }
 
-template <typename P>
+template <typename P, bool STAGED>
 __global__ void __launch_bounds__(THREADS) undistort_kernel(
     Pose<P> pose, const double* __restrict__ s_rot, const double* __restrict__ s_pos,
     const float* __restrict__ lid_rot, const float* __restrict__ lid_off,
     const float* __restrict__ pts, const float* __restrict__ t_rel,
     const bool* __restrict__ pmask, float* __restrict__ out, int N) {
-  extern __shared__ double s_dyn[];  // the M offsets, as P
+  extern __shared__ double s_dyn[];  // the M offsets, as P (STAGED)
   P* s_offs = reinterpret_cast<P*>(s_dyn);
   __shared__ float s_ext[3][3], s_c[3], s_L[3][3], s_off[3], s_spos[3];
   PHASE_STAMP_START();
@@ -101,7 +107,8 @@ __global__ void __launch_bounds__(THREADS) undistort_kernel(
     t = t_rel[i];
     act = pmask[i];
   }
-  for (int r = threadIdx.x; r < M; r += THREADS) s_offs[r] = pose.offs[r * pose.s_offs];
+  if (STAGED)
+    for (int r = threadIdx.x; r < M; r += THREADS) s_offs[r] = pose.offs[r * pose.s_offs];
   if (threadIdx.x < 32) {
     // the frame's constants: ext = R_li^T R_e^T (lanes 0-8), c = R_li^T
     // t_li (9-11); the calibration (12-23) and the state's position in f32
@@ -125,13 +132,16 @@ __global__ void __launch_bounds__(THREADS) undistort_kernel(
   __syncthreads();
   PHASE_STAMP(1);
 
-  // torch.searchsorted's lower bound on the staged offsets
+  // torch.searchsorted's lower bound on the offsets, staged or in place
+  const auto offs_at = [&](int r) -> float {
+    return STAGED ? (float)s_offs[r] : (float)pose.offs[(long long)r * pose.s_offs];
+  };
   int k = 0;
   if (act) {
     int lo = 0, hi = M;
     while (lo < hi) {
       const int mid = lo + ((hi - lo) >> 1);
-      if (!((float)s_offs[mid] >= t))
+      if (!(offs_at(mid) >= t))
         lo = mid + 1;
       else
         hi = mid;
@@ -142,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) undistort_kernel(
   PHASE_STAMP(2);
 
   if (act) {
-    const float dt = t - (float)s_offs[k];
+    const float dt = t - offs_at(k);
     // the pose row: 21 independent loads
     float Rh[3][3], pk[3], vk[3], ak[3], gk[3];
 #pragma unroll
@@ -206,11 +216,21 @@ int launch(const void* const* f, const long long* strides, int M, const void* s_
                static_cast<const P*>(f[2]), static_cast<const P*>(f[3]),
                static_cast<const P*>(f[4]), static_cast<const P*>(f[5]),
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5], M};
-  undistort_kernel<P><<<(N + THREADS - 1) / THREADS, THREADS, M * sizeof(P), stream>>>(
-      pose, static_cast<const double*>(s_rot), static_cast<const double*>(s_pos),
-      static_cast<const float*>(lid_rot), static_cast<const float*>(lid_off),
-      static_cast<const float*>(pts), static_cast<const float*>(t_rel),
-      static_cast<const bool*>(pmask), static_cast<float*>(out), N);
+  const int blocks = (N + THREADS - 1) / THREADS;
+  const double* sr = static_cast<const double*>(s_rot);
+  const double* sp = static_cast<const double*>(s_pos);
+  const float* lr = static_cast<const float*>(lid_rot);
+  const float* lo = static_cast<const float*>(lid_off);
+  const float* x = static_cast<const float*>(pts);
+  const float* tr = static_cast<const float*>(t_rel);
+  const bool* pm = static_cast<const bool*>(pmask);
+  float* o = static_cast<float*>(out);
+  if (M <= STAGE_M)
+    undistort_kernel<P, true><<<blocks, THREADS, M * sizeof(P), stream>>>(pose, sr, sp, lr, lo,
+                                                                           x, tr, pm, o, N);
+  else
+    undistort_kernel<P, false><<<blocks, THREADS, 0, stream>>>(pose, sr, sp, lr, lo, x, tr, pm,
+                                                               o, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,16 +240,17 @@ int launch(const void* const* f, const long long* strides, int M, const void* s_
 // acc, gyr (M rows, f64 if pose_f64 else f32; a row's values contiguous,
 // rows `strides[j]` elements apart); s_rot (3, 3) and s_pos (3,) f64;
 // lid_rot (3, 3) and lid_off (3,) f32; pts (N, 3) f32, t_rel (N,) f32,
-// pmask (N,) bool; out (N, 3) f32. Returns the launch's cudaError_t (0 =
-// cudaSuccess; cudaErrorInvalidValue for M < 1 or M > MAX_M); N = 0
-// launches nothing.
+// pmask (N,) bool; out (N, 3) f32. Tables of up to STAGE_M rows are
+// staged in shared memory, larger ones searched in place. Returns the
+// launch's cudaError_t (0 = cudaSuccess; cudaErrorInvalidValue for M < 1);
+// N = 0 launches nothing.
 extern "C" int undistort_launch(const void* const* fields, const long long* strides, int M,
                                 int pose_f64, const void* s_rot, const void* s_pos,
                                 const void* lid_rot, const void* lid_off, const void* pts,
                                 const void* t_rel, const void* pmask, void* out, int N,
                                 void* stream) {
   if (N <= 0) return 0;
-  if (M <= 0 || M > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return pose_f64 ? launch<double>(fields, strides, M, s_rot, s_pos, lid_rot, lid_off, pts,
                                    t_rel, pmask, out, N, s)

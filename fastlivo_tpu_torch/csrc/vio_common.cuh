@@ -5,7 +5,8 @@
 // norms in the order of ops/linalg.py (norm3, matvec3, mat3) and
 // ops/photometric.py::_rows_times, vio._cam_pose, the Shi-Tomasi score of
 // ops/image.py::shi_tomasi (its 8x8 box sums in `halving_sum`'s order, by
-// a half-warp) and the warp's halving sum over a patch. Each expression
+// a half-warp) and the warp's halving sum over a patch at vio._patch_sum's
+// width. Each expression
 // follows its plain version's order of operations (built with
 // -fmad=false, every product rounds alone). Include after hash_mix.cuh
 // (the voxel hash).
@@ -138,10 +139,23 @@ __device__ __forceinline__ int cell_of(float u, float v, float inv_grid, int gh,
   return clampi((int32_t)((uint32_t)cu * (uint32_t)gh + (uint32_t)cv), 0, G - 1);
 }
 
-// image.halving_sum over 64 values held two a lane (x[lane], x[lane + 32]),
-// summed in the tree's order; every lane gets the sum
-__device__ __forceinline__ float warp_tree64(float lo, float hi) {
-  float s = lo + hi;
+// image.halving_sum at width NW (64, 128 or 256: vio._patch_sum's width)
+// over NW values held NW / 32 a lane (x[h] = value lane + 32 h, zeros
+// past the patch), summed in the tree's order: the levels above 32 in the
+// lane (x[h] + x[h + n / 2] while n > 1: at 64 x0 + x1, at 128 (x0 + x2) +
+// (x1 + x3), at 256 ((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 + x7))),
+// then the warp's shuffle tree; every lane gets the sum
+template <int NW>
+__device__ __forceinline__ float warp_tree(const float (&x)[NW / 32]) {
+  static_assert(NW == 64 || NW == 128 || NW == 256, "a tree of 64, 128 or 256 values");
+  float y[NW / 32];
+#pragma unroll
+  for (int h = 0; h < NW / 32; ++h) y[h] = x[h];
+#pragma unroll
+  for (int n = NW / 32; n > 1; n >>= 1)
+#pragma unroll
+    for (int h = 0; h < n / 2; ++h) y[h] = y[h] + y[h + n / 2];
+  float s = y[0];
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1) s = s + __shfl_down_sync(FULL, s, off);
   return __shfl_sync(FULL, s, 0);

@@ -41,6 +41,14 @@
 //   version's later add_points leaves of it; the writes are then disjoint.
 // Integer arithmetic apart from the pose and the prep stage, whose float
 // expressions follow the plain version's order (built with -fmad=false).
+// Up to STAGE_B rows the insert block keeps its NARR words a row in
+// dynamic shared memory (and each row block its warps' plans); past that
+// the same code keeps them, and the rows' plans, in a global scratch of
+// vio_observations_scratch_ints(B) ints, zero on entry, which the kernel
+// writes back to zero after its last read of them, so that any number of
+// rows runs in the same one launch. The layout is a template parameter
+// the launch picks by B (so that the staged instance's accesses stay
+// shared-memory ones).
 //
 // Bound (chip_smoke.py's vio_observations_bound_ms): the bytes of the
 // rows' inputs, the map rows and rings they read and write, the probed
@@ -63,8 +71,8 @@ namespace {
 
 constexpr int THREADS = 1024;  // a warp a row: 32 rows a row block
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_B = 2048;
-constexpr int NARR = 28;  // the insert block's shared words a row (4 packed keys, 20 ints)
+constexpr int STAGE_B = 2048;  // rows whose insert arrays fit shared memory (224 KB)
+constexpr int NARR = 28;  // the insert block's words a row (4 packed keys, 20 ints)
 constexpr int MAX_DEV = 64;
 
 struct Obs {
@@ -105,6 +113,8 @@ struct Obs {
   float* oscore;     // (B,)
   int32_t* n_pts_out;  // ()
   int32_t* nrow;     // (B,) scratch: a new point's map row, -1 where dropped
+  int* ws;           // past STAGE_B rows: (NARR + 1) B ints, the insert block's
+                     // arrays and the rows' plans (the global layout's)
   float* rcw2_out;   // (3, 3)
   float* pcw2_out;   // (3,)
   int NP, KO, T, VC, R, H, W, B, max_probe;
@@ -112,12 +122,12 @@ struct Obs {
 
 // A row's voxel key (x, y, z) and row number packed so that two unsigned
 // comparisons give the (z, y, x, row) order: zy = z' << 32 | y', xr = x'
-// << 11 | row, where v' = v ^ 0x80000000 orders int32 as uint32.
+// << 32 | row, where v' = v ^ 0x80000000 orders int32 as uint32.
 __device__ __forceinline__ unsigned long long pack_zy(int32_t y, int32_t z) {
   return (unsigned long long)((uint32_t)z ^ 0x80000000u) << 32 | ((uint32_t)y ^ 0x80000000u);
 }
 __device__ __forceinline__ unsigned long long pack_xr(int32_t x, int row) {
-  return (unsigned long long)((uint32_t)x ^ 0x80000000u) << 11 | (unsigned)row;
+  return (unsigned long long)((uint32_t)x ^ 0x80000000u) << 32 | (unsigned)row;
 }
 __device__ __forceinline__ int32_t unpack(unsigned long long v) {
   return (int32_t)((uint32_t)v ^ 0x80000000u);
@@ -306,7 +316,7 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
   // row (a power of two, adjacent lanes, each a share of the kept rows,
   // their counts summed by shuffles), and against the others at once
   // (they share the key E)
-  const unsigned long long ezy = pack_zy(E, E), ex = pack_xr(E, 0) >> 11;
+  const unsigned long long ezy = pack_zy(E, E), ex = pack_xr(E, 0) >> 32;
   const int S = B >= THREADS ? 1 : min(32, 1 << (31 - __clz(THREADS / B)));
   for (int base = 0; base < B * S; base += THREADS) {  // block-uniform
     const int u = base + tid, i = u / S, q = u % S;
@@ -324,7 +334,7 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
     }
     for (int off = 1; off < S; off <<= 1) pos += __shfl_xor_sync(vio::FULL, pos, off);
     if (live && q == 0) {
-      const unsigned long long x = xr >> 11;
+      const unsigned long long x = xr >> 32;
       pos += ezy < zy || (ezy == zy && ex < x) ? B - n_new
              : ezy == zy && ex == x            ? i - s.cx[i]
                                                : 0;
@@ -336,14 +346,14 @@ __device__ void insert_hash(const Obs& o, const Ins& s, int* s_w, int np0) {
   const int tmask = o.T - 1;
   for (int p = tid; p < B; p += THREADS) {
     const int i = s.row[p];
-    const unsigned long long zy = s.kzy[i], x = s.kxr[i] >> 11;
+    const unsigned long long zy = s.kzy[i], x = s.kxr[i] >> 32;
     int sl;
     int32_t chk;
     vio::slot_check(unpack(x), unpack(zy), unpack(zy >> 32), tmask, sl, chk);
     s.chk[p] = chk;
     s.slot[p] = sl;
     s.msk[p] = s.m2[i];
-    const int start = p == 0 || zy != s.kzy[s.row[p - 1]] || x != s.kxr[s.row[p - 1]] >> 11;
+    const int start = p == 0 || zy != s.kzy[s.row[p - 1]] || x != s.kxr[s.row[p - 1]] >> 32;
     s.lead[p] = start;
     s.grp[p] = start;
     s.done[p] = !s.m2[i];
@@ -462,6 +472,7 @@ __device__ void write_new_row(const Obs& o, const float* rcw, const float* pcw, 
   else if (lane == 21) o.n_obs[r] = 1;
 }
 
+template <bool STAGED>
 __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(8) int sm[];
@@ -488,9 +499,15 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
 
   const int nwarps = (gridDim.x - 1) * WARPS;
   const int gw = blockIdx.x * WARPS + warp;
+  // the rows' plans: a row block's in its shared memory, or the scratch's
+  // last B ints (a row's at its index)
+  const auto plan_at = [&](int k, int j) -> int* {
+    return STAGED ? sm + j * WARPS + warp : o.ws + (size_t)NARR * o.B + k;
+  };
   Ins s;
   if (inserter) {  // its warps take rows after the barrier too
-    s.kzy = reinterpret_cast<unsigned long long*>(sm);  // 8-byte aligned first
+    int* base = STAGED ? sm : o.ws;
+    s.kzy = reinterpret_cast<unsigned long long*>(base);  // 8-byte aligned first
     s.kxr = s.kzy + o.B;
     s.czy = s.kxr + o.B;
     s.cxr = s.czy + o.B;
@@ -508,7 +525,7 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
     const vio::Cam cam = vio::load_cam(o.fx, o.fy, o.cx, o.cy, o.dist);
     for (int k = gw, j = 0; k < o.B; k += nwarps, ++j) {
       const int pack = prep_row(o, cam, rcw2, pcw2, campos2, k, lane);
-      if (lane == 0) sm[j * WARPS + warp] = pack;
+      if (lane == 0) *plan_at(k, j) = pack;
     }
     PHASE_STAMP(6);
   }
@@ -519,8 +536,17 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
   if (!inserter) {
     const int n_new = __ldcg(o.n_pts_out) - np0;
     __syncwarp();
-    for (int k = gw, j = 0; k < o.B; k += nwarps, ++j)
-      write_row(o, rcw2, pcw2, slot, fid, np0, n_new, k, sm[j * WARPS + warp], lane);
+    for (int k = gw, j = 0; k < o.B; k += nwarps, ++j) {
+      int* pl = plan_at(k, j);
+      const int pack = STAGED ? *pl : __shfl_sync(vio::FULL, lane == 0 ? __ldcg(pl) : 0, 0);
+      if (!STAGED && lane == 0) *pl = 0;  // the scratch back at 0
+      write_row(o, rcw2, pcw2, slot, fid, np0, n_new, k, pack, lane);
+    }
+  } else if (!STAGED) {  // the insert arrays back at 0 (read no more after the barrier)
+    const size_t n = (size_t)NARR * o.B;
+    int4* w4 = reinterpret_cast<int4*>(o.ws);
+    for (size_t i = tid; i < n / 4; i += THREADS) w4[i] = make_int4(0, 0, 0, 0);
+    for (size_t i = n / 4 * 4 + tid; i < n; i += THREADS) o.ws[i] = 0;
   }
   for (int i = gw; i < o.B; i += gridDim.x * WARPS) {
     const int r = __ldcg(o.nrow + i);
@@ -529,14 +555,22 @@ __global__ void __launch_bounds__(THREADS) vio_observations_kernel(const Obs o) 
   PHASE_STAMP(4);
 }
 
-struct DevInfo {
-  int coop = -1, sms = 0, smem_set = 0, occ_smem = -1, per_sm = 0;
+struct DevInfo {  // per layout (staged, global): the limit set, the occupancy
+  int coop = -1, sms = 0, smem_set[2] = {0, 0}, occ_smem[2] = {-1, -1}, per_sm[2] = {0, 0};
 };
 DevInfo g_dev[MAX_DEV];
 
 }  // namespace
 
 PHASE_STAMPS_EXPORT(vio_observations)
+
+// The global scratch a launch of B rows takes, in int32: none up to
+// STAGE_B rows, else the insert block's NARR words a row and a plan a
+// row; -1 for a B the kernel's int indices do not hold.
+extern "C" int vio_observations_scratch_ints(int B) {
+  if (B < 1 || (long long)(NARR + 1) * B >= (1LL << 31)) return -1;
+  return B > STAGE_B ? (NARR + 1) * B : 0;
+}
 
 // The map upkeep of one camera frame over B rows (the grid cells), in
 // place. Pointers, all contiguous on the device: the visual map's pos (NP,
@@ -550,8 +584,10 @@ PHASE_STAMPS_EXPORT(vio_observations)
 // (B,) int32, valid (B,) u8 and search level (B,) int32; the new points
 // pos (B, 3), px (B, 2), score (B,) f32 and mask (B,) u8; outputs opc (B,
 // 2), oscore (B,) f32, n_pts' () int32 and the posterior pose rcw2 (3, 3),
-// pcw2 (3,) f32; scratch nrow (B,) int32. `grid_out` receives the number
-// of blocks launched.
+// pcw2 (3,) f32; scratch nrow (B,) int32 and ws,
+// vio_observations_scratch_ints(B) int32 zeros (16-byte aligned; left at
+// 0; none up to STAGE_B rows). `grid_out` receives the number of blocks
+// launched.
 // Returns the launch's cudaError_t (0 = cudaSuccess).
 extern "C" int vio_observations_launch(
     void* pos, void* value, void* n_obs, const void* n_pts, void* obs_px, void* obs_rcw,
@@ -561,10 +597,11 @@ extern "C" int vio_observations_launch(
     const void* spos, const void* Rci, const void* Pci, const void* rcw, const void* pcw,
     const void* fid, const void* t_idx, const void* t_valid, const void* t_slevel,
     const void* npos, const void* npx, const void* nscore, const void* nadd, void* opc,
-    void* oscore, void* n_pts_out, void* rcw2, void* pcw2, void* nrow, int NP, int KO, int T,
-    int VC, int R, int H, int W, int B, int max_probe, int* grid_out, void* stream) {
+    void* oscore, void* n_pts_out, void* rcw2, void* pcw2, void* nrow, void* ws, int NP, int KO,
+    int T, int VC, int R, int H, int W, int B, int max_probe, int* grid_out, void* stream) {
   if (NP < 1 || KO < 1 || KO > 0x7FFF || T < 1 || (T & (T - 1)) || VC < 1 || R < 1 || H < 1 ||
-      W < 1 || B < 1 || B > MAX_B || max_probe < 1)
+      W < 1 || vio_observations_scratch_ints(B) < 0 || max_probe < 1 ||
+      (B > STAGE_B && (ws == nullptr || (reinterpret_cast<uintptr_t>(ws) & 15))))
     return static_cast<int>(cudaErrorInvalidValue);
   Obs o;
   o.pos = static_cast<float*>(pos);
@@ -607,6 +644,7 @@ extern "C" int vio_observations_launch(
   o.rcw2_out = static_cast<float*>(rcw2);
   o.pcw2_out = static_cast<float*>(pcw2);
   o.nrow = static_cast<int32_t*>(nrow);
+  o.ws = static_cast<int*>(ws);
   o.NP = NP;
   o.KO = KO;
   o.T = T;
@@ -634,30 +672,31 @@ extern "C" int vio_observations_launch(
   }
   if (!d.coop) return static_cast<int>(cudaErrorNotSupported);
   // the insert block's arrays (a row block keeps one plan per row of its
-  // warps in the same space)
-  const size_t smem = (size_t)NARR * B * sizeof(int);
-  if ((int)smem > d.smem_set) {
-    e = cudaFuncSetAttribute(vio_observations_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  // warps in the same space), or none past STAGE_B rows
+  const size_t smem = B > STAGE_B ? 0 : (size_t)NARR * B * sizeof(int);
+  const int t = B > STAGE_B ? 1 : 0;
+  const void* fn = t ? (const void*)vio_observations_kernel<false>
+                     : (const void*)vio_observations_kernel<true>;
+  if ((int)smem > d.smem_set[t]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    d.smem_set = (int)smem;
+    d.smem_set[t] = (int)smem;
   }
-  if (d.occ_smem != (int)smem) {
+  if (d.occ_smem[t] != (int)smem) {
     int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vio_observations_kernel, THREADS,
-                                                      smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    d.per_sm = per_sm;
-    d.occ_smem = (int)smem;
+    d.per_sm[t] = per_sm;
+    d.occ_smem[t] = (int)smem;
   }
-  const int per_sm = d.per_sm;
+  const int per_sm = d.per_sm[t];
   if ((long long)per_sm * d.sms < 2) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   // a warp per row, as many row blocks as are co-resident, and the insert block
   const int want = (B + WARPS - 1) / WARPS + 1;
   const int grid = want < per_sm * d.sms ? want : per_sm * d.sms;
   *grid_out = grid;
   void* args[] = {&o};
-  e = cudaLaunchCooperativeKernel((const void*)vio_observations_kernel, dim3(grid),
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid),
                                   dim3(THREADS), args, smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

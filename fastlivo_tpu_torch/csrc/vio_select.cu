@@ -36,7 +36,13 @@
 //   and whether it beats cell_value); then the warped patches at pyramid
 //   levels 0-2 (ops/image.affine_warp_patches), a warp each, from the u8
 //   or f32 pool; then the error, the outlier gate and, with ncc_en, the
-//   NCC gate (every sum over a patch in image.halving_sum's order).
+//   NCC gate (every sum over a patch in image.halving_sum's order at
+//   vio._patch_sum's width).
+// A patch of P x P pixels is held NW / 32 a lane of the cell's warps (k =
+// lane + 32 h), NW the tree's width, a template parameter the launch picks
+// from P: 64 for P <= 8, 128 for P 9-11, 256 for P 12-16 (vio_common.cuh's
+// warp_tree). The pool's first STAGE_R image ids are staged in shared
+// memory, the rest read from global memory in the same launch.
 // Only integer atomics (a min or max is order-free), no float atomics:
 // the same bits on every launch and any grid.
 //
@@ -66,13 +72,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 512;  // two blocks an SM
-constexpr int MAX_P = 8;  // P * P <= 64: two pixels a lane
+constexpr int THREADS = 512;
+constexpr int MAX_P = 16;  // P * P <= 256: eight pixels a lane
 constexpr long long KEY_NONE = 0x7FFFFFFFFFFFFFFFLL;
 constexpr float DEPTH_CONT_GATE = 1.5f;  // vio.DEPTH_CONT_GATE
 constexpr int WARPS = THREADS / 32;
 constexpr int CELLS = WARPS / 4;  // cells a block, four warps each
-constexpr int MAX_R = 12288;  // the pool's image ids in shared memory (48 KB)
+constexpr int STAGE_R = 12288;  // the pool's image ids staged in shared memory (48 KB)
 constexpr int MAX_DEV = 64;
 
 struct Sel {
@@ -226,11 +232,13 @@ __device__ void voxel_rows(const Sel& s, const vio::Cam& cam, const float* rcw, 
   }
 }
 
-// What a cell's warps share (CELLS cells a block).
+// What a cell's warps share (CELLS cells a block); the patches at the
+// tree's width NW.
+template <int NW>
 struct CellSh {
   float a00, a01, a10, a11, rpu, rpv;
   int sl, slot, depth_ok, view_ok;
-  float cur[MAX_P * MAX_P], ref0[MAX_P * MAX_P];
+  float cur[NW], ref0[NW];
 };
 
 // A cell's tracked winner, as every warp of the cell derives it.
@@ -262,7 +270,8 @@ __device__ __forceinline__ Winner winner_of(const Sel& s, const vio::Cam& cam, c
 }
 
 // phase 3 of select_tracked: the depth-continuity window, by a warp
-__device__ void depth_window(const Sel& s, const Winner& w, int lane, CellSh& sh) {
+template <int NW>
+__device__ void depth_window(const Sel& s, const Winner& w, int lane, CellSh<NW>& sh) {
   const int half = s.P / 2, side = 2 * half + 1;
   const int r0 = (int)w.wv, c0 = (int)w.wu;
   bool broke = false;
@@ -280,9 +289,10 @@ __device__ void depth_window(const Sel& s, const Winner& w, int lane, CellSh& sh
 
 // phase 4: close_view_obs (a lane per observation), then the affine warp
 // of the best view and its search level, by a warp
+template <int NW>
 __device__ void best_view(const Sel& s, const vio::Cam& cam, const float* rcw, const float* pcw,
                           const float* campos, const int* img_fid, const Winner& w, int lane,
-                          CellSh& sh) {
+                          CellSh<NW>& sh) {
   const int half = s.P / 2;
   const float* wp = w.wp;
   float od[3] = {campos[0] - wp[0], campos[1] - wp[1], campos[2] - wp[2]};
@@ -302,7 +312,8 @@ __device__ void best_view(const Sel& s, const vio::Cam& cam, const float* rcw, c
     float cs = (od[0] * d[0] + od[1] * d[1]) + od[2] * d[2];
     const int32_t f = __ldg(s.obs_fid + e);
     const int32_t sl = __ldg(s.obs_slot + e);
-    if (!(f >= 0 && img_fid[vio::clampi(sl, 0, s.R - 1)] == f)) cs = -2.0f;
+    const int r = vio::clampi(sl, 0, s.R - 1);  // staged, else in place
+    if (!(f >= 0 && (r < STAGE_R ? img_fid[r] : __ldg(s.img_fid + r)) == f)) cs = -2.0f;
     if (vio::beats(cs, o, bcos, bo)) {
       bcos = cs;
       bo = o;
@@ -367,13 +378,14 @@ __device__ void best_view(const Sel& s, const vio::Cam& cam, const float* rcw, c
 
 // phase 5's current patch at level 0 (extract_patches, scale 1), by a
 // warp: pixel k = lane + 32 h (row x = k / P over v, column y = k % P)
-__device__ void current_patch(const Sel& s, const Winner& w, int lane, CellSh& sh) {
+template <int NW>
+__device__ void current_patch(const Sel& s, const Winner& w, int lane, CellSh<NW>& sh) {
   const int P = s.P, PP = P * P, half = P / 2;
   const int32_t ui = (int32_t)floorf(w.wu), vi = (int32_t)floorf(w.wv);
   const float su = w.wu - (float)ui, sv = w.wv - (float)vi;
   const float w_tl = (1.0f - su) * (1.0f - sv), w_tr = su * (1.0f - sv);
   const float w_bl = (1.0f - su) * sv, w_br = su * sv;
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < NW / 32; ++h) {
     const int k = lane + 32 * h;
     if (k >= PP) continue;
     const int x = k / P, y = k - (k / P) * P;
@@ -399,13 +411,14 @@ __device__ void new_point(const Sel& s, int c) {
 }
 
 // the warped reference patch at pyramid level lvl, by a warp
-__device__ void warped_patch(const Sel& s, int c, int lvl, int lane, CellSh& sh) {
+template <int NW>
+__device__ void warped_patch(const Sel& s, int c, int lvl, int lane, CellSh<NW>& sh) {
   const int P = s.P, PP = P * P, half = P / 2;
   const float scf = (float)((1 << lvl) * (1 << sh.sl));
   const float a00 = sh.a00, a01 = sh.a01, a10 = sh.a10, a11 = sh.a11;
   const float rpu = sh.rpu, rpv = sh.rpv;
   const int slot = sh.slot;
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < NW / 32; ++h) {
     const int k = lane + 32 * h;
     if (k >= PP) continue;
     const int x = k / P, y = k - (k / P) * P;
@@ -428,10 +441,13 @@ __device__ void warped_patch(const Sel& s, int c, int lvl, int lane, CellSh& sh)
 }
 
 // phase 5's error, outlier and NCC gates and the cell's outputs, by a warp
-__device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const CellSh& sh) {
+// (every patch sum a warp_tree<NW>, zeros past the patch)
+template <int NW>
+__device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const CellSh<NW>& sh) {
+  constexpr int H = NW / 32;
   const int P = s.P, PP = P * P;
-  float ref0[2] = {0.0f, 0.0f}, cur[2] = {0.0f, 0.0f}, e2[2] = {0.0f, 0.0f};
-  for (int h = 0; h < 2; ++h) {
+  float ref0[H] = {}, cur[H] = {}, e2[H] = {};
+  for (int h = 0; h < H; ++h) {
     const int k = lane + 32 * h;
     if (k >= PP) continue;
     ref0[h] = sh.ref0[k];
@@ -439,21 +455,24 @@ __device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const
     const float d = ref0[h] - cur[h];
     e2[h] = d * d;
   }
-  const float err0 = vio::warp_tree64(e2[0], e2[1]);
+  const float err0 = vio::warp_tree<NW>(e2);
   bool t_ok = w.has_map && sh.depth_ok && sh.view_ok;
   t_ok = t_ok && err0 <= (__ldg(s.out_thr) * (float)P) * (float)P;
   if (s.ncc_en) {
-    const float ma = vio::warp_tree64(ref0[0], ref0[1]) * s.inv_n;
-    const float mb = vio::warp_tree64(cur[0], cur[1]) * s.inv_n;
-    float am[2], bm[2];
-    for (int h = 0; h < 2; ++h) {
+    const float ma = vio::warp_tree<NW>(ref0) * s.inv_n;
+    const float mb = vio::warp_tree<NW>(cur) * s.inv_n;
+    float am[H], bm[H], t[H];
+    for (int h = 0; h < H; ++h) {
       const bool in = lane + 32 * h < PP;
       am[h] = in ? ref0[h] - ma : 0.0f;
       bm[h] = in ? cur[h] - mb : 0.0f;
     }
-    const float sab = vio::warp_tree64(am[0] * bm[0], am[1] * bm[1]);
-    const float saa = vio::warp_tree64(am[0] * am[0], am[1] * am[1]);
-    const float sbb = vio::warp_tree64(bm[0] * bm[0], bm[1] * bm[1]);
+    for (int h = 0; h < H; ++h) t[h] = am[h] * bm[h];
+    const float sab = vio::warp_tree<NW>(t);
+    for (int h = 0; h < H; ++h) t[h] = am[h] * am[h];
+    const float saa = vio::warp_tree<NW>(t);
+    for (int h = 0; h < H; ++h) t[h] = bm[h] * bm[h];
+    const float sbb = vio::warp_tree<NW>(t);
     const float ncc = sab / sqrtf(saa * sbb + 1e-10f);
     t_ok = t_ok && ncc >= __ldg(s.ncc_thr);
   }
@@ -465,11 +484,12 @@ __device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const
   s.errors[c] = err0;
 }
 
+template <int NW>
 __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float sh_rcw[9], sh_pcw[3];
-  __shared__ CellSh csh[CELLS];
-  extern __shared__ int sh_img_fid[];  // (R,)
+  __shared__ CellSh<NW> csh[CELLS];
+  extern __shared__ int sh_img_fid[];  // (min(R, STAGE_R),)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gt = blockIdx.x * THREADS + threadIdx.x, nt = gridDim.x * THREADS;
   const int gw = gt >> 5, nw = nt >> 5;
@@ -489,7 +509,8 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
     s.nkey[c] = KEY_NONE;
     s.cell_value[c] = 0.0f;
   }
-  for (int r = threadIdx.x; r < s.R; r += THREADS) sh_img_fid[r] = __ldg(s.img_fid + r);
+  for (int r = threadIdx.x; r < min(s.R, STAGE_R); r += THREADS)
+    sh_img_fid[r] = __ldg(s.img_fid + r);
   __syncthreads();
   PHASE_STAMP(5);
   const vio::Cam cam = vio::load_cam(s.fx, s.fy, s.cx, s.cy, s.dist);
@@ -520,7 +541,7 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   PHASE_STAMP(3);
   // four warps a cell, the cells spread over the blocks
   const int role = warp & 3;
-  CellSh& sh = csh[warp >> 2];
+  CellSh<NW>& sh = csh[warp >> 2];
   for (int c0 = blockIdx.x; c0 < s.G; c0 += CELLS * gridDim.x) {
     const int c = c0 + (warp >> 2) * gridDim.x;
     const bool live = c < s.G;
@@ -542,9 +563,32 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
 }
 
 struct DevInfo {
-  int coop = -1, sms = 0, occ_smem = -1, per_sm = 0;
+  int coop = -1, sms = 0;
+  // per tree width (64, 128, 256): the dynamic shared memory the kernel
+  // may take, and the occupancy at the last launch's
+  int smem_set[3] = {0, 0, 0}, occ_smem[3] = {-1, -1, -1}, per_sm[3] = {0, 0, 0};
 };
 DevInfo g_dev[MAX_DEV];
+
+// Raise the instance's dynamic shared-memory limit when smem needs more
+// than it was set to (past 48 KB with the static CellSh), and query its
+// co-resident blocks per SM at smem when that changed; the grid follows.
+cudaError_t prepare(const void* fn, int t, size_t smem, DevInfo& d) {
+  cudaError_t e = cudaSuccess;
+  if ((int)smem > d.smem_set[t]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    d.smem_set[t] = (int)smem;
+  }
+  if (d.occ_smem[t] != (int)smem) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem);
+    if (e != cudaSuccess) return e;
+    d.per_sm[t] = per_sm;
+    d.occ_smem[t] = (int)smem;
+  }
+  return e;
+}
 
 }  // namespace
 
@@ -564,8 +608,9 @@ PHASE_STAMPS_EXPORT(vio_select)
 // (M,), pcn (M, 2) and score (M,) f32; outputs idx (G,) int32, wpos (G, 3), patch (G, 3, P, P),
 // slevel (G,) int32, valid (G,) u8, cell_value and errors (G,) f32, npos
 // (G, 3), npx (G, 2), nscore (G,) f32, nadd (G,) u8 and the camera pose
-// rcw (3, 3), pcw (3,) f32. `grid_out` receives the number of blocks
-// launched. Returns the launch's cudaError_t (0 = cudaSuccess).
+// rcw (3, 3), pcw (3,) f32. P is 2 .. 16, R any size (the first STAGE_R
+// image ids staged in shared memory). `grid_out` receives the number of
+// blocks launched. Returns the launch's cudaError_t (0 = cudaSuccess).
 extern "C" int vio_select_launch(
     const void* pos, const void* value, const void* obs_px, const void* obs_rcw,
     const void* obs_pcw, const void* obs_slot, const void* obs_fid, const void* vox_keys,
@@ -581,7 +626,7 @@ extern "C" int vio_select_launch(
     int imgs_u8, int* grid_out, void* stream) {
   if (NP < 1 || KO < 1 || T < 1 || (T & (T - 1)) || VC < 1 || R < 1 || H < 1 || W < 1 ||
       M < 1 || Nv < 1 || (long long)Nv * VC >= (1 << 20) || M >= (1 << 20) || G < 1 ||
-      R > MAX_R || (reinterpret_cast<uintptr_t>(cand) & 15) || gh < 1 || grid_size < 1 ||
+      (reinterpret_cast<uintptr_t>(cand) & 15) || gh < 1 || grid_size < 1 ||
       P < 2 || P > MAX_P || max_probe < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Sel s;
@@ -670,26 +715,27 @@ extern "C" int vio_select_launch(
     d.coop = coop;
   }
   if (!d.coop) return static_cast<int>(cudaErrorNotSupported);
-  const size_t smem = (size_t)R * sizeof(int);  // the pool's image ids
-  if (d.occ_smem != (int)smem) {
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vio_select_kernel, THREADS, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    d.per_sm = per_sm;
-    d.occ_smem = (int)smem;
-  }
-  if (d.per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  // the tree's width: vio._patch_sum's, the next power of two of P * P, at
+  // least 64
+  const int t = P * P <= 64 ? 0 : (P * P <= 128 ? 1 : 2);
+  const void* fn = t == 0   ? (const void*)vio_select_kernel<64>
+                   : t == 1 ? (const void*)vio_select_kernel<128>
+                            : (const void*)vio_select_kernel<256>;
+  const size_t smem = (size_t)(R < STAGE_R ? R : STAGE_R) * sizeof(int);  // the staged ids
+  e = prepare(fn, t, smem, d);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (d.per_sm[t] < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   // a warp for every two voxels and every two scan rows, and four for
   // every cell, or as many blocks as are co-resident
   const long long items = (long long)(Nv + 1) / 2 + (M + 1) / 2;
   long long want = (items + WARPS - 1) / WARPS;
   if (want < (G + CELLS - 1) / CELLS) want = (G + CELLS - 1) / CELLS;
-  const long long cap = (long long)d.per_sm * d.sms;
+  const long long cap = (long long)d.per_sm[t] * d.sms;
   const int grid = (int)(want < cap ? want : cap);
   *grid_out = grid;
   void* args[] = {&s};
-  e = cudaLaunchCooperativeKernel((const void*)vio_select_kernel, dim3(grid), dim3(THREADS),
-                                  args, smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args, smem,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,10 +43,11 @@ from .ops.photometric import _require
 from .state import DIM_STATE, G_M_S2, NavState, pack24
 
 BIG_T = 1e30
-# the largest pose table csrc/undistort.cu takes (its MAX_M): the merged
-# table of Pipeline.max_scan_poses = 8 (max_imu_per_group + 1) rows at
-# max_imu_per_group 512
-UNDISTORT_MAX_M = 4104
+# the largest pose table csrc/undistort.cu stages in shared memory (its
+# STAGE_M): the merged table of Pipeline.max_scan_poses = 8
+# (max_imu_per_group + 1) rows at max_imu_per_group 512; a larger table is
+# searched in global memory in the same launch
+UNDISTORT_STAGE_M = 4104
 MAX_INI_COUNT = 200  # reference: IMU_Processing.h:36
 
 
@@ -456,10 +457,10 @@ def undistort(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
     (`undistort_plain`'s arguments and result). CUDA points take one
     launch of csrc/undistort.cu on the current stream (counted in
     `undistort.launches`), with no host read: the pose table's fields as
-    they lie (f32 or f64, rows any stride apart; at most UNDISTORT_MAX_M
-    rows, staged in shared memory), the state f64, the rest f32; CPU
-    points run `undistort_plain`. No other device is taken and nothing
-    falls back: a larger table raises."""
+    they lie (f32 or f64, rows any stride apart; up to UNDISTORT_STAGE_M
+    rows staged in shared memory, a larger table searched in place), the
+    state f64, the rest f32; CPU points run `undistort_plain`. No other
+    device is taken and nothing falls back."""
     dev = pts.device
     if dev.type == "cpu":
         return undistort_plain(s_end, pose, pts, t_rel, pmask, calib)
@@ -486,9 +487,9 @@ def undistort(s_end: NavState, pose: PoseTable, pts: torch.Tensor,
     out = torch.empty_like(pts)
     if N == 0:
         return out
-    if not 0 < M <= UNDISTORT_MAX_M:
-        raise ValueError(f"undistort: a pose table of {M} rows (the kernel stages at most "
-                         f"{UNDISTORT_MAX_M} in shared memory)")
+    if not 0 < M < 1 << 31:
+        raise ValueError(f"undistort: a pose table of {M} rows (1 .. 2^31 - 1, the kernel's "
+                         "int row index)")
     ptrs = (ctypes.c_void_p * 6)(*[f.data_ptr() for f, _ in rows])
     strides = (ctypes.c_longlong * 6)(*[s for _, s in rows])
     err = _undistort_launcher()(

@@ -15,7 +15,10 @@ and `visual_map.add_points` (each reads its count of kept rows back to
 the host), which is also the kernel's oracle on the card.
 
 Contract on the card: every field of the map after the call, and the
-returned pixels, scores and pose, bit-equal to the plain version's.
+returned pixels, scores and pose, bit-equal to the plain version's, at
+any number of rows (grid cells): up to 2048 the kernel's insert block
+keeps its arrays in shared memory, past that in the stream's scratch
+(`photometric._ticket`), which every launch leaves at 0.
 """
 from __future__ import annotations
 
@@ -24,11 +27,10 @@ import functools
 
 import torch
 
-from .photometric import _require
+from .photometric import _require, _ticket
 from .vio_select import MAX_PROBE, check_cam, check_map
 
 I32, F32, F64 = torch.int32, torch.float32, torch.float64
-MAX_ROWS = 2048  # the insert block's shared-memory arrays (28 words a row)
 
 
 def vio_observations_plain(vm, cam, img, rot, pos, Rci, Pci, t_idx, t_valid, t_slevel, rcw,
@@ -52,11 +54,13 @@ def vio_observations_plain(vm, cam, img, rot, pos, Rci, Pci, t_idx, t_valid, t_s
 def _launcher():
     from . import _build
 
-    fn = _build.load("vio_observations").vio_observations_launch
-    fn.argtypes = ([ctypes.c_void_p] * 40 + [ctypes.c_int] * 9
+    lib = _build.load("vio_observations")
+    fn, size = lib.vio_observations_launch, lib.vio_observations_scratch_ints
+    fn.argtypes = ([ctypes.c_void_p] * 41 + [ctypes.c_int] * 9
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return _build.profiled("vio_observations", fn)
+    size.argtypes = [ctypes.c_int]
+    fn.restype = size.restype = ctypes.c_int
+    return _build.profiled("vio_observations", fn), size
 
 
 def vio_observations(vm, cam, img, rot, pos, Rci, Pci, t_idx, t_valid, t_slevel, rcw, pcw,
@@ -76,9 +80,11 @@ def vio_observations(vm, cam, img, rot, pos, Rci, Pci, t_idx, t_valid, t_slevel,
     NP, KO, T, VC, R = check_map("vio_observations", vm, dev)
     check_cam("vio_observations", cam, dev)
     B = t_idx.shape[0]
-    if img.ndim != 2 or not 1 <= B <= MAX_ROWS:
-        raise ValueError(f"vio_observations: frame {tuple(img.shape)}, {B} rows (1.."
-                         f"{MAX_ROWS})")
+    launch, size = _launcher()
+    k = size(B) if B < 1 << 31 else -1
+    if img.ndim != 2 or k < 0:
+        raise ValueError(f"vio_observations: frame {tuple(img.shape)}, {B} rows (at least 1, "
+                         "and (28 + 1) B below 2^31)")
     H, W = img.shape
     fid = torch.as_tensor(fid, dtype=I32, device=dev)
     for name, t, shape, dtype in (
@@ -96,14 +102,16 @@ def vio_observations(vm, cam, img, rot, pos, Rci, Pci, t_idx, t_valid, t_slevel,
     rcw2, pcw2 = torch.empty((3, 3), dtype=F32, device=dev), torch.empty(3, dtype=F32,
                                                                          device=dev)
     nrow = torch.empty(B, dtype=I32, device=dev)  # scratch: the new points' rows
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _ticket(dev, stream, k) if k else None  # past 2048 rows; left at 0
     ptrs = [t.data_ptr() for t in (
         vm.pos, vm.value, vm.n_obs, vm.n_pts, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot,
         vm.obs_fid, vm.obs_level, vm.vox_keys, vm.vox_count, vm.vox_idx, vm.img_fid, cam.fx,
         cam.fy, cam.cx, cam.cy, cam.d, img, rot, pos, Rci, Pci, rcw, pcw, fid, t_idx, t_valid,
         t_slevel, npos, npx, nscore, nadd, opc, oscore, n_pts, rcw2, pcw2, nrow)]
     grid = ctypes.c_int(0)
-    err = _launcher()(*ptrs, NP, KO, T, VC, R, H, W, B, MAX_PROBE, ctypes.byref(grid),
-                      torch.cuda.current_stream(dev).cuda_stream)
+    err = launch(*ptrs, None if ws is None else ws.data_ptr(), NP, KO, T, VC, R, H, W, B,
+                 MAX_PROBE, ctypes.byref(grid), stream)
     if err != 0:
         raise RuntimeError(f"vio_observations: kernel launch failed (cudaError {err})")
     vio_observations.launches += 1

@@ -16,7 +16,8 @@ which is also the kernel's oracle on the card.
 
 Contract on the card: every output bit-equal to the plain version's
 (the TrackedSet's idx, pos, patch, search_level, valid, cell_value and
-errors, the new points' pos, px, score and add, and the pose).
+errors, the new points' pos, px, score and add, and the pose), at every
+patch size from 2 to 16 (the photometric kernels' limit) and any pool.
 """
 from __future__ import annotations
 
@@ -28,9 +29,8 @@ import torch
 from .photometric import _require
 
 I32, I64, F32, F64 = torch.int32, torch.int64, torch.float32, torch.float64
-MAX_PATCH = 8  # P * P <= 64: two pixels a lane of the cell's warp
+MAX_PATCH = 16  # P * P <= 256: eight pixels a lane of the cell's warp
 MAX_PROBE = 12  # the voxel hash's probe depth (visual_map's default)
-MAX_RING = 12288  # the pool's image ids, kept in a block's shared memory
 
 
 def vio_select_plain(vm, cam, rot, pos, Rci, Pci, img, pg, pg_mask, vox, vox_mask,
@@ -120,8 +120,6 @@ def vio_select(vm, cam, rot, pos, Rci, Pci, img, pg, pg_mask, vox, vox_mask,
     if not 2 <= P <= MAX_PATCH or G < 1 or int(grid_size) < 1:
         raise ValueError(f"vio_select: patch_size {P} (2..{MAX_PATCH}), {gw}x{gh} cells, "
                          f"grid {grid_size}")
-    if R > MAX_RING:
-        raise ValueError(f"vio_select: a pool of {R} images (at most {MAX_RING})")
     M, Nv = pg.shape[0], vox.shape[0]
     if M < 1 or Nv < 1 or M >= 1 << 20 or Nv * VC >= 1 << 20:
         raise ValueError(f"vio_select: {M} scan rows and {Nv} x {VC} candidates (each "

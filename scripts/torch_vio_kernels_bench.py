@@ -266,7 +266,8 @@ def observations_call(lib, vm, oa):
 
     gen = generation(lib)
     fn = lib.vio_observations_launch
-    n_ptr = 40 if gen == "state" else 35
+    ws = b"void* nrow, void* ws" in lib.source  # the global scratch past 2048 rows
+    n_ptr = (41 if ws else 40) if gen == "state" else 35
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9
                    + ([ctypes.POINTER(ctypes.c_int)] if gen == "state" else [])
                    + [ctypes.c_void_p])
@@ -277,10 +278,14 @@ def observations_call(lib, vm, oa):
     f32 = dict(dtype=torch.float32, device=dev)
     opc, oscore = torch.empty((B, 2), **f32), torch.empty(B, **f32)
     n_pts = torch.empty((), dtype=torch.int32, device=dev)
-    if gen == "state":  # and the new rows' scratch
+    if gen == "state":  # and the new rows' scratch (and the global one)
         pose_in = [rot2, pos2, Rci, Pci]
         pose_out = [torch.empty((3, 3), **f32), torch.empty(3, **f32)]
         scratch = [torch.empty(B, dtype=torch.int32, device=dev)]
+        if ws:
+            size = lib.vio_observations_scratch_ints
+            size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+            scratch.append(torch.zeros(max(size(B), 1), dtype=torch.int32, device=dev))
     else:
         pose_in = list(vio._cam_pose(Rci, Pci, rot2, pos2))
         pose_out, scratch = [], []

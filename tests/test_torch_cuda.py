@@ -68,6 +68,7 @@ outputs, the centroid's scratch left at 0; the whole steady
 lidar_frame_step and delete_boxes with device boxes without a
 synchronising call.
 """
+import contextlib
 import itertools
 
 import numpy as np
@@ -791,13 +792,15 @@ def test_photometric_cascade_and_step_refuse_bad_inputs(cuda):
 LIO_DS = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
 
 
-def small_lio(device, backend="tiled", cache_knn=False, **kw):
+def small_lio(device, backend="tiled", cache_knn=False, per_group=None, **kw):
     cfg = Config()
     cfg.img_enable = False
     cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
                                   tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
                                   map_backend=backend, map_table_size=1 << 16,
                                   dense_dims=(64, 64, 16), cache_knn=cache_knn)
+    if per_group is not None:
+        cfg.capacity.max_imu_per_group = per_group
     ds = SyntheticDataset(**LIO_DS)
     pipe = Pipeline(cfg, device=device, **kw)
     for beg, pts, t_rel in ds.lidar_scans_fast():
@@ -1462,34 +1465,70 @@ def test_pipeline_propagates_through_the_kernel(cuda, camera, monkeypatch):
     assert np.sqrt(np.mean(np.square(e))) < (0.06 if camera else 0.02)
 
 
-def test_pipeline_at_4khz_imu_with_512_pair_groups(cuda):
-    """A LIO run with a 4 kHz IMU and capacity.max_imu_per_group 512
-    (~400 pairs a 10 Hz group, the 512 bucket): one imu_propagate launch
-    per propagated group, no refusal, positions within 1 mm of the same
-    run on the CPU."""
+def fast_imu_runs(cuda, per_group, imu_hz=4000.0):
+    """A LIO run with a fast IMU at capacity.max_imu_per_group
+    `per_group`, on the card and on the CPU: (card outputs, CPU outputs,
+    imu_propagate launches of each, IMU buckets, undistort launches of
+    each, the card pipeline)."""
+    from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import imu_scan
 
-    outs, groups, buckets = [], [], []
+    outs, groups, buckets, und, pipes = [], [], [], [], []
     for dev in (cuda, "cpu"):
         cfg = Config()
         cfg.img_enable = False
         cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
                                       tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
-                                      max_imu_per_group=512)
+                                      max_imu_per_group=per_group)
         ds = SyntheticDataset(duration=3.0, points_per_scan=4096, lidar_noise=0.004, seed=3,
-                              imu_hz=4000.0)
+                              imu_hz=imu_hz)
         pipe = Pipeline(cfg, device=dev)
         for beg, pts, t_rel in ds.lidar_scans_fast():
             pipe.push_lidar(beg, pts, t_rel)
         for t, acc, gyr in ds.imu_stream():
             pipe.push_imu(t, acc, gyr)
-        n0 = imu_scan.imu_propagate.launches
+        n0, u0 = imu_scan.imu_propagate.launches, imu_mod.undistort.launches
         outs.append(pipe.spin() + pipe.finish())
         groups.append(imu_scan.imu_propagate.launches - n0)
+        und.append(imu_mod.undistort.launches - u0)
         buckets.append(pipe._imu_bucket)
-    card, cpu = outs
+        pipes.append(pipe)
+    return outs[0], outs[1], groups, buckets, und, pipes[0]
+
+
+def test_pipeline_at_4khz_imu_with_512_pair_groups(cuda):
+    """A LIO run with a 4 kHz IMU and capacity.max_imu_per_group 512
+    (~400 pairs a 10 Hz group, the 512 bucket): one imu_propagate launch
+    per propagated group, no refusal, positions within 1 mm of the same
+    run on the CPU."""
+    card, cpu, groups, buckets, _, _ = fast_imu_runs(cuda, 512)
     assert groups[1] == 0 and groups[0] >= len(card) >= 20
     assert buckets == [512, 512]
+    np.testing.assert_array_equal([o.t for o in card], [o.t for o in cpu])
+    d = np.abs(np.array([o.pos for o in card]) - np.array([o.pos for o in cpu])).max()
+    assert d < 1e-3, d
+
+
+def test_pipeline_at_max_imu_per_group_1024(cuda, monkeypatch):
+    """A LIO run at capacity.max_imu_per_group 1024 (an 8 kHz IMU: ~800
+    pairs a 10 Hz group): its scan pose table has 8200 rows, past the
+    undistortion's shared-memory stage, and every scan is undistorted by
+    one undistort launch (the global layout) and none by the plain
+    version's code; positions within 1 mm of the same run on the CPU."""
+    from fastlivo_tpu_torch import imu as imu_mod
+
+    real, on_card = imu_mod.undistort_plain, []
+
+    def plain(s_end, pose, pts, *a):
+        on_card.append(pts.device.type == "cuda")
+        return real(s_end, pose, pts, *a)
+
+    monkeypatch.setattr(imu_mod, "undistort_plain", plain)
+    card, cpu, groups, buckets, und, pipe = fast_imu_runs(cuda, 1024, imu_hz=8000.0)
+    assert pipe.max_scan_poses == 8200 > imu_mod.UNDISTORT_STAGE_M
+    assert buckets[0] == buckets[1] and buckets[0] > 512
+    assert groups[0] >= len(card) >= 20 and und[0] > len(card) and und[1] == 0
+    assert on_card and not any(on_card)  # the CPU run's only
     np.testing.assert_array_equal([o.t for o in card], [o.t for o in cpu])
     d = np.abs(np.array([o.pos for o in card]) - np.array([o.pos for o in cpu])).max()
     assert d < 1e-3, d
@@ -1706,7 +1745,9 @@ def launch_guarded(launch, inputs, outputs):
                                     "lio_cascade", "vio_select", "vio_observations",
                                     "tiled_delete_boxes", "voxel_centroids",
                                     "tiled_insert_keys", "tiled_insert_tiles",
-                                    "tiled_insert_cells", "undistort"])
+                                    "tiled_insert_cells", "undistort", "vio_select_p16",
+                                    "vio_select_pool_12289", "vio_observations_3264",
+                                    "undistort_8200"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -1729,7 +1770,12 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     in rows[4] and runs the cells pass too, over 48 blocks, its scratch
     (ticket, marked tiles, ranked tiles, finished blocks, status words)
     back at 0, on the map as built and (tiled_insert_cells) on one whose
-    pool overflows; undistort at 16379 points."""
+    pool overflows; undistort at 16379 points. The layouts past the
+    shared-memory stages: vio_select at patch size 16 (the 256-wide tree)
+    and on a pool of 12289 slots (the last id read in place),
+    vio_observations at 3264 rows (its insert arrays and plans in the
+    global scratch, an output here, back at 0 after the launch), undistort
+    on an 8200-row table (searched in global memory)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -1739,7 +1785,7 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         return vio_write_only(cuda, kernel)
     if kernel in ("tiled_delete_boxes", "voxel_centroids"):
         return map_stage_write_only(cuda, kernel)
-    if kernel.startswith("tiled_insert") or kernel == "undistort":
+    if kernel.startswith("tiled_insert") or kernel.startswith("undistort"):
         return frame_kernel_write_only(cuda, kernel)
 
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
@@ -1795,9 +1841,12 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
 FW, FH, FF = 640, 512, 400.0  # the main path's camera: 16 x 12 cells of 40 px
 
 
-def full_cam(device):
-    return camera.from_config(CameraConfig(width=FW, height=FH, fx=FF, fy=FF, cx=(FW - 1) / 2.0,
-                                           cy=(FH - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0]), device)
+def full_cam(device, W=FW, H=FH):
+    """The main path's camera, or one of W x H pixels with its focal
+    length (a narrower view)."""
+    f = FF
+    return camera.from_config(CameraConfig(width=W, height=H, fx=f, fy=f, cx=(W - 1) / 2.0,
+                                           cy=(H - 1) / 2.0, d=[0.0, 0.0, 0.0, 0.0]), device)
 
 
 def clone_map(vm):
@@ -1833,10 +1882,12 @@ def project(cam, pts, rcw, pcw):
     return camera.world2cam(cam, pc).cpu().numpy().astype(np.float32)
 
 
-def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
+def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40, W=FW, H=FH,
+                     ring=256):
     """A visual map at the shipped capacities (65536 points x 20
-    observations, 2^18 slots x 8, a pool of 256 640x512 images, u8 or
-    f32), grown by the port's own map operations on the card: `frames`
+    observations, 2^18 slots x 8, a pool of `ring` (256) W x H (640x512)
+    images, u8 or f32), grown by the port's own map operations on the
+    card: `frames`
     noisy copies of one texture pushed at poses within ~1 mrad and ~5 mm
     of the identity (so that the warped patches match and cells track),
     192 points a frame in front of the camera (some of them with a value
@@ -1850,12 +1901,12 @@ def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
     from fastlivo_tpu_torch import visual_map as tvm
 
     rng = np.random.default_rng(seed)
-    cam = full_cam(dev)
+    cam = full_cam(dev, W, H)
     vm = tvm.empty_visual_map(n_points=1 << 16, n_obs=20, table_size=1 << 18, voxel_cap=8,
-                              ring=256, height=FH, width=FW,
+                              ring=ring, height=H, width=W,
                               img_dtype=torch.uint8 if u8 else None, device=dev)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    base = texture(rng)
+    base = texture(rng, H, W)
     for f in range(frames):
         img = base + rng.normal(0, 2.0, base.shape).astype(np.float32)
         vm = tvm.push_image(vm, t(img), f)
@@ -1900,7 +1951,7 @@ def random_vio_frame(dev, u8=True, seed=0, frames=24, ncc=False, P=8, grid=40):
                 pg_mask=pg_mask,
                 vox=vox, vox_mask=vox_mask, outlier_threshold=torch.tensor(300.0, **f32),
                 ncc_thre=torch.tensor(0.5, **f32), grid_size=grid, patch_size=P,
-                gw=FW // grid, gh=FH // grid, ncc_en=ncc)
+                gw=W // grid, gh=H // grid, ncc_en=ncc)
 
 
 def obs_args(a, sel, seed=1):
@@ -1979,6 +2030,157 @@ def test_vio_select_and_observations_match_plain_on_a_random_map(cuda, u8, ncc):
     g2, w2 = obs_both(a["vm"], obs_args(a, got))
     assert_obs_equal(g2, w2)
     assert int(g2[0].n_pts) > int(a["vm"].n_pts)
+
+
+def select_refused():
+    """The plain selection's code (vio_select_plain and what it calls)."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    return plain_refused((vs, "vio_select_plain"), (vio, "select_tracked"),
+                         (vio, "select_new_points"), (vio, "_cam_pose"))
+
+
+def observations_refused():
+    """The plain upkeep's code (vio_observations_plain and what it calls)."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+
+    return plain_refused((vo, "vio_observations_plain"), (vio, "prep_observations"),
+                         (tvm, "add_observations"), (tvm, "add_points"), (vio, "_cam_pose"))
+
+
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("ncc", [False, True], ids=["ncc_off", "ncc_on"])
+def test_vio_select_takes_patch_sizes_2_to_16(cuda, u8, ncc):
+    """Every patch size from 2 to 16 on one random map (the tree widths
+    64, 128 and 256 of vio._patch_sum): vio_select one launch, the plain
+    version's code not reached, every output bit-equal to the plain
+    version's (each TrackedSet field, the new points, the pose); cells
+    tracked at every width."""
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    a = random_vio_frame(cuda, u8=u8, seed=41 + u8, ncc=ncc)
+    tracked = {}
+    for P in range(2, 17):
+        a["patch_size"] = P
+        kw = {k: v for k, v in a.items() if k != "vm"}
+        n0 = vs.vio_select.launches
+        with select_refused():
+            got = vs.vio_select(a["vm"], **kw)
+        assert vs.vio_select.launches == n0 + 1
+        want = vs.vio_select_plain(a["vm"], **kw)
+        assert got[0].patch.shape == (192, 3, P, P)
+        try:
+            assert_select_equal(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"patch_size {P}: {e}") from e
+        tracked[P] = int(got[0].valid.sum())
+    for widths in (range(2, 9), range(9, 12), range(12, 17)):
+        assert sum(tracked[P] for P in widths) > 0, tracked
+
+
+def pool_past_stage(a, R):
+    """The frame `a`'s map with its pool of `ring` slots moved to the last
+    `ring` slots of a pool of R (the rest empty: fid -1, zero images) and
+    every observation's slot moved with it."""
+    vm = a["vm"]
+    r0, H, W = vm.imgs.shape
+    off = R - r0
+    imgs = torch.zeros((R, H, W), dtype=vm.imgs.dtype, device=vm.imgs.device)
+    imgs[off:] = vm.imgs
+    fid = torch.full((R,), -1, dtype=torch.int32, device=vm.imgs.device)
+    fid[off:] = vm.img_fid
+    return dict(a, vm=vm._replace(imgs=imgs, img_fid=fid, obs_slot=vm.obs_slot + off))
+
+
+@pytest.mark.parametrize("R", [12288, 12289, 12312])
+def test_vio_select_takes_pools_past_12288_slots(cuda, R):
+    """A pool of R 128x128 u8 images (~200 MB at 12289), the map's 24
+    frames in its last slots: 12288 (every id staged in shared memory),
+    12289 (the last one read from global memory), 12312 (all 24): one
+    vio_select launch, the plain code not reached, bit-equal to the plain
+    version; the same frame with its 24-slot pool gives the same outputs
+    (the slots' move changes nothing)."""
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    a = random_vio_frame(cuda, seed=19, W=128, H=128, grid=16, ring=24, frames=24)
+    b = pool_past_stage(a, R)
+    kw = {k: v for k, v in b.items() if k != "vm"}
+    n0 = vs.vio_select.launches
+    with select_refused():
+        got = vs.vio_select(b["vm"], **kw)
+    assert vs.vio_select.launches == n0 + 1
+    assert_select_equal(got, vs.vio_select_plain(b["vm"], **kw))
+    assert_select_equal(got, vs.vio_select(a["vm"], **kw))
+    assert int(got[0].valid.sum()) > 0
+
+
+def obs_rows_args(cuda, B, seed=17):
+    """vio_observations' arguments for B rows (cells) on a random map:
+    tracked rows of distinct points, the invalid rows' indices anywhere
+    in the pool (some of them the rows the new points take), new points
+    sharing voxels. Returns (the map, the arguments, the index, valid)."""
+    a = random_vio_frame(cuda, seed=seed, frames=8)
+    vm = a["vm"]
+    rng = np.random.default_rng(seed + 6)
+    NP, n = vm.pos.shape[0], int(vm.n_pts)
+    t = lambda x, **kw: torch.as_tensor(x, device=cuda, **kw)  # noqa: E731
+    idx = rng.integers(0, NP, B).astype(np.int32)
+    idx[rng.integers(0, B, 64)] = rng.integers(n, n + 300, 64)  # aliasing new rows
+    k = min(n, 1200)
+    rows = rng.permutation(B)[:k]
+    idx[rows] = rng.permutation(n)[:k]
+    valid = np.zeros(B, bool)
+    valid[rows] = rng.random(k) < 0.8
+    z = rng.uniform(2.0, 8.0, B)
+    npos = np.stack([z * rng.uniform(-0.6, 0.6, B), z * rng.uniform(-0.45, 0.45, B), z], -1)
+    npos[1::3] = npos[0::3][:len(npos[1::3])]  # shared voxels
+    f64 = dict(dtype=torch.float64)
+    rot2 = (so3.exp(t(rng.normal(0, 0.003, 3), **f64)) @ a["rot"]).contiguous()
+    pos2 = a["pos"] + t(rng.normal(0, 0.015, 3) + [0.6, 0.0, 0.0], **f64)
+    args = (a["cam"], a["img"], rot2, pos2, a["Rci"], a["Pci"], t(idx), t(valid),
+            t(rng.integers(0, 3, B).astype(np.int32)), a["Rci"].clone(), a["Pci"].clone(),
+            t(npos.astype(np.float32)), t(rng.uniform(0, 600, (B, 2)).astype(np.float32)),
+            t(rng.uniform(0, 50, B).astype(np.float32)), t(rng.random(B) < 0.5),
+            (vm.img_fid.max()).to(torch.int32))
+    return vm, args, idx, valid
+
+
+def scratch_is_zero(dev) -> bool:
+    """The stream's scratch (photometric._ticket), which every launch
+    leaves at 0."""
+    t = photometric._tickets.get((dev, torch.cuda.current_stream(dev).cuda_stream))
+    return t is None or not bool(t.any())
+
+
+@pytest.mark.parametrize("B", [2049, 3264])
+def test_vio_observations_past_2048_rows(cuda, B):
+    """Past the insert block's shared memory (2048 rows): 2049, and 3264
+    (a 640x512 camera at grid 10, 64 x 51 cells), one vio_observations
+    launch each, the plain code not reached, every map field bit-equal to
+    the plain version's, also with the point pool full but for 100 rows
+    and with n_pts 50 below the map's last point; the global scratch
+    left at 0."""
+    from fastlivo_tpu_torch.ops import vio_observations as vo
+
+    vm, args, idx, valid = obs_rows_args(cuda, B)
+    NP, n = vm.pos.shape[0], int(vm.n_pts)
+    shrunk = vm._replace(n_pts=torch.tensor(n - 50, dtype=torch.int32, device=cuda))
+    full = vm._replace(n_pts=torch.tensor(NP - 100, dtype=torch.int32, device=cuda))
+    for m in (vm, full, shrunk):
+        n0 = vo.vio_observations.launches
+        with observations_refused():
+            got = vo.vio_observations(clone_map(m), *args)
+        assert vo.vio_observations.launches == n0 + 1
+        torch.cuda.synchronize()
+        assert scratch_is_zero(cuda)
+        assert_obs_equal(got, vo.vio_observations_plain(clone_map(m), *args))
+        if m is vm:
+            assert int(got[0].n_pts) > n + 500 and vo.vio_observations.grid >= 2
+        if m is full:
+            assert int(got[0].n_pts) == NP
 
 
 def test_vio_kernels_at_patch_4_and_320_cells(cuda):
@@ -2129,37 +2331,19 @@ def test_vio_observations_voxel_claims(cuda, case):
 
 
 def test_vio_observations_at_2048_rows(cuda):
-    """B = 2048 rows (the wrapper's limit; 2049 refused): tracked rows of
-    distinct points, the invalid rows' indices anywhere in the pool (some
-    of them the rows the new points take), new points sharing voxels;
-    bit-equal to the plain version, also with the point pool full but for
-    100 rows, and with n_pts 50 below the map's last point (tracked rows
-    that the new points then take again, their rings partly filled)."""
+    """B = 2048 rows (the shared-memory layout's last size): tracked rows
+    of distinct points, the invalid rows' indices anywhere in the pool
+    (some of them the rows the new points take), new points sharing
+    voxels; bit-equal to the plain version, also with the point pool full
+    but for 100 rows, and with n_pts 50 below the map's last point
+    (tracked rows that the new points then take again, their rings partly
+    filled). One row more (2049, the global layout) is one launch too,
+    the plain code not reached, bit-equal."""
     from fastlivo_tpu_torch.ops import vio_observations as vo
 
-    a = random_vio_frame(cuda, seed=17, frames=8)
-    vm = a["vm"]
-    rng = np.random.default_rng(23)
-    B, NP, n = 2048, vm.pos.shape[0], int(vm.n_pts)
-    t = lambda x, **kw: torch.as_tensor(x, device=cuda, **kw)  # noqa: E731
-    idx = rng.integers(0, NP, B).astype(np.int32)
-    idx[rng.integers(0, B, 64)] = rng.integers(n, n + 300, 64)  # aliasing new rows
-    k = min(n, 1200)
-    rows = rng.permutation(B)[:k]
-    idx[rows] = rng.permutation(n)[:k]
-    valid = np.zeros(B, bool)
-    valid[rows] = rng.random(k) < 0.8
-    z = rng.uniform(2.0, 8.0, B)
-    npos = np.stack([z * rng.uniform(-0.6, 0.6, B), z * rng.uniform(-0.45, 0.45, B), z], -1)
-    npos[1::3] = npos[0::3][:len(npos[1::3])]  # shared voxels
-    f64 = dict(dtype=torch.float64)
-    rot2 = (so3.exp(t(rng.normal(0, 0.003, 3), **f64)) @ a["rot"]).contiguous()
-    pos2 = a["pos"] + t(rng.normal(0, 0.015, 3) + [0.6, 0.0, 0.0], **f64)
-    args = (a["cam"], a["img"], rot2, pos2, a["Rci"], a["Pci"], t(idx), t(valid),
-            t(rng.integers(0, 3, B).astype(np.int32)), a["Rci"].clone(), a["Pci"].clone(),
-            t(npos.astype(np.float32)), t(rng.uniform(0, 600, (B, 2)).astype(np.float32)),
-            t(rng.uniform(0, 50, B).astype(np.float32)), t(rng.random(B) < 0.5),
-            (vm.img_fid.max()).to(torch.int32))
+    B = 2048
+    vm, args, idx, valid = obs_rows_args(cuda, B)
+    NP, n = vm.pos.shape[0], int(vm.n_pts)
     got, want = obs_both(vm, args)
     assert_obs_equal(got, want)
     assert int(got[0].n_pts) > n + 500
@@ -2173,10 +2357,14 @@ def test_vio_observations_at_2048_rows(cuda):
     assert retaken.sum() > 10 and (vm.n_obs[n - 50:n] > 1).any()
     got, want = obs_both(shrunk, args)
     assert_obs_equal(got, want)
-    with pytest.raises(ValueError):
-        vo.vio_observations(vm, *args[:6], *(torch.cat([x, x[:1]]) for x in args[6:9]),
-                            *args[9:11], *(torch.cat([x, x[:1]]) for x in args[11:15]),
-                            args[15])
+    more = (*args[:6], *(torch.cat([x, x[:1]]) for x in args[6:9]), *args[9:11],
+            *(torch.cat([x, x[:1]]) for x in args[11:15]), args[15])
+    n0 = vo.vio_observations.launches
+    with observations_refused():
+        got = vo.vio_observations(clone_map(vm), *more)
+    assert vo.vio_observations.launches == n0 + 1
+    assert_obs_equal(got, vo.vio_observations_plain(clone_map(vm), *more))
+    assert scratch_is_zero(cuda)
 
 
 def livo_calls(dev, monkeypatch, u8=True, frames=6):
@@ -2294,7 +2482,8 @@ def test_vio_kernels_refuse_bad_inputs(cuda):
     a = random_vio_frame(cuda, seed=7, frames=2)
     kw = {k: v for k, v in a.items() if k != "vm"}
     n0 = vs.vio_select.launches
-    for bad, err in ((dict(patch_size=10), ValueError), (dict(pg=a["pg"].double()), TypeError),
+    for bad, err in ((dict(patch_size=17), ValueError), (dict(patch_size=1), ValueError),
+                     (dict(pg=a["pg"].double()), TypeError),
                      (dict(pg_mask=a["pg_mask"][:-1]), ValueError),
                      (dict(rot=a["rot"].t()), ValueError),
                      (dict(Rci=a["Rci"].double()), TypeError),
@@ -2320,7 +2509,14 @@ def vio_write_only(dev, kernel):
     from fastlivo_tpu_torch.ops import vio_observations as vo
     from fastlivo_tpu_torch.ops import vio_select as vs
 
-    a = random_vio_frame(dev, seed=11, frames=12)
+    P, H, W, grid_px = 16 if kernel == "vio_select_p16" else 8, FH, FW, 40
+    if kernel == "vio_select_pool_12289":
+        H = W = 128
+        grid_px = 16
+        a = pool_past_stage(random_vio_frame(dev, seed=19, W=W, H=H, grid=grid_px, ring=24),
+                            12289)
+    else:
+        a = random_vio_frame(dev, seed=11, frames=12, P=P)
     vm, cam = a["vm"], a["cam"]
     NP, KO = vm.obs_fid.shape
     T, VC = vm.vox_idx.shape
@@ -2329,8 +2525,8 @@ def vio_write_only(dev, kernel):
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     sel = vs.vio_select_plain(vm, **{k: v for k, v in a.items() if k != "vm"})
     i32, f32 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.float32, device=dev)
-    G, M, P = 192, a["pg"].shape[0], 8
-    if kernel == "vio_select":
+    G, M = (W // grid_px) * (H // grid_px), a["pg"].shape[0]
+    if kernel.startswith("vio_select"):
         Nv = a["vox"].shape[0]
         ins = [vm.pos, vm.value, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot, vm.obs_fid,
                vm.vox_keys, vm.vox_count, vm.vox_idx, vm.imgs, vm.img_fid, cam.fx, cam.fy,
@@ -2338,7 +2534,7 @@ def vio_write_only(dev, kernel):
                a["pg"], a["pg_mask"], a["vox"], a["vox_mask"], a["outlier_threshold"],
                a["ncc_thre"]]
         scratch = [torch.empty(G, dtype=torch.int64, device=dev),
-                   torch.empty(G, dtype=torch.int64, device=dev), torch.empty(FH * FW, **i32),
+                   torch.empty(G, dtype=torch.int64, device=dev), torch.empty(H * W, **i32),
                    torch.empty((Nv * VC, 4), **f32), torch.empty(M, **f32),
                    torch.empty((M, 2), **f32), torch.empty(M, **f32)]
         outs = [torch.empty(G, **i32), torch.empty((G, 3), **f32),
@@ -2349,12 +2545,17 @@ def vio_write_only(dev, kernel):
                 torch.empty((3, 3), **f32), torch.empty(3, **f32)]
         grid = ctypes.c_int(0)
         got = launch_guarded(lambda *v: vs._launcher()(
-            *ptr(*v), NP, KO, T, VC, R, FH, FW, M, Nv, 40, FH // 40, G, P, 0, 12, 1,
+            *ptr(*v), NP, KO, T, VC, R, H, W, M, Nv, grid_px, H // grid_px, G, P, 0, 12, 1,
             ctypes.byref(grid), stream), ins, scratch + outs)[len(scratch):]
         want = [*sel[0], *sel[1], *sel[2]]
         names = list(sel[0]._fields) + ["pos", "px", "score", "add", "rcw", "pcw"]
     else:
-        args = obs_args(a, sel)
+        if kernel == "vio_observations_3264":
+            vm, args, _, _ = obs_rows_args(dev, 3264)
+            assert (NP, KO, T, VC, R) == (*vm.obs_fid.shape, *vm.vox_idx.shape,
+                                          vm.img_fid.shape[0])
+        else:
+            args = obs_args(a, sel)
         wm, wopc, wosc, wpose = vo.vio_observations_plain(clone_map(vm), *args)
         (cam, img, rot2, pos2, Rci, Pci, t_idx, t_valid, t_slevel, rcw, pcw, npos, npx, nscore,
          nadd, fid) = args
@@ -2363,22 +2564,29 @@ def vio_write_only(dev, kernel):
                Rci, Pci, rcw, pcw, fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd]
         names = ["pos", "value", "n_obs", "obs_px", "obs_rcw", "obs_pcw", "obs_slot",
                  "obs_fid", "obs_level", "vox_keys", "vox_count", "vox_idx"]
+        launch_fn, size = vo._launcher()
+        k = size(B)
+        assert (k > 0) == (B > 2048)
         outs = [getattr(vm, f) for f in names] + [
             torch.empty((B, 2), **f32), torch.empty(B, **f32), torch.empty((), **i32),
-            torch.empty((3, 3), **f32), torch.empty(3, **f32), torch.empty(B, **i32)]
+            torch.empty((3, 3), **f32), torch.empty(3, **f32), torch.empty(B, **i32),
+            torch.zeros(max(k, 1), **i32)]
 
         def launch(n_pts, img_fid, fx, fy, cx, cy, d, img, rot2, pos2, Rci, Pci, rcw, pcw, fid,
                    t_idx, t_valid, t_slevel, npos, npx, nscore, nadd, pos, value, n_obs, obs_px,
                    obs_rcw, obs_pcw, obs_slot, obs_fid, obs_level, vk, vc, vi, opc, osc, npo,
-                   rcw2, pcw2, nrow):
+                   rcw2, pcw2, nrow, ws):
             grid = ctypes.c_int(0)
-            return vo._launcher()(*ptr(
+            return launch_fn(*ptr(
                 pos, value, n_obs, n_pts, obs_px, obs_rcw, obs_pcw, obs_slot, obs_fid,
                 obs_level, vk, vc, vi, img_fid, fx, fy, cx, cy, d, img, rot2, pos2, Rci, Pci,
                 rcw, pcw, fid, t_idx, t_valid, t_slevel, npos, npx, nscore, nadd, opc, osc, npo,
-                rcw2, pcw2, nrow), NP, KO, T, VC, R, FH, FW, B, 12, ctypes.byref(grid), stream)
+                rcw2, pcw2, nrow), ws.data_ptr() if k else None, NP, KO, T, VC, R, FH, FW, B,
+                12, ctypes.byref(grid), stream)
 
-        got = launch_guarded(launch, ins, outs)[:-1]  # the scratch last
+        got = launch_guarded(launch, ins, outs)
+        assert not got.pop().any()  # the global scratch back at 0
+        got = got[:-1]  # nrow, scratch
         want = [getattr(wm, f) for f in names] + [wopc, wosc, wm.n_pts, *wpose]
         names = names + ["opc", "oscore", "n_pts", "rcw2", "pcw2"]
     for g, w, name in zip(got, want, names):
@@ -2589,6 +2797,17 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     its two launches) and the frame's outputs make no
     synchronising call (torch's sync debug mode set to raise), and give the
     same bits as the same step called without the mode."""
+    no_sync_frame_step(cuda, monkeypatch)
+
+
+def test_lidar_frame_step_at_1024_imu_makes_no_synchronising_call(cuda, monkeypatch):
+    """The same at capacity.max_imu_per_group 1024: the scan's 8200-row
+    pose table undistorted by one undistort launch in its global layout,
+    with no synchronising call."""
+    no_sync_frame_step(cuda, monkeypatch, per_group=1024)
+
+
+def no_sync_frame_step(cuda, monkeypatch, per_group=None):
     from fastlivo_tpu_torch import frame_step, pipeline
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import lio_cascade
@@ -2602,9 +2821,11 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(pipeline, "lidar_frame_step", spy)
-    pipe = small_lio(cuda)
+    pipe = small_lio(cuda, per_group=per_group)
     pipe.spin()
     assert len(calls) > 5
+    if per_group is not None:
+        assert pipe.max_scan_poses == 8 * (per_group + 1)
     a, kw = calls[-1]
     want = frame_step.lidar_frame_step(*(a[:1] + (clone_map(a[1]),) + a[2:]), **kw)
     torch.cuda.synchronize()
@@ -2931,13 +3152,15 @@ def undistort_args(dev, d, pose="f32"):
 
 @pytest.mark.parametrize("pose", ["f32", "f64", "pack"])
 @pytest.mark.parametrize("case", ["scan", "small_angle", "offset_hits", "masked", "table_512",
-                                  "table_2", "table_max"])
+                                  "table_2", "table_max", "table_513", "table_1024"])
 def test_undistort_matches_plain(cuda, case, pose):
     """undistort on the card (one launch) gives undistort_plain's bits on
     the card, and within 1e-5 m of undistort_plain on the CPU (CUDA's
     sinf / cosf against the CPU's); with the pose table f32, f64, or the
     f64 column views of a pose pack (rows 24 values apart), from 2 rows
-    to the largest table the kernel stages in shared memory."""
+    to the largest table the kernel stages in shared memory, and the
+    pipeline's tables past it (max_imu_per_group 513 and 1024: 4112 and
+    8200 rows, searched in global memory)."""
     from fastlivo_tpu_torch import imu as imu_mod
 
     d = frame_cases().undistort_case(case)
@@ -2954,31 +3177,63 @@ def test_undistort_matches_plain(cuda, case, pose):
     assert bit_equal(got.cpu()[~torch.from_numpy(pm)], torch.from_numpy(d["pts"][~pm]))
 
 
+@contextlib.contextmanager
+def plain_refused(*where):
+    """Each (module, name) replaced by a function that raises while the
+    block runs: a kernel's wrapper on the card must not reach its plain
+    version's code."""
+    saved = [(m, n, getattr(m, n)) for m, n in where]
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    try:
+        for m, n, _ in saved:
+            setattr(m, n, refuse)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
 def test_undistort_refuses_tables_past_shared_memory(cuda):
-    """A pose table of more than UNDISTORT_MAX_M rows (the kernel's MAX_M)
-    raises in the wrapper, launches nothing, and the launcher itself
-    refuses it; UNDISTORT_MAX_M rows run."""
+    """Pose tables at the shared-memory stage's boundary are taken, none
+    refused (UNDISTORT_STAGE_M = 4104 rows, staged; 4105, 4112 and 8200
+    rows, max_imu_per_group 1024, searched in global memory) each run in
+    one undistort launch, the plain version's code not reached, and give
+    undistort_plain's bits, on f32 and f64 tables with padded, unsorted,
+    duplicate and NaN point times (tests/test_torch_frame_kernels.py's
+    search cases); the launcher itself takes 4105 rows and refuses 0."""
     import ctypes
 
     from fastlivo_tpu_torch import imu as imu_mod
 
-    d = frame_cases().undistort_case("table_max")
-    st, table, pts, t_rel, pmask, calib = undistort_args(cuda, d)
-    big = imu_mod.PoseTable(*(torch.cat([f, f[-1:]]) for f in table))
-    n0 = imu_mod.undistort.launches
-    with pytest.raises(ValueError):
-        imu_mod.undistort(st, big, pts, t_rel, pmask, calib)
-    assert imu_mod.undistort.launches == n0
+    fc = frame_cases()
+    assert imu_mod.UNDISTORT_STAGE_M == fc.UNDISTORT_STAGE_M == 4104
+    for M in (4104, 4105, 4112, 8200):
+        for kind in fc.UNDISTORT_KINDS:
+            d = fc.undistort_kind_case(M, kind)
+            for pose in ("f32", "f64"):
+                args = undistort_args(cuda, d, pose)
+                n0 = imu_mod.undistort.launches
+                with plain_refused((imu_mod, "undistort_plain")):
+                    got = imu_mod.undistort(*args)
+                torch.cuda.synchronize()
+                assert imu_mod.undistort.launches == n0 + 1
+                assert bit_equal(got, imu_mod.undistort_plain(*args)), (M, kind, pose)
+    st, table, pts, t_rel, pmask, calib = undistort_args(cuda, fc.undistort_kind_case(
+        4105, "padded"))
     out = torch.empty_like(pts)
-    fields = (ctypes.c_void_p * 6)(*[f.data_ptr() for f in big])
+    fields = (ctypes.c_void_p * 6)(*[f.data_ptr() for f in table])
     strides = (ctypes.c_longlong * 6)(1, 9, 3, 3, 3, 3)
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
-    assert imu_mod._undistort_launcher()(
-        fields, strides, big.offs.shape[0], 0,
+    launch = lambda M: imu_mod._undistort_launcher()(  # noqa: E731
+        fields, strides, M, 0,
         *ptr(st.rot, st.pos, calib.lid_rot, calib.lid_off, pts, t_rel, pmask, out),
-        pts.shape[0], torch.cuda.current_stream(cuda).cuda_stream) != 0
-    imu_mod.undistort(st, table, pts, t_rel, pmask, calib)
-    assert imu_mod.undistort.launches == n0 + 1
+        pts.shape[0], torch.cuda.current_stream(cuda).cuda_stream)
+    assert launch(4105) == 0 and launch(0) != 0
+    torch.cuda.synchronize()
+    assert bit_equal(out, imu_mod.undistort_plain(st, table, pts, t_rel, pmask, calib))
 
 
 def test_undistort_and_insert_refuse_bad_inputs(cuda):
@@ -3011,8 +3266,9 @@ def frame_kernel_write_only(dev, kernel):
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     n = 16379
-    if kernel == "undistort":
-        d = frame_cases().undistort_case("table_512")
+    if kernel.startswith("undistort"):
+        d = frame_cases().undistort_case("table_1024" if kernel == "undistort_8200"
+                                         else "table_512")
         d["pts"], d["t_rel"], d["pmask"] = (np.resize(d[k], (n,) + d[k].shape[1:])
                                             for k in ("pts", "t_rel", "pmask"))
         st, table, pts, t_rel, pmask, calib = undistort_args(dev, d)

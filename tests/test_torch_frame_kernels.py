@@ -51,8 +51,8 @@ from fastlivo_tpu_torch import imu as timu
 from fastlivo_tpu_torch.ops import tiled_map as ttm
 from fastlivo_tpu_torch.ops.voxel_map import _mix64_np
 
-from torch_frame_cases import (INSERT_CASES, UNDISTORT_CASES, UNDISTORT_MAX_M, VOX, insert_case,
-                               undistort_case)
+from torch_frame_cases import (INSERT_CASES, UNDISTORT_CASES, UNDISTORT_GLOBAL_M,
+                               UNDISTORT_STAGE_M, VOX, insert_case, undistort_case)
 
 torch.set_num_threads(1)
 F32, EMPTY = np.float32, ttm.EMPTY_CHECK
@@ -419,9 +419,10 @@ def test_narrow_key_cases_cover_their_edges():
 # --- the undistortion -------------------------------------------------------
 
 def search_model(offs, t):
-    """csrc/undistort.cu's search over the staged offsets, a point at a
-    time: torch's lower bound (mid = lo + ((hi - lo) >> 1), go right
-    while !(offs[mid] >= t))."""
+    """csrc/undistort.cu's search over the offsets, staged in shared
+    memory (M <= STAGE_M) or in place in global memory (larger M), the
+    same probes in both, a point at a time: torch's lower bound (mid = lo
+    + ((hi - lo) >> 1), go right while !(offs[mid] >= t))."""
     out = np.empty(len(t), np.int64)
     for i, ti in enumerate(t):
         lo, hi = 0, len(offs)
@@ -436,10 +437,12 @@ def search_model(offs, t):
 
 
 @pytest.mark.parametrize("kind", ["padded", "unsorted", "duplicates", "nan_times"])
-@pytest.mark.parametrize("M", [1, 2, 520, UNDISTORT_MAX_M])
+@pytest.mark.parametrize("M", [1, 2, 520, UNDISTORT_STAGE_M, 4105, 8200])
 def test_shared_memory_search_takes_torchs_probes(M, kind):
     """The kernel's search finds torch.searchsorted's (left) row on any
-    table: the plain version's oracle, whatever the offsets' order."""
+    table: the plain version's oracle, whatever the offsets' order; in
+    shared memory up to UNDISTORT_STAGE_M rows, and the same search in
+    global memory past it (4105, 8200: max_imu_per_group 1024)."""
     rng = np.random.default_rng(M + len(kind))
     n_live = max(1, (3 * M) // 4)
     offs = np.full(M, np.float32(1e30), np.float32)  # BIG_T padding
@@ -457,25 +460,33 @@ def test_shared_memory_search_takes_torchs_probes(M, kind):
 
 
 def test_undistort_table_limit_is_the_pipelines():
-    """The kernel's MAX_M (csrc/undistort.cu) is imu.UNDISTORT_MAX_M, the
-    pipeline's merged table at max_imu_per_group 512, and the shipped
-    configuration's table fits."""
+    """The kernel's shared-memory stage (csrc/undistort.cu's STAGE_M) is
+    imu.UNDISTORT_STAGE_M, a size and no longer a limit: the shipped
+    configuration's table fits the stage, 512 is the largest group size
+    whose table still fits it, and the tables past it (513, 1024) are
+    the global layout's test cases; the wrapper refuses no table the
+    kernel's int rows hold."""
     from fastlivo_tpu_torch.config import CapacityConfig, Config
     from fastlivo_tpu_torch.ops import _build
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     src = (_build.CSRC / "undistort.cu").read_text()
-    assert f"constexpr int MAX_M = {timu.UNDISTORT_MAX_M};" in src
-    assert timu.UNDISTORT_MAX_M == UNDISTORT_MAX_M
+    assert f"constexpr int STAGE_M = {timu.UNDISTORT_STAGE_M};" in src
+    assert "MAX_M" not in src and "M <= STAGE_M" in src
+    assert timu.UNDISTORT_STAGE_M == UNDISTORT_STAGE_M
+    assert not hasattr(timu, "UNDISTORT_MAX_M")
     sizes = {}
-    for per_group in (Config().capacity.max_imu_per_group, 512):
+    for per_group in (Config().capacity.max_imu_per_group, 512, 513, 1024):
         cfg = Config()
         cfg.img_enable = False
         cfg.capacity = CapacityConfig(max_points=256, max_raw_points=512,
                                       tiled_dir_dims=(4, 4, 4), tiled_pool=8,
                                       max_imu_per_group=per_group)
         sizes[per_group] = Pipeline(cfg, device="cpu").max_scan_poses
-    assert sizes[512] == timu.UNDISTORT_MAX_M and sizes[64] == 520
+    assert sizes[64] == 520 <= timu.UNDISTORT_STAGE_M
+    assert sizes[512] == timu.UNDISTORT_STAGE_M < sizes[513]
+    assert sizes[513] == UNDISTORT_GLOBAL_M["table_513"]
+    assert sizes[1024] == UNDISTORT_GLOBAL_M["table_1024"]
 
 
 def test_lookback_header_serves_both_kernels(tmp_path, monkeypatch):

@@ -17,7 +17,12 @@ the same inputs. Tolerances:
     at levels 0 and 2, each robust mode: per-point errors rtol 1e-4,
     mean error rtol 1e-5, G = K·HᵀH within 1e-4, the step's position
     within 2e-6 and rotation within 1e-6;
-  - vio_frame_step: equal n_tracked and n_added;
+  - vio_frame_step: equal n_tracked and n_added; also at patch sizes 10
+    and 16 (the camera-frame kernels' 128- and 256-wide trees) on the
+    same map, at the same tolerances but for the covariance's off-diagonal
+    terms, held to 1e-3 of sqrt(c_ii c_jj) (at 16 the cross terms near 0
+    differ by up to 1.7e-3 of themselves, 6.5e-5 of that scale: more
+    pixels summed at poses ~1e-6 apart);
   - with nothing tracked the photometric stage is an exact no-op;
   - render_overlay byte for byte; colorize's masks and colours equal on
     the same image, pose and points; last_bgr (the frame snapshot and its
@@ -282,11 +287,11 @@ def test_photometric_err_H_plain_matches_jax(scene, level, robust):
     np.testing.assert_allclose(rot.numpy(), np.asarray(sj.rot), atol=1e-6)
 
 
-def frame_step_both(sc, jmap, tmap):
+def frame_step_both(sc, jmap, tmap, P=None):
     jv, tv = sc["jv"], sc["tv"]
     prior = sc["prior"]
     meta = np.array([sc["n"], jv.fid], np.int32)
-    kw = dict(grid_size=jv.grid_size, patch_size=jv.patch_size, gw=jv.gw, gh=jv.gh,
+    kw = dict(grid_size=jv.grid_size, patch_size=P or jv.patch_size, gw=jv.gw, gh=jv.gh,
               ncc_en=False, max_iter=6, max_pg=jv.max_pg)
     oj = jvio.vio_frame_step(jmap, jv.cam, prior, prior, jnp.asarray(sc["gray"]),
                              jnp.asarray(meta), jnp.asarray(sc["cloud"]), jv.Rci, jv.Pci,
@@ -312,6 +317,26 @@ def test_vio_frame_step_matches_jax(scene):
     np.testing.assert_allclose(ot[0].cov.numpy(), np.asarray(sj.cov), rtol=1e-3, atol=1e-10)
     stt = ot[10].numpy()
     assert stt.shape == (29,) and stt.dtype == np.float64
+    np.testing.assert_array_equal(stt[[0, 1, 3, 28]], stj[[0, 1, 3, 28]])
+    np.testing.assert_allclose(stt[4:16], stj[4:16], atol=1e-5)
+    assert int(ot[1].n_pts) == int(oj[1].n_pts)
+
+
+@pytest.mark.parametrize("P", [10, 16])
+def test_vio_frame_step_matches_jax_at_wide_patches(scene, P):
+    tmap = convert.visual_map_from_arrays(
+        {f: np.asarray(v) for f, v in scene["jv"].vmap._asdict().items()}, "cpu")
+    oj, ot, _ = frame_step_both(scene, scene["jv"].vmap, tmap, P)
+    assert int(ot[7]) == int(oj[7]) > 10  # n_tracked
+    assert int(ot[8]) == int(oj[8])  # n_added
+    assert ot[9] == int(oj[9])  # iterations
+    sj, stj = oj[0], np.asarray(oj[10])
+    np.testing.assert_allclose(ot[0].pos.numpy(), np.asarray(sj.pos), atol=1e-5)
+    cj, ct = np.asarray(sj.cov), ot[0].cov.numpy()
+    np.testing.assert_allclose(np.diag(ct), np.diag(cj), rtol=1e-3, atol=1e-10)
+    scale = np.sqrt(np.outer(np.diag(cj), np.diag(cj)))
+    assert (np.abs(ct - cj) <= 1e-10 + 1e-3 * scale).all()
+    stt = ot[10].numpy()
     np.testing.assert_array_equal(stt[[0, 1, 3, 28]], stj[[0, 1, 3, 28]])
     np.testing.assert_allclose(stt[4:16], stj[4:16], atol=1e-5)
     assert int(ot[1].n_pts) == int(oj[1].n_pts)

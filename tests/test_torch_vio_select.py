@@ -26,6 +26,15 @@ frames, and a next frame at a perturbed prior. Tolerances:
     the map unchanged, as in JAX;
   - vio.frame_kernels_apply: True on a CUDA device without a mesh, False
     on the CPU, over a mesh and with the pool in slabs;
+  - wider patches (P 10 and 16, the kernel's 128- and 256-wide trees):
+    vio_select against JAX at the tolerances above, on the same map; the
+    kernel's lane trees (vio_common.cuh's warp_tree, numpy model) give
+    image.halving_sum's bits at vio._patch_sum's width for every P from
+    2 to 16, random and adversarial values;
+  - vio_observations over 3264 rows (a 640x512 camera at grid 10: past
+    the kernel's 2048 rows in shared memory) against JAX at the
+    tolerances above: the frame's rows, then invalid tracked rows and new
+    points near the frame's;
   - the camera poses: both wrappers take a state's rot and pos (f64) with
     the extrinsics and return the pose they used, equal to vio._cam_pose
     and within 1e-6 of the JAX package's `Rci @ rot32.T`, `-rcw @ pos32 +
@@ -64,8 +73,8 @@ def both_maps(d):
             convert.visual_map_from_arrays(d, "cpu"))
 
 
-def statics(jv):
-    return dict(grid_size=jv.grid_size, patch_size=jv.patch_size, gw=jv.gw, gh=jv.gh)
+def statics(jv, P=None):
+    return dict(grid_size=jv.grid_size, patch_size=P or jv.patch_size, gw=jv.gw, gh=jv.gh)
 
 
 def state_pose(sc, dpos=(0.0, 0.0, 0.0)):
@@ -79,10 +88,10 @@ def state_pose(sc, dpos=(0.0, 0.0, 0.0)):
     return (rot, pos, tv.Rci, tv.Pci), rcw.numpy(), pcw.numpy()
 
 
-def select_both(sc, d, pg, pm, vox, vm, ncc=False):
+def select_both(sc, d, pg, pm, vox, vm, ncc=False, P=None):
     jv, tv = sc["jv"], sc["tv"]
     jmap, tmap = both_maps(d)
-    kw = statics(jv)
+    kw = statics(jv, P)
     thr = np.float32(0.5 if ncc else 100.0)
     state, rcw, pcw = state_pose(sc)
     tj = jvio.select_tracked(jmap, jv.cam, jnp.asarray(rcw), jnp.asarray(pcw),
@@ -127,6 +136,102 @@ def test_vio_select_matches_jax(scene, pool, ncc):  # noqa: F811
     want, got = select_both(scene, d, pg, pm, vox, vm, ncc)
     valid, add = assert_select_close(want, got)
     assert valid.sum() > 10 and add.sum() > 5
+
+
+@pytest.mark.parametrize("P", [10, 16])
+@pytest.mark.parametrize("ncc", [False, True], ids=["ncc_off", "ncc_on"])
+def test_vio_select_matches_jax_at_wide_patches(scene, P, ncc):  # noqa: F811
+    """Patch sizes 10 and 16 on the scene's map (grown at 8: the map keeps
+    observations and images, not patches), u8 pool."""
+    (pg, pm, vox, vm), _ = stage_inputs(scene)
+    d = arrays(scene["jv"].vmap)
+    want, got = select_both(scene, d, pg, pm, vox, vm, ncc, P=P)
+    assert got[0].patch.shape[1:] == (3, P, P)
+    valid, add = assert_select_close(want, got)
+    assert valid.sum() > 0 and add.sum() > 0
+
+
+def lane_tree(x, width):
+    """csrc/vio_common.cuh's warp_tree<width> in numpy f32: the values
+    padded with zeros to `width`, lane l holding x[l + 32 h]; the levels
+    above 32 in the lane (h + n / 2 onto h while n > 1), then the shuffle
+    tree (lane l adds lane l + off, off 16 .. 1; a lane past 31 reads
+    its own value); lane 0's sum."""
+    x = np.concatenate([x, np.zeros(width - len(x), np.float32)]).astype(np.float32)
+    y = x.reshape(width // 32, 32).copy()  # y[h, l] = x[l + 32 h]
+    n = width // 32
+    while n > 1:
+        y[:n // 2] = y[:n // 2] + y[n // 2:n]
+        n //= 2
+    s = y[0].copy()
+    off = 16
+    while off:
+        down = s.copy()
+        down[:32 - off] = s[off:]
+        s = s + down
+        off //= 2
+    return s[0]
+
+
+def kernel_width(P):
+    """The tree width csrc/vio_select.cu's launch picks from P."""
+    return 64 if P * P <= 64 else (128 if P * P <= 128 else 256)
+
+
+@pytest.mark.parametrize("values", ["random", "adversarial"])
+@pytest.mark.parametrize("P", range(2, 17))
+def test_lane_trees_keep_halving_sums_order(P, values):
+    """The kernel's lane tree at its launch's width gives the bits of
+    image.halving_sum at vio._patch_sum's width (64 for P <= 8, 128 for
+    9-11, 256 for 12-16), on random values and on values whose sum
+    depends on the order (magnitudes from 1e-30 to 1e30 mixed, with
+    cancellation), zeros padding the patch to the width."""
+    from fastlivo_tpu_torch.ops import image
+
+    PP = P * P
+    width = max(64, 1 << (PP - 1).bit_length())
+    assert kernel_width(P) == width
+    rng = np.random.default_rng(P + 100 * len(values))
+    for _ in range(20):
+        if values == "random":
+            x = rng.normal(0, 1, PP) * 10.0 ** rng.integers(-3, 4, PP)
+        else:
+            x = rng.choice([1e30, -1e30, 1e-30, 1.0, -1.0, 3.0e7, 0.1, 2.0 ** -24, 0.0], PP)
+            x = x * rng.uniform(0.5, 2.0, PP)
+        x = x.astype(np.float32)
+        want = image.halving_sum(torch.from_numpy(x)[None], width)[0]
+        assert tvio._patch_sum(torch.from_numpy(x)[None])[0].view(torch.int32) == \
+            want.view(torch.int32)
+        got = np.float32(lane_tree(x, width))
+        assert got.view(np.int32) == want.numpy().view(np.int32), (P, x)
+
+
+def rows_inputs(inp, B, rng):
+    """The frame's observation inputs over B rows (cells): its rows, then
+    B - G rows whose tracked part is invalid (an index anywhere in the
+    pool) and whose new points are the frame's moved by up to 5 cm (some
+    in the same voxels), with its pixels, scores and add mask."""
+    G = len(inp["idx"])
+    k = rng.integers(0, G, B - G)
+    out = dict(inp)
+    out["idx"] = np.concatenate([inp["idx"], rng.integers(0, 4096, B - G).astype(np.int32)])
+    out["valid"] = np.concatenate([inp["valid"], np.zeros(B - G, bool)])
+    out["slevel"] = np.concatenate([inp["slevel"], inp["slevel"][k]])
+    move = rng.uniform(-0.05, 0.05, (B - G, 3)).astype(np.float32)
+    out["npos"] = np.concatenate([inp["npos"], inp["npos"][k] + move])
+    for f in ("npx", "nscore", "nadd"):
+        out[f] = np.concatenate([inp[f], inp[f][k]])
+    return out
+
+
+def test_vio_observations_matches_jax_at_3264_rows(scene):  # noqa: F811
+    d, inp = frame_inputs(scene, arrays(scene["jv"].vmap))
+    inp = rows_inputs(inp, 3264, np.random.default_rng(5))
+    n0, NP = int(d["n_pts"]), d["pos"].shape[0]
+    after, oadd, _ = observations_both(scene, d, inp)
+    kept = min(int(inp["nadd"].sum()), NP - n0)
+    assert kept > 300 and int(after["n_pts"]) == n0 + kept
+    assert oadd.sum() == inp["valid"].sum() > 10
 
 
 def frame_inputs(sc, d):

@@ -15,8 +15,10 @@ INSERT_CASES = ["stream", "aliasing", "overflow", "head_not_ok", "compacted", "e
                 "one_row", "all_invalid", "straddle", "overflow_mid_tile", "nearest_later",
                 "equal_bits", "long_run", "dir_2_22"]
 UNDISTORT_CASES = ["scan", "small_angle", "offset_hits", "masked", "table_512", "table_2",
-                   "table_max"]
-UNDISTORT_MAX_M = 4104  # imu.UNDISTORT_MAX_M: 8 (512 + 1) rows
+                   "table_max", "table_513", "table_1024"]
+UNDISTORT_STAGE_M = 4104  # imu.UNDISTORT_STAGE_M: 8 (512 + 1) rows
+# the pipeline's pose table (8 (max_imu_per_group + 1) rows) past the stage
+UNDISTORT_GLOBAL_M = {"table_4105": 4105, "table_513": 4112, "table_1024": 8200}
 
 
 def stream(seed, n_batches=4, n=1500, span=30.0):
@@ -223,7 +225,10 @@ def undistort_case(case, seed=0):
     if case == "table_2":  # the smallest table with a search: row 0 twice
         M, n_pairs = 2, 2
     if case == "table_max":  # the largest table the kernel stages
-        M, n_pairs, N = UNDISTORT_MAX_M, 4000, 8000
+        M, n_pairs, N = UNDISTORT_STAGE_M, 4000, 8000
+    if case in UNDISTORT_GLOBAL_M:  # searched in global memory
+        M = UNDISTORT_GLOBAL_M[case]
+        n_pairs, N = M - 100, 8000
     if case == "small_angle":  # every row in the Taylor branch (t^2 < 1e-12)
         gyr_scale = 1e-7
     row0 = np.float32(-0.004)
@@ -251,3 +256,35 @@ def undistort_case(case, seed=0):
         d["pmask"][::2] = False
         d["pts"][:40:2] = np.nan
     return d
+
+
+UNDISTORT_KINDS = ["padded", "unsorted", "duplicates", "nan_times"]
+
+
+def undistort_kind_case(M, kind, seed=0):
+    """undistort_case("scan")'s inputs on a table of M rows whose offsets
+    are of one kind: "padded" (sorted, the last quarter BIG_T),
+    "unsorted" (those permuted), "duplicates" (every live offset three
+    times) or "nan_times" (padded, every 7th point time NaN); the point
+    times also hit offsets, BIG_T and the infinities."""
+    rng = np.random.default_rng(seed + M + len(kind))
+    d = undistort_case("scan", seed)
+    N = len(d["pts"])
+    n_live = max(1, (3 * M) // 4)
+    offs = np.full(M, np.float32(BIG_T), np.float32)
+    offs[:n_live] = np.sort(rng.uniform(-0.004, 0.1, n_live)).astype(np.float32)
+    if kind == "unsorted":
+        offs = rng.permutation(offs)
+    if kind == "duplicates":
+        offs[:n_live] = np.repeat(offs[:n_live:3], 3)[:n_live]
+    t = rng.uniform(-0.01, 0.12, N).astype(np.float32)
+    t[:50] = offs[:50]
+    t[50:53] = [np.float32(BIG_T), np.inf, -np.inf]
+    if kind == "nan_times":
+        t[::7] = np.nan
+    d["offs"], d["t_rel"] = offs, t
+    for f, scale in (("pos", 3), ("vel", 1), ("acc", 2), ("gyr", 0.4)):
+        d[f] = rng.normal(0, scale, (M, 3)).astype(np.float32)
+    d["rot"] = _rot(rng.normal(0, 0.5, (M, 3))).astype(np.float32)
+    return d
+
