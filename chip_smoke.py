@@ -692,6 +692,17 @@ def check_cascades(calls, label) -> dict:
     return nums
 
 
+def search_snapshot(m):
+    """A copy on the card of the arrays the LIO search reads of a tiled,
+    hash or dense map."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    if isinstance(m, tm.TiledMap):
+        return m._replace(dir_check=m.dir_check.clone(), dir_slot=m.dir_slot.clone(),
+                          cell_check=m.cell_check.clone(), pts=m.pts.clone())
+    return m._replace(check=m.check.clone(), pts=m.pts.clone())
+
+
 @contextlib.contextmanager
 def recorded_lio(calls: list):
     """Record every lio_cascade call of the paths (lio's) as (arguments,
@@ -703,8 +714,7 @@ def recorded_lio(calls: list):
     real = lio.lio_cascade
 
     def wrapped(m, *a):
-        snap = m._replace(dir_check=m.dir_check.clone(), dir_slot=m.dir_slot.clone(),
-                          cell_check=m.cell_check.clone(), pts=m.pts.clone())
+        snap = search_snapshot(m)
         out = real(m, *a)
         calls.append(((snap, *a), out))
         return out
@@ -713,17 +723,31 @@ def recorded_lio(calls: list):
         yield
 
 
-def lio_loop_on(a, plain_search=False):
-    """lio.lio_loop on a lio_cascade call's arguments `a`, its search
-    knn5_plane_tiled (the cascade's walk, launched alone) or, with
-    `plain_search`, knn5_plane_tiled_plain (torch ops, bit-exact with the
-    walk)."""
-    from fastlivo_tpu_torch import lio
+def map_search(a, plain_search=False):
+    """The search of a lio_cascade call's arguments `a` alone: the map's
+    kernel that runs the cascade's walk (knn5_plane_tiled, or
+    knn5_plane_hashed on the hash or dense map) or, with `plain_search`,
+    its plain version (knn5_plane_tiled_plain, knn5_plane_hashed_plain:
+    torch ops, bit-exact with the walk), as a function of the world
+    points."""
     from fastlivo_tpu_torch.ops import knn_plane
+    from fastlivo_tpu_torch.ops import tiled_map as tm
 
     m, radius, threshold = a[0], a[10], a[11]
-    knn = knn_plane.knn5_plane_tiled_plain if plain_search else knn_plane.knn5_plane_tiled
-    return lio.lio_loop(lambda pw: knn(m, pw, radius, threshold), *a[1:10])
+    if isinstance(m, tm.TiledMap):
+        knn = knn_plane.knn5_plane_tiled_plain if plain_search else knn_plane.knn5_plane_tiled
+        return lambda pw: knn(m, pw, radius, threshold)
+    probe = a[14] if len(a) > 14 else 12
+    knn = knn_plane.knn5_plane_hashed_plain if plain_search else knn_plane.knn5_plane_hashed
+    return lambda pw: knn(m, pw, radius, threshold, probe)
+
+
+def lio_loop_on(a, plain_search=False):
+    """lio.lio_loop on a lio_cascade call's arguments `a`, its search
+    map_search(a, plain_search)."""
+    from fastlivo_tpu_torch import lio
+
+    return lio.lio_loop(map_search(a, plain_search), *a[1:10])
 
 
 def lio_same(out, loop) -> bool:
@@ -741,12 +765,12 @@ def check_lio_cascades(calls, label) -> dict:
     """Each recorded LIO cascade against the host loop lio.lio_loop on its
     own inputs, after the path's run (these launches are not the path's;
     the counts are restored): with the step kernel every output (rot, x,
-    G, sel, pabcd, plane_ok, iterations) bit-equal, the loop's search
-    knn5_plane_tiled (which runs the cascade's walk) and also
-    knn5_plane_tiled_plain (torch ops, so the walk is held against plain
-    code at every iteration's pose); all plain (that search and
-    photometric_step_plain) the same iterations and rot and x within 1e-9.
-    Returns numbers."""
+    G, sel, pabcd, plane_ok, iterations) bit-equal, the loop's search the
+    map's kernel (knn5_plane_tiled or knn5_plane_hashed, which run the
+    cascade's walk) and also its plain version (torch ops, so the walk is
+    held against plain code at every iteration's pose); all plain (that
+    search and photometric_step_plain) the same iterations and rot and x
+    within 1e-9. Returns numbers."""
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import photometric as ph
 
@@ -776,7 +800,7 @@ def check_lio_cascades(calls, label) -> dict:
             "plain_step_pose_max_diff": pose_d}
     print(f"{label}: {len(calls)} lio_cascade calls, {sum(iters)} iterations "
           f"({nums['iterations_min_max']} a call), each bit-equal to the host loop with the "
-          f"step kernel (its search knn5_plane_tiled, and knn5_plane_tiled_plain) and of "
+          f"step kernel (its search the map's kernel, and its plain version) and of "
           f"equal iterations all plain (pose within {pose_d:.3g})")
     return nums
 
@@ -914,8 +938,12 @@ def counted_wrappers():
 
 
 def reset_counts():
+    from fastlivo_tpu_torch.ops import lio_cascade
+
     for fn in counted_wrappers():
         fn.launches = 0
+    for k in lio_cascade.lio_cascade.by_map:
+        lio_cascade.lio_cascade.by_map[k] = 0
 
 
 def read_counts() -> dict:
@@ -1008,20 +1036,27 @@ def tiled_work(m, q, radius: int = 1):
 LIO_ROW_OPS = 147
 
 
-def lio_cascade_bound_ms(m, pws, n, iters, radius):
+def lio_cascade_bound_ms(m, pws, n, iters, radius, max_probe=12):
     """Least time for one LIO cascade on these inputs: `pws` are the world
     points of each of its search iterations, stacked (the host loop's on
     the same inputs), n the scan's points, `iters` its iterations. Bytes:
-    the map entries all the searches touch (tiled_work over the stacked
-    points: the union of the searches' entries), each point's p_imu,
-    |p|^(1/2) and mask (17 B), P', the prior and the start pose read once;
-    sel, the plane and plane_ok (18 B a point), rot, x, G and the count
-    written once. Operations: the searches' (tiled_work) and each
-    iteration's rows (LIO_ROW_OPS) over the float32 rate, plus each
-    iteration's f64 step (STEP_OPS) over the f64 rate. Returns (ms,
-    "bytes" | "operations", the distinct directory entries, pool cells,
-    live points and tiles over the searches)."""
-    map_bytes, ops32, uniq = tiled_work(m, pws, radius)
+    the map entries all the searches touch (tiled_work, or hashed_work on
+    the hash or dense map, over the stacked points: the union of the
+    searches' entries), each point's p_imu, |p|^(1/2) and mask (17 B), P',
+    the prior and the start pose read once; sel, the plane and plane_ok
+    (18 B a point), rot, x, G and the count written once. Operations: the
+    searches' (tiled_work, hashed_work) and each iteration's rows
+    (LIO_ROW_OPS) over the float32 rate, plus each iteration's f64 step
+    (STEP_OPS) over the f64 rate. Returns (ms, "bytes" | "operations", the
+    map's distinct entries over the searches: tiled_work's directory
+    entries, pool cells, live points and tiles, or hashed_work's probed
+    words, found points, probes taken and found rows)."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    if isinstance(m, tm.TiledMap):
+        map_bytes, ops32, uniq = tiled_work(m, pws, radius)
+    else:
+        map_bytes, ops32, uniq = hashed_work(m, pws, radius, max_probe)
     nbytes = (map_bytes + n * (17 + 18) + (324 + 2 * (9 + 15)) * 8 + (9 + 15 + 108) * 8
               + 4)
     t_b = nbytes / HBM_BYTES_PER_S
@@ -1882,31 +1917,31 @@ def map_stages_phase(lio_map, box_sets, lio_rec, cam_filter):
     return res
 
 
-def lio_cascade_phase(a):
-    """lio_cascade on the LIO path's last call `a` (its arguments, the
-    map's search arrays as they were): held against the host loop
-    lio.lio_loop (bit-equal with the step kernel, its search
-    knn5_plane_tiled and knn5_plane_tiled_plain; all plain the same
-    iterations and the pose within 1e-9), then timed beside it.
-    Times: the cascade (queued CUDA events), a call's host wall, and the
-    host loop with the kernels (knn5_plane_tiled and the step kernel),
-    with the plain step, and all plain (the search knn5_plane_tiled_plain),
-    each one call alone between two events (the loop reads a flag an
-    iteration), with its host wall. The bound from the inputs of every
-    search iteration (lio_cascade_bound_ms). These launches are not the
-    path's. Returns numbers."""
+def lio_cascade_phase(a, label="the path map"):
+    """lio_cascade on a path's last call `a` (its arguments, the map's
+    search arrays as they were; the tiled, hash or dense map): held
+    against the host loop lio.lio_loop (bit-equal with the step kernel,
+    its search the map's kernel and that kernel's plain version; all
+    plain the same iterations and the pose within 1e-9), then timed beside
+    it. Times: the cascade (queued CUDA events), a call's host wall, and
+    the host loop with the kernels (knn5_plane_tiled or knn5_plane_hashed
+    and the step kernel), with the plain step, and all plain (the plain
+    search), each one call alone between two events (the loop reads a
+    flag an iteration), with its host wall. The bound from the inputs of
+    every search iteration (lio_cascade_bound_ms). These launches are not
+    the path's. Returns numbers."""
     from fastlivo_tpu_torch import lio
-    from fastlivo_tpu_torch.ops import knn_plane
     from fastlivo_tpu_torch.ops import lio_cascade as lc
     from fastlivo_tpu_torch.ops import photometric as ph
 
-    m, radius, threshold = a[0], a[10], a[11]
+    m, radius = a[0], a[10]
+    probe = a[14] if len(a) > 14 else 12
     got = lc.lio_cascade(*a)
     its = int(got[6])
     want, want_ps = lio_loop_on(a), lio_loop_on(a, plain_search=True)
     err = max(max_abs_diff(got[:6], want[:6]), max_abs_diff(got[:6], want_ps[:6]))
     if not (lio_same(got, want) and lio_same(got, want_ps)):
-        raise AssertionError(f"lio_cascade differs from the host loop on the path's last "
+        raise AssertionError(f"lio_cascade differs from the host loop on {label}'s last "
                              f"call by {err:.3g}")
     ms = time_ms(lambda: lc.lio_cascade(*a))
     host = host_ms(lambda: lc.lio_cascade(*a))
@@ -1922,19 +1957,21 @@ def lio_cascade_phase(a):
         plain_ms = event_ms(lambda: lio_loop_on(a, plain_search=True), reps=5)
         plain_host = host_ms(lambda: lio_loop_on(a, plain_search=True))
     pws = []
-    lio.lio_loop(lambda pw: (pws.append(pw), knn_plane.knn5_plane_tiled(m, pw, radius,
-                                                                         threshold))[1],
-                 *a[1:10])
+    knn = map_search(a)
+    lio.lio_loop(lambda pw: (pws.append(pw), knn(pw))[1], *a[1:10])
     n = a[1].shape[0]
-    bound, by, uniq = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius)
-    print(f"lio_cascade N={n} M={(2 * radius + 1) ** 3} on the path map: {its} iterations "
+    bound, by, uniq = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius, probe)
+    what = ("distinct directory entries, pool cells, live points, neighbourhood tiles"
+            if lc.map_kind(m) == "tiled" else "distinct probed words, found points, probes "
+            "taken, found rows")
+    print(f"lio_cascade N={n} M={(2 * radius + 1) ** 3} on {label}: {its} iterations "
           f"({len(pws)} searching) in {ms:.4f} ms ({ms / its:.4f} ms an iteration; host "
           f"{host:.3f} ms a call), grid {lc.lio_cascade.grid} blocks; the host loop "
           f"{loop_ms:.4f} ms with the kernels (host {loop_host:.3f} ms), {loop_plain_step_ms:.4f} "
           f"with the plain step, {plain_ms:.4f} all plain (host {plain_host:.3f} ms; pose "
           f"within {pose_d:.3g}); bit-equal with the kernel and the plain search; bound "
-          f"{bound:.6f} ms ({by}; distinct directory entries, pool cells, live points, "
-          f"neighbourhood tiles over the searches {uniq}), library none; {nvidia_smi_line()}")
+          f"{bound:.6f} ms ({by}; {what} over the searches {uniq}), library none; "
+          f"{nvidia_smi_line()}")
     return {"max_abs_err": err, "iterations": its, "searches": len(pws), "ms": ms,
             "ms_per_iteration": ms / its, "host_ms": host, "grid": lc.lio_cascade.grid,
             "loop_ms": loop_ms, "loop_host_ms": loop_host,
@@ -1945,9 +1982,10 @@ def lio_cascade_phase(a):
 
 def photometric_compare(a, label="") -> float:
     """photometric_err_H against its plain version on one call's arguments
-    `a`: HᵀH and Hᵀz each within 1e-4 of its largest entry, err and perr
-    within rtol 1e-5. Returns the max abs error over all outputs. This
-    launch is not the path's."""
+    `a`: every output bit-equal (the plain version writes the kernel's
+    sums' orders out); the relative differences are printed beside it.
+    Returns the max abs error over all outputs. This launch is not the
+    path's."""
     from fastlivo_tpu_torch.ops import photometric as ph
 
     G, P, level, robust = a[1].shape[0], a[13], a[12], a[14]
@@ -1966,9 +2004,12 @@ def photometric_compare(a, label="") -> float:
         if not d <= 1e-5:
             raise AssertionError(f"photometric_err_H {robust} {name} off by rel {d:.3g}")
     e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
     print(f"photometric_err_H{label} G={G} P={P} level {level} robust {robust}: "
           f"{', '.join(rel)}; max_abs_err={e:.3g} (|HT| up to "
-          f"{float(want[1].abs().max()):.3g})")
+          f"{float(want[1].abs().max()):.3g}), bit-equal {same}")
+    if not same:
+        raise AssertionError(f"photometric_err_H {robust} not bit-equal to its plain version")
     return e
 
 
@@ -1986,9 +2027,8 @@ def measurement_args(a, level=None) -> list:
 def photometric_phase(dev, args):
     """photometric_err_H against its plain version on the inputs of the
     LIVO path's last measurement (G = 192 cells of a 640x512 image,
-    P = 8), at every robust mode: HᵀH and Hᵀz each within 1e-4 of its
-    largest entry, err and perr within rtol 1e-5; with every point
-    invalid, err and HT exactly 0. Times the kernel, the unfused pair it
+    P = 8), at every robust mode: bit-equal (photometric_compare); with
+    every point invalid, err and HT exactly 0. Times the kernel, the unfused pair it
     replaced (the plain body sampling through the standalone
     patches_and_grads kernel) and the plain version. These launches are
     not the path's. Returns the max abs error over all outputs and the
@@ -2314,10 +2354,11 @@ def livo_cpu_agreement(dev):
 
 
 def wide_config(W=640, H=512, F=400.0, grid=10):
-    """livo_config at patch_size 12, grid_size 10 (64 x 51 = 3264 cells on
+    """livo_config at patch_size 24, grid_size 10 (64 x 51 = 3264 cells on
     the 640x512 camera) and max_imu_per_group 1024 (a scan pose table of
-    8200 rows): each changed kernel past its shared-memory stage
-    (vio_select's 256-wide patch trees, vio_observations' insert arrays
+    8200 rows): each kernel past its shared-memory stage or its old cap
+    (vio_select's wide patch trees of 1024 values, the photometric
+    kernels' loop over a block's pixels, vio_observations' insert arrays
     past 2048 rows, undistort's offsets past 4104 rows), at capacities
     that the CPU runs too: 4096-point scans, a 32 x 32 x 16 tiled
     directory of 1024 tiles, the shipped visual map (65536 points x 20
@@ -2325,7 +2366,7 @@ def wide_config(W=640, H=512, F=400.0, grid=10):
     from fastlivo_tpu_torch.config import CapacityConfig, Config
 
     cfg = Config()
-    cfg.patch_size = 12
+    cfg.patch_size = 24
     cfg.grid_size = grid
     cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
                                   tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
@@ -2333,7 +2374,7 @@ def wide_config(W=640, H=512, F=400.0, grid=10):
     return livo_config(cfg, W=W, H=H, F=F)
 
 
-def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
+def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0, cpu_frames=14):
     """LIVO at wide_config() (a 2 kHz IMU; the scan pose table has 8200
     rows whatever the rate) on the card
     and on the CPU, the same recorded data. The card run's kernels
@@ -2343,13 +2384,20 @@ def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
     it every camera frame's vio_select and vio_observations are held
     against their plain versions (check_vio_calls) and every cascade
     against its host loop (check_cascades); the card's positions within
-    2 mm of the CPU's. Then the changed kernels are timed at these sizes
-    (vio_select on the last camera frame at patch sizes 8, 12 and 16,
-    vio_observations on it, undistort on the last frame step) beside
-    their plain versions and bounds. Returns (ms per lidar frame,
-    launches, numbers)."""
+    2 mm of the CPU's over the first `cpu_frames` lidar frames (the CPU
+    run on the pushes before the next frame's scan: at P = 24 its plain
+    measurement costs most of the phase). Then the changed kernels are timed at these sizes
+    (vio_select on the last camera frame at patch sizes 16, 24, 32 and 48,
+    bit-equal to its plain version at each; vio_observations on it; the
+    last photometric cascade at the path's patch size beside its host
+    loop, and photometric_err_H on its first iteration, bit-equal to its
+    plain version; undistort on the last frame step) beside their plain
+    versions and bounds. Returns (ms per lidar frame, launches,
+    numbers)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import pipeline as pipeline_mod
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import photometric as ph
     from fastlivo_tpu_torch.ops import vio_observations as vo
     from fastlivo_tpu_torch.ops import vio_select as vs
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -2383,19 +2431,22 @@ def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
             "tracked_last": pipe.vio.last_stats.get("tracked", 0)}
     nums["camera_frames"] = check_vio_calls(vio_calls, "wide livo")
     nums["cascades"] = check_cascades(cascades, "wide livo")
+    last_cascade = list(cascades[-1][0])
     del cascades
     cpu = Pipeline(cfg, device="cpu")
-    push_all(cpu, ds)
+    push_all(cpu, ds, t_max=outs[cpu_frames].t)
     t0 = time.perf_counter()
     ref = cpu.spin()
     cpu_s = time.perf_counter() - t0
-    d = max_diff(outs, ref)
-    nums.update(cpu_seconds=cpu_s, max_diff_to_cpu_mm=d * 1e3,
-                tracked=nums["camera_frames"]["tracked"])
-    print(f"wide livo: card against CPU over {len(outs)} lidar frames: max position "
-          f"difference {d * 1e3:.4f} mm (CPU run {cpu_s:.1f} s)")
-    if not d < 2e-3:
-        raise AssertionError(f"wide livo: card and CPU differ by {d:.3g} m")
+    d = max_diff(outs[:len(ref)], ref)
+    nums.update(cpu_seconds=cpu_s, max_diff_to_cpu_mm=d * 1e3, cpu_frames=len(ref),
+                cpu_camera_steps=cpu.vio.steps, tracked=nums["camera_frames"]["tracked"])
+    print(f"wide livo: card against CPU over the first {len(ref)} lidar frames "
+          f"({cpu.vio.steps} camera steps): max position difference {d * 1e3:.4f} mm (CPU "
+          f"run {cpu_s:.1f} s)")
+    if not (d < 2e-3 and len(ref) >= cpu_frames and cpu.vio.steps >= cpu_frames // 2):
+        raise AssertionError(f"wide livo: card and CPU differ by {d:.3g} m over {len(ref)} "
+                             f"frames, {cpu.vio.steps} camera steps")
     del cpu, ref
 
     # the changed kernels at these sizes (these launches are not the path's)
@@ -2405,7 +2456,7 @@ def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
     snap, a, kw, out = rec["select"]
     oa, _ = rec["obs"]
     sel = {}
-    for P in (8, 12, 16):
+    for P in (16, 24, 32, 48):
         kp = dict(kw, patch_size=P)
         o = vs.vio_select(snap, *a, **kp)
         want = vs.vio_select_plain(snap, *a, **kp)
@@ -2436,6 +2487,32 @@ def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
            "plain_ms": event_ms(lambda: imu_mod.undistort_plain(*ua), reps=30),
            "bound_ms": b, "bound_by": by, "bytes": byts, "ops": ops,
            "pose_rows": int(pose.offs.shape[0]), "points": int(pts_raw.shape[0])}
+    # the photometric kernels at the path's patch size: the last cascade
+    # (bit-equal to its host loop in check_cascades) and the measurement
+    # of its first iteration
+    a = last_cascade
+    its = int(ph.photometric_cascade(*a)[5])
+    meas = []
+    with spy(vio, "photometric_err_H", meas):
+        vio.photometric_loop(*a)
+    b, by, _ = cascade_bound_ms([list(m) for m in meas], len(set(a[15])))
+    casc = {"ms": time_ms(lambda: ph.photometric_cascade(*a)), "iterations": its,
+            "loop_ms": event_ms(lambda: vio.photometric_loop(*a), reps=5), "bound_ms": b,
+            "bound_by": by, "grid": ph.photometric_cascade.grid, "patch_size": a[16]}
+    with swapped(vio, "photometric_step", ph.photometric_step_plain), \
+            swapped(vio, "photometric_err_H", ph.photometric_err_H_plain):
+        casc["plain_ms"] = event_ms(lambda: vio.photometric_loop(*a), reps=3)
+    m0 = measurement_args(a)
+    got, want = ph.photometric_err_H(*m0), ph.photometric_err_H_plain(*m0)
+    if bits_diff(torch.cat([t.reshape(-1) for t in got]),
+                 torch.cat([t.reshape(-1) for t in want])) != 0.0:
+        raise AssertionError("wide livo: photometric_err_H not bit-equal to its plain version")
+    b, by, _ = photometric_bound_ms(m0)
+    meas_nums = {"ms": time_ms(lambda: ph.photometric_err_H(*m0)),
+                 "plain_ms": event_ms(lambda: ph.photometric_err_H_plain(*m0), reps=5),
+                 "bound_ms": b, "bound_by": by, "patch_size": m0[13],
+                 "points": int(m0[1].shape[0])}
+    del meas, last_cascade, a, m0
     for fn in counted_wrappers():
         fn.launches = counts[fn.__name__]
     smi = nvidia_smi_line()
@@ -2448,7 +2525,15 @@ def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0):
           f"({obs['bound_by']}); undistort at M={und['pose_rows']} ({und['points']} rows): "
           f"kernel {und['ms']:.4f} ms, plain {und['plain_ms']:.4f} ms, bound "
           f"{und['bound_ms']:.5f} ms ({und['bound_by']}); {smi}")
-    nums.update(vio_select=sel, vio_observations=obs, undistort=und)
+    print(f"wide livo: photometric_cascade at G={G}, P={casc['patch_size']} on the last "
+          f"camera frame: {casc['iterations']} iterations in {casc['ms']:.4f} ms "
+          f"({casc['grid']} blocks), the host loop {casc['loop_ms']:.4f} ms, all plain "
+          f"{casc['plain_ms']:.4f} ms, bound {casc['bound_ms']:.5f} ms ({casc['bound_by']}); "
+          f"photometric_err_H on its first iteration: kernel {meas_nums['ms']:.4f} ms, "
+          f"bit-equal to its plain version ({meas_nums['plain_ms']:.4f} ms), bound "
+          f"{meas_nums['bound_ms']:.5f} ms ({meas_nums['bound_by']}); {smi}")
+    nums.update(vio_select=sel, vio_observations=obs, undistort=und,
+                photometric_cascade=casc, photometric_err_H=meas_nums)
     return wall / len(outs), launches, nums
 
 
@@ -3357,18 +3442,24 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
     probe 12), (b) the dense grid (256 x 256 x 64), (c) tiled with
     `cache_knn`, (d) tiled with `plane_fit: ref`, (e) tiled with
     `profile_every` 8, (f) BlockReplayer(8) on the hash map. The hash,
-    dense and hash-block paths must search through their fused kernel
-    knn5_plane_hashed alone (no knn5_plane, no tiled kernel, no call of
-    the backend's knn_candidates); cache_knn through knn5_plane alone,
-    with one knn_candidates gather per frame that ran the EKF; plane_fit
-    ref through no kernel; profile_every must leave the per-frame outputs
-    unchanged in every bit; every ATE < 2 cm. Checkpoints the hash and
-    dense estimators. Returns ({path: (ms per frame, launches)}, {path:
-    its other numbers}, {"hash": the hash path's pipeline, "dense": the
-    dense path's}, {map: checkpoint numbers}). The host loop of these
-    paths (all but profile_every, whose EKF is one LIO cascade launch, and
-    whose profiled frames add one each) runs the step kernel."""
+    dense and hash-block paths must run every EKF as one lio_cascade
+    launch (counted under its map; the hash and dense walks of
+    knn5_hashed_walk.cuh) and launch no search kernel (no
+    knn5_plane_hashed, knn5_plane or tiled kernel, no call of the
+    backend's knn_candidates); each of their cascades is recorded and held
+    against the host loop with knn5_plane_hashed and the step kernel
+    (check_lio_cascades: bit-equal, iterations equal); cache_knn through
+    knn5_plane alone, with one knn_candidates gather per frame that ran
+    the EKF; plane_fit ref through no kernel; profile_every must leave the
+    per-frame outputs unchanged in every bit; every ATE < 2 cm. Checkpoints
+    the hash and dense estimators. Returns ({path: (ms per frame,
+    launches)}, {path: its other numbers}, {"hash": the hash path's
+    pipeline, "dense": the dense path's}, {map: checkpoint numbers},
+    {"hash": the hash path's last lio_cascade call's arguments, "dense":
+    the dense path's}). The host loop of cache_knn and ref runs the step
+    kernel."""
     from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
     from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_map as vm
     from fastlivo_tpu_torch.pipeline import Pipeline
@@ -3380,18 +3471,21 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
             ("tiled plane_fit ref", lio_config(plane_fit="ref"), None, 0),
             ("tiled profile_every 8", lio_config(), None, 8),
             ("hash BlockReplayer(8)", lio_config(map_backend="hash"), BlockReplayer, 0)]
-    paths, extra, ckpts, pipes = {}, {}, {}, {}
+    paths, extra, ckpts, pipes, last = {}, {}, {}, {}, {}
     t_max = ref[frames].t
     for name, cfg, rep, every in runs:
         cap = cfg.capacity
         pipe = Pipeline(cfg, device=dev)
         pipe.profile_every = every
         push_all(pipe, ds, t_max=t_max)
-        gathers = []
+        gathers, calls = [], []
         mod = {"tiled": tm, "dense": dm, "hash": vm}[cap.map_backend]
-        with spy(mod, "knn_candidates", gathers):
+        hashed = cap.map_backend != "tiled"
+        with spy(mod, "knn_candidates", gathers), \
+                (recorded_lio(calls) if hashed else contextlib.nullcontext()):
             outs, launches, wall = counted_run(
                 (lambda: rep(pipe, 8).run()) if rep else pipe.spin)
+        by_map = dict(lc.lio_cascade.by_map)
         if len(outs) < frames:
             raise AssertionError(f"{name}: {len(outs)} frames of {frames}")
         pref = ref[:len(outs)]
@@ -3404,8 +3498,9 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
               f"(tiled per-frame {ref_ms:.2f}), median steady frame {np.median(steady):.2f} ms, "
               f"ATE {ate * 1e3:.3f} mm, max position difference to tiled per-frame "
               f"{d * 1e3:.4f} mm, knn5_plane_hashed {kh}, knn5_plane {k}, knn5_plane_tiled "
-              f"{kt}, lio_cascade {kc}, {ng} candidate gathers ({cap.map_backend} map, cache_knn "
-              f"{cap.cache_knn}, plane_fit {cap.plane_fit}); {nvidia_smi_line()}")
+              f"{kt}, lio_cascade {kc} (by map {by_map}), {ng} candidate gathers "
+              f"({cap.map_backend} map, cache_knn {cap.cache_knn}, plane_fit "
+              f"{cap.plane_fit}); {nvidia_smi_line()}")
         if cap.plane_fit == "ref":
             ok = k == 0 and kt == 0 and kh == 0 and kc == 0
         elif every:  # one cascade per EKF, the profiled ones included
@@ -3417,21 +3512,29 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
                 "undistort", "downsample", "ekf", "map"}
         elif cap.cache_knn:
             ok = k > 0 and kt == 0 and kh == 0 and kc == 0 and len(steady) <= ng <= len(outs)
-        else:  # hash, dense, hash BlockReplayer(8)
-            ok = kh >= len(steady) and k == 0 and kt == 0 and kc == 0 and ng == 0
+        else:  # hash, dense, hash BlockReplayer(8): one cascade an EKF, on its map
+            ok = (kc >= len(steady) and by_map[cap.map_backend] == kc == len(calls)
+                  and kh == 0 and k == 0 and kt == 0 and ng == 0 and d < 5e-8)
         if not ok or not launches["imu_propagate"] or not ate < 0.02:
-            raise AssertionError(f"{name}: launches {launches}, {ng} candidate gathers, "
-                                 f"ATE {ate:.4f} m")
+            raise AssertionError(f"{name}: launches {launches} (lio_cascade by map {by_map}), "
+                                 f"{ng} candidate gathers, {len(calls)} recorded cascades, "
+                                 f"{d * 1e3:.4f} mm from tiled per-frame, ATE {ate:.4f} m")
         paths[name] = (ms, launches)
         extra[name] = {"median_steady_ms": float(np.median(steady)), "ate_mm": ate * 1e3,
                        "max_diff_to_tiled_mm": d * 1e3, "candidate_gathers": len(gathers)}
+        if hashed:
+            extra[name]["lio_cascades"] = check_lio_cascades(calls, name)
+            extra[name]["lio_cascade_by_map"] = by_map
+            if name in ("hash", "dense"):
+                last[name] = calls[-1][0]
+            del calls
         if every:
             extra[name]["last_stage_profile_ms"] = pipe.last_stage_profile
         if name in ("hash", "dense"):
             ckpts[name] = checkpoint_roundtrip(pipe, dev, f"lio {name}")
             pipes[name] = pipe
         del pipe
-    return paths, extra, pipes, ckpts
+    return paths, extra, pipes, ckpts, last
 
 
 def colliding_voxels(T: int):
@@ -3518,20 +3621,31 @@ MIX_OPS = 29  # hash_mix.cuh's mix3: three murmur finalizers (8 each) and the ch
 
 
 def hashed_bound_ms(m, q, radius: int = 1, max_probe: int = 12):
-    """Least time for knn5_plane_hashed on these inputs: the queries, each
-    distinct check word the rows probe (4 B) and each distinct found point
-    (12 B) read once, 21 B written per query, over HBM bandwidth; against
-    the operations these inputs need, counted from the kernel's source,
-    over the float32 rate (integer operations run no faster): per query
-    its voxel (6) and the fit and gate of plane_fit.cuh (260); per
-    candidate row the murmur mix of its voxel (MIX_OPS; the key varies per
-    row), its offset sums and slot or cell index (hash 6, dense 12) and
-    one compare in each of the 5 selection rounds; per probe actually
-    taken its compare and advance (3; a hash row stops at its first match,
-    a missing voxel takes all `max_probe`; a dense row takes one); per
-    found row its squared distance (8). Returns (ms, "bytes" |
+    """Least time for knn5_plane_hashed on these inputs: the queries (12 B)
+    and the map entries of hashed_work read once, 21 B written per query,
+    over HBM bandwidth; against hashed_work's operations over the float32
+    rate (integer operations run no faster). Returns (ms, "bytes" |
     "operations", (distinct probed words, distinct found points, probes
     taken, found rows))."""
+    map_bytes, ops, uniq = hashed_work(m, q, radius, max_probe)
+    nbytes = q.shape[0] * (12 + 21) + map_bytes
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
+
+
+def hashed_work(m, q, radius: int = 1, max_probe: int = 12):
+    """The hash or dense walk's work (knn5_hashed_walk.cuh) for the queries
+    q: the bytes of each distinct check word the rows probe (4 B), each
+    distinct found point (12 B) and the offsets; the operations these
+    inputs need, counted from the walk's source: per query its voxel (6)
+    and the fit and gate of plane_fit.cuh (260); per candidate row the
+    murmur mix of its voxel (MIX_OPS; the key varies per row), its offset
+    sums and slot or cell index (hash 6, dense 12) and one compare in each
+    of the 5 selection rounds; per probe actually taken its compare and
+    advance (3; a hash row stops at its first match, a missing voxel takes
+    all `max_probe`; a dense row takes one); per found row its squared
+    distance (8). Returns (bytes, operations, (distinct probed words,
+    distinct found points, probes taken, found rows))."""
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
@@ -3560,18 +3674,18 @@ def hashed_bound_ms(m, q, radius: int = 1, max_probe: int = 12):
         words, index_ops = torch.unique(torch.cat(probed)).numel(), 6
     n_found = int(found.sum())
     uniq = (words, torch.unique(res[found]).numel(), probes, n_found)
-    nbytes = n * (12 + 21) + uniq[0] * 4 + uniq[1] * 12 + M * 12
+    nbytes = uniq[0] * 4 + uniq[1] * 12 + M * 12
     ops = (n * (6 + 260) + n * M * (MIX_OPS + index_ops + 5) + 3 * probes
            + 8 * n_found)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
+    return nbytes, ops, uniq
 
 
 def search_kernels(pipe, fused: bool, calls: int = 3) -> float:
-    """Device kernels under `lio.search` in one lidar frame's EKF: the
-    mean over `calls` lio_update calls on the pipeline's map, state and
-    last scan (without `fused`, through the unfused composition), under
-    torch.profiler."""
+    """Device kernels under `lio.search` in one lidar frame's EKF run as
+    the host loop (the cascade's oracle; on the card the EKF is one
+    lio_cascade launch): the mean over `calls` lio_update calls on the
+    pipeline's map, state and last scan (without `fused`, through the
+    unfused composition), under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from fastlivo_tpu_torch import lio
@@ -3582,6 +3696,7 @@ def search_kernels(pipe, fused: bool, calls: int = 3) -> float:
     torch.cuda.synchronize()
     reset_counts()
     with contextlib.ExitStack() as stack:
+        stack.enter_context(swapped(lio, "cascade_applies", lambda *a, **kw: False))
         if not fused:
             stack.enter_context(unfused())
         prof = stack.enter_context(
@@ -4505,10 +4620,15 @@ def main() -> int:
     paths = {"lio per-frame": (lio_ms, lio_launches)}
     lio_extra = {"lio per-frame": {"lio_cascades": lio_nums}}
     with phase("backends (a)-(f)"):
-        backend_paths, path_extra, backend_pipes, backend_ckpts = backend_paths_phase(
-            dev, lio_ds, lio_outs, lio_ms)
+        backend_paths, path_extra, backend_pipes, backend_ckpts, backend_last = \
+            backend_paths_phase(dev, lio_ds, lio_outs, lio_ms)
         paths.update(backend_paths)
         path_extra.update(lio_extra)
+        # the cascade on the hash and dense paths' maps, beside its bound and
+        # the host loop
+        hashed_casc = {k: lio_cascade_phase(a, f"the {k} path map")
+                       for k, a in backend_last.items()}
+        del backend_last
     with phase("hash and dense search kernels"):
         hashed = hashed_phase(backend_pipes, n, m)
         err = max(err, hashed["knn5_plane"]["max_abs_err"])
@@ -4591,12 +4711,12 @@ def main() -> int:
         paths["lio 4 kHz IMU, 512-pair groups"] = (l_ms, l_launches)
         path_extra["lio 4 kHz IMU, 512-pair groups"] = l_nums
     with phase("(m) wide livo"):
-        wide_name = "livo patch 12, grid 10 (3264 cells), max_imu_per_group 1024"
+        wide_name = "livo patch 24, grid 10 (3264 cells), max_imu_per_group 1024"
         m_ms, m_launches, wide = wide_phase(dev)
         paths[wide_name] = (m_ms, m_launches)
         path_extra[wide_name] = {k: wide[k] for k in (
             "cells", "patch_size", "pose_rows", "imu_bucket", "camera_steps", "tracked",
-            "max_diff_to_cpu_mm", "cpu_seconds")}
+            "max_diff_to_cpu_mm", "cpu_seconds", "cpu_frames", "cpu_camera_steps")}
         torch.cuda.empty_cache()
     old = {"undistort": stages["undistort"], **vio_res}
     print("changed kernels, shipped size -> wide size (ms, kernel / bound): undistort "
@@ -4692,12 +4812,20 @@ def main() -> int:
                     "fastlivo_tpu/ops/pallas_lio.py:219)",
         "launches": lio_launches["lio_cascade"],
         "max_abs_err": max(lio_casc["max_abs_err"], lio_nums["max_abs_err"],
-                           livo_lio_nums["max_abs_err"]),
+                           livo_lio_nums["max_abs_err"],
+                           *(v["max_abs_err"] for v in hashed_casc.values()),
+                           *(path_extra[k]["lio_cascades"]["max_abs_err"] for k in (
+                               "hash", "dense", "hash BlockReplayer(8)"))),
         **{k: lio_casc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         **{k: lio_casc[k] for k in (
             "iterations", "searches", "ms_per_iteration", "host_ms", "grid", "loop_ms",
             "loop_host_ms", "loop_plain_step_ms", "plain_host_ms")},
+        **{f"{k}_map": {n: v[n] for n in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "iterations", "searches", "grid",
+            "loop_ms", "loop_host_ms", "host_ms")} for k, v in hashed_casc.items()},
+        "launches_by_map": {k: path_extra[k]["lio_cascade_by_map"] for k in (
+            "hash", "dense", "hash BlockReplayer(8)")},
         "launches_per_path": {k: v[-1]["lio_cascade"] for k, v in paths.items()
                               if v[-1].get("lio_cascade")},
     }, {
@@ -4707,7 +4835,7 @@ def main() -> int:
         "launches": ph_mesh_launches[0], "path": "(k) livo mesh (the host loop)",
         "max_abs_err": max(ph_err, partials_err),
         "ms": ph_ms, "plain_ms": ph_plain_ms, "bound_ms": ph_bound_ms,
-        "bound_by": ph_bound_by, "library_ms": None,
+        "bound_by": ph_bound_by, "library_ms": None, "wide": wide["photometric_err_H"],
         "launches_per_path": {k: v[-1]["photometric_err_H"] for k, v in paths.items()
                               if v[-1].get("photometric_err_H")},
     }, {
@@ -4722,6 +4850,7 @@ def main() -> int:
         **{k: casc["cascade"][k] for k in (
             "iterations", "ms_per_iteration", "host_ms", "loop_ms", "loop_ms_per_iteration",
             "loop_plain_step_ms", "plain_host_ms")},
+        "wide": wide["photometric_cascade"],
         "launches_per_path": {k: v[-1]["photometric_cascade"] for k, v in paths.items()
                               if v[-1].get("photometric_cascade")},
     }, {
@@ -4755,6 +4884,8 @@ def main() -> int:
         "source": "fastlivo_tpu_torch/csrc/knn5_plane_hashed.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
         "launches": backend_paths["hash"][1]["knn5_plane_hashed"],
+        "path": "none since the hash and dense EKF runs in lio_cascade (its walk "
+                "knn5_hashed_walk.cuh); the cascade's oracle",
         "max_abs_err": max(hashed["hash"]["max_abs_err"], hashed["dense"]["max_abs_err"]),
         "ms": hashed["hash"]["ms"], "plain_ms": hashed["hash"]["plain_ms"],
         "bound_ms": hashed["hash"]["bound_ms"], "bound_by": hashed["hash"]["bound_by"],

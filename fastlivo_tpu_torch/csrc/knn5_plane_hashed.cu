@@ -24,10 +24,11 @@
 //   the plane fit and gate of plane_fit.cuh.
 // Outputs as knn5_plane.cu: pabcd (N, 4), plane_ok (N,), nd2_5 (N,).
 //
-// Design: the lane groups of knn5_plane_tiled.cu (L = 4 lanes per query
-// at M = 27, L = 16 at M = 125; lane j owns rows j, j + L, ...; the
-// group selection of knn5_select.cuh, the fit on every lane, the first
-// lane writes). No (N, M, 3) candidate block, index or mask tensor is
+// Design: the walk is knn5_hashed_walk.cuh, which csrc/lio_cascade.cu
+// runs inside the LIO cascade; the lane groups of knn5_plane_tiled.cu
+// (L = 4 lanes per query at M = 27, L = 16 at M = 125; lane j owns rows
+// j, j + L, ...; the group selection of knn5_select.cuh, the fit on
+// every lane, the first lane writes). No (N, M, 3) candidate block, index or mask tensor is
 // written: the unfused path's knn_candidates was 12 probe rounds of
 // small torch ops, ~98% of the search. A lane mixes each of its rows'
 // keys itself (the key varies per row). The probes run in rounds over
@@ -59,165 +60,28 @@
 #include "hash_mix.cuh"
 #include "knn5_select.cuh"
 #include "plane_fit.cuh"
+#include "knn5_hashed_walk.cuh"
 
 namespace {
 
-enum Backend { HASH = 0, DENSE = 1 };
-
-// The found slot of each of a lane's rows, -1 where missing: the first
-// of max_probe consecutive slots (wrapping) whose check equals chk.
-template <int R>
-__device__ __forceinline__ void probe_rows(const int32_t* __restrict__ check,
-                                           int32_t mask, int max_probe, bool vec,
-                                           const int32_t (&slot)[R],
-                                           const int32_t (&chk)[R],
-                                           const bool (&row)[R], int32_t (&res)[R]) {
-  if (!vec) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      res[r] = -1;
-      int32_t s = slot[r];
-      for (int p = 0; row[r] && p < max_probe; ++p) {
-        if (__ldg(check + s) == chk[r]) {
-          res[r] = s;
-          break;
-        }
-        s = (s + 1) & mask;
-      }
-    }
-    return;
-  }
-  int32_t g[R];  // the aligned group of four holding the next probe
-  int k0[R];     // the chain's first slot within the first group
-  int left[R];   // probes still to take
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    res[r] = -1;
-    g[r] = slot[r] & ~3;
-    k0[r] = slot[r] & 3;
-    left[r] = row[r] ? max_probe : 0;
-  }
-  bool more = true;
-  while (more) {
-    int4 w[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {  // start every row's load first
-      w[r] = make_int4(0, 0, 0, 0);
-      if (left[r] > 0) w[r] = __ldg(reinterpret_cast<const int4*>(check + g[r]));
-    }
-    more = false;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (left[r] > 0) {
-        const int32_t v[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (k >= k0[r] && left[r] > 0) {
-            if (v[k] == chk[r]) {
-              res[r] = g[r] + k;
-              left[r] = 0;
-            } else {
-              --left[r];
-            }
-          }
-        }
-        k0[r] = 0;
-        g[r] = (g[r] + 4) & mask;
-        more = more || left[r] > 0;
-      }
-    }
-  }
-}
-
 template <int B, int M, int L>
 __global__ void __launch_bounds__(256) knn5_plane_hashed_kernel(
-    const float* __restrict__ queries, int n, const int32_t* __restrict__ check,
-    const float* __restrict__ pts, const float* __restrict__ voxel_size,
-    const int32_t* __restrict__ log2_dims, const int32_t* __restrict__ offsets,
-    int T, int max_probe, bool vec, float* __restrict__ pabcd,
+    const float* __restrict__ queries, int n, const HashedView mp, float* __restrict__ pabcd,
     uint8_t* __restrict__ plane_ok, float* __restrict__ nd2_5, float threshold) {
-  constexpr int R = (M + L - 1) / L;  // rows per lane
   const int gid = (int)((blockIdx.x * blockDim.x + threadIdx.x) / L);
   const int sub = (threadIdx.x & 31) % L;  // the lane's place in its group
   // every lane takes part in the shuffles: a group past the end works on
   // the last query and writes nothing
   const bool live_q = gid < n;
   const int i = live_q ? gid : n - 1;
-
-  const float vs = __ldg(voxel_size);
-  const float qx = queries[3 * i + 0];
-  const float qy = queries[3 * i + 1];
-  const float qz = queries[3 * i + 2];
-  const int32_t bx = (int32_t)floorf(qx / vs);
-  const int32_t by = (int32_t)floorf(qy / vs);
-  const int32_t bz = (int32_t)floorf(qz / vs);
-  const int l0 = B == DENSE ? __ldg(log2_dims + 0) : 0;
-  const int l1 = B == DENSE ? __ldg(log2_dims + 1) : 0;
-  const int l2 = B == DENSE ? __ldg(log2_dims + 2) : 0;
-
-  // each row's first slot (hash) or cell (dense) and its check word
-  int32_t slot[R], chk[R], res[R];
-  bool row[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = sub + L * r;
-    row[r] = j < M;
-    slot[r] = chk[r] = 0;
-    if (row[r]) {
-      // int32 sums wrap as the plain version's do
-      const int32_t kx = (int32_t)((uint32_t)bx + (uint32_t)__ldg(offsets + 3 * j + 0));
-      const int32_t ky = (int32_t)((uint32_t)by + (uint32_t)__ldg(offsets + 3 * j + 1));
-      const int32_t kz = (int32_t)((uint32_t)bz + (uint32_t)__ldg(offsets + 3 * j + 2));
-      if (B == HASH) {
-        const uint32_t z = mix3(kx, ky, kz);
-        slot[r] = (int32_t)(z >> 13) & (T - 1);
-        chk[r] = (int32_t)(z & 0x7FFFFFFFu);
-      } else {
-        slot[r] = ((kx & ((1 << l0) - 1)) << (l1 + l2)) |
-                  ((ky & ((1 << l1) - 1)) << l2) | (kz & ((1 << l2) - 1));
-        chk[r] = check31(kx, ky, kz);
-      }
-    }
-  }
-  if (B == HASH) {
-    probe_rows<R>(check, T - 1, max_probe, vec, slot, chk, row, res);
-  } else {
-    int32_t c[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) c[r] = row[r] ? __ldg(check + slot[r]) : 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) res[r] = (row[r] && c[r] == chk[r]) ? slot[r] : -1;
-  }
-
-  float d2[R], cx[R], cy[R], cz[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    d2[r] = KNN5_BIG;
-    cx[r] = cy[r] = cz[r] = 0.0f;
-    if (res[r] >= 0) {
-      cx[r] = __ldg(pts + 3 * (size_t)res[r] + 0);
-      cy[r] = __ldg(pts + 3 * (size_t)res[r] + 1);
-      cz[r] = __ldg(pts + 3 * (size_t)res[r] + 2);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (res[r] >= 0) {
-      const float dx = cx[r] - qx, dy = cy[r] - qy, dz = cz[r] - qz;
-      d2[r] = dx * dx + dy * dy + dz * dz;
-    }
-  }
-
-  float nx[5], ny[5], nz[5];
-  const float dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
-
-  float ux, uy, uz, d;
-  const bool ok = plane5_fit(nx, ny, nz, threshold, ux, uy, uz, d);
+  float pl[4], dmin;
+  const bool ok = knn5_hashed_walk<B, M, L>(mp, queries[3 * i + 0], queries[3 * i + 1],
+                                            queries[3 * i + 2], sub, threshold, pl, dmin);
   if (sub == 0 && live_q) {
-    pabcd[4 * i + 0] = ux;
-    pabcd[4 * i + 1] = uy;
-    pabcd[4 * i + 2] = uz;
-    pabcd[4 * i + 3] = d;
+    pabcd[4 * i + 0] = pl[0];
+    pabcd[4 * i + 1] = pl[1];
+    pabcd[4 * i + 2] = pl[2];
+    pabcd[4 * i + 3] = pl[3];
     plane_ok[i] = ok ? 1 : 0;
     nd2_5[i] = dmin;
   }
@@ -231,9 +95,9 @@ int launch(const float* queries, int n, const int32_t* check, const float* pts,
   constexpr int threads = 256;  // 256 / L queries per block
   const int blocks = (int)(((long long)n * L + threads - 1) / threads);
   const bool vec = T >= 4 && (reinterpret_cast<uintptr_t>(check) & 15) == 0;
+  const HashedView mp{check, pts, voxel_size, log2_dims, offsets, T, max_probe, vec};
   knn5_plane_hashed_kernel<B, M, L><<<blocks, threads, 0, stream>>>(
-      queries, n, check, pts, voxel_size, log2_dims, offsets, T, max_probe, vec,
-      pabcd, plane_ok, nd2_5, threshold);
+      queries, n, mp, pabcd, plane_ok, nd2_5, threshold);
   return (int)cudaGetLastError();
 }
 

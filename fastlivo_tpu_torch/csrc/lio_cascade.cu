@@ -1,14 +1,17 @@
-// The LIO iterated EKF of one scan in one launch, on the tiled map, for
-// Hopper.
+// The LIO iterated EKF of one scan in one launch, on the tiled map, the
+// hash map or the dense grid, for Hopper.
 //
 // lio_cascade replaces the device program the JAX package compiles from
 // the `jax.lax.while_loop` of fastlivo_tpu/lio.py::lio_update (the loop at
 // :256, its body :188-238), whose search runs the TPU kernel
 // fastlivo_tpu/ops/pallas_lio.py::knn5_plane (`pl.pallas_call` at :219) on
-// the tiled map's candidate block. Each iteration, at the pose in force:
-//   on an iteration with search_en, the search of knn5_tiled_walk.cuh (the
-//   tiled map's walk, the five nearest, the TLS plane fit) for every point
-//   of the scan in the world frame;
+// the map's candidate block (the JAX package's knn_candidates of the tiled,
+// hash or dense map, lio.py:144-173). Each iteration, at the pose in force:
+//   on an iteration with search_en, the search for every point of the scan
+//   in the world frame: the walk of knn5_tiled_walk.cuh on the tiled map,
+//   of knn5_hashed_walk.cuh on the hash map or the dense grid (the map's
+//   walk, the five nearest, the TLS plane fit), a template parameter of
+//   the kernel;
 //   the gates (laserMapping.cpp:1549-1600; their values are arguments, as
 //   lio.py sets them): sel = nd2_5 <= sq_dist_gate & pmask at a search,
 //   pd2 = n·p + d, s = 1 - 0.9 |pd2| / |p_body|^(1/2), sel &= plane_ok &
@@ -22,8 +25,9 @@
 //   (laserMapping.cpp:1700-1705; the JAX package's lio.py:233-235).
 // After the loop: rot, x, G = K HᵀH₆ of the last iteration, sel, pabcd,
 // plane_ok and the iteration count. The plain version is the host loop
-// lio.py::lio_loop (knn5_plane_tiled, the gates in torch ops, the same
-// fixed-order sum and the step kernel or its plain version).
+// lio.py::lio_loop (knn5_plane_tiled or knn5_plane_hashed, the gates in
+// torch ops, the same fixed-order sum and the step kernel or its plain
+// version).
 //
 // Bound (chip_smoke.py's lio_cascade_bound_ms): the larger of the bytes
 // (the map entries the searches touch, each point's inputs and outputs,
@@ -61,6 +65,7 @@
 #include "knn5_select.cuh"
 #include "plane_fit.cuh"
 #include "knn5_tiled_walk.cuh"
+#include "knn5_hashed_walk.cuh"
 #include "so3.cuh"
 #include "ekf_step.cuh"
 #include "phase_stamps.cuh"
@@ -73,9 +78,11 @@ constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int CH = 64;  // rows of a chunk, and sums of a group at every level
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int TILED = 2;  // the walk: HASH, DENSE (knn5_hashed_walk.cuh) or TILED
 
 struct Lio {
-  TiledView mp;
+  TiledView mp;             // the tiled map (TILED)
+  HashedView hp;            // the hash map or the dense grid (HASH, DENSE)
   const float* p_imu;       // (n, 3) the scan in the IMU frame
   const float* bns;         // (n,) |p_body|^(1/2)
   const uint8_t* pmask;     // (n,)
@@ -229,7 +236,18 @@ __device__ void reduce_chunks(const float* part, int stride, const float* gsum, 
   }
 }
 
-template <int M, int L>
+// The search of one query on the launch's map: walk W's.
+template <int W, int M, int L>
+__device__ __forceinline__ bool map_walk(const Lio& c, float qx, float qy, float qz, int sub,
+                                         float (&pl)[4], float& dmin) {
+  if constexpr (W == TILED) {
+    return knn5_tiled_walk<M, L>(c.mp, qx, qy, qz, sub, c.threshold, pl, dmin);
+  } else {
+    return knn5_hashed_walk<W, M, L>(c.hp, qx, qy, qz, sub, c.threshold, pl, dmin);
+  }
+}
+
+template <int W, int M, int L>
 __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Step st;
@@ -299,8 +317,8 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
         for (int q0 = 0; q0 < CH; q0 += THREADS / L) {
           const int q = q0 + tid / L, sub = tid % L;
           float pl[4], dmin;
-          const bool ok = knn5_tiled_walk<M, L>(c.mp, s_pw[q], s_pw[CH + q], s_pw[2 * CH + q],
-                                                sub, c.threshold, pl, dmin);
+          const bool ok =
+              map_walk<W, M, L>(c, s_pw[q], s_pw[CH + q], s_pw[2 * CH + q], sub, pl, dmin);
           if (sub == 0 && chunk * CH + q < c.n) {
             const int lr = r0 + q;
 #pragma unroll
@@ -411,9 +429,9 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   PHASE_STAMP(1);
 }
 
-template <int M, int L>
+template <int W, int M, int L>
 int launch(Lio& c, int* grid_out, cudaStream_t stream) {
-  auto kernel = lio_cascade_kernel<M, L>;
+  auto kernel = lio_cascade_kernel<W, M, L>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -449,39 +467,15 @@ int launch(Lio& c, int* grid_out, cudaStream_t stream) {
 
 PHASE_STAMPS_EXPORT(lio_cascade)
 
-// The cascade on n >= 0 points: the tiled map (dir_check, dir_slot (D,)
-// int32, cell_check (T*512,) int32, pts (T*512, 3) f32, voxel_size () f32,
-// log2_dims (3,) int32) and the offsets (m, 3) int32, m 27 (radius 1) or
-// 125 (radius 2); p_imu (n, 3) f32, bns (n,) f32, pmask (n,) u8; P' (18,
-// 18), the prior's rot (3, 3) and x (15,), the state's rot and x, f64;
-// scratch part (2, 42, stride) and gsum (2, 42, gstride) f32 (by the
-// iteration's parity) and tickets (max(groups, 1),) int32, zero before
-// the launch and left at zero, with nch = ceil(n / 64), groups = ceil(nch
-// / 64), stride = max(nch, 1) and gstride = max(groups, 1), each rounded
-// up to a multiple of 4; outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
-// (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
-// contiguous on the device. The plane fit's threshold, the gates on nd2_5,
-// s and |pd2|, and the convergence thresholds in degrees and centimetres.
-// `grid_out` receives the number of blocks launched. Returns the launch's
-// cudaError_t (0 = cudaSuccess); cudaErrorCooperativeLaunchTooLarge where
-// not even one block fits on an SM (or the shared memory of a huge n does
-// not fit).
-extern "C" int lio_cascade_launch(
-    const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
-    const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
-    const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
-    const void* prior_x, const void* rot0, const void* x0, void* part, void* gsum,
-    void* tickets,
-    void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
-    void* its, int n, int m, int T, int max_iter, float threshold, float sq_dist_gate,
-    float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm, int* grid_out,
-    void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  Lio c;
-  c.mp = TiledView{static_cast<const int32_t*>(dir_check), static_cast<const int32_t*>(dir_slot),
-                   static_cast<const int32_t*>(cell_check), static_cast<const float*>(pts),
-                   static_cast<const float*>(voxel_size), static_cast<const int32_t*>(log2_dims),
-                   static_cast<const int32_t*>(offsets), T};
+namespace {
+
+// The fields of c that do not depend on the map.
+void fill(Lio& c, const void* p_imu, const void* bns, const void* pmask, const void* Pp,
+          const void* prior_rot, const void* prior_x, const void* rot0, const void* x0,
+          void* part, void* gsum, void* tickets, void* rot_out, void* x_out, void* Gmat,
+          void* sel_out, void* pabcd_out, void* ok_out, void* its, int n, int max_iter,
+          float threshold, float sq_dist_gate, float s_gate, float res_gate,
+          double conv_rot_deg, double conv_pos_cm) {
   c.p_imu = static_cast<const float*>(p_imu);
   c.bns = static_cast<const float*>(bns);
   c.pmask = static_cast<const uint8_t*>(pmask);
@@ -512,8 +506,78 @@ extern "C" int lio_cascade_launch(
   c.res_gate = res_gate;
   c.conv_rot_deg = conv_rot_deg;
   c.conv_pos_cm = conv_pos_cm;
+}
+
+}  // namespace
+
+// The cascade on n >= 0 points: the tiled map (dir_check, dir_slot (D,)
+// int32, cell_check (T*512,) int32, pts (T*512, 3) f32, voxel_size () f32,
+// log2_dims (3,) int32) and the offsets (m, 3) int32, m 27 (radius 1) or
+// 125 (radius 2); p_imu (n, 3) f32, bns (n,) f32, pmask (n,) u8; P' (18,
+// 18), the prior's rot (3, 3) and x (15,), the state's rot and x, f64;
+// scratch part (2, 42, stride) and gsum (2, 42, gstride) f32 (by the
+// iteration's parity) and tickets (max(groups, 1),) int32, zero before
+// the launch and left at zero, with nch = ceil(n / 64), groups = ceil(nch
+// / 64), stride = max(nch, 1) and gstride = max(groups, 1), each rounded
+// up to a multiple of 4; outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
+// (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
+// contiguous on the device. The plane fit's threshold, the gates on nd2_5,
+// s and |pd2|, and the convergence thresholds in degrees and centimetres.
+// `grid_out` receives the number of blocks launched. Returns the launch's
+// cudaError_t (0 = cudaSuccess); cudaErrorCooperativeLaunchTooLarge where
+// not even one block fits on an SM (or the shared memory of a huge n does
+// not fit).
+extern "C" int lio_cascade_launch(
+    const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
+    const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
+    const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
+    const void* prior_x, const void* rot0, const void* x0, void* part, void* gsum,
+    void* tickets,
+    void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
+    void* its, int n, int m, int T, int max_iter, float threshold, float sq_dist_gate,
+    float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm, int* grid_out,
+    void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Lio c{};
+  c.mp = TiledView{static_cast<const int32_t*>(dir_check), static_cast<const int32_t*>(dir_slot),
+                   static_cast<const int32_t*>(cell_check), static_cast<const float*>(pts),
+                   static_cast<const float*>(voxel_size), static_cast<const int32_t*>(log2_dims),
+                   static_cast<const int32_t*>(offsets), T};
+  fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
+       x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
+       s_gate, res_gate, conv_rot_deg, conv_pos_cm);
   auto s = static_cast<cudaStream_t>(stream);
-  if (m == 27) return launch<27, 4>(c, grid_out, s);
-  if (m == 125) return launch<125, 16>(c, grid_out, s);
+  if (m == 27) return launch<TILED, 27, 4>(c, grid_out, s);
+  if (m == 125) return launch<TILED, 125, 16>(c, grid_out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cascade on the hash map (backend 0: check (T,) int32 and pts (T, 3)
+// f32 of its T slots, max_probe slots a row) or the dense grid (backend
+// 1: its T cells, log2_dims (3,) int32; max_probe unread), voxel_size ()
+// f32, T a power of two; every other argument as lio_cascade_launch's.
+extern "C" int lio_cascade_hashed_launch(
+    const void* check, const void* pts, const void* voxel_size, const void* log2_dims,
+    const void* offsets, const void* p_imu, const void* bns, const void* pmask, const void* Pp,
+    const void* prior_rot, const void* prior_x, const void* rot0, const void* x0, void* part,
+    void* gsum, void* tickets, void* rot_out, void* x_out, void* Gmat, void* sel_out,
+    void* pabcd_out, void* ok_out, void* its, int n, int m, int T, int backend, int max_probe,
+    int max_iter, float threshold, float sq_dist_gate, float s_gate, float res_gate,
+    double conv_rot_deg, double conv_pos_cm, int* grid_out, void* stream) {
+  if (n < 0 || T < 1 || (T & (T - 1)) || max_probe < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Lio c{};
+  const auto* chk = static_cast<const int32_t*>(check);
+  c.hp = HashedView{chk, static_cast<const float*>(pts), static_cast<const float*>(voxel_size),
+                    static_cast<const int32_t*>(log2_dims), static_cast<const int32_t*>(offsets),
+                    T, max_probe, T >= 4 && (reinterpret_cast<uintptr_t>(chk) & 15) == 0};
+  fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
+       x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
+       s_gate, res_gate, conv_rot_deg, conv_pos_cm);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (backend == HASH && m == 27) return launch<HASH, 27, 4>(c, grid_out, s);
+  if (backend == HASH && m == 125) return launch<HASH, 125, 16>(c, grid_out, s);
+  if (backend == DENSE && m == 27) return launch<DENSE, 27, 4>(c, grid_out, s);
+  if (backend == DENSE && m == 125) return launch<DENSE, 125, 16>(c, grid_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,7 +4,10 @@
 // (P+3)x(P+3) clamped tap grid of `_tap_grid`, and the bilinear samples
 // and centred differences of `patches_and_grads`, each evaluated in the
 // plain version's order of operations (built with -fmad=false, every
-// product rounds as there).
+// product rounds as there). The taps are read through a view: the grid
+// staged in shared memory (StagedTaps), or, where (P+3)^2 floats would
+// not fit there, read in place from the image with the same clamping
+// (ImageTaps); both give the same values.
 #pragma once
 
 #include <stdint.h>
@@ -30,9 +33,20 @@ __device__ __forceinline__ PatchAnchor patch_anchor(float u, float v, int s) {
   return a;
 }
 
-// Threads t0, t0 + nt, ... load the n x n taps (n = P + 3)
-// img[v_i + (e - origin) * s, u_i + (f - origin) * s], origin = P/2 + 1,
-// each index clamped to the image, into taps[e * n + f].
+// Tap (e, f) of the n x n grid (n = P + 3): img[v_i + (e - origin) * s,
+// u_i + (f - origin) * s], origin = P/2 + 1, each index clamped to the
+// image.
+__device__ __forceinline__ float image_tap(const float* __restrict__ img, int H, int W,
+                                           const PatchAnchor& a, int s, int origin, int e,
+                                           int f) {
+  int r = (int32_t)((uint32_t)a.v_i + (uint32_t)(e - origin) * (uint32_t)s);
+  int c = (int32_t)((uint32_t)a.u_i + (uint32_t)(f - origin) * (uint32_t)s);
+  r = min(max(r, 0), H - 1);
+  c = min(max(c, 0), W - 1);
+  return __ldg(img + (size_t)r * W + c);
+}
+
+// Threads t0, t0 + nt, ... load the n x n taps into taps[e * n + f].
 __device__ __forceinline__ void load_taps(const float* __restrict__ img, int H,
                                           int W, const PatchAnchor& a, int s,
                                           int P, float* taps, int t0, int nt) {
@@ -40,37 +54,50 @@ __device__ __forceinline__ void load_taps(const float* __restrict__ img, int H,
   const int origin = P / 2 + 1;
   for (int t = t0; t < n * n; t += nt) {
     const int e = t / n;
-    const int f = t - e * n;
-    int r = (int32_t)((uint32_t)a.v_i + (uint32_t)(e - origin) * (uint32_t)s);
-    int c = (int32_t)((uint32_t)a.u_i + (uint32_t)(f - origin) * (uint32_t)s);
-    r = min(max(r, 0), H - 1);
-    c = min(max(c, 0), W - 1);
-    taps[t] = __ldg(img + (size_t)r * W + c);
+    taps[t] = image_tap(img, H, W, a, s, origin, e, t - e * n);
   }
 }
 
+// The taps staged by load_taps (shared memory).
+struct StagedTaps {
+  const float* taps;
+  int n;
+  __device__ __forceinline__ float at(int e, int f) const { return taps[e * n + f]; }
+};
+
+// The taps read in place from the image.
+struct ImageTaps {
+  const float* img;
+  int H, W, s, origin;
+  PatchAnchor a;
+  __device__ __forceinline__ float at(int e, int f) const {
+    return image_tap(img, H, W, a, s, origin, e, f);
+  }
+};
+
 // The bilinear sample of patch pixel (x, y) (row x over v, column y over
 // u) at stride offsets (da, db) in {-1, 0, 1}; the grid's origin is at 1.
-__device__ __forceinline__ float patch_sample(const float* taps, int n,
-                                              const PatchAnchor& a, int x,
+template <class Taps>
+__device__ __forceinline__ float patch_sample(const Taps& q, const PatchAnchor& a, int x,
                                               int y, int da, int db) {
-  const float* q = taps + (1 + da + x) * n + (1 + db + y);
-  float acc = a.w_tl * q[0];
-  acc = acc + a.w_tr * q[1];
-  acc = acc + a.w_bl * q[n];
-  acc = acc + a.w_br * q[n + 1];
+  const int e = 1 + da + x, f = 1 + db + y;
+  float acc = a.w_tl * q.at(e, f);
+  acc = acc + a.w_tr * q.at(e, f + 1);
+  acc = acc + a.w_bl * q.at(e + 1, f);
+  acc = acc + a.w_br * q.at(e + 1, f + 1);
   return acc;
 }
 
 // val, du = 0.5 * (I(+s) - I(-s)) / s along u, and dv along v, at patch
 // pixel (x, y).
-__device__ __forceinline__ void patch_val_grad(const float* taps, int n,
-                                               const PatchAnchor& a, int x,
-                                               int y, float& val, float& du,
-                                               float& dv) {
-  val = patch_sample(taps, n, a, x, y, 0, 0);
-  du = 0.5f * (patch_sample(taps, n, a, x, y, 0, 1) -
-               patch_sample(taps, n, a, x, y, 0, -1)) / a.sf;
-  dv = 0.5f * (patch_sample(taps, n, a, x, y, 1, 0) -
-               patch_sample(taps, n, a, x, y, -1, 0)) / a.sf;
+template <class Taps>
+__device__ __forceinline__ void patch_val_grad(const Taps& q, const PatchAnchor& a, int x,
+                                               int y, float& val, float& du, float& dv) {
+  val = patch_sample(q, a, x, y, 0, 0);
+  du = 0.5f * (patch_sample(q, a, x, y, 0, 1) - patch_sample(q, a, x, y, 0, -1)) / a.sf;
+  dv = 0.5f * (patch_sample(q, a, x, y, 1, 0) - patch_sample(q, a, x, y, -1, 0)) / a.sf;
 }
+
+// Whether a block stages the (P+3)^2 taps in shared memory (at most 32
+// KB of floats, P <= 87) or reads them in place from the image.
+__host__ __device__ constexpr bool taps_staged(int P) { return (P + 3) * (P + 3) <= 8192; }

@@ -15,8 +15,11 @@
 // Design: one thread block per point. The TPU kernel built its tap grid
 // from two one-hot selection matmuls on the MXU (a TPU kernel cannot
 // gather); here the block's threads load the (P+3)^2 clamped taps
-// straight into shared memory through the read-only path, then one
-// thread per output pixel forms val, du and dv from shared memory. The
+// straight into shared memory through the read-only path, then each
+// thread forms val, du and dv of the pixels t, t + threads, ... (one at
+// P <= 16) from shared memory; past P = 87, where (P+3)^2 floats would
+// not fit there, from the taps read in place (a template parameter,
+// patch_sample.cuh's views give the same values). The
 // whole function (anchor and weights included) is this one launch. The
 // sampling code lives in patch_sample.cuh, which the fused photometric
 // kernel (photometric_err_H.cu) shares.
@@ -36,6 +39,7 @@
 
 namespace {
 
+template <bool STAGED>
 __global__ void patches_and_grads_kernel(const float* __restrict__ img,
                                          const float* __restrict__ pc,
                                          const int32_t* __restrict__ scale,
@@ -43,41 +47,54 @@ __global__ void patches_and_grads_kernel(const float* __restrict__ img,
                                          float* __restrict__ du,
                                          float* __restrict__ dv, int H, int W,
                                          int P) {
-  extern __shared__ float taps[];  // (P+3) x (P+3)
+  extern __shared__ float taps[];  // (P+3) x (P+3) when STAGED
   const int k = blockIdx.x;
   const int s = scale[k];
   const PatchAnchor a = patch_anchor(pc[2 * k + 0], pc[2 * k + 1], s);
-  load_taps(img, H, W, a, s, P, taps, threadIdx.x, blockDim.x);
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  if (t >= P * P) return;
-  const int x = t / P;  // row of the patch (v)
-  const int y = t - x * P;  // column (u)
-  float v_, du_, dv_;
-  patch_val_grad(taps, P + 3, a, x, y, v_, du_, dv_);
-  const size_t o = (size_t)k * P * P + t;
-  val[o] = v_;
-  du[o] = du_;
-  dv[o] = dv_;
+  if (STAGED) {
+    load_taps(img, H, W, a, s, P, taps, threadIdx.x, blockDim.x);
+    __syncthreads();
+  }
+  const StagedTaps staged{taps, P + 3};
+  const ImageTaps direct{img, H, W, s, P / 2 + 1, a};
+  for (int t = threadIdx.x; t < P * P; t += blockDim.x) {
+    const int x = t / P;  // row of the patch (v)
+    const int y = t - x * P;  // column (u)
+    float v_, du_, dv_;
+    if (STAGED) {
+      patch_val_grad(staged, a, x, y, v_, du_, dv_);
+    } else {
+      patch_val_grad(direct, a, x, y, v_, du_, dv_);
+    }
+    const size_t o = (size_t)k * P * P + t;
+    val[o] = v_;
+    du[o] = du_;
+    dv[o] = dv_;
+  }
 }
 
 }  // namespace
 
-// img (H, W) f32, pc (K, 2) f32, scale (K,) int32 -> val, du, dv (K, P, P)
-// f32, all contiguous on the device. Launches on `stream`; returns the
-// launch's cudaError_t (0 on success). K = 0 launches nothing.
+// C interface for ctypes: K points (K >= 0), img (H, W) f32, pc (K, 2)
+// f32, scale (K,) int32; outputs val, du, dv (K, P, P) f32, P >= 1. All
+// contiguous on the device. Returns the launch's cudaError_t.
 extern "C" int patches_and_grads_launch(const float* img, const float* pc,
                                         const int32_t* scale, float* val,
                                         float* du, float* dv, int K, int H,
                                         int W, int P, void* stream) {
   if (K == 0) return 0;
+  if (K < 0 || P < 1) return (int)cudaErrorInvalidValue;
   const int n = P + 3;
   int threads = (n * n > P * P ? n * n : P * P);
   threads = (threads + 31) / 32 * 32;
   if (threads > 1024) threads = 1024;
-  const size_t smem = (size_t)n * n * sizeof(float);
-  patches_and_grads_kernel<<<K, threads, smem, (cudaStream_t)stream>>>(
-      img, pc, scale, val, du, dv, H, W, P);
+  auto st = (cudaStream_t)stream;
+  if (taps_staged(P)) {
+    patches_and_grads_kernel<true><<<K, threads, (size_t)n * n * sizeof(float), st>>>(
+        img, pc, scale, val, du, dv, H, W, P);
+  } else {
+    patches_and_grads_kernel<false><<<K, threads, 0, st>>>(img, pc, scale, val, du, dv, H,
+                                                           W, P);
+  }
   return (int)cudaGetLastError();
 }

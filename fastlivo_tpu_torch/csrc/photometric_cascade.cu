@@ -113,8 +113,11 @@ __host__ __device__ inline int cascade_threads(int P) {
   return t > 256 ? t : 256;
 }
 
-// 512: cascade_threads' largest block (416 threads at P = 16)
-__global__ void __launch_bounds__(512) photometric_cascade_kernel(const Cascade c) {
+// cascade_threads' largest block (416 threads from P = 16 on). STAGED:
+// taps_staged(P), the taps in shared memory, else read in place.
+template <bool STAGED>
+__global__ void __launch_bounds__(MEAS_MAX_THREADS + 32) photometric_cascade_kernel(
+    const Cascade c) {
   extern __shared__ float smem[];
   __shared__ Step st;
   __shared__ Carry cr;
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(512) photometric_cascade_kernel(const Cascade 
     if (warp < spare) {
       const float* patch = m.tr_patch + (size_t)level * PP;
       for (int g = blockIdx.x; g < G; g += gridDim.x)
-        measure_point(m, pose, level, patch, g, smem, partial, perr, nmt);
+        measure_point<STAGED>(m, pose, level, patch, g, smem, partial, perr, nmt);
     } else if (warp == spare) {
       step_vec(pr, cr.rot, cr.x, st.vec, lane);
     }
@@ -277,7 +280,7 @@ extern "C" int photometric_cascade_launch(
     const int* levels, int n_lv, int max_iter, int G, int H, int W, int P,
     int patch_stride, int robust, float k_h, float inv_b, float inv_rs, int* grid_out,
     void* stream) {
-  if (G < 0 || P < 1 || P > 16 || n_lv < 1 || n_lv > MAX_LEVELS || max_iter < 1)
+  if (G < 0 || P < 1 || n_lv < 1 || n_lv > MAX_LEVELS || max_iter < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Cascade c;
   Meas& m = c.m;
@@ -329,16 +332,17 @@ extern "C" int photometric_cascade_launch(
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* fn = taps_staged(P) ? (const void*)photometric_cascade_kernel<true>
+                                  : (const void*)photometric_cascade_kernel<false>;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, photometric_cascade_kernel,
-                                                      threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int resident = per_sm * sms;
   const int grid = G < 1 ? 1 : (G < resident ? G : resident);
   *grid_out = grid;
   void* args[] = {&c};
-  e = cudaLaunchCooperativeKernel((const void*)photometric_cascade_kernel, dim3(grid),
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid),
                                   dim3(threads), args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -21,13 +21,15 @@
 //
 // Design (the per-point body and the reduction live in
 // photometric_measure.cuh, shared with photometric_cascade.cu): one
-// block per tracked point, (P+3)² rounded up to whole warps
-// (128 threads at P = 8). Every thread forms the pose and the projection
+// block per tracked point, (P+3)² rounded up to whole warps, at most 384
+// threads (128 at P = 8). Every thread forms the pose and the projection
 // itself (a few dozen flops on broadcast loads, no barrier), the block
-// loads its taps into shared memory, one thread per pixel forms its 43
-// terms in registers, and the block reduces them in a fixed tree: a
-// 5-step butterfly (__shfl_xor_sync) in each warp, then the warps in
-// index order through shared memory. Each block writes a 44-float partial
+// loads its taps into shared memory (past P = 87 they are read in place
+// from the image, a template parameter), each thread forms the 43 terms
+// of its pixels (one at P <= 16) and sums them in registers, and the
+// block reduces them in a fixed tree: a 5-step butterfly
+// (__shfl_xor_sync) in each warp, then the warps in index order through
+// shared memory. Each block writes a 44-float partial
 // (the 42 sums, its perr, its weight) and its perr. The last block to
 // finish (an int ticket: atomicAdd after __threadfence; it then resets
 // the counter for the next launch on the stream) sums each quantity over
@@ -38,9 +40,9 @@
 // 192), and writes HT (6, 7), err = Σperr / max(Σw·P·P, 1), n_meas and
 // Σperr (over a device mesh the ranks sum [HT | Σperr |
 // n_meas] and divide after the sum, vio.photometric_loop). No
-// float atomics: the result is the same from run to run. The
-// sampling and the projection round as the plain version (-fmad=false);
-// only the order of the sums over G·P² rows differs from its matmul.
+// float atomics: the result is the same from run to run. Every product
+// and sum rounds as the plain version's, which writes this order out
+// (-fmad=false): the outputs are bit-equal to it.
 //
 // Bound on an H100: bytes, at the path's G = 192, P = 8: per point its
 // (P+3)² taps (at most 484 B; chip_smoke.py counts the distinct pixels),
@@ -71,6 +73,7 @@ struct Args {
   int level;
 };
 
+template <bool STAGED>
 __global__ void photometric_err_H_kernel(const Args a) {
   extern __shared__ float smem[];
   __shared__ int s_last;
@@ -80,7 +83,8 @@ __global__ void photometric_err_H_kernel(const Args a) {
   const int tid = threadIdx.x;
 
   load_pose(a.rot, a.pos, pose);
-  measure_point(a.m, pose, a.level, a.m.tr_patch, g, smem, a.partial, a.perr, blockDim.x);
+  measure_point<STAGED>(a.m, pose, a.level, a.m.tr_patch, g, smem, a.partial, a.perr,
+                        blockDim.x);
   __threadfence();  // the partial is visible before the ticket is taken
   __syncthreads();
   if (tid == 0) s_last = (atomicAdd(a.ticket, 1) == G - 1);
@@ -108,7 +112,7 @@ __global__ void photometric_err_H_kernel(const Args a) {
 // elements and contiguous (P, P) planes, tr_slevel (G,) int32, tr_valid
 // (G,) u8, rot (3, 3) / pos (3,) f64, Rci, Jdphi_dR, Jdp_dR (3, 3) and
 // Pci (3,) f32, the camera's fx, fy, cx, cy (f32 scalars) and dist (4,)
-// f32; scratch partial (G, 44) f32 and ticket (one int, 0); outputs out
+// f32, P >= 1; scratch partial (G, 44) f32 and ticket (one int, 0); outputs out
 // (45,) f32 = [HT (6, 7) row-major, err, n_meas, Σperr] and perr (G,) f32. All
 // on the device. robust: 0 none, 1 Huber, 2 Tukey. Returns the launch's
 // cudaError_t (0 = cudaSuccess).
@@ -120,7 +124,7 @@ extern "C" int photometric_err_H_launch(
     const void* cy, const void* dist, void* partial, void* ticket, void* out,
     void* perr, int G, int H, int W, int P, int level, int patch_stride,
     int robust, float k_h, float inv_b, float inv_rs, void* stream) {
-  if (G <= 0 || P < 1 || P > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (G <= 0 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   Meas& m = a.m;
   m.img = static_cast<const float*>(img);
@@ -155,6 +159,11 @@ extern "C" int photometric_err_H_launch(
   a.level = level;
   const int threads = meas_threads(P);
   const size_t smem = (size_t)meas_smem_floats(P, threads) * sizeof(float);
-  photometric_err_H_kernel<<<G, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (taps_staged(P)) {
+    photometric_err_H_kernel<true><<<G, threads, smem, st>>>(a);
+  } else {
+    photometric_err_H_kernel<false><<<G, threads, smem, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,8 @@
 // partials (reduce_partials, the order of ops/photometric.py::
 // partials_sum). Include after patch_sample.cuh. Each expression follows
 // ops/photometric.py::photometric_err_H_plain in its order of operations
-// (built with -fmad=false).
+// (built with -fmad=false), and so do the sums: the plain version writes
+// the per-point order out (ops/photometric.py::point_sums).
 #pragma once
 
 #include <stdint.h>
@@ -43,12 +44,22 @@ struct Meas {
   float k_h, inv_b, inv_rs;
 };
 
-// Threads per block: (P+3)^2 rounded up to whole warps, at least two
-// warps (the NP threads that write a partial).
+// The measuring threads of a block: (P+3)^2 rounded up to whole warps, at
+// least two warps (the NP threads that write a partial), at most
+// MEAS_MAX_THREADS (every P <= 16 below it: one thread a pixel there).
+// ops/photometric.py::meas_threads is the same function.
+constexpr int MEAS_MAX_THREADS = 384;
 __host__ __device__ inline int meas_threads(int P) {
   const int n = P + 3;
   const int warps_px = (n * n + 31) / 32;
-  return 32 * (warps_px > 2 ? warps_px : 2);
+  const int t = 32 * (warps_px > 2 ? warps_px : 2);
+  return t < MEAS_MAX_THREADS ? t : MEAS_MAX_THREADS;
+}
+
+// Shared floats of the staged taps: (P+3)^2, or none where they are read
+// in place (patch_sample.cuh's taps_staged).
+__host__ __device__ inline int taps_floats(int P) {
+  return taps_staged(P) ? (P + 3) * (P + 3) : 0;
 }
 
 // Shared floats of a block: the taps, the warp sums or the reduction's
@@ -64,7 +75,7 @@ __device__ __forceinline__ void meas_sync(int nt) {
   asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
 }
 __host__ __device__ inline int meas_smem_floats(int P, int threads) {
-  return (P + 3) * (P + 3) + meas_red_floats(threads) + NP;
+  return taps_floats(P) + meas_red_floats(threads) + NP;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -85,16 +96,21 @@ __device__ __forceinline__ void load_pose(const double* rot, const double* pos,
 
 // Point g's measurement at the pose in `pose` (rot32 (9), pos32 (3), in
 // shared memory) and pyramid `level`, by the block's first nt threads
-// (meas_threads(P) or more, a multiple of 32; their own barriers): writes
-// the 44-float partial[g] (the 42 sums, its perr, its weight) and perr[g].
-// `patch` is tr_patch offset to the level's plane.
+// (meas_threads(P), a multiple of 32; their own barriers): writes the
+// 44-float partial[g] (the 42 sums, its perr, its weight) and perr[g].
+// `patch` is tr_patch offset to the level's plane. STAGED
+// (taps_staged(P)): the taps in shared memory, else read in place. The
+// order of the sums: thread t holds the terms of pixels t, t + nt, ...
+// summed in that order (the first as it is; a thread with no pixel holds
+// zeros), then a butterfly in each warp, then the warps in index order.
+template <bool STAGED>
 __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, int level,
                                               const float* patch, int g, float* smem,
                                               float* partial, float* perr, int nt) {
   const int n = a.P + 3;
   const int nwarps = nt >> 5;
-  float* taps = smem;         // n * n
-  float* red = taps + n * n;  // nwarps x NT
+  float* taps = smem;                    // n * n when STAGED
+  float* red = taps + taps_floats(a.P);  // nwarps x NT
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -147,7 +163,7 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
 
   const int s = (1 << level) << a.tr_slevel[g];
   const PatchAnchor an = patch_anchor(u, v, s);
-  load_taps(a.img, a.H, a.W, an, s, a.P, taps, tid, nt);
+  if (STAGED) load_taps(a.img, a.H, a.W, an, s, a.P, taps, tid, nt);
 
   // N = Jdpi · Mg (2 x 6), Mg = [skew(pf)·Jdphi_dR - Jdp_dR | -rcw]
   const float zi = 1.0f / (front ? pf[2] : 1.0f);
@@ -178,20 +194,27 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
   const float w = (a.tr_valid[g] != 0 && front) ? 1.0f : 0.0f;
   meas_sync(nt);  // taps loaded
 
+  const StagedTaps staged{taps, n};
+  const ImageTaps direct{a.img, a.H, a.W, s, a.P / 2 + 1, an};
   float acc[NT];
 #pragma unroll
   for (int q = 0; q < NT; ++q) acc[q] = 0.0f;
-  if (tid < a.P * a.P) {
-    const int x = tid / a.P;  // patch row (v)
-    const int y = tid - x * a.P;  // column (u)
+  for (int p = tid; p < a.P * a.P; p += nt) {
+    const bool first = p == tid;
+    const int x = p / a.P;  // patch row (v)
+    const int y = p - x * a.P;  // column (u)
     float val, du, dv;
-    patch_val_grad(taps, n, an, x, y, val, du, dv);
-    const float res = val - patch[(size_t)g * a.patch_stride + tid];
+    if (STAGED) {
+      patch_val_grad(staged, an, x, y, val, du, dv);
+    } else {
+      patch_val_grad(direct, an, x, y, val, du, dv);
+    }
+    const float res = val - patch[(size_t)g * a.patch_stride + p];
     float h[6];
 #pragma unroll
     for (int f = 0; f < 6; ++f) h[f] = du * N0[f] + dv * N1[f];
     const float res_w = res * w;
-    acc[NH] = res_w * res_w;
+    acc[NH] = first ? res_w * res_w : acc[NH] + res_w * res_w;
     float wr = w;
     if (a.robust != ROBUST_NONE) {
       const float t = fabsf(res) * a.inv_rs;
@@ -209,8 +232,8 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
     for (int i = 0; i < 6; ++i) {
       const float hw = h[i] * wr;
 #pragma unroll
-      for (int j = 0; j < 6; ++j) acc[7 * i + j] = hw * h[j];
-      acc[7 * i + 6] = hw * res;
+      for (int j = 0; j < 6; ++j) acc[7 * i + j] = first ? hw * h[j] : acc[7 * i + j] + hw * h[j];
+      acc[7 * i + 6] = first ? hw * res : acc[7 * i + 6] + hw * res;
     }
   }
 
@@ -242,7 +265,7 @@ __device__ __forceinline__ void measure_point(const Meas& a, const float* pose, 
 __device__ __forceinline__ void reduce_partials(const float* partial, int G, float* smem,
                                                 int P) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  float* chains = smem + (P + 3) * (P + 3);  // NCH, over the warp sums
+  float* chains = smem + taps_floats(P);  // NCH, over the warp sums
   float* tot = chains + meas_red_floats(nt);
   const int G8 = G - (G & 7);
   for (int u0 = tid; u0 < NCH; u0 += 2 * nt) {
@@ -294,7 +317,7 @@ __device__ __forceinline__ void reduce_partials(const float* partial, int G, flo
 
 // The totals' shared-memory address (reduce_partials' output).
 __device__ __forceinline__ float* meas_tot(float* smem, int P) {
-  return smem + (P + 3) * (P + 3) + meas_red_floats(blockDim.x);
+  return smem + taps_floats(P) + meas_red_floats(blockDim.x);
 }
 
 }  // namespace

@@ -161,6 +161,28 @@ __device__ __forceinline__ float warp_tree(const float (&x)[NW / 32]) {
   return __shfl_sync(FULL, s, 0);
 }
 
+// image.halving_sum at width NW > 256 (a power of two, vio._patch_sum's
+// width for P * P > 256) over f(k), k < n (zeros past n, NW / 2 < n <=
+// NW), by a warp, through tmp (NW / 2 floats, shared or device memory): the
+// first level f(k) + f(k + NW / 2) into tmp[k], the levels down to 64 in
+// place (tmp[k] + tmp[k + n / 2]), then warp_tree<64>. Lane l touches only
+// the entries k = l mod 32, so the levels need no barrier. Every lane gets
+// the sum.
+template <class F>
+__device__ __forceinline__ float warp_tree_wide(float* tmp, int n, int width, int lane,
+                                                const F& f) {
+  const int half = width / 2;
+  for (int k = lane; k < half; k += 32) {
+    const float a = k < n ? f(k) : 0.0f;
+    const float b = k + half < n ? f(k + half) : 0.0f;
+    tmp[k] = a + b;
+  }
+  for (int m = half; m > 64; m >>= 1)
+    for (int k = lane; k < m / 2; k += 32) tmp[k] = tmp[k] + tmp[k + m / 2];
+  const float x[2] = {tmp[lane], tmp[lane + 32]};
+  return warp_tree<64>(x);
+}
+
 // image.halving_sum over 64 values held four a lane of a half-warp
 // (x[hl + 16 h], h = 0..3; hmask its lanes), summed in the tree's order
 // (the first two levels in the lane: (x[i] + x[i + 32]) + (x[i + 16] +

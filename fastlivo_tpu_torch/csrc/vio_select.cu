@@ -41,8 +41,14 @@
 // A patch of P x P pixels is held NW / 32 a lane of the cell's warps (k =
 // lane + 32 h), NW the tree's width, a template parameter the launch picks
 // from P: 64 for P <= 8, 128 for P 9-11, 256 for P 12-16 (vio_common.cuh's
-// warp_tree). The pool's first STAGE_R image ids are staged in shared
-// memory, the rest read from global memory in the same launch.
+// warp_tree). Past P = 16 (NW = 0, the wide instance) the tree's width is
+// the next power of two of P * P, and the cell's current and reference
+// patches and the tree's scratch live in memory, not in a lane's
+// registers: in the block's shared memory up to WIDE_SMEM bytes for its
+// cells, else in the launch's device scratch, a slice a cell
+// (vio_common.cuh's warp_tree_wide). The pool's first STAGE_R image ids
+// are staged in shared memory, the rest read from global memory in the
+// same launch.
 // Only integer atomics (a min or max is order-free), no float atomics:
 // the same bits on every launch and any grid.
 //
@@ -73,7 +79,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int MAX_P = 16;  // P * P <= 256: eight pixels a lane
+constexpr int WIDE_SMEM = 128 * 1024;  // the wide instance's cells in shared memory
 constexpr long long KEY_NONE = 0x7FFFFFFFFFFFFFFFLL;
 constexpr float DEPTH_CONT_GATE = 1.5f;  // vio.DEPTH_CONT_GATE
 constexpr int WARPS = THREADS / 32;
@@ -131,6 +137,11 @@ struct Sel {
   uint8_t* nadd;      // (G,)
   float* rcw_out;     // (3, 3) the camera pose
   float* pcw_out;     // (3,)
+  // the wide instance: its cells' patches and tree scratch, wstride floats
+  // a cell (current, reference, tree), in shared memory or in `wide` (G,
+  // wstride)
+  float* wide;
+  int wstride, wide_smem, width;
   int NP, KO, T, VC, R, H, W, M, Nv, NC, G, gh, P, border, ncc_en, max_probe, imgs_u8;
   float inv_grid, inv_half, inv_n;
 };
@@ -233,12 +244,18 @@ __device__ void voxel_rows(const Sel& s, const vio::Cam& cam, const float* rcw, 
 }
 
 // What a cell's warps share (CELLS cells a block); the patches at the
-// tree's width NW.
+// tree's width NW (the wide instance's in memory, CellBuf).
 template <int NW>
 struct CellSh {
   float a00, a01, a10, a11, rpu, rpv;
   int sl, slot, depth_ok, view_ok;
-  float cur[NW], ref0[NW];
+  float cur[NW > 0 ? NW : 1], ref0[NW > 0 ? NW : 1];
+};
+
+// A cell's current and level-0 reference patches and the wide tree's
+// scratch.
+struct CellBuf {
+  float *cur, *ref0, *tmp;
 };
 
 // A cell's tracked winner, as every warp of the cell derives it.
@@ -376,22 +393,28 @@ __device__ void best_view(const Sel& s, const vio::Cam& cam, const float* rcw, c
   }
 }
 
+// The lane's share of a patch: pixels lane + 32 h for h < lane_pixels.
+template <int NW>
+__device__ __forceinline__ int lane_pixels(int PP) {
+  return NW > 0 ? NW / 32 : (PP + 31) / 32;
+}
+
 // phase 5's current patch at level 0 (extract_patches, scale 1), by a
 // warp: pixel k = lane + 32 h (row x = k / P over v, column y = k % P)
 template <int NW>
-__device__ void current_patch(const Sel& s, const Winner& w, int lane, CellSh<NW>& sh) {
+__device__ void current_patch(const Sel& s, const Winner& w, int lane, float* cur) {
   const int P = s.P, PP = P * P, half = P / 2;
   const int32_t ui = (int32_t)floorf(w.wu), vi = (int32_t)floorf(w.wv);
   const float su = w.wu - (float)ui, sv = w.wv - (float)vi;
   const float w_tl = (1.0f - su) * (1.0f - sv), w_tr = su * (1.0f - sv);
   const float w_bl = (1.0f - su) * sv, w_br = su * sv;
-  for (int h = 0; h < NW / 32; ++h) {
+  for (int h = 0; h < lane_pixels<NW>(PP); ++h) {
     const int k = lane + 32 * h;
     if (k >= PP) continue;
     const int x = k / P, y = k - (k / P) * P;
     const int32_t ra = vio::wrap_add(vi, x - half), rb = vio::wrap_add(vi, x + 1 - half);
     const int32_t ca = vio::wrap_add(ui, y - half), cb = vio::wrap_add(ui, y + 1 - half);
-    sh.cur[k] = ((w_tl * img_at(s, ra, ca) + w_tr * img_at(s, ra, cb)) +
+    cur[k] = ((w_tl * img_at(s, ra, ca) + w_tr * img_at(s, ra, cb)) +
                  w_bl * img_at(s, rb, ca)) +
                 w_br * img_at(s, rb, cb);
   }
@@ -410,15 +433,17 @@ __device__ void new_point(const Sel& s, int c) {
   s.nadd[c] = (kn != KEY_NONE && nsc > __ldcg(s.cell_value + c)) ? 1 : 0;
 }
 
-// the warped reference patch at pyramid level lvl, by a warp
+// the warped reference patch at pyramid level lvl, by a warp (level 0
+// also into ref0)
 template <int NW>
-__device__ void warped_patch(const Sel& s, int c, int lvl, int lane, CellSh<NW>& sh) {
+__device__ void warped_patch(const Sel& s, int c, int lvl, int lane, const CellSh<NW>& sh,
+                             float* ref0) {
   const int P = s.P, PP = P * P, half = P / 2;
   const float scf = (float)((1 << lvl) * (1 << sh.sl));
   const float a00 = sh.a00, a01 = sh.a01, a10 = sh.a10, a11 = sh.a11;
   const float rpu = sh.rpu, rpv = sh.rpv;
   const int slot = sh.slot;
-  for (int h = 0; h < NW / 32; ++h) {
+  for (int h = 0; h < lane_pixels<NW>(PP); ++h) {
     const int k = lane + 32 * h;
     if (k >= PP) continue;
     const int x = k / P, y = k - (k / P) * P;
@@ -436,14 +461,46 @@ __device__ void warped_patch(const Sel& s, int c, int lvl, int lane, CellSh<NW>&
                       (au * av) * pool_at(s, slot, v1, u1);
     const float out = inb ? val : 0.0f;
     s.patch[((size_t)c * 3 + lvl) * PP + k] = out;
-    if (lvl == 0) sh.ref0[k] = out;
+    if (lvl == 0) ref0[k] = out;
   }
 }
 
-// phase 5's error, outlier and NCC gates and the cell's outputs, by a warp
-// (every patch sum a warp_tree<NW>, zeros past the patch)
+// The gates' patch sums in the wide instance: every sum a warp_tree_wide
+// at the launch's width over the cell's patches in memory.
+__device__ __forceinline__ void wide_sums(const Sel& s, const CellBuf& b, int lane,
+                                          float& err0, float& ncc) {
+  const int PP = s.P * s.P;
+  const float* ref0 = b.ref0;
+  const float* cur = b.cur;
+  err0 = vio::warp_tree_wide(b.tmp, PP, s.width, lane, [&](int k) {
+    const float d = ref0[k] - cur[k];
+    return d * d;
+  });
+  ncc = 0.0f;
+  if (!s.ncc_en) return;
+  const float ma = vio::warp_tree_wide(b.tmp, PP, s.width, lane, [&](int k) { return ref0[k]; })
+                   * s.inv_n;
+  const float mb = vio::warp_tree_wide(b.tmp, PP, s.width, lane, [&](int k) { return cur[k]; })
+                   * s.inv_n;
+  const float sab = vio::warp_tree_wide(b.tmp, PP, s.width, lane, [&](int k) {
+    return (ref0[k] - ma) * (cur[k] - mb);
+  });
+  const float saa = vio::warp_tree_wide(b.tmp, PP, s.width, lane, [&](int k) {
+    const float a = ref0[k] - ma;
+    return a * a;
+  });
+  const float sbb = vio::warp_tree_wide(b.tmp, PP, s.width, lane, [&](int k) {
+    const float d = cur[k] - mb;
+    return d * d;
+  });
+  ncc = sab / sqrtf(saa * sbb + 1e-10f);
+}
+
+// The gates' patch sums at the tree's width NW <= 256, the patches in the
+// lanes' registers.
 template <int NW>
-__device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const CellSh<NW>& sh) {
+__device__ __forceinline__ void narrow_sums(const Sel& s, int lane, const CellSh<NW>& sh,
+                                            float& err0, float& ncc) {
   constexpr int H = NW / 32;
   const int P = s.P, PP = P * P;
   float ref0[H] = {}, cur[H] = {}, e2[H] = {};
@@ -455,9 +512,7 @@ __device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const
     const float d = ref0[h] - cur[h];
     e2[h] = d * d;
   }
-  const float err0 = vio::warp_tree<NW>(e2);
-  bool t_ok = w.has_map && sh.depth_ok && sh.view_ok;
-  t_ok = t_ok && err0 <= (__ldg(s.out_thr) * (float)P) * (float)P;
+  err0 = vio::warp_tree<NW>(e2);
   if (s.ncc_en) {
     const float ma = vio::warp_tree<NW>(ref0) * s.inv_n;
     const float mb = vio::warp_tree<NW>(cur) * s.inv_n;
@@ -473,9 +528,26 @@ __device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const
     const float saa = vio::warp_tree<NW>(t);
     for (int h = 0; h < H; ++h) t[h] = bm[h] * bm[h];
     const float sbb = vio::warp_tree<NW>(t);
-    const float ncc = sab / sqrtf(saa * sbb + 1e-10f);
-    t_ok = t_ok && ncc >= __ldg(s.ncc_thr);
+    ncc = sab / sqrtf(saa * sbb + 1e-10f);
   }
+}
+
+// phase 5's error, outlier and NCC gates and the cell's outputs, by a warp
+// (every patch sum a warp_tree<NW>, zeros past the patch; the wide
+// instance's wide_sums)
+template <int NW>
+__device__ void cell_gates(const Sel& s, const Winner& w, int c, int lane, const CellSh<NW>& sh,
+                           const CellBuf& b) {
+  const int P = s.P;
+  float err0, ncc = 0.0f;
+  if constexpr (NW == 0) {
+    wide_sums(s, b, lane, err0, ncc);
+  } else {
+    narrow_sums<NW>(s, lane, sh, err0, ncc);
+  }
+  bool t_ok = w.has_map && sh.depth_ok && sh.view_ok;
+  t_ok = t_ok && err0 <= (__ldg(s.out_thr) * (float)P) * (float)P;
+  if (s.ncc_en) t_ok = t_ok && ncc >= __ldg(s.ncc_thr);
   if (lane != 0) return;
   s.idx[c] = w.widx;
   for (int k = 0; k < 3; ++k) s.wpos[3 * c + k] = w.wp[k];
@@ -489,7 +561,8 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float sh_rcw[9], sh_pcw[3];
   __shared__ CellSh<NW> csh[CELLS];
-  extern __shared__ int sh_img_fid[];  // (min(R, STAGE_R),)
+  // (min(R, STAGE_R),) staged ids; the wide instance's cells after them
+  extern __shared__ int sh_img_fid[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gt = blockIdx.x * THREADS + threadIdx.x, nt = gridDim.x * THREADS;
   const int gw = gt >> 5, nw = nt >> 5;
@@ -542,21 +615,29 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
   // four warps a cell, the cells spread over the blocks
   const int role = warp & 3;
   CellSh<NW>& sh = csh[warp >> 2];
+  float* wide_sh = reinterpret_cast<float*>(sh_img_fid + ((min(s.R, STAGE_R) + 3) & ~3));
+  const int ppr = (s.P * s.P + 3) & ~3;
   for (int c0 = blockIdx.x; c0 < s.G; c0 += CELLS * gridDim.x) {
     const int c = c0 + (warp >> 2) * gridDim.x;
     const bool live = c < s.G;
+    CellBuf b{sh.cur, sh.ref0, nullptr};
+    if (NW == 0 && live) {
+      float* base = s.wide_smem ? wide_sh + (warp >> 2) * s.wstride
+                                : s.wide + (size_t)c * s.wstride;
+      b = CellBuf{base, base + ppr, base + 2 * ppr};
+    }
     Winner w;
     if (live) {
       w = winner_of(s, cam, rcw, pcw, c);
       if (role == 0) depth_window(s, w, lane, sh);
       else if (role == 1) best_view(s, cam, rcw, pcw, campos, sh_img_fid, w, lane, sh);
-      else if (role == 2) current_patch(s, w, lane, sh);
+      else if (role == 2) current_patch<NW>(s, w, lane, b.cur);
       else if (lane == 0) new_point(s, c);
     }
     __syncthreads();
-    if (live && role < 3) warped_patch(s, c, role, lane, sh);
+    if (live && role < 3) warped_patch(s, c, role, lane, sh, b.ref0);
     __syncthreads();
-    if (live && role == 0) cell_gates(s, w, c, lane, sh);
+    if (live && role == 0) cell_gates(s, w, c, lane, sh, b);
     __syncthreads();
   }
   PHASE_STAMP(4);
@@ -564,10 +645,25 @@ __global__ void __launch_bounds__(THREADS) vio_select_kernel(const Sel s) {
 
 struct DevInfo {
   int coop = -1, sms = 0;
-  // per tree width (64, 128, 256): the dynamic shared memory the kernel
-  // may take, and the occupancy at the last launch's
-  int smem_set[3] = {0, 0, 0}, occ_smem[3] = {-1, -1, -1}, per_sm[3] = {0, 0, 0};
+  // per instance (the tree widths 64, 128, 256 and the wide one): the
+  // dynamic shared memory the kernel may take, and the occupancy at the
+  // last launch's
+  int smem_set[4] = {0, 0, 0, 0}, occ_smem[4] = {-1, -1, -1, -1}, per_sm[4] = {0, 0, 0, 0};
 };
+
+// The wide instance's tree width (the next power of two of P * P) and
+// floats a cell (current and reference patches, each rounded up to 4, and
+// the tree's NW / 2), and whether its cells fit in shared memory.
+struct Wide {
+  int width, stride;
+  bool smem;
+};
+Wide wide_layout(int P) {
+  int width = 512;
+  while (width < P * P) width *= 2;
+  const int stride = 2 * ((P * P + 3) & ~3) + width / 2;
+  return Wide{width, stride, (long long)CELLS * stride * 4 <= WIDE_SMEM};
+}
 DevInfo g_dev[MAX_DEV];
 
 // Raise the instance's dynamic shared-memory limit when smem needs more
@@ -594,6 +690,15 @@ cudaError_t prepare(const void* fn, int t, size_t smem, DevInfo& d) {
 
 PHASE_STAMPS_EXPORT(vio_select)
 
+// The device scratch (floats) vio_select_launch needs in `wide` for G
+// cells at patch size P: 0 unless P * P > 256 and the cells of a block do
+// not fit in shared memory.
+extern "C" long long vio_select_wide_floats(int P, int G) {
+  if (P * P <= 256) return 0;
+  const Wide w = wide_layout(P);
+  return w.smem ? 0 : (long long)G * w.stride;
+}
+
 // The selection of one camera frame. Pointers, all contiguous on the
 // device: the visual map's pos (NP, 3), value (NP,), obs_px (NP, KO, 2),
 // obs_rcw (NP, KO, 3, 3), obs_pcw (NP, KO, 3), obs_slot and obs_fid (NP,
@@ -608,9 +713,11 @@ PHASE_STAMPS_EXPORT(vio_select)
 // (M,), pcn (M, 2) and score (M,) f32; outputs idx (G,) int32, wpos (G, 3), patch (G, 3, P, P),
 // slevel (G,) int32, valid (G,) u8, cell_value and errors (G,) f32, npos
 // (G, 3), npx (G, 2), nscore (G,) f32, nadd (G,) u8 and the camera pose
-// rcw (3, 3), pcw (3,) f32. P is 2 .. 16, R any size (the first STAGE_R
-// image ids staged in shared memory). `grid_out` receives the number of
-// blocks launched. Returns the launch's cudaError_t (0 = cudaSuccess).
+// rcw (3, 3), pcw (3,) f32; scratch wide (vio_select_wide_floats(P, G)
+// floats, or null where that is 0). P is 2 or more, R any size (the first
+// STAGE_R image ids staged in shared memory). `grid_out` receives the
+// number of blocks launched. Returns the launch's cudaError_t (0 =
+// cudaSuccess).
 extern "C" int vio_select_launch(
     const void* pos, const void* value, const void* obs_px, const void* obs_rcw,
     const void* obs_pcw, const void* obs_slot, const void* obs_fid, const void* vox_keys,
@@ -621,13 +728,14 @@ extern "C" int vio_select_launch(
     const void* out_thr, const void* ncc_thr, void* tkey, void* nkey, void* owner, void* cand,
     void* zrow, void* pcn, void* score, void* idx, void* wpos, void* patch, void* slevel,
     void* valid, void* cell_value, void* errors, void* npos, void* npx, void* nscore,
-    void* nadd, void* rcw_out, void* pcw_out, int NP, int KO, int T, int VC, int R, int H,
+    void* nadd, void* rcw_out, void* pcw_out, void* wide, int NP, int KO, int T, int VC,
+    int R, int H,
     int W, int M, int Nv, int grid_size, int gh, int G, int P, int ncc_en, int max_probe,
     int imgs_u8, int* grid_out, void* stream) {
   if (NP < 1 || KO < 1 || T < 1 || (T & (T - 1)) || VC < 1 || R < 1 || H < 1 || W < 1 ||
       M < 1 || Nv < 1 || (long long)Nv * VC >= (1 << 20) || M >= (1 << 20) || G < 1 ||
       (reinterpret_cast<uintptr_t>(cand) & 15) || gh < 1 || grid_size < 1 ||
-      P < 2 || P > MAX_P || max_probe < 1)
+      P < 2 || max_probe < 1 || (vio_select_wide_floats(P, G) > 0 && wide == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Sel s;
   s.pos = static_cast<const float*>(pos);
@@ -678,6 +786,11 @@ extern "C" int vio_select_launch(
   s.nadd = static_cast<uint8_t*>(nadd);
   s.rcw_out = static_cast<float*>(rcw_out);
   s.pcw_out = static_cast<float*>(pcw_out);
+  const Wide wl = wide_layout(P);
+  s.wide = static_cast<float*>(wide);
+  s.wstride = wl.stride;
+  s.wide_smem = wl.smem;
+  s.width = wl.width;
   s.NP = NP;
   s.KO = KO;
   s.T = T;
@@ -716,12 +829,16 @@ extern "C" int vio_select_launch(
   }
   if (!d.coop) return static_cast<int>(cudaErrorNotSupported);
   // the tree's width: vio._patch_sum's, the next power of two of P * P, at
-  // least 64
-  const int t = P * P <= 64 ? 0 : (P * P <= 128 ? 1 : 2);
+  // least 64; past 256 the wide instance
+  const int t = P * P <= 64 ? 0 : (P * P <= 128 ? 1 : (P * P <= 256 ? 2 : 3));
   const void* fn = t == 0   ? (const void*)vio_select_kernel<64>
                    : t == 1 ? (const void*)vio_select_kernel<128>
-                            : (const void*)vio_select_kernel<256>;
-  const size_t smem = (size_t)(R < STAGE_R ? R : STAGE_R) * sizeof(int);  // the staged ids
+                   : t == 2 ? (const void*)vio_select_kernel<256>
+                            : (const void*)vio_select_kernel<0>;
+  // the staged ids, then the wide instance's cells where they fit
+  const int staged = R < STAGE_R ? R : STAGE_R;
+  size_t smem = (size_t)staged * sizeof(int);
+  if (t == 3 && wl.smem) smem = (size_t)((staged + 3) & ~3) * 4 + (size_t)CELLS * wl.stride * 4;
   e = prepare(fn, t, smem, d);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (d.per_sm[t] < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);

@@ -16,14 +16,15 @@ point set; the iteration protocol is the reference's
   - on stop, P <- (I - G) P (:1712).
 
 The JAX package runs the loop as a `lax.while_loop`. On one CUDA device,
-on the tiled map with the TLS fit and no `cache_knn` (`Config()`'s
-default), so does the port: one cooperative launch of
+on any map (tiled, hash or dense) with the TLS fit and no `cache_knn`
+(`Config()`'s default), so does the port: one cooperative launch of
 ops/lio_cascade.lio_cascade runs every iteration's search, gates, rows
-and step on the card and reads nothing back. Everywhere else the loop is
-the host loop `lio_loop`, which reads the convergence flag once per
-iteration (at most max_iter + 1 reads), so `iters` is the JAX package's
-exactly; it is also the plain version the cascade is bit-equal to when it
-runs the step kernel. The loop's search computes the JAX package's
+and step on the card and reads nothing back. Everywhere else (the CPU, a
+mesh, `cache_knn`, `plane_fit: ref`) the loop is the host loop
+`lio_loop`, which reads the convergence flag once per iteration (at most
+max_iter + 1 reads), so `iters` is the JAX package's exactly; it is also
+the plain version the cascade is bit-equal to when it runs the step
+kernel. The loop's search computes the JAX package's
 `pallas_knn=True` branch (the map's knn_candidates, then the Pallas
 knn5_plane), by map backend and option:
   - no cache, any backend: one kernel (ops/knn_plane.knn5_plane_search:
@@ -104,10 +105,11 @@ def check_supported(map_backend: str = "tiled", plane_fit: str = "tls"):
 def cascade_applies(m, device, plane_fit: str = "tls", cache_knn: bool = False,
                     mesh=None) -> bool:
     """Whether lio_update runs its iterations as one lio_cascade launch:
-    on one CUDA device (no mesh), on the tiled map, with the TLS fit and
-    without `cache_knn`. Everywhere else it runs `lio_loop`."""
+    on one CUDA device (no mesh), on the tiled, hash or dense map, with the
+    TLS fit and without `cache_knn`. Everywhere else it runs `lio_loop`."""
     return (mesh is None and torch.device(device).type == "cuda"
-            and isinstance(m, tm.TiledMap) and plane_fit == "tls" and not cache_knn)
+            and isinstance(m, (tm.TiledMap, vm.VoxelMap, dm.DenseMap))
+            and plane_fit == "tls" and not cache_knn)
 
 
 def world_points(p_imu: torch.Tensor, rot: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -172,13 +174,12 @@ def lio_update(
     active count are reduced over the mesh, so `state`, `n_active` and
     `iters` are the same on every rank (JAX's `axis_name`).
 
-    On one CUDA device, on the tiled map with the TLS fit and no
-    `cache_knn`, the iterations are one launch of
-    ops/lio_cascade.lio_cascade (the JAX package's while_loop: search,
-    gates, rows and f64 step on the card, nothing read back) and `iters` is
-    a device int32; otherwise (the CPU, a mesh, the hash and dense maps,
-    `cache_knn`, `plane_fit: ref`) they are the host loop `lio_loop` and
-    `iters` a host int. The covariance, the posterior cloud and the final
+    On one CUDA device, on any map with the TLS fit and no `cache_knn`,
+    the iterations are one launch of ops/lio_cascade.lio_cascade (the JAX
+    package's while_loop: search, gates, rows and f64 step on the card,
+    nothing read back) and `iters` is a device int32; otherwise (the CPU,
+    a mesh, `cache_knn`, `plane_fit: ref`) they are the host loop
+    `lio_loop` and `iters` a host int. The covariance, the posterior cloud and the final
     gate are the same torch ops after either."""
     check_supported(plane_fit=plane_fit)
     mod = map_module(m)
@@ -196,7 +197,7 @@ def lio_update(
     if cascade_applies(m, p_imu.device, plane_fit, cache_knn, mesh):
         rot, x, G, sel, pabcd, plane_ok, iters = lio_cascade(
             m, p_imu, body_norm_sqrt, pmask.contiguous(), prior_rot, prior_x, prior_rot,
-            prior_x, P, max_iter, knn_radius, PLANE_THRESH, GATES, CONV)
+            prior_x, P, max_iter, knn_radius, PLANE_THRESH, GATES, CONV, max_probe)
     else:
         if cache_knn:
             # the candidate block gathered ONCE, at the prior pose; every
@@ -250,8 +251,9 @@ def lio_update(
 def lio_loop(search, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: int,
              mesh=None):
     """The iterations as a host loop (ops/lio_cascade.lio_cascade's
-    outputs, `iters` a host int): the CPU's path, the mesh's, the other
-    maps' and options', and the plain version the card's cascade is held
+    outputs, `iters` a host int): the CPU's path, the mesh's, the
+    options' (`cache_knn`, `plane_fit: ref`), and the plain version the
+    card's cascade is held
     against. `search(pw)` gives (pabcd, plane_ok, nd2_5) for the scan at
     the world points pw. Each iteration: the search when search_en (one
     kernel launch on the card), `gate_rows`, and the prior-anchored step

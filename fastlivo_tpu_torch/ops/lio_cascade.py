@@ -1,20 +1,23 @@
-"""The LIO iterated EKF of one scan in one launch, on the tiled map.
+"""The LIO iterated EKF of one scan in one launch, on any map.
 
 `lio_cascade` is the JAX package's `jax.lax.while_loop` of
 `lio.lio_update` (fastlivo_tpu/lio.py:256), whose search runs the TPU
 kernel `knn5_plane` (fastlivo_tpu/ops/pallas_lio.py, `pl.pallas_call` at
-line 219), as one cooperative launch of csrc/lio_cascade.cu: every
-iteration's search (the walk of csrc/knn5_tiled_walk.cuh, which
-knn5_plane_tiled.cu runs alone), gates, H rows, [HᵀH₆ | Hᵀz] and f64 step
-on the card, with no host read and no launch between iterations. It
-takes CUDA tensors only. Its plain version is the host loop
-`lio.lio_loop` (one `knn5_plane_tiled` search per search iteration, the
-gates and rows in torch ops, `fixed_order_sum` and one
-`photometric_step` per iteration, one flag read), which the CPU runs.
+line 219) on the map's candidate block, as one cooperative launch of
+csrc/lio_cascade.cu: every iteration's search, gates, H rows, [HᵀH₆ |
+Hᵀz] and f64 step on the card, with no host read and no launch between
+iterations. The search is the walk of csrc/knn5_tiled_walk.cuh on the
+tiled map (which knn5_plane_tiled.cu runs alone) and of
+csrc/knn5_hashed_walk.cuh on the hash map or the dense grid (which
+knn5_plane_hashed.cu runs alone). It takes CUDA tensors only. Its plain
+version is the host loop `lio.lio_loop` (one `knn5_plane_search` per
+search iteration, the gates and rows in torch ops, `fixed_order_sum` and
+one `photometric_step` per iteration, one flag read), which the CPU runs.
 Contract on the card against that loop: with the step kernel every output
-bit-equal (rot, x, G, sel, pabcd, plane_ok, iterations), its search
-`knn5_plane_tiled` or `knn5_plane_tiled_plain`; all plain (that search
-and `photometric_step_plain`), equal iterations and the pose within 1e-9.
+bit-equal (rot, x, G, sel, pabcd, plane_ok, iterations), its search the
+map's kernel (`knn5_plane_tiled`, `knn5_plane_hashed`) or its plain
+version; all plain (that search and `photometric_step_plain`), equal
+iterations and the pose within 1e-9.
 
 `fixed_order_sum` is the order in which both sum the per-row products of
 [HᵀH₆ | Hᵀz]: a halving tree over each chunk of CHUNK rows (the kernel's
@@ -30,7 +33,8 @@ import functools
 import torch
 
 from . import tiled_map as tm
-from .knn_plane import _check_tiled
+from . import voxel_map as vm
+from .knn_plane import _check_hashed, _check_tiled, _hashed_module
 from .photometric import _check_step, _require
 
 CHUNK = 64  # rows of a chunk, and chunk sums of a group (csrc/lio_cascade.cu: CH)
@@ -89,36 +93,62 @@ def _group_tickets(device: torch.device, stream: int, k: int) -> torch.Tensor:
     return t
 
 
+_TAIL = ([ctypes.c_float] * 4 + [ctypes.c_double] * 2
+         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+
+
 @functools.cache
 def _launcher():
     from . import _build
 
     fn = _build.load("lio_cascade").lio_cascade_launch
-    fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
-                   + [ctypes.c_double] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + _TAIL
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
 
 
-def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_,
-                max_iter: int, radius: int, threshold: float, gates, conv):
-    """The iterated EKF on the tiled map `m` (radius 1 or 2: 27 or 125
-    candidates; the plane fit's `threshold`, the gates (sq_dist, s, res)
-    and the convergence thresholds `conv` (deg, cm) as lio.py sets them)
-    from the pose (rot (3, 3), x = [pos, vel, bg, ba, grav]
-    (15,), f64) toward the prior (prior_rot, prior_x, P' = prior.cov /
+@functools.cache
+def _hashed_launcher():
+    from . import _build
+
+    fn = _build.load("lio_cascade").lio_cascade_hashed_launch
+    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + _TAIL
+    fn.restype = ctypes.c_int
+    return _build.profiled("lio_cascade", fn)
+
+
+def map_kind(m) -> str:
+    """"tiled", "hash" or "dense": the walk a map's cascade runs."""
+    if isinstance(m, tm.TiledMap):
+        return "tiled"
+    return ("hash", "dense")[_hashed_module(m)[1]]
+
+
+def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: int,
+                radius: int, threshold: float, gates, conv, max_probe: int = 12):
+    """The iterated EKF on the map `m` (tiled_map.TiledMap,
+    voxel_map.VoxelMap with `max_probe` slots a voxel, or dense_map.DenseMap;
+    radius 1 or 2: 27 or 125 candidates; the plane fit's `threshold`, the
+    gates (sq_dist, s, res) and the convergence thresholds `conv` (deg, cm)
+    as lio.py sets them) from the pose (rot (3, 3), x = [pos, vel, bg, ba,
+    grav] (15,), f64) toward the prior (prior_rot, prior_x, P' = prior.cov /
     laser_point_cov (18, 18)), for the scan p_imu (N, 3) f32 in the IMU
     frame with bns = |p_body|^(1/2) (N,) f32 and pmask (N,) bool, in one
     cooperative launch on the current stream (counted in
-    `lio_cascade.launches`; the blocks launched in `lio_cascade.grid`).
-    Returns (rot (3, 3), x (15,), G = K·HᵀH₆ (18, 6) f64 of the last
-    iteration, sel (N,) bool, pabcd (N, 4) f32, plane_ok (N,) bool,
-    iterations () int32), all on the card; nothing is read back. A tensor
-    on any other device raises: the CPU runs `lio.lio_loop`. So does a
-    card on which the grid cannot be co-resident."""
+    `lio_cascade.launches` and, by map, in `lio_cascade.by_map`; the
+    blocks launched in `lio_cascade.grid`). Returns (rot (3, 3), x (15,),
+    G = K·HᵀH₆ (18, 6) f64 of the last iteration, sel (N,) bool, pabcd (N,
+    4) f32, plane_ok (N,) bool, iterations () int32), all on the card;
+    nothing is read back. A tensor on any other device raises: the CPU
+    runs `lio.lio_loop`. So does a card on which the grid cannot be
+    co-resident."""
     if p_imu.device.type != "cuda":
         raise ValueError(f"lio_cascade: the kernel needs CUDA tensors, got {p_imu.device}")
-    _check_tiled(m, p_imu, radius)
+    kind = map_kind(m)
+    if kind == "tiled":
+        _check_tiled(m, p_imu, radius)
+    else:
+        _check_hashed(m, p_imu, radius, max_probe)
     dev = p_imu.device
     N = p_imu.shape[0]
     _require("lio_cascade: bns", bns, (N,), F32, dev)
@@ -126,7 +156,7 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     _check_step("lio_cascade", rot, x, prior_rot, prior_x, P_)
     if rot.device != dev:
         raise ValueError("lio_cascade: inputs on different devices")
-    offs = tm.neighbor_offsets(radius, dev)
+    offs = (tm if kind == "tiled" else vm).neighbor_offsets(radius, dev)
     f64 = dict(dtype=F64, device=dev)
     rot_out, x_out, Gmat = (torch.empty((3, 3), **f64), torch.empty(15, **f64),
                             torch.empty((18, 6), **f64))
@@ -139,20 +169,31 @@ def lio_cascade(m: tm.TiledMap, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P
     part = torch.empty(part_s, dtype=F32, device=dev)
     gsum = torch.empty(gsum_s, dtype=F32, device=dev)
     ptrs = [t.data_ptr() for t in (
-        m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs, p_imu,
-        bns, pmask, P_, prior_rot, prior_x, rot, x, part, gsum,
+        offs, p_imu, bns, pmask, P_, prior_rot, prior_x, rot, x, part, gsum,
         _group_tickets(dev, stream, tick_s[0]), rot_out, x_out, Gmat, sel, pabcd, plane_ok,
         its)]
+    tail = (int(max_iter), float(threshold), *(float(g) for g in gates),
+            *(float(c) for c in conv))
     grid = ctypes.c_int(0)
-    err = _launcher()(*ptrs, N, offs.shape[0], m.slot_key.shape[0], int(max_iter),
-                      float(threshold), *(float(g) for g in gates),
-                      *(float(c) for c in conv), ctypes.byref(grid), stream)
+    if kind == "tiled":
+        err = _launcher()(m.dir_check.data_ptr(), m.dir_slot.data_ptr(), m.cell_check.data_ptr(),
+                          m.pts.data_ptr(), m.voxel_size.data_ptr(), m.log2_dims.data_ptr(),
+                          *ptrs, N, offs.shape[0], m.slot_key.shape[0], *tail,
+                          ctypes.byref(grid), stream)
+    else:
+        err = _hashed_launcher()(
+            m.check.data_ptr(), m.pts.data_ptr(), m.voxel_size.data_ptr(),
+            m.log2_dims.data_ptr() if kind == "dense" else None, *ptrs, N, offs.shape[0],
+            m.check.shape[0], 0 if kind == "hash" else 1, int(max_probe), *tail,
+            ctypes.byref(grid), stream)
     if err != 0:
         raise RuntimeError(f"lio_cascade: kernel launch failed (cudaError {err})")
     lio_cascade.launches += 1
+    lio_cascade.by_map[kind] += 1
     lio_cascade.grid = grid.value
     return rot_out, x_out, Gmat, sel, pabcd, plane_ok, its
 
 
 lio_cascade.launches = 0
+lio_cascade.by_map = {"tiled": 0, "hash": 0, "dense": 0}
 lio_cascade.grid = 0

@@ -8,7 +8,9 @@ see _build.py); on a CPU tensor it runs the plain version
 `ops/image.patches_and_grads`, which is also the kernel's oracle on the
 card. The JAX package never wired its Pallas kernel in (one-hot MXU
 matmuls stood in for a gather, 15x slower than XLA's gather on the TPU);
-the port calls its kernel on every photometric EKF iteration.
+the port's photometric kernels sample through the same code
+(csrc/patch_sample.cuh), so this launch is on no path: it keeps the TPU
+kernel's signature for the comparisons. It takes any patch size.
 
 Contract: the kernel rounds as the plain version does (bit-exact with
 -fmad=false); the plain version matches the JAX package's at atol 1e-3
@@ -24,7 +26,6 @@ import torch
 from .image import _scale_vec
 from .image import patches_and_grads as patches_and_grads_plain
 
-MAX_PATCH = 16  # (P+3)^2 taps and P*P pixels fit one block of threads
 
 
 def _check(img, pc, scale, P):
@@ -38,8 +39,8 @@ def _check(img, pc, scale, P):
         raise TypeError("patches_and_grads: img and pc must be float32")
     if scale.dtype != torch.int32:
         raise TypeError("patches_and_grads: scale must be int32")
-    if not 1 <= P <= MAX_PATCH:
-        raise ValueError(f"patches_and_grads: patch_size {P} not in 1..{MAX_PATCH}")
+    if P < 1:
+        raise ValueError(f"patches_and_grads: patch_size {P} < 1")
     for t in (pc, scale):
         if t.device != img.device:
             raise ValueError("patches_and_grads: inputs on different devices")

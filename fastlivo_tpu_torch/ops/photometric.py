@@ -23,11 +23,13 @@ this call's n_meas clamped to at least 1, so that a rank with nothing
 tracked still adds 1 to the denominator; the mean error is formed after
 the sum.
 
-Contract on the card: HT within rtol 1e-4 of max|HT| and err, perr,
-Σperr within rtol 1e-5 of the plain version (the sums over the G·P² rows
-are taken in another order than its matmul; the projection and the
-sampling round as there); n_meas equal; nothing tracked gives exactly
-err = 0, Σperr = 0, HT = 0 and n_meas = 1.
+`point_sums` is the order in which both sum a point's per-pixel terms
+(photometric_measure.cuh::measure_point): the pixels dealt to the
+`meas_threads(P)` threads of a block, a thread's pixels summed in turn,
+a butterfly in each warp, then the warps in order. The plain version
+writes every product and both orders out, so that on the card the kernel
+is bit-equal to it: HT, err, perr, Σperr and n_meas. Nothing tracked
+gives exactly err = 0, Σperr = 0, HT = 0 and n_meas = 1.
 
 `photometric_step` is one iteration's prior-anchored f64 step
 (lidar_selection.cpp:861-878; the JAX package's while_loop body,
@@ -67,7 +69,7 @@ from . import image, linalg, so3
 ROBUST = {"none": 0, "huber": 1, "tukey": 2}
 HUBER_K = 1.345  # vk::robust_cost defaults (lidar_selection.cpp:75-78)
 TUKEY_B = 4.6851
-MAX_PATCH = 16  # (P+3)^2 taps fit one block of threads
+MEAS_MAX_THREADS = 384  # a measuring block's threads (photometric_measure.cuh)
 I32 = torch.int32
 F32, F64 = torch.float32, torch.float64
 CONV_ROT_DEG = 0.001  # lidar_selection.cpp:885
@@ -88,6 +90,41 @@ def _rows_times(p: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return (p[..., 0:1] * R[:, 0] + p[..., 1:2] * R[:, 1]) + p[..., 2:3] * R[:, 2]
 
 
+def meas_threads(P: int) -> int:
+    """The threads that measure a point (photometric_measure.cuh): (P+3)^2
+    rounded up to whole warps, at least 64, at most MEAS_MAX_THREADS (one
+    thread a pixel for every P <= 16)."""
+    return min(32 * max(-(-(P + 3) ** 2 // 32), 2), MEAS_MAX_THREADS)
+
+
+def point_sums(terms: torch.Tensor, P: int) -> torch.Tensor:
+    """(P*P, G, K) -> (G, K): each point's per-pixel terms (pixel-major)
+    summed in the measurement kernels' order. Pixel p goes to thread p %
+    nt (nt = meas_threads(P)); a thread sums its pixels p, p + nt, ...
+    left to right, the first as it is, and holds zeros without one; each
+    warp of 32 threads is summed by a butterfly (thread i with thread i +
+    16, then i + 8, ..., i + 1); the warps' sums are added in warp
+    order."""
+    PP, G, K = terms.shape
+    nt = meas_threads(P)
+    if PP >= nt:
+        acc = terms[:nt].clone()
+        for lo in range(nt, PP, nt):
+            cnt = min(nt, PP - lo)
+            acc[:cnt] = acc[:cnt] + terms[lo:lo + cnt]
+    else:
+        acc = torch.cat([terms, terms.new_zeros((nt - PP, G, K))])
+    x = acc.view(nt // 32, 32, G, K)
+    s = 16
+    while s:
+        x = x[:, :s] + x[:, s:2 * s]
+        s //= 2
+    t = x[0, 0]
+    for w in range(1, nt // 32):
+        t = t + x[w, 0]
+    return t
+
+
 def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos,
                             Rci, Pci, Jdphi_dR, Jdp_dR, cam, level: int, P: int,
                             robust: str = "none", robust_scale: float = 10.0,
@@ -96,7 +133,9 @@ def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, p
     pyramid `level`: tr_pos (G, 3), tr_patch_l (G, P, P) the level's
     reference patches, tr_slevel (G,) int32, tr_valid (G,) bool. Returns
     (err (), HTH6 (6, 6), HTz (6,), perr (G,)), all of img's dtype; with
-    `partials`, ([HT (42) | Σperr | n_meas] (44,), perr (G,))."""
+    `partials`, ([HT (42) | Σperr | n_meas] (44,), perr (G,)). Every
+    product is its own op and every sum is taken in the kernels' order:
+    a point's pixels by `point_sums`, the points by `partials_sum`."""
     if robust not in ROBUST:
         raise ValueError(f"robust={robust!r}")
     dtype = img.dtype
@@ -108,7 +147,8 @@ def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, p
     front = pf[:, 2] > 1e-6
     pc = cam_mod.world2cam(cam, pf)
     val, du, dv = image.patches_and_grads(img, pc, P, scale)
-    res = val - tr_patch_l  # (G, P, P)
+    G = tr_pos.shape[0]
+    res = (val - tr_patch_l).reshape(G, P * P).T.contiguous()  # pixel-major (P*P, G)
     zi = 1.0 / torch.where(front, pf[:, 2], 1.0)
     zi2 = zi * zi
     zero = torch.zeros_like(zi)
@@ -117,20 +157,18 @@ def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, p
         torch.stack([fx * zi, zero, -fx * pf[:, 0] * zi2], -1),
         torch.stack([zero, fy * zi, -fy * pf[:, 1] * zi2], -1),
     ], dim=-2)  # (G, 2, 3)
-    # h = Jimg·Jdpi·[p_hat·Jdphi_dR − Jdp_dR | −Jdp_dt] (:826-832)
+    # h = Jimg·Jdpi·[p_hat·Jdphi_dR − Jdp_dR | −Jdp_dt] (:826-832), each
+    # 3-term sum left to right
     p_hat = so3.skew(pf)
-    Mg = torch.cat([torch.einsum("gde,ef->gdf", p_hat, Jdphi_dR) - Jdp_dR,
+    Mg = torch.cat([_rows_times(p_hat, Jdphi_dR.T) - Jdp_dR,
                     (-rcw).expand(p_hat.shape)], dim=-1)  # (G, 3, 6)
-    N = torch.einsum("gcd,gdf->gcf", Jdpi, Mg)  # (G, 2, 6)
-    Jimg = torch.stack([du, dv], dim=-1)  # (G, P, P, 2)
-    h = torch.einsum("gxyc,gcf->gxyf", Jimg, N)  # (G, P, P, 6)
-    w = (tr_valid & front).to(dtype)[:, None, None]
+    N = ((Jdpi[:, :, 0:1] * Mg[:, 0:1] + Jdpi[:, :, 1:2] * Mg[:, 1:2])
+         + Jdpi[:, :, 2:3] * Mg[:, 2:3])  # (G, 2, 6)
+    du, dv = du.reshape(G, -1).T.contiguous(), dv.reshape(G, -1).T.contiguous()  # (P*P, G)
+    w = (tr_valid & front).to(dtype)
     res_w = res * w
-    n_meas = torch.clamp(torch.sum(w) * P * P, min=1.0)
-    perr = torch.sum(res_w * res_w, dim=(1, 2))  # (G,)
-    err = torch.sum(perr) / n_meas
     if robust == "none":
-        wr = w[..., None]
+        wr = w.expand(res.shape)
     else:
         # the JAX package's divisions by constants are f32 reciprocal
         # multiplies; k / t stays a true division (a Python-scalar
@@ -139,15 +177,31 @@ def photometric_err_H_plain(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, p
         if robust == "huber":
             wh = torch.clamp(torch.full_like(t, HUBER_K) / torch.clamp(t, min=1e-12), max=1.0)
         else:
-            uu = torch.clamp(1.0 - (t * _recip32(TUKEY_B)) ** 2, 0.0, 1.0)
+            tb = t * _recip32(TUKEY_B)
+            uu = torch.clamp(1.0 - tb * tb, 0.0, 1.0)
             wh = uu * uu
-        wr = (w * wh)[..., None]
-    hw = (h * wr).reshape(-1, 6)
-    rhs = torch.cat([h.reshape(-1, 6), res.reshape(-1, 1)], dim=1)
-    HT = hw.T @ rhs  # (6, 7)
+        wr = w * wh
+    # the 43 terms per pixel; on the CPU a few points at a time (each
+    # point's sums are its own; ~8 MB of terms a chunk stays in cache), on
+    # the card in one pass
+    chunk = max(G, 1) if res.is_cuda else max(1, (1 << 21) // (P * P * 43))
+    sums = []
+    for g in range(0, G, chunk):
+        s = slice(g, g + chunk)
+        h = du[:, s, None] * N[s, 0] + dv[:, s, None] * N[s, 1]  # (P*P, g, 6)
+        hw = h * wr[:, s, None]
+        rhs = torch.cat([h, res[:, s, None]], dim=-1)  # (P*P, g, 7)
+        terms = torch.cat([(hw[..., :, None] * rhs[..., None, :]).reshape(P * P, -1, 42),
+                           (res_w[:, s] * res_w[:, s])[..., None]], dim=-1)
+        sums.append(point_sums(terms, P))
+    sums = torch.cat(sums) if sums else res.new_zeros((0, 43))  # (G, 43)
+    perr = sums[:, 42]
+    tot = partials_sum(torch.cat([sums, w[:, None]], dim=1))
+    HT = tot[:42].view(6, 7)
+    n_meas = torch.clamp(tot[43] * P * P, min=1.0)
     if partials:
-        return torch.cat([HT.reshape(42), torch.sum(perr)[None], n_meas[None]]), perr
-    return err, HT[:, 0:6], HT[:, 6], perr
+        return torch.cat([tot[:42], tot[42:43], n_meas[None]]), perr
+    return tot[42] / n_meas, HT[:, 0:6], HT[:, 6], perr
 
 
 def _check(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos, Rci, Pci,
@@ -162,8 +216,8 @@ def _check(img, tr_pos, tr_patch_l, tr_slevel, tr_valid, rot, pos, Rci, Pci,
             (tr_patch_l, (G, P, P), f32)]
     if img.ndim != 2:
         raise ValueError(f"photometric_err_H: image of shape {tuple(img.shape)}")
-    if not 1 <= P <= MAX_PATCH:
-        raise ValueError(f"photometric_err_H: patch_size {P} not in 1..{MAX_PATCH}")
+    if P < 1:
+        raise ValueError(f"photometric_err_H: patch_size {P} < 1")
     if not 0 <= level <= 8:
         raise ValueError(f"photometric_err_H: level {level} not in 0..8")
     for t, shape, dtype in want:

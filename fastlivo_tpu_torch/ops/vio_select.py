@@ -17,7 +17,7 @@ which is also the kernel's oracle on the card.
 Contract on the card: every output bit-equal to the plain version's
 (the TrackedSet's idx, pos, patch, search_level, valid, cell_value and
 errors, the new points' pos, px, score and add, and the pose), at every
-patch size from 2 to 16 (the photometric kernels' limit) and any pool.
+patch size from 2 up and any pool.
 """
 from __future__ import annotations
 
@@ -29,7 +29,6 @@ import torch
 from .photometric import _require
 
 I32, I64, F32, F64 = torch.int32, torch.int64, torch.float32, torch.float64
-MAX_PATCH = 16  # P * P <= 256: eight pixels a lane of the cell's warp
 MAX_PROBE = 12  # the voxel hash's probe depth (visual_map's default)
 
 
@@ -85,11 +84,16 @@ def check_cam(where, cam, dev):
 def _launcher():
     from . import _build
 
-    fn = _build.load("vio_select").vio_select_launch
-    fn.argtypes = ([ctypes.c_void_p] * 48 + [ctypes.c_int] * 16
+    lib = _build.load("vio_select")
+    fn = lib.vio_select_launch
+    fn.argtypes = ([ctypes.c_void_p] * 49 + [ctypes.c_int] * 16
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return _build.profiled("vio_select", fn)
+    lib.vio_select_wide_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.vio_select_wide_floats.restype = ctypes.c_longlong
+    launch = _build.profiled("vio_select", fn)
+    launch.wide_floats = lib.vio_select_wide_floats
+    return launch
 
 
 def vio_select(vm, cam, rot, pos, Rci, Pci, img, pg, pg_mask, vox, vox_mask,
@@ -117,8 +121,8 @@ def vio_select(vm, cam, rot, pos, Rci, Pci, img, pg, pg_mask, vox, vox_mask,
         raise ValueError(f"vio_select: frame {tuple(img.shape)}, pool "
                          f"{tuple(vm.imgs.shape)}")
     H, W = img.shape
-    if not 2 <= P <= MAX_PATCH or G < 1 or int(grid_size) < 1:
-        raise ValueError(f"vio_select: patch_size {P} (2..{MAX_PATCH}), {gw}x{gh} cells, "
+    if P < 2 or G < 1 or int(grid_size) < 1:
+        raise ValueError(f"vio_select: patch_size {P} (2 or more), {gw}x{gh} cells, "
                          f"grid {grid_size}")
     M, Nv = pg.shape[0], vox.shape[0]
     if M < 1 or Nv < 1 or M >= 1 << 20 or Nv * VC >= 1 << 20:
@@ -154,14 +158,19 @@ def vio_select(vm, cam, rot, pos, Rci, Pci, img, pg, pg_mask, vox, vox_mask,
     cell_value, errors, nscore = (torch.empty(G, **f32) for _ in range(3))
     npos, npx = torch.empty((G, 3), **f32), torch.empty((G, 2), **f32)
     rcw, pcw = torch.empty((3, 3), **f32), torch.empty(3, **f32)
+    launch = _launcher()
+    # past P = 16 with patches too large for a block's shared memory, the
+    # cells' patches and tree scratch in device memory
+    n_wide = launch.wide_floats(P, G)
+    wide = torch.empty(n_wide, **f32) if n_wide else None
     ptrs = [t.data_ptr() for t in (
         vm.pos, vm.value, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot, vm.obs_fid,
         vm.vox_keys, vm.vox_count, vm.vox_idx, vm.imgs, vm.img_fid, cam.fx, cam.fy, cam.cx,
         cam.cy, cam.d, rot, pos, Rci, Pci, img, pg, pg_mask, vox, vox_mask, thr, ncc, tkey,
         nkey, owner, cand, zrow, pcn, score, idx, wpos, patch, slevel, valid, cell_value,
-        errors, npos, npx, nscore, nadd, rcw, pcw)]
+        errors, npos, npx, nscore, nadd, rcw, pcw)] + [wide.data_ptr() if n_wide else None]
     grid = ctypes.c_int(0)
-    err = _launcher()(*ptrs, NP, KO, T, VC, R, H, W, M, Nv, int(grid_size), int(gh), G, P,
+    err = launch(*ptrs, NP, KO, T, VC, R, H, W, M, Nv, int(grid_size), int(gh), G, P,
                       int(bool(ncc_en)), MAX_PROBE, int(vm.imgs.dtype == torch.uint8),
                       ctypes.byref(grid), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

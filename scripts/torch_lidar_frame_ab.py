@@ -2,7 +2,7 @@
 in turns on one card.
 
 Usage: python scripts/torch_lidar_frame_ab.py [--variant TREE ...] [--arm ARM ...]
-           [--paths lio livo] [--rounds 3] [--duration 6] [--profile]
+           [--paths lio livo hash dense] [--rounds 3] [--duration 6] [--profile]
            [--kernel-rounds N] [--stamps]
 
 A variant is a tree and an arm. Each tree holds `fastlivo_tpu_torch/` and
@@ -27,7 +27,9 @@ arms act on both paths, the camera arms on the LIVO path only.
 A run is a fresh pipeline on one path, after one discarded run of each
 path in its process: chip_smoke.py's LIO per-frame path (Pipeline(Config())
 at the shipped capacities, camera off, 24000-point scans of
-SyntheticDataset(duration, seed 0)) or its LIVO per-frame path
+SyntheticDataset(duration, seed 0)), the same on the hash map ("hash":
+2^20 slots, probe 12) or the dense grid ("dense": 256 x 256 x 64 cells),
+chip_smoke.py's paths (a) and (b), or its LIVO per-frame path
 (chip_smoke.livo_config: a 640x512 camera), the same recorded datasets
 every run. It reports the steady lidar frame's median and p90 host wall
 (FrameOutput.timing["total"], the stats read included), the wall per
@@ -35,9 +37,10 @@ lidar frame or lidar + camera pair, on LIVO the camera frame's median and
 p90 (host wall of Vio.update), and the median host wall per call of the
 map insert, the box delete and the two voxel filters, unsynchronised and
 unprofiled (a stage that reads the device waits there), and of the
-undistortion. With --profile,
+undistortion (on hash and dense the backend's insert and box delete:
+"hash.insert", "dense.insert", ...). With --profile,
 each variant then runs once more under torch.profiler: a second dataset
-(4 s, seed 1), LIO from its 31st scan and LIVO from 3 s: host and device
+(4 s, seed 1), the lidar paths from their 31st scan and LIVO from 3 s: host and device
 ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
 frame or lidar + camera pair, the device-busy share of the window and the
 map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
@@ -79,6 +82,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel",
                      "tiled_insert_keys_kernel", "tiled_insert_tiles_kernel",
                      "tiled_insert_cells_kernel", "undistort_kernel")
+LIDAR_PATHS = ("lio", "hash", "dense")  # lidar only: tiled, hash and dense maps
 ARMS = ("as shipped", "host loop, step kernel", "host loop, torch step", "plain selection",
         "photometric host loop", "cascade, synchronised")
 
@@ -94,7 +98,8 @@ class Worker:
     """One tree's package in this process: the datasets, the arms and the
     runs the coordinator asks for."""
 
-    def __init__(self, tree: str, duration: float):
+    def __init__(self, tree: str, duration: float, paths=("lio", "livo")):
+        self.paths = paths
         sys.path[:0] = [os.path.abspath(os.path.join(ROOT, tree)), ROOT]
         import torch
 
@@ -102,26 +107,30 @@ class Worker:
         from fastlivo_tpu_torch import imu, lio, vio
         from fastlivo_tpu_torch.config import Config
         from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
-        from fastlivo_tpu_torch.ops import tiled_map, voxel_filter
+        from fastlivo_tpu_torch.ops import dense_map, tiled_map, voxel_filter, voxel_map
 
         if not torch.cuda.is_available():
             raise SystemExit("torch_lidar_frame_ab: needs a CUDA device")
         self.torch, self.cs, self.dev = torch, cs, torch.device("cuda")
 
-        def lio_config():
+        def lio_config(backend="tiled"):
             cfg = Config()
             cfg.img_enable = False
+            cfg.capacity.map_backend = backend
             return cfg
 
-        self.configs = {"lio": lio_config, "livo": cs.livo_config}
-        self.data = {"lio": cs.Recorded(SyntheticDataset(
-                         duration=duration, points_per_scan=24000, lidar_noise=0.004, seed=0)),
+        self.configs = {"lio": lio_config, "livo": cs.livo_config,
+                        "hash": lambda: lio_config("hash"), "dense": lambda: lio_config("dense")}
+        lio_data = cs.Recorded(SyntheticDataset(
+            duration=duration, points_per_scan=24000, lidar_noise=0.004, seed=0))
+        self.data = {"lio": lio_data, "hash": lio_data, "dense": lio_data,
                      "livo": cs.Recorded(cs.livo_dataset(
                          cs.livo_config(), duration=duration, points_per_scan=24000,
                          lidar_noise=0.004, seed=0))}
+        lio_prof = cs.Recorded(SyntheticDataset(duration=4.0, points_per_scan=24000,
+                                                lidar_noise=0.004, seed=1))
         self.profile_data = {
-            "lio": cs.Recorded(SyntheticDataset(duration=4.0, points_per_scan=24000,
-                                                lidar_noise=0.004, seed=1)),
+            "lio": lio_prof, "hash": lio_prof, "dense": lio_prof,
             "livo": cs.Recorded(cs.livo_dataset(cs.livo_config(), duration=4.0,
                                                 points_per_scan=24000, lidar_noise=0.004,
                                                 seed=1))}
@@ -145,8 +154,12 @@ class Worker:
         self.stages = {"undistort": (imu, "undistort"), "map_insert": (tiled_map, "insert"),
                        "delete_boxes": (tiled_map, "delete_boxes"),
                        "voxel_filter": (voxel_filter, "voxel_downsample_device"),
-                       "vio.voxel_filter": (vio, "voxel_downsample_device")}
-        for path in self.configs:  # discarded: builds and warms
+                       "vio.voxel_filter": (vio, "voxel_downsample_device"),
+                       "hash.insert": (voxel_map, "insert"),
+                       "hash.delete_boxes": (voxel_map, "delete_boxes"),
+                       "dense.insert": (dense_map, "insert"),
+                       "dense.delete_boxes": (dense_map, "delete_boxes")}
+        for path in self.paths:  # discarded: builds and warms
             self.run(path, "as shipped")
 
     @contextlib.contextmanager
@@ -203,7 +216,8 @@ class Worker:
 
         torch, cs = self.torch, self.cs
         ds = self.profile_data[path]
-        split = ds.lidar_scans_fast()[30][0] if path == "lio" else 3.0
+        lidar = path in LIDAR_PATHS
+        split = ds.lidar_scans_fast()[30][0] if lidar else 3.0
         pipe = self.pipeline(path)
         cs.push_all(pipe, ds, t_max=split)
         with self.arms[arm]():
@@ -221,14 +235,14 @@ class Worker:
         kernels = [e for e in evs if str(e.device_type).endswith("CUDA")
                    and e.self_device_time_total > 0 and not e.key.startswith(ranges)]
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        n = len(outs) if path == "lio" else pipe.vio.steps - steps
+        n = len(outs) if lidar else pipe.vio.steps - steps
         stage_kernels = {name: {"per_frame": e.count / n,
                                 "device_us": e.self_device_time_total / e.count}
                          for e in kernels for name in MAP_STAGE_KERNELS if name in e.key}
         res = {"frames": n, "profiled_ms_per_frame": 1e3 * wall / n,
                "kernels_per_frame": sum(e.count for e in kernels) / n,
                "device_busy_share": busy / (1e3 * wall),
-               "stages": stage_times(evs, "frame." if path == "lio" else "vio.", n),
+               "stages": stage_times(evs, "frame." if lidar else "vio.", n),
                "map_stage_kernels": stage_kernels}
         del pipe
         torch.cuda.empty_cache()
@@ -423,10 +437,10 @@ class Worker:
         return out
 
 
-def serve(tree: str, duration: float):
+def serve(tree: str, duration: float, paths):
     """The worker's loop: one JSON command a line on stdin, one RESULT line
     an answer on stdout."""
-    w = Worker(tree, duration)
+    w = Worker(tree, duration, paths)
     print("RESULT " + json.dumps({"ready": True}), flush=True)
     for line in sys.stdin:
         cmd = json.loads(line)
@@ -455,7 +469,7 @@ def ask(proc, tree, cmd=None):
 def describe(path, r):
     s = (f"steady lidar frame median {r['lidar_median_ms']:.2f} ms (p90 "
          f"{r['lidar_p90_ms']:.2f}), {r['ms_per_frame_or_pair']:.2f} ms per "
-         f"{'lidar frame' if path == 'lio' else 'lidar + camera pair'}")
+         f"{'lidar frame' if path in LIDAR_PATHS else 'lidar + camera pair'}")
     if "camera_median_ms" in r:
         s += (f", camera frame median {r['camera_median_ms']:.2f} ms (p90 "
               f"{r['camera_p90_ms']:.2f})")
@@ -468,7 +482,8 @@ def main():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--variant", action="append", default=None, metavar="TREE")
     ap.add_argument("--arm", action="append", default=None, choices=ARMS)
-    ap.add_argument("--paths", nargs="+", default=["lio", "livo"], choices=["lio", "livo"])
+    ap.add_argument("--paths", nargs="+", default=["lio", "livo"],
+                    choices=["lio", "livo", *LIDAR_PATHS[1:]])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--duration", type=float, default=6.0)
     ap.add_argument("--profile", action="store_true")
@@ -477,7 +492,7 @@ def main():
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
-        serve(args.worker, args.duration)
+        serve(args.worker, args.duration, tuple(args.paths))
         return
     trees = args.variant or ["."]
     variants = [(t, a) for t in trees for a in (args.arm or ["as shipped"])]
@@ -486,7 +501,7 @@ def main():
         for t in trees:
             procs[t] = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--worker", t,
-                 "--duration", str(args.duration)],
+                 "--duration", str(args.duration), "--paths", *args.paths],
                 cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
         for t, p in procs.items():
             ask(p, t)
@@ -503,9 +518,10 @@ def main():
                 res = ask(procs[tree], tree, {"path": path, "arm": arm, "profile": True})
                 profiles.append({"tree": tree, "arm": arm, "path": path, **res})
                 print(f"{tree}, {arm}, {path} profiled: {res['profiled_ms_per_frame']:.2f} ms "
-                      f"a {'frame' if path == 'lio' else 'camera frame'}, "
+                      f"a {'frame' if path in LIDAR_PATHS else 'camera frame'}, "
                       f"{res['kernels_per_frame']:.0f} kernels a "
-                      f"{'lidar frame' if path == 'lio' else 'lidar + camera pair'}, device "
+                      f"{'lidar frame' if path in LIDAR_PATHS else 'lidar + camera pair'}, "
+                      f"device "
                       f"busy {100 * res['device_busy_share']:.1f}%; host / device ms " + ", ".join(
                           f"{k} {v['host_ms']:.3f} / {v['device_ms']:.3f}"
                           for k, v in sorted(res["stages"].items(),

@@ -206,9 +206,10 @@ def select_call(lib, a):
     from fastlivo_tpu_torch import vio
 
     gen = generation(lib)
+    wide = hasattr(lib, "vio_select_wide_floats")  # takes the wide instance's scratch
     fn = lib.vio_select_launch
-    fn.argtypes = ([ctypes.c_void_p] * (48 if gen == "state" else 44) + [ctypes.c_int] * 16
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * ((48 if gen == "state" else 44) + wide)
+                   + [ctypes.c_int] * 16 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     vm, cam, img, dev = a["vm"], a["cam"], a["img"], a["img"].device
     G, P, M, Nv = 192, 8, a["pg"].shape[0], a["vox"].shape[0]
@@ -240,7 +241,7 @@ def select_call(lib, a):
         vm.pos, vm.value, vm.obs_px, vm.obs_rcw, vm.obs_pcw, vm.obs_slot, vm.obs_fid,
         vm.vox_keys, vm.vox_count, vm.vox_idx, vm.imgs, vm.img_fid, cam.fx, cam.fy, cam.cx,
         cam.cy, cam.d, *pose_in, img, a["pg"], a["pg_mask"], a["vox"], a["vox_mask"],
-        a["outlier_threshold"], a["ncc_thre"], *scratch, *outs, *pose_out)]
+        a["outlier_threshold"], a["ncc_thre"], *scratch, *outs, *pose_out)] + [None] * wide
     ints = [vm.pos.shape[0], vm.obs_fid.shape[1], T, VC, vm.img_fid.shape[0], H, W, M, Nv, 40,
             12, G, P, 0, 12, 1]
     grid = ctypes.c_int(0)

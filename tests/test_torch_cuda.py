@@ -250,8 +250,8 @@ def test_patches_and_grads_refuses_bad_inputs(cuda):
         patches_grads.patches_and_grads(img, pc[:, :1], 8, scale)
     with pytest.raises(ValueError):
         patches_grads.patches_and_grads(img, pc, 8, scale[:4])
-    with pytest.raises(ValueError):
-        patches_grads.patches_and_grads(img, pc, 32, scale)
+    with pytest.raises(ValueError):  # any P >= 1 is taken
+        patches_grads.patches_and_grads(img, pc, 0, scale)
     with pytest.raises(ValueError):
         patches_grads.patches_and_grads(img[:, ::2], pc, 8, scale)
     with pytest.raises(ValueError):
@@ -535,7 +535,8 @@ def cascade_args(x, robust="none", levels=(2, 1, 0), max_iter=10):
     P_ = torch.as_tensor(cov / 100.0, **f64)
     return (x["img"], x["tr_pos"], x["tr_patch"], x["tr_slevel"], x["tr_valid"],
             rot.contiguous(), xs, rot.contiguous(), xs.clone(), P_, x["Rci"], x["Pci"],
-            x["Jdphi_dR"], x["Jdp_dR"], x["cam"], levels, 8, max_iter, robust, 10.0)
+            x["Jdphi_dR"], x["Jdp_dR"], x["cam"], levels, x["tr_patch"].shape[-1], max_iter,
+            robust, 10.0)
 
 
 @pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
@@ -952,21 +953,27 @@ def gathers_spied(monkeypatch, mod, calls: list):
 
 @pytest.mark.parametrize("backend", ["hash", "dense"])
 def test_hash_and_dense_pipelines_run_through_the_fused_search(cuda, backend, monkeypatch):
-    """A hash or dense pipeline searches through its fused kernel,
-    knn5_plane_hashed: never the standalone knn5_plane or the tiled
-    kernel, never the backend's knn_candidates; it tracks the ground truth
-    (ATE < 2 cm)."""
+    """A hash or dense pipeline searches through the fused walk of
+    knn5_plane_hashed inside one lio_cascade launch an EKF (counted under
+    its map): never a search launch of its own (knn5_plane_hashed, the
+    standalone knn5_plane or the tiled kernel), never the backend's
+    knn_candidates; it tracks the ground truth (ATE < 2 cm)."""
     from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     pipe = small_lio(cuda, backend)
     calls = []
     gathers_spied(monkeypatch, {"hash": vm, "dense": dm}[backend], calls)
     before = counts()
+    c0 = (lio_cascade.lio_cascade.launches, lio_cascade.lio_cascade.by_map[backend])
     outs = pipe.spin()
     launched = {k: v - before[k] for k, v in counts().items()}
+    cascades = (lio_cascade.lio_cascade.launches - c0[0],
+                lio_cascade.lio_cascade.by_map[backend] - c0[1])
     steady = [o for o in outs if o.iters > 0]
-    assert len(steady) > 5 and launched["knn5_plane_hashed"] >= len(steady)
+    assert len(steady) > 5 and cascades[0] == cascades[1] >= len(steady)
+    assert launched["knn5_plane_hashed"] == 0
     assert launched["knn5_plane"] == launched["knn5_plane_tiled"] == 0 and not calls
     ds = SyntheticDataset(**LIO_DS)
     base = ds.traj.base_pos
@@ -1646,10 +1653,10 @@ def test_lio_cascade_matches_the_host_loop(cuda, case, monkeypatch):
 
 @pytest.mark.parametrize("route", ["tiled", "hash", "dense", "cache_knn", "ref"])
 def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
-    """lio_update on one card: on the tiled map with the TLS fit one
-    lio_cascade launch, no search launch and no synchronising call (torch's
-    sync debug mode set to raise), iters a device int; on the hash and
-    dense maps, with cache_knn and with plane_fit ref the host loop."""
+    """lio_update on one card: on the tiled, hash and dense maps with the
+    TLS fit one lio_cascade launch (counted by map), no search launch and
+    no synchronising call (torch's sync debug mode set to raise), iters a
+    device int; with cache_knn and with plane_fit ref the host loop."""
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.state import identity_state
@@ -1666,17 +1673,21 @@ def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
         plane_fit="ref" if route == "ref" else "tls")
     want = call()  # built and warm
     torch.cuda.synchronize()
-    n0 = (lio_cascade.lio_cascade.launches, knn_plane.knn5_plane_tiled.launches)
-    if route == "tiled":
+    cascade = route in ("tiled", "hash", "dense")
+    counts = lambda: (lio_cascade.lio_cascade.launches,  # noqa: E731
+                      lio_cascade.lio_cascade.by_map.get(route, 0),
+                      knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane_hashed.launches)
+    n0 = counts()
+    if cascade:
         torch.cuda.set_sync_debug_mode("error")
     try:
         got = call()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    n1 = (lio_cascade.lio_cascade.launches, knn_plane.knn5_plane_tiled.launches)
+    n1 = counts()
     assert torch.equal(got.state.pos, want.state.pos)
-    if route == "tiled":
-        assert n1 == (n0[0] + 1, n0[1])
+    if cascade:
+        assert n1 == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
         assert isinstance(got.iters, torch.Tensor) and got.iters.device.type == "cuda"
     else:
         assert n1[0] == n0[0] and isinstance(got.iters, int)
@@ -1702,6 +1713,132 @@ def test_lio_cascade_refuses_bad_inputs(cuda):
         with pytest.raises(err):
             lio_cascade.lio_cascade(**{**good, **kw})
     assert lio_cascade.lio_cascade.launches == n0
+
+
+def hashed_lio_case(device, backend, radius, probe=12):
+    """The "frame" case's scan (16384 points of the curved surface, 0.5 cm
+    of noise, every 17th masked) and start pose, on the hash map (T = 2^16
+    slots, `probe` slots a voxel; a box deleted from it, so that its
+    chains have holes) or the dense grid (64 x 64 x 16 cells of 0.5 m over
+    a 16 m surface: aliased cells) of hash_and_dense_maps. Returns (map,
+    body, pmask, rot, x, P', max_iter, radius, probe)."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    _, body, pmask, rot, x, P_, max_iter, _ = lio_case(device, "frame")
+    m = hash_and_dense_maps(device)[backend == "dense"]
+    if backend == "hash":
+        m = vm.delete_boxes(m, torch.tensor([[-3.0, -3.0, -2.0]], device=device),
+                            torch.tensor([[-1.0, 2.0, 1.0]], device=device))
+    return m, body, pmask, rot, x, P_, max_iter, radius, probe
+
+
+def hashed_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, probe,
+                     plain_search=False):
+    """lio.lio_loop with the search knn5_plane_hashed (its plain
+    composition with `plain_search`) on the hash or dense map."""
+    from fastlivo_tpu_torch import lio
+
+    knn = knn_plane.knn5_plane_hashed_plain if plain_search else knn_plane.knn5_plane_hashed
+    return lio.lio_loop(lambda pw: knn(m, pw, radius, lio.PLANE_THRESH, probe), body, bns,
+                        pmask, rot, x, rot, x, P_, max_iter)
+
+
+@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("backend,probe", [("hash", 12), ("hash", 32), ("dense", 12)])
+def test_lio_cascade_on_hash_and_dense_matches_the_host_loop(cuda, backend, probe, radius,
+                                                            monkeypatch):
+    """The cascade on the hash map (holes in its chains) and the dense grid
+    (aliased cells): every output bit-equal to lio_loop with the step
+    kernel and iters equal, its search knn5_plane_hashed and also its
+    plain composition (knn_candidates + knn5_plane_plain, so the walk the
+    cascade shares with knn5_plane_hashed is held against torch at every
+    iteration's pose); all plain the same iterations and the pose within
+    1e-9. One launch, counted under its map; no knn5_plane_hashed
+    launch."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(
+        cuda, backend, radius, probe)
+    bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
+    n = (lio_cascade.lio_cascade.launches, lio_cascade.lio_cascade.by_map[backend],
+         knn_plane.knn5_plane_hashed.launches)
+    got = lio_cascade.lio_cascade(m, body, bns, pmask, rot, x, rot, x, P_, max_iter, radius,
+                                  lio.PLANE_THRESH, lio.GATES, lio.CONV, probe)
+    assert (lio_cascade.lio_cascade.launches, lio_cascade.lio_cascade.by_map[backend],
+            knn_plane.knn5_plane_hashed.launches) == (n[0] + 1, n[1] + 1, n[2])
+    its = int(got[6])
+    for plain_search in (False, True):
+        loop = hashed_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, probe,
+                                plain_search)
+        assert_lio_equal(got, loop, (backend, probe, radius, plain_search))
+    monkeypatch.setattr(lio, "photometric_step", photometric.photometric_step_plain)
+    plain = hashed_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, probe, True)
+    assert plain[6] == its
+    d = max(float((got[0] - plain[0]).abs().max()), float((got[1] - plain[1]).abs().max()))
+    assert d <= 1e-9, d
+    assert int(got[3].sum()) > 10000 and 2 <= its <= max_iter + 1
+    again = lio_cascade.lio_cascade(m, body, bns, pmask, rot, x, rot, x, P_, max_iter, radius,
+                                    lio.PLANE_THRESH, lio.GATES, lio.CONV, probe)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_lio_cascade_refuses_bad_hashed_maps(cuda):
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    m, body, pmask, rot, x, P_, max_iter, _, _ = hashed_lio_case(cuda, "hash", 1)
+    d = hash_and_dense_maps(cuda)[1]
+    bns = torch.ones(body.shape[0], device=cuda)
+    good = dict(m=m, p_imu=body, bns=bns, pmask=pmask, rot=rot, x=x, prior_rot=rot,
+                prior_x=x, P_=P_, max_iter=max_iter, radius=1, threshold=lio.PLANE_THRESH,
+                gates=lio.GATES, conv=lio.CONV)
+    n0 = lio_cascade.lio_cascade.launches
+    for kw, err in ((dict(m=m._replace(check=m.check[:-1])), ValueError),
+                    (dict(m=m._replace(pts=m.pts.double())), TypeError),
+                    (dict(m=d._replace(log2_dims=d.log2_dims.long())), TypeError),
+                    (dict(m=m, max_probe=-1), ValueError), (dict(m=object()), TypeError)):
+        with pytest.raises(err):
+            lio_cascade.lio_cascade(**{**good, **kw})
+    assert lio_cascade.lio_cascade.launches == n0
+
+
+def hashed_cascade_write_only(dev, backend):
+    """test_kernels_write_only_their_outputs' lio_cascade on the hash map
+    and the dense grid, at 16379 rows and M = 27."""
+    import ctypes
+
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    n = 16379
+    m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(dev, backend, 1)
+    body, pmask = body[:n].contiguous(), pmask[:n].contiguous()
+    bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
+    offs = vm.neighbor_offsets(radius, dev)
+    l2 = m.log2_dims if backend == "dense" else torch.zeros(3, dtype=torch.int32, device=dev)
+    maps = [m.check, m.pts, m.voxel_size, l2, offs]
+    f64 = dict(dtype=torch.float64, device=dev)
+    part_s, gsum_s, tick_s = lc.scratch_shapes(n)
+    outs = [torch.empty(part_s, device=dev), torch.empty(gsum_s, device=dev),
+            torch.zeros(tick_s, dtype=torch.int32, device=dev), torch.empty((3, 3), **f64),
+            torch.empty(15, **f64), torch.empty((18, 6), **f64),
+            torch.empty(n, dtype=torch.bool, device=dev), torch.empty((n, 4), device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev)]
+    grid = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    got = launch_guarded(lambda *v: lc._hashed_launcher()(
+        *[t.data_ptr() for t in v], n, offs.shape[0], m.check.shape[0],
+        0 if backend == "hash" else 1, probe, max_iter, lio.PLANE_THRESH, *lio.GATES, *lio.CONV,
+        ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
+    assert not got[2].any()  # the group tickets left at 0
+    got = got[3:]
+    for plain_search in (False, True):
+        loop = hashed_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, probe,
+                                plain_search)
+        assert_lio_equal(got, loop, (backend, plain_search))
 
 
 GUARD = 64  # sentinel elements before and after each array (keeps 16-byte alignment)
@@ -1747,7 +1884,9 @@ def launch_guarded(launch, inputs, outputs):
                                     "tiled_insert_keys", "tiled_insert_tiles",
                                     "tiled_insert_cells", "undistort", "vio_select_p16",
                                     "vio_select_pool_12289", "vio_observations_3264",
-                                    "undistort_8200"])
+                                    "undistort_8200", "lio_cascade_hash", "lio_cascade_dense",
+                                    "vio_select_p24", "vio_select_p64", "photometric_err_H_p24",
+                                    "photometric_err_H_p96", "patches_and_grads_p96"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -1775,7 +1914,12 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     and on a pool of 12289 slots (the last id read in place),
     vio_observations at 3264 rows (its insert arrays and plans in the
     global scratch, an output here, back at 0 after the launch), undistort
-    on an 8200-row table (searched in global memory)."""
+    on an 8200-row table (searched in global memory). The instances past
+    those: lio_cascade on the hash map (with holes) and on the dense grid;
+    vio_select at patch size 24 (the wide tree, its cells in shared
+    memory) and 64 (in the launch's device scratch, an output here);
+    photometric_err_H at 24 and at 96 (the taps read in place), and
+    patches_and_grads at 96."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -1783,6 +1927,10 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
 
     if kernel.startswith("vio_"):
         return vio_write_only(cuda, kernel)
+    if kernel.startswith("photometric") or kernel.startswith("patches"):
+        return camera_write_only(cuda, kernel)
+    if kernel.startswith("lio_cascade_"):
+        return hashed_cascade_write_only(cuda, kernel.split("_")[-1])
     if kernel in ("tiled_delete_boxes", "voxel_centroids"):
         return map_stage_write_only(cuda, kernel)
     if kernel.startswith("tiled_insert") or kernel.startswith("undistort"):
@@ -2482,7 +2630,7 @@ def test_vio_kernels_refuse_bad_inputs(cuda):
     a = random_vio_frame(cuda, seed=7, frames=2)
     kw = {k: v for k, v in a.items() if k != "vm"}
     n0 = vs.vio_select.launches
-    for bad, err in ((dict(patch_size=17), ValueError), (dict(patch_size=1), ValueError),
+    for bad, err in ((dict(patch_size=1), ValueError),
                      (dict(pg=a["pg"].double()), TypeError),
                      (dict(pg_mask=a["pg_mask"][:-1]), ValueError),
                      (dict(rot=a["rot"].t()), ValueError),
@@ -2493,6 +2641,8 @@ def test_vio_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(TypeError):
         vs.vio_select(a["vm"]._replace(vox_idx=a["vm"].vox_idx.long()), **kw)
     assert vs.vio_select.launches == n0
+    vs.vio_select(a["vm"], **{**kw, "patch_size": 17})  # past 16: taken, one launch
+    assert vs.vio_select.launches == n0 + 1
     args = obs_args(a, vs.vio_select(a["vm"], **kw))
     n1 = vo.vio_observations.launches
     for k, bad in ((6, args[6].long()), (7, args[7][:-1]), (1, args[1].double()),
@@ -2509,7 +2659,8 @@ def vio_write_only(dev, kernel):
     from fastlivo_tpu_torch.ops import vio_observations as vo
     from fastlivo_tpu_torch.ops import vio_select as vs
 
-    P, H, W, grid_px = 16 if kernel == "vio_select_p16" else 8, FH, FW, 40
+    P = {"vio_select_p16": 16, "vio_select_p24": 24, "vio_select_p64": 64}.get(kernel, 8)
+    H, W, grid_px = FH, FW, 40
     if kernel == "vio_select_pool_12289":
         H = W = 128
         grid_px = 16
@@ -2543,10 +2694,15 @@ def vio_write_only(dev, kernel):
                 torch.empty(G, **f32), torch.empty((G, 3), **f32), torch.empty((G, 2), **f32),
                 torch.empty(G, **f32), torch.empty(G, dtype=torch.bool, device=dev),
                 torch.empty((3, 3), **f32), torch.empty(3, **f32)]
+        # the wide instance's device scratch (P = 64), an output here
+        n_wide = vs._launcher().wide_floats(P, G)
+        assert (n_wide > 0) == (P == 64)
+        wide = [torch.empty(n_wide, **f32)] if n_wide else []
         grid = ctypes.c_int(0)
         got = launch_guarded(lambda *v: vs._launcher()(
-            *ptr(*v), NP, KO, T, VC, R, H, W, M, Nv, grid_px, H // grid_px, G, P, 0, 12, 1,
-            ctypes.byref(grid), stream), ins, scratch + outs)[len(scratch):]
+            *ptr(*v), *([] if n_wide else [None]), NP, KO, T, VC, R, H, W, M, Nv, grid_px,
+            H // grid_px, G, P, 0, 12, 1, ctypes.byref(grid), stream), ins,
+            scratch + outs + wide)[len(scratch):len(scratch) + len(outs)]
         want = [*sel[0], *sel[1], *sel[2]]
         names = list(sel[0]._fields) + ["pos", "px", "score", "add", "rcw", "pcw"]
     else:
@@ -3316,5 +3472,135 @@ def frame_kernel_write_only(dev, kernel):
                     n_alloc, n_dropped]
             if kernel == "tiled_insert_cells":
                 assert int(n_dropped) > int(m.n_dropped)  # the pool overflows
+    for g, w in zip(got, want):
+        assert bit_equal(g, w)
+
+
+
+# --- the camera kernels past patch size 16
+
+WIDE_P = [17, 24, 32, 48]  # the wide tree's 512, 1024, 1024 and 4096 values
+
+
+@pytest.mark.parametrize("ncc", [False, True], ids=["ncc_off", "ncc_on"])
+def test_vio_select_past_patch_16(cuda, ncc):
+    """vio_select at patch sizes 17, 24, 32, 48 (the wide instance, its
+    cells' patches in shared memory) and 64 (in the launch's device
+    scratch) on one random map: one launch each, the plain version's code
+    not reached, every output bit-equal to the plain version's; cells
+    tracked at 17-24."""
+    from fastlivo_tpu_torch.ops import vio_select as vs
+
+    a = random_vio_frame(cuda, seed=43 + ncc, ncc=ncc)
+    tracked = {}
+    for P in WIDE_P + [64]:
+        a["patch_size"] = P
+        kw = {k: v for k, v in a.items() if k != "vm"}
+        n0 = vs.vio_select.launches
+        with select_refused():
+            got = vs.vio_select(a["vm"], **kw)
+        assert vs.vio_select.launches == n0 + 1
+        want = vs.vio_select_plain(a["vm"], **kw)
+        assert got[0].patch.shape == (192, 3, P, P)
+        try:
+            assert_select_equal(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"patch_size {P}: {e}") from e
+        tracked[P] = int(got[0].valid.sum())
+    assert tracked[17] + tracked[24] > 0, tracked
+
+
+@pytest.mark.parametrize("P", [4, 8] + WIDE_P + [96])
+def test_photometric_err_H_is_bit_equal_to_plain(cuda, P):
+    """photometric_err_H against its plain version, which writes the
+    kernel's orders out (ops/photometric.point_sums, partials_sum): err,
+    HᵀH, Hᵀz, perr and the mesh's partials bit-equal at levels 2 and 0
+    with each robust weight, at P = 4 and 8, past 16, and at 96 (the taps
+    read in place)."""
+    x = photometric_inputs(cuda, P=P, G=64 if P == 96 else 192, seed=P)
+    for level in (2, 0):
+        for robust in ("none", "huber", "tukey"):
+            before = photometric.photometric_err_H.launches
+            got = photometric_call(photometric.photometric_err_H, x, level, P, robust)
+            assert photometric.photometric_err_H.launches == before + 1
+            want = photometric_call(photometric.photometric_err_H_plain, x, level, P, robust)
+            for g, w, name in zip(got, want, ("err", "HTH6", "HTz", "perr")):
+                assert bit_equal(g, w), (P, level, robust, name,
+                                         float((g - w).abs().max()))
+            assert float(want[1].abs().max()) > 0
+            got = photometric_call(photometric.photometric_err_H, x, level, P, robust,
+                                   partials=True)
+            want = photometric_call(photometric.photometric_err_H_plain, x, level, P, robust,
+                                    partials=True)
+            assert bit_equal(got[0], want[0]) and bit_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("P", WIDE_P + [96])
+def test_photometric_cascade_past_patch_16(cuda, P):
+    """The cascade at P past 16 (and at 96, the taps read in place) against
+    the host loop vio.photometric_loop with the step kernel: every output
+    bit-equal, iterations equal; one cascade launch."""
+    from fastlivo_tpu_torch import vio
+
+    args = cascade_args(photometric_inputs(cuda, P=P, G=64 if P == 96 else 192, seed=P),
+                        "huber")
+    assert args[16] == P
+    n = photometric.photometric_cascade.launches
+    got = photometric.photometric_cascade(*args)
+    assert photometric.photometric_cascade.launches == n + 1
+    loop = vio.photometric_loop(*args)
+    assert int(got[5]) == loop[5] >= 3
+    for g, w, name in zip(got, loop, ("rot", "x", "G", "perr", "err")):
+        assert torch.equal(g, w), (P, name)
+
+
+@pytest.mark.parametrize("P", WIDE_P + [96])
+def test_patches_and_grads_past_patch_16(cuda, P):
+    img, pc, scale = (t.to(cuda) for t in patch_inputs(seed=P))
+    before = patches_grads.patches_and_grads.launches
+    got = patches_grads.patches_and_grads(img, pc, P, scale)
+    assert patches_grads.patches_and_grads.launches == before + 1
+    want = image.patches_and_grads(img, pc, P, scale)
+    for g, w in zip(got, want):
+        assert g.shape == (192, P, P) and bit_equal(g, w)
+
+
+def camera_write_only(dev, kernel):
+    """test_kernels_write_only_their_outputs' photometric_err_H (its
+    partials, ticket, out and perr the outputs; the ticket back at 0) and
+    patches_and_grads, at the kernel name's patch size."""
+    import ctypes
+
+    P = int(kernel.split("_p")[-1])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    if kernel.startswith("patches"):
+        img, pc, scale = (t.to(dev) for t in patch_inputs(seed=P))
+        K, (H, W) = pc.shape[0], img.shape
+        outs = [torch.empty((K, P, P), device=dev) for _ in range(3)]
+        got = launch_guarded(lambda *v: patches_grads._launcher()(*ptr(*v), K, H, W, P, stream),
+                             [img, pc, scale], outs)
+        want = image.patches_and_grads(img, pc, P, scale)
+    else:
+        x = photometric_inputs(dev, P=P, G=64, seed=P)
+        level, robust = 1, "huber"
+        G, (H, W) = x["tr_pos"].shape[0], x["img"].shape
+        ins = [x["img"], x["tr_pos"], x["tr_patch"][:, level].contiguous(), x["tr_slevel"],
+               x["tr_valid"], x["rot"], x["pos"], x["Rci"], x["Pci"], x["Jdphi_dR"],
+               x["Jdp_dR"], x["cam"].fx, x["cam"].fy, x["cam"].cx, x["cam"].cy, x["cam"].d]
+        outs = [torch.empty((G, 44), device=dev), torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.empty(45, device=dev), torch.empty(G, device=dev)]
+        got = launch_guarded(lambda *v: photometric._launcher()(
+            *ptr(*v), G, H, W, P, level, P * P, photometric.ROBUST[robust],
+            photometric.HUBER_K, photometric._recip32(photometric.TUKEY_B),
+            photometric._recip32(10.0), stream), ins, outs)
+        assert not got[1].any()  # the ticket back at 0
+        out, perr = got[2], got[3]
+        part, _ = photometric_call(photometric.photometric_err_H_plain, x, level, P, robust,
+                                   partials=True)
+        err = photometric_call(photometric.photometric_err_H_plain, x, level, P, robust)[0]
+        got = [out[:42], out[42], out[43], out[44], perr]
+        want = [part[:42], err, part[43], part[42],
+                photometric_call(photometric.photometric_err_H_plain, x, level, P, robust)[3]]
     for g, w in zip(got, want):
         assert bit_equal(g, w)

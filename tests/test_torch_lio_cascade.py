@@ -144,8 +144,8 @@ def test_lio_step_is_the_photometric_step_fed_minus_HTz(case):
 
 
 def test_dispatch():
-    """The cascade runs on one CUDA device on the tiled map with the TLS
-    fit and no cache, and nowhere else; its wrapper refuses CPU tensors."""
+    """The cascade runs on one CUDA device on any map with the TLS fit and
+    no cache, and nowhere else; its wrapper refuses CPU tensors."""
     world, scan, s = _scene()
     _, tiled = _maps("tiled", world)
     _, dense = _maps("dense", world)
@@ -154,7 +154,8 @@ def test_dispatch():
     assert tlio.cascade_applies(tiled, cuda)
     assert not tlio.cascade_applies(tiled, cpu)
     for m in (dense, hashed):
-        assert not tlio.cascade_applies(m, cuda)
+        assert tlio.cascade_applies(m, cuda)
+        assert not tlio.cascade_applies(m, cpu)
     assert not tlio.cascade_applies(tiled, cuda, plane_fit="ref")
     assert not tlio.cascade_applies(tiled, cuda, cache_knn=True)
     assert not tlio.cascade_applies(tiled, cuda, mesh=object())
