@@ -65,12 +65,15 @@ step); over a mesh the cascade is a host loop of one `photometric_err_H`
 (the measurement's partials) and one `photometric_step` launch per
 iteration in every rank, and the LIO EKF the host loop of one
 `knn5_plane_tiled` launch per search and one `photometric_step` launch
-(the shared step kernel, fed -Hᵀz) per iteration; the hash and dense
-paths run that host loop too, and search in one launch
-(`knn5_plane_hashed`, the map walk fused in; no `knn_candidates` call),
-and `cache_knn` re-ranks its one gather per frame with the standalone
-`knn5_plane` (slab-staged through TMA bulk copies); each path's launches
-are counted around it. IMU propagation runs as one launch of
+(the shared step kernel, fed -Hᵀz) per iteration. On one card every
+map and LIO option runs its EKF as one `lio_cascade` launch: the hash
+and dense paths walk their maps inside it (the walk of
+`knn5_plane_hashed`), `cache_knn` re-ranks its one gather per frame
+inside it (the re-rank of the standalone `knn5_plane`, slab-staged
+through TMA bulk copies, which stays the oracle), and `plane_fit: ref`
+fits the reference's plane inside it; each of those cascades is held
+against the host loop on its inputs and the last one timed beside its
+bound; each path's launches are counted around it. IMU propagation runs as one launch of
 `imu_propagate` per measurement group on every path (every rank of the
 mesh runs included); the kernel is held against the plain loop at 8, 32,
 64, 256, 300 and 512 pairs, and the LIO and LIVO per-frame paths run
@@ -703,6 +706,15 @@ def search_snapshot(m):
     return m._replace(check=m.check.clone(), pts=m.pts.clone())
 
 
+def reserve_snapshots(m, n: int):
+    """Leave n copies' worth of the map's search arrays (search_snapshot)
+    in the caching allocator, allocated and freed here, so that
+    recorded_lio's copies inside a timed run take cached blocks instead of
+    waiting on cudaMalloc (a copy of the shipped tiled map is 143 MB)."""
+    snaps = [search_snapshot(m) for _ in range(n)]
+    del snaps
+
+
 @contextlib.contextmanager
 def recorded_lio(calls: list):
     """Record every lio_cascade call of the paths (lio's) as (arguments,
@@ -724,22 +736,29 @@ def recorded_lio(calls: list):
 
 
 def map_search(a, plain_search=False):
-    """The search of a lio_cascade call's arguments `a` alone: the map's
-    kernel that runs the cascade's walk (knn5_plane_tiled, or
-    knn5_plane_hashed on the hash or dense map) or, with `plain_search`,
-    its plain version (knn5_plane_tiled_plain, knn5_plane_hashed_plain:
-    torch ops, bit-exact with the walk), as a function of the world
-    points."""
-    from fastlivo_tpu_torch.ops import knn_plane
-    from fastlivo_tpu_torch.ops import tiled_map as tm
+    """The search of a lio_cascade call's arguments `a` alone, as the host
+    loop runs it (lio.host_search), as a function of the world points:
+    with the TLS fit the kernel that runs the cascade's walk
+    (knn5_plane_tiled, knn5_plane_hashed on the hash or dense map, or
+    knn5_plane on the block that cache_knn gathered) or, with
+    `plain_search`, its plain version (knn5_plane_plain on the map's
+    knn_candidates or on the block: torch ops, bit-exact with the walk);
+    with the reference's fit the backend's knn (topk_from_candidates on
+    the block) and fit_plane_ref, torch ops either way."""
+    from fastlivo_tpu_torch import lio
 
-    m, radius, threshold = a[0], a[10], a[11]
-    if isinstance(m, tm.TiledMap):
-        knn = knn_plane.knn5_plane_tiled_plain if plain_search else knn_plane.knn5_plane_tiled
-        return lambda pw: knn(m, pw, radius, threshold)
-    probe = a[14] if len(a) > 14 else 12
-    knn = knn_plane.knn5_plane_hashed_plain if plain_search else knn_plane.knn5_plane_hashed
-    return lambda pw: knn(m, pw, radius, threshold, probe)
+    o = cascade_options(a)
+    return lio.host_search(a[0], a[10], a[11], o["max_probe"], o["plane_fit"], o["cand"],
+                           o["found"], plain_search)
+
+
+def cascade_options(a) -> dict:
+    """The options of a lio_cascade call's arguments `a` past the
+    convergence thresholds (max_probe, cand, found, plane_fit), each its
+    default where `a` stops."""
+    names = ("max_probe", "cand", "found", "plane_fit")
+    return {"max_probe": 12, "cand": None, "found": None, "plane_fit": "tls",
+            **dict(zip(names, a[14:]))}
 
 
 def lio_loop_on(a, plain_search=False):
@@ -765,9 +784,11 @@ def check_lio_cascades(calls, label) -> dict:
     """Each recorded LIO cascade against the host loop lio.lio_loop on its
     own inputs, after the path's run (these launches are not the path's;
     the counts are restored): with the step kernel every output (rot, x,
-    G, sel, pabcd, plane_ok, iterations) bit-equal, the loop's search the
-    map's kernel (knn5_plane_tiled or knn5_plane_hashed, which run the
-    cascade's walk) and also its plain version (torch ops, so the walk is
+    G, sel, pabcd, plane_ok, iterations) bit-equal, the loop's search
+    (map_search) the kernel that runs the cascade's walk (knn5_plane_tiled,
+    knn5_plane_hashed, or knn5_plane on the block that cache_knn gathered;
+    with the reference's fit the backend's knn or topk_from_candidates and
+    fit_plane_ref) and also its plain version (torch ops, so the walk is
     held against plain code at every iteration's pose); all plain (that
     search and photometric_step_plain) the same iterations and rot and x
     within 1e-9. Returns numbers."""
@@ -942,8 +963,10 @@ def reset_counts():
 
     for fn in counted_wrappers():
         fn.launches = 0
-    for k in lio_cascade.lio_cascade.by_map:
-        lio_cascade.lio_cascade.by_map[k] = 0
+    for counts in (lio_cascade.lio_cascade.by_map, lio_cascade.lio_cascade.by_search,
+                   lio_cascade.lio_cascade.by_fit):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts() -> dict:
@@ -1036,31 +1059,66 @@ def tiled_work(m, q, radius: int = 1):
 LIO_ROW_OPS = 147
 
 
-def lio_cascade_bound_ms(m, pws, n, iters, radius, max_probe=12):
+# f64 operations of one reference plane fit (plane_fit.cuh's plane5_fit_ref,
+# counted from its source): the 15 picks widened, AᵀA and Aᵀb (66), the
+# negation (3), the cofactors (27), det and its guard (9), the solve (18),
+# |n| and d (9), the normal (3), the finite tests (4), the five distances
+# and their gates (40), the casts down (4), the norm gate (1)
+REF_FIT_OPS = 199
+TLS_FIT_OPS = 260  # f32 operations of plane5_fit (tiled_work, hashed_work, cached_work)
+
+
+def cached_work(cand, found, q):
+    """The cached walk's work (knn5_cached_walk.cuh) for the queries q
+    (the stacked world points of every search, each of the block's rows n
+    once per search): the block's bytes, read once (12 B a candidate and
+    its found byte: N·M·13 B); per query the fit and gate (TLS_FIT_OPS),
+    per candidate row its found test and one compare in each of the 5
+    selection rounds (6), per found row its squared distance (8). Returns
+    (bytes, operations, (candidates, found rows))."""
+    n, M = found.shape
+    searches = q.shape[0] // max(n, 1)
+    nfound = int(found.sum())
+    ops = searches * (n * TLS_FIT_OPS + n * M * 6 + 8 * nfound)
+    return cand.numel() * 4 + found.numel(), ops, (n * M, nfound)
+
+
+def lio_cascade_bound_ms(m, pws, n, iters, radius, max_probe=12, cand=None, found=None,
+                         plane_fit="tls"):
     """Least time for one LIO cascade on these inputs: `pws` are the world
     points of each of its search iterations, stacked (the host loop's on
     the same inputs), n the scan's points, `iters` its iterations. Bytes:
     the map entries all the searches touch (tiled_work, or hashed_work on
     the hash or dense map, over the stacked points: the union of the
-    searches' entries), each point's p_imu, |p|^(1/2) and mask (17 B), P',
-    the prior and the start pose read once; sel, the plane and plane_ok
-    (18 B a point), rot, x, G and the count written once. Operations: the
-    searches' (tiled_work, hashed_work) and each iteration's rows
-    (LIO_ROW_OPS) over the float32 rate, plus each iteration's f64 step
-    (STEP_OPS) over the f64 rate. Returns (ms, "bytes" | "operations", the
-    map's distinct entries over the searches: tiled_work's directory
-    entries, pool cells, live points and tiles, or hashed_work's probed
-    words, found points, probes taken and found rows)."""
+    searches' entries) or, with the block `cand`, `found` that cache_knn
+    gathered, the block once (cached_work); each point's p_imu,
+    |p|^(1/2) and mask (17 B), P', the prior and the start pose read once;
+    sel, the plane and plane_ok (18 B a point), rot, x, G and the count
+    written once. Operations: the searches' (tiled_work, hashed_work,
+    cached_work) and each iteration's rows (LIO_ROW_OPS) over the float32
+    rate, plus each iteration's f64 step (STEP_OPS) over the f64 rate; with
+    the reference's fit each search's fits are REF_FIT_OPS f64 operations a
+    query in place of the TLS fit's f32 ones. Returns (ms, "bytes" |
+    "operations", the entries the searches touch: tiled_work's directory
+    entries, pool cells, live points and tiles, hashed_work's probed
+    words, found points, probes taken and found rows, or cached_work's
+    candidates and found rows)."""
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
-    if isinstance(m, tm.TiledMap):
+    if cand is not None:
+        map_bytes, ops32, uniq = cached_work(cand, found, pws)
+    elif isinstance(m, tm.TiledMap):
         map_bytes, ops32, uniq = tiled_work(m, pws, radius)
     else:
         map_bytes, ops32, uniq = hashed_work(m, pws, radius, max_probe)
+    ops64 = iters * STEP_OPS
+    if plane_fit == "ref":
+        ops32 -= pws.shape[0] * TLS_FIT_OPS
+        ops64 += pws.shape[0] * REF_FIT_OPS
     nbytes = (map_bytes + n * (17 + 18) + (324 + 2 * (9 + 15)) * 8 + (9 + 15 + 108) * 8
               + 4)
     t_b = nbytes / HBM_BYTES_PER_S
-    t_o = (ops32 + iters * n * LIO_ROW_OPS) / F32_OPS_PER_S + iters * STEP_OPS / F64_OPS_PER_S
+    t_o = (ops32 + iters * n * LIO_ROW_OPS) / F32_OPS_PER_S + ops64 / F64_OPS_PER_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), uniq
 
 
@@ -1934,8 +1992,7 @@ def lio_cascade_phase(a, label="the path map"):
     from fastlivo_tpu_torch.ops import lio_cascade as lc
     from fastlivo_tpu_torch.ops import photometric as ph
 
-    m, radius = a[0], a[10]
-    probe = a[14] if len(a) > 14 else 12
+    m, radius, o = a[0], a[10], cascade_options(a)
     got = lc.lio_cascade(*a)
     its = int(got[6])
     want, want_ps = lio_loop_on(a), lio_loop_on(a, plain_search=True)
@@ -1960,11 +2017,14 @@ def lio_cascade_phase(a, label="the path map"):
     knn = map_search(a)
     lio.lio_loop(lambda pw: (pws.append(pw), knn(pw))[1], *a[1:10])
     n = a[1].shape[0]
-    bound, by, uniq = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius, probe)
-    what = ("distinct directory entries, pool cells, live points, neighbourhood tiles"
+    bound, by, uniq = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius, **o)
+    what = ("candidates, found rows of the block" if o["cand"] is not None else
+            "distinct directory entries, pool cells, live points, neighbourhood tiles"
             if lc.map_kind(m) == "tiled" else "distinct probed words, found points, probes "
             "taken, found rows")
-    print(f"lio_cascade N={n} M={(2 * radius + 1) ** 3} on {label}: {its} iterations "
+    route = (f"{lc.map_kind(m)} map, {'cached' if o['cand'] is not None else 'walk'} search, "
+             f"{o['plane_fit']} fit")
+    print(f"lio_cascade N={n} M={(2 * radius + 1) ** 3} on {label} ({route}): {its} iterations "
           f"({len(pws)} searching) in {ms:.4f} ms ({ms / its:.4f} ms an iteration; host "
           f"{host:.3f} ms a call), grid {lc.lio_cascade.grid} blocks; the host loop "
           f"{loop_ms:.4f} ms with the kernels (host {loop_host:.3f} ms), {loop_plain_step_ms:.4f} "
@@ -2087,7 +2147,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     """Pipeline(Config()) at its shipped capacities on `dev`; the kernels'
     launch counts are read around this run only. The LIO cascade must
     launch once per steady frame (each recorded: lio_cascade's inputs and
-    outputs, no host read), the searches and the step kernel never (the
+    outputs, no host read; the copies' memory reserved before the run), the searches and the step kernel never (the
     cascade searches inside), imu_propagate once per propagated group.
     After the run every cascade is held against the host loop on its
     inputs (check_lio_cascades). Returns (the pipeline, the launches, the
@@ -2123,6 +2183,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
     searches, groups, cascades, boxes, filt, ins, step = [], [], [], [], {}, {}, {}
+    reserve_snapshots(pipe.map, len(scans))
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups), \
@@ -3442,22 +3503,22 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
     probe 12), (b) the dense grid (256 x 256 x 64), (c) tiled with
     `cache_knn`, (d) tiled with `plane_fit: ref`, (e) tiled with
     `profile_every` 8, (f) BlockReplayer(8) on the hash map. The hash,
-    dense and hash-block paths must run every EKF as one lio_cascade
-    launch (counted under its map; the hash and dense walks of
-    knn5_hashed_walk.cuh) and launch no search kernel (no
-    knn5_plane_hashed, knn5_plane or tiled kernel, no call of the
-    backend's knn_candidates); each of their cascades is recorded and held
-    against the host loop with knn5_plane_hashed and the step kernel
-    (check_lio_cascades: bit-equal, iterations equal); cache_knn through
-    knn5_plane alone, with one knn_candidates gather per frame that ran
-    the EKF; plane_fit ref through no kernel; profile_every must leave the
-    per-frame outputs unchanged in every bit; every ATE < 2 cm. Checkpoints
-    the hash and dense estimators. Returns ({path: (ms per frame,
-    launches)}, {path: its other numbers}, {"hash": the hash path's
+    dense, cache_knn, ref and hash-block paths must run every EKF as one
+    lio_cascade launch (counted under its map, search and fit: the hash
+    and dense walks of knn5_hashed_walk.cuh, the block's of
+    knn5_cached_walk.cuh, the reference's fit of plane_fit.cuh) and launch
+    no search kernel (no knn5_plane_hashed, knn5_plane or tiled kernel);
+    cache_knn gathers once per frame that runs the EKF (the backend's
+    knn_candidates), the others never; each of their cascades is recorded
+    (the copies' memory reserved before the run) and held against the host
+    loop with the step kernel
+    (check_lio_cascades: bit-equal, iterations equal); profile_every must
+    leave the per-frame outputs unchanged in every bit; every ATE < 2 cm.
+    Checkpoints the hash and dense estimators. Returns ({path: (ms per
+    frame, launches)}, {path: its other numbers}, {"hash": the hash path's
     pipeline, "dense": the dense path's}, {map: checkpoint numbers},
-    {"hash": the hash path's last lio_cascade call's arguments, "dense":
-    the dense path's}). The host loop of cache_knn and ref runs the step
-    kernel."""
+    {"hash", "dense", "cache_knn", "ref": that path's last lio_cascade
+    call's arguments})."""
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import lio_cascade as lc
     from fastlivo_tpu_torch.ops import tiled_map as tm
@@ -3473,6 +3534,9 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
             ("hash BlockReplayer(8)", lio_config(map_backend="hash"), BlockReplayer, 0)]
     paths, extra, ckpts, pipes, last = {}, {}, {}, {}, {}
     t_max = ref[frames].t
+    # tiled per-frame's steady frames over the same span, beside each path's
+    ref_steady = float(np.median([1e3 * o.timing["total"] for o in ref[:frames + 1]
+                                  if o.iters > 0]))
     for name, cfg, rep, every in runs:
         cap = cfg.capacity
         pipe = Pipeline(cfg, device=dev)
@@ -3481,11 +3545,17 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
         gathers, calls = [], []
         mod = {"tiled": tm, "dense": dm, "hash": vm}[cap.map_backend]
         hashed = cap.map_backend != "tiled"
+        option = "cache_knn" if cap.cache_knn else "ref" if cap.plane_fit == "ref" else None
+        record = hashed or option is not None
+        if record:
+            reserve_snapshots(pipe.map, frames + 1)
         with spy(mod, "knn_candidates", gathers), \
-                (recorded_lio(calls) if hashed else contextlib.nullcontext()):
+                (recorded_lio(calls) if record else contextlib.nullcontext()):
             outs, launches, wall = counted_run(
                 (lambda: rep(pipe, 8).run()) if rep else pipe.spin)
         by_map = dict(lc.lio_cascade.by_map)
+        by_route = {"map": by_map, "search": dict(lc.lio_cascade.by_search),
+                    "fit": dict(lc.lio_cascade.by_fit)}
         if len(outs) < frames:
             raise AssertionError(f"{name}: {len(outs)} frames of {frames}")
         pref = ref[:len(outs)]
@@ -3495,14 +3565,18 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
         k, kt = launches["knn5_plane"], launches["knn5_plane_tiled"]
         kh, ng, kc = launches["knn5_plane_hashed"], len(gathers), launches["lio_cascade"]
         print(f"{name}: {len(outs)} frames ({len(steady)} steady), {ms:.2f} ms/lidar frame "
-              f"(tiled per-frame {ref_ms:.2f}), median steady frame {np.median(steady):.2f} ms, "
+              f"(tiled per-frame {ref_ms:.2f}), median steady frame {np.median(steady):.2f} ms "
+              f"(tiled per-frame's {ref_steady:.2f} ms), "
               f"ATE {ate * 1e3:.3f} mm, max position difference to tiled per-frame "
               f"{d * 1e3:.4f} mm, knn5_plane_hashed {kh}, knn5_plane {k}, knn5_plane_tiled "
-              f"{kt}, lio_cascade {kc} (by map {by_map}), {ng} candidate gathers "
+              f"{kt}, lio_cascade {kc} (by {by_route}), {ng} candidate gathers "
               f"({cap.map_backend} map, cache_knn {cap.cache_knn}, plane_fit "
               f"{cap.plane_fit}); {nvidia_smi_line()}")
-        if cap.plane_fit == "ref":
-            ok = k == 0 and kt == 0 and kh == 0 and kc == 0
+        if option is not None:  # one cascade an EKF, its search and fit counted
+            search = "cached" if cap.cache_knn else "walk"
+            ok = (kc == len(steady) == len(calls) == by_route["search"][search]
+                  == by_route["fit"][cap.plane_fit] and k == kt == kh == 0
+                  and ng == (len(steady) if cap.cache_knn else 0))
         elif every:  # one cascade per EKF, the profiled ones included
             ok = kc >= len(steady) and kt == 0 and k == 0 and kh == 0 and same_outputs(
                 outs, pref)
@@ -3510,23 +3584,22 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
                   f"bit-identical to per-frame: {same_outputs(outs, pref)}")
             ok = ok and set(pipe.last_stage_profile or ()) == {
                 "undistort", "downsample", "ekf", "map"}
-        elif cap.cache_knn:
-            ok = k > 0 and kt == 0 and kh == 0 and kc == 0 and len(steady) <= ng <= len(outs)
         else:  # hash, dense, hash BlockReplayer(8): one cascade an EKF, on its map
             ok = (kc >= len(steady) and by_map[cap.map_backend] == kc == len(calls)
                   and kh == 0 and k == 0 and kt == 0 and ng == 0 and d < 5e-8)
         if not ok or not launches["imu_propagate"] or not ate < 0.02:
-            raise AssertionError(f"{name}: launches {launches} (lio_cascade by map {by_map}), "
+            raise AssertionError(f"{name}: launches {launches} (lio_cascade by {by_route}), "
                                  f"{ng} candidate gathers, {len(calls)} recorded cascades, "
                                  f"{d * 1e3:.4f} mm from tiled per-frame, ATE {ate:.4f} m")
         paths[name] = (ms, launches)
-        extra[name] = {"median_steady_ms": float(np.median(steady)), "ate_mm": ate * 1e3,
+        extra[name] = {"median_steady_ms": float(np.median(steady)),
+                       "tiled_median_steady_ms": ref_steady, "ate_mm": ate * 1e3,
                        "max_diff_to_tiled_mm": d * 1e3, "candidate_gathers": len(gathers)}
-        if hashed:
+        if record:
             extra[name]["lio_cascades"] = check_lio_cascades(calls, name)
-            extra[name]["lio_cascade_by_map"] = by_map
-            if name in ("hash", "dense"):
-                last[name] = calls[-1][0]
+            extra[name]["lio_cascade_by_route"] = by_route
+            if name in ("hash", "dense") or option:
+                last[option or name] = calls[-1][0]
             del calls
         if every:
             extra[name]["last_stage_profile_ms"] = pipe.last_stage_profile
@@ -4624,10 +4697,10 @@ def main() -> int:
             backend_paths_phase(dev, lio_ds, lio_outs, lio_ms)
         paths.update(backend_paths)
         path_extra.update(lio_extra)
-        # the cascade on the hash and dense paths' maps, beside its bound and
-        # the host loop
-        hashed_casc = {k: lio_cascade_phase(a, f"the {k} path map")
-                       for k, a in backend_last.items()}
+        # the cascade on the last call of the hash, dense, cache_knn and ref
+        # paths, beside its bound and the host loop
+        path_casc = {k: lio_cascade_phase(a, f"the {k} path's last call")
+                     for k, a in backend_last.items()}
         del backend_last
     with phase("hash and dense search kernels"):
         hashed = hashed_phase(backend_pipes, n, m)
@@ -4813,19 +4886,21 @@ def main() -> int:
         "launches": lio_launches["lio_cascade"],
         "max_abs_err": max(lio_casc["max_abs_err"], lio_nums["max_abs_err"],
                            livo_lio_nums["max_abs_err"],
-                           *(v["max_abs_err"] for v in hashed_casc.values()),
+                           *(v["max_abs_err"] for v in path_casc.values()),
                            *(path_extra[k]["lio_cascades"]["max_abs_err"] for k in (
-                               "hash", "dense", "hash BlockReplayer(8)"))),
+                               "hash", "dense", "tiled cache_knn", "tiled plane_fit ref",
+                               "hash BlockReplayer(8)"))),
         **{k: lio_casc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         **{k: lio_casc[k] for k in (
             "iterations", "searches", "ms_per_iteration", "host_ms", "grid", "loop_ms",
             "loop_host_ms", "loop_plain_step_ms", "plain_host_ms")},
-        **{f"{k}_map": {n: v[n] for n in (
+        **{f"{k}_{'map' if k in ('hash', 'dense') else 'route'}": {n: v[n] for n in (
             "ms", "plain_ms", "bound_ms", "bound_by", "iterations", "searches", "grid",
-            "loop_ms", "loop_host_ms", "host_ms")} for k, v in hashed_casc.items()},
-        "launches_by_map": {k: path_extra[k]["lio_cascade_by_map"] for k in (
-            "hash", "dense", "hash BlockReplayer(8)")},
+            "loop_ms", "loop_host_ms", "host_ms")} for k, v in path_casc.items()},
+        "launches_by_route": {k: path_extra[k]["lio_cascade_by_route"] for k in (
+            "hash", "dense", "tiled cache_knn", "tiled plane_fit ref",
+            "hash BlockReplayer(8)")},
         "launches_per_path": {k: v[-1]["lio_cascade"] for k, v in paths.items()
                               if v[-1].get("lio_cascade")},
     }, {
@@ -4899,8 +4974,13 @@ def main() -> int:
         "source": "fastlivo_tpu_torch/csrc/knn5_plane.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
         "launches": backend_paths["tiled cache_knn"][1]["knn5_plane"], "max_abs_err": err,
+        "path": "none on one card since cache_knn's EKF runs in lio_cascade (its walk "
+                "knn5_cached_walk.cuh); the cascade's oracle under cache_knn, and the "
+                "search of the host loop (a mesh under cache_knn)",
         **{k: hashed["knn5_plane"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        "launches_per_path": {k: v[-1]["knn5_plane"] for k, v in paths.items()
+                              if "cache_knn" in k},
     }, {
         "name": "patches_and_grads", "route": "cuda",
         "source": "fastlivo_tpu_torch/csrc/patches_and_grads.cu",

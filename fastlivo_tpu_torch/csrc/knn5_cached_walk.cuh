@@ -1,0 +1,75 @@
+// One query's LIO search on its own gathered candidate block, by a group
+// of L lanes of one warp: the re-rank of csrc/knn5_plane.cu (the block
+// that `cache_knn` gathers once a frame at the prior pose, with the
+// backend's knn_candidates, re-ranked against the moved query at every
+// search), walked as the map walks are (knn5_tiled_walk.cuh,
+// knn5_hashed_walk.cuh) so that a block of lio_cascade.cu runs its lanes
+// alike on every walk. Include after knn5_select.cuh (group_top5,
+// KNN5_BIG) and plane_fit.cuh (plane5_fit_as).
+#pragma once
+
+#include <stdint.h>
+
+namespace {
+
+// The gathered block as the walk reads it: row i's M candidates and their
+// found flags, in the order of the backend's knn_candidates
+// (tiled_map.neighbor_offsets on the tiled map, voxel_map.neighbor_offsets
+// on the hash and dense maps).
+struct CachedView {
+  const float* cand;     // (n, M, 3)
+  const uint8_t* found;  // (n, M)
+  int n;                 // rows
+};
+
+// Row `row`'s query (qx, qy, qz), world frame: for each of its M rows
+// found, the squared distance (dx dx + dy dy) + dz dz to the gathered
+// point, KNN5_BIG for a row not found (no point read) -> five rounds of
+// min-select, ties to the lowest row (group_top5) -> the plane fit F of
+// plane_fit.cuh (FIT_TLS or FIT_REF) and its gate. A row past n reads
+// nothing: every candidate is missing. Lane `sub` of the group owns
+// candidate rows sub, sub + L, ...; every lane of the warp must call.
+// Every lane returns the gate, the plane (ux, uy, uz, d) in pl and the
+// fifth-nearest squared distance in dmin.
+template <int M, int L, int F>
+__device__ __forceinline__ bool knn5_cached_walk(const CachedView& cv, int row, float qx,
+                                                 float qy, float qz, int sub,
+                                                 double threshold, float (&pl)[4],
+                                                 float& dmin) {
+  constexpr int R = (M + L - 1) / L;  // rows per lane
+  const bool in = row < cv.n;
+  const float* c = cv.cand + (size_t)(in ? row : 0) * M * 3;
+  const uint8_t* f = cv.found + (size_t)(in ? row : 0) * M;
+
+  bool hit[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = sub + L * r;
+    hit[r] = in && j < M && __ldg(f + j) != 0;
+  }
+  float d2[R], cx[R], cy[R], cz[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // a lane's found points, all loads together
+    const int j = sub + L * r;
+    d2[r] = KNN5_BIG;
+    cx[r] = cy[r] = cz[r] = 0.0f;
+    if (hit[r]) {
+      cx[r] = __ldg(c + 3 * j + 0);
+      cy[r] = __ldg(c + 3 * j + 1);
+      cz[r] = __ldg(c + 3 * j + 2);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (hit[r]) {
+      const float dx = cx[r] - qx, dy = cy[r] - qy, dz = cz[r] - qz;
+      d2[r] = dx * dx + dy * dy + dz * dz;
+    }
+  }
+
+  float nx[5], ny[5], nz[5];
+  dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
+  return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
+}
+
+}  // namespace

@@ -1,10 +1,11 @@
 // One query's LIO search on the hash map or the dense grid, by a group of
 // L lanes of one warp: the neighbourhood walk (the probe chain or the
-// computed cell), the five nearest and the centred TLS plane fit. Shared
-// by csrc/knn5_plane_hashed.cu (the search alone) and csrc/lio_cascade.cu
+// computed cell), the five nearest and the plane fit (the TLS fit, or
+// the reference's inside the LIO cascade). Shared by
+// csrc/knn5_plane_hashed.cu (the search alone) and csrc/lio_cascade.cu
 // (the search inside the LIO cascade), so that the two give the same
 // planes bit for bit. Include after hash_mix.cuh (mix3, check31),
-// knn5_select.cuh (group_top5, KNN5_BIG) and plane_fit.cuh (plane5_fit).
+// knn5_select.cuh (group_top5, KNN5_BIG) and plane_fit.cuh (plane5_fit_as).
 #pragma once
 
 #include <stdint.h>
@@ -110,15 +111,16 @@ __device__ __forceinline__ void probe_rows(const int32_t* __restrict__ check,
 //     occupant is not found) ->
 // the squared distance to the stored point, KNN5_BIG where missing (no
 // point read) -> five rounds of min-select, ties to the lowest row
-// (group_top5) -> the plane fit and gate of plane_fit.cuh. A lane mixes
-// each of its rows' keys itself (the key varies per row); points are read
-// only for found rows, all of a lane's together. Lane `sub` of the group
+// (group_top5) -> the plane fit F of plane_fit.cuh (FIT_TLS or FIT_REF)
+// and its gate. A lane mixes each of its rows' keys itself (the key
+// varies per row); points are read only for found rows, all of a lane's
+// together. Lane `sub` of the group
 // owns candidate rows sub, sub + L, ...; every lane of the warp must call.
 // Every lane returns the gate, the plane (ux, uy, uz, d) in pl and the
 // fifth-nearest squared distance in dmin.
-template <int B, int M, int L>
+template <int B, int M, int L, int F = FIT_TLS>
 __device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx, float qy,
-                                                 float qz, int sub, float threshold,
+                                                 float qz, int sub, double threshold,
                                                  float (&pl)[4], float& dmin) {
   constexpr int R = (M + L - 1) / L;  // rows per lane
   const float vs = __ldg(mp.voxel_size);
@@ -184,7 +186,7 @@ __device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx,
 
   float nx[5], ny[5], nz[5];
   dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
-  return plane5_fit(nx, ny, nz, threshold, pl[0], pl[1], pl[2], pl[3]);
+  return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
 }
 
 }  // namespace

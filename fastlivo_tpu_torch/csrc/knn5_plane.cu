@@ -9,10 +9,12 @@
 //   row -> the centred total-least-squares plane through the five picks
 //   (missing picks are zeros and still count as points) -> the gate
 //   "normal found and all five picks within `threshold` of the plane".
-// The LIO search calls it under `cache_knn` (lio.lio_update), which
-// gathers the block once per frame at the prior pose and re-ranks it at
-// every search; the searches without a cache walk the map themselves
-// (knn5_plane_tiled.cu, knn5_plane_hashed.cu).
+// The host loop's LIO search calls it under `cache_knn` (lio.host_search,
+// over a mesh), on the block gathered once per frame at the prior pose and
+// re-ranked at every search; on one card lio_cascade.cu re-ranks that
+// block itself (knn5_cached_walk.cuh, the same selection and fit) and
+// this kernel is its oracle. The searches without a cache walk the map
+// themselves (knn5_plane_tiled.cu, knn5_plane_hashed.cu).
 //
 // Design: a block is one warp and owns the contiguous slab of its 32
 // queries: 32*M*12 B of candidates, 32*M mask bytes, 32*12 B of queries.

@@ -1,10 +1,11 @@
 // One query's LIO search on the tiled map, by a group of L lanes of one
 // warp: the neighbourhood walk (directory -> pool), the five nearest and
-// the centred TLS plane fit. Shared by csrc/knn5_plane_tiled.cu (the
-// search alone) and csrc/lio_cascade.cu (the search inside the LIO
-// cascade), so that the two give the same planes bit for bit. Include
-// after hash_mix.cuh (check31), knn5_select.cuh (group_top5, KNN5_BIG)
-// and plane_fit.cuh (plane5_fit).
+// the plane fit (the TLS fit, or the reference's inside the LIO cascade).
+// Shared by csrc/knn5_plane_tiled.cu (the search alone) and
+// csrc/lio_cascade.cu (the search inside the LIO cascade), so that the
+// two give the same planes bit for bit. Include after hash_mix.cuh
+// (check31), knn5_select.cuh (group_top5, KNN5_BIG) and plane_fit.cuh
+// (plane5_fit_as).
 #pragma once
 
 #include <stdint.h>
@@ -32,13 +33,14 @@ struct TiledView {
 // 31-bit tile hash -> directory hit when dir_check == hash, pool cell live
 // when cell_check == hash -> squared distance to the stored point,
 // KNN5_BIG where missing -> five rounds of min-select, ties to the lowest
-// row (group_top5) -> the plane fit and gate of plane_fit.cuh. Lane `sub`
-// of the group owns candidate rows sub, sub + L, ...; every lane of the
-// warp must call. Every lane returns the gate, the plane (ux, uy, uz, d)
-// in pl and the fifth-nearest squared distance in dmin.
-template <int M, int L>
+// row (group_top5) -> the plane fit F of plane_fit.cuh (FIT_TLS or
+// FIT_REF) and its gate. Lane `sub` of the group owns candidate rows sub,
+// sub + L, ...; every lane of the warp must call. Every lane returns the
+// gate, the plane (ux, uy, uz, d) in pl and the fifth-nearest squared
+// distance in dmin.
+template <int M, int L, int F = FIT_TLS>
 __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, float qy,
-                                                float qz, int sub, float threshold,
+                                                float qz, int sub, double threshold,
                                                 float (&pl)[4], float& dmin) {
   constexpr int R = (M + L - 1) / L;  // rows per lane
   const float vs = __ldg(mp.voxel_size);
@@ -90,7 +92,7 @@ __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, f
 
   float nx[5], ny[5], nz[5];
   dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
-  return plane5_fit(nx, ny, nz, threshold, pl[0], pl[1], pl[2], pl[3]);
+  return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
 }
 
 }  // namespace

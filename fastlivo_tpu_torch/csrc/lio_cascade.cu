@@ -1,17 +1,22 @@
 // The LIO iterated EKF of one scan in one launch, on the tiled map, the
-// hash map or the dense grid, for Hopper.
+// hash map, the dense grid or the candidate block that `cache_knn`
+// gathers, with the TLS plane fit or the reference's, for Hopper.
 //
 // lio_cascade replaces the device program the JAX package compiles from
 // the `jax.lax.while_loop` of fastlivo_tpu/lio.py::lio_update (the loop at
 // :256, its body :188-238), whose search runs the TPU kernel
 // fastlivo_tpu/ops/pallas_lio.py::knn5_plane (`pl.pallas_call` at :219) on
 // the map's candidate block (the JAX package's knn_candidates of the tiled,
-// hash or dense map, lio.py:144-173). Each iteration, at the pose in force:
+// hash or dense map, lio.py:144-173) or on the block gathered once at the
+// prior pose under `cache_knn` (:119-133), and with `plane_fit: ref` the
+// reference's A·n = -1 fit (:140, :165-173). Each iteration, at the pose
+// in force:
 //   on an iteration with search_en, the search for every point of the scan
-//   in the world frame: the walk of knn5_tiled_walk.cuh on the tiled map,
-//   of knn5_hashed_walk.cuh on the hash map or the dense grid (the map's
-//   walk, the five nearest, the TLS plane fit), a template parameter of
-//   the kernel;
+//   in the world frame, walk W a template parameter: the walk of
+//   knn5_tiled_walk.cuh on the tiled map, of knn5_hashed_walk.cuh on the
+//   hash map or the dense grid, of knn5_cached_walk.cuh on the gathered
+//   block (the five nearest), then the plane fit F, a template parameter
+//   too (plane_fit.cuh: the centred TLS fit, or the reference's in f64);
 //   the gates (laserMapping.cpp:1549-1600; their values are arguments, as
 //   lio.py sets them): sel = nd2_5 <= sq_dist_gate & pmask at a search,
 //   pd2 = n·p + d, s = 1 - 0.9 |pd2| / |p_body|^(1/2), sel &= plane_ok &
@@ -25,22 +30,30 @@
 //   (laserMapping.cpp:1700-1705; the JAX package's lio.py:233-235).
 // After the loop: rot, x, G = K HᵀH₆ of the last iteration, sel, pabcd,
 // plane_ok and the iteration count. The plain version is the host loop
-// lio.py::lio_loop (knn5_plane_tiled or knn5_plane_hashed, the gates in
-// torch ops, the same fixed-order sum and the step kernel or its plain
-// version).
+// lio.py::lio_loop (its search lio.host_search: knn5_plane_tiled,
+// knn5_plane_hashed or, on the block, knn5_plane; with the reference's fit
+// the backend's knn or topk_from_candidates on the block, then
+// plane.fit_plane_ref; the gates in torch ops, the same fixed-order sum and
+// the step kernel or its plain version). Contract: with the step kernel
+// every output bit-equal to that loop's, iterations too.
 //
 // Bound (chip_smoke.py's lio_cascade_bound_ms): the larger of the bytes
-// (the map entries the searches touch, each point's inputs and outputs,
-// the pose and prior, once each) over HBM bandwidth and the operations
-// (the searches', ~120 a row each iteration, the f64 steps) over the f32 and
-// f64 rates. Neither counts the dependent chain that holds the launch far
-// above it: the chunk trees, a grid barrier, the chunk-sum trees and the
-// f64 step, every iteration. Design: one cooperative, persistent launch
+// (the map entries the searches touch, or the gathered block, 13 B a
+// candidate; each point's inputs and outputs, the pose and prior, once
+// each) over HBM bandwidth and the operations (the searches', ~120 a row
+// each iteration, the f64 steps, and with the reference's fit its f64
+// algebra) over the f32 and f64 rates. Neither counts the dependent chain
+// that holds the launch far above it: the chunk trees, a grid barrier, the
+// chunk-sum trees and the f64 step, every iteration. The block that
+// `cache_knn` gathers is read again at every search, from L2 after the
+// first (it is N·M·13 B: 5.5 MB at N = 16384, M = 27). Design: one cooperative, persistent launch
 // (cudaLaunchCooperativeKernel) of as many 256-thread blocks as can be
 // co-resident, at most one per chunk of 64 rows; block b owns chunks b, b
 // + grid, ... for the whole launch and keeps their p_imu, |p_body|^(1/2),
 // mask, sel, plane and plane_ok in shared memory across the iterations
-// (the while_loop's carry). Each iteration: the block's chunks (while the
+// (the while_loop's carry). The walks run L lanes a query (4 at M = 27, 16
+// at M = 125), the picks in every lane of the group, and every lane fits
+// them, so the reference's f64 fit adds no divergence. Each iteration: the block's chunks (while the
 // first chunk's gates run, a spare warp forms the step's vec, Log on the
 // pose only), their sums into the chunk sums of the iteration's parity,
 // and the block whose chunk completes a group of 64 (an int ticket per
@@ -66,6 +79,7 @@
 #include "plane_fit.cuh"
 #include "knn5_tiled_walk.cuh"
 #include "knn5_hashed_walk.cuh"
+#include "knn5_cached_walk.cuh"
 #include "so3.cuh"
 #include "ekf_step.cuh"
 #include "phase_stamps.cuh"
@@ -78,11 +92,14 @@ constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int CH = 64;  // rows of a chunk, and sums of a group at every level
 constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int TILED = 2;  // the walk: HASH, DENSE (knn5_hashed_walk.cuh) or TILED
+// the walk: HASH, DENSE (knn5_hashed_walk.cuh), TILED (knn5_tiled_walk.cuh)
+// or CACHED (knn5_cached_walk.cuh)
+constexpr int TILED = 2, CACHED = 3;
 
 struct Lio {
   TiledView mp;             // the tiled map (TILED)
   HashedView hp;            // the hash map or the dense grid (HASH, DENSE)
+  CachedView cv;            // the gathered candidate block (CACHED)
   const float* p_imu;       // (n, 3) the scan in the IMU frame
   const float* bns;         // (n,) |p_body|^(1/2)
   const uint8_t* pmask;     // (n,)
@@ -103,7 +120,7 @@ struct Lio {
   uint8_t* ok_out;          // (n,)
   int* its;                 // ()
   int n, nch, cpb, max_iter;
-  float threshold;              // the plane fit's
+  double threshold;             // the plane fit's (cast down to f32 for the TLS fit)
   float sq_dist_gate, s_gate, res_gate;
   double conv_rot_deg, conv_pos_cm;
 };
@@ -236,18 +253,21 @@ __device__ void reduce_chunks(const float* part, int stride, const float* gsum, 
   }
 }
 
-// The search of one query on the launch's map: walk W's.
-template <int W, int M, int L>
-__device__ __forceinline__ bool map_walk(const Lio& c, float qx, float qy, float qz, int sub,
-                                         float (&pl)[4], float& dmin) {
+// The search of the query of row `row` on the launch's map or block: walk
+// W's, with the plane fit F.
+template <int W, int M, int L, int F>
+__device__ __forceinline__ bool map_walk(const Lio& c, int row, float qx, float qy, float qz,
+                                         int sub, float (&pl)[4], float& dmin) {
   if constexpr (W == TILED) {
-    return knn5_tiled_walk<M, L>(c.mp, qx, qy, qz, sub, c.threshold, pl, dmin);
+    return knn5_tiled_walk<M, L, F>(c.mp, qx, qy, qz, sub, c.threshold, pl, dmin);
+  } else if constexpr (W == CACHED) {
+    return knn5_cached_walk<M, L, F>(c.cv, row, qx, qy, qz, sub, c.threshold, pl, dmin);
   } else {
-    return knn5_hashed_walk<W, M, L>(c.hp, qx, qy, qz, sub, c.threshold, pl, dmin);
+    return knn5_hashed_walk<W, M, L, F>(c.hp, qx, qy, qz, sub, c.threshold, pl, dmin);
   }
 }
 
-template <int W, int M, int L>
+template <int W, int M, int L, int F>
 __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Step st;
@@ -313,12 +333,12 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
       __syncthreads();
       if (search) {
         // L lanes a query: THREADS / L queries a pass (rows past n walk at
-        // a harmless point and write nothing)
+        // a harmless point, or read no block, and write nothing)
         for (int q0 = 0; q0 < CH; q0 += THREADS / L) {
           const int q = q0 + tid / L, sub = tid % L;
           float pl[4], dmin;
-          const bool ok =
-              map_walk<W, M, L>(c, s_pw[q], s_pw[CH + q], s_pw[2 * CH + q], sub, pl, dmin);
+          const bool ok = map_walk<W, M, L, F>(c, chunk * CH + q, s_pw[q], s_pw[CH + q],
+                                               s_pw[2 * CH + q], sub, pl, dmin);
           if (sub == 0 && chunk * CH + q < c.n) {
             const int lr = r0 + q;
 #pragma unroll
@@ -429,9 +449,9 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   PHASE_STAMP(1);
 }
 
-template <int W, int M, int L>
+template <int W, int M, int L, int F>
 int launch(Lio& c, int* grid_out, cudaStream_t stream) {
-  auto kernel = lio_cascade_kernel<W, M, L>;
+  auto kernel = lio_cascade_kernel<W, M, L, F>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -463,6 +483,17 @@ int launch(Lio& c, int* grid_out, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance of walk W at m candidates (27: 4 lanes a query, 125: 16)
+// with the fit `fit`.
+template <int W>
+int launch_walk(Lio& c, int m, int fit, int* grid_out, cudaStream_t s) {
+  if (m == 27 && fit == FIT_TLS) return launch<W, 27, 4, FIT_TLS>(c, grid_out, s);
+  if (m == 27 && fit == FIT_REF) return launch<W, 27, 4, FIT_REF>(c, grid_out, s);
+  if (m == 125 && fit == FIT_TLS) return launch<W, 125, 16, FIT_TLS>(c, grid_out, s);
+  if (m == 125 && fit == FIT_REF) return launch<W, 125, 16, FIT_REF>(c, grid_out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 PHASE_STAMPS_EXPORT(lio_cascade)
@@ -474,7 +505,7 @@ void fill(Lio& c, const void* p_imu, const void* bns, const void* pmask, const v
           const void* prior_rot, const void* prior_x, const void* rot0, const void* x0,
           void* part, void* gsum, void* tickets, void* rot_out, void* x_out, void* Gmat,
           void* sel_out, void* pabcd_out, void* ok_out, void* its, int n, int max_iter,
-          float threshold, float sq_dist_gate, float s_gate, float res_gate,
+          double threshold, float sq_dist_gate, float s_gate, float res_gate,
           double conv_rot_deg, double conv_pos_cm) {
   c.p_imu = static_cast<const float*>(p_imu);
   c.bns = static_cast<const float*>(bns);
@@ -521,12 +552,12 @@ void fill(Lio& c, const void* p_imu, const void* bns, const void* pmask, const v
 // / 64), stride = max(nch, 1) and gstride = max(groups, 1), each rounded
 // up to a multiple of 4; outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
 // (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
-// contiguous on the device. The plane fit's threshold, the gates on nd2_5,
-// s and |pd2|, and the convergence thresholds in degrees and centimetres.
-// `grid_out` receives the number of blocks launched. Returns the launch's
-// cudaError_t (0 = cudaSuccess); cudaErrorCooperativeLaunchTooLarge where
-// not even one block fits on an SM (or the shared memory of a huge n does
-// not fit).
+// contiguous on the device. The plane fit (`fit` 0: TLS, 1: the
+// reference's) and its threshold, the gates on nd2_5, s and |pd2|, and the
+// convergence thresholds in degrees and centimetres. `grid_out` receives
+// the number of blocks launched. Returns the launch's cudaError_t (0 =
+// cudaSuccess); cudaErrorCooperativeLaunchTooLarge where not even one
+// block fits on an SM (or the shared memory of a huge n does not fit).
 extern "C" int lio_cascade_launch(
     const void* dir_check, const void* dir_slot, const void* cell_check, const void* pts,
     const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
@@ -534,9 +565,9 @@ extern "C" int lio_cascade_launch(
     const void* prior_x, const void* rot0, const void* x0, void* part, void* gsum,
     void* tickets,
     void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
-    void* its, int n, int m, int T, int max_iter, float threshold, float sq_dist_gate,
-    float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm, int* grid_out,
-    void* stream) {
+    void* its, int n, int m, int T, int fit, int max_iter, double threshold,
+    float sq_dist_gate, float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm,
+    int* grid_out, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   Lio c{};
   c.mp = TiledView{static_cast<const int32_t*>(dir_check), static_cast<const int32_t*>(dir_slot),
@@ -546,10 +577,7 @@ extern "C" int lio_cascade_launch(
   fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
        x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
        s_gate, res_gate, conv_rot_deg, conv_pos_cm);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (m == 27) return launch<TILED, 27, 4>(c, grid_out, s);
-  if (m == 125) return launch<TILED, 125, 16>(c, grid_out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk<TILED>(c, m, fit, grid_out, static_cast<cudaStream_t>(stream));
 }
 
 // The cascade on the hash map (backend 0: check (T,) int32 and pts (T, 3)
@@ -562,7 +590,7 @@ extern "C" int lio_cascade_hashed_launch(
     const void* prior_rot, const void* prior_x, const void* rot0, const void* x0, void* part,
     void* gsum, void* tickets, void* rot_out, void* x_out, void* Gmat, void* sel_out,
     void* pabcd_out, void* ok_out, void* its, int n, int m, int T, int backend, int max_probe,
-    int max_iter, float threshold, float sq_dist_gate, float s_gate, float res_gate,
+    int fit, int max_iter, double threshold, float sq_dist_gate, float s_gate, float res_gate,
     double conv_rot_deg, double conv_pos_cm, int* grid_out, void* stream) {
   if (n < 0 || T < 1 || (T & (T - 1)) || max_probe < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -575,9 +603,27 @@ extern "C" int lio_cascade_hashed_launch(
        x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
        s_gate, res_gate, conv_rot_deg, conv_pos_cm);
   auto s = static_cast<cudaStream_t>(stream);
-  if (backend == HASH && m == 27) return launch<HASH, 27, 4>(c, grid_out, s);
-  if (backend == HASH && m == 125) return launch<HASH, 125, 16>(c, grid_out, s);
-  if (backend == DENSE && m == 27) return launch<DENSE, 27, 4>(c, grid_out, s);
-  if (backend == DENSE && m == 125) return launch<DENSE, 125, 16>(c, grid_out, s);
+  if (backend == HASH) return launch_walk<HASH>(c, m, fit, grid_out, s);
+  if (backend == DENSE) return launch_walk<DENSE>(c, m, fit, grid_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cascade on the candidate block gathered once at the prior pose
+// (`cache_knn`): cand (n, m, 3) f32 and found (n, m) u8, row i's block in
+// the order of the backend's knn_candidates, m 27 or 125; every other
+// argument as lio_cascade_launch's.
+extern "C" int lio_cascade_cached_launch(
+    const void* cand, const void* found, const void* p_imu, const void* bns, const void* pmask,
+    const void* Pp, const void* prior_rot, const void* prior_x, const void* rot0,
+    const void* x0, void* part, void* gsum, void* tickets, void* rot_out, void* x_out,
+    void* Gmat, void* sel_out, void* pabcd_out, void* ok_out, void* its, int n, int m, int fit,
+    int max_iter, double threshold, float sq_dist_gate, float s_gate, float res_gate,
+    double conv_rot_deg, double conv_pos_cm, int* grid_out, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Lio c{};
+  c.cv = CachedView{static_cast<const float*>(cand), static_cast<const uint8_t*>(found), n};
+  fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
+       x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
+       s_gate, res_gate, conv_rot_deg, conv_pos_cm);
+  return launch_walk<CACHED>(c, m, fit, grid_out, static_cast<cudaStream_t>(stream));
 }

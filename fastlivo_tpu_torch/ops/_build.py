@@ -23,13 +23,13 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 # every csrc/<name>.cu: the LIO search in one launch on the tiled map and
 # on the hash and dense maps, and the fused 5-NN + plane fit on a
-# gathered block, which the search runs under `cache_knn`
+# gathered block, which the host loop's search runs under `cache_knn`
 # (ops/knn_plane.py); one photometric EKF iteration's measurement, and
 # the whole photometric cascade and its step alone (ops/photometric.py);
 # the patch + gradient sampling (ops/patches_grads.py), the TPU kernel's
 # signature, on no path; one measurement group's IMU propagation
-# (ops/imu_scan.py); the LIO iterated EKF of one scan on the tiled map
-# (ops/lio_cascade.py); the camera frame's selection (ops/vio_select.py)
+# (ops/imu_scan.py); the LIO iterated EKF of one scan on any map, with
+# any LIO option (ops/lio_cascade.py); the camera frame's selection (ops/vio_select.py)
 # and its visual-map upkeep (ops/vio_observations.py); the tiled map's box
 # delete and its insert's three passes (ops/tiled_map.py), the voxel
 # filter's segmented centroid (ops/voxel_filter.py) and the scan's

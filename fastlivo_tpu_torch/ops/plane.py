@@ -125,21 +125,38 @@ def fit_plane_ref(pts: torch.Tensor, valid: torch.Tensor | None = None,
 
     Same signature and returns as `fit_plane`. With a `valid` mask, rows
     outside it do not constrain the fit and validity also needs all K
-    rows valid (the reference fits only a full neighbour set)."""
+    rows valid (the reference fits only a full neighbour set).
+
+    Every sum is written out in the order that csrc/plane_fit.cuh's
+    plane5_fit_ref copies (AᵀA and Aᵀb over the rows left to right, |n|²
+    as (x² + y²) + z², each distance as ((x nx + y ny) + z nz) + d), so
+    that the card's fit and this one round alike."""
     K = pts.shape[-2]
     if valid is None:
         valid = torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
     f64 = torch.float64
-    p64 = pts.to(f64) * valid.to(f64)[..., None]
-    AtA = torch.einsum("...ki,...kj->...ij", p64, p64)
-    Atb = -torch.sum(p64, dim=-2)  # Aᵀ·(-1)
+    q = pts.to(f64)
+    p = q * valid.to(f64)[..., None]
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+
+    def ksum(v):  # over the K rows, left to right
+        s = v[..., 0]
+        for k in range(1, K):
+            s = s + v[..., k]
+        return s
+
+    sxx, sxy, sxz = ksum(x * x), ksum(x * y), ksum(x * z)
+    syy, syz, szz = ksum(y * y), ksum(y * z), ksum(z * z)
+    AtA = torch.stack([torch.stack([sxx, sxy, sxz], -1), torch.stack([sxy, syy, syz], -1),
+                       torch.stack([sxz, syz, szz], -1)], -2)
+    Atb = -torch.stack([ksum(x), ksum(y), ksum(z)], -1)  # Aᵀ·(-1)
     n = _solve3x3(AtA, Atb)
-    norm = torch.sqrt(torch.sum(n * n, dim=-1))
+    norm = torch.sqrt((n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1]) + n[..., 2] * n[..., 2])
     inv = 1.0 / torch.clamp(norm, min=1e-30)
     normal = n * inv[..., None]
     pabcd = torch.cat([normal, inv[..., None]], dim=-1)  # d = 1/|n| (:469)
-    dist = torch.abs(torch.einsum("...ki,...i->...k", pts.to(f64), normal)
-                     + inv[..., None])
+    dist = torch.abs(((q[..., 0] * normal[..., None, 0] + q[..., 1] * normal[..., None, 1])
+                      + q[..., 2] * normal[..., None, 2]) + inv[..., None])
     ok = torch.all(torch.where(valid, dist <= threshold, True), dim=-1)
     ok = (ok & (torch.sum(valid, dim=-1) == K) & (norm > 1e-30)
           & torch.all(torch.isfinite(pabcd), dim=-1))

@@ -25,9 +25,20 @@ calls (chip_smoke.time_ms), beside an empty kernel. A `--stamps` variant
 is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh) and launched
 `--reps` times alone, synchronised, reading its phase stamps after each
 launch: each phase summed over the iterations, the median over the
-launches (torch_photometric_bench.stamped_phases). Prints one JSON line
-with the card's `nvidia-smi` name and power limit (and writes it to
-`--out`).
+launches (torch_photometric_bench.stamped_phases).
+
+Each `--route` (walk_tls, the default's; cached_tls: the block that
+`cache_knn` gathers at the start pose, tiled_map.knn_candidates;
+walk_ref and cached_ref: the reference's plane fit) runs this checkout's
+cascade on the same scan and map, held bit for bit against the host loop
+lio.lio_loop with lio.host_search (the kernel search, or the backend's
+knn / topk_from_candidates and fit_plane_ref) and the step kernel, then
+both timed in turns (cascade, loop, loop, cascade): the cascade as the
+variants are (queued calls, chip_smoke.time_ms), the loop one call alone
+between two CUDA events (chip_smoke.event_ms: it reads its convergence
+flag every iteration), each the median of `--reps`. Prints one
+JSON line with the card's `nvidia-smi` name and power limit beside every
+number (and writes it to `--out`).
 """
 import argparse
 import ctypes
@@ -93,6 +104,33 @@ def same(got, want) -> bool:
         torch.equal(x, y) for x, y in zip(got[:6], want[:6]))
 
 
+ROUTES = ("walk_tls", "cached_tls", "walk_ref", "cached_ref")
+
+
+def route_args(a, route):
+    """The cascade's arguments `a` for a route: the walk's, or the block
+    tiled_map.knn_candidates gathers at the start pose, and the fit."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    search, fit = route.split("_")
+    cand = found = None
+    if search == "cached":
+        m, body, rot, x, radius = a[0], a[1], a[4], a[5], a[10]
+        cand, found = tm.knn_candidates(m, lio.world_points(body, rot, x[0:3]), radius)
+    return (*a, 12, cand, found, fit)
+
+
+def route_loop(b):
+    """lio.lio_loop on a route's arguments `b`, its search lio.host_search
+    with the kernels, the step kernel."""
+    from fastlivo_tpu_torch import lio
+
+    m, radius, threshold, probe, cand, found, fit = b[0], b[10], b[11], *b[14:18]
+    return lio.lio_loop(lio.host_search(m, radius, threshold, probe, fit, cand, found),
+                        *b[1:10])
+
+
 def bind(lib):
     """The variant's launch function with this checkout's ctypes signature
     (ops/lio_cascade.py's launcher). A launcher that still takes the pose
@@ -100,18 +138,27 @@ def bind(lib):
     and a second level of chunk sums (part2 after part), and no group sums
     or tickets, gets scratch of its own: a call of this checkout's
     signature is passed on with those pointers in place of gsum and
-    tickets (this checkout's part is at least as large as it needs)."""
+    tickets (this checkout's part is at least as large as it needs). A
+    launcher without the fit argument (the TLS fit only, its threshold an
+    f32) gets the call without it."""
     import torch
 
     from fastlivo_tpu_torch.ops import _build
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
 
     fn = lib.lio_cascade_launch
     fn.restype = ctypes.c_int
     tail = [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_double] * 2 \
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    if b"void* part2" not in lib.source:
-        fn.argtypes = [ctypes.c_void_p] * 25 + tail
+    if b"int fit" in lib.source:  # this checkout's signature
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + lc._TAIL
         call = _build.profiled("lio_cascade", fn)
+    elif b"void* part2" not in lib.source:  # no fit: the TLS fit, f32 threshold
+        fn.argtypes = [ctypes.c_void_p] * 25 + tail
+
+        def call(*args):
+            with torch._C._profiler._RecordFunctionFast("lio_cascade"):
+                return fn(*args[:28], *args[29:])
     else:
         fn.argtypes = [ctypes.c_void_p] * 26 + tail
         scratch = {}
@@ -125,7 +172,7 @@ def bind(lib):
                               torch.empty((max(-(-nch // 64), 1), 42), device="cuda")]
             cur, ctl, part2 = (t.data_ptr() for t in scratch[n])
             with torch._C._profiler._RecordFunctionFast("lio_cascade"):
-                return fn(*args[:15], cur, ctl, args[15], part2, *args[18:])
+                return fn(*args[:15], cur, ctl, args[15], part2, *args[18:28], *args[29:])
     call.lib = lib
     return call
 
@@ -135,6 +182,7 @@ def main():
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--variant", action="append", default=None)
     ap.add_argument("--stamps", action="append", default=[])
+    ap.add_argument("--route", action="append", default=None, choices=ROUTES)
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--out", default=None)
@@ -180,8 +228,24 @@ def main():
                                        args.reps)
     finally:
         lc._launcher = real
+    card = chip_smoke.nvidia_smi_line()
+    routes = {}
+    for route in args.route or []:
+        b = route_args(a, route)
+        got, loop = lc.lio_cascade(*b), route_loop(b)
+        ms = {"cascade": [], "host_loop": []}
+        for k in ("cascade", "host_loop", "host_loop", "cascade"):
+            if k == "cascade":
+                ms[k].append(chip_smoke.time_ms(lambda: lc.lio_cascade(*b), args.reps))
+            else:
+                ms[k].append(chip_smoke.event_ms(lambda: route_loop(b), args.reps))
+        routes[route] = {"iterations": int(got[6]), "bit_equal_to_host_loop": same(got, loop),
+                         "grid": lc.lio_cascade.grid, "ms": ms, "card": card}
+        print(f"{route}: cascade {ms['cascade']} ms, host loop {ms['host_loop']} ms, "
+              f"{int(got[6])} iterations, bit-equal {routes[route]['bit_equal_to_host_loop']}; "
+              f"{card}")
     line = json.dumps({"variants": variants, "n": args.n, "runs": res, "stamps": stamps,
-                       "card": chip_smoke.nvidia_smi_line()})
+                       "routes": routes, "card": card})
     print(line)
     if args.out:
         with open(args.out, "w") as fh:

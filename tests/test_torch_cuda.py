@@ -793,13 +793,15 @@ def test_photometric_cascade_and_step_refuse_bad_inputs(cuda):
 LIO_DS = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=3)
 
 
-def small_lio(device, backend="tiled", cache_knn=False, per_group=None, **kw):
+def small_lio(device, backend="tiled", cache_knn=False, per_group=None, plane_fit="tls",
+              **kw):
     cfg = Config()
     cfg.img_enable = False
     cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
                                   tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
                                   map_backend=backend, map_table_size=1 << 16,
-                                  dense_dims=(64, 64, 16), cache_knn=cache_knn)
+                                  dense_dims=(64, 64, 16), cache_knn=cache_knn,
+                                  plane_fit=plane_fit)
     if per_group is not None:
         cfg.capacity.max_imu_per_group = per_group
     ds = SyntheticDataset(**LIO_DS)
@@ -984,21 +986,27 @@ def test_hash_and_dense_pipelines_run_through_the_fused_search(cuda, backend, mo
 
 @pytest.mark.parametrize("backend", ["tiled", "hash"])
 def test_cache_knn_runs_through_knn5_plane(cuda, backend, monkeypatch):
-    """Under cache_knn the search still gathers once per frame (the
-    backend's knn_candidates) and re-ranks that block with knn5_plane at
-    every search; neither fused search runs."""
+    """Under cache_knn the search gathers once per frame that runs the EKF
+    (the backend's knn_candidates) and every EKF is one lio_cascade launch
+    that re-ranks that block at every search (counted as "cached"): no
+    knn5_plane launch (the block's standalone kernel is the cascade's
+    oracle), no fused search."""
+    from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     pipe = small_lio(cuda, backend, cache_knn=True)
     calls = []
     gathers_spied(monkeypatch, {"tiled": tm, "hash": vm}[backend], calls)
     before = counts()
+    c0 = (lio_cascade.lio_cascade.launches, lio_cascade.lio_cascade.by_search["cached"])
     outs = pipe.spin()
     launched = {k: v - before[k] for k, v in counts().items()}
+    cascades = (lio_cascade.lio_cascade.launches - c0[0],
+                lio_cascade.lio_cascade.by_search["cached"] - c0[1])
     steady = [o for o in outs if o.iters > 0]
     assert len(steady) > 5 and len(steady) <= len(calls) <= len(outs)
-    assert launched["knn5_plane"] >= len(calls)
-    assert launched["knn5_plane_tiled"] == launched["knn5_plane_hashed"] == 0
+    assert cascades[0] == cascades[1] == len(calls)
+    assert launched == {"knn5_plane": 0, "knn5_plane_tiled": 0, "knn5_plane_hashed": 0}
 
 
 def colliding_keys(T: int):
@@ -1654,9 +1662,10 @@ def test_lio_cascade_matches_the_host_loop(cuda, case, monkeypatch):
 @pytest.mark.parametrize("route", ["tiled", "hash", "dense", "cache_knn", "ref"])
 def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
     """lio_update on one card: on the tiled, hash and dense maps with the
-    TLS fit one lio_cascade launch (counted by map), no search launch and
-    no synchronising call (torch's sync debug mode set to raise), iters a
-    device int; with cache_knn and with plane_fit ref the host loop."""
+    TLS fit, on the tiled map with cache_knn and with plane_fit ref, one
+    lio_cascade launch (counted by map, search and fit), no search launch
+    (knn5_plane, knn5_plane_tiled, knn5_plane_hashed) and no synchronising
+    call (torch's sync debug mode set to raise), iters a device int."""
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.state import identity_state
@@ -1673,25 +1682,180 @@ def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
         plane_fit="ref" if route == "ref" else "tls")
     want = call()  # built and warm
     torch.cuda.synchronize()
-    cascade = route in ("tiled", "hash", "dense")
-    counts = lambda: (lio_cascade.lio_cascade.launches,  # noqa: E731
-                      lio_cascade.lio_cascade.by_map.get(route, 0),
-                      knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane_hashed.launches)
+    kind = route if route in ("hash", "dense") else "tiled"
+    c = lio_cascade.lio_cascade
+    counts = lambda: (c.launches, c.by_map[kind],  # noqa: E731
+                      c.by_search["cached" if route == "cache_knn" else "walk"],
+                      c.by_fit["ref" if route == "ref" else "tls"],
+                      knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane_hashed.launches,
+                      knn_plane.knn5_plane.launches)
     n0 = counts()
-    if cascade:
-        torch.cuda.set_sync_debug_mode("error")
+    torch.cuda.set_sync_debug_mode("error")
     try:
         got = call()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     n1 = counts()
     assert torch.equal(got.state.pos, want.state.pos)
-    if cascade:
-        assert n1 == (n0[0] + 1, n0[1] + 1, n0[2], n0[3])
-        assert isinstance(got.iters, torch.Tensor) and got.iters.device.type == "cuda"
-    else:
-        assert n1[0] == n0[0] and isinstance(got.iters, int)
+    assert n1 == (n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1) + n0[4:]
+    assert isinstance(got.iters, torch.Tensor) and got.iters.device.type == "cuda"
     assert int(got.n_active) > 1000
+
+
+def lattice_points(scene):
+    """The voxel centres (0.5 m voxels) of "ties": every voxel of one 32 x
+    32 layer (a plane); "sparse": 12% of the voxels of a 64 x 64 x 4 block,
+    so that most radius-1 neighbourhoods hold fewer than five points."""
+    h, nz = (16, 1) if scene == "ties" else (32, 4)
+    g = np.stack(np.meshgrid(np.arange(-h, h), np.arange(-h, h), np.arange(-1, nz - 1),
+                             indexing="ij"), -1).reshape(-1, 3)
+    if scene == "sparse":
+        g = g[np.random.default_rng(21).random(len(g)) < 0.12]
+    return ((g + 0.5) * 0.5).astype(np.float32)
+
+
+def backend_map(pts, backend, device):
+    """The points in a tiled map (32 x 32 x 16 directory, 1024 tiles), a
+    hash table of 2^16 slots or a dense grid of 64 x 64 x 16 cells, 0.5 m
+    voxels."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    if backend == "tiled":
+        return tm.build_host(pts, (32, 32, 16), 1024, 0.5, device=device)
+    t = torch.from_numpy(pts).to(device)
+    valid = torch.ones(len(pts), dtype=torch.bool, device=device)
+    if backend == "hash":
+        return vm.insert(vm.empty_map(1 << 16, 0.5, device=device), t, valid)
+    return dm.insert(dm.empty_dense_map((64, 64, 16), 0.5, device=device), t, valid)
+
+
+def route_case(device, scene, backend, radius):
+    """A LIO cascade's inputs on one map backend: "frame" (the 16384-point
+    frame of lio_case on the tiled map, of hashed_lio_case on the hash map
+    (holes in its chains) and the dense grid (aliased cells)); "ties" (the
+    corners of the lattice layer's squares as the scan, from the identity
+    pose: at the first search four points at the same f32 squared
+    distance, then four tied for the fifth pick, all in the plane, so the
+    fits pass); "sparse" (the sparse lattice's points with 5 mm of noise,
+    from a pose off the truth: fewer than five candidates).
+    Returns (map, body, pmask, rot, x, P', max_iter, probe)."""
+    from fastlivo_tpu_torch.ops import so3 as so3_ops
+
+    if scene == "frame":
+        if backend == "tiled":
+            m, body, pmask, rot, x, P_, max_iter, _ = lio_case(device, "frame")
+        else:
+            m, body, pmask, rot, x, P_, max_iter, _, _ = hashed_lio_case(device, backend, radius)
+        return m, body, pmask, rot, x, P_, max_iter, 12
+    pts = lattice_points(scene)
+    m = backend_map(pts, backend, device)
+    if scene == "ties":
+        pts = pts + np.float32([0.25, 0.25, 0.0])
+    f64 = dict(dtype=torch.float64, device=device)
+    rot, x = torch.eye(3, **f64), torch.zeros(15, **f64)
+    if scene == "sparse":
+        pts = pts + np.random.default_rng(22).normal(0, 0.005, pts.shape).astype(np.float32)
+        rot = so3_ops.exp(torch.tensor([0.004, -0.003, 0.006], **f64)).contiguous()
+        x[0:3] = torch.tensor([0.03, -0.02, 0.015], **f64)
+    body = torch.from_numpy(pts).to(device)
+    pmask = torch.ones(len(pts), dtype=torch.bool, device=device)
+    pmask[::17] = False
+    return m, body, pmask, rot, x, torch.eye(18, **f64) * 10.0, 4, 12
+
+
+def route_block(m, body, rot, x, radius, probe):
+    """The block cache_knn gathers: the backend's knn_candidates at the
+    world points of the pose (rot, x)."""
+    from fastlivo_tpu_torch import lio
+
+    return lio.map_module(m).knn_candidates(m, lio.world_points(body, rot, x[0:3]), radius,
+                                            probe)
+
+
+ROUTES = [("frame", b, r, s, f) for b in ("tiled", "hash", "dense") for r in (1, 2)
+          for s in ("walk", "cached") for f in ("tls", "ref")] + [
+    (sc, b, 1, s, f) for sc in ("ties", "sparse") for b in ("tiled", "hash", "dense")
+    for s in ("walk", "cached") for f in ("tls", "ref")]
+
+
+@pytest.mark.parametrize("scene,backend,radius,search,fit", ROUTES)
+def test_lio_cascade_on_every_route_matches_the_host_loop(cuda, scene, backend, radius, search,
+                                                          fit, monkeypatch):
+    """Every instance of the cascade (map x radius x search x fit) against
+    lio_loop on its own inputs, its search lio.host_search: with the step
+    kernel every output bit-equal and the iterations equal, the loop's
+    search the kernel (knn5_plane_tiled, knn5_plane_hashed, or knn5_plane
+    on the block cache_knn gathers; with the reference's fit the backend's
+    knn or topk_from_candidates, then fit_plane_ref) and also the plain
+    search; all plain (photometric_step_plain) the same iterations and the
+    pose within 1e-9. One launch, counted by map, search and fit. The
+    lattice scenes hold exact ties (more equidistant candidates than picks:
+    the lowest rows win, as the stable sort's and the min-select's) and
+    neighbourhoods with fewer than five points."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    m, body, pmask, rot, x, P_, max_iter, probe = route_case(cuda, scene, backend, radius)
+    cand, found = route_block(m, body, rot, x, radius, probe)
+    q = lio.world_points(body, rot, x[0:3])
+    d2 = ((cand - q[:, None]) ** 2).sum(-1).masked_fill(~found, float("inf"))
+    d2 = torch.sort(d2, dim=1).values
+    if scene == "ties":  # a fifth and a sixth nearest at the same distance
+        assert int(((d2[:, 4] == d2[:, 5]) & torch.isfinite(d2[:, 5])).sum()) > 500
+    if scene == "sparse":
+        assert int((found.sum(1) < 5).sum()) > 500
+    if search == "walk":
+        cand = found = None
+    bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
+    c = lio_cascade.lio_cascade
+    counts = lambda: (c.launches, c.by_map[backend], c.by_search[search],  # noqa: E731
+                      c.by_fit[fit])
+    n0 = counts()
+    got = c(m, body, bns, pmask, rot, x, rot, x, P_, max_iter, radius, lio.PLANE_THRESH,
+            lio.GATES, lio.CONV, probe, cand, found, fit)
+    assert counts() == tuple(v + 1 for v in n0)
+    its = int(got[6])
+
+    def loop(plain):
+        search_fn = lio.host_search(m, radius, lio.PLANE_THRESH, probe, fit, cand, found, plain)
+        return lio.lio_loop(search_fn, body, bns, pmask, rot, x, rot, x, P_, max_iter)
+
+    for plain in (False, True):
+        assert_lio_equal(got, loop(plain), (scene, backend, radius, search, fit, plain))
+    monkeypatch.setattr(lio, "photometric_step", photometric.photometric_step_plain)
+    plain = loop(True)
+    assert plain[6] == its
+    d = max(float((got[0] - plain[0]).abs().max()), float((got[1] - plain[1]).abs().max()))
+    assert d <= 1e-9, d
+    assert 2 <= its <= max_iter + 1
+    if scene == "frame":
+        assert int(got[3].sum()) > 10000
+
+
+def test_lio_cascade_refuses_bad_blocks(cuda):
+    """The cached launch takes the block of the radius's M, f32 and bool,
+    contiguous on the card, given with its found flags; and a known fit."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade
+
+    m, body, pmask, rot, x, P_, max_iter, _ = lio_case(cuda, "random")
+    cand, found = route_block(m, body, rot, x, 1, 12)
+    bns = torch.ones(body.shape[0], device=cuda)
+    good = dict(m=m, p_imu=body, bns=bns, pmask=pmask, rot=rot, x=x, prior_rot=rot,
+                prior_x=x, P_=P_, max_iter=max_iter, radius=1, threshold=lio.PLANE_THRESH,
+                gates=lio.GATES, conv=lio.CONV, cand=cand, found=found)
+    n0 = lio_cascade.lio_cascade.launches
+    for kw, err in ((dict(cand=cand[:, :26].contiguous()), ValueError),
+                    (dict(radius=2), ValueError), (dict(cand=cand[:-1]), ValueError),
+                    (dict(cand=cand.double()), TypeError),
+                    (dict(found=found.to(torch.uint8)), TypeError),
+                    (dict(found=None), ValueError), (dict(cand=cand.cpu()), ValueError),
+                    (dict(cand=cand.transpose(0, 1).contiguous().transpose(0, 1)), ValueError),
+                    (dict(plane_fit="svd"), ValueError), (dict(p_imu=body.double()), TypeError)):
+        with pytest.raises(err):
+            lio_cascade.lio_cascade(**{**good, **kw})
+    assert lio_cascade.lio_cascade.launches == n0
 
 
 def test_lio_cascade_refuses_bad_inputs(cuda):
@@ -1831,14 +1995,53 @@ def hashed_cascade_write_only(dev, backend):
     stream = torch.cuda.current_stream(dev).cuda_stream
     got = launch_guarded(lambda *v: lc._hashed_launcher()(
         *[t.data_ptr() for t in v], n, offs.shape[0], m.check.shape[0],
-        0 if backend == "hash" else 1, probe, max_iter, lio.PLANE_THRESH, *lio.GATES, *lio.CONV,
-        ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
+        0 if backend == "hash" else 1, probe, 0, max_iter, lio.PLANE_THRESH, *lio.GATES,
+        *lio.CONV, ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x],
+        outs)
     assert not got[2].any()  # the group tickets left at 0
     got = got[3:]
     for plain_search in (False, True):
         loop = hashed_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, probe,
                                 plain_search)
         assert_lio_equal(got, loop, (backend, plain_search))
+
+
+def cached_cascade_write_only(dev, fit):
+    """test_kernels_write_only_their_outputs' lio_cascade on the block
+    that cache_knn gathers from the tiled frame's map (its cached launch),
+    at 16379 rows and M = 27, with the fit `fit`: the block and every
+    other input unwritten, the outputs bit-equal to lio_loop's with
+    knn5_plane (or the reference's search) and with the plain search."""
+    import ctypes
+
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+
+    n = 16379
+    m, body, pmask, rot, x, P_, max_iter, radius = lio_case(dev, "frame")
+    body, pmask = body[:n].contiguous(), pmask[:n].contiguous()
+    cand, found = route_block(m, body, rot, x, radius, 12)
+    bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
+    f64 = dict(dtype=torch.float64, device=dev)
+    part_s, gsum_s, tick_s = lc.scratch_shapes(n)
+    outs = [torch.empty(part_s, device=dev), torch.empty(gsum_s, device=dev),
+            torch.zeros(tick_s, dtype=torch.int32, device=dev), torch.empty((3, 3), **f64),
+            torch.empty(15, **f64), torch.empty((18, 6), **f64),
+            torch.empty(n, dtype=torch.bool, device=dev), torch.empty((n, 4), device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev)]
+    grid = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    got = launch_guarded(lambda *v: lc._cached_launcher()(
+        *[t.data_ptr() for t in v], n, 27, lc.FITS[fit], max_iter, lio.PLANE_THRESH,
+        *lio.GATES, *lio.CONV, ctypes.byref(grid), stream),
+        [cand, found, body, bns, pmask, P_, rot, x, rot, x], outs)
+    assert not got[2].any()  # the group tickets left at 0
+    got = got[3:]
+    for plain in (False, True):
+        search = lio.host_search(m, radius, lio.PLANE_THRESH, 12, fit, cand, found, plain)
+        loop = lio.lio_loop(search, body, bns, pmask, rot, x, rot, x, P_, max_iter)
+        assert_lio_equal(got, loop, (fit, plain))
 
 
 GUARD = 64  # sentinel elements before and after each array (keeps 16-byte alignment)
@@ -1886,7 +2089,8 @@ def launch_guarded(launch, inputs, outputs):
                                     "vio_select_pool_12289", "vio_observations_3264",
                                     "undistort_8200", "lio_cascade_hash", "lio_cascade_dense",
                                     "vio_select_p24", "vio_select_p64", "photometric_err_H_p24",
-                                    "photometric_err_H_p96", "patches_and_grads_p96"])
+                                    "photometric_err_H_p96", "patches_and_grads_p96",
+                                    "lio_cascade_cached_tls", "lio_cascade_cached_ref"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -1915,7 +2119,9 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     vio_observations at 3264 rows (its insert arrays and plans in the
     global scratch, an output here, back at 0 after the launch), undistort
     on an 8200-row table (searched in global memory). The instances past
-    those: lio_cascade on the hash map (with holes) and on the dense grid;
+    those: lio_cascade on the hash map (with holes) and on the dense grid,
+    and on the block that cache_knn gathers (its cached launch, with the
+    TLS fit and with the reference's);
     vio_select at patch size 24 (the wide tree, its cells in shared
     memory) and 64 (in the launch's device scratch, an output here);
     photometric_err_H at 24 and at 96 (the taps read in place), and
@@ -1929,6 +2135,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         return vio_write_only(cuda, kernel)
     if kernel.startswith("photometric") or kernel.startswith("patches"):
         return camera_write_only(cuda, kernel)
+    if kernel.startswith("lio_cascade_cached"):
+        return cached_cascade_write_only(cuda, kernel.split("_")[-1])
     if kernel.startswith("lio_cascade_"):
         return hashed_cascade_write_only(cuda, kernel.split("_")[-1])
     if kernel in ("tiled_delete_boxes", "voxel_centroids"):
@@ -1970,8 +2178,9 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
                 + [torch.empty((), dtype=torch.int32, device=cuda)]
             grid = ctypes.c_int(0)
             got = launch_guarded(lambda *v: lc._launcher()(
-                *ptr(*v), n, offs.shape[0], T, max_iter, lio.PLANE_THRESH, *lio.GATES, *lio.CONV,
-                ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
+                *ptr(*v), n, offs.shape[0], T, 0, max_iter, lio.PLANE_THRESH, *lio.GATES,
+                *lio.CONV, ctypes.byref(grid), stream),
+                maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
             assert not got[2].any()  # the group tickets left at 0
             got = got[3:6] + got[6:9] + [got[9]]  # rot, x, G, sel, pabcd, plane_ok, its
             for plain_search in (False, True):
@@ -2956,6 +3165,17 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     no_sync_frame_step(cuda, monkeypatch)
 
 
+@pytest.mark.parametrize("option", ["cache_knn", "plane_fit_ref"])
+def test_lidar_frame_step_with_lio_options_makes_no_synchronising_call(cuda, monkeypatch,
+                                                                       option):
+    """The same with cache_knn (the block gathered once, torch ops, and
+    one cached lio_cascade launch) and with plane_fit ref (the
+    reference's fit inside the launch): no synchronising call, the same
+    bits as the step called without the mode."""
+    no_sync_frame_step(cuda, monkeypatch, **{
+        "cache_knn": dict(cache_knn=True), "plane_fit_ref": dict(plane_fit="ref")}[option])
+
+
 def test_lidar_frame_step_at_1024_imu_makes_no_synchronising_call(cuda, monkeypatch):
     """The same at capacity.max_imu_per_group 1024: the scan's 8200-row
     pose table undistorted by one undistort launch in its global layout,
@@ -2963,7 +3183,7 @@ def test_lidar_frame_step_at_1024_imu_makes_no_synchronising_call(cuda, monkeypa
     no_sync_frame_step(cuda, monkeypatch, per_group=1024)
 
 
-def no_sync_frame_step(cuda, monkeypatch, per_group=None):
+def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
     from fastlivo_tpu_torch import frame_step, pipeline
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import lio_cascade
@@ -2977,7 +3197,7 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None):
         return real(*a, **kw)
 
     monkeypatch.setattr(pipeline, "lidar_frame_step", spy)
-    pipe = small_lio(cuda, per_group=per_group)
+    pipe = small_lio(cuda, per_group=per_group, **options)
     pipe.spin()
     assert len(calls) > 5
     if per_group is not None:

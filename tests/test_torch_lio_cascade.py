@@ -17,8 +17,8 @@ order (`fixed_order_sum`). Here, on seeded inputs (numpy):
     HᵀH₆ vec₆), the LIO thresholds) against `photometric_step_plain` fed
     -Hᵀz: bit-equal;
   - the dispatch: on the CPU `lio_update` never reaches the cascade; on a
-    CUDA device it would with the tiled map only, never with hash, dense,
-    `cache_knn`, `plane_fit: ref` or a mesh; the wrapper refuses CPU
+    CUDA device it would on every map and with every option (`cache_knn`,
+    `plane_fit: ref`), never with a mesh; the wrapper refuses CPU
     tensors.
 The cascade itself runs only on the card (tests/test_torch_cuda.py).
 """
@@ -144,8 +144,9 @@ def test_lio_step_is_the_photometric_step_fed_minus_HTz(case):
 
 
 def test_dispatch():
-    """The cascade runs on one CUDA device on any map with the TLS fit and
-    no cache, and nowhere else; its wrapper refuses CPU tensors."""
+    """The cascade runs on one CUDA device on any map, with either fit and
+    with or without the cache, and nowhere else; its wrapper refuses CPU
+    tensors."""
     world, scan, s = _scene()
     _, tiled = _maps("tiled", world)
     _, dense = _maps("dense", world)
@@ -156,8 +157,8 @@ def test_dispatch():
     for m in (dense, hashed):
         assert tlio.cascade_applies(m, cuda)
         assert not tlio.cascade_applies(m, cpu)
-    assert not tlio.cascade_applies(tiled, cuda, plane_fit="ref")
-    assert not tlio.cascade_applies(tiled, cuda, cache_knn=True)
+    assert tlio.cascade_applies(tiled, cuda, plane_fit="ref")
+    assert tlio.cascade_applies(tiled, cuda, cache_knn=True)
     assert not tlio.cascade_applies(tiled, cuda, mesh=object())
     st = convert.state_from_arrays(_arrays(s), "cpu")
     x = torch.cat([st.pos, st.vel, st.bg, st.ba, st.grav])

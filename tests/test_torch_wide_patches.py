@@ -230,11 +230,11 @@ def three_maps():
     ("tiled", "hash", "dense"), ("cuda", "cpu"), ("tls", "ref"), (False, True),
     (False, True))))
 def test_cascade_applies_truth_table(three_maps, kind, device, plane_fit, cache_knn, mesh):
-    """One lio_cascade launch on one CUDA device with no mesh, the TLS fit
-    and no cache_knn, on any of the three maps; the host loop everywhere
-    else."""
+    """One lio_cascade launch on one CUDA device with no mesh, on any of
+    the three maps, with either fit and with or without cache_knn; the
+    host loop everywhere else."""
     m = three_maps[kind]
-    want = device == "cuda" and plane_fit == "tls" and not cache_knn and not mesh
+    want = device == "cuda" and not mesh
     got = tlio.cascade_applies(m, torch.device(device), plane_fit, cache_knn,
                                object() if mesh else None)
     assert got == want
