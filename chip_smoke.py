@@ -86,7 +86,14 @@ paths' maps and timed there. The standalone `patches_and_grads` is held
 against its plain version but is not on the paths. The hash and dense
 maps' operations run on the card and on the CPU on the same seeded
 points and must agree in every array; `rebuild`
-is timed at the shipped table. Each path's trajectory is checked against
+is timed at the shipped table. Their writes are hand-written kernels on
+the card: the hash insert's two launches around a sort
+(`hash_insert_keys`, `hash_insert_probe`: every probe round in one
+launch), the dense grid's one (`dense_insert`) and the box delete of both
+(`flat_delete_boxes`), each launched once per insert or box set on the
+hash, dense and hash `BlockReplayer(8)` paths with no call of a plain
+version, and held against its plain version and timed on those paths'
+own maps, last batches and box sets. Each path's trajectory is checked against
 the per-frame path and the synthetic ground truth, and the port on the
 card against the port on the CPU on a small input. Both per-frame paths
 are profiled, and so is the unfused composition they replaced (the plain
@@ -127,7 +134,7 @@ F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
                 "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
                 "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
-                "tiled_insert", "undistort"]
+                "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -942,12 +949,26 @@ def need_cascade(label, launches, ekfs=None):
                              f"of {ekfs} EKFs and no knn5_plane_tiled")
 
 
+# the flat maps' write kernels (the hash map's and the dense grid's), by
+# their wrappers' names
+FLAT_KERNELS = ("hash_insert_keys", "hash_insert_probe", "dense_insert", "flat_delete_boxes")
+
+
+def flat_plain() -> list:
+    """(module, name) of the flat maps' plain write versions, which a map
+    on the card never runs."""
+    from fastlivo_tpu_torch.ops import dense_map, voxel_map
+
+    return [(voxel_map, n) for n in ("insert_keys_plain", "insert_probe_plain",
+                                     "delete_boxes_plain")] + [(dense_map, "insert_plain")]
+
+
 def counted_wrappers():
     """Every kernel wrapper of the port, each with its launch count."""
     from fastlivo_tpu_torch.ops import imu_scan, knn_plane, lio_cascade, patches_grads
     from fastlivo_tpu_torch import imu
     from fastlivo_tpu_torch.ops import photometric, tiled_map, vio_observations, vio_select
-    from fastlivo_tpu_torch.ops import voxel_filter
+    from fastlivo_tpu_torch.ops import dense_map, voxel_filter, voxel_map
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
             photometric.photometric_err_H, photometric.photometric_cascade,
@@ -955,7 +976,8 @@ def counted_wrappers():
             imu_scan.imu_propagate, lio_cascade.lio_cascade, vio_select.vio_select,
             vio_observations.vio_observations, tiled_map.delete_boxes,
             voxel_filter.voxel_centroids, tiled_map.insert_keys, tiled_map.insert_tiles,
-            imu.undistort)
+            imu.undistort, voxel_map.hash_insert_keys, voxel_map.hash_insert_probe,
+            dense_map.dense_insert, voxel_map.flat_delete_boxes)
 
 
 def reset_counts():
@@ -2366,7 +2388,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "vio_observations": vio.steps, "delete_boxes": len(boxes),
             "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": ins["n"],
             "insert_tiles": ins["n"],
-            "undistort": max(launches["undistort"], step["n"])}
+            "undistort": max(launches["undistort"], step["n"]), **dict.fromkeys(FLAT_KERNELS, 0)}
     if (launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps
             or not ins["n"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches}, want {want}, {lid_filt['n']} lidar and "
@@ -3514,11 +3536,19 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
     loop with the step kernel
     (check_lio_cascades: bit-equal, iterations equal); profile_every must
     leave the per-frame outputs unchanged in every bit; every ATE < 2 cm.
+    The hash, dense and hash-block paths write their maps through the flat
+    maps' kernels only: one hash_insert_keys and one hash_insert_probe
+    launch per hash insert, one dense_insert per dense insert, one
+    flat_delete_boxes per box set (the calls of the map module's `insert`
+    and `delete_boxes` counted), and no call of a plain version; the
+    tiled paths launch none of them.
     Checkpoints the hash and dense estimators. Returns ({path: (ms per
     frame, launches)}, {path: its other numbers}, {"hash": the hash path's
     pipeline, "dense": the dense path's}, {map: checkpoint numbers},
     {"hash", "dense", "cache_knn", "ref": that path's last lio_cascade
-    call's arguments})."""
+    call's arguments}, {"hash", "dense": {"map": a copy of the path's final
+    map, "insert": its last insert's (pts, valid[, max_probe]), "boxes":
+    its last box set (lo, hi), "inserts", "box_sets": their counts}})."""
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import lio_cascade as lc
     from fastlivo_tpu_torch.ops import tiled_map as tm
@@ -3532,7 +3562,7 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
             ("tiled plane_fit ref", lio_config(plane_fit="ref"), None, 0),
             ("tiled profile_every 8", lio_config(), None, 8),
             ("hash BlockReplayer(8)", lio_config(map_backend="hash"), BlockReplayer, 0)]
-    paths, extra, ckpts, pipes, last = {}, {}, {}, {}, {}
+    paths, extra, ckpts, pipes, last, flat_in = {}, {}, {}, {}, {}, {}
     t_max = ref[frames].t
     # tiled per-frame's steady frames over the same span, beside each path's
     ref_steady = float(np.median([1e3 * o.timing["total"] for o in ref[:frames + 1]
@@ -3549,10 +3579,31 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
         record = hashed or option is not None
         if record:
             reserve_snapshots(pipe.map, frames + 1)
-        with spy(mod, "knn_candidates", gathers), \
-                (recorded_lio(calls) if record else contextlib.nullcontext()):
+        writes, plain_calls = {"insert": {}, "delete_boxes": {}}, []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(spy(mod, "knn_candidates", gathers))
+            if record:
+                stack.enter_context(recorded_lio(calls))
+            for w, rec in writes.items():  # the map's writes: counted, the last recorded
+                stack.enter_context(recorded_calls(mod, rec, name=w))
+            for pm, pname in flat_plain():  # never reached on the card
+                stack.enter_context(spy(pm, pname, plain_calls))
             outs, launches, wall = counted_run(
                 (lambda: rep(pipe, 8).run()) if rep else pipe.spin)
+        n_ins, n_del = writes["insert"].get("n", 0), writes["delete_boxes"].get("n", 0)
+        flat = {k: launches[k] for k in FLAT_KERNELS}
+        want_flat = {k: 0 for k in FLAT_KERNELS}
+        if hashed:
+            want_flat["flat_delete_boxes"] = n_del
+            for k in (("hash_insert_keys", "hash_insert_probe") if cap.map_backend == "hash"
+                      else ("dense_insert",)):
+                want_flat[k] = n_ins
+        print(f"{name}: map writes {n_ins} inserts, {n_del} box sets; launches {flat} "
+              f"(want {want_flat}); plain versions called {len(plain_calls)} times")
+        if flat != want_flat or plain_calls or (hashed and not (n_ins and n_del)):
+            raise AssertionError(f"{name}: map write launches {flat}, want {want_flat} for "
+                                 f"{n_ins} inserts and {n_del} box sets; {len(plain_calls)} "
+                                 f"plain calls")
         by_map = dict(lc.lio_cascade.by_map)
         by_route = {"map": by_map, "search": dict(lc.lio_cascade.by_search),
                     "fit": dict(lc.lio_cascade.by_fit)}
@@ -3604,10 +3655,14 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
         if every:
             extra[name]["last_stage_profile_ms"] = pipe.last_stage_profile
         if name in ("hash", "dense"):
+            (_, ipts, ivalid, *probe), _ = writes["insert"]["last"]
+            (_, lo, hi), _ = writes["delete_boxes"]["last"]
+            flat_in[name] = {"map": clone_map(pipe.map), "insert": (ipts, ivalid, *probe),
+                             "boxes": (lo, hi), "inserts": n_ins, "box_sets": n_del}
             ckpts[name] = checkpoint_roundtrip(pipe, dev, f"lio {name}")
             pipes[name] = pipe
         del pipe
-    return paths, extra, pipes, ckpts, last
+    return paths, extra, pipes, ckpts, last, flat_in
 
 
 def colliding_voxels(T: int):
@@ -3622,14 +3677,18 @@ def colliding_voxels(T: int):
     return k[order[[i, i + 1]]]
 
 
-def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
+def map_ops_phase(dev, flat_in, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
     """The hash map (T slots) and the dense grid (`dims`, aliasing: it
     spans 32 x 32 x 8 m, the points 40 m) built from seeded random points
     on the card and on the CPU: three inserts (the first with two voxels
     that claim one slot in the same round), knn_candidates at radius 1
     and 2, delete_boxes and the hash map's rebuild; every array on the
-    card must equal the CPU's. Then times rebuild at a T_full table 75%
-    full. Returns (rebuild ms, its occupancy)."""
+    card must equal the CPU's, each write through its kernels (launches
+    counted). Then flat_map_kernels on the hash and dense paths' own maps
+    and last batches (`flat_in`, from backend_paths_phase), and rebuild at
+    a T_full table 75% full, beside rebuild_plain on the card. These
+    launches are not the paths'. Returns ({kernel: numbers}, rebuild
+    numbers)."""
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
@@ -3643,6 +3702,8 @@ def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
     q[:2] = pts[:2]
     lo, hi = np.float32([[-20, 0, -20]]), np.float32([[20, 20, 20]])
     res = {}
+    counts = read_counts()
+    reset_counts()
     for d in (dev, "cpu"):
         t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
         # host copies: the maps are updated in place, and .cpu() of a CPU
@@ -3663,6 +3724,8 @@ def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
             if mod is vm:
                 got.append(snap(vm.rebuild(m)))
         res[str(d)] = got
+        if d is dev:  # the card's launches
+            launched = {k: v for k, v in read_counts().items() if k in FLAT_KERNELS}
     card, cpu = res[str(dev)], res["cpu"]
     differ = [i for i, (x, y) in enumerate(zip(card, cpu))
               if not all(torch.equal(a, b) for a, b in zip(x, y))]
@@ -3670,9 +3733,13 @@ def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
     print(f"map ops, hash 2^{T.bit_length() - 1} slots ({int(cpu[2][2])} occupied) and dense "
           f"{dims} ({int(cpu[9][2])} occupied) from {n} seeded points: insert x3 (with a "
           f"duplicate claim), knn_candidates r=1,2, delete_boxes, rebuild: card equals CPU "
-          f"in every array: {same}")
-    if not same:
-        raise AssertionError(f"map ops on the card differ from the CPU at steps {differ}")
+          f"in every array: {same}; launches {launched}")
+    want = {"hash_insert_keys": 4, "hash_insert_probe": 4, "dense_insert": 3,
+            "flat_delete_boxes": 2}
+    if not same or launched != want:
+        raise AssertionError(f"map ops on the card differ from the CPU at steps {differ}, "
+                             f"launches {launched} (want {want})")
+    kernels = flat_map_kernels(flat_in)
 
     # rebuild at the shipped table, 75% full of distinct voxels (a block
     # of 128 x 128 x k voxels)
@@ -3683,11 +3750,223 @@ def map_ops_phase(dev, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 << 20):
                   torch.ones(n_full, dtype=torch.bool, device=dev), 32)
     occ = int(m.count) / T_full
     rb_ms = event_ms(lambda: vm.rebuild(m))
-    kept = int(vm.rebuild(m).count)
+    rb_plain_ms = event_ms(lambda: vm.rebuild_plain(m), reps=3)
+    kept, kept_plain = vm.rebuild(m), vm.rebuild_plain(m)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kept, kept_plain)):
+        raise AssertionError("rebuild on the card differs from rebuild_plain")
     print(f"rebuild: 2^{T_full.bit_length() - 1} slots at {100 * occ:.2f}% occupancy "
-          f"({n_full} voxels inserted at probe depth 32, {kept} kept by the rebuild), "
-          f"{rb_ms:.3f} ms per call alone (CUDA events); {nvidia_smi_line()}")
-    return rb_ms, occ
+          f"({n_full} voxels inserted at probe depth 32, {int(kept.count)} kept by the "
+          f"rebuild, every array equal to rebuild_plain's), {rb_ms:.3f} ms per call alone "
+          f"(CUDA events; rebuild_plain {rb_plain_ms:.3f} ms, {vm.hash_insert_probe.grid} "
+          f"blocks); {nvidia_smi_line()}")
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    return kernels, {"ms": rb_ms, "plain_ms": rb_plain_ms, "occupancy": occ}
+
+
+PROBE_ROW_OPS = 10  # a sorted row: its order entry, the head test, the state
+PROBE_OPS = 20  # a probe: the slot, the check compare, the ticket; a mine's distance
+FLAT_KEY_OPS = 60  # a row: 3 divisions, floors, casts, the centre and distance, the mix
+FLAT_CENTRE_OPS = 15  # an occupied slot: 3 divisions, floors, casts, adds, multiplies
+FLAT_TEST_OPS = 6  # an occupied slot against a box: two compares an axis
+
+
+def bound(byts, ops):
+    """(least ms, "bytes" | "operations") for the bytes over HBM bandwidth
+    and the operations over the f32 rate (integer operations run no
+    faster)."""
+    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def hash_probe_work(m, pts, valid, rows, order, max_probe):
+    """What one probe launch on these inputs needs, from insert_probe_plain's
+    rounds replayed on a copy of the checks: {"rows", "heads", "rounds"
+    (rounds with a live head), "probes" (slot reads), "mine" (stored points
+    read), "claims" (slots claimed), "written" (slots whose point
+    changed)}."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    T = m.check.shape[0]
+    keys_s = rows[:3].T[order]
+    same = torch.all(keys_s == torch.roll(keys_s, 1, dims=0), dim=-1)
+    same[:1] = False
+    done = ~(valid[order] & ~same)
+    heads = int((~done).sum())
+    slot = rows[3][order].to(torch.int64)
+    chk = rows[4][order]
+    tc = torch.cat([m.check, m.check.new_full((1,), vm.EMPTY_CHECK)])
+    probes = mine = rounds = 0
+    for _ in range(max_probe):
+        live = ~done
+        n_live = int(live.sum())
+        if not n_live:
+            break
+        rounds += 1
+        probes += n_live
+        cur = tc[slot]
+        is_mine = (cur == chk) & live
+        claim = (cur == vm.EMPTY_CHECK) & live
+        mine += int(is_mine.sum())
+        tc[torch.where(vm._last_wins(slot, claim, T), slot, T)] = chk
+        done = done | is_mine | (claim & (tc[slot] == chk))
+        slot = (slot + 1) & (T - 1)
+    after = clone_map(m)
+    vm.insert_probe_plain(after, pts, valid, rows, order, max_probe)
+    claims = int(((m.check == vm.EMPTY_CHECK) & (after.check != vm.EMPTY_CHECK)).sum())
+    written = int((after.pts != m.pts).any(dim=1).sum())
+    return {"rows": int(order.shape[0]), "heads": heads, "rounds": rounds, "probes": probes,
+            "mine": mine, "claims": claims, "written": written}
+
+
+def flat_bounds(m, pts, valid, boxes=None, work=None):
+    """{kernel: (bound ms, "bytes" | "operations", bytes, ops)}.
+    hash_insert_keys: each row's point and mask read (13 B), its six row
+    values and two sort keys written (40 B); ~60 operations a row.
+    hash_insert_probe (`work` from hash_probe_work): a sorted row's order
+    entry, voxel, slot, check, distance and mask (33 B) and a head's point
+    (12 B); a probe's check (4 B), a stored point read (12 B), a claimed
+    check (4 B) and a written point (12 B); ~10 operations a row and 20 a
+    probe. dense_insert (`work`: {"rows", "winners", "written"}): each
+    row's point and mask (13 B), a winner's cell check and point (16 B), a
+    written cell (16 B); ~60 operations a valid row. flat_delete_boxes
+    (`boxes` (lo, hi), `work`: {"occupied", "killed"}): every slot's check
+    (4 B), an occupied slot's point (12 B), a killed check (4 B), the
+    boxes; 15 operations an occupied slot and 6 a box."""
+    B = pts.shape[0]
+    out = {}
+    if boxes is not None:
+        nb = boxes[0].shape[0]
+        T = m.check.shape[0]
+        byts = 4 * T + 12 * work["occupied"] + 4 * work["killed"] + 24 * nb + 12
+        ops = (FLAT_CENTRE_OPS + FLAT_TEST_OPS * nb) * work["occupied"]
+        return {"flat_delete_boxes": (*bound(byts, ops), byts, ops)}
+    if "probes" in work:
+        out["hash_insert_keys"] = (*bound(53 * B, FLAT_KEY_OPS * B), 53 * B, FLAT_KEY_OPS * B)
+        byts = (33 * B + 12 * work["heads"] + 4 * work["probes"] + 12 * work["mine"]
+                + 4 * work["claims"] + 12 * work["written"] + 8)
+        ops = PROBE_ROW_OPS * B + PROBE_OPS * work["probes"]
+        out["hash_insert_probe"] = (*bound(byts, ops), byts, ops)
+    else:
+        nv = int(valid.sum())
+        byts = 13 * B + 16 * work["winners"] + 16 * work["written"] + 8
+        out["dense_insert"] = (*bound(byts, FLAT_KEY_OPS * nv), byts, FLAT_KEY_OPS * nv)
+    return out
+
+
+def flat_map_kernels(flat_in):
+    """The flat maps' write kernels on the hash and dense paths' own maps
+    and last batches and box sets: each launch bit-equal to its plain
+    version on the card and on the CPU (the whole insert and the box
+    delete compared on copies of the map, every array), then timed (CUDA
+    events, the calls queued ahead of the device: time_ms) beside its plain
+    version on the card (event_ms) and its bound, the batch re-inserted
+    into its map at every call (its voxels stored, few rows nearer) and
+    the box set deleted again (the first call's slots killed, the rest
+    read). No library call computes them. Returns {kernel: numbers}."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    smi = nvidia_smi_line()
+    res = {}
+    for name, mod in (("hash", vm), ("dense", dm)):
+        m = flat_in[name]["map"]
+        pts, valid, *probe = flat_in[name]["insert"]
+        probe = probe[0] if probe else 12
+        lo, hi = flat_in[name]["boxes"]
+        # the whole insert and the box delete: kernel, plain on the card, CPU
+        plain_ins = vm.insert_plain if mod is vm else dm.insert_plain
+        for what, kern, plain in (
+                ("insert", lambda x: mod.insert(x, pts, valid, probe),
+                 lambda x: plain_ins(x, *(to_cpu(t) if x.check.device.type == "cpu" else t
+                                          for t in (pts, valid)), probe)),
+                ("delete_boxes", lambda x: mod.delete_boxes(x, lo, hi),
+                 lambda x: vm.delete_boxes_plain(x, *(to_cpu(t) if x.check.device.type == "cpu"
+                                                      else t for t in (lo, hi))))):
+            got, want, cpu = kern(clone_map(m)), plain(clone_map(m)), plain(to_cpu(m))
+            torch.cuda.synchronize()
+            if not (all(bits_diff(a, b) == 0.0 for a, b in zip(got, want))
+                    and all(bits_diff(a.cpu(), b) == 0.0 for a, b in zip(got, cpu))):
+                raise AssertionError(f"the {name} map's {what} on the card differs from its "
+                                     f"plain version on the card or on the CPU")
+        occupied = int((m.check != vm.EMPTY_CHECK).sum())
+        killed = occupied - int((vm.delete_boxes_plain(clone_map(m), lo, hi).check
+                                 != vm.EMPTY_CHECK).sum())
+        mt, mq = clone_map(m), clone_map(m)
+        d_ms = time_ms(lambda: vm.flat_delete_boxes(mt, lo, hi))
+        d_plain = event_ms(lambda: vm.delete_boxes_plain(mq, lo, hi), reps=30)
+        b, by, byts, ops = flat_bounds(m, pts, valid, (lo, hi),
+                                       {"occupied": occupied, "killed": killed})[
+            "flat_delete_boxes"]
+        res[f"flat_delete_boxes {name}"] = {
+            "ms": d_ms, "plain_ms": d_plain, "bound_ms": b, "bound_by": by, "bytes": byts,
+            "ops": ops, "grid": vm.flat_delete_boxes.grid, "slots": int(m.check.shape[0]),
+            "occupied": occupied, "boxes": int(lo.shape[0]), "killed": killed,
+            "box_sets_on_path": flat_in[name]["box_sets"]}
+        print(f"flat_delete_boxes on the {name} path's map ({m.check.shape[0]} slots, "
+              f"{occupied} occupied) with its last {lo.shape[0]} boxes ({killed} killed by "
+              f"the first call): kernel {d_ms:.4f} ms ({vm.flat_delete_boxes.grid} blocks), "
+              f"plain {d_plain:.4f} ms, bound {b:.5f} ms ({by}: {byts} bytes, {ops} "
+              f"operations), library none; {smi}")
+        mt, mq = clone_map(m), clone_map(m)
+        if mod is vm:
+            rows, skeys = vm.insert_keys_plain(m, pts, valid)
+            order = vm.sort_order(skeys)
+            r2, s2 = vm.hash_insert_keys(m, pts, valid)
+            mk, mp = clone_map(m), clone_map(m)
+            ck = vm.hash_insert_probe(mk, pts, valid, rows, order, probe)
+            cp = vm.insert_probe_plain(mp, pts, valid, rows, order, probe)
+            torch.cuda.synchronize()
+            if not (torch.equal(r2, rows) and torch.equal(s2, skeys) and torch.equal(ck, cp)
+                    and all(torch.equal(a, b) for a, b in zip(mk, mp))):
+                raise AssertionError("a hash insert launch differs from its plain pass")
+            work = hash_probe_work(m, pts, valid, rows, order, probe)
+            bounds = flat_bounds(m, pts, valid, work=work)
+            timed = {"hash_insert_keys": (lambda: vm.hash_insert_keys(mt, pts, valid),
+                                          lambda: vm.insert_keys_plain(mq, pts, valid)),
+                     "hash_insert_probe": (
+                         lambda: vm.hash_insert_probe(mt, pts, valid, rows, order, probe),
+                         lambda: vm.insert_probe_plain(mq, pts, valid, rows, order, probe))}
+        else:
+            before = clone_map(m)
+            after = dm.insert_plain(clone_map(m), pts, valid)
+            cells = (after.check != before.check) | (after.pts != before.pts).any(dim=1)
+            keys = vm.voxel_of(pts, m.voxel_size)
+            cell = dm._cell_check(m, keys)[0]
+            winners = int(torch.unique(cell[valid]).numel())
+            work = {"rows": int(pts.shape[0]), "winners": winners,
+                    "written": int(cells.sum())}
+            bounds = flat_bounds(m, pts, valid, work=work)
+            timed = {"dense_insert": (lambda: dm.dense_insert(mt, pts, valid),
+                                      lambda: dm.insert_plain(mq, pts, valid))}
+        for kname, (kern, plain) in timed.items():
+            ms = time_ms(kern)
+            grid = getattr(getattr(vm if kname.startswith("hash") else dm, kname), "grid", None)
+            plain_ms = event_ms(plain, reps=30)
+            b, by, byts, ops = bounds[kname]
+            res[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                          "bytes": byts, "ops": ops, "grid": grid,
+                          "inserts_on_path": flat_in[name]["inserts"], **work,
+                          **({"max_probe": probe} if mod is vm else {})}
+            blocks = f" ({grid} blocks)" if grid else ""
+            print(f"{kname} on the {name} path's last batch, re-inserted into its map "
+                  f"({work}): kernel {ms:.4f} ms{blocks}, plain {plain_ms:.4f} ms, "
+                  f"bound {b:.5f} ms ({by}: {byts} bytes, {ops} operations), library none; "
+                  f"{smi}")
+        whole = time_ms(lambda: mod.insert(mt, pts, valid, probe))
+        whole_plain = event_ms(lambda: plain_ins(mq, pts, valid, probe), reps=30)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            mod.insert(mt, pts, valid, probe)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        first = "hash_insert_keys" if mod is vm else "dense_insert"
+        res[first].update(insert_ms=whole, insert_plain_ms=whole_plain, insert_host_ms=host_ms)
+        print(f"the whole {name} insert: {whole:.4f} ms on the card, {mod.__name__}."
+              f"insert_plain {whole_plain:.4f} ms; host {host_ms:.4f} ms a call; {smi}")
+        del mt, mq
+    return res
 
 
 MIX_OPS = 29  # hash_mix.cuh's mix3: three murmur finalizers (8 each) and the chain (5)
@@ -4693,7 +4972,7 @@ def main() -> int:
     paths = {"lio per-frame": (lio_ms, lio_launches)}
     lio_extra = {"lio per-frame": {"lio_cascades": lio_nums}}
     with phase("backends (a)-(f)"):
-        backend_paths, path_extra, backend_pipes, backend_ckpts, backend_last = \
+        backend_paths, path_extra, backend_pipes, backend_ckpts, backend_last, flat_in = \
             backend_paths_phase(dev, lio_ds, lio_outs, lio_ms)
         paths.update(backend_paths)
         path_extra.update(lio_extra)
@@ -4708,7 +4987,8 @@ def main() -> int:
         del backend_pipes
         torch.cuda.empty_cache()
     with phase("map ops"):
-        rebuild_ms, rebuild_occ = map_ops_phase(dev)
+        flat_res, rebuild = map_ops_phase(dev, flat_in)
+        del flat_in
         torch.cuda.empty_cache()
     # the slice's other paths on the same LIO dataset: block replay,
     # serving with autosave and warm restart, bag replay
@@ -4856,7 +5136,7 @@ def main() -> int:
             "launches": v[-1], **path_extra.get(k, {})} for k, v in paths.items()},
         "livo_checkpoint": dict(zip(ck_keys, livo_ckpt)),
         **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
-        "hash_rebuild": {"ms": rebuild_ms, "occupancy": rebuild_occ},
+        "hash_rebuild": rebuild,
         "card_vs_cpu_small_lio": agreement,
         "profile": {"lio": dict(zip(("unfused", "fused"), lio_prof)),
                     "livo": dict(zip(("unfused", "fused"), livo_prof))},
@@ -5029,7 +5309,30 @@ def main() -> int:
          "cummax, cell writes; jitted XLA; no Pallas kernel; here the cells pass inside "
          "tiled_insert_tiles' launch)"),
         ("undistort", "undistort", "undistort",
-         "fastlivo_tpu/imu.py:354-398 (undistort, jitted XLA; no Pallas kernel)"))]]}))
+         "fastlivo_tpu/imu.py:354-398 (undistort, jitted XLA; no Pallas kernel)"))], *[{
+        "name": name, "route": "cuda",
+        "source": f"fastlivo_tpu_torch/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": backend_paths[path][1][name], "path": path, "max_abs_err": 0.0,
+        **{k: flat_res[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{k: v for k, v in flat_res[key].items() if k not in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        **({"dense": flat_res["flat_delete_boxes dense"]} if name == "flat_delete_boxes"
+           else {}),
+        "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
+    } for name, key, path, source, replaces in (
+        ("hash_insert_keys", "hash_insert_keys", "hash", "hash_insert",
+         "fastlivo_tpu/ops/voxel_map.py:146-157 (insert up to its lexsort: voxel, slot, "
+         "check, distance; jitted XLA; no Pallas kernel)"),
+        ("hash_insert_probe", "hash_insert_probe", "hash", "hash_insert",
+         "fastlivo_tpu/ops/voxel_map.py:158-189 (insert after its lexsort: the run heads "
+         "and the probe rounds; jitted XLA; no Pallas kernel)"),
+        ("dense_insert", "dense_insert", "dense", "dense_insert",
+         "fastlivo_tpu/ops/dense_map.py:70-114 (insert, jitted XLA; no Pallas kernel)"),
+        ("flat_delete_boxes", "flat_delete_boxes hash", "hash", "flat_delete_boxes",
+         "fastlivo_tpu/ops/voxel_map.py:268-286 and fastlivo_tpu/ops/dense_map.py:141-157 "
+         "(delete_boxes, jitted XLA; no Pallas kernel)"))]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -33,8 +33,8 @@ import torch
 from ..device import resolve_device
 from .photometric import _require, _ticket
 from .voxel_map import (
-    EMPTY_CHECK, _check31, _mix64_np, neighbor_offsets, topk_from_candidates,
-    voxel_of,
+    EMPTY_CHECK, _check31, _mix64_np, _raise_on, _sm_count, _stream, neighbor_offsets,
+    topk_from_candidates, voxel_of,
 )
 
 TS = 8  # tile side (voxels); tile = TS^3 = 512 cells
@@ -345,15 +345,6 @@ def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, 
     return dev, B, T
 
 
-def _raise_on(where: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{where}: kernel launch failed (cudaError {err})")
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def insert_keys(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
     """`insert_keys_plain`'s signature and outputs: on a CUDA map one
     launch of tiled_insert_keys (counted in `insert_keys.launches`; none
@@ -489,11 +480,6 @@ def _delete_launcher():
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return _build.profiled("tiled_delete_boxes", fn)
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def delete_boxes(m: TiledMap, boxes_lo: torch.Tensor,

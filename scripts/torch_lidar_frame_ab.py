@@ -46,7 +46,9 @@ each variant then runs once more under torch.profiler: a second dataset
 ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
 frame or lidar + camera pair, the device-busy share of the window and the
 map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
-launches, undistort): launches per frame and device us a launch.
+launches, undistort; on hash and dense hash_insert_keys,
+hash_insert_probe, dense_insert and flat_delete_boxes): launches per
+frame and device us a launch.
 With --kernel-rounds N, each tree then times, N times in turns, its own
 wrappers on the LIO path's recorded calls (chip_smoke.time_ms, device
 time between CUDA events with the calls queued ahead of the device): what
@@ -58,16 +60,19 @@ its own for each call), the stable sort of the last batch's key at 64
 bits (the JAX package's packing) and at 32 bits, in turns, the whole
 insert, the last frame step's undistortion and the
 last scan's voxel centroid. With --stamps, a tree whose
-csrc/undistort.cu or csrc/tiled_insert.cu stamps its phases
-(csrc/phase_stamps.cuh) builds each again with -DPHASE_STAMPS and
+csrc/undistort.cu, csrc/tiled_insert.cu or csrc/hash_insert.cu stamps its
+phases (csrc/phase_stamps.cuh) builds each again with -DPHASE_STAMPS and
 launches it alone, synchronised, 30 times: undistort on that scan (the
 median of each phase: staging the offsets and the frame's constants, the
 search, the rest; and the whole launch), the insert's second launch on
 the last batch re-inserted into the final map (the median time from the
 first block's start to the last block past each boundary: marked, the
 ranking past its wait and its look-back, ranked, the cells gathered,
-past their wait, their runs walked, written, the end); the %globaltimer ticks by 0.512 us
-on the H100.
+past their wait, their runs walked, written, the end), and the hash
+insert's probe launch on the hash path's last batch re-inserted into
+its map (each phase summed over the rounds: the heads, the slot reads,
+the first barrier, the writes, the second barrier, the end; and the
+rounds); the %globaltimer ticks by 0.512 us on the H100.
 Prints one line per run, then one JSON line with every run and the card's
 `nvidia-smi` name and power limit.
 """
@@ -83,7 +88,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel",
                      "tiled_insert_keys_kernel", "tiled_insert_tiles_kernel",
-                     "tiled_insert_cells_kernel", "undistort_kernel")
+                     "tiled_insert_cells_kernel", "undistort_kernel",
+                     "hash_insert_keys_kernel", "hash_insert_probe_kernel",
+                     "dense_insert_kernel", "flat_delete_boxes_kernel")
 # lidar only: tiled, hash and dense maps, tiled with cache_knn, with plane_fit ref
 LIDAR_PATHS = ("lio", "hash", "dense", "cache_knn", "ref")
 ARMS = ("as shipped", "host loop, step kernel", "host loop, torch step", "plain selection",
@@ -363,12 +370,64 @@ class Worker:
         st, _m, pose, calib, pts_raw, t_rel, rmask = rec["step"][:7]
         return st, pose, pts_raw, t_rel, rmask, calib
 
-    # the stamped kernels: {library: (phase names, boundary 1 .. n each ends)}
+    def record_hash(self):
+        """The hash path's last insert (its tensors copied on the card) and
+        final map (once a worker)."""
+        if getattr(self, "recorded_hash", None) is not None:
+            return self.recorded_hash
+        torch, cs = self.torch, self.cs
+        from fastlivo_tpu_torch.ops import voxel_map
+
+        rec = {}
+        real = voxel_map.insert
+
+        def keep(*a, **kw):
+            rec["insert"] = [v.clone() if isinstance(v, torch.Tensor) else v for v in a]
+            return real(*a, **kw)
+
+        pipe = self.pipeline("hash")
+        cs.push_all(pipe, self.data["hash"])
+        with cs.swapped(voxel_map, "insert", keep):
+            pipe.spin()
+        torch.cuda.synchronize()
+        rec["map"] = pipe.map
+        self.recorded_hash = rec
+        return rec
+
+    # the stamped kernels: {library: (phase names, boundary 1 .. n each ends)};
+    # hash_insert's probe launch stamps its rounds (phase_stamps.cuh's
+    # iteration slots): its phases are summed over the rounds
     STAMPED = {
         "undistort": ("staged", "searched", "rest"),
         "tiled_insert": ("marked", "ranking past its wait", "ranking past its look-back",
                          "ranked", "cells gathered", "cells past their wait",
-                         "cells walked", "cells written", "end")}
+                         "cells walked", "cells written", "end"),
+        "hash_insert": ("heads", "reads", "first barrier", "writes", "second barrier", "end")}
+    IT_BASE, IT_NPH, IT_MAX = 16, 8, 64  # phase_stamps.cuh's iteration slots
+
+    def hash_round_ms(self, t):
+        """hash_insert_probe's stamps t (ns) -> {phase: ms} summed over the
+        rounds, "rounds" and "total"; each boundary the last block's
+        crossing."""
+        base, nph = self.IT_BASE, self.IT_NPH
+        out = dict.fromkeys(self.STAMPED["hash_insert"], 0.0)
+        out["heads"] = (t[1] - t[0]) / 1e6
+        prev, rounds = t[1], 0
+        for r in range(self.IT_MAX):
+            s = t[base + r * nph: base + r * nph + 4]
+            if not s[0]:
+                break
+            rounds += 1
+            out["reads"] += (s[0] - prev) / 1e6
+            out["first barrier"] += (s[1] - s[0]) / 1e6
+            prev = s[1]
+            if s[2]:
+                out["writes"] += (s[2] - s[1]) / 1e6
+                out["second barrier"] += (s[3] - s[2]) / 1e6
+                prev = s[3]
+        out["end"] = (t[2] - prev) / 1e6
+        out.update(rounds=rounds, total=(t[2] - t[0]) / 1e6)
+        return out
 
     def stamps(self, tree: str, reps: int = 30):
         """Each stamped kernel (STAMPED) built with -DPHASE_STAMPS and
@@ -400,9 +459,20 @@ class Worker:
         out = {}
         for name, phases in self.STAMPED.items():
             src = _build.CSRC / f"{name}.cu"
-            if f"PHASE_STAMPS_EXPORT({name})" not in src.read_text():
+            if not src.exists() or f"PHASE_STAMPS_EXPORT({name})" not in src.read_text():
                 out[name] = None
                 continue
+            if name == "hash_insert":  # the hash path's last batch into its map
+                from fastlivo_tpu_torch.ops import voxel_map as vm
+
+                hrec = self.record_hash()
+                hm = type(hrec["map"])(*(t.clone() for t in hrec["map"]))
+                _, hp, hv, *probe = hrec["insert"]
+                probe = probe[0] if probe else 12
+                hrows, hkeys = vm.insert_keys_plain(hm, hp, hv)
+                horder = vm.sort_order(hkeys)
+                calls[name] = (lambda: vm.hash_insert_probe(hm, hp, hv, hrows, horder, probe),
+                               vm._insert_launchers)
             lib_path = _build.BUILD_DIR / "stamps" / f"lib{name}-stamped.so"
             lib_path.parent.mkdir(parents=True, exist_ok=True)
             res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DPHASE_STAMPS", "-o",
@@ -413,7 +483,8 @@ class Worker:
             read = getattr(lib, f"{name}_stamps")
             read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
             read.restype = ctypes.c_int
-            n = len(phases) + 1
+            n = (self.IT_BASE + self.IT_MAX * self.IT_NPH if name == "hash_insert"
+                 else len(phases) + 1)
             buf = (ctypes.c_ulonglong * n)()
             call, launchers = calls[name]
             shipped = _build._loaded.get(name)
@@ -428,7 +499,9 @@ class Worker:
                     if read(buf, n):
                         raise RuntimeError(f"{name}: reading the stamps failed")
                     t = [int(x) for x in buf]
-                    if name == "undistort":
+                    if name == "hash_insert":
+                        rows_ms.append(self.hash_round_ms(t))
+                    elif name == "undistort":
                         ms = [(t[k] - t[k - 1]) / 1e6 for k in range(1, n)] + [
                             (t[-1] - t[0]) / 1e6]
                         rows_ms.append(dict(zip(phases + ("total",), ms)))

@@ -2090,7 +2090,9 @@ def launch_guarded(launch, inputs, outputs):
                                     "undistort_8200", "lio_cascade_hash", "lio_cascade_dense",
                                     "vio_select_p24", "vio_select_p64", "photometric_err_H_p24",
                                     "photometric_err_H_p96", "patches_and_grads_p96",
-                                    "lio_cascade_cached_tls", "lio_cascade_cached_ref"])
+                                    "lio_cascade_cached_tls", "lio_cascade_cached_ref",
+                                    "hash_insert_keys", "hash_insert_probe", "dense_insert",
+                                    "flat_delete_boxes", "flat_delete_boxes_dense"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -2125,7 +2127,11 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     vio_select at patch size 24 (the wide tree, its cells in shared
     memory) and 64 (in the launch's device scratch, an output here);
     photometric_err_H at 24 and at 96 (the taps read in place), and
-    patches_and_grads at 96."""
+    patches_and_grads at 96. The flat maps' writes at 16379 rows: the hash
+    insert's keys and probe launches (the table, the count and the round
+    state its outputs, the tickets and round counts back at 0), the
+    dense insert (the per-cell minimum back at 0) and the box delete of
+    both with 300 boxes (its count words back at 0)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -2143,6 +2149,9 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         return map_stage_write_only(cuda, kernel)
     if kernel.startswith("tiled_insert") or kernel.startswith("undistort"):
         return frame_kernel_write_only(cuda, kernel)
+    if kernel.startswith("hash_insert") or kernel.startswith("dense") or kernel.startswith(
+            "flat"):
+        return flat_write_only(cuda, kernel)
 
     ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
     stream = torch.cuda.current_stream(cuda).cuda_stream
@@ -3208,7 +3217,7 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
     counts = lambda: (vf.voxel_centroids.launches, lio_cascade.lio_cascade.launches,  # noqa
                       knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches,
                       tm.insert_keys.launches, tm.insert_tiles.launches,
-                      imu_mod.undistort.launches)
+                      imu_mod.undistort.launches, *flat_launches().values())
     n0 = counts()
     m = clone_map(a[1])
     torch.cuda.synchronize()
@@ -3217,7 +3226,12 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
         got = frame_step.lidar_frame_step(*(a[:1] + (m,) + a[2:]), **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + 1, n0[5] + 1, n0[6] + 1)
+    # the insert's launches: tiled keys and tiles, hash keys and probe, dense
+    inserts = {"tiled": (1, 1, 0, 0, 0), "hash": (0, 0, 1, 1, 0),
+               "dense": (0, 0, 0, 0, 1)}[options.get("backend", "tiled")]
+    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + inserts[0],
+                        n0[5] + inserts[1], n0[6] + 1, n0[7] + inserts[2],
+                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10])
     assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
     for g, w in zip(got[2:], want[2:]):
         assert bit_equal(g, w)
@@ -3822,5 +3836,342 @@ def camera_write_only(dev, kernel):
         got = [out[:42], out[42], out[43], out[44], perr]
         want = [part[:42], err, part[43], part[42],
                 photometric_call(photometric.photometric_err_H_plain, x, level, P, robust)[3]]
+    for g, w in zip(got, want):
+        assert bit_equal(g, w)
+
+
+# --- the flat maps' writes: hash_insert, dense_insert, flat_delete_boxes ----
+
+FLAT_PLAIN = {"voxel_map": ("insert_keys_plain", "insert_probe_plain", "delete_boxes_plain"),
+              "dense_map": ("insert_plain",)}
+
+
+@contextlib.contextmanager
+def plain_unreached(monkeypatch):
+    """The flat maps' plain versions replaced by functions that raise: a
+    call inside the context must reach only the kernels."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    def refuse(name):
+        def f(*a, **kw):
+            raise AssertionError(f"{name} reached on the card")
+        return f
+
+    with monkeypatch.context() as mp:
+        for mod in (vm, dm):
+            for name in FLAT_PLAIN[mod.__name__.split(".")[-1]]:
+                mp.setattr(mod, name, refuse(name))
+        yield
+
+
+def flat_launches():
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    return {f.__name__: f.launches for f in (vm.hash_insert_keys, vm.hash_insert_probe,
+                                             dm.dense_insert, vm.flat_delete_boxes)}
+
+
+def launched_since(before) -> dict:
+    return {k: v - before[k] for k, v in flat_launches().items()}
+
+
+def flat_batch(rng, n, span=12.0):
+    """Points on a bumpy surface (negative voxel coordinates), a tenth of
+    them near-duplicates of others and 5% invalid."""
+    p = np.stack([rng.uniform(-span, span, n), rng.uniform(-span, span, n),
+                  np.abs(np.sin(0.2 * rng.uniform(-span, span, n))) * 2 - 1], 1)
+    p[: n // 10] = p[n // 10: 2 * (n // 10)] + rng.normal(0, 0.05, (n // 10, 3))
+    return p.astype(np.float32), rng.random(n) > 0.05
+
+
+def colliding_checks(n_pairs=2):
+    """Pairs of voxels of a seeded grid with one 31-bit check (one probe
+    slot in any table of up to 2^18 slots)."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    g = np.stack(np.meshgrid(*[np.arange(-40, 40)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    g = np.random.default_rng(3).permutation(g)
+    chk = (vm._mix64_np(g.astype(np.int32)) & np.uint32(0x7FFFFFFF)).astype(np.int64)
+    order = np.argsort(chk, kind="stable")
+    dup = np.nonzero(chk[order][1:] == chk[order][:-1])[0]
+    return [g[order[[i, i + 1]]] for i in dup[:n_pairs]]
+
+
+def hash_stream(case):
+    """(T, [(pts, valid, max_probe) | ("boxes", lo, hi) | ("rebuild",)])
+    of a hash map case, made from a seed."""
+    rng = np.random.default_rng(len(case))
+    if case == "stream":  # inserts, a delete with an inert box, holes, rebuild
+        T, steps = 1 << 12, [(*flat_batch(rng, 3000), 12) for _ in range(3)]
+        steps.append(("boxes", np.float32([[-12, -12, -5], [2, -3, -5], [1, 1, 1]]),
+                      np.float32([[-2, 12, 5], [12, 3, 5], [0, 0, 0]])))
+        steps += [(*flat_batch(np.random.default_rng(1), 3000), 6), ("rebuild",)]
+        return T, steps
+    if case == "collision":  # two voxels with one check claim one slot
+        steps = []
+        for a, b in colliding_checks():
+            p = (np.stack([a, b]).astype(np.float32) + 0.3) * 0.5
+            steps += [(p, np.ones(2, bool), 12),
+                      (np.ascontiguousarray(p[::-1] + 0.05), np.ones(2, bool), 12)]
+        return 64, steps
+    if case == "overflow":  # a 16-slot table overfilled: probes run out
+        k = np.stack(np.meshgrid(*[np.arange(-4, 4)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        p = ((rng.permutation(k)[:40] + rng.uniform(0.1, 0.9, (40, 3))) * 0.5).astype(
+            np.float32)
+        return 16, [(p[:20], np.ones(20, bool), 12), (p[20:], np.ones(20, bool), 3)]
+    if case == "nothing":  # no row, every row invalid
+        p, v = flat_batch(rng, 500)
+        return 1 << 10, [(p, v, 12), (p[:0], v[:0], 12), (p, np.zeros(500, bool), 12)]
+    if case == "many boxes":  # more boxes than a block stages
+        p, v = flat_batch(rng, 3000)
+        c = p[rng.integers(0, 3000, 300)]
+        lo = (c - rng.uniform(0.2, 2, (300, 3))).astype(np.float32)
+        hi = (c + rng.uniform(0.2, 2, (300, 3))).astype(np.float32)
+        lo[-1], hi[-1] = hi[-1], lo[-1]
+        return 1 << 12, [(p, v, 12), ("boxes", lo, hi)]
+    assert case == "shipped"  # 2^20 slots, the main path's batch, rebuild
+    steps = [(*flat_batch(rng, 16384, 60.0), 12) for _ in range(2)]
+    return 1 << 20, steps + [("boxes", np.float32([[-60, -60, -2]]), np.float32([[0, 60, 2]])),
+                             ("rebuild",)]
+
+
+@pytest.mark.parametrize("case", ["stream", "collision", "overflow", "nothing", "many boxes",
+                                  "shipped"])
+def test_hash_map_kernels_equal_their_plain_versions(cuda, monkeypatch, case):
+    """Each insert (hash_insert_keys, the sort, hash_insert_probe), box
+    delete (flat_delete_boxes) and rebuild of the hash map on the card
+    gives every array of its plain version on the card, and of the plain
+    version on the CPU (but at 2^20 slots), with the plain code not
+    reached and each launch counted: one keys launch per insert of B > 0,
+    one probe launch per insert, one delete launch per box set; the
+    stream's scratch back at 0."""
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    T, steps = hash_stream(case)
+    on_cpu = case != "shipped"
+    mk = vm.empty_map(T, 0.5, device=cuda)
+    mp = vm.empty_map(T, 0.5, device=cuda)
+    mh = vm.empty_map(T, 0.5, device="cpu")
+    for step in steps:
+        before = flat_launches()
+        if isinstance(step[0], str) and step[0] == "rebuild":
+            with plain_unreached(monkeypatch):
+                mk = vm.rebuild(mk)
+            mp, mh = vm.rebuild_plain(mp), vm.rebuild_plain(mh) if on_cpu else mh
+            want = {"hash_insert_keys": int(T > 0), "hash_insert_probe": 1}
+        elif isinstance(step[0], str):
+            lo, hi = (torch.from_numpy(b) for b in step[1:])
+            with plain_unreached(monkeypatch):
+                mk = vm.delete_boxes(mk, lo.to(cuda), hi.to(cuda))
+            mp = vm.delete_boxes_plain(mp, lo.to(cuda), hi.to(cuda))
+            mh = vm.delete_boxes_plain(mh, lo, hi) if on_cpu else mh
+            want = {"flat_delete_boxes": 1}
+        else:
+            p, v, probe = (torch.from_numpy(step[0]), torch.from_numpy(step[1]), step[2])
+            with plain_unreached(monkeypatch):
+                mk = vm.insert(mk, p.to(cuda), v.to(cuda), probe)
+            mp = vm.insert_plain(mp, p.to(cuda), v.to(cuda), probe)
+            mh = vm.insert_plain(mh, p, v, probe) if on_cpu else mh
+            want = {"hash_insert_keys": int(p.shape[0] > 0), "hash_insert_probe": 1}
+        torch.cuda.synchronize()
+        got = launched_since(before)
+        assert got == {k: want.get(k, 0) for k in got}, (step[0], got)
+        for f, a, b in zip(mk._fields, mk, mp):
+            assert bit_equal(a, b), (case, f)
+        if on_cpu:
+            for f, a, b in zip(mk._fields, mk, mh):
+                assert bit_equal(a.cpu(), b), (case, f)
+    assert tiles_scratch_clear(cuda)
+    if case == "collision":  # both voxels won: the count runs ahead of the slots
+        assert int(mk.count) > int((mk.check != vm.EMPTY_CHECK).sum())
+    if case == "shipped":
+        assert int(mk.count) > 10000
+
+
+@pytest.mark.parametrize("dims", [(16, 16, 8), (64, 64, 16), (256, 256, 64)])
+def test_dense_map_kernels_equal_their_plain_versions(cuda, monkeypatch, dims):
+    """Each insert (dense_insert: one launch, also at B = 0) and box delete
+    (flat_delete_boxes, also with 300 boxes and an inert one) of the dense
+    grid on the card gives every array of its plain version on the card
+    and on the CPU, with aliased cells evicted, equal distances, no row
+    and every row invalid; the plain code not reached, each launch counted,
+    the stream's scratch (the per-cell minimum) back at 0. At 256 x 256 x
+    64 the main path's batch of 16384 rows."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+
+    rng = np.random.default_rng(dims[0])
+    n = 16384 if dims[0] == 256 else 3000
+    span = 0.5 * dims[0] * 0.75  # wider than the grid's period at the small dims
+    mk = dm.empty_dense_map(dims, 0.5, device=cuda)
+    mp = dm.empty_dense_map(dims, 0.5, device=cuda)
+    mh = dm.empty_dense_map(dims, 0.5, device="cpu")
+    batches = [flat_batch(rng, n, span) for _ in range(2)]
+    p0 = batches[0][0]
+    batches.append((p0[:300] + np.float32([dims[0] * 0.5, 0, 0]), np.ones(300, bool)))
+    batches.append((p0[:0], np.zeros(0, bool)))
+    batches.append((p0[:400], np.zeros(400, bool)))
+    c = p0[rng.integers(0, n, 300)]
+    box_sets = [(c[:1] - 1, c[:1] + 1), ((c - 1).astype(np.float32), (c + 1).astype(np.float32))]
+    box_sets[1][0][-1], box_sets[1][1][-1] = box_sets[1][1][-1].copy(), box_sets[1][0][-1].copy()
+    steps = batches[:3] + [("boxes", *box_sets[0])] + batches[3:] + [("boxes", *box_sets[1])]
+    for step in steps:
+        before = flat_launches()
+        if isinstance(step[0], str):
+            lo, hi = (torch.from_numpy(np.ascontiguousarray(b, np.float32)) for b in step[1:])
+            with plain_unreached(monkeypatch):
+                mk = dm.delete_boxes(mk, lo.to(cuda), hi.to(cuda))
+            mp = dm.delete_boxes_plain(mp, lo.to(cuda), hi.to(cuda))
+            mh = dm.delete_boxes_plain(mh, lo, hi)
+            want = {"flat_delete_boxes": 1}
+        else:
+            p, v = (torch.from_numpy(np.ascontiguousarray(a)) for a in step)
+            with plain_unreached(monkeypatch):
+                mk = dm.insert(mk, p.to(cuda), v.to(cuda))
+            mp = dm.insert_plain(mp, p.to(cuda), v.to(cuda))
+            mh = dm.insert_plain(mh, p, v)
+            want = {"dense_insert": 1}
+        torch.cuda.synchronize()
+        got = launched_since(before)
+        assert got == {k: want.get(k, 0) for k in got}, (step[0], got)
+        for f, a, b, h in zip(mk._fields, mk, mp, mh):
+            assert bit_equal(a, b) and bit_equal(a.cpu(), h), (dims, f)
+    assert tiles_scratch_clear(cuda)
+    assert int(mk.count) > 0
+
+
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_flat_delete_boxes_makes_no_synchronising_call(cuda, backend):
+    """Given device boxes, the flat maps' delete_boxes is one launch and no
+    synchronising call (torch's sync debug mode set to raise)."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    mod = vm if backend == "hash" else dm
+    m = hash_and_dense_maps(cuda)[0 if backend == "hash" else 1]
+    lo, hi = torch.tensor([[-8.0, 0.0, -3.0]], device=cuda), torch.tensor([[8.0, 8.0, 3.0]],
+                                                                           device=cuda)
+    want = mod.delete_boxes_plain(clone_map(m), lo, hi)
+    mod.delete_boxes(clone_map(m), lo, hi)  # built and warm
+    got = clone_map(m)
+    torch.cuda.synchronize()
+    n0 = vm.flat_delete_boxes.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mod.delete_boxes(got, lo, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert vm.flat_delete_boxes.launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got.count) < int(m.count)
+
+
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_lidar_frame_step_on_the_flat_maps_makes_no_synchronising_call(cuda, monkeypatch,
+                                                                       backend):
+    """The whole steady lidar_frame_step on the hash map and on the dense
+    grid (the insert through hash_insert_keys, the sort and
+    hash_insert_probe, or one dense_insert launch) makes no synchronising
+    call, and gives the same bits as the step called without the mode."""
+    no_sync_frame_step(cuda, monkeypatch, backend=backend)
+
+
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_flat_map_pipelines_run_the_map_kernels(cuda, monkeypatch, backend):
+    """A LIO run on the hash map or the dense grid makes every insert (the
+    steady scans' and the one that builds the map) through its kernels
+    (one keys and one probe launch, or one dense_insert) and clears every
+    box set through one flat_delete_boxes launch; the plain versions are
+    never reached."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    mod = vm if backend == "hash" else dm
+    inserts, deletes = [], []
+    real_ins, real_del = mod.insert, mod.delete_boxes
+    monkeypatch.setattr(mod, "insert", lambda *a: inserts.append(1) or real_ins(*a))
+    monkeypatch.setattr(mod, "delete_boxes", lambda *a: deletes.append(1) or real_del(*a))
+    pipe = small_lio(cuda, backend=backend)
+    before = flat_launches()
+    with plain_unreached(monkeypatch):
+        outs = pipe.spin()
+    n = launched_since(before)
+    steady = [o for o in outs if o.iters > 0]
+    assert len(steady) > 5 and len(inserts) > len(steady) and len(deletes) >= len(steady)
+    if backend == "hash":
+        assert n["hash_insert_keys"] == n["hash_insert_probe"] == len(inserts)
+    else:
+        assert n["dense_insert"] == len(inserts)
+    assert n["flat_delete_boxes"] == len(deletes)
+
+
+def flat_write_only(dev, kernel):
+    """test_kernels_write_only_their_outputs' flat-map cases: each launch's
+    C entry point on guard-banded copies of the hash map's and dense
+    grid's arrays (written in place: outputs), every byte of the outputs
+    equal to the plain version's after the launch, the scratch back at 0."""
+    import ctypes
+
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    grid = ctypes.c_int(0)
+    rng = np.random.default_rng(5)
+    hm, dmap = hash_and_dense_maps(dev, T=1 << 14, dims=(64, 64, 16))
+    p, v = (torch.from_numpy(a).to(dev) for a in flat_batch(rng, 16379))
+    count = lambda: torch.empty((), dtype=torch.int32, device=dev)  # noqa: E731
+    if kernel.startswith("hash_insert"):
+        T = hm.check.shape[0]
+        rows, skeys = vm.insert_keys_plain(hm, p, v)
+        if kernel == "hash_insert_keys":
+            got = launch_guarded(lambda a, b, c, r, s: vm._insert_launchers()[0](
+                *ptr(a, b, c, r, s), p.shape[0], T - 1, stream),
+                [p, v, hm.voxel_size], [torch.empty_like(rows), torch.empty_like(skeys)])
+            want = [rows, skeys]
+        else:
+            order = vm.sort_order(skeys)
+            want_m = clone_map(hm)
+            want = [want_m.check, want_m.pts,
+                    vm.insert_probe_plain(want_m, p, v, rows, order, 12)]
+            scratch = torch.zeros(T + 13, dtype=torch.int32, device=dev)
+            got = launch_guarded(lambda a, b, r, o, vs, cin, chk, mp, cout, st, sc:
+                                 vm._insert_launchers()[1](
+                *ptr(a, b, r, o, vs, chk, mp, cin, cout, st, sc), p.shape[0], T, 12,
+                vm.EMPTY_CHECK, ctypes.byref(grid), stream),
+                [p, v, rows, order, hm.voxel_size, hm.count],
+                [hm.check.clone(), hm.pts.clone(), count(),
+                 torch.empty(p.shape[0], dtype=torch.int32, device=dev), scratch])
+            assert not got[4].any()
+            got = got[:3]
+    elif kernel == "dense_insert":
+        G = dmap.check.shape[0]
+        want_m = dm.insert_plain(clone_map(dmap), p, v)
+        want = [want_m.check, want_m.pts, want_m.count]
+        got = launch_guarded(lambda a, b, vs, l2, cin, chk, mp, cout, sc: dm._insert_launcher()(
+            *ptr(a, b, vs, l2, chk, mp, cin, cout, sc), p.shape[0], vm.EMPTY_CHECK,
+            ctypes.byref(grid), stream),
+            [p, v, dmap.voxel_size, dmap.log2_dims, dmap.count],
+            [dmap.check.clone(), dmap.pts.clone(), count(),
+             torch.zeros(G, dtype=torch.int64, device=dev)])
+        assert not got[3].any()
+        got = got[:3]
+    else:
+        m = hm if kernel == "flat_delete_boxes" else dmap
+        c = m.pts[m.check != vm.EMPTY_CHECK][:300].cpu().numpy()
+        lo = torch.from_numpy((c - 1).astype(np.float32)).to(dev)
+        hi = torch.from_numpy((c + 1).astype(np.float32)).to(dev)
+        want_m = vm.delete_boxes_plain(clone_map(m), lo, hi)
+        want = [want_m.check, want_m.count]
+        T = m.check.shape[0]
+        got = launch_guarded(lambda mp, vs, a, b, cin, chk, cout, sc: vm._delete_launcher()(
+            *ptr(chk, mp, vs, a, b, cin, cout, sc), a.shape[0], T, vm.EMPTY_CHECK,
+            tm._sm_count(dev), ctypes.byref(grid), stream),
+            [m.pts, m.voxel_size, lo, hi, m.count],
+            [m.check.clone(), count(), torch.zeros(2, dtype=torch.int32, device=dev)])
+        assert not got[2].any()
+        got = got[:2]
     for g, w in zip(got, want):
         assert bit_equal(g, w)

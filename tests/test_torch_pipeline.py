@@ -423,7 +423,8 @@ def test_every_kernel_source_is_built_and_smoked():
     measurement, the photometric cascade and step, the two standalone
     kernels, the IMU propagation, the LIO cascade, the camera frame's
     selection and map upkeep, the tiled map's box delete and insert, the
-    voxel filter's segmented centroid and the scan's undistortion."""
+    voxel filter's segmented centroid, the scan's undistortion, the hash
+    map's insert, the dense grid's and the box delete of both."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -433,7 +434,8 @@ def test_every_kernel_source_is_built_and_smoked():
     spec.loader.exec_module(smoke)
     cu = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
-    assert cu == ["imu_propagate", "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
+    assert cu == ["dense_insert", "flat_delete_boxes", "hash_insert", "imu_propagate",
+                  "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
                   "lio_cascade", "patches_and_grads", "photometric_cascade",
                   "photometric_err_H", "tiled_delete_boxes", "tiled_insert", "undistort",
                   "vio_observations", "vio_select", "voxel_centroids"]
