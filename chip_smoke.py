@@ -746,26 +746,46 @@ def map_search(a, plain_search=False):
     """The search of a lio_cascade call's arguments `a` alone, as the host
     loop runs it (lio.host_search), as a function of the world points:
     with the TLS fit the kernel that runs the cascade's walk
-    (knn5_plane_tiled, knn5_plane_hashed on the hash or dense map, or
-    knn5_plane on the block that cache_knn gathered) or, with
-    `plain_search`, its plain version (knn5_plane_plain on the map's
-    knn_candidates or on the block: torch ops, bit-exact with the walk);
-    with the reference's fit the backend's knn (topk_from_candidates on
-    the block) and fit_plane_ref, torch ops either way."""
+    (knn5_plane_tiled, knn5_plane_hashed on the hash or dense map, or,
+    under cache_knn, knn5_plane on the block that the backend's
+    knn_candidates gathers in torch ops at the call's start pose:
+    gathered_block) or, with `plain_search`, its plain version
+    (knn5_plane_plain on the map's knn_candidates or on the block: torch
+    ops, bit-exact with the walk); with the reference's fit the backend's
+    knn (topk_from_candidates on the block) and fit_plane_ref, torch ops
+    either way."""
     from fastlivo_tpu_torch import lio
 
     o = cascade_options(a)
-    return lio.host_search(a[0], a[10], a[11], o["max_probe"], o["plane_fit"], o["cand"],
-                           o["found"], plain_search)
+    cand, found = gathered_block(a) if o["cache_knn"] else (None, None)
+    return lio.host_search(a[0], a[10], a[11], o["max_probe"], o["plane_fit"], cand, found,
+                           plain_search)
+
+
+def gathered_block(a):
+    """The candidate block of a lio_cascade call's arguments `a` under
+    cache_knn, as the host loop gathers it: the backend's knn_candidates
+    (torch ops) at the world points of the start pose (a[4], a[5]), which
+    the cascade's first search must write bit for bit."""
+    from fastlivo_tpu_torch import lio
+
+    m, body, rot, x, radius = a[0], a[1], a[4], a[5], a[10]
+    return lio.map_module(m).knn_candidates(m, lio.world_points(body, rot, x[0:3]), radius,
+                                            cascade_options(a)["max_probe"])
 
 
 def cascade_options(a) -> dict:
     """The options of a lio_cascade call's arguments `a` past the
-    convergence thresholds (max_probe, cand, found, plane_fit), each its
+    convergence thresholds (max_probe, cache_knn, plane_fit), each its
     default where `a` stops."""
-    names = ("max_probe", "cand", "found", "plane_fit")
-    return {"max_probe": 12, "cand": None, "found": None, "plane_fit": "tls",
-            **dict(zip(names, a[14:]))}
+    names = ("max_probe", "cache_knn", "plane_fit")
+    return {"max_probe": 12, "cache_knn": False, "plane_fit": "tls",
+            **dict(zip(names, a[14:17]))}
+
+
+def with_options(a, **options):
+    """A lio_cascade call's arguments `a` with some of its options changed."""
+    return (*a[:14], *{**cascade_options(a), **options}.values())
 
 
 def lio_loop_on(a, plain_search=False):
@@ -793,9 +813,10 @@ def check_lio_cascades(calls, label) -> dict:
     the counts are restored): with the step kernel every output (rot, x,
     G, sel, pabcd, plane_ok, iterations) bit-equal, the loop's search
     (map_search) the kernel that runs the cascade's walk (knn5_plane_tiled,
-    knn5_plane_hashed, or knn5_plane on the block that cache_knn gathered;
-    with the reference's fit the backend's knn or topk_from_candidates and
-    fit_plane_ref) and also its plain version (torch ops, so the walk is
+    knn5_plane_hashed, or under cache_knn knn5_plane on the block that
+    knn_candidates gathers in torch ops; with the reference's fit the
+    backend's knn or topk_from_candidates and fit_plane_ref) and also its
+    plain version (torch ops, so the walk is
     held against plain code at every iteration's pose); all plain (that
     search and photometric_step_plain) the same iterations and rot and x
     within 1e-9. Returns numbers."""
@@ -1092,9 +1113,9 @@ TLS_FIT_OPS = 260  # f32 operations of plane5_fit (tiled_work, hashed_work, cach
 
 def cached_work(cand, found, q):
     """The cached walk's work (knn5_cached_walk.cuh) for the queries q
-    (the stacked world points of every search, each of the block's rows n
-    once per search): the block's bytes, read once (12 B a candidate and
-    its found byte: N·M·13 B); per query the fit and gate (TLS_FIT_OPS),
+    (the stacked world points of the searches that re-rank the block, each
+    of the block's rows n once per search): the block's bytes (12 B a
+    candidate and its found byte: N·M·13 B); per query the fit and gate (TLS_FIT_OPS),
     per candidate row its found test and one compare in each of the 5
     selection rounds (6), per found row its squared distance (8). Returns
     (bytes, operations, (candidates, found rows))."""
@@ -1105,34 +1126,47 @@ def cached_work(cand, found, q):
     return cand.numel() * 4 + found.numel(), ops, (n * M, nfound)
 
 
-def lio_cascade_bound_ms(m, pws, n, iters, radius, max_probe=12, cand=None, found=None,
+def lio_cascade_bound_ms(m, pws, n, iters, radius, max_probe=12, cache_knn=False,
                          plane_fit="tls"):
     """Least time for one LIO cascade on these inputs: `pws` are the world
     points of each of its search iterations, stacked (the host loop's on
     the same inputs), n the scan's points, `iters` its iterations. Bytes:
     the map entries all the searches touch (tiled_work, or hashed_work on
     the hash or dense map, over the stacked points: the union of the
-    searches' entries) or, with the block `cand`, `found` that cache_knn
-    gathered, the block once (cached_work); each point's p_imu,
+    searches' entries) or, under cache_knn, those of the first search and
+    the candidate block it writes (13 B a candidate: cached_work) written
+    once and read again at each later search; each point's p_imu,
     |p|^(1/2) and mask (17 B), P', the prior and the start pose read once;
     sel, the plane and plane_ok (18 B a point), rot, x, G and the count
-    written once. Operations: the searches' (tiled_work, hashed_work,
+    written once. Operations: the searches' (tiled_work, hashed_work; under
+    cache_knn the first search's walk and the later searches' re-ranks,
     cached_work) and each iteration's rows (LIO_ROW_OPS) over the float32
     rate, plus each iteration's f64 step (STEP_OPS) over the f64 rate; with
     the reference's fit each search's fits are REF_FIT_OPS f64 operations a
     query in place of the TLS fit's f32 ones. Returns (ms, "bytes" |
     "operations", the entries the searches touch: tiled_work's directory
-    entries, pool cells, live points and tiles, hashed_work's probed
-    words, found points, probes taken and found rows, or cached_work's
-    candidates and found rows)."""
+    entries, pool cells, live points and tiles, or hashed_work's probed
+    words, found points, probes taken and found rows; under cache_knn
+    those of the first search, then the block's candidates and found
+    rows)."""
+    from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import tiled_map as tm
 
-    if cand is not None:
-        map_bytes, ops32, uniq = cached_work(cand, found, pws)
-    elif isinstance(m, tm.TiledMap):
-        map_bytes, ops32, uniq = tiled_work(m, pws, radius)
+    def walk(q):
+        if isinstance(m, tm.TiledMap):
+            return tiled_work(m, q, radius)
+        return hashed_work(m, q, radius, max_probe)
+
+    if cache_knn:
+        first = pws[:n]
+        map_bytes, ops32, uniq = walk(first)
+        cand, found = lio.map_module(m).knn_candidates(m, first, radius, max_probe)
+        block_bytes, rerank_ops, block = cached_work(cand, found, pws[n:])
+        map_bytes += block_bytes * (pws.shape[0] // max(n, 1))
+        ops32 += rerank_ops
+        uniq = (*uniq, *block)
     else:
-        map_bytes, ops32, uniq = hashed_work(m, pws, radius, max_probe)
+        map_bytes, ops32, uniq = walk(pws)
     ops64 = iters * STEP_OPS
     if plane_fit == "ref":
         ops32 -= pws.shape[0] * TLS_FIT_OPS
@@ -2001,9 +2035,9 @@ def lio_cascade_phase(a, label="the path map"):
     """lio_cascade on a path's last call `a` (its arguments, the map's
     search arrays as they were; the tiled, hash or dense map): held
     against the host loop lio.lio_loop (bit-equal with the step kernel,
-    its search the map's kernel and that kernel's plain version; all
-    plain the same iterations and the pose within 1e-9), then timed beside
-    it. Times: the cascade (queued CUDA events), a call's host wall, and
+    its search the map's kernel and that kernel's plain version, under
+    cache_knn on the block knn_candidates gathers in torch ops; all plain
+    the same iterations and the pose within 1e-9), then timed beside it. Times: the cascade (queued CUDA events), a call's host wall, and
     the host loop with the kernels (knn5_plane_tiled or knn5_plane_hashed
     and the step kernel), with the plain step, and all plain (the plain
     search), each one call alone between two events (the loop reads a
@@ -2015,13 +2049,21 @@ def lio_cascade_phase(a, label="the path map"):
     from fastlivo_tpu_torch.ops import photometric as ph
 
     m, radius, o = a[0], a[10], cascade_options(a)
-    got = lc.lio_cascade(*a)
+    block = None
+    if o["cache_knn"]:  # the block the launch writes, held against knn_candidates'
+        cand, found = gathered_block(a)
+        block = (torch.full_like(cand, float("nan")), torch.ones_like(found))
+    got = lc.lio_cascade(*a, block=block)
     its = int(got[6])
     want, want_ps = lio_loop_on(a), lio_loop_on(a, plain_search=True)
     err = max(max_abs_diff(got[:6], want[:6]), max_abs_diff(got[:6], want_ps[:6]))
     if not (lio_same(got, want) and lio_same(got, want_ps)):
         raise AssertionError(f"lio_cascade differs from the host loop on {label}'s last "
                              f"call by {err:.3g}")
+    if block is not None and not (torch.equal(block[1], found)
+                                  and torch.equal(block[0][found], cand[found])):
+        raise AssertionError(f"lio_cascade's block on {label}'s last call differs from "
+                             f"knn_candidates'")
     ms = time_ms(lambda: lc.lio_cascade(*a))
     host = host_ms(lambda: lc.lio_cascade(*a))
     loop_ms, loop_host = event_ms(lambda: lio_loop_on(a), reps=5), host_ms(lambda: lio_loop_on(a))
@@ -2040,11 +2082,12 @@ def lio_cascade_phase(a, label="the path map"):
     lio.lio_loop(lambda pw: (pws.append(pw), knn(pw))[1], *a[1:10])
     n = a[1].shape[0]
     bound, by, uniq = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius, **o)
-    what = ("candidates, found rows of the block" if o["cand"] is not None else
-            "distinct directory entries, pool cells, live points, neighbourhood tiles"
+    what = ("distinct directory entries, pool cells, live points, neighbourhood tiles"
             if lc.map_kind(m) == "tiled" else "distinct probed words, found points, probes "
             "taken, found rows")
-    route = (f"{lc.map_kind(m)} map, {'cached' if o['cand'] is not None else 'walk'} search, "
+    if o["cache_knn"]:
+        what = f"the first search's {what}, then the block's candidates, found rows"
+    route = (f"{lc.map_kind(m)} map, {'gather' if o['cache_knn'] else 'walk'} search, "
              f"{o['plane_fit']} fit")
     print(f"lio_cascade N={n} M={(2 * radius + 1) ** 3} on {label} ({route}): {its} iterations "
           f"({len(pws)} searching) in {ms:.4f} ms ({ms / its:.4f} ms an iteration; host "
@@ -2054,6 +2097,9 @@ def lio_cascade_phase(a, label="the path map"):
           f"within {pose_d:.3g}); bit-equal with the kernel and the plain search; bound "
           f"{bound:.6f} ms ({by}; {what} over the searches {uniq}), library none; "
           f"{nvidia_smi_line()}")
+    if block is not None:
+        print(f"lio_cascade on {label}: the block it wrote ({tuple(found.shape)}, "
+              f"{int(found.sum())} found) equals knn_candidates' at the start pose")
     return {"max_abs_err": err, "iterations": its, "searches": len(pws), "ms": ms,
             "ms_per_iteration": ms / its, "host_ms": host, "grid": lc.lio_cascade.grid,
             "loop_ms": loop_ms, "loop_host_ms": loop_host,
@@ -3527,11 +3573,12 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
     `profile_every` 8, (f) BlockReplayer(8) on the hash map. The hash,
     dense, cache_knn, ref and hash-block paths must run every EKF as one
     lio_cascade launch (counted under its map, search and fit: the hash
-    and dense walks of knn5_hashed_walk.cuh, the block's of
-    knn5_cached_walk.cuh, the reference's fit of plane_fit.cuh) and launch
-    no search kernel (no knn5_plane_hashed, knn5_plane or tiled kernel);
-    cache_knn gathers once per frame that runs the EKF (the backend's
-    knn_candidates), the others never; each of their cascades is recorded
+    and dense walks of knn5_hashed_walk.cuh, under cache_knn the walk's
+    gather form at the first search and knn5_cached_walk.cuh's re-rank of
+    the block at the later ones, the reference's fit of plane_fit.cuh)
+    and launch no search kernel (no knn5_plane_hashed, knn5_plane or tiled
+    kernel) and make no knn_candidates call (cache_knn's block is written
+    by the launch); each of their cascades is recorded
     (the copies' memory reserved before the run) and held against the host
     loop with the step kernel
     (check_lio_cascades: bit-equal, iterations equal); profile_every must
@@ -3624,10 +3671,9 @@ def backend_paths_phase(dev, ds, ref, ref_ms, frames=24):
               f"({cap.map_backend} map, cache_knn {cap.cache_knn}, plane_fit "
               f"{cap.plane_fit}); {nvidia_smi_line()}")
         if option is not None:  # one cascade an EKF, its search and fit counted
-            search = "cached" if cap.cache_knn else "walk"
+            search = "gather" if cap.cache_knn else "walk"
             ok = (kc == len(steady) == len(calls) == by_route["search"][search]
-                  == by_route["fit"][cap.plane_fit] and k == kt == kh == 0
-                  and ng == (len(steady) if cap.cache_knn else 0))
+                  == by_route["fit"][cap.plane_fit] and k == kt == kh == 0 and ng == 0)
         elif every:  # one cascade per EKF, the profiled ones included
             ok = kc >= len(steady) and kt == 0 and k == 0 and kh == 0 and same_outputs(
                 outs, pref)
@@ -4977,7 +5023,11 @@ def main() -> int:
         paths.update(backend_paths)
         path_extra.update(lio_extra)
         # the cascade on the last call of the hash, dense, cache_knn and ref
-        # paths, beside its bound and the host loop
+        # paths, beside its bound and the host loop; the hash and dense
+        # paths' last calls again with cache_knn (its gather instances on
+        # those maps)
+        for k in ("hash", "dense"):
+            backend_last[f"{k} cache_knn"] = with_options(backend_last[k], cache_knn=True)
         path_casc = {k: lio_cascade_phase(a, f"the {k} path's last call")
                      for k, a in backend_last.items()}
         del backend_last
@@ -5175,9 +5225,13 @@ def main() -> int:
         **{k: lio_casc[k] for k in (
             "iterations", "searches", "ms_per_iteration", "host_ms", "grid", "loop_ms",
             "loop_host_ms", "loop_plain_step_ms", "plain_host_ms")},
-        **{f"{k}_{'map' if k in ('hash', 'dense') else 'route'}": {n: v[n] for n in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "iterations", "searches", "grid",
-            "loop_ms", "loop_host_ms", "host_ms")} for k, v in path_casc.items()},
+        **{f"{k.replace(' ', '_')}_{'map' if k in ('hash', 'dense') else 'route'}": {
+            n: v[n] for n in ("ms", "plain_ms", "bound_ms", "bound_by", "iterations",
+                              "searches", "grid", "loop_ms", "loop_host_ms", "host_ms")}
+           for k, v in path_casc.items()},
+        "instances": [f"lio_cascade_kernel<{w}, {g}, {mm}, {f}>" for w in (
+            "TILED", "HASH", "DENSE") for g in ("walk", "gather") for mm in (27, 125)
+            for f in ("tls", "ref")],
         "launches_by_route": {k: path_extra[k]["lio_cascade_by_route"] for k in (
             "hash", "dense", "tiled cache_knn", "tiled plane_fit ref",
             "hash BlockReplayer(8)")},
@@ -5254,9 +5308,10 @@ def main() -> int:
         "source": "fastlivo_tpu_torch/csrc/knn5_plane.cu",
         "replaces": "fastlivo_tpu/ops/pallas_lio.py:219",
         "launches": backend_paths["tiled cache_knn"][1]["knn5_plane"], "max_abs_err": err,
-        "path": "none on one card since cache_knn's EKF runs in lio_cascade (its walk "
-                "knn5_cached_walk.cuh); the cascade's oracle under cache_knn, and the "
-                "search of the host loop (a mesh under cache_knn)",
+        "path": "none on one card since cache_knn's EKF runs in lio_cascade (the block "
+                "written by its first search, re-ranked by knn5_cached_walk.cuh); the "
+                "cascade's oracle under cache_knn, and the search of the host loop (a mesh "
+                "under cache_knn)",
         **{k: hashed["knn5_plane"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "launches_per_path": {k: v[-1]["knn5_plane"] for k, v in paths.items()

@@ -1,11 +1,16 @@
 // One query's LIO search on its own gathered candidate block, by a group
 // of L lanes of one warp: the re-rank of csrc/knn5_plane.cu (the block
-// that `cache_knn` gathers once a frame at the prior pose, with the
-// backend's knn_candidates, re-ranked against the moved query at every
-// search), walked as the map walks are (knn5_tiled_walk.cuh,
-// knn5_hashed_walk.cuh) so that a block of lio_cascade.cu runs its lanes
-// alike on every walk. Include after knn5_select.cuh (group_top5,
-// KNN5_BIG) and plane_fit.cuh (plane5_fit_as).
+// that `cache_knn` gathers once a frame at the prior pose, re-ranked
+// against the moved query at every search), walked as the map walks are
+// (knn5_tiled_walk.cuh, knn5_hashed_walk.cuh) so that a block of
+// lio_cascade.cu runs its lanes alike on every walk. The block is written
+// in the same launch, by the gather form of the map walk at the first
+// search, and by the same lane that reads it here (lane `sub` of a query
+// owns rows sub, sub + L, ... in both): so it is read with coherent loads
+// through L2 (__ldcg), never through the read-only path (__ldg), which
+// may hold lines of the same scratch from an earlier launch. Include
+// after knn5_select.cuh (group_top5, KNN5_BIG) and plane_fit.cuh
+// (plane5_fit_as).
 #pragma once
 
 #include <stdint.h>
@@ -13,7 +18,8 @@
 namespace {
 
 // The gathered block as the walk reads it: row i's M candidates and their
-// found flags, in the order of the backend's knn_candidates
+// found flags (a point only where found), in the order of the backend's
+// knn_candidates
 // (tiled_map.neighbor_offsets on the tiled map, voxel_map.neighbor_offsets
 // on the hash and dense maps).
 struct CachedView {
@@ -45,7 +51,7 @@ __device__ __forceinline__ bool knn5_cached_walk(const CachedView& cv, int row, 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int j = sub + L * r;
-    hit[r] = in && j < M && __ldg(f + j) != 0;
+    hit[r] = in && j < M && __ldcg(f + j) != 0;
   }
   float d2[R], cx[R], cy[R], cz[R];
 #pragma unroll
@@ -54,9 +60,9 @@ __device__ __forceinline__ bool knn5_cached_walk(const CachedView& cv, int row, 
     d2[r] = KNN5_BIG;
     cx[r] = cy[r] = cz[r] = 0.0f;
     if (hit[r]) {
-      cx[r] = __ldg(c + 3 * j + 0);
-      cy[r] = __ldg(c + 3 * j + 1);
-      cz[r] = __ldg(c + 3 * j + 2);
+      cx[r] = __ldcg(c + 3 * j + 0);
+      cy[r] = __ldcg(c + 3 * j + 1);
+      cz[r] = __ldcg(c + 3 * j + 2);
     }
   }
 #pragma unroll

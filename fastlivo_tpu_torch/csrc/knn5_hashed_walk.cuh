@@ -117,11 +117,17 @@ __device__ __forceinline__ void probe_rows(const int32_t* __restrict__ check,
 // together. Lane `sub` of the group
 // owns candidate rows sub, sub + L, ...; every lane of the warp must call.
 // Every lane returns the gate, the plane (ux, uy, uz, d) in pl and the
-// fifth-nearest squared distance in dmin.
-template <int B, int M, int L, int F = FIT_TLS>
+// fifth-nearest squared distance in dmin. The gather form (G, lio_cascade.cu's
+// first search under `cache_knn`) also writes each of the lane's rows into
+// the query's block where gfound is not null: gfound[j] the row's found
+// flag and, where found, gcand[3 j ..] its point (the backend's
+// knn_candidates' found and points; a row not found gets no point).
+template <int B, int M, int L, int F = FIT_TLS, bool G = false>
 __device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx, float qy,
                                                  float qz, int sub, double threshold,
-                                                 float (&pl)[4], float& dmin) {
+                                                 float (&pl)[4], float& dmin,
+                                                 float* gcand = nullptr,
+                                                 uint8_t* gfound = nullptr) {
   constexpr int R = (M + L - 1) / L;  // rows per lane
   const float vs = __ldg(mp.voxel_size);
   const int32_t bx = (int32_t)floorf(qx / vs);
@@ -181,6 +187,20 @@ __device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx,
     if (res[r] >= 0) {
       const float dx = cx[r] - qx, dy = cy[r] - qy, dz = cz[r] - qz;
       d2[r] = dx * dx + dy * dy + dz * dz;
+    }
+  }
+  if (G && gfound) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = sub + L * r;
+      if (row[r]) {
+        gfound[j] = res[r] >= 0 ? 1 : 0;
+        if (res[r] >= 0) {
+          gcand[3 * j + 0] = cx[r];
+          gcand[3 * j + 1] = cy[r];
+          gcand[3 * j + 2] = cz[r];
+        }
+      }
     }
   }
 

@@ -11,9 +11,9 @@
 //   "normal found and all five picks within `threshold` of the plane".
 // The host loop's LIO search calls it under `cache_knn` (lio.host_search,
 // over a mesh), on the block gathered once per frame at the prior pose and
-// re-ranked at every search; on one card lio_cascade.cu re-ranks that
-// block itself (knn5_cached_walk.cuh, the same selection and fit) and
-// this kernel is its oracle. The searches without a cache walk the map
+// re-ranked at every search; on one card lio_cascade.cu writes that
+// block at its first search and re-ranks it itself (knn5_cached_walk.cuh,
+// the same selection and fit), and this kernel is its oracle. The searches without a cache walk the map
 // themselves (knn5_plane_tiled.cu, knn5_plane_hashed.cu).
 //
 // Design: a block is one warp and owns the contiguous slab of its 32

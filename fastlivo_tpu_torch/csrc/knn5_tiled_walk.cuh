@@ -37,11 +37,17 @@ struct TiledView {
 // FIT_REF) and its gate. Lane `sub` of the group owns candidate rows sub,
 // sub + L, ...; every lane of the warp must call. Every lane returns the
 // gate, the plane (ux, uy, uz, d) in pl and the fifth-nearest squared
-// distance in dmin.
-template <int M, int L, int F = FIT_TLS>
+// distance in dmin. The gather form (G, lio_cascade.cu's first search
+// under `cache_knn`) also writes each of the lane's rows into the query's
+// block where gfound is not null: gfound[j] the row's found flag and,
+// where found, gcand[3 j ..] its point (tiled_map.knn_candidates' found
+// and points; a row not found gets no point).
+template <int M, int L, int F = FIT_TLS, bool G = false>
 __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, float qy,
                                                 float qz, int sub, double threshold,
-                                                float (&pl)[4], float& dmin) {
+                                                float (&pl)[4], float& dmin,
+                                                float* gcand = nullptr,
+                                                uint8_t* gfound = nullptr) {
   constexpr int R = (M + L - 1) / L;  // rows per lane
   const float vs = __ldg(mp.voxel_size);
   const int32_t bx = (int32_t)floorf(qx / vs);
@@ -73,6 +79,7 @@ __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, f
       // point)
       const int32_t dchk = __ldg(mp.dir_check + dir);
       const int32_t slot = min(max(__ldg(mp.dir_slot + dir), 0), mp.T - 1);
+      bool hit = false;
       if (dchk == chk) {
         const int32_t p = slot * TILE_CELLS + cofs;
         const int32_t cchk = __ldg(mp.cell_check + p);
@@ -85,6 +92,15 @@ __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, f
           cx[r] = px;
           cy[r] = py;
           cz[r] = pz;
+          hit = true;
+        }
+      }
+      if (G && gfound) {
+        gfound[j] = hit ? 1 : 0;
+        if (hit) {
+          gcand[3 * j + 0] = cx[r];
+          gcand[3 * j + 1] = cy[r];
+          gcand[3 * j + 2] = cz[r];
         }
       }
     }

@@ -1,6 +1,7 @@
 // The LIO iterated EKF of one scan in one launch, on the tiled map, the
-// hash map, the dense grid or the candidate block that `cache_knn`
-// gathers, with the TLS plane fit or the reference's, for Hopper.
+// hash map or the dense grid, with or without `cache_knn` (the candidate
+// block gathered at the first search and re-ranked at every later one),
+// with the TLS plane fit or the reference's, for Hopper.
 //
 // lio_cascade replaces the device program the JAX package compiles from
 // the `jax.lax.while_loop` of fastlivo_tpu/lio.py::lio_update (the loop at
@@ -14,9 +15,14 @@
 //   on an iteration with search_en, the search for every point of the scan
 //   in the world frame, walk W a template parameter: the walk of
 //   knn5_tiled_walk.cuh on the tiled map, of knn5_hashed_walk.cuh on the
-//   hash map or the dense grid, of knn5_cached_walk.cuh on the gathered
-//   block (the five nearest), then the plane fit F, a template parameter
-//   too (plane_fit.cuh: the centred TLS fit, or the reference's in f64);
+//   hash map or the dense grid (the five nearest); with G (`cache_knn`, a
+//   template parameter) the first search, at the start pose, is the walk's
+//   gather form, which also writes every row it walks into the candidate
+//   block (N, M, 3) f32 and (N, M) u8 (the backend's knn_candidates at
+//   that pose: found flags, and points where found), and every later
+//   search is knn5_cached_walk.cuh's re-rank of that block; then the plane
+//   fit F, a template parameter too (plane_fit.cuh: the centred TLS fit,
+//   or the reference's in f64);
 //   the gates (laserMapping.cpp:1549-1600; their values are arguments, as
 //   lio.py sets them): sel = nd2_5 <= sq_dist_gate & pmask at a search,
 //   pd2 = n·p + d, s = 1 - 0.9 |pd2| / |p_body|^(1/2), sel &= plane_ok &
@@ -31,22 +37,30 @@
 // After the loop: rot, x, G = K HᵀH₆ of the last iteration, sel, pabcd,
 // plane_ok and the iteration count. The plain version is the host loop
 // lio.py::lio_loop (its search lio.host_search: knn5_plane_tiled,
-// knn5_plane_hashed or, on the block, knn5_plane; with the reference's fit
+// knn5_plane_hashed or, on the block the backend's knn_candidates gathers
+// at the start pose in torch ops, knn5_plane; with the reference's fit
 // the backend's knn or topk_from_candidates on the block, then
 // plane.fit_plane_ref; the gates in torch ops, the same fixed-order sum and
 // the step kernel or its plain version). Contract: with the step kernel
 // every output bit-equal to that loop's, iterations too.
 //
 // Bound (chip_smoke.py's lio_cascade_bound_ms): the larger of the bytes
-// (the map entries the searches touch, or the gathered block, 13 B a
-// candidate; each point's inputs and outputs, the pose and prior, once
-// each) over HBM bandwidth and the operations (the searches', ~120 a row
-// each iteration, the f64 steps, and with the reference's fit its f64
-// algebra) over the f32 and f64 rates. Neither counts the dependent chain
-// that holds the launch far above it: the chunk trees, a grid barrier, the
-// chunk-sum trees and the f64 step, every iteration. The block that
-// `cache_knn` gathers is read again at every search, from L2 after the
-// first (it is N·M·13 B: 5.5 MB at N = 16384, M = 27). Design: one cooperative, persistent launch
+// (the map entries the searches touch; under `cache_knn` those of the
+// first search, and the block, 13 B a candidate, written once and read
+// at each later search; each point's inputs and outputs, the pose and
+// prior, once each) over HBM bandwidth and the operations (the searches',
+// ~120 a row each iteration, the f64 steps, and with the reference's fit
+// its f64 algebra) over the f32 and f64 rates. Neither counts the
+// dependent chain that holds the launch far above it: the chunk trees, a
+// grid barrier, the chunk-sum trees and the f64 step, every iteration.
+// The block is the caller's scratch, N·M·13 B (5.5 MB at N = 16384, M =
+// 27), read again from L2. No grid barrier orders its writes and reads:
+// the rows a block owns, and the query and candidate rows of each thread
+// (query q0 + tid / L of a pass, rows tid % L, + L, ...), are the same at
+// every search, so a thread reads only the block entries it wrote itself,
+// with coherent loads (knn5_cached_walk.cuh).
+//
+// Design: one cooperative, persistent launch
 // (cudaLaunchCooperativeKernel) of as many 256-thread blocks as can be
 // co-resident, at most one per chunk of 64 rows; block b owns chunks b, b
 // + grid, ... for the whole launch and keeps their p_imu, |p_body|^(1/2),
@@ -92,14 +106,14 @@ constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 constexpr int CH = 64;  // rows of a chunk, and sums of a group at every level
 constexpr unsigned FULL_MASK = 0xffffffffu;
-// the walk: HASH, DENSE (knn5_hashed_walk.cuh), TILED (knn5_tiled_walk.cuh)
-// or CACHED (knn5_cached_walk.cuh)
-constexpr int TILED = 2, CACHED = 3;
+// the walk: HASH, DENSE (knn5_hashed_walk.cuh) or TILED (knn5_tiled_walk.cuh)
+constexpr int TILED = 2;
 
 struct Lio {
   TiledView mp;             // the tiled map (TILED)
   HashedView hp;            // the hash map or the dense grid (HASH, DENSE)
-  CachedView cv;            // the gathered candidate block (CACHED)
+  float* cand;              // (n, M, 3) the block `cache_knn` gathers (G), scratch
+  uint8_t* found;           // (n, M)
   const float* p_imu;       // (n, 3) the scan in the IMU frame
   const float* bns;         // (n,) |p_body|^(1/2)
   const uint8_t* pmask;     // (n,)
@@ -253,21 +267,32 @@ __device__ void reduce_chunks(const float* part, int stride, const float* gsum, 
   }
 }
 
-// The search of the query of row `row` on the launch's map or block: walk
-// W's, with the plane fit F.
-template <int W, int M, int L, int F>
-__device__ __forceinline__ bool map_walk(const Lio& c, int row, float qx, float qy, float qz,
-                                         int sub, float (&pl)[4], float& dmin) {
+// The search of the query of row `row` with the plane fit F: walk W's on
+// the map; with G (`cache_knn`) at the first search the walk's gather form,
+// which writes the row's block (nothing for a row past n), and at every
+// later search the re-rank of that block. The gather form and the re-rank
+// are two calls, never live together, so an instance holds the registers
+// of the larger.
+template <int W, bool G, int M, int L, int F>
+__device__ __forceinline__ bool map_walk(const Lio& c, bool first, int row, float qx, float qy,
+                                         float qz, int sub, float (&pl)[4], float& dmin) {
+  if constexpr (G) {
+    if (!first)
+      return knn5_cached_walk<M, L, F>(CachedView{c.cand, c.found, c.n}, row, qx, qy, qz, sub,
+                                       c.threshold, pl, dmin);
+  }
+  const bool out = G && row < c.n;
+  float* gc = out ? c.cand + (size_t)row * M * 3 : nullptr;
+  uint8_t* gf = out ? c.found + (size_t)row * M : nullptr;
   if constexpr (W == TILED) {
-    return knn5_tiled_walk<M, L, F>(c.mp, qx, qy, qz, sub, c.threshold, pl, dmin);
-  } else if constexpr (W == CACHED) {
-    return knn5_cached_walk<M, L, F>(c.cv, row, qx, qy, qz, sub, c.threshold, pl, dmin);
+    return knn5_tiled_walk<M, L, F, G>(c.mp, qx, qy, qz, sub, c.threshold, pl, dmin, gc, gf);
   } else {
-    return knn5_hashed_walk<W, M, L, F>(c.hp, qx, qy, qz, sub, c.threshold, pl, dmin);
+    return knn5_hashed_walk<W, M, L, F, G>(c.hp, qx, qy, qz, sub, c.threshold, pl, dmin, gc,
+                                           gf);
   }
 }
 
-template <int W, int M, int L, int F>
+template <int W, bool G, int M, int L, int F>
 __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   extern __shared__ __align__(16) float smem[];
   __shared__ Step st;
@@ -333,12 +358,14 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
       __syncthreads();
       if (search) {
         // L lanes a query: THREADS / L queries a pass (rows past n walk at
-        // a harmless point, or read no block, and write nothing)
+        // a harmless point, or read no block, and write nothing); the
+        // first iteration always searches
         for (int q0 = 0; q0 < CH; q0 += THREADS / L) {
           const int q = q0 + tid / L, sub = tid % L;
           float pl[4], dmin;
-          const bool ok = map_walk<W, M, L, F>(c, chunk * CH + q, s_pw[q], s_pw[CH + q],
-                                               s_pw[2 * CH + q], sub, pl, dmin);
+          const bool ok = map_walk<W, G, M, L, F>(c, iter == 0, chunk * CH + q, s_pw[q],
+                                                  s_pw[CH + q], s_pw[2 * CH + q], sub, pl,
+                                                  dmin);
           if (sub == 0 && chunk * CH + q < c.n) {
             const int lr = r0 + q;
 #pragma unroll
@@ -449,9 +476,9 @@ __global__ void __launch_bounds__(THREADS, 2) lio_cascade_kernel(const Lio c) {
   PHASE_STAMP(1);
 }
 
-template <int W, int M, int L, int F>
+template <int W, bool G, int M, int L, int F>
 int launch(Lio& c, int* grid_out, cudaStream_t stream) {
-  auto kernel = lio_cascade_kernel<W, M, L, F>;
+  auto kernel = lio_cascade_kernel<W, G, M, L, F>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -483,15 +510,25 @@ int launch(Lio& c, int* grid_out, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of walk W at m candidates (27: 4 lanes a query, 125: 16)
-// with the fit `fit`.
+// The instance of walk W, gathering the block or not (G), at m candidates
+// (27: 4 lanes a query, 125: 16) with the fit `fit`.
+template <int W, bool G>
+int launch_fit(Lio& c, int m, int fit, int* grid_out, cudaStream_t s) {
+  if (m == 27 && fit == FIT_TLS) return launch<W, G, 27, 4, FIT_TLS>(c, grid_out, s);
+  if (m == 27 && fit == FIT_REF) return launch<W, G, 27, 4, FIT_REF>(c, grid_out, s);
+  if (m == 125 && fit == FIT_TLS) return launch<W, G, 125, 16, FIT_TLS>(c, grid_out, s);
+  if (m == 125 && fit == FIT_REF) return launch<W, G, 125, 16, FIT_REF>(c, grid_out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The instance of walk W: with the block (c.cand and c.found both set,
+// `cache_knn`) its gather form, without it the walk at every search.
 template <int W>
 int launch_walk(Lio& c, int m, int fit, int* grid_out, cudaStream_t s) {
-  if (m == 27 && fit == FIT_TLS) return launch<W, 27, 4, FIT_TLS>(c, grid_out, s);
-  if (m == 27 && fit == FIT_REF) return launch<W, 27, 4, FIT_REF>(c, grid_out, s);
-  if (m == 125 && fit == FIT_TLS) return launch<W, 125, 16, FIT_TLS>(c, grid_out, s);
-  if (m == 125 && fit == FIT_REF) return launch<W, 125, 16, FIT_REF>(c, grid_out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if ((c.cand == nullptr) != (c.found == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return c.cand ? launch_fit<W, true>(c, m, fit, grid_out, s)
+                : launch_fit<W, false>(c, m, fit, grid_out, s);
 }
 
 }  // namespace
@@ -504,9 +541,9 @@ namespace {
 void fill(Lio& c, const void* p_imu, const void* bns, const void* pmask, const void* Pp,
           const void* prior_rot, const void* prior_x, const void* rot0, const void* x0,
           void* part, void* gsum, void* tickets, void* rot_out, void* x_out, void* Gmat,
-          void* sel_out, void* pabcd_out, void* ok_out, void* its, int n, int max_iter,
-          double threshold, float sq_dist_gate, float s_gate, float res_gate,
-          double conv_rot_deg, double conv_pos_cm) {
+          void* sel_out, void* pabcd_out, void* ok_out, void* its, void* cand_out,
+          void* found_out, int n, int max_iter, double threshold, float sq_dist_gate,
+          float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm) {
   c.p_imu = static_cast<const float*>(p_imu);
   c.bns = static_cast<const float*>(bns);
   c.pmask = static_cast<const uint8_t*>(pmask);
@@ -525,6 +562,8 @@ void fill(Lio& c, const void* p_imu, const void* bns, const void* pmask, const v
   c.pabcd_out = static_cast<float*>(pabcd_out);
   c.ok_out = static_cast<uint8_t*>(ok_out);
   c.its = static_cast<int*>(its);
+  c.cand = static_cast<float*>(cand_out);
+  c.found = static_cast<uint8_t*>(found_out);
   c.n = n;
   c.nch = (n + CH - 1) / CH;
   c.stride = ((c.nch < 1 ? 1 : c.nch) + 3) & ~3;
@@ -551,7 +590,10 @@ void fill(Lio& c, const void* p_imu, const void* bns, const void* pmask, const v
 // the launch and left at zero, with nch = ceil(n / 64), groups = ceil(nch
 // / 64), stride = max(nch, 1) and gstride = max(groups, 1), each rounded
 // up to a multiple of 4; outputs rot (3, 3), x (15,), Gmat (18, 6) f64, sel
-// (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32. All
+// (n,) u8, pabcd (n, 4) f32, plane_ok (n,) u8 and its () int32; under
+// `cache_knn` the block, scratch the first search writes and the later
+// ones read, cand_out (n, m, 3) f32 and found_out (n, m) u8 (found flags
+// everywhere, points where found), both null without it. All
 // contiguous on the device. The plane fit (`fit` 0: TLS, 1: the
 // reference's) and its threshold, the gates on nd2_5, s and |pd2|, and the
 // convergence thresholds in degrees and centimetres. `grid_out` receives
@@ -563,11 +605,10 @@ extern "C" int lio_cascade_launch(
     const void* voxel_size, const void* log2_dims, const void* offsets, const void* p_imu,
     const void* bns, const void* pmask, const void* Pp, const void* prior_rot,
     const void* prior_x, const void* rot0, const void* x0, void* part, void* gsum,
-    void* tickets,
-    void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out, void* ok_out,
-    void* its, int n, int m, int T, int fit, int max_iter, double threshold,
-    float sq_dist_gate, float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm,
-    int* grid_out, void* stream) {
+    void* tickets, void* rot_out, void* x_out, void* Gmat, void* sel_out, void* pabcd_out,
+    void* ok_out, void* its, void* cand_out, void* found_out, int n, int m, int T, int fit,
+    int max_iter, double threshold, float sq_dist_gate, float s_gate, float res_gate,
+    double conv_rot_deg, double conv_pos_cm, int* grid_out, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   Lio c{};
   c.mp = TiledView{static_cast<const int32_t*>(dir_check), static_cast<const int32_t*>(dir_slot),
@@ -575,8 +616,8 @@ extern "C" int lio_cascade_launch(
                    static_cast<const float*>(voxel_size), static_cast<const int32_t*>(log2_dims),
                    static_cast<const int32_t*>(offsets), T};
   fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
-       x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
-       s_gate, res_gate, conv_rot_deg, conv_pos_cm);
+       x_out, Gmat, sel_out, pabcd_out, ok_out, its, cand_out, found_out, n, max_iter,
+       threshold, sq_dist_gate, s_gate, res_gate, conv_rot_deg, conv_pos_cm);
   return launch_walk<TILED>(c, m, fit, grid_out, static_cast<cudaStream_t>(stream));
 }
 
@@ -589,9 +630,10 @@ extern "C" int lio_cascade_hashed_launch(
     const void* offsets, const void* p_imu, const void* bns, const void* pmask, const void* Pp,
     const void* prior_rot, const void* prior_x, const void* rot0, const void* x0, void* part,
     void* gsum, void* tickets, void* rot_out, void* x_out, void* Gmat, void* sel_out,
-    void* pabcd_out, void* ok_out, void* its, int n, int m, int T, int backend, int max_probe,
-    int fit, int max_iter, double threshold, float sq_dist_gate, float s_gate, float res_gate,
-    double conv_rot_deg, double conv_pos_cm, int* grid_out, void* stream) {
+    void* pabcd_out, void* ok_out, void* its, void* cand_out, void* found_out, int n, int m,
+    int T, int backend, int max_probe, int fit, int max_iter, double threshold,
+    float sq_dist_gate, float s_gate, float res_gate, double conv_rot_deg, double conv_pos_cm,
+    int* grid_out, void* stream) {
   if (n < 0 || T < 1 || (T & (T - 1)) || max_probe < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Lio c{};
@@ -600,30 +642,10 @@ extern "C" int lio_cascade_hashed_launch(
                     static_cast<const int32_t*>(log2_dims), static_cast<const int32_t*>(offsets),
                     T, max_probe, T >= 4 && (reinterpret_cast<uintptr_t>(chk) & 15) == 0};
   fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
-       x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
-       s_gate, res_gate, conv_rot_deg, conv_pos_cm);
+       x_out, Gmat, sel_out, pabcd_out, ok_out, its, cand_out, found_out, n, max_iter,
+       threshold, sq_dist_gate, s_gate, res_gate, conv_rot_deg, conv_pos_cm);
   auto s = static_cast<cudaStream_t>(stream);
   if (backend == HASH) return launch_walk<HASH>(c, m, fit, grid_out, s);
   if (backend == DENSE) return launch_walk<DENSE>(c, m, fit, grid_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The cascade on the candidate block gathered once at the prior pose
-// (`cache_knn`): cand (n, m, 3) f32 and found (n, m) u8, row i's block in
-// the order of the backend's knn_candidates, m 27 or 125; every other
-// argument as lio_cascade_launch's.
-extern "C" int lio_cascade_cached_launch(
-    const void* cand, const void* found, const void* p_imu, const void* bns, const void* pmask,
-    const void* Pp, const void* prior_rot, const void* prior_x, const void* rot0,
-    const void* x0, void* part, void* gsum, void* tickets, void* rot_out, void* x_out,
-    void* Gmat, void* sel_out, void* pabcd_out, void* ok_out, void* its, int n, int m, int fit,
-    int max_iter, double threshold, float sq_dist_gate, float s_gate, float res_gate,
-    double conv_rot_deg, double conv_pos_cm, int* grid_out, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  Lio c{};
-  c.cv = CachedView{static_cast<const float*>(cand), static_cast<const uint8_t*>(found), n};
-  fill(c, p_imu, bns, pmask, Pp, prior_rot, prior_x, rot0, x0, part, gsum, tickets, rot_out,
-       x_out, Gmat, sel_out, pabcd_out, ok_out, its, n, max_iter, threshold, sq_dist_gate,
-       s_gate, res_gate, conv_rot_deg, conv_pos_cm);
-  return launch_walk<CACHED>(c, m, fit, grid_out, static_cast<cudaStream_t>(stream));
 }

@@ -8,8 +8,8 @@ use, see _build.py); on a CPU tensor it runs `knn5_plane_plain`, the same
 arithmetic in torch ops, which is also the kernel's oracle on the card.
 The host loop `lio.lio_loop` calls it under `cache_knn` (`lio.host_search`:
 a mesh), on the block gathered once per frame; on one card the LIO cascade
-re-ranks that block itself (csrc/knn5_cached_walk.cuh) and this kernel is
-its oracle.
+writes that block at its first search and re-ranks it itself
+(csrc/knn5_cached_walk.cuh), and this kernel is its oracle.
 
 `knn5_plane_tiled` and `knn5_plane_hashed` are the LIO search itself in
 one launch: the map's neighbourhood gather (tiled_map.knn_candidates,

@@ -8,22 +8,26 @@ gathered once at the prior pose, as one cooperative launch of
 csrc/lio_cascade.cu: every iteration's search, gates, H rows, [HᵀH₆ |
 Hᵀz] and f64 step on the card, with no host read and no launch between
 iterations. The search is the walk of csrc/knn5_tiled_walk.cuh on the
-tiled map (which knn5_plane_tiled.cu runs alone), of
+tiled map (which knn5_plane_tiled.cu runs alone) or of
 csrc/knn5_hashed_walk.cuh on the hash map or the dense grid (which
-knn5_plane_hashed.cu runs alone), or of csrc/knn5_cached_walk.cuh on the
-gathered block (knn5_plane.cu's re-rank); then the TLS fit or, with
-`plane_fit="ref"`, the reference's f64 fit (csrc/plane_fit.cuh,
-plane.fit_plane_ref's order). It takes CUDA tensors only. Its plain
-version is the host loop `lio.lio_loop` with `lio.host_search` (one
-search per search iteration, the gates and rows in torch ops,
-`fixed_order_sum` and one `photometric_step` per iteration, one flag
-read), which the CPU runs. Contract on the card against that loop: with
-the step kernel every output bit-equal (rot, x, G, sel, pabcd, plane_ok,
-iterations), its search the kernel (`knn5_plane_tiled`,
+knn5_plane_hashed.cu runs alone); under `cache_knn` the first search is
+that walk's gather form, which also writes the candidate block (the
+backend's knn_candidates at the start pose) into scratch, and every later
+search re-ranks the block (csrc/knn5_cached_walk.cuh, knn5_plane.cu's
+re-rank); then the TLS fit or, with `plane_fit="ref"`, the reference's
+f64 fit (csrc/plane_fit.cuh, plane.fit_plane_ref's order). It takes CUDA
+tensors only. Its plain version is the host loop `lio.lio_loop` with
+`lio.host_search` (one search per search iteration, on the block that
+knn_candidates gathers in torch ops under `cache_knn`, the gates and rows
+in torch ops, `fixed_order_sum` and one `photometric_step` per iteration,
+one flag read), which the CPU runs. Contract on the card against that
+loop: with the step kernel every output bit-equal (rot, x, G, sel, pabcd,
+plane_ok, iterations), its search the kernel (`knn5_plane_tiled`,
 `knn5_plane_hashed`, `knn5_plane`; with the reference's fit the
 backend's knn or topk_from_candidates, then fit_plane_ref) or the plain
 version; all plain (that search and `photometric_step_plain`), equal
-iterations and the pose within 1e-9.
+iterations and the pose within 1e-9; the block equal to knn_candidates'
+(the found flags, and the points where found).
 
 `fixed_order_sum` is the order in which both sum the per-row products of
 [HᵀH₆ | Hᵀz]: a halving tree over each chunk of CHUNK rows (the kernel's
@@ -112,7 +116,7 @@ def _launcher():
     from . import _build
 
     fn = _build.load("lio_cascade").lio_cascade_launch
-    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + _TAIL
+    fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + _TAIL
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
 
@@ -122,17 +126,7 @@ def _hashed_launcher():
     from . import _build
 
     fn = _build.load("lio_cascade").lio_cascade_hashed_launch
-    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + _TAIL
-    fn.restype = ctypes.c_int
-    return _build.profiled("lio_cascade", fn)
-
-
-@functools.cache
-def _cached_launcher():
-    from . import _build
-
-    fn = _build.load("lio_cascade").lio_cascade_cached_launch
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + _TAIL
+    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + _TAIL
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
 
@@ -144,13 +138,21 @@ def map_kind(m) -> str:
     return ("hash", "dense")[_hashed_module(m)[1]]
 
 
-def check_block(cand, found, n: int, radius: int, dev):
-    """The gathered candidate block of `cache_knn`: cand (n, M, 3) f32 and
-    found (n, M) bool, M = (2r+1)^3 of the radius (1 or 2), contiguous on
-    `dev`. Raises ValueError or TypeError."""
+def check_radius(radius: int):
+    """The kernel's neighbourhoods: radius 1 or 2 (27 or 125 candidates).
+    Raises ValueError."""
     if radius not in (1, 2):
         raise ValueError(f"lio_cascade: radius {radius}; the kernel takes 1 or 2 "
                          "(27 or 125 candidates)")
+
+
+def check_block(cand, found, n: int, radius: int, dev):
+    """The buffers that receive `cache_knn`'s candidate block: cand (n, M,
+    3) f32 and found (n, M) bool, M = (2r+1)^3 of the radius (1 or 2),
+    contiguous on `dev`. Raises ValueError or TypeError."""
+    check_radius(radius)
+    if cand is None or found is None:
+        raise ValueError("lio_cascade: give the block's points and found flags together")
     M = (2 * radius + 1) ** 3
     _require("lio_cascade: cand", cand, (n, M, 3), F32, dev)
     _require("lio_cascade: found", found, (n, M), torch.bool, dev)
@@ -158,7 +160,7 @@ def check_block(cand, found, n: int, radius: int, dev):
 
 def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: int,
                 radius: int, threshold: float, gates, conv, max_probe: int = 12,
-                cand=None, found=None, plane_fit: str = "tls"):
+                cache_knn: bool = False, plane_fit: str = "tls", block=None):
     """The iterated EKF on the map `m` (tiled_map.TiledMap,
     voxel_map.VoxelMap with `max_probe` slots a voxel, or dense_map.DenseMap;
     radius 1 or 2: 27 or 125 candidates; the plane fit's `threshold`, the
@@ -167,37 +169,42 @@ def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: 
     grav] (15,), f64) toward the prior (prior_rot, prior_x, P' = prior.cov /
     laser_point_cov (18, 18)), for the scan p_imu (N, 3) f32 in the IMU
     frame with bns = |p_body|^(1/2) (N,) f32 and pmask (N,) bool, in one
-    cooperative launch on the current stream. With `cand` (N, M, 3) f32 and
-    `found` (N, M) bool, the block that `cache_knn` gathered from `m` at
-    the prior pose, every search re-ranks that block (the map is not read);
-    `plane_fit` "tls" (the centred TLS fit) or "ref" (the reference's).
-    Counted in `lio_cascade.launches` and by map (`by_map`), by search
-    (`by_search`: "walk" or "cached") and by fit (`by_fit`); the blocks
-    launched in `lio_cascade.grid`. Returns (rot (3, 3), x (15,), G =
+    cooperative launch on the current stream. With `cache_knn` the first
+    search, at the start pose (rot, x), writes the candidate block (N, M,
+    3) f32 and (N, M) bool it walks (the backend's knn_candidates there:
+    found flags, and points where found) and every later search re-ranks
+    that block (the map is not read again); the block is scratch from the
+    caching allocator, or the caller's buffers `block` = (cand, found)
+    (check_block), which then hold it after the launch. `plane_fit` "tls"
+    (the centred TLS fit) or "ref" (the reference's). Counted in
+    `lio_cascade.launches` and by map (`by_map`), by search (`by_search`:
+    "walk" or "gather") and by fit (`by_fit`); the blocks launched in
+    `lio_cascade.grid`. Returns (rot (3, 3), x (15,), G =
     K·HᵀH₆ (18, 6) f64 of the last iteration, sel (N,) bool, pabcd (N, 4)
     f32, plane_ok (N,) bool, iterations () int32), all on the card; nothing
     is read back. A tensor on any other device raises: the CPU runs
     `lio.lio_loop`. So does a card on which the grid cannot be
     co-resident."""
-    if p_imu.device.type != "cuda":
-        raise ValueError(f"lio_cascade: the kernel needs CUDA tensors, got {p_imu.device}")
     if plane_fit not in FITS:
         raise ValueError(f"lio_cascade: plane_fit {plane_fit!r}: must be 'tls' or 'ref'")
-    if (cand is None) != (found is None):
-        raise ValueError("lio_cascade: give the candidate block and its found flags "
-                         "together")
+    check_radius(radius)
+    if block is not None and not cache_knn:
+        raise ValueError("lio_cascade: a block is written under cache_knn only")
+    if p_imu.device.type != "cuda":
+        raise ValueError(f"lio_cascade: the kernel needs CUDA tensors, got {p_imu.device}")
     kind = map_kind(m)
     dev = p_imu.device
     N = p_imu.shape[0]
-    if cand is not None:
-        _require("lio_cascade: p_imu", p_imu, (N, 3), F32, dev)
-        check_block(cand, found, N, radius, dev)
-        if N >= 1 << 26:
-            raise ValueError("lio_cascade: too many points")
-    elif kind == "tiled":
+    if kind == "tiled":
         _check_tiled(m, p_imu, radius)
     else:
         _check_hashed(m, p_imu, radius, max_probe)
+    M = (2 * radius + 1) ** 3
+    if cache_knn:
+        if block is None:
+            block = (torch.empty((N, M, 3), dtype=F32, device=dev),
+                     torch.empty((N, M), dtype=torch.bool, device=dev))
+        check_block(*block, N, radius, dev)
     _require("lio_cascade: bns", bns, (N,), F32, dev)
     _require("lio_cascade: pmask", pmask, (N,), torch.bool, dev)
     _check_step("lio_cascade", rot, x, prior_rot, prior_x, P_)
@@ -217,16 +224,12 @@ def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: 
     ptrs = [t.data_ptr() for t in (
         p_imu, bns, pmask, P_, prior_rot, prior_x, rot, x, part, gsum,
         _group_tickets(dev, stream, tick_s[0]), rot_out, x_out, Gmat, sel, pabcd, plane_ok,
-        its)]
-    M = (2 * radius + 1) ** 3
+        its)] + ([t.data_ptr() for t in block] if cache_knn else [None, None])
     fit = FITS[plane_fit]
     tail = (int(max_iter), float(threshold), *(float(g) for g in gates),
             *(float(c) for c in conv))
     grid = ctypes.c_int(0)
-    if cand is not None:
-        err = _cached_launcher()(cand.data_ptr(), found.data_ptr(), *ptrs, N, M, fit, *tail,
-                                 ctypes.byref(grid), stream)
-    elif kind == "tiled":
+    if kind == "tiled":
         offs = tm.neighbor_offsets(radius, dev)
         err = _launcher()(m.dir_check.data_ptr(), m.dir_slot.data_ptr(), m.cell_check.data_ptr(),
                           m.pts.data_ptr(), m.voxel_size.data_ptr(), m.log2_dims.data_ptr(),
@@ -243,7 +246,7 @@ def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: 
         raise RuntimeError(f"lio_cascade: kernel launch failed (cudaError {err})")
     lio_cascade.launches += 1
     lio_cascade.by_map[kind] += 1
-    lio_cascade.by_search["walk" if cand is None else "cached"] += 1
+    lio_cascade.by_search["gather" if cache_knn else "walk"] += 1
     lio_cascade.by_fit[plane_fit] += 1
     lio_cascade.grid = grid.value
     return rot_out, x_out, Gmat, sel, pabcd, plane_ok, its
@@ -251,6 +254,6 @@ def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: 
 
 lio_cascade.launches = 0
 lio_cascade.by_map = {"tiled": 0, "hash": 0, "dense": 0}
-lio_cascade.by_search = {"walk": 0, "cached": 0}
+lio_cascade.by_search = {"walk": 0, "gather": 0}
 lio_cascade.by_fit = {"tls": 0, "ref": 0}
 lio_cascade.grid = 0

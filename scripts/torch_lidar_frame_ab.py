@@ -2,7 +2,8 @@
 in turns on one card.
 
 Usage: python scripts/torch_lidar_frame_ab.py [--variant TREE ...] [--arm ARM ...]
-           [--paths lio livo hash dense cache_knn ref] [--rounds 3] [--duration 6] [--profile]
+           [--paths lio livo hash dense cache_knn ref hash_cache_knn dense_cache_knn]
+           [--rounds 3] [--duration 6] [--profile]
            [--kernel-rounds N] [--stamps]
 
 A variant is a tree and an arm. Each tree holds `fastlivo_tpu_torch/` and
@@ -30,8 +31,9 @@ at the shipped capacities, camera off, 24000-point scans of
 SyntheticDataset(duration, seed 0)), the same on the hash map ("hash":
 2^20 slots, probe 12) or the dense grid ("dense": 256 x 256 x 64 cells),
 chip_smoke.py's paths (a) and (b), the tiled map with `cache_knn`
-("cache_knn") or `plane_fit: ref` ("ref"), its paths (c) and (d), or its
-LIVO per-frame path
+("cache_knn") or `plane_fit: ref` ("ref"), its paths (c) and (d), the
+hash map or the dense grid with `cache_knn` ("hash_cache_knn",
+"dense_cache_knn"), or its LIVO per-frame path
 (chip_smoke.livo_config: a 640x512 camera), the same recorded datasets
 every run. It reports the steady lidar frame's median and p90 host wall
 (FrameOutput.timing["total"], the stats read included), the wall per
@@ -91,8 +93,9 @@ MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel",
                      "tiled_insert_cells_kernel", "undistort_kernel",
                      "hash_insert_keys_kernel", "hash_insert_probe_kernel",
                      "dense_insert_kernel", "flat_delete_boxes_kernel")
-# lidar only: tiled, hash and dense maps, tiled with cache_knn, with plane_fit ref
-LIDAR_PATHS = ("lio", "hash", "dense", "cache_knn", "ref")
+# lidar only: tiled, hash and dense maps, tiled with cache_knn, with plane_fit ref, hash
+# and dense with cache_knn
+LIDAR_PATHS = ("lio", "hash", "dense", "cache_knn", "ref", "hash_cache_knn", "dense_cache_knn")
 ARMS = ("as shipped", "host loop, step kernel", "host loop, torch step", "plain selection",
         "photometric host loop", "cascade, synchronised")
 
@@ -134,19 +137,19 @@ class Worker:
         self.configs = {"lio": lio_config, "livo": cs.livo_config,
                         "hash": lambda: lio_config("hash"), "dense": lambda: lio_config("dense"),
                         "cache_knn": lambda: lio_config(cache_knn=True),
-                        "ref": lambda: lio_config(plane_fit="ref")}
+                        "ref": lambda: lio_config(plane_fit="ref"),
+                        "hash_cache_knn": lambda: lio_config("hash", cache_knn=True),
+                        "dense_cache_knn": lambda: lio_config("dense", cache_knn=True)}
         lio_data = cs.Recorded(SyntheticDataset(
             duration=duration, points_per_scan=24000, lidar_noise=0.004, seed=0))
-        self.data = {"lio": lio_data, "hash": lio_data, "dense": lio_data,
-                     "cache_knn": lio_data, "ref": lio_data,
+        self.data = {**{p: lio_data for p in LIDAR_PATHS},
                      "livo": cs.Recorded(cs.livo_dataset(
                          cs.livo_config(), duration=duration, points_per_scan=24000,
                          lidar_noise=0.004, seed=0))}
         lio_prof = cs.Recorded(SyntheticDataset(duration=4.0, points_per_scan=24000,
                                                 lidar_noise=0.004, seed=1))
         self.profile_data = {
-            "lio": lio_prof, "hash": lio_prof, "dense": lio_prof, "cache_knn": lio_prof,
-            "ref": lio_prof,
+            **{p: lio_prof for p in LIDAR_PATHS},
             "livo": cs.Recorded(cs.livo_dataset(cs.livo_config(), duration=4.0,
                                                 points_per_scan=24000, lidar_noise=0.004,
                                                 seed=1))}

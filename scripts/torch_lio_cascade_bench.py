@@ -27,12 +27,14 @@ is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh) and launched
 launch: each phase summed over the iterations, the median over the
 launches (torch_photometric_bench.stamped_phases).
 
-Each `--route` (walk_tls, the default's; cached_tls: the block that
-`cache_knn` gathers at the start pose, tiled_map.knn_candidates;
-walk_ref and cached_ref: the reference's plane fit) runs this checkout's
-cascade on the same scan and map, held bit for bit against the host loop
-lio.lio_loop with lio.host_search (the kernel search, or the backend's
-knn / topk_from_candidates and fit_plane_ref) and the step kernel, then
+Each `--route` (walk_tls, the default's; gather_tls: `cache_knn`, the
+candidate block written by the cascade's first search and re-ranked at
+the later ones, the host loop's gathered at the start pose by
+tiled_map.knn_candidates; walk_ref and gather_ref: the reference's plane
+fit) runs this checkout's cascade on the same scan and map, held bit for
+bit against the host loop lio.lio_loop with lio.host_search (the kernel
+search, or the backend's knn / topk_from_candidates and fit_plane_ref)
+and the step kernel, then
 both timed in turns (cascade, loop, loop, cascade): the cascade as the
 variants are (queued calls, chip_smoke.time_ms), the loop one call alone
 between two CUDA events (chip_smoke.event_ms: it reads its convergence
@@ -104,31 +106,23 @@ def same(got, want) -> bool:
         torch.equal(x, y) for x, y in zip(got[:6], want[:6]))
 
 
-ROUTES = ("walk_tls", "cached_tls", "walk_ref", "cached_ref")
+ROUTES = ("walk_tls", "gather_tls", "walk_ref", "gather_ref")
 
 
 def route_args(a, route):
-    """The cascade's arguments `a` for a route: the walk's, or the block
-    tiled_map.knn_candidates gathers at the start pose, and the fit."""
-    from fastlivo_tpu_torch import lio
-    from fastlivo_tpu_torch.ops import tiled_map as tm
-
+    """The cascade's arguments `a` for a route: cache_knn or not, and the
+    fit."""
     search, fit = route.split("_")
-    cand = found = None
-    if search == "cached":
-        m, body, rot, x, radius = a[0], a[1], a[4], a[5], a[10]
-        cand, found = tm.knn_candidates(m, lio.world_points(body, rot, x[0:3]), radius)
-    return (*a, 12, cand, found, fit)
+    return (*a, 12, search == "gather", fit)
 
 
 def route_loop(b):
     """lio.lio_loop on a route's arguments `b`, its search lio.host_search
-    with the kernels, the step kernel."""
-    from fastlivo_tpu_torch import lio
+    with the kernels (under cache_knn on the block knn_candidates gathers
+    at the start pose, chip_smoke.gathered_block), the step kernel."""
+    import chip_smoke
 
-    m, radius, threshold, probe, cand, found, fit = b[0], b[10], b[11], *b[14:18]
-    return lio.lio_loop(lio.host_search(m, radius, threshold, probe, fit, cand, found),
-                        *b[1:10])
+    return chip_smoke.lio_loop_on(b)
 
 
 def bind(lib):
@@ -140,7 +134,9 @@ def bind(lib):
     signature is passed on with those pointers in place of gsum and
     tickets (this checkout's part is at least as large as it needs). A
     launcher without the fit argument (the TLS fit only, its threshold an
-    f32) gets the call without it."""
+    f32) gets the call without it, and one without the candidate block's
+    two pointers (after the iteration count; null on the walk route) the
+    call without those."""
     import torch
 
     from fastlivo_tpu_torch.ops import _build
@@ -150,21 +146,27 @@ def bind(lib):
     fn.restype = ctypes.c_int
     tail = [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_double] * 2 \
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    if b"int fit" in lib.source:  # this checkout's signature
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + lc._TAIL
+    if b"void* cand_out" in lib.source:  # this checkout's signature
+        fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + lc._TAIL
         call = _build.profiled("lio_cascade", fn)
+    elif b"int fit" in lib.source:  # no block: the call without its two pointers
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + lc._TAIL
+
+        def call(*args):
+            with torch._C._profiler._RecordFunctionFast("lio_cascade"):
+                return fn(*args[:25], *args[27:])
     elif b"void* part2" not in lib.source:  # no fit: the TLS fit, f32 threshold
         fn.argtypes = [ctypes.c_void_p] * 25 + tail
 
         def call(*args):
             with torch._C._profiler._RecordFunctionFast("lio_cascade"):
-                return fn(*args[:28], *args[29:])
+                return fn(*args[:25], *args[27:30], *args[31:])
     else:
         fn.argtypes = [ctypes.c_void_p] * 26 + tail
         scratch = {}
 
-        def call(*args):  # 15 inputs, part, gsum, tickets, 7 outputs, then n, ...
-            n = args[25]
+        def call(*args):  # 15 inputs, part, gsum, tickets, 7 outputs, the block, n, ...
+            n = args[27]
             if n not in scratch:
                 nch = max(-(-n // 64), 1)
                 scratch[n] = [torch.empty(24, dtype=torch.float64, device="cuda"),
@@ -172,7 +174,8 @@ def bind(lib):
                               torch.empty((max(-(-nch // 64), 1), 42), device="cuda")]
             cur, ctl, part2 = (t.data_ptr() for t in scratch[n])
             with torch._C._profiler._RecordFunctionFast("lio_cascade"):
-                return fn(*args[:15], cur, ctl, args[15], part2, *args[18:28], *args[29:])
+                return fn(*args[:15], cur, ctl, args[15], part2, *args[18:25], *args[27:30],
+                          *args[31:])
     call.lib = lib
     return call
 

@@ -29,7 +29,9 @@ and dense maps: their operations on the card array-identical to the
 CPU's, the standalone knn5_plane kernel bit-exact against its plain
 version on their candidate blocks, and their pipelines searching through
 knn5_plane_hashed (never knn5_plane, the tiled kernel or
-knn_candidates); cache_knn through one gather per frame and knn5_plane.
+knn_candidates); cache_knn on every map through one lio_cascade launch a
+frame whose first search writes the candidate block (no knn_candidates
+call), the block equal to knn_candidates' at the prior pose.
 
 The photometric cascade bit-equal to the host loop vio.photometric_loop
 with the step kernel, also at one tracked point, at more points than the
@@ -984,29 +986,36 @@ def test_hash_and_dense_pipelines_run_through_the_fused_search(cuda, backend, mo
     assert np.sqrt(np.mean(np.square(e))) < 0.02
 
 
-@pytest.mark.parametrize("backend", ["tiled", "hash"])
+@pytest.mark.parametrize("backend", ["tiled", "hash", "dense"])
 def test_cache_knn_runs_through_knn5_plane(cuda, backend, monkeypatch):
-    """Under cache_knn the search gathers once per frame that runs the EKF
-    (the backend's knn_candidates) and every EKF is one lio_cascade launch
-    that re-ranks that block at every search (counted as "cached"): no
-    knn5_plane launch (the block's standalone kernel is the cascade's
-    oracle), no fused search."""
+    """Under cache_knn every EKF is one lio_cascade launch (counted as
+    "gather" and under its map) whose first search writes the candidate
+    block and whose later searches re-rank it: the frame makes no
+    knn_candidates call, no knn5_plane launch (the block's standalone
+    kernel is the cascade's oracle) and no fused search; it tracks the
+    ground truth (ATE < 2 cm)."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     pipe = small_lio(cuda, backend, cache_knn=True)
     calls = []
-    gathers_spied(monkeypatch, {"tiled": tm, "hash": vm}[backend], calls)
+    gathers_spied(monkeypatch, {"tiled": tm, "hash": vm, "dense": dm}[backend], calls)
     before = counts()
-    c0 = (lio_cascade.lio_cascade.launches, lio_cascade.lio_cascade.by_search["cached"])
+    c = lio_cascade.lio_cascade
+    c0 = (c.launches, c.by_search["gather"], c.by_map[backend])
     outs = pipe.spin()
     launched = {k: v - before[k] for k, v in counts().items()}
-    cascades = (lio_cascade.lio_cascade.launches - c0[0],
-                lio_cascade.lio_cascade.by_search["cached"] - c0[1])
+    cascades = (c.launches - c0[0], c.by_search["gather"] - c0[1], c.by_map[backend] - c0[2])
     steady = [o for o in outs if o.iters > 0]
-    assert len(steady) > 5 and len(steady) <= len(calls) <= len(outs)
-    assert cascades[0] == cascades[1] == len(calls)
+    assert len(steady) > 5 and not calls
+    assert len(outs) >= cascades[0] == cascades[1] == cascades[2] >= len(steady)
     assert launched == {"knn5_plane": 0, "knn5_plane_tiled": 0, "knn5_plane_hashed": 0}
+    ds = SyntheticDataset(**LIO_DS)
+    base = ds.traj.base_pos
+    e = [np.linalg.norm(o.pos - (ds.traj.pose(o.t)[1] - base))
+         for o in outs if o.t >= ds.traj.t_static + 0.5]
+    assert np.sqrt(np.mean(np.square(e))) < 0.02
 
 
 def colliding_keys(T: int):
@@ -1659,33 +1668,41 @@ def test_lio_cascade_matches_the_host_loop(cuda, case, monkeypatch):
         assert 2 <= its <= max_iter + 1
 
 
-@pytest.mark.parametrize("route", ["tiled", "hash", "dense", "cache_knn", "ref"])
-def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
+@pytest.mark.parametrize("route", ["tiled", "hash", "dense", "cache_knn", "ref",
+                                   "hash_cache_knn", "dense_cache_knn"])
+def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route, monkeypatch):
     """lio_update on one card: on the tiled, hash and dense maps with the
-    TLS fit, on the tiled map with cache_knn and with plane_fit ref, one
-    lio_cascade launch (counted by map, search and fit), no search launch
-    (knn5_plane, knn5_plane_tiled, knn5_plane_hashed) and no synchronising
-    call (torch's sync debug mode set to raise), iters a device int."""
+    TLS fit, on each map with cache_knn and on the tiled map with
+    plane_fit ref, one lio_cascade launch (counted by map, search and
+    fit), no search launch (knn5_plane, knn5_plane_tiled,
+    knn5_plane_hashed), no knn_candidates call (the cascade writes
+    cache_knn's block) and no synchronising call (torch's sync debug mode
+    set to raise), iters a device int."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade
     from fastlivo_tpu_torch.state import identity_state
 
     m, body, pmask, rot, x, P_, max_iter, radius = lio_case(cuda, "frame")
-    if route in ("hash", "dense"):
-        m = hash_and_dense_maps(cuda)[route == "dense"]
+    kind = route.split("_")[0] if route.split("_")[0] in ("hash", "dense") else "tiled"
+    if kind != "tiled":
+        m = hash_and_dense_maps(cuda)[kind == "dense"]
+    cache_knn = route.endswith("cache_knn")
     s = identity_state(cuda)
     s = s._replace(rot=rot, pos=x[0:3].clone(), cov=P_ * 0.001)
     eye = torch.eye(3, device=cuda)
     call = lambda: lio.lio_update(  # noqa: E731
         s, m, body, pmask, eye, torch.zeros(3, device=cuda), 0.001, max_iter=max_iter,
-        knn_radius=radius, cache_knn=route == "cache_knn",
-        plane_fit="ref" if route == "ref" else "tls")
+        knn_radius=radius, cache_knn=cache_knn, plane_fit="ref" if route == "ref" else "tls")
     want = call()  # built and warm
     torch.cuda.synchronize()
-    kind = route if route in ("hash", "dense") else "tiled"
+    gathers = []
+    gathers_spied(monkeypatch, {"tiled": tm, "hash": vm, "dense": dm}[kind], gathers)
     c = lio_cascade.lio_cascade
     counts = lambda: (c.launches, c.by_map[kind],  # noqa: E731
-                      c.by_search["cached" if route == "cache_knn" else "walk"],
+                      c.by_search["gather" if cache_knn else "walk"],
                       c.by_fit["ref" if route == "ref" else "tls"],
                       knn_plane.knn5_plane_tiled.launches, knn_plane.knn5_plane_hashed.launches,
                       knn_plane.knn5_plane.launches)
@@ -1697,7 +1714,7 @@ def test_lio_update_on_the_card_takes_the_cascade_on_the_tiled_map(cuda, route):
         torch.cuda.set_sync_debug_mode("default")
     n1 = counts()
     assert torch.equal(got.state.pos, want.state.pos)
-    assert n1 == (n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1) + n0[4:]
+    assert n1 == (n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1) + n0[4:] and not gathers
     assert isinstance(got.iters, torch.Tensor) and got.iters.device.type == "cuda"
     assert int(got.n_active) > 1000
 
@@ -1766,7 +1783,8 @@ def route_case(device, scene, backend, radius):
 
 def route_block(m, body, rot, x, radius, probe):
     """The block cache_knn gathers: the backend's knn_candidates at the
-    world points of the pose (rot, x)."""
+    world points of the pose (rot, x), in torch ops (what the host loop
+    re-ranks, and what the cascade's first search must write)."""
     from fastlivo_tpu_torch import lio
 
     return lio.map_module(m).knn_candidates(m, lio.world_points(body, rot, x[0:3]), radius,
@@ -1774,9 +1792,18 @@ def route_block(m, body, rot, x, radius, probe):
 
 
 ROUTES = [("frame", b, r, s, f) for b in ("tiled", "hash", "dense") for r in (1, 2)
-          for s in ("walk", "cached") for f in ("tls", "ref")] + [
+          for s in ("walk", "gather") for f in ("tls", "ref")] + [
     (sc, b, 1, s, f) for sc in ("ties", "sparse") for b in ("tiled", "hash", "dense")
-    for s in ("walk", "cached") for f in ("tls", "ref")]
+    for s in ("walk", "gather") for f in ("tls", "ref")]
+
+
+def assert_block_equal(got, want, label=""):
+    """A block the cascade wrote (cand, found) against knn_candidates'
+    (cand, found): the found flags everywhere, the points where found
+    (a row not found holds no point)."""
+    (gc, gf), (wc, wf) = got, want
+    assert torch.equal(gf, wf), label
+    assert torch.equal(gc[wf], wc[wf]), label
 
 
 @pytest.mark.parametrize("scene,backend,radius,search,fit", ROUTES)
@@ -1785,14 +1812,17 @@ def test_lio_cascade_on_every_route_matches_the_host_loop(cuda, scene, backend, 
     """Every instance of the cascade (map x radius x search x fit) against
     lio_loop on its own inputs, its search lio.host_search: with the step
     kernel every output bit-equal and the iterations equal, the loop's
-    search the kernel (knn5_plane_tiled, knn5_plane_hashed, or knn5_plane
-    on the block cache_knn gathers; with the reference's fit the backend's
+    search the kernel (knn5_plane_tiled, knn5_plane_hashed, or, under
+    cache_knn ("gather"), knn5_plane on the block knn_candidates gathers
+    in torch ops at the start pose; with the reference's fit the backend's
     knn or topk_from_candidates, then fit_plane_ref) and also the plain
     search; all plain (photometric_step_plain) the same iterations and the
-    pose within 1e-9. One launch, counted by map, search and fit. The
-    lattice scenes hold exact ties (more equidistant candidates than picks:
-    the lowest rows win, as the stable sort's and the min-select's) and
-    neighbourhoods with fewer than five points."""
+    pose within 1e-9. One launch, counted by map, search and fit. Under
+    cache_knn the block the launch's first search wrote (into buffers
+    handed in) equals knn_candidates' (flags everywhere, points where
+    found). The lattice scenes hold exact ties (more equidistant
+    candidates than picks: the lowest rows win, as the stable sort's and
+    the min-select's) and neighbourhoods with fewer than five points."""
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade
 
@@ -1805,7 +1835,11 @@ def test_lio_cascade_on_every_route_matches_the_host_loop(cuda, scene, backend, 
         assert int(((d2[:, 4] == d2[:, 5]) & torch.isfinite(d2[:, 5])).sum()) > 500
     if scene == "sparse":
         assert int((found.sum(1) < 5).sum()) > 500
-    if search == "walk":
+    gather = search == "gather"
+    block = None
+    if gather:  # NaN points and set flags: what the launch leaves unwritten shows
+        block = (torch.full_like(cand, float("nan")), torch.ones_like(found))
+    else:
         cand = found = None
     bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
     c = lio_cascade.lio_cascade
@@ -1813,8 +1847,10 @@ def test_lio_cascade_on_every_route_matches_the_host_loop(cuda, scene, backend, 
                       c.by_fit[fit])
     n0 = counts()
     got = c(m, body, bns, pmask, rot, x, rot, x, P_, max_iter, radius, lio.PLANE_THRESH,
-            lio.GATES, lio.CONV, probe, cand, found, fit)
+            lio.GATES, lio.CONV, probe, gather, fit, block)
     assert counts() == tuple(v + 1 for v in n0)
+    if gather:
+        assert_block_equal(block, (cand, found), (scene, backend, radius, fit))
     its = int(got[6])
 
     def loop(plain):
@@ -1834,8 +1870,10 @@ def test_lio_cascade_on_every_route_matches_the_host_loop(cuda, scene, backend, 
 
 
 def test_lio_cascade_refuses_bad_blocks(cuda):
-    """The cached launch takes the block of the radius's M, f32 and bool,
-    contiguous on the card, given with its found flags; and a known fit."""
+    """The gather launch (cache_knn) writes a block handed in only when it
+    has the radius's M, f32 and bool, contiguous on the card, and given
+    with its found flags; a block without cache_knn, a radius other than 1
+    or 2 and an unknown fit are refused too. Nothing is launched."""
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade
 
@@ -1844,14 +1882,19 @@ def test_lio_cascade_refuses_bad_blocks(cuda):
     bns = torch.ones(body.shape[0], device=cuda)
     good = dict(m=m, p_imu=body, bns=bns, pmask=pmask, rot=rot, x=x, prior_rot=rot,
                 prior_x=x, P_=P_, max_iter=max_iter, radius=1, threshold=lio.PLANE_THRESH,
-                gates=lio.GATES, conv=lio.CONV, cand=cand, found=found)
+                gates=lio.GATES, conv=lio.CONV, cache_knn=True)
     n0 = lio_cascade.lio_cascade.launches
-    for kw, err in ((dict(cand=cand[:, :26].contiguous()), ValueError),
-                    (dict(radius=2), ValueError), (dict(cand=cand[:-1]), ValueError),
-                    (dict(cand=cand.double()), TypeError),
-                    (dict(found=found.to(torch.uint8)), TypeError),
-                    (dict(found=None), ValueError), (dict(cand=cand.cpu()), ValueError),
-                    (dict(cand=cand.transpose(0, 1).contiguous().transpose(0, 1)), ValueError),
+    for kw, err in ((dict(block=(cand[:, :26].contiguous(), found)), ValueError),
+                    (dict(block=(cand, found), radius=2), ValueError),
+                    (dict(block=(cand[:-1], found)), ValueError),
+                    (dict(block=(cand.double(), found)), TypeError),
+                    (dict(block=(cand, found.to(torch.uint8))), TypeError),
+                    (dict(block=(cand, None)), ValueError),
+                    (dict(block=(cand.cpu(), found)), ValueError),
+                    (dict(block=(cand.transpose(0, 1).contiguous().transpose(0, 1), found)),
+                     ValueError),
+                    (dict(block=(cand, found), cache_knn=False), ValueError),
+                    (dict(radius=3), ValueError), (dict(radius=0), ValueError),
                     (dict(plane_fit="svd"), ValueError), (dict(p_imu=body.double()), TypeError)):
         with pytest.raises(err):
             lio_cascade.lio_cascade(**{**good, **kw})
@@ -1994,7 +2037,7 @@ def hashed_cascade_write_only(dev, backend):
     grid = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     got = launch_guarded(lambda *v: lc._hashed_launcher()(
-        *[t.data_ptr() for t in v], n, offs.shape[0], m.check.shape[0],
+        *[t.data_ptr() for t in v], None, None, n, offs.shape[0], m.check.shape[0],
         0 if backend == "hash" else 1, probe, 0, max_iter, lio.PLANE_THRESH, *lio.GATES,
         *lio.CONV, ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x],
         outs)
@@ -2006,21 +2049,36 @@ def hashed_cascade_write_only(dev, backend):
         assert_lio_equal(got, loop, (backend, plain_search))
 
 
-def cached_cascade_write_only(dev, fit):
-    """test_kernels_write_only_their_outputs' lio_cascade on the block
-    that cache_knn gathers from the tiled frame's map (its cached launch),
-    at 16379 rows and M = 27, with the fit `fit`: the block and every
-    other input unwritten, the outputs bit-equal to lio_loop's with
-    knn5_plane (or the reference's search) and with the plain search."""
+def gather_cascade_write_only(dev, backend, fit):
+    """test_kernels_write_only_their_outputs' lio_cascade under cache_knn
+    (its gather instance) on the tiled frame's map, the hash map (with
+    holes) or the dense grid, at 16379 rows and M = 27, with the fit
+    `fit`: every input unwritten, the block (an output) equal to
+    knn_candidates' at the start pose (flags everywhere, points where
+    found), the group tickets back at 0, the outputs bit-equal to
+    lio_loop's on that block with knn5_plane (or the reference's search)
+    and with the plain search."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade as lc
+    from fastlivo_tpu_torch.ops import voxel_map as vm
 
     n = 16379
-    m, body, pmask, rot, x, P_, max_iter, radius = lio_case(dev, "frame")
+    if backend == "tiled":
+        m, body, pmask, rot, x, P_, max_iter, radius = lio_case(dev, "frame")
+        probe, offs = 12, tm.neighbor_offsets(radius, dev)
+        maps = [m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs]
+        launcher, dims = lc._launcher(), (m.slot_key.shape[0],)
+    else:
+        m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(dev, backend, 1)
+        offs = vm.neighbor_offsets(radius, dev)
+        l2 = m.log2_dims if backend == "dense" else torch.zeros(3, dtype=torch.int32, device=dev)
+        maps = [m.check, m.pts, m.voxel_size, l2, offs]
+        launcher = lc._hashed_launcher()
+        dims = (m.check.shape[0], 0 if backend == "hash" else 1, probe)
     body, pmask = body[:n].contiguous(), pmask[:n].contiguous()
-    cand, found = route_block(m, body, rot, x, radius, 12)
+    cand, found = route_block(m, body, rot, x, radius, probe)
     bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
     f64 = dict(dtype=torch.float64, device=dev)
     part_s, gsum_s, tick_s = lc.scratch_shapes(n)
@@ -2029,19 +2087,21 @@ def cached_cascade_write_only(dev, fit):
             torch.empty(15, **f64), torch.empty((18, 6), **f64),
             torch.empty(n, dtype=torch.bool, device=dev), torch.empty((n, 4), device=dev),
             torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev)]
+            torch.empty((), dtype=torch.int32, device=dev),
+            torch.full_like(cand, float("nan")), torch.ones_like(found)]
     grid = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    got = launch_guarded(lambda *v: lc._cached_launcher()(
-        *[t.data_ptr() for t in v], n, 27, lc.FITS[fit], max_iter, lio.PLANE_THRESH,
-        *lio.GATES, *lio.CONV, ctypes.byref(grid), stream),
-        [cand, found, body, bns, pmask, P_, rot, x, rot, x], outs)
+    got = launch_guarded(lambda *v: launcher(
+        *[t.data_ptr() for t in v], n, offs.shape[0], *dims, lc.FITS[fit], max_iter,
+        lio.PLANE_THRESH, *lio.GATES, *lio.CONV, ctypes.byref(grid), stream),
+        maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
     assert not got[2].any()  # the group tickets left at 0
-    got = got[3:]
+    assert_block_equal(got[-2:], (cand, found), (backend, fit))
+    got = got[3:-2]
     for plain in (False, True):
-        search = lio.host_search(m, radius, lio.PLANE_THRESH, 12, fit, cand, found, plain)
+        search = lio.host_search(m, radius, lio.PLANE_THRESH, probe, fit, cand, found, plain)
         loop = lio.lio_loop(search, body, bns, pmask, rot, x, rot, x, P_, max_iter)
-        assert_lio_equal(got, loop, (fit, plain))
+        assert_lio_equal(got, loop, (backend, fit, plain))
 
 
 GUARD = 64  # sentinel elements before and after each array (keeps 16-byte alignment)
@@ -2090,7 +2150,11 @@ def launch_guarded(launch, inputs, outputs):
                                     "undistort_8200", "lio_cascade_hash", "lio_cascade_dense",
                                     "vio_select_p24", "vio_select_p64", "photometric_err_H_p24",
                                     "photometric_err_H_p96", "patches_and_grads_p96",
-                                    "lio_cascade_cached_tls", "lio_cascade_cached_ref",
+                                    "lio_cascade_gather_tiled_tls",
+                                    "lio_cascade_gather_tiled_ref",
+                                    "lio_cascade_gather_hash_tls", "lio_cascade_gather_hash_ref",
+                                    "lio_cascade_gather_dense_tls",
+                                    "lio_cascade_gather_dense_ref",
                                     "hash_insert_keys", "hash_insert_probe", "dense_insert",
                                     "flat_delete_boxes", "flat_delete_boxes_dense"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
@@ -2122,8 +2186,9 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     global scratch, an output here, back at 0 after the launch), undistort
     on an 8200-row table (searched in global memory). The instances past
     those: lio_cascade on the hash map (with holes) and on the dense grid,
-    and on the block that cache_knn gathers (its cached launch, with the
-    TLS fit and with the reference's);
+    and under cache_knn on each map (its gather instances, with the TLS fit
+    and with the reference's: the block it writes an output, equal to
+    knn_candidates' where that defines it);
     vio_select at patch size 24 (the wide tree, its cells in shared
     memory) and 64 (in the launch's device scratch, an output here);
     photometric_err_H at 24 and at 96 (the taps read in place), and
@@ -2141,8 +2206,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         return vio_write_only(cuda, kernel)
     if kernel.startswith("photometric") or kernel.startswith("patches"):
         return camera_write_only(cuda, kernel)
-    if kernel.startswith("lio_cascade_cached"):
-        return cached_cascade_write_only(cuda, kernel.split("_")[-1])
+    if kernel.startswith("lio_cascade_gather"):
+        return gather_cascade_write_only(cuda, *kernel.split("_")[-2:])
     if kernel.startswith("lio_cascade_"):
         return hashed_cascade_write_only(cuda, kernel.split("_")[-1])
     if kernel in ("tiled_delete_boxes", "voxel_centroids"):
@@ -2187,7 +2252,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
                 + [torch.empty((), dtype=torch.int32, device=cuda)]
             grid = ctypes.c_int(0)
             got = launch_guarded(lambda *v: lc._launcher()(
-                *ptr(*v), n, offs.shape[0], T, 0, max_iter, lio.PLANE_THRESH, *lio.GATES,
+                *ptr(*v), None, None, n, offs.shape[0], T, 0, max_iter, lio.PLANE_THRESH,
+                *lio.GATES,
                 *lio.CONV, ctypes.byref(grid), stream),
                 maps + [body, bns, pmask, P_, rot, x, rot, x], outs)
             assert not got[2].any()  # the group tickets left at 0
@@ -3177,8 +3243,8 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
 @pytest.mark.parametrize("option", ["cache_knn", "plane_fit_ref"])
 def test_lidar_frame_step_with_lio_options_makes_no_synchronising_call(cuda, monkeypatch,
                                                                        option):
-    """The same with cache_knn (the block gathered once, torch ops, and
-    one cached lio_cascade launch) and with plane_fit ref (the
+    """The same with cache_knn (one lio_cascade launch that writes the
+    candidate block at its first search) and with plane_fit ref (the
     reference's fit inside the launch): no synchronising call, the same
     bits as the step called without the mode."""
     no_sync_frame_step(cuda, monkeypatch, **{

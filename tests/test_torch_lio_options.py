@@ -1,11 +1,13 @@
 """The LIO options inside the one-launch cascade: `cache_knn` and `plane_fit: ref`.
 
 On one card `lio_update` runs every option as one lio_cascade launch: the
-block `cache_knn` gathers is re-ranked by csrc/knn5_cached_walk.cuh and
-the reference's plane is fitted by csrc/plane_fit.cuh's plane5_fit_ref,
-both held bit for bit against the host loop `lio.lio_loop` with
-`lio.host_search` on the card (tests/test_torch_cuda.py). Here, on the
-CPU, on seeded inputs (numpy):
+block `cache_knn` needs is written by that launch's first search (the map
+walk's gather form) and re-ranked by csrc/knn5_cached_walk.cuh at every
+later one, and the reference's plane is fitted by csrc/plane_fit.cuh's
+plane5_fit_ref, both held bit for bit against the host loop
+`lio.lio_loop` with `lio.host_search` on the block the backend's
+knn_candidates gathers in torch ops (tests/test_torch_cuda.py, `-m
+cuda`). Here, on the CPU, on seeded inputs (numpy):
   - `plane.fit_plane_ref`, its sums written out in the kernel's order,
     against the JAX package's `fit_plane_ref` in f64 within 1e-12 of each
     entry's magnitude (at least 1), gates equal: random neighbourhoods,
@@ -20,11 +22,14 @@ CPU, on seeded inputs (numpy):
     the min-select;
   - `lio_update` with `cache_knn`, with `plane_fit: ref` and with both, on
     the dense map and at radius 2 (tests/test_torch_lio.py holds the rest),
-    against the JAX package at test_torch_lio's tolerances;
+    against the JAX package at test_torch_lio's tolerances; with
+    `cache_knn` on the CPU one knn_candidates gather a call, on every map;
   - `host_search`, the loop's search, the same on the CPU with and without
     `plain`;
-  - the wrapper's refusals: CPU tensors, and blocks of the wrong shape,
-    dtype, device or layout (`check_block`).
+  - the wrapper's refusals, with no launch counted: CPU tensors on every
+    route, a radius other than 1 or 2, a block handed in without
+    `cache_knn`, and block buffers of the wrong shape, dtype, device or
+    layout (`check_block`).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,8 +41,10 @@ from fastlivo_tpu import lio as jlio
 from fastlivo_tpu.ops import plane as jplane
 from fastlivo_tpu_torch import convert
 from fastlivo_tpu_torch import lio as tlio
+from fastlivo_tpu_torch.ops import dense_map as tdm
 from fastlivo_tpu_torch.ops import lio_cascade as lc
 from fastlivo_tpu_torch.ops import plane as tplane
+from fastlivo_tpu_torch.ops import tiled_map as ttm
 from fastlivo_tpu_torch.ops import voxel_map as tvm
 
 PLANE_CASES = ["random", "missing_picks", "all_missing", "collinear", "repeated", "masked"]
@@ -184,6 +191,28 @@ def test_lio_update_with_options_matches_jax(backend, radius, option):
     _compare_result(*_lio_both(backend, radius, max_probe=12, **opts))
 
 
+@pytest.mark.parametrize("backend", ["tiled", "hash", "dense"])
+def test_lio_update_cache_knn_on_the_cpu_gathers_once(backend, monkeypatch):
+    """On the CPU `cache_knn` is the host loop on the block the backend's
+    knn_candidates gathers once a call, at the prior pose (the card's
+    cascade writes it at its first search instead); the result matches
+    the JAX package at test_torch_lio's tolerances."""
+    mod = {"tiled": ttm, "hash": tvm, "dense": tdm}[backend]
+    calls = []
+    real = mod.knn_candidates
+
+    def spied(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(mod, "knn_candidates", spied)
+    n0 = lc.lio_cascade.launches
+    rt, rj, pmask = _lio_both(backend, 1, max_probe=12, cache_knn=True)
+    assert len(calls) == 1 and lc.lio_cascade.launches == n0
+    assert isinstance(rt.iters, int) and rt.iters >= 2
+    _compare_result(rt, rj, pmask)
+
+
 @pytest.mark.parametrize("fit", ["tls", "ref"])
 @pytest.mark.parametrize("cached", [False, True])
 def test_host_search_plain_is_the_cpu_search(cached, fit):
@@ -204,21 +233,34 @@ def test_host_search_plain_is_the_cpu_search(cached, fit):
 
 
 def test_lio_cascade_refuses_cpu_tensors_and_bad_blocks():
+    """The wrapper refuses CPU tensors on every route (walk and gather, either
+    fit), a radius other than 1 or 2 and a block without `cache_knn`,
+    launching nothing; `check_block` refuses block buffers of the wrong
+    shape, dtype, device or layout."""
     world, scan, s = _scene()
     _, m = _maps("tiled", world)
     st = convert.state_from_arrays(_arrays(s), "cpu")
     x = torch.cat([st.pos, st.vel, st.bg, st.ba, st.grav])
     q = torch.from_numpy(scan)
     n = len(scan)
-    from fastlivo_tpu_torch.ops import tiled_map as ttm
 
     cand, found = ttm.knn_candidates(m, q, 1)
     n0 = lc.lio_cascade.launches
+
+    def call(radius=1, cache_knn=True, fit="tls", block=None):
+        lc.lio_cascade(m, q, torch.ones(n), torch.ones(n, dtype=torch.bool), st.rot, x,
+                       st.rot, x, st.cov, 4, radius, tlio.PLANE_THRESH, tlio.GATES, tlio.CONV,
+                       12, cache_knn, fit, block)
+
     for fit in ("tls", "ref"):
-        with pytest.raises(ValueError, match="CUDA"):
-            lc.lio_cascade(m, q, torch.ones(n), torch.ones(n, dtype=torch.bool), st.rot, x,
-                           st.rot, x, st.cov, 4, 1, tlio.PLANE_THRESH, tlio.GATES, tlio.CONV,
-                           12, cand, found, fit)
+        for cache_knn in (False, True):
+            with pytest.raises(ValueError, match="CUDA"):
+                call(cache_knn=cache_knn, fit=fit)
+        for radius in (0, 3):
+            with pytest.raises(ValueError, match="radius"):
+                call(radius=radius, fit=fit)
+    with pytest.raises(ValueError, match="cache_knn"):
+        call(cache_knn=False, block=(cand, found))
     assert lc.lio_cascade.launches == n0
     cpu = torch.device("cpu")
     lc.check_block(cand, found, n, 1, cpu)  # the good block passes
