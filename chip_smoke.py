@@ -24,11 +24,11 @@ on the card against the CPU, the RGB cloud through `run.save_pcd` and
 `viz._load_pcd`), (h) `Vio.update_staged` against `Vio.update` on forked
 states at the same width, and (i) the native library against its numpy
 and Python twins, and a bootstrap frame through it, (j) LIO over a
-device mesh on the first 24 LIO frames: a world of one on NCCL in this
+device mesh on the first 16 LIO frames: a world of one on NCCL in this
 process and a world of two sharing the card under gloo (spawned by
 `parallel.launch`), each with the map replicated and block-sharded,
 against the per-frame path, and (k) LIVO over a device mesh on the
-first 24 lidar frames of the LIVO dataset, the same two worlds with the
+first 10 lidar frames of the LIVO dataset, the same two worlds with the
 map replicated and with the map sharded and the camera's image pool and
 observation rings in per-rank slabs, against the single-device prefix,
 `photometric_err_H`'s partials (what a mesh sums) held against their
@@ -41,7 +41,14 @@ differ, and (m) LIVO at patch size 12, grid 10 (3264 cells on the
 a 2 kHz IMU, on the card against the CPU: every layout past the
 kernels' shared-memory stages on a path, each camera frame's vio_select
 and vio_observations and each photometric cascade held against their
-plain versions, and the changed kernels timed at those sizes. The tiled map's box delete (`tiled_delete_boxes`) and the voxel
+plain versions, and the changed kernels timed at those sizes, and (n)
+a LIO run at `knn_voxel_radius: 3` (343 candidates a query, the walks'
+generic form) on the card against the CPU. The cascade also runs at
+radius 0 (one candidate) and 3 on the last calls of the tiled, hash and
+dense paths, walking and under `cache_knn`, and with `plane_fit: ref`
+at radius 3, each held bit for bit against the host loop (its search
+the host-loop kernels' generic route, and the plain search) and timed
+beside its bound. The tiled map's box delete (`tiled_delete_boxes`) and the voxel
 filter's segmented centroid (`voxel_centroids`) launch once per tracker
 update and once per filtered scan or camera cloud on every single-card
 path; both are held against their plain versions on the LIO path's final
@@ -87,9 +94,9 @@ against its plain version but is not on the paths. The hash and dense
 maps' operations run on the card and on the CPU on the same seeded
 points and must agree in every array; `rebuild`
 is timed at the shipped table. Their writes are hand-written kernels on
-the card: the hash insert's two launches around a sort
-(`hash_insert_keys`, `hash_insert_probe`: every probe round in one
-launch), the dense grid's one (`dense_insert`) and the box delete of both
+the card: the hash insert's two launches and no sort (`hash_insert_keys`:
+each voxel's head, compact in row order; `hash_insert_probe`: every
+probe round over the heads in one launch), the dense grid's one (`dense_insert`) and the box delete of both
 (`flat_delete_boxes`), each launched once per insert or box set on the
 hash, dense and hash `BlockReplayer(8)` paths with no call of a plain
 version, and held against its plain version and timed on those paths'
@@ -134,7 +141,8 @@ F64_OPS_PER_S = 34e12  # H100 SXM float64, outside the tensor cores (NVIDIA data
 CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
                 "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
                 "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
-                "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes"]
+                "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes",
+                "lio_cascade_125", "lio_cascade_any"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -980,8 +988,10 @@ def flat_plain() -> list:
     on the card never runs."""
     from fastlivo_tpu_torch.ops import dense_map, voxel_map
 
-    return [(voxel_map, n) for n in ("insert_keys_plain", "insert_probe_plain",
-                                     "delete_boxes_plain")] + [(dense_map, "insert_plain")]
+    return [(voxel_map, n) for n in ("insert_keys_plain", "insert_probe_plain", "sort_order",
+                                     "insert_heads_plain", "insert_heads_probe_plain",
+                                     "_probe_rounds", "delete_boxes_plain")] + [
+        (dense_map, "insert_plain")]
 
 
 def counted_wrappers():
@@ -2108,6 +2118,98 @@ def lio_cascade_phase(a, label="the path map"):
             "bound_ms": bound, "bound_by": by}
 
 
+def with_radius(a, radius: int):
+    """A lio_cascade call's arguments `a` at another search radius."""
+    return (*a[:10], radius, *a[11:])
+
+
+def radius_phase(calls: dict) -> dict:
+    """lio_cascade at the radii past the templated walk's 27 candidates on
+    paths' last calls (`calls`: {label: arguments}, the radius set in
+    each): held against the host loop bit for bit, iterations included,
+    its search the host-loop kernels (knn5_plane_tiled, knn5_plane_hashed,
+    knn5_plane on the block, each at the same M) and the plain search;
+    then timed (queued CUDA events) beside its bound
+    (lio_cascade_bound_ms). These launches are not the paths'. Returns
+    {label: numbers}."""
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+
+    smi = nvidia_smi_line()
+    out = {}
+    for label, a in calls.items():
+        m, n, radius, o = a[0], a[1].shape[0], a[10], cascade_options(a)
+        got = lc.lio_cascade(*a)
+        its = int(got[6])
+        pws = []
+        knn = map_search(a)
+        loop = lio.lio_loop(lambda pw: (pws.append(pw), knn(pw))[1], *a[1:10])
+        plain = lio_loop_on(a, plain_search=True)
+        err = max(max_abs_diff(got[:6], loop[:6]), max_abs_diff(got[:6], plain[:6]))
+        if not (lio_same(got, loop) and lio_same(got, plain)):
+            raise AssertionError(f"lio_cascade at radius {radius} ({label}) differs from the "
+                                 f"host loop by {err:.3g}, iterations {its} / {loop[6]} / "
+                                 f"{plain[6]}")
+        ms = time_ms(lambda: lc.lio_cascade(*a))
+        bound, by, _ = lio_cascade_bound_ms(m, torch.cat(pws), n, its, radius, **o)
+        M = (2 * radius + 1) ** 3
+        print(f"lio_cascade at radius {radius} (M={M}) on {label}: {its} iterations "
+              f"({len(pws)} searching), {int(got[3].sum())} rows selected, {ms:.4f} ms, grid "
+              f"{lc.lio_cascade.grid} blocks, bound {bound:.6f} ms ({by}); bit-equal to the "
+              f"host loop with the kernels and with the plain search; {smi}")
+        out[label] = {"radius": radius, "M": M, "ms": ms, "bound_ms": bound, "bound_by": by,
+                      "iterations": its, "searches": len(pws), "selected": int(got[3].sum()),
+                      "max_abs_err": err, "grid": lc.lio_cascade.grid}
+        del got, loop, plain, pws
+        torch.cuda.empty_cache()
+    return out
+
+
+def radius_run(dev, radius=3, duration=3.0):
+    """(n) a small LIO run at `knn_voxel_radius` `radius` on the card and
+    on the CPU (its plain versions), the same input: every frame within 1
+    mm; on the card every EKF one lio_cascade launch and no host-loop
+    search kernel. Returns numbers."""
+    from fastlivo_tpu_torch.config import CapacityConfig, Config
+    from fastlivo_tpu_torch.io.synthetic import SyntheticDataset
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    res = []
+    for d in (dev, "cpu"):
+        cfg = Config()
+        cfg.img_enable = False
+        cfg.capacity = CapacityConfig(max_points=4096, max_raw_points=8192,
+                                      tiled_dir_dims=(32, 32, 16), tiled_pool=1024,
+                                      knn_voxel_radius=radius)
+        ds = SyntheticDataset(duration=duration, points_per_scan=4096, lidar_noise=0.004,
+                              seed=3)
+        pipe = Pipeline(cfg, device=d)
+        for beg, pts, t_rel in ds.lidar_scans_fast():
+            pipe.push_lidar(beg, pts, t_rel)
+        for t, acc, gyr in ds.imu_stream():
+            pipe.push_imu(t, acc, gyr)
+        if d is dev:
+            outs, launches, wall = counted_run(pipe.spin)
+        else:
+            outs = pipe.spin()
+        res.append(outs)
+    a, b = res
+    steady = sum(o.iters > 0 for o in a)
+    if len(a) != len(b) or len(a) < 15:
+        raise AssertionError(f"radius {radius}: frames {len(a)} on {dev} vs {len(b)} on cpu")
+    dmax = max(np.linalg.norm(x.pos - y.pos) for x, y in zip(a, b))
+    searches = {k: launches[k] for k in ("knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane")}
+    print(f"(n) radius {radius} (M={(2 * radius + 1) ** 3}), {dev} vs cpu: {len(a)} frames "
+          f"({steady} steady), max position difference {dmax * 1e3:.4f} mm; lio_cascade "
+          f"{launches['lio_cascade']} launches, host-loop searches {searches}; "
+          f"{wall / len(a):.2f} ms a frame on the card")
+    if not (dmax < 1e-3 and launches["lio_cascade"] >= steady > 0
+            and not any(searches.values())):
+        raise AssertionError(f"radius {radius}: {dmax:.2e} m, launches {launches}")
+    return {"radius": radius, "frames": len(a), "max_diff_to_cpu_mm": dmax * 1e3,
+            "ms_per_frame": wall / len(a), "launches": launches}
+
+
 def photometric_compare(a, label="") -> float:
     """photometric_err_H against its plain version on one call's arguments
     `a`: every output bit-equal (the plain version writes the kernel's
@@ -2503,7 +2605,7 @@ def wide_config(W=640, H=512, F=400.0, grid=10):
     return livo_config(cfg, W=W, H=H, F=F)
 
 
-def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0, cpu_frames=14):
+def wide_phase(dev, duration=3.0, cfg=None, imu_hz=2000.0, cpu_frames=10):
     """LIVO at wide_config() (a 2 kHz IMU; the scan pose table has 8200
     rows whatever the rate) on the card
     and on the CPU, the same recorded data. The card run's kernels
@@ -3811,7 +3913,7 @@ def map_ops_phase(dev, flat_in, T=1 << 16, dims=(64, 64, 16), n=40000, T_full=1 
     return kernels, {"ms": rb_ms, "plain_ms": rb_plain_ms, "occupancy": occ}
 
 
-PROBE_ROW_OPS = 10  # a sorted row: its order entry, the head test, the state
+PROBE_ROW_OPS = 10  # a head: its words, the round state
 PROBE_OPS = 20  # a probe: the slot, the check compare, the ticket; a mine's distance
 FLAT_KEY_OPS = 60  # a row: 3 divisions, floors, casts, the centre and distance, the mix
 FLAT_CENTRE_OPS = 15  # an occupied slot: 3 divisions, floors, casts, adds, multiplies
@@ -3835,10 +3937,7 @@ def hash_probe_work(m, pts, valid, rows, order, max_probe):
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     T = m.check.shape[0]
-    keys_s = rows[:3].T[order]
-    same = torch.all(keys_s == torch.roll(keys_s, 1, dims=0), dim=-1)
-    same[:1] = False
-    done = ~(valid[order] & ~same)
+    done = ~vm._sorted_heads(rows, order, valid)[1]
     heads = int((~done).sum())
     slot = rows[3][order].to(torch.int64)
     chk = rows[4][order]
@@ -3868,13 +3967,12 @@ def hash_probe_work(m, pts, valid, rows, order, max_probe):
 
 def flat_bounds(m, pts, valid, boxes=None, work=None):
     """{kernel: (bound ms, "bytes" | "operations", bytes, ops)}.
-    hash_insert_keys: each row's point and mask read (13 B), its six row
-    values and two sort keys written (40 B); ~60 operations a row.
-    hash_insert_probe (`work` from hash_probe_work): a sorted row's order
-    entry, voxel, slot, check, distance and mask (33 B) and a head's point
-    (12 B); a probe's check (4 B), a stored point read (12 B), a claimed
-    check (4 B) and a written point (12 B); ~10 operations a row and 20 a
-    probe. dense_insert (`work`: {"rows", "winners", "written"}): each
+    hash_insert_keys: each row's point and mask read (13 B), each head's
+    seven words written (28 B) and the count; ~60 operations a row.
+    hash_insert_probe (`work` from hash_probe_work): a head's seven words
+    and its point (40 B); a probe's check (4 B), a stored point read (12
+    B), a claimed check (4 B) and a written point (12 B); ~10 operations a
+    head and 20 a probe. dense_insert (`work`: {"rows", "winners", "written"}): each
     row's point and mask (13 B), a winner's cell check and point (16 B), a
     written cell (16 B); ~60 operations a valid row. flat_delete_boxes
     (`boxes` (lo, hi), `work`: {"occupied", "killed"}): every slot's check
@@ -3889,10 +3987,11 @@ def flat_bounds(m, pts, valid, boxes=None, work=None):
         ops = (FLAT_CENTRE_OPS + FLAT_TEST_OPS * nb) * work["occupied"]
         return {"flat_delete_boxes": (*bound(byts, ops), byts, ops)}
     if "probes" in work:
-        out["hash_insert_keys"] = (*bound(53 * B, FLAT_KEY_OPS * B), 53 * B, FLAT_KEY_OPS * B)
-        byts = (33 * B + 12 * work["heads"] + 4 * work["probes"] + 12 * work["mine"]
-                + 4 * work["claims"] + 12 * work["written"] + 8)
-        ops = PROBE_ROW_OPS * B + PROBE_OPS * work["probes"]
+        kb = 13 * B + 28 * work["heads"] + 4
+        out["hash_insert_keys"] = (*bound(kb, FLAT_KEY_OPS * B), kb, FLAT_KEY_OPS * B)
+        byts = (40 * work["heads"] + 4 * work["probes"] + 12 * work["mine"]
+                + 4 * work["claims"] + 12 * work["written"] + 12)
+        ops = PROBE_ROW_OPS * work["heads"] + PROBE_OPS * work["probes"]
         out["hash_insert_probe"] = (*bound(byts, ops), byts, ops)
     else:
         nv = int(valid.sum())
@@ -3957,23 +4056,24 @@ def flat_map_kernels(flat_in):
               f"operations), library none; {smi}")
         mt, mq = clone_map(m), clone_map(m)
         if mod is vm:
-            rows, skeys = vm.insert_keys_plain(m, pts, valid)
-            order = vm.sort_order(skeys)
-            r2, s2 = vm.hash_insert_keys(m, pts, valid)
+            heads_w, nh_w = vm.insert_heads_plain(m, pts, valid)
+            heads, nh = vm.hash_insert_keys(m, pts, valid)
+            k = int(nh_w)
             mk, mp = clone_map(m), clone_map(m)
-            ck = vm.hash_insert_probe(mk, pts, valid, rows, order, probe)
-            cp = vm.insert_probe_plain(mp, pts, valid, rows, order, probe)
+            ck = vm.hash_insert_probe(mk, pts, heads_w, nh_w, probe)
+            cp = vm.insert_plain(mp, pts, valid, probe).count
             torch.cuda.synchronize()
-            if not (torch.equal(r2, rows) and torch.equal(s2, skeys) and torch.equal(ck, cp)
-                    and all(torch.equal(a, b) for a, b in zip(mk, mp))):
+            if not (int(nh) == k and torch.equal(heads[:, :k], heads_w[:, :k])
+                    and torch.equal(ck, cp) and all(torch.equal(a, b) for a, b in zip(mk, mp))):
                 raise AssertionError("a hash insert launch differs from its plain pass")
-            work = hash_probe_work(m, pts, valid, rows, order, probe)
+            rows, skeys = vm.insert_keys_plain(m, pts, valid)
+            work = hash_probe_work(m, pts, valid, rows, vm.sort_order(skeys), probe)
             bounds = flat_bounds(m, pts, valid, work=work)
             timed = {"hash_insert_keys": (lambda: vm.hash_insert_keys(mt, pts, valid),
-                                          lambda: vm.insert_keys_plain(mq, pts, valid)),
+                                          lambda: vm.insert_heads_plain(mq, pts, valid)),
                      "hash_insert_probe": (
-                         lambda: vm.hash_insert_probe(mt, pts, valid, rows, order, probe),
-                         lambda: vm.insert_probe_plain(mq, pts, valid, rows, order, probe))}
+                         lambda: vm.hash_insert_probe(mt, pts, heads, nh, probe),
+                         lambda: vm.insert_heads_probe_plain(mq, pts, heads, nh, probe))}
         else:
             before = clone_map(m)
             after = dm.insert_plain(clone_map(m), pts, valid)
@@ -4593,7 +4693,7 @@ def halo_check(pipe, mesh):
                        f"halo snapshot (mesh {mesh.size}, {int(snap.n_alloc)} tiles)")
 
 
-def mesh_phase(dev, ds, ref, frames=24):
+def mesh_phase(dev, ds, ref, frames=16):
     """(j) LIO over a device mesh, on the first `frames` frames of the LIO
     dataset of path_phase at shipped capacities:
       - a world of one on NCCL in this process, with the map replicated
@@ -4725,7 +4825,7 @@ def partials_compare(a, rows, label) -> float:
     return e
 
 
-def livo_mesh_phase(dev, ds, ref, frames=12, duration=3.0):
+def livo_mesh_phase(dev, ds, ref, frames=10, duration=3.0):
     """(k) LIVO over a device mesh, on the first `frames` lidar frames of
     the LIVO dataset of livo_path_phase at shipped capacities (640x512,
     grid 40: G = 192 cells; a u8 pool of 256 images and 65536 x 20
@@ -5030,7 +5130,21 @@ def main() -> int:
             backend_last[f"{k} cache_knn"] = with_options(backend_last[k], cache_knn=True)
         path_casc = {k: lio_cascade_phase(a, f"the {k} path's last call")
                      for k, a in backend_last.items()}
-        del backend_last
+    with phase("radius 0 and 3 cascades"):
+        # the cascade at radius 0 and 3 on each map, walking and under
+        # cache_knn, and with the reference's fit at radius 3
+        tiled_last = with_options(backend_last["cache_knn"], cache_knn=False)
+        radius_calls = {}
+        for r in (0, 3):
+            for kind, a in (("tiled", tiled_last), ("hash", backend_last["hash"]),
+                            ("dense", backend_last["dense"])):
+                for search in ("walk", "gather"):
+                    radius_calls[f"{kind} {search} r{r}"] = with_radius(
+                        with_options(a, cache_knn=search == "gather"), r)
+        radius_calls["tiled walk ref r3"] = with_radius(backend_last["ref"], 3)
+        radius_casc = radius_phase(radius_calls)
+        del backend_last, radius_calls, tiled_last
+        torch.cuda.empty_cache()
     with phase("hash and dense search kernels"):
         hashed = hashed_phase(backend_pipes, n, m)
         err = max(err, hashed["knn5_plane"]["max_abs_err"])
@@ -5109,6 +5223,8 @@ def main() -> int:
     with phase("card vs cpu"):
         agreement = cpu_agreement(dev)
         livo_cpu_agreement(dev)
+    with phase("(n) radius 3"):
+        radius_lio = radius_run(dev)
     with phase("(l) 4 kHz IMU"):
         l_ms, l_launches, l_nums = imu_4khz_phase(dev)
         paths["lio 4 kHz IMU, 512-pair groups"] = (l_ms, l_launches)
@@ -5188,6 +5304,7 @@ def main() -> int:
         **{f"lio_{k}_checkpoint": dict(zip(ck_keys, v)) for k, v in backend_ckpts.items()},
         "hash_rebuild": rebuild,
         "card_vs_cpu_small_lio": agreement,
+        "card_vs_cpu_radius_3_lio": radius_lio,
         "profile": {"lio": dict(zip(("unfused", "fused"), lio_prof)),
                     "livo": dict(zip(("unfused", "fused"), livo_prof))},
         "hashed_search": hashed,
@@ -5229,9 +5346,14 @@ def main() -> int:
             n: v[n] for n in ("ms", "plain_ms", "bound_ms", "bound_by", "iterations",
                               "searches", "grid", "loop_ms", "loop_host_ms", "host_ms")}
            for k, v in path_casc.items()},
+        "libraries": {"lio_cascade": "M = 27", "lio_cascade_125": "M = 125",
+                      "lio_cascade_any": "any other M, the walks' generic form"},
         "instances": [f"lio_cascade_kernel<{w}, {g}, {mm}, {f}>" for w in (
             "TILED", "HASH", "DENSE") for g in ("walk", "gather") for mm in (27, 125)
-            for f in ("tls", "ref")],
+            for f in ("tls", "ref")] + [
+            f"lio_cascade_kernel<{w}, walk or gather at run time, ANY_M, {f}>" for w in (
+                "TILED", "HASH", "DENSE") for f in ("tls", "ref")],
+        "by_radius": radius_casc,
         "launches_by_route": {k: path_extra[k]["lio_cascade_by_route"] for k in (
             "hash", "dense", "tiled cache_knn", "tiled plane_fit ref",
             "hash BlockReplayer(8)")},
@@ -5378,11 +5500,12 @@ def main() -> int:
         "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
     } for name, key, path, source, replaces in (
         ("hash_insert_keys", "hash_insert_keys", "hash", "hash_insert",
-         "fastlivo_tpu/ops/voxel_map.py:146-157 (insert up to its lexsort: voxel, slot, "
-         "check, distance; jitted XLA; no Pallas kernel)"),
+         "fastlivo_tpu/ops/voxel_map.py:146-164 (insert up to the run heads: voxel, slot, "
+         "check, distance, jnp.lexsort's heads without a sort; jitted XLA; no Pallas "
+         "kernel)"),
         ("hash_insert_probe", "hash_insert_probe", "hash", "hash_insert",
-         "fastlivo_tpu/ops/voxel_map.py:158-189 (insert after its lexsort: the run heads "
-         "and the probe rounds; jitted XLA; no Pallas kernel)"),
+         "fastlivo_tpu/ops/voxel_map.py:165-189 (insert's probe rounds over the heads; "
+         "jitted XLA; no Pallas kernel)"),
         ("dense_insert", "dense_insert", "dense", "dense_insert",
          "fastlivo_tpu/ops/dense_map.py:70-114 (insert, jitted XLA; no Pallas kernel)"),
         ("flat_delete_boxes", "flat_delete_boxes hash", "hash", "flat_delete_boxes",

@@ -37,26 +37,22 @@ struct CachedView {
 // candidate rows sub, sub + L, ...; every lane of the warp must call.
 // Every lane returns the gate, the plane (ux, uy, uz, d) in pl and the
 // fifth-nearest squared distance in dmin.
-template <int M, int L, int F>
-__device__ __forceinline__ bool knn5_cached_walk(const CachedView& cv, int row, float qx,
-                                                 float qy, float qz, int sub,
-                                                 double threshold, float (&pl)[4],
-                                                 float& dmin) {
-  constexpr int R = (M + L - 1) / L;  // rows per lane
-  const bool in = row < cv.n;
-  const float* c = cv.cand + (size_t)(in ? row : 0) * M * 3;
-  const uint8_t* f = cv.found + (size_t)(in ? row : 0) * M;
-
-  bool hit[R];
+// RB of a lane's rows of the block, j0, j0 + L, ... (those below M):
+// each row's squared distance and point, KNN5_BIG and 0 where not found.
+template <int RB, int L>
+__device__ __forceinline__ void cached_rows(const float* c, const uint8_t* f, bool in, int j0,
+                                            int M, float qx, float qy, float qz,
+                                            float (&d2)[RB], float (&cx)[RB], float (&cy)[RB],
+                                            float (&cz)[RB]) {
+  bool hit[RB];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = sub + L * r;
+  for (int r = 0; r < RB; ++r) {
+    const int j = j0 + L * r;
     hit[r] = in && j < M && __ldcg(f + j) != 0;
   }
-  float d2[R], cx[R], cy[R], cz[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {  // a lane's found points, all loads together
-    const int j = sub + L * r;
+  for (int r = 0; r < RB; ++r) {  // a lane's found points, all loads together
+    const int j = j0 + L * r;
     d2[r] = KNN5_BIG;
     cx[r] = cy[r] = cz[r] = 0.0f;
     if (hit[r]) {
@@ -66,15 +62,52 @@ __device__ __forceinline__ bool knn5_cached_walk(const CachedView& cv, int row, 
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < RB; ++r) {
     if (hit[r]) {
       const float dx = cx[r] - qx, dy = cy[r] - qy, dz = cz[r] - qz;
       d2[r] = dx * dx + dy * dy + dz * dz;
     }
   }
+}
 
+template <int M, int L, int F>
+__device__ __forceinline__ bool knn5_cached_walk(const CachedView& cv, int row, float qx,
+                                                 float qy, float qz, int sub,
+                                                 double threshold, float (&pl)[4],
+                                                 float& dmin) {
+  constexpr int R = (M + L - 1) / L;  // rows per lane
+  const bool in = row < cv.n;
+  const float* c = cv.cand + (size_t)(in ? row : 0) * M * 3;
+  const uint8_t* f = cv.found + (size_t)(in ? row : 0) * M;
+  float d2[R], cx[R], cy[R], cz[R];
+  cached_rows<R, L>(c, f, in, sub, M, qx, qy, qz, d2, cx, cy, cz);
   float nx[5], ny[5], nz[5];
   dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
+  return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
+}
+
+// The generic form: the same re-rank at any M (a runtime value), the
+// lane's rows read KNN5_RB at a time into its Top5 and the group's lists
+// merged (knn5_select.cuh's group_merge5): the same planes and fifth
+// distance bit for bit.
+template <int L, int F>
+__device__ __forceinline__ bool knn5_cached_walk_any(const CachedView& cv, int M, int row,
+                                                     float qx, float qy, float qz, int sub,
+                                                     double threshold, float (&pl)[4],
+                                                     float& dmin) {
+  const bool in = row < cv.n;
+  const float* c = cv.cand + (size_t)(in ? row : 0) * M * 3;
+  const uint8_t* f = cv.found + (size_t)(in ? row : 0) * M;
+  Top5 t;
+  top5_clear(t);
+  for (int j0 = sub; j0 < M; j0 += L * KNN5_RB) {
+    float d2[KNN5_RB], cx[KNN5_RB], cy[KNN5_RB], cz[KNN5_RB];
+    cached_rows<KNN5_RB, L>(c, f, in, j0, M, qx, qy, qz, d2, cx, cy, cz);
+#pragma unroll
+    for (int r = 0; r < KNN5_RB; ++r) top5_push(t, d2[r], j0 + L * r, cx[r], cy[r], cz[r]);
+  }
+  float nx[5], ny[5], nz[5];
+  dmin = group_merge5<L>(t, sub, nx, ny, nz);
   return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
 }
 

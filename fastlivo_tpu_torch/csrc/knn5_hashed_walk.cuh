@@ -122,58 +122,73 @@ __device__ __forceinline__ void probe_rows(const int32_t* __restrict__ check,
 // the query's block where gfound is not null: gfound[j] the row's found
 // flag and, where found, gcand[3 j ..] its point (the backend's
 // knn_candidates' found and points; a row not found gets no point).
-template <int B, int M, int L, int F = FIT_TLS, bool G = false>
-__device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx, float qy,
-                                                 float qz, int sub, double threshold,
-                                                 float (&pl)[4], float& dmin,
-                                                 float* gcand = nullptr,
-                                                 uint8_t* gfound = nullptr) {
-  constexpr int R = (M + L - 1) / L;  // rows per lane
-  const float vs = __ldg(mp.voxel_size);
-  const int32_t bx = (int32_t)floorf(qx / vs);
-  const int32_t by = (int32_t)floorf(qy / vs);
-  const int32_t bz = (int32_t)floorf(qz / vs);
-  const int l0 = B == DENSE ? __ldg(mp.log2_dims + 0) : 0;
-  const int l1 = B == DENSE ? __ldg(mp.log2_dims + 1) : 0;
-  const int l2 = B == DENSE ? __ldg(mp.log2_dims + 2) : 0;
+// The query's voxel and the dense grid's dims, read once a query.
+struct HashedQuery {
+  float qx, qy, qz;
+  int32_t bx, by, bz;
+  int l0, l1, l2;
+};
 
+template <int B>
+__device__ __forceinline__ HashedQuery hashed_query(const HashedView& mp, float qx, float qy,
+                                                    float qz) {
+  const float vs = __ldg(mp.voxel_size);
+  return HashedQuery{qx,
+                     qy,
+                     qz,
+                     (int32_t)floorf(qx / vs),
+                     (int32_t)floorf(qy / vs),
+                     (int32_t)floorf(qz / vs),
+                     B == DENSE ? __ldg(mp.log2_dims + 0) : 0,
+                     B == DENSE ? __ldg(mp.log2_dims + 1) : 0,
+                     B == DENSE ? __ldg(mp.log2_dims + 2) : 0};
+}
+
+// RB of a lane's rows, j0, j0 + L, ... (those below M): each row's squared
+// distance and point (KNN5_BIG and 0 where missing); with the block
+// (gfound not null) each row's found flag and, where found, its point
+// written into the query's block.
+template <int B, int RB, int L>
+__device__ __forceinline__ void hashed_rows(const HashedView& mp, const HashedQuery& q, int j0,
+                                            int M, float (&d2)[RB], float (&cx)[RB],
+                                            float (&cy)[RB], float (&cz)[RB], float* gcand,
+                                            uint8_t* gfound) {
   // each row's first slot (hash) or cell (dense) and its check word
-  int32_t slot[R], chk[R], res[R];
-  bool row[R];
+  int32_t slot[RB], chk[RB], res[RB];
+  bool row[RB];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = sub + L * r;
+  for (int r = 0; r < RB; ++r) {
+    const int j = j0 + L * r;
     row[r] = j < M;
     slot[r] = chk[r] = 0;
     if (row[r]) {
       // int32 sums wrap as the plain version's do
-      const int32_t kx = (int32_t)((uint32_t)bx + (uint32_t)__ldg(mp.offsets + 3 * j + 0));
-      const int32_t ky = (int32_t)((uint32_t)by + (uint32_t)__ldg(mp.offsets + 3 * j + 1));
-      const int32_t kz = (int32_t)((uint32_t)bz + (uint32_t)__ldg(mp.offsets + 3 * j + 2));
+      const int32_t kx = (int32_t)((uint32_t)q.bx + (uint32_t)__ldg(mp.offsets + 3 * j + 0));
+      const int32_t ky = (int32_t)((uint32_t)q.by + (uint32_t)__ldg(mp.offsets + 3 * j + 1));
+      const int32_t kz = (int32_t)((uint32_t)q.bz + (uint32_t)__ldg(mp.offsets + 3 * j + 2));
       if (B == HASH) {
         const uint32_t z = mix3(kx, ky, kz);
         slot[r] = (int32_t)(z >> 13) & (mp.T - 1);
         chk[r] = (int32_t)(z & 0x7FFFFFFFu);
       } else {
-        slot[r] = ((kx & ((1 << l0) - 1)) << (l1 + l2)) |
-                  ((ky & ((1 << l1) - 1)) << l2) | (kz & ((1 << l2) - 1));
+        slot[r] = ((kx & ((1 << q.l0) - 1)) << (q.l1 + q.l2)) |
+                  ((ky & ((1 << q.l1) - 1)) << q.l2) | (kz & ((1 << q.l2) - 1));
         chk[r] = check31(kx, ky, kz);
       }
     }
   }
   if (B == HASH) {
-    probe_rows<R>(mp.check, mp.T - 1, mp.max_probe, mp.vec, slot, chk, row, res);
+    probe_rows<RB>(mp.check, mp.T - 1, mp.max_probe, mp.vec, slot, chk, row, res);
   } else {
-    int32_t c[R];
+    int32_t c[RB];
 #pragma unroll
-    for (int r = 0; r < R; ++r) c[r] = row[r] ? __ldg(mp.check + slot[r]) : 0;
+    for (int r = 0; r < RB; ++r) c[r] = row[r] ? __ldg(mp.check + slot[r]) : 0;
 #pragma unroll
-    for (int r = 0; r < R; ++r) res[r] = (row[r] && c[r] == chk[r]) ? slot[r] : -1;
+    for (int r = 0; r < RB; ++r) res[r] = (row[r] && c[r] == chk[r]) ? slot[r] : -1;
   }
 
-  float d2[R], cx[R], cy[R], cz[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < RB; ++r) {
     d2[r] = KNN5_BIG;
     cx[r] = cy[r] = cz[r] = 0.0f;
     if (res[r] >= 0) {
@@ -183,16 +198,16 @@ __device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx,
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < RB; ++r) {
     if (res[r] >= 0) {
-      const float dx = cx[r] - qx, dy = cy[r] - qy, dz = cz[r] - qz;
+      const float dx = cx[r] - q.qx, dy = cy[r] - q.qy, dz = cz[r] - q.qz;
       d2[r] = dx * dx + dy * dy + dz * dz;
     }
   }
-  if (G && gfound) {
+  if (gfound) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j = sub + L * r;
+    for (int r = 0; r < RB; ++r) {
+      const int j = j0 + L * r;
       if (row[r]) {
         gfound[j] = res[r] >= 0 ? 1 : 0;
         if (res[r] >= 0) {
@@ -203,9 +218,46 @@ __device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx,
       }
     }
   }
+}
 
+template <int B, int M, int L, int F = FIT_TLS, bool G = false>
+__device__ __forceinline__ bool knn5_hashed_walk(const HashedView& mp, float qx, float qy,
+                                                 float qz, int sub, double threshold,
+                                                 float (&pl)[4], float& dmin,
+                                                 float* gcand = nullptr,
+                                                 uint8_t* gfound = nullptr) {
+  constexpr int R = (M + L - 1) / L;  // rows per lane
+  const HashedQuery q = hashed_query<B>(mp, qx, qy, qz);
+  float d2[R], cx[R], cy[R], cz[R];
+  hashed_rows<B, R, L>(mp, q, sub, M, d2, cx, cy, cz, G ? gcand : nullptr,
+                       G ? gfound : nullptr);
   float nx[5], ny[5], nz[5];
   dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
+  return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
+}
+
+// The generic form: the same search at any M (a runtime value), the
+// lane's rows walked KNN5_RB at a time (their probes in flight together)
+// into its Top5 and the group's lists merged (knn5_select.cuh's
+// group_merge5): the same planes and fifth distance bit for bit.
+template <int B, int L, int F = FIT_TLS, bool G = false>
+__device__ __forceinline__ bool knn5_hashed_walk_any(const HashedView& mp, int M, float qx,
+                                                     float qy, float qz, int sub,
+                                                     double threshold, float (&pl)[4],
+                                                     float& dmin, float* gcand = nullptr,
+                                                     uint8_t* gfound = nullptr) {
+  const HashedQuery q = hashed_query<B>(mp, qx, qy, qz);
+  Top5 t;
+  top5_clear(t);
+  for (int j0 = sub; j0 < M; j0 += L * KNN5_RB) {
+    float d2[KNN5_RB], cx[KNN5_RB], cy[KNN5_RB], cz[KNN5_RB];
+    hashed_rows<B, KNN5_RB, L>(mp, q, j0, M, d2, cx, cy, cz, G ? gcand : nullptr,
+                               G ? gfound : nullptr);
+#pragma unroll
+    for (int r = 0; r < KNN5_RB; ++r) top5_push(t, d2[r], j0 + L * r, cx[r], cy[r], cz[r]);
+  }
+  float nx[5], ny[5], nz[5];
+  dmin = group_merge5<L>(t, sub, nx, ny, nz);
   return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
 }
 

@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "plane_fit.cuh"
+#include "knn5_select.cuh"
 
 namespace {
 
@@ -202,6 +203,43 @@ __global__ void __launch_bounds__(W) knn5_plane_kernel(
   }
 }
 
+// Any other M: a thread a query reads its rows from device memory (the
+// slab of 32 queries, 52 KB of shared memory at M = 125 already, grows
+// with M), streams them in row order into its five nearest (knn5_select.cuh's
+// Top5: a strict `<`, the lower row ahead on a tie) and takes them in turn
+// (group_merge5 of one lane): the picks and the fifth distance of the
+// lowest-row min-select bit for bit, then the same fit.
+__global__ void __launch_bounds__(W) knn5_plane_any_kernel(
+    const float* __restrict__ cand, const uint8_t* __restrict__ found,
+    const float* __restrict__ queries, float* __restrict__ pabcd,
+    uint8_t* __restrict__ plane_ok, float* __restrict__ nd2_5, int n, int M,
+    float threshold) {
+  const int i = blockIdx.x * W + threadIdx.x;
+  if (i >= n) return;
+  const float qx = queries[3 * (size_t)i + 0], qy = queries[3 * (size_t)i + 1],
+              qz = queries[3 * (size_t)i + 2];
+  const float* c = cand + (size_t)i * M * 3;
+  const uint8_t* f = found + (size_t)i * M;
+  Top5 t;
+  top5_clear(t);
+  for (int j = 0; j < M; ++j) {
+    if (!f[j]) continue;
+    const float px = c[3 * j + 0], py = c[3 * j + 1], pz = c[3 * j + 2];
+    const float dx = px - qx, dy = py - qy, dz = pz - qz;
+    top5_push(t, dx * dx + dy * dy + dz * dz, j, px, py, pz);
+  }
+  float nx[5], ny[5], nz[5];
+  const float dmin = group_merge5<1>(t, 0, nx, ny, nz);
+  float ux, uy, uz, d;
+  const bool ok = plane5_fit(nx, ny, nz, threshold, ux, uy, uz, d);
+  pabcd[4 * (size_t)i + 0] = ux;
+  pabcd[4 * (size_t)i + 1] = uy;
+  pabcd[4 * (size_t)i + 2] = uz;
+  pabcd[4 * (size_t)i + 3] = d;
+  plane_ok[i] = ok ? 1 : 0;
+  nd2_5[i] = dmin;
+}
+
 template <int M>
 int launch(const float* cand, const uint8_t* found, const float* queries,
            float* pabcd, uint8_t* plane_ok, float* nd2_5, int n, float threshold,
@@ -226,8 +264,9 @@ int launch(const float* cand, const uint8_t* found, const float* queries,
 
 // C interface for ctypes. cand (n, m, 3) f32, found (n, m) bool as u8,
 // queries (n, 3) f32; outputs pabcd (n, 4) f32, plane_ok (n,) u8, nd2_5
-// (n,) f32; all contiguous on the device. m must be 27 (radius 1) or 125
-// (radius 2). Returns the cudaError_t of the launch (0 = cudaSuccess);
+// (n,) f32; all contiguous on the device. m = (2r+1)^3 >= 1 for any
+// radius r >= 0 (27 and 125 through the TMA slabs, any other m from device
+// memory). Returns the cudaError_t of the launch (0 = cudaSuccess);
 // n = 0 launches nothing.
 extern "C" int knn5_plane_launch(const void* cand, const void* found,
                                  const void* queries, void* pabcd,
@@ -243,5 +282,7 @@ extern "C" int knn5_plane_launch(const void* cand, const void* found,
   auto* nd = static_cast<float*>(nd2_5);
   if (m == 27) return launch<27>(c, f, q, pa, ok, nd, n, threshold, s);
   if (m == 125) return launch<125>(c, f, q, pa, ok, nd, n, threshold, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  knn5_plane_any_kernel<<<(n + W - 1) / W, W, 0, s>>>(c, f, q, pa, ok, nd, n, m, threshold);
+  return static_cast<int>(cudaGetLastError());
 }

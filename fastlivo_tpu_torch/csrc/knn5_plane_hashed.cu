@@ -26,7 +26,8 @@
 //
 // Design: the walk is knn5_hashed_walk.cuh, which csrc/lio_cascade.cu
 // runs inside the LIO cascade; the lane groups of knn5_plane_tiled.cu
-// (L = 4 lanes per query at M = 27, L = 16 at M = 125; lane j owns rows
+// (L = 4 lanes per query at M = 27, L = 16 at M = 125 and at any other M,
+// the walk's generic form; lane j owns rows
 // j, j + L, ...; the group selection of knn5_select.cuh, the fit on
 // every lane, the first lane writes). No (N, M, 3) candidate block, index or mask tensor is
 // written: the unfused path's knn_candidates was 12 probe rounds of
@@ -64,10 +65,12 @@
 
 namespace {
 
+// M = 0: the walk's generic form at m candidates (knn5_hashed_walk_any)
 template <int B, int M, int L>
 __global__ void __launch_bounds__(256) knn5_plane_hashed_kernel(
-    const float* __restrict__ queries, int n, const HashedView mp, float* __restrict__ pabcd,
-    uint8_t* __restrict__ plane_ok, float* __restrict__ nd2_5, float threshold) {
+    const float* __restrict__ queries, int n, int m, const HashedView mp,
+    float* __restrict__ pabcd, uint8_t* __restrict__ plane_ok, float* __restrict__ nd2_5,
+    float threshold) {
   const int gid = (int)((blockIdx.x * blockDim.x + threadIdx.x) / L);
   const int sub = (threadIdx.x & 31) % L;  // the lane's place in its group
   // every lane takes part in the shuffles: a group past the end works on
@@ -75,8 +78,13 @@ __global__ void __launch_bounds__(256) knn5_plane_hashed_kernel(
   const bool live_q = gid < n;
   const int i = live_q ? gid : n - 1;
   float pl[4], dmin;
-  const bool ok = knn5_hashed_walk<B, M, L>(mp, queries[3 * i + 0], queries[3 * i + 1],
-                                            queries[3 * i + 2], sub, threshold, pl, dmin);
+  bool ok;
+  if constexpr (M == 0)
+    ok = knn5_hashed_walk_any<B, L>(mp, m, queries[3 * i + 0], queries[3 * i + 1],
+                                    queries[3 * i + 2], sub, threshold, pl, dmin);
+  else
+    ok = knn5_hashed_walk<B, M, L>(mp, queries[3 * i + 0], queries[3 * i + 1],
+                                   queries[3 * i + 2], sub, threshold, pl, dmin);
   if (sub == 0 && live_q) {
     pabcd[4 * i + 0] = pl[0];
     pabcd[4 * i + 1] = pl[1];
@@ -88,7 +96,7 @@ __global__ void __launch_bounds__(256) knn5_plane_hashed_kernel(
 }
 
 template <int B, int M, int L>
-int launch(const float* queries, int n, const int32_t* check, const float* pts,
+int launch(const float* queries, int n, int m, const int32_t* check, const float* pts,
            const float* voxel_size, const int32_t* log2_dims, const int32_t* offsets,
            int T, int max_probe, float* pabcd, uint8_t* plane_ok, float* nd2_5,
            float threshold, cudaStream_t stream) {
@@ -97,7 +105,7 @@ int launch(const float* queries, int n, const int32_t* check, const float* pts,
   const bool vec = T >= 4 && (reinterpret_cast<uintptr_t>(check) & 15) == 0;
   const HashedView mp{check, pts, voxel_size, log2_dims, offsets, T, max_probe, vec};
   knn5_plane_hashed_kernel<B, M, L><<<blocks, threads, 0, stream>>>(
-      queries, n, mp, pabcd, plane_ok, nd2_5, threshold);
+      queries, n, m, mp, pabcd, plane_ok, nd2_5, threshold);
   return (int)cudaGetLastError();
 }
 
@@ -107,10 +115,14 @@ int dispatch(int m, const float* q, int n, const int32_t* c, const float* p,
              int max_probe, float* pa, uint8_t* ok, float* nd, float threshold,
              cudaStream_t s) {
   if (m == 27) {
-    return launch<B, 27, 4>(q, n, c, p, vs, l2, of, T, max_probe, pa, ok, nd, threshold, s);
+    return launch<B, 27, 4>(q, n, m, c, p, vs, l2, of, T, max_probe, pa, ok, nd, threshold, s);
   }
   if (m == 125) {
-    return launch<B, 125, 16>(q, n, c, p, vs, l2, of, T, max_probe, pa, ok, nd, threshold, s);
+    return launch<B, 125, 16>(q, n, m, c, p, vs, l2, of, T, max_probe, pa, ok, nd, threshold,
+                              s);
+  }
+  if (m >= 1) {
+    return launch<B, 0, 16>(q, n, m, c, p, vs, l2, of, T, max_probe, pa, ok, nd, threshold, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -120,8 +132,9 @@ int dispatch(int m, const float* q, int n, const int32_t* c, const float* p,
 // C interface for ctypes. queries (n, 3) f32; the map's check (T,) int32
 // and pts (T, 3) f32 (T a power of two: the hash table's slots or the
 // dense grid's cells), voxel_size () f32, log2_dims (3,) int32 (dense;
-// unread for the hash map); offsets (m, 3) int32 with m 27 (radius 1) or
-// 125 (radius 2); backend 0 = hash (max_probe slots a row), 1 = dense;
+// unread for the hash map); offsets (m, 3) int32 with m = (2r+1)^3 for
+// any radius r >= 0 (27 and 125 the templated walks, any other m the
+// generic form); backend 0 = hash (max_probe slots a row), 1 = dense;
 // outputs pabcd (n, 4) f32, plane_ok (n,) u8, nd2_5 (n,) f32. All
 // contiguous on the device. Returns the launch's cudaError_t (0 =
 // cudaSuccess); n = 0 launches nothing.

@@ -20,7 +20,8 @@
 // the LIO host loop (a device mesh, the smoke run's comparisons).
 //
 // Design: a group of L lanes per query (L = 4 at M = 27, eight queries
-// per warp; L = 16 at M = 125), lane j of a group owning candidate rows
+// per warp; L = 16 at M = 125 and at any other M, where the walk's generic
+// form streams a lane's rows into its own five nearest), lane j of a group owning candidate rows
 // j, j + L, j + 2L, ... (7 or 8 rows). Each lane walks directory -> pool
 // for its rows itself, so the (N, M, 3) candidate block and its (N, M)
 // index and mask tensors of the unfused path are never written; a lane
@@ -60,10 +61,12 @@
 
 namespace {
 
+// M = 0: the walk's generic form at m candidates (knn5_tiled_walk_any)
 template <int M, int L>
 __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
-    const float* __restrict__ queries, int n, const TiledView mp, float* __restrict__ pabcd,
-    uint8_t* __restrict__ plane_ok, float* __restrict__ nd2_5, float threshold) {
+    const float* __restrict__ queries, int n, int m, const TiledView mp,
+    float* __restrict__ pabcd, uint8_t* __restrict__ plane_ok, float* __restrict__ nd2_5,
+    float threshold) {
   const int gid = (int)((blockIdx.x * blockDim.x + threadIdx.x) / L);
   const int sub = (threadIdx.x & 31) % L;  // the lane's place in its group
   // every lane takes part in the shuffles: a group past the end works on
@@ -72,8 +75,13 @@ __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
   const int i = live_q ? gid : n - 1;
 
   float pl[4], dmin;
-  const bool ok = knn5_tiled_walk<M, L>(mp, queries[3 * i + 0], queries[3 * i + 1],
-                                        queries[3 * i + 2], sub, threshold, pl, dmin);
+  bool ok;
+  if constexpr (M == 0)
+    ok = knn5_tiled_walk_any<L>(mp, m, queries[3 * i + 0], queries[3 * i + 1],
+                                queries[3 * i + 2], sub, threshold, pl, dmin);
+  else
+    ok = knn5_tiled_walk<M, L>(mp, queries[3 * i + 0], queries[3 * i + 1], queries[3 * i + 2],
+                               sub, threshold, pl, dmin);
   if (sub == 0 && live_q) {
     pabcd[4 * i + 0] = pl[0];
     pabcd[4 * i + 1] = pl[1];
@@ -85,11 +93,11 @@ __global__ void __launch_bounds__(256) knn5_plane_tiled_kernel(
 }
 
 template <int M, int L>
-int launch(const float* queries, int n, const TiledView& mp, float* pabcd, uint8_t* plane_ok,
+int launch(const float* queries, int n, int m, const TiledView& mp, float* pabcd, uint8_t* plane_ok,
            float* nd2_5, float threshold, cudaStream_t stream) {
   constexpr int threads = 256;  // 256 / L queries per block
   const int blocks = (int)(((long long)n * L + threads - 1) / threads);
-  knn5_plane_tiled_kernel<M, L><<<blocks, threads, 0, stream>>>(queries, n, mp, pabcd,
+  knn5_plane_tiled_kernel<M, L><<<blocks, threads, 0, stream>>>(queries, n, m, mp, pabcd,
                                                                 plane_ok, nd2_5, threshold);
   return (int)cudaGetLastError();
 }
@@ -98,8 +106,9 @@ int launch(const float* queries, int n, const TiledView& mp, float* pabcd, uint8
 
 // C interface for ctypes. queries (n, 3) f32; the tiled map's dir_check,
 // dir_slot (D,) int32, cell_check (T*512,) int32, pts (T*512, 3) f32,
-// voxel_size () f32, log2_dims (3,) int32; offsets (m, 3) int32 with m 27
-// (radius 1) or 125 (radius 2); outputs pabcd (n, 4) f32, plane_ok (n,)
+// voxel_size () f32, log2_dims (3,) int32; offsets (m, 3) int32 with m =
+// (2r+1)^3 for any radius r >= 0 (27 and 125 the templated walks, any
+// other m the generic form); outputs pabcd (n, 4) f32, plane_ok (n,)
 // u8, nd2_5 (n,) f32. All contiguous on the device. Returns the launch's
 // cudaError_t (0 = cudaSuccess); n = 0 launches nothing.
 extern "C" int knn5_plane_tiled_launch(
@@ -117,7 +126,8 @@ extern "C" int knn5_plane_tiled_launch(
   auto* pa = static_cast<float*>(pabcd);
   auto* ok = static_cast<uint8_t*>(plane_ok);
   auto* nd = static_cast<float*>(nd2_5);
-  if (m == 27) return launch<27, 4>(q, n, mp, pa, ok, nd, threshold, s);
-  if (m == 125) return launch<125, 16>(q, n, mp, pa, ok, nd, threshold, s);
+  if (m == 27) return launch<27, 4>(q, n, m, mp, pa, ok, nd, threshold, s);
+  if (m == 125) return launch<125, 16>(q, n, m, mp, pa, ok, nd, threshold, s);
+  if (m >= 1) return launch<0, 16>(q, n, m, mp, pa, ok, nd, threshold, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

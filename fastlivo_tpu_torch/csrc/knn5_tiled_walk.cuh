@@ -41,38 +41,53 @@ struct TiledView {
 // under `cache_knn`) also writes each of the lane's rows into the query's
 // block where gfound is not null: gfound[j] the row's found flag and,
 // where found, gcand[3 j ..] its point (tiled_map.knn_candidates' found
-// and points; a row not found gets no point).
-template <int M, int L, int F = FIT_TLS, bool G = false>
-__device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, float qy,
-                                                float qz, int sub, double threshold,
-                                                float (&pl)[4], float& dmin,
-                                                float* gcand = nullptr,
-                                                uint8_t* gfound = nullptr) {
-  constexpr int R = (M + L - 1) / L;  // rows per lane
-  const float vs = __ldg(mp.voxel_size);
-  const int32_t bx = (int32_t)floorf(qx / vs);
-  const int32_t by = (int32_t)floorf(qy / vs);
-  const int32_t bz = (int32_t)floorf(qz / vs);
-  const int l0 = __ldg(mp.log2_dims + 0);
-  const int l1 = __ldg(mp.log2_dims + 1);
-  const int l2 = __ldg(mp.log2_dims + 2);
+// and points; a row not found gets no point). M is a template constant
+// (27 or 125); knn5_tiled_walk_any takes any M.
+// The query's voxel and the map's directory dims, read once a query.
+struct TiledQuery {
+  float qx, qy, qz;
+  int32_t bx, by, bz;
+  int l0, l1, l2;
+};
 
-  float d2[R], cx[R], cy[R], cz[R];
+__device__ __forceinline__ TiledQuery tiled_query(const TiledView& mp, float qx, float qy,
+                                                  float qz) {
+  const float vs = __ldg(mp.voxel_size);
+  return TiledQuery{qx,
+                    qy,
+                    qz,
+                    (int32_t)floorf(qx / vs),
+                    (int32_t)floorf(qy / vs),
+                    (int32_t)floorf(qz / vs),
+                    __ldg(mp.log2_dims + 0),
+                    __ldg(mp.log2_dims + 1),
+                    __ldg(mp.log2_dims + 2)};
+}
+
+// RB of a lane's rows, j0, j0 + L, ... (those below M): each row's squared
+// distance and point (KNN5_BIG and 0 where missing) and its found flag;
+// with the block (gfound not null) each row's flag and, where found, its
+// point written into the query's block.
+template <int RB, int L>
+__device__ __forceinline__ void tiled_rows(const TiledView& mp, const TiledQuery& q, int j0,
+                                           int M, float (&d2)[RB], float (&cx)[RB],
+                                           float (&cy)[RB], float (&cz)[RB], float* gcand,
+                                           uint8_t* gfound) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = sub + L * r;
+  for (int r = 0; r < RB; ++r) {
+    const int j = j0 + L * r;
     d2[r] = KNN5_BIG;
     cx[r] = cy[r] = cz[r] = 0.0f;
     if (j < M) {
       // int32 sums wrap as the plain version's do
-      const int32_t kx = (int32_t)((uint32_t)bx + (uint32_t)__ldg(mp.offsets + 3 * j + 0));
-      const int32_t ky = (int32_t)((uint32_t)by + (uint32_t)__ldg(mp.offsets + 3 * j + 1));
-      const int32_t kz = (int32_t)((uint32_t)bz + (uint32_t)__ldg(mp.offsets + 3 * j + 2));
+      const int32_t kx = (int32_t)((uint32_t)q.bx + (uint32_t)__ldg(mp.offsets + 3 * j + 0));
+      const int32_t ky = (int32_t)((uint32_t)q.by + (uint32_t)__ldg(mp.offsets + 3 * j + 1));
+      const int32_t kz = (int32_t)((uint32_t)q.bz + (uint32_t)__ldg(mp.offsets + 3 * j + 2));
       const int32_t tx = kx >> 3, ty = ky >> 3, tz = kz >> 3;  // arithmetic
       const int32_t cofs = ((kx & 7) << 6) | ((ky & 7) << 3) | (kz & 7);
-      const int32_t dir = ((tx & ((1 << l0) - 1)) << (l1 + l2)) |
-                          ((ty & ((1 << l1) - 1)) << l2) |
-                          (tz & ((1 << l2) - 1));
+      const int32_t dir = ((tx & ((1 << q.l0) - 1)) << (q.l1 + q.l2)) |
+                          ((ty & ((1 << q.l1) - 1)) << q.l2) |
+                          (tz & ((1 << q.l2) - 1));
       const int32_t chk = check31(tx, ty, tz);
       // two dependent steps, each with its loads issued together: the
       // directory entry (hash and slot), then the pool cell (hash and
@@ -87,7 +102,7 @@ __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, f
         const float py = __ldg(mp.pts + 3 * (size_t)p + 1);
         const float pz = __ldg(mp.pts + 3 * (size_t)p + 2);
         if (cchk == chk) {
-          const float dx = px - qx, dy = py - qy, dz = pz - qz;
+          const float dx = px - q.qx, dy = py - q.qy, dz = pz - q.qz;
           d2[r] = dx * dx + dy * dy + dz * dz;
           cx[r] = px;
           cy[r] = py;
@@ -95,7 +110,7 @@ __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, f
           hit = true;
         }
       }
-      if (G && gfound) {
+      if (gfound) {
         gfound[j] = hit ? 1 : 0;
         if (hit) {
           gcand[3 * j + 0] = cx[r];
@@ -105,9 +120,45 @@ __device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, f
       }
     }
   }
+}
 
+template <int M, int L, int F = FIT_TLS, bool G = false>
+__device__ __forceinline__ bool knn5_tiled_walk(const TiledView& mp, float qx, float qy,
+                                                float qz, int sub, double threshold,
+                                                float (&pl)[4], float& dmin,
+                                                float* gcand = nullptr,
+                                                uint8_t* gfound = nullptr) {
+  constexpr int R = (M + L - 1) / L;  // rows per lane
+  const TiledQuery q = tiled_query(mp, qx, qy, qz);
+  float d2[R], cx[R], cy[R], cz[R];
+  tiled_rows<R, L>(mp, q, sub, M, d2, cx, cy, cz, G ? gcand : nullptr, G ? gfound : nullptr);
   float nx[5], ny[5], nz[5];
   dmin = group_top5<R, L>(d2, cx, cy, cz, sub, nx, ny, nz);
+  return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
+}
+
+// The generic form: the same search at any M (a runtime value), the
+// lane's rows walked KNN5_RB at a time into its Top5 and the group's lists
+// merged (knn5_select.cuh's group_merge5): the same planes and fifth
+// distance bit for bit.
+template <int L, int F = FIT_TLS, bool G = false>
+__device__ __forceinline__ bool knn5_tiled_walk_any(const TiledView& mp, int M, float qx,
+                                                    float qy, float qz, int sub,
+                                                    double threshold, float (&pl)[4],
+                                                    float& dmin, float* gcand = nullptr,
+                                                    uint8_t* gfound = nullptr) {
+  const TiledQuery q = tiled_query(mp, qx, qy, qz);
+  Top5 t;
+  top5_clear(t);
+  for (int j0 = sub; j0 < M; j0 += L * KNN5_RB) {
+    float d2[KNN5_RB], cx[KNN5_RB], cy[KNN5_RB], cz[KNN5_RB];
+    tiled_rows<KNN5_RB, L>(mp, q, j0, M, d2, cx, cy, cz, G ? gcand : nullptr,
+                           G ? gfound : nullptr);
+#pragma unroll
+    for (int r = 0; r < KNN5_RB; ++r) top5_push(t, d2[r], j0 + L * r, cx[r], cy[r], cz[r]);
+  }
+  float nx[5], ny[5], nz[5];
+  dmin = group_merge5<L>(t, sub, nx, ny, nz);
   return plane5_fit_as<F>(nx, ny, nz, threshold, pl);
 }
 

@@ -17,7 +17,7 @@ point set; the iteration protocol is the reference's
 
 The JAX package runs the loop as a `lax.while_loop`. On one CUDA device
 (no mesh), on any map (tiled, hash or dense) and with every LIO option
-(`knn_radius` 1 or 2, `cache_knn` or not, `plane_fit` tls or ref), so
+(any `knn_radius`, `cache_knn` or not, `plane_fit` tls or ref), so
 does the port: one cooperative launch of ops/lio_cascade.lio_cascade runs
 every iteration's search, gates, rows and step on the card and reads
 nothing back. Under `cache_knn` that launch's first search, at the prior

@@ -29,7 +29,9 @@ CSRC = PKG_DIR / "csrc"
 # the patch + gradient sampling (ops/patches_grads.py), the TPU kernel's
 # signature, on no path; one measurement group's IMU propagation
 # (ops/imu_scan.py); the LIO iterated EKF of one scan on any map, with
-# any LIO option (ops/lio_cascade.py); the camera frame's selection (ops/vio_select.py)
+# any LIO option (ops/lio_cascade.py: lio_cascade at radius 1,
+# lio_cascade_125 at 2, lio_cascade_any at any other radius); the camera
+# frame's selection (ops/vio_select.py)
 # and its visual-map upkeep (ops/vio_observations.py); the tiled map's box
 # delete and its insert's three passes (ops/tiled_map.py), the voxel
 # filter's segmented centroid (ops/voxel_filter.py), the scan's
@@ -38,7 +40,8 @@ CSRC = PKG_DIR / "csrc"
 SOURCES = ("knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
            "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
            "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
-           "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes")
+           "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes",
+           "lio_cascade_125", "lio_cascade_any")
 BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so a kernel rounds every
 # product as its plain PyTorch version (one op per product) does; with

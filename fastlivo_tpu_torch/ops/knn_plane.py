@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import numbers
 
 import torch
 
@@ -139,9 +140,8 @@ def _check(cand, found, queries):
         raise TypeError("knn5_plane: cand and queries must be float32")
     if found.dtype != torch.bool:
         raise TypeError("knn5_plane: found must be bool")
-    if M not in (27, 125):
-        raise ValueError(f"knn5_plane: M={M}; the kernel takes 27 or 125 "
-                         "candidates (knn radius 1 or 2)")
+    if M < 1 or N * M * 3 >= 1 << 62:
+        raise ValueError(f"knn5_plane: M={M}; the kernel takes one candidate or more")
     for t in (cand, found, queries):
         if t.device != cand.device:
             raise ValueError("knn5_plane: inputs on different devices")
@@ -215,12 +215,24 @@ def _check_map_inputs(name: str, queries: torch.Tensor, want):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def check_radius(name: str, radius) -> int:
+    """The kernels' neighbourhoods: any radius r >= 0 that the plain
+    version takes, M = (2r+1)^3 candidates (27 and 125 the walks'
+    templated forms, any other M their generic form). Returns M; raises
+    ValueError for a negative or non-integer radius, or one whose block
+    rows outgrow an int32 index."""
+    if isinstance(radius, bool) or not isinstance(radius, numbers.Integral) or radius < 0:
+        raise ValueError(f"{name}: radius {radius!r}; the kernels take an int >= 0")
+    M = (2 * int(radius) + 1) ** 3
+    if 3 * M >= 1 << 31:
+        raise ValueError(f"{name}: radius {radius}: {M} candidates a query")
+    return M
+
+
 def _check_tiled(m: tm.TiledMap, queries: torch.Tensor, radius: int):
     if queries.ndim != 2 or queries.shape[1] != 3:
         raise ValueError(f"knn5_plane_tiled: queries {tuple(queries.shape)}")
-    if radius not in (1, 2):
-        raise ValueError(f"knn5_plane_tiled: radius {radius}; the kernel takes "
-                         "1 or 2 (27 or 125 candidates)")
+    check_radius("knn5_plane_tiled", radius)
     C = m.cell_check.shape[0]
     _check_map_inputs("knn5_plane_tiled", queries, [
         (queries, None, torch.float32), (m.dir_check, None, torch.int32),
@@ -302,9 +314,7 @@ def _check_hashed(m, queries: torch.Tensor, radius: int, max_probe: int):
     _, backend = _hashed_module(m)
     if queries.ndim != 2 or queries.shape[1] != 3:
         raise ValueError(f"knn5_plane_hashed: queries {tuple(queries.shape)}")
-    if radius not in (1, 2):
-        raise ValueError(f"knn5_plane_hashed: radius {radius}; the kernel takes "
-                         "1 or 2 (27 or 125 candidates)")
+    check_radius("knn5_plane_hashed", radius)
     if backend == 0 and not 0 <= max_probe < 1 << 31:
         raise ValueError(f"knn5_plane_hashed: max_probe {max_probe}")
     T = m.check.shape[0]

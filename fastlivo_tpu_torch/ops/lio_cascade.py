@@ -10,7 +10,11 @@ Hᵀz] and f64 step on the card, with no host read and no launch between
 iterations. The search is the walk of csrc/knn5_tiled_walk.cuh on the
 tiled map (which knn5_plane_tiled.cu runs alone) or of
 csrc/knn5_hashed_walk.cuh on the hash map or the dense grid (which
-knn5_plane_hashed.cu runs alone); under `cache_knn` the first search is
+knn5_plane_hashed.cu runs alone), templated at 27 and 125 candidates
+(radius 1 and 2; csrc/lio_cascade.cu, lio_cascade_125.cu) and in their
+generic form at any other radius (csrc/lio_cascade_any.cu), three
+libraries built from the same kernel (csrc/lio_cascade.cuh); under
+`cache_knn` the first search is
 that walk's gather form, which also writes the candidate block (the
 backend's knn_candidates at the start pose) into scratch, and every later
 search re-ranks the block (csrc/knn5_cached_walk.cuh, knn5_plane.cu's
@@ -45,6 +49,7 @@ import torch
 from . import tiled_map as tm
 from . import voxel_map as vm
 from .knn_plane import _check_hashed, _check_tiled, _hashed_module
+from .knn_plane import check_radius as _check_radius
 from .photometric import _check_step, _require
 
 CHUNK = 64  # rows of a chunk, and chunk sums of a group (csrc/lio_cascade.cu: CH)
@@ -112,23 +117,36 @@ FITS = {"tls": 0, "ref": 1}  # csrc/plane_fit.cuh: FIT_TLS, FIT_REF
 
 
 @functools.cache
-def _launcher():
+def _launcher(lib: str = "lio_cascade"):
     from . import _build
 
-    fn = _build.load("lio_cascade").lio_cascade_launch
+    fn = _build.load(lib).lio_cascade_launch
     fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + _TAIL
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
 
 
 @functools.cache
-def _hashed_launcher():
+def _hashed_launcher(lib: str = "lio_cascade"):
     from . import _build
 
-    fn = _build.load("lio_cascade").lio_cascade_hashed_launch
+    fn = _build.load(lib).lio_cascade_hashed_launch
     fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + _TAIL
     fn.restype = ctypes.c_int
     return _build.profiled("lio_cascade", fn)
+
+
+LIBRARIES = {27: "lio_cascade", 125: "lio_cascade_125"}  # the templated walks'
+
+
+def launchers(M: int) -> tuple:
+    """(tiled launch, hash / dense launch) of the library that takes M
+    candidates: csrc/lio_cascade.cu's templated walks at 27,
+    lio_cascade_125.cu's at 125, lio_cascade_any.cu's generic form at any
+    other M (the same C entry points; three libraries so that their
+    instances build in parallel)."""
+    lib = LIBRARIES.get(M, "lio_cascade_any")
+    return _launcher(lib), _hashed_launcher(lib)
 
 
 def map_kind(m) -> str:
@@ -138,22 +156,20 @@ def map_kind(m) -> str:
     return ("hash", "dense")[_hashed_module(m)[1]]
 
 
-def check_radius(radius: int):
-    """The kernel's neighbourhoods: radius 1 or 2 (27 or 125 candidates).
-    Raises ValueError."""
-    if radius not in (1, 2):
-        raise ValueError(f"lio_cascade: radius {radius}; the kernel takes 1 or 2 "
-                         "(27 or 125 candidates)")
+def check_radius(radius: int) -> int:
+    """The kernel's neighbourhoods: any radius r >= 0, M = (2r+1)^3
+    candidates (27: the templated walks; any other M: their generic form).
+    Returns M; raises ValueError for a negative radius."""
+    return _check_radius("lio_cascade", radius)
 
 
 def check_block(cand, found, n: int, radius: int, dev):
     """The buffers that receive `cache_knn`'s candidate block: cand (n, M,
-    3) f32 and found (n, M) bool, M = (2r+1)^3 of the radius (1 or 2),
+    3) f32 and found (n, M) bool, M = (2r+1)^3 of the radius (r >= 0),
     contiguous on `dev`. Raises ValueError or TypeError."""
-    check_radius(radius)
+    M = check_radius(radius)
     if cand is None or found is None:
         raise ValueError("lio_cascade: give the block's points and found flags together")
-    M = (2 * radius + 1) ** 3
     _require("lio_cascade: cand", cand, (n, M, 3), F32, dev)
     _require("lio_cascade: found", found, (n, M), torch.bool, dev)
 
@@ -163,7 +179,7 @@ def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: 
                 cache_knn: bool = False, plane_fit: str = "tls", block=None):
     """The iterated EKF on the map `m` (tiled_map.TiledMap,
     voxel_map.VoxelMap with `max_probe` slots a voxel, or dense_map.DenseMap;
-    radius 1 or 2: 27 or 125 candidates; the plane fit's `threshold`, the
+    any radius r >= 0, M = (2r+1)^3 candidates; the plane fit's `threshold`, the
     gates (sq_dist, s, res) and the convergence thresholds `conv` (deg, cm)
     as lio.py sets them) from the pose (rot (3, 3), x = [pos, vel, bg, ba,
     grav] (15,), f64) toward the prior (prior_rot, prior_x, P' = prior.cov /
@@ -229,15 +245,16 @@ def lio_cascade(m, p_imu, bns, pmask, rot, x, prior_rot, prior_x, P_, max_iter: 
     tail = (int(max_iter), float(threshold), *(float(g) for g in gates),
             *(float(c) for c in conv))
     grid = ctypes.c_int(0)
+    tiled_launch, hashed_launch = launchers(M)
     if kind == "tiled":
         offs = tm.neighbor_offsets(radius, dev)
-        err = _launcher()(m.dir_check.data_ptr(), m.dir_slot.data_ptr(), m.cell_check.data_ptr(),
+        err = tiled_launch(m.dir_check.data_ptr(), m.dir_slot.data_ptr(), m.cell_check.data_ptr(),
                           m.pts.data_ptr(), m.voxel_size.data_ptr(), m.log2_dims.data_ptr(),
                           offs.data_ptr(), *ptrs, N, M, m.slot_key.shape[0], fit, *tail,
                           ctypes.byref(grid), stream)
     else:
         offs = vm.neighbor_offsets(radius, dev)
-        err = _hashed_launcher()(
+        err = hashed_launch(
             m.check.data_ptr(), m.pts.data_ptr(), m.voxel_size.data_ptr(),
             m.log2_dims.data_ptr() if kind == "dense" else None, offs.data_ptr(), *ptrs, N, M,
             m.check.shape[0], 0 if kind == "hash" else 1, int(max_probe), fit, *tail,

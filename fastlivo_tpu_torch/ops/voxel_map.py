@@ -186,33 +186,24 @@ def sort_order(skeys: torch.Tensor) -> torch.Tensor:
     return o1[torch.sort(skeys[1][o1], stable=True)[1]]
 
 
-def insert_probe_plain(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
-                       rows: torch.Tensor, order: torch.Tensor, max_probe: int) -> torch.Tensor:
-    """The insert's probe rounds (the kernel hash_insert_probe's oracle)
-    on the sorted rows `order`: writes the table in place and returns the
-    new count. Each voxel's run is headed by its row nearest the centre;
-    the heads probe `max_probe` consecutive slots. A free slot is claimed;
-    when two voxels claim one slot in the same round, the later row in
-    sorted order keeps it (the JAX package's duplicate-index scatter on
-    the CPU), and a row learns that it won by reading the slot back. The
-    writes go through copies of the table with one spare row, which takes
-    the masked-out writes."""
+def _probe_rounds(m: VoxelMap, pts_s, keys_s, checks_s, slot, live, max_probe: int):
+    """The probe rounds on rows in the JAX package's sorted order (pts_s,
+    keys_s, checks_s, first probe slot `slot`), of which the `live` ones
+    (each voxel's head) insert: writes the table in place and returns the
+    new count. A free slot is claimed; when two voxels claim one slot in
+    the same round, the later row in sorted order keeps it (the JAX
+    package's duplicate-index scatter on the CPU), and a row learns that it
+    won by reading the slot back. The writes go through copies of the
+    table with one spare row, which takes the masked-out writes."""
     T = m.check.shape[0]
     mask = T - 1
     vs = m.voxel_size
-    keys_s = rows[:3].T[order]
-    pts_s = pts[order]
-    checks_s = rows[4][order]
-    same = torch.all(keys_s == torch.roll(keys_s, 1, dims=0), dim=-1)
-    same[:1] = False
-    winner = valid[order] & ~same
-
     tc = torch.cat([m.check, m.check.new_full((1,), EMPTY_CHECK)])
     tp = torch.cat([m.pts, m.pts.new_zeros((1, 3))])
     cnt = m.count
-    slot = rows[3][order].to(I64)
-    done = ~winner
-    center_s = (keys_s.to(pts.dtype) + 0.5) * vs
+    slot = slot.to(I64)
+    done = ~live
+    center_s = (keys_s.to(pts_s.dtype) + 0.5) * vs
     d2c_s = _sq3(pts_s - center_s)
     for _ in range(max_probe):
         cur = tc[slot]
@@ -232,17 +223,70 @@ def insert_probe_plain(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
     return cnt
 
 
-def _insert_passes(m: VoxelMap, pts, valid, max_probe, keys_pass, probe_pass) -> VoxelMap:
-    rows, skeys = keys_pass(m, pts, valid)
-    order = sort_order(skeys)
-    return m._replace(count=probe_pass(m, pts, valid, rows, order, max_probe))
+def _sorted_heads(rows: torch.Tensor, order: torch.Tensor, valid: torch.Tensor):
+    """The voxels in sorted order `order` (keys_s (B, 3)) and which rows
+    head their run and are valid ((B,) bool)."""
+    keys_s = rows[:3].T[order]
+    same = torch.all(keys_s == torch.roll(keys_s, 1, dims=0), dim=-1)
+    same[:1] = False
+    return keys_s, valid[order] & ~same
+
+
+def insert_probe_plain(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
+                       rows: torch.Tensor, order: torch.Tensor, max_probe: int) -> torch.Tensor:
+    """The insert's probe rounds on the sorted rows `order`: writes the
+    table in place and returns the new count. Each voxel's run is headed
+    by its row nearest the centre, a valid row; the heads probe
+    `max_probe` consecutive slots (`_probe_rounds`)."""
+    keys_s, live = _sorted_heads(rows, order, valid)
+    return _probe_rounds(m, pts[order], keys_s, rows[4][order], rows[3][order], live,
+                         max_probe)
 
 
 def insert_plain(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
                  max_probe: int = 12) -> VoxelMap:
     """`insert` in torch ops, on any device: the keys pass, the two-pass
     sort and the probe rounds. The kernels' oracle."""
-    return _insert_passes(m, pts, valid, max_probe, insert_keys_plain, insert_probe_plain)
+    rows, skeys = insert_keys_plain(m, pts, valid)
+    order = sort_order(skeys)
+    return m._replace(count=insert_probe_plain(m, pts, valid, rows, order, max_probe))
+
+
+HEAD_ROWS = 7  # heads (7, B): row, k0, k1, k2, probe slot, check, d2c bits
+
+
+def insert_heads_plain(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor):
+    """The heads the kernel hash_insert_keys picks (its oracle): each
+    voxel's row with the least (d2c bits, row) if that row is valid (the
+    head of its run in jnp.lexsort((d2c, k0, k1, k2))'s order, as
+    `insert_probe_plain` finds it), in row order. Returns (heads (7, B)
+    int32: the first nh columns [row, k0, k1, k2, probe slot, 31-bit check,
+    d2c bits] of each head, zeros after; nh () int32). Reads nh back to the
+    host: for the CPU and the comparisons."""
+    rows, skeys = insert_keys_plain(m, pts, valid)
+    order = sort_order(skeys)
+    head_rows = torch.sort(order[_sorted_heads(rows, order, valid)[1]]).values
+    nh = head_rows.shape[0]
+    heads = rows.new_zeros((HEAD_ROWS, pts.shape[0]))
+    heads[0, :nh] = head_rows.to(I32)
+    heads[1:, :nh] = rows[:, head_rows]
+    return heads, torch.tensor(nh, dtype=I32, device=pts.device)
+
+
+def insert_heads_probe_plain(m: VoxelMap, pts: torch.Tensor, heads: torch.Tensor,
+                             nh: torch.Tensor, max_probe: int) -> torch.Tensor:
+    """The probe rounds over the heads (hash_insert_probe's plain version):
+    the heads put in (k2, k1, k0) order, the JAX package's sorted order of
+    different voxels (three stable sorts, the least significant key
+    first), then `_probe_rounds`. Writes the table in place and returns
+    the new count. Reads nh back to the host."""
+    h = heads[:, :int(nh)]
+    o = torch.sort(h[1], stable=True)[1]
+    o = o[torch.sort(h[2][o], stable=True)[1]]
+    o = o[torch.sort(h[3][o], stable=True)[1]]
+    h = h[:, o]
+    return _probe_rounds(m, pts[h[0].to(I64)], h[1:4].T, h[5], h[4],
+                         torch.ones(h.shape[1], dtype=torch.bool, device=h.device), max_probe)
 
 
 def insert(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
@@ -251,10 +295,11 @@ def insert(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
     (count is a new tensor): per voxel the point nearest its centre
     survives, among the batch and the stored point (ikd_Tree.cpp:391-417).
 
-    The batch is sorted by voxel and distance to the centre, so that the
-    nearest row heads each voxel's run; the heads then probe `max_probe`
-    consecutive slots (`insert_probe_plain`). A map on CUDA runs the two
-    kernels of csrc/hash_insert.cu around the sort (`hash_insert_keys`,
+    The batch's voxels are headed by their row nearest the centre; the
+    heads then probe `max_probe` consecutive slots, a slot contested in a
+    round kept by the head last in (k2, k1, k0) order
+    (`insert_probe_plain`). A map on CUDA runs the two kernels of
+    csrc/hash_insert.cu (`hash_insert_keys`, the heads without a sort,
     then `hash_insert_probe`, every round in one launch; each counted in
     its `.launches`), with no host read; a map on the CPU runs
     `insert_plain`. No other device is taken and nothing falls back."""
@@ -263,8 +308,9 @@ def insert(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
         return insert_plain(m, pts, valid, max_probe)
     if dev.type != "cuda":
         raise ValueError(f"insert: unsupported device {dev}")
-    return _insert_passes(m, pts.contiguous(), valid, max_probe, hash_insert_keys,
-                          hash_insert_probe)
+    pts = pts.contiguous()
+    heads, nh = hash_insert_keys(m, pts, valid)
+    return m._replace(count=hash_insert_probe(m, pts, heads, nh, max_probe))
 
 
 @functools.cache
@@ -274,8 +320,8 @@ def _insert_launchers():
     lib = _build.load("hash_insert")
     P, I = ctypes.c_void_p, ctypes.c_int
     keys, probe = lib.hash_insert_keys_launch, lib.hash_insert_probe_launch
-    keys.argtypes = [P] * 5 + [I, I, P]
-    probe.argtypes = [P] * 11 + [I, I, I, I, ctypes.POINTER(I), P]
+    keys.argtypes = [P] * 7 + [I, I, I, ctypes.POINTER(I), P]
+    probe.argtypes = [P] * 10 + [I, I, I, I, ctypes.POINTER(I), P]
     for fn in (keys, probe):
         fn.restype = ctypes.c_int
     return (_build.profiled("hash_insert_keys", keys),
@@ -296,7 +342,7 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_flat(where: str, m, pts=None, valid=None, rows=None, order=None):
+def _check_flat(where: str, m, pts=None, valid=None, heads=None, nh=None):
     """The shapes, types, device and contiguity the flat maps' kernels
     take (a VoxelMap or a DenseMap: check, pts, count, voxel_size)."""
     dev = m.check.device
@@ -306,7 +352,7 @@ def _check_flat(where: str, m, pts=None, valid=None, rows=None, order=None):
     B = 0 if pts is None else pts.shape[0]
     for name, t, shape, dtype in (
             ("pts", pts, (B, 3), torch.float32), ("valid", valid, (B,), torch.bool),
-            ("rows", rows, (6, B), I32), ("order", order, (B,), I64),
+            ("heads", heads, (HEAD_ROWS, B), I32), ("nh", nh, (), I32),
             ("check", m.check, (T,), I32), ("map pts", m.pts, (T, 3), torch.float32),
             ("count", m.count, (), I32), ("voxel_size", m.voxel_size, (), torch.float32)):
         if t is not None:
@@ -324,45 +370,57 @@ def _check_hash(where: str, m: VoxelMap, pts, *rest):
 
 
 def hash_insert_keys(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor):
-    """`insert_keys_plain`'s signature and outputs: on a CUDA map one
-    launch of hash_insert_keys (counted in `hash_insert_keys.launches`;
-    none at B = 0), on a CPU map the plain version."""
+    """`insert_heads_plain`'s signature and outputs (heads (7, B) int32,
+    valid in their first nh columns; nh () int32): on a CUDA map one
+    cooperative launch of hash_insert_keys, with no sort and no host read
+    (counted in `hash_insert_keys.launches`; none at B = 0; its blocks in
+    `hash_insert_keys.grid`), its table and look-back words in the
+    stream's scratch (`photometric._ticket`), left at 0. On a CPU map the
+    plain version."""
     if m.check.device.type == "cpu":
-        return insert_keys_plain(m, pts, valid)
+        return insert_heads_plain(m, pts, valid)
     dev, B, T = _check_hash("hash_insert_keys", m, pts, valid)
-    rows = torch.empty((6, B), dtype=I32, device=dev)
-    skeys = torch.empty((2, B), dtype=I64, device=dev)
-    if B:
-        _raise_on("hash_insert_keys", _insert_launchers()[0](
-            pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(), rows.data_ptr(),
-            skeys.data_ptr(), B, T - 1, _stream(dev)))
-        hash_insert_keys.launches += 1
-    return rows, skeys
+    heads = torch.empty((HEAD_ROWS, B), dtype=I32, device=dev)
+    if B == 0:
+        return heads, torch.zeros((), dtype=I32, device=dev)
+    nh = torch.empty((), dtype=I32, device=dev)
+    rk = torch.empty((4, B), dtype=I32, device=dev)
+    S = max(64, 1 << (2 * B - 1).bit_length())  # a power of two >= 2 B
+    stream = _stream(dev)
+    scratch = _ticket(dev, stream, 3 * S + -(-B // 256))  # left at 0 by every launch
+    grid = ctypes.c_int(0)
+    _raise_on("hash_insert_keys", _insert_launchers()[0](
+        pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(), rk.data_ptr(),
+        heads.data_ptr(), nh.data_ptr(), scratch.data_ptr(), B, S, T - 1, ctypes.byref(grid),
+        stream))
+    hash_insert_keys.launches += 1
+    hash_insert_keys.grid = grid.value
+    return heads, nh
 
 
-def hash_insert_probe(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
-                      rows: torch.Tensor, order: torch.Tensor, max_probe: int) -> torch.Tensor:
-    """`insert_probe_plain`'s signature and outputs: on a CUDA map one
-    cooperative launch of hash_insert_probe that runs every round (counted
-    in `hash_insert_probe.launches`, also at B = 0; its blocks in
-    `hash_insert_probe.grid`), the table written in place, no host read;
-    its tickets and round counts are the stream's scratch
+def hash_insert_probe(m: VoxelMap, pts: torch.Tensor, heads: torch.Tensor, nh: torch.Tensor,
+                      max_probe: int) -> torch.Tensor:
+    """`insert_heads_probe_plain`'s signature and outputs: on a CUDA map
+    one cooperative launch of hash_insert_probe that runs every round over
+    the heads (counted in `hash_insert_probe.launches`, also at B = 0; its
+    blocks in `hash_insert_probe.grid`), the table written in place, no
+    host read; its tickets and round counts are the stream's scratch
     (`photometric._ticket`), left at 0. On a CPU map the plain version."""
     if m.check.device.type == "cpu":
-        return insert_probe_plain(m, pts, valid, rows, order, max_probe)
-    dev, B, T = _check_hash("hash_insert_probe", m, pts, valid, rows, order)
+        return insert_heads_probe_plain(m, pts, heads, nh, max_probe)
+    dev, B, T = _check_hash("hash_insert_probe", m, pts, None, heads, nh)
     max_probe = int(max_probe)
     if max_probe < 0:
         raise ValueError(f"hash_insert_probe: max_probe {max_probe}")
     count = torch.empty((), dtype=I32, device=dev)
     state = torch.empty(B, dtype=I32, device=dev)
     stream = _stream(dev)
-    scratch = _ticket(dev, stream, T + max_probe + 1)  # left at 0 by every launch
+    scratch = _ticket(dev, stream, 4 * T + max_probe + 2)  # left at 0 by every launch
     grid = ctypes.c_int(0)
     _raise_on("hash_insert_probe", _insert_launchers()[1](
-        pts.data_ptr(), valid.data_ptr(), rows.data_ptr(), order.data_ptr(),
-        m.voxel_size.data_ptr(), m.check.data_ptr(), m.pts.data_ptr(), m.count.data_ptr(),
-        count.data_ptr(), state.data_ptr(), scratch.data_ptr(), B, T, max_probe, EMPTY_CHECK,
+        pts.data_ptr(), heads.data_ptr(), nh.data_ptr(), m.voxel_size.data_ptr(),
+        m.check.data_ptr(), m.pts.data_ptr(), m.count.data_ptr(), count.data_ptr(),
+        state.data_ptr(), scratch.data_ptr(), B, T, max_probe, EMPTY_CHECK,
         ctypes.byref(grid), stream))
     hash_insert_probe.launches += 1
     hash_insert_probe.grid = grid.value
@@ -370,7 +428,7 @@ def hash_insert_probe(m: VoxelMap, pts: torch.Tensor, valid: torch.Tensor,
 
 
 hash_insert_keys.launches = hash_insert_probe.launches = 0
-hash_insert_probe.grid = 0
+hash_insert_keys.grid = hash_insert_probe.grid = 0
 
 
 def knn_candidates(m: VoxelMap, queries: torch.Tensor, radius: int = 2,

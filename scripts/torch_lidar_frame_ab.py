@@ -405,15 +405,32 @@ class Worker:
         "tiled_insert": ("marked", "ranking past its wait", "ranking past its look-back",
                          "ranked", "cells gathered", "cells past their wait",
                          "cells walked", "cells written", "end"),
-        "hash_insert": ("heads", "reads", "first barrier", "writes", "second barrier", "end")}
+        "hash_insert": ("heads", "reads", "first barrier", "writes", "second barrier", "end",
+                        "phases", "barriers")}
     IT_BASE, IT_NPH, IT_MAX = 16, 8, 64  # phase_stamps.cuh's iteration slots
 
     def hash_round_ms(self, t):
         """hash_insert_probe's stamps t (ns) -> {phase: ms} summed over the
         rounds, "rounds" and "total"; each boundary the last block's
-        crossing."""
+        crossing. A probe over the heads (no heads stamp: one barrier a
+        round) gives "phases" (each round's settling and reads, up to its
+        barrier) and "barriers"; the sorted rows' probe "heads", "reads",
+        "first barrier", "writes" and "second barrier"."""
         base, nph = self.IT_BASE, self.IT_NPH
         out = dict.fromkeys(self.STAMPED["hash_insert"], 0.0)
+        if not t[1]:
+            prev, rounds = t[0], 0
+            for r in range(self.IT_MAX):
+                s = t[base + r * nph: base + r * nph + 2]
+                if not s[0]:
+                    break
+                rounds += 1
+                out["phases"] += (s[0] - prev) / 1e6
+                out["barriers"] += (s[1] - s[0]) / 1e6
+                prev = s[1]
+            out["end"] = (t[2] - prev) / 1e6
+            out.update(rounds=rounds, total=(t[2] - t[0]) / 1e6)
+            return out
         out["heads"] = (t[1] - t[0]) / 1e6
         prev, rounds = t[1], 0
         for r in range(self.IT_MAX):
@@ -456,6 +473,7 @@ class Worker:
         _, pts, valid = rec["insert"][:3]
         gkey, rows = tm.insert_keys_plain(m, pts, valid)
         sg, order = torch.sort(gkey, stable=True)
+        keys_call = None  # the hash insert's keys launch, where it has stamps
         calls = {"undistort": (lambda: imu.undistort(*und), imu._undistort_launcher),
                  "tiled_insert": (lambda: tm.insert_tiles(m, pts, valid, rows, sg, order),
                                   tm._insert_launchers)}
@@ -472,10 +490,17 @@ class Worker:
                 hm = type(hrec["map"])(*(t.clone() for t in hrec["map"]))
                 _, hp, hv, *probe = hrec["insert"]
                 probe = probe[0] if probe else 12
-                hrows, hkeys = vm.insert_keys_plain(hm, hp, hv)
-                horder = vm.sort_order(hkeys)
-                calls[name] = (lambda: vm.hash_insert_probe(hm, hp, hv, hrows, horder, probe),
-                               vm._insert_launchers)
+                if hasattr(vm, "insert_heads_plain"):  # the probe over the heads
+                    heads, nh = vm.insert_heads_plain(hm, hp, hv)
+                    calls[name] = (lambda: vm.hash_insert_probe(hm, hp, heads, nh, probe),
+                                   vm._insert_launchers)
+                    keys_call = lambda: vm.hash_insert_keys(hm, hp, hv)  # noqa: E731
+                else:
+                    hrows, hkeys = vm.insert_keys_plain(hm, hp, hv)
+                    horder = vm.sort_order(hkeys)
+                    calls[name] = (
+                        lambda: vm.hash_insert_probe(hm, hp, hv, hrows, horder, probe),
+                        vm._insert_launchers)
             lib_path = _build.BUILD_DIR / "stamps" / f"lib{name}-stamped.so"
             lib_path.parent.mkdir(parents=True, exist_ok=True)
             res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DPHASE_STAMPS", "-o",
@@ -511,6 +536,8 @@ class Worker:
                     else:
                         rows_ms.append({p: (t[k + 1] - t[0]) / 1e6
                                         for k, p in enumerate(phases)})
+                if name == "hash_insert" and keys_call is not None:
+                    keys_ms = self.keys_stamps(keys_call, read, buf, n, reps)
             finally:
                 if shipped is None:
                     _build._loaded.pop(name)
@@ -519,7 +546,32 @@ class Worker:
                 launchers.cache_clear()
             rows_ms = rows_ms[1:]  # the first launch warms up
             out[name] = {k: float(np.median([r[k] for r in rows_ms])) for k in rows_ms[0]}
+            if name == "hash_insert" and keys_call is not None:
+                out["hash_insert_keys"] = keys_ms
         return out
+
+    KEYS_PHASES = ("rows into the table", "first barrier", "heads", "second barrier",
+                   "reset")
+
+    def keys_stamps(self, call, read, buf, n, reps):
+        """hash_insert_keys launched alone `reps` times, synchronised, its
+        stamps (3-7: the end of each phase and barrier) read after each:
+        {phase: median ms} and the total."""
+        import numpy as np
+
+        torch = self.torch
+        rows = []
+        read(buf, n)  # reset
+        for _ in range(reps + 1):
+            call()
+            torch.cuda.synchronize()
+            if read(buf, n):
+                raise RuntimeError("hash_insert_keys: reading the stamps failed")
+            t = [int(x) for x in buf]
+            ms = [(t[k] - (t[k - 1] if k > 3 else t[0])) / 1e6 for k in range(3, 8)]
+            rows.append({**dict(zip(self.KEYS_PHASES, ms)), "total": (t[7] - t[0]) / 1e6})
+        rows = rows[1:]
+        return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
 
 
 def serve(tree: str, duration: float, paths):

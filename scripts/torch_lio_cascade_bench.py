@@ -4,6 +4,7 @@ time goes.
 
 Usage: python scripts/torch_lio_cascade_bench.py [--variant TREE ...]
            [--stamps TREE ...] [--n 16384] [--reps 30] [--out FILE]
+           [--case MAP:ROUTE ...] [--radius R]
 
 Each variant is csrc/lio_cascade.cu of the checkout at TREE, relative to
 this one (default: this one, `.`; e.g. `build/parent` for an unpacked
@@ -41,6 +42,22 @@ between two CUDA events (chip_smoke.event_ms: it reads its convergence
 flag every iteration), each the median of `--reps`. Prints one
 JSON line with the card's `nvidia-smi` name and power limit beside every
 number (and writes it to `--out`).
+
+Each `--case` MAP:ROUTE (MAP tiled, hash or dense; ROUTE as `--route`'s)
+runs every variant on that map and route at `--radius` (default 1; 2:
+M = 125, 3: M = 343): the hash map holds the same points in 2^20 slots
+(inserted by this checkout's voxel_map.insert), the dense grid in 64 x
+64 x 16 cells of 0.5 m. Each variant's outputs are held bit for bit
+against the first variant's and against the host loop (lio.lio_loop
+with lio.host_search, the kernels and the step kernel) and given its
+bound (chip_smoke.lio_cascade_bound_ms), then the variants are timed in
+turns, forwards and backwards, each a median of
+`--reps` queued calls: e.g. `--variant build/p25 --variant . --radius 2`
+times two trees' M = 125 instances (e.g. one tree's generic-M walks
+against another's templated ones), each tree's csrc/lio_cascade_125.cu
+or, where it has none, its lio_cascade.cu. At a
+radius other than 1 and 2 each tree's lio_cascade_any.cu runs (the walks'
+generic form); a tree without one is left out.
 """
 import argparse
 import ctypes
@@ -116,6 +133,101 @@ def route_args(a, route):
     return (*a, 12, search == "gather", fit)
 
 
+def case_args(a, kind, route, radius, dev):
+    """The cascade's arguments `a` on the map `kind` (tiled: a's own; hash:
+    2^20 slots; dense: 64 x 64 x 16 cells, both holding a's map points), at
+    `radius`, for a route."""
+    import torch
+
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    m = a[0]
+    if kind != "tiled":
+        live = m.cell_check != vm.EMPTY_CHECK
+        pts = m.pts[live].contiguous()
+        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+        m = (vm.insert(vm.empty_map(1 << 20, VOXEL, device=dev), pts, valid) if kind == "hash"
+             else dm.insert(dm.empty_dense_map((64, 64, 16), VOXEL, device=dev), pts, valid))
+    return route_args((m, *a[1:10], radius, *a[11:]), route)
+
+
+def bind_hashed(lib):
+    """The variant's hashed launch function, with this checkout's ctypes
+    signature (ops/lio_cascade.py's hashed launcher)."""
+    from fastlivo_tpu_torch.ops import _build
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+
+    fn = lib.lio_cascade_hashed_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + lc._TAIL
+    return _build.profiled("lio_cascade", fn)
+
+
+def run_cases(cases, variants, a, radius, reps, dev):
+    """Every variant on each MAP:ROUTE case at `radius`: bit-equal to the
+    first variant and to the host loop, then timed in turns."""
+    import torch
+
+    import chip_smoke
+    from fastlivo_tpu_torch import lio
+    from fastlivo_tpu_torch.ops import lio_cascade as lc
+
+    card = chip_smoke.nvidia_smi_line()
+    # the templated walks' library at 27 and 125 candidates, the generic
+    # form's (lio_cascade_any.cu, where a tree has one) at any other M
+    name = lc.LIBRARIES.get((2 * radius + 1) ** 3, "lio_cascade_any")
+    libs = {v: build(os.path.join(ROOT, v), name) or build(os.path.join(ROOT, v), "lio_cascade")
+            for v in variants}
+    variants = [v for v in variants if libs[v] is not None]
+    bound = {v: (bind(libs[v]), bind_hashed(libs[v])) for v in variants}
+    real = lc._launcher, lc._hashed_launcher
+    out = {}
+    try:
+        for case in cases:
+            kind, route = case.split(":")
+            b = case_args(a, kind, route, radius, dev)
+            calls, outs = {}, {}
+            for v in variants:
+                def call(t=bound[v][0], h=bound[v][1]):
+                    lc._launcher = lambda lib=None: t
+                    lc._hashed_launcher = lambda lib=None: h
+                    return lc.lio_cascade(*b)
+
+                outs[v] = call()
+                torch.cuda.synchronize()
+                calls[v] = call
+            lc._launcher, lc._hashed_launcher = real
+            loop = route_loop(b)
+            ref = outs[variants[0]]
+            # the bound (chip_smoke.lio_cascade_bound_ms) from the world
+            # points of the host loop's searches
+            pws = []
+            knn = chip_smoke.map_search(b)
+            lio.lio_loop(lambda pw: (pws.append(pw), knn(pw))[1], *b[1:10])
+            bound_ms, by, _ = chip_smoke.lio_cascade_bound_ms(
+                b[0], torch.cat(pws), b[1].shape[0], int(ref[6]), radius,
+                **chip_smoke.cascade_options(b))
+            times = {v: [] for v in variants}
+            for v in variants + variants[::-1]:
+                times[v].append(chip_smoke.time_ms(calls[v], reps))
+            out[case] = {"radius": radius, "iterations": int(ref[6]), "bound_ms": bound_ms,
+                         "bound_by": by,
+                         "bit_equal_to_first": {v: same(outs[v], ref) for v in variants},
+                         "bit_equal_to_host_loop": {v: same(outs[v], loop) for v in variants},
+                         "ms": times, "card": card}
+            print(f"{case} radius {radius}: " + ", ".join(
+                f"{v} {times[v]} ms" for v in variants) + f", bound {bound_ms:.6f} ms ({by}), "
+                f"{int(ref[6])} iterations, "
+                f"bit-equal {out[case]['bit_equal_to_first']} / host loop "
+                f"{out[case]['bit_equal_to_host_loop']}; {card}")
+            del b
+            torch.cuda.empty_cache()
+    finally:
+        lc._launcher, lc._hashed_launcher = real
+    return out
+
+
 def route_loop(b):
     """lio.lio_loop on a route's arguments `b`, its search lio.host_search
     with the kernels (under cache_knn on the block knn_candidates gathers
@@ -146,7 +258,7 @@ def bind(lib):
     fn.restype = ctypes.c_int
     tail = [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_double] * 2 \
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    if b"void* cand_out" in lib.source:  # this checkout's signature
+    if b"void* cand_out" in lib.source or b'"lio_cascade.cuh"' in lib.source:  # this signature
         fn.argtypes = [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + lc._TAIL
         call = _build.profiled("lio_cascade", fn)
     elif b"int fit" in lib.source:  # no block: the call without its two pointers
@@ -189,6 +301,8 @@ def main():
     ap.add_argument("--n", type=int, default=16384)
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--case", action="append", default=[])
+    ap.add_argument("--radius", type=int, default=RADIUS)
     args = ap.parse_args()
     variants = args.variant or ["."]
 
@@ -206,7 +320,7 @@ def main():
     try:
         for v in variants:
             def call(bound=bind(build(os.path.join(ROOT, v), "lio_cascade"))):
-                lc._launcher = lambda: bound
+                lc._launcher = lambda lib=None: bound
                 return lc.lio_cascade(*a)
 
             outs[v] = call()
@@ -226,7 +340,7 @@ def main():
         stamps = {}
         for v in args.stamps:
             bound = bind(build(os.path.join(ROOT, v), "lio_cascade", stamps=True))
-            lc._launcher = lambda bound=bound: bound
+            lc._launcher = lambda lib=None, bound=bound: bound
             stamps[v] = stamped_phases(bound.lib, "lio_cascade", lambda: lc.lio_cascade(*a),
                                        args.reps)
     finally:
@@ -247,8 +361,9 @@ def main():
         print(f"{route}: cascade {ms['cascade']} ms, host loop {ms['host_loop']} ms, "
               f"{int(got[6])} iterations, bit-equal {routes[route]['bit_equal_to_host_loop']}; "
               f"{card}")
+    cases = run_cases(args.case, variants, a, args.radius, args.reps, torch.device("cuda"))
     line = json.dumps({"variants": variants, "n": args.n, "runs": res, "stamps": stamps,
-                       "routes": routes, "card": card})
+                       "routes": routes, "cases": cases, "card": card})
     print(line)
     if args.out:
         with open(args.out, "w") as fh:

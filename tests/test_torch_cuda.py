@@ -109,7 +109,8 @@ def random_block(n=700, m=27, seed=0, drop=0.3):
     found = rng.random((n, m)) > drop
     found[:5] = False  # no neighbour at all
     found[5:10, 3:] = False  # fewer than five
-    cand[10:20, 1] = cand[10:20, 0]  # duplicate candidates: distance ties
+    if m > 1:
+        cand[10:20, 1] = cand[10:20, 0]  # duplicate candidates: distance ties
     return cand, found, q
 
 
@@ -125,12 +126,14 @@ def assert_contract(pab_a, ok_a, nd2_a, pab_b, ok_b, nd2_b, min_both=200):
     assert mism.mean() < 0.01, f"{mism.sum()} gate mismatches"
 
 
-@pytest.mark.parametrize("m", [27, 125])
+@pytest.mark.parametrize("m", [1, 27, 125, 343, 729])  # radius 0 to 4
 def test_knn5_plane_kernel_matches_plain(cuda, m):
-    """The slab-staged kernel on random blocks: bit-exact against its plain
-    version (so also within the contract), for N a multiple of its slab
-    of 32 queries and not (a ragged last slab, whose bytes past its last
-    whole 16 are copied by lanes), down to one query."""
+    """The slab-staged kernel (M = 27, 125) and the generic one (any other
+    M: a thread a query streaming its rows from device memory) on random
+    blocks: bit-exact against the plain version (so also within the
+    contract), for N a multiple of its slab of 32 queries and not (a
+    ragged last slab, whose bytes past its last whole 16 are copied by
+    lanes), down to one query."""
     cand, found, q = (torch.from_numpy(a).to(cuda) for a in random_block(5007, m, 4))
     for n in (4992, 5007, 37, 1):
         before = knn_plane.knn5_plane.launches
@@ -141,7 +144,8 @@ def test_knn5_plane_kernel_matches_plain(cuda, m):
             assert torch.equal(g, w), (n, (g.float() - w.float()).abs().max())
     got = [t.cpu().numpy() for t in knn_plane.knn5_plane(cand, found, q)]
     want = [t.cpu().numpy() for t in knn_plane.knn5_plane_plain(cand, found, q)]
-    assert_contract(*got, *want, min_both=1000)
+    if m > 1:  # one candidate a query: no plane is fitted
+        assert_contract(*got, *want, min_both=1000)
 
 
 @pytest.mark.parametrize("m", [27, 125])
@@ -332,7 +336,7 @@ def search_queries(n=900, seed=11):
     return q
 
 
-@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 4])  # M = 1, 27, 125, 343, 729
 @pytest.mark.parametrize("dims", [(32, 32, 16), (2, 2, 2)])  # (2, 2, 2): aliased tiles
 def test_knn5_plane_tiled_matches_plain(cuda, radius, dims):
     m = tm.build_host(surface(40000, 3), dims, 256, 0.5, device=cuda)
@@ -343,14 +347,14 @@ def test_knn5_plane_tiled_matches_plain(cuda, radius, dims):
     want = knn_plane.knn5_plane_tiled_plain(m, q, radius, 0.1)
     for g, w in zip(got, want):
         assert torch.equal(g, w), (g.float() - w.float()).abs().max()
-    assert int(got[1].sum()) > 500  # planes were fitted
+    assert int(got[1].sum()) > (0 if radius == 0 else 500)  # planes were fitted
 
 
 def test_knn5_plane_tiled_refuses_bad_inputs(cuda):
     m = tm.build_host(surface(2000, 3), (32, 32, 16), 64, 0.5, device=cuda)
     q = torch.from_numpy(search_queries(64)).to(cuda)
     with pytest.raises(ValueError):
-        knn_plane.knn5_plane_tiled(m, q, 3)
+        knn_plane.knn5_plane_tiled(m, q, -1)
     with pytest.raises(TypeError):
         knn_plane.knn5_plane_tiled(m, q.double(), 1)
     with pytest.raises(ValueError):
@@ -890,7 +894,7 @@ def hash_and_dense_maps(device, T=1 << 16, dims=(64, 64, 16)):
     return maps
 
 
-@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 4])  # M = 1, 27, 125, 343, 729
 def test_knn5_plane_on_hash_and_dense_blocks_bit_exact(cuda, radius):
     from fastlivo_tpu_torch.ops import dense_map as dm
     from fastlivo_tpu_torch.ops import voxel_map as vm
@@ -904,7 +908,7 @@ def test_knn5_plane_on_hash_and_dense_blocks_bit_exact(cuda, radius):
         want = knn_plane.knn5_plane_plain(cand, found, q, 0.1)
         for g, w in zip(got, want):
             assert torch.equal(g, w), (mod.__name__, (g.float() - w.float()).abs().max())
-        assert int(got[1].sum()) > 500  # planes were fitted
+        assert int(got[1].sum()) > (0 if radius == 0 else 500)  # planes were fitted
 
 
 def test_map_ops_on_the_card_equal_the_cpu(cuda):
@@ -1097,7 +1101,7 @@ def search_traps(m, q, radius, max_probe=12) -> int:
     return int(behind.sum())
 
 
-@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 4])  # M = 1, 27, 125, 343, 729
 @pytest.mark.parametrize("backend,probe", [("hash", 12), ("hash", 32), ("dense", 12)])
 def test_knn5_plane_hashed_matches_plain(cuda, backend, probe, radius):
     """The fused search on the hash map and the dense grid, bit-exact
@@ -1117,7 +1121,7 @@ def test_knn5_plane_hashed_matches_plain(cuda, backend, probe, radius):
         for g, w in zip(got, want):
             assert g.shape[0] == n and torch.equal(g, w), \
                 (n, (g.float() - w.float()).abs().max())
-    assert int(got[1].sum()) > 2000  # planes were fitted
+    assert int(got[1].sum()) > (0 if radius == 0 else 2000)  # planes were fitted
 
 
 def test_knn5_plane_hashed_probes_an_unaligned_table(cuda):
@@ -1132,7 +1136,7 @@ def test_knn5_plane_hashed_probes_an_unaligned_table(cuda):
     assert check.data_ptr() % 16
     m = m._replace(check=check)
     q = torch.from_numpy(hashed_queries(pair, 5000)).to(cuda)
-    for radius in (1, 2):
+    for radius in (1, 2, 3):
         got = knn_plane.knn5_plane_hashed(m, q, radius, 0.1, 12)
         want = knn_plane.knn5_plane_hashed_plain(m, q, radius, 0.1, 12)
         for g, w in zip(got, want):
@@ -1144,7 +1148,7 @@ def test_knn5_plane_hashed_refuses_bad_inputs(cuda):
     q = torch.from_numpy(hashed_queries(pair, 64)).to(cuda)
     h, d = maps["hash"], maps["dense"]
     with pytest.raises(ValueError):
-        knn_plane.knn5_plane_hashed(h, q, 3)
+        knn_plane.knn5_plane_hashed(h, q, -1)
     with pytest.raises(TypeError):
         knn_plane.knn5_plane_hashed(h, q.double(), 1)
     with pytest.raises(TypeError):
@@ -1791,7 +1795,7 @@ def route_block(m, body, rot, x, radius, probe):
                                             probe)
 
 
-ROUTES = [("frame", b, r, s, f) for b in ("tiled", "hash", "dense") for r in (1, 2)
+ROUTES = [("frame", b, r, s, f) for b in ("tiled", "hash", "dense") for r in (0, 1, 2, 3, 4)
           for s in ("walk", "gather") for f in ("tls", "ref")] + [
     (sc, b, 1, s, f) for sc in ("ties", "sparse") for b in ("tiled", "hash", "dense")
     for s in ("walk", "gather") for f in ("tls", "ref")]
@@ -1865,15 +1869,15 @@ def test_lio_cascade_on_every_route_matches_the_host_loop(cuda, scene, backend, 
     d = max(float((got[0] - plain[0]).abs().max()), float((got[1] - plain[1]).abs().max()))
     assert d <= 1e-9, d
     assert 2 <= its <= max_iter + 1
-    if scene == "frame":
+    if scene == "frame" and radius > 0:  # radius 0: one candidate, no plane
         assert int(got[3].sum()) > 10000
 
 
 def test_lio_cascade_refuses_bad_blocks(cuda):
     """The gather launch (cache_knn) writes a block handed in only when it
     has the radius's M, f32 and bool, contiguous on the card, and given
-    with its found flags; a block without cache_knn, a radius other than 1
-    or 2 and an unknown fit are refused too. Nothing is launched."""
+    with its found flags; a block without cache_knn, a negative radius and
+    an unknown fit are refused too. Nothing is launched."""
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade
 
@@ -1894,7 +1898,9 @@ def test_lio_cascade_refuses_bad_blocks(cuda):
                     (dict(block=(cand.transpose(0, 1).contiguous().transpose(0, 1), found)),
                      ValueError),
                     (dict(block=(cand, found), cache_knn=False), ValueError),
-                    (dict(radius=3), ValueError), (dict(radius=0), ValueError),
+                    (dict(block=(cand, found), radius=3), ValueError),
+                    (dict(block=(cand, found), radius=0), ValueError),
+                    (dict(radius=-1), ValueError), (dict(radius=1.0), ValueError),
                     (dict(plane_fit="svd"), ValueError), (dict(p_imu=body.double()), TypeError)):
         with pytest.raises(err):
             lio_cascade.lio_cascade(**{**good, **kw})
@@ -1911,7 +1917,7 @@ def test_lio_cascade_refuses_bad_inputs(cuda):
                 prior_x=x, P_=P_, max_iter=max_iter, radius=1, threshold=lio.PLANE_THRESH,
                 gates=lio.GATES, conv=lio.CONV)
     n0 = lio_cascade.lio_cascade.launches
-    for kw, err in ((dict(p_imu=body.cpu()), ValueError), (dict(radius=3), ValueError),
+    for kw, err in ((dict(p_imu=body.cpu()), ValueError), (dict(radius=-1), ValueError),
                     (dict(p_imu=body.double()), TypeError), (dict(bns=bns[:10]), ValueError),
                     (dict(pmask=pmask.to(torch.uint8)), TypeError),
                     (dict(rot=rot.float()), TypeError), (dict(x=x[:12]), ValueError),
@@ -1950,7 +1956,7 @@ def hashed_host_loop(m, body, bns, pmask, rot, x, P_, max_iter, radius, probe,
                         pmask, rot, x, rot, x, P_, max_iter)
 
 
-@pytest.mark.parametrize("radius", [1, 2])  # M = 27, 125
+@pytest.mark.parametrize("radius", [1, 2, 3])  # M = 27, 125, 343
 @pytest.mark.parametrize("backend,probe", [("hash", 12), ("hash", 32), ("dense", 12)])
 def test_lio_cascade_on_hash_and_dense_matches_the_host_loop(cuda, backend, probe, radius,
                                                             monkeypatch):
@@ -2010,9 +2016,10 @@ def test_lio_cascade_refuses_bad_hashed_maps(cuda):
     assert lio_cascade.lio_cascade.launches == n0
 
 
-def hashed_cascade_write_only(dev, backend):
+def hashed_cascade_write_only(dev, backend, radius=1):
     """test_kernels_write_only_their_outputs' lio_cascade on the hash map
-    and the dense grid, at 16379 rows and M = 27."""
+    and the dense grid, at 16379 rows and M = 27 (radius 3: M = 343, the
+    walk's generic form)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -2020,7 +2027,7 @@ def hashed_cascade_write_only(dev, backend):
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     n = 16379
-    m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(dev, backend, 1)
+    m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(dev, backend, radius)
     body, pmask = body[:n].contiguous(), pmask[:n].contiguous()
     bns = torch.sqrt(torch.sqrt(torch.sum(body * body, dim=-1)))
     offs = vm.neighbor_offsets(radius, dev)
@@ -2036,7 +2043,7 @@ def hashed_cascade_write_only(dev, backend):
             torch.empty((), dtype=torch.int32, device=dev)]
     grid = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    got = launch_guarded(lambda *v: lc._hashed_launcher()(
+    got = launch_guarded(lambda *v: lc.launchers(offs.shape[0])[1](
         *[t.data_ptr() for t in v], None, None, n, offs.shape[0], m.check.shape[0],
         0 if backend == "hash" else 1, probe, 0, max_iter, lio.PLANE_THRESH, *lio.GATES,
         *lio.CONV, ctypes.byref(grid), stream), maps + [body, bns, pmask, P_, rot, x, rot, x],
@@ -2049,10 +2056,11 @@ def hashed_cascade_write_only(dev, backend):
         assert_lio_equal(got, loop, (backend, plain_search))
 
 
-def gather_cascade_write_only(dev, backend, fit):
+def gather_cascade_write_only(dev, backend, fit, radius=1):
     """test_kernels_write_only_their_outputs' lio_cascade under cache_knn
     (its gather instance) on the tiled frame's map, the hash map (with
-    holes) or the dense grid, at 16379 rows and M = 27, with the fit
+    holes) or the dense grid, at 16379 rows and M = 27 (radius 3: M = 343,
+    the walks' generic form), with the fit
     `fit`: every input unwritten, the block (an output) equal to
     knn_candidates' at the start pose (flags everywhere, points where
     found), the group tickets back at 0, the outputs bit-equal to
@@ -2066,16 +2074,17 @@ def gather_cascade_write_only(dev, backend, fit):
 
     n = 16379
     if backend == "tiled":
-        m, body, pmask, rot, x, P_, max_iter, radius = lio_case(dev, "frame")
+        m, body, pmask, rot, x, P_, max_iter, _ = lio_case(dev, "frame")
         probe, offs = 12, tm.neighbor_offsets(radius, dev)
         maps = [m.dir_check, m.dir_slot, m.cell_check, m.pts, m.voxel_size, m.log2_dims, offs]
-        launcher, dims = lc._launcher(), (m.slot_key.shape[0],)
+        launcher, dims = lc.launchers(offs.shape[0])[0], (m.slot_key.shape[0],)
     else:
-        m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(dev, backend, 1)
+        m, body, pmask, rot, x, P_, max_iter, radius, probe = hashed_lio_case(dev, backend,
+                                                                              radius)
         offs = vm.neighbor_offsets(radius, dev)
         l2 = m.log2_dims if backend == "dense" else torch.zeros(3, dtype=torch.int32, device=dev)
         maps = [m.check, m.pts, m.voxel_size, l2, offs]
-        launcher = lc._hashed_launcher()
+        launcher = lc.launchers(offs.shape[0])[1]
         dims = (m.check.shape[0], 0 if backend == "hash" else 1, probe)
     body, pmask = body[:n].contiguous(), pmask[:n].contiguous()
     cand, found = route_block(m, body, rot, x, radius, probe)
@@ -2156,7 +2165,10 @@ def launch_guarded(launch, inputs, outputs):
                                     "lio_cascade_gather_dense_tls",
                                     "lio_cascade_gather_dense_ref",
                                     "hash_insert_keys", "hash_insert_probe", "dense_insert",
-                                    "flat_delete_boxes", "flat_delete_boxes_dense"])
+                                    "flat_delete_boxes", "flat_delete_boxes_dense",
+                                    "lio_cascade_r3_hash", "lio_cascade_r3_dense",
+                                    "lio_cascade_r3_gather_tiled_tls",
+                                    "lio_cascade_r3_gather_hash_ref"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -2188,13 +2200,18 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     those: lio_cascade on the hash map (with holes) and on the dense grid,
     and under cache_knn on each map (its gather instances, with the TLS fit
     and with the reference's: the block it writes an output, equal to
-    knn_candidates' where that defines it);
+    knn_candidates' where that defines it), and at radius 3 (M = 343, the
+    walks' generic form) on the hash map and the dense grid and under
+    cache_knn on the tiled and hash maps;
     vio_select at patch size 24 (the wide tree, its cells in shared
     memory) and 64 (in the launch's device scratch, an output here);
     photometric_err_H at 24 and at 96 (the taps read in place), and
     patches_and_grads at 96. The flat maps' writes at 16379 rows: the hash
-    insert's keys and probe launches (the table, the count and the round
-    state its outputs, the tickets and round counts back at 0), the
+    insert's keys launch (its per-call voxels and the heads its outputs,
+    the heads equal to insert_heads_plain's, its table and look-back words
+    back at 0) and probe launch on those heads (the table, the count and
+    the round state its outputs, every byte of the table equal to
+    insert_plain's, the tickets and round counts back at 0), the
     dense insert (the per-cell minimum back at 0) and the box delete of
     both with 300 boxes (its count words back at 0)."""
     import ctypes
@@ -2206,6 +2223,10 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
         return vio_write_only(cuda, kernel)
     if kernel.startswith("photometric") or kernel.startswith("patches"):
         return camera_write_only(cuda, kernel)
+    if kernel.startswith("lio_cascade_r3_gather"):
+        return gather_cascade_write_only(cuda, *kernel.split("_")[-2:], radius=3)
+    if kernel.startswith("lio_cascade_r3_"):
+        return hashed_cascade_write_only(cuda, kernel.split("_")[-1], radius=3)
     if kernel.startswith("lio_cascade_gather"):
         return gather_cascade_write_only(cuda, *kernel.split("_")[-2:])
     if kernel.startswith("lio_cascade_"):
@@ -3908,7 +3929,9 @@ def camera_write_only(dev, kernel):
 
 # --- the flat maps' writes: hash_insert, dense_insert, flat_delete_boxes ----
 
-FLAT_PLAIN = {"voxel_map": ("insert_keys_plain", "insert_probe_plain", "delete_boxes_plain"),
+FLAT_PLAIN = {"voxel_map": ("insert_keys_plain", "insert_probe_plain", "sort_order",
+                            "insert_heads_plain", "insert_heads_probe_plain", "_probe_rounds",
+                            "delete_boxes_plain"),
               "dense_map": ("insert_plain",)}
 
 
@@ -3990,6 +4013,18 @@ def hash_stream(case):
     if case == "nothing":  # no row, every row invalid
         p, v = flat_batch(rng, 500)
         return 1 << 10, [(p, v, 12), (p[:0], v[:0], 12), (p, np.zeros(500, bool), 12)]
+    if case.startswith("contested"):  # voxels that differ in one coordinate claim one slot
+        from torch_hash_cases import contested
+
+        p, v = contested("k0 k1 k2".split().index(case[-2:]))
+        steps = [(p, v, 12), (np.ascontiguousarray(p[::-1] + 0.01), v[::-1].copy(), 12)]
+        return 64, steps + [("boxes", np.float32([[-2, -2, -2]]), np.float32([[0, 2, 2]])),
+                            (p, v, 2), ("rebuild",)]
+    if case == "ties":  # one distance in a voxel, voxels with no valid row
+        from torch_hash_cases import ties_and_invalid
+
+        p, v = ties_and_invalid()
+        return 1 << 10, [(p, v, 12), (p[::-1].copy(), v[::-1].copy(), 12), ("rebuild",)]
     if case == "many boxes":  # more boxes than a block stages
         p, v = flat_batch(rng, 3000)
         c = p[rng.integers(0, 3000, 300)]
@@ -4004,15 +4039,21 @@ def hash_stream(case):
 
 
 @pytest.mark.parametrize("case", ["stream", "collision", "overflow", "nothing", "many boxes",
-                                  "shipped"])
+                                  "shipped", "contested_k0", "contested_k1", "contested_k2",
+                                  "ties"])
 def test_hash_map_kernels_equal_their_plain_versions(cuda, monkeypatch, case):
-    """Each insert (hash_insert_keys, the sort, hash_insert_probe), box
-    delete (flat_delete_boxes) and rebuild of the hash map on the card
+    """Each insert (hash_insert_keys: the heads, no sort; hash_insert_probe),
+    box delete (flat_delete_boxes) and rebuild of the hash map on the card
     gives every array of its plain version on the card, and of the plain
     version on the CPU (but at 2^20 slots), with the plain code not
     reached and each launch counted: one keys launch per insert of B > 0,
     one probe launch per insert, one delete launch per box set; the
-    stream's scratch back at 0."""
+    stream's scratch back at 0. The cases: inserts with deletes, holes and
+    rebuild, 31-bit check collisions, probe overflow, no row and every row
+    invalid, 300 boxes, the main path's batch at 2^20 slots, many voxels
+    contesting one slot that differ only in k0, only in k1 or only in k2
+    (negative ones too), and rows at one distance from their voxel's
+    centre beside voxels with no valid row."""
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     T, steps = hash_stream(case)
@@ -4137,8 +4178,8 @@ def test_flat_delete_boxes_makes_no_synchronising_call(cuda, backend):
 def test_lidar_frame_step_on_the_flat_maps_makes_no_synchronising_call(cuda, monkeypatch,
                                                                        backend):
     """The whole steady lidar_frame_step on the hash map and on the dense
-    grid (the insert through hash_insert_keys, the sort and
-    hash_insert_probe, or one dense_insert launch) makes no synchronising
+    grid (the insert through hash_insert_keys and hash_insert_probe, no
+    sort, or one dense_insert launch) makes no synchronising
     call, and gives the same bits as the step called without the mode."""
     no_sync_frame_step(cuda, monkeypatch, backend=backend)
 
@@ -4191,26 +4232,30 @@ def flat_write_only(dev, kernel):
     count = lambda: torch.empty((), dtype=torch.int32, device=dev)  # noqa: E731
     if kernel.startswith("hash_insert"):
         T = hm.check.shape[0]
-        rows, skeys = vm.insert_keys_plain(hm, p, v)
+        B = p.shape[0]
+        heads, nh = vm.insert_heads_plain(hm, p, v)
+        k = int(nh)
         if kernel == "hash_insert_keys":
-            got = launch_guarded(lambda a, b, c, r, s: vm._insert_launchers()[0](
-                *ptr(a, b, c, r, s), p.shape[0], T - 1, stream),
-                [p, v, hm.voxel_size], [torch.empty_like(rows), torch.empty_like(skeys)])
-            want = [rows, skeys]
+            S = 1 << (2 * B - 1).bit_length()
+            got = launch_guarded(lambda a, b, c, rk, hd, n, sc: vm._insert_launchers()[0](
+                *ptr(a, b, c, rk, hd, n, sc), B, S, T - 1, ctypes.byref(grid), stream),
+                [p, v, hm.voxel_size],
+                [torch.empty((4, B), dtype=torch.int32, device=dev), torch.empty_like(heads),
+                 count(), torch.zeros(3 * S + -(-B // 256), dtype=torch.int32, device=dev)])
+            assert not got[3].any()  # the table and the look-back words back at 0
+            got, want = [got[1][:, :k], got[2]], [heads[:, :k], nh]
         else:
-            order = vm.sort_order(skeys)
             want_m = clone_map(hm)
-            want = [want_m.check, want_m.pts,
-                    vm.insert_probe_plain(want_m, p, v, rows, order, 12)]
-            scratch = torch.zeros(T + 13, dtype=torch.int32, device=dev)
-            got = launch_guarded(lambda a, b, r, o, vs, cin, chk, mp, cout, st, sc:
+            want = [want_m.check, want_m.pts, vm.insert_plain(want_m, p, v, 12).count]
+            scratch = torch.zeros(4 * T + 14, dtype=torch.int32, device=dev)
+            got = launch_guarded(lambda a, hd, n, vs, cin, chk, mp, cout, st, sc:
                                  vm._insert_launchers()[1](
-                *ptr(a, b, r, o, vs, chk, mp, cin, cout, st, sc), p.shape[0], T, 12,
-                vm.EMPTY_CHECK, ctypes.byref(grid), stream),
-                [p, v, rows, order, hm.voxel_size, hm.count],
+                *ptr(a, hd, n, vs, chk, mp, cin, cout, st, sc), B, T, 12, vm.EMPTY_CHECK,
+                ctypes.byref(grid), stream),
+                [p, heads, nh, hm.voxel_size, hm.count],
                 [hm.check.clone(), hm.pts.clone(), count(),
-                 torch.empty(p.shape[0], dtype=torch.int32, device=dev), scratch])
-            assert not got[4].any()
+                 torch.empty(B, dtype=torch.int32, device=dev), scratch])
+            assert not got[4].any()  # the tickets and round counts back at 0
             got = got[:3]
     elif kernel == "dense_insert":
         G = dmap.check.shape[0]

@@ -490,16 +490,17 @@ def test_undistort_table_limit_is_the_pipelines():
 
 
 def test_lookback_header_serves_both_kernels(tmp_path, monkeypatch):
-    """csrc/lookback.cuh is included by voxel_centroids.cu and
-    tiled_insert.cu, and an edit of it changes both libraries' tags (so
-    both rebuild), not the others'."""
+    """csrc/lookback.cuh is included by voxel_centroids.cu,
+    tiled_insert.cu and (since the hash insert's heads are written by
+    look-back) hash_insert.cu, and an edit of it changes those libraries'
+    tags (so they rebuild), not the others'."""
     import shutil
 
     from fastlivo_tpu_torch.ops import _build
 
     users = sorted(n for n in _build.SOURCES
                    if '#include "lookback.cuh"' in (_build.CSRC / f"{n}.cu").read_text())
-    assert users == ["tiled_insert", "voxel_centroids"]
+    assert users == ["hash_insert", "tiled_insert", "voxel_centroids"]
     before = {n: _build.library_path(n).name for n in _build.SOURCES}
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)

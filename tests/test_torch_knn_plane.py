@@ -94,12 +94,13 @@ def test_wrapper_checks_inputs():
     with pytest.raises(TypeError):
         knn_plane._check(cand, found.int(), q)
     with pytest.raises(ValueError):
-        knn_plane._check(cand[:, :20].contiguous(), found[:, :20].contiguous(), q)
+        knn_plane._check(cand[:, :0].contiguous(), found[:, :0].contiguous(), q)
     with pytest.raises(ValueError):
         knn_plane._check(cand, found, q[:8])
     with pytest.raises(ValueError):
         knn_plane._check(cand.transpose(0, 1).contiguous().transpose(0, 1), found, q)
     knn_plane._check(cand, found, q)
+    knn_plane._check(cand[:, :20].contiguous(), found[:, :20].contiguous(), q)  # any M >= 1
 
 
 def both_maps(dims):
@@ -131,7 +132,7 @@ def test_tiled_search_checks_inputs():
     mt, _ = both_maps((32, 32, 16))
     q = torch.from_numpy(search_queries(n=16))
     with pytest.raises(ValueError):
-        knn_plane._check_tiled(mt, q, 3)
+        knn_plane._check_tiled(mt, q, -1)
     with pytest.raises(ValueError):
         knn_plane._check_tiled(mt, q[:, :2].contiguous(), 1)
     with pytest.raises(TypeError):
@@ -142,7 +143,8 @@ def test_tiled_search_checks_inputs():
         knn_plane._check_tiled(mt._replace(pts=mt.pts[:-1]), q, 1)
     with pytest.raises(ValueError):
         knn_plane._check_tiled(mt, q.t().contiguous().t(), 1)
-    knn_plane._check_tiled(mt, q, 1)
+    for radius in (0, 1, 3):  # any radius >= 0
+        knn_plane._check_tiled(mt, q, radius)
 
 
 def jax_map(m):
@@ -197,7 +199,7 @@ def test_hashed_search_checks_inputs():
     h, d = maps["hash"], maps["dense"]
     q = torch.from_numpy(hashed_queries(pair, 16))
     with pytest.raises(ValueError):
-        knn_plane._check_hashed(h, q, 3, 12)
+        knn_plane._check_hashed(h, q, -1, 12)
     with pytest.raises(ValueError):
         knn_plane._check_hashed(h, q, 1, -1)
     with pytest.raises(ValueError):

@@ -26,16 +26,21 @@ cuda`). Here, on the CPU, on seeded inputs (numpy):
     `cache_knn` on the CPU one knn_candidates gather a call, on every map;
   - `host_search`, the loop's search, the same on the CPU with and without
     `plain`;
+  - `lio_update` at `knn_voxel_radius` 0 (one candidate: no plane is
+    fitted) and 3 (343 candidates, the kernels' generic form on the card)
+    on the tiled, hash and dense maps, with `cache_knn` and with
+    `plane_fit: ref` at radius 3, against the JAX package at
+    test_torch_lio's tolerances;
   - the wrapper's refusals, with no launch counted: CPU tensors on every
-    route, a radius other than 1 or 2, a block handed in without
-    `cache_knn`, and block buffers of the wrong shape, dtype, device or
-    layout (`check_block`).
+    route, a negative or non-integer radius, a block handed in without
+    `cache_knn`, and block buffers of the wrong shape (a block of another
+    radius's M), dtype, device or layout (`check_block`).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_lio import _arrays, _compare_result, _maps, _scene
+from test_torch_lio import _arrays, _compare_result, _compare_state, _maps, _scene
 
 from fastlivo_tpu import lio as jlio
 from fastlivo_tpu.ops import plane as jplane
@@ -191,6 +196,32 @@ def test_lio_update_with_options_matches_jax(backend, radius, option):
     _compare_result(*_lio_both(backend, radius, max_probe=12, **opts))
 
 
+RADIUS_CASES = [("tiled", 0, "plain"), ("hash", 0, "plain"), ("dense", 0, "cache_knn"),
+                ("tiled", 3, "plain"), ("hash", 3, "plain"), ("dense", 3, "plain"),
+                ("hash", 3, "cache_knn"), ("tiled", 3, "ref"), ("dense", 3, "cache_knn_ref")]
+
+
+@pytest.mark.parametrize("backend,radius,option", RADIUS_CASES)
+def test_lio_update_at_radius_0_and_3_matches_jax(backend, radius, option):
+    """Any `knn_voxel_radius` the JAX package takes: at radius 0 each query
+    has one candidate (fewer than five: every plane gate fails, so the
+    update keeps the prior), at radius 3 343 of them; the port's
+    lio_update matches the JAX package's at test_torch_lio's tolerances on
+    every map, with and without the options."""
+    opts = {"plain": {}, "cache_knn": dict(cache_knn=True), "ref": dict(plane_fit="ref"),
+            "cache_knn_ref": dict(cache_knn=True, plane_fit="ref")}[option]
+    rt, rj, pmask = _lio_both(backend, radius, max_probe=12, **opts)
+    if radius == 0:  # _compare_result's tolerances; nothing is active
+        _compare_state(rt.state, rj.state)
+        np.testing.assert_allclose(rt.state.cov.numpy(), np.asarray(rj.state.cov),
+                                   rtol=1e-4, atol=1e-9)
+        assert rt.iters == int(rj.iters)
+        assert int(rt.n_active) == int(rj.n_active) == 0
+        np.testing.assert_allclose(rt.pts_world.numpy(), np.asarray(rj.pts_world), atol=1e-5)
+    else:
+        _compare_result(rt, rj, pmask)
+
+
 @pytest.mark.parametrize("backend", ["tiled", "hash", "dense"])
 def test_lio_update_cache_knn_on_the_cpu_gathers_once(backend, monkeypatch):
     """On the CPU `cache_knn` is the host loop on the block the backend's
@@ -234,9 +265,10 @@ def test_host_search_plain_is_the_cpu_search(cached, fit):
 
 def test_lio_cascade_refuses_cpu_tensors_and_bad_blocks():
     """The wrapper refuses CPU tensors on every route (walk and gather, either
-    fit), a radius other than 1 or 2 and a block without `cache_knn`,
-    launching nothing; `check_block` refuses block buffers of the wrong
-    shape, dtype, device or layout."""
+    fit), a negative or non-integer radius and a block without
+    `cache_knn`, launching nothing; `check_block` refuses block buffers of
+    the wrong shape (a block of another radius's M), dtype, device or
+    layout."""
     world, scan, s = _scene()
     _, m = _maps("tiled", world)
     st = convert.state_from_arrays(_arrays(s), "cpu")
@@ -256,7 +288,7 @@ def test_lio_cascade_refuses_cpu_tensors_and_bad_blocks():
         for cache_knn in (False, True):
             with pytest.raises(ValueError, match="CUDA"):
                 call(cache_knn=cache_knn, fit=fit)
-        for radius in (0, 3):
+        for radius in (-1, 1.0, True):
             with pytest.raises(ValueError, match="radius"):
                 call(radius=radius, fit=fit)
     with pytest.raises(ValueError, match="cache_knn"):
@@ -266,6 +298,7 @@ def test_lio_cascade_refuses_cpu_tensors_and_bad_blocks():
     lc.check_block(cand, found, n, 1, cpu)  # the good block passes
     for bad, err in (((cand[:, :26].contiguous(), found, n, 1), ValueError),
                      ((cand, found, n, 2), ValueError), ((cand, found, n, 3), ValueError),
+                     ((cand, found, n, 0), ValueError), ((cand, found, n, -1), ValueError),
                      ((cand[:-1], found, n, 1), ValueError),
                      ((cand.double(), found, n, 1), TypeError),
                      ((cand, found.to(torch.uint8), n, 1), TypeError),

@@ -412,7 +412,8 @@ def test_sources_name_no_jax():
             "parallel/product.py", "csrc/photometric_cascade.cu",
             "csrc/photometric_measure.cuh", "csrc/so3.cuh"} <= names
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py",
-              ROOT / "tests" / "torch_imu_cases.py", ROOT / "tests" / "torch_frame_cases.py"]
+              ROOT / "tests" / "torch_imu_cases.py", ROOT / "tests" / "torch_frame_cases.py",
+              ROOT / "tests" / "torch_hash_cases.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -421,10 +422,11 @@ def test_every_kernel_source_is_built_and_smoked():
     """Each csrc/*.cu is in the builder's list and in chip_smoke.py's: the
     fused searches (tiled; hash and dense), the fused photometric
     measurement, the photometric cascade and step, the two standalone
-    kernels, the IMU propagation, the LIO cascade, the camera frame's
-    selection and map upkeep, the tiled map's box delete and insert, the
-    voxel filter's segmented centroid, the scan's undistortion, the hash
-    map's insert, the dense grid's and the box delete of both."""
+    kernels, the IMU propagation, the LIO cascade (its three libraries:
+    radius 1, radius 2, any other radius), the camera frame's selection
+    and map upkeep, the tiled map's box delete and insert, the voxel
+    filter's segmented centroid, the scan's undistortion, the hash map's
+    insert, the dense grid's and the box delete of both."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -436,7 +438,8 @@ def test_every_kernel_source_is_built_and_smoked():
     assert cu == sorted(_build.SOURCES) == sorted(smoke.CUDA_SOURCES)
     assert cu == ["dense_insert", "flat_delete_boxes", "hash_insert", "imu_propagate",
                   "knn5_plane", "knn5_plane_hashed", "knn5_plane_tiled",
-                  "lio_cascade", "patches_and_grads", "photometric_cascade",
+                  "lio_cascade", "lio_cascade_125", "lio_cascade_any",
+                  "patches_and_grads", "photometric_cascade",
                   "photometric_err_H", "tiled_delete_boxes", "tiled_insert", "undistort",
                   "vio_observations", "vio_select", "voxel_centroids"]
 
