@@ -4693,13 +4693,59 @@ def halo_check(pipe, mesh):
                        f"halo snapshot (mesh {mesh.size}, {int(snap.n_alloc)} tiles)")
 
 
+def flat_mesh_run(name, dev, mesh, ds, t_max, frames, backend, cache_knn):
+    """The replicated world of one on the hash map or the dense grid (with
+    `cache_knn` or not) against the single-device path of the same config
+    on the same frames: positions equal (0 mm) and the final maps equal
+    in every bit; the flat maps' write kernels launched on the rank as on
+    one card (one hash_insert_keys and hash_insert_probe, or one
+    dense_insert, per insert; one flat_delete_boxes per box set; the
+    same counts), the host loop's search kernel on the rank and the
+    cascade on the single card. Returns ((ms per frame, launches), its
+    other numbers)."""
+    from fastlivo_tpu_torch.pipeline import Pipeline
+
+    cfg = lambda: lio_config(map_backend=backend, cache_knn=cache_knn)  # noqa: E731
+    single = Pipeline(cfg(), device=dev)
+    push_all(single, ds, t_max=t_max)
+    s_outs, s_launches, _ = counted_run(single.spin)
+    pipe = Pipeline(cfg(), device=mesh.device, mesh=mesh)
+    push_all(pipe, ds, t_max=t_max)
+    outs, launches, wall = counted_run(pipe.spin)
+    d = max_diff(outs, s_outs)
+    same_map = all(bits_diff(a, b) == 0.0 for a, b in zip(pipe.map, single.map))
+    writes = ("hash_insert_keys", "hash_insert_probe") if backend == "hash" else (
+        "dense_insert",)
+    flat = {k: launches[k] for k in FLAT_KERNELS}
+    want = {k: s_launches[k] for k in FLAT_KERNELS}
+    search = "knn5_plane" if cache_knn else "knn5_plane_hashed"
+    print(f"{name}: {len(outs)} frames, {wall / len(outs):.2f} ms/frame, max position "
+          f"difference to the single-device path {d * 1e3:.4f} mm, final map bit-equal "
+          f"{same_map}; the rank's map writes {flat} (one card's {want}), {search} "
+          f"{launches[search]}, lio_cascade {launches['lio_cascade']} (one card's "
+          f"{s_launches['lio_cascade']}); {nvidia_smi_line()}")
+    if (len(outs) < frames or d != 0.0 or not same_map or flat != want
+            or not all(flat[k] for k in writes + ("flat_delete_boxes",))
+            or not launches[search] or launches["lio_cascade"] or not s_launches["lio_cascade"]):
+        raise AssertionError(f"{name}: difference {d} m, map equal {same_map}, launches "
+                             f"{launches}, one card's {s_launches}")
+    del pipe, single
+    torch.cuda.empty_cache()
+    return (wall / len(outs), launches), {"max_diff_to_single_device_mm": d * 1e3,
+                                          "final_map_bit_equal": same_map}
+
+
 def mesh_phase(dev, ds, ref, frames=16):
     """(j) LIO over a device mesh, on the first `frames` frames of the LIO
     dataset of path_phase at shipped capacities:
       - a world of one on NCCL in this process, with the map replicated
         and sharded: positions against the per-frame prefix (0 for the
         replicated map, <= 1 mm sharded), ms per frame, knn5_plane_tiled
-        launches, collectives per frame and map bytes per rank;
+        launches, collectives per frame and map bytes per rank; then
+        replicated on the hash map (with `cache_knn` off and on) and on
+        the dense grid, each against its single-device path at 0 mm with
+        the flat maps' write kernels counted on the rank
+        (flat_mesh_run);
       - a world of two sharing the card under gloo (NCCL refuses two ranks
         on one card), spawned by parallel.launch: rank 0 within 1 mm of
         the prefix, every rank launching the fused search, the sharded
@@ -4744,6 +4790,10 @@ def mesh_phase(dev, ds, ref, frames=16):
                 halo_err = halo_check(pipe, mesh)
             del pipe
             torch.cuda.empty_cache()
+        for backend, cache_knn in (("hash", False), ("hash", True), ("dense", False)):
+            name = f"mesh 1 nccl replicated {backend}{' cache_knn' if cache_knn else ''}"
+            paths[name], extra[name] = flat_mesh_run(name, dev, mesh, ds, t_max, frames,
+                                                     backend, cache_knn)
 
     scans = [s for s in ds.lidar_scans_fast() if s[0] < t_max]
     imu = [s for s in ds.imu_stream() if s[0] < t_max]
@@ -5250,11 +5300,12 @@ def main() -> int:
           f"{wide['vio_observations']['ms']:.4f} / {wide['vio_observations']['bound_ms']:.5f}"
           f"; {smi}")
     with phase("profiles"):
-        # 9-10 profiled frames fused, 2-3 unfused (whose ~5000 kernels a
-        # frame make the profiler's processing the costliest part of the run)
-        lio_prof = [profile_phase(dev, fused=f, duration=4.0 if f else 3.3)
+        # 9-10 profiled LIO frames fused, 1-2 unfused (whose ~5000 kernels a
+        # frame make the profiler's processing the costliest part of the
+        # run); 6-7 LIVO pairs fused, 2-3 unfused
+        lio_prof = [profile_phase(dev, fused=f, duration=4.0 if f else 3.2)
                     for f in (False, True)]
-        livo_prof = [livo_profile_phase(dev, fused=f, duration=4.0 if f else 3.3)
+        livo_prof = [livo_profile_phase(dev, fused=f, duration=3.7 if f else 3.3)
                      for f in (False, True)]
     (lu, lf), (vu, vf) = lio_prof, livo_prof
     print(f"per steady lidar frame, unfused (plain IMU loop) -> fused: device kernels "

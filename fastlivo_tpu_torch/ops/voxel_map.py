@@ -490,7 +490,7 @@ def _delete_launcher():
     from . import _build
 
     fn = _build.load("flat_delete_boxes").flat_delete_boxes_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return _build.profiled("flat_delete_boxes", fn)
@@ -500,11 +500,11 @@ def flat_delete_boxes(m, boxes_lo: torch.Tensor, boxes_hi: torch.Tensor):
     """`delete_boxes_plain`'s signature and result for a VoxelMap or a
     DenseMap (their layout is one): on a CUDA map one launch of
     csrc/flat_delete_boxes.cu on the current stream (counted in
-    `flat_delete_boxes.launches`; its blocks, one wave at most, in
-    `flat_delete_boxes.grid`), which reads the occupied slots' points and
-    the boxes (any number), writes only the freed slots' checks and the
-    new count, with no host read; none at no box. On a CPU map the plain
-    version."""
+    `flat_delete_boxes.launches`; its blocks, a thread per 16 slots, in
+    `flat_delete_boxes.grid`), which reads every check once, the occupied
+    slots' points and the boxes (any number), writes only the freed
+    slots' checks and the new count, with no host read; none at no box.
+    On a CPU map the plain version."""
     if m.check.device.type == "cpu":
         return delete_boxes_plain(m, boxes_lo, boxes_hi)
     dev, _, T = _check_flat("flat_delete_boxes", m)
@@ -519,8 +519,7 @@ def flat_delete_boxes(m, boxes_lo: torch.Tensor, boxes_hi: torch.Tensor):
     _raise_on("flat_delete_boxes", _delete_launcher()(
         m.check.data_ptr(), m.pts.data_ptr(), m.voxel_size.data_ptr(), boxes_lo.data_ptr(),
         boxes_hi.data_ptr(), m.count.data_ptr(), count.data_ptr(),
-        _ticket(dev, stream, 2).data_ptr(), B, T, EMPTY_CHECK, _sm_count(dev),
-        ctypes.byref(grid), stream))
+        _ticket(dev, stream, 2).data_ptr(), B, T, EMPTY_CHECK, ctypes.byref(grid), stream))
     flat_delete_boxes.launches += 1
     flat_delete_boxes.grid = grid.value
     return m._replace(count=count)

@@ -61,8 +61,12 @@ bootstrap batch into an empty map (every winner fresh; a directory of
 its own for each call), the stable sort of the last batch's key at 64
 bits (the JAX package's packing) and at 32 bits, in turns, the whole
 insert, the last frame step's undistortion and the
-last scan's voxel centroid. With --stamps, a tree whose
-csrc/undistort.cu, csrc/tiled_insert.cu or csrc/hash_insert.cu stamps its
+last scan's voxel centroid; with the hash or dense path also the box
+delete on that path's final map with its last box set and, on dense, the
+insert of its last batch into that map (between events, and device us a
+launch under torch.profiler). With --stamps, a tree whose
+csrc/undistort.cu, csrc/tiled_insert.cu, csrc/hash_insert.cu,
+csrc/dense_insert.cu or csrc/flat_delete_boxes.cu stamps its
 phases (csrc/phase_stamps.cuh) builds each again with -DPHASE_STAMPS and
 launches it alone, synchronised, 30 times: undistort on that scan (the
 median of each phase: staging the offsets and the frame's constants, the
@@ -74,7 +78,9 @@ past their wait, their runs walked, written, the end), and the hash
 insert's probe launch on the hash path's last batch re-inserted into
 its map (each phase summed over the rounds: the heads, the slot reads,
 the first barrier, the writes, the second barrier, the end; and the
-rounds); the %globaltimer ticks by 0.512 us on the H100.
+rounds), the dense insert on the dense path's last batch and the box
+delete on its final map with its last box set (each boundary from the
+first block's start); the %globaltimer ticks by 0.512 us on the H100.
 Prints one line per run, then one JSON line with every run and the card's
 `nvidia-smi` name and power limit.
 """
@@ -178,6 +184,7 @@ class Worker:
                        "hash.delete_boxes": (voxel_map, "delete_boxes"),
                        "dense.insert": (dense_map, "insert"),
                        "dense.delete_boxes": (dense_map, "delete_boxes")}
+        self.recorded_flat = {}  # record_flat's, by path
         for path in self.paths:  # discarded: builds and warms
             self.run(path, "as shipped")
 
@@ -366,6 +373,7 @@ class Worker:
                                                                         max_out))
         del maps, empty, mt
         torch.cuda.empty_cache()
+        res.update(self.flat_times())
         return res
 
     @staticmethod
@@ -373,29 +381,74 @@ class Worker:
         st, _m, pose, calib, pts_raw, t_rel, rmask = rec["step"][:7]
         return st, pose, pts_raw, t_rel, rmask, calib
 
-    def record_hash(self):
-        """The hash path's last insert (its tensors copied on the card) and
-        final map (once a worker)."""
-        if getattr(self, "recorded_hash", None) is not None:
-            return self.recorded_hash
+    def record_flat(self, path):
+        """The hash or dense path's ("hash", "dense") last insert and last
+        box delete (their tensors copied on the card) and final map (once a
+        worker and path)."""
+        if path in self.recorded_flat:
+            return self.recorded_flat[path]
         torch, cs = self.torch, self.cs
-        from fastlivo_tpu_torch.ops import voxel_map
+        from fastlivo_tpu_torch.ops import dense_map, voxel_map
 
+        mod = voxel_map if path == "hash" else dense_map
         rec = {}
-        real = voxel_map.insert
 
-        def keep(*a, **kw):
-            rec["insert"] = [v.clone() if isinstance(v, torch.Tensor) else v for v in a]
-            return real(*a, **kw)
+        def keep(name, real):
+            def call(*a, **kw):
+                rec[name] = [v.clone() if isinstance(v, torch.Tensor) else v for v in a]
+                return real(*a, **kw)
+            return call
 
-        pipe = self.pipeline("hash")
-        cs.push_all(pipe, self.data["hash"])
-        with cs.swapped(voxel_map, "insert", keep):
+        pipe = self.pipeline(path)
+        cs.push_all(pipe, self.data[path])
+        with cs.swapped(mod, "insert", keep("insert", mod.insert)), cs.swapped(
+                mod, "delete_boxes", keep("boxes", mod.delete_boxes)):
             pipe.spin()
         torch.cuda.synchronize()
         rec["map"] = pipe.map
-        self.recorded_hash = rec
+        self.recorded_flat[path] = rec
         return rec
+
+    def flat_times(self):
+        """The flat maps' box delete on the hash and dense paths' final maps
+        with their last box sets, and the dense insert of the dense path's
+        last batch into its map, for the paths this worker runs: ms between
+        CUDA events with the calls queued (chip_smoke.time_ms) and device us
+        a launch under torch.profiler (30 launches)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch, cs = self.torch, self.cs
+        from fastlivo_tpu_torch.ops import dense_map as dm
+        from fastlivo_tpu_torch.ops import voxel_map as vm
+
+        def device_us(fn, kernel, n=30):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages() if kernel in e.key
+                   and e.self_device_time_total > 0]
+            return sum(e.self_device_time_total for e in evs) / max(1, sum(e.count for e in evs))
+
+        res = {}
+        for path in ("hash", "dense"):
+            if path not in self.paths:
+                continue
+            rec = self.record_flat(path)
+            mt = type(rec["map"])(*(t.clone() for t in rec["map"]))
+            _, lo, hi = rec["boxes"][:3]
+            call = lambda: vm.flat_delete_boxes(mt, lo, hi)  # noqa: E731
+            res[f"flat_delete_boxes {path}"] = cs.time_ms(call)
+            res[f"flat_delete_boxes {path} us"] = device_us(call, "flat_delete_boxes_kernel")
+            if path == "dense":
+                _, pts, valid = rec["insert"][:3]
+                call = lambda: dm.dense_insert(mt, pts, valid)  # noqa: E731
+                res["dense_insert"] = cs.time_ms(call)
+                res["dense_insert us"] = device_us(call, "dense_insert_kernel")
+            del mt
+        return res
 
     # the stamped kernels: {library: (phase names, boundary 1 .. n each ends)};
     # hash_insert's probe launch stamps its rounds (phase_stamps.cuh's
@@ -406,7 +459,9 @@ class Worker:
                          "ranked", "cells gathered", "cells past their wait",
                          "cells walked", "cells written", "end"),
         "hash_insert": ("heads", "reads", "first barrier", "writes", "second barrier", "end",
-                        "phases", "barriers")}
+                        "phases", "barriers"),
+        "dense_insert": ("phase 1", "barrier", "phase 2", "end"),
+        "flat_delete_boxes": ("loads", "queue and tests", "block sums", "end")}
     IT_BASE, IT_NPH, IT_MAX = 16, 8, 64  # phase_stamps.cuh's iteration slots
 
     def hash_round_ms(self, t):
@@ -483,10 +538,22 @@ class Worker:
             if not src.exists() or f"PHASE_STAMPS_EXPORT({name})" not in src.read_text():
                 out[name] = None
                 continue
+            if name in ("dense_insert", "flat_delete_boxes"):  # on the dense path's map
+                from fastlivo_tpu_torch.ops import dense_map as dm
+                from fastlivo_tpu_torch.ops import voxel_map as vm
+
+                drec = self.record_flat("dense")
+                dmap = type(drec["map"])(*(t.clone() for t in drec["map"]))
+                _, dp, dv = drec["insert"][:3]
+                _, dlo, dhi = drec["boxes"][:3]
+                calls["dense_insert"] = (lambda: dm.dense_insert(dmap, dp, dv),
+                                         dm._insert_launcher)
+                calls["flat_delete_boxes"] = (lambda: vm.flat_delete_boxes(dmap, dlo, dhi),
+                                              vm._delete_launcher)
             if name == "hash_insert":  # the hash path's last batch into its map
                 from fastlivo_tpu_torch.ops import voxel_map as vm
 
-                hrec = self.record_hash()
+                hrec = self.record_flat("hash")
                 hm = type(hrec["map"])(*(t.clone() for t in hrec["map"]))
                 _, hp, hv, *probe = hrec["insert"]
                 probe = probe[0] if probe else 12

@@ -2116,36 +2116,39 @@ def gather_cascade_write_only(dev, backend, fit, radius=1):
 GUARD = 64  # sentinel elements before and after each array (keeps 16-byte alignment)
 
 
-def guarded(t):
-    """t's values inside a buffer whose GUARD elements before and after
-    hold a sentinel (NaN for floats, 0xA5 bytes otherwise). Returns
-    (buffer, the contiguous view of t's shape)."""
+def guarded(t, shift=0):
+    """t's values inside a buffer whose GUARD (+ `shift`) elements before
+    and GUARD after hold a sentinel (NaN for floats, 0xA5 bytes
+    otherwise). Returns (buffer, the contiguous view of t's shape)."""
     u8 = t.dtype == torch.bool
     dtype = torch.uint8 if u8 else t.dtype
     fill = float("nan") if dtype.is_floating_point else (
         0xA5 if dtype == torch.uint8 else -0x5A5A5A5)
-    buf = torch.full((t.numel() + 2 * GUARD,), fill, dtype=dtype, device=t.device)
-    v = buf[GUARD:GUARD + t.numel()]
+    buf = torch.full((t.numel() + 2 * GUARD + shift,), fill, dtype=dtype, device=t.device)
+    v = buf[GUARD + shift:GUARD + shift + t.numel()]
     v = (v.view(torch.bool) if u8 else v).view(t.shape)
     v.copy_(t)
     return buf, v
 
 
-def launch_guarded(launch, inputs, outputs):
+def launch_guarded(launch, inputs, outputs, shift=0):
     """`launch(*input views, *output views)` (a kernel's C entry point on
     the views' pointers) on copies of inputs and outputs inside guarded
-    buffers. Asserts it returned 0, wrote no byte of any input and no byte
-    of the outputs' guard bands; returns the output views."""
-    ins, outs = [guarded(t) for t in inputs], [guarded(t) for t in outputs]
+    buffers (each view `shift` elements past 16-byte alignment). Asserts
+    it returned 0, wrote no byte of any input and no byte of the outputs'
+    guard bands; returns the output views."""
+    ins, outs = [guarded(t, shift) for t in inputs], [guarded(t, shift) for t in outputs]
     before = [b.view(torch.uint8).clone() for b, _ in ins + outs]
     assert launch(*[v for _, v in ins + outs]) == 0
     torch.cuda.synchronize()
     for k, ((b, _), b0) in enumerate(zip(ins + outs, before)):
         after, nb = b.view(torch.uint8), GUARD * b.element_size()
+        lead = nb + shift * b.element_size()
         if k < len(ins):
             assert torch.equal(after, b0), f"input {k} written"
         else:
-            assert torch.equal(after[:nb], b0[:nb]) and torch.equal(after[-nb:], b0[-nb:]), \
+            assert torch.equal(after[:lead], b0[:lead]) and torch.equal(after[-nb:],
+                                                                        b0[-nb:]), \
                 f"output {k - len(ins)}: a guard band written"
     return [v for _, v in outs]
 
@@ -2166,6 +2169,7 @@ def launch_guarded(launch, inputs, outputs):
                                     "lio_cascade_gather_dense_ref",
                                     "hash_insert_keys", "hash_insert_probe", "dense_insert",
                                     "flat_delete_boxes", "flat_delete_boxes_dense",
+                                    "flat_delete_boxes_shifted", "dense_insert_400000",
                                     "lio_cascade_r3_hash", "lio_cascade_r3_dense",
                                     "lio_cascade_r3_gather_tiled_tls",
                                     "lio_cascade_r3_gather_hash_ref"])
@@ -2212,8 +2216,10 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     back at 0) and probe launch on those heads (the table, the count and
     the round state its outputs, every byte of the table equal to
     insert_plain's, the tickets and round counts back at 0), the
-    dense insert (the per-cell minimum back at 0) and the box delete of
-    both with 300 boxes (its count words back at 0)."""
+    dense insert (the per-cell minimum back at 0; also on 400000 rows,
+    more than its co-resident grid has threads) and the box delete of both
+    with 300 boxes (its count words back at 0; also on arrays 8 bytes
+    past 16-byte alignment: the scan's scalar head and tail)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -3988,6 +3994,41 @@ def colliding_checks(n_pairs=2):
     return [g[order[[i, i + 1]]] for i in dup[:n_pairs]]
 
 
+def nan_boxes(rng, p, n=300):
+    """n boxes around points of p, a tenth of them inverted (lo > hi on an
+    axis) and a tenth with a NaN bound (both hold nothing)."""
+    c = p[rng.integers(0, len(p), n)]
+    lo = (c - rng.uniform(0.2, 2, (n, 3))).astype(np.float32)
+    hi = (c + rng.uniform(0.2, 2, (n, 3))).astype(np.float32)
+    k = rng.permutation(n)
+    for b in k[: n // 10]:
+        a = rng.integers(0, 3)
+        lo[b, a], hi[b, a] = hi[b, a], lo[b, a]
+    for b in k[n // 10: n // 5]:
+        (lo if rng.random() < 0.5 else hi)[b, rng.integers(0, 3)] = np.nan
+    return lo, hi
+
+
+def everything_boxes():
+    """A box holding every finite centre, beside an inverted one."""
+    return (np.float32([[-1e30, -1e30, -1e30], [1, 1, 1]]),
+            np.float32([[1e30, 1e30, 1e30], [-1, -1, -1]]))
+
+
+def sliced_map(m, shift_check=1, shift_pts=2):
+    """m with its check and pts copied into slices of larger arrays,
+    `shift_check` and `shift_pts` slots past their start (4 or 8 bytes
+    past 16-byte alignment for a shift of 1 or 2): a flat map whose
+    arrays are contiguous but not 16-byte aligned."""
+    T = m.check.shape[0]
+    check = torch.empty(T + shift_check, dtype=m.check.dtype, device=m.check.device)
+    pts = torch.zeros((T + shift_pts, 3), dtype=m.pts.dtype, device=m.pts.device)
+    check, pts = check[shift_check:], pts[shift_pts:]
+    check.copy_(m.check)
+    pts.copy_(m.pts)
+    return m._replace(check=check, pts=pts)
+
+
 def hash_stream(case):
     """(T, [(pts, valid, max_probe) | ("boxes", lo, hi) | ("rebuild",)])
     of a hash map case, made from a seed."""
@@ -4032,6 +4073,24 @@ def hash_stream(case):
         hi = (c + rng.uniform(0.2, 2, (300, 3))).astype(np.float32)
         lo[-1], hi[-1] = hi[-1], lo[-1]
         return 1 << 12, [(p, v, 12), ("boxes", lo, hi)]
+    if case in ("tiny 4", "tiny 8"):  # tables under a lane's 16 slots, every slot freed
+        pts = np.float32([[0, 0, 0], [1, 0, 0], [0, 1, 0], [5, 5, 5], [-3, 2, 1], [2, -2, 0]])
+        p = ((pts + rng.uniform(0.1, 0.9, (6, 3))) * 0.5).astype(np.float32)
+        return int(case[-1]), [(p, np.ones(6, bool), 12),
+                               ("boxes", np.float32([[-0.1, -0.1, -0.1]]),
+                                np.float32([[0.6, 0.6, 0.6]])),
+                               (np.ascontiguousarray(p[::-1] + 0.01), np.ones(6, bool), 12),
+                               ("boxes", *everything_boxes())]
+    if case == "sliced":  # check and points slices of larger arrays (4 and 8 B past 16 B)
+        T, steps = 1 << 12, [(*flat_batch(rng, 3000), 12) for _ in range(2)]
+        return T, steps + [("boxes", *nan_boxes(rng, steps[0][0])), ("boxes",
+                                                                     *everything_boxes())]
+    if case == "nan boxes":  # 300 boxes, NaN and inverted bounds among them
+        p, v = flat_batch(rng, 3000)
+        return 1 << 12, [(p, v, 12), ("boxes", *nan_boxes(rng, p))]
+    if case == "kill all":  # a box set that frees every occupied slot
+        return 1 << 12, [(*flat_batch(rng, 3000), 12), ("boxes", *everything_boxes()),
+                         (*flat_batch(rng, 2000), 12)]
     assert case == "shipped"  # 2^20 slots, the main path's batch, rebuild
     steps = [(*flat_batch(rng, 16384, 60.0), 12) for _ in range(2)]
     return 1 << 20, steps + [("boxes", np.float32([[-60, -60, -2]]), np.float32([[0, 60, 2]])),
@@ -4040,7 +4099,8 @@ def hash_stream(case):
 
 @pytest.mark.parametrize("case", ["stream", "collision", "overflow", "nothing", "many boxes",
                                   "shipped", "contested_k0", "contested_k1", "contested_k2",
-                                  "ties"])
+                                  "ties", "tiny 4", "tiny 8", "sliced", "nan boxes",
+                                  "kill all"])
 def test_hash_map_kernels_equal_their_plain_versions(cuda, monkeypatch, case):
     """Each insert (hash_insert_keys: the heads, no sort; hash_insert_probe),
     box delete (flat_delete_boxes) and rebuild of the hash map on the card
@@ -4052,8 +4112,12 @@ def test_hash_map_kernels_equal_their_plain_versions(cuda, monkeypatch, case):
     rebuild, 31-bit check collisions, probe overflow, no row and every row
     invalid, 300 boxes, the main path's batch at 2^20 slots, many voxels
     contesting one slot that differ only in k0, only in k1 or only in k2
-    (negative ones too), and rows at one distance from their voxel's
-    centre beside voxels with no valid row."""
+    (negative ones too), rows at one distance from their voxel's centre
+    beside voxels with no valid row; and for the box delete's scan tables
+    of 4 and 8 slots, a map whose check and points are slices 4 and 8
+    bytes past 16-byte alignment (the scan's scalar head and tail), 300
+    boxes with NaN and inverted bounds, and box sets that free every
+    occupied slot."""
     from fastlivo_tpu_torch.ops import voxel_map as vm
 
     T, steps = hash_stream(case)
@@ -4061,6 +4125,9 @@ def test_hash_map_kernels_equal_their_plain_versions(cuda, monkeypatch, case):
     mk = vm.empty_map(T, 0.5, device=cuda)
     mp = vm.empty_map(T, 0.5, device=cuda)
     mh = vm.empty_map(T, 0.5, device="cpu")
+    if case == "sliced":
+        mk, mp = sliced_map(mk), sliced_map(mp)
+        assert mk.check.data_ptr() % 16 == 4 and mk.pts.data_ptr() % 16 == 8
     for step in steps:
         before = flat_launches()
         if isinstance(step[0], str) and step[0] == "rebuild":
@@ -4095,9 +4162,12 @@ def test_hash_map_kernels_equal_their_plain_versions(cuda, monkeypatch, case):
         assert int(mk.count) > int((mk.check != vm.EMPTY_CHECK).sum())
     if case == "shipped":
         assert int(mk.count) > 10000
+    if case.startswith("tiny") or case == "sliced":  # the last box set freed every slot
+        assert not (mk.check != vm.EMPTY_CHECK).any()
 
 
-@pytest.mark.parametrize("dims", [(16, 16, 8), (64, 64, 16), (256, 256, 64)])
+@pytest.mark.parametrize("dims", [(16, 16, 8), (64, 64, 16), (256, 256, 64), (2, 2, 1),
+                                  (2, 2, 2), (64, 64, 16, "sliced")])
 def test_dense_map_kernels_equal_their_plain_versions(cuda, monkeypatch, dims):
     """Each insert (dense_insert: one launch, also at B = 0) and box delete
     (flat_delete_boxes, also with 300 boxes and an inert one) of the dense
@@ -4105,15 +4175,27 @@ def test_dense_map_kernels_equal_their_plain_versions(cuda, monkeypatch, dims):
     and on the CPU, with aliased cells evicted, equal distances, no row
     and every row invalid; the plain code not reached, each launch counted,
     the stream's scratch (the per-cell minimum) back at 0. At 256 x 256 x
-    64 the main path's batch of 16384 rows."""
+    64 the main path's batch of 16384 rows. Then 300 boxes with NaN and
+    inverted bounds and a box set that frees every occupied cell; on grids
+    of 4 and 8 cells (under a lane's 16 slots) and on one whose check and
+    points are slices 4 bytes past 16-byte alignment (the scan's scalar
+    head and tail). On grids of at least 2^16 cells the insert's grid
+    barrier on 16384 rows in one cell (equal distances among them), on
+    16384 rows in distinct cells, and on 400000 rows (more than the
+    co-resident grid has threads: the rest computed again after the
+    barrier)."""
     from fastlivo_tpu_torch.ops import dense_map as dm
 
+    dims, sliced = dims[:3], len(dims) > 3
     rng = np.random.default_rng(dims[0])
     n = 16384 if dims[0] == 256 else 3000
     span = 0.5 * dims[0] * 0.75  # wider than the grid's period at the small dims
     mk = dm.empty_dense_map(dims, 0.5, device=cuda)
     mp = dm.empty_dense_map(dims, 0.5, device=cuda)
     mh = dm.empty_dense_map(dims, 0.5, device="cpu")
+    if sliced:
+        mk, mp = sliced_map(mk, 1, 1), sliced_map(mp, 1, 1)
+        assert mk.check.data_ptr() % 16 == 4 and mk.pts.data_ptr() % 16 == 12
     batches = [flat_batch(rng, n, span) for _ in range(2)]
     p0 = batches[0][0]
     batches.append((p0[:300] + np.float32([dims[0] * 0.5, 0, 0]), np.ones(300, bool)))
@@ -4123,6 +4205,18 @@ def test_dense_map_kernels_equal_their_plain_versions(cuda, monkeypatch, dims):
     box_sets = [(c[:1] - 1, c[:1] + 1), ((c - 1).astype(np.float32), (c + 1).astype(np.float32))]
     box_sets[1][0][-1], box_sets[1][1][-1] = box_sets[1][1][-1].copy(), box_sets[1][0][-1].copy()
     steps = batches[:3] + [("boxes", *box_sets[0])] + batches[3:] + [("boxes", *box_sets[1])]
+    steps.append(("boxes", *nan_boxes(rng, p0)))
+    if dims[0] * dims[1] * dims[2] >= 1 << 16:
+        one = ((np.float32([3, -2, 1]) + rng.uniform(0.05, 0.95, (16384, 3))) * 0.5).astype(
+            np.float32)
+        one[100:200] = one[:100]  # equal distances: the lower row wins
+        k = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16), np.arange(-8, 8),
+                                 indexing="ij"), -1).reshape(-1, 3)
+        distinct = ((rng.permutation(k) + rng.uniform(0.05, 0.95, (16384, 3))) * 0.5).astype(
+            np.float32)
+        steps += [(one, np.ones(16384, bool)), (distinct, np.ones(16384, bool)),
+                  flat_batch(rng, 400000, span)]
+    steps += [("boxes", *everything_boxes()), batches[0]]
     for step in steps:
         before = flat_launches()
         if isinstance(step[0], str):
@@ -4144,6 +4238,8 @@ def test_dense_map_kernels_equal_their_plain_versions(cuda, monkeypatch, dims):
         assert got == {k: want.get(k, 0) for k in got}, (step[0], got)
         for f, a, b, h in zip(mk._fields, mk, mp, mh):
             assert bit_equal(a, b) and bit_equal(a.cpu(), h), (dims, f)
+        if isinstance(step[0], str) and step[1][0, 0] == np.float32(-1e30):  # every cell freed
+            assert not (mk.check != dm.EMPTY_CHECK).any()
     assert tiles_scratch_clear(cuda)
     assert int(mk.count) > 0
 
@@ -4228,7 +4324,8 @@ def flat_write_only(dev, kernel):
     grid = ctypes.c_int(0)
     rng = np.random.default_rng(5)
     hm, dmap = hash_and_dense_maps(dev, T=1 << 14, dims=(64, 64, 16))
-    p, v = (torch.from_numpy(a).to(dev) for a in flat_batch(rng, 16379))
+    p, v = (torch.from_numpy(a).to(dev) for a in flat_batch(
+        rng, 400000 if kernel.endswith("400000") else 16379))
     count = lambda: torch.empty((), dtype=torch.int32, device=dev)  # noqa: E731
     if kernel.startswith("hash_insert"):
         T = hm.check.shape[0]
@@ -4257,7 +4354,7 @@ def flat_write_only(dev, kernel):
                  torch.empty(B, dtype=torch.int32, device=dev), scratch])
             assert not got[4].any()  # the tickets and round counts back at 0
             got = got[:3]
-    elif kernel == "dense_insert":
+    elif kernel.startswith("dense_insert"):
         G = dmap.check.shape[0]
         want_m = dm.insert_plain(clone_map(dmap), p, v)
         want = [want_m.check, want_m.pts, want_m.count]
@@ -4270,7 +4367,7 @@ def flat_write_only(dev, kernel):
         assert not got[3].any()
         got = got[:3]
     else:
-        m = hm if kernel == "flat_delete_boxes" else dmap
+        m = dmap if kernel.endswith("dense") else hm
         c = m.pts[m.check != vm.EMPTY_CHECK][:300].cpu().numpy()
         lo = torch.from_numpy((c - 1).astype(np.float32)).to(dev)
         hi = torch.from_numpy((c + 1).astype(np.float32)).to(dev)
@@ -4279,9 +4376,10 @@ def flat_write_only(dev, kernel):
         T = m.check.shape[0]
         got = launch_guarded(lambda mp, vs, a, b, cin, chk, cout, sc: vm._delete_launcher()(
             *ptr(chk, mp, vs, a, b, cin, cout, sc), a.shape[0], T, vm.EMPTY_CHECK,
-            tm._sm_count(dev), ctypes.byref(grid), stream),
+            ctypes.byref(grid), stream),
             [m.pts, m.voxel_size, lo, hi, m.count],
-            [m.check.clone(), count(), torch.zeros(2, dtype=torch.int32, device=dev)])
+            [m.check.clone(), count(), torch.zeros(2, dtype=torch.int32, device=dev)],
+            shift=2 * int(kernel.endswith("shifted")))
         assert not got[2].any()
         got = got[:2]
     for g, w in zip(got, want):

@@ -275,6 +275,103 @@ def test_delete_boxes(backend, n_boxes):
         assert int(mt2.count) == int(mt.count)
 
 
+def nan_inverted_boxes(rng, pts, n):
+    """n boxes around stored points, a tenth inverted on one axis, a tenth
+    with a NaN bound, one on a voxel edge (a centre exactly on lo and on
+    hi: held) and one a float past it (not held)."""
+    lo, hi = random_boxes(rng, pts, n, inert=False)
+    k = rng.permutation(n)
+    for b in k[: n // 10]:
+        a = rng.integers(0, 3)
+        lo[b, a], hi[b, a] = hi[b, a], lo[b, a]
+    for b in k[n // 10: n // 5]:
+        (lo if rng.random() < 0.5 else hi)[b, rng.integers(0, 3)] = np.nan
+    c = ((np.floor(pts[0] / np.float32(VOX)).astype(np.float32) + np.float32(0.5))
+         * np.float32(VOX)).astype(np.float32)
+    edge = np.stack([c, np.nextafter(c, np.float32(np.inf))])
+    return np.concatenate([lo, edge]), np.concatenate([hi, np.stack([c, c])])
+
+
+@pytest.mark.parametrize("backend,size", [("hash", 4), ("hash", 8), ("hash", 1 << 12),
+                                          ("dense", (2, 2, 1)), ("dense", (2, 2, 2)),
+                                          ("dense", (32, 32, 16))])
+def test_delete_boxes_nan_inverted_and_every_slot(backend, size):
+    """The box delete on tables of 4, 8 and 4096 slots (the card's scan: a
+    lane's 16 slots, fewer, many warps) and on dense grids of 4, 8 and
+    16384 cells: 40 boxes with NaN and inverted bounds, boxes whose
+    centre lies on lo and hi (held) or one float below lo (not held), then a box
+    set that frees every occupied slot; bit-equal to the JAX package, the
+    count included."""
+    rng = np.random.default_rng(len(str(size)))
+    if backend == "hash":
+        mt, mj = tvm.empty_map(size, VOX, device="cpu"), jvm.empty_map(size, VOX)
+        ins_t, ins_j, equal, mod, jmod = tvm.insert, jvm.insert, hash_equal, tvm, jvm
+    else:
+        mt, mj = tdm.empty_dense_map(size, VOX, device="cpu"), jdm.empty_dense_map(size, VOX)
+        ins_t, ins_j, equal, mod, jmod = tdm.insert, jdm.insert, dense_equal, tdm, jdm
+    p, v = surface(rng, 3000, 6.0)
+    mt = ins_t(mt, torch.from_numpy(p), torch.from_numpy(v))
+    mj = ins_j(mj, jnp.asarray(p), jnp.asarray(v))
+    stored = mod.extract_points(mt)[0]
+    before = int(mt.count)
+    lo, hi = nan_inverted_boxes(rng, stored, 40)
+    mt = mod.delete_boxes(mt, torch.from_numpy(lo), torch.from_numpy(hi))
+    mj = jmod.delete_boxes(mj, jnp.asarray(lo), jnp.asarray(hi))
+    equal(mt, mj)
+    assert int(mt.count) < before  # the edge box held its centre
+    lo = np.float32([[-1e30, -1e30, -1e30], [1, 1, 1]])
+    hi = np.float32([[1e30, 1e30, 1e30], [-1, -1, -1]])
+    mt = mod.delete_boxes(mt, torch.from_numpy(lo), torch.from_numpy(hi))
+    mj = jmod.delete_boxes(mj, jnp.asarray(lo), jnp.asarray(hi))
+    equal(mt, mj)
+    assert not (mt.check != tvm.EMPTY_CHECK).any()
+
+
+def scan_partition(T: int, check_off: int):
+    """A numpy model of csrc/flat_delete_boxes.cu's launch: the slots each
+    thread scans for a table of T slots whose check starts `check_off`
+    bytes past 16-byte alignment. The head (slots before the first
+    16-byte-aligned check) and the tail (past the last whole 4-slot group)
+    take a thread a slot after the body's threads; in the body warp w's
+    lane l loads groups w * 128 + l + 32 j, j < 4, as 16-byte words.
+    Returns (body slots (groups, 4), their 16-byte load index per (thread,
+    j) with -1 for none, the scalar slots, the blocks)."""
+    head = min(T, ((16 - check_off % 16) % 16) // 4)
+    groups, tail = (T - head) >> 2, (T - head) & 3
+    body_threads = -(-groups // 128) * 32
+    gid = np.arange(body_threads)
+    g = ((gid >> 5) * 128 + (gid & 31))[:, None] + 32 * np.arange(4)[None]
+    g = np.where(g < groups, g, -1)
+    live = g[g >= 0]
+    body = (head + 4 * live)[:, None] + np.arange(4)[None]
+    s = np.arange(head + tail)
+    scalar = np.where(s < head, s, head + 4 * groups + (s - head))
+    blocks = -(-(body_threads + head + tail) // 256)
+    return body, g, scalar, blocks
+
+
+@pytest.mark.parametrize("check_off", [0, 4, 8, 12])
+def test_box_delete_scan_covers_every_slot_once(check_off):
+    """The card's box delete scan (numpy model, scan_partition): for every
+    power-of-two table from 1 to 2^22 slots and every 4-byte base offset
+    of the check, each slot is scanned exactly once; a body group's check
+    is one aligned 16-byte word; each of a warp's four loads is one
+    contiguous 512-byte row; 2^20 slots take 256 blocks of 256 threads and
+    2^22 take 1024 (the whole table in flight)."""
+    for e in range(23):
+        T = 1 << e
+        body, g, scalar, blocks = scan_partition(T, check_off)
+        seen = np.bincount(np.concatenate([body.ravel(), scalar]), minlength=T)
+        assert seen.shape == (T,) and (seen == 1).all(), (T, check_off)
+        assert ((check_off + 4 * body[:, 0]) % 16 == 0).all()
+        assert len(scalar) <= 6
+        full = g[: (len(g) // 32) * 32].reshape(-1, 32, 4)
+        rows = full[(full >= 0).all(axis=(1, 2))]
+        assert (np.diff(rows, axis=1) == 1).all()
+        if check_off == 0 and e in (20, 22):
+            assert blocks == (256 if e == 20 else 1024) and len(scalar) == 0
+
+
 def test_cpu_maps_take_the_plain_versions_and_other_devices_are_refused():
     """On the CPU every write wrapper is its plain version and counts no
     launch; a map on another device (meta) is refused, never run in
