@@ -142,7 +142,7 @@ CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photomet
                 "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
                 "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
                 "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes",
-                "lio_cascade_125", "lio_cascade_any"]
+                "lio_cascade_125", "lio_cascade_any", "voxel_keys", "vio_dedup", "vio_push"]
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -565,11 +565,14 @@ def unfused():
     patches_and_grads kernel and each step photometric_step_plain, IMU
     propagation as the plain loop, the camera frame's selection and map
     upkeep as their torch code (no vio_select, no vio_observations), the
-    box delete, the voxel filter's centroid, the map insert and the
-    undistortion as their torch code (no tiled_delete_boxes, no
-    voxel_centroids, no tiled_insert_*, no undistort)."""
+    box delete, the voxel filter's key pass and centroid, the map insert,
+    the undistortion, the camera cloud's voxel dedup and the image-pool
+    push as their torch code (no tiled_delete_boxes, no voxel_keys, no
+    voxel_centroids, no tiled_insert_*, no undistort, no vio_dedup, no
+    vio_push)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio, vio
+    from fastlivo_tpu_torch import visual_map as vmap_mod
     from fastlivo_tpu_torch.ops import knn_plane, photometric
     from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_filter as vf
@@ -593,6 +596,9 @@ def unfused():
         stack.enter_context(swapped(tm, "insert", lambda m, p, v, max_probe=0:
                                     tm.insert_plain(m, p, v)))
         stack.enter_context(swapped(imu_mod, "undistort", imu_mod.undistort_plain))
+        stack.enter_context(swapped(vf, "_sorted_keys", vf._sorted_keys_plain))
+        stack.enter_context(swapped(vio, "_dedup_voxels", vio._dedup_voxels_plain))
+        stack.enter_context(swapped(vmap_mod, "push_image", vmap_mod.push_image_plain))
         yield
 
 
@@ -978,6 +984,121 @@ def need_cascade(label, launches, ekfs=None):
                              f"of {ekfs} EKFs and no knn5_plane_tiled")
 
 
+def cloned(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    return tuple(map(cloned, v)) if isinstance(v, tuple) else v
+
+
+@contextlib.contextmanager
+def recorded_all(module, name, calls: list):
+    """Append every call of module.<name> as (arguments, outputs), each
+    tensor copied on the card: no host read. Never a counted kernel
+    wrapper (each counts through its own module-level name): the key
+    pass is recorded through `_sorted_keys`, the dedup through
+    `vio._dedup_voxels`."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((cloned(a), cloned(kw), cloned(out)))
+        return out
+
+    with swapped(module, name, wrapped):
+        yield
+
+
+PUSH_FIELDS = ("obs_slot", "obs_fid", "n_pts", "img_fid")
+
+
+@contextlib.contextmanager
+def recorded_pushes(calls: list):
+    """Append every visual_map.push_image call of one card's map (no slab
+    layout): the fields the push reads, copied before it (the rings, the
+    point count, the pool's ids), the image and the frame id, and the
+    pool's ids after it. No host read."""
+    from fastlivo_tpu_torch import visual_map as vmap_mod
+
+    real = vmap_mod.push_image
+
+    def wrapped(m, img, fid, mesh=None):
+        if mesh is not None:
+            return real(m, img, fid, mesh)
+        before = {f: getattr(m, f).clone() for f in PUSH_FIELDS}
+        out = real(m, img, fid, mesh)
+        calls.append({"before": before, "img": img.clone(), "fid": cloned(fid),
+                      "after": out.img_fid.clone(), "dtype": m.imgs.dtype})
+        return out
+
+    with swapped(vmap_mod, "push_image", wrapped):
+        yield
+
+
+def push_map(rec, pool):
+    """A map for one recorded push: its rings, point count and pool ids as
+    the push found them, `pool` (a copy) for the images."""
+    from fastlivo_tpu_torch import visual_map as vmap_mod
+
+    b = rec["before"]
+    NP, KO = b["obs_fid"].shape
+    empty = vmap_mod.empty_visual_map(n_points=1, n_obs=1, table_size=1, voxel_cap=1, ring=1,
+                                      height=1, width=1, device=pool.device)
+    return empty._replace(**{f: b[f].clone() for f in PUSH_FIELDS}, imgs=pool.clone())
+
+
+def check_stage_calls(keys, dedups, pushes, label) -> dict:
+    """The path's recorded key passes, dedups and pushes after its run
+    (these launches are not the path's; the counts are restored): each
+    key pass replayed by voxel_keys and by voxel_keys_plain on its
+    inputs, bit-equal, their stable sort the path's sorted keys and
+    order; each dedup replayed by vio_dedup and vio._dedup_voxels_plain,
+    bit-equal to each other and to the path's outputs; each push replayed
+    by vio_push and visual_map.push_image_plain on copies of one pool (as
+    the push found the rings and ids), img_fid and imgs bit-equal, the
+    pool ids the path's. Returns numbers."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch import visual_map as vmap_mod
+    from fastlivo_tpu_torch.ops import vio_dedup, vio_push
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    counts = read_counts()
+    bad = []
+    for k, (a, kw, out) in enumerate(keys):
+        got = vf.voxel_keys(*a, **kw)
+        want = vf.voxel_keys_plain(*a, **kw)
+        srt = torch.sort(want, stable=True)
+        if not (torch.equal(got, want) and torch.equal(srt[0], out[0])
+                and torch.equal(srt[1], out[1])):
+            bad.append(f"key pass {k}")
+    for k, (a, kw, out) in enumerate(dedups):
+        got = vio_dedup.vio_dedup(*a, **kw)
+        want = vio._dedup_voxels_plain(*a, **kw)
+        if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(got, want, out)):
+            bad.append(f"dedup {k}")
+    pool = None
+    for k, rec in enumerate(pushes):
+        if pool is None or pool.shape[1:] != rec["img"].shape or pool.dtype != rec["dtype"]:
+            pool = torch.zeros((rec["after"].shape[0], *rec["img"].shape), dtype=rec["dtype"],
+                               device=rec["img"].device)
+        m1, m2 = push_map(rec, pool), push_map(rec, pool)
+        vio_push.vio_push(m1, rec["img"], rec["fid"])
+        vmap_mod.push_image_plain(m2, rec["img"], rec["fid"])
+        if not (torch.equal(m1.img_fid, m2.img_fid) and torch.equal(m1.imgs, m2.imgs)
+                and torch.equal(m1.img_fid, rec["after"])):
+            bad.append(f"push {k}")
+        del m1, m2
+    torch.cuda.synchronize()
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    if bad:
+        raise AssertionError(f"{label}: not bit-equal to the plain versions: {bad}")
+    nums = {"key_passes_checked": len(keys), "dedups_checked": len(dedups),
+            "pushes_checked": len(pushes), "bit_equal_to_plain": True, "max_abs_err": 0.0}
+    print(f"{label}: {len(keys)} key passes, {len(dedups)} voxel dedups and {len(pushes)} "
+          f"image-pool pushes replayed by their kernels and plain versions, bit-equal")
+    return nums
+
+
 # the flat maps' write kernels (the hash map's and the dense grid's), by
 # their wrappers' names
 FLAT_KERNELS = ("hash_insert_keys", "hash_insert_probe", "dense_insert", "flat_delete_boxes")
@@ -999,7 +1120,7 @@ def counted_wrappers():
     from fastlivo_tpu_torch.ops import imu_scan, knn_plane, lio_cascade, patches_grads
     from fastlivo_tpu_torch import imu
     from fastlivo_tpu_torch.ops import photometric, tiled_map, vio_observations, vio_select
-    from fastlivo_tpu_torch.ops import dense_map, voxel_filter, voxel_map
+    from fastlivo_tpu_torch.ops import dense_map, vio_dedup, vio_push, voxel_filter, voxel_map
 
     return (knn_plane.knn5_plane_tiled, knn_plane.knn5_plane_hashed, knn_plane.knn5_plane,
             photometric.photometric_err_H, photometric.photometric_cascade,
@@ -1008,7 +1129,8 @@ def counted_wrappers():
             vio_observations.vio_observations, tiled_map.delete_boxes,
             voxel_filter.voxel_centroids, tiled_map.insert_keys, tiled_map.insert_tiles,
             imu.undistort, voxel_map.hash_insert_keys, voxel_map.hash_insert_probe,
-            dense_map.dense_insert, voxel_map.flat_delete_boxes)
+            dense_map.dense_insert, voxel_map.flat_delete_boxes, voxel_filter.voxel_keys,
+            vio_dedup.vio_dedup, vio_push.vio_push)
 
 
 def reset_counts():
@@ -1523,6 +1645,143 @@ def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
               f"{r['host_ms']:.4f} ms a call), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 "
               f"operations), library none; {smi}")
+    return res
+
+
+KEY_ROW_OPS = 30  # a row: 3 finite tests, 3 divisions (products), floors, casts, 3 offsets,
+# masks and shifts, 2 ors, the valid select
+DEDUP_ROW_OPS = 40  # a row: 3 divisions, floors, casts, the hash (3 products, 2 xors, mask);
+# 4 rounds of slot, atomic and winner compare; the keep test and its scan
+PUSH_ENTRY_OPS = 6  # a ring entry: clamp (2), the fid test, its slot's id compared, the count
+PUSH_PAIR_OPS = 4  # a pair of pool slots: two compares, an and, an or (the age rank)
+
+
+def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame"):
+    """voxel_keys, vio_dedup and vio_push timed at the main path's shapes on
+    the paths' recorded calls (lio_keys: the LIO path's last key pass;
+    rec: livo_path_phase's last key pass, dedup and push), each against
+    its plain version and its bound: the kernels by time_ms (median of 30
+    queued calls between CUDA events), the plain versions by event_ms
+    (the dedup's and the push's plain versions read the host), each
+    wrapper's host wall a call, and for the push the library call
+    torch.bincount(minlength=R + 1) on the refcount's targets. Also held
+    bit for bit: the key pass with NaN, inf, -0.0 and wrapping rows on
+    the card against its plain version on the card and the CPU, the
+    dedup on the camera cloud tiled three times (24576 rows: its arrays
+    in the stream's scratch), the push on an f32 pool. These launches are
+    not the paths' (the counts are restored). Returns {"voxel_keys":
+    {...}, "vio_dedup": {...}, "vio_push": {...}}."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch import visual_map as vmap_mod
+    from fastlivo_tpu_torch.ops import vio_dedup, vio_push
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    counts = read_counts()
+    smi = nvidia_smi_line()
+    res = {}
+    for src, (a, kw, _) in (("lio scan", lio_keys), ("camera cloud", rec["keys"])):
+        pts, valid = a[0], a[1]
+        N = pts.shape[0]
+        bad, bvalid = pts.clone(), valid.clone()
+        bad[:8] = float("nan")
+        bad[8:16, 1] = float("inf")
+        bad[16:64] = -0.0
+        bad[64:72, 0] = 3e12
+        bvalid[:72] = True
+        for p, v in ((pts, valid), (bad, bvalid)):
+            got = vf.voxel_keys(p, v, *a[2:], **kw)
+            want = vf.voxel_keys_plain(p, v, *a[2:], **kw)
+            cpu = vf.voxel_keys_plain(p.cpu(), v.cpu(), *[
+                None if t is None else t.cpu() for t in a[2:]],
+                **{k: None if t is None else t.cpu() for k, t in kw.items()})
+            if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu)):
+                raise AssertionError(f"voxel_keys on the {src}: not bit-equal to its plain "
+                                     f"version")
+        ms = time_ms(lambda: vf.voxel_keys(*a, **kw))
+        host = host_ms(lambda: vf.voxel_keys(*a, **kw), reps=30)
+        plain_ms = event_ms(lambda: vf.voxel_keys_plain(*a, **kw), reps=30)
+        byts, ops = N * (12 + 1 + 8) + 4, N * KEY_ROW_OPS
+        b, by = bound(byts, ops)
+        res.setdefault("voxel_keys", {})[src] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "bytes": byts,
+            "ops": ops, "host_ms": host, "rows": N, "grid": vf.voxel_keys.grid}
+    (pg, mask, max_vox), _, out = rec["dedup"]
+    M = pg.shape[0]
+    pg3 = torch.cat([pg, pg + 100.0, pg + 200.0])
+    mask3 = torch.cat([mask, mask, mask])
+    for p, mk, label_d in ((pg, mask, "as run"), (pg3, mask3, "tiled 3x")):
+        got = vio_dedup.vio_dedup(p, mk, max_vox)
+        want = vio._dedup_voxels_plain(p, mk, max_vox)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"vio_dedup, {label_d}: not bit-equal to its plain version")
+    scratch_route = vio_dedup._library()[1](3 * M) > 0
+    ms = time_ms(lambda: vio_dedup.vio_dedup(pg, mask, max_vox))
+    host = host_ms(lambda: vio_dedup.vio_dedup(pg, mask, max_vox), reps=30)
+    ms3 = time_ms(lambda: vio_dedup.vio_dedup(pg3, mask3, max_vox))
+    plain_ms = event_ms(lambda: vio._dedup_voxels_plain(pg, mask, max_vox), reps=30)
+    byts, ops = 13 * M + 13 * max_vox, DEDUP_ROW_OPS * M
+    b, by = bound(byts, ops)
+    res["vio_dedup"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                        "bytes": byts, "ops": ops, "host_ms": host, "rows": M,
+                        "max_vox": max_vox, "rows_in": int(mask.sum()),
+                        "kept": int(out[1].sum()), "grid": vio_dedup.vio_dedup.grid,
+                        "rows_24576_ms": ms3, "rows_24576_scratch_route": scratch_route}
+    p = rec["push"]
+    R, (H, W) = p["after"].shape[0], p["img"].shape
+    pool = torch.zeros((R, H, W), dtype=p["dtype"], device=p["img"].device)
+    m = push_map(p, pool)
+    NP, KO = m.obs_fid.shape
+    n_live = min(max(int(m.n_pts), 0), NP)
+    alive = (torch.arange(NP, device=pool.device) < m.n_pts)[:, None]
+    slot = torch.clamp(m.obs_slot, 0, R - 1)
+    ok = alive & (m.obs_fid >= 0) & (m.img_fid[slot.long()] == m.obs_fid)
+    tgt = torch.where(ok, slot, R).reshape(-1).long()
+    if not torch.equal(torch.bincount(tgt, minlength=R + 1)[:R].int(),
+                       vmap_mod._live_slot_refs(m)):
+        raise AssertionError("vio_push: torch.bincount is not the refcount")
+    for dt in (p["dtype"], torch.float32 if p["dtype"] == torch.uint8 else torch.uint8):
+        q = {**p, "dtype": dt}
+        pl = torch.zeros((R, H, W), dtype=dt, device=pool.device)
+        m1, m2 = push_map(q, pl), push_map(q, pl)
+        vio_push.vio_push(m1, p["img"], p["fid"])
+        vmap_mod.push_image_plain(m2, p["img"], p["fid"])
+        if not (torch.equal(m1.img_fid, m2.img_fid) and torch.equal(m1.imgs, m2.imgs)):
+            raise AssertionError(f"vio_push on a {dt} pool: not bit-equal to its plain version")
+        del m1, m2, pl
+    m1, m2 = push_map(p, pool), push_map(p, pool)
+    ms = time_ms(lambda: vio_push.vio_push(m1, p["img"], p["fid"]))
+    host = host_ms(lambda: vio_push.vio_push(m1, p["img"], p["fid"]), reps=30)
+    plain_ms = event_ms(lambda: vmap_mod.push_image_plain(m2, p["img"], p["fid"]), reps=30)
+    lib_ms = event_ms(lambda: torch.bincount(tgt, minlength=R + 1), reps=30)
+    es = pool.element_size()
+    byts = 8 * n_live * KO + 8 * R + 4 + (4 + es) * H * W
+    ops = PUSH_ENTRY_OPS * n_live * KO + PUSH_PAIR_OPS * R * R + (4 if es == 1 else 0) * H * W
+    b, by = bound(byts, ops)
+    res["vio_push"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
+                       "bound_by": by, "bytes": byts, "ops": ops, "host_ms": host,
+                       "live_rows": n_live, "ring": KO, "pool": R, "image": [H, W],
+                       "dtype": str(p["dtype"]), "grid": vio_push.vio_push.grid}
+    del m, m1, m2, pool
+    for fn in counted_wrappers():
+        fn.launches = counts[fn.__name__]
+    for src, r in res["voxel_keys"].items():
+        print(f"voxel_keys on the {src} ({r['rows']} rows): kernel {r['ms']:.4f} ms "
+              f"({r['grid']} blocks; host {r['host_ms']:.4f} ms a call), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+              f"{r['bytes']} bytes, {r['ops']} operations), library none; {smi}")
+    r = res["vio_dedup"]
+    print(f"vio_dedup on {label} ({r['rows']} rows, {r['rows_in']} in, {r['kept']} kept of "
+          f"{r['max_vox']}): kernel {r['ms']:.4f} ms (host {r['host_ms']:.4f} ms a call; "
+          f"24576 rows {r['rows_24576_ms']:.4f} ms, scratch route {scratch_route}), plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}: "
+          f"{r['bytes']} bytes, {r['ops']} operations), library none; {smi}")
+    r = res["vio_push"]
+    print(f"vio_push on {label} ({r['live_rows']} live rows x {KO}, a {p['dtype']} pool of "
+          f"{R} x {H}x{W}): kernel {r['ms']:.4f} ms ({r['grid']} blocks; host "
+          f"{r['host_ms']:.4f} ms a call), plain {r['plain_ms']:.4f} ms, library "
+          f"torch.bincount {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} operations); both pool types "
+          f"bit-equal; {smi}")
     return res
 
 
@@ -2327,7 +2586,9 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     "frame": the last lidar_frame_step's}). tiled_delete_boxes must
     launch once per tracker update with boxes, voxel_centroids once per
     steady frame, the insert's three passes once per insert, undistort
-    once per frame step and bootstrap scan."""
+    once per frame step and bootstrap scan, voxel_keys once per filtered
+    scan (each key pass recorded and replayed after the run:
+    check_stage_calls)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch import pipeline as pipeline_mod
@@ -2353,13 +2614,15 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
     searches, groups, cascades, boxes, filt, ins, step = [], [], [], [], {}, {}, {}
+    keys = []
     reserve_snapshots(pipe.map, len(scans))
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), spy(imu_mod, "propagate_wire", groups), \
             recorded_lio(cascades), recorded_boxes(pipe, boxes), recorded_calls(vf, filt), \
             recorded_calls(tm, ins, "insert", first=True), \
-            recorded_calls(pipeline_mod, step, "lidar_frame_step"):
+            recorded_calls(pipeline_mod, step, "lidar_frame_step"), \
+            recorded_all(vf, "_sorted_keys", keys):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -2388,7 +2651,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
             or launches["knn5_plane_hashed"] or launches["photometric_step"]
             or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)
             or launches["delete_boxes"] != len(boxes) or not boxes
-            or not launches["voxel_centroids"] == filt["n"] == len(steady)
+            or not launches["voxel_centroids"] == launches["voxel_keys"] == filt["n"]
+            == len(keys) == len(steady) or launches["vio_dedup"] or launches["vio_push"]
             or not (launches["insert_keys"] == launches["insert_tiles"] == ins["n"]
                     > len(steady) - 1)
             or not launches["undistort"] >= step["n"] == len(steady)):
@@ -2402,9 +2666,10 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
     nums = check_lio_cascades(cascades, "lio per-frame")
+    nums["stages"] = check_stage_calls(keys, [], [], "lio per-frame")
     return (pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums, boxes,
             {"filter": filt["last"], "insert": ins["last"], "first": ins["first"],
-             "frame": step["last"]})
+             "frame": step["last"], "keys": keys[-1]})
 
 
 def livo_config(cfg=None, W=640, H=512, F=400.0):
@@ -2461,7 +2726,12 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     recorded cascade calls, camera and lidar frame medians in ms, the
     outputs, the dataset, wall ms per lidar frame, the cascades', the LIO
     cascades' and the camera frames' numbers, the last recorded camera
-    frame, the last camera voxel filter call's arguments).
+    frame, the last camera voxel filter call's arguments, the last
+    recorded key pass (the camera cloud's), dedup and push). Every key
+    pass, dedup and image-pool push is recorded and replayed after the
+    run by its kernel and its plain version (check_stage_calls):
+    voxel_keys once per filtered scan and camera cloud, vio_dedup once
+    per camera frame step, vio_push once per camera frame.
     tiled_delete_boxes must launch once per tracker update with boxes,
     voxel_centroids once per steady lidar frame and once per camera frame
     step, the insert's three passes once per insert, undistort once per
@@ -2488,6 +2758,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     vio = pipe.vio
     cam_ms, searches, cascades, groups, lio_calls, vio_calls = [], [], [], [], [], []
     boxes, lid_filt, cam_filt, ins, step = [], {}, {}, {}, {}
+    keys, dedups, pushes = [], [], []
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
@@ -2495,7 +2766,9 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             recorded_lio(lio_calls), recorded_vio(vio_calls), recorded_boxes(pipe, boxes), \
             recorded_calls(vf, lid_filt), recorded_calls(vio_mod, cam_filt), \
             recorded_calls(tm, ins, "insert"), \
-            recorded_calls(pipeline_mod, step, "lidar_frame_step"):
+            recorded_calls(pipeline_mod, step, "lidar_frame_step"), \
+            recorded_all(vf, "_sorted_keys", keys), recorded_all(vio_mod, "_dedup_voxels", dedups), \
+            recorded_pushes(pushes):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -2536,8 +2809,12 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "vio_observations": vio.steps, "delete_boxes": len(boxes),
             "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": ins["n"],
             "insert_tiles": ins["n"],
-            "undistort": max(launches["undistort"], step["n"]), **dict.fromkeys(FLAT_KERNELS, 0)}
+            "undistort": max(launches["undistort"], step["n"]), **dict.fromkeys(FLAT_KERNELS, 0),
+            "voxel_keys": lid_filt["n"] + cam_filt["n"], "vio_dedup": vio.steps,
+            "vio_push": vio.fid}
     if (launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps
+            or len(keys) != want["voxel_keys"] or len(dedups) != vio.steps
+            or len(pushes) != vio.fid
             or not ins["n"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches}, want {want}, {lid_filt['n']} lidar and "
                              f"{cam_filt['n']} camera voxel filters")
@@ -2549,9 +2826,10 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     lio_nums = check_lio_cascades(lio_calls, "livo per-frame")
     del lio_calls
     vio_nums = check_vio_calls(vio_calls, "livo per-frame")
+    vio_nums["stages"] = check_stage_calls(keys, dedups, pushes, "livo per-frame")
     return (launches, cascades, float(np.median(cam_ms)), float(np.median(lid_ms)),
             outs, ds, 1e3 * wall / len(outs), nums, lio_nums, vio_nums, vio_calls[-1],
-            cam_filt["last"])
+            cam_filt["last"], {"keys": keys[-1], "dedup": dedups[-1], "push": pushes[-1]})
 
 
 def livo_cpu_agreement(dev):
@@ -3022,6 +3300,10 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
                         + counts["vio_observations"])
     n_sel, _ = kernels_in(prof, "vio.select", counts["vio_select"])
     n_obs, _ = kernels_in(prof, "vio.observations", counts["vio_observations"])
+    # under vio.push its one launch; under vio.voxel_filter the cloud's key
+    # pass and centroid and the dedup, one launch each a camera frame
+    n_push, _ = kernels_in(prof, "vio.push", counts["vio_push"])
+    n_vf, _ = kernels_in(prof, "vio.voxel_filter", 3 * counts["vio_dedup"])
     if fused and (n_sel > n_cam or n_obs > 2 * n_cam):
         raise AssertionError(f"livo profile: {n_sel} kernels under vio.select_*, {n_obs} under "
                              f"vio.observations for {n_cam} camera frames (at most 1 and 2 "
@@ -3046,7 +3328,8 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
           f"{prop_host:.3f} ms and {n_p / n_cam:.1f} device kernels; under vio.select_* "
           f"{n_sel / n_cam:.1f} device kernels and {sel_host:.3f} ms host per camera frame, "
           f"under vio.observations {n_obs / n_cam:.1f} and {obs_host:.3f} ms, host reads "
-          f"there {reads}")
+          f"there {reads}; under vio.push {n_push / n_cam:.1f} and under vio.voxel_filter "
+          f"{n_vf / n_cam:.1f} device kernels per camera frame")
     for e in stages:
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
@@ -3056,6 +3339,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
             "propagate_kernels_per_pair": n_p / n_cam, "propagate_host_ms": prop_host,
             "select_kernels": n_sel / n_cam, "select_host_ms": sel_host,
             "observations_kernels": n_obs / n_cam, "observations_host_ms": obs_host,
+            "push_kernels": n_push / n_cam, "voxel_filter_kernels": n_vf / n_cam,
             "observations_host_reads": reads, "camera_frames": n_cam,
             "device_busy_share": busy / (1e3 * wall),
             "stages": {e.key: {"host_ms": e.cpu_time_total / 1e3 / n_cam,
@@ -5215,11 +5499,13 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase("livo per-frame"):
         (livo_launches, cascades, cam_fused, lid_fused, livo_outs, livo_ds,
-         livo_ms, casc_nums, livo_lio_nums, vio_nums, vio_rec, cam_filter) = livo_path_phase(dev)
+         livo_ms, casc_nums, livo_lio_nums, vio_nums, vio_rec, cam_filter,
+         stage_rec) = livo_path_phase(dev)
         last_call = cascades[-1][0]
         del cascades
         vio_res = vio_kernels_phase(vio_rec)
-        del vio_rec
+        stage_res = camera_stage_phase(lio_rec["keys"], stage_rec)
+        del vio_rec, stage_rec
         torch.cuda.empty_cache()
     with phase("map stage kernels"):
         stages = map_stages_phase(lio_map, lio_boxes, lio_rec, cam_filter)
@@ -5332,11 +5618,15 @@ def main() -> int:
           f", frame.undistort {ms2(sl, 'frame.undistort')}"
           f", frame.delete_boxes {ms2(sl, 'frame.delete_boxes')}, frame.voxel_filter "
           f"{ms2(sl, 'frame.voxel_filter')}; per camera frame vio.voxel_filter "
-          f"{ms2(sv, 'vio.voxel_filter')}; device kernels per LIO frame {lu['kernels']:.0f} "
+          f"{ms2(sv, 'vio.voxel_filter')} ({vu['voxel_filter_kernels']:.1f} -> "
+          f"{vf['voxel_filter_kernels']:.1f} kernels), vio.push {ms2(sv, 'vio.push')} "
+          f"({vu['push_kernels']:.1f} -> {vf['push_kernels']:.1f} kernels); device kernels "
+          f"per LIO frame {lu['kernels']:.0f} "
           f"-> {lf['kernels']:.0f} (device busy {100 * lu['device_busy_share']:.1f}% -> "
           f"{100 * lf['device_busy_share']:.1f}% of wall), per LIVO pair "
           f"{vu['kernels_per_pair']:.0f} -> {vf['kernels_per_pair']:.0f} (unfused -> fused, "
-          f"the unfused with the plain box delete, centroid, insert and undistortion); {smi}")
+          f"the unfused with the plain box delete, key pass, centroid, insert, "
+          f"undistortion, dedup and push); {smi}")
     if not (lf["search_kernels"] < lu["search_kernels"] and lf["kernels"] < lu["kernels"]
             and lf["lio_update_kernels"] < lu["lio_update_kernels"]
             and vf["photometric_kernels"] < vu["photometric_kernels"]
@@ -5344,7 +5634,9 @@ def main() -> int:
             and lf["propagate_kernels"] < lu["propagate_kernels"]
             and vf["propagate_kernels_per_pair"] < vu["propagate_kernels_per_pair"]
             and vf["select_kernels"] < vu["select_kernels"]
-            and vf["observations_kernels"] < vu["observations_kernels"]):
+            and vf["observations_kernels"] < vu["observations_kernels"]
+            and vf["push_kernels"] < vu["push_kernels"]
+            and vf["voxel_filter_kernels"] < vu["voxel_filter_kernels"]):
         raise AssertionError("the fused kernels did not cut the kernel counts")
     ck_keys = ("copy_ms", "write_ms", "disk_mb", "array_mb")
     print(json.dumps({"paths": {
@@ -5561,7 +5853,29 @@ def main() -> int:
          "fastlivo_tpu/ops/dense_map.py:70-114 (insert, jitted XLA; no Pallas kernel)"),
         ("flat_delete_boxes", "flat_delete_boxes hash", "hash", "flat_delete_boxes",
          "fastlivo_tpu/ops/voxel_map.py:268-286 and fastlivo_tpu/ops/dense_map.py:141-157 "
-         "(delete_boxes, jitted XLA; no Pallas kernel)"))]]}))
+         "(delete_boxes, jitted XLA; no Pallas kernel)"))], *[{
+        "name": name, "route": "cuda",
+        "source": f"fastlivo_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": livo_launches[name], "path": "livo per-frame",
+        "max_abs_err": 0.0,
+        **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": r.get("library_ms"),
+        **{k: v for k, v in r.items() if k not in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **extra,
+        "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
+    } for name, r, extra, replaces in (
+        ("voxel_keys", stage_res["voxel_keys"]["camera cloud"],
+         {"lio_scan": stage_res["voxel_keys"]["lio scan"]},
+         "fastlivo_tpu/ops/voxel_filter.py:41-52 (voxel_downsample_device before its argsort: "
+         "the finite test, floor, cast, 3 x 20-bit packing, invalid marker; jitted XLA; no "
+         "Pallas kernel)"),
+        ("vio_dedup", stage_res["vio_dedup"], {},
+         "fastlivo_tpu/vio.py:735-780 (_dedup_voxels, jitted XLA; no Pallas kernel)"),
+        ("vio_push", stage_res["vio_push"], {},
+         "fastlivo_tpu/visual_map.py:126-156, :191-213, :216-240 (_live_slot_refs, "
+         "push_slot, push_image; jitted XLA; no Pallas kernel)"))]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -36,12 +36,14 @@ CSRC = PKG_DIR / "csrc"
 # delete and its insert's three passes (ops/tiled_map.py), the voxel
 # filter's segmented centroid (ops/voxel_filter.py), the scan's
 # undistortion (imu.py); the hash map's insert (ops/voxel_map.py), the
-# dense grid's (ops/dense_map.py) and the box delete of both
+# dense grid's (ops/dense_map.py) and the box delete of both; the voxel
+# filter's key pass (ops/voxel_filter.py), the camera frame's voxel dedup
+# (ops/vio_dedup.py) and image-pool push (ops/vio_push.py)
 SOURCES = ("knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photometric_err_H",
            "photometric_cascade", "patches_and_grads", "imu_propagate", "lio_cascade",
            "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
            "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes",
-           "lio_cascade_125", "lio_cascade_any")
+           "lio_cascade_125", "lio_cascade_any", "voxel_keys", "vio_dedup", "vio_push")
 BUILD_DIR = PKG_DIR.parent / "build" / "fastlivo_tpu_torch"
 # -fmad=false: no multiply-add contraction, so a kernel rounds every
 # product as its plain PyTorch version (one op per product) does; with

@@ -4,12 +4,14 @@ laserMapping.cpp:172-173 with leaf `filter_size_surf`).
 
 Port of the JAX package's ops/voxel_filter.py: the device filter of the
 fused frame step and the host (numpy) filter of the bootstrap frames. On
-CUDA the device filter's segmented centroid after the sort is one launch
-of the hand-written kernel csrc/voxel_centroids.cu (built at first use,
-see _build.py), which reads the sorted keys as torch.sort returns them;
-its plain version `voxel_centroids_plain`, the torch code the CPU runs,
-is the kernel's oracle. Contract on the card: bit-equal to
-the plain version run on the CPU on the same inputs.
+CUDA the device filter is two hand-written kernels around torch's stable
+sort (built at first use, see _build.py): the key pass, one launch of
+csrc/voxel_keys.cu that writes the packed keys, and the segmented
+centroid after the sort, one launch of csrc/voxel_centroids.cu, which
+reads the sorted keys as torch.sort returns them. Their plain versions
+`voxel_keys_plain` and `voxel_centroids_plain`, the torch code the CPU
+runs, are the kernels' oracles. Contract on the card: bit-equal to the
+plain versions run on the CPU on the same inputs.
 """
 from __future__ import annotations
 
@@ -24,10 +26,11 @@ from .photometric import _require, _ticket
 INVALID = 1 << 62  # the packed key of a dropped row: sorts after every voxel
 
 
-def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
-    """The packed voxel keys (the invalid marker 2^62 where the row is
-    invalid or not finite) in sorted order, and the stable sort's
-    permutation `order` (sorted row r is row order[r])."""
+def voxel_keys_plain(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
+    """The packed voxel keys (N,) int64 of the rows: 3 x 20-bit offset
+    coordinates of floor(pts / leaf) (or floor(pts * inv_leaf)), the
+    invalid marker 2^62 where the row is invalid or not finite. The torch
+    code the CPU runs and the oracle of `voxel_keys`."""
     valid = valid & torch.all(torch.isfinite(pts[:, :3]), dim=-1)
     keys = torch.floor(pts[:, :3] / leaf if inv_leaf is None
                        else pts[:, :3] * inv_leaf)
@@ -40,8 +43,71 @@ def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
         | ((keys[:, 1] + (1 << 19)) & 0xFFFFF) << 20
         | ((keys[:, 2] + (1 << 19)) & 0xFFFFF)
     )
-    packed = torch.where(valid, packed, torch.full_like(packed, INVALID))
-    return torch.sort(packed, stable=True)
+    return torch.where(valid, packed, torch.full_like(packed, INVALID))
+
+
+@functools.cache
+def _keys_library():
+    from . import _build
+
+    fn = _build.load("voxel_keys").voxel_keys_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return _build.profiled("voxel_keys", fn)
+
+
+def voxel_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
+    """`voxel_keys_plain`'s signature and output. CUDA tensors launch the
+    kernel of csrc/voxel_keys.cu on the current stream (counted in
+    `voxel_keys.launches`, its blocks in `voxel_keys.grid`), a thread a
+    row, with no host read; CPU tensors run the plain version. The scale
+    (`leaf`, or `inv_leaf` when given) must be a 0-d f32 tensor on pts'
+    device: the plain version divides by a device tensor, where a Python
+    float would have the card multiply by its reciprocal instead. No other
+    device is taken and nothing falls back."""
+    if pts.device.type == "cpu":
+        return voxel_keys_plain(pts, valid, leaf, inv_leaf)
+    if pts.device.type != "cuda":
+        raise ValueError(f"voxel_keys: unsupported device {pts.device}")
+    dev = pts.device
+    if pts.ndim != 2 or pts.shape[1] < 3 or pts.shape[0] >= 1 << 31:
+        raise ValueError(f"voxel_keys: pts {tuple(pts.shape)}, want (N < 2^31, C >= 3)")
+    N, C = pts.shape
+    scale = leaf if inv_leaf is None else inv_leaf
+    if not isinstance(scale, torch.Tensor):
+        raise TypeError("voxel_keys: the leaf must be a 0-d f32 tensor on the card")
+    _require("voxel_keys: pts", pts, (N, C), torch.float32, dev)
+    _require("voxel_keys: valid", valid, (N,), torch.bool, dev)
+    _require("voxel_keys: scale", scale, (), torch.float32, dev)
+    out = torch.empty(N, dtype=torch.int64, device=dev)
+    grid = ctypes.c_int(0)
+    err = _keys_library()(pts.data_ptr(), valid.data_ptr(), scale.data_ptr(),
+                          int(inv_leaf is None), out.data_ptr(), N, C, ctypes.byref(grid),
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"voxel_keys: kernel launch failed (cudaError {err})")
+    if N > 0:
+        voxel_keys.launches += 1
+    voxel_keys.grid = grid.value
+    return out
+
+
+voxel_keys.launches = 0
+voxel_keys.grid = 0
+
+
+def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
+    """The packed voxel keys (`voxel_keys`: one launch on CUDA) in sorted
+    order, and the stable sort's permutation `order` (sorted row r is row
+    order[r])."""
+    return torch.sort(voxel_keys(pts, valid, leaf, inv_leaf), stable=True)
+
+
+def _sorted_keys_plain(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
+    """`_sorted_keys` with the key pass's torch code (`voxel_keys_plain`)
+    on any device: the filter as it ran before the key pass's kernel."""
+    return torch.sort(voxel_keys_plain(pts, valid, leaf, inv_leaf), stable=True)
 
 
 def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
@@ -49,8 +115,9 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
                             inv_leaf: torch.Tensor | None = None):
     """Centroid voxel filter with a fixed output capacity, on pts' device.
 
-    Packed-key stable sort, then the segmented centroid of
-    `voxel_centroids` into `max_out` rows (one kernel launch on CUDA);
+    The packed keys (`voxel_keys`) and their stable sort, then the
+    segmented centroid of `voxel_centroids` into `max_out` rows (each
+    pass one kernel launch on CUDA);
     rows past the capacity and invalid rows are dropped. Output order is
     sorted-voxel-key order. Non-finite points are dropped
     (pcl::VoxelGrid's is-finite skip). Each segment is summed in row
@@ -64,8 +131,9 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
             multiply by the f32 reciprocal; `inv_leaf` computes that form.
     Returns (out (max_out, C), mask (max_out,)).
     """
+    pts = pts.contiguous()
     keys, order = _sorted_keys(pts, valid, leaf, inv_leaf)
-    return voxel_centroids(keys, order, pts.contiguous(), max_out)
+    return voxel_centroids(keys, order, pts, max_out)
 
 
 def voxel_centroids_plain(keys: torch.Tensor, order: torch.Tensor, pts: torch.Tensor,

@@ -23,7 +23,9 @@ On one card stages 1-2 are one launch, ops/vio_select.vio_select, and
 stage 4 with the new points' insertion one more, ops/vio_observations.
 vio_observations (`frame_kernels_apply`); the torch functions here and
 in visual_map.py are their plain versions, which the CPU and a mesh run,
-with every product, norm and box sum written in the kernels' order.
+with every product, norm and box sum written in the kernels' order. The
+frame's image-pool push and its cloud's voxel dedup are one launch each
+on any CUDA tensors (ops/vio_push, without the slab layout; ops/vio_dedup).
 
 `vio_frame_step` runs the whole frame; `Vio` holds the map and feeds it.
 
@@ -74,6 +76,7 @@ from .ops import image as img_ops
 from .ops.linalg import mat3, matvec3, norm2, norm3
 from .ops.photometric import (_recip32, _rows_times, photometric_cascade, photometric_err_H,
                               photometric_step)
+from .ops.vio_dedup import vio_dedup
 from .ops.vio_observations import vio_observations
 from .ops.vio_select import vio_select
 from .ops.voxel_filter import voxel_downsample_device
@@ -565,11 +568,19 @@ def photometric_update(state, prior, cam, img, tr_pos, tr_patch, tr_slevel,
 
 
 def _dedup_voxels(pg: torch.Tensor, pg_mask: torch.Tensor, max_vox: int):
+    """The scan cloud's 0.5 m voxel key set (`_dedup_voxels_plain`): on
+    CUDA tensors one launch of ops/vio_dedup.vio_dedup, on the CPU the
+    plain version. Returns (vox (max_vox, 3) int32, vmask (max_vox,))."""
+    return vio_dedup(pg, pg_mask, max_vox)
+
+
+def _dedup_voxels_plain(pg: torch.Tensor, pg_mask: torch.Tensor, max_vox: int):
     """Sort-free dedup + compaction of the scan cloud's 0.5 m voxel keys
     (the sub_feat_map key set, addFromSparseMap :361-380): four rounds of
     a linear-probed hash where rows scatter-min their row id; a row whose
     slot winner has the same key is resolved. Leftovers after four rounds
-    are kept (possible duplicates, which select_tracked tolerates)."""
+    are kept (possible duplicates, which select_tracked tolerates). The
+    torch code the CPU runs and the oracle of ops/vio_dedup.vio_dedup."""
     keys = vmap_mod.voxel_of(pg)  # (M, 3) int32
     M = keys.shape[0]
     dev = pg.device

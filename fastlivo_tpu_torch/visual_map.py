@@ -12,7 +12,8 @@ arrays with int32 indices:
   - the pool keeps an image alive while a live observation references it
     (the reference's shared_ptr on Feature::img); only when every slot
     is referenced does `push_image` evict the least-referenced image,
-    oldest first;
+    oldest first (on one card one launch of ops/vio_push.vio_push, whose
+    plain version is `push_image_plain`);
   - `feat_map` is an open-addressing voxel hash (0.5 m voxels) whose
     slots hold up to VC point indices.
 
@@ -45,6 +46,7 @@ import torch
 
 from .device import resolve_device
 from .ops.linalg import norm3
+from .ops.vio_push import vio_push
 from .ops.voxel_map import _last_wins, _slot_check
 
 VOXEL_SIZE = 0.5  # lidar_selection.cpp:210
@@ -230,11 +232,22 @@ def push_slot(m: VisualMap, fid: torch.Tensor, mesh=None) -> torch.Tensor:
 
 
 def push_image(m: VisualMap, img: torch.Tensor, fid, mesh=None) -> VisualMap:
+    """Store the frame's grayscale image in the pool, in place
+    (`push_image_plain`). A map on the card without the slab layout
+    (`mesh` None) takes one launch of ops/vio_push.vio_push, with no host
+    read; the CPU and the slab layout run the plain version."""
+    if mesh is None:
+        return vio_push(m, img, fid)
+    return push_image_plain(m, img, fid, mesh)
+
+
+def push_image_plain(m: VisualMap, img: torch.Tensor, fid, mesh=None) -> VisualMap:
     """Store the frame's grayscale image in the pool, in place (slot
     policy in `push_slot`). A u8 pool stores round(clip(img, 0, 255)),
     rounding half to even as the JAX package does. Under the slab layout
     (`mesh`) every rank picks the slot from the replicated `img_fid` and
-    only the slot's owner writes the image."""
+    only the slot's owner writes the image. The torch code the CPU runs
+    and the oracle of ops/vio_push.vio_push."""
     fid = torch.as_tensor(fid, dtype=I32, device=m.img_fid.device)
     slot = push_slot(m, fid, mesh).long().reshape(1)
     if not m.imgs.dtype.is_floating_point:

@@ -1,7 +1,7 @@
 """Single-device LIVO positions of the port, to compare two checkouts.
 
 Usage: python scripts/torch_livo_positions.py [--tree DIR] [--device cuda]
-           [--small] [--save FILE.npz] [--against FILE.npz ...]
+           [--small] [--lio] [--save FILE.npz] [--against FILE.npz ...]
 
 Runs chip_smoke.py's per-frame LIVO path (`Config()` at its shipped
 capacities with a 640x512 pinhole camera looking at the walls, 6 s of a
@@ -10,7 +10,8 @@ the package in `--tree` (default: this checkout), so that another
 checkout, e.g. `git archive` of a parent commit, runs the same input
 from the same script. `--small`: chip_smoke.py's livo_cpu_agreement
 sizes (a 320x256 camera, 4096-point scans, small capacities), for the
-CPU. Prints the frame counts, photometric iterations, visual-map points
+CPU. `--lio`: the same dataset with the camera off (chip_smoke.py's LIO
+per-frame path). Prints the frame counts, photometric iterations, visual-map points
 and ATE; `--save` keeps the per-frame times and positions; each
 `--against` file is compared with this run: the largest position
 difference, the first lidar frame that differs and both ATEs, as one
@@ -55,6 +56,7 @@ def main():
         os.path.abspath(__file__))), help="the checkout whose package runs")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--lio", action="store_true", help="the camera off")
     ap.add_argument("--save", default=None)
     ap.add_argument("--against", nargs="*", default=[])
     args = ap.parse_args()
@@ -65,6 +67,7 @@ def main():
     from fastlivo_tpu_torch.pipeline import Pipeline
 
     cfg = livo_config(args.small)
+    cfg.img_enable = not args.lio
     cam = cfg.camera
     size = (dict(duration=4.0, points_per_scan=4096, seed=5) if args.small
             else dict(duration=6.0, points_per_scan=24000, seed=0))
@@ -75,7 +78,7 @@ def main():
         pipe.push_lidar(beg, pts, t_rel)
     for t, acc, gyr in ds.imu_stream():
         pipe.push_imu(t, acc, gyr)
-    for t, img in ds.images():
+    for t, img in ([] if args.lio else ds.images()):
         pipe.push_img(t, img)
     measure = vio_mod.photometric_err_H
     calls = [0]
@@ -93,8 +96,9 @@ def main():
     late = t >= ds.traj.t_static + 0.5
     truth = np.array([ds.traj.pose(x)[1] - base for x in t])
     ate = float(np.sqrt(np.mean(np.sum((pos - truth)[late] ** 2, axis=1))))
-    n_pts = int(pipe.vio.vmap.n_pts)
-    print(f"{os.path.abspath(args.tree)}: {len(outs)} lidar frames, {pipe.vio.steps} camera "
+    n_pts = 0 if args.lio else int(pipe.vio.vmap.n_pts)
+    steps = 0 if args.lio else pipe.vio.steps
+    print(f"{os.path.abspath(args.tree)}: {len(outs)} lidar frames, {steps} camera "
           f"steps, {calls[0]} photometric iterations, visual map {n_pts} points, "
           f"ATE {ate * 1e3:.4f} mm")
     if args.save:

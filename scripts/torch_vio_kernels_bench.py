@@ -1,6 +1,7 @@
-"""Device time of the camera frame's two kernels (vio_select,
-vio_observations) of several checkouts on one card, whether their outputs
-are bit-equal, and where each one's time goes.
+"""Device time of the camera frame's kernels (vio_select, vio_observations,
+and the stage kernels vio_push, vio_dedup and voxel_keys) of several
+checkouts on one card, whether their outputs are bit-equal, and where each
+one's time goes.
 
 Usage: python scripts/torch_vio_kernels_bench.py [--variant TREE ...]
            [--stamps TREE ...] [--reps 30] [--frames 24] [--seed 0]
@@ -24,6 +25,17 @@ frame (their rings full); then a frame near the identity pose with a
 scan cloud of M = 8192 rows (noisy copies of map points and free points)
 and its Nv = 4096 voxels; vio_observations after it at a posterior state
 0.6 m away (every tracked row writes its ring).
+
+The stage kernels, where a checkout has their sources (csrc/vio_push.cu,
+vio_dedup.cu, voxel_keys.cu; a checkout without one reports null for it):
+vio_push on a copy of that map with the frame's image and the next frame
+id (every call pushes that fid again: the same refcount, rank and key
+work, the same slot); vio_dedup on the scan cloud (M = 8192 into 4096);
+voxel_keys on a seeded LIO scan (32768 rows of 4 columns, 24000 valid, a
+0.5 m leaf) and on the scan cloud at the camera's reciprocal 0.2 m leaf.
+Each is held bit for bit against its plain version
+(visual_map.push_image_plain, vio._dedup_voxels_plain,
+ops/voxel_filter.voxel_keys_plain) and timed in turns as the two above.
 
 Each variant's outputs are compared bit for bit with the plain versions
 (ops/vio_select.vio_select_plain, ops/vio_observations.
@@ -53,6 +65,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 KERNELS = ("vio_select", "vio_observations")
+STAGE_KERNELS = ("vio_push", "vio_dedup", "voxel_keys")
+# the stage kernels' phases: (name, from stamp, to stamp)
+STAGE_PHASES = {
+    "vio_push": [("counts", 0, 1), ("barrier 1", 1, 2), ("slot keys", 2, 3),
+                 ("barrier 2", 3, 4), ("copy", 4, 5), ("total", 0, 5)],
+    "vio_dedup": [("keys", 0, 1), ("rounds", 1, 2), ("compaction", 2, 3), ("total", 0, 3)],
+    "voxel_keys": [("total", 0, 1)],
+}
 # the phases a stamped variant reports: (name, from stamp, to stamp), by
 # kernel and launcher generation ("state": takes the state's rot and pos)
 PHASES = {
@@ -313,6 +333,110 @@ def observations_call(lib, vm, oa):
                     *pose_out], grid
 
 
+def stage_inputs(a, seed: int):
+    """The stage kernels' inputs beside vio_select's `a`: the push's map,
+    image and next frame id; the dedup's cloud; the key pass's LIO scan
+    and camera cloud (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    dev = a["img"].device
+    rng = np.random.default_rng(seed + 2)
+    n = 32768
+    scan = rng.uniform(-40, 40, (n, 4)).astype(np.float32)
+    valid = np.arange(n) < 24000
+    cloud = torch.zeros((n, 3), device=dev)
+    cloud[:a["pg"].shape[0]] = a["pg"]
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {"push": (a["vm"], a["img"], (a["vm"].img_fid.max() + 1).to(torch.int32)),
+            "dedup": (a["pg"], a["pg_mask"], a["pg"].shape[0] // 2),
+            "keys": {"lio scan": (torch.as_tensor(scan, device=dev),
+                                  torch.as_tensor(valid, device=dev),
+                                  torch.tensor(0.5, **f32), 1),
+                     "camera cloud": (cloud, torch.arange(n, device=dev) < 8192,
+                                      torch.tensor(np.float32(1) / np.float32(0.2), **f32),
+                                      0)}}
+
+
+def stage_plain(si):
+    """The plain versions' outputs of the stage inputs."""
+    import chip_smoke
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    vm, img, fid = si["push"]
+    m = tvm.push_image_plain(chip_smoke.clone_map(vm), img, fid)
+    out = {"vio_push": [m.img_fid, m.imgs],
+           "vio_dedup": list(vio._dedup_voxels_plain(*si["dedup"]))}
+    for src, (pts, valid, scale, divide) in si["keys"].items():
+        out[f"voxel_keys {src}"] = [vf.voxel_keys_plain(
+            pts, valid, scale if divide else None, None if divide else scale)]
+    return out
+
+
+def stage_calls(lib, name, si):
+    """{label: (launch, outputs)} of the variant's stage kernel `name` on
+    the stage inputs (through its C entry, on the current stream)."""
+    import torch
+
+    import chip_smoke
+    from fastlivo_tpu_torch.ops.photometric import _ticket
+
+    i32 = dict(dtype=torch.int32)
+    grid = ctypes.c_int(0)
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    calls = {}
+
+    def run(*args):
+        def launch():
+            err = fn(*args, ctypes.byref(grid), stream)
+            if err:
+                raise RuntimeError(f"{name}: cudaError {err}")
+        return launch
+
+    if name == "vio_push":
+        vm, img, fid = si["push"]
+        m = chip_smoke.clone_map(vm)
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        size = lib.vio_push_scratch_ints
+        size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+        R = m.img_fid.shape[0]
+        ws = _ticket(img.device, stream, size(R))
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        NP, KO = m.obs_fid.shape
+        _, H, W = m.imgs.shape
+        calls["vio_push"] = (run(*(t.data_ptr() for t in (
+            m.obs_slot, m.obs_fid, m.n_pts, m.img_fid, m.imgs, img, fid, ws)), NP, KO, R, H, W,
+            int(m.imgs.dtype == torch.uint8)), [m.img_fid, m.imgs])
+    elif name == "vio_dedup":
+        pg, mask, max_vox = si["dedup"]
+        dev = pg.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        size = lib.vio_dedup_scratch_ints
+        size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+        k = size(pg.shape[0])
+        ws = _ticket(dev, stream, k).data_ptr() if k else None
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        vox = torch.empty((max_vox, 3), device=dev, **i32)
+        vmask = torch.empty(max_vox, dtype=torch.bool, device=dev)
+        calls["vio_dedup"] = (run(pg.data_ptr(), mask.data_ptr(), vox.data_ptr(),
+                                  vmask.data_ptr(), ws, pg.shape[0], max_vox), [vox, vmask])
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [
+            ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        for src, (pts, valid, scale, divide) in si["keys"].items():
+            stream = torch.cuda.current_stream(pts.device).cuda_stream
+            out = torch.empty(pts.shape[0], dtype=torch.int64, device=pts.device)
+            calls[f"voxel_keys {src}"] = (run(pts.data_ptr(), valid.data_ptr(),
+                                              scale.data_ptr(), divide, out.data_ptr(),
+                                              pts.shape[0], pts.shape[1]), [out])
+    return calls
+
+
 def bits_equal(outs, want) -> bool:
     import chip_smoke
 
@@ -320,7 +444,7 @@ def bits_equal(outs, want) -> bool:
         chip_smoke.bits_diff(x, y) == 0.0 for x, y in zip(outs, want))
 
 
-def stamped(lib, name, launch, reps):
+def stamped(lib, name, launch, reps, phases=None):
     """The stamped launch `reps` times alone: the median of each phase."""
     import numpy as np
     import torch
@@ -333,7 +457,7 @@ def stamped(lib, name, launch, reps):
     read.restype = ctypes.c_int
     buf = (ctypes.c_ulonglong * 16)()
     read(buf, 16)  # reset
-    phases = PHASES[(name, generation(lib))]
+    phases = phases or PHASES[(name, generation(lib))]
     rows = []
     for _ in range(reps + 1):
         launch()
@@ -381,7 +505,22 @@ def main():
              "T": a["vm"].vox_keys.shape[0], "map_points": int(a["vm"].n_pts),
              "full_rings": int((a["vm"].n_obs >= a["vm"].obs_fid.shape[1]).sum()),
              "tracked": int(plain_sel[0].valid.sum()), "added": int(plain_sel[1][3].sum())}
+    si = stage_inputs(a, args.seed)
+    want.update(stage_plain(si))
     calls, equal, grids, res = {}, {}, {}, {}
+    stage_labels = ["vio_push", "vio_dedup", "voxel_keys lio scan", "voxel_keys camera cloud"]
+    for v in variants:
+        tree = os.path.join(ROOT, v)
+        for name in STAGE_KERNELS:
+            if not os.path.exists(os.path.join(tree, "fastlivo_tpu_torch", "csrc",
+                                               f"{name}.cu")):
+                continue  # an older checkout: the stage ran as torch ops
+            for label, (launch, outs) in stage_calls(build(tree, name, False), name,
+                                                     si).items():
+                launch()
+                torch.cuda.synchronize()
+                equal[(label, v)] = bits_equal(outs, want[label])
+                calls[(label, v)] = launch
     for v in variants:
         tree = os.path.join(ROOT, v)
         libs = {name: build(tree, name, False) for name in KERNELS}
@@ -398,18 +537,21 @@ def main():
         equal[("vio_observations", v)] = bits_equal(outs, want["vio_observations"])
         calls[("vio_observations", v)] = launch  # writes its copy again
         grids[("vio_observations", v)] = grid.value
-    for name in KERNELS:
+    for name in list(KERNELS) + stage_labels:
         times = {v: [] for v in variants}
         host = {v: [] for v in variants}
         empty = []
         for v in variants + variants[::-1]:
             empty.append(chip_smoke.time_ms(lambda: torch.cuda._sleep(0), args.reps))
+            if (name, v) not in calls:
+                times[v], host[v] = None, None
+                continue
             times[v].append(chip_smoke.time_ms(calls[(name, v)], args.reps))
             host[v].append(chip_smoke.host_ms(calls[(name, v)], args.reps))
             torch.cuda.synchronize()
         res[name] = {"ms": times, "launch_host_ms": host, "empty_kernel_ms": empty,
-                     "bit_equal_to_plain": {v: equal[(name, v)] for v in variants},
-                     "grid": {v: grids[(name, v)] for v in variants}}
+                     "bit_equal_to_plain": {v: equal.get((name, v)) for v in variants},
+                     "grid": {v: grids.get((name, v)) for v in variants}}
     stamps = {}
     for v in args.stamps:
         tree = os.path.join(ROOT, v)
@@ -421,6 +563,14 @@ def main():
         launch, outs, _ = observations_call(libs["vio_observations"], m, oa)
         s["vio_observations"] = stamped(libs["vio_observations"], "vio_observations", launch,
                                         args.reps)
+        for name in STAGE_KERNELS:
+            if not os.path.exists(os.path.join(tree, "fastlivo_tpu_torch", "csrc",
+                                               f"{name}.cu")):
+                continue
+            lib = build(tree, name, True)
+            for label, (launch, outs) in stage_calls(lib, name, si).items():
+                s[label] = stamped(lib, name, launch, args.reps, STAGE_PHASES[name])
+                ok = ok and bits_equal(outs, want[label])
         s["bit_equal_to_plain"] = ok
         stamps[v] = s
     line = json.dumps({"variants": variants, "shape": shape, "runs": res, "stamps": stamps,

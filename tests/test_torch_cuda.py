@@ -2172,7 +2172,9 @@ def launch_guarded(launch, inputs, outputs, shift=0):
                                     "flat_delete_boxes_shifted", "dense_insert_400000",
                                     "lio_cascade_r3_hash", "lio_cascade_r3_dense",
                                     "lio_cascade_r3_gather_tiled_tls",
-                                    "lio_cascade_r3_gather_hash_ref"])
+                                    "lio_cascade_r3_gather_hash_ref", "voxel_keys",
+                                    "vio_dedup", "vio_dedup_scratch", "vio_push",
+                                    "vio_push_f32"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -2219,12 +2221,20 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     dense insert (the per-cell minimum back at 0; also on 400000 rows,
     more than its co-resident grid has threads) and the box delete of both
     with 300 boxes (its count words back at 0; also on arrays 8 bytes
-    past 16-byte alignment: the scan's scalar head and tail)."""
+    past 16-byte alignment: the scan's scalar head and tail). The camera
+    frame's stage kernels: voxel_keys at 16379 rows of 4 columns with
+    NaN, inf and -0.0 rows; vio_dedup at 8191 rows and at 20000 (its
+    arrays in the global scratch, an output here, back at 0); vio_push
+    on a full u8 and a full f32 pool (img_fid and imgs its outputs,
+    every byte equal to the plain version's after the launch; the
+    scratch counts, word and block count back at 0)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade as lc
 
+    if kernel in ("voxel_keys", "vio_dedup", "vio_dedup_scratch", "vio_push", "vio_push_f32"):
+        return camera_stage_write_only(cuda, kernel)
     if kernel.startswith("vio_"):
         return vio_write_only(cuda, kernel)
     if kernel.startswith("photometric") or kernel.startswith("patches"):
@@ -2887,14 +2897,17 @@ def test_vio_kernels_match_plain_on_a_map_grown_by_livo(cuda, monkeypatch, u8):
 
 def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatch):
     """On one card vio_frame_step launches vio_select, photometric_cascade
-    and vio_observations once each, and makes no synchronising call
+    and vio_observations once each (and vio_push, vio_dedup and the
+    cloud's voxel_keys once each), and makes no synchronising call
     (torch's sync debug mode set to raise) between its call and its
     return; its n_tracked, n_added and iterations equal the plain
     route's (vio.frame_kernels_apply patched to False) on a copy of the
     map."""
     from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import vio_dedup, vio_push
     from fastlivo_tpu_torch.ops import vio_observations as vo
     from fastlivo_tpu_torch.ops import vio_select as vs
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     calls, v, ds = livo_calls(cuda, monkeypatch, frames=4)
     snap, a, kw, _ = calls[-1]["select"]
@@ -2917,8 +2930,10 @@ def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatc
 
     step(clone_map(snap))  # warm
     torch.cuda.synchronize()
-    n = [vs.vio_select.launches, vo.vio_observations.launches,
-         photometric.photometric_cascade.launches]
+    stages = lambda: [vio_push.vio_push.launches, vio_dedup.vio_dedup.launches,  # noqa: E731
+                      vf.voxel_keys.launches]
+    n, s0 = [vs.vio_select.launches, vo.vio_observations.launches,
+             photometric.photometric_cascade.launches], stages()
     torch.cuda.set_sync_debug_mode("error")
     try:
         fused = step(clone_map(snap))
@@ -2926,6 +2941,7 @@ def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatc
         torch.cuda.set_sync_debug_mode("default")
     assert [vs.vio_select.launches, vo.vio_observations.launches,
             photometric.photometric_cascade.launches] == [n[0] + 1, n[1] + 1, n[2] + 1]
+    assert stages() == [k + 1 for k in s0]  # the push, the dedup, the key pass
     monkeypatch.setattr(vio, "frame_kernels_apply", lambda *a, **kw: False)
     plain = step(clone_map(snap))
     assert [vs.vio_select.launches, vo.vio_observations.launches] == [n[0] + 1, n[1] + 1]
@@ -3310,7 +3326,8 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
     counts = lambda: (vf.voxel_centroids.launches, lio_cascade.lio_cascade.launches,  # noqa
                       knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches,
                       tm.insert_keys.launches, tm.insert_tiles.launches,
-                      imu_mod.undistort.launches, *flat_launches().values())
+                      imu_mod.undistort.launches, *flat_launches().values(),
+                      vf.voxel_keys.launches)
     n0 = counts()
     m = clone_map(a[1])
     torch.cuda.synchronize()
@@ -3324,7 +3341,7 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
                "dense": (0, 0, 0, 0, 1)}[options.get("backend", "tiled")]
     assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + inserts[0],
                         n0[5] + inserts[1], n0[6] + 1, n0[7] + inserts[2],
-                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10])
+                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10], n0[11] + 1)
     assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
     for g, w in zip(got[2:], want[2:]):
         assert bit_equal(g, w)
@@ -4382,5 +4399,256 @@ def flat_write_only(dev, kernel):
             shift=2 * int(kernel.endswith("shifted")))
         assert not got[2].any()
         got = got[:2]
+    for g, w in zip(got, want):
+        assert bit_equal(g, w)
+
+
+# --- the camera frame's stage kernels (voxel_keys, vio_dedup, vio_push) -----
+
+def stage_cases():
+    import torch_camera_stage_cases
+
+    return torch_camera_stage_cases
+
+
+def keys_inputs(dev, case):
+    """voxel_keys' arguments of tests/torch_camera_stage_cases.py's case on
+    `dev`: (pts, valid, leaf or None, inv_leaf or None)."""
+    p, valid, leaf, inv = stage_cases().keys_case(case)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.from_numpy(p).to(dev), torch.from_numpy(valid).to(dev),
+            None if leaf is None else torch.tensor(leaf, **f32),
+            None if inv is None else torch.tensor(inv, **f32))
+
+
+@pytest.mark.parametrize("case", ["lio", "camera", "edges", "wrap", "all_invalid", "n1"])
+def test_voxel_keys_match_plain(cuda, case):
+    """voxel_keys on the card: one launch, bit-equal to voxel_keys_plain on
+    the card and on the CPU (the LIO scan's 0.5 m leaf divided, the camera
+    cloud's reciprocal multiplied, NaN and inf rows, -0.0, negative
+    coordinates, voxels past +-2^19 wrapping, no valid row, one row); the
+    whole filter (key pass, sort, centroid) bit-equal to the CPU's; no
+    rows launch nothing; a leaf that is a float or on the CPU raises."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    pts, valid, leaf, inv = keys_inputs(cuda, case)
+    n0 = vf.voxel_keys.launches
+    got = vf.voxel_keys(pts, valid, leaf, inv)
+    torch.cuda.synchronize()
+    assert vf.voxel_keys.launches == n0 + 1
+    assert torch.equal(got, vf.voxel_keys_plain(pts, valid, leaf, inv))
+    cpu = [None if t is None else t.cpu() for t in (pts, valid, leaf, inv)]
+    assert torch.equal(got.cpu(), vf.voxel_keys_plain(*cpu))
+    full = vf.voxel_downsample_device(pts.contiguous()[:, :3].contiguous(), valid, leaf, 8192,
+                                      inv_leaf=inv)
+    want = vf.voxel_downsample_device(cpu[0][:, :3].contiguous(), cpu[1], cpu[2], 8192,
+                                      inv_leaf=cpu[3])
+    assert all(bit_equal(g.cpu(), w) for g, w in zip(full, want))
+    assert vf.voxel_keys(pts[:0], valid[:0], leaf, inv).shape == (0,)
+    assert vf.voxel_keys.launches == n0 + 2  # the filter's; none for no rows
+    if case == "lio":
+        with pytest.raises(TypeError):
+            vf.voxel_keys(pts, valid, 0.5, None)
+        with pytest.raises(ValueError):
+            vf.voxel_keys(pts, valid, leaf.cpu(), None)
+
+
+@pytest.mark.parametrize("case", ["cloud", "small", "chain", "duplicates", "overflow",
+                                  "all_masked", "odd", "scratch"])
+def test_vio_dedup_matches_plain(cuda, case):
+    """vio_dedup on the card: one launch, vox and vmask bit-equal to
+    vio._dedup_voxels_plain on the card and on the CPU, and equal on a
+    second launch: the camera cloud at the shipped 8192 rows into 4096
+    and the small LIVO run's 4096 into 2048, slot chains longer than four
+    probes, duplicates, overflow, nothing masked in, 5000 rows, and 20000
+    rows (the arrays in the stream's scratch, which the launch leaves at
+    0)."""
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch.ops import vio_dedup
+
+    p, mask, max_vox = stage_cases().dedup_case(case)
+    pg, mk = torch.from_numpy(p).to(cuda), torch.from_numpy(mask).to(cuda)
+    n0, s0 = vio_dedup.vio_dedup.launches, vio_dedup.vio_dedup.scratch
+    got = [vio_dedup.vio_dedup(pg, mk, max_vox) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert vio_dedup.vio_dedup.launches == n0 + 2
+    assert vio_dedup.vio_dedup.scratch == s0 + 2 * (case == "scratch")
+    assert scratch_is_zero(cuda)
+    want = vio._dedup_voxels_plain(pg, mk, max_vox)
+    cpu = vio._dedup_voxels_plain(pg.cpu(), mk.cpu(), max_vox)
+    for g in got:
+        assert all(torch.equal(a, b) for a, b in zip(g, want))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g, cpu))
+    assert torch.equal(vio._dedup_voxels(pg, mk, max_vox)[0], want[0])
+    if case != "all_masked":
+        assert int(want[1].sum()) > 100
+
+
+def stage_pool(dev, sizes):
+    from fastlivo_tpu_torch import visual_map as tvm
+
+    return tvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
+                                voxel_cap=4, ring=sizes["R"], height=sizes["H"],
+                                width=sizes["W"],
+                                img_dtype=torch.uint8 if sizes["u8"] else None, device=dev)
+
+
+@pytest.mark.parametrize("case,small", [("evict", True), ("repush", True), ("f32", True),
+                                        ("dead", True), ("evict", False), ("f32", False)],
+                         ids=["evict", "repush", "f32", "dead_ring16", "shipped_u8",
+                              "shipped_f32"])
+def test_vio_push_matches_plain(cuda, case, small):
+    """vio_push on the card, one launch a push, against push_image_plain on
+    a copy of the pool: imgs and img_fid bit-equal after every push of a
+    sequence that fills the pool and evicts (the least referenced, oldest
+    first), re-pushes a live fid, and leaves dead ring entries (stale
+    fids, empties, slots past the pool, rows past n_pts); u8 pools (pixels
+    at .5, below 0, above 255) and f32; 8 and 16 slots of 24 x 32, and the
+    shipped 256 slots of 640 x 512 over 65536 x 20 rings; the fid a device
+    int32 or a Python int; the stream's scratch left at 0."""
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import vio_push
+
+    sc = stage_cases()
+    sizes, steps = sc.push_steps(case, small=small)
+    mk = stage_pool(cuda, sizes)
+    mp = clone_map(mk)
+    n0, evicted = vio_push.vio_push.launches, 0
+    for k, (seed, fid, upd) in enumerate(steps):
+        img = torch.from_numpy(sc.push_image_of(sizes["H"], sizes["W"], seed)).to(cuda)
+        before = mk.img_fid.clone()
+        f = torch.tensor(fid, dtype=torch.int32, device=cuda) if k % 2 else int(fid)
+        (tvm.push_image if k % 3 else vio_push.vio_push)(mk, img, f)
+        tvm.push_image_plain(mp, img, int(fid))
+        assert torch.equal(mk.img_fid, mp.img_fid), k
+        assert torch.equal(mk.imgs, mp.imgs), k
+        evicted += int(((before >= 0) & (before != mk.img_fid)).sum())
+        sc.apply_ring_update(mk, fid, upd)
+        sc.apply_ring_update(mp, fid, upd)
+    assert vio_push.vio_push.launches == n0 + len(steps)
+    assert evicted > 0 and scratch_is_zero(cuda)
+
+
+@pytest.mark.parametrize("R", [12288, 12289, 20000])
+def test_vio_push_past_shared_memory(cuda, R):
+    """Pools of 12288 slots (the kernel's shared-memory counts and ids, its
+    last size) and 12289 and 20000 (counted in the stream's scratch, the
+    ids read in place), every slot holding a frame: the evicted slot (the
+    least referenced live one, or a dead one, or the re-pushed fid's)
+    equal to push_image_plain's, three pushes a pool."""
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import vio_push
+
+    rng = np.random.default_rng(R)
+    sizes = dict(R=R, NP=8192, KO=4, H=8, W=12, u8=True)
+    mk = stage_pool(cuda, sizes)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    mk.img_fid.copy_(torch.as_tensor(rng.permutation(4 * R)[:R], **i32))
+    slot = rng.integers(0, R, (8192, 4))
+    slot.ravel()[:R] = np.arange(R)  # every slot referenced
+    fidv = mk.img_fid.cpu().numpy()[slot]
+    fidv[rng.random(slot.shape) < 0.1] = -1
+    mk.obs_slot.copy_(torch.as_tensor(slot, **i32))
+    mk.obs_fid.copy_(torch.as_tensor(fidv, **i32))
+    mk.n_pts.fill_(8192)
+    mp = clone_map(mk)
+    for k, fid in enumerate([4 * R + 1, int(mk.img_fid[7]), 4 * R + 2]):
+        img = torch.from_numpy(stage_cases().push_image_of(8, 12, k)).to(cuda)
+        vio_push.vio_push(mk, img, fid)
+        tvm.push_image_plain(mp, img, fid)
+        assert torch.equal(mk.img_fid, mp.img_fid) and torch.equal(mk.imgs, mp.imgs), k
+        if k == 0:
+            mk.n_pts.fill_(4000)  # rows past it go dead
+            mp.n_pts.fill_(4000)
+    assert scratch_is_zero(cuda)
+
+
+def test_camera_stage_kernels_refuse_bad_inputs(cuda):
+    """The wrappers raise on inputs their kernels do not take, before any
+    launch: a push image of another size or type, a pool in slabs, a
+    (M, 4) cloud for the dedup, a mask of another length."""
+    from fastlivo_tpu_torch.ops import vio_dedup, vio_push
+
+    sizes = dict(R=4, NP=64, KO=2, H=8, W=12, u8=True)
+    m = stage_pool(cuda, sizes)
+    n0 = vio_push.vio_push.launches, vio_dedup.vio_dedup.launches
+    with pytest.raises(ValueError):
+        vio_push.vio_push(m, torch.zeros((8, 13), device=cuda), 0)
+    with pytest.raises(TypeError):
+        vio_push.vio_push(m, torch.zeros((8, 12), dtype=torch.float64, device=cuda), 0)
+    with pytest.raises(ValueError):
+        vio_push.vio_push(m._replace(imgs=m.imgs[:2]), torch.zeros((8, 12), device=cuda), 0)
+    with pytest.raises(ValueError):
+        vio_dedup.vio_dedup(torch.zeros((16, 4), device=cuda),
+                            torch.ones(16, dtype=torch.bool, device=cuda), 8)
+    with pytest.raises(ValueError):
+        vio_dedup.vio_dedup(torch.zeros((16, 3), device=cuda),
+                            torch.ones(15, dtype=torch.bool, device=cuda), 8)
+    assert (vio_push.vio_push.launches, vio_dedup.vio_dedup.launches) == n0
+
+
+def camera_stage_write_only(dev, kernel):
+    """test_kernels_write_only_their_outputs' camera-stage cases."""
+    import ctypes
+
+    from fastlivo_tpu_torch import vio
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import vio_dedup, vio_push
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    sc = stage_cases()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
+    grid = ctypes.c_int(0)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if kernel == "voxel_keys":
+        pts, valid, leaf, _ = keys_inputs(dev, "edges")
+        n = 16379
+        pts, valid = pts[:n].contiguous(), valid[:n].contiguous()
+        got = launch_guarded(lambda p, v, s, o: vf._keys_library()(
+            *ptr(p, v, s), 1, o.data_ptr(), n, 4, ctypes.byref(grid), stream),
+            [pts, valid, leaf], [torch.empty(n, dtype=torch.int64, device=dev)])
+        want = [vf.voxel_keys_plain(pts, valid, leaf, None)]
+    elif kernel.startswith("vio_dedup"):
+        p, mask, max_vox = sc.dedup_case("scratch" if kernel.endswith("scratch") else "cloud")
+        if not kernel.endswith("scratch"):
+            p, mask = p[:8191], mask[:8191]
+        M = len(p)
+        pg = torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+        mk = torch.from_numpy(np.ascontiguousarray(mask)).to(dev)
+        launch, size = vio_dedup._library()
+        k = size(M)
+        assert (k > 0) == kernel.endswith("scratch")
+        outs = [torch.empty((max_vox, 3), **i32), torch.empty(max_vox, dtype=torch.bool,
+                                                               device=dev)]
+        if k:
+            outs.append(torch.zeros(k, **i32))
+        got = launch_guarded(lambda a, b, v, vm, *ws: launch(
+            *ptr(a, b, v, vm), ws[0].data_ptr() if ws else None, M, max_vox,
+            ctypes.byref(grid), stream), [pg, mk], outs)
+        if k:
+            assert not got.pop().any()  # the scratch back at 0
+        want = list(vio._dedup_voxels_plain(pg, mk, max_vox))
+    else:
+        sizes, steps = sc.push_steps("f32" if kernel.endswith("f32") else "dead")
+        m = stage_pool(dev, sizes)
+        for seed, fid, upd in steps[:-1]:  # the pool full
+            img = torch.from_numpy(sc.push_image_of(sizes["H"], sizes["W"], seed)).to(dev)
+            tvm.push_image_plain(m, img, int(fid))
+            sc.apply_ring_update(m, fid, upd)
+        seed, fid, _ = steps[-1]
+        img = torch.from_numpy(sc.push_image_of(sizes["H"], sizes["W"], seed)).to(dev)
+        fid_t = torch.tensor(fid, **i32)
+        want_m = tvm.push_image_plain(clone_map(m), img, int(fid))
+        want = [want_m.img_fid, want_m.imgs]
+        launch, size = vio_push._library()
+        NP, KO = m.obs_fid.shape
+        R, H, W = m.imgs.shape
+        got = launch_guarded(lambda os_, of, npt, im, f, ifd, imgs, ws: launch(
+            *ptr(os_, of, npt, ifd, imgs, im, f, ws), NP, KO, R, H, W,
+            int(sizes["u8"]), ctypes.byref(grid), stream),
+            [m.obs_slot, m.obs_fid, m.n_pts, img, fid_t],
+            [m.img_fid.clone(), m.imgs.clone(), torch.zeros(size(R), **i32)])
+        assert not got.pop().any()  # counts, word and block count back at 0
     for g, w in zip(got, want):
         assert bit_equal(g, w)

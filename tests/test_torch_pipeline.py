@@ -385,6 +385,7 @@ def test_import_pulls_in_no_jax():
             "fastlivo_tpu_torch.preprocess, fastlivo_tpu_torch.features, "
             "fastlivo_tpu_torch.io.checkpoint, fastlivo_tpu_torch.io.rosbag, "
             "fastlivo_tpu_torch.io.lz4, fastlivo_tpu_torch.ops.dense_map, "
+            "fastlivo_tpu_torch.ops.vio_dedup, fastlivo_tpu_torch.ops.vio_push, "
             "fastlivo_tpu_torch.viz, fastlivo_tpu_torch.native, "
             "fastlivo_tpu_torch.io.golden, fastlivo_tpu_torch.parallel.sharded, "
             "fastlivo_tpu_torch.parallel.launch, fastlivo_tpu_torch.parallel.sharded_map, "
@@ -410,10 +411,13 @@ def test_sources_name_no_jax():
             "ops/voxel_map.py", "parallel/sharded.py", "parallel/launch.py",
             "parallel/sharded_map.py", "parallel/sharded_backend.py",
             "parallel/product.py", "csrc/photometric_cascade.cu",
+            "ops/vio_dedup.py", "ops/vio_push.py", "csrc/voxel_keys.cu",
+            "csrc/vio_dedup.cu", "csrc/vio_push.cu",
             "csrc/photometric_measure.cuh", "csrc/so3.cuh"} <= names
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py",
               ROOT / "tests" / "torch_imu_cases.py", ROOT / "tests" / "torch_frame_cases.py",
-              ROOT / "tests" / "torch_hash_cases.py"]
+              ROOT / "tests" / "torch_hash_cases.py",
+              ROOT / "tests" / "torch_camera_stage_cases.py"]
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -426,7 +430,9 @@ def test_every_kernel_source_is_built_and_smoked():
     radius 1, radius 2, any other radius), the camera frame's selection
     and map upkeep, the tiled map's box delete and insert, the voxel
     filter's segmented centroid, the scan's undistortion, the hash map's
-    insert, the dense grid's and the box delete of both."""
+    insert, the dense grid's and the box delete of both, the voxel
+    filter's key pass, the camera frame's voxel dedup and image-pool
+    push."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build
@@ -441,7 +447,8 @@ def test_every_kernel_source_is_built_and_smoked():
                   "lio_cascade", "lio_cascade_125", "lio_cascade_any",
                   "patches_and_grads", "photometric_cascade",
                   "photometric_err_H", "tiled_delete_boxes", "tiled_insert", "undistort",
-                  "vio_observations", "vio_select", "voxel_centroids"]
+                  "vio_dedup", "vio_observations", "vio_push", "vio_select",
+                  "voxel_centroids", "voxel_keys"]
 
 
 def test_kernel_launches_are_profiler_ops():
