@@ -51,9 +51,13 @@ the host-loop kernels' generic route, and the plain search) and timed
 beside its bound. The tiled map's box delete (`tiled_delete_boxes`) and the voxel
 filter's segmented centroid (`voxel_centroids`) launch once per tracker
 update and once per filtered scan or camera cloud on every single-card
-path; both are held against their plain versions on the LIO path's final
-map and on its last scan and the LIVO path's last camera cloud (the
-centroid bit for bit against the plain version run on the CPU), with
+path, and so does the filter's keys and stable sort (`voxel_sort`: every
+call of the LIO and LIVO per-frame paths replayed against torch's sort of
+the plain keys, and timed beside that route, with no library sort kernel
+under either filter's range in the profiles); both are held against
+their plain versions on the LIO path's final map and on its last scan
+and the LIVO path's last camera cloud (the centroid bit for bit against
+the plain version run on the CPU), with
 overflow, NaN and -0.0 rows, and timed beside their bounds and, for the
 centroid, torch.segment_reduce. The tiled-map paths
 run the fused kernels: each scan's LIO iterated EKF in one launch
@@ -143,6 +147,9 @@ CUDA_SOURCES = ["knn5_plane_tiled", "knn5_plane_hashed", "knn5_plane", "photomet
                 "vio_select", "vio_observations", "tiled_delete_boxes", "voxel_centroids",
                 "tiled_insert", "undistort", "hash_insert", "dense_insert", "flat_delete_boxes",
                 "lio_cascade_125", "lio_cascade_any", "voxel_keys", "vio_dedup", "vio_push"]
+# the hand-written kernels' names are <stem>_kernel...: a source's own name,
+# or another kernel of it
+KERNEL_STEMS = (*CUDA_SOURCES, "voxel_sort")
 # camera of the LIVO paths: z forward = body +x, x right = body -y,
 # y down = body -z (looks at the synthetic room's walls)
 RCL = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
@@ -567,7 +574,7 @@ def unfused():
     upkeep as their torch code (no vio_select, no vio_observations), the
     box delete, the voxel filter's key pass and centroid, the map insert,
     the undistortion, the camera cloud's voxel dedup and the image-pool
-    push as their torch code (no tiled_delete_boxes, no voxel_keys, no
+    push as their torch code (no tiled_delete_boxes, no voxel_sort, no
     voxel_centroids, no tiled_insert_*, no undistort, no vio_dedup, no
     vio_push)."""
     from fastlivo_tpu_torch import imu as imu_mod
@@ -994,8 +1001,8 @@ def cloned(v):
 def recorded_all(module, name, calls: list):
     """Append every call of module.<name> as (arguments, outputs), each
     tensor copied on the card: no host read. Never a counted kernel
-    wrapper (each counts through its own module-level name): the key
-    pass is recorded through `_sorted_keys`, the dedup through
+    wrapper (each counts through its own module-level name): the keys
+    and their sort are recorded through `_sorted_keys`, the dedup through
     `vio._dedup_voxels`."""
     real = getattr(module, name)
 
@@ -1047,12 +1054,13 @@ def push_map(rec, pool):
 
 
 def check_stage_calls(keys, dedups, pushes, label) -> dict:
-    """The path's recorded key passes, dedups and pushes after its run
+    """The path's recorded voxel sorts, dedups and pushes after its run
     (these launches are not the path's; the counts are restored): each
-    key pass replayed by voxel_keys and by voxel_keys_plain on its
-    inputs, bit-equal, their stable sort the path's sorted keys and
-    order; each dedup replayed by vio_dedup and vio._dedup_voxels_plain,
-    bit-equal to each other and to the path's outputs; each push replayed
+    sort replayed by voxel_sort and by _sorted_keys_plain on its inputs,
+    keys and order bit-equal to each other and to the path's, and its key
+    pass by voxel_keys, bit-equal to voxel_keys_plain; each dedup replayed
+    by vio_dedup and vio._dedup_voxels_plain, bit-equal to each other and
+    to the path's outputs; each push replayed
     by vio_push and visual_map.push_image_plain on copies of one pool (as
     the push found the rings and ids), img_fid and imgs bit-equal, the
     pool ids the path's. Returns numbers."""
@@ -1064,11 +1072,11 @@ def check_stage_calls(keys, dedups, pushes, label) -> dict:
     counts = read_counts()
     bad = []
     for k, (a, kw, out) in enumerate(keys):
-        got = vf.voxel_keys(*a, **kw)
-        want = vf.voxel_keys_plain(*a, **kw)
-        srt = torch.sort(want, stable=True)
-        if not (torch.equal(got, want) and torch.equal(srt[0], out[0])
-                and torch.equal(srt[1], out[1])):
+        got = vf.voxel_sort(*a, **kw)
+        want = vf._sorted_keys_plain(*a, **kw)
+        if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(got, want, out)):
+            bad.append(f"sort {k}")
+        if not torch.equal(vf.voxel_keys(*a, **kw), vf.voxel_keys_plain(*a, **kw)):
             bad.append(f"key pass {k}")
     for k, (a, kw, out) in enumerate(dedups):
         got = vio_dedup.vio_dedup(*a, **kw)
@@ -1092,10 +1100,11 @@ def check_stage_calls(keys, dedups, pushes, label) -> dict:
         fn.launches = counts[fn.__name__]
     if bad:
         raise AssertionError(f"{label}: not bit-equal to the plain versions: {bad}")
-    nums = {"key_passes_checked": len(keys), "dedups_checked": len(dedups),
+    nums = {"sorts_checked": len(keys), "dedups_checked": len(dedups),
             "pushes_checked": len(pushes), "bit_equal_to_plain": True, "max_abs_err": 0.0}
-    print(f"{label}: {len(keys)} key passes, {len(dedups)} voxel dedups and {len(pushes)} "
-          f"image-pool pushes replayed by their kernels and plain versions, bit-equal")
+    print(f"{label}: {len(keys)} voxel sorts (and their key passes), {len(dedups)} voxel "
+          f"dedups and {len(pushes)} image-pool pushes replayed by their kernels and plain "
+          f"versions, bit-equal to each other and to the path's")
     return nums
 
 
@@ -1130,7 +1139,7 @@ def counted_wrappers():
             voxel_filter.voxel_centroids, tiled_map.insert_keys, tiled_map.insert_tiles,
             imu.undistort, voxel_map.hash_insert_keys, voxel_map.hash_insert_probe,
             dense_map.dense_insert, voxel_map.flat_delete_boxes, voxel_filter.voxel_keys,
-            vio_dedup.vio_dedup, vio_push.vio_push)
+            vio_dedup.vio_dedup, vio_push.vio_push, voxel_filter.voxel_sort)
 
 
 def reset_counts():
@@ -1650,6 +1659,8 @@ def vio_kernels_phase(rec, label="the LIVO path's last camera frame"):
 
 KEY_ROW_OPS = 30  # a row: 3 finite tests, 3 divisions (products), floors, casts, 3 offsets,
 # masks and shifts, 2 ors, the valid select
+SORT_PASS_OPS = 20  # a row and pass: its rank (fields, 2 products, adds), digit, offsets,
+# position, the next digit and its count
 DEDUP_ROW_OPS = 40  # a row: 3 divisions, floors, casts, the hash (3 products, 2 xors, mask);
 # 4 rounds of slot, atomic and winner compare; the keep test and its scan
 PUSH_ENTRY_OPS = 6  # a ring entry: clamp (2), the fid test, its slot's id compared, the count
@@ -1657,20 +1668,24 @@ PUSH_PAIR_OPS = 4  # a pair of pool slots: two compares, an and, an or (the age 
 
 
 def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame"):
-    """voxel_keys, vio_dedup and vio_push timed at the main path's shapes on
-    the paths' recorded calls (lio_keys: the LIO path's last key pass;
-    rec: livo_path_phase's last key pass, dedup and push), each against
-    its plain version and its bound: the kernels by time_ms (median of 30
-    queued calls between CUDA events), the plain versions by event_ms
-    (the dedup's and the push's plain versions read the host), each
-    wrapper's host wall a call, and for the push the library call
+    """voxel_sort, voxel_keys, vio_dedup and vio_push timed at the main
+    path's shapes on the paths' recorded calls (lio_keys: the LIO path's
+    last sort; rec: livo_path_phase's last sort, dedup and push), each
+    against its plain version and its bound: the kernels by time_ms
+    (median of 30 queued calls between CUDA events), the plain versions
+    by event_ms (the dedup's and the push's plain versions read the
+    host), each wrapper's host wall a call; the sort also against the
+    route it replaced (the voxel_keys launch and torch.sort(stable=True),
+    by time_ms and host wall) and torch.sort alone on its keys, with its
+    compact rank's bits and pass count; for the push the library call
     torch.bincount(minlength=R + 1) on the refcount's targets. Also held
-    bit for bit: the key pass with NaN, inf, -0.0 and wrapping rows on
-    the card against its plain version on the card and the CPU, the
-    dedup on the camera cloud tiled three times (24576 rows: its arrays
-    in the stream's scratch), the push on an f32 pool. These launches are
-    not the paths' (the counts are restored). Returns {"voxel_keys":
-    {...}, "vio_dedup": {...}, "vio_push": {...}}."""
+    bit for bit: the sort and the key pass with NaN, inf, -0.0 and
+    wrapping rows on the card against their plain versions on the card and
+    the CPU, the dedup on the camera cloud tiled three times (24576 rows:
+    its arrays in the stream's scratch), the push on an f32 pool. These
+    launches are not the paths' (the counts are restored). Returns
+    {"voxel_sort": {...}, "voxel_keys": {...}, "vio_dedup": {...},
+    "vio_push": {...}}."""
     from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch import visual_map as vmap_mod
     from fastlivo_tpu_torch.ops import vio_dedup, vio_push
@@ -1689,14 +1704,38 @@ def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame")
         bad[64:72, 0] = 3e12
         bvalid[:72] = True
         for p, v in ((pts, valid), (bad, bvalid)):
+            cpu_args = (p.cpu(), v.cpu(), *[None if t is None else t.cpu() for t in a[2:]])
+            cpu_kw = {k: None if t is None else t.cpu() for k, t in kw.items()}
             got = vf.voxel_keys(p, v, *a[2:], **kw)
             want = vf.voxel_keys_plain(p, v, *a[2:], **kw)
-            cpu = vf.voxel_keys_plain(p.cpu(), v.cpu(), *[
-                None if t is None else t.cpu() for t in a[2:]],
-                **{k: None if t is None else t.cpu() for k, t in kw.items()})
+            cpu = vf.voxel_keys_plain(*cpu_args, **cpu_kw)
             if not (torch.equal(got, want) and torch.equal(got.cpu(), cpu)):
                 raise AssertionError(f"voxel_keys on the {src}: not bit-equal to its plain "
                                      f"version")
+            got = vf.voxel_sort(p, v, *a[2:], **kw)
+            want = vf._sorted_keys_plain(p, v, *a[2:], **kw)
+            cpu = vf._sorted_keys_plain(*cpu_args, **cpu_kw)
+            if not all(torch.equal(x, y) and torch.equal(x.cpu(), z)
+                       for x, y, z in zip(got, want, cpu)):
+                raise AssertionError(f"voxel_sort on the {src}: not bit-equal to its plain "
+                                     f"version")
+        keys = vf.voxel_keys(*a, **kw)
+        bits, passes = vf.sort_span_plain(keys)
+        ms = time_ms(lambda: vf.voxel_sort(*a, **kw))
+        host = host_ms(lambda: vf.voxel_sort(*a, **kw), reps=30)
+        lib_ms = time_ms(lambda: torch.sort(vf.voxel_keys(*a, **kw), stable=True))
+        lib_host = host_ms(lambda: torch.sort(vf.voxel_keys(*a, **kw), stable=True), reps=30)
+        sort_ms = time_ms(lambda: torch.sort(keys, stable=True))
+        plain_ms = event_ms(lambda: vf._sorted_keys_plain(*a, **kw), reps=30)
+        byts, ops = N * (12 + 1 + 16) + 4, N * (KEY_ROW_OPS + SORT_PASS_OPS * passes)
+        b, by = bound(byts, ops)
+        res.setdefault("voxel_sort", {})[src] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "the voxel_keys launch and torch.sort(stable=True)",
+            "torch_sort_ms": sort_ms, "library_host_ms": lib_host, "bound_ms": b,
+            "bound_by": by, "bytes": byts, "ops": ops, "host_ms": host, "rows": N,
+            "rank_bits": bits, "passes": passes, "grid": vf.voxel_sort.grid,
+            "tiles_a_block": vf.voxel_sort.tiles}
         ms = time_ms(lambda: vf.voxel_keys(*a, **kw))
         host = host_ms(lambda: vf.voxel_keys(*a, **kw), reps=30)
         plain_ms = event_ms(lambda: vf.voxel_keys_plain(*a, **kw), reps=30)
@@ -1764,6 +1803,14 @@ def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame")
     del m, m1, m2, pool
     for fn in counted_wrappers():
         fn.launches = counts[fn.__name__]
+    for src, r in res["voxel_sort"].items():
+        print(f"voxel_sort on the {src} ({r['rows']} rows, rank bits {r['rank_bits']}, "
+              f"{r['passes']} passes): kernel {r['ms']:.4f} ms ({r['grid']} blocks of "
+              f"{r['tiles_a_block']} tile(s) of 1024 rows; host {r['host_ms']:.4f} ms a call), "
+              f"library route (voxel_keys + torch.sort) {r['library_ms']:.4f} ms (host "
+              f"{r['library_host_ms']:.4f} ms a call; torch.sort alone {r['torch_sort_ms']:.4f} "
+              f"ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} operations); {smi}")
     for src, r in res["voxel_keys"].items():
         print(f"voxel_keys on the {src} ({r['rows']} rows): kernel {r['ms']:.4f} ms "
               f"({r['grid']} blocks; host {r['host_ms']:.4f} ms a call), plain "
@@ -2586,9 +2633,9 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     "frame": the last lidar_frame_step's}). tiled_delete_boxes must
     launch once per tracker update with boxes, voxel_centroids once per
     steady frame, the insert's three passes once per insert, undistort
-    once per frame step and bootstrap scan, voxel_keys once per filtered
-    scan (each key pass recorded and replayed after the run:
-    check_stage_calls)."""
+    once per frame step and bootstrap scan, voxel_sort once per filtered
+    scan and voxel_keys never (each sort recorded and replayed after the
+    run: check_stage_calls)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch import pipeline as pipeline_mod
@@ -2651,8 +2698,9 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
             or launches["knn5_plane_hashed"] or launches["photometric_step"]
             or launches["patches_and_grads"] or launches["imu_propagate"] != len(groups)
             or launches["delete_boxes"] != len(boxes) or not boxes
-            or not launches["voxel_centroids"] == launches["voxel_keys"] == filt["n"]
-            == len(keys) == len(steady) or launches["vio_dedup"] or launches["vio_push"]
+            or not launches["voxel_centroids"] == launches["voxel_sort"] == filt["n"]
+            == len(keys) == len(steady) or launches["voxel_keys"] or launches["vio_dedup"]
+            or launches["vio_push"]
             or not (launches["insert_keys"] == launches["insert_tiles"] == ins["n"]
                     > len(steady) - 1)
             or not launches["undistort"] >= step["n"] == len(steady)):
@@ -2730,7 +2778,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     recorded key pass (the camera cloud's), dedup and push). Every key
     pass, dedup and image-pool push is recorded and replayed after the
     run by its kernel and its plain version (check_stage_calls):
-    voxel_keys once per filtered scan and camera cloud, vio_dedup once
+    voxel_sort once per filtered scan and camera cloud (voxel_keys never), vio_dedup once
     per camera frame step, vio_push once per camera frame.
     tiled_delete_boxes must launch once per tracker update with boxes,
     voxel_centroids once per steady lidar frame and once per camera frame
@@ -2810,10 +2858,10 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": ins["n"],
             "insert_tiles": ins["n"],
             "undistort": max(launches["undistort"], step["n"]), **dict.fromkeys(FLAT_KERNELS, 0),
-            "voxel_keys": lid_filt["n"] + cam_filt["n"], "vio_dedup": vio.steps,
-            "vio_push": vio.fid}
+            "voxel_sort": lid_filt["n"] + cam_filt["n"], "voxel_keys": 0,
+            "vio_dedup": vio.steps, "vio_push": vio.fid}
     if (launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps
-            or len(keys) != want["voxel_keys"] or len(dedups) != vio.steps
+            or len(keys) != want["voxel_sort"] or len(dedups) != vio.steps
             or len(pushes) != vio.fid
             or not ins["n"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches}, want {want}, {lid_filt['n']} lidar and "
@@ -3108,8 +3156,18 @@ def kernels_in(prof, stages, launched: int):
     names = [name for e in prof.events()
              if e.name.startswith(stages) and str(e.device_type).endswith("CPU")
              for name in kernel_names(e)]
-    linked = sum(any(f"{s}_kernel" in name for s in CUDA_SOURCES) for name in names)
+    linked = sum(any(f"{s}_kernel" in name for s in KERNEL_STEMS) for name in names)
     return len(names) + max(launched - linked, 0), linked
+
+
+def sort_kernels_in(prof, stages) -> int:
+    """Device kernels of a library radix sort (CUB's onesweep, its
+    histogram and scans) under the ranges whose names start with
+    `stages`."""
+    return sum("onesweep" in name.lower() or "radixsort" in name.lower()
+               for e in prof.events()
+               if e.name.startswith(stages) and str(e.device_type).endswith("CPU")
+               for name in kernel_names(e))
 
 
 def cpu_op_names(e) -> list:
@@ -3132,7 +3190,7 @@ def device_kernels(evs, ranges):
 
 
 MAP_STAGE_KERNELS = ("voxel_centroids", "tiled_delete_boxes", "tiled_insert_keys",
-                     "tiled_insert_tiles", "undistort")
+                     "tiled_insert_tiles", "undistort", "voxel_sort")
 
 
 def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
@@ -3214,6 +3272,18 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
                               "device_ms": e.device_time_total / 1e3 / n}
                       for e in evs if e.key.startswith(stage)
                       and str(e.device_type).endswith("CPU")}}
+    # the voxel filter: its kernels and any library radix sort under it
+    vf_host, vf_dev = stage_ms(evs, "frame.voxel_filter", n)
+    n_vf, _ = kernels_in(prof, "frame.voxel_filter",
+                         counts["voxel_sort"] + counts["voxel_centroids"])
+    n_sort = sort_kernels_in(prof, "frame.voxel_filter")
+    res.update(voxel_filter_kernels=n_vf / n, voxel_filter_sort_kernels=n_sort / n)
+    print(f"profile ({label}): frame.voxel_filter host {vf_host:.3f} ms/frame, device "
+          f"{vf_dev:.3f} ms/frame, {n_vf / n:.1f} device kernels/frame, of them "
+          f"{n_sort / n:.1f} of a library radix sort (onesweep)")
+    if fused and n_sort:
+        raise AssertionError(f"lio profile: {n_sort} library sort kernels under "
+                             f"frame.voxel_filter")
     if not fused:
         return res
     if not kernels:
@@ -3304,6 +3374,10 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     # pass and centroid and the dedup, one launch each a camera frame
     n_push, _ = kernels_in(prof, "vio.push", counts["vio_push"])
     n_vf, _ = kernels_in(prof, "vio.voxel_filter", 3 * counts["vio_dedup"])
+    n_vsort = sort_kernels_in(prof, "vio.voxel_filter")
+    if fused and n_vsort:
+        raise AssertionError(f"livo profile: {n_vsort} library sort kernels under "
+                             f"vio.voxel_filter")
     if fused and (n_sel > n_cam or n_obs > 2 * n_cam):
         raise AssertionError(f"livo profile: {n_sel} kernels under vio.select_*, {n_obs} under "
                              f"vio.observations for {n_cam} camera frames (at most 1 and 2 "
@@ -3329,7 +3403,8 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
           f"{n_sel / n_cam:.1f} device kernels and {sel_host:.3f} ms host per camera frame, "
           f"under vio.observations {n_obs / n_cam:.1f} and {obs_host:.3f} ms, host reads "
           f"there {reads}; under vio.push {n_push / n_cam:.1f} and under vio.voxel_filter "
-          f"{n_vf / n_cam:.1f} device kernels per camera frame")
+          f"{n_vf / n_cam:.1f} device kernels per camera frame (of them "
+          f"{n_vsort / n_cam:.1f} of a library radix sort, onesweep)")
     for e in stages:
         print(f"  stage {e.key:20s} host {e.cpu_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
               f"device {e.device_time_total / 1e3 / n_cam:8.3f} ms/camera frame, "
@@ -3340,6 +3415,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
             "select_kernels": n_sel / n_cam, "select_host_ms": sel_host,
             "observations_kernels": n_obs / n_cam, "observations_host_ms": obs_host,
             "push_kernels": n_push / n_cam, "voxel_filter_kernels": n_vf / n_cam,
+            "voxel_filter_sort_kernels": n_vsort / n_cam,
             "observations_host_reads": reads, "camera_frames": n_cam,
             "device_busy_share": busy / (1e3 * wall),
             "stages": {e.key: {"host_ms": e.cpu_time_total / 1e3 / n_cam,
@@ -5855,7 +5931,7 @@ def main() -> int:
          "fastlivo_tpu/ops/voxel_map.py:268-286 and fastlivo_tpu/ops/dense_map.py:141-157 "
          "(delete_boxes, jitted XLA; no Pallas kernel)"))], *[{
         "name": name, "route": "cuda",
-        "source": f"fastlivo_tpu_torch/csrc/{name}.cu",
+        "source": f"fastlivo_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
         "launches": livo_launches[name], "path": "livo per-frame",
         "max_abs_err": 0.0,
@@ -5865,15 +5941,22 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         **extra,
         "launches_per_path": {k: v[-1][name] for k, v in paths.items() if v[-1].get(name)},
-    } for name, r, extra, replaces in (
-        ("voxel_keys", stage_res["voxel_keys"]["camera cloud"],
-         {"lio_scan": stage_res["voxel_keys"]["lio scan"]},
+    } for name, source, r, extra, replaces in (
+        ("voxel_sort", "voxel_keys", stage_res["voxel_sort"]["camera cloud"],
+         {"lio_scan": stage_res["voxel_sort"]["lio scan"],
+          "lio_launches": lio_launches["voxel_sort"]},
+         "fastlivo_tpu/ops/voxel_filter.py:41-53 (voxel_downsample_device up to and with its "
+         "argsort: the packed keys and their stable sort; jitted XLA; no Pallas kernel)"),
+        ("voxel_keys", "voxel_keys", stage_res["voxel_keys"]["camera cloud"],
+         {"lio_scan": stage_res["voxel_keys"]["lio scan"],
+          "path": "none since voxel_sort, whose launch computes the keys with the same "
+                  "device function"},
          "fastlivo_tpu/ops/voxel_filter.py:41-52 (voxel_downsample_device before its argsort: "
          "the finite test, floor, cast, 3 x 20-bit packing, invalid marker; jitted XLA; no "
          "Pallas kernel)"),
-        ("vio_dedup", stage_res["vio_dedup"], {},
+        ("vio_dedup", "vio_dedup", stage_res["vio_dedup"], {},
          "fastlivo_tpu/vio.py:735-780 (_dedup_voxels, jitted XLA; no Pallas kernel)"),
-        ("vio_push", stage_res["vio_push"], {},
+        ("vio_push", "vio_push", stage_res["vio_push"], {},
          "fastlivo_tpu/visual_map.py:126-156, :191-213, :216-240 (_live_slot_refs, "
          "push_slot, push_image; jitted XLA; no Pallas kernel)"))]]}))
     print(smi)

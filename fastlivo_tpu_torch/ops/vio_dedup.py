@@ -4,9 +4,10 @@
 `fastlivo_tpu/vio.py::_dedup_voxels` (the sub_feat_map key set,
 addFromSparseMap :361-380); not a Pallas kernel. On CUDA tensors it
 launches the hand-written kernel in csrc/vio_dedup.cu (built at first
-use, see _build.py): one block that runs the four probe rounds of the
-linear-probed hash and compacts the kept keys in row order, with no host
-read. On CPU tensors it runs the plain version,
+use, see _build.py): one block that runs the probe rounds of the
+linear-probed hash on a table set once (each round's entries tagged above
+the older ones) and compacts the kept keys in row order by one scan, with
+no host read. On CPU tensors it runs the plain version,
 `vio._dedup_voxels_plain` (the torch code), which is also the kernel's
 oracle.
 

@@ -4,14 +4,15 @@ laserMapping.cpp:172-173 with leaf `filter_size_surf`).
 
 Port of the JAX package's ops/voxel_filter.py: the device filter of the
 fused frame step and the host (numpy) filter of the bootstrap frames. On
-CUDA the device filter is two hand-written kernels around torch's stable
-sort (built at first use, see _build.py): the key pass, one launch of
-csrc/voxel_keys.cu that writes the packed keys, and the segmented
-centroid after the sort, one launch of csrc/voxel_centroids.cu, which
-reads the sorted keys as torch.sort returns them. Their plain versions
-`voxel_keys_plain` and `voxel_centroids_plain`, the torch code the CPU
-runs, are the kernels' oracles. Contract on the card: bit-equal to the
-plain versions run on the CPU on the same inputs.
+CUDA the device filter is two hand-written kernels (built at first use,
+see _build.py): the keys and their stable sort, one cooperative launch of
+csrc/voxel_keys.cu (`voxel_sort`: the packed keys, then stable LSD radix
+passes over a compact rank of them), and the segmented centroid after it,
+one launch of csrc/voxel_centroids.cu, which reads the sorted keys and
+the permutation. Their plain versions `_sorted_keys_plain` (the key pass
+`voxel_keys_plain` and torch's stable sort) and `voxel_centroids_plain`,
+the torch code the CPU runs, are the kernels' oracles. Contract on the
+card: bit-equal to the plain versions run on the CPU on the same inputs.
 """
 from __future__ import annotations
 
@@ -58,7 +59,9 @@ def _keys_library():
 
 
 def voxel_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
-    """`voxel_keys_plain`'s signature and output. CUDA tensors launch the
+    """`voxel_keys_plain`'s signature and output: the key pass alone (on
+    no path since `voxel_sort`, whose launch computes the keys with the
+    same device function). CUDA tensors launch the
     kernel of csrc/voxel_keys.cu on the current stream (counted in
     `voxel_keys.launches`, its blocks in `voxel_keys.grid`), a thread a
     row, with no host read; CPU tensors run the plain version. The scale
@@ -97,16 +100,104 @@ voxel_keys.launches = 0
 voxel_keys.grid = 0
 
 
+def sort_span_plain(keys: torch.Tensor):
+    """(bits, passes) of the sort's compact rank of the packed keys (N,)
+    int64: the rank of a valid key is ((fx - min_x) R_y + (fy - min_y)) R_z
+    + (fz - min_z) over its three 20-bit fields (min and max over the valid
+    keys, R = max - min + 1), of the invalid marker R_x R_y R_z; `bits` the
+    bit length of the largest rank, `passes` the 8-bit digit passes it
+    takes (0: every rank equal). What the launch of `voxel_sort` decides on
+    the card; here for the tests and the smoke run's report (a host read)."""
+    vs = keys != INVALID
+    if not bool(vs.any()):
+        return 0, 0
+    k = keys[vs]
+    f = torch.stack([(k >> 40) & 0xFFFFF, (k >> 20) & 0xFFFFF, k & 0xFFFFF])
+    span = [int(x) for x in (f.max(1).values - f.min(1).values + 1)]
+    top = span[0] * span[1] * span[2] - (0 if bool((~vs).any()) else 1)
+    bits = top.bit_length()
+    return bits, -(-bits // 8)
+
+
+@functools.cache
+def _sort_library():
+    from . import _build
+
+    lib = _build.load("voxel_keys")
+    fn, size = lib.voxel_sort_launch, lib.voxel_sort_scratch_ints
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    size.argtypes = [ctypes.c_int]
+    size.restype = ctypes.c_int
+    return _build.profiled("voxel_sort", fn), size
+
+
+def voxel_sort(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
+    """`_sorted_keys_plain`'s signature and outputs: the packed voxel keys
+    in sorted order and the stable sort's permutation `order` (sorted row
+    r is row order[r]), both (N,) int64. CUDA tensors launch the
+    cooperative kernel of csrc/voxel_keys.cu on the current stream
+    (counted in `voxel_sort.launches`, its blocks in `voxel_sort.grid`,
+    the tiles of 1024 rows a block in `voxel_sort.tiles`): the keys, then
+    stable 8-bit LSD radix passes over their compact rank
+    (`sort_span_plain`), the number of passes decided on the device, with
+    no host read; CPU tensors run the plain version. The scale takes `voxel_keys`' rules (a
+    0-d f32 tensor on pts' device). No other device is taken and nothing
+    falls back: 2^31 rows or more raise."""
+    if pts.device.type == "cpu":
+        return _sorted_keys_plain(pts, valid, leaf, inv_leaf)
+    if pts.device.type != "cuda":
+        raise ValueError(f"voxel_sort: unsupported device {pts.device}")
+    dev = pts.device
+    if pts.ndim != 2 or pts.shape[1] < 3:
+        raise ValueError(f"voxel_sort: pts {tuple(pts.shape)}, want (N, C >= 3)")
+    N, C = pts.shape
+    scale = leaf if inv_leaf is None else inv_leaf
+    if not isinstance(scale, torch.Tensor):
+        raise TypeError("voxel_sort: the leaf must be a 0-d f32 tensor on the card")
+    _require("voxel_sort: pts", pts, (N, C), torch.float32, dev)
+    _require("voxel_sort: valid", valid, (N,), torch.bool, dev)
+    _require("voxel_sort: scale", scale, (), torch.float32, dev)
+    launch, size = _sort_library()
+    k = size(N) if N < 1 << 31 else -1
+    if k < 0:
+        raise ValueError(f"voxel_sort: {N} rows (the kernel takes fewer than 2^31)")
+    keys = torch.empty(N, dtype=torch.int64, device=dev)
+    order = torch.empty(N, dtype=torch.int64, device=dev)
+    if N == 0:
+        return keys, order
+    tmp = torch.empty(3 * N, dtype=torch.int32, device=dev)  # int64 keys, int32 rows
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _ticket(dev, stream, k)  # left at 0 by every launch
+    grid, tiles = ctypes.c_int(0), ctypes.c_int(0)
+    err = launch(pts.data_ptr(), valid.data_ptr(), scale.data_ptr(), int(inv_leaf is None),
+                 keys.data_ptr(), order.data_ptr(), tmp.data_ptr(), tmp[2 * N:].data_ptr(),
+                 ws.data_ptr(), N, C, ctypes.byref(grid), ctypes.byref(tiles), stream)
+    if err != 0:
+        raise RuntimeError(f"voxel_sort: kernel launch failed (cudaError {err})")
+    voxel_sort.launches += 1
+    voxel_sort.grid = grid.value
+    voxel_sort.tiles = tiles.value
+    return keys, order
+
+
+voxel_sort.launches = 0
+voxel_sort.grid = 0
+voxel_sort.tiles = 0
+
+
 def _sorted_keys(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
-    """The packed voxel keys (`voxel_keys`: one launch on CUDA) in sorted
-    order, and the stable sort's permutation `order` (sorted row r is row
-    order[r])."""
-    return torch.sort(voxel_keys(pts, valid, leaf, inv_leaf), stable=True)
+    """The packed voxel keys in sorted order, and the stable sort's
+    permutation `order` (sorted row r is row order[r]): one `voxel_sort`
+    launch on CUDA, the plain version on the CPU."""
+    return voxel_sort(pts, valid, leaf, inv_leaf)
 
 
 def _sorted_keys_plain(pts: torch.Tensor, valid: torch.Tensor, leaf, inv_leaf):
-    """`_sorted_keys` with the key pass's torch code (`voxel_keys_plain`)
-    on any device: the filter as it ran before the key pass's kernel."""
+    """`_sorted_keys` in torch code on any device: the key pass's
+    (`voxel_keys_plain`) and torch's stable sort. The CPU's filter and the
+    oracle of `voxel_sort`."""
     return torch.sort(voxel_keys_plain(pts, valid, leaf, inv_leaf), stable=True)
 
 
@@ -115,9 +206,9 @@ def voxel_downsample_device(pts: torch.Tensor, valid: torch.Tensor,
                             inv_leaf: torch.Tensor | None = None):
     """Centroid voxel filter with a fixed output capacity, on pts' device.
 
-    The packed keys (`voxel_keys`) and their stable sort, then the
-    segmented centroid of `voxel_centroids` into `max_out` rows (each
-    pass one kernel launch on CUDA);
+    The packed keys and their stable sort (`voxel_sort`), then the
+    segmented centroid of `voxel_centroids` into `max_out` rows (each one
+    kernel launch on CUDA);
     rows past the capacity and invalid rows are dropped. Output order is
     sorted-voxel-key order. Non-finite points are dropped
     (pcl::VoxelGrid's is-finite skip). Each segment is summed in row

@@ -49,8 +49,9 @@ ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
 frame or lidar + camera pair, the device-busy share of the window and the
 map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
 launches, undistort; on hash and dense hash_insert_keys,
-hash_insert_probe, dense_insert and flat_delete_boxes): launches per
-frame and device us a launch.
+hash_insert_probe, dense_insert and flat_delete_boxes; the voxel filter's
+key pass or keys and sort, the camera frame's dedup and push): launches
+per frame and device us a launch.
 With --kernel-rounds N, each tree then times, N times in turns, its own
 wrappers on the LIO path's recorded calls (chip_smoke.time_ms, device
 time between CUDA events with the calls queued ahead of the device): what
@@ -98,7 +99,8 @@ MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel",
                      "tiled_insert_keys_kernel", "tiled_insert_tiles_kernel",
                      "tiled_insert_cells_kernel", "undistort_kernel",
                      "hash_insert_keys_kernel", "hash_insert_probe_kernel",
-                     "dense_insert_kernel", "flat_delete_boxes_kernel")
+                     "dense_insert_kernel", "flat_delete_boxes_kernel", "voxel_keys_kernel",
+                     "voxel_sort_kernel", "vio_dedup_kernel", "vio_push_kernel")
 # lidar only: tiled, hash and dense maps, tiled with cache_knn, with plane_fit ref, hash
 # and dense with cache_knn
 LIDAR_PATHS = ("lio", "hash", "dense", "cache_knn", "ref", "hash_cache_knn", "dense_cache_knn")

@@ -1,7 +1,7 @@
 """Device time of the camera frame's kernels (vio_select, vio_observations,
-and the stage kernels vio_push, vio_dedup and voxel_keys) of several
-checkouts on one card, whether their outputs are bit-equal, and where each
-one's time goes.
+and the stage kernels vio_push, vio_dedup, voxel_keys and the voxel
+filter's keys and sort) of several checkouts on one card, whether their
+outputs are bit-equal, and where each one's time goes.
 
 Usage: python scripts/torch_vio_kernels_bench.py [--variant TREE ...]
            [--stamps TREE ...] [--reps 30] [--frames 24] [--seed 0]
@@ -30,12 +30,16 @@ The stage kernels, where a checkout has their sources (csrc/vio_push.cu,
 vio_dedup.cu, voxel_keys.cu; a checkout without one reports null for it):
 vio_push on a copy of that map with the frame's image and the next frame
 id (every call pushes that fid again: the same refcount, rank and key
-work, the same slot); vio_dedup on the scan cloud (M = 8192 into 4096);
+work, the same slot); vio_dedup on the scan cloud (M = 8192 into 4096)
+and on that cloud tiled three times (24576 rows, the scratch route);
 voxel_keys on a seeded LIO scan (32768 rows of 4 columns, 24000 valid, a
-0.5 m leaf) and on the scan cloud at the camera's reciprocal 0.2 m leaf.
-Each is held bit for bit against its plain version
-(visual_map.push_image_plain, vio._dedup_voxels_plain,
-ops/voxel_filter.voxel_keys_plain) and timed in turns as the two above.
+0.5 m leaf) and on the scan cloud at the camera's reciprocal 0.2 m leaf;
+the keys and their stable sort ("voxel_sort") on those two: a checkout's
+voxel_sort launch where its csrc/voxel_keys.cu has one, else the route
+it replaced, its voxel_keys launch and torch.sort(stable=True). Each is
+held bit for bit against its plain version (visual_map.push_image_plain,
+vio._dedup_voxels_plain, ops/voxel_filter.voxel_keys_plain and
+_sorted_keys_plain) and timed in turns as the two above.
 
 Each variant's outputs are compared bit for bit with the plain versions
 (ops/vio_select.vio_select_plain, ops/vio_observations.
@@ -73,6 +77,24 @@ STAGE_PHASES = {
     "vio_dedup": [("keys", 0, 1), ("rounds", 1, 2), ("compaction", 2, 3), ("total", 0, 3)],
     "voxel_keys": [("total", 0, 1)],
 }
+IT_BASE, IT_NPH = 16, 8  # csrc/phase_stamps.cuh: a pass's stamps
+
+
+def sort_phases(passes):
+    """voxel_sort's stamped phases for a launch of `passes` passes: the
+    keys, the first barrier, pass 0's count and second barrier, then each
+    pass's offsets, its tiles' ranking and scatter, and its barrier."""
+    it = lambda p, k: IT_BASE + p * IT_NPH + k  # noqa: E731
+    ph = [("keys", 0, 1), ("barrier A", 1, 2)]
+    if passes == 0:
+        return ph
+    ph += [("pass 0 count", 2, it(0, 0)), ("barrier B", it(0, 0), it(0, 1))]
+    for p in range(passes):
+        ph += [(f"pass {p} offsets", it(p, 1), it(p, 2)),
+               (f"pass {p} rank and scatter", it(p, 2), it(p, 3))]
+        if p < passes - 1:
+            ph.append((f"pass {p} barrier", it(p, 3), it(p, 4)))
+    return ph + [("total", 0, it(passes - 1, 3))]
 # the phases a stamped variant reports: (name, from stamp, to stamp), by
 # kernel and launcher generation ("state": takes the state's rot and pos)
 PHASES = {
@@ -348,8 +370,10 @@ def stage_inputs(a, seed: int):
     cloud = torch.zeros((n, 3), device=dev)
     cloud[:a["pg"].shape[0]] = a["pg"]
     f32 = dict(dtype=torch.float32, device=dev)
+    pg3 = torch.cat([a["pg"], a["pg"] + 100.0, a["pg"] + 200.0])
     return {"push": (a["vm"], a["img"], (a["vm"].img_fid.max() + 1).to(torch.int32)),
             "dedup": (a["pg"], a["pg_mask"], a["pg"].shape[0] // 2),
+            "dedup 24576": (pg3, a["pg_mask"].repeat(3), a["pg"].shape[0] // 2),
             "keys": {"lio scan": (torch.as_tensor(scan, device=dev),
                                   torch.as_tensor(valid, device=dev),
                                   torch.tensor(0.5, **f32), 1),
@@ -368,10 +392,12 @@ def stage_plain(si):
     vm, img, fid = si["push"]
     m = tvm.push_image_plain(chip_smoke.clone_map(vm), img, fid)
     out = {"vio_push": [m.img_fid, m.imgs],
-           "vio_dedup": list(vio._dedup_voxels_plain(*si["dedup"]))}
+           "vio_dedup": list(vio._dedup_voxels_plain(*si["dedup"])),
+           "vio_dedup 24576": list(vio._dedup_voxels_plain(*si["dedup 24576"]))}
     for src, (pts, valid, scale, divide) in si["keys"].items():
-        out[f"voxel_keys {src}"] = [vf.voxel_keys_plain(
-            pts, valid, scale if divide else None, None if divide else scale)]
+        args = (pts, valid, scale if divide else None, None if divide else scale)
+        out[f"voxel_keys {src}"] = [vf.voxel_keys_plain(*args)]
+        out[f"voxel_sort {src}"] = list(vf._sorted_keys_plain(*args))
     return out
 
 
@@ -412,19 +438,20 @@ def stage_calls(lib, name, si):
             m.obs_slot, m.obs_fid, m.n_pts, m.img_fid, m.imgs, img, fid, ws)), NP, KO, R, H, W,
             int(m.imgs.dtype == torch.uint8)), [m.img_fid, m.imgs])
     elif name == "vio_dedup":
-        pg, mask, max_vox = si["dedup"]
-        dev = pg.device
-        stream = torch.cuda.current_stream(dev).cuda_stream
         size = lib.vio_dedup_scratch_ints
         size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
-        k = size(pg.shape[0])
-        ws = _ticket(dev, stream, k).data_ptr() if k else None
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-        vox = torch.empty((max_vox, 3), device=dev, **i32)
-        vmask = torch.empty(max_vox, dtype=torch.bool, device=dev)
-        calls["vio_dedup"] = (run(pg.data_ptr(), mask.data_ptr(), vox.data_ptr(),
-                                  vmask.data_ptr(), ws, pg.shape[0], max_vox), [vox, vmask])
+        for label in ("vio_dedup", "vio_dedup 24576"):
+            pg, mask, max_vox = si[label.replace("vio_", "")]
+            dev = pg.device
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            k = size(pg.shape[0])
+            ws = _ticket(dev, stream, k).data_ptr() if k else None
+            vox = torch.empty((max_vox, 3), device=dev, **i32)
+            vmask = torch.empty(max_vox, dtype=torch.bool, device=dev)
+            calls[label] = (run(pg.data_ptr(), mask.data_ptr(), vox.data_ptr(),
+                                vmask.data_ptr(), ws, pg.shape[0], max_vox), [vox, vmask])
     else:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [
             ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
@@ -434,6 +461,41 @@ def stage_calls(lib, name, si):
             calls[f"voxel_keys {src}"] = (run(pts.data_ptr(), valid.data_ptr(),
                                               scale.data_ptr(), divide, out.data_ptr(),
                                               pts.shape[0], pts.shape[1]), [out])
+        sort = getattr(lib, "voxel_sort_launch", None)
+        if sort is None:  # the route it replaced: the key pass, then torch.sort
+            for src in si["keys"]:
+                key_launch, (out,) = calls[f"voxel_keys {src}"]
+                res = [None, None]
+
+                def route(key_launch=key_launch, out=out, res=res):
+                    key_launch()
+                    res[0], res[1] = torch.sort(out, stable=True)
+
+                calls[f"voxel_sort {src}"] = (route, res)
+        else:
+            sort.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+                ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+            sort.restype = ctypes.c_int
+            size = lib.voxel_sort_scratch_ints
+            size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+            tiles = ctypes.c_int(0)
+            for src, (pts, valid, scale, divide) in si["keys"].items():
+                dev, n = pts.device, pts.shape[0]
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                keys = torch.empty(n, dtype=torch.int64, device=dev)
+                order = torch.empty(n, dtype=torch.int64, device=dev)
+                tmp = torch.empty(3 * n, dtype=torch.int32, device=dev)
+                ws = _ticket(dev, stream, size(n))
+
+                def launch(args=(pts.data_ptr(), valid.data_ptr(), scale.data_ptr(), divide,
+                                 keys.data_ptr(), order.data_ptr(), tmp.data_ptr(),
+                                 tmp[2 * n:].data_ptr(), ws.data_ptr(), n, pts.shape[1]),
+                           stream=stream):
+                    err = sort(*args, ctypes.byref(grid), ctypes.byref(tiles), stream)
+                    if err:
+                        raise RuntimeError(f"voxel_sort: cudaError {err}")
+
+                calls[f"voxel_sort {src}"] = (launch, [keys, order])
     return calls
 
 
@@ -455,14 +517,15 @@ def stamped(lib, name, launch, reps, phases=None):
     read = getattr(lib, f"{name}_stamps")
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
     read.restype = ctypes.c_int
-    buf = (ctypes.c_ulonglong * 16)()
-    read(buf, 16)  # reset
     phases = phases or PHASES[(name, generation(lib))]
+    nst = max(max(a, b) for _, a, b in phases) + 1
+    buf = (ctypes.c_ulonglong * nst)()
+    read(buf, nst)  # reset
     rows = []
     for _ in range(reps + 1):
         launch()
         torch.cuda.synchronize()
-        if read(buf, 16):
+        if read(buf, nst):
             raise RuntimeError(f"{name}: reading the stamps failed")
         rows.append([(int(buf[b]) - int(buf[a])) / 1e6 for _, a, b in phases])
     med = np.median(np.array(rows[1:]), axis=0)  # the first launch warms up
@@ -508,7 +571,12 @@ def main():
     si = stage_inputs(a, args.seed)
     want.update(stage_plain(si))
     calls, equal, grids, res = {}, {}, {}, {}
-    stage_labels = ["vio_push", "vio_dedup", "voxel_keys lio scan", "voxel_keys camera cloud"]
+    stage_labels = ["vio_push", "vio_dedup", "vio_dedup 24576", "voxel_keys lio scan",
+                    "voxel_keys camera cloud", "voxel_sort lio scan", "voxel_sort camera cloud"]
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    shape["sort_passes"] = {src: vf.sort_span_plain(want[f"voxel_sort {src}"][0])[1]
+                            for src in si["keys"]}
     for v in variants:
         tree = os.path.join(ROOT, v)
         for name in STAGE_KERNELS:
@@ -569,7 +637,13 @@ def main():
                 continue
             lib = build(tree, name, True)
             for label, (launch, outs) in stage_calls(lib, name, si).items():
-                s[label] = stamped(lib, name, launch, args.reps, STAGE_PHASES[name])
+                if label.startswith("voxel_sort"):
+                    if not hasattr(lib, "voxel_sort_launch"):
+                        continue  # the library route: no stamps
+                    phases = sort_phases(shape["sort_passes"][label[len("voxel_sort "):]])
+                else:
+                    phases = STAGE_PHASES[label.split(" ")[0]]
+                s[label] = stamped(lib, name, launch, args.reps, phases)
                 ok = ok and bits_equal(outs, want[label])
         s["bit_equal_to_plain"] = ok
         stamps[v] = s

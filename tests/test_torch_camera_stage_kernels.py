@@ -14,9 +14,11 @@ rtol and atol 1e-6 of tests/test_torch_map_stages.py). Each kernel's
 decomposition is also written out in numpy and held bit for bit against
 its plain version: the keys a thread a row in f32; the dedup's rounds in
 one block, rows strided over its threads, the table set again each
-round, the survivors compacted a tile of 1024 rows at a time; the push's
-per-block histograms summed in any order and its argmin as the least
-packed (key order bits, slot).
+round, the survivors compacted a tile of 1024 rows at a time (the dedup
+kernel's first design; the redesigned kernel's round-tagged table and
+one-scan compaction, and the voxel filter's sort, are modelled in
+tests/test_torch_voxel_sort.py); the push's per-block histograms summed
+in any order and its argmin as the least packed (key order bits, slot).
 """
 import jax
 import jax.numpy as jnp
@@ -183,9 +185,9 @@ def dedup_one_block(p, mask, max_vox, threads=1024):
 
 @pytest.mark.parametrize("case", cases.DEDUP_CASES)
 def test_dedup_kernel_rounds_in_one_block(case):
-    """The kernel's one-block rounds (the table set again each round, the
-    atomics' order free) and its tiled compaction give the plain
-    version's keys and mask bit for bit; the chain case leaves rows
+    """The first design's one-block rounds (the table set again each
+    round, the atomics' order free) and its tiled compaction give the
+    plain version's keys and mask bit for bit; the chain case leaves rows
     unresolved after four rounds, which both keep."""
     p, mask, max_vox = cases.dedup_case(case)
     vt, kt = tvio._dedup_voxels_plain(torch.from_numpy(p), torch.from_numpy(mask), max_vox)

@@ -2174,7 +2174,8 @@ def launch_guarded(launch, inputs, outputs, shift=0):
                                     "lio_cascade_r3_gather_tiled_tls",
                                     "lio_cascade_r3_gather_hash_ref", "voxel_keys",
                                     "vio_dedup", "vio_dedup_scratch", "vio_push",
-                                    "vio_push_f32"])
+                                    "vio_push_f32", "voxel_sort", "voxel_sort_camera",
+                                    "voxel_sort_wrap", "vio_dedup_wide"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -2223,8 +2224,12 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     with 300 boxes (its count words back at 0; also on arrays 8 bytes
     past 16-byte alignment: the scan's scalar head and tail). The camera
     frame's stage kernels: voxel_keys at 16379 rows of 4 columns with
-    NaN, inf and -0.0 rows; vio_dedup at 8191 rows and at 20000 (its
-    arrays in the global scratch, an output here, back at 0); vio_push
+    NaN, inf and -0.0 rows; voxel_sort there (3 passes), on the camera
+    cloud's reciprocal leaf and on wrapping keys (8 passes), its keys and
+    order equal _sorted_keys_plain's, its pass buffers outputs here and
+    its scratch (header and histograms) back at 0; vio_dedup at 8191 rows
+    and at 20000 and 40000 (its arrays, and at 40000 its row states, in
+    the global scratch, an output here, back at 0); vio_push
     on a full u8 and a full f32 pool (img_fid and imgs its outputs,
     every byte equal to the plain version's after the launch; the
     scratch counts, word and block count back at 0)."""
@@ -2233,7 +2238,8 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade as lc
 
-    if kernel in ("voxel_keys", "vio_dedup", "vio_dedup_scratch", "vio_push", "vio_push_f32"):
+    if kernel in ("voxel_keys", "vio_dedup", "vio_dedup_scratch", "vio_push", "vio_push_f32",
+                  "voxel_sort", "voxel_sort_camera", "voxel_sort_wrap", "vio_dedup_wide"):
         return camera_stage_write_only(cuda, kernel)
     if kernel.startswith("vio_"):
         return vio_write_only(cuda, kernel)
@@ -2898,8 +2904,9 @@ def test_vio_kernels_match_plain_on_a_map_grown_by_livo(cuda, monkeypatch, u8):
 def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatch):
     """On one card vio_frame_step launches vio_select, photometric_cascade
     and vio_observations once each (and vio_push, vio_dedup and the
-    cloud's voxel_keys once each), and makes no synchronising call
-    (torch's sync debug mode set to raise) between its call and its
+    cloud's voxel_sort once each, voxel_keys never), and makes no
+    synchronising call (torch's sync debug mode set to raise) between its
+    call and its
     return; its n_tracked, n_added and iterations equal the plain
     route's (vio.frame_kernels_apply patched to False) on a copy of the
     map."""
@@ -2931,7 +2938,7 @@ def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatc
     step(clone_map(snap))  # warm
     torch.cuda.synchronize()
     stages = lambda: [vio_push.vio_push.launches, vio_dedup.vio_dedup.launches,  # noqa: E731
-                      vf.voxel_keys.launches]
+                      vf.voxel_sort.launches, vf.voxel_keys.launches]
     n, s0 = [vs.vio_select.launches, vo.vio_observations.launches,
              photometric.photometric_cascade.launches], stages()
     torch.cuda.set_sync_debug_mode("error")
@@ -2941,7 +2948,7 @@ def test_camera_frame_is_one_select_and_one_observations_launch(cuda, monkeypatc
         torch.cuda.set_sync_debug_mode("default")
     assert [vs.vio_select.launches, vo.vio_observations.launches,
             photometric.photometric_cascade.launches] == [n[0] + 1, n[1] + 1, n[2] + 1]
-    assert stages() == [k + 1 for k in s0]  # the push, the dedup, the key pass
+    assert stages() == [s0[0] + 1, s0[1] + 1, s0[2] + 1, s0[3]]  # push, dedup, sort
     monkeypatch.setattr(vio, "frame_kernels_apply", lambda *a, **kw: False)
     plain = step(clone_map(snap))
     assert [vs.vio_select.launches, vo.vio_observations.launches] == [n[0] + 1, n[1] + 1]
@@ -3275,9 +3282,10 @@ def test_voxel_centroids_any_width_matches_the_cpu(cuda, cols):
 def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     """The whole steady lidar_frame_step on one card (the tiled map, the
     LIO cascade, the TLS fit, no cache_knn): the undistortion (one
-    undistort launch), the voxel filter (the sort and one voxel_centroids
-    launch), the cascade (one lio_cascade launch), the insert (the sort and
-    its two launches) and the frame's outputs make no
+    undistort launch), the voxel filter (one voxel_sort launch, the keys
+    and their sort, and one voxel_centroids launch), the cascade (one
+    lio_cascade launch), the insert (the sort and its two launches) and
+    the frame's outputs make no
     synchronising call (torch's sync debug mode set to raise), and give the
     same bits as the same step called without the mode."""
     no_sync_frame_step(cuda, monkeypatch)
@@ -3327,7 +3335,7 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
                       knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches,
                       tm.insert_keys.launches, tm.insert_tiles.launches,
                       imu_mod.undistort.launches, *flat_launches().values(),
-                      vf.voxel_keys.launches)
+                      vf.voxel_sort.launches, vf.voxel_keys.launches)
     n0 = counts()
     m = clone_map(a[1])
     torch.cuda.synchronize()
@@ -3341,7 +3349,7 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
                "dense": (0, 0, 0, 0, 1)}[options.get("backend", "tiled")]
     assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + inserts[0],
                         n0[5] + inserts[1], n0[6] + 1, n0[7] + inserts[2],
-                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10], n0[11] + 1)
+                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10], n0[11] + 1, n0[12])
     assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
     for g, w in zip(got[2:], want[2:]):
         assert bit_equal(g, w)
@@ -4427,8 +4435,9 @@ def test_voxel_keys_match_plain(cuda, case):
     the card and on the CPU (the LIO scan's 0.5 m leaf divided, the camera
     cloud's reciprocal multiplied, NaN and inf rows, -0.0, negative
     coordinates, voxels past +-2^19 wrapping, no valid row, one row); the
-    whole filter (key pass, sort, centroid) bit-equal to the CPU's; no
-    rows launch nothing; a leaf that is a float or on the CPU raises."""
+    whole filter (voxel_sort, then the centroid; no voxel_keys launch)
+    bit-equal to the CPU's; no rows launch nothing; a leaf that is a float
+    or on the CPU raises."""
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     pts, valid, leaf, inv = keys_inputs(cuda, case)
@@ -4445,7 +4454,7 @@ def test_voxel_keys_match_plain(cuda, case):
                                       inv_leaf=cpu[3])
     assert all(bit_equal(g.cpu(), w) for g, w in zip(full, want))
     assert vf.voxel_keys(pts[:0], valid[:0], leaf, inv).shape == (0,)
-    assert vf.voxel_keys.launches == n0 + 2  # the filter's; none for no rows
+    assert vf.voxel_keys.launches == n0 + 1  # none in the filter, none for no rows
     if case == "lio":
         with pytest.raises(TypeError):
             vf.voxel_keys(pts, valid, 0.5, None)
@@ -4453,16 +4462,92 @@ def test_voxel_keys_match_plain(cuda, case):
             vf.voxel_keys(pts, valid, leaf.cpu(), None)
 
 
+SORT_CASES = [("lio", None), ("camera", None), ("edges", None), ("wrap", None),
+              ("all_invalid", None), ("n1", None), ("spread", None)] + [
+    ("lio", n) for n in (0, 1, 33, 4096, 32768, 98304)]
+
+
+def sort_inputs(dev, case, n):
+    """voxel_sort's arguments: a key case, or the LIO scan's first n rows
+    (tiled with offsets past its 32768)."""
+    pts, valid, leaf, inv = keys_inputs(dev, case)
+    if n is not None:
+        reps = max(1, -(-n // pts.shape[0]))
+        pts = torch.cat([pts + 100.0 * k for k in range(reps)])[:n].contiguous()
+        valid = valid.repeat(reps)[:n].contiguous()
+    return pts, valid, leaf, inv
+
+
+@pytest.mark.parametrize("case,n", SORT_CASES,
+                         ids=[c if n is None else f"{c}_{n}" for c, n in SORT_CASES])
+def test_voxel_sort_matches_plain(cuda, case, n):
+    """voxel_sort on the card: one launch (none for no rows) and no host
+    read (torch's sync debug mode set to raise), its keys and order
+    bit-equal to _sorted_keys_plain on the card and on the CPU, again on
+    a second launch: the key cases (the LIO scan, the camera cloud's
+    reciprocal leaf, NaN, inf and -0.0 rows, wrapping keys over all 60
+    bits, no valid row, one row, a spread past 2^32) and the LIO scan's
+    first 0, 1, 33, 4096, 32768 and 98304 rows; the stream's scratch
+    left at 0; _sorted_keys is the launch; a leaf that is a float or on
+    the CPU raises."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    pts, valid, leaf, inv = sort_inputs(cuda, case, n)
+    N = pts.shape[0]
+    n0, k0 = vf.voxel_sort.launches, vf.voxel_keys.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [vf.voxel_sort(pts, valid, leaf, inv), vf._sorted_keys(pts, valid, leaf, inv)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert vf.voxel_sort.launches == n0 + 2 * (N > 0) and vf.voxel_keys.launches == k0
+    assert scratch_is_zero(cuda)
+    want = vf._sorted_keys_plain(pts, valid, leaf, inv)
+    cpu = vf._sorted_keys_plain(*[None if t is None else t.cpu() for t in (pts, valid, leaf,
+                                                                          inv)])
+    for k, o in got:
+        assert torch.equal(k, want[0]) and torch.equal(o, want[1])
+        assert torch.equal(k.cpu(), cpu[0]) and torch.equal(o.cpu(), cpu[1])
+    if N:
+        assert vf.voxel_sort.tiles == 1 and vf.voxel_sort.grid == -(-N // 1024)
+    if case == "lio" and n is None:
+        with pytest.raises(TypeError):
+            vf.voxel_sort(pts, valid, 0.5, None)
+        with pytest.raises(ValueError):
+            vf.voxel_sort(pts, valid, leaf.cpu(), None)
+        assert vf.voxel_sort.launches == n0 + 2
+
+
+def test_voxel_sort_past_one_tile_a_block(cuda):
+    """600000 and 2000000 rows: more tiles of 1024 rows than the card
+    holds blocks at once, so a block takes several consecutive tiles;
+    bit-equal to the plain version, the scratch back at 0."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    for n in (600000, 2000000):
+        pts, valid, leaf, _ = sort_inputs(cuda, "lio", n)
+        got = vf.voxel_sort(pts, valid, leaf, None)
+        torch.cuda.synchronize()
+        tiles = vf.voxel_sort.tiles
+        assert tiles > 1 and vf.voxel_sort.grid == -(-(-(-n // 1024)) // tiles)
+        want = vf._sorted_keys_plain(pts, valid, leaf, None)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert scratch_is_zero(cuda)
+
+
 @pytest.mark.parametrize("case", ["cloud", "small", "chain", "duplicates", "overflow",
-                                  "all_masked", "odd", "scratch"])
+                                  "all_masked", "odd", "scratch", "rows24576", "rows40000"])
 def test_vio_dedup_matches_plain(cuda, case):
     """vio_dedup on the card: one launch, vox and vmask bit-equal to
     vio._dedup_voxels_plain on the card and on the CPU, and equal on a
     second launch: the camera cloud at the shipped 8192 rows into 4096
     and the small LIVO run's 4096 into 2048, slot chains longer than four
-    probes, duplicates, overflow, nothing masked in, 5000 rows, and 20000
-    rows (the arrays in the stream's scratch, which the launch leaves at
-    0)."""
+    probes, duplicates, overflow, nothing masked in, 5000 rows, and 20000,
+    24576 and 40000 rows (the arrays in the stream's scratch, which the
+    launch leaves at 0; at 40000, more than 32 rows a thread, the row
+    states too)."""
     from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch.ops import vio_dedup
 
@@ -4472,7 +4557,8 @@ def test_vio_dedup_matches_plain(cuda, case):
     got = [vio_dedup.vio_dedup(pg, mk, max_vox) for _ in range(2)]
     torch.cuda.synchronize()
     assert vio_dedup.vio_dedup.launches == n0 + 2
-    assert vio_dedup.vio_dedup.scratch == s0 + 2 * (case == "scratch")
+    assert vio_dedup.vio_dedup.scratch == s0 + 2 * (case in ("scratch", "rows24576",
+                                                             "rows40000"))
     assert scratch_is_zero(cuda)
     want = vio._dedup_voxels_plain(pg, mk, max_vox)
     cpu = vio._dedup_voxels_plain(pg.cpu(), mk.cpu(), max_vox)
@@ -4609,16 +4695,39 @@ def camera_stage_write_only(dev, kernel):
             *ptr(p, v, s), 1, o.data_ptr(), n, 4, ctypes.byref(grid), stream),
             [pts, valid, leaf], [torch.empty(n, dtype=torch.int64, device=dev)])
         want = [vf.voxel_keys_plain(pts, valid, leaf, None)]
+    elif kernel.startswith("voxel_sort"):
+        case = {"voxel_sort": "edges", "voxel_sort_camera": "camera",
+                "voxel_sort_wrap": "wrap"}[kernel]
+        pts, valid, leaf, inv = keys_inputs(dev, case)
+        n = 16379
+        pts, valid = pts[:n].contiguous(), valid[:n].contiguous()
+        launch, size = vf._sort_library()
+        tiles = ctypes.c_int(0)
+        i64 = dict(dtype=torch.int64, device=dev)
+        outs = [torch.empty(n, **i64), torch.empty(n, **i64), torch.empty(n, **i64),
+                torch.empty(n, **i32), torch.zeros(size(n), **i32)]
+        got = launch_guarded(lambda p, v, s, k, o, tk, tr, ws: launch(
+            *ptr(p, v, s), int(inv is None), *ptr(k, o, tk, tr, ws), n, pts.shape[1],
+            ctypes.byref(grid), ctypes.byref(tiles), stream),
+            [pts, valid, leaf if inv is None else inv], outs)
+        assert tiles.value == 1 and grid.value == -(-n // 1024)
+        assert not got[4].any()  # the header and the histograms back at 0
+        got = got[:2]
+        want = list(vf._sorted_keys_plain(pts, valid, leaf, inv))
+        assert vf.sort_span_plain(want[0])[1] == (8 if case == "wrap" else 4 if
+                                                  case == "camera" else 3)
     elif kernel.startswith("vio_dedup"):
-        p, mask, max_vox = sc.dedup_case("scratch" if kernel.endswith("scratch") else "cloud")
-        if not kernel.endswith("scratch"):
+        case = {"vio_dedup": "cloud", "vio_dedup_scratch": "scratch",
+                "vio_dedup_wide": "rows40000"}[kernel]
+        p, mask, max_vox = sc.dedup_case(case)
+        if case == "cloud":
             p, mask = p[:8191], mask[:8191]
         M = len(p)
         pg = torch.from_numpy(np.ascontiguousarray(p)).to(dev)
         mk = torch.from_numpy(np.ascontiguousarray(mask)).to(dev)
         launch, size = vio_dedup._library()
         k = size(M)
-        assert (k > 0) == kernel.endswith("scratch")
+        assert (k > 0) == (case != "cloud")
         outs = [torch.empty((max_vox, 3), **i32), torch.empty(max_vox, dtype=torch.bool,
                                                                device=dev)]
         if k:

@@ -431,8 +431,8 @@ def test_every_kernel_source_is_built_and_smoked():
     and map upkeep, the tiled map's box delete and insert, the voxel
     filter's segmented centroid, the scan's undistortion, the hash map's
     insert, the dense grid's and the box delete of both, the voxel
-    filter's key pass, the camera frame's voxel dedup and image-pool
-    push."""
+    filter's keys and their sort, the camera frame's voxel dedup and
+    image-pool push."""
     import importlib.util
 
     from fastlivo_tpu_torch.ops import _build

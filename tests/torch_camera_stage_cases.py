@@ -15,9 +15,9 @@ import numpy as np
 import torch
 
 VOX = 0.5  # the visual map's voxel
-KEYS_CASES = ["lio", "camera", "edges", "wrap", "all_invalid", "n1"]
+KEYS_CASES = ["lio", "camera", "edges", "wrap", "all_invalid", "n1", "spread"]
 DEDUP_CASES = ["cloud", "small", "chain", "duplicates", "overflow", "all_masked", "odd",
-               "scratch"]
+               "scratch", "rows24576", "rows40000"]
 PUSH_CASES = ["evict", "repush", "f32", "dead"]
 HASH = (73856093, 19349663, 83492791)
 
@@ -26,12 +26,14 @@ def keys_case(case, seed=0):
     """The LIO scan (32768 rows of 4 columns, 24000 valid, 0.5 m leaf), the
     camera cloud (the 0.2 m leaf as its f32 reciprocal), and edges:
     NaN and +-inf rows, -0.0, negative coordinates, voxels past +-2^19
-    (their keys wrap in 20 bits), one row, no valid row."""
+    (their keys wrap in 20 bits), one row, no valid row, and a spread of
+    +-700 m (2800 voxels a side: the sort's compact rank past 2^32)."""
     rng = np.random.default_rng(seed)
     n, c, leaf, inv = 32768, 4, 0.5, None
     if case == "camera":
         c, leaf, inv = 3, None, np.float32(1.0) / np.float32(0.2)
-    p = rng.uniform(-40, 40, (n, c)).astype(np.float32)
+    p = rng.uniform(-700 if case == "spread" else -40, 700 if case == "spread" else 40,
+                    (n, c)).astype(np.float32)
     valid = rng.random(n) > 0.05
     if case == "lio":
         valid[24000:] = False
@@ -90,7 +92,9 @@ def dedup_case(case, seed=0):
     chains longer than four probes, exact duplicates and rows sharing a
     voxel, more survivors than max_vox, no masked row, M = 5000 (not a
     power of two), and M = 20000, whose arrays pass the kernel's shared
-    memory (its scratch route)."""
+    memory (its scratch route), M = 24576 (the camera cloud tiled three
+    times) and M = 40000 (past 32 rows to each of the kernel's 1024
+    threads: its row states in the scratch too)."""
     rng = np.random.default_rng(seed)
     M, max_vox = 8192, 4096
     if case == "small":
@@ -99,6 +103,9 @@ def dedup_case(case, seed=0):
         M, max_vox = 5000, 2500
     if case == "scratch":
         M, max_vox = 20000, 10000
+    if case.startswith("rows"):
+        M = int(case[4:])
+        max_vox = M // 2
     n = int(M * 0.7)
     p = np.zeros((M, 3), np.float32)
     p[:n] = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
