@@ -1001,9 +1001,10 @@ def cloned(v):
 def recorded_all(module, name, calls: list):
     """Append every call of module.<name> as (arguments, outputs), each
     tensor copied on the card: no host read. Never a counted kernel
-    wrapper (each counts through its own module-level name): the keys
-    and their sort are recorded through `_sorted_keys`, the dedup through
-    `vio._dedup_voxels`."""
+    wrapper (each counts through its own module-level name): the voxel
+    keys and their sort are recorded through `voxel_filter._sorted_keys`,
+    the dedup through `vio._dedup_voxels` (the insert's keys and sort
+    through recorded_insert_sorts)."""
     real = getattr(module, name)
 
     def wrapped(*a, **kw):
@@ -1012,6 +1013,26 @@ def recorded_all(module, name, calls: list):
         return out
 
     with swapped(module, name, wrapped):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_insert_sorts(calls: list):
+    """Append every tiled_map._sorted_keys call (the insert's keys and
+    their sort) as ((map, pts, valid), {}, outputs), the points, mask and
+    outputs copied on the card, the map itself not: the sort reads only
+    its voxel size and directory dims, which no insert changes. No host
+    read."""
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    real = tm._sorted_keys
+
+    def wrapped(m, pts, valid):
+        out = real(m, pts, valid)
+        calls.append(((m, pts.clone(), valid.clone()), {}, cloned(out)))
+        return out
+
+    with swapped(tm, "_sorted_keys", wrapped):
         yield
 
 
@@ -1053,12 +1074,16 @@ def push_map(rec, pool):
     return empty._replace(**{f: b[f].clone() for f in PUSH_FIELDS}, imgs=pool.clone())
 
 
-def check_stage_calls(keys, dedups, pushes, label) -> dict:
-    """The path's recorded voxel sorts, dedups and pushes after its run
-    (these launches are not the path's; the counts are restored): each
-    sort replayed by voxel_sort and by _sorted_keys_plain on its inputs,
-    keys and order bit-equal to each other and to the path's, and its key
-    pass by voxel_keys, bit-equal to voxel_keys_plain; each dedup replayed
+def check_stage_calls(keys, dedups, pushes, isorts, label) -> dict:
+    """The path's recorded voxel sorts, dedups, pushes and insert sorts
+    after its run (these launches are not the path's; the counts are
+    restored): each voxel sort replayed by voxel_sort and by
+    _sorted_keys_plain on its inputs, keys and order bit-equal to each
+    other and to the path's, and its key pass by voxel_keys, bit-equal to
+    voxel_keys_plain; each insert sort replayed by insert_sort and by
+    insert_sort_plain (insert_keys_plain and torch.sort) on its inputs (the
+    map's voxel size and directory), sorted keys, order and rows bit-equal
+    to each other and to the path's; each dedup replayed
     by vio_dedup and vio._dedup_voxels_plain, bit-equal to each other and
     to the path's outputs; each push replayed
     by vio_push and visual_map.push_image_plain on copies of one pool (as
@@ -1066,11 +1091,17 @@ def check_stage_calls(keys, dedups, pushes, label) -> dict:
     pool ids the path's. Returns numbers."""
     from fastlivo_tpu_torch import vio
     from fastlivo_tpu_torch import visual_map as vmap_mod
+    from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import vio_dedup, vio_push
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     counts = read_counts()
     bad = []
+    for k, (a, kw, out) in enumerate(isorts):
+        got = tm.insert_sort(*a, **kw)
+        want = tm.insert_sort_plain(*a, **kw)
+        if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(got, want, out)):
+            bad.append(f"insert sort {k}")
     for k, (a, kw, out) in enumerate(keys):
         got = vf.voxel_sort(*a, **kw)
         want = vf._sorted_keys_plain(*a, **kw)
@@ -1101,10 +1132,11 @@ def check_stage_calls(keys, dedups, pushes, label) -> dict:
     if bad:
         raise AssertionError(f"{label}: not bit-equal to the plain versions: {bad}")
     nums = {"sorts_checked": len(keys), "dedups_checked": len(dedups),
-            "pushes_checked": len(pushes), "bit_equal_to_plain": True, "max_abs_err": 0.0}
-    print(f"{label}: {len(keys)} voxel sorts (and their key passes), {len(dedups)} voxel "
-          f"dedups and {len(pushes)} image-pool pushes replayed by their kernels and plain "
-          f"versions, bit-equal to each other and to the path's")
+            "pushes_checked": len(pushes), "insert_sorts_checked": len(isorts),
+            "bit_equal_to_plain": True, "max_abs_err": 0.0}
+    print(f"{label}: {len(keys)} voxel sorts (and their key passes), {len(isorts)} insert "
+          f"sorts, {len(dedups)} voxel dedups and {len(pushes)} image-pool pushes replayed by "
+          f"their kernels and plain versions, bit-equal to each other and to the path's")
     return nums
 
 
@@ -1139,7 +1171,8 @@ def counted_wrappers():
             voxel_filter.voxel_centroids, tiled_map.insert_keys, tiled_map.insert_tiles,
             imu.undistort, voxel_map.hash_insert_keys, voxel_map.hash_insert_probe,
             dense_map.dense_insert, voxel_map.flat_delete_boxes, voxel_filter.voxel_keys,
-            vio_dedup.vio_dedup, vio_push.vio_push, voxel_filter.voxel_sort)
+            vio_dedup.vio_dedup, vio_push.vio_push, voxel_filter.voxel_sort,
+            tiled_map.insert_sort)
 
 
 def reset_counts():
@@ -1682,7 +1715,9 @@ def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame")
     bit for bit: the sort and the key pass with NaN, inf, -0.0 and
     wrapping rows on the card against their plain versions on the card and
     the CPU, the dedup on the camera cloud tiled three times (24576 rows:
-    its arrays in the stream's scratch), the push on an f32 pool. These
+    its arrays in the stream's scratch), the push in both its forms (one
+    grid barrier, the launcher's choice at the shipped pool, and two) on
+    the path's pool type and the other; the two-barrier form timed too. These
     launches are not the paths' (the counts are restored). Returns
     {"voxel_sort": {...}, "voxel_keys": {...}, "vio_dedup": {...},
     "vio_push": {...}}."""
@@ -1781,15 +1816,21 @@ def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame")
     for dt in (p["dtype"], torch.float32 if p["dtype"] == torch.uint8 else torch.uint8):
         q = {**p, "dtype": dt}
         pl = torch.zeros((R, H, W), dtype=dt, device=pool.device)
-        m1, m2 = push_map(q, pl), push_map(q, pl)
-        vio_push.vio_push(m1, p["img"], p["fid"])
-        vmap_mod.push_image_plain(m2, p["img"], p["fid"])
-        if not (torch.equal(m1.img_fid, m2.img_fid) and torch.equal(m1.imgs, m2.imgs)):
-            raise AssertionError(f"vio_push on a {dt} pool: not bit-equal to its plain version")
-        del m1, m2, pl
+        for form in (1, 2):  # both forms, forced
+            m1, m2 = push_map(q, pl), push_map(q, pl)
+            vio_push.vio_push(m1, p["img"], p["fid"], form=form)
+            vmap_mod.push_image_plain(m2, p["img"], p["fid"])
+            if not (torch.equal(m1.img_fid, m2.img_fid) and torch.equal(m1.imgs, m2.imgs)):
+                raise AssertionError(f"vio_push ({vio_push.FORMS[form]}) on a {dt} pool: not "
+                                     f"bit-equal to its plain version")
+            del m1, m2
+        del pl
     m1, m2 = push_map(p, pool), push_map(p, pool)
     ms = time_ms(lambda: vio_push.vio_push(m1, p["img"], p["fid"]))
+    form, grid = vio_push.vio_push.form, vio_push.vio_push.grid
     host = host_ms(lambda: vio_push.vio_push(m1, p["img"], p["fid"]), reps=30)
+    ms_two = time_ms(lambda: vio_push.vio_push(m1, p["img"], p["fid"], form=2))
+    host_two = host_ms(lambda: vio_push.vio_push(m1, p["img"], p["fid"], form=2), reps=30)
     plain_ms = event_ms(lambda: vmap_mod.push_image_plain(m2, p["img"], p["fid"]), reps=30)
     lib_ms = event_ms(lambda: torch.bincount(tgt, minlength=R + 1), reps=30)
     es = pool.element_size()
@@ -1799,7 +1840,8 @@ def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame")
     res["vio_push"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
                        "bound_by": by, "bytes": byts, "ops": ops, "host_ms": host,
                        "live_rows": n_live, "ring": KO, "pool": R, "image": [H, W],
-                       "dtype": str(p["dtype"]), "grid": vio_push.vio_push.grid}
+                       "dtype": str(p["dtype"]), "grid": grid, "form": vio_push.FORMS[form],
+                       "two_barrier_ms": ms_two, "two_barrier_host_ms": host_two}
     del m, m1, m2, pool
     for fn in counted_wrappers():
         fn.launches = counts[fn.__name__]
@@ -1824,11 +1866,12 @@ def camera_stage_phase(lio_keys, rec, label="the LIVO path's last camera frame")
           f"{r['bytes']} bytes, {r['ops']} operations), library none; {smi}")
     r = res["vio_push"]
     print(f"vio_push on {label} ({r['live_rows']} live rows x {KO}, a {p['dtype']} pool of "
-          f"{R} x {H}x{W}): kernel {r['ms']:.4f} ms ({r['grid']} blocks; host "
-          f"{r['host_ms']:.4f} ms a call), plain {r['plain_ms']:.4f} ms, library "
+          f"{R} x {H}x{W}): kernel {r['ms']:.4f} ms ({r['form']}, {r['grid']} blocks; host "
+          f"{r['host_ms']:.4f} ms a call; two grid barriers {r['two_barrier_ms']:.4f} ms, "
+          f"host {r['two_barrier_host_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
           f"torch.bincount {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-          f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} operations); both pool types "
-          f"bit-equal; {smi}")
+          f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} operations); both forms on both "
+          f"pool types bit-equal; {smi}")
     return res
 
 
@@ -1978,7 +2021,12 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
     directory, slot keys, cells and counts. Timed on the path map, the
     batch inserted again at every call (its tiles live, few cells
     nearer), beside the plain passes (the cells pass's row: the same
-    launch, beside insert_cells_plain), the second launch also on the
+    launch, beside insert_cells_plain), the keys and their sort
+    (tiled_insert_sort, bit-equal to insert_sort_plain on the batch)
+    beside the route it replaced (the tiled_insert_keys launch and
+    torch.sort(stable=True), by time_ms and host wall), torch.sort alone,
+    the plain version and its bound, with the rank's bits and passes,
+    the second launch also on the
     bootstrap batch into empty maps (every winner fresh), the whole insert
     beside insert_plain, and the stable sort of the batch's keys at 64
     bits (the JAX package's dir_idx << 40 | cell << 31 | distance bits)
@@ -2031,10 +2079,42 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
     if not passes:
         raise AssertionError("tiled_insert: a launch differs from its plain passes on the "
                              "path map")
-    print(f"tiled_insert (keys; the sort of 32-bit keys; tiles and cells in one launch) on the "
-          f"LIO path's last batch ({pts.shape[0]} rows, {int(valid.sum())} valid): every field "
-          f"equal to insert_plain on the card and on the CPU, into {checked}; each launch equal "
-          f"to its plain passes")
+    print(f"tiled_insert (the keys and their sort in one launch; tiles and cells in one "
+          f"launch) on the LIO path's last batch ({pts.shape[0]} rows, {int(valid.sum())} "
+          f"valid): every field equal to insert_plain on the card and on the CPU, into "
+          f"{checked}; each launch equal to its plain passes")
+
+    # the keys and their sort in one launch, beside the route it replaced
+    got_s = tm.insert_sort(lio_map, pts, valid)
+    want_s = tm.insert_sort_plain(lio_map, pts, valid)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got_s, want_s)):
+        raise AssertionError("tiled_insert_sort on the LIO path's last batch: not bit-equal "
+                             "to insert_sort_plain")
+    bits, passes = tm.insert_span_plain(lio_map, want_s[0])
+    B = pts.shape[0]
+    s_ms = time_ms(lambda: tm.insert_sort(lio_map, pts, valid))
+    s_grid, s_tiles = tm.insert_sort.grid, tm.insert_sort.tiles
+    s_host = host_ms(lambda: tm.insert_sort(lio_map, pts, valid), reps=30)
+    route = lambda: torch.sort(tm.insert_keys(lio_map, pts, valid)[0], stable=True)  # noqa
+    route_ms = time_ms(route)
+    route_host = host_ms(route, reps=30)
+    alone_ms = time_ms(lambda: torch.sort(gkey, stable=True))
+    s_plain_ms = event_ms(lambda: tm.insert_sort_plain(lio_map, pts, valid), reps=30)
+    byts, ops = 45 * B + 16, B * (INSERT_KEY_OPS + SORT_PASS_OPS * passes)
+    b, by = bound(byts, ops)
+    sort_res = {"ms": s_ms, "plain_ms": s_plain_ms, "library_ms": route_ms,
+                "library": "the tiled_insert_keys launch and torch.sort(stable=True)",
+                "torch_sort_ms": alone_ms, "library_host_ms": route_host, "host_ms": s_host,
+                "bound_ms": b, "bound_by": by, "bytes": byts, "ops": ops, "rows": B,
+                "rank_bits": bits, "passes": passes, "grid": s_grid, "tiles_a_block": s_tiles,
+                "max_abs_err": 0.0}
+    print(f"tiled_insert_sort on the LIO path's last batch ({B} rows, rank bits {bits}, "
+          f"{passes} passes): kernel {s_ms:.4f} ms ({s_grid} blocks of {s_tiles} tile(s) of "
+          f"512 rows; host {s_host:.4f} ms a call), library route (tiled_insert_keys + "
+          f"torch.sort) {route_ms:.4f} ms (host {route_host:.4f} ms a call; torch.sort alone "
+          f"{alone_ms:.4f} ms), plain {s_plain_ms:.4f} ms, bound {b:.5f} ms ({by}: {byts} "
+          f"bytes, {ops} operations); {smi}")
 
     work = insert_work(lio_map, pts, valid)
     bounds = insert_bounds(work)
@@ -2064,6 +2144,9 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.5f} ms ({by}: {byts} "
               f"bytes, {ops} operations), library none; {smi}")
     res["tiled_insert_cells"]["in_launch"] = "tiled_insert_tiles"
+    res["tiled_insert_sort"] = sort_res
+    res["tiled_insert_keys"]["path"] = ("none since tiled_insert_sort, whose launch computes "
+                                        "the keys with the same device function")
     # the second launch where every winner is fresh: the bootstrap batch
     # into an empty map, each timed call into a map of its own (a
     # directory written by one call has the batch's tiles live for the
@@ -2115,14 +2198,15 @@ def frame_kernels_phase(lio_map, maps, rec, smi):
     t0 = time.perf_counter()
     for _ in range(20):
         tm.insert(mt, pts, valid)
-    host_ms = 1e3 * (time.perf_counter() - t0) / 20
+    insert_host = 1e3 * (time.perf_counter() - t0) / 20
     torch.cuda.synchronize()
     res["tiled_insert_keys"].update(insert_ms=whole, insert_plain_ms=whole_plain,
                                     sort_ms=sort_ms[32], sort_64_ms=sort_ms[64],
-                                    insert_host_ms=host_ms, cases=checked)
-    print(f"the whole insert (two launches around the sort): {whole:.4f} ms on the card, "
-          f"the sort alone {sort_ms[32]:.4f} ms (of the 64-bit key {sort_ms[64]:.4f} ms), "
-          f"insert_plain {whole_plain:.4f} ms; host {host_ms:.4f} ms a call; {smi}")
+                                    insert_host_ms=insert_host, cases=checked)
+    print(f"the whole insert (its two launches, the keys and sort, then the tiles and "
+          f"cells): {whole:.4f} ms on the card, torch.sort alone of the 32-bit keys "
+          f"{sort_ms[32]:.4f} ms (of the 64-bit key {sort_ms[64]:.4f} ms), insert_plain "
+          f"{whole_plain:.4f} ms; host {insert_host:.4f} ms a call; {smi}")
     del mt, mq, mp, mk
 
     # the undistortion on the path's last frame step
@@ -2632,10 +2716,11 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     last voxel filter call's arguments, "insert": the last map insert's,
     "frame": the last lidar_frame_step's}). tiled_delete_boxes must
     launch once per tracker update with boxes, voxel_centroids once per
-    steady frame, the insert's three passes once per insert, undistort
-    once per frame step and bootstrap scan, voxel_sort once per filtered
-    scan and voxel_keys never (each sort recorded and replayed after the
-    run: check_stage_calls)."""
+    steady frame, the insert's two launches (insert_sort, insert_tiles)
+    once per insert and its key pass alone never, undistort once per frame
+    step and bootstrap scan, voxel_sort once per filtered scan and
+    voxel_keys never (each voxel sort and insert sort recorded and
+    replayed after the run: check_stage_calls)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch import pipeline as pipeline_mod
@@ -2661,7 +2746,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     for t, acc, gyr in imu:
         pipe.push_imu(t, acc, gyr)
     searches, groups, cascades, boxes, filt, ins, step = [], [], [], [], {}, {}, {}
-    keys = []
+    keys, isorts = [], []
     reserve_snapshots(pipe.map, len(scans))
     torch.cuda.synchronize()
     reset_counts()
@@ -2669,7 +2754,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
             recorded_lio(cascades), recorded_boxes(pipe, boxes), recorded_calls(vf, filt), \
             recorded_calls(tm, ins, "insert", first=True), \
             recorded_calls(pipeline_mod, step, "lidar_frame_step"), \
-            recorded_all(vf, "_sorted_keys", keys):
+            recorded_all(vf, "_sorted_keys", keys), recorded_insert_sorts(isorts):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -2701,8 +2786,8 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
             or not launches["voxel_centroids"] == launches["voxel_sort"] == filt["n"]
             == len(keys) == len(steady) or launches["voxel_keys"] or launches["vio_dedup"]
             or launches["vio_push"]
-            or not (launches["insert_keys"] == launches["insert_tiles"] == ins["n"]
-                    > len(steady) - 1)
+            or not (launches["insert_sort"] == launches["insert_tiles"] == ins["n"]
+                    == len(isorts) > len(steady) - 1) or launches["insert_keys"]
             or not launches["undistort"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches} for {len(cascades)} cascades, "
                              f"{len(searches)} searches, {len(groups)} groups, "
@@ -2714,7 +2799,7 @@ def path_phase(dev, duration=6.0, points_per_scan=24000):
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate:.4f} m >= 2 cm")
     nums = check_lio_cascades(cascades, "lio per-frame")
-    nums["stages"] = check_stage_calls(keys, [], [], "lio per-frame")
+    nums["stages"] = check_stage_calls(keys, [], [], isorts, "lio per-frame")
     return (pipe, launches, outs, ds, 1e3 * wall / len(outs), cascades[-1][0], nums, boxes,
             {"filter": filt["last"], "insert": ins["last"], "first": ins["first"],
              "frame": step["last"], "keys": keys[-1]})
@@ -2806,7 +2891,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     vio = pipe.vio
     cam_ms, searches, cascades, groups, lio_calls, vio_calls = [], [], [], [], [], []
     boxes, lid_filt, cam_filt, ins, step = [], {}, {}, {}, {}
-    keys, dedups, pushes = [], [], []
+    keys, dedups, pushes, isorts = [], [], [], []
     torch.cuda.synchronize()
     reset_counts()
     with spy(lio, "knn5_plane_search", searches), recorded_cascades(cascades), \
@@ -2816,7 +2901,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             recorded_calls(tm, ins, "insert"), \
             recorded_calls(pipeline_mod, step, "lidar_frame_step"), \
             recorded_all(vf, "_sorted_keys", keys), recorded_all(vio_mod, "_dedup_voxels", dedups), \
-            recorded_pushes(pushes):
+            recorded_pushes(pushes), recorded_insert_sorts(isorts):
         t0 = time.perf_counter()
         outs = pipe.spin()
         torch.cuda.synchronize()
@@ -2855,13 +2940,14 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
             "patches_and_grads": 0, "imu_propagate": len(groups),
             "lio_cascade": len(steady), "vio_select": vio.steps,
             "vio_observations": vio.steps, "delete_boxes": len(boxes),
-            "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": ins["n"],
-            "insert_tiles": ins["n"],
+            "voxel_centroids": lid_filt["n"] + cam_filt["n"], "insert_keys": 0,
+            "insert_tiles": ins["n"], "insert_sort": ins["n"],
             "undistort": max(launches["undistort"], step["n"]), **dict.fromkeys(FLAT_KERNELS, 0),
             "voxel_sort": lid_filt["n"] + cam_filt["n"], "voxel_keys": 0,
             "vio_dedup": vio.steps, "vio_push": vio.fid}
     if (launches != want or lid_filt["n"] != len(steady) or cam_filt["n"] != vio.steps
             or len(keys) != want["voxel_sort"] or len(dedups) != vio.steps
+            or len(isorts) != ins["n"]
             or len(pushes) != vio.fid
             or not ins["n"] >= step["n"] == len(steady)):
         raise AssertionError(f"launches {launches}, want {want}, {lid_filt['n']} lidar and "
@@ -2874,7 +2960,7 @@ def livo_path_phase(dev, duration=6.0, points_per_scan=24000):
     lio_nums = check_lio_cascades(lio_calls, "livo per-frame")
     del lio_calls
     vio_nums = check_vio_calls(vio_calls, "livo per-frame")
-    vio_nums["stages"] = check_stage_calls(keys, dedups, pushes, "livo per-frame")
+    vio_nums["stages"] = check_stage_calls(keys, dedups, pushes, isorts, "livo per-frame")
     return (launches, cascades, float(np.median(cam_ms)), float(np.median(lid_ms)),
             outs, ds, 1e3 * wall / len(outs), nums, lio_nums, vio_nums, vio_calls[-1],
             cam_filt["last"], {"keys": keys[-1], "dedup": dedups[-1], "push": pushes[-1]})
@@ -3190,7 +3276,7 @@ def device_kernels(evs, ranges):
 
 
 MAP_STAGE_KERNELS = ("voxel_centroids", "tiled_delete_boxes", "tiled_insert_keys",
-                     "tiled_insert_tiles", "undistort", "voxel_sort")
+                     "tiled_insert_tiles", "undistort", "voxel_sort", "tiled_insert_sort")
 
 
 def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=True):
@@ -3284,6 +3370,15 @@ def profile_phase(dev, n_warm=30, duration=4.5, points_per_scan=24000, fused=Tru
     if fused and n_sort:
         raise AssertionError(f"lio profile: {n_sort} library sort kernels under "
                              f"frame.voxel_filter")
+    # the tiled insert: its keys and sort one hand-written launch, no library sort
+    mi_host, mi_dev = stage_ms(evs, "frame.map_insert", n)
+    n_isort = sort_kernels_in(prof, "frame.map_insert")
+    res.update(map_insert_sort_kernels=n_isort / n)
+    print(f"profile ({label}): frame.map_insert host {mi_host:.3f} ms/frame, device "
+          f"{mi_dev:.3f} ms/frame, {n_isort / n:.1f} library radix sort kernels/frame")
+    if fused and n_isort:
+        raise AssertionError(f"lio profile: {n_isort} library sort kernels under "
+                             f"frame.map_insert")
     if not fused:
         return res
     if not kernels:
@@ -3378,6 +3473,11 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
     if fused and n_vsort:
         raise AssertionError(f"livo profile: {n_vsort} library sort kernels under "
                              f"vio.voxel_filter")
+    n_isort = sort_kernels_in(prof, "frame.map_insert") + sort_kernels_in(prof,
+                                                                          "frame.voxel_filter")
+    if fused and n_isort:
+        raise AssertionError(f"livo profile: {n_isort} library sort kernels under "
+                             f"frame.map_insert and frame.voxel_filter")
     if fused and (n_sel > n_cam or n_obs > 2 * n_cam):
         raise AssertionError(f"livo profile: {n_sel} kernels under vio.select_*, {n_obs} under "
                              f"vio.observations for {n_cam} camera frames (at most 1 and 2 "
@@ -3416,6 +3516,7 @@ def livo_profile_phase(dev, t_warm=3.0, duration=4.5, points_per_scan=24000, fus
             "observations_kernels": n_obs / n_cam, "observations_host_ms": obs_host,
             "push_kernels": n_push / n_cam, "voxel_filter_kernels": n_vf / n_cam,
             "voxel_filter_sort_kernels": n_vsort / n_cam,
+            "lidar_stage_sort_kernels": n_isort / n_cam,
             "observations_host_reads": reads, "camera_frames": n_cam,
             "device_busy_share": busy / (1e3 * wall),
             "stages": {e.key: {"host_ms": e.cpu_time_total / 1e3 / n_cam,
@@ -5893,6 +5994,9 @@ def main() -> int:
         ("voxel_centroids", "voxel_centroids", "voxel_centroids",
          "fastlivo_tpu/ops/voxel_filter.py:54-71 (voxel_downsample_device after its argsort, "
          "jitted XLA; no Pallas kernel)"),
+        ("tiled_insert_sort", "insert_sort", "tiled_insert",
+         "fastlivo_tpu/ops/tiled_map.py:121-138 (insert up to and with its argsort: keys, "
+         "tiles, hash, distance, packed key, jnp.argsort; jitted XLA; no Pallas kernel)"),
         ("tiled_insert_keys", "insert_keys", "tiled_insert",
          "fastlivo_tpu/ops/tiled_map.py:121-137 (insert before its argsort: keys, tiles, "
          "hash, distance, packed key; jitted XLA; no Pallas kernel)"),

@@ -1,4 +1,4 @@
-// The tiled map's insert around its one sort, for Hopper: two kernels.
+// The tiled map's insert around its one sort, for Hopper: two launches.
 //
 // Replaces no TPU kernel: it is the port of the jitted XLA code of
 // fastlivo_tpu/ops/tiled_map.py::insert (:107-200), whose torch version
@@ -7,17 +7,27 @@
 // and inverse-permutation scatters). ops/tiled_map.py::insert on a CUDA
 // map runs
 //
-//   tiled_insert_keys   one thread a row: the voxel (a true division by
+//   tiled_insert_sort   one cooperative launch: each row's values and
+//                       32-bit sort key (row_key, the device function of
+//                       the key pass below): the voxel (a true division by
 //                       the device voxel size, then floor), the tile and
 //                       its wrapped directory index, the tile's 31-bit
 //                       check (hash_mix.cuh), the in-tile cell, the
 //                       squared distance to the voxel centre summed
-//                       ((e0 e0 + e1 e1) + e2 e2), and the 32-bit sort key
+//                       ((e0 e0 + e1 e1) + e2 e2), and the key
 //                       (dir_idx << 9 | cell) - 2^31, negative for every
 //                       valid row at every directory up to 2^22 entries,
-//                       0 for an invalid row. Writes the key and the row's
-//                       [dir_idx, check, cell, distance bits, flag 0];
-//   torch.sort          stable, on the keys: the sorted keys and `order`,
+//                       0 for an invalid row; the row's [dir_idx, check,
+//                       cell, distance bits, flag 0] written; each
+//                       directory field's min and max over the valid rows
+//                       by integer atomics into the stream's scratch; a
+//                       grid barrier; then the stable 8-bit LSD radix
+//                       passes of csrc/radix_passes.cuh (shared with the
+//                       voxel filter's sort, csrc/voxel_keys.cu) over a
+//                       compact rank of the key (below), as many as its
+//                       bit length needs, decided on the card. Writes the
+//                       sorted keys and `order` (int64): torch.sort(
+//                       stable=True)'s outputs on the keys, bit for bit,
 //                       each (dir_idx, cell) run in row order;
 //   tiled_insert_tiles  one ordinary launch of 3 ceil(B / 1024) blocks,
 //                       taking 1024-position tiles by an int ticket:
@@ -48,6 +58,9 @@
 //                       add to n_dropped (one int atomic a block). Sets
 //                       n_alloc (clamped at T).
 //
+// tiled_insert_keys, the key pass alone (a thread a row: the key and the
+// row's values), is on no path since the sort's launch took its place.
+//
 // Every index a kernel writes is written by one row only (one winner a
 // directory entry, one slot a winner, one winner a cell), so the writes
 // need no atomics and every launch gives the same bits as the plain
@@ -61,6 +74,26 @@
 // sort's radix passes against the 64-bit key that the JAX package packs
 // with the distance bits; the winners' distance order moves from the sort
 // into the marking and cells tickets, which read it from shared memory.
+// The sort's compact rank: with the directory index split into its three
+// wrapped tile fields (dir_idx = fx << (l1 + l2) | fy << l2 | fz), a valid
+// row's rank is
+//   r = ((g_x(fx) R_y + g_y(fy)) R_z + g_z(fz)) 512 + cell,
+// g_q(f) the count of the batch's occupied values of field q below f (the
+// field's occupancy bitmap, set by integer atomicOr, and its prefix
+// popcounts; for a field of more than 8192 values f - min), R_q the count
+// of occupied values (max - min + 1), and an invalid row's rank R_x R_y R_z
+// 512, above every valid rank. g_q is increasing in f, and the fields and
+// the cell do not overlap in the key, so r orders and ties the rows
+// exactly as the key does, and a stable sort's permutation is unique: the
+// outputs are torch.sort's. A scan's batch spans a few tiles a side but,
+// about the world origin where the map starts, straddles the directory's
+// wrap (tile -1 is field value dim - 1): its range min .. max then spans
+// whole fields (29 bits at the shipped 128 x 128 x 64 directory, 4 passes
+// of 8, as many as the key's own), its occupied values a few (the LIO
+// path's batches 4 x 4 x 2 tiles: 14 bits, 2 passes). The sort is bound
+// by its bytes (each row's point and mask read, 13 B; its sorted key,
+// order and row values written, 32 B) and held by its passes' barriers
+// and chains, as the voxel filter's sort is.
 // The cells pass shares the tiles pass's launch and gathers its rows and
 // the stored cells at the entries' slots ahead of its wait, so after the
 // directory writes its chain is one round trip, the runs' directory
@@ -70,6 +103,7 @@
 // and no device query. chip_smoke.py counts each pass's bound from its
 // inputs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -77,6 +111,9 @@
 #include "hash_mix.cuh"
 #include "lookback.cuh"
 #include "phase_stamps.cuh"
+#include "radix_passes.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -133,37 +170,237 @@ __device__ __forceinline__ Rows rows_of(int32_t* base, int B) {
   return Rows{base, base + B, base + 2 * (size_t)B, base + 3 * (size_t)B, base + 4 * (size_t)B};
 }
 
+// A row's values and its sort key, from its point (the first phase of
+// both tiled_insert_keys and tiled_insert_sort): the wrapped directory
+// index, the tile's check, the in-tile cell, the distance to the voxel
+// centre's f32 bits; the key (dir_idx << 9 | cell) - 2^31, or 0 for an
+// invalid row.
+struct RowVals {
+  int32_t dir, chk, cofs, bits;
+};
+
+__device__ __forceinline__ int32_t row_key(const float* __restrict__ pts,
+                                           const bool* __restrict__ valid, float vs, int l0,
+                                           int l1, int l2, int i, RowVals& v) {
+  float p[3];
+  int32_t k[3];
+  voxel_of(pts, i, vs, p, k);
+  const int32_t tx = k[0] >> 3, ty = k[1] >> 3, tz = k[2] >> 3;
+  v.cofs = ((k[0] & 7) << 6) | ((k[1] & 7) << 3) | (k[2] & 7);
+  v.dir = ((tx & ((1 << l0) - 1)) << (l1 + l2)) | ((ty & ((1 << l1) - 1)) << l2)
+          | (tz & ((1 << l2) - 1));
+  v.chk = check31(tx, ty, tz);
+  float e[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) e[a] = p[a] - ((float)k[a] + 0.5f) * vs;
+  const float d2c = (e[0] * e[0] + e[1] * e[1]) + e[2] * e[2];
+  v.bits = __float_as_int(d2c);
+  // dir_idx << 9 | cell < 2^31 at D <= 2^22: minus 2^31 flips the top bit
+  const int32_t key = static_cast<int32_t>(((static_cast<uint32_t>(v.dir) << 9)
+                                            | static_cast<uint32_t>(v.cofs)) ^ KEY_BIAS);
+  return valid[i] ? key : 0;
+}
+
+__device__ __forceinline__ void write_row(const Rows& rows, int i, const RowVals& v) {
+  rows.dir[i] = v.dir;
+  rows.chk[i] = v.chk;
+  rows.cofs[i] = v.cofs;
+  rows.d2c[i] = v.bits;
+  rows.flag[i] = 0;
+}
+
 __global__ void __launch_bounds__(THREADS) tiled_insert_keys_kernel(
     const float* __restrict__ pts, const bool* __restrict__ valid,
     const float* __restrict__ voxel_size, const int32_t* __restrict__ log2_dims, int B,
     int32_t* __restrict__ gkey, int32_t* __restrict__ rows_base) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= B) return;
-  const Rows rows = rows_of(rows_base, B);
-  const float vs = voxel_size[0];
-  const int l0 = log2_dims[0], l1 = log2_dims[1], l2 = log2_dims[2];
-  float p[3];
-  int32_t k[3];
-  voxel_of(pts, i, vs, p, k);
-  const int32_t tx = k[0] >> 3, ty = k[1] >> 3, tz = k[2] >> 3;
-  const int32_t cofs = ((k[0] & 7) << 6) | ((k[1] & 7) << 3) | (k[2] & 7);
-  const int32_t dir = ((tx & ((1 << l0) - 1)) << (l1 + l2)) | ((ty & ((1 << l1) - 1)) << l2)
-                      | (tz & ((1 << l2) - 1));
-  const int32_t chk = check31(tx, ty, tz);
-  float e[3];
+  RowVals v;
+  gkey[i] = row_key(pts, valid, voxel_size[0], log2_dims[0], log2_dims[1], log2_dims[2], i, v);
+  write_row(rows_of(rows_base, B), i, v);
+}
+
+// The sort's first launch phase and pass 0 compute the keys from the rows.
+struct KeySource {
+  const float* pts;
+  const bool* valid;
+  float vs;
+  int l0, l1, l2;
+  __device__ __forceinline__ int32_t key(int i) const {
+    RowVals v;
+    return row_key(pts, valid, vs, l0, l1, l2, i, v);
+  }
+};
+
+// The sort's fields: a field of at most DENSE_BITS directory values (the
+// shipped 128 x 128 x 64 directory's three) ranks its values by their
+// occupancy bitmap, wider ones by their offset from the batch's least.
+constexpr int DENSE_BITS = 8192;
+constexpr int DENSE_WORDS = DENSE_BITS / 32;
+static_assert(DENSE_WORDS == radix::THREADS, "a thread a bitmap word of each field");
+constexpr long long FIELD_OFF = 1LL << 22;  // above every directory field
+constexpr int BITMAPS = radix::HEAD;  // the fields' bitmaps' first scratch word
+constexpr int SORT_HEAD = BITMAPS + 3 * DENSE_WORDS;  // the sort's header words
+
+// The compact rank of a key (see the top), the same in every thread after
+// the first barrier.
+struct Rank {
+  const unsigned* bm;   // (3, DENSE_WORDS) the fields' occupancy bitmaps (shared)
+  const unsigned* pre;  // (3, DENSE_WORDS) their exclusive prefix popcounts (shared)
+  unsigned lo[3];       // a wide field's least value
+  int dense;            // bit q: field q ranks by its bitmap
+  unsigned long long ry, rz, rinv;  // R_y, R_z, R_x R_y R_z 512 (an invalid row's rank)
+  int l1, l2;
+  __device__ __forceinline__ unsigned field(int q, unsigned f) const {
+    if (!((dense >> q) & 1)) return f - lo[q];
+    const int w = q * DENSE_WORDS + static_cast<int>(f >> 5);
+    return pre[w] + __popc(bm[w] & ((1u << (f & 31)) - 1u));
+  }
+  __device__ __forceinline__ unsigned long long operator()(int32_t key) const {
+    if (!key_valid(key)) return rinv;
+    const uint32_t c = key_cell(key), dir = c >> 9;
+    const uint32_t fx = dir >> (l1 + l2), fy = (dir >> l2) & ((1u << l1) - 1u),
+                   fz = dir & ((1u << l2) - 1u);
+    return (((static_cast<unsigned long long>(field(0, fx)) * ry + field(1, fy)) * rz
+             + field(2, fz)) << 9) + (c & (TC - 1));
+  }
+};
+
+struct SortArgs {
+  const float* pts;           // (B, 3)
+  const bool* valid;          // (B,)
+  const float* voxel_size;    // ()
+  const int32_t* log2_dims;   // (3,)
+  int32_t* rows;              // (5, B) out
+  radix::Buffers<int32_t> out;
+};
+
+// At most 128 registers a thread (two blocks an SM), as the voxel filter's
+// sort.
+template <int ITEMS>
+__global__ void __launch_bounds__(radix::THREADS, 2) tiled_insert_sort_kernel(SortArgs a) {
+  __shared__ radix::Shared<int32_t, ITEMS> s;
+  __shared__ unsigned s_bm[3 * DENSE_WORDS];   // the fields' occupancy bitmaps
+  __shared__ unsigned s_pre[3 * DENSE_WORDS];  // their exclusive prefix popcounts
+  __shared__ unsigned s_wpre[3][radix::WARPS];
+  PHASE_STAMP_START();
+  cg::grid_group grid = cg::this_grid();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, b = blockIdx.x;
+  const int n = a.out.n;
+  const int ntiles = (n + radix::THREADS * ITEMS - 1) / (radix::THREADS * ITEMS);
+  const int j0 = b * a.out.tiles, j1 = min(j0 + a.out.tiles, ntiles);  // this block's tiles
+  const int l0 = a.log2_dims[0], l1 = a.log2_dims[1], l2 = a.log2_dims[2];
+  const int dense = ((1 << l0) <= DENSE_BITS) | ((1 << l1) <= DENSE_BITS) << 1
+                    | ((1 << l2) <= DENSE_BITS) << 2;
+  const KeySource src{a.pts, a.valid, a.voxel_size[0], l0, l1, l2};
+  const Rows rows = rows_of(a.rows, n);
+  unsigned* gbm = a.out.ws + BITMAPS;
+
+  // phase 1: the keys, the rows' values written, each field's extremes
+  // and occupied values (the block's last tile's keys stay)
+  if (t < radix::W_DONE) s.red[t] = 0;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) e[a] = p[a] - ((float)k[a] + 0.5f) * vs;
-  const float d2c = (e[0] * e[0] + e[1] * e[1]) + e[2] * e[2];
-  const int32_t bits = __float_as_int(d2c);
-  // dir_idx << 9 | cell < 2^31 at D <= 2^22: minus 2^31 flips the top bit
-  const int32_t key = static_cast<int32_t>(((static_cast<uint32_t>(dir) << 9)
-                                            | static_cast<uint32_t>(cofs)) ^ KEY_BIAS);
-  gkey[i] = valid[i] ? key : 0;
-  rows.dir[i] = dir;
-  rows.chk[i] = chk;
-  rows.cofs[i] = cofs;
-  rows.d2c[i] = bits;
-  rows.flag[i] = 0;
+  for (int q = 0; q < 3; ++q) s_bm[q * DENSE_WORDS + t] = 0;
+  __syncthreads();
+  int32_t key[ITEMS] = {};
+  int row[ITEMS];
+  unsigned hi[3] = {0, 0, 0}, lo[3] = {0, 0, 0}, inv = 0;
+  for (int j = j0; j < j1; ++j) {
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int pos = radix::position<ITEMS>(j, i);
+      row[i] = pos;
+      unsigned f[3] = {~0u, ~0u, ~0u};  // a valid row's fields
+      if (pos < n) {
+        RowVals v;
+        key[i] = row_key(src.pts, src.valid, src.vs, l0, l1, l2, pos, v);
+        write_row(rows, pos, v);
+        if (key_valid(key[i])) {
+          const unsigned d = static_cast<unsigned>(v.dir);
+          f[0] = d >> (l1 + l2);
+          f[1] = (d >> l2) & ((1u << l1) - 1u);
+          f[2] = d & ((1u << l2) - 1u);
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            hi[q] = max(hi[q], f[q] + 1u);
+            lo[q] = max(lo[q], static_cast<unsigned>(FIELD_OFF) - f[q]);
+          }
+        } else {
+          inv = 1;
+        }
+      }
+      // each value into the block's bitmap where it differs from the lane
+      // before's (neighbouring rows mostly share their tiles)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        if (!((dense >> q) & 1)) continue;
+        const unsigned prev = __shfl_up_sync(radix::FULL, f[q], 1);
+        if (f[q] != ~0u && (lane == 0 || prev != f[q]))
+          atomicOr(&s_bm[q * DENSE_WORDS + (f[q] >> 5)], 1u << (f[q] & 31));
+      }
+    }
+  }
+  radix::reduce_extremes(hi, lo, inv, s, a.out.ws);  // (its __syncthreads orders the bitmaps)
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const unsigned w = s_bm[q * DENSE_WORDS + t];
+    if (w) atomicOr(gbm + q * DENSE_WORDS + t, w);
+  }
+  PHASE_STAMP(1);
+  grid.sync();  // every block's extremes and bitmaps in the header
+  PHASE_STAMP(2);
+
+  // each dense field's occupied values and their prefix counts: a thread a
+  // word of each field, a block scan
+  unsigned c[3], incl[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    s_bm[q * DENSE_WORDS + t] = __ldcg(gbm + q * DENSE_WORDS + t);
+    c[q] = __popc(s_bm[q * DENSE_WORDS + t]);
+    incl[q] = c[q];
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const unsigned v = __shfl_up_sync(radix::FULL, incl[q], o);
+      if (lane >= o) incl[q] += v;
+    }
+  if (lane == 31)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) s_wpre[q][warp] = incl[q];
+  __syncthreads();
+  unsigned count[3] = {0, 0, 0};  // each field's occupied values
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    unsigned before = incl[q] - c[q];
+    for (int w = 0; w < radix::WARPS; ++w) {
+      before += w < warp ? s_wpre[q][w] : 0u;
+      count[q] += s_wpre[q][w];
+    }
+    s_pre[q * DENSE_WORDS + t] = before;
+  }
+  __syncthreads();
+
+  const radix::Extent e = radix::extent_of(a.out.ws, FIELD_OFF);
+  Rank rank;
+  rank.bm = s_bm;
+  rank.pre = s_pre;
+  rank.dense = dense;
+  unsigned long long r[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    rank.lo[q] = static_cast<unsigned>(e.lo[q]);
+    r[q] = (dense >> q) & 1 ? count[q] : e.r[q];
+  }
+  rank.ry = r[1];
+  rank.rz = r[2];
+  rank.rinv = (r[0] * r[1] * r[2]) << 9;
+  rank.l1 = l1;
+  rank.l2 = l2;
+  const unsigned long long rmax = !e.any ? 0ull : e.inv ? rank.rinv : rank.rinv - 1;
+  radix::sort_passes<ITEMS>(grid, src, rank, radix::passes_for(rmax), a.out, s, key, row,
+                            a.out.tiles == 1);
 }
 
 // The second launch's scratch, in ints: the ticket, the tiles marked,
@@ -602,6 +839,13 @@ int blocks_of(int n) { return (n + THREADS - 1) / THREADS; }
 // the row tiles: at least one, so B = 0 still writes the counts
 int tiles_of(int B) { return B > TILE_ROWS ? (B + TILE_ROWS - 1) / TILE_ROWS : 1; }
 
+// rows a thread in a sort tile: tiles of 512 rows (32 blocks at the LIO
+// path's 16384) measured faster than of 1024 (16 blocks) and as fast as of
+// 256 (scripts/torch_vio_kernels_bench.py, PERF.md)
+constexpr int SORT_ITEMS = 2;
+constexpr int SORT_TILE = radix::THREADS * SORT_ITEMS;
+int g_resident[radix::MAX_DEV];
+
 }  // namespace
 
 // C interface for ctypes. Every pointer is to contiguous device memory;
@@ -618,6 +862,55 @@ extern "C" int tiled_insert_keys_launch(const void* pts, const void* valid,
       static_cast<const float*>(pts), static_cast<const bool*>(valid),
       static_cast<const float*>(voxel_size), static_cast<const int32_t*>(log2_dims), B,
       static_cast<int32_t*>(gkey), static_cast<int32_t*>(rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scratch the sort of B rows takes: 32-bit words, zeroed once by the
+// caller; every launch leaves them at 0. -1: B >= 2^30 (as the second
+// launch).
+extern "C" int tiled_insert_sort_scratch_ints(int B) {
+  if (B < 0 || static_cast<unsigned>(B) > lookback::VALUE) return -1;
+  return radix::scratch_ints(B, SORT_TILE, SORT_HEAD);
+}
+
+// pts, valid, voxel_size, log2_dims as tiled_insert_keys_launch; writes
+// sg (B,) int32 (the keys in sorted order), order (B,) int64 (the stable
+// sort's permutation) and rows (5, B) int32 (each row's values, flag 0):
+// tiled_insert_keys' outputs and torch.sort(stable=True)'s of its keys.
+// tmp_keys, tmp_rows (B,) int32: the passes' other buffer; ws
+// tiled_insert_sort_scratch_ints(B) int32 zeros (left at 0). One
+// cooperative launch; a block takes consecutive tiles of 512 rows, one
+// while the tiles fit on the card at once. B = 0 launches nothing. Writes
+// the grid's block count to *grid_out and the tiles a block to *tiles_out.
+extern "C" int tiled_insert_sort_launch(const void* pts, const void* valid,
+                                        const void* voxel_size, const void* log2_dims,
+                                        void* sg, void* order, void* tmp_keys, void* tmp_rows,
+                                        void* rows, void* ws, int B, int* grid_out,
+                                        int* tiles_out, void* stream) {
+  *grid_out = 0;
+  *tiles_out = 0;
+  if (tiled_insert_sort_scratch_ints(B) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const void* kernel = reinterpret_cast<const void*>(tiled_insert_sort_kernel<SORT_ITEMS>);
+  int resident = 0;
+  cudaError_t e = radix::resident_blocks(kernel, g_resident, &resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int grid = 0, tiles = 0;
+  radix::plan(B, SORT_TILE, resident, &grid, &tiles);
+  SortArgs a{static_cast<const float*>(pts), static_cast<const bool*>(valid),
+             static_cast<const float*>(voxel_size), static_cast<const int32_t*>(log2_dims),
+             static_cast<int32_t*>(rows),
+             radix::Buffers<int32_t>{static_cast<int32_t*>(sg), static_cast<long long*>(order),
+                                     static_cast<int32_t*>(tmp_keys),
+                                     static_cast<int*>(tmp_rows), static_cast<unsigned*>(ws),
+                                     SORT_HEAD, B, tiles}};
+  void* args[] = {&a};
+  *grid_out = grid;
+  *tiles_out = tiles;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)),
+                                  dim3(radix::THREADS), args, 0,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

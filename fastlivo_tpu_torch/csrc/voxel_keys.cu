@@ -37,41 +37,17 @@
 // max - min + 1, and R_x R_y R_z for an invalid row. The fields do not
 // overlap and the marker lies above them, so r orders and ties the rows
 // exactly as the packed key does (a stable sort's permutation is unique,
-// so the two sorts give the same permutation). The rows are cut into
-// tiles of 1024 positions; a block takes consecutive tiles (one while the
-// tiles fit on the card at once, as at the main path's 32768 rows: its
-// rows then stay in registers from phase to phase; more past that, each
-// computed or loaded again where it is used). Phase 1: each block computes
-// its tiles' keys and reduces each field's min and max and a has-invalid
-// flag into the scratch by integer atomics (max of f + 1 and of 2^20 - f:
-// the scratch's 0 is "no row"). Grid barrier. Every thread reads them and
-// derives R and the pass count ceil(bits(r_max) / 8) on the device (0
-// where every rank is equal: the identity; up to 8 where the spread needs
-// all 60 bits and the marker). Then stable LSD radix passes of 8 bits over
-// (key, row), r recomputed from the key each pass: a warp holds 32 * 4
-// positions of a tile, item i of lane l at position i * 32 + l (coalesced
-// loads), and ranks its items in order by ballots on the digit's bits and
-// a counter per warp and digit in shared memory; a thread a digit
-// turns the counters into the warps' offsets and the tile's count. A
-// digit's first position in a block is the exclusive scan over digits of
-// every block's counts plus the same digit's count in the blocks before,
-// read from the pass's histogram (G x 256 words), and moves on by each
-// tile's count. A tile is put in its sorted order in shared memory first
-// (each digit's rows from the digit's first place in the tile), then
-// written out a thread a place, so that a warp writes runs of consecutive
-// positions. Pass 0's histogram is each block's own count, stored and
-// shared by a second grid barrier; pass p + 1's is accumulated during
-// pass p's writes: each row adds one (an integer atomic) to the count of
-// its next digit in the block its new position falls in, so the grid
-// barrier that ends pass p also completes pass p + 1's histogram (one
-// barrier a pass, passes + 1 in all). The histograms rotate through three
-// buffers; a block zeroes its row of the buffer read two passes back, and
-// the last block to finish zeroes the last pass's buffer and the header,
-// so the scratch the wrapper zeroed once is back at 0 for the stream's
-// next launch. The passes alternate between (tmp_keys, tmp_rows) and the
-// outputs, the last pass writing keys and order (int64). Scratch written
-// in the launch is read through L2 (__ldcg); integer atomics only: every
-// launch gives the same bits.
+// so the two sorts give the same permutation). Phase 1: each block
+// computes its tiles' keys and reduces each field's min and max and a
+// has-invalid flag into the scratch by integer atomics (max of f + 1 and of
+// 2^20 - f: the scratch's 0 is "no row"). Grid barrier. Every thread reads
+// them and derives R and the pass count ceil(bits(r_max) / 8) on the
+// device (0 where every rank is equal: the identity; up to 8 where the
+// spread needs all 60 bits and the marker). Then the stable LSD radix
+// passes of csrc/radix_passes.cuh over (key, row), shared with the tiled
+// insert's sort (csrc/tiled_insert.cu): tiles of 1024 positions, a block
+// their consecutive run, one grid barrier a pass, three rotating histogram
+// buffers left at 0.
 //
 // Bound on an H100: the sort reads 12 B of each row and its valid byte and
 // writes 16 B (keys and order; ~0.3 us at the LIO scan's 32768 rows); its
@@ -79,15 +55,15 @@
 // What holds it: the launch, its passes + 1 grid barriers (~1 us each on
 // this card) and the chains inside a pass (a warp's items in order, the
 // G-row histogram sum, the digit scan). Built with -DPHASE_STAMPS
-// (csrc/phase_stamps.cuh) the launch stamps the keys, the first barrier,
-// pass 0's count and second barrier, and each pass's offsets, ranking and
-// scatter, and barrier.
+// (csrc/phase_stamps.cuh) the launch stamps the keys and the first
+// barrier, and the passes theirs (radix_passes.cuh).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "phase_stamps.cuh"
+#include "radix_passes.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -97,18 +73,6 @@ constexpr int THREADS = 256;
 constexpr long long INVALID = 1LL << 62;
 constexpr long long OFF = 1LL << 19;
 constexpr long long MASK20 = 0xFFFFF;
-constexpr unsigned FULL = 0xffffffffu;
-
-// the sort's shape: 256 threads, one digit each in the offset phase
-constexpr int SORT_THREADS = 256;
-constexpr int WARPS = SORT_THREADS / 32;
-constexpr int DIGIT_BITS = 8;
-constexpr int DIGITS = 1 << DIGIT_BITS;
-static_assert(DIGITS == SORT_THREADS, "a thread a digit");
-// scratch header (32-bit words): each field's max + 1, each field's 2^20 -
-// min, has-invalid, the count of finished blocks; the histograms follow
-constexpr int W_HI = 0, W_LO = 3, W_INV = 6, W_DONE = 7, HEAD = 16;
-constexpr int NBUF = 3;  // rotating histogram buffers
 
 // The packed key of row i (see the top): the key pass of both launches.
 __device__ __forceinline__ long long packed_key(const float* __restrict__ pts,
@@ -139,148 +103,57 @@ struct Sort {
   const float* pts;      // (n, c)
   const uint8_t* valid;  // (n,)
   const float* scale;    // ()
-  long long* keys;       // (n,) out: the keys in sorted order
-  long long* order;      // (n,) out: the stable sort's permutation
-  long long* tmp_keys;   // (n,) the passes' other buffer
-  int* tmp_rows;         // (n,)
-  unsigned* ws;          // scratch: HEAD + NBUF G DIGITS words, zeros, left at 0
-  int divide, n, c;
-  int tiles;             // tiles a block (the last block may have fewer)
+  radix::Buffers<long long> out;
+  int divide, c;
 };
 
-// The compact rank's parameters, the same in every thread after the first
-// barrier.
-struct Span {
+// Pass 0's keys: computed from the rows.
+struct KeySource {
+  const float* pts;
+  const uint8_t* valid;
+  float s;
+  int divide, c;
+  __device__ __forceinline__ long long key(int i) const {
+    return packed_key(pts, valid, s, divide, i, c);
+  }
+};
+
+// The compact rank (see the top), the same in every thread after the
+// first barrier.
+struct Rank {
   long long lo[3];
   unsigned long long ry, rz, rinv;  // R_y, R_z, R_x R_y R_z (an invalid row's rank)
-  int passes;
+  __device__ __forceinline__ unsigned long long operator()(long long key) const {
+    if (key == INVALID) return rinv;
+    const long long fx = (key >> 40) & MASK20, fy = (key >> 20) & MASK20, fz = key & MASK20;
+    return (static_cast<unsigned long long>(fx - lo[0]) * ry +
+            static_cast<unsigned long long>(fy - lo[1])) * rz +
+           static_cast<unsigned long long>(fz - lo[2]);
+  }
 };
-
-__device__ __forceinline__ unsigned long long rank_of(long long key, const Span& s) {
-  if (key == INVALID) return s.rinv;
-  const long long fx = (key >> 40) & MASK20, fy = (key >> 20) & MASK20, fz = key & MASK20;
-  return (static_cast<unsigned long long>(fx - s.lo[0]) * s.ry +
-          static_cast<unsigned long long>(fy - s.lo[1])) * s.rz +
-         static_cast<unsigned long long>(fz - s.lo[2]);
-}
-
-__device__ __forceinline__ int digit_of(long long key, const Span& s, int p) {
-  return static_cast<int>((rank_of(key, s) >> (DIGIT_BITS * p)) & (DIGITS - 1));
-}
-
-// The lanes of `in` holding the same digit as this lane, by one ballot a
-// digit bit.
-__device__ __forceinline__ unsigned same_digit(int d, unsigned in) {
-  unsigned peers = in;
-#pragma unroll
-  for (int bit = 0; bit < DIGIT_BITS; ++bit) {
-    const unsigned bal = __ballot_sync(FULL, (d >> bit) & 1);
-    peers &= (d >> bit) & 1 ? bal : ~bal;
-  }
-  return peers;
-}
-
-// A tile's elements, item i of the thread at position tile * TILE + warp *
-// 32 * ITEMS + i * 32 + lane: pass 0 computes the keys of those rows, a
-// later pass reads (key, row) where the pass before left them (the outputs
-// when `from_out`, else the other buffer). Positions past n: INVALID.
-template <int ITEMS>
-__device__ __forceinline__ void load_tile(const Sort& a, int tile, int p, bool from_out,
-                                          long long key[ITEMS], int row[ITEMS]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int seg = tile * SORT_THREADS * ITEMS + warp * 32 * ITEMS;
-  const float s = p == 0 ? *a.scale : 0.f;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int pos = seg + i * 32 + lane;
-    key[i] = INVALID;
-    row[i] = pos;
-    if (pos < a.n) {
-      if (p == 0) {
-        key[i] = packed_key(a.pts, a.valid, s, a.divide, pos, a.c);
-      } else {
-        key[i] = from_out ? __ldcg(a.keys + pos) : __ldcg(a.tmp_keys + pos);
-        row[i] = from_out ? static_cast<int>(__ldcg(a.order + pos)) : __ldcg(a.tmp_rows + pos);
-      }
-    }
-  }
-}
-
-// A tile's ranking in pass p: each warp's items in order among its equal
-// digits (rnk), then thread t turns the warps' counts of digit t into their
-// offsets in s_wcnt and returns the tile's count of digit t.
-template <int ITEMS>
-__device__ __forceinline__ unsigned rank_tile(const Span& sp, int p, int tile, int n,
-                                              const long long key[ITEMS], int digit[ITEMS],
-                                              unsigned rnk[ITEMS],
-                                              unsigned (*s_wcnt)[DIGITS]) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int seg = tile * SORT_THREADS * ITEMS + warp * 32 * ITEMS;
-  const unsigned lt = (1u << lane) - 1u;
-#pragma unroll
-  for (int k = lane; k < DIGITS; k += 32) s_wcnt[warp][k] = 0;
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const bool in = seg + i * 32 + lane < n;
-    digit[i] = in ? digit_of(key[i], sp, p) : 0;
-    const unsigned peers = same_digit(digit[i], __ballot_sync(FULL, in));
-    unsigned before = 0;
-    if (in) {
-      before = s_wcnt[warp][digit[i]];
-      rnk[i] = before + __popc(peers & lt);
-    }
-    __syncwarp();
-    if (in && lane == __ffs(peers) - 1) s_wcnt[warp][digit[i]] = before + __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  unsigned count = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const unsigned c = s_wcnt[w][t];
-    s_wcnt[w][t] = count;
-    count += c;
-  }
-  __syncthreads();
-  return count;
-}
 
 // At most 128 registers a thread (two blocks an SM): left to itself ptxas
 // gave some builds of this kernel 64 and spills, and those ran 10-30%
 // slower on the card (scripts/torch_vio_kernels_bench.py, PERF.md).
 template <int ITEMS>
-__global__ void __launch_bounds__(SORT_THREADS, 2) voxel_sort_kernel(Sort a) {
-  constexpr int TILE = SORT_THREADS * ITEMS;
-  __shared__ unsigned s_wcnt[WARPS][DIGITS];  // a warp's count, then offset, of each digit
-  __shared__ unsigned s_base[DIGITS];         // each digit's next position in this block
-  __shared__ unsigned s_tstart[DIGITS];       // each digit's first place in the tile's order
-  __shared__ long long s_key[TILE];           // the tile in its sorted order
-  __shared__ int s_row[TILE];
-  __shared__ uint8_t s_dig[TILE];
-  __shared__ unsigned s_red[W_DONE];          // the block's extremes and invalid flag
-  __shared__ unsigned s_wsum[WARPS];
-  __shared__ int s_last;
+__global__ void __launch_bounds__(radix::THREADS, 2) voxel_sort_kernel(Sort a) {
+  __shared__ radix::Shared<long long, ITEMS> s;
   PHASE_STAMP_START();
   cg::grid_group grid = cg::this_grid();
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, b = blockIdx.x, G = gridDim.x;
-  const int n = a.n;
-  const int ntiles = (n + TILE - 1) / TILE;
-  const int j0 = b * a.tiles, j1 = min(j0 + a.tiles, ntiles);  // this block's tiles
-  const bool one = a.tiles == 1;  // its one tile kept in registers from pass to pass
-  const unsigned span = static_cast<unsigned>(a.tiles) * TILE;  // positions a block
-  unsigned* hist = a.ws + HEAD;
-  const size_t hsize = static_cast<size_t>(G) * DIGITS;
+  const int t = threadIdx.x, b = blockIdx.x;
+  const int n = a.out.n;
+  const int ntiles = (n + radix::THREADS * ITEMS - 1) / (radix::THREADS * ITEMS);
+  const int j0 = b * a.out.tiles, j1 = min(j0 + a.out.tiles, ntiles);  // this block's tiles
+  const KeySource src{a.pts, a.valid, *a.scale, a.divide, a.c};
 
   // phase 1: the keys' extremes (the block's last tile's keys stay)
-  if (t < W_DONE) s_red[t] = 0;
+  if (t < radix::W_DONE) s.red[t] = 0;
   __syncthreads();
-  long long key[ITEMS];
-  int row[ITEMS], digit[ITEMS];
-  unsigned rnk[ITEMS];
+  long long key[ITEMS] = {};
+  int row[ITEMS];
   unsigned hi[3] = {0, 0, 0}, lo[3] = {0, 0, 0}, inv = 0;
   for (int j = j0; j < j1; ++j) {
-    load_tile<ITEMS>(a, j, 0, false, key, row);
+    radix::load_tile<ITEMS>(src, a.out, j, 0, false, key, row);
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       if (row[i] >= n) continue;
@@ -296,196 +169,26 @@ __global__ void __launch_bounds__(SORT_THREADS, 2) voxel_sort_kernel(Sort a) {
       }
     }
   }
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    hi[q] = __reduce_max_sync(FULL, hi[q]);
-    lo[q] = __reduce_max_sync(FULL, lo[q]);
-  }
-  inv = __reduce_max_sync(FULL, inv);
-  if (lane == 0) {
-    for (int q = 0; q < 3; ++q) {
-      atomicMax(&s_red[W_HI + q], hi[q]);
-      atomicMax(&s_red[W_LO + q], lo[q]);
-    }
-    atomicMax(&s_red[W_INV], inv);
-  }
-  __syncthreads();
-  if (t < W_DONE && s_red[t]) atomicMax(a.ws + t, s_red[t]);
+  radix::reduce_extremes(hi, lo, inv, s, a.out.ws);
   PHASE_STAMP(1);
-  grid.sync();  // A: every block's extremes in the header
+  grid.sync();  // every block's extremes in the header
   PHASE_STAMP(2);
 
-  Span sp;
-  {
-    unsigned w[W_DONE];
+  const radix::Extent e = radix::extent_of(a.out.ws, 1LL << 20);
+  Rank rank;
 #pragma unroll
-    for (int k = 0; k < W_DONE; ++k) w[k] = __ldcg(a.ws + k);
-    unsigned long long rmax = 0;
-    sp.ry = sp.rz = sp.rinv = 0;
-    sp.lo[0] = sp.lo[1] = sp.lo[2] = 0;
-    if (w[W_HI] != 0) {  // a valid row
-      unsigned long long r[3];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        sp.lo[q] = (1LL << 20) - static_cast<long long>(w[W_LO + q]);
-        r[q] = static_cast<unsigned long long>(static_cast<long long>(w[W_HI + q]) - sp.lo[q]);
-      }
-      sp.ry = r[1];
-      sp.rz = r[2];
-      sp.rinv = r[0] * r[1] * r[2];
-      rmax = w[W_INV] ? sp.rinv : sp.rinv - 1;
-    }
-    sp.passes = rmax ? (64 - __clzll(static_cast<long long>(rmax)) + DIGIT_BITS - 1) / DIGIT_BITS
-                     : 0;
-  }
-
-  if (sp.passes == 0) {  // every rank equal: the identity
-    for (int j = j0; j < j1; ++j) {
-      if (!one) load_tile<ITEMS>(a, j, 0, false, key, row);
-#pragma unroll
-      for (int i = 0; i < ITEMS; ++i)
-        if (row[i] < n) {
-          a.keys[row[i]] = key[i];
-          a.order[row[i]] = row[i];
-        }
-    }
-  }
-  unsigned tcount = 0;  // the current tile's count of digit t
-  if (sp.passes > 0) {  // pass 0's count of each digit in this block's tiles, for all blocks
-    unsigned count = 0;
-    for (int j = j0; j < j1; ++j) {
-      if (!one) load_tile<ITEMS>(a, j, 0, false, key, row);
-      tcount = rank_tile<ITEMS>(sp, 0, j, n, key, digit, rnk, s_wcnt);
-      count += tcount;
-    }
-    hist[static_cast<size_t>(b) * DIGITS + t] = count;
-    PHASE_STAMP_IT(0, 0);
-    grid.sync();  // B: every block's pass-0 count
-  }
-  for (int p = 0; p < sp.passes; ++p) {
-    PHASE_STAMP_IT(p, 1);
-    const bool last = p == sp.passes - 1;
-    const bool to_out = ((sp.passes - 1 - p) & 1) == 0;  // the last pass writes the outputs
-    // the digit's count in the blocks before this one, and in all: the
-    // column's words loaded 32 at a time, all in flight together
-    const unsigned* H = hist + static_cast<size_t>(p % NBUF) * hsize;
-    unsigned before = 0, total = 0;
-    {
-      const unsigned* col = H + t;
-      int k = 0;
-      for (; k + 32 <= G; k += 32) {
-        unsigned v[32];
-#pragma unroll
-        for (int u = 0; u < 32; ++u) v[u] = __ldcg(col + static_cast<size_t>(k + u) * DIGITS);
-#pragma unroll
-        for (int u = 0; u < 32; ++u) {
-          total += v[u];
-          before += k + u < b ? v[u] : 0u;
-        }
-      }
-      for (; k < G; ++k) {
-        const unsigned v = __ldcg(col + static_cast<size_t>(k) * DIGITS);
-        total += v;
-        before += k < b ? v : 0u;
-      }
-    }
-    // exclusive scan of the totals over the digits
-    unsigned incl = total;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned v = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += v;
-    }
-    if (lane == 31) s_wsum[warp] = incl;
-    // this block's row of the histogram read two passes back, for pass p + 2
-    if (p > 0)
-      hist[static_cast<size_t>((p + 2) % NBUF) * hsize + static_cast<size_t>(b) * DIGITS + t] = 0;
-    __syncthreads();
-    unsigned off = incl - total + before;
-    for (int w = 0; w < warp; ++w) off += s_wsum[w];
-    s_base[t] = off;
-    __syncthreads();
-    PHASE_STAMP_IT(p, 2);
-    // each tile in order: its ranking; the tile put in its sorted order in
-    // shared memory (each digit's rows from its first place there), then
-    // written out a thread a place, so that a warp's writes are contiguous
-    // runs; the next pass's histogram by the blocks the rows land in
-    unsigned* Hn = hist + static_cast<size_t>((p + 1) % NBUF) * hsize;
-    for (int j = j0; j < j1; ++j) {
-      if (!(one && p == 0)) {  // (pass 0's one tile is ranked already)
-        load_tile<ITEMS>(a, j, p, !to_out, key, row);
-        tcount = rank_tile<ITEMS>(sp, p, j, n, key, digit, rnk, s_wcnt);
-      }
-      unsigned inc = tcount;  // the exclusive scan of the tile's counts
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned v = __shfl_up_sync(FULL, inc, o);
-        if (lane >= o) inc += v;
-      }
-      if (lane == 31) s_wsum[warp] = inc;
-      __syncthreads();
-      unsigned tst = inc - tcount;
-      for (int w = 0; w < warp; ++w) tst += s_wsum[w];
-      s_tstart[t] = tst;
-      __syncthreads();
-      const int seg = j * TILE + warp * 32 * ITEMS;
-#pragma unroll
-      for (int i = 0; i < ITEMS; ++i)
-        if (seg + i * 32 + lane < n) {
-          const unsigned place = s_tstart[digit[i]] + s_wcnt[warp][digit[i]] + rnk[i];
-          s_key[place] = key[i];
-          s_row[place] = row[i];
-          s_dig[place] = static_cast<uint8_t>(digit[i]);
-        }
-      __syncthreads();
-      const int tile_n = min(TILE, n - j * TILE);
-#pragma unroll
-      for (int m = 0; m < ITEMS; ++m) {
-        const int place = m * SORT_THREADS + t;
-        if (place >= tile_n) continue;
-        const int d = s_dig[place];
-        const long long k = s_key[place];
-        const int r = s_row[place];
-        const unsigned pos = s_base[d] + place - s_tstart[d];
-        if (to_out) {
-          a.keys[pos] = k;
-          a.order[pos] = r;
-        } else {
-          a.tmp_keys[pos] = k;
-          a.tmp_rows[pos] = r;
-        }
-        if (!last)
-          atomicAdd(Hn + static_cast<size_t>(pos / span) * DIGITS + digit_of(k, sp, p + 1), 1u);
-      }
-      __syncthreads();  // the staged tile and s_base read before they change
-      s_base[t] += tcount;  // the next tile's digits follow this one's
-    }
-    PHASE_STAMP_IT(p, 3);
-    if (!last) grid.sync();  // pass p's elements and pass p + 1's histogram complete
-    PHASE_STAMP_IT(p, 4);
-  }
-
-  // the last block to finish sets the scratch back to 0
-  __syncthreads();
-  if (t == 0) {
-    __threadfence();
-    s_last = atomicAdd(a.ws + W_DONE, 1u) == static_cast<unsigned>(G - 1);
-  }
-  __syncthreads();
-  if (s_last) {
-    __threadfence();
-    if (sp.passes > 0) {
-      unsigned* H = hist + static_cast<size_t>((sp.passes - 1) % NBUF) * hsize;
-      for (size_t k = t; k < hsize; k += SORT_THREADS) H[k] = 0;
-    }
-    if (t < HEAD) a.ws[t] = 0;
-  }
+  for (int q = 0; q < 3; ++q) rank.lo[q] = e.lo[q];
+  rank.ry = e.r[1];
+  rank.rz = e.r[2];
+  rank.rinv = e.r[0] * e.r[1] * e.r[2];
+  const unsigned long long rmax = !e.any ? 0ull : e.inv ? rank.rinv : rank.rinv - 1;
+  radix::sort_passes<ITEMS>(grid, src, rank, radix::passes_for(rmax), a.out, s, key, row,
+                            a.out.tiles == 1);
 }
 
 constexpr int ITEMS = 4;  // rows a thread in a tile
-constexpr int TILE = SORT_THREADS * ITEMS;
-constexpr int MAX_DEV = 64;
-int g_resident[MAX_DEV];
+constexpr int TILE = radix::THREADS * ITEMS;
+int g_resident[radix::MAX_DEV];
 
 }  // namespace
 
@@ -511,13 +214,11 @@ extern "C" int voxel_keys_launch(const void* pts, const void* valid, const void*
 }
 
 // The scratch (32-bit words) a sort of n rows takes: the header and three
-// histograms of one row of 256 words a block, at most a block a tile of
-// 1024 rows; -1 for an n the launch does not take.
+// histograms of one row of 256 words a block, a block a tile of 1024 rows
+// at most and at most radix::MAX_GRID blocks; -1 for an n the launch does
+// not take.
 extern "C" int voxel_sort_scratch_ints(int n) {
-  if (n < 0) return -1;
-  const long long blocks = ((long long)n + TILE - 1) / TILE;
-  const long long k = HEAD + NBUF * blocks * DIGITS;
-  return k < (1LL << 31) ? static_cast<int>(k) : -1;
+  return radix::scratch_ints(n, TILE, radix::HEAD);
 }
 
 // C interface for ctypes: the keys as voxel_keys_launch, then their stable
@@ -539,43 +240,28 @@ extern "C" int voxel_sort_launch(const void* pts, const void* valid, const void*
   if (n < 0 || c < 3 || voxel_sort_scratch_ints(n) < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 0 || dev >= MAX_DEV) return static_cast<int>(cudaErrorInvalidDevice);
   const void* kernel = reinterpret_cast<const void*>(voxel_sort_kernel<ITEMS>);
-  if (g_resident[dev] == 0) {
-    int sms = 0, coop = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SORT_THREADS, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    g_resident[dev] = per_sm * sms;
-  }
-  const long long ntiles = ((long long)n + TILE - 1) / TILE;
-  const long long tiles = (ntiles + g_resident[dev] - 1) / g_resident[dev];
-  const long long grid = (ntiles + tiles - 1) / tiles;
+  int resident = 0;
+  cudaError_t e = radix::resident_blocks(kernel, g_resident, &resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int grid = 0, tiles = 0;
+  radix::plan(n, TILE, resident, &grid, &tiles);
   Sort a;
   a.pts = static_cast<const float*>(pts);
   a.valid = static_cast<const uint8_t*>(valid);
   a.scale = static_cast<const float*>(scale);
-  a.keys = static_cast<long long*>(keys);
-  a.order = static_cast<long long*>(order);
-  a.tmp_keys = static_cast<long long*>(tmp_keys);
-  a.tmp_rows = static_cast<int*>(tmp_rows);
-  a.ws = static_cast<unsigned*>(ws);
+  a.out = radix::Buffers<long long>{static_cast<long long*>(keys), static_cast<long long*>(order),
+                                    static_cast<long long*>(tmp_keys),
+                                    static_cast<int*>(tmp_rows), static_cast<unsigned*>(ws),
+                                    radix::HEAD, n, tiles};
   a.divide = divide;
-  a.n = n;
   a.c = c;
-  a.tiles = static_cast<int>(tiles);
   void* args[] = {&a};
-  *grid_out = static_cast<int>(grid);
-  *tiles_out = a.tiles;
-  e = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(SORT_THREADS),
-                                  args, 0, static_cast<cudaStream_t>(stream));
+  *grid_out = grid;
+  *tiles_out = tiles;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(grid)),
+                                  dim3(radix::THREADS), args, 0,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

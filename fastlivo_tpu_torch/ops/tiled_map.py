@@ -255,11 +255,49 @@ def insert_cells_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
     n_dropped += (valid & ~ok).sum(dtype=torch.int32)
 
 
-def _insert_passes(m: TiledMap, pts, valid, keys_pass, sorted_pass) -> TiledMap:
+def insert_sort_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
+    """The insert's keys and their stable sort (the kernel
+    tiled_insert_sort's oracle): `insert_keys_plain`, then torch's stable
+    sort of the keys. Returns (sg (B,) int32 the keys in sorted order,
+    order (B,) int64 the sort's permutation, rows (5, B) int32)."""
+    gkey, rows = insert_keys_plain(m, pts, valid)
+    sg, order = torch.sort(gkey, stable=True)
+    return sg, order, rows
+
+
+DENSE_BITS = 8192  # a directory field of at most this many values ranks by occupancy
+
+
+def insert_span_plain(m: TiledMap, gkey: torch.Tensor):
+    """(bits, passes) of the insert sort's compact rank of the keys gkey
+    (B,) int32: a valid key's rank is ((g_x R_y + g_y) R_z + g_z) 512 +
+    cell over its directory index's three wrapped tile fields, g_q the
+    count of the batch's occupied values of field q below the key's (f -
+    min for a field of more than DENSE_BITS values) and R_q their count
+    (max - min + 1); an invalid key's rank R_x R_y R_z 512. `bits` the
+    bit length of the largest rank, `passes` the 8-bit digit passes it
+    takes (0: every rank equal). What the launch of `insert_sort` decides
+    on the card; here for the tests and the smoke run's report (a host
+    read)."""
+    vs = gkey < 0
+    if not bool(vs.any()):
+        return 0, 0
+    d = ((gkey[vs].to(torch.int64) + KEY_BIAS) >> 9).cpu()
+    l0, l1, l2 = (int(x) for x in m.log2_dims.cpu())
+    span = 512
+    for f, lq in ((d >> (l1 + l2), l0), ((d >> l2) & ((1 << l1) - 1), l1),
+                  (d & ((1 << l2) - 1), l2)):
+        span *= (int(torch.unique(f).numel()) if 1 << lq <= DENSE_BITS
+                 else int(f.max() - f.min()) + 1)
+    top = span - (0 if bool((~vs).any()) else 1)
+    bits = top.bit_length()
+    return bits, -(-bits // 8)
+
+
+def _insert_passes(m: TiledMap, pts, valid, sort, sorted_pass) -> TiledMap:
     if m.dir_check.shape[0] > 1 << 22:
         raise ValueError("directory too large for the packed sort key")
-    gkey, rows = keys_pass(m, pts, valid)
-    sg, order = torch.sort(gkey, stable=True)
+    sg, order, rows = sort(m, pts, valid)
     n_alloc, n_dropped = sorted_pass(m, pts, valid, rows, sg, order)
     return m._replace(n_alloc=n_alloc, n_dropped=n_dropped)
 
@@ -273,9 +311,16 @@ def insert_sorted_plain(m: TiledMap, pts, valid, rows, sg, order):
 
 
 def insert_plain(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor) -> TiledMap:
-    """`insert` in torch ops, on any device: the three passes' plain
-    versions around the stable sort. The kernels' oracle."""
-    return _insert_passes(m, pts, valid, insert_keys_plain, insert_sorted_plain)
+    """`insert` in torch ops, on any device: the keys and their stable
+    sort, then the tiles and cells passes, their plain versions. The
+    kernels' oracle."""
+    return _insert_passes(m, pts, valid, insert_sort_plain, insert_sorted_plain)
+
+
+def _sorted_keys(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
+    """The insert's sorted keys, `order` and rows: one `insert_sort`
+    launch on a CUDA map."""
+    return insert_sort(m, pts, valid)
 
 
 def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
@@ -290,17 +335,17 @@ def insert(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor,
     run's cell winner its nearest row that the directory entry holds after
     the tile writes, the first in row order among equal distances: the
     JAX package's heads of its (dir_idx, cell, distance) sort. A map on
-    CUDA runs the two kernels of csrc/tiled_insert.cu around the sort
-    (`insert_keys`, then `insert_tiles`, whose one launch also runs the
-    cells pass; each counted in its `.launches`), with no host read; a map
-    on the CPU runs `insert_plain`. No other device is taken and nothing
-    falls back."""
+    CUDA runs the two launches of csrc/tiled_insert.cu (`insert_sort`: the
+    keys and their sort; then `insert_tiles`, whose one launch also runs
+    the cells pass; each counted in its `.launches`), with no host read; a
+    map on the CPU runs `insert_plain`. No other device is taken and
+    nothing falls back."""
     dev = m.dir_check.device
     if dev.type == "cpu":
         return insert_plain(m, pts, valid)
     if dev.type != "cuda":
         raise ValueError(f"insert: unsupported device {dev}")
-    return _insert_passes(m, pts.contiguous(), valid, insert_keys, insert_tiles)
+    return _insert_passes(m, pts.contiguous(), valid, _sorted_keys, insert_tiles)
 
 
 @functools.cache
@@ -308,16 +353,19 @@ def _insert_launchers():
     from . import _build
 
     lib = _build.load("tiled_insert")
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     keys, tiles = lib.tiled_insert_keys_launch, lib.tiled_insert_tiles_launch
     size = lib.tiled_insert_tiles_scratch_ints
+    sort, sort_size = lib.tiled_insert_sort_launch, lib.tiled_insert_sort_scratch_ints
     keys.argtypes = [P] * 6 + [I, P]
-    tiles.argtypes = [P] * 15 + [I, I, I, ctypes.POINTER(I), P]
-    size.argtypes = [I]
-    for fn in (keys, tiles, size):
+    tiles.argtypes = [P] * 15 + [I, I, I, IP, P]
+    sort.argtypes = [P] * 10 + [I, IP, IP, P]
+    size.argtypes = sort_size.argtypes = [I]
+    for fn in (keys, tiles, size, sort, sort_size):
         fn.restype = ctypes.c_int
     return (_build.profiled("tiled_insert_keys", keys),
-            _build.profiled("tiled_insert_tiles", tiles), size)
+            _build.profiled("tiled_insert_tiles", tiles), size,
+            _build.profiled("tiled_insert_sort", sort), sort_size)
 
 
 def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, order=None):
@@ -348,7 +396,9 @@ def _check_insert(where: str, m: TiledMap, pts, valid=None, rows=None, sg=None, 
 def insert_keys(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
     """`insert_keys_plain`'s signature and outputs: on a CUDA map one
     launch of tiled_insert_keys (counted in `insert_keys.launches`; none
-    at B = 0), on a CPU map the plain version."""
+    at B = 0), on a CPU map the plain version. On no path since
+    `insert_sort`, whose launch computes the keys with the same device
+    function."""
     if m.dir_check.device.type == "cpu":
         return insert_keys_plain(m, pts, valid)
     dev, B, _ = _check_insert("insert_keys", m, pts, valid)
@@ -360,6 +410,41 @@ def insert_keys(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
             gkey.data_ptr(), rows.data_ptr(), B, _stream(dev)))
         insert_keys.launches += 1
     return gkey, rows
+
+
+def insert_sort(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor):
+    """`insert_sort_plain`'s signature and outputs, (sg, order, rows): on
+    a CUDA map one cooperative launch of tiled_insert_sort (counted in
+    `insert_sort.launches`, its blocks in `insert_sort.grid`, the tiles of
+    512 rows a block in `insert_sort.tiles`; none at B = 0): the keys and
+    rows as `insert_keys` writes them, then stable 8-bit LSD radix passes
+    over a compact rank of the keys, the pass count decided on the card,
+    with no host read and no device query after the first call; its
+    header and histograms are the stream's scratch (`photometric._ticket`),
+    left at 0. On a CPU map the plain version. 2^30 rows or more raise."""
+    if m.dir_check.device.type == "cpu":
+        return insert_sort_plain(m, pts, valid)
+    dev, B, _ = _check_insert("insert_sort", m, pts, valid)
+    *_, launch, size = _insert_launchers()
+    k = size(B)
+    if k < 0:
+        raise ValueError(f"insert_sort: {B} rows (the kernel takes fewer than 2^30)")
+    sg = torch.empty(B, dtype=torch.int32, device=dev)
+    order = torch.empty(B, dtype=torch.int64, device=dev)
+    rows = torch.empty((5, B), dtype=torch.int32, device=dev)
+    if B:
+        tmp = torch.empty(2 * B, dtype=torch.int32, device=dev)  # the passes' keys and rows
+        stream = _stream(dev)
+        ws = _ticket(dev, stream, k)  # left at 0 by every launch
+        grid, tiles = ctypes.c_int(0), ctypes.c_int(0)
+        _raise_on("insert_sort", launch(
+            pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(), m.log2_dims.data_ptr(),
+            sg.data_ptr(), order.data_ptr(), tmp.data_ptr(), tmp[B:].data_ptr(),
+            rows.data_ptr(), ws.data_ptr(), B, ctypes.byref(grid), ctypes.byref(tiles), stream))
+        insert_sort.launches += 1
+        insert_sort.grid = grid.value
+        insert_sort.tiles = tiles.value
+    return sg, order, rows
 
 
 def insert_tiles(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor, rows: torch.Tensor,
@@ -377,7 +462,7 @@ def insert_tiles(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor, rows: torc
     if m.dir_check.device.type == "cpu":
         return insert_sorted_plain(m, pts, valid, rows, sg, order)
     dev, B, T = _check_insert("insert_tiles", m, pts, valid, rows, sg, order)
-    _, launch, size = _insert_launchers()
+    _, launch, size, *_ = _insert_launchers()
     k = size(B)
     if k < 0:
         raise ValueError(f"insert_tiles: {B} rows (the kernel takes fewer than 2^30)")
@@ -408,8 +493,8 @@ def insert_cells(m: TiledMap, pts: torch.Tensor, valid: torch.Tensor, rows: torc
     insert_cells_plain(m, pts, valid, rows, sg, order, n_dropped)
 
 
-insert_keys.launches = insert_tiles.launches = 0
-insert_tiles.grid = 0
+insert_keys.launches = insert_tiles.launches = insert_sort.launches = 0
+insert_tiles.grid = insert_sort.grid = insert_sort.tiles = 0
 
 
 def candidate_cells(m: TiledMap, queries: torch.Tensor, radius: int = 1):

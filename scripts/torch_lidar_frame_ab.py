@@ -46,7 +46,8 @@ undistortion (on hash and dense the backend's insert and box delete:
 each variant then runs once more under torch.profiler: a second dataset
 (4 s, seed 1), the lidar paths from their 31st scan and LIVO from 3 s: host and device
 ms per frame of every `frame.*` / `vio.*` range, device kernels per lidar
-frame or lidar + camera pair, the device-busy share of the window and the
+frame or lidar + camera pair, the device-busy share of the window, the
+library sort kernels (onesweep) under frame.map_insert a frame, and the
 map stages' kernels (voxel_centroids, tiled_delete_boxes, the insert's
 launches, undistort; on hash and dense hash_insert_keys,
 hash_insert_probe, dense_insert and flat_delete_boxes; the voxel filter's
@@ -61,7 +62,9 @@ re-inserted into the final map (every winner aliased) and on the
 bootstrap batch into an empty map (every winner fresh; a directory of
 its own for each call), the stable sort of the last batch's key at 64
 bits (the JAX package's packing) and at 32 bits, in turns, the whole
-insert, the last frame step's undistortion and the
+insert, its keys and sort (the tree's insert_sort launch where it has
+one, null else; and the route it replaced, the key pass and torch's
+stable sort), the last frame step's undistortion and the
 last scan's voxel centroid; with the hash or dense path also the box
 delete on that path's final map with its last box set and, on dense, the
 insert of its last batch into that map (between events, and device us a
@@ -100,7 +103,8 @@ MAP_STAGE_KERNELS = ("voxel_centroids_kernel", "tiled_delete_boxes_kernel",
                      "tiled_insert_cells_kernel", "undistort_kernel",
                      "hash_insert_keys_kernel", "hash_insert_probe_kernel",
                      "dense_insert_kernel", "flat_delete_boxes_kernel", "voxel_keys_kernel",
-                     "voxel_sort_kernel", "vio_dedup_kernel", "vio_push_kernel")
+                     "voxel_sort_kernel", "vio_dedup_kernel", "vio_push_kernel",
+                     "tiled_insert_sort_kernel", "vio_push_one_kernel")
 # lidar only: tiled, hash and dense maps, tiled with cache_knn, with plane_fit ref, hash
 # and dense with cache_knn
 LIDAR_PATHS = ("lio", "hash", "dense", "cache_knn", "ref", "hash_cache_knn", "dense_cache_knn")
@@ -271,7 +275,8 @@ class Worker:
                "kernels_per_frame": sum(e.count for e in kernels) / n,
                "device_busy_share": busy / (1e3 * wall),
                "stages": stage_times(evs, "frame." if lidar else "vio.", n),
-               "map_stage_kernels": stage_kernels}
+               "map_stage_kernels": stage_kernels,
+               "map_insert_sort_kernels": cs.sort_kernels_in(prof, "frame.map_insert") / n}
         del pipe
         torch.cuda.empty_cache()
         return res
@@ -355,6 +360,12 @@ class Worker:
             sorts[k].append(cs.time_ms(lambda: torch.sort(keys[k], stable=True)))
         res.update({k: sum(v) / len(v) for k, v in sorts.items()})
         res["insert"] = cs.time_ms(lambda: tm.insert(mt, pts, valid))
+        # the insert's keys and sort: one launch where the tree has it, and
+        # the route it replaced (the key pass and torch's stable sort)
+        route = lambda: torch.sort(tm.insert_keys(mt, pts, valid)[0], stable=True)  # noqa
+        res["keys_and_sort_route"] = cs.time_ms(route)
+        res["insert_sort"] = cs.time_ms(lambda: tm.insert_sort(mt, pts, valid)) if hasattr(
+            tm, "insert_sort") else None
         _, bpts, bvalid = rec["first_insert"][:3]
         dims = [1 << int(x) for x in m.log2_dims.cpu()]
         empty = tm.empty_tiled_map(dims, m.slot_key.shape[0], float(m.voxel_size),
@@ -728,7 +739,9 @@ def main():
                       f"{res['kernels_per_frame']:.0f} kernels a "
                       f"{'lidar frame' if path in LIDAR_PATHS else 'lidar + camera pair'}, "
                       f"device "
-                      f"busy {100 * res['device_busy_share']:.1f}%; host / device ms " + ", ".join(
+                      f"busy {100 * res['device_busy_share']:.1f}%, "
+                      f"{res['map_insert_sort_kernels']:.1f} library sort kernels under "
+                      f"frame.map_insert; host / device ms " + ", ".join(
                           f"{k} {v['host_ms']:.3f} / {v['device_ms']:.3f}"
                           for k, v in sorted(res["stages"].items(),
                                              key=lambda kv: -kv[1]["host_ms"]))
@@ -740,7 +753,8 @@ def main():
             for tree in (trees if r % 2 == 0 else trees[::-1]):
                 res = ask(procs[tree], tree, {"kernels": True})
                 kernels.append({"tree": tree, "round": r, **res})
-                print(f"{tree} kernels (ms): " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()),
+                print(f"{tree} kernels (ms): " + ", ".join(
+                    f"{k} {v:.4f}" if v is not None else f"{k} none" for k, v in res.items()),
                       flush=True)
         stamps = {}
         for tree in (trees if args.stamps else []):

@@ -5,7 +5,7 @@ outputs are bit-equal, and where each one's time goes.
 
 Usage: python scripts/torch_vio_kernels_bench.py [--variant TREE ...]
            [--stamps TREE ...] [--reps 30] [--frames 24] [--seed 0]
-           [--out FILE]
+           [--push-pools R ...] [--out FILE]
 
 Each variant is csrc/vio_select.cu and csrc/vio_observations.cu of the
 checkout at TREE, relative to this one (default: this one, `.`; e.g.
@@ -27,19 +27,28 @@ and its Nv = 4096 voxels; vio_observations after it at a posterior state
 0.6 m away (every tracked row writes its ring).
 
 The stage kernels, where a checkout has their sources (csrc/vio_push.cu,
-vio_dedup.cu, voxel_keys.cu; a checkout without one reports null for it):
-vio_push on a copy of that map with the frame's image and the next frame
-id (every call pushes that fid again: the same refcount, rank and key
-work, the same slot); vio_dedup on the scan cloud (M = 8192 into 4096)
+vio_dedup.cu, voxel_keys.cu, tiled_insert.cu; a checkout without one
+reports null for it): vio_push on a copy of that map with the frame's
+image and the next frame id (every call pushes that fid again: the same
+refcount, rank and key work, the same slot), where the launcher has two
+forms also forced into the two-barrier one ("vio_push two") and into the
+one-barrier one on two blocks an SM; vio_dedup on the scan cloud (M = 8192 into 4096)
 and on that cloud tiled three times (24576 rows, the scratch route);
 voxel_keys on a seeded LIO scan (32768 rows of 4 columns, 24000 valid, a
 0.5 m leaf) and on the scan cloud at the camera's reciprocal 0.2 m leaf;
 the keys and their stable sort ("voxel_sort") on those two: a checkout's
 voxel_sort launch where its csrc/voxel_keys.cu has one, else the route
-it replaced, its voxel_keys launch and torch.sort(stable=True). Each is
-held bit for bit against its plain version (visual_map.push_image_plain,
-vio._dedup_voxels_plain, ops/voxel_filter.voxel_keys_plain and
-_sorted_keys_plain) and timed in turns as the two above.
+it replaced, its voxel_keys launch and torch.sort(stable=True); the
+tiled insert's keys and sort ("tiled_insert_sort") on a LIO-shaped batch
+(16384 rows on the synthetic room about the world origin, 12000 valid:
+2 passes) and on a +-70 m batch (3 passes), beside the route it replaced
+in the same checkout ("insert keys + torch.sort": its tiled_insert_keys
+launch and torch.sort(stable=True)). Each is held bit for bit against its
+plain version (visual_map.push_image_plain, vio._dedup_voxels_plain,
+ops/voxel_filter.voxel_keys_plain and _sorted_keys_plain,
+ops/tiled_map.insert_sort_plain) and timed in turns as the two above.
+With --push-pools, this checkout's push in its two forms, in turns, on
+pools of R slots of 640 x 512 u8 frames (a second JSON line).
 
 Each variant's outputs are compared bit for bit with the plain versions
 (ops/vio_select.vio_select_plain, ops/vio_observations.
@@ -69,21 +78,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 KERNELS = ("vio_select", "vio_observations")
-STAGE_KERNELS = ("vio_push", "vio_dedup", "voxel_keys")
+STAGE_KERNELS = ("vio_push", "vio_dedup", "voxel_keys", "tiled_insert")
 # the stage kernels' phases: (name, from stamp, to stamp)
 STAGE_PHASES = {
     "vio_push": [("counts", 0, 1), ("barrier 1", 1, 2), ("slot keys", 2, 3),
                  ("barrier 2", 3, 4), ("copy", 4, 5), ("total", 0, 5)],
+    # the one-barrier form: the ranks and the image read before its barrier
+    "vio_push one": [("counts", 0, 1), ("ranks and image loads", 1, 6), ("barrier", 6, 2),
+                     ("slot keys", 2, 3), ("copy", 4, 5), ("total", 0, 5)],
     "vio_dedup": [("keys", 0, 1), ("rounds", 1, 2), ("compaction", 2, 3), ("total", 0, 3)],
     "voxel_keys": [("total", 0, 1)],
 }
 IT_BASE, IT_NPH = 16, 8  # csrc/phase_stamps.cuh: a pass's stamps
+# the tensors whose pointers the stage calls' launches hold: kept for the
+# run (a launch's buffer freed and reused would be another tensor's)
+KEEP = []
 
 
 def sort_phases(passes):
-    """voxel_sort's stamped phases for a launch of `passes` passes: the
-    keys, the first barrier, pass 0's count and second barrier, then each
-    pass's offsets, its tiles' ranking and scatter, and its barrier."""
+    """The stamped phases of a sort's launch (voxel_sort, tiled_insert_sort:
+    csrc/radix_passes.cuh) of `passes` passes: the keys, the first
+    barrier, pass 0's count and second barrier, then each pass's offsets,
+    its tiles' ranking and scatter, and its barrier."""
     it = lambda p, k: IT_BASE + p * IT_NPH + k  # noqa: E731
     ph = [("keys", 0, 1), ("barrier A", 1, 2)]
     if passes == 0:
@@ -371,6 +387,24 @@ def stage_inputs(a, seed: int):
     cloud[:a["pg"].shape[0]] = a["pg"]
     f32 = dict(dtype=torch.float32, device=dev)
     pg3 = torch.cat([a["pg"], a["pg"] + 100.0, a["pg"] + 200.0])
+    # the insert's batches: the LIO path's shape (16384 rows, 12000 valid,
+    # on the synthetic room about the world origin, where every axis
+    # straddles the directory's wrap) and a batch over +-70 m (3 passes)
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    lo, hi = np.array([-6.0, -5.0, -1.2]), np.array([6.0, 5.0, 2.0])
+    face = rng.integers(0, 6, 16384)
+    room = lo + rng.uniform(0, 1, (16384, 3)) * (hi - lo)
+    room[np.arange(16384), face // 2] = np.where(face % 2 == 1, hi[face // 2], lo[face // 2])
+    room += rng.normal(0, 0.004, room.shape)
+    wide = np.stack([rng.uniform(-70, 70, 16384), rng.uniform(-70, 70, 16384),
+                     rng.uniform(-3, 3, 16384)], 1)
+    insert = {"lio batch": (tm.empty_tiled_map((128, 128, 64), 64, 0.5, device=dev),
+                            torch.as_tensor(room.astype(np.float32), device=dev),
+                            torch.arange(16384, device=dev) < 12000),
+              "frame batch": (tm.empty_tiled_map((64, 64, 16), 64, 0.5, device=dev),
+                              torch.as_tensor(wide.astype(np.float32), device=dev),
+                              torch.as_tensor(rng.random(16384) > 0.05, device=dev))}
     return {"push": (a["vm"], a["img"], (a["vm"].img_fid.max() + 1).to(torch.int32)),
             "dedup": (a["pg"], a["pg_mask"], a["pg"].shape[0] // 2),
             "dedup 24576": (pg3, a["pg_mask"].repeat(3), a["pg"].shape[0] // 2),
@@ -379,7 +413,8 @@ def stage_inputs(a, seed: int):
                                   torch.tensor(0.5, **f32), 1),
                      "camera cloud": (cloud, torch.arange(n, device=dev) < 8192,
                                       torch.tensor(np.float32(1) / np.float32(0.2), **f32),
-                                      0)}}
+                                      0)},
+            "insert": insert}
 
 
 def stage_plain(si):
@@ -391,13 +426,19 @@ def stage_plain(si):
 
     vm, img, fid = si["push"]
     m = tvm.push_image_plain(chip_smoke.clone_map(vm), img, fid)
-    out = {"vio_push": [m.img_fid, m.imgs],
+    out = {"vio_push": [m.img_fid, m.imgs], "vio_push two": [m.img_fid, m.imgs],
+           "vio_push one 2 blocks an SM": [m.img_fid, m.imgs],
            "vio_dedup": list(vio._dedup_voxels_plain(*si["dedup"])),
            "vio_dedup 24576": list(vio._dedup_voxels_plain(*si["dedup 24576"]))}
     for src, (pts, valid, scale, divide) in si["keys"].items():
         args = (pts, valid, scale if divide else None, None if divide else scale)
         out[f"voxel_keys {src}"] = [vf.voxel_keys_plain(*args)]
         out[f"voxel_sort {src}"] = list(vf._sorted_keys_plain(*args))
+    from fastlivo_tpu_torch.ops import tiled_map as tm
+
+    for src, (m, pts, valid) in si["insert"].items():
+        out[f"tiled_insert_sort {src}"] = list(tm.insert_sort_plain(m, pts, valid))
+        out[f"insert keys + torch.sort {src}"] = out[f"tiled_insert_sort {src}"]
     return out
 
 
@@ -411,8 +452,9 @@ def stage_calls(lib, name, si):
 
     i32 = dict(dtype=torch.int32)
     grid = ctypes.c_int(0)
-    fn = getattr(lib, f"{name}_launch")
-    fn.restype = ctypes.c_int
+    fn = getattr(lib, f"{name}_launch", None)  # (tiled_insert: its two entries below)
+    if fn is not None:
+        fn.restype = ctypes.c_int
     calls = {}
 
     def run(*args):
@@ -429,14 +471,90 @@ def stage_calls(lib, name, si):
         size = lib.vio_push_scratch_ints
         size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
         R = m.img_fid.shape[0]
-        ws = _ticket(img.device, stream, size(R))
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        k = size(R)
         NP, KO = m.obs_fid.shape
         _, H, W = m.imgs.shape
-        calls["vio_push"] = (run(*(t.data_ptr() for t in (
-            m.obs_slot, m.obs_fid, m.n_pts, m.img_fid, m.imgs, img, fid, ws)), NP, KO, R, H, W,
-            int(m.imgs.dtype == torch.uint8)), [m.img_fid, m.imgs])
+        u8 = int(m.imgs.dtype == torch.uint8)
+        if hasattr(lib, "vio_push_one_barrier_max_r"):  # two forms: the launcher's, forced
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+                ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+            form = ctypes.c_int(0)
+            for label, f, blocks in (("vio_push", 0, 0), ("vio_push two", 2, 0),
+                                     ("vio_push one 2 blocks an SM", 1, 264)):
+                m2 = chip_smoke.clone_map(vm)
+                KEEP.append(m2)
+                p2 = [t.data_ptr() for t in (m2.obs_slot, m2.obs_fid, m2.n_pts, m2.img_fid,
+                                             m2.imgs, img, fid)]
+
+                def launch(p2=p2, f=f, blocks=blocks):
+                    # the stream's scratch as the wrapper takes it, at each call
+                    ws = _ticket(img.device, stream, k).data_ptr()
+                    err = fn(*p2, ws, NP, KO, R, H, W, u8, f, blocks, ctypes.byref(grid),
+                             ctypes.byref(form), stream)
+                    if err:
+                        raise RuntimeError(f"vio_push: cudaError {err}")
+
+                calls[label] = (launch, [m2.img_fid, m2.imgs])
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+            KEEP.append(m)
+            p1 = [t.data_ptr() for t in (m.obs_slot, m.obs_fid, m.n_pts, m.img_fid, m.imgs,
+                                         img, fid)]
+
+            def launch():
+                ws = _ticket(img.device, stream, k).data_ptr()
+                err = fn(*p1, ws, NP, KO, R, H, W, u8, ctypes.byref(grid), stream)
+                if err:
+                    raise RuntimeError(f"vio_push: cudaError {err}")
+
+            calls["vio_push"] = (launch, [m.img_fid, m.imgs])
+    elif name == "tiled_insert":
+        keys = lib.tiled_insert_keys_launch
+        keys.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        keys.restype = ctypes.c_int
+        sort = getattr(lib, "tiled_insert_sort_launch", None)
+        for src, (m, pts, valid) in si["insert"].items():
+            dev, B = pts.device, pts.shape[0]
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            gkey = torch.empty(B, dtype=torch.int32, device=dev)
+            rows = torch.empty((5, B), dtype=torch.int32, device=dev)
+            res = [None, None, rows]
+            KEEP.append(gkey)
+
+            def route(args=(pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(),
+                            m.log2_dims.data_ptr(), gkey.data_ptr(), rows.data_ptr(), B),
+                      stream=stream, gkey=gkey, res=res):
+                err = keys(*args, stream)
+                if err:
+                    raise RuntimeError(f"tiled_insert_keys: cudaError {err}")
+                res[0], res[1] = torch.sort(gkey, stable=True)
+
+            calls[f"insert keys + torch.sort {src}"] = (route, res)
+            if sort is None:
+                continue
+            sort.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] + [
+                ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p]
+            sort.restype = ctypes.c_int
+            size = lib.tiled_insert_sort_scratch_ints
+            size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+            sg = torch.empty(B, dtype=torch.int32, device=dev)
+            order = torch.empty(B, dtype=torch.int64, device=dev)
+            tmp = torch.empty(2 * B, dtype=torch.int32, device=dev)
+            rows2 = torch.empty((5, B), dtype=torch.int32, device=dev)
+            KEEP.append(tmp)
+            tiles = ctypes.c_int(0)
+
+            def launch(args=(pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(),
+                             m.log2_dims.data_ptr(), sg.data_ptr(), order.data_ptr(),
+                             tmp.data_ptr(), tmp[B:].data_ptr(), rows2.data_ptr()),
+                       stream=stream, tiles=tiles, k=size(B), dev=dev, B=B):
+                ws = _ticket(dev, stream, k).data_ptr()
+                err = sort(*args, ws, B, ctypes.byref(grid), ctypes.byref(tiles), stream)
+                if err:
+                    raise RuntimeError(f"tiled_insert_sort: cudaError {err}")
+
+            calls[f"tiled_insert_sort {src}"] = (launch, [sg, order, rows2])
     elif name == "vio_dedup":
         size = lib.vio_dedup_scratch_ints
         size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
@@ -446,12 +564,18 @@ def stage_calls(lib, name, si):
             pg, mask, max_vox = si[label.replace("vio_", "")]
             dev = pg.device
             stream = torch.cuda.current_stream(dev).cuda_stream
-            k = size(pg.shape[0])
-            ws = _ticket(dev, stream, k).data_ptr() if k else None
             vox = torch.empty((max_vox, 3), device=dev, **i32)
             vmask = torch.empty(max_vox, dtype=torch.bool, device=dev)
-            calls[label] = (run(pg.data_ptr(), mask.data_ptr(), vox.data_ptr(),
-                                vmask.data_ptr(), ws, pg.shape[0], max_vox), [vox, vmask])
+
+            def launch(args=(pg.data_ptr(), mask.data_ptr(), vox.data_ptr(), vmask.data_ptr()),
+                       rest=(pg.shape[0], max_vox), k=size(pg.shape[0]), dev=dev,
+                       stream=stream):
+                ws = _ticket(dev, stream, k).data_ptr() if k else None
+                err = fn(*args, ws, *rest, ctypes.byref(grid), stream)
+                if err:
+                    raise RuntimeError(f"vio_dedup: cudaError {err}")
+
+            calls[label] = (launch, [vox, vmask])
     else:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [
             ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
@@ -485,13 +609,15 @@ def stage_calls(lib, name, si):
                 keys = torch.empty(n, dtype=torch.int64, device=dev)
                 order = torch.empty(n, dtype=torch.int64, device=dev)
                 tmp = torch.empty(3 * n, dtype=torch.int32, device=dev)
-                ws = _ticket(dev, stream, size(n))
+                KEEP.append(tmp)
 
                 def launch(args=(pts.data_ptr(), valid.data_ptr(), scale.data_ptr(), divide,
                                  keys.data_ptr(), order.data_ptr(), tmp.data_ptr(),
-                                 tmp[2 * n:].data_ptr(), ws.data_ptr(), n, pts.shape[1]),
-                           stream=stream):
-                    err = sort(*args, ctypes.byref(grid), ctypes.byref(tiles), stream)
+                                 tmp[2 * n:].data_ptr()), rest=(n, pts.shape[1]),
+                           stream=stream, k=size(n), dev=dev):
+                    ws = _ticket(dev, stream, k).data_ptr()
+                    err = sort(*args, ws, *rest, ctypes.byref(grid), ctypes.byref(tiles),
+                               stream)
                     if err:
                         raise RuntimeError(f"voxel_sort: cudaError {err}")
 
@@ -532,6 +658,53 @@ def stamped(lib, name, launch, reps, phases=None):
     return {p[0]: float(m) for p, m in zip(phases, med)}
 
 
+def push_pools(pools, reps):
+    """vio_push's two forms of this checkout timed in turns (one, two, two,
+    one) on pools of R slots of 640 x 512 u8 frames, every slot holding a
+    frame, over 65536 x 20 rings whose first 1400 rows observe random live
+    slots (the LIVO path's live rows): {R: {form: ms}}, each the median of
+    `reps` queued calls, the slot bit-equal to the plain version's."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import vio_push
+
+    dev = torch.device("cuda")
+    out = {}
+    for R in pools:
+        rng = np.random.default_rng(R)
+        m = tvm.empty_visual_map(n_points=1 << 16, n_obs=20, table_size=1 << 10, voxel_cap=4,
+                                 ring=R, height=512, width=640, img_dtype=torch.uint8,
+                                 device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        m.img_fid.copy_(torch.as_tensor(rng.permutation(4 * R)[:R], **i32))
+        slot = rng.integers(0, R, (1400, 20))
+        m.obs_slot[:1400] = torch.as_tensor(slot, **i32)
+        m.obs_fid[:1400] = m.img_fid[torch.as_tensor(slot, device=dev).long()]
+        m.n_pts.fill_(1400)
+        img = torch.as_tensor(rng.uniform(0, 255, (512, 640)).astype(np.float32), device=dev)
+        fid = (m.img_fid.max() + 1).to(torch.int32)  # on the card: a call uploads nothing
+        want = tvm.push_image_plain(chip_smoke.clone_map(m), img, fid).img_fid
+        times = {1: [], 2: []}
+        for form in (1, 2, 2, 1):
+            mk = chip_smoke.clone_map(m)
+            vio_push.vio_push(mk, img, fid, form=form)
+            if not torch.equal(mk.img_fid, want):
+                raise SystemExit(f"torch_vio_kernels_bench: vio_push form {form} at R = {R}: "
+                                 f"not the plain version's slot")
+            times[form].append(chip_smoke.time_ms(
+                lambda: vio_push.vio_push(mk, img, fid, form=form), reps))
+            del mk
+        out[R] = {f"form {f}": t for f, t in times.items()}
+        print(f"vio_push at R = {R}: " + ", ".join(f"{k} {v}" for k, v in out[R].items()),
+              flush=True)
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -541,6 +714,7 @@ def main():
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--push-pools", type=int, nargs="*", default=[])
     args = ap.parse_args()
     variants = args.variant or ["."]
 
@@ -571,12 +745,19 @@ def main():
     si = stage_inputs(a, args.seed)
     want.update(stage_plain(si))
     calls, equal, grids, res = {}, {}, {}, {}
-    stage_labels = ["vio_push", "vio_dedup", "vio_dedup 24576", "voxel_keys lio scan",
-                    "voxel_keys camera cloud", "voxel_sort lio scan", "voxel_sort camera cloud"]
+    stage_labels = ["vio_push", "vio_push two", "vio_push one 2 blocks an SM", "vio_dedup",
+                    "vio_dedup 24576", "voxel_keys lio scan", "voxel_keys camera cloud",
+                    "voxel_sort lio scan", "voxel_sort camera cloud",
+                    "tiled_insert_sort lio batch", "insert keys + torch.sort lio batch",
+                    "tiled_insert_sort frame batch", "insert keys + torch.sort frame batch"]
+    from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
     shape["sort_passes"] = {src: vf.sort_span_plain(want[f"voxel_sort {src}"][0])[1]
                             for src in si["keys"]}
+    shape["insert_sort_bits_passes"] = {
+        src: tm.insert_span_plain(m, want[f"tiled_insert_sort {src}"][0])
+        for src, (m, _, _) in si["insert"].items()}
     for v in variants:
         tree = os.path.join(ROOT, v)
         for name in STAGE_KERNELS:
@@ -606,6 +787,7 @@ def main():
         calls[("vio_observations", v)] = launch  # writes its copy again
         grids[("vio_observations", v)] = grid.value
     for name in list(KERNELS) + stage_labels:
+        print(f"timing {name}", file=sys.stderr, flush=True)
         times = {v: [] for v in variants}
         host = {v: [] for v in variants}
         empty = []
@@ -637,22 +819,38 @@ def main():
                 continue
             lib = build(tree, name, True)
             for label, (launch, outs) in stage_calls(lib, name, si).items():
+                if label.startswith("insert keys"):
+                    continue  # the library route: no stamps
                 if label.startswith("voxel_sort"):
                     if not hasattr(lib, "voxel_sort_launch"):
                         continue  # the library route: no stamps
                     phases = sort_phases(shape["sort_passes"][label[len("voxel_sort "):]])
+                elif label.startswith("tiled_insert_sort"):
+                    phases = sort_phases(shape["insert_sort_bits_passes"][
+                        label[len("tiled_insert_sort "):]][1])
+                elif label.startswith("vio_push"):
+                    one = hasattr(lib, "vio_push_one_barrier_max_r") and "two" not in label
+                    phases = STAGE_PHASES["vio_push one" if one else "vio_push"]
                 else:
                     phases = STAGE_PHASES[label.split(" ")[0]]
+                print(f"stamps {label} ({v})", file=sys.stderr, flush=True)
                 s[label] = stamped(lib, name, launch, args.reps, phases)
                 ok = ok and bits_equal(outs, want[label])
         s["bit_equal_to_plain"] = ok
         stamps[v] = s
     line = json.dumps({"variants": variants, "shape": shape, "runs": res, "stamps": stamps,
                        "card": chip_smoke.nvidia_smi_line()})
-    print(line)
+    print(line, flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             fh.write(line + "\n")
+    if args.push_pools:  # a second line
+        line = json.dumps({"push_pools": push_pools(args.push_pools, args.reps),
+                           "card": chip_smoke.nvidia_smi_line()})
+        print(line)
+        if args.out:
+            with open(args.out, "a") as fh:
+                fh.write(line + "\n")
     if not all(equal.values()):
         raise SystemExit(f"torch_vio_kernels_bench: not bit-equal to the plain versions: "
                          f"{[k for k, e in equal.items() if not e]}")

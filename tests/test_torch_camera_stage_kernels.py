@@ -18,7 +18,13 @@ round, the survivors compacted a tile of 1024 rows at a time (the dedup
 kernel's first design; the redesigned kernel's round-tagged table and
 one-scan compaction, and the voxel filter's sort, are modelled in
 tests/test_torch_voxel_sort.py); the push's per-block histograms summed
-in any order and its argmin as the least packed (key order bits, slot).
+in any order and its argmin as the least packed (key order bits, slot),
+in its two forms: up to ONE_BARRIER_MAX_R pool slots one grid barrier
+(the ranks a warp a slot over the grid before it, stored beside the
+counts; each block's own argmin of all the keys after it, the pairs
+zeroed by the last block's ticket), past it two (the
+keys a warp a slot, one 64-bit word for the slot); the modelled pool
+equal to push_image_plain's and the JAX package's push_image's.
 """
 import jax
 import jax.numpy as jnp
@@ -201,17 +207,22 @@ def test_dedup_kernel_rounds_in_one_block(case):
 # --- the image-pool push --------------------------------------------------
 
 def torch_pool(sizes):
-    return tvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
-                                voxel_cap=4, ring=sizes["R"], height=sizes["H"],
-                                width=sizes["W"], img_dtype=torch.uint8 if sizes["u8"] else None,
-                                device="cpu")
+    """An empty torch pool of the case's sizes (its frame ids
+    sizes["img_fid0"] where the case gives them)."""
+    m = tvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
+                             voxel_cap=4, ring=sizes["R"], height=sizes["H"],
+                             width=sizes["W"], img_dtype=torch.uint8 if sizes["u8"] else None,
+                             device="cpu")
+    if "img_fid0" in sizes:
+        m.img_fid.copy_(torch.from_numpy(sizes["img_fid0"]))
+    return m
 
 
 def jax_pool(sizes):
-    return jvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
-                                voxel_cap=4, ring=sizes["R"], height=sizes["H"],
-                                width=sizes["W"],
-                                img_dtype=jnp.uint8 if sizes["u8"] else None)
+    m = jvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
+                             voxel_cap=4, ring=sizes["R"], height=sizes["H"],
+                             width=sizes["W"], img_dtype=jnp.uint8 if sizes["u8"] else None)
+    return m._replace(img_fid=jnp.asarray(sizes["img_fid0"])) if "img_fid0" in sizes else m
 
 
 @pytest.mark.parametrize("case", cases.PUSH_CASES)
@@ -292,6 +303,110 @@ def test_push_slot_by_block_histograms(case, G):
         img = cases.push_image_of(sizes["H"], sizes["W"], seed)
         mt = tvm.push_image_plain(mt, torch.from_numpy(img), int(fid))
         mt = cases.apply_ring_update(mt, fid, upd)
+
+
+PUSH_WARPS = 16  # the push kernel's warps a block
+
+
+def push_one_barrier(m, fid, G, rng):
+    """The one-barrier form's slot in numpy: the scratch's (count, rank)
+    pairs start at 0; each of G blocks adds its share's histogram into the
+    counts (the blocks in a random order) and stores the age ranks of its
+    share of the slots (a warp a slot, grid-stride: slot s by block (s //
+    16) % G) beside them; after the barrier each block reads all R pairs,
+    forms every key and takes its own least packed (key with its sign bit
+    flipped) << 32 | slot; the blocks take tickets in a random order and
+    the last one zeroes the pairs and the ticket. Returns (refs, every
+    block's slot, the scratch's pairs and ticket after the launch)."""
+    slot_a, fid_a = m.obs_slot.numpy(), m.obs_fid.numpy()
+    img_fid = m.img_fid.numpy().astype(np.int64)
+    R = len(img_fid)
+    NP = slot_a.shape[0]
+    n = min(max(int(m.n_pts), 0), NP)
+    pairs = np.zeros((R, 2), np.int64)
+    sl = np.arange(R)
+    for b in rng.permutation(G):
+        s = np.clip(slot_a[n * b // G:n * (b + 1) // G], 0, R - 1).ravel()
+        f = fid_a[n * b // G:n * (b + 1) // G].ravel()
+        live = (f >= 0) & (img_fid[s] == f)
+        pairs[:, 0] += np.bincount(s[live], minlength=R)
+        mine = sl[(sl // PUSH_WARPS) % G == b]  # the slots of this block's warps
+        older = ((img_fid[None, :] < img_fid[mine][:, None])
+                 | ((img_fid[None, :] == img_fid[mine][:, None])
+                    & (sl[None, :] < mine[:, None])))
+        pairs[mine, 1] = older.sum(1)
+    refs, rank = pairs[:, 0].copy(), pairs[:, 1].copy()  # what every block reads
+    slots = []
+    for b in range(G):
+        key = np.where(refs > 0, (np.minimum(refs, 200) + 1) * R + rank, rank)
+        key = np.where(img_fid == fid, -2, key).astype(np.int32)
+        packed = ((key.view(np.uint32) ^ np.uint32(0x80000000)).astype(np.uint64)
+                  << np.uint64(32) | sl.astype(np.uint64))
+        slots.append(int(packed.min() & np.uint64(0xFFFFFFFF)))
+    ticket = 0
+    for b in rng.permutation(G):
+        ticket += 1
+        if ticket == G:  # the last block to read the pairs
+            pairs[:] = 0
+            ticket = 0
+    return refs, slots, pairs, ticket
+
+
+def pool_after(m, slot, img, fid):
+    """The pool after the copy into `slot`: a u8 pool round(clamp(img, 0,
+    255)) (rint: half to even), an f32 pool the image; img_fid[slot] the
+    fid."""
+    imgs, ids = m.imgs.numpy().copy(), m.img_fid.numpy().copy()
+    imgs[slot] = (np.rint(np.clip(img, 0, 255)).astype(np.uint8) if imgs.dtype == np.uint8
+                  else img)
+    ids[slot] = fid
+    return imgs, ids
+
+
+PUSH_FORM_CASES = [(c, G) for c in cases.PUSH_CASES if c != "big" for G in (1, 7, 264)] + [
+    ("big", 264)]
+
+
+@pytest.mark.parametrize("case,G", PUSH_FORM_CASES,
+                         ids=[f"{c}-{G}" for c, G in PUSH_FORM_CASES])
+def test_push_forms_by_blocks(case, G):
+    """The push as its launcher routes it, in numpy: up to
+    ONE_BARRIER_MAX_R slots the one-barrier form (every block's own
+    argmin over the (count, rank) pairs it reads after the barrier, the
+    ranks a warp a slot over the grid, the last block's ticketed reset),
+    past it (the
+    "big" pool) the two-barrier form (push_by_blocks): every block's slot
+    is push_slot's, the scratch ends back at 0, and the pool after the
+    modelled copy equals push_image_plain's and the JAX package's
+    push_image's, bit for bit, before and after every push of a
+    sequence that fills and evicts."""
+    rng = np.random.default_rng(G)
+    sizes, steps = cases.push_steps(case)
+    one = sizes["R"] <= vio_push.ONE_BARRIER_MAX_R
+    assert one == (case != "big")
+    mt, mj = torch_pool(sizes), jax_pool(sizes)
+    for seed, fid, upd in steps:
+        img = cases.push_image_of(sizes["H"], sizes["W"], seed)
+        if one:
+            refs, slots, scratch, ticket = push_one_barrier(mt, fid, G, rng)
+            assert not scratch.any() and ticket == 0
+        else:
+            refs, slot = push_by_blocks(mt, fid, G, rng)
+            slots = [slot]
+        np.testing.assert_array_equal(refs, tvm._live_slot_refs(mt).numpy())
+        want = int(tvm.push_slot(mt, torch.tensor(fid, dtype=torch.int32)))
+        assert slots == [want] * len(slots)
+        imgs, ids = pool_after(mt, want, img, fid)
+        mt = tvm.push_image_plain(mt, torch.from_numpy(img), int(fid))
+        mj = jvm.push_image(mj, jnp.asarray(img), jnp.int32(fid))
+        for got in (mt.imgs.numpy(), np.asarray(mj.imgs)):
+            np.testing.assert_array_equal(got, imgs)
+        for got in (mt.img_fid.numpy(), np.asarray(mj.img_fid)):
+            np.testing.assert_array_equal(got, ids)
+        mt = cases.apply_ring_update(mt, fid, upd)
+        mj = mj._replace(obs_slot=jnp.asarray(mt.obs_slot.numpy()),
+                         obs_fid=jnp.asarray(mt.obs_fid.numpy()),
+                         n_pts=jnp.int32(int(mt.n_pts)))
 
 
 @pytest.mark.parametrize("stage", ["voxel_keys", "vio_dedup", "vio_push"])

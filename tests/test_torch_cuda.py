@@ -2175,7 +2175,9 @@ def launch_guarded(launch, inputs, outputs, shift=0):
                                     "lio_cascade_r3_gather_hash_ref", "voxel_keys",
                                     "vio_dedup", "vio_dedup_scratch", "vio_push",
                                     "vio_push_f32", "voxel_sort", "voxel_sort_camera",
-                                    "voxel_sort_wrap", "vio_dedup_wide"])
+                                    "voxel_sort_wrap", "vio_dedup_wide", "tiled_insert_sort",
+                                    "tiled_insert_sort_wrap", "vio_push_two",
+                                    "vio_push_two_f32"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -2230,16 +2232,21 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     its scratch (header and histograms) back at 0; vio_dedup at 8191 rows
     and at 20000 and 40000 (its arrays, and at 40000 its row states, in
     the global scratch, an output here, back at 0); vio_push
-    on a full u8 and a full f32 pool (img_fid and imgs its outputs,
-    every byte equal to the plain version's after the launch; the
-    scratch counts, word and block count back at 0)."""
+    on a full u8 and a full f32 pool in its one-barrier form and its
+    two-barrier form (img_fid and imgs its outputs, every byte equal to
+    the plain version's after the launch; the scratch counts, word and
+    block count back at 0). The insert's sort (tiled_insert_sort) at
+    16379 rows on the frame batch and on one across a directory wrap in
+    every axis: its sorted keys, order and rows equal insert_sort_plain's,
+    its pass buffers outputs here, its scratch back at 0."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
     from fastlivo_tpu_torch.ops import lio_cascade as lc
 
     if kernel in ("voxel_keys", "vio_dedup", "vio_dedup_scratch", "vio_push", "vio_push_f32",
-                  "voxel_sort", "voxel_sort_camera", "voxel_sort_wrap", "vio_dedup_wide"):
+                  "voxel_sort", "voxel_sort_camera", "voxel_sort_wrap", "vio_dedup_wide",
+                  "vio_push_two", "vio_push_two_f32"):
         return camera_stage_write_only(cuda, kernel)
     if kernel.startswith("vio_"):
         return vio_write_only(cuda, kernel)
@@ -3284,7 +3291,8 @@ def test_lidar_frame_step_makes_no_synchronising_call(cuda, monkeypatch):
     LIO cascade, the TLS fit, no cache_knn): the undistortion (one
     undistort launch), the voxel filter (one voxel_sort launch, the keys
     and their sort, and one voxel_centroids launch), the cascade (one
-    lio_cascade launch), the insert (the sort and its two launches) and
+    lio_cascade launch), the insert (its two launches: the keys and their
+    sort, then the tiles and cells; no tiled_insert_keys launch) and
     the frame's outputs make no
     synchronising call (torch's sync debug mode set to raise), and give the
     same bits as the same step called without the mode."""
@@ -3333,9 +3341,9 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
     torch.cuda.synchronize()
     counts = lambda: (vf.voxel_centroids.launches, lio_cascade.lio_cascade.launches,  # noqa
                       knn_plane.knn5_plane_tiled.launches, tm.delete_boxes.launches,
-                      tm.insert_keys.launches, tm.insert_tiles.launches,
+                      tm.insert_sort.launches, tm.insert_tiles.launches,
                       imu_mod.undistort.launches, *flat_launches().values(),
-                      vf.voxel_sort.launches, vf.voxel_keys.launches)
+                      vf.voxel_sort.launches, vf.voxel_keys.launches, tm.insert_keys.launches)
     n0 = counts()
     m = clone_map(a[1])
     torch.cuda.synchronize()
@@ -3344,12 +3352,13 @@ def no_sync_frame_step(cuda, monkeypatch, per_group=None, **options):
         got = frame_step.lidar_frame_step(*(a[:1] + (m,) + a[2:]), **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    # the insert's launches: tiled keys and tiles, hash keys and probe, dense
+    # the insert's launches: tiled sort and tiles, hash keys and probe, dense
     inserts = {"tiled": (1, 1, 0, 0, 0), "hash": (0, 0, 1, 1, 0),
                "dense": (0, 0, 0, 0, 1)}[options.get("backend", "tiled")]
     assert counts() == (n0[0] + 1, n0[1] + 1, n0[2], n0[3], n0[4] + inserts[0],
                         n0[5] + inserts[1], n0[6] + 1, n0[7] + inserts[2],
-                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10], n0[11] + 1, n0[12])
+                        n0[8] + inserts[3], n0[9] + inserts[4], n0[10], n0[11] + 1, n0[12],
+                        n0[13])
     assert isinstance(got[5], torch.Tensor) and got[5].device.type == "cuda"
     for g, w in zip(got[2:], want[2:]):
         assert bit_equal(g, w)
@@ -3362,7 +3371,8 @@ def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
     filters every steady scan through voxel_centroids, undistorts every
     scan (the steady ones and the bootstrap's) through undistort and makes
     every insert (the steady scans' and the one that builds the map)
-    through the insert's two launches."""
+    through the insert's two launches (tiled_insert_sort and
+    tiled_insert_tiles; tiled_insert_keys never)."""
     from fastlivo_tpu_torch import imu as imu_mod
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
@@ -3371,8 +3381,8 @@ def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
     monkeypatch.setattr(tm, "insert", lambda *a: inserts.append(1) or real(*a))
     pipe = small_lio(cuda)
     count = lambda: (tm.delete_boxes.launches, vf.voxel_centroids.launches,  # noqa: E731
-                     imu_mod.undistort.launches, tm.insert_keys.launches,
-                     tm.insert_tiles.launches)
+                     imu_mod.undistort.launches, tm.insert_sort.launches,
+                     tm.insert_tiles.launches, tm.insert_keys.launches)
     n0 = count()
     outs = pipe.spin()
     steady = [o for o in outs if o.iters > 0]
@@ -3381,7 +3391,7 @@ def test_lio_pipeline_runs_the_map_stage_kernels(cuda, monkeypatch):
     assert n[0] >= len(steady)  # the tracker fires each frame
     assert n[1] == len(steady)
     assert n[2] > len(steady)  # and the bootstrap scans
-    assert n[3] == n[4] == len(inserts) > len(steady)
+    assert n[3] == n[4] == len(inserts) > len(steady) and n[5] == 0
 
 
 def map_stage_write_only(dev, kernel):
@@ -3450,7 +3460,7 @@ def replay_insert(dev, case, step_fn):
 
 
 def insert_launches():
-    return (tm.insert_keys.launches, tm.insert_tiles.launches)
+    return (tm.insert_sort.launches, tm.insert_tiles.launches, tm.insert_keys.launches)
 
 
 def tiles_scratch_clear(dev) -> bool:
@@ -3477,7 +3487,7 @@ def winner_flags(m, rows, sg, order):
                                   "overflow_mid_tile", "nearest_later", "equal_bits",
                                   "long_run", "dir_2_22"])
 def test_tiled_insert_matches_plain(cuda, case):
-    """insert on a card map (the keys launch, the sort of 32-bit keys and
+    """insert on a card map (one launch of the keys and their sort, and
     one launch of the tiles and cells passes; at B = 0 that launch alone,
     over 3 blocks, else 3 ceil(B / 1024)) leaves every TiledMap field
     equal to insert_plain's on the card and on the CPU after every batch
@@ -3495,7 +3505,7 @@ def test_tiled_insert_matches_plain(cuda, case):
         got = tm.insert(mc, p.to(cuda), v.to(cuda))
         torch.cuda.synchronize()
         B = p.shape[0]
-        assert insert_launches() == (n0[0] + (B > 0), n0[1] + 1)
+        assert insert_launches() == (n0[0] + (B > 0), n0[1] + 1, n0[2])
         assert tm.insert_tiles.grid == 3 * max(1, -(-B // 1024)) and tiles_scratch_clear(cuda)
         for f, g, wc, wh in zip(got._fields, got, want_card, want_cpu):
             assert torch.equal(g, wc), f
@@ -3628,6 +3638,127 @@ def test_tiled_insert_long_runs_and_the_largest_directory(cuda):
             assert tiles_scratch_clear(cuda)
         if dims == (256, 256, 64):
             assert int(tm.insert_keys_plain(mh, pts, valid)[0][0]) == -1
+
+
+def sort_cases():
+    import torch_insert_sort_cases
+
+    return torch_insert_sort_cases
+
+
+INSERT_SORT_CASES = [(c, None) for c in ["lio", "far", "wrap_x", "wrap_y", "wrap_z",
+                                         "all_invalid", "n1", "n0", "dir_2_22", "wide_field",
+                                         "equal_runs"]] + [
+    ("lio", n) for n in (1, 33, 1025, 16384, 65536)]
+
+
+@pytest.mark.parametrize("case,n", INSERT_SORT_CASES,
+                         ids=[c if n is None else f"{c}_{n}" for c, n in INSERT_SORT_CASES])
+def test_insert_sort_matches_plain(cuda, case, n):
+    """insert_sort on the card: one launch a batch (none at B = 0) with no
+    host read (torch's sync debug mode set to raise), its sorted keys,
+    order and rows bit-equal to insert_sort_plain on the card and on the
+    CPU, again on a second launch, over tests/torch_insert_sort_cases.py's
+    batches (the LIO path's shape about the world origin, every axis
+    across the directory's wrap; the room away from it; a wrap in one
+    axis; no valid row; one row; no rows; a 2^22-entry directory; a field
+    of 16384 values; runs of equal keys) and the LIO batch at 1, 33, 1025,
+    16384 and 65536 rows; a block a tile (grid ceil(B / 512)); the
+    stream's scratch left at 0; the insert through it (with insert_tiles)
+    every field of insert_plain's on the card and on the CPU, batch after
+    batch; no tiled_insert_keys launch."""
+    sc = sort_cases()
+    dims, pool, batches = sc.sort_case(case)
+    if n is not None:
+        batches = [sc.resized(*batches[0], n)]
+    mc = tm.empty_tiled_map(dims, pool, sc.VOX, device=cuda)
+    mh = tm.empty_tiled_map(dims, pool, sc.VOX, device="cpu")
+    for p, v in batches:
+        pt, vt = torch.from_numpy(p), torch.from_numpy(v)
+        pc, vc = pt.to(cuda), vt.to(cuda)
+        B = len(p)
+        n0, k0 = tm.insert_sort.launches, tm.insert_keys.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [tm.insert_sort(mc, pc, vc), tm._sorted_keys(mc, pc, vc)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert tm.insert_sort.launches == n0 + 2 * (B > 0) and tm.insert_keys.launches == k0
+        assert scratch_is_zero(cuda)
+        if B:
+            assert tm.insert_sort.tiles == 1 and tm.insert_sort.grid == -(-B // 512)
+        want = tm.insert_sort_plain(mc, pc, vc)
+        cpu = tm.insert_sort_plain(mh, pt, vt)
+        for g in got:
+            for x, w, h in zip(g, want, cpu):
+                assert torch.equal(x, w) and torch.equal(x.cpu(), h)
+        want_map = tm.insert_plain(clone_map(mc), pc, vc)
+        mc = tm.insert(mc, pc, vc)
+        mh = tm.insert_plain(mh, pt, vt)
+        torch.cuda.synchronize()
+        for f, g, w, h in zip(mc._fields, mc, want_map, mh):
+            assert torch.equal(g, w) and torch.equal(g.cpu(), h), f
+        assert scratch_is_zero(cuda)
+    if case == "lio" and n is None:
+        assert tm.insert_span_plain(mc, want[0]) == (15, 2)
+        n0 = tm.insert_sort.launches
+        with pytest.raises(TypeError):
+            tm.insert_sort(mc, pc.double(), vc)
+        with pytest.raises(ValueError):
+            tm.insert_sort(mc, pc, vc[:-1])
+        assert tm.insert_sort.launches == n0
+
+
+def test_insert_sort_past_one_tile_a_block(cuda):
+    """600000 and 2000000 rows: more tiles of 512 rows than the card
+    holds blocks at once, so a block takes several consecutive tiles (its
+    rows computed or loaded again each pass); bit-equal to the plain
+    version, the scratch back at 0."""
+    sc = sort_cases()
+    m = tm.empty_tiled_map((128, 128, 64), 64, sc.VOX, device=cuda)
+    for n in (600000, 2000000):
+        p, v = sc.resized(*sc.lio_batch(np.random.default_rng(n)), n)
+        pc, vc = torch.from_numpy(p).to(cuda), torch.from_numpy(v).to(cuda)
+        got = tm.insert_sort(m, pc, vc)
+        torch.cuda.synchronize()
+        tiles = tm.insert_sort.tiles
+        assert tiles > 1 and tm.insert_sort.grid == -(-(-(-n // 512)) // tiles)
+        want = tm.insert_sort_plain(m, pc, vc)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert scratch_is_zero(cuda)
+
+
+@pytest.mark.parametrize("into", ["built", "compacted", "empty", "overflow"])
+def test_tiled_insert_into_the_smoke_maps(cuda, into):
+    """insert through insert_sort and insert_tiles at a LIO frame's 16384
+    rows into the four maps of chip_smoke.py's frame_kernels_phase: a
+    built map, a compacted one (stale slots), an empty one of the shipped
+    capacity (every tile fresh) and one of half as many slots as the
+    batch has tiles (the pool overflows): every TiledMap field equal to
+    insert_plain's on the card and on the CPU, twice in a row; two
+    launches an insert and no tiled_insert_keys launch."""
+    p, v = frame_insert_batch(cuda)
+    if into in ("built", "compacted"):
+        m = stage_map(cuda, compacted=into == "compacted")
+    else:
+        sg = tm.insert_sort_plain(tm.empty_tiled_map((64, 64, 16), 4, 0.5, device=cuda), p, v)[0]
+        tiles = int(torch.unique_consecutive((sg[sg < 0].to(torch.int64) + tm.KEY_BIAS)
+                                             >> 9).numel())
+        m = tm.empty_tiled_map((64, 64, 16), 16384 if into == "empty" else tiles // 2, 0.5,
+                               device=cuda)
+    mc, mh = clone_map(m), type(m)(*(t.cpu() for t in m))
+    for _ in range(2):
+        n0 = insert_launches()
+        mc = tm.insert(mc, p, v)
+        mh = tm.insert_plain(mh, p.cpu(), v.cpu())
+        torch.cuda.synchronize()
+        assert insert_launches() == (n0[0] + 1, n0[1] + 1, n0[2])
+        for f, g, w in zip(mc._fields, mc, mh):
+            assert torch.equal(g.cpu(), w), f
+    if into == "overflow":
+        assert int(mc.n_dropped) > 0
 
 
 def undistort_args(dev, d, pose="f32"):
@@ -3791,10 +3922,32 @@ def frame_kernel_write_only(dev, kernel):
         got = launch_guarded(run, [*table, st.rot, st.pos, calib.lid_rot, calib.lid_off, pts,
                                    t_rel, pmask], [torch.empty_like(pts)])
         want = [imu_mod.undistort_plain(st, table, pts, t_rel, pmask, calib)]
+    elif kernel.startswith("tiled_insert_sort"):
+        if kernel.endswith("wrap"):  # the room about the origin: every axis wraps
+            m = tm.empty_tiled_map((128, 128, 64), 64, 0.5, device=dev)
+            p, v = (torch.from_numpy(a).to(dev) for a in sort_cases().lio_batch(
+                np.random.default_rng(3), n=n, n_valid=n - 300))
+        else:
+            m = stage_map(dev, compacted=True)
+            p, v = frame_insert_batch(dev, n=n)
+        *_, sort, size = tm._insert_launchers()
+        i32 = dict(dtype=torch.int32, device=dev)
+        outs = [torch.empty(n, **i32), torch.empty(n, dtype=torch.int64, device=dev),
+                torch.empty(n, **i32), torch.empty(n, **i32), torch.empty((5, n), **i32),
+                torch.zeros(size(n), **i32)]
+        grid, tiles = ctypes.c_int(0), ctypes.c_int(0)
+        got = launch_guarded(lambda *a: sort(*ptr(*a), n, ctypes.byref(grid),
+                                             ctypes.byref(tiles), stream),
+                             [p, v, m.voxel_size, m.log2_dims], outs)
+        assert grid.value == 32 and tiles.value == 1
+        assert not got[5].any()  # the header, bitmaps and histograms back at 0
+        got = [got[0], got[1], got[4]]
+        want = list(tm.insert_sort_plain(m, p, v))
+        assert tm.insert_span_plain(m, want[0])[1] == (2 if kernel.endswith("wrap") else 3)
     else:
         m = stage_map(dev, compacted=True, pool=4096 if kernel != "tiled_insert_cells" else 600)
         p, v = frame_insert_batch(dev, n=n)
-        keys, tiles, size = tm._insert_launchers()
+        keys, tiles, size, *_ = tm._insert_launchers()
         B, T = n, m.slot_key.shape[0]
         mp = clone_map(m)
         gkey, rows = tm.insert_keys_plain(mp, p, v)
@@ -4573,10 +4726,13 @@ def test_vio_dedup_matches_plain(cuda, case):
 def stage_pool(dev, sizes):
     from fastlivo_tpu_torch import visual_map as tvm
 
-    return tvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
-                                voxel_cap=4, ring=sizes["R"], height=sizes["H"],
-                                width=sizes["W"],
-                                img_dtype=torch.uint8 if sizes["u8"] else None, device=dev)
+    m = tvm.empty_visual_map(n_points=sizes["NP"], n_obs=sizes["KO"], table_size=1 << 10,
+                             voxel_cap=4, ring=sizes["R"], height=sizes["H"],
+                             width=sizes["W"],
+                             img_dtype=torch.uint8 if sizes["u8"] else None, device=dev)
+    if "img_fid0" in sizes:  # a pool full from the start
+        m.img_fid.copy_(torch.from_numpy(sizes["img_fid0"]))
+    return m
 
 
 @pytest.mark.parametrize("case,small", [("evict", True), ("repush", True), ("f32", True),
@@ -4647,6 +4803,68 @@ def test_vio_push_past_shared_memory(cuda, R):
             mk.n_pts.fill_(4000)  # rows past it go dead
             mp.n_pts.fill_(4000)
     assert scratch_is_zero(cuda)
+
+
+@pytest.mark.parametrize("blocks", [0, 1, 7])
+@pytest.mark.parametrize("form", [1, 2])
+@pytest.mark.parametrize("case", ["evict", "repush", "f32", "big"])
+def test_vio_push_forms_match_plain(cuda, case, form, blocks):
+    """Each of vio_push's two forms, forced (one grid barrier: every block
+    its own argmin of all the keys after it; two: the keys a warp a slot
+    and one 64-bit word), on the form's own grid and on grids of 1 and 7
+    blocks: imgs and img_fid bit-equal to push_image_plain after every
+    push of a sequence that fills and evicts, on u8 and f32 pools and on
+    a full pool past the launcher's one-barrier limit (ONE_BARRIER_MAX_R
+    + 16 slots); the stream's scratch left at 0. Unforced, the launcher
+    gives pools up to ONE_BARRIER_MAX_R slots (the C constant ONE_R) one
+    barrier and larger pools two."""
+    import ctypes
+
+    from fastlivo_tpu_torch import visual_map as tvm
+    from fastlivo_tpu_torch.ops import _build, photometric, vio_push
+
+    launch, size = vio_push._library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    grid, launched = ctypes.c_int(0), ctypes.c_int(0)
+
+    def push(m, img, fid):  # the C entry: the form and the grid forced
+        fid_t = torch.tensor(fid, dtype=torch.int32, device=cuda)
+        NP, KO = m.obs_fid.shape
+        R, H, W = m.imgs.shape
+        ws = photometric._ticket(cuda, stream, size(R))
+        assert launch(*[t.data_ptr() for t in (m.obs_slot, m.obs_fid, m.n_pts, m.img_fid,
+                                                m.imgs, img, fid_t, ws)],
+                      NP, KO, R, H, W, int(m.imgs.dtype == torch.uint8), form, blocks,
+                      ctypes.byref(grid), ctypes.byref(launched), stream) == 0
+        assert launched.value == form and (blocks == 0 or grid.value == blocks)
+
+    sc = stage_cases()
+    sizes, steps = sc.push_steps(case)
+    mk = stage_pool(cuda, sizes)
+    mp = clone_map(mk)
+    evicted = 0
+    for k, (seed, fid, upd) in enumerate(steps):
+        img = torch.from_numpy(sc.push_image_of(sizes["H"], sizes["W"], seed)).to(cuda)
+        before = mk.img_fid.clone()
+        if blocks:
+            push(mk, img, int(fid))
+        else:
+            vio_push.vio_push(mk, img, int(fid), form=form)
+            assert vio_push.vio_push.form == form
+        tvm.push_image_plain(mp, img, int(fid))
+        assert torch.equal(mk.img_fid, mp.img_fid), k
+        assert torch.equal(mk.imgs, mp.imgs), k
+        evicted += int(((before >= 0) & (before != mk.img_fid)).sum())
+        sc.apply_ring_update(mk, fid, upd)
+        sc.apply_ring_update(mp, fid, upd)
+    assert evicted > 0 and scratch_is_zero(cuda)
+    vio_push.vio_push(mk, img, int(fid) + 1)
+    R = sizes["R"]
+    assert vio_push.vio_push.form == (1 if R <= vio_push.ONE_BARRIER_MAX_R else 2)
+    one_r = _build.load("vio_push").vio_push_one_barrier_max_r
+    one_r.restype = ctypes.c_int
+    assert one_r() == vio_push.ONE_BARRIER_MAX_R and (case == "big") == (
+        R > vio_push.ONE_BARRIER_MAX_R)
 
 
 def test_camera_stage_kernels_refuse_bad_inputs(cuda):
@@ -4738,8 +4956,9 @@ def camera_stage_write_only(dev, kernel):
         if k:
             assert not got.pop().any()  # the scratch back at 0
         want = list(vio._dedup_voxels_plain(pg, mk, max_vox))
-    else:
+    else:  # vio_push: the launcher's choice at 16 slots (one barrier), or two barriers
         sizes, steps = sc.push_steps("f32" if kernel.endswith("f32") else "dead")
+        form = 2 if kernel.startswith("vio_push_two") else 0
         m = stage_pool(dev, sizes)
         for seed, fid, upd in steps[:-1]:  # the pool full
             img = torch.from_numpy(sc.push_image_of(sizes["H"], sizes["W"], seed)).to(dev)
@@ -4753,11 +4972,13 @@ def camera_stage_write_only(dev, kernel):
         launch, size = vio_push._library()
         NP, KO = m.obs_fid.shape
         R, H, W = m.imgs.shape
+        launched = ctypes.c_int(0)
         got = launch_guarded(lambda os_, of, npt, im, f, ifd, imgs, ws: launch(
             *ptr(os_, of, npt, ifd, imgs, im, f, ws), NP, KO, R, H, W,
-            int(sizes["u8"]), ctypes.byref(grid), stream),
+            int(sizes["u8"]), form, 0, ctypes.byref(grid), ctypes.byref(launched), stream),
             [m.obs_slot, m.obs_fid, m.n_pts, img, fid_t],
             [m.img_fid.clone(), m.imgs.clone(), torch.zeros(size(R), **i32)])
+        assert launched.value == (form or 1)
         assert not got.pop().any()  # counts, word and block count back at 0
     for g, w in zip(got, want):
         assert bit_equal(g, w)

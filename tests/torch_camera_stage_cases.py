@@ -12,13 +12,16 @@ of rows, ring positions, each entry's kind and the new point count,
 applied after the push by `apply_ring_update` (torch, any device).
 """
 import numpy as np
+
+from fastlivo_tpu_torch.ops.vio_push import ONE_BARRIER_MAX_R
 import torch
 
 VOX = 0.5  # the visual map's voxel
 KEYS_CASES = ["lio", "camera", "edges", "wrap", "all_invalid", "n1", "spread"]
 DEDUP_CASES = ["cloud", "small", "chain", "duplicates", "overflow", "all_masked", "odd",
                "scratch", "rows24576", "rows40000"]
-PUSH_CASES = ["evict", "repush", "f32", "dead"]
+PUSH_CASES = ["evict", "repush", "f32", "dead", "big"]
+
 HASH = (73856093, 19349663, 83492791)
 
 
@@ -151,17 +154,27 @@ def push_steps(case, seed=0, small=True):
     it at a ring position: live entries, and dead ones (a fid whose slot
     no longer holds it, an empty -1, a slot out of range); rows past
     n_pts with live-looking entries. "repush" pushes a live fid again
-    every few frames; "f32" is an f32 pool. Returns (sizes, steps), a
-    step (image seed, fid, ring update)."""
+    every few frames; "f32" is an f32 pool; "big" a u8 pool of
+    ONE_BARRIER_MAX_R + 16 slots of 4 x 8 over 256 x 4 entries that holds a
+    frame in every slot from the start (sizes["img_fid0"], the pool's
+    frame ids before the first push), so that every push evicts (any
+    `small`). Returns (sizes, steps), a step (image seed, fid, ring
+    update)."""
     rng = np.random.default_rng(seed)
-    if small:
+    if case == "big":  # its pool full from the start: sizes["img_fid0"]
+        R, NP, KO, H, W, n = ONE_BARRIER_MAX_R + 16, 256, 4, 4, 8, 40
+    elif small:
         R, NP, KO, H, W, n = (16, 4096, 20, 24, 32, 40) if case == "dead" else (
             8, 512, 6, 24, 32, 30)
     else:
         R, NP, KO, H, W, n = 256, 1 << 16, 20, 512, 640, 300
     sizes = dict(R=R, NP=NP, KO=KO, H=H, W=W, u8=case != "f32")
+    f0 = 0
+    if case == "big":  # frame ids 0 .. R - 1 in a random order; pushes from R
+        sizes["img_fid0"] = rng.permutation(R).astype(np.int32)
+        f0 = R
     steps, n_pts = [], 0
-    for f in range(n):
+    for f in range(f0, f0 + n):
         fid = f - 3 if case == "repush" and f % 5 == 4 else f
         n_pts = min(NP, n_pts + int(rng.integers(1, max(2, 2 * NP // n))))
         k = int(rng.integers(5, max(6, min(n_pts, NP // 4))))
