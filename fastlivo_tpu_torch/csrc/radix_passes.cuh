@@ -17,33 +17,50 @@
 // (coalesced loads), and ranks its items in order by ballots on the
 // digit's bits and a counter per warp and digit in shared memory; a thread
 // a digit turns the counters into the warps' offsets and the tile's count.
-// A digit's first position in a block is the exclusive scan over digits of
-// every block's counts plus the same digit's count in the blocks before,
-// read from the pass's histogram (G x 256 words, up to 32 words in flight
-// a thread), and moves on by each tile's count. A tile is put in its sorted
-// order in shared memory first (each digit's rows from the digit's first
-// place in the tile), then written out a thread a place, so that a warp
-// writes runs of consecutive positions. Pass 0's histogram is each block's
-// own count, stored and shared by a grid barrier; pass p + 1's is
-// accumulated during pass p's writes: each row adds one (an integer atomic)
-// to the count of its next digit in the block its new position falls in,
-// so the grid barrier that ends pass p also completes pass p + 1's
-// histogram (one barrier a pass, passes + 1 in all with the caller's
-// first). The histograms rotate through three buffers; a block zeroes its
-// row of the buffer read two passes back, and the last block to finish
-// zeroes the last pass's buffer and the header, so the scratch the wrapper
-// zeroed once is back at 0 for the stream's next launch. The passes
-// alternate between (tmp_keys, tmp_rows) and the outputs, the last pass
-// writing keys and order (int64); no pass (every rank equal) writes the
-// identity. Scratch written in the launch is read through L2 (__ldcg);
-// integer atomics only: every launch gives the same bits.
 //
-// One copy serves both sorts: the voxel filter's sort measured no slower
-// on it than on its own copy (0.0280 -> 0.0270 ms at 32768 rows on an H100,
-// scripts/torch_vio_kernels_bench.py; PERF.md), with the same 128
-// registers and no spill. Built with -DPHASE_STAMPS (csrc/phase_stamps.cuh)
-// it stamps pass 0's count and its barrier, and each pass's offsets,
-// ranking and scatter, and barrier.
+// A pass (one grid barrier after it, none after the last): each block
+// ranks its tiles and publishes its count of each digit, as count + 1, in
+// its row of the pass's histogram (G x 256 words; two buffers, pass p's
+// the (p % 2)-th); with one tile it then puts the tile in its sorted order
+// in shared memory (each digit's rows from the digit's first place in the
+// tile) while the other blocks' counts land; a thread a digit then reads
+// the digit's column, 32 words in flight, and reads again those still 0
+// (their blocks have not published yet), all together, so the counts need
+// no barrier of their own and no atomic. A digit's first position in the
+// block is the exclusive scan over digits of the column sums plus the
+// same digit's count in the blocks before, and moves on by each tile's
+// count; the staged tile is written out a thread a place, so that a warp
+// writes runs of consecutive positions. Where pass 0's digit is a function
+// of the key alone (`counted`: the insert's low rank byte is its key's
+// cell byte), the caller ranks its tiles by it and publishes the count in
+// its first phase, before its first barrier; the voxel filter's low rank
+// byte depends on the global minimum, so its pass 0 ranks after that
+// barrier. A block zeroes its row of the buffer read one pass back (after
+// the barrier that ends that pass, before the next that writes it) and
+// the last block to finish zeroes the last pass's buffer and the header,
+// so the scratch the wrapper zeroed once is back at 0 for the stream's
+// next launch. The passes alternate between (tmp_keys, tmp_rows) and the
+// outputs, the last pass writing keys and order (int64); no pass (every
+// rank equal) writes the identity. Scratch written in the launch is read
+// through L2 (__ldcg, volatile where it is waited on); integer arithmetic
+// only: every launch gives the same bits.
+//
+// The form before this one counted pass 0 in a round of its own with a
+// grid barrier after it, and built pass p + 1's histogram during pass p's
+// writes with one L2 atomicAdd a row into the block each row landed in.
+// On an H100, in turns, this form took 0.0188 ms against that form's
+// 0.0215 on a 2-pass scan of the LIO path's shape, and 0.0177 against
+// 0.0192 on the tiled insert's LIO batch; these passes with that
+// histogram by atomics (pass 0's still published) took 0.0201 and 0.0184,
+// with the atomics aggregated a warp by __match_any_sync 0.0199 and
+// 0.0187; a first form of 11-bit digits (two passes where 8-bit ones take
+// three, none fewer on the paths' 9-16-bit ranks) took 0.055-0.057 on
+// every batch, its column read (a thread's eight digits, four blocks' rows
+// a round) eight round trips where this form's is one
+// (scripts/torch_vio_kernels_bench.py; PERF.md). Built with
+// -DPHASE_STAMPS (csrc/phase_stamps.cuh) it stamps each pass's work before
+// its column read, the column read and offsets, the scatter and the
+// barrier.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -67,8 +84,12 @@ constexpr unsigned FULL = 0xffffffffu;
 // whatever else a sort keeps there (Buffers::head words in all, at least
 // HEAD); the histograms follow
 constexpr int W_HI = 0, W_LO = 3, W_INV = 6, W_DONE = 7, HEAD = 16;
-constexpr int NBUF = 3;  // rotating histogram buffers
+constexpr int NBUF = 2;  // histogram buffers, pass p's the (p % NBUF)-th
 constexpr int MAX_GRID = 1024;  // blocks a launch at most (the scratch's rows)
+// reads of a histogram word still unpublished before the launch traps
+// instead of hanging (2^24 L2 round trips: seconds; a block publishes
+// within microseconds)
+constexpr unsigned SPIN_LIMIT = 1u << 24;
 
 // The sort's outputs, buffers and shape.
 template <class K>
@@ -142,11 +163,12 @@ __device__ __forceinline__ unsigned same_digit(int d, unsigned in) {
   return peers;
 }
 
-// A tile's ranking in pass p: each warp's items in order among its equal
-// digits (rnk), then thread t turns the warps' counts of digit t into their
-// offsets in wcnt and returns the tile's count of digit t.
-template <int ITEMS, class K, class Rank>
-__device__ __forceinline__ unsigned rank_tile(const Rank& rank, int p, int tile, int n,
+// A tile's ranking by the digits dig(key) (a pass's: digit_of): each
+// warp's items in order among its equal digits (rnk), then thread t turns
+// the warps' counts of digit t into their offsets in wcnt and returns the
+// tile's count of digit t.
+template <int ITEMS, class K, class Dig>
+__device__ __forceinline__ unsigned rank_tile(const Dig& dig, int tile, int n,
                                               const K key[ITEMS], int digit[ITEMS],
                                               unsigned rnk[ITEMS],
                                               unsigned (*wcnt)[DIGITS]) {
@@ -158,7 +180,7 @@ __device__ __forceinline__ unsigned rank_tile(const Rank& rank, int p, int tile,
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const bool in = position<ITEMS>(tile, i) < n;
-    digit[i] = in ? digit_of(key[i], rank, p) : 0;
+    digit[i] = in ? dig(key[i]) : 0;
     const unsigned peers = same_digit(digit[i], __ballot_sync(FULL, in));
     unsigned before = 0;
     if (in) {
@@ -179,6 +201,51 @@ __device__ __forceinline__ unsigned rank_tile(const Rank& rank, int p, int tile,
   }
   __syncthreads();
   return count;
+}
+
+// This block's count of digit t over its tiles in pass p, published in its
+// row of the pass's histogram as count + 1 (0 stays "not yet"): pass 0's
+// by the caller's first phase where the digit is the key's own, else by
+// sort_passes. Thread t stores word t.
+template <class K>
+__device__ __forceinline__ void publish_count(const Buffers<K>& a, int p, unsigned count) {
+  const size_t G = gridDim.x;
+  unsigned* h = a.ws + a.head + static_cast<size_t>(p % NBUF) * G * DIGITS
+                + static_cast<size_t>(blockIdx.x) * DIGITS + threadIdx.x;
+  *reinterpret_cast<volatile unsigned*>(h) = count + 1u;
+}
+
+// A ranked tile put in its sorted order in shared memory: s.tstart the
+// exclusive scan of the tile's counts (each digit's first place in the
+// tile), each row at its digit's first place plus the warps' before it
+// and its rank in its warp (s.key, s.row, s.dig).
+template <int ITEMS, class K>
+__device__ __forceinline__ void stage_tile(int tile, int n, const K key[ITEMS],
+                                           const int row[ITEMS], const int digit[ITEMS],
+                                           const unsigned rnk[ITEMS], unsigned tcount,
+                                           Shared<K, ITEMS>& s) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  unsigned inc = tcount;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned v = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) s.wsum[warp] = inc;
+  __syncthreads();
+  unsigned tst = inc - tcount;
+  for (int w = 0; w < warp; ++w) tst += s.wsum[w];
+  s.tstart[t] = tst;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i)
+    if (position<ITEMS>(tile, i) < n) {
+      const unsigned place = s.tstart[digit[i]] + s.wcnt[warp][digit[i]] + rnk[i];
+      s.key[place] = key[i];
+      s.row[place] = row[i];
+      s.dig[place] = static_cast<uint8_t>(digit[i]);
+    }
+  __syncthreads();
 }
 
 // The block's three fields' maxima of f + 1 and of OFF - f and its
@@ -237,26 +304,29 @@ __device__ __forceinline__ int passes_for(unsigned long long rmax) {
 }
 
 // Everything after the first grid barrier: the identity where `passes` is
-// 0, else pass 0's count, its barrier and the passes; then the last block
-// sets the scratch back to 0. `one`: the block has one tile, whose keys
-// and rows are in key / row already (loaded by the caller's first phase).
+// 0, else the passes; then the last block sets the scratch back to 0.
+// `one`: the block has one tile, whose keys and rows are in key / row
+// already (loaded by the caller's first phase). `counted`: the caller
+// ranked its tiles by pass 0's digit and published the count before its
+// first barrier (with `one`, the tile's digit, rnk, tcount and s.wcnt
+// are that ranking's).
 template <int ITEMS, class K, class Src, class Rank>
 __device__ __forceinline__ void sort_passes(cg::grid_group& grid, const Src& src,
                                             const Rank& rank, int passes, const Buffers<K>& a,
                                             Shared<K, ITEMS>& s, K key[ITEMS], int row[ITEMS],
-                                            bool one) {
+                                            int digit[ITEMS], unsigned rnk[ITEMS],
+                                            unsigned tcount, bool counted, bool one) {
   constexpr int TILE = THREADS * ITEMS;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5, b = blockIdx.x, G = gridDim.x;
   const int n = a.n;
   const int ntiles = (n + TILE - 1) / TILE;
   const int j0 = b * a.tiles, j1 = min(j0 + a.tiles, ntiles);  // this block's tiles
-  const unsigned span = static_cast<unsigned>(a.tiles) * TILE;  // positions a block
   unsigned* hist = a.ws + a.head;
   const size_t hsize = static_cast<size_t>(G) * DIGITS;
-  int digit[ITEMS];
-  unsigned rnk[ITEMS];
+  unsigned* own = hist + static_cast<size_t>(b) * DIGITS + t;  // word t of this block's row
 
   if (passes == 0) {  // every rank equal: the identity
+    if (counted) *own = 0;  // pass 0's count, published for nothing
     for (int j = j0; j < j1; ++j) {
       if (!one) load_tile<ITEMS>(src, a, j, 0, false, key, row);
 #pragma unroll
@@ -267,39 +337,55 @@ __device__ __forceinline__ void sort_passes(cg::grid_group& grid, const Src& src
         }
     }
   }
-  unsigned tcount = 0;  // the current tile's count of digit t
-  if (passes > 0) {  // pass 0's count of each digit in this block's tiles, for all blocks
-    unsigned count = 0;
-    for (int j = j0; j < j1; ++j) {
-      if (!one) load_tile<ITEMS>(src, a, j, 0, false, key, row);
-      tcount = rank_tile<ITEMS>(rank, 0, j, n, key, digit, rnk, s.wcnt);
-      count += tcount;
-    }
-    hist[static_cast<size_t>(b) * DIGITS + t] = count;
-    PHASE_STAMP_IT(0, 0);
-    grid.sync();  // every block's pass-0 count
-  }
   for (int p = 0; p < passes; ++p) {
     PHASE_STAMP_IT(p, 1);
     const bool last = p == passes - 1;
     const bool to_out = ((passes - 1 - p) & 1) == 0;  // the last pass writes the outputs
+    const auto dig = [&](K k) { return digit_of(k, rank, p); };
+    // this block's tiles ranked and its count published (pass 0's where
+    // counted: already), then its row of the buffer read one pass back
+    // zeroed for the pass after this one
+    if (p > 0 || !counted) {
+      unsigned count = 0;
+      for (int j = j0; j < j1; ++j) {
+        if (!(one && p == 0)) load_tile<ITEMS>(src, a, j, p, !to_out, key, row);
+        tcount = rank_tile<ITEMS>(dig, j, n, key, digit, rnk, s.wcnt);
+        count += tcount;
+      }
+      publish_count(a, p, count);
+    }
+    if (p > 0) own[static_cast<size_t>((p + 1) % NBUF) * hsize] = 0;
+    // one tile: staged while the other blocks' counts land
+    if (one) stage_tile<ITEMS>(j0, n, key, row, digit, rnk, tcount, s);
+    PHASE_STAMP_IT(p, 2);
     // the digit's count in the blocks before this one, and in all: the
     // column's words loaded 32 at a time (the last group's predicated),
-    // all in flight together
-    const unsigned* H = hist + static_cast<size_t>(p % NBUF) * hsize;
+    // all in flight together; words still 0 (their blocks have not
+    // published) loaded again, all together, until none is; then less the
+    // 1 that marks a word published
+    const unsigned* col = hist + static_cast<size_t>(p % NBUF) * hsize + t;
     unsigned before = 0, total = 0;
-    {
-      const unsigned* col = H + t;
-      for (int k = 0; k < G; k += 32) {
-        unsigned v[32];
+    for (int k = 0; k < G; k += 32) {
+      unsigned v[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        v[u] = k + u < G ? __ldcg(col + static_cast<size_t>(k + u) * DIGITS) : 1u;
+      for (unsigned polls = 0;; ++polls) {
+        bool pending = false;
+#pragma unroll
+        for (int u = 0; u < 32; ++u) pending |= v[u] == 0u;
+        if (!pending) break;
+        if (polls == SPIN_LIMIT) __trap();  // a block that never publishes: a fault
 #pragma unroll
         for (int u = 0; u < 32; ++u)
-          v[u] = k + u < G ? __ldcg(col + static_cast<size_t>(k + u) * DIGITS) : 0u;
+          if (v[u] == 0u)
+            v[u] = *reinterpret_cast<const volatile unsigned*>(
+                col + static_cast<size_t>(k + u) * DIGITS);
+      }
 #pragma unroll
-        for (int u = 0; u < 32; ++u) {
-          total += v[u];
-          before += k + u < b ? v[u] : 0u;
-        }
+      for (int u = 0; u < 32; ++u) {
+        total += v[u] - 1u;
+        before += k + u < b ? v[u] - 1u : 0u;
       }
     }
     // exclusive scan of the totals over the digits
@@ -310,71 +396,42 @@ __device__ __forceinline__ void sort_passes(cg::grid_group& grid, const Src& src
       if (lane >= o) incl += v;
     }
     if (lane == 31) s.wsum[warp] = incl;
-    // this block's row of the histogram read two passes back, for pass p + 2
-    if (p > 0)
-      hist[static_cast<size_t>((p + 2) % NBUF) * hsize + static_cast<size_t>(b) * DIGITS + t] = 0;
     __syncthreads();
     unsigned off = incl - total + before;
     for (int w = 0; w < warp; ++w) off += s.wsum[w];
     s.base[t] = off;
     __syncthreads();
-    PHASE_STAMP_IT(p, 2);
-    // each tile in order: its ranking; the tile put in its sorted order in
-    // shared memory (each digit's rows from its first place there), then
-    // written out a thread a place, so that a warp's writes are contiguous
-    // runs; the next pass's histogram by the blocks the rows land in
-    unsigned* Hn = hist + static_cast<size_t>((p + 1) % NBUF) * hsize;
+    PHASE_STAMP_IT(p, 3);
+    // each tile in order (with one tile: ranked and staged above): its
+    // ranking and staging, then its rows written out a thread a place, so
+    // that a warp's writes are contiguous runs
     for (int j = j0; j < j1; ++j) {
-      if (!(one && p == 0)) {  // (pass 0's one tile is ranked already)
+      if (!one) {
         load_tile<ITEMS>(src, a, j, p, !to_out, key, row);
-        tcount = rank_tile<ITEMS>(rank, p, j, n, key, digit, rnk, s.wcnt);
+        tcount = rank_tile<ITEMS>(dig, j, n, key, digit, rnk, s.wcnt);
+        stage_tile<ITEMS>(j, n, key, row, digit, rnk, tcount, s);
       }
-      unsigned inc = tcount;  // the exclusive scan of the tile's counts
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned v = __shfl_up_sync(FULL, inc, o);
-        if (lane >= o) inc += v;
-      }
-      if (lane == 31) s.wsum[warp] = inc;
-      __syncthreads();
-      unsigned tst = inc - tcount;
-      for (int w = 0; w < warp; ++w) tst += s.wsum[w];
-      s.tstart[t] = tst;
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < ITEMS; ++i)
-        if (position<ITEMS>(j, i) < n) {
-          const unsigned place = s.tstart[digit[i]] + s.wcnt[warp][digit[i]] + rnk[i];
-          s.key[place] = key[i];
-          s.row[place] = row[i];
-          s.dig[place] = static_cast<uint8_t>(digit[i]);
-        }
-      __syncthreads();
       const int tile_n = min(TILE, n - j * TILE);
 #pragma unroll
       for (int m = 0; m < ITEMS; ++m) {
         const int place = m * THREADS + t;
         if (place >= tile_n) continue;
         const int d = s.dig[place];
-        const K k = s.key[place];
-        const int r = s.row[place];
         const unsigned pos = s.base[d] + place - s.tstart[d];
         if (to_out) {
-          a.keys[pos] = k;
-          a.order[pos] = r;
+          a.keys[pos] = s.key[place];
+          a.order[pos] = s.row[place];
         } else {
-          a.tmp_keys[pos] = k;
-          a.tmp_rows[pos] = r;
+          a.tmp_keys[pos] = s.key[place];
+          a.tmp_rows[pos] = s.row[place];
         }
-        if (!last)
-          atomicAdd(Hn + static_cast<size_t>(pos / span) * DIGITS + digit_of(k, rank, p + 1), 1u);
       }
       __syncthreads();  // the staged tile and s.base read before they change
       s.base[t] += tcount;  // the next tile's digits follow this one's
     }
-    PHASE_STAMP_IT(p, 3);
-    if (!last) grid.sync();  // pass p's elements and pass p + 1's histogram complete
     PHASE_STAMP_IT(p, 4);
+    if (!last) grid.sync();  // pass p's elements complete
+    PHASE_STAMP_IT(p, 5);
   }
 
   // the last block to finish sets the scratch back to 0

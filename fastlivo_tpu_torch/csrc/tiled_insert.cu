@@ -20,12 +20,14 @@
 //                       0 for an invalid row; the row's [dir_idx, check,
 //                       cell, distance bits, flag 0] written; each
 //                       directory field's min and max over the valid rows
-//                       by integer atomics into the stream's scratch; a
-//                       grid barrier; then the stable 8-bit LSD radix
-//                       passes of csrc/radix_passes.cuh (shared with the
-//                       voxel filter's sort, csrc/voxel_keys.cu) over a
-//                       compact rank of the key (below), as many as its
-//                       bit length needs, decided on the card. Writes the
+//                       by integer atomics into the stream's scratch; each
+//                       tile ranked by pass 0's digit, the key's cell byte
+//                       (the rank's low byte), and the block's count
+//                       published; a grid barrier; then the stable 8-bit
+//                       LSD radix passes of csrc/radix_passes.cuh (shared
+//                       with the voxel filter's sort, csrc/voxel_keys.cu)
+//                       over a compact rank of the key (below), as many as
+//                       its bit length needs, decided on the card. Writes the
 //                       sorted keys and `order` (int64): torch.sort(
 //                       stable=True)'s outputs on the keys, bit for bit,
 //                       each (dir_idx, cell) run in row order;
@@ -93,7 +95,10 @@
 // path's batches 4 x 4 x 2 tiles: 14 bits, 2 passes). The sort is bound
 // by its bytes (each row's point and mask read, 13 B; its sorted key,
 // order and row values written, 32 B) and held by its passes' barriers
-// and chains, as the voxel filter's sort is.
+// and chains, as the voxel filter's sort is. Since 512 divides every rank
+// but the cell, pass 0's digit is the key's cell byte, known before the
+// extremes are: the keys phase ranks its tiles by it and publishes the
+// counts, so pass 0 follows the first barrier with no round of its own.
 // The cells pass shares the tiles pass's launch and gathers its rows and
 // the stored cells at the entries' slots ahead of its wait, so after the
 // directory writes its chain is one round trip, the runs' directory
@@ -297,13 +302,20 @@ __global__ void __launch_bounds__(radix::THREADS, 2) tiled_insert_sort_kernel(So
   unsigned* gbm = a.out.ws + BITMAPS;
 
   // phase 1: the keys, the rows' values written, each field's extremes
-  // and occupied values (the block's last tile's keys stay)
+  // and occupied values, and each tile ranked by pass 0's digit, the rank's
+  // low byte, which is the key's cell byte (0 for an invalid row, whose
+  // rank is a multiple of 512): the block's count published before the
+  // barrier (the block's last tile's keys and ranking stay)
   if (t < radix::W_DONE) s.red[t] = 0;
 #pragma unroll
   for (int q = 0; q < 3; ++q) s_bm[q * DENSE_WORDS + t] = 0;
   __syncthreads();
   int32_t key[ITEMS] = {};
-  int row[ITEMS];
+  int row[ITEMS], digit[ITEMS];
+  unsigned rnk[ITEMS], tcount = 0, count0 = 0;
+  const auto digit0 = [](int32_t k) {
+    return key_valid(k) ? static_cast<int>(key_cell(k) & 0xffu) : 0;
+  };
   unsigned hi[3] = {0, 0, 0}, lo[3] = {0, 0, 0}, inv = 0;
   for (int j = j0; j < j1; ++j) {
 #pragma unroll
@@ -339,7 +351,10 @@ __global__ void __launch_bounds__(radix::THREADS, 2) tiled_insert_sort_kernel(So
           atomicOr(&s_bm[q * DENSE_WORDS + (f[q] >> 5)], 1u << (f[q] & 31));
       }
     }
+    tcount = radix::rank_tile<ITEMS>(digit0, j, n, key, digit, rnk, s.wcnt);
+    count0 += tcount;
   }
+  radix::publish_count(a.out, 0, count0);
   radix::reduce_extremes(hi, lo, inv, s, a.out.ws);  // (its __syncthreads orders the bitmaps)
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
@@ -400,7 +415,7 @@ __global__ void __launch_bounds__(radix::THREADS, 2) tiled_insert_sort_kernel(So
   rank.l2 = l2;
   const unsigned long long rmax = !e.any ? 0ull : e.inv ? rank.rinv : rank.rinv - 1;
   radix::sort_passes<ITEMS>(grid, src, rank, radix::passes_for(rmax), a.out, s, key, row,
-                            a.out.tiles == 1);
+                            digit, rnk, tcount, true, a.out.tiles == 1);
 }
 
 // The second launch's scratch, in ints: the ticket, the tiles marked,

@@ -46,16 +46,24 @@
 // spread needs all 60 bits and the marker). Then the stable LSD radix
 // passes of csrc/radix_passes.cuh over (key, row), shared with the tiled
 // insert's sort (csrc/tiled_insert.cu): tiles of 1024 positions, a block
-// their consecutive run, one grid barrier a pass, three rotating histogram
-// buffers left at 0.
+// their consecutive run, each block's digit counts published in the pass's
+// histogram row and read by the others without a barrier of their own, one
+// grid barrier after each pass but the last, two histogram buffers left at
+// 0. Pass 0 ranks after the first barrier: the rank's low byte is (fz -
+// min_z) mixed with the fields above it, which needs the global minimum.
+// A rank whose z field starts at a multiple of 256 would make that byte
+// the key's own (fz & 255) and let the keys phase count it, but it takes
+// up to 8 more bits, a third pass on the LIO path's 2-pass scans
+// (`aligned_sort_bits_passes` in the shape line of
+// scripts/torch_vio_kernels_bench.py), so the rank stays compact.
 //
 // Bound on an H100: the sort reads 12 B of each row and its valid byte and
 // writes 16 B (keys and order; ~0.3 us at the LIO scan's 32768 rows); its
 // operations (the key's ~30 a row, ~20 a row and pass) are far below that.
-// What holds it: the launch, its passes + 1 grid barriers (~1 us each on
-// this card) and the chains inside a pass (a warp's items in order, the
-// G-row histogram sum, the digit scan). Built with -DPHASE_STAMPS
-// (csrc/phase_stamps.cuh) the launch stamps the keys and the first
+// What holds it: the launch, its grid barriers (the first and one between
+// passes, ~1 us each on this card) and the chains inside a pass (a
+// warp's items in order, the wait on the G-row column, the digit scan).
+// Built with -DPHASE_STAMPS (csrc/phase_stamps.cuh) the launch stamps the keys and the first
 // barrier, and the passes theirs (radix_passes.cuh).
 
 #include <cooperative_groups.h>
@@ -175,6 +183,8 @@ __global__ void __launch_bounds__(radix::THREADS, 2) voxel_sort_kernel(Sort a) {
   PHASE_STAMP(2);
 
   const radix::Extent e = radix::extent_of(a.out.ws, 1LL << 20);
+  int digit[ITEMS];
+  unsigned rnk[ITEMS];
   Rank rank;
 #pragma unroll
   for (int q = 0; q < 3; ++q) rank.lo[q] = e.lo[q];
@@ -183,7 +193,7 @@ __global__ void __launch_bounds__(radix::THREADS, 2) voxel_sort_kernel(Sort a) {
   rank.rinv = e.r[0] * e.r[1] * e.r[2];
   const unsigned long long rmax = !e.any ? 0ull : e.inv ? rank.rinv : rank.rinv - 1;
   radix::sort_passes<ITEMS>(grid, src, rank, radix::passes_for(rmax), a.out, s, key, row,
-                            a.out.tiles == 1);
+                            digit, rnk, 0u, false, a.out.tiles == 1);
 }
 
 constexpr int ITEMS = 4;  // rows a thread in a tile
@@ -213,7 +223,7 @@ extern "C" int voxel_keys_launch(const void* pts, const void* valid, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The scratch (32-bit words) a sort of n rows takes: the header and three
+// The scratch (32-bit words) a sort of n rows takes: the header and two
 // histograms of one row of 256 words a block, a block a tile of 1024 rows
 // at most and at most radix::MAX_GRID blocks; -1 for an n the launch does
 // not take.

@@ -35,16 +35,21 @@ forms also forced into the two-barrier one ("vio_push two") and into the
 one-barrier one on two blocks an SM; vio_dedup on the scan cloud (M = 8192 into 4096)
 and on that cloud tiled three times (24576 rows, the scratch route);
 voxel_keys on a seeded LIO scan (32768 rows of 4 columns, 24000 valid, a
-0.5 m leaf) and on the scan cloud at the camera's reciprocal 0.2 m leaf;
-the keys and their stable sort ("voxel_sort") on those two: a checkout's
+0.5 m leaf, uniform over +-40 m: 3 passes), on the scan cloud at the
+camera's reciprocal 0.2 m leaf and on a room scan (the synthetic room's
+faces about the sensor, the LIO path's shape: 2 passes); the keys and
+their stable sort ("voxel_sort") on those three: a checkout's
 voxel_sort launch where its csrc/voxel_keys.cu has one, else the route
 it replaced, its voxel_keys launch and torch.sort(stable=True); the
 tiled insert's keys and sort ("tiled_insert_sort") on a LIO-shaped batch
 (16384 rows on the synthetic room about the world origin, 12000 valid:
 2 passes) and on a +-70 m batch (3 passes), beside the route it replaced
 in the same checkout ("insert keys + torch.sort": its tiled_insert_keys
-launch and torch.sort(stable=True)). Each is held bit for bit against its
-plain version (visual_map.push_image_plain, vio._dedup_voxels_plain,
+launch and torch.sort(stable=True)); each variant's sorts launch on a
+scratch of their own, since checkouts lay it out differently. Every
+buffer whose pointer a launch holds is kept for the whole run (`KEEP`).
+Each is held bit for bit against its plain version
+(visual_map.push_image_plain, vio._dedup_voxels_plain,
 ops/voxel_filter.voxel_keys_plain and _sorted_keys_plain,
 ops/tiled_map.insert_sort_plain) and timed in turns as the two above.
 With --push-pools, this checkout's push in its two forms, in turns, on
@@ -62,15 +67,21 @@ variant is built again with -DPHASE_STAMPS (csrc/phase_stamps.cuh; and
 -DVIO_PHASE_STAMPS, the define of a checkout older than that header) and
 launched `--reps` times alone, synchronised, reading its phase stamps
 after each launch: the median of each phase (ms, %globaltimer) beside the
-median of the stamped launch's first-to-last stamp. Prints one JSON line
-with the card's `nvidia-smi` name and power limit (and writes it to
-`--out`).
+median of the stamped launch's first-to-last stamp (the sorts' phases in
+the layout of the checkout's csrc/radix_passes.cuh: `sort_phases`). The
+shape holds each sort input's rank bits and 8-bit passes, each voxel
+input's bits and passes under a rank whose z field is aligned to 256
+(`aligned_rank_bits`: the rank whose low byte would be the key's own),
+and each variant's ptxas -v lines (registers, stack, spills) of its sort
+kernels. Prints one JSON line with the card's `nvidia-smi` name and
+power limit (and writes it to `--out`).
 """
 import argparse
 import ctypes
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -95,15 +106,33 @@ IT_BASE, IT_NPH = 16, 8  # csrc/phase_stamps.cuh: a pass's stamps
 KEEP = []
 
 
-def sort_phases(passes):
+def sort_phases(passes, published):
     """The stamped phases of a sort's launch (voxel_sort, tiled_insert_sort:
-    csrc/radix_passes.cuh) of `passes` passes: the keys, the first
-    barrier, pass 0's count and second barrier, then each pass's offsets,
-    its tiles' ranking and scatter, and its barrier."""
+    csrc/radix_passes.cuh) of `passes` passes. `published` (the header's
+    form whose blocks publish each pass's counts for the others to read):
+    the keys (the insert's with pass 0's ranking and published counts),
+    the first barrier, what follows it (the insert's bitmap prefix sums),
+    then each pass's work before its histogram column is read (its
+    ranking, its counts published and, with one tile a block, its staging
+    in shared memory), the column read and the offsets (the wait on the
+    other blocks' counts), the scatter (with several tiles a block, their
+    ranking and staging too) and its barrier. Else (the form
+    before it): the keys, the first barrier, pass 0's count and second
+    barrier, then each pass's offsets, ranking and scatter (with the next
+    pass's histogram by atomics), and barrier."""
     it = lambda p, k: IT_BASE + p * IT_NPH + k  # noqa: E731
     ph = [("keys", 0, 1), ("barrier A", 1, 2)]
     if passes == 0:
         return ph
+    if published:
+        ph.append(("after barrier A", 2, it(0, 1)))
+        for p in range(passes):
+            ph += [(f"pass {p} before the column", it(p, 1), it(p, 2)),
+                   (f"pass {p} column and offsets", it(p, 2), it(p, 3)),
+                   (f"pass {p} scatter", it(p, 3), it(p, 4))]
+            if p < passes - 1:
+                ph.append((f"pass {p} barrier", it(p, 4), it(p, 5)))
+        return ph + [("total", 0, it(passes - 1, 4))]
     ph += [("pass 0 count", 2, it(0, 0)), ("barrier B", it(0, 0), it(0, 1))]
     for p in range(passes):
         ph += [(f"pass {p} offsets", it(p, 1), it(p, 2)),
@@ -111,6 +140,16 @@ def sort_phases(passes):
         if p < passes - 1:
             ph.append((f"pass {p} barrier", it(p, 3), it(p, 4)))
     return ph + [("total", 0, it(passes - 1, 3))]
+
+
+def published_form(tree: str) -> bool:
+    """Whether the checkout's csrc/radix_passes.cuh publishes each pass's
+    counts (its stamps' layout)."""
+    path = os.path.join(tree, "fastlivo_tpu_torch", "csrc", "radix_passes.cuh")
+    with open(path) as fh:
+        return "publish_count" in fh.read()
+
+
 # the phases a stamped variant reports: (name, from stamp, to stamp), by
 # kernel and launcher generation ("state": takes the state's rot and pos)
 PHASES = {
@@ -135,12 +174,14 @@ PHASES = {
 
 def build(tree: str, name: str, stamps: bool):
     """csrc/<name>.cu of `tree`, compiled with this checkout's flags (and
-    the stamps' defines); its source kept on the library as `source`."""
+    the stamps' defines); its source kept on the library as `source`, its
+    ptxas -v output as `ptxas`."""
     from fastlivo_tpu_torch.ops import _build
 
     csrc = os.path.join(tree, "fastlivo_tpu_torch", "csrc")
     src = os.path.join(csrc, f"{name}.cu")
     flags = _build.NVCC_FLAGS + (["-DPHASE_STAMPS", "-DVIO_PHASE_STAMPS"] if stamps else [])
+    flags = flags + ["-Xptxas", "-v"]
     h = hashlib.sha256(os.path.abspath(src).encode())
     for f in sorted(os.listdir(csrc)):
         with open(os.path.join(csrc, f), "rb") as fh:
@@ -154,10 +195,53 @@ def build(tree: str, name: str, stamps: bool):
                              text=True)
         if res.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+        with open(out + ".ptxas", "w") as fh:
+            fh.write(res.stderr)
     lib = ctypes.CDLL(out)
     with open(src, "rb") as fh:
         lib.source = fh.read()
+    lib.ptxas = ""
+    if os.path.exists(out + ".ptxas"):
+        with open(out + ".ptxas") as fh:
+            lib.ptxas = fh.read()
     return lib
+
+
+def aligned_rank_bits(keys) -> tuple:
+    """(bits, 8-bit passes) of the voxel filter's rank over the packed keys
+    (N,) int64 with its z field based at min_z rounded down to a multiple
+    of 256 and R_z rounded up to one: the form whose low byte is the key's
+    own z byte (fz & 255), so that pass 0's digit would be the key's alone;
+    (0, 0) without a valid row. ops/voxel_filter.sort_span_plain gives the
+    compact rank's, which the kernel sorts by."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    k = keys.cpu()
+    vs = k != vf.INVALID
+    if not bool(vs.any()):
+        return 0, 0
+    f = [((k[vs] >> s) & 0xFFFFF) for s in (40, 20, 0)]
+    lo, hi = [int(x.min()) for x in f], [int(x.max()) for x in f]
+    lz = lo[2] & ~255
+    rz = -(-(hi[2] - lz + 1) // 256) * 256
+    rinv = (hi[0] - lo[0] + 1) * (hi[1] - lo[1] + 1) * rz  # an invalid row's rank
+    bits = (rinv if bool((~vs).any()) else rinv - 1).bit_length()
+    return bits, -(-bits // 8)
+
+
+def sort_registers(ptxas: str) -> dict:
+    """ptxas -v's registers, stack and spills of each sort kernel instance
+    (a mangled name with `sort_kernel`) in a build's output."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
+                      line)
+        if m:
+            name = m.group(1) if "sort_kernel" in m.group(1) else None
+            continue
+        if name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(": ", 1)[-1].strip())
+    return out
 
 
 def inputs(dev, frames: int, seed: int):
@@ -310,6 +394,7 @@ def select_call(lib, a):
         if err:
             raise RuntimeError(f"vio_select: cudaError {err}")
 
+    KEEP.append((ws, outs, pose_out))
     if gen == "pose":  # the pose it was given, as the newer ones return theirs
         pose_out = [t.clone() for t in pose_in]
     return launch, outs + pose_out, grid
@@ -365,6 +450,7 @@ def observations_call(lib, vm, oa):
         if err:
             raise RuntimeError(f"vio_observations: cudaError {err}")
 
+    KEEP.append((opc, oscore, n_pts, pose_out, scratch))
     if gen == "pose":
         pose_out = [t.clone() for t in pose_in]
     return launch, [*(getattr(vm, f) for f in vm._fields if f != "n_pts"), opc, oscore, n_pts,
@@ -405,6 +491,13 @@ def stage_inputs(a, seed: int):
               "frame batch": (tm.empty_tiled_map((64, 64, 16), 64, 0.5, device=dev),
                               torch.as_tensor(wide.astype(np.float32), device=dev),
                               torch.as_tensor(rng.random(16384) > 0.05, device=dev))}
+    # the LIO path's scan shape for the voxel sort: the room's faces about
+    # the sensor, 24000 of 32768 rows valid, at 0.5 m (2 passes)
+    face = rng.integers(0, 6, n)
+    body = lo + rng.uniform(0, 1, (n, 3)) * (hi - lo)
+    body[np.arange(n), face // 2] = np.where(face % 2 == 1, hi[face // 2], lo[face // 2])
+    body = np.concatenate([body + rng.normal(0, 0.004, body.shape),
+                           rng.uniform(0, 1, (n, 1))], 1).astype(np.float32)
     return {"push": (a["vm"], a["img"], (a["vm"].img_fid.max() + 1).to(torch.int32)),
             "dedup": (a["pg"], a["pg_mask"], a["pg"].shape[0] // 2),
             "dedup 24576": (pg3, a["pg_mask"].repeat(3), a["pg"].shape[0] // 2),
@@ -413,7 +506,10 @@ def stage_inputs(a, seed: int):
                                   torch.tensor(0.5, **f32), 1),
                      "camera cloud": (cloud, torch.arange(n, device=dev) < 8192,
                                       torch.tensor(np.float32(1) / np.float32(0.2), **f32),
-                                      0)},
+                                      0),
+                     "room scan": (torch.as_tensor(body, device=dev),
+                                   torch.as_tensor(valid, device=dev),
+                                   torch.tensor(0.5, **f32), 1)},
             "insert": insert}
 
 
@@ -545,12 +641,17 @@ def stage_calls(lib, name, si):
             KEEP.append(tmp)
             tiles = ctypes.c_int(0)
 
+            # each variant's sort on a scratch of its own (layouts differ
+            # between checkouts), which every launch leaves at 0
+            ws = torch.zeros(size(B), dtype=torch.int32, device=dev)
+            KEEP.append(ws)
+
             def launch(args=(pts.data_ptr(), valid.data_ptr(), m.voxel_size.data_ptr(),
                              m.log2_dims.data_ptr(), sg.data_ptr(), order.data_ptr(),
-                             tmp.data_ptr(), tmp[B:].data_ptr(), rows2.data_ptr()),
-                       stream=stream, tiles=tiles, k=size(B), dev=dev, B=B):
-                ws = _ticket(dev, stream, k).data_ptr()
-                err = sort(*args, ws, B, ctypes.byref(grid), ctypes.byref(tiles), stream)
+                             tmp.data_ptr(), tmp[B:].data_ptr(), rows2.data_ptr(),
+                             ws.data_ptr()),
+                       stream=stream, tiles=tiles, B=B):
+                err = sort(*args, B, ctypes.byref(grid), ctypes.byref(tiles), stream)
                 if err:
                     raise RuntimeError(f"tiled_insert_sort: cudaError {err}")
 
@@ -609,15 +710,14 @@ def stage_calls(lib, name, si):
                 keys = torch.empty(n, dtype=torch.int64, device=dev)
                 order = torch.empty(n, dtype=torch.int64, device=dev)
                 tmp = torch.empty(3 * n, dtype=torch.int32, device=dev)
-                KEEP.append(tmp)
+                ws = torch.zeros(size(n), dtype=torch.int32, device=dev)  # its own, as above
+                KEEP.extend([tmp, ws])
 
                 def launch(args=(pts.data_ptr(), valid.data_ptr(), scale.data_ptr(), divide,
                                  keys.data_ptr(), order.data_ptr(), tmp.data_ptr(),
-                                 tmp[2 * n:].data_ptr()), rest=(n, pts.shape[1]),
-                           stream=stream, k=size(n), dev=dev):
-                    ws = _ticket(dev, stream, k).data_ptr()
-                    err = sort(*args, ws, *rest, ctypes.byref(grid), ctypes.byref(tiles),
-                               stream)
+                                 tmp[2 * n:].data_ptr(), ws.data_ptr()),
+                           rest=(n, pts.shape[1]), stream=stream):
+                    err = sort(*args, *rest, ctypes.byref(grid), ctypes.byref(tiles), stream)
                     if err:
                         raise RuntimeError(f"voxel_sort: cudaError {err}")
 
@@ -747,37 +847,43 @@ def main():
     calls, equal, grids, res = {}, {}, {}, {}
     stage_labels = ["vio_push", "vio_push two", "vio_push one 2 blocks an SM", "vio_dedup",
                     "vio_dedup 24576", "voxel_keys lio scan", "voxel_keys camera cloud",
-                    "voxel_sort lio scan", "voxel_sort camera cloud",
+                    "voxel_sort lio scan", "voxel_sort camera cloud", "voxel_sort room scan",
                     "tiled_insert_sort lio batch", "insert keys + torch.sort lio batch",
                     "tiled_insert_sort frame batch", "insert keys + torch.sort frame batch"]
     from fastlivo_tpu_torch.ops import tiled_map as tm
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
-    shape["sort_passes"] = {src: vf.sort_span_plain(want[f"voxel_sort {src}"][0])[1]
-                            for src in si["keys"]}
+    shape["sort_bits_passes"] = {src: vf.sort_span_plain(want[f"voxel_sort {src}"][0])
+                                 for src in si["keys"]}
+    shape["aligned_sort_bits_passes"] = {src: aligned_rank_bits(want[f"voxel_sort {src}"][0])
+                                         for src in si["keys"]}
     shape["insert_sort_bits_passes"] = {
         src: tm.insert_span_plain(m, want[f"tiled_insert_sort {src}"][0])
         for src, (m, _, _) in si["insert"].items()}
+    shape["sort_registers"] = {}
     for v in variants:
         tree = os.path.join(ROOT, v)
         for name in STAGE_KERNELS:
             if not os.path.exists(os.path.join(tree, "fastlivo_tpu_torch", "csrc",
                                                f"{name}.cu")):
                 continue  # an older checkout: the stage ran as torch ops
-            for label, (launch, outs) in stage_calls(build(tree, name, False), name,
-                                                     si).items():
+            lib = build(tree, name, False)
+            if name in ("voxel_keys", "tiled_insert"):
+                shape["sort_registers"].setdefault(v, {}).update(sort_registers(lib.ptxas))
+            for label, (launch, outs) in stage_calls(lib, name, si).items():
                 launch()
                 torch.cuda.synchronize()
                 equal[(label, v)] = bits_equal(outs, want[label])
                 calls[(label, v)] = launch
+                KEEP.append(outs)
     for v in variants:
-        tree = os.path.join(ROOT, v)
-        libs = {name: build(tree, name, False) for name in KERNELS}
+        libs = {name: build(os.path.join(ROOT, v), name, False) for name in KERNELS}
         launch, outs, grid = select_call(libs["vio_select"], a)
         launch()
         torch.cuda.synchronize()
         equal[("vio_select", v)] = bits_equal(outs, want["vio_select"])
         calls[("vio_select", v)] = launch
+        KEEP.append(outs)
         grids[("vio_select", v)] = grid.value
         m = chip_smoke.clone_map(a["vm"])
         launch, outs, grid = observations_call(libs["vio_observations"], m, oa)
@@ -785,6 +891,7 @@ def main():
         torch.cuda.synchronize()
         equal[("vio_observations", v)] = bits_equal(outs, want["vio_observations"])
         calls[("vio_observations", v)] = launch  # writes its copy again
+        KEEP.append(outs)
         grids[("vio_observations", v)] = grid.value
     for name in list(KERNELS) + stage_labels:
         print(f"timing {name}", file=sys.stderr, flush=True)
@@ -824,10 +931,12 @@ def main():
                 if label.startswith("voxel_sort"):
                     if not hasattr(lib, "voxel_sort_launch"):
                         continue  # the library route: no stamps
-                    phases = sort_phases(shape["sort_passes"][label[len("voxel_sort "):]])
+                    passes = shape["sort_bits_passes"][label[len("voxel_sort "):]][1]
+                    phases = sort_phases(passes, published_form(tree))
                 elif label.startswith("tiled_insert_sort"):
-                    phases = sort_phases(shape["insert_sort_bits_passes"][
-                        label[len("tiled_insert_sort "):]][1])
+                    passes = shape["insert_sort_bits_passes"][
+                        label[len("tiled_insert_sort "):]][1]
+                    phases = sort_phases(passes, published_form(tree))
                 elif label.startswith("vio_push"):
                     one = hasattr(lib, "vio_push_one_barrier_max_r") and "two" not in label
                     phases = STAGE_PHASES["vio_push one" if one else "vio_push"]

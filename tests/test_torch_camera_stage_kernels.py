@@ -115,7 +115,9 @@ def test_voxel_filter_key_pass_matches_jax(case):
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
     fin = np.isfinite(ot.numpy()).all(axis=1) & mt.numpy()
     np.testing.assert_allclose(ot.numpy()[fin], np.asarray(oj)[fin], rtol=1e-6, atol=1e-6)
-    if case not in ("all_invalid", "n1"):
+    if case == "bits8":  # every voxel of the 4 x 8 x 8 range holds rows
+        assert int(mt.sum()) == 256
+    elif case not in ("all_invalid", "n1"):
         assert int(mt.sum()) > 1000
 
 

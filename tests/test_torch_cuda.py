@@ -313,6 +313,50 @@ def test_livo_pipeline_runs_through_the_kernel(cuda):
     assert np.sqrt(np.mean(np.square(e))) < 0.06
 
 
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_livo_other_backends_match_the_cpu(cuda, backend):
+    """LIVO (the camera on) on the hash map (2^16 slots) and the dense grid
+    (64 x 64 x 16 cells) on the card, its inserts through the backend's
+    kernels and its camera frames through the photometric cascade, against
+    the same stream on the CPU (a dataset each, the same seed): the same
+    frames, every lidar frame within the LIVO bound of 2 mm, the same
+    camera frames, visual-map points within 2%."""
+    from fastlivo_tpu_torch.ops import dense_map as dm
+    from fastlivo_tpu_torch.ops import voxel_map as vm
+
+    outs, pipes = [], []
+    for dev in (cuda, "cpu"):
+        cfg = small_livo_cfg()
+        cfg.capacity.map_backend = backend
+        cfg.capacity.map_table_size = 1 << 16
+        cfg.capacity.dense_dims = (64, 64, 16)
+        pipe = Pipeline(cfg) if dev != "cpu" else Pipeline(cfg, device="cpu")
+        ds = small_livo_data()
+        for beg, pts, t_rel in ds.lidar_scans_fast():
+            pipe.push_lidar(beg, pts, t_rel)
+        for t, acc, gyr in ds.imu_stream():
+            pipe.push_imu(t, acc, gyr)
+        for t, img in ds.images():
+            pipe.push_img(t, img)
+        before = (photometric.photometric_cascade.launches, vm.hash_insert_keys.launches,
+                  dm.dense_insert.launches)
+        outs.append(pipe.spin())
+        pipes.append(pipe)
+        if dev != "cpu":
+            assert photometric.photometric_cascade.launches - before[0] == pipe.vio.steps > 10
+            assert (vm.hash_insert_keys.launches - before[1] > 10) == (backend == "hash")
+            assert (dm.dense_insert.launches - before[2] > 10) == (backend == "dense")
+    (card, cpu), (pc, ph) = outs, pipes
+    assert type(pc.map).__name__ == {"hash": "VoxelMap", "dense": "DenseMap"}[backend]
+    assert len(card) == len(cpu) >= 25
+    for a, b in zip(card, cpu):
+        assert a.t == b.t
+        assert np.linalg.norm(a.pos - b.pos) < 2e-3, (a.t, a.pos, b.pos)
+    assert pc.vio.fid == ph.vio.fid >= 25
+    n_c, n_h = int(pc.vio.vmap.n_pts), int(ph.vio.vmap.n_pts)
+    assert n_h > 50 and abs(n_c - n_h) <= 0.02 * n_h, (n_c, n_h)
+
+
 def surface(n, seed):
     """Points on a gently curved surface over [-8, 8]^2 at negative
     heights: negative voxel and tile coordinates, every 0.5 m voxel of
@@ -2177,7 +2221,8 @@ def launch_guarded(launch, inputs, outputs, shift=0):
                                     "vio_push_f32", "voxel_sort", "voxel_sort_camera",
                                     "voxel_sort_wrap", "vio_dedup_wide", "tiled_insert_sort",
                                     "tiled_insert_sort_wrap", "vio_push_two",
-                                    "vio_push_two_f32"])
+                                    "vio_push_two_f32", "voxel_sort_bits8",
+                                    "tiled_insert_sort_invalid"])
 def test_kernels_write_only_their_outputs(cuda, kernel):
     """The stand-in for compute-sanitizer's memcheck, which refuses the
     card machine ("Device not supported"): each kernel launched on its
@@ -2236,9 +2281,13 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
     two-barrier form (img_fid and imgs its outputs, every byte equal to
     the plain version's after the launch; the scratch counts, word and
     block count back at 0). The insert's sort (tiled_insert_sort) at
-    16379 rows on the frame batch and on one across a directory wrap in
-    every axis: its sorted keys, order and rows equal insert_sort_plain's,
-    its pass buffers outputs here, its scratch back at 0."""
+    16379 rows on the frame batch, on one across a directory wrap in
+    every axis and on one with no valid row (pass 0's counts published
+    before the first barrier, then no pass): its sorted keys, order and
+    rows equal insert_sort_plain's, its pass buffers outputs here, its
+    scratch (header, bitmaps and two histogram buffers) back at 0; the
+    voxel sort also on ranks of exactly 8 bits (one pass: the second
+    histogram buffer never written)."""
     import ctypes
 
     from fastlivo_tpu_torch import lio
@@ -2246,7 +2295,7 @@ def test_kernels_write_only_their_outputs(cuda, kernel):
 
     if kernel in ("voxel_keys", "vio_dedup", "vio_dedup_scratch", "vio_push", "vio_push_f32",
                   "voxel_sort", "voxel_sort_camera", "voxel_sort_wrap", "vio_dedup_wide",
-                  "vio_push_two", "vio_push_two_f32"):
+                  "vio_push_two", "vio_push_two_f32", "voxel_sort_bits8"):
         return camera_stage_write_only(cuda, kernel)
     if kernel.startswith("vio_"):
         return vio_write_only(cuda, kernel)
@@ -3648,8 +3697,8 @@ def sort_cases():
 
 INSERT_SORT_CASES = [(c, None) for c in ["lio", "far", "wrap_x", "wrap_y", "wrap_z",
                                          "all_invalid", "n1", "n0", "dir_2_22", "wide_field",
-                                         "equal_runs"]] + [
-    ("lio", n) for n in (1, 33, 1025, 16384, 65536)]
+                                         "equal_runs", "bits16", "bits24"]] + [
+    ("lio", n) for n in (1, 33, 513, 1025, 16384, 65536)]
 
 
 @pytest.mark.parametrize("case,n", INSERT_SORT_CASES,
@@ -3662,8 +3711,9 @@ def test_insert_sort_matches_plain(cuda, case, n):
     batches (the LIO path's shape about the world origin, every axis
     across the directory's wrap; the room away from it; a wrap in one
     axis; no valid row; one row; no rows; a 2^22-entry directory; a field
-    of 16384 values; runs of equal keys) and the LIO batch at 1, 33, 1025,
-    16384 and 65536 rows; a block a tile (grid ceil(B / 512)); the
+    of 16384 values; runs of equal keys; ranks of exactly 16 and 24 bits)
+    and the LIO batch at 1, 33, 513 (one past a tile), 1025, 16384 and
+    65536 rows; a block a tile (grid ceil(B / 512)); the
     stream's scratch left at 0; the insert through it (with insert_tiles)
     every field of insert_plain's on the card and on the CPU, batch after
     batch; no tiled_insert_keys launch."""
@@ -3712,14 +3762,18 @@ def test_insert_sort_matches_plain(cuda, case, n):
 
 
 def test_insert_sort_past_one_tile_a_block(cuda):
-    """600000 and 2000000 rows: more tiles of 512 rows than the card
-    holds blocks at once, so a block takes several consecutive tiles (its
-    rows computed or loaded again each pass); bit-equal to the plain
-    version, the scratch back at 0."""
+    """600000, 600065 (one past a tile) and 2000000 rows, and 600000 with
+    no valid row (pass 0's counts published over several tiles, then no
+    pass): more tiles of 512 rows than the card holds blocks at once, so
+    a block takes several consecutive tiles (its rows computed or loaded
+    again each pass); bit-equal to the plain version, the scratch back at
+    0."""
     sc = sort_cases()
     m = tm.empty_tiled_map((128, 128, 64), 64, sc.VOX, device=cuda)
-    for n in (600000, 2000000):
+    for n, none_valid in ((600000, False), (600065, False), (2000000, False), (600000, True)):
         p, v = sc.resized(*sc.lio_batch(np.random.default_rng(n)), n)
+        if none_valid:
+            v = np.zeros_like(v)
         pc, vc = torch.from_numpy(p).to(cuda), torch.from_numpy(v).to(cuda)
         got = tm.insert_sort(m, pc, vc)
         torch.cuda.synchronize()
@@ -3930,6 +3984,8 @@ def frame_kernel_write_only(dev, kernel):
         else:
             m = stage_map(dev, compacted=True)
             p, v = frame_insert_batch(dev, n=n)
+            if kernel.endswith("invalid"):
+                v = torch.zeros_like(v)
         *_, sort, size = tm._insert_launchers()
         i32 = dict(dtype=torch.int32, device=dev)
         outs = [torch.empty(n, **i32), torch.empty(n, dtype=torch.int64, device=dev),
@@ -3943,7 +3999,8 @@ def frame_kernel_write_only(dev, kernel):
         assert not got[5].any()  # the header, bitmaps and histograms back at 0
         got = [got[0], got[1], got[4]]
         want = list(tm.insert_sort_plain(m, p, v))
-        assert tm.insert_span_plain(m, want[0])[1] == (2 if kernel.endswith("wrap") else 3)
+        assert tm.insert_span_plain(m, want[0])[1] == (
+            2 if kernel.endswith("wrap") else 0 if kernel.endswith("invalid") else 3)
     else:
         m = stage_map(dev, compacted=True, pool=4096 if kernel != "tiled_insert_cells" else 600)
         p, v = frame_insert_batch(dev, n=n)
@@ -4616,8 +4673,9 @@ def test_voxel_keys_match_plain(cuda, case):
 
 
 SORT_CASES = [("lio", None), ("camera", None), ("edges", None), ("wrap", None),
-              ("all_invalid", None), ("n1", None), ("spread", None)] + [
-    ("lio", n) for n in (0, 1, 33, 4096, 32768, 98304)]
+              ("all_invalid", None), ("n1", None), ("spread", None), ("bits8", None),
+              ("bits16", None), ("bits24", None)] + [
+    ("lio", n) for n in (0, 1, 33, 1025, 4096, 32768, 98304)]
 
 
 def sort_inputs(dev, case, n):
@@ -4639,8 +4697,9 @@ def test_voxel_sort_matches_plain(cuda, case, n):
     bit-equal to _sorted_keys_plain on the card and on the CPU, again on
     a second launch: the key cases (the LIO scan, the camera cloud's
     reciprocal leaf, NaN, inf and -0.0 rows, wrapping keys over all 60
-    bits, no valid row, one row, a spread past 2^32) and the LIO scan's
-    first 0, 1, 33, 4096, 32768 and 98304 rows; the stream's scratch
+    bits, no valid row, one row, a spread past 2^32, ranks of exactly 8,
+    16 and 24 bits) and the LIO scan's first 0, 1, 33, 1025 (one past a
+    tile), 4096, 32768 and 98304 rows; the stream's scratch
     left at 0; _sorted_keys is the launch; a leaf that is a float or on
     the CPU raises."""
     from fastlivo_tpu_torch.ops import voxel_filter as vf
@@ -4674,13 +4733,17 @@ def test_voxel_sort_matches_plain(cuda, case, n):
 
 
 def test_voxel_sort_past_one_tile_a_block(cuda):
-    """600000 and 2000000 rows: more tiles of 1024 rows than the card
-    holds blocks at once, so a block takes several consecutive tiles;
-    bit-equal to the plain version, the scratch back at 0."""
+    """600000, 600065 (one past a tile) and 2000000 rows, and 600000
+    with no valid row (no pass): more tiles of 1024 rows than the card
+    holds blocks at once, so a block takes several consecutive tiles
+    (ranked for its counts, then again for its writes); bit-equal to the
+    plain version, the scratch back at 0."""
     from fastlivo_tpu_torch.ops import voxel_filter as vf
 
-    for n in (600000, 2000000):
+    for n, none_valid in ((600000, False), (600065, False), (2000000, False), (600000, True)):
         pts, valid, leaf, _ = sort_inputs(cuda, "lio", n)
+        if none_valid:
+            valid = torch.zeros_like(valid)
         got = vf.voxel_sort(pts, valid, leaf, None)
         torch.cuda.synchronize()
         tiles = vf.voxel_sort.tiles
@@ -4688,6 +4751,46 @@ def test_voxel_sort_past_one_tile_a_block(cuda):
         want = vf._sorted_keys_plain(pts, valid, leaf, None)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert scratch_is_zero(cuda)
+
+
+REPEAT_SORTS = [("voxel", "lio", None), ("voxel", "camera", None), ("voxel", "wrap", None),
+                ("voxel", "lio", 600065), ("insert", "lio", None), ("insert", "bits24", None),
+                ("insert", "lio", 600065)]
+
+
+@pytest.mark.parametrize("sort,case,n", REPEAT_SORTS,
+                         ids=[f"{a}_{c}" if n is None else f"{a}_{c}_{n}"
+                              for a, c, n in REPEAT_SORTS])
+def test_sorts_repeat_bit_for_bit(cuda, sort, case, n):
+    """Each sort launched eight times on the same inputs, queued without a
+    synchronisation between the launches (the blocks publish their counts
+    and wait on each other's in every launch; each launch finds the
+    scratch the last one left): every launch's outputs the first one's
+    bit for bit, and the plain version's; the scratch back at 0. The
+    voxel sort on the LIO scan (3 passes), the camera cloud (4) and
+    wrapping keys (8) and past one tile a block; the insert's on the LIO
+    batch (2 passes), a rank of exactly 24 bits (3) and past one tile a
+    block."""
+    from fastlivo_tpu_torch.ops import voxel_filter as vf
+
+    if sort == "voxel":
+        args = sort_inputs(cuda, case, n)
+        run = lambda: vf.voxel_sort(*args)  # noqa: E731
+        want = vf._sorted_keys_plain(*args)
+    else:
+        sc = sort_cases()
+        dims, pool, batches = sc.sort_case(case)
+        p, v = batches[0] if n is None else sc.resized(*batches[0], n)
+        m = tm.empty_tiled_map(dims, pool, sc.VOX, device=cuda)
+        pc, vc = torch.from_numpy(p).to(cuda), torch.from_numpy(v).to(cuda)
+        run = lambda: tm.insert_sort(m, pc, vc)  # noqa: E731
+        want = tm.insert_sort_plain(m, pc, vc)
+    got = [run() for _ in range(8)]
+    torch.cuda.synchronize()
+    for g in got:
+        assert all(torch.equal(x, y) for x, y in zip(g, got[0]))
+        assert all(torch.equal(x, w) for x, w in zip(g, want))
+    assert scratch_is_zero(cuda)
 
 
 @pytest.mark.parametrize("case", ["cloud", "small", "chain", "duplicates", "overflow",
@@ -4915,7 +5018,7 @@ def camera_stage_write_only(dev, kernel):
         want = [vf.voxel_keys_plain(pts, valid, leaf, None)]
     elif kernel.startswith("voxel_sort"):
         case = {"voxel_sort": "edges", "voxel_sort_camera": "camera",
-                "voxel_sort_wrap": "wrap"}[kernel]
+                "voxel_sort_wrap": "wrap", "voxel_sort_bits8": "bits8"}[kernel]
         pts, valid, leaf, inv = keys_inputs(dev, case)
         n = 16379
         pts, valid = pts[:n].contiguous(), valid[:n].contiguous()
@@ -4932,8 +5035,8 @@ def camera_stage_write_only(dev, kernel):
         assert not got[4].any()  # the header and the histograms back at 0
         got = got[:2]
         want = list(vf._sorted_keys_plain(pts, valid, leaf, inv))
-        assert vf.sort_span_plain(want[0])[1] == (8 if case == "wrap" else 4 if
-                                                  case == "camera" else 3)
+        assert vf.sort_span_plain(want[0])[1] == {"wrap": 8, "camera": 4, "bits8": 1}.get(
+            case, 3)
     elif kernel.startswith("vio_dedup"):
         case = {"vio_dedup": "cloud", "vio_dedup_scratch": "scratch",
                 "vio_dedup_wide": "rows40000"}[kernel]

@@ -11,7 +11,11 @@ grid barrier it ranks a valid key ((g_x R_y + g_y) R_z + g_z) 512 + cell,
 g_q the count of occupied values of field q below the key's (f - min for
 a wider field), R_q their count, and an invalid key R_x R_y R_z 512; then
 stable 8-bit LSD radix passes over that rank (csrc/radix_passes.cuh, the
-voxel filter's), as many as its bit length needs. Its plain version
+voxel filter's), as many as its bit length needs. The rank's low byte is
+the key's cell byte (0 for an invalid key), so pass 0's counts are
+published before the first barrier; every pass's counts go into the
+pass's histogram row of each block as count + 1 (two buffers), read by
+the others, who wait while a word is 0. Its plain version
 `insert_sort_plain` (insert_keys_plain and torch's stable sort) is what the
 CPU runs. Here, in numpy, on tests/torch_insert_sort_cases.py's batches
 (the LIO path's shape about the world origin, where every axis straddles
@@ -24,7 +28,9 @@ values; runs of equal keys):
     insert_span_plain (the smoke run's report) gives its bits and passes;
   - the passes, a block one or four 512-row tiles, give
     torch.sort(stable=True)'s keys and permutation bit for bit, B from 0
-    to 65536, and leave the three histogram buffers at 0;
+    to 65536 (513: one past a tile), pass 0's digit computed from the key
+    alone is the rank's, every published row is seen by its readers, and
+    the two histogram buffers end at 0; ranks of exactly 16 and 24 bits;
   - the tiles and cells passes on the modelled sort (insert_sorted_plain)
     leave the map equal to the JAX package's insert, field by field,
     batch after batch.
@@ -128,18 +134,26 @@ def rank_of(keys, span):
 def sort_by_passes(keys, block, span):
     """The kernel's sort in numpy, a block `block` consecutive positions
     (its tiles of 512 ranked in order, one running base a digit): (sorted
-    keys, order, the histogram buffers after the launch). Pass 0's
-    histogram is each block's count; pass p + 1's is counted during pass
-    p by the block each row lands in; three buffers rotate (pass p reads
-    p % 3, counts into (p + 1) % 3, zeroes its rows of (p + 2) % 3; the
-    last block zeroes the last pass's buffer), and every buffer read must
-    hold the pass's true counts and every buffer counted into must start
-    at 0."""
+    keys, order, the histogram buffers after the launch). Pass 0's digit,
+    the key's cell byte (0 for an invalid key), must be the rank's low
+    byte: each block publishes its count of it (+ 1) in its row of buffer 0
+    before the first barrier, also where no pass follows (no valid row: the
+    block then zeroes its row). In pass p > 0 every block publishes its
+    count + 1 in its row of buffer p % 2, which must be 0 until then, and
+    zeroes its row of the buffer read one pass back; the readers take the
+    row less 1 (the true counts); the last block zeroes the last pass's
+    buffer."""
     n = len(keys)
     G = max(1, -(-n // block))
     rows = np.arange(n)
-    bufs = np.zeros((3, G, DIGITS), np.int64)
+    bufs = np.zeros((2, G, DIGITS), np.int64)
+    pos = np.arange(n)
+    b = pos // block
+    digit0 = np.where(keys < 0, (keys.astype(np.int64) + KEY_BIAS) & 255, 0)
+    np.add.at(bufs[0], (b, digit0), 1)
+    bufs[0] += 1  # published in the keys phase
     if span is None or span["passes"] == 0:
+        bufs[0] = 0  # each block's own row, in the identity's branch
         return keys.copy(), rows, bufs
     passes = span["passes"]
     cur_k, cur_r = keys.copy(), rows.copy()
@@ -147,18 +161,20 @@ def sort_by_passes(keys, block, span):
     def digits(k, p):
         return ((rank_of(k, span) >> np.uint64(8 * p)) & np.uint64(DIGITS - 1)).astype(np.int64)
 
-    pos = np.arange(n)
-    np.add.at(bufs[0], (pos // block, digits(cur_k, 0)), 1)  # each block's own count
+    np.testing.assert_array_equal(digit0, digits(cur_k, 0))
     for p in range(passes):
-        H = bufs[p % 3]
         d = digits(cur_k, p)
         true = np.zeros((G, DIGITS), np.int64)
-        np.add.at(true, (pos // block, d), 1)
+        np.add.at(true, (b, d), 1)
+        if p > 0:
+            assert not bufs[p % 2].any()  # zeroed a pass before (or never written)
+            bufs[p % 2] = true + 1  # each block's row published
+            bufs[(p + 1) % 2] = 0  # each block's row read one pass back
+        H = bufs[p % 2] - 1  # what the readers take
         np.testing.assert_array_equal(H, true)
         before = np.cumsum(H, 0) - H  # the same digit in earlier blocks
         total = H.sum(0)
         base = np.cumsum(total) - total  # earlier digits in every block
-        b = pos // block
         grp = b * DIGITS + d
         o = np.argsort(grp, kind="stable")  # in-block order within each (block, digit)
         start = np.r_[0, np.flatnonzero(grp[o][1:] != grp[o][:-1]) + 1]
@@ -166,16 +182,10 @@ def sort_by_passes(keys, block, span):
         within[o] = np.arange(n) - np.repeat(start, np.diff(np.r_[start, n]))
         dst = base[d] + before[b, d] + within
         assert np.array_equal(np.sort(dst), pos)
-        if p > 0:
-            bufs[(p + 2) % 3] = 0  # the rows read two passes back
-        if p < passes - 1:
-            nxt = (p + 1) % 3
-            assert not bufs[nxt].any()
-            np.add.at(bufs[nxt], (dst // block, digits(cur_k, p + 1)), 1)
         nk, nr = np.empty_like(cur_k), np.empty_like(cur_r)
         nk[dst], nr[dst] = cur_k, cur_r
         cur_k, cur_r = nk, nr
-    bufs[(passes - 1) % 3] = 0  # the last block
+    bufs[(passes - 1) % 2] = 0  # the last block
     return cur_k, cur_r, bufs
 
 
@@ -221,9 +231,13 @@ def test_compact_rank_orders_and_ties_as_the_key(case):
             assert not span["dense"][0] and span["R"][0] == 16384 and span["passes"] == 4
         if case == "n1":
             assert span["bits"] == 9 and span["passes"] == 2
+        if case in cases.BITS_TILES:  # exactly a digit boundary
+            assert span["R"] == list(cases.BITS_TILES[case])
+            assert span["bits"] == int(case[4:]) and span["passes"] == span["bits"] // 8
 
 
-SORT_SIZES = [(c, None) for c in cases.CASES] + [("lio", n) for n in (1, 33, 1025, 65536)]
+SORT_SIZES = [(c, None) for c in cases.CASES] + [("lio", n) for n in (1, 33, 513, 1025,
+                                                                      65536)]
 
 
 @pytest.mark.parametrize("tiles", [1, 4])

@@ -156,6 +156,39 @@ def test_other_backends_match_jax(backend):
     assert ate_t <= ate_j + 5e-4 and ate_t < 0.02, (ate_t, ate_j)
 
 
+@pytest.mark.parametrize("backend", ["hash", "dense"])
+def test_livo_other_backends_match_jax(backend):
+    """LIVO (the camera on) on the hash map (2^16 slots) and the dense grid
+    (64 x 64 x 16 cells), with test_livo_run_matches_jax's data and
+    bounds: the same frames, every lidar frame within 2 mm of the JAX
+    package's, the same camera frames, visual-map points within 2%."""
+    kw = dict(duration=4.0, points_per_scan=4096, lidar_noise=0.004, seed=5,
+              cam_hz=10.0, cam_size=(CW, CH), cam_f=CF, Rcl=RCL)
+    ds_j, ds_t = JDataset(**kw), SyntheticDataset(**kw)
+    cfgs = []
+    for cls in ((JConfig, JCapacity, JCamera), (Config, CapacityConfig, CameraConfig)):
+        cfg = livo_config(*cls)
+        cfg.capacity.map_backend = backend
+        cfg.capacity.map_table_size = 1 << 16
+        cfg.capacity.dense_dims = (64, 64, 16)
+        cfgs.append(cfg)
+    pipe_j = JPipeline(cfgs[0])
+    outs_j = _drive(pipe_j, ds_j)
+    pipe = Pipeline(cfgs[1], device="cpu")
+    outs_t = _drive(pipe, ds_t)
+    assert type(pipe.map).__name__ == {"hash": "VoxelMap", "dense": "DenseMap"}[backend]
+    assert len(outs_t) == len(outs_j) >= 25
+    for a, b in zip(outs_t, outs_j):
+        assert a.t == b.t
+        assert np.linalg.norm(a.pos - b.pos) < 2e-3, (a.t, a.pos, b.pos)
+    assert pipe.vio.fid == pipe_j.vio.fid >= 25
+    n_t, n_j = int(pipe.vio.vmap.n_pts), int(pipe_j.vio.vmap.n_pts)
+    assert n_j > 50 and abs(n_t - n_j) <= 0.02 * n_j, (n_t, n_j)
+    assert pipe.vio.last_stats["tracked"] > 5
+    ate_t, ate_j = _ate(outs_t, ds_t), _ate(outs_j, ds_j)
+    assert ate_t <= ate_j + 1e-3 and ate_t < 0.06, (ate_t, ate_j)
+
+
 def test_profile_every_leaves_the_outputs_bit_identical():
     """Staged profiling on the hash map: every 4th steady frame's stages
     run once more, each on its own; outputs and the final map are those

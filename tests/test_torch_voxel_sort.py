@@ -9,16 +9,20 @@ min_y)) R_z + (fz - min_z) (R_x R_y R_z for an invalid row), and stable
 8-bit LSD radix passes over it, as many as r's bit length needs, each
 block ranking its consecutive tiles' rows in order, each digit based at
 the counts of every block's earlier digits and of the earlier blocks' same
-digit; the next pass's histogram counted by the blocks the rows land in,
-through three rotating buffers zeroed as the kernel zeroes them. Its plain version
-`_sorted_keys_plain` (voxel_keys_plain and torch's stable sort) is what the
-CPU runs. Here, in numpy: the rank orders and ties the rows as the packed
-key does (tests/torch_camera_stage_cases.py's key cases: the LIO scan, the
-camera cloud, NaN and inf rows, wrapping coordinates, no valid row, one
-row, a spread past 2^32); the passes give torch.sort(stable=True)'s
-permutation bit for bit with one and four 1024-row tiles a block and N
-from 0 to 98304, the histogram buffers back at 0; the filter on the modelled sort
-equals the JAX package's voxel_downsample_device.
+digit. Each pass's counts are published by their blocks as count + 1 in
+the pass's histogram row (two buffers, pass p's the (p % 2)-th) and read
+by the others, who wait while a word is 0; a block zeroes its row of the
+buffer read one pass back, the last block the last pass's buffer. Its
+plain version `_sorted_keys_plain` (voxel_keys_plain and torch's stable
+sort) is what the CPU runs. Here, in numpy: the rank orders and ties the
+rows as the packed key does (tests/torch_camera_stage_cases.py's key
+cases: the LIO scan, the camera cloud, NaN and inf rows, wrapping
+coordinates, no valid row, one row, a spread past 2^32, ranks of exactly
+8, 16 and 24 bits); the passes give torch.sort(stable=True)'s permutation
+bit for bit with one and four 1024-row tiles a block and N from 0 to
+98304 (1025: one past a tile), every published row seen by its readers,
+the histogram buffers back at 0; the filter on the modelled sort equals
+the JAX package's voxel_downsample_device.
 
 The camera cloud's dedup (csrc/vio_dedup.cu, `ops/vio_dedup.vio_dedup`)
 sets its table once: round p's contenders take the maximum of ((p + 1) <<
@@ -136,22 +140,24 @@ def test_compact_rank_orders_and_ties_as_the_key(case):
         assert span[3] == 0
     if case in ("lio", "camera"):  # 160 and 400 voxels a side
         assert span[4] in (22, 26) and span[3] == (3 if case == "lio" else 4)
+    if case in cases.BITS_RANGES:  # exactly a digit boundary
+        np.testing.assert_array_equal(span[1], cases.BITS_RANGES[case])
+        assert span[4] == int(case[4:]) and span[3] == span[4] // 8
 
 
 def sort_by_passes(keys, tile):
     """The kernel's sort in numpy, a block `tile` consecutive positions
     (its tiles of 1024 ranked in order, one running base a digit): (sorted
-    keys, order). Pass 0's histogram is each block's count; pass p + 1's
-    is counted during pass p by the block each row lands in; three buffers rotate (pass p reads p %
-    3, counts into (p + 1) % 3, zeroes its rows of (p + 2) % 3; the last
-    block zeroes the last pass's buffer), and every buffer read must hold
-    the pass's true counts and every buffer counted into must start at 0.
-    Returns also the buffers after the launch."""
+    keys, order, the histogram buffers after the launch). In pass p every
+    block ranks its rows and publishes each digit's count + 1 in its row of
+    buffer p % 2, which must be 0 until then, and zeroes its row of the
+    buffer read one pass back; the readers take the row less 1 (the true
+    counts); the last block zeroes the last pass's buffer."""
     n = len(keys)
     G = max(1, -(-n // tile))
     span = span_by_tiles(keys, tile)
     rows = np.arange(n)
-    bufs = np.zeros((3, G, DIGITS), np.int64)
+    bufs = np.zeros((2, G, DIGITS), np.int64)
     if span is None or span[3] == 0:
         return keys.copy(), rows, bufs
     passes = span[3]
@@ -161,18 +167,19 @@ def sort_by_passes(keys, tile):
         return ((rank_of(k, span) >> np.uint64(8 * p)) & np.uint64(DIGITS - 1)).astype(np.int64)
 
     pos = np.arange(n)
-    d = digits(cur_k, 0)
-    np.add.at(bufs[0], (pos // tile, d), 1)  # each block's own count (plain stores)
+    b = pos // tile
     for p in range(passes):
-        H = bufs[p % 3]
         d = digits(cur_k, p)
         true = np.zeros((G, DIGITS), np.int64)
-        np.add.at(true, (pos // tile, d), 1)
-        np.testing.assert_array_equal(H, true)
+        np.add.at(true, (b, d), 1)
+        assert not bufs[p % 2].any()  # zeroed a pass before (or never written)
+        bufs[p % 2] = true + 1  # each block's row published
+        if p > 0:
+            bufs[(p + 1) % 2] = 0  # each block's row read one pass back
+        H = bufs[p % 2] - 1  # what the readers take
         before = np.cumsum(H, 0) - H  # the same digit in earlier tiles
         total = H.sum(0)
         base = np.cumsum(total) - total  # earlier digits in every tile
-        b = pos // tile
         grp = b * DIGITS + d
         o = np.argsort(grp, kind="stable")  # in-tile order within each (tile, digit)
         start = np.r_[0, np.flatnonzero(grp[o][1:] != grp[o][:-1]) + 1]
@@ -180,21 +187,15 @@ def sort_by_passes(keys, tile):
         within[o] = np.arange(n) - np.repeat(start, np.diff(np.r_[start, n]))
         dst = base[d] + before[b, d] + within
         assert np.array_equal(np.sort(dst), pos)
-        if p > 0:
-            bufs[(p + 2) % 3] = 0  # the rows read two passes back
-        if p < passes - 1:
-            nxt = (p + 1) % 3
-            assert not bufs[nxt].any()
-            np.add.at(bufs[nxt], (dst // tile, digits(cur_k, p + 1)), 1)
         nk, nr = np.empty_like(cur_k), np.empty_like(cur_r)
         nk[dst], nr[dst] = cur_k, cur_r
         cur_k, cur_r = nk, nr
-    bufs[(passes - 1) % 3] = 0  # the last block
+    bufs[(passes - 1) % 2] = 0  # the last block
     return cur_k, cur_r, bufs
 
 
 SORT_SIZES = [(c, None) for c in cases.KEYS_CASES] + [
-    ("lio", n) for n in (0, 1, 33, 4096, 98304)]
+    ("lio", n) for n in (0, 1, 33, 1025, 4096, 98304)]
 
 
 @pytest.mark.parametrize("tiles", [1, 4])
@@ -244,7 +245,9 @@ def test_filter_on_the_modelled_sort_matches_jax(case):
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
     fin = np.isfinite(ot.numpy()).all(axis=1) & mt.numpy()
     np.testing.assert_allclose(ot.numpy()[fin], np.asarray(oj)[fin], rtol=1e-6, atol=1e-6)
-    if case not in ("all_invalid", "n1"):
+    if case == "bits8":  # every voxel of the 4 x 8 x 8 range holds rows
+        assert int(mt.sum()) == 256
+    elif case not in ("all_invalid", "n1"):
         assert int(mt.sum()) > 1000
 
 

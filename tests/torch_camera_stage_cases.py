@@ -17,7 +17,11 @@ from fastlivo_tpu_torch.ops.vio_push import ONE_BARRIER_MAX_R
 import torch
 
 VOX = 0.5  # the visual map's voxel
-KEYS_CASES = ["lio", "camera", "edges", "wrap", "all_invalid", "n1", "spread"]
+KEYS_CASES = ["lio", "camera", "edges", "wrap", "all_invalid", "n1", "spread", "bits8",
+              "bits16", "bits24"]
+# the voxel ranges R (x, y, z) of the cases whose every row is valid and
+# whose sort rank reaches exactly 2^bits - 1: a digit boundary
+BITS_RANGES = {"bits8": (4, 8, 8), "bits16": (16, 64, 64), "bits24": (256, 256, 256)}
 DEDUP_CASES = ["cloud", "small", "chain", "duplicates", "overflow", "all_masked", "odd",
                "scratch", "rows24576", "rows40000"]
 PUSH_CASES = ["evict", "repush", "f32", "dead", "big"]
@@ -30,7 +34,10 @@ def keys_case(case, seed=0):
     camera cloud (the 0.2 m leaf as its f32 reciprocal), and edges:
     NaN and +-inf rows, -0.0, negative coordinates, voxels past +-2^19
     (their keys wrap in 20 bits), one row, no valid row, and a spread of
-    +-700 m (2800 voxels a side: the sort's compact rank past 2^32)."""
+    +-700 m (2800 voxels a side: the sort's compact rank past 2^32); and
+    every row valid in voxel ranges whose product is 2^8, 2^16 or 2^24
+    (BITS_RANGES, both corners present: the rank's largest value is
+    2^bits - 1, its bit length exactly a digit boundary)."""
     rng = np.random.default_rng(seed)
     n, c, leaf, inv = 32768, 4, 0.5, None
     if case == "camera":
@@ -60,6 +67,12 @@ def keys_case(case, seed=0):
         valid[:] = False
     if case == "n1":
         p, valid = p[:1], np.ones(1, bool)
+    if case in BITS_RANGES:
+        r = np.array(BITS_RANGES[case])
+        k = np.stack([rng.integers(0, x, n) for x in r], 1) - r // 2
+        k[0], k[1] = -(r // 2), r - 1 - r // 2  # the corners
+        p[:, :3] = ((k + rng.uniform(0.05, 0.95, (n, 3))) * leaf).astype(np.float32)
+        valid = np.ones(n, bool)
     return p, valid, leaf, inv
 
 

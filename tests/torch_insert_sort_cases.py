@@ -13,13 +13,19 @@ the wrap in one axis; then no valid row, one row, no rows, a directory of
 2^22 entries (256, 256, 64) with rows in its last entry's last cell, a
 directory of 2^22 entries whose x field has 16384 values (ranked by its
 range, not its occupancy), and 20000 rows in 40 voxels (runs of equal
-keys, exact duplicates among them).
+keys, exact duplicates among them); and every row valid over 8 x 4 x 4
+or 32 x 32 x 32 tiles, every tile value of each field occupied: ranks of
+exactly 16 and 24 bits.
 """
 import numpy as np
 
 VOX = 0.5
 CASES = ["lio", "far", "wrap_x", "wrap_y", "wrap_z", "all_invalid", "n1", "n0", "dir_2_22",
-         "wide_field", "equal_runs"]
+         "wide_field", "equal_runs", "bits16", "bits24"]
+# the occupied tile values (x, y, z) of the cases whose every row is valid
+# and whose sort rank reaches exactly 2^bits - 1 (R_x R_y R_z 512 = 2^bits):
+# a digit boundary
+BITS_TILES = {"bits16": (8, 4, 4), "bits24": (32, 32, 32)}
 ROOM_LO = np.array([-6.0, -5.0, -1.2])  # the synthetic room in the world frame
 ROOM_HI = np.array([6.0, 5.0, 2.0])
 
@@ -81,6 +87,12 @@ def sort_case(case, seed=0):
         p = ((vox[pick] + rng.uniform(0.05, 0.95, (20000, 3))) * VOX).astype(np.float32)
         p[5000:9000] = p[4000]  # exact duplicates: equal keys and distances
         return (32, 32, 16), 1024, [(p, rng.random(20000) > 0.05)]
+    if case in BITS_TILES:  # tiles of 8 voxels: 4 m a side, the box from the origin
+        ext = np.array(BITS_TILES[case], np.float64) * 8 * VOX
+        n = 6000 if case == "bits16" else 40000
+        p = rng.uniform(0.0, 1.0, (n, 3)) * ext
+        p[:len(ext)] = ext - 0.1  # the far corner tiles, whatever the draw
+        return (128, 128, 64), 4096, [(p.astype(np.float32), np.ones(n, bool))]
     raise ValueError(case)
 
 
